@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points run on the card by default and raise without one, and
+chip_smoke.py fails without a card or without the repo."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from tests.test_torch_slice import _one_torch_thread  # noqa: F401
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "tpu_gossip_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path)
+           if m == "jax" or m.startswith("jax.") or m == "tpu_gossip" or m.startswith("tpu_gossip.")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['tpu_gossip'] = None\n"
+        "import tpu_gossip_torch, tpu_gossip_torch.convert, tpu_gossip_torch.cli.run_sim\n"
+        "import tpu_gossip_torch.sim.metrics, tpu_gossip_torch.kernels.round_tail\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_entry_points_raise_without_card(no_card, capsys):
+    from tpu_gossip_torch import convert
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.core.topology import Graph
+
+    with pytest.raises(RuntimeError):
+        prng.key(0)
+    with pytest.raises(RuntimeError):
+        matching_powerlaw_graph(500, fanout=1, key=prng.key(0, "cpu"))
+    graph = Graph(n=3, row_ptr=np.array([0, 1, 2, 2]), col_idx=np.array([1, 0]))
+    with pytest.raises(RuntimeError):
+        init_swarm(graph, SwarmConfig(n_peers=3, msg_slots=4), key=prng.key(0, "cpu"))
+    with pytest.raises(RuntimeError):
+        convert.state_from_jax({})
+    assert run_sim.main(["--peers", "100", "--graph", "matching", "--rounds", "2"]) == 2
+    assert "CUDA" in capsys.readouterr().err
+
+
+def _smoke(cwd: Path, env_extra: dict) -> subprocess.CompletedProcess:
+    env = dict(os.environ, **env_extra)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _smoke(ROOT, {"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = _smoke(tmp_path, {"CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
