@@ -2,14 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 lane shuffle, K2 plane fold, K3 round
-tail) from ``tpu_gossip_torch/csrc``, holds each against its plain PyTorch
-version on the card (exact equality), reproduces the JAX-pinned n=20000
-digests (``tpu_gossip_torch/reference_digests.json``), then runs the
-headline 1M-peer matching swarm (push_pull, fanout 1, 16 slots) to 99%
-coverage with every kernel launch counted, and times each kernel at the
-main path's shapes beside its byte bound, its plain version and the one
-torch call that computes the same function, where there is one.
+Builds the port's four CUDA kernels (K1 lane shuffle, K2 plane fold, K3
+round tail, K5 staircase segment) from ``tpu_gossip_torch/csrc`` and the
+host C++ preferential-attachment library, holds each kernel against its
+plain PyTorch version on the card (exact equality), reproduces the
+JAX-pinned n=20000 digests (``tpu_gossip_torch/reference_digests.json``),
+then drives two main paths at 1M peers (push_pull, fanout 1, 16 slots, to
+99% coverage), each with its launches counted from zero: the matching
+headline (K1, K2, K3) and the power-law CSR swarm delivered by the
+staircase kernel (K5, K3), with the exactly-k XLA delivery on the same
+graph beside it. Last it times each kernel at its path's shapes beside its
+byte bound, its plain version and the one torch call that computes the
+same function, where there is one.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -128,56 +132,175 @@ def check_k3(dev, gen, n_main: int) -> int:
     return err
 
 
-def phase_digest(root: Path, dev) -> dict:
-    """The port's CLI at the JAX-pinned n=20000 configuration."""
+def staircase_cases(dev, gen, dgraph):
+    """(plan, vals) for every K5 case: the 1M plan; a Chung-Lu CSR at
+    rows 128, 512 and 1024; a row spanning several tiles; an edgeless CSR.
+    Words are random 32-bit values with bit 31 set in the first slots."""
+    import numpy as np
+
+    from tpu_gossip_torch.core import topology as tt
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan, build_staircase_plan_device
+
+    deg = tt.powerlaw_degree_sequence(100_000, rng=np.random.default_rng(1))
+    cl = tt.build_csr(100_000, tt.configuration_model(deg, rng=np.random.default_rng(2)))
+    hub_deg = np.array([20_000] + [3] * 5000)
+    hub_ptr = np.concatenate([[0], np.cumsum(hub_deg)]).astype(np.int32)
+    plans = [build_staircase_plan_device(dgraph.row_ptr, dgraph.col_idx, fanout=1)]
+    plans += [build_staircase_plan(cl.row_ptr, cl.col_idx, rows=r, device=dev) for r in (128, 512, 1024)]
+    plans += [build_staircase_plan(hub_ptr, np.arange(hub_ptr[-1], dtype=np.int32) % 5001, rows=128, device=dev),
+              build_staircase_plan(np.zeros(5001, np.int32), np.zeros(0, np.int32), device=dev)]
+    for plan in plans:
+        vals = torch.randint(-2**31, 2**31 - 1, plan.offs.shape, generator=gen, device=dev, dtype=torch.int32)
+        vals[0, :8] = -2**31
+        yield plan, vals
+
+
+def check_k5(dev, gen, dgraph) -> int:
+    """K5 against its plain version, billed and unbilled, at word widths
+    m = 1, 16 and 32 (the words masked to m bits)."""
+    from tpu_gossip_torch.kernels.pallas_segment import staircase_plain, staircase_segment
+
+    err = 0
+    for plan, vals in staircase_cases(dev, gen, dgraph):
+        bill = torch.randint(0, 40, plan.offs.shape, generator=gen, device=dev, dtype=torch.int32)
+        for m in (1, 16, 32):
+            v = vals if m == 32 else vals & ((1 << m) - 1)
+            for b in (None, bill):
+                args = (plan.tile_block, plan.offs, v, plan.rows, plan.n_blocks, b)
+                got, want = staircase_segment(*args), staircase_plain(*args)
+                err = max(err, max_err(got[0], want[0]))
+                if b is not None:
+                    err = max(err, max_err(got[1], want[1]))
+    return err
+
+
+def phase_digest(root: Path, dev) -> list[dict]:
+    """The port's CLI at every JAX-pinned n=20000 configuration."""
     from tpu_gossip_torch.cli import run_sim
 
-    ref = json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
-    args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
-    if unknown:
-        raise AssertionError(f"reference argv not understood: {unknown}")
-    got = run_sim.run(args)
-    for k in ("state_digest", "stats_digest", "rounds_to_target", "total_msgs", "final_coverage"):
-        if got[k] != ref["summary"][k]:
-            raise AssertionError(f"n=20000 {k} {got[k]} != JAX reference {ref['summary'][k]}")
-    return got
+    out = []
+    for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text()):
+        args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
+        if unknown:
+            raise AssertionError(f"reference argv not understood: {unknown}")
+        got = run_sim.run(args)
+        for k in ("state_digest", "stats_digest", "rounds_to_target", "total_msgs", "final_coverage"):
+            if got[k] != ref["summary"][k]:
+                raise AssertionError(f"{ref['source']}: {k} {got[k]} != JAX reference {ref['summary'][k]}")
+        out.append(got)
+    return out
 
 
 def phase_headline(dev, n: int):
     """Build the headline plan and run it to 99% coverage; returns the plan
     and the run's figures."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dgraph, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    return plan, dict(build_s=build_s, **run_to_coverage(dev, dgraph, n, plan, "headline"))
+
+
+def run_to_coverage(dev, dgraph, n: int, plan, what: str) -> dict:
+    """Seed one origin (``default_rng(0)``, as the CLI draws it), run
+    push_pull fanout 1 over ``plan`` to 99% coverage and check the final
+    state; returns rounds, coverage and seconds."""
     import numpy as np
 
     from tpu_gossip_torch.core import prng
-    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.sim.engine import run_until_coverage
 
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    dgraph, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
-    sync()
-    build_s = time.perf_counter() - t0
     graph = dgraph.as_padded_graph()
     cfg = SwarmConfig(n_peers=graph.n, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=dgraph.exists, device=dev)
-    sync()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     fin = run_until_coverage(state, cfg, 0.99, 1000, plan=plan)
     cov = float(fin.coverage(0))
-    sync()
+    torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     rounds = int(fin.round)
     if not (0.99 <= cov <= 1.0) or not 0 < rounds < 1000:
-        raise AssertionError(f"headline run ended at coverage {cov} after {rounds} rounds")
+        raise AssertionError(f"{what} run ended at coverage {cov} after {rounds} rounds")
     live = fin.alive & ~fin.declared_dead
     if int((fin.seen[:, 0] & live).sum()) < 0.99 * int(live.sum()):
-        raise AssertionError("headline final state holds fewer infected peers than its coverage")
+        raise AssertionError(f"{what} final state holds fewer infected peers than its coverage")
     if bool((fin.infected_round[:, 0] >= 0).ne(fin.seen[:, 0]).any()):
-        raise AssertionError("headline infected_round latch disagrees with seen")
-    return plan, dict(build_s=build_s, rounds=rounds, coverage=cov, run_s=run_s)
+        raise AssertionError(f"{what} infected_round latch disagrees with seen")
+    return dict(rounds=rounds, coverage=cov, run_s=run_s)
+
+
+def phase_staircase(dev, n: int):
+    """The slice's path: the power-law swarm built on the card, its
+    staircase plan built on the host as the CLI builds it (and on the card,
+    held equal), run to 99% through K5."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan, build_staircase_plan_device
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    dgraph, graph_s = timed(lambda: device_powerlaw_graph(n, gamma=2.5, key=prng.key(0, dev), device=dev))
+    plan, host_s = timed(lambda: build_staircase_plan(dgraph.row_ptr, dgraph.col_idx, fanout=1, device=dev))
+    dplan, device_s = timed(lambda: build_staircase_plan_device(dgraph.row_ptr, dgraph.col_idx, fanout=1))
+    for name in ("n", "n_tiles", "n_blocks", "rows"):
+        if getattr(plan, name) != getattr(dplan, name):
+            raise AssertionError(f"device plan {name} {getattr(dplan, name)} != host {getattr(plan, name)}")
+    for name in ("tile_block", "offs", "col_gather"):
+        if not torch.equal(getattr(plan, name), getattr(dplan, name)):
+            raise AssertionError(f"device plan routing table {name} differs from the host build")
+    # float32 thresholds are within 2^-24 relative of the host's float64
+    # ones before the ceil, which may then differ by one
+    thr_err = 0
+    for t in ("push_thresh", "pull_thresh"):
+        diff = (getattr(plan, t) - getattr(dplan, t)).abs()
+        if bool((diff > 1 + getattr(plan, t) * 2.0**-22).any()):
+            raise AssertionError(f"device plan {t} off the host's by more than 2^-22 relative + 1")
+        thr_err = max(thr_err, int(diff.max()))
+    deg = dgraph.degrees
+    info = dict(graph_s=graph_s, host_plan_s=host_s, device_plan_s=device_s, thresh_max_abs_diff=thr_err,
+                n_tiles=plan.n_tiles, n_blocks=plan.n_blocks, sentinel_slots=int(deg[-1]),
+                csr_slots=int(dgraph.col_idx.shape[0]))
+    return dgraph, plan, info
+
+
+def time_k5(plan, dev, gen, timer=time_ms) -> dict:
+    """K5 billed at the 1M plan (dense 16-bit words, every slot firing: the
+    most atomics a round can give), its plain version, and the torch
+    yardstick: ``scatter_reduce_`` amax over pre-unpacked (slots, 16) uint8
+    bit planes plus ``index_add_`` of the bill."""
+    from tpu_gossip_torch.kernels.pallas_segment import TILE, staircase_plain, staircase_segment
+
+    vals = torch.randint(0, 1 << M_SLOTS, plan.offs.shape, generator=gen, device=dev, dtype=torch.int32)
+    bill = torch.randint(0, 3, plan.offs.shape, generator=gen, device=dev, dtype=torch.int32)
+    args = (plan.tile_block, plan.offs, vals, plan.rows, plan.n_blocks, bill)
+    o = plan.offs.reshape(-1).to(torch.int64)
+    keep = o >= 0
+    dest = (torch.repeat_interleave(plan.tile_block.to(torch.int64) * plan.rows, TILE) + o)[keep]
+    shifts = torch.arange(M_SLOTS, dtype=torch.int32, device=dev)
+    planes = ((vals.reshape(-1)[keep][:, None] >> shifts) & 1).to(torch.uint8)
+    bill_kept = bill.reshape(-1)[keep]
+    size = plan.n_blocks * plan.rows
+    idx = dest[:, None].expand(-1, M_SLOTS)
+
+    def library():
+        words = torch.zeros((size, M_SLOTS), dtype=torch.uint8, device=dev).scatter_reduce_(0, idx, planes, "amax")
+        return words, torch.zeros((size,), dtype=torch.int32, device=dev).index_add_(0, dest, bill_kept)
+
+    slots = plan.n_tiles * TILE
+    return dict(ms=timer(lambda: staircase_segment(*args)), plain_ms=timer(lambda: staircase_plain(*args), 10),
+                library_ms=timer(library, 10), bytes=slots * 12 + size * 8)
 
 
 def phase_timing(plan, dev, gen, n: int, timer=time_ms) -> dict:
@@ -226,7 +349,25 @@ KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
      "tpu_gossip/kernels/permute.py:229", "fold_planes"),
     ("round_tail", "round_tail", "tpu_gossip_torch/csrc/round_tail.cu",
      "tpu_gossip/kernels/round_tail.py:263", "round_tail"),
+    ("staircase_segment", "staircase_segment", "tpu_gossip_torch/csrc/staircase_segment.cu",
+     "tpu_gossip/kernels/pallas_segment.py:447", "staircase_segment"),
 )
+# the launches each path must make, and must not make, per round (None: at least one)
+MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "fold_planes_sum": None, "round_tail": None,
+                 "staircase_segment": 0}
+STAIRCASE_PATH = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 1,
+                  "staircase_segment": 1}
+XLA_PATH = dict(STAIRCASE_PATH, staircase_segment=0)
+
+
+def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
+    """Fail unless ``launches`` (counted from 0 over one path) are what the
+    path must launch: per round, or at least once where ``want`` says None."""
+    for key, per_round in want.items():
+        got = launches[key]
+        if (got == 0) if per_round is None else (got != per_round * rounds):
+            need = "at least 1" if per_round is None else f"{per_round * rounds} ({per_round}/round)"
+            raise AssertionError(f"{what} path launched {key} {got} times, needs {need}")
 
 
 def main() -> int:
@@ -235,58 +376,96 @@ def main() -> int:
         return 1
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
+    card = card_line()
+    print(card, flush=True)
+    return smoke(root, torch.device("cuda", 0), card)
+
+
+def smoke(root: Path, dev: torch.device, card: str) -> int:
+    """Every phase on ``dev``; raises on the first that fails."""
     from tpu_gossip_torch.core.matching_topology import plan_shape
     from tpu_gossip_torch.kernels import native
 
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    print(card, flush=True)
+    # phase 1: build every kernel and the host library from the checkout's sources, in parallel
+    from tpu_gossip_torch import native as host_native
 
-    # phase 1: build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
+    pa_job = host_native.start_build()
     native.build_all()
+    host_native.finish_build(pa_job)
     for name in native.SOURCES:
         native.library(name)
-    print(f"build: {len(native.SOURCES)} kernel sources in {time.perf_counter() - t0:.2f} s", flush=True)
+    host_native.library()
+    print(f"build: {len(native.SOURCES)} kernel sources and the host PA library in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 2: each kernel against its plain version on the card, exactly
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+
     _, _, classes, rows = plan_shape(N_HEADLINE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = {"lane_shuffle": check_k1(dev, gen, rows),
             "fold_planes": check_k2(dev, gen, classes, rows),
-            "round_tail": check_k3(dev, gen, N_HEADLINE + 1)}
+            "round_tail": check_k3(dev, gen, N_HEADLINE + 1),
+            "staircase_segment": check_k5(dev, gen, device_powerlaw_graph(N_HEADLINE, key=prng.key(0, dev),
+                                                                          device=dev))}
     torch.cuda.synchronize()
     print(f"kernels equal their plain versions: {errs}", flush=True)
 
     # phase 3: the JAX-pinned digests at n=20000 through the port's CLI
-    got = phase_digest(root, dev)
-    print(f"n=20000 digests equal the JAX reference: {got['state_digest']} {got['stats_digest']}", flush=True)
+    for got in phase_digest(root, dev):
+        print(f"n=20000 digests equal the JAX reference: {got['mode']} {got['state_digest']} "
+              f"{got['stats_digest']}", flush=True)
 
-    # phase 4: the headline main path, every launch counted
+    # phase 4a: the matching headline, every launch counted from 0
     torch.cuda.reset_peak_memory_stats(dev)
     native.reset_launches()
     plan, run = phase_headline(dev, N_HEADLINE)
     launches = dict(native.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
     rounds = run["rounds"]
+    check_launches("matching", launches, MATCHING_PATH, rounds)
     print(f"[{card}] headline n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: "
           f"plan build {run['build_s']} s, rounds to 99% {rounds}, coverage {run['coverage']}, "
           f"{run['run_s'] * 1e3 / rounds} ms/round, {N_HEADLINE * rounds / run['run_s']} peers*rounds/s, "
           f"max_memory_allocated {peak} B", flush=True)
-    print(f"[{card}] main-path launches: {launches}", flush=True)
+    print(f"[{card}] matching-path launches: {launches}", flush=True)
 
-    # phase 5: kernel times at the main path's shapes
+    # phase 4b: the staircase path, counted from 0: graph and plans built
+    # on the card, run to 99% through K5
+    torch.cuda.reset_peak_memory_stats(dev)
+    native.reset_launches()
+    dgraph, splan, sinfo = phase_staircase(dev, N_HEADLINE)
+    srun = run_to_coverage(dev, dgraph, N_HEADLINE, splan, "staircase")
+    s_launches = dict(native.LAUNCHES)
+    s_peak = torch.cuda.max_memory_allocated(dev)
+    check_launches("staircase", s_launches, STAIRCASE_PATH, srun["rounds"])
+    print(f"[{card}] staircase n={N_HEADLINE} gamma=2.5 m={M_SLOTS} push_pull fanout 1: {sinfo}", flush=True)
+    print(f"[{card}] staircase run: plan build (host) {sinfo['host_plan_s']} s, rounds to 99% {srun['rounds']}, "
+          f"coverage {srun['coverage']}, {srun['run_s'] * 1e3 / srun['rounds']} ms/round, "
+          f"{N_HEADLINE * srun['rounds'] / srun['run_s']} peers*rounds/s, max_memory_allocated {s_peak} B",
+          flush=True)
+    print(f"[{card}] staircase-path launches: {s_launches}", flush=True)
+
+    # phase 4c: the exactly-k XLA delivery (the CLI's default) on the same graph
+    native.reset_launches()
+    xrun = run_to_coverage(dev, dgraph, N_HEADLINE, None, "exactly-k")
+    check_launches("exactly-k", dict(native.LAUNCHES), XLA_PATH, xrun["rounds"])
+    print(f"[{card}] exactly-k XLA run on the same graph: rounds to 99% {xrun['rounds']}, coverage "
+          f"{xrun['coverage']}, {xrun['run_s'] * 1e3 / xrun['rounds']} ms/round", flush=True)
+
+    # phase 5: kernel times at each path's shapes
     times = phase_timing(plan, dev, gen, N_HEADLINE)
+    times["staircase_segment"] = time_k5(splan, dev, gen)
+    path_launches = dict(launches, staircase_segment=s_launches["staircase_segment"])
     kernels = []
     for name, key, source, replaces, err_key in KERNELS:
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": errs[err_key], "ms": t["ms"],
+            "launches": path_launches[key], "max_abs_err": errs[err_key], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": t["library_ms"],
         })

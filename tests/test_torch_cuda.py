@@ -82,3 +82,60 @@ def test_headline_digest_on_card_equals_cpu(dev):
     on_cpu = run_sim.run(parser.parse_args(argv + ["--device", "cpu"]))
     assert on_card == on_cpu
     assert np.isfinite(on_card["final_coverage"])
+
+
+def _staircase_case(dev, case: str, rows: int):
+    """(plan, vals, bill) for one K5 case: a Chung-Lu CSR, a row spanning
+    several tiles, or an edgeless CSR; words with bit 31 set."""
+    from tpu_gossip_torch.core import topology as tt
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
+
+    if case == "chung_lu":
+        deg = tt.powerlaw_degree_sequence(20000, rng=np.random.default_rng(rows))
+        g = tt.build_csr(20000, tt.configuration_model(deg, rng=np.random.default_rng(1)))
+        rp, ci = g.row_ptr, g.col_idx
+    elif case == "hub":
+        deg = np.array([9000] + [3] * 700)
+        rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        ci = (np.arange(rp[-1]) % 701).astype(np.int32)
+    else:
+        rp, ci = np.zeros(3001, np.int32), np.zeros(0, np.int32)
+    plan = build_staircase_plan(rp, ci, fanout=1, rows=rows, device=dev)
+    g = _gen(dev, rows)
+    vals = torch.randint(-2**31, 2**31 - 1, plan.offs.shape, generator=g, device=dev, dtype=torch.int32)
+    vals[0, :4] = -2**31
+    bill = torch.randint(0, 40, plan.offs.shape, generator=g, device=dev, dtype=torch.int32)
+    return plan, vals, bill
+
+
+@pytest.mark.parametrize("case", ["chung_lu", "hub", "edgeless"])
+@pytest.mark.parametrize("rows", [128, 512, 1024])
+@pytest.mark.parametrize("billed", [False, True])
+def test_staircase_segment_kernel_equals_plain(dev, case, rows, billed):
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.pallas_segment import staircase_plain, staircase_segment
+
+    plan, vals, bill = _staircase_case(dev, case, rows)
+    bill = bill if billed else None
+    before = LAUNCHES["staircase_segment"]
+    got = staircase_segment(plan.tile_block, plan.offs, vals, plan.rows, plan.n_blocks, bill)
+    assert LAUNCHES["staircase_segment"] == before + 1
+    want = staircase_plain(plan.tile_block, plan.offs, vals, plan.rows, plan.n_blocks, bill)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (not billed)
+    if billed:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--staircase"],
+    ["--graph", "chung-lu", "--mode", "flood", "--staircase", "--slots", "40"],
+    ["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1"],
+])
+def test_staircase_digest_on_card_equals_cpu(dev, argv):
+    from tpu_gossip_torch.cli import run_sim
+
+    argv = ["--peers", "2000", "--rounds", "20", "--digest", "--quiet", *argv]
+    parser = run_sim.build_parser()
+    assert run_sim.run(parser.parse_args(argv + ["--device", "cuda"])) == \
+        run_sim.run(parser.parse_args(argv + ["--device", "cpu"]))

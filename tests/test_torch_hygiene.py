@@ -39,6 +39,8 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None; sys.modules['tpu_gossip'] = None\n"
         "import tpu_gossip_torch, tpu_gossip_torch.convert, tpu_gossip_torch.cli.run_sim\n"
         "import tpu_gossip_torch.sim.metrics, tpu_gossip_torch.kernels.round_tail\n"
+        "import tpu_gossip_torch.kernels.pallas_segment, tpu_gossip_torch.kernels.gossip\n"
+        "import tpu_gossip_torch.native, tpu_gossip_torch.core.device_topology\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -55,7 +57,9 @@ def test_default_device_entry_points_raise_without_card(no_card, capsys):
     from tpu_gossip_torch import convert
     from tpu_gossip_torch.cli import run_sim
     from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.core.topology import Graph
 
@@ -63,13 +67,18 @@ def test_default_device_entry_points_raise_without_card(no_card, capsys):
         prng.key(0)
     with pytest.raises(RuntimeError):
         matching_powerlaw_graph(500, fanout=1, key=prng.key(0, "cpu"))
+    with pytest.raises(RuntimeError):
+        device_powerlaw_graph(500, key=prng.key(0, "cpu"))
+    with pytest.raises(RuntimeError):
+        build_staircase_plan(np.array([0, 1, 2]), np.array([1, 0]), fanout=1)
     graph = Graph(n=3, row_ptr=np.array([0, 1, 2, 2]), col_idx=np.array([1, 0]))
     with pytest.raises(RuntimeError):
         init_swarm(graph, SwarmConfig(n_peers=3, msg_slots=4), key=prng.key(0, "cpu"))
     with pytest.raises(RuntimeError):
         convert.state_from_jax({})
-    assert run_sim.main(["--peers", "100", "--graph", "matching", "--rounds", "2"]) == 2
-    assert "CUDA" in capsys.readouterr().err
+    for graph in ("matching", "chung-lu"):
+        assert run_sim.main(["--peers", "100", "--graph", graph, "--rounds", "2"]) == 2
+        assert "CUDA" in capsys.readouterr().err
 
 
 def _smoke(cwd: Path, env_extra: dict) -> subprocess.CompletedProcess:
@@ -89,3 +98,19 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _smoke(tmp_path, {"CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Each kernel entry's ctypes argtypes have the C declaration's arity:
+    an argument too few makes ctypes pass the last one (the stream) as a
+    32-bit int, which faults at launch on the card."""
+    import re
+
+    from tpu_gossip_torch.kernels import native
+
+    for name, src in native.SOURCES.items():
+        text = (ROOT / "tpu_gossip_torch" / "csrc" / src).read_text()
+        entries = {m.group(1): m.group(2) for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text)}
+        assert set(entries) == set(native._SIGNATURES[name]), src
+        for fn, params in entries.items():
+            assert len(params.split(",")) == len(native._SIGNATURES[name][fn]), fn

@@ -9,7 +9,7 @@ import torch
 
 from tpu_gossip.kernels import pallas_segment as jseg
 from tpu_gossip_torch.core import prng
-from tpu_gossip_torch.kernels import segment as tseg
+from tpu_gossip_torch.kernels import pallas_segment as tseg
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 SEEDS = [0, 7, 123456, 2**31 - 1]

@@ -1,8 +1,9 @@
 """Carry a JAX-built plan and state across into the port, and back.
 
-The JAX package's ``MatchingPlan`` and ``SwarmState`` leaves, handed over
-as numpy arrays, become the port's dataclasses on ``device``, so the port's
-round can run on a plan the JAX package built (and a state it seeded).
+The JAX package's ``MatchingPlan``, ``StaircasePlan`` and ``SwarmState``
+leaves, handed over as numpy arrays, become the port's dataclasses on
+``device``, so the port's round can run on a plan the JAX package built
+(and a state it seeded).
 :func:`to_numpy` goes the other way, giving each leaf the dtype and shape
 the JAX package stores. This module imports neither JAX nor the JAX
 package: the caller does the conversion to numpy.
@@ -18,13 +19,19 @@ import torch
 from tpu_gossip_torch.core.matching_topology import MatchingPlan, class_layout
 from tpu_gossip_torch.core.state import SwarmState
 from tpu_gossip_torch.device import resolve_device
+from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan
 from tpu_gossip_torch.utils.digest import leaf_array
 
-__all__ = ["PLAN_LEAVES", "PLAN_STATIC", "plan_from_jax", "state_from_jax", "to_numpy"]
+__all__ = ["PLAN_LEAVES", "PLAN_STATIC", "STAIRCASE_LEAVES", "STAIRCASE_STATIC", "plan_from_jax",
+           "staircase_plan_from_jax", "state_from_jax", "to_numpy"]
 
 PLAN_LEAVES = ("lanes", "m3", "lanes_inv", "valid", "deg_other", "deg_real")
 PLAN_STATIC = ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk",
                "per_rows", "local_classes")
+# the JAX StaircasePlan's first_visit table has no use on the card (K5's
+# wrapper zeroes its outputs), so it is not carried across
+STAIRCASE_LEAVES = ("tile_block", "offs", "col_gather", "push_thresh", "pull_thresh")
+STAIRCASE_STATIC = ("n", "n_tiles", "n_blocks", "fanout", "rows")
 
 
 def _tensor(a, dev) -> torch.Tensor | None:
@@ -50,6 +57,18 @@ def plan_from_jax(leaves: dict, static: dict, device: str | torch.device = "cuda
         layout=class_layout(kw["classes"], kw["rows"], kw["n"], dev),
         **kw,
     )
+
+
+def staircase_plan_from_jax(leaves: dict, static: dict, device: str | torch.device = "cuda") -> StaircasePlan:
+    """A port StaircasePlan from the JAX plan's array leaves (numpy; the
+    uint32 thresholds become int64) and its static fields."""
+    dev = resolve_device(device)
+    kw = {name: leaves.get(name) for name in STAIRCASE_LEAVES}
+    for name in ("push_thresh", "pull_thresh"):
+        if kw[name] is not None:
+            kw[name] = np.asarray(kw[name]).astype(np.int64)
+    kw = {name: _tensor(a, dev) for name, a in kw.items()}
+    return StaircasePlan(**kw, **{name: static[name] for name in STAIRCASE_STATIC})
 
 
 def state_from_jax(leaves: dict, device: str | torch.device = "cuda") -> SwarmState:

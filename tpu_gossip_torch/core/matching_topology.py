@@ -36,7 +36,7 @@ from tpu_gossip_torch.core.device_topology import DeviceGraph
 from tpu_gossip_torch.core.topology import pareto_icdf
 from tpu_gossip_torch.device import resolve_device
 from tpu_gossip_torch.kernels.permute import apply_pipeline, fold_planes, inverse_tables
-from tpu_gossip_torch.kernels.segment import bernoulli_threshold_device
+from tpu_gossip_torch.kernels.pallas_segment import bernoulli_threshold_device
 
 __all__ = [
     "DEG_TABLE_CAP",

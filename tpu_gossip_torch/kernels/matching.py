@@ -21,7 +21,7 @@ import torch
 
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
-from tpu_gossip_torch.kernels.segment import _slot_groups, pack_words, popcount, unpack_words
+from tpu_gossip_torch.kernels.pallas_segment import _slot_groups, pack_words, popcount, unpack_words
 
 __all__ = ["matching_flood", "matching_sampled"]
 

@@ -6,7 +6,9 @@ Each source under ``tpu_gossip_torch/csrc/`` is compiled by ``nvcc`` for
 first use, never at import, into ``tpu_gossip_torch/_build/``, named by a
 hash of the source and the flags, so a changed source rebuilds and an
 unchanged one loads. :func:`build_all` starts one ``nvcc`` per source at
-once.
+once. :func:`start_compile` and :func:`finish_compile` are the same
+hashed, atomic build for any compiler (the host library of
+``tpu_gossip_torch/native`` uses them with ``g++``).
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that its main path went through
@@ -28,6 +30,8 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "build_all",
+    "start_compile",
+    "finish_compile",
     "library",
     "check",
     "stream_of",
@@ -46,6 +50,7 @@ SOURCES = {
     "lane_shuffle": "lane_shuffle.cu",
     "fold_planes": "fold_planes.cu",
     "round_tail": "round_tail.cu",
+    "staircase_segment": "staircase_segment.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -61,10 +66,14 @@ _SIGNATURES = {
     "round_tail": {
         "round_tail": (_P,) * 14 + (_L, _I, _I, _I, _I, _P),
     },
+    "staircase_segment": {
+        "staircase_segment": (_P,) * 6 + (_L, _I, _I, _P),
+    },
 }
 
 # launch counts per kernel entry (K2 counts its OR and SUM forms apart)
-LAUNCHES: dict[str, int] = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 0}
+LAUNCHES: dict[str, int] = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 0,
+                            "staircase_segment": 0}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -84,29 +93,42 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def hashed_target(src: Path, flags: tuple, stem: str) -> Path:
+    """``_build/<stem>-<hash of source and flags>.so``."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return _BUILD / f"{stem}-{digest}.so"
+
+
 def _target(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"{name}-{digest}.so"
+    return hashed_target(_CSRC / SOURCES[name], NVCC_FLAGS, name)
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    out = _target(name)
+def start_compile(cmd: list[str], out: Path) -> tuple[subprocess.Popen, Path, Path] | None:
+    """Start ``cmd + ["-o", tmp]`` unless ``out`` is built; the job for
+    :func:`finish_compile`, or None."""
     if out.exists():
         return None
-    _BUILD.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, job) -> None:
+def finish_compile(job, what: str) -> None:
+    """Wait for a build; raise with the compiler's log when it fails."""
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+        raise RuntimeError(f"build of {what} failed:\n{log}")
     os.replace(tmp, out)
+
+
+def _start_build(name: str):
+    return start_compile([_nvcc(), *NVCC_FLAGS, str(_CSRC / SOURCES[name])], _target(name))
+
+
+def _finish_build(name: str, job) -> None:
+    finish_compile(job, f"{SOURCES[name]} (nvcc)")
 
 
 def build_all() -> dict[str, Path]:

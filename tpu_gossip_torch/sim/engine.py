@@ -1,10 +1,13 @@
 """The protocol round loop.
 
-Ports the main path of ``tpu_gossip/sim/engine.py``: ``RoundStats`` with all
-30 fields (planes this slice does not run report zeros, ``control_level``
--1) and ``_stats``; ``compute_roles``, ``transmit_bitmap`` and
-``kernel_path_masks``; the MatchingPlan branches of ``_disseminate_local``
-(sampled push / push-pull, and flood); ``advance_round`` (:821),
+Ports the local path of ``tpu_gossip/sim/engine.py``: ``RoundStats`` with
+all 30 fields (planes the port does not run yet report zeros,
+``control_level`` -1) and ``_stats``; ``compute_roles``,
+``transmit_bitmap`` and ``kernel_path_masks``; ``_disseminate_local``
+(:262) with every delivery family of one device: the sampled kernel
+paths over a MatchingPlan or a StaircasePlan, the exactly-k XLA push and
+pull halves over the CSR, and flood through ``matching_flood``,
+``segment_or`` or ``flood_all``; ``advance_round`` (:821),
 ``gossip_round`` (:1012), ``simulate`` (:1114) and ``run_until_coverage``
 (:1170).
 
@@ -12,9 +15,9 @@ JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
 ``run_until_coverage`` reads its stop condition on the host once per round
 (one device synchronisation per round). Rounds are functional: each returns
-a new state and leaves its input's planes unchanged. The exactly-k XLA
-delivery, the staircase plans, churn re-wiring and re-materialisation
-belong to later slices and raise ``NotImplementedError``.
+a new state and leaves its input's planes unchanged. Churn re-wiring
+(``rewire_slots > 0``), the controller and re-materialisation belong to
+later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
+from tpu_gossip_torch.kernels.gossip import flood_all, pull_fanout, push_fanout, sample_fanout_targets
+from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
+from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan, segment_or, segment_sampled
 from tpu_gossip_torch.sim.stages import build_round_stages, not_ported, run_protocol_round, run_stages
 
 __all__ = [
@@ -142,34 +148,73 @@ def validate_rewire_width(state: SwarmState, cfg: SwarmConfig) -> None:
         )
 
 
+def _is_csr_free(state: SwarmState) -> bool:
+    """A graph built without its CSR (``col_idx`` of one dummy entry)."""
+    return state.col_idx.shape[0] == 1 and state.row_ptr.shape[0] > 3
+
+
+def _require_csr(state: SwarmState, what: str) -> None:
+    if _is_csr_free(state):
+        raise ValueError(
+            f"{what} reads the CSR neighbor list, but this graph was built without one "
+            "(matching_powerlaw_graph(export_csr=False)); rebuild with export_csr=True "
+            "or deliver via the matching plan"
+        )
+
+
 def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitter,
                        receptive, k_push, k_pull, plan=None):
-    """Single-device dissemination over a MatchingPlan; returns
-    ``(incoming, msgs_sent)``."""
-    from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
+    """Single-device dissemination; returns ``(incoming, msgs_sent)``.
 
-    if not isinstance(plan, MatchingPlan):
-        raise not_ported("delivery without a MatchingPlan (XLA and staircase paths)",
-                          "other local delivery families")
+    A plan with sampling gates and a ``fanout`` (MatchingPlan or
+    StaircasePlan) carries push / push-pull through its kernel path
+    (Bernoulli per edge); without one, push and pull sample exactly
+    ``fanout`` and one neighbour over the CSR. Flood goes through the plan
+    when there is one, else ``flood_all``."""
+    if plan is not None and not isinstance(plan, (MatchingPlan, StaircasePlan)):
+        raise TypeError(f"plan must be a MatchingPlan or StaircasePlan, got {type(plan).__name__}")
     if cfg.rewire_slots > 0:
         raise not_ported("fresh-edge re-wiring traffic (rewire_slots > 0)", "churn and re-wiring")
-    # the JAX engine re-splits k_push and drives delivery with child 0; it
-    # re-splits k_pull too, but the matching path reads none of those children
+    # the JAX engine re-splits both keys; child 0 drives delivery, child 1
+    # the re-wiring side paths (k_pull's child is drawn only where it is read)
     k_push = prng.split(k_push)[0]
-    if cfg.mode in ("push", "push_pull"):
-        if plan.deg_other is None or plan.fanout is None:
-            raise not_ported("exactly-k sampled delivery", "other local delivery families")
+    sampled = cfg.mode in ("push", "push_pull")
+    gates = plan is not None and (getattr(plan, "push_thresh", None) is not None
+                                  or getattr(plan, "deg_other", None) is not None)
+    if sampled and gates and plan.fanout is not None:
         if plan.fanout != cfg.fanout:
             raise ValueError(f"plan built for fanout={plan.fanout} but cfg.fanout={cfg.fanout}")
         tx, answer, rec_rows = kernel_path_masks(state, cfg, transmit, transmitter, receptive)
-        return matching_sampled(
-            plan, tx, answer, cfg.msg_slots, k_push, receptive_rows=rec_rows,
-            do_push=True, do_pull=cfg.mode == "push_pull",
-        )
-    incoming = matching_flood(plan, transmit, cfg.msg_slots)
-    deg = (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
-    msgs_sent = _i32((transmit.sum(-1) * deg).sum())
-    return incoming, msgs_sent
+        deliver = matching_sampled if isinstance(plan, MatchingPlan) else segment_sampled
+        return deliver(plan, tx, answer, cfg.msg_slots, k_push, receptive_rows=rec_rows,
+                       do_push=True, do_pull=cfg.mode == "push_pull")
+    msgs_sent = torch.zeros((), dtype=torch.int64, device=transmit.device)
+    incoming = torch.zeros_like(state.seen)
+    if sampled:
+        _require_csr(state, "XLA sampled delivery")
+        tgt, valid = sample_fanout_targets(k_push, state.row_ptr, state.col_idx, cfg.fanout)
+        push_valid = valid & transmit.any(-1)[:, None]
+        incoming = incoming | push_fanout(transmit, tgt, push_valid)
+        msgs_sent = msgs_sent + (transmit.sum(-1) * push_valid.sum(-1)).sum()
+    if cfg.mode == "push_pull":
+        # each live peer asks one neighbour for the responder's full seen set
+        answer = state.seen & transmitter
+        ptgt, pvalid = sample_fanout_targets(prng.split(k_pull)[0], state.row_ptr, state.col_idx, 1)
+        pull_ok = pvalid & receptive.any(-1)[:, None]
+        incoming = incoming | pull_fanout(answer, ptgt, pull_ok)
+        shipped = answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pull_ok[:, 0]
+        msgs_sent = msgs_sent + pull_ok.sum() + shipped.sum()
+    if cfg.mode == "flood":
+        if isinstance(plan, MatchingPlan):
+            incoming = incoming | matching_flood(plan, transmit, cfg.msg_slots)
+        elif plan is not None:
+            incoming = incoming | segment_or(plan, transmit, cfg.msg_slots)
+        else:
+            _require_csr(state, "XLA flood delivery")
+            incoming = incoming | flood_all(transmit, state.row_ptr, state.col_idx)
+        deg = (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
+        msgs_sent = msgs_sent + (transmit.sum(-1) * deg).sum()
+    return incoming, _i32(msgs_sent)
 
 
 def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, transmit,

@@ -1,13 +1,19 @@
-"""Where one headline round's time goes, on the card.
+"""Where one round's time goes, on the card.
 
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 6
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --staircase
 
-Builds the headline swarm (matching graph, push_pull, fanout 1, 16 slots),
-advances ``--warm`` rounds so the slot planes are mid-epidemic, then
-prints JSON lines: the time of each stage of the round taken alone (CUDA
-events, mean over ``--reps`` calls), the whole round, and a
-``torch.profiler`` trace of ``--rounds`` rounds summed by kernel name with
-the device's busy share of the wall time. Needs a CUDA device.
+Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
+matching graph (the headline), ``device`` (the power-law configuration
+model built on the card, gamma 2.5) or ``pa`` (preferential attachment,
+m=3, on the host); the CSR graphs deliver through the staircase kernel
+with ``--staircase`` (a host-built plan, as the CLI builds it) and through
+the exactly-k XLA path without. It advances ``--warm`` rounds so the slot
+planes are mid-epidemic, then prints JSON lines: the time of each stage of
+the round taken alone (CUDA events, mean over ``--reps`` calls; the XLA
+path reports the whole round only), and a ``torch.profiler`` trace of
+``--rounds`` rounds summed by kernel name with the device's busy share of
+the wall time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,12 +25,14 @@ import time
 import numpy as np
 import torch
 
-from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core import prng, topology
+from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
 from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
 from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+from tpu_gossip_torch.kernels import pallas_segment as seg
 from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
+from tpu_gossip_torch.kernels.pallas_segment import pack_words, popcount, unpack_words
 from tpu_gossip_torch.kernels.round_tail import round_tail
-from tpu_gossip_torch.kernels.segment import pack_words, popcount, unpack_words
 from tpu_gossip_torch.sim import engine
 
 
@@ -40,25 +48,16 @@ def _event_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def stage_times(state, cfg, plan, reps: int) -> dict:
-    """Each stage of one sampled push-pull round, timed alone (ms)."""
-    shape = (plan.rows, 128)
+def _common_stages(state, cfg, plan) -> tuple[dict, dict]:
+    """(stages before delivery, stages after it) shared by every path."""
     _, transmitter, receptive = engine.compute_roles(state)
     transmit = engine.transmit_bitmap(state, cfg, transmitter)
-    key = prng.split(state.rng, 5)[1]
-    words = pack_words(transmit[: plan.n])
-    slot_tx = plan.partner(plan.expand(words))
     rnd = state.round + 1
-    stages = {
+    head = {
         "key_splits": lambda: prng.split(prng.split(prng.split(state.rng, 5)[1])[0]),
         "roles_transmit": lambda: engine.transmit_bitmap(state, cfg, engine.compute_roles(state)[1]),
-        "draw_bits_x2": lambda: (prng.bits(key, shape), prng.bits(key, shape)),
-        "thresholds_push_pull": lambda: (plan.push_threshold(), plan.pull_threshold()),
-        "pack_expand": lambda: plan.expand(pack_words(transmit[: plan.n])),
-        "partner_pass": lambda: plan.partner(slot_tx),
-        "reduce_or": lambda: plan.reduce(slot_tx, "or"),
-        "popcount_bill": lambda: popcount(slot_tx).sum(),
-        "unpack": lambda: unpack_words(words, transmit.shape[1]),
+    }
+    tail = {
         "liveness": lambda: detect_failures(
             emit_heartbeats(state.last_hb, state.alive, state.silent, state.declared_dead, rnd,
                             cfg.hb_period_rounds),
@@ -69,6 +68,55 @@ def stage_times(state, cfg, plan, reps: int) -> dict:
             receptive, transmit, None, rnd, forward_once=False, sir_recover_rounds=0),
         "stats": lambda: engine._stats(state, torch.zeros((), dtype=torch.int32, device=rnd.device)),
         "whole_round": lambda: engine.gossip_round(state, cfg, plan),
+    }
+    return head, tail
+
+
+def stage_times(state, cfg, plan, reps: int) -> dict:
+    """Each stage of one sampled push-pull matching round, timed alone (ms)."""
+    shape = (plan.rows, 128)
+    transmit = engine.transmit_bitmap(state, cfg, engine.compute_roles(state)[1])
+    key = prng.split(state.rng, 5)[1]
+    words = pack_words(transmit[: plan.n])
+    slot_tx = plan.partner(plan.expand(words))
+    head, tail = _common_stages(state, cfg, plan)
+    stages = {
+        **head,
+        "draw_bits_x2": lambda: (prng.bits(key, shape), prng.bits(key, shape)),
+        "thresholds_push_pull": lambda: (plan.push_threshold(), plan.pull_threshold()),
+        "pack_expand": lambda: plan.expand(pack_words(transmit[: plan.n])),
+        "partner_pass": lambda: plan.partner(slot_tx),
+        "reduce_or": lambda: plan.reduce(slot_tx, "or"),
+        "popcount_bill": lambda: popcount(slot_tx).sum(),
+        "unpack": lambda: unpack_words(words, transmit.shape[1]),
+        **tail,
+    }
+    return {name: _event_ms(fn, reps) for name, fn in stages.items()}
+
+
+def staircase_stage_times(state, cfg, plan, reps: int) -> dict:
+    """Each stage of one sampled push-pull staircase round, timed alone (ms)."""
+    shape = tuple(plan.offs.shape)
+    transmit = engine.transmit_bitmap(state, cfg, engine.compute_roles(state)[1])
+    k_push, k_pull = prng.split(prng.split(prng.split(state.rng, 5)[1])[0])
+    active_p = prng.bits(k_push, shape) < plan.push_thresh
+    active_q = prng.bits(k_pull, shape) < plan.pull_thresh
+    gathered = seg._gather_words(plan, transmit)
+
+    def mask_bill():
+        wp, wq = torch.where(active_p, gathered, 0), torch.where(active_q, gathered, 0)
+        return wp | wq, popcount(wp).sum(), active_q.to(torch.int32) + popcount(wq)
+
+    combined, _, bill = mask_bill()
+    head, tail = _common_stages(state, cfg, plan)
+    stages = {
+        **head,
+        "draw_bits_x2": lambda: (prng.bits(k_push, shape) < plan.push_thresh,
+                                 prng.bits(k_pull, shape) < plan.pull_thresh),
+        "word_gather": lambda: seg._gather_words(plan, transmit),
+        "mask_combine_bill": mask_bill,
+        "k5_and_unpack": lambda: seg._launch(plan, combined, transmit.shape[1], bill=bill),
+        **tail,
     }
     return {name: _event_ms(fn, reps) for name, fn in stages.items()}
 
@@ -108,20 +156,39 @@ def trace_rounds(state, cfg, plan, rounds: int) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--peers", type=int, default=1_000_000)
+    p.add_argument("--graph", choices=["matching", "device", "pa"], default="matching")
+    p.add_argument("--staircase", action="store_true", help="deliver the CSR graphs through K5")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
     args = p.parse_args(argv)
-    dev = torch.device("cuda", 0)
     if not torch.cuda.is_available():
         raise SystemExit("profile needs a CUDA device")
-    dgraph, plan = matching_powerlaw_graph(args.peers, fanout=1, key=prng.key(0, dev), device=dev)
-    graph = dgraph.as_padded_graph()
+    dev = torch.device("cuda", 0)
+    n = args.peers
+    exists = plan = None
+    if args.graph == "matching":
+        dgraph, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
+        graph, exists = dgraph.as_padded_graph(), dgraph.exists
+    elif args.graph == "device":
+        dgraph = device_powerlaw_graph(n, gamma=2.5, key=prng.key(0, dev), device=dev)
+        graph, exists = dgraph.as_padded_graph(), dgraph.exists
+    else:
+        graph = topology.build_csr(n, topology.preferential_attachment(n, 3, rng=np.random.default_rng(0)))
+    if args.graph != "matching" and args.staircase:
+        plan = seg.build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=1, device=dev)
     cfg = SwarmConfig(n_peers=graph.n, msg_slots=16, fanout=1, mode="push_pull")
-    origins = np.random.default_rng(0).choice(args.peers, size=1, replace=False)
-    state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=dgraph.exists, device=dev)
+    origins = np.random.default_rng(0).choice(n, size=1, replace=False)
+    state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
     state, _ = engine.simulate(state, cfg, args.warm, plan)
-    print(json.dumps({"stage_ms": stage_times(state, cfg, plan, args.reps)}))
+    if args.graph == "matching":
+        stages = stage_times(state, cfg, plan, args.reps)
+    elif plan is not None:
+        stages = staircase_stage_times(state, cfg, plan, args.reps)
+    else:
+        stages = {"whole_round": _event_ms(lambda: engine.gossip_round(state, cfg, None), args.reps)}
+    print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
+                      "stage_ms": stages}))
     print(json.dumps({"trace": trace_rounds(state, cfg, plan, args.rounds)}))
     return 0
 
