@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels (K1 lane shuffle, K2 plane fold, K3
-round tail, K5 staircase segment) from ``tpu_gossip_torch/csrc`` and the
-host C++ preferential-attachment library, holds each kernel against its
-plain PyTorch version on the card (exact equality), reproduces the
-JAX-pinned n=20000 digests (``tpu_gossip_torch/reference_digests.json``),
-then drives two main paths at 1M peers (push_pull, fanout 1, 16 slots, to
-99% coverage), each with its launches counted from zero: the matching
-headline (K1, K2, K3) and the power-law CSR swarm delivered by the
-staircase kernel (K5, K3), with the exactly-k XLA delivery on the same
-graph beside it. Last it times each kernel at its path's shapes beside its
-byte bound, its plain version and the one torch call that computes the
-same function, where there is one.
+Builds the port's five CUDA kernels (K1 lane shuffle, K2 plane fold, K3
+round tail, K4 packed word tail, K5 staircase segment) from
+``tpu_gossip_torch/csrc`` and the host C++ preferential-attachment
+library, holds each kernel against its plain PyTorch version on the card
+(exact equality; K3 and K4 in both SIR-age modes, past ROUND_CAP too),
+reproduces the JAX-pinned n=20000 digests
+(``tpu_gossip_torch/reference_digests.json``, packed runs included), then
+drives five paths at 1M peers (push_pull, fanout 1, 16 slots, to 99%
+coverage), each with its launches counted from zero: the matching headline
+(K1, K2, K3), the power-law CSR swarm delivered by the staircase kernel
+(K5, K3), the exactly-k XLA delivery on the same graph (K3), and the packed
+twins of the headline (K1, K2, K4) and of the exactly-k path (K4 alone),
+each packed run digest-equal to its unpacked twin. Last it times each
+kernel at its path's shapes beside its byte bound, its plain version and
+the one torch call that computes the same function, where there is one.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -44,11 +47,34 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+def loop_ms(fn, iters: int = 50) -> float:
+    """Mean time of ``fn`` over ``iters`` back-to-back calls (CUDA events):
+    the larger of its device time and the host's cost to launch it."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+    The launches are queued behind a sleep kernel twice as long as the
+    host takes to issue them, so the card runs them back to back and the
+    host's launch cost is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(issue_s * 4e9) + 1000)  # cycles: twice issue_s at up to 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -111,24 +137,65 @@ def tail_operands(n: int, m: int, gen, dev, rnd: int):
                 expired=torch.rand((m,), generator=gen, device=dev) < 0.3)
 
 
+def cap_edge_operands(n: int, m: int, gen, dev):
+    """Tail operands whose infected_round holds ROUND_CAP, -1 and small
+    values: a round past the cap recovers them under the wide SIR age and
+    not under the saturated one."""
+    ops = tail_operands(n, m, gen, dev, rnd=9)
+    vals = torch.tensor([32767, 32766, -1, 0, 1, 5, 8], dtype=torch.int16, device=dev)
+    ops["infected_round"] = vals[torch.randint(0, 7, (n, m), generator=gen, device=dev)]
+    return ops
+
+
+TAIL_PLANES = ("seen", "forwarded", "infected_round", "recovered", "incoming", "receptive", "transmit")
+FLAG_GRID = [(fo, sir, f, e) for fo in (False, True) for sir in (0, 4) for f in (False, True) for e in (False, True)]
+
+
 def check_k3(dev, gen, n_main: int) -> int:
+    """K3 against its plain version over forward-once, SIR, fresh and
+    expired at round 9, and in both SIR-age modes at round 32771."""
     from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
 
     err = 0
     for n, m in ((n_main, M_SLOTS), (1001, 7)):
-        ops = tail_operands(n, m, gen, dev, rnd=9)
-        rnd = torch.tensor(9, dtype=torch.int32, device=dev)
-        for fo in (False, True):
-            for sir in (0, 4):
-                for use_fresh in (False, True):
-                    for use_exp in (False, True):
-                        args = (ops["seen"], ops["forwarded"], ops["infected_round"], ops["recovered"],
-                                ops["incoming"], ops["receptive"], ops["transmit"],
-                                ops["fresh"] if use_fresh else None, rnd)
-                        kw = dict(forward_once=fo, sir_recover_rounds=sir,
-                                  expired=ops["expired"] if use_exp else None)
-                        for a, p in zip(tail_kernel(*args, **kw), tail_fused(*args, **kw)):
-                            err = max(err, max_err(a, p))
+        for rnd_v, ages in ((9, (False,)), (32771, (False, True))):
+            ops = tail_operands(n, m, gen, dev, rnd=9) if rnd_v == 9 else cap_edge_operands(n, m, gen, dev)
+            rnd = torch.tensor(rnd_v, dtype=torch.int32, device=dev)
+            for (fo, sir, use_fresh, use_exp), age_saturated in ((f, a) for f in FLAG_GRID for a in ages):
+                args = (*(ops[k] for k in TAIL_PLANES), ops["fresh"] if use_fresh else None, rnd)
+                kw = dict(forward_once=fo, sir_recover_rounds=sir, age_saturated=age_saturated,
+                          expired=ops["expired"] if use_exp else None)
+                for a, p in zip(tail_kernel(*args, **kw), tail_fused(*args, **kw)):
+                    err = max(err, max_err(a, p))
+    return err
+
+
+def check_k4(dev, gen, n_main: int) -> int:
+    """K4 against the word chain over m = 16, 13, 1 and 17 at the main
+    path's row count: forward-once, SIR, fresh and expired present and
+    absent, rounds 9 and 32771 in both SIR-age modes. No padding bit may
+    be set."""
+    from tpu_gossip_torch.core.packed import pack_bits, word_mask
+    from tpu_gossip_torch.kernels.round_tail import round_tail_words, tail_words_plain
+
+    err = 0
+    for m in (16, 13, 1, 17):
+        ops = cap_edge_operands(n_main, m, gen, dev)
+        words = [pack_bits(ops[k]) if k != "infected_round" else ops[k] for k in TAIL_PLANES]
+        pad = ~word_mask(m, dev)
+        for fo, sir, use_fresh, use_exp in FLAG_GRID:
+            for rnd_v in (9, 32771):
+                rnd = torch.tensor(rnd_v, dtype=torch.int32, device=dev)
+                for pallas in (False, True):
+                    kw = dict(m=m, forward_once=fo, sir_recover_rounds=sir,
+                              expired=ops["expired"] if use_exp else None)
+                    fresh = ops["fresh"] if use_fresh else None
+                    got = round_tail_words(*words, fresh, rnd, pallas=pallas, **kw)
+                    want = tail_words_plain(*words, fresh, rnd, age_saturated=pallas, **kw)
+                    for i, (a, p) in enumerate(zip(got, want)):
+                        err = max(err, max_err(a, p))
+                        if i != 2 and bool((a & pad).any()):
+                            raise AssertionError(f"K4 set a padding bit at m={m}")
     return err
 
 
@@ -192,8 +259,8 @@ def phase_digest(root: Path, dev) -> list[dict]:
 
 
 def phase_headline(dev, n: int):
-    """Build the headline plan and run it to 99% coverage; returns the plan
-    and the run's figures."""
+    """Build the headline plan and run it to 99% coverage; returns the
+    graph, the plan and the run's figures."""
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
 
@@ -202,29 +269,43 @@ def phase_headline(dev, n: int):
     dgraph, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    return plan, dict(build_s=build_s, **run_to_coverage(dev, dgraph, n, plan, "headline"))
+    return dgraph, plan, dict(build_s=build_s, **run_to_coverage(dev, dgraph, n, plan, "headline"))
 
 
-def run_to_coverage(dev, dgraph, n: int, plan, what: str) -> dict:
+def run_to_coverage(dev, dgraph, n: int, plan, what: str, packed: bool = False) -> dict:
     """Seed one origin (``default_rng(0)``, as the CLI draws it), run
-    push_pull fanout 1 over ``plan`` to 99% coverage and check the final
-    state; returns rounds, coverage and seconds."""
+    push_pull fanout 1 over ``plan`` to 99% coverage (on the packed state
+    when ``packed``) and check the final state; returns rounds, coverage,
+    seconds, the peak of allocated device memory during the run alone
+    (``run_peak``) and since the caller's last reset (``peak``), and the
+    unpacked final state's digest."""
     import numpy as np
 
     from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.packed import PackedSwarm, pack_state, unpack_state
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.sim.engine import run_until_coverage
+    from tpu_gossip_torch.utils.digest import state_digest
 
     graph = dgraph.as_padded_graph()
     cfg = SwarmConfig(n_peers=graph.n, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=dgraph.exists, device=dev)
+    if packed:
+        state = pack_state(state)
     torch.cuda.synchronize()
+    prior_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     fin = run_until_coverage(state, cfg, 0.99, 1000, plan=plan)
     cov = float(fin.coverage(0))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated(dev)
+    if isinstance(fin, PackedSwarm) != packed:
+        raise AssertionError(f"{what} run returned a {type(fin).__name__}")
+    if packed:
+        fin = unpack_state(fin)
     rounds = int(fin.round)
     if not (0.99 <= cov <= 1.0) or not 0 < rounds < 1000:
         raise AssertionError(f"{what} run ended at coverage {cov} after {rounds} rounds")
@@ -233,7 +314,8 @@ def run_to_coverage(dev, dgraph, n: int, plan, what: str) -> dict:
         raise AssertionError(f"{what} final state holds fewer infected peers than its coverage")
     if bool((fin.infected_round[:, 0] >= 0).ne(fin.seen[:, 0]).any()):
         raise AssertionError(f"{what} infected_round latch disagrees with seen")
-    return dict(rounds=rounds, coverage=cov, run_s=run_s)
+    return dict(rounds=rounds, coverage=cov, run_s=run_s, run_peak=run_peak, peak=max(prior_peak, run_peak),
+                digest=state_digest(fin))
 
 
 def phase_staircase(dev, n: int):
@@ -275,7 +357,7 @@ def phase_staircase(dev, n: int):
     return dgraph, plan, info
 
 
-def time_k5(plan, dev, gen, timer=time_ms) -> dict:
+def time_k5(plan, dev, gen) -> dict:
     """K5 billed at the 1M plan (dense 16-bit words, every slot firing: the
     most atomics a round can give), its plain version, and the torch
     yardstick: ``scatter_reduce_`` amax over pre-unpacked (slots, 16) uint8
@@ -299,11 +381,11 @@ def time_k5(plan, dev, gen, timer=time_ms) -> dict:
         return words, torch.zeros((size,), dtype=torch.int32, device=dev).index_add_(0, dest, bill_kept)
 
     slots = plan.n_tiles * TILE
-    return dict(ms=timer(lambda: staircase_segment(*args)), plain_ms=timer(lambda: staircase_plain(*args), 10),
-                library_ms=timer(library, 10), bytes=slots * 12 + size * 8)
+    return dict(ms=time_ms(lambda: staircase_segment(*args)), plain_ms=time_ms(lambda: staircase_plain(*args), 10),
+                library_ms=time_ms(library, 10), bytes=slots * 12 + size * 8)
 
 
-def phase_timing(plan, dev, gen, n: int, timer=time_ms) -> dict:
+def phase_timing(plan, dev, gen, n: int) -> dict:
     """Each kernel, its plain version and its library call at the main
     path's shapes."""
     from tpu_gossip_torch.kernels.permute import fold_planes, fold_planes_plain, lane_shuffle, lane_shuffle_plain
@@ -314,8 +396,8 @@ def phase_timing(plan, dev, gen, n: int, timer=time_ms) -> dict:
     idx_long = tab.to(torch.int64)
     slots = plan.rows * 128
     out = {"lane_shuffle": dict(
-        ms=timer(lambda: lane_shuffle(x, tab)), plain_ms=timer(lambda: lane_shuffle_plain(x, tab)),
-        library_ms=timer(lambda: torch.gather(x, 1, idx_long)),
+        ms=time_ms(lambda: lane_shuffle(x, tab)), plain_ms=time_ms(lambda: lane_shuffle_plain(x, tab)),
+        library_ms=time_ms(lambda: torch.gather(x, 1, idx_long)),
         bytes=slots * (4 + tab.element_size() + 4))}
     pm = [(so, cs, c, pd) for (_, so, c, pd, cs) in plan.classes if c >= 8192]
     fold_bytes = sum((pd + 1) * cs * 4 for (_, cs, _, pd) in pm)
@@ -325,19 +407,38 @@ def phase_timing(plan, dev, gen, n: int, timer=time_ms) -> dict:
         return lambda: [fn(x, so, cs, c, pd, op) for (so, cs, c, pd) in pm]
 
     for op in ("or", "sum"):
-        out[f"fold_planes_{op}"] = dict(ms=timer(fold_all(fold_planes, op)),
-                                        plain_ms=timer(fold_all(fold_planes_plain, op)),
+        out[f"fold_planes_{op}"] = dict(ms=time_ms(fold_all(fold_planes, op)),
+                                        plain_ms=time_ms(fold_all(fold_planes_plain, op)),
                                         library_ms=None, bytes=fold_bytes)
-    out["fold_planes_sum"]["library_ms"] = timer(
+    out["fold_planes_sum"]["library_ms"] = time_ms(
         lambda: [flat[so: so + pd * cs].view(pd, cs).sum(0, dtype=torch.int32) for (so, cs, c, pd) in pm])
     ops = tail_operands(n + 1, M_SLOTS, gen, dev, rnd=9)
-    targs = (ops["seen"], ops["forwarded"], ops["infected_round"], ops["recovered"], ops["incoming"],
-             ops["receptive"], ops["transmit"], None, torch.tensor(9, dtype=torch.int32, device=dev))
+    targs = (*(ops[k] for k in TAIL_PLANES), None, torch.tensor(9, dtype=torch.int32, device=dev))
     tkw = dict(forward_once=False, sir_recover_rounds=0)
-    out["round_tail"] = dict(ms=timer(lambda: tail_kernel(*targs, **tkw)),
-                             plain_ms=timer(lambda: tail_fused(*targs, **tkw)),
+    out["round_tail"] = dict(ms=time_ms(lambda: tail_kernel(*targs, **tkw)),
+                             plain_ms=time_ms(lambda: tail_fused(*targs, **tkw)),
+                             loop_ms=loop_ms(lambda: tail_kernel(*targs, **tkw)),
                              library_ms=None, bytes=(n + 1) * M_SLOTS * (6 + 4))
+    out["round_tail_words"] = time_k4(targs, n + 1)
     return out
+
+
+def time_k4(targs, rows: int) -> dict:
+    """K4 and its plain version (the word chain) at the packed paths'
+    shape and flags: 1M rows x 16 slots, no forward-once, fresh or expired.
+    Bytes: seen, recovered, incoming and receptive words (2 B each) and the
+    int16 latch plane (32 B) read; seen, recovered (2 B each) and the latch
+    plane (32 B) written: 76 B a row."""
+    from tpu_gossip_torch.core.packed import pack_bits
+    from tpu_gossip_torch.kernels.round_tail import round_tail_words, tail_words_plain
+
+    words = [pack_bits(t) if t.dtype == torch.bool else t for t in targs[:7]]
+    wargs = (*words, None, targs[8])
+    kw = dict(m=M_SLOTS, forward_once=False, sir_recover_rounds=0)
+    return dict(ms=time_ms(lambda: round_tail_words(*wargs, **kw)),
+                plain_ms=time_ms(lambda: tail_words_plain(*wargs, **kw)),
+                loop_ms=loop_ms(lambda: round_tail_words(*wargs, **kw)),
+                library_ms=None, bytes=rows * (4 * 2 + 2 * M_SLOTS + 2 * 2 + 2 * M_SLOTS))
 
 
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
@@ -351,13 +452,20 @@ KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
      "tpu_gossip/kernels/round_tail.py:263", "round_tail"),
     ("staircase_segment", "staircase_segment", "tpu_gossip_torch/csrc/staircase_segment.cu",
      "tpu_gossip/kernels/pallas_segment.py:447", "staircase_segment"),
+    ("round_tail_words", "round_tail_words", "tpu_gossip_torch/csrc/round_tail_words.cu",
+     "tpu_gossip/kernels/round_tail.py:444", "round_tail_words"),
 )
-# the launches each path must make, and must not make, per round (None: at least one)
+# the launches each path must make, and must not make, per round (None: at
+# least one; a key left out is not checked)
 MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "fold_planes_sum": None, "round_tail": None,
-                 "staircase_segment": 0}
+                 "staircase_segment": 0, "round_tail_words": 0}
 STAIRCASE_PATH = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 1,
-                  "staircase_segment": 1}
+                  "staircase_segment": 1, "round_tail_words": 0}
 XLA_PATH = dict(STAIRCASE_PATH, staircase_segment=0)
+# the packed headline reuses 4a's plan, so the build's SUM fold is not in its window
+PACKED_MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail": 0, "staircase_segment": 0,
+                        "round_tail_words": 1}
+PACKED_XLA_PATH = dict(XLA_PATH, round_tail=0, round_tail_words=1)
 
 
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
@@ -409,6 +517,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     errs = {"lane_shuffle": check_k1(dev, gen, rows),
             "fold_planes": check_k2(dev, gen, classes, rows),
             "round_tail": check_k3(dev, gen, N_HEADLINE + 1),
+            "round_tail_words": check_k4(dev, gen, N_HEADLINE + 1),
             "staircase_segment": check_k5(dev, gen, device_powerlaw_graph(N_HEADLINE, key=prng.key(0, dev),
                                                                           device=dev))}
     torch.cuda.synchronize()
@@ -422,15 +531,15 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     # phase 4a: the matching headline, every launch counted from 0
     torch.cuda.reset_peak_memory_stats(dev)
     native.reset_launches()
-    plan, run = phase_headline(dev, N_HEADLINE)
+    hgraph, plan, run = phase_headline(dev, N_HEADLINE)
     launches = dict(native.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = run["peak"]
     rounds = run["rounds"]
     check_launches("matching", launches, MATCHING_PATH, rounds)
     print(f"[{card}] headline n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: "
           f"plan build {run['build_s']} s, rounds to 99% {rounds}, coverage {run['coverage']}, "
           f"{run['run_s'] * 1e3 / rounds} ms/round, {N_HEADLINE * rounds / run['run_s']} peers*rounds/s, "
-          f"max_memory_allocated {peak} B", flush=True)
+          f"max_memory_allocated {peak} B (run alone {run['run_peak']} B)", flush=True)
     print(f"[{card}] matching-path launches: {launches}", flush=True)
 
     # phase 4b: the staircase path, counted from 0: graph and plans built
@@ -440,7 +549,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     dgraph, splan, sinfo = phase_staircase(dev, N_HEADLINE)
     srun = run_to_coverage(dev, dgraph, N_HEADLINE, splan, "staircase")
     s_launches = dict(native.LAUNCHES)
-    s_peak = torch.cuda.max_memory_allocated(dev)
+    s_peak = srun["peak"]
     check_launches("staircase", s_launches, STAIRCASE_PATH, srun["rounds"])
     print(f"[{card}] staircase n={N_HEADLINE} gamma=2.5 m={M_SLOTS} push_pull fanout 1: {sinfo}", flush=True)
     print(f"[{card}] staircase run: plan build (host) {sinfo['host_plan_s']} s, rounds to 99% {srun['rounds']}, "
@@ -454,12 +563,33 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     xrun = run_to_coverage(dev, dgraph, N_HEADLINE, None, "exactly-k")
     check_launches("exactly-k", dict(native.LAUNCHES), XLA_PATH, xrun["rounds"])
     print(f"[{card}] exactly-k XLA run on the same graph: rounds to 99% {xrun['rounds']}, coverage "
-          f"{xrun['coverage']}, {xrun['run_s'] * 1e3 / xrun['rounds']} ms/round", flush=True)
+          f"{xrun['coverage']}, {xrun['run_s'] * 1e3 / xrun['rounds']} ms/round, "
+          f"run max_memory_allocated {xrun['run_peak']} B", flush=True)
+
+    # phases 4d and 4e: the packed twins of 4a (same state and plan) and of
+    # 4c (same graph), counted from 0, each digest-equal to its twin
+    packed_launches = {}
+    for what, graph, pplan, twin, want in (("packed matching", hgraph, plan, run, PACKED_MATCHING_PATH),
+                                           ("packed exactly-k", dgraph, None, xrun, PACKED_XLA_PATH)):
+        native.reset_launches()
+        prun = run_to_coverage(dev, graph, N_HEADLINE, pplan, what, packed=True)
+        packed_launches[what] = dict(native.LAUNCHES)
+        check_launches(what, packed_launches[what], want, prun["rounds"])
+        for k in ("rounds", "digest"):
+            if prun[k] != twin[k]:
+                raise AssertionError(f"{what} run's {k} {prun[k]} != its unpacked twin's {twin[k]}")
+        print(f"[{card}] {what} n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: rounds to 99% "
+              f"{prun['rounds']}, coverage {prun['coverage']}, {prun['run_s'] * 1e3 / prun['rounds']} ms/round "
+              f"(unpacked {twin['run_s'] * 1e3 / twin['rounds']}), {N_HEADLINE * prun['rounds'] / prun['run_s']} "
+              f"peers*rounds/s, run max_memory_allocated {prun['run_peak']} B (unpacked {twin['run_peak']} B), "
+              f"final state digest equal to the unpacked twin's", flush=True)
+        print(f"[{card}] {what}-path launches: {packed_launches[what]}", flush=True)
 
     # phase 5: kernel times at each path's shapes
     times = phase_timing(plan, dev, gen, N_HEADLINE)
     times["staircase_segment"] = time_k5(splan, dev, gen)
-    path_launches = dict(launches, staircase_segment=s_launches["staircase_segment"])
+    path_launches = dict(launches, staircase_segment=s_launches["staircase_segment"],
+                         round_tail_words=packed_launches["packed matching"]["round_tail_words"])
     kernels = []
     for name, key, source, replaces, err_key in KERNELS:
         t = times[key]
@@ -470,8 +600,9 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
             "bound_by": "bytes", "library_ms": t["library_ms"],
         })
         lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3} us"
+        loop = "" if t.get("loop_ms") is None else f", back-to-back calls {t['loop_ms'] * 1e3} us"
         print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us, "
-              f"plain {t['plain_ms'] * 1e3} us, library {lib}", flush=True)
+              f"plain {t['plain_ms'] * 1e3} us, library {lib}{loop}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

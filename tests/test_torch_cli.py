@@ -104,9 +104,30 @@ def test_cli_staircase_with_matching_graph_is_ignored_with_a_note(capsys):
     assert "--staircase is ignored" in out.err
 
 
+@pytest.mark.parametrize("graph", ["matching", "chung-lu"])
+def test_cli_packed_digest_summary_equals_jax(capsys, graph):
+    argv = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", graph, "--packed",
+            "--rounds", "20", "--digest"]
+    want, want_rows = _summary(capsys, jcli.main, argv)
+    got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
+    assert got == want and got["packed"] is True
+    assert [json.loads(r) for r in got_rows] == [json.loads(r) for r in want_rows]
+    unpacked, _ = _summary(capsys, tcli.main, [a for a in argv if a != "--packed"] + ["--device", "cpu"])
+    assert dict(unpacked, packed=True) == got
+
+
+def test_cli_packed_run_to_target_equals_jax(capsys):
+    argv = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", "chung-lu", "--packed"]
+    want, _ = _summary(capsys, jcli.main, argv)
+    got, _ = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
+    for k in ("summary", "mode", "n_peers", "rounds", "target", "coverage", "packed"):
+        assert got[k] == want[k], k
+    assert set(got) == set(want)
+
+
 @pytest.mark.parametrize("argv", [
     ["--graph", "chung-lu", "--silent-frac", "0.1", "--device", "cpu"],
-    ["--graph", "pa", "--packed", "--device", "cpu"],
+    ["--graph", "pa", "--checkpoint-every", "5", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
     ["--graph", "matching", "--churn-leave", "0.1", "--device", "cpu"],
 ])

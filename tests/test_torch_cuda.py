@@ -72,6 +72,59 @@ def test_round_tail_kernel_equals_plain(dev, fo, sir, fresh, expired):
         assert torch.equal(a, p)
 
 
+def _cap_edge_tail(dev, n, m, g):
+    """Bool tail operands whose infected_round holds ROUND_CAP, -1 and small
+    values."""
+    b = lambda p: torch.rand((n, m), generator=g, device=dev) < p  # noqa: E731
+    vals = torch.tensor([32767, 32766, -1, 0, 1, 5, 8], dtype=torch.int16, device=dev)
+    ir = vals[torch.randint(0, 7, (n, m), generator=g, device=dev)]
+    return [b(0.5), b(0.3), ir, b(0.2), b(0.5), b(0.9), b(0.5)]
+
+
+@pytest.mark.parametrize("rnd", [9, 32771])
+@pytest.mark.parametrize("age_saturated", [False, True])
+def test_round_tail_kernel_cap_edge_equals_plain(dev, rnd, age_saturated):
+    from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
+
+    n, m = 1001, 7
+    g = _gen(dev, 4)
+    ops = _cap_edge_tail(dev, n, m, g)
+    fresh = torch.rand(n, generator=g, device=dev) < 0.1
+    expired = torch.rand(m, generator=g, device=dev) < 0.3
+    r = torch.tensor(rnd, dtype=torch.int32, device=dev)
+    for kw in (dict(expired=None), dict(expired=expired)):
+        kw.update(forward_once=True, sir_recover_rounds=4, age_saturated=age_saturated)
+        for a, p in zip(tail_kernel(*ops, fresh, r, **kw), tail_fused(*ops, fresh, r, **kw)):
+            assert torch.equal(a, p)
+
+
+@pytest.mark.parametrize("m", [16, 13, 1, 17])
+@pytest.mark.parametrize("fo,sir", list(itertools.product([False, True], [0, 4])))
+def test_round_tail_words_kernel_equals_plain(dev, m, fo, sir):
+    from tpu_gossip_torch.core.packed import pack_bits, word_mask
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.round_tail import round_tail_words, tail_words_plain
+
+    n = 4099
+    g = _gen(dev, m * 10 + sir + fo)
+    ops = _cap_edge_tail(dev, n, m, g)
+    words = [pack_bits(t) if t.dtype == torch.bool else t for t in ops]
+    fresh = torch.rand(n, generator=g, device=dev) < 0.1
+    expired = torch.rand(m, generator=g, device=dev) < 0.3
+    pad = ~word_mask(m, dev)
+    for f, e, rnd, pallas in itertools.product([None, fresh], [None, expired], [9, 32771], [False, True]):
+        r = torch.tensor(rnd, dtype=torch.int32, device=dev)
+        kw = dict(m=m, forward_once=fo, sir_recover_rounds=sir, expired=e)
+        before = LAUNCHES["round_tail_words"]
+        got = round_tail_words(*words, f, r, pallas=pallas, **kw)
+        assert LAUNCHES["round_tail_words"] == before + 1
+        want = tail_words_plain(*words, f, r, age_saturated=pallas, **kw)
+        for i, (a, p) in enumerate(zip(got, want)):
+            assert torch.equal(a, p)
+            if i != 2:
+                assert not bool((a & pad).any())
+
+
 def test_headline_digest_on_card_equals_cpu(dev):
     from tpu_gossip_torch.cli import run_sim
 
@@ -133,6 +186,19 @@ def test_staircase_segment_kernel_equals_plain(dev, case, rows, billed):
     ["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1"],
 ])
 def test_staircase_digest_on_card_equals_cpu(dev, argv):
+    _assert_card_equals_cpu(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--tail", "pallas", "--sir-recover", "4",
+     "--slots", "13"],
+    ["--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--forward-once"],
+])
+def test_packed_digest_on_card_equals_cpu(dev, argv):
+    _assert_card_equals_cpu(argv + ["--packed"])
+
+
+def _assert_card_equals_cpu(argv):
     from tpu_gossip_torch.cli import run_sim
 
     argv = ["--peers", "2000", "--rounds", "20", "--digest", "--quiet", *argv]

@@ -41,6 +41,8 @@ def test_port_imports_with_jax_blocked():
         "import tpu_gossip_torch.sim.metrics, tpu_gossip_torch.kernels.round_tail\n"
         "import tpu_gossip_torch.kernels.pallas_segment, tpu_gossip_torch.kernels.gossip\n"
         "import tpu_gossip_torch.native, tpu_gossip_torch.core.device_topology\n"
+        "import tpu_gossip_torch.core.packed, tpu_gossip_torch.kernels.packed_ops\n"
+        "import tpu_gossip_torch.sim.packed_engine\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

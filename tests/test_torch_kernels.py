@@ -171,7 +171,8 @@ def test_round_tail_dispatch_errors():
     ops = {k: torch.from_numpy(v) for k, v in _tail_inputs(8, 3, 0, 2).items()}
     args = (ops["seen"], ops["forwarded"], ops["infected_round"], ops["recovered"],
             ops["incoming"], ops["receptive"], ops["transmit"], None, torch.tensor(1))
-    with pytest.raises(NotImplementedError):
-        ttail.round_tail(*args, forward_once=False, sir_recover_rounds=0, impl="packed")
+    meta = [None if a is None else a.to("meta") for a in args]
+    with pytest.raises(ValueError):  # the CPU oracle refuses a device tensor
+        ttail.round_tail(*meta, forward_once=False, sir_recover_rounds=0, impl="reference")
     with pytest.raises(ValueError):
         ttail.round_tail(*args, forward_once=False, sir_recover_rounds=0, impl="bogus")

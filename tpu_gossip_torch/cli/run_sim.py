@@ -4,6 +4,8 @@
         --fanout 1 --graph matching
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph chung-lu --staircase
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph matching --packed
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -14,9 +16,11 @@ seed the origins drawn from the same ``rng`` after the graph, exactly as
 the JAX CLI draws them. Then either run a fixed ``--rounds`` horizon (one
 JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
-print the benchmark summary. The summary keys are the JAX CLI's. Runs on
-``--device cuda`` unless told otherwise; every other flag of the JAX CLI
-is not ported yet and exits 2.
+print the benchmark summary. With ``--packed`` the seeded state is packed
+(``core/packed.py``), the rounds run on its words, and the final state is
+unpacked before the digest, as the JAX CLI does. The summary keys are the
+JAX CLI's. Runs on ``--device cuda`` unless told otherwise; every other
+flag of the JAX CLI is not ported yet and exits 2.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ import numpy as np
 
 _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
-    "matching, preferential-attachment and Chung-Lu graphs (later slices add "
-    "faults, churn, growth, streams, control, packed state, checkpoints, "
+    "matching, preferential-attachment and Chung-Lu graphs, packed or not "
+    "(later slices add faults, churn, growth, streams, control, checkpoints, "
     "fleets and the sharded engines)"
 )
 
@@ -59,7 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "segment OR for flood, Bernoulli-per-edge sampling for push and "
                    "push_pull; ignored with --graph matching")
     p.add_argument("--tail", choices=["fused", "reference", "pallas"], default="fused",
-                   help="round-tail implementation (fused and pallas launch K3 on the card)")
+                   help="round-tail implementation (fused and pallas launch K3 on the card, "
+                   "K4 with --packed; pallas takes the SIR age from the saturated round)")
+    p.add_argument("--packed", action="store_true",
+                   help="carry the swarm as packed state planes (uint8 bit words, one flags "
+                   "byte); the round computes on the words, bit-identical to the unpacked run")
     p.add_argument("--digest", action="store_true",
                    help="add state_digest/stats_digest to a fixed-horizon summary")
     p.add_argument("--quiet", action="store_true", help="summary line only, no per-round JSONL")
@@ -89,11 +97,12 @@ def run(args: argparse.Namespace) -> dict:
     JSONL goes to stdout first unless ``--quiet``)."""
     from tpu_gossip_torch.core import prng, topology
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip_torch.core.packed import pack_state, unpack_state
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.device import resolve_device
     from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
     from tpu_gossip_torch.sim import metrics as M
-    from tpu_gossip_torch.sim.engine import simulate
+    from tpu_gossip_torch.sim.engine import run_until_coverage, simulate
     from tpu_gossip_torch.utils.digest import state_digest, stats_digest
 
     dev = resolve_device(args.device)
@@ -127,7 +136,9 @@ def run(args: argparse.Namespace) -> dict:
     state = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins,
                        exists=exists, device=dev)
     if args.rounds > 0:
-        fin, stats = simulate(state, cfg, args.rounds, plan, args.tail)
+        fin, stats = simulate(pack_state(state) if args.packed else state, cfg, args.rounds, plan, args.tail)
+        if args.packed:
+            fin = unpack_state(fin)
         if not args.quiet:
             M.write_jsonl(stats, sys.stdout)
         summary = {
@@ -141,11 +152,19 @@ def run(args: argparse.Namespace) -> dict:
         }
         if args.digest:
             summary.update(state_digest=state_digest(fin), stats_digest=stats_digest(stats))
+    elif args.packed:
+        def cov_run(st):
+            out = run_until_coverage(pack_state(st), cfg, args.target, args.max_rounds, plan=plan,
+                                     tail=args.tail)
+            return unpack_state(out)
+
+        result, fin = M.bench_swarm(state, cfg, args.target, args.max_rounds, run=cov_run)
+        summary = {"summary": True, "mode": args.mode, **json.loads(result.to_json())}
     else:
         result, fin = M.bench_swarm(state, cfg, args.target, args.max_rounds, plan=plan,
                                     tail=args.tail)
         summary = {"summary": True, "mode": args.mode, **json.loads(result.to_json())}
-    summary["packed"] = False
+    summary["packed"] = args.packed
     return summary
 
 

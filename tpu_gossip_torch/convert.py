@@ -1,9 +1,9 @@
 """Carry a JAX-built plan and state across into the port, and back.
 
-The JAX package's ``MatchingPlan``, ``StaircasePlan`` and ``SwarmState``
-leaves, handed over as numpy arrays, become the port's dataclasses on
-``device``, so the port's round can run on a plan the JAX package built
-(and a state it seeded).
+The JAX package's ``MatchingPlan``, ``StaircasePlan``, ``SwarmState`` and
+``PackedSwarm`` leaves, handed over as numpy arrays, become the port's
+dataclasses on ``device``, so the port's round can run on a plan the JAX
+package built (and a state it seeded, packed or not).
 :func:`to_numpy` goes the other way, giving each leaf the dtype and shape
 the JAX package stores. This module imports neither JAX nor the JAX
 package: the caller does the conversion to numpy.
@@ -17,13 +17,14 @@ import numpy as np
 import torch
 
 from tpu_gossip_torch.core.matching_topology import MatchingPlan, class_layout
+from tpu_gossip_torch.core.packed import PackedSwarm
 from tpu_gossip_torch.core.state import SwarmState
 from tpu_gossip_torch.device import resolve_device
 from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan
-from tpu_gossip_torch.utils.digest import leaf_array
+from tpu_gossip_torch.utils.digest import leaf_array, leaf_fields
 
 __all__ = ["PLAN_LEAVES", "PLAN_STATIC", "STAIRCASE_LEAVES", "STAIRCASE_STATIC", "plan_from_jax",
-           "staircase_plan_from_jax", "state_from_jax", "to_numpy"]
+           "staircase_plan_from_jax", "state_from_jax", "packed_state_from_jax", "to_numpy"]
 
 PLAN_LEAVES = ("lanes", "m3", "lanes_inv", "valid", "deg_other", "deg_real")
 PLAN_STATIC = ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk",
@@ -71,24 +72,35 @@ def staircase_plan_from_jax(leaves: dict, static: dict, device: str | torch.devi
     return StaircasePlan(**kw, **{name: static[name] for name in STAIRCASE_STATIC})
 
 
-def state_from_jax(leaves: dict, device: str | torch.device = "cuda") -> SwarmState:
-    """A port SwarmState from the JAX state's leaves as numpy arrays (the
-    key as its uint32 (2,) key data)."""
-    dev = resolve_device(device)
+def _state_leaves(cls, leaves: dict, dev) -> dict:
     kw = {}
-    for f in dataclasses.fields(SwarmState):
+    for f in dataclasses.fields(cls):
+        if f.metadata.get("static"):
+            continue
         a = np.asarray(leaves[f.name])
         if f.name == "rng":
             a = a.astype(np.int64)
         kw[f.name] = _tensor(a, dev)
-    return SwarmState(**kw)
+    return kw
+
+
+def state_from_jax(leaves: dict, device: str | torch.device = "cuda") -> SwarmState:
+    """A port SwarmState from the JAX state's leaves as numpy arrays (the
+    key as its uint32 (2,) key data)."""
+    return SwarmState(**_state_leaves(SwarmState, leaves, resolve_device(device)))
+
+
+def packed_state_from_jax(leaves: dict, msg_slots: int, device: str | torch.device = "cuda") -> PackedSwarm:
+    """A port PackedSwarm from the JAX PackedSwarm's leaves as numpy arrays
+    and its static ``msg_slots``."""
+    return PackedSwarm(**_state_leaves(PackedSwarm, leaves, resolve_device(device)), msg_slots=msg_slots)
 
 
 def to_numpy(obj) -> dict:
-    """Every leaf of a port SwarmState or MatchingPlan as numpy arrays,
-    with the dtypes and shapes the JAX package stores."""
-    if isinstance(obj, SwarmState):
-        return {f.name: leaf_array(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    """Every leaf of a port SwarmState, PackedSwarm or MatchingPlan as
+    numpy arrays, with the dtypes and shapes the JAX package stores."""
+    if isinstance(obj, (SwarmState, PackedSwarm)):
+        return {name: leaf_array(name, getattr(obj, name)) for name in leaf_fields(obj)}
     if isinstance(obj, MatchingPlan):
         out = {}
         for name in PLAN_LEAVES:
@@ -98,4 +110,4 @@ def to_numpy(obj) -> dict:
             else:
                 out[name] = None if v is None else v.cpu().numpy()
         return out
-    raise TypeError(f"to_numpy takes a SwarmState or MatchingPlan, got {type(obj).__name__}")
+    raise TypeError(f"to_numpy takes a SwarmState, PackedSwarm or MatchingPlan, got {type(obj).__name__}")

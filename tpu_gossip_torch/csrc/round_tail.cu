@@ -15,11 +15,15 @@
 // Design: one thread per element, every plane read once and written once;
 // the TPU's (512, M) row blocks become a flat grid, the (blk, 1) fresh and
 // (1, M) expired operands become per-row and per-column byte reads (both
-// optional, null when absent). Bools are the 0/1 bytes torch stores. rnd
-// arrives saturated at the int16 plane width, as a one-element device
-// buffer so the round cursor never leaves the card, and the SIR age is computed
-// in int32 so the -1 sentinel cannot wrap. When nothing touches forwarded
-// the kernel neither reads nor writes it (the wrapper passes it through).
+// optional, null when absent). Bools are the 0/1 bytes torch stores. The
+// round arrives twice, as one-element device buffers so the round cursor
+// never leaves the card: saturated at the int16 plane width (rnd16, what
+// the latch stores) and wide (rnd32). The SIR age is rnd32 - ir when
+// age_saturated is 0 (the XLA tail_fused) and rnd16 - ir when it is 1
+// (the Pallas tail_pallas, which sees only the saturated cursor); the two
+// differ once a run passes ROUND_CAP. It is computed in int32 so the -1
+// sentinel cannot wrap. When nothing touches forwarded the kernel neither
+// reads nor writes it (the wrapper passes it through).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,11 +37,13 @@ __global__ void round_tail_kernel(
     const uint8_t* __restrict__ tx, const uint8_t* __restrict__ fresh,
     const uint8_t* __restrict__ expired, uint8_t* __restrict__ o_seen,
     int16_t* __restrict__ o_ir, uint8_t* __restrict__ o_rec,
-    uint8_t* __restrict__ o_fwd, const int16_t* __restrict__ rnd_ptr,
-    long long n, int m, int forward_once, int sir, int needs_fwd) {
+    uint8_t* __restrict__ o_fwd, const int16_t* __restrict__ rnd16_ptr,
+    const int32_t* __restrict__ rnd32_ptr, long long n, int m,
+    int forward_once, int sir, int needs_fwd, int age_saturated) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n * m) return;
-  const int rnd16 = *rnd_ptr;
+  const int rnd16 = *rnd16_ptr;
+  const int age = age_saturated ? rnd16 : *rnd32_ptr;
   const long long row = e / m;
   const int col = static_cast<int>(e - row * m);
 
@@ -53,7 +59,7 @@ __global__ void round_tail_kernel(
   int16_t new_ir = (in && !s && old_ir < 0) ? static_cast<int16_t>(rnd16) : old_ir;
   bool r = rec[e] != 0;
   if (sir > 0) {
-    r = r || (new_ir >= 0 && rnd16 - static_cast<int>(new_ir) >= sir);
+    r = r || (new_ir >= 0 && age - static_cast<int>(new_ir) >= sir);
   }
   if (!keep) {
     new_ir = -1;
@@ -75,9 +81,9 @@ extern "C" int round_tail(const void* seen, const void* ir, const void* rec,
                           const void* inc, const void* recp, const void* fwd,
                           const void* tx, const void* fresh, const void* expired,
                           void* o_seen, void* o_ir, void* o_rec, void* o_fwd,
-                          const void* rnd16, long long n, int m,
-                          int forward_once, int sir, int needs_fwd,
-                          void* stream) {
+                          const void* rnd16, const void* rnd32, long long n,
+                          int m, int forward_once, int sir, int needs_fwd,
+                          int age_saturated, void* stream) {
   const long long total = n * m;
   if (total <= 0) return static_cast<int>(cudaGetLastError());
   constexpr int kThreads = 256;
@@ -89,7 +95,8 @@ extern "C" int round_tail(const void* seen, const void* ir, const void* rec,
       static_cast<const uint8_t*>(tx), static_cast<const uint8_t*>(fresh),
       static_cast<const uint8_t*>(expired), static_cast<uint8_t*>(o_seen),
       static_cast<int16_t*>(o_ir), static_cast<uint8_t*>(o_rec),
-      static_cast<uint8_t*>(o_fwd), static_cast<const int16_t*>(rnd16), n, m,
-      forward_once, sir, needs_fwd);
+      static_cast<uint8_t*>(o_fwd), static_cast<const int16_t*>(rnd16),
+      static_cast<const int32_t*>(rnd32), n, m, forward_once, sir, needs_fwd,
+      age_saturated);
   return static_cast<int>(cudaGetLastError());
 }

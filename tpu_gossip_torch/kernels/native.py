@@ -51,6 +51,7 @@ SOURCES = {
     "fold_planes": "fold_planes.cu",
     "round_tail": "round_tail.cu",
     "staircase_segment": "staircase_segment.cu",
+    "round_tail_words": "round_tail_words.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -64,16 +65,19 @@ _SIGNATURES = {
         "fold_planes_sum": (_P, _P, _L, _L, _I, _P),
     },
     "round_tail": {
-        "round_tail": (_P,) * 14 + (_L, _I, _I, _I, _I, _P),
+        "round_tail": (_P,) * 15 + (_L, _I, _I, _I, _I, _I, _P),
     },
     "staircase_segment": {
         "staircase_segment": (_P,) * 6 + (_L, _I, _I, _P),
+    },
+    "round_tail_words": {
+        "round_tail_words": (_P,) * 15 + (_L, _I, _I, _I, _I, _I, _P),
     },
 }
 
 # launch counts per kernel entry (K2 counts its OR and SUM forms apart)
 LAUNCHES: dict[str, int] = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 0,
-                            "staircase_segment": 0}
+                            "staircase_segment": 0, "round_tail_words": 0}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 

@@ -9,12 +9,14 @@ paths over a MatchingPlan or a StaircasePlan, the exactly-k XLA push and
 pull halves over the CSR, and flood through ``matching_flood``,
 ``segment_or`` or ``flood_all``; ``advance_round`` (:821),
 ``gossip_round`` (:1012), ``simulate`` (:1114) and ``run_until_coverage``
-(:1170).
+(:1170). Each entry point takes a ``PackedSwarm`` too, runs the round on
+its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
 ``run_until_coverage`` reads its stop condition on the host once per round
-(one device synchronisation per round). Rounds are functional: each returns
+(one device synchronisation per round; a packed state's from one bit
+column). Rounds are functional: each returns
 a new state and leaves its input's planes unchanged. Churn re-wiring
 (``rewire_slots > 0``), the controller and re-materialisation belong to
 later slices and raise ``NotImplementedError``.
@@ -28,6 +30,7 @@ import torch
 
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
+from tpu_gossip_torch.core.packed import is_packed
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.kernels.gossip import flood_all, pull_fanout, push_fanout, sample_fanout_targets
 from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
@@ -249,7 +252,12 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
                  **later):
-    """Advance the swarm one round; returns ``(new_state, RoundStats)``."""
+    """Advance the swarm one round; returns ``(new_state, RoundStats)``. A
+    ``PackedSwarm`` runs the packed-native round and stays packed."""
+    if is_packed(state):
+        from tpu_gossip_torch.sim.packed_engine import gossip_round_packed
+
+        return gossip_round_packed(state, cfg, plan, tail=tail, **later)
 
     def disseminate(tx, tr, rc, kp, kq):
         return _disseminate_local(state, cfg, tx, tr, rc, kp, kq, plan)

@@ -52,14 +52,19 @@ def _sync(state: SwarmState) -> None:
 
 def bench_swarm(state: SwarmState, cfg: SwarmConfig, target: float = 0.99,
                 max_rounds: int = 1000, *, warmup: bool = True, reps: int = 1,
-                plan=None, n_peers: int | None = None, tail: str = "fused"):
+                plan=None, run=None, n_peers: int | None = None, tail: str = "fused"):
     """Time ``run_until_coverage`` (best of ``reps``, after one warm-up run
     that builds the kernels); returns ``(best BenchResult, final state)``.
-    Rounds are functional, so every repetition starts from ``state``."""
+    Rounds are functional, so every repetition starts from ``state``.
+    ``run(state) -> final state`` swaps in another runner (a packed run)
+    under the same timing; it closes over its own plan."""
+    if run is not None and plan is not None:
+        raise ValueError("bench_swarm: pass plan= only with the default runner; a custom run= "
+                         "closes over its own plan")
     n = cfg.n_peers if n_peers is None else n_peers
-
-    def run(st):
-        return run_until_coverage(st, cfg, target, max_rounds, plan=plan, tail=tail)
+    if run is None:
+        def run(st):
+            return run_until_coverage(st, cfg, target, max_rounds, plan=plan, tail=tail)
 
     if warmup:
         run(state)

@@ -2,6 +2,7 @@
 
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 6
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --staircase
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --packed
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -13,7 +14,10 @@ planes are mid-epidemic, then prints JSON lines: the time of each stage of
 the round taken alone (CUDA events, mean over ``--reps`` calls; the XLA
 path reports the whole round only), and a ``torch.profiler`` trace of
 ``--rounds`` rounds summed by kernel name with the device's busy share of
-the wall time. Needs a CUDA device.
+the wall time. With ``--packed`` the swarm is packed after the warm rounds
+and the stages are the packed round's: the flags decode, the word head,
+the codec at delivery, the delivery itself, K4 and the stats (the matching
+graph and ``--graph device`` without ``--staircase``). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
 from tpu_gossip_torch.kernels import pallas_segment as seg
 from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
 from tpu_gossip_torch.kernels.pallas_segment import pack_words, popcount, unpack_words
-from tpu_gossip_torch.kernels.round_tail import round_tail
+from tpu_gossip_torch.core.packed import pack_bits, pack_state, unpack_bits
+from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words
 from tpu_gossip_torch.sim import engine
+from tpu_gossip_torch.sim import packed_engine as pe
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -121,6 +127,44 @@ def staircase_stage_times(state, cfg, plan, reps: int) -> dict:
     return {name: _event_ms(fn, reps) for name, fn in stages.items()}
 
 
+def packed_stage_times(ps, cfg, plan, reps: int) -> dict:
+    """Each stage of one packed round, timed alone (ms). ``codec`` is the
+    decode and repack that the delivery pays: three planes and the
+    product on a plan's path, the push payload and product on the
+    word-native exactly-k path."""
+    m = ps.msg_slots
+    flags = pe._decode_flags(ps)
+    _, role_w, tx_w = pe.packed_round_head(ps, cfg, flags)
+    k_push, k_pull = prng.split(ps.rng, 5)[1:3]
+    inc_w, _ = pe._disseminate_local_packed(ps, cfg, flags, role_w, tx_w, k_push, k_pull, plan)
+    rnd = ps.round + 1
+    if plan is None:
+        def codec():
+            return pack_bits(unpack_bits(tx_w, m))
+    else:
+        def codec():
+            return (unpack_bits(role_w, m), unpack_bits(ps.seen, m), pack_bits(unpack_bits(tx_w, m)))
+    stages = {
+        "key_splits": lambda: prng.split(prng.split(prng.split(ps.rng, 5)[1])[0]),
+        "decode_flags": lambda: pe._decode_flags(ps),
+        "head_words": lambda: pe.packed_round_head(ps, cfg, flags),
+        "codec": codec,
+        "delivery_with_codec": lambda: pe._disseminate_local_packed(ps, cfg, flags, role_w, tx_w, k_push,
+                                                                    k_pull, plan),
+        "liveness": lambda: detect_failures(
+            emit_heartbeats(ps.last_hb, flags["alive"], flags["silent"], flags["declared_dead"], rnd,
+                            cfg.hb_period_rounds),
+            flags["alive"], flags["silent"], flags["declared_dead"], rnd, cfg.timeout_rounds,
+            cfg.detect_period_rounds),
+        "tail_k4": lambda: round_tail_words(
+            ps.seen, ps.forwarded, ps.infected_round, ps.recovered, inc_w, role_w, tx_w, None, rnd,
+            m=m, forward_once=False, sir_recover_rounds=0),
+        "stats": lambda: pe._stats_packed(ps, flags, torch.zeros((), dtype=torch.int32, device=rnd.device)),
+        "whole_round": lambda: engine.gossip_round(ps, cfg, plan),
+    }
+    return {name: _event_ms(fn, reps) for name, fn in stages.items()}
+
+
 def trace_rounds(state, cfg, plan, rounds: int) -> dict:
     """torch.profiler over ``rounds`` rounds: device time by kernel name
     (kernel rows only, so no time is counted twice) and the device's busy
@@ -158,6 +202,7 @@ def main(argv=None) -> int:
     p.add_argument("--peers", type=int, default=1_000_000)
     p.add_argument("--graph", choices=["matching", "device", "pa"], default="matching")
     p.add_argument("--staircase", action="store_true", help="deliver the CSR graphs through K5")
+    p.add_argument("--packed", action="store_true", help="profile the packed round (no --staircase)")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -181,14 +226,19 @@ def main(argv=None) -> int:
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
     state, _ = engine.simulate(state, cfg, args.warm, plan)
-    if args.graph == "matching":
+    if args.packed:
+        if args.staircase:
+            raise SystemExit("--packed profiles the matching and exactly-k paths; drop --staircase")
+        state = pack_state(state)
+        stages = packed_stage_times(state, cfg, plan, args.reps)
+    elif args.graph == "matching":
         stages = stage_times(state, cfg, plan, args.reps)
     elif plan is not None:
         stages = staircase_stage_times(state, cfg, plan, args.reps)
     else:
         stages = {"whole_round": _event_ms(lambda: engine.gossip_round(state, cfg, None), args.reps)}
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
-                      "stage_ms": stages}))
+                      "packed": args.packed, "stage_ms": stages}))
     print(json.dumps({"trace": trace_rounds(state, cfg, plan, args.rounds)}))
     return 0
 

@@ -19,7 +19,8 @@ from typing import Callable, Mapping
 
 from tpu_gossip_torch.core import prng
 
-__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "run_protocol_round", "not_ported"]
+__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "run_protocol_round", "not_ported",
+           "check_later"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +126,19 @@ def build_round_stages(cfg, *, tail: str = "fused") -> tuple[Stage, ...]:
     return (_liveness_stage(cfg), _tail_stage(cfg, tail))
 
 
+def check_later(later: dict) -> None:
+    """Refuse the arguments of later slices (given and not None) and any
+    unknown argument."""
+    for name, where in (("scenario", "faults"), ("growth", "growth"), ("stream", "traffic"),
+                        ("control", "control"), ("pipeline", "multi-device"),
+                        ("liveness", "composed-planes (quorum detector)"),
+                        ("inject", "serving")):
+        if later.pop(name, None) is not None:
+            raise not_ported(f"the {name} argument", where)
+    if later:
+        raise TypeError(f"unexpected arguments {sorted(later)}")
+
+
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", **later):
     """One whole protocol round, engine-agnostic.
 
@@ -136,14 +150,7 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     """
     from tpu_gossip_torch.sim import engine as _engine
 
-    for name, where in (("scenario", "faults"), ("growth", "growth"), ("stream", "traffic"),
-                        ("control", "control"), ("pipeline", "multi-device"),
-                        ("liveness", "composed-planes (quorum detector)"),
-                        ("inject", "serving")):
-        if later.pop(name, None) is not None:
-            raise not_ported(f"the {name} argument", where)
-    if later:
-        raise TypeError(f"unexpected arguments {sorted(later)}")
+    check_later(later)
     _engine.validate_rewire_width(state, cfg)
     rnd = state.round + 1
     # the leave/join children drive churn, a later slice; the split stays 5-way

@@ -4,8 +4,9 @@ Ports ``state_digest`` and ``stats_digest`` of
 ``tpu_gossip/fleet/engine.py`` (:130-162). Each leaf is hashed as the numpy
 array the JAX package would hash: its dtype string, its shape and its
 bytes, in the state's field order. The key hashes as uint32 (2,), and
-``round`` and ``control_lvl`` as int32 of shape (). ``stats_digest`` hashes
-the integer stat tracks only, by name.
+``round`` and ``control_lvl`` as int32 of shape (). Static fields (a
+``PackedSwarm``'s ``msg_slots``) are no leaves of the JAX pytree and are not
+hashed. ``stats_digest`` hashes the integer stat tracks only, by name.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import hashlib
 import numpy as np
 import torch
 
-__all__ = ["state_digest", "stats_digest", "leaf_array"]
+__all__ = ["state_digest", "stats_digest", "leaf_array", "leaf_fields"]
 
 
 def leaf_array(name: str, leaf: torch.Tensor) -> np.ndarray:
@@ -25,11 +26,17 @@ def leaf_array(name: str, leaf: torch.Tensor) -> np.ndarray:
     return arr.astype(np.uint32) if name == "rng" else arr
 
 
+def leaf_fields(state) -> list[str]:
+    """The state's leaf field names in order: its static fields left out,
+    as ``jax.tree.leaves`` leaves them out."""
+    return [f.name for f in dataclasses.fields(state) if not f.metadata.get("static")]
+
+
 def state_digest(state) -> str:
     """sha256 over every state leaf, in field order."""
     h = hashlib.sha256()
-    for f in dataclasses.fields(state):
-        arr = leaf_array(f.name, getattr(state, f.name))
+    for name in leaf_fields(state):
+        arr = leaf_array(name, getattr(state, name))
         h.update(str(arr.dtype).encode())
         h.update(str(arr.shape).encode())
         h.update(np.ascontiguousarray(arr).tobytes())
