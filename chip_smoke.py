@@ -2,21 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels (K1 lane shuffle, K2 plane fold, K3
-round tail, K4 packed word tail, K5 staircase segment) from
-``tpu_gossip_torch/csrc`` and the host C++ preferential-attachment
-library, holds each kernel against its plain PyTorch version on the card
-(exact equality; K3 and K4 in both SIR-age modes, past ROUND_CAP too),
-reproduces the JAX-pinned n=20000 digests
-(``tpu_gossip_torch/reference_digests.json``, packed runs included), then
-drives five paths at 1M peers (push_pull, fanout 1, 16 slots, to 99%
-coverage), each with its launches counted from zero: the matching headline
-(K1, K2, K3), the power-law CSR swarm delivered by the staircase kernel
-(K5, K3), the exactly-k XLA delivery on the same graph (K3), and the packed
-twins of the headline (K1, K2, K4) and of the exactly-k path (K4 alone),
-each packed run digest-equal to its unpacked twin. Last it times each
-kernel at its path's shapes beside its byte bound, its plain version and
-the one torch call that computes the same function, where there is one.
+Builds the port's six CUDA kernels (K1 lane shuffle, K2 plane fold, K3
+round tail, K4 packed word tail, K5 staircase segment, K6 streaming
+segment) from ``tpu_gossip_torch/csrc`` and the host C++
+preferential-attachment library, holds each kernel against its plain
+PyTorch version on the card (exact equality; K3 and K4 in both SIR-age
+modes, past ROUND_CAP too), reproduces the JAX-pinned n=20000 digests
+(``tpu_gossip_torch/reference_digests.json``, packed and sharded runs
+included), then drives eight paths at 1M peers (push_pull, fanout 1, 16
+slots, to 99% coverage), each with its launches counted from zero: the
+matching headline (K1, K2, K3), the power-law CSR swarm delivered by the
+staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
+(K3), the packed twins of the headline (K1, K2, K4) and of the exactly-k
+path (K4 alone), each packed run digest-equal to its unpacked twin, and
+the bucketed sharded engine on a one-shard mesh over the same graph: its
+receive through K6 (K6, K3), its scatter twin (K3) and its packed twin
+(K6, K4), all three digest-equal. Last it times each kernel at its path's
+shapes beside its byte bound, its plain version and the one torch call
+that computes the same function, where there is one.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -241,6 +244,67 @@ def check_k5(dev, gen, dgraph) -> int:
     return err
 
 
+def shard_setup(dev, n: int) -> dict:
+    """The sharded path's set-up as ``run_sim --shard --staircase`` makes
+    it: the 4b graph built on the card and exported to the host, then
+    ``partition_graph`` over a one-shard mesh and ``build_shard_plans``,
+    each timed."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+
+    t0 = time.perf_counter()
+    graph = device_powerlaw_graph(n, gamma=2.5, key=prng.key(0, dev), device=dev).to_host_graph()
+    t1 = time.perf_counter()
+    mesh = dist.make_mesh(device=dev)
+    sg, rel, pos = dist.partition_graph(graph, mesh.size, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    plan = dist.build_shard_plans(sg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    valid = int(sg.send_valid.sum())
+    return dict(mesh=mesh, sg=sg, rel=rel, pos=pos, plan=plan,
+                info=dict(graph_s=t1 - t0, partition_s=t2 - t1, plan_s=t3 - t2, shards=mesh.size,
+                          valid_slots=valid, bucket=sg.bucket, windows=sg.n_shards * sg.bucket // 1024,
+                          n_tiles=plan.n_tiles, n_blocks=plan.n_blocks, n_pad=sg.n_pad))
+
+
+def stream_cases(dev, setup: dict):
+    """(plan, length) of every K6 case: the 4f plan; each of the eight
+    shards of a Chung-Lu 100k graph's S = 8 plans; an edgeless plan."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import topology as tt
+
+    yield setup["plan"], 0, setup["sg"].n_shards * setup["sg"].bucket
+    deg = tt.powerlaw_degree_sequence(100_000, rng=np.random.default_rng(3))
+    cl = tt.build_csr(100_000, tt.configuration_model(deg, rng=np.random.default_rng(4)))
+    sg8, _, _ = dist.partition_graph(cl, 8, seed=1, device=dev)
+    plan8 = dist.build_shard_plans(sg8)
+    for d in range(8):
+        yield plan8, d, 8 * sg8.bucket
+    sg0, _, _ = dist.partition_graph(tt.build_csr(5000, np.zeros((0, 2), np.int64)), 2, device=dev)
+    yield dist.build_shard_plans(sg0, rows=128), 1, 2 * sg0.bucket
+
+
+def check_k6(dev, gen, setup: dict) -> int:
+    """K6 against its plain version at word widths m = 1, 16 and 32, words
+    random with bit 31 set in the first slots."""
+    from tpu_gossip_torch.kernels.pallas_segment import stream_segment_or, stream_segment_plain
+
+    err = 0
+    for plan, d, length in stream_cases(dev, setup):
+        vals = torch.randint(-2**31, 2**31 - 1, (length,), generator=gen, device=dev, dtype=torch.int32)
+        vals[:8] = -2**31
+        for m in (1, 16, 32):
+            v = vals if m == 32 else vals & ((1 << m) - 1)
+            args = (plan.tile_block[d], plan.window_idx[d], plan.offs[d], v, plan.rows, plan.n_blocks)
+            err = max(err, max_err(stream_segment_or(*args), stream_segment_plain(*args)))
+    return err
+
+
 def phase_digest(root: Path, dev) -> list[dict]:
     """The port's CLI at every JAX-pinned n=20000 configuration."""
     from tpu_gossip_torch.cli import run_sim
@@ -318,6 +382,52 @@ def run_to_coverage(dev, dgraph, n: int, plan, what: str, packed: bool = False) 
                 digest=state_digest(fin))
 
 
+def run_sharded(dev, setup: dict, plan, what: str, packed: bool = False) -> dict:
+    """``init_sharded_swarm`` with one origin (``default_rng(0)``, as the
+    CLI draws it), push_pull fanout 1 to 99% by ``run_until_coverage_dist``
+    over the one-shard mesh, through K6 with ``plan`` and the scatter
+    receive without (on the packed state when ``packed``), then the checks
+    of :func:`run_to_coverage`."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.packed import PackedSwarm, pack_state, unpack_state
+    from tpu_gossip_torch.core.state import SwarmConfig
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    sg, mesh = setup["sg"], setup["mesh"]
+    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
+    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
+    state = dist.shard_swarm(dist.init_sharded_swarm(sg, setup["rel"], setup["pos"], cfg, key=prng.key(0, dev),
+                                                     origins=origins, device=dev), mesh)
+    if packed:
+        state = pack_state(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fin = dist.run_until_coverage_dist(state, cfg, sg, mesh, 0.99, 1000, shard_plan=plan)
+    cov = float(fin.coverage(0))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated(dev)
+    if isinstance(fin, PackedSwarm) != packed:
+        raise AssertionError(f"{what} run returned a {type(fin).__name__}")
+    if packed:
+        fin = unpack_state(fin)
+    rounds = int(fin.round)
+    if not (0.99 <= cov <= 1.0) or not 0 < rounds < 1000:
+        raise AssertionError(f"{what} run ended at coverage {cov} after {rounds} rounds")
+    live = fin.alive & ~fin.declared_dead
+    if int((fin.seen[:, 0] & live).sum()) < 0.99 * int(live.sum()):
+        raise AssertionError(f"{what} final state holds fewer infected peers than its coverage")
+    if bool((fin.infected_round[:, 0] >= 0).ne(fin.seen[:, 0]).any()):
+        raise AssertionError(f"{what} infected_round latch disagrees with seen")
+    if bool(fin.seen[sg.n:].any()) or int(live[sg.n:].sum()) != 0:
+        raise AssertionError(f"{what} run reached a pad slot")
+    return dict(rounds=rounds, coverage=cov, run_s=run_s, run_peak=run_peak, digest=state_digest(fin))
+
+
 def phase_staircase(dev, n: int):
     """The slice's path: the power-law swarm built on the card, its
     staircase plan built on the host as the CLI builds it (and on the card,
@@ -383,6 +493,34 @@ def time_k5(plan, dev, gen) -> dict:
     slots = plan.n_tiles * TILE
     return dict(ms=time_ms(lambda: staircase_segment(*args)), plain_ms=time_ms(lambda: staircase_plain(*args), 10),
                 library_ms=time_ms(library, 10), bytes=slots * 12 + size * 8)
+
+
+def time_k6(setup: dict, dev, gen) -> dict:
+    """K6's launch at the 4f plan over dense 16-bit words (its wrapper
+    checks the windows first, a read back from the card: timed apart), its
+    plain version, and the torch yardstick: ``scatter_reduce_`` amax of pre-unpacked (entries,
+    16) uint8 bit planes into the destination rows (the JAX scatter
+    receive). Bytes: each tile's offs (4 B a slot), each distinct window of
+    the stream the plan reads once (4 B a word; a window two blocks share
+    and the padding tiles' window count once), each output row (4 B)."""
+    from tpu_gossip_torch.kernels.pallas_segment import TILE, _stream_launch, stream_segment_or, stream_segment_plain
+
+    sg, plan = setup["sg"], setup["plan"]
+    vals = torch.randint(0, 1 << M_SLOTS, (sg.n_shards * sg.bucket,), generator=gen, device=dev, dtype=torch.int32)
+    args = (plan.tile_block[0], plan.window_idx[0], plan.offs[0], vals, plan.rows, plan.n_blocks)
+    shifts = torch.arange(M_SLOTS, dtype=torch.int32, device=dev)
+    planes = ((vals[:, None] >> shifts) & 1).to(torch.uint8)
+    idx = sg.recv_dst[0].reshape(-1).to(torch.int64)[:, None].expand(-1, M_SLOTS)
+
+    def library():
+        return torch.zeros((sg.per_shard, M_SLOTS), dtype=torch.uint8, device=dev).scatter_reduce_(
+            0, idx, planes, "amax")
+
+    windows = int(torch.unique(plan.window_idx[0]).numel())
+    return dict(ms=time_ms(lambda: _stream_launch(*args)), plain_ms=time_ms(lambda: stream_segment_plain(*args), 10),
+                wrapper_ms=loop_ms(lambda: stream_segment_or(*args)), library_ms=time_ms(library, 10),
+                windows_read=windows,
+                bytes=(plan.n_tiles + windows) * TILE * 4 + plan.n_blocks * plan.rows * 4)
 
 
 def phase_timing(plan, dev, gen, n: int) -> dict:
@@ -454,18 +592,24 @@ KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
      "tpu_gossip/kernels/pallas_segment.py:447", "staircase_segment"),
     ("round_tail_words", "round_tail_words", "tpu_gossip_torch/csrc/round_tail_words.cu",
      "tpu_gossip/kernels/round_tail.py:444", "round_tail_words"),
+    ("stream_segment", "stream_segment", "tpu_gossip_torch/csrc/stream_segment.cu",
+     "tpu_gossip/kernels/pallas_segment.py:509", "stream_segment"),
 )
 # the launches each path must make, and must not make, per round (None: at
 # least one; a key left out is not checked)
 MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "fold_planes_sum": None, "round_tail": None,
-                 "staircase_segment": 0, "round_tail_words": 0}
+                 "staircase_segment": 0, "round_tail_words": 0, "stream_segment": 0}
 STAIRCASE_PATH = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 1,
-                  "staircase_segment": 1, "round_tail_words": 0}
+                  "staircase_segment": 1, "round_tail_words": 0, "stream_segment": 0}
 XLA_PATH = dict(STAIRCASE_PATH, staircase_segment=0)
 # the packed headline reuses 4a's plan, so the build's SUM fold is not in its window
 PACKED_MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail": 0, "staircase_segment": 0,
-                        "round_tail_words": 1}
+                        "round_tail_words": 1, "stream_segment": 0}
 PACKED_XLA_PATH = dict(XLA_PATH, round_tail=0, round_tail_words=1)
+# the sharded paths on a one-shard mesh: one K6 launch a round (one 32-slot group)
+SHARD_STAIRCASE_PATH = dict(XLA_PATH, stream_segment=1)
+SHARD_SCATTER_PATH = dict(XLA_PATH)
+SHARD_PACKED_PATH = dict(SHARD_STAIRCASE_PATH, round_tail=0, round_tail_words=1)
 
 
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
@@ -504,10 +648,10 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     for name in native.SOURCES:
         native.library(name)
     host_native.library()
-    print(f"build: {len(native.SOURCES)} kernel sources and the host PA library in "
+    print(f"build: {len(native.SOURCES)} kernel sources ({', '.join(native.SOURCES)}) and the host PA library in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # phase 2: each kernel against its plain version on the card, exactly
+    # phase 2: each kernel against its plain version on the card, exactly (K6 at phase 4f)
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
 
@@ -585,11 +729,42 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
               f"final state digest equal to the unpacked twin's", flush=True)
         print(f"[{card}] {what}-path launches: {packed_launches[what]}", flush=True)
 
+    # phases 4f, 4g and 4h: the bucketed sharded engine over 4b's graph on
+    # a one-shard mesh (run_sim --shard --staircase, its scatter twin, its
+    # packed twin), counted from 0, all three digest-equal
+    shard = shard_setup(dev, N_HEADLINE)
+    print(f"[{card}] sharded set-up n={N_HEADLINE} gamma=2.5, one-shard mesh: {shard['info']}", flush=True)
+    # K6 against its plain version, on this set-up's plan among others (phase
+    # 2's check, made here so the set-up is built once and 4a-4e's peaks exclude it)
+    errs["stream_segment"] = check_k6(dev, gen, shard)
+    print(f"K6 equals its plain version: {errs['stream_segment']}", flush=True)
+    shard_runs, shard_launches = {}, {}
+    for what, pl, packed, want in (("sharded staircase", shard["plan"], False, SHARD_STAIRCASE_PATH),
+                                   ("sharded scatter", None, False, SHARD_SCATTER_PATH),
+                                   ("sharded packed", shard["plan"], True, SHARD_PACKED_PATH)):
+        native.reset_launches()
+        r = run_sharded(dev, shard, pl, what, packed)
+        shard_launches[what] = dict(native.LAUNCHES)
+        check_launches(what, shard_launches[what], want, r["rounds"])
+        if shard_runs:
+            first = shard_runs["sharded staircase"]
+            for k in ("rounds", "digest"):
+                if r[k] != first[k]:
+                    raise AssertionError(f"{what} run's {k} {r[k]} != the K6 run's {first[k]}")
+        shard_runs[what] = r
+        print(f"[{card}] {what} n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: rounds to 99% {r['rounds']}, "
+              f"coverage {r['coverage']}, {r['run_s'] * 1e3 / r['rounds']} ms/round, "
+              f"{N_HEADLINE * r['rounds'] / r['run_s']} peers*rounds/s, run max_memory_allocated {r['run_peak']} B"
+              + ("" if what == "sharded staircase" else ", final state digest equal to the K6 run's"), flush=True)
+        print(f"[{card}] {what}-path launches: {shard_launches[what]}", flush=True)
+
     # phase 5: kernel times at each path's shapes
     times = phase_timing(plan, dev, gen, N_HEADLINE)
     times["staircase_segment"] = time_k5(splan, dev, gen)
+    times["stream_segment"] = time_k6(shard, dev, gen)
     path_launches = dict(launches, staircase_segment=s_launches["staircase_segment"],
-                         round_tail_words=packed_launches["packed matching"]["round_tail_words"])
+                         round_tail_words=packed_launches["packed matching"]["round_tail_words"],
+                         stream_segment=shard_launches["sharded staircase"]["stream_segment"])
     kernels = []
     for name, key, source, replaces, err_key in KERNELS:
         t = times[key]
@@ -601,8 +776,10 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
         })
         lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3} us"
         loop = "" if t.get("loop_ms") is None else f", back-to-back calls {t['loop_ms'] * 1e3} us"
-        print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us, "
-              f"plain {t['plain_ms'] * 1e3} us, library {lib}{loop}", flush=True)
+        loop += "" if t.get("wrapper_ms") is None else f", wrapper with its check {t['wrapper_ms'] * 1e3} us"
+        reads = "" if t.get("windows_read") is None else f", {t['windows_read']} stream windows read"
+        print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us "
+              f"({t['bytes']} B{reads}), plain {t['plain_ms'] * 1e3} us, library {lib}{loop}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -205,3 +205,100 @@ def _assert_card_equals_cpu(argv):
     parser = run_sim.build_parser()
     assert run_sim.run(parser.parse_args(argv + ["--device", "cuda"])) == \
         run_sim.run(parser.parse_args(argv + ["--device", "cpu"]))
+
+
+def _shard_plans(dev, kind: str, s: int):
+    """(ShardedGraph, ShardPlans) on the card: a Chung-Lu graph, or a star
+    and ring inside shard 0 (windows split across blocks, shard 1's runs
+    empty), or an edgeless graph."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import topology as tt
+
+    if kind == "chung_lu":
+        deg = tt.powerlaw_degree_sequence(20000, rng=np.random.default_rng(s))
+        g = tt.build_csr(20000, tt.configuration_model(deg, rng=np.random.default_rng(1)))
+    elif kind == "hub":
+        star = np.stack([np.zeros(299, np.int64), np.arange(1, 300)], axis=1)
+        ring = np.stack([np.arange(1, 299), np.arange(2, 300)], axis=1)
+        g = tt.build_csr(600, np.concatenate([star, ring]))
+    else:
+        g = tt.build_csr(600, np.zeros((0, 2), np.int64))
+    sg, _, _ = dist.partition_graph(g, s, seed=0, permute=kind == "chung_lu", device=dev)
+    return sg, dist.build_shard_plans(sg, rows=1024 if kind == "chung_lu" else 128)
+
+
+@pytest.mark.parametrize("kind,s", [("chung_lu", 1), ("chung_lu", 2), ("chung_lu", 8), ("hub", 2), ("edgeless", 2)])
+@pytest.mark.parametrize("m", [1, 16, 32])
+def test_stream_segment_kernel_equals_plain(dev, kind, s, m):
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.pallas_segment import stream_segment_or, stream_segment_plain
+
+    sg, plan = _shard_plans(dev, kind, s)
+    g = _gen(dev, s * 100 + m)
+    for d in range(s):
+        vals = torch.randint(-2**31, 2**31 - 1, (s * sg.bucket,), generator=g, device=dev, dtype=torch.int32)
+        vals = vals if m == 32 else vals & ((1 << m) - 1)
+        args = (plan.tile_block[d], plan.window_idx[d], plan.offs[d], vals, plan.rows, plan.n_blocks)
+        before = LAUNCHES["stream_segment"]
+        got = stream_segment_or(*args)
+        assert LAUNCHES["stream_segment"] == before + 1
+        assert torch.equal(got, stream_segment_plain(*args))
+
+
+def test_stream_segment_refuses_window_past_the_stream(dev):
+    """The kernel's route refuses a window outside the stream, as the plain
+    version does, and launches nothing."""
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.pallas_segment import stream_segment_or
+
+    sg, plan = _shard_plans(dev, "chung_lu", 2)
+    vals = torch.zeros((2 * sg.bucket,), dtype=torch.int32, device=dev)
+    wi = plan.window_idx[1].clone()
+    wi[-1] = 2 * sg.bucket // 1024
+    before = LAUNCHES["stream_segment"]
+    with pytest.raises(ValueError, match="window_idx must lie in"):
+        stream_segment_or(plan.tile_block[1], wi, plan.offs[1], vals, plan.rows, plan.n_blocks)
+    assert LAUNCHES["stream_segment"] == before
+
+
+@pytest.mark.parametrize("s", [1, 8])
+@pytest.mark.parametrize("receive", ["k6", "scatter", "packed"])
+def test_sharded_runs_launch_what_their_path_needs(dev, s, receive):
+    """A sharded run on one card equals its CPU run and launches K6 once a
+    round per shard (m = 16: one slot group) with a plan, never without
+    one; K3 once a round, or K4 on the packed state; K5 never."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core import topology as tt
+    from tpu_gossip_torch.core.packed import pack_state, unpack_state
+    from tpu_gossip_torch.core.state import SwarmConfig
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    deg = tt.powerlaw_degree_sequence(5000, rng=np.random.default_rng(0))
+    graph = tt.build_csr(5000, tt.configuration_model(deg, rng=np.random.default_rng(1)))
+    rounds, out = 6, {}
+    for d in (dev, torch.device("cpu")):
+        mesh = dist.make_mesh(s, device=d)
+        sg, rel, pos = dist.partition_graph(graph, s, seed=1, device=d)
+        cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=16, fanout=1, mode="push_pull")
+        state = dist.shard_swarm(dist.init_sharded_swarm(sg, rel, pos, cfg, key=prng.key(1, d), origins=[0, 7],
+                                                         device=d), mesh)
+        plan = None if receive == "scatter" else dist.build_shard_plans(sg)
+        native.reset_launches()
+        fin, stats = dist.simulate_dist(pack_state(state) if receive == "packed" else state, cfg, sg, mesh,
+                                        rounds, plan)
+        fin = unpack_state(fin) if receive == "packed" else fin
+        out[d.type] = (state_digest(fin), stats_digest(stats), dict(native.LAUNCHES))
+    assert out["cuda"][:2] == out["cpu"][:2]
+    launches = out["cuda"][2]
+    assert launches["stream_segment"] == (0 if receive == "scatter" else s * rounds)
+    assert launches["round_tail"] == (0 if receive == "packed" else rounds)
+    assert launches["round_tail_words"] == (rounds if receive == "packed" else 0)
+    assert launches["staircase_segment"] == 0
+    assert all(v == 0 for v in out["cpu"][2].values())
+
+
+@pytest.mark.parametrize("extra", [["--staircase"], ["--staircase", "--packed"], []])
+def test_shard_digest_on_card_equals_cpu(dev, extra):
+    _assert_card_equals_cpu(["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--shard", *extra])

@@ -42,7 +42,7 @@ def test_port_imports_with_jax_blocked():
         "import tpu_gossip_torch.kernels.pallas_segment, tpu_gossip_torch.kernels.gossip\n"
         "import tpu_gossip_torch.native, tpu_gossip_torch.core.device_topology\n"
         "import tpu_gossip_torch.core.packed, tpu_gossip_torch.kernels.packed_ops\n"
-        "import tpu_gossip_torch.sim.packed_engine\n"
+        "import tpu_gossip_torch.sim.packed_engine, tpu_gossip_torch.dist, tpu_gossip_torch.sim.profile\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -78,8 +78,14 @@ def test_default_device_entry_points_raise_without_card(no_card, capsys):
         init_swarm(graph, SwarmConfig(n_peers=3, msg_slots=4), key=prng.key(0, "cpu"))
     with pytest.raises(RuntimeError):
         convert.state_from_jax({})
-    for graph in ("matching", "chung-lu"):
-        assert run_sim.main(["--peers", "100", "--graph", graph, "--rounds", "2"]) == 2
+    from tpu_gossip_torch import dist
+
+    with pytest.raises(RuntimeError):
+        dist.make_mesh()
+    with pytest.raises(RuntimeError):
+        dist.partition_graph(graph, 1)
+    for argv in (["--graph", "matching"], ["--graph", "chung-lu"], ["--graph", "chung-lu", "--shard"]):
+        assert run_sim.main(["--peers", "100", *argv, "--rounds", "2"]) == 2
         assert "CUDA" in capsys.readouterr().err
 
 

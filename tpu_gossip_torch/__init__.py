@@ -6,9 +6,12 @@ over the CSR graphs (``--graph pa|chung-lu``, and the power-law graph
 built on the device), delivered by the exactly-k XLA path or, with
 ``--staircase``, the staircase segment kernel, on the full-width state or
 on the packed state (``pack_state``; the round then computes on the bit
-words). The TPU kernels of those paths are written by hand in CUDA
-(``csrc/``): the 128-lane row shuffle (K1), the plane fold (K2), the round
-tail (K3), the packed word tail (K4) and the staircase segment OR (K5). It
+words). ``tpu_gossip_torch.dist`` runs the CSR graphs on the bucketed
+sharded engine over a mesh of shards on one card (``run_sim --shard``).
+The TPU kernels of those paths are written by hand in CUDA (``csrc/``):
+the 128-lane row shuffle (K1), the plane fold (K2), the round tail (K3),
+the packed word tail (K4), the staircase segment OR (K5) and its
+streaming form, the sharded engine's receive (K6). It
 is held bit for bit against the JAX package through
 ``state_digest``/``stats_digest``. It imports neither JAX nor the JAX
 package.

@@ -6,6 +6,8 @@
         --fanout 1 --graph chung-lu --staircase
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph matching --packed
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph chung-lu --shard --staircase
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -18,9 +20,13 @@ JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
 print the benchmark summary. With ``--packed`` the seeded state is packed
 (``core/packed.py``), the rounds run on its words, and the final state is
-unpacked before the digest, as the JAX CLI does. The summary keys are the
-JAX CLI's. Runs on ``--device cuda`` unless told otherwise; every other
-flag of the JAX CLI is not ported yet and exits 2.
+unpacked before the digest, as the JAX CLI does. With ``--shard`` the CSR
+graphs run on the bucketed sharded engine (``dist/mesh.py``) over a mesh
+of one shard per card (one on the CPU), its receive through K6 with
+``--staircase``; the summary adds ``devices`` and ``transport`` (always
+``dense``), as the JAX CLI's does. The summary keys are the JAX CLI's. Runs on ``--device cuda``
+unless told otherwise; every other flag of the JAX CLI is not ported yet
+and exits 2.
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ import numpy as np
 
 _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
-    "matching, preferential-attachment and Chung-Lu graphs, packed or not "
-    "(later slices add faults, churn, growth, streams, control, checkpoints, "
-    "fleets and the sharded engines)"
+    "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
+    "and the bucketed sharded engine over the CSR graphs (later slices add faults, "
+    "churn, growth, streams, control, checkpoints, fleets, the sharded "
+    "matching engine and the multi-card exchange)"
 )
 
 
@@ -68,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--packed", action="store_true",
                    help="carry the swarm as packed state planes (uint8 bit words, one flags "
                    "byte); the round computes on the words, bit-identical to the unpacked run")
+    p.add_argument("--shard", action="store_true",
+                   help="run the bucketed sharded engine over a mesh of one shard per card "
+                   "(dist/mesh.py); with --staircase each shard's receive runs K6")
     p.add_argument("--digest", action="store_true",
                    help="add state_digest/stats_digest to a fixed-horizon summary")
     p.add_argument("--quiet", action="store_true", help="summary line only, no per-round JSONL")
@@ -81,6 +91,10 @@ def main(argv: list[str] | None = None) -> int:
     if unknown:
         print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
         return 2
+    if args.shard and args.tail != "fused":
+        print(f"--tail {args.tail} selects the LOCAL engine's tail implementation; the sharded engines "
+              "always run the fused tail", file=sys.stderr)
+        return 2
     from tpu_gossip_torch.device import resolve_device
 
     try:
@@ -88,7 +102,12 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(str(e), file=sys.stderr)
         return 2
-    print(json.dumps(run(args)))
+    try:
+        summary = run(args)
+    except NotImplementedError as e:  # a part of a later slice (not_ported), e.g. --shard on several cards
+        print(str(e), file=sys.stderr)
+        return 2
+    print(json.dumps(summary))
     return 0
 
 
@@ -103,12 +122,15 @@ def run(args: argparse.Namespace) -> dict:
     from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
     from tpu_gossip_torch.sim import metrics as M
     from tpu_gossip_torch.sim.engine import run_until_coverage, simulate
+    from tpu_gossip_torch.sim.stages import not_ported
     from tpu_gossip_torch.utils.digest import state_digest, stats_digest
 
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     exists = plan = None
     if args.graph == "matching":
+        if args.shard:
+            raise not_ported("--shard --graph matching (the sharded matching engine)", "multi-device (11b)")
         dgraph, plan = matching_powerlaw_graph(
             args.peers, gamma=args.gamma,
             fanout=None if args.mode == "flood" else args.fanout,
@@ -125,18 +147,28 @@ def run(args: argparse.Namespace) -> dict:
             deg = topology.powerlaw_degree_sequence(args.peers, gamma=args.gamma, rng=rng)
             edges = topology.configuration_model(deg, rng=rng)
         graph = topology.build_csr(args.peers, edges)
-        if args.staircase:
+        if args.staircase and not args.shard:
             plan = build_staircase_plan(graph.row_ptr, graph.col_idx,
                                         fanout=None if args.mode == "flood" else args.fanout, device=dev)
-    cfg = SwarmConfig(
-        n_peers=graph.n, msg_slots=args.slots, fanout=args.fanout, mode=args.mode,
-        forward_once=args.forward_once, sir_recover_rounds=args.sir_recover,
-    )
+    cfg_kw = dict(msg_slots=args.slots, fanout=args.fanout, mode=args.mode, forward_once=args.forward_once,
+                  sir_recover_rounds=args.sir_recover)
     origins = rng.choice(args.peers, size=min(args.origins, args.peers), replace=False)
-    state = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins,
-                       exists=exists, device=dev)
+    if args.shard:
+        cfg, state, horizon, to_target, extra = _shard_runners(args, graph, origins, cfg_kw, dev)
+    else:
+        cfg = SwarmConfig(n_peers=graph.n, **cfg_kw)
+        state = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins,
+                           exists=exists, device=dev)
+        extra = {}
+
+        def horizon(st):
+            return simulate(st, cfg, args.rounds, plan, args.tail)
+
+        def to_target(st):
+            return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail)
+
     if args.rounds > 0:
-        fin, stats = simulate(pack_state(state) if args.packed else state, cfg, args.rounds, plan, args.tail)
+        fin, stats = horizon(pack_state(state) if args.packed else state)
         if args.packed:
             fin = unpack_state(fin)
         if not args.quiet:
@@ -149,23 +181,46 @@ def run(args: argparse.Namespace) -> dict:
             "rounds_to_target": M.rounds_to_coverage(stats, args.target),
             "final_coverage": float(stats.coverage[-1]),
             "total_msgs": int(stats.msgs_sent.sum()),
+            **extra,
         }
         if args.digest:
             summary.update(state_digest=state_digest(fin), stats_digest=stats_digest(stats))
-    elif args.packed:
-        def cov_run(st):
-            out = run_until_coverage(pack_state(st), cfg, args.target, args.max_rounds, plan=plan,
-                                     tail=args.tail)
-            return unpack_state(out)
-
-        result, fin = M.bench_swarm(state, cfg, args.target, args.max_rounds, run=cov_run)
-        summary = {"summary": True, "mode": args.mode, **json.loads(result.to_json())}
     else:
-        result, fin = M.bench_swarm(state, cfg, args.target, args.max_rounds, plan=plan,
-                                    tail=args.tail)
-        summary = {"summary": True, "mode": args.mode, **json.loads(result.to_json())}
+        def cov_run(st):
+            out = to_target(pack_state(st) if args.packed else st)
+            return unpack_state(out) if args.packed else out
+
+        # a sharded run reports the real peer count, not the padded slot count
+        result, _ = M.bench_swarm(state, cfg, args.target, args.max_rounds, run=cov_run,
+                                  n_peers=args.peers if args.shard else None)
+        summary = {"summary": True, "mode": args.mode, **extra, **json.loads(result.to_json())}
     summary["packed"] = args.packed
     return summary
+
+
+def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
+    """--shard: partition the graph over the mesh (pads born dead), with
+    --staircase build K6's plans, seed ``origins`` through the partition's
+    relabelling; returns ``(cfg, state, horizon, to_target, extra summary
+    keys)``."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.state import SwarmConfig
+
+    mesh = dist.make_mesh(device=dev)
+    sg, relabeled, position = dist.partition_graph(graph, mesh.size, seed=args.seed, device=dev)
+    cfg = SwarmConfig(n_peers=sg.n_pad, **cfg_kw)
+    plans = dist.build_shard_plans(sg) if args.staircase else None
+    state = dist.shard_swarm(dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev),
+                                                     origins=origins, device=dev), mesh)
+
+    def horizon(st):
+        return dist.simulate_dist(st, cfg, sg, mesh, args.rounds, plans)
+
+    def to_target(st):
+        return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans)
+
+    return cfg, state, horizon, to_target, {"devices": mesh.size, "transport": "dense"}
 
 
 if __name__ == "__main__":

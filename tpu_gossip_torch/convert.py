@@ -1,9 +1,10 @@
 """Carry a JAX-built plan and state across into the port, and back.
 
-The JAX package's ``MatchingPlan``, ``StaircasePlan``, ``SwarmState`` and
-``PackedSwarm`` leaves, handed over as numpy arrays, become the port's
-dataclasses on ``device``, so the port's round can run on a plan the JAX
-package built (and a state it seeded, packed or not).
+The JAX package's ``MatchingPlan``, ``StaircasePlan``, ``ShardedGraph``,
+``ShardPlans``, ``SwarmState`` and ``PackedSwarm`` leaves, handed over as
+numpy arrays, become the port's dataclasses on ``device``, so the port's
+round can run on a plan or partition the JAX package built (and a state
+it seeded, packed or not).
 :func:`to_numpy` goes the other way, giving each leaf the dtype and shape
 the JAX package stores. This module imports neither JAX nor the JAX
 package: the caller does the conversion to numpy.
@@ -20,11 +21,14 @@ from tpu_gossip_torch.core.matching_topology import MatchingPlan, class_layout
 from tpu_gossip_torch.core.packed import PackedSwarm
 from tpu_gossip_torch.core.state import SwarmState
 from tpu_gossip_torch.device import resolve_device
+from tpu_gossip_torch.dist.mesh import ShardedGraph, ShardPlans
 from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan
 from tpu_gossip_torch.utils.digest import leaf_array, leaf_fields
 
-__all__ = ["PLAN_LEAVES", "PLAN_STATIC", "STAIRCASE_LEAVES", "STAIRCASE_STATIC", "plan_from_jax",
-           "staircase_plan_from_jax", "state_from_jax", "packed_state_from_jax", "to_numpy"]
+__all__ = ["PLAN_LEAVES", "PLAN_STATIC", "STAIRCASE_LEAVES", "STAIRCASE_STATIC", "SHARDED_LEAVES",
+           "SHARDED_STATIC", "SHARD_PLAN_LEAVES", "SHARD_PLAN_STATIC", "plan_from_jax",
+           "staircase_plan_from_jax", "sharded_graph_from_jax", "shard_plans_from_jax", "state_from_jax",
+           "packed_state_from_jax", "to_numpy"]
 
 PLAN_LEAVES = ("lanes", "m3", "lanes_inv", "valid", "deg_other", "deg_real")
 PLAN_STATIC = ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk",
@@ -33,6 +37,11 @@ PLAN_STATIC = ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk"
 # wrapper zeroes its outputs), so it is not carried across
 STAIRCASE_LEAVES = ("tile_block", "offs", "col_gather", "push_thresh", "pull_thresh")
 STAIRCASE_STATIC = ("n", "n_tiles", "n_blocks", "fanout", "rows")
+SHARDED_LEAVES = ("send_src", "recv_dst", "send_valid", "send_dst_deg", "send_src_deg", "deg")
+SHARDED_STATIC = ("n", "n_pad", "n_shards", "per_shard", "bucket", "fingerprint")
+# the JAX ShardPlans' first_visit is dropped for the same reason (K6)
+SHARD_PLAN_LEAVES = ("tile_block", "offs", "window_idx")
+SHARD_PLAN_STATIC = ("per", "n_tiles", "n_blocks", "rows", "n_shards", "bucket", "fingerprint")
 
 
 def _tensor(a, dev) -> torch.Tensor | None:
@@ -70,6 +79,21 @@ def staircase_plan_from_jax(leaves: dict, static: dict, device: str | torch.devi
             kw[name] = np.asarray(kw[name]).astype(np.int64)
     kw = {name: _tensor(a, dev) for name, a in kw.items()}
     return StaircasePlan(**kw, **{name: static[name] for name in STAIRCASE_STATIC})
+
+
+def sharded_graph_from_jax(leaves: dict, static: dict, device: str | torch.device = "cuda") -> ShardedGraph:
+    """A port ShardedGraph from the JAX partition's leaves (numpy) and its
+    static fields."""
+    dev = resolve_device(device)
+    return ShardedGraph(**{name: _tensor(leaves[name], dev) for name in SHARDED_LEAVES},
+                        **{name: static[name] for name in SHARDED_STATIC})
+
+
+def shard_plans_from_jax(leaves: dict, static: dict, device: str | torch.device = "cuda") -> ShardPlans:
+    """Port ShardPlans from the JAX plans' leaves (numpy) and static fields."""
+    dev = resolve_device(device)
+    return ShardPlans(**{name: _tensor(leaves[name], dev) for name in SHARD_PLAN_LEAVES},
+                      **{name: static[name] for name in SHARD_PLAN_STATIC})
 
 
 def _state_leaves(cls, leaves: dict, dev) -> dict:

@@ -1,0 +1,550 @@
+"""The bucketed sharded engine: peers 1-D sharded over a mesh of shards.
+
+Ports the bucketed half of ``tpu_gossip/dist/mesh.py``. On the host, once
+per graph: :func:`partition_graph` relabels the peers with a load-balance
+permutation and files every directed edge under its (source shard,
+destination shard) bucket, padded to one capacity B (whole 1024-entry
+windows), each bucket sorted by destination row; :func:`build_shard_plans`
+turns each destination shard's received runs into K6's tile tables. Each
+round, :func:`gossip_round_dist` draws the per-edge activation of every
+shard, gathers the senders' packed words into the (S, S, B) payload,
+exchanges it, bills it and receives it: with a plan through K6
+(``kernels/pallas_segment.py::stream_segment_or``, one launch per shard and
+32-slot group), without one through the scatter OR. The two receives give
+the same bits, so a run is digest-equal either way. Everything after
+delivery is the local engine's ``advance_round``.
+
+The JAX package runs the round per shard inside ``shard_map`` over a
+device mesh and exchanges with ``all_to_all``. Here the mesh is
+:class:`Mesh`: S shards in one process on one device, with the shard
+axis written out as a leading dimension. Shard ``s``'s payload row ``d``
+is what it sends shard ``d``, so the exchange is the (S_src, S_dst)
+transpose of the stacked payload, and shard ``s``'s draws come from its
+own key exactly as the JAX package derives it. The exchange over NCCL with
+one process per card, the matching mesh, the sparse, auto and hier
+transports, the ``IciRound`` counters and re-wiring on this engine are a
+later slice and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+
+import numpy as np
+import torch
+
+from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.matching_topology import MatchingPlan
+from tpu_gossip_torch.core.packed import is_packed, pack_bits, packed_width, unpack_bits, words8_to_words32
+from tpu_gossip_torch.core.state import SwarmConfig, SwarmState, init_swarm
+from tpu_gossip_torch.core.topology import Graph, build_csr
+from tpu_gossip_torch.device import resolve_device
+from tpu_gossip_torch.kernels.packed_ops import popcount_rows
+from tpu_gossip_torch.kernels.pallas_segment import TILE, _pad_tiles, _slot_groups, stream_segment_or, unpack_words
+from tpu_gossip_torch.sim.stages import not_ported, run_protocol_round
+
+__all__ = [
+    "Mesh",
+    "ShardedGraph",
+    "ShardPlans",
+    "make_mesh",
+    "partition_graph",
+    "build_shard_plans",
+    "init_sharded_swarm",
+    "shard_swarm",
+    "gossip_round_dist",
+    "simulate_dist",
+    "run_until_coverage_dist",
+]
+
+LATER = "multi-device (11b)"  # the slice that brings the rest of tpu_gossip/dist
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """S shards of the peer axis in one process, on one device."""
+
+    n_shards: int
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return self.n_shards
+
+
+def make_mesh(n_shards: int | None = None, device: str | torch.device = "cuda") -> Mesh:
+    """A mesh of ``n_shards`` shards on ``device``. ``None`` is one shard
+    per visible card (one on the CPU); with several cards that is the
+    multi-process mesh of a later slice, which raises rather than stacking
+    the shards on one card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if n_shards is None:
+        if dev.type == "cuda" and torch.cuda.device_count() > 1:
+            raise not_ported("a mesh over several cards (one process per card)", LATER)
+        n_shards = 1
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be positive, got {n_shards}")
+    return Mesh(n_shards=n_shards, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedGraph:
+    """The bucket routing tables, (S, S, B) each: ``send_src[s, d, b]`` is
+    the sender-local row of the b-th edge from shard ``s`` to shard ``d``
+    (pad: 0 with ``send_valid`` False), ``recv_dst[d, s, b]`` the
+    receiver-local row of the same edge, indexed the way shard ``d`` reads
+    its exchange result; ``send_dst_deg``/``send_src_deg`` the edge's
+    destination and sender degrees (1 on pads); ``deg`` (n_pad,) each
+    slot's degree. ``fingerprint`` is the crc32 of the receive tables."""
+
+    send_src: torch.Tensor  # int32 (S, S, B)
+    recv_dst: torch.Tensor  # int32 (S, S, B)
+    send_valid: torch.Tensor  # bool (S, S, B)
+    send_dst_deg: torch.Tensor  # int32 (S, S, B)
+    send_src_deg: torch.Tensor  # int32 (S, S, B)
+    deg: torch.Tensor  # int32 (n_pad,)
+    n: int
+    n_pad: int
+    n_shards: int
+    per_shard: int
+    bucket: int
+    fingerprint: int = 0
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def partition_graph(graph: Graph, n_shards: int, *, seed: int = 0, permute: bool = True, window: int = 1024,
+                    device: str | torch.device = "cuda") -> tuple[ShardedGraph, Graph, np.ndarray]:
+    """Partition a host graph for ``n_shards`` shards; returns
+    ``(sharded_graph, relabeled_graph, position)``: the padded, permuted
+    CSR (host numpy) and ``position[old_id] = slot``. Bucket capacity is
+    the largest bucket rounded up to whole ``window``-entry windows
+    (:func:`build_shard_plans` needs 1024; ``window=1`` for a scatter-only
+    run). The tables go to ``device``."""
+    dev = resolve_device(device)
+    row_ptr, col_idx = _host(graph.row_ptr).astype(np.int64), _host(graph.col_idx)
+    n, s = graph.n, n_shards
+    per = math.ceil(n / s)
+    n_pad = per * s
+    rng = np.random.default_rng(seed)
+    position = rng.permutation(n) if permute else np.arange(n)
+
+    src = position[np.repeat(np.arange(n), np.diff(row_ptr))].astype(np.int64)
+    dst = position[col_idx.astype(np.int64)]
+    und = src < dst  # each undirected edge once, in relabeled ids
+    relabeled = build_csr(n_pad, np.stack([src[und], dst[und]], axis=1))
+    deg = (relabeled.row_ptr[1:] - relabeled.row_ptr[:-1]).astype(np.int32)
+
+    gid = (src // per) * s + (dst // per)  # bucket id of each directed edge
+    counts = np.bincount(gid, minlength=s * s)
+    b = max(-(-max(int(counts.max()) if counts.size else 0, 1) // window) * window, window)
+    # each bucket sorted by destination row: shard d's exchange result is
+    # then S destination-sorted runs, which K6 streams window by window
+    order = np.lexsort((dst, gid))
+    gs, ss, ds = gid[order], src[order], dst[order]
+    starts = np.zeros(s * s + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    k = np.arange(len(gs)) - starts[gs]
+
+    send_src = np.zeros((s * s, b), dtype=np.int32)
+    recv_dst = np.zeros((s * s, b), dtype=np.int32)
+    send_valid = np.zeros((s * s, b), dtype=bool)
+    send_dst_deg = np.ones((s * s, b), dtype=np.int32)
+    send_src_deg = np.ones((s * s, b), dtype=np.int32)
+    send_src[gs, k] = (ss - (gs // s) * per).astype(np.int32)
+    recv_dst[gs, k] = (ds - (gs % s) * per).astype(np.int32)
+    send_valid[gs, k] = True
+    send_dst_deg[gs, k] = deg[ds]
+    send_src_deg[gs, k] = deg[ss]
+    # receiver d reads its exchange result by sender shard: (s, d) -> (d, s)
+    recv_t = np.ascontiguousarray(recv_dst.reshape(s, s, b).transpose(1, 0, 2))
+    valid3 = send_valid.reshape(s, s, b)
+
+    def tab(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    sg = ShardedGraph(
+        send_src=tab(send_src.reshape(s, s, b)), recv_dst=tab(recv_t), send_valid=tab(valid3),
+        send_dst_deg=tab(send_dst_deg.reshape(s, s, b)), send_src_deg=tab(send_src_deg.reshape(s, s, b)),
+        deg=tab(deg), n=n, n_pad=n_pad, n_shards=s, per_shard=per, bucket=b,
+        fingerprint=_routing_fingerprint(recv_t, valid3),
+    )
+    return sg, relabeled, position
+
+
+def _routing_fingerprint(recv_dst: np.ndarray, send_valid: np.ndarray) -> int:
+    """crc32 over the receive routing tables (host arrays)."""
+    crc = zlib.crc32(np.ascontiguousarray(recv_dst, dtype=np.int32).tobytes())
+    return zlib.crc32(np.ascontiguousarray(send_valid, dtype=np.uint8).tobytes(), crc)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlans:
+    """K6's tables for each destination shard: one tile per (window,
+    output block) incidence of its received runs, block-major, padded to
+    one tile count T with inert tiles (block ``n_blocks - 1``, every
+    ``offs`` -1). ``window_idx[d, t]`` is the 1024-entry window of shard
+    ``d``'s flat exchange result that tile ``t`` reads; ``offs`` the row
+    inside the tile's block of each window position, -1 outside the tile's
+    (block, run) segment. The JAX plan's ``first_visit`` is not carried:
+    K6's wrapper zeroes its outputs. The last four fields name the
+    partition the tables index (:meth:`check_matches`)."""
+
+    tile_block: torch.Tensor  # int32 (S, T)
+    offs: torch.Tensor  # int32 (S, T*8, 128)
+    window_idx: torch.Tensor  # int32 (S, T)
+    per: int
+    n_tiles: int
+    n_blocks: int
+    rows: int = 1024
+    n_shards: int = 0
+    bucket: int = 0
+    fingerprint: int = 0
+
+    def check_matches(self, sg: ShardedGraph) -> None:
+        got = (self.per, self.n_shards, self.bucket, self.fingerprint)
+        want = (sg.per_shard, sg.n_shards, sg.bucket, sg.fingerprint)
+        if got != want:
+            raise ValueError(
+                f"shard_plan built for (per, shards, bucket, fingerprint)={got} but the graph has {want}: "
+                "two partitions can share sizes yet route differently; rebuild with build_shard_plans(sg)"
+            )
+
+
+def build_shard_plans(sg: ShardedGraph, *, rows: int = 1024) -> ShardPlans:
+    """K6's plans over each shard's receive side, on the host from the
+    graph's tables, placed where the graph lies. Each received run is
+    destination-sorted and window-aligned (:func:`partition_graph`), so a
+    plan is bookkeeping: a window shared by two blocks gives two tiles with
+    complementary ``offs`` masks."""
+    s, b, per = sg.n_shards, sg.bucket, sg.per_shard
+    if b % TILE != 0:
+        raise ValueError(f"bucket capacity {b} is not window-aligned: partition the graph with "
+                         f"partition_graph(..., window={TILE}) (the default)")
+    n_blocks = max(1, -(-per // rows))
+    recv_dst = _host(sg.recv_dst)  # (S_dst, S_src, B)
+    recv_valid = _host(sg.send_valid).transpose(1, 0, 2)  # seen from the receiver
+    cnts = recv_valid.sum(-1)  # (S_dst, S_src): valid entries lead each run
+    w_per_run = b // TILE
+
+    def shard_tiles(d):
+        tb_parts, wi_parts, run_parts = [], [], []
+        for r in range(s):
+            cnt = int(cnts[d, r])
+            if cnt == 0:
+                continue
+            dstr = recv_dst[d, r]
+            nw = -(-cnt // TILE)  # windows with any valid entry
+            w_ids = np.arange(nw)
+            last = np.minimum((w_ids + 1) * TILE, cnt) - 1
+            blk_lo = dstr[w_ids * TILE] // rows  # destination-sorted: the window's ends
+            blk_hi = dstr[last] // rows  # bound its block span
+            span = blk_hi - blk_lo + 1
+            wrep = np.repeat(w_ids, span)
+            koff = np.arange(len(wrep)) - np.repeat(np.cumsum(span) - span, span)
+            tb_parts.append((np.repeat(blk_lo, span) + koff).astype(np.int32))
+            wi_parts.append((r * w_per_run + wrep).astype(np.int32))
+            run_parts.append(np.full(len(wrep), r, dtype=np.int32))
+        empty = np.zeros(0, dtype=np.int32)
+        tb_r = np.concatenate(tb_parts) if tb_parts else empty
+        wi_r = np.concatenate(wi_parts) if wi_parts else empty
+        run_r = np.concatenate(run_parts) if run_parts else empty
+        # an inert tile for each block no run reaches
+        missing = np.setdiff1d(np.arange(n_blocks, dtype=np.int32), tb_r)
+        tb_all = np.concatenate([tb_r, missing])
+        wi_all = np.concatenate([wi_r, np.zeros(len(missing), np.int32)])
+        run_all = np.concatenate([run_r, np.full(len(missing), -1, np.int32)])
+        order = np.lexsort((run_all, wi_all, tb_all))  # block-major
+        tb_all, wi_all, run_all = tb_all[order], wi_all[order], run_all[order]
+        dvals = recv_dst[d].reshape(s * w_per_run, TILE)[wi_all]  # (T_d, TILE)
+        pos_in_run = (wi_all % w_per_run)[:, None] * TILE + np.arange(TILE)
+        valid_pos = (run_all[:, None] >= 0) & (pos_in_run < cnts[d][np.maximum(run_all, 0)][:, None])
+        offs_all = np.where(valid_pos & (dvals // rows == tb_all[:, None]), dvals - tb_all[:, None] * rows, -1)
+        return tb_all, wi_all, offs_all.astype(np.int32)
+
+    per_shard = [shard_tiles(d) for d in range(s)]
+    T = _pad_tiles(max(len(t[0]) for t in per_shard))
+    tb = np.full((s, T), n_blocks - 1, dtype=np.int32)
+    wi = np.zeros((s, T), dtype=np.int32)
+    offs = np.full((s, T, TILE), -1, dtype=np.int32)
+    for d, (tb_d, wi_d, offs_d) in enumerate(per_shard):
+        k = len(tb_d)
+        tb[d, :k], wi[d, :k], offs[d, :k] = tb_d, wi_d, offs_d
+
+    dev = sg.recv_dst.device
+    return ShardPlans(
+        tile_block=torch.from_numpy(tb).to(dev), offs=torch.from_numpy(offs.reshape(s, T * 8, 128)).to(dev),
+        window_idx=torch.from_numpy(wi).to(dev), per=per, n_tiles=T, n_blocks=n_blocks, rows=rows,
+        n_shards=s, bucket=b, fingerprint=sg.fingerprint,
+    )
+
+
+def init_sharded_swarm(sg: ShardedGraph, relabeled: Graph, position: np.ndarray, cfg: SwarmConfig, *,
+                       key: torch.Tensor | None = None, origins=None, origin_slot: int = 0,
+                       exists: np.ndarray | None = None, device: str | torch.device = "cuda") -> SwarmState:
+    """SwarmState over the padded slot space on ``device``; pad slots are
+    born dead (``alive`` and ``exists`` False, ``declared_dead`` True,
+    ``join_round`` -1). ``cfg.n_peers`` must equal ``sg.n_pad``;
+    ``origins`` and ``exists`` (length ``sg.n``) are over ORIGINAL peer
+    ids and are mapped through ``position``."""
+    if cfg.n_peers != sg.n_pad:
+        raise ValueError(f"cfg.n_peers={cfg.n_peers} != n_pad={sg.n_pad}")
+    mapped = None if origins is None else position[np.asarray(origins)]
+    state = init_swarm(relabeled, cfg, key=key, origins=mapped, origin_slot=origin_slot, device=device)
+    dead = np.zeros(sg.n_pad, dtype=bool)
+    dead[sg.n:] = True
+    if exists is not None:
+        if np.asarray(exists).shape != (sg.n,):
+            raise ValueError(f"exists covers {np.asarray(exists).shape} ids; the graph has {sg.n}")
+        dead[position[np.flatnonzero(~np.asarray(exists))]] = True
+    if dead.any():
+        d = torch.from_numpy(dead).to(state.seen.device)
+        state.exists = state.exists & ~d
+        state.alive = state.alive & ~d
+        state.declared_dead = state.declared_dead | d
+        state.join_round = state.join_round.masked_fill(d, -1)
+    return state
+
+
+def shard_swarm(state, mesh: Mesh):
+    """The state (SwarmState or PackedSwarm) with every tensor on the
+    mesh's device; the shards are row ranges of ``per_shard`` rows."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(mesh.device)
+        for f in dataclasses.fields(state) if isinstance(getattr(state, f.name), torch.Tensor)
+    })
+
+
+# ------------------------------------------------------------ the exchange
+
+
+def _ratio(num: float, deg: torch.Tensor) -> torch.Tensor:
+    """``num / max(deg, 1)`` in float32, as JAX computes an int by int32
+    true divide (both operands converted, then one IEEE division)."""
+    d = torch.clamp(deg, min=1).to(torch.float32)
+    return torch.full_like(d, float(num)) / d
+
+
+def _uniform_rows(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Shard s's ``uniform(keys[s], shape)``, stacked along a leading S axis."""
+    return torch.stack([prng.uniform(k, shape) for k in keys])
+
+
+def activation(sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout: int):
+    """Each bucket entry's firing, (S, S, B) bool, and on the merged
+    push_pull path the per-direction billing byte (uint8, bit 0 push, bit
+    1 pull), else None. ``keys`` holds one key per shard; shard ``s``
+    draws its (S, B) row of uniforms from its own key (the merged path
+    splits it into a push and a pull key first)."""
+    s, b = sg.n_shards, sg.bucket
+    valid = sg.send_valid
+    if kind == "flood":
+        return valid, None
+    if kind == "push":
+        return valid & (_uniform_rows(keys, (s, b)) < _ratio(fanout, sg.send_src_deg)), None
+    if kind == "pull":
+        return valid & (_uniform_rows(keys, (s, b)) < _ratio(1, sg.send_dst_deg)), None
+    if kind != "push_pull":
+        raise ValueError(f"unknown activation {kind!r}")
+    kpq = torch.stack([prng.split(k) for k in keys])  # (S, 2, 2)
+    act_p = valid & (_uniform_rows(kpq[:, 0], (s, b)) < _ratio(fanout, sg.send_src_deg))
+    act_q = valid & (_uniform_rows(kpq[:, 1], (s, b)) < _ratio(1, sg.send_dst_deg))
+    return act_p | act_q, act_p.to(torch.uint8) | (act_q.to(torch.uint8) << 1)
+
+
+def _shard_base(sg: ShardedGraph, device) -> torch.Tensor:
+    """(S, 1, 1) int64 first row of each shard."""
+    return (torch.arange(sg.n_shards, dtype=torch.int64, device=device) * sg.per_shard).view(-1, 1, 1)
+
+
+def send_payload(transmit: torch.Tensor, sg: ShardedGraph, active: torch.Tensor, acts) -> torch.Tensor:
+    """The (S_src, S_dst, B, W[+1]) uint8 payload: each entry's sender's
+    packed words (``pack_bits``, the byte wire) where it fires, else 0;
+    the billing byte appended on the merged path."""
+    words = pack_bits(transmit)
+    w = words.shape[1]
+    rows = (sg.send_src.to(torch.int64) + _shard_base(sg, words.device)).view(-1)
+    vals = words.index_select(0, rows).view(*sg.send_src.shape, w)
+    payload = torch.where(active[..., None], vals, 0)
+    if acts is not None:
+        payload = torch.cat([payload, acts[..., None]], dim=-1)
+    return payload
+
+
+def all_to_all(payload: torch.Tensor) -> torch.Tensor:
+    """The exchange: shard d receives ``received[d, s] = payload[s, d]``."""
+    return payload.transpose(0, 1).contiguous()
+
+
+def bill(received: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(payload words, int64 message count) of a received buffer: the
+    delivered bits, each counted once per direction that fired on the
+    merged wire (its billing byte at column ``w``)."""
+    pc = popcount_rows(received[..., :w]).to(torch.int64)
+    if received.shape[-1] == w:
+        return received, pc.sum()
+    acts = received[..., w].to(torch.int64)
+    return received[..., :w], (pc * ((acts & 1) + ((acts >> 1) & 1))).sum()
+
+
+def receive(received: torch.Tensor, sg: ShardedGraph, shard_plan, m: int) -> torch.Tensor:
+    """(n_pad, m) bool incoming: the OR of every received entry's words
+    into its destination row. With a plan through K6, one launch per shard
+    and 32-slot group over the shard's flat result; without one, the
+    scatter OR (``index_add_`` of the bits, tested against zero)."""
+    s, b, per = sg.n_shards, sg.bucket, sg.per_shard
+    if shard_plan is None:
+        bits = unpack_bits(received, m).reshape(-1, m).to(torch.int32)
+        rows = (sg.recv_dst.to(torch.int64) + _shard_base(sg, received.device)).view(-1)
+        hits = torch.zeros((s * per, m), dtype=torch.int32, device=received.device)
+        return hits.index_add_(0, rows, bits) > 0
+    out = []
+    for d in range(s):
+        flat32 = words8_to_words32(received[d]).reshape(s * b, -1)
+        groups = [
+            unpack_words(stream_segment_or(shard_plan.tile_block[d], shard_plan.window_idx[d],
+                                           shard_plan.offs[d], flat32[:, gi].contiguous(),
+                                           shard_plan.rows, shard_plan.n_blocks)[:per], width)
+            for gi, (_, width) in enumerate(_slot_groups(m))
+        ]
+        out.append(groups[0] if len(groups) == 1 else torch.cat(groups, dim=1))
+    return out[0] if s == 1 else torch.cat(out)
+
+
+def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout: int,
+              shard_plan=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One bucketed exchange; returns (incoming (n_pad, m) bool, int64
+    messages). ``kind`` is the activation: push, pull, flood or the merged
+    push_pull, which carries both directions on one wire."""
+    m = transmit.shape[1]
+    active, acts = activation(sg, keys, kind, fanout)
+    received, msgs = bill(all_to_all(send_payload(transmit, sg, active, acts)), packed_width(m))
+    return receive(received, sg, shard_plan, m), msgs
+
+
+def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, transmit, transmitter,
+                          receptive, k_push, k_pull):
+    """The bucketed engine's delivery; returns ``(incoming, msgs_sent)``.
+
+    Both keys are split once more, child 0 driving delivery (child 1 is
+    the re-wiring traffic's in the JAX package), then into one key per
+    shard. push_pull without forward_once is the merged path (one
+    exchange, the pull answer being the push transmit); with it, a push
+    and a pull exchange. Each pulling peer with neighbours bills one
+    request."""
+    s = sg.n_shards
+    k_push = prng.split(k_push)[0]
+    k_pull = prng.split(k_pull)[0]
+    merged = cfg.mode == "push_pull" and not cfg.forward_once
+    incoming = torch.zeros_like(state.seen)
+    msgs = torch.zeros((), dtype=torch.int64, device=transmit.device)
+    if cfg.mode == "push_pull":
+        pulls = ((sg.deg > 0) & receptive.any(-1)).sum()
+    if merged:
+        inc, sent = _exchange(transmit, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan)
+        incoming, msgs = incoming | inc, msgs + sent + pulls
+    if cfg.mode in ("push", "push_pull") and not merged:
+        inc, sent = _exchange(transmit, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan)
+        incoming, msgs = incoming | inc, msgs + sent
+    if cfg.mode == "push_pull" and not merged:
+        answer = state.seen & transmitter
+        inc, sent = _exchange(answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan)
+        incoming, msgs = incoming | inc, msgs + sent + pulls
+    if cfg.mode == "flood":
+        inc, sent = _exchange(transmit, sg, None, "flood", cfg.fanout, shard_plan)
+        incoming, msgs = incoming | inc, msgs + sent
+    return incoming, msgs.to(torch.int32)
+
+
+def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, flags: dict, role_w, tx_w,
+                                 k_push, k_pull):
+    """The packed round's delivery; returns ``(inc_w, msgs_sent)``. The
+    exchange indexes rows of the bool planes, so the transmit and role
+    words decode here, once a round, and the product packs again."""
+    from tpu_gossip_torch.sim.packed_engine import _delivery_shim
+
+    m = cfg.msg_slots
+    shim = _delivery_shim(ps, flags, unpack_bits(ps.seen, m))
+    role_b = unpack_bits(role_w, m)
+    inc, msgs = _disseminate_bucketed(shim, cfg, sg, shard_plan, unpack_bits(tx_w, m), role_b, role_b, k_push,
+                                      k_pull)
+    return pack_bits(inc), msgs
+
+
+# ---------------------------------------------------------------- the round
+
+
+def _check_round(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, later: dict) -> None:
+    """Refuse what this slice does not run and what does not fit."""
+    if isinstance(sg, MatchingPlan):
+        raise not_ported("the sharded matching engine (a MatchingPlan on the mesh)", LATER)
+    for name in ("transport", "collect_ici"):
+        if later.pop(name, None) not in (None, False):
+            raise not_ported(f"the {name} argument", LATER)
+    if cfg.rewire_slots > 0:
+        raise not_ported("re-wiring on the bucketed engine (rewire_slots > 0)", LATER)
+    if sg.n_shards != mesh.size:
+        raise ValueError(f"graph partitioned for {sg.n_shards} shards but the mesh has {mesh.size}: "
+                         f"repartition with partition_graph(g, {mesh.size})")
+    if state.seen.device != mesh.device:
+        raise ValueError(f"state lies on {state.seen.device} but the mesh is on {mesh.device}: shard_swarm it")
+    if shard_plan is not None:
+        shard_plan.check_matches(sg)
+
+
+def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, shard_plan: ShardPlans | None = None,
+                      **later):
+    """One sharded round: the bucketed exchange, then the local engine's
+    stages; returns ``(new_state, RoundStats)``. With ``shard_plan`` the
+    receive runs K6, else the scatter OR. A ``PackedSwarm`` runs the
+    packed-native round, whose delivery decodes the transmit and role
+    planes for the exchange and packs the product, and stays packed. The
+    arguments of later slices (``scenario``, ``growth``, ``transport``,
+    ``collect_ici``, ``stream``, ``control``, ``pipeline``, ``liveness``,
+    ``inject``) raise ``NotImplementedError``."""
+    _check_round(state, cfg, sg, mesh, shard_plan, later)
+    if is_packed(state):
+        from tpu_gossip_torch.sim.packed_engine import run_protocol_round_packed
+
+        def deliver_words(tx_w, role_w, flags, kp, kq):
+            return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq)
+
+        return run_protocol_round_packed(state, cfg, deliver_words, **later)
+
+    def disseminate(tx, tr, rc, kp, kq):
+        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq)
+
+    return run_protocol_round(state, cfg, disseminate, **later)
+
+
+def simulate_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, num_rounds: int,
+                  shard_plan: ShardPlans | None = None, **later):
+    """A fixed horizon of sharded rounds; returns the final state and the
+    per-round stats stacked along a leading (num_rounds,) axis."""
+    from tpu_gossip_torch.sim.engine import _stack
+
+    rows = []
+    for _ in range(num_rounds):
+        state, st = gossip_round_dist(state, cfg, sg, mesh, shard_plan, **dict(later))
+        rows.append(st)
+    return state, _stack(rows)
+
+
+def run_until_coverage_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, target: float = 0.99,
+                            max_rounds: int = 1000, slot: int = 0, shard_plan: ShardPlans | None = None,
+                            **later):
+    """Sharded rounds until ``coverage(slot) >= target`` (compared in
+    float32) or ``max_rounds``, reading the stop condition on the host once
+    a round; rounds used = ``result.round - state.round``."""
+    start = state.round
+    tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
+    s = state
+    while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
+        s, _ = gossip_round_dist(s, cfg, sg, mesh, shard_plan, **dict(later))
+    return s

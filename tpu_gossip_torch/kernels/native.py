@@ -52,6 +52,7 @@ SOURCES = {
     "round_tail": "round_tail.cu",
     "staircase_segment": "staircase_segment.cu",
     "round_tail_words": "round_tail_words.cu",
+    "stream_segment": "stream_segment.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -73,11 +74,14 @@ _SIGNATURES = {
     "round_tail_words": {
         "round_tail_words": (_P,) * 15 + (_L, _I, _I, _I, _I, _I, _P),
     },
+    "stream_segment": {
+        "stream_segment": (_P,) * 5 + (_L, _I, _I, _P),
+    },
 }
 
 # launch counts per kernel entry (K2 counts its OR and SUM forms apart)
 LAUNCHES: dict[str, int] = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 0,
-                            "staircase_segment": 0, "round_tail_words": 0}
+                            "staircase_segment": 0, "round_tail_words": 0, "stream_segment": 0}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -98,8 +102,10 @@ def _nvcc() -> str:
 
 
 def hashed_target(src: Path, flags: tuple, stem: str) -> Path:
-    """``_build/<stem>-<hash of source and flags>.so``."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    """``_build/<stem>-<hash of source, flags and the headers beside the
+    source>.so``: a changed shared header rebuilds every source."""
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return _BUILD / f"{stem}-{digest}.so"
 
 

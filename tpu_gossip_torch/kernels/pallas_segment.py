@@ -12,12 +12,18 @@ SUM of an int32 bill per edge. :func:`segment_or` is flood delivery,
 :func:`segment_sampled` sampled push / push-pull with one precomputed
 uint32 Bernoulli threshold per edge slot and direction.
 
-The TPU kernel contracts a one-hot "staircase" matrix on the MXU and zeroes
+:func:`stream_segment_or` is K6 (``csrc/stream_segment.cu``), the windowed
+form that the bucketed sharded engine's receive runs (``dist/mesh.py``):
+tile ``t`` reads its 1024 words from window ``window_idx[t]`` of a flat
+word stream (the exchange's destination-sorted result) instead of from a
+gathered array.
+
+The TPU kernels contract a one-hot "staircase" matrix on the MXU and zero
 each output block on its first visit (the plan's ``first_visit`` table).
-The card needs neither: K5 reduces runs of equal destination with warp
-shuffles and atomics into outputs the wrapper zeroes, so the port's plan
-carries no ``first_visit``. The stream variant (K6) and the controller
-hooks of ``segment_sampled`` belong to later slices.
+The card needs neither: K5 and K6 reduce runs of equal destination with
+warp shuffles and atomics into outputs the wrapper zeroes, so the port's
+plans carry no ``first_visit``. The controller hooks of
+``segment_sampled`` belong to a later slice.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ __all__ = [
     "popcount",
     "staircase_plain",
     "staircase_segment",
+    "stream_segment_plain",
+    "stream_segment_or",
     "segment_or",
     "segment_sampled",
 ]
@@ -313,6 +321,67 @@ def staircase_segment(tile_block: torch.Tensor, offs: torch.Tensor, vals: torch.
     )
     native.LAUNCHES["staircase_segment"] += 1
     return words, sums
+
+
+def _check_stream(tile_block, window_idx, offs, vals_flat, rows, n_blocks) -> None:
+    _check_rows(rows)
+    t = tile_block.shape[0]
+    if tile_block.dim() != 1 or tile_block.dtype != torch.int32:
+        raise ValueError(f"tile_block must be int32 (T,), got {tile_block.dtype}{tuple(tile_block.shape)}")
+    if tuple(window_idx.shape) != (t,) or window_idx.dtype != torch.int32:
+        raise ValueError(f"window_idx must be int32 ({t},), got {window_idx.dtype}{tuple(window_idx.shape)}")
+    if tuple(offs.shape) != (t * 8, 128) or offs.dtype != torch.int32:
+        raise ValueError(f"offs must be int32 ({t * 8}, 128), got {offs.dtype}{tuple(offs.shape)}")
+    if vals_flat.dim() != 1 or vals_flat.dtype != torch.int32 or vals_flat.shape[0] % TILE:
+        raise ValueError(f"vals_flat must be int32 (L,) with L a multiple of {TILE}, "
+                         f"got {vals_flat.dtype}{tuple(vals_flat.shape)}")
+    if n_blocks < 1:
+        raise ValueError(f"n_blocks must be positive, got {n_blocks}")
+    if t:
+        lo, hi = torch.stack(torch.aminmax(window_idx)).tolist()
+        if lo < 0 or hi >= vals_flat.shape[0] // TILE:
+            raise ValueError(f"window_idx must lie in [0, {vals_flat.shape[0] // TILE}), got [{lo}, {hi}]")
+
+
+def stream_segment_plain(tile_block: torch.Tensor, window_idx: torch.Tensor, offs: torch.Tensor,
+                         vals_flat: torch.Tensor, rows: int, n_blocks: int) -> torch.Tensor:
+    """Plain version of K6: gather each tile's window, ``vals[t*1024 + j] =
+    vals_flat[window_idx[t]*1024 + j]``, then :func:`staircase_plain`'s
+    segment OR. Returns the int32 (n_blocks*rows,) words."""
+    _check_stream(tile_block, window_idx, offs, vals_flat, rows, n_blocks)
+    vals = vals_flat.reshape(-1, TILE).index_select(0, window_idx.to(torch.int64)).view(offs.shape)
+    return staircase_plain(tile_block, offs, vals, rows, n_blocks)[0]
+
+
+def stream_segment_or(tile_block: torch.Tensor, window_idx: torch.Tensor, offs: torch.Tensor,
+                      vals_flat: torch.Tensor, rows: int, n_blocks: int) -> torch.Tensor:
+    """K6: the per-row OR of a flat word stream read through per-tile
+    windows, as :func:`stream_segment_plain` defines it. Takes the plain
+    version for CPU tensors only; on CUDA tensors it launches the kernel or
+    raises. Checking the windows against the stream reads two numbers back
+    from the card."""
+    _check_stream(tile_block, window_idx, offs, vals_flat, rows, n_blocks)
+    if vals_flat.device.type == "cpu":
+        return stream_segment_plain(tile_block, window_idx, offs, vals_flat, rows, n_blocks)
+    return _stream_launch(tile_block, window_idx, offs, vals_flat, rows, n_blocks)
+
+
+def _stream_launch(tile_block, window_idx, offs, vals_flat, rows: int, n_blocks: int) -> torch.Tensor:
+    """K6's launch on tables :func:`_check_stream` passed."""
+    native.require_cuda("stream_segment", tile_block, window_idx, offs, vals_flat)
+    if offs.data_ptr() % 16 or vals_flat.data_ptr() % 16:
+        raise ValueError("stream_segment: offs/vals_flat must be 16-byte aligned")
+    words = torch.zeros((n_blocks * rows,), dtype=torch.int32, device=vals_flat.device)
+    native.check(
+        native.library("stream_segment").stream_segment(
+            tile_block.data_ptr(), window_idx.data_ptr(), offs.data_ptr(), vals_flat.data_ptr(),
+            words.data_ptr(), tile_block.shape[0], rows, n_blocks,
+            native.stream_of(vals_flat),
+        ),
+        "stream_segment",
+    )
+    native.LAUNCHES["stream_segment"] += 1
+    return words
 
 
 def _launch(plan: StaircasePlan, vals: torch.Tensor, m: int, bill: torch.Tensor | None = None):

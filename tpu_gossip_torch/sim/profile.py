@@ -3,6 +3,7 @@
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 6
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --staircase
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --packed
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --shard --staircase
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -17,7 +18,13 @@ path reports the whole round only), and a ``torch.profiler`` trace of
 the wall time. With ``--packed`` the swarm is packed after the warm rounds
 and the stages are the packed round's: the flags decode, the word head,
 the codec at delivery, the delivery itself, K4 and the stats (the matching
-graph and ``--graph device`` without ``--staircase``). Needs a CUDA device.
+graph and ``--graph device`` without ``--staircase``). With ``--shard`` the
+CSR graph (exported to the host) runs on the bucketed sharded engine over
+a one-shard mesh, its receive through K6 with ``--staircase`` and the
+scatter without, and the stages are the sharded round's: key splits,
+draws, send gather and payload, exchange, bill, receive, then the tail (K3,
+or K4 with ``--packed``, whose stages are then the packed round's with the
+sharded delivery). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from tpu_gossip_torch import dist
 from tpu_gossip_torch.core import prng, topology
 from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
 from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
@@ -36,7 +44,7 @@ from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
 from tpu_gossip_torch.kernels import pallas_segment as seg
 from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
 from tpu_gossip_torch.kernels.pallas_segment import pack_words, popcount, unpack_words
-from tpu_gossip_torch.core.packed import pack_bits, pack_state, unpack_bits
+from tpu_gossip_torch.core.packed import pack_bits, pack_state, packed_width, unpack_bits
 from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words
 from tpu_gossip_torch.sim import engine
 from tpu_gossip_torch.sim import packed_engine as pe
@@ -127,18 +135,61 @@ def staircase_stage_times(state, cfg, plan, reps: int) -> dict:
     return {name: _event_ms(fn, reps) for name, fn in stages.items()}
 
 
-def packed_stage_times(ps, cfg, plan, reps: int) -> dict:
+def shard_stage_times(state, cfg, sg, mesh, plan, reps: int) -> dict:
+    """Each stage of one sharded push-pull round (the merged exchange),
+    timed alone (ms)."""
+    m = cfg.msg_slots
+    transmit = engine.transmit_bitmap(state, cfg, engine.compute_roles(state)[1])
+
+    def shard_keys():
+        return prng.split(prng.split(prng.split(state.rng, 5)[1])[0], sg.n_shards)
+
+    keys = shard_keys()
+    active, acts = dist.mesh.activation(sg, keys, "push_pull", cfg.fanout)
+    payload = dist.mesh.send_payload(transmit, sg, active, acts)
+    received = dist.mesh.all_to_all(payload)
+    words, _ = dist.mesh.bill(received, packed_width(m))
+    head, tail = _common_stages(state, cfg, None)
+    stages = {
+        "key_splits": lambda: torch.stack([prng.split(k) for k in shard_keys()]),
+        "roles_transmit": head["roles_transmit"],
+        "draws_gates": lambda: dist.mesh.activation(sg, keys, "push_pull", cfg.fanout),
+        "send_gather_payload": lambda: dist.mesh.send_payload(transmit, sg, active, acts),
+        "exchange": lambda: dist.mesh.all_to_all(payload),
+        "bill": lambda: dist.mesh.bill(received, packed_width(m)),
+        "receive_k6" if plan is not None else "receive_scatter": lambda: dist.mesh.receive(words, sg, plan, m),
+        **tail,
+        "whole_round": lambda: dist.gossip_round_dist(state, cfg, sg, mesh, plan),
+    }
+    return {name: _event_ms(fn, reps) for name, fn in stages.items()}
+
+
+def packed_stage_times(ps, cfg, plan, reps: int, shard=None) -> dict:
     """Each stage of one packed round, timed alone (ms). ``codec`` is the
     decode and repack that the delivery pays: three planes and the
-    product on a plan's path, the push payload and product on the
-    word-native exactly-k path."""
+    product on a plan's path and on the sharded path (``shard``, the
+    ``(sg, mesh)`` pair), the push payload and product on the word-native
+    exactly-k path."""
     m = ps.msg_slots
     flags = pe._decode_flags(ps)
     _, role_w, tx_w = pe.packed_round_head(ps, cfg, flags)
     k_push, k_pull = prng.split(ps.rng, 5)[1:3]
-    inc_w, _ = pe._disseminate_local_packed(ps, cfg, flags, role_w, tx_w, k_push, k_pull, plan)
+    if shard is None:
+        def deliver():
+            return pe._disseminate_local_packed(ps, cfg, flags, role_w, tx_w, k_push, k_pull, plan)
+
+        def whole():
+            return engine.gossip_round(ps, cfg, plan)
+    else:
+        def deliver():
+            return dist.mesh._disseminate_bucketed_packed(ps, cfg, shard[0], plan, flags, role_w, tx_w, k_push,
+                                                          k_pull)
+
+        def whole():
+            return dist.gossip_round_dist(ps, cfg, shard[0], shard[1], plan)
+    inc_w, _ = deliver()
     rnd = ps.round + 1
-    if plan is None:
+    if plan is None and shard is None:
         def codec():
             return pack_bits(unpack_bits(tx_w, m))
     else:
@@ -149,8 +200,7 @@ def packed_stage_times(ps, cfg, plan, reps: int) -> dict:
         "decode_flags": lambda: pe._decode_flags(ps),
         "head_words": lambda: pe.packed_round_head(ps, cfg, flags),
         "codec": codec,
-        "delivery_with_codec": lambda: pe._disseminate_local_packed(ps, cfg, flags, role_w, tx_w, k_push,
-                                                                    k_pull, plan),
+        "delivery_with_codec": deliver,
         "liveness": lambda: detect_failures(
             emit_heartbeats(ps.last_hb, flags["alive"], flags["silent"], flags["declared_dead"], rnd,
                             cfg.hb_period_rounds),
@@ -160,12 +210,12 @@ def packed_stage_times(ps, cfg, plan, reps: int) -> dict:
             ps.seen, ps.forwarded, ps.infected_round, ps.recovered, inc_w, role_w, tx_w, None, rnd,
             m=m, forward_once=False, sir_recover_rounds=0),
         "stats": lambda: pe._stats_packed(ps, flags, torch.zeros((), dtype=torch.int32, device=rnd.device)),
-        "whole_round": lambda: engine.gossip_round(ps, cfg, plan),
+        "whole_round": whole,
     }
     return {name: _event_ms(fn, reps) for name, fn in stages.items()}
 
 
-def trace_rounds(state, cfg, plan, rounds: int) -> dict:
+def trace_rounds(state, step, rounds: int) -> dict:
     """torch.profiler over ``rounds`` rounds: device time by kernel name
     (kernel rows only, so no time is counted twice) and the device's busy
     share of the wall time."""
@@ -177,7 +227,7 @@ def trace_rounds(state, cfg, plan, rounds: int) -> dict:
         t0 = time.perf_counter()
         s = state
         for _ in range(rounds):
-            s, _ = engine.gossip_round(s, cfg, plan)
+            s, _ = step(s)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [
@@ -202,7 +252,10 @@ def main(argv=None) -> int:
     p.add_argument("--peers", type=int, default=1_000_000)
     p.add_argument("--graph", choices=["matching", "device", "pa"], default="matching")
     p.add_argument("--staircase", action="store_true", help="deliver the CSR graphs through K5")
-    p.add_argument("--packed", action="store_true", help="profile the packed round (no --staircase)")
+    p.add_argument("--packed", action="store_true",
+                   help="profile the packed round (no --staircase, except with --shard)")
+    p.add_argument("--shard", action="store_true",
+                   help="profile the bucketed sharded round on a one-shard mesh (--graph device or pa)")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -210,6 +263,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile needs a CUDA device")
     dev = torch.device("cuda", 0)
+    if args.shard:
+        return main_shard(args, dev)
     n = args.peers
     exists = plan = None
     if args.graph == "matching":
@@ -239,7 +294,38 @@ def main(argv=None) -> int:
         stages = {"whole_round": _event_ms(lambda: engine.gossip_round(state, cfg, None), args.reps)}
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
                       "packed": args.packed, "stage_ms": stages}))
-    print(json.dumps({"trace": trace_rounds(state, cfg, plan, args.rounds)}))
+    print(json.dumps({"trace": trace_rounds(state, lambda s: engine.gossip_round(s, cfg, plan), args.rounds)}))
+    return 0
+
+
+def main_shard(args, dev) -> int:
+    """``--shard``: the CSR graph on the host, ``partition_graph`` over a
+    one-shard mesh, K6's plans with ``--staircase``, warm rounds, then the
+    sharded round's stages and trace."""
+    n = args.peers
+    if args.graph == "matching":
+        raise SystemExit("--shard profiles the CSR graphs (--graph device or pa)")
+    if args.graph == "device":
+        graph = device_powerlaw_graph(n, gamma=2.5, key=prng.key(0, dev), device=dev).to_host_graph()
+    else:
+        graph = topology.build_csr(n, topology.preferential_attachment(n, 3, rng=np.random.default_rng(0)))
+    mesh = dist.make_mesh(device=dev)
+    sg, rel, pos = dist.partition_graph(graph, mesh.size, device=dev)
+    plan = dist.build_shard_plans(sg) if args.staircase else None
+    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=16, fanout=1, mode="push_pull")
+    origins = np.random.default_rng(0).choice(n, size=1, replace=False)
+    state = dist.shard_swarm(dist.init_sharded_swarm(sg, rel, pos, cfg, key=prng.key(0, dev), origins=origins,
+                                                     device=dev), mesh)
+    state, _ = dist.simulate_dist(state, cfg, sg, mesh, args.warm, plan)
+    if args.packed:
+        state = pack_state(state)
+        stages = packed_stage_times(state, cfg, plan, args.reps, shard=(sg, mesh))
+    else:
+        stages = shard_stage_times(state, cfg, sg, mesh, plan, args.reps)
+    print(json.dumps({"graph": args.graph, "shard": True, "shards": mesh.size, "staircase": plan is not None,
+                      "packed": args.packed, "stage_ms": stages}))
+    step = lambda s: dist.gossip_round_dist(s, cfg, sg, mesh, plan)  # noqa: E731
+    print(json.dumps({"trace": trace_rounds(state, step, args.rounds)}))
     return 0
 
 
