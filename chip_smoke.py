@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels (K1 lane shuffle, K2 plane fold, K3
+Builds the port's CUDA kernels (K1 lane shuffle, K2 plane fold, K3
 round tail, K4 packed word tail, K5 staircase segment, K6 streaming
-segment) from ``tpu_gossip_torch/csrc`` and the host C++
+segment, and the lane and sublane gathers of the probes P1-P5) from
+``tpu_gossip_torch/csrc`` and the host C++
 preferential-attachment library, holds each kernel against its plain
 PyTorch version on the card (exact equality; K3 and K4 in both SIR-age
 modes, past ROUND_CAP too), reproduces the JAX-pinned n=20000 digests
@@ -17,9 +18,14 @@ staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
 path (K4 alone), each packed run digest-equal to its unpacked twin, and
 the bucketed sharded engine on a one-shard mesh over the same graph: its
 receive through K6 (K6, K3), its scatter twin (K3) and its packed twin
-(K6, K4), all three digest-equal. Last it times each kernel at its path's
+(K6, K4), all three digest-equal. Then it times each kernel at its path's
 shapes beside its byte bound, its plain version and the one torch call
-that computes the same function, where there is one.
+that computes the same function, where there is one. Last come the
+probes: both probe kernels held exactly against their plain versions at
+every probe shape (P4 against K1 too) and timed, the four ported probe
+scripts (``tpu_gossip_torch/experiments``) run with their launches
+counted, and ``run_sim --profile-round 6`` on the 1M headline, which must
+launch K1, K2 and K3.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -579,6 +585,147 @@ def time_k4(targs, rows: int) -> dict:
                 library_ms=None, bytes=rows * (4 * 2 + 2 * M_SLOTS + 2 * 2 + 2 * M_SLOTS))
 
 
+def probe_operands(dev, gen):
+    """(name, tab, idx, group) at every probe shape of P1-P5, indices in
+    range: P1 both axes at every row count, P2's six shapes, P3's full
+    shape, P4 and P5 at R = 65,536. ``group`` None is ``lane_gather``, else
+    ``sublane_gather`` with that group."""
+    from tpu_gossip_torch.experiments import pallas_gather_caps, pallas_wide_lane_gather
+
+    def ints(shape, hi=2**31 - 1, lo=-2**31):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    for rows in pallas_gather_caps.ROWS:
+        yield f"P1 rows={rows} axis=0", ints((rows, 128)), ints((rows, 128), rows, 0), 0
+        yield f"P1 rows={rows} axis=1", ints((rows, 128)), ints((rows, 128), 128, 0), None
+    for s_, w, steps in pallas_wide_lane_gather.SHAPES:
+        yield f"P2 S={s_} W={w} steps={steps}", ints((s_, w)), ints((steps * s_, w), w, 0), None
+    yield "P3", ints((8192, 128)), ints((23 * 2048, 128), 8192, 0), 0
+    yield "P4", ints((65536, 128)), ints((65536, 128), 128, 0), None
+    yield "P5", ints((65536, 128)), ints((65536, 128), 8, 0), 8
+
+
+def probe_fns(tab, idx, group):
+    """(kernel, plain version, one ``torch.gather`` with the int64 index
+    made beforehand) of the probe gather on these operands."""
+    from tpu_gossip_torch.kernels.probes import lane_gather, lane_gather_plain, sublane_gather, sublane_gather_plain
+
+    il = idx.long()
+    if group is None:
+        t, w = tab.shape
+        tab3, il3 = tab.unsqueeze(0).expand(idx.shape[0] // t, t, w), il.view(-1, t, w)
+        return (lambda: lane_gather(tab, idx), lambda: lane_gather_plain(tab, idx),
+                lambda: torch.gather(tab3, 2, il3))
+    tab3, il3, dim = (tab, il, 0) if group == 0 else (tab.view(-1, group, 128), il.view(-1, group, 128), 1)
+    return (lambda: sublane_gather(tab, idx, group), lambda: sublane_gather_plain(tab, idx, group),
+            lambda: torch.gather(tab3, dim, il3))
+
+
+def check_probes(dev, gen) -> int:
+    """Both probe kernels against their plain versions at every probe
+    shape, exactly; P4's output against K1's ``lane_shuffle`` too."""
+    from tpu_gossip_torch.kernels.permute import lane_shuffle
+
+    err = 0
+    for name, tab, idx, group in probe_operands(dev, gen):
+        kernel, plain, _ = probe_fns(tab, idx, group)
+        got = kernel()
+        err = max(err, max_err(got, plain()))
+        if name == "P4":
+            err = max(err, max_err(got, lane_shuffle(tab, idx)))
+    return err
+
+
+def time_probes(dev, gen) -> dict:
+    """Each probe's kernel at its row's shape (P1 at 8192 rows, axis 1 in the
+    row and axis 0 beside it; P2 at (8, 131072, 4)), its plain version and
+    its ``torch.gather``. Bytes: idx read and out written once, 4 B an
+    element each, the table read once."""
+    cases = {c[0]: c[1:] for c in probe_operands(dev, gen)}
+    rows = {"P1 axis 0": "P1 rows=8192 axis=0", "P1": "P1 rows=8192 axis=1", "P2": "P2 S=8 W=131072 steps=4",
+            "P3": "P3", "P4": "P4", "P5": "P5"}
+    out = {}
+    for key, case in rows.items():
+        tab, idx, group = cases[case]
+        kernel, plain, library = probe_fns(tab, idx, group)
+        out[key] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, 10), library_ms=time_ms(library, 10),
+                        bytes=(2 * idx.numel() + tab.numel()) * 4)
+    return out
+
+
+def run_probe_scripts(card: str) -> dict:
+    """Each ported probe script's ``main()`` at its own shapes, launches
+    counted from 0 per script; its lines printed behind the card's name.
+    Fails on a WRONG line or a probe kernel its script never launched."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.experiments import gather_probe, pallas_gather_caps, pallas_wide_lane_gather, \
+        perm_pipeline_probe
+    from tpu_gossip_torch.kernels import native
+
+    launches = {}
+    for name, mod in (("pallas_gather_caps", pallas_gather_caps), ("pallas_wide_lane_gather", pallas_wide_lane_gather),
+                      ("gather_probe", gather_probe), ("perm_pipeline_probe", perm_pipeline_probe)):
+        native.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+        launches[name] = dict(native.LAUNCHES)
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                print(f"[{card}] {name}: {line}", flush=True)
+        if "WRONG" in buf.getvalue():
+            raise AssertionError(f"{name} printed a WRONG result")
+        print(f"[{card}] {name}: {time.perf_counter() - t0:.2f} s, launches {launches[name]}", flush=True)
+    rows = {"P1": launches["pallas_gather_caps"]["lane_gather"] + launches["pallas_gather_caps"]["sublane_gather"],
+            "P2": launches["pallas_wide_lane_gather"]["lane_gather"],
+            "P3": launches["gather_probe"]["sublane_gather"],
+            "P4": launches["perm_pipeline_probe"]["lane_gather"],
+            "P5": launches["perm_pipeline_probe"]["sublane_gather"]}
+    for key, n in rows.items():
+        if n == 0:
+            raise AssertionError(f"the {key} probe script never launched its kernel")
+    if launches["pallas_gather_caps"]["sublane_gather"] == 0:
+        raise AssertionError("pallas_gather_caps never launched sublane_gather (axis 0)")
+    return rows
+
+
+PROFILE_STAGES = ["delivery", "tail[reference]", "tail[fused]", "liveness", "stats", "rng", "transport_compact",
+                  "full_round[reference]", "full_round[fused]"]
+
+
+def run_profile_round(card: str, n: int) -> dict:
+    """``run_sim --profile-round 6`` on the 1M matching headline, launches
+    counted from 0: K1, K2 and K3 must each launch. Prints the stage table."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels import native
+
+    argv = ["--peers", str(n), "--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--profile-round", "6",
+            "--device", "cuda"]
+    native.reset_launches()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run_sim.main(argv)
+    launches = dict(native.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"run_sim --profile-round exited {rc}: {err.getvalue()}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    if list(summary["stages_ms"]) != PROFILE_STAGES:
+        raise AssertionError(f"--profile-round stages {list(summary['stages_ms'])} != {PROFILE_STAGES}")
+    check_launches("--profile-round", launches, {"lane_shuffle": None, "fold_planes_or": None, "round_tail": None},
+                   1)
+    for line in err.getvalue().splitlines():
+        print(f"[{card}] profile-round n={n}: {line}", flush=True)
+    print(f"[{card}] profile-round summary: {json.dumps(summary)}", flush=True)
+    print(f"[{card}] profile-round launches: {launches}", flush=True)
+    return summary
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -594,6 +741,13 @@ KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
      "tpu_gossip/kernels/round_tail.py:444", "round_tail_words"),
     ("stream_segment", "stream_segment", "tpu_gossip_torch/csrc/stream_segment.cu",
      "tpu_gossip/kernels/pallas_segment.py:509", "stream_segment"),
+)
+PROBES = (  # (name, row of time_probes, the Pallas probe it replaces)
+    ("P1 lane_gather (pallas_gather_caps, axis 1)", "P1", "experiments/pallas_gather_caps.py:28"),
+    ("P2 lane_gather (pallas_wide_lane_gather)", "P2", "experiments/pallas_wide_lane_gather.py:30"),
+    ("P3 sublane_gather (gather_probe)", "P3", "experiments/gather_probe.py:140"),
+    ("P4 lane_gather (perm_pipeline_probe)", "P4", "experiments/perm_pipeline_probe.py:69"),
+    ("P5 sublane_gather group 8 (perm_pipeline_probe)", "P5", "experiments/perm_pipeline_probe.py:97"),
 )
 # the launches each path must make, and must not make, per round (None: at
 # least one; a key left out is not checked)
@@ -780,6 +934,33 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
         reads = "" if t.get("windows_read") is None else f", {t['windows_read']} stream windows read"
         print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us "
               f"({t['bytes']} B{reads}), plain {t['plain_ms'] * 1e3} us, library {lib}{loop}", flush=True)
+
+    # phase 6: the probe kernels (P1-P5): (a) exact at every probe shape,
+    # (b) timed, (c) the four ported probe scripts with their launches
+    # counted, (d) run_sim --profile-round on the 1M headline
+    t0 = time.perf_counter()
+    errs["probes"] = check_probes(dev, gen)
+    print(f"probe kernels equal their plain versions at every probe shape (and P4 equals K1): {errs['probes']}",
+          flush=True)
+    ptimes = time_probes(dev, gen)
+    probe_launches = run_probe_scripts(card)
+    run_profile_round(card, N_HEADLINE)
+    print(f"[{card}] phase 6: {time.perf_counter() - t0:.2f} s", flush=True)
+    a0 = ptimes["P1 axis 0"]
+    print(f"[{card}] P1 axis 0 (sublane_gather, 8192 rows): {a0['ms'] * 1e3} us, bound "
+          f"{a0['bytes'] / HBM_BYTES_PER_S * 1e6} us ({a0['bytes']} B), plain {a0['plain_ms'] * 1e3} us, "
+          f"library {a0['library_ms'] * 1e3} us", flush=True)
+    for name, key, replaces in PROBES:
+        t = ptimes[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tpu_gossip_torch/csrc/gather_probes.cu",
+            "replaces": replaces, "launches": probe_launches[key], "max_abs_err": errs["probes"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": t["library_ms"],
+        })
+        print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us ({t['bytes']} B), "
+              f"plain {t['plain_ms'] * 1e3} us, library (torch.gather) {t['library_ms'] * 1e3} us, "
+              f"launches in its script {probe_launches[key]}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

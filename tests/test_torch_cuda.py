@@ -302,3 +302,35 @@ def test_sharded_runs_launch_what_their_path_needs(dev, s, receive):
 @pytest.mark.parametrize("extra", [["--staircase"], ["--staircase", "--packed"], []])
 def test_shard_digest_on_card_equals_cpu(dev, extra):
     _assert_card_equals_cpu(["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--shard", *extra])
+
+
+@pytest.mark.parametrize("t_rows,width,n_rows", [(8192, 128, 8192), (8, 1024, 512), (8, 131072, 32),
+                                                 (65536, 128, 65536), (4, 6, 12)])
+def test_lane_gather_kernel_equals_plain(dev, t_rows, width, n_rows):
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.permute import lane_shuffle
+    from tpu_gossip_torch.kernels.probes import lane_gather, lane_gather_plain
+
+    g = _gen(dev, width)
+    tab = torch.randint(-2**31, 2**31 - 1, (t_rows, width), generator=g, device=dev, dtype=torch.int32)
+    idx = torch.randint(0, width, (n_rows, width), generator=g, device=dev, dtype=torch.int32)
+    before = LAUNCHES["lane_gather"]
+    got = lane_gather(tab, idx)
+    assert LAUNCHES["lane_gather"] == before + 1
+    assert torch.equal(got, lane_gather_plain(tab, idx))
+    if t_rows == n_rows and width == 128:
+        assert torch.equal(got, lane_shuffle(tab, idx))
+
+
+@pytest.mark.parametrize("t_rows,n_rows,group", [(8192, 47104, 0), (64, 64, 0), (65536, 65536, 8), (48, 48, 16)])
+def test_sublane_gather_kernel_equals_plain(dev, t_rows, n_rows, group):
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.probes import sublane_gather, sublane_gather_plain
+
+    g = _gen(dev, n_rows)
+    tab = torch.randint(-2**31, 2**31 - 1, (t_rows, 128), generator=g, device=dev, dtype=torch.int32)
+    idx = torch.randint(0, group or t_rows, (n_rows, 128), generator=g, device=dev, dtype=torch.int32)
+    before = LAUNCHES["sublane_gather"]
+    got = sublane_gather(tab, idx, group)
+    assert LAUNCHES["sublane_gather"] == before + 1
+    assert torch.equal(got, sublane_gather_plain(tab, idx, group))

@@ -29,20 +29,23 @@ def _imports(path: Path) -> list[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    bad = [m for m in _imports(path)
-           if m == "jax" or m.startswith("jax.") or m == "tpu_gossip" or m.startswith("tpu_gossip.")]
+    bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "tpu_gossip", "experiments")]
     assert not bad, f"{path} imports {bad}"
 
 
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['tpu_gossip'] = None\n"
+        "sys.modules['experiments'] = None\n"
         "import tpu_gossip_torch, tpu_gossip_torch.convert, tpu_gossip_torch.cli.run_sim\n"
         "import tpu_gossip_torch.sim.metrics, tpu_gossip_torch.kernels.round_tail\n"
         "import tpu_gossip_torch.kernels.pallas_segment, tpu_gossip_torch.kernels.gossip\n"
         "import tpu_gossip_torch.native, tpu_gossip_torch.core.device_topology\n"
         "import tpu_gossip_torch.core.packed, tpu_gossip_torch.kernels.packed_ops\n"
         "import tpu_gossip_torch.sim.packed_engine, tpu_gossip_torch.dist, tpu_gossip_torch.sim.profile\n"
+        "import tpu_gossip_torch.kernels.probes, tpu_gossip_torch.utils.profiling, tpu_gossip_torch.dist.transport\n"
+        "from tpu_gossip_torch.experiments import pallas_gather_caps, pallas_wide_lane_gather, gather_probe\n"
+        "from tpu_gossip_torch.experiments import perm_pipeline_probe, matching_round_profile, dist_profile\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -87,6 +90,21 @@ def test_default_device_entry_points_raise_without_card(no_card, capsys):
     for argv in (["--graph", "matching"], ["--graph", "chung-lu"], ["--graph", "chung-lu", "--shard"]):
         assert run_sim.main(["--peers", "100", *argv, "--rounds", "2"]) == 2
         assert "CUDA" in capsys.readouterr().err
+
+
+def test_probe_and_profiling_entry_points_raise_without_card(no_card):
+    """The probe scripts and the stage profiler run on the card by default
+    and raise without one, as every entry point of the port does."""
+    from tpu_gossip_torch.experiments import (dist_profile, gather_probe, matching_round_profile,
+                                              pallas_gather_caps, pallas_wide_lane_gather, perm_pipeline_probe)
+    from tpu_gossip_torch.utils.profiling import profile_round_stages
+
+    for call in (lambda: pallas_gather_caps.try_shape(8, 1), lambda: pallas_gather_caps.main(rows=(8,)),
+                 lambda: pallas_wide_lane_gather.probe(8, 256, 2), lambda: gather_probe.main(n=2**10, e=2**12),
+                 lambda: perm_pipeline_probe.main(e=128 * 128), lambda: matching_round_profile.main(200),
+                 lambda: dist_profile.main(200), lambda: profile_round_stages(None, None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def _smoke(cwd: Path, env_extra: dict) -> subprocess.CompletedProcess:

@@ -172,7 +172,11 @@ def test_round_tail_dispatch_errors():
     args = (ops["seen"], ops["forwarded"], ops["infected_round"], ops["recovered"],
             ops["incoming"], ops["receptive"], ops["transmit"], None, torch.tensor(1))
     meta = [None if a is None else a.to("meta") for a in args]
-    with pytest.raises(ValueError):  # the CPU oracle refuses a device tensor
-        ttail.round_tail(*meta, forward_once=False, sir_recover_rounds=0, impl="reference")
+    # the reference tail is JAX's XLA tail in plain torch: it runs on any device
+    out = ttail.round_tail(*meta, forward_once=False, sir_recover_rounds=0, impl="reference")
+    assert [(o.device.type, o.shape, o.dtype) for o in out] == [("meta", a.shape, a.dtype) for a in meta[:4]]
+    for impl in ("fused", "pallas", "packed", "packed_pallas"):
+        with pytest.raises(ValueError):  # a kernel impl refuses a device tensor that is not CUDA
+            ttail.round_tail(*meta, forward_once=False, sir_recover_rounds=0, impl=impl)
     with pytest.raises(ValueError):
         ttail.round_tail(*args, forward_once=False, sir_recover_rounds=0, impl="bogus")

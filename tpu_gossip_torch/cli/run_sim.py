@@ -8,6 +8,8 @@
         --fanout 1 --graph matching --packed
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph chung-lu --shard --staircase
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph matching --profile-round 6
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -24,9 +26,12 @@ unpacked before the digest, as the JAX CLI does. With ``--shard`` the CSR
 graphs run on the bucketed sharded engine (``dist/mesh.py``) over a mesh
 of one shard per card (one on the CPU), its receive through K6 with
 ``--staircase``; the summary adds ``devices`` and ``transport`` (always
-``dense``), as the JAX CLI's does. The summary keys are the JAX CLI's. Runs on ``--device cuda``
-unless told otherwise; every other flag of the JAX CLI is not ported yet
-and exits 2.
+``dense``), as the JAX CLI's does. The summary keys are the JAX CLI's.
+``--profile-round R`` advances R rounds of the local unpacked engine and
+prints the slope-timed stage decomposition of its round instead
+(``utils/profiling.py``); ``--profile DIR`` records a ``torch.profiler``
+trace of the run. Runs on ``--device cuda`` unless told otherwise; every
+other flag of the JAX CLI is not ported yet and exits 2.
 """
 
 from __future__ import annotations
@@ -78,6 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard", action="store_true",
                    help="run the bucketed sharded engine over a mesh of one shard per card "
                    "(dist/mesh.py); with --staircase each shard's receive runs K6")
+    p.add_argument("--profile-round", type=int, default=0, metavar="R",
+                   help="instead of the normal run: advance R warm rounds, then slope-time the round's "
+                   "stage decomposition (delivery, tail per implementation, liveness, stats, rng, the "
+                   "compaction probe, composed round: utils.profiling.profile_round_stages) and print it "
+                   "as the summary JSON, the table to stderr. Local engine only, unpacked")
+    p.add_argument("--profile", type=str, default="",
+                   help="record a torch.profiler trace of the run into this directory (trace.json, "
+                   "chrome-trace JSON)")
     p.add_argument("--digest", action="store_true",
                    help="add state_digest/stats_digest to a fixed-horizon summary")
     p.add_argument("--quiet", action="store_true", help="summary line only, no per-round JSONL")
@@ -94,6 +107,14 @@ def main(argv: list[str] | None = None) -> int:
     if args.shard and args.tail != "fused":
         print(f"--tail {args.tail} selects the LOCAL engine's tail implementation; the sharded engines "
               "always run the fused tail", file=sys.stderr)
+        return 2
+    if args.profile_round > 0 and args.shard:
+        print("--profile-round decomposes the LOCAL round (use tpu_gossip_torch/experiments/dist_profile.py "
+              "for the sharded engine)", file=sys.stderr)
+        return 2
+    if args.profile_round > 0 and args.packed:
+        print("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
+              "boundary codec: drop --packed for the decomposition", file=sys.stderr)
         return 2
     from tpu_gossip_torch.device import resolve_device
 
@@ -116,14 +137,12 @@ def run(args: argparse.Namespace) -> dict:
     JSONL goes to stdout first unless ``--quiet``)."""
     from tpu_gossip_torch.core import prng, topology
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
-    from tpu_gossip_torch.core.packed import pack_state, unpack_state
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.device import resolve_device
     from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
-    from tpu_gossip_torch.sim import metrics as M
     from tpu_gossip_torch.sim.engine import run_until_coverage, simulate
     from tpu_gossip_torch.sim.stages import not_ported
-    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+    from tpu_gossip_torch.utils.profiling import trace
 
     dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
@@ -167,6 +186,20 @@ def run(args: argparse.Namespace) -> dict:
         def to_target(st):
             return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail)
 
+        if args.profile_round > 0:
+            return _profile_round(args, cfg, state, plan)
+    with trace(args.profile):
+        summary = _run_body(args, cfg, state, horizon, to_target, extra)
+    summary["packed"] = args.packed
+    return summary
+
+
+def _run_body(args: argparse.Namespace, cfg, state, horizon, to_target, extra: dict) -> dict:
+    """The fixed horizon or the run to ``--target``; returns the summary."""
+    from tpu_gossip_torch.core.packed import pack_state, unpack_state
+    from tpu_gossip_torch.sim import metrics as M
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
     if args.rounds > 0:
         fin, stats = horizon(pack_state(state) if args.packed else state)
         if args.packed:
@@ -194,8 +227,34 @@ def run(args: argparse.Namespace) -> dict:
         result, _ = M.bench_swarm(state, cfg, args.target, args.max_rounds, run=cov_run,
                                   n_peers=args.peers if args.shard else None)
         summary = {"summary": True, "mode": args.mode, **extra, **json.loads(result.to_json())}
-    summary["packed"] = args.packed
     return summary
+
+
+def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
+    """--profile-round R: advance R rounds (mid-epidemic slot densities),
+    then slope-time each stage and the composed round per tail; the table
+    goes to stderr, the summary (ms a round, NaN as null) is returned. The
+    ``transport_compact`` stage measures the sparse lane's compaction at
+    this swarm's synthetic 8-shard bucket geometry: capacity the directed
+    edges per (src, dst) pair rounded up to whole 1024-entry windows, budget
+    1/8 of it."""
+    from tpu_gossip_torch.core.state import clone_state
+    from tpu_gossip_torch.kernels.pallas_segment import _slot_groups
+    from tpu_gossip_torch.sim.engine import simulate
+    from tpu_gossip_torch.utils.profiling import format_stage_table, profile_round_stages, stages_ms, trace
+
+    warm, _ = simulate(clone_state(state), cfg, args.profile_round, plan)
+    tails = ("reference", "fused") if args.tail != "pallas" else ("reference", "fused", "pallas")
+    s_probe = 8
+    e_real = int(state.row_ptr[-1])
+    b_probe = max(1024, -(-e_real // (s_probe * s_probe * 1024)) * 1024)
+    probe = (s_probe, b_probe, len(_slot_groups(args.slots)), max(b_probe // 8, 1))
+    with trace(args.profile):
+        stages = profile_round_stages(warm, cfg, plan, tails=tails, transport_probe=probe,
+                                      device=state.seen.device)
+    print(format_stage_table(stages), file=sys.stderr)
+    return {"summary": True, "profile_round": True, "mode": args.mode, "n_peers": args.peers,
+            "warm_rounds": args.profile_round, "stages_ms": stages_ms(stages)}
 
 
 def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):

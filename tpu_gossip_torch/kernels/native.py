@@ -53,6 +53,7 @@ SOURCES = {
     "staircase_segment": "staircase_segment.cu",
     "round_tail_words": "round_tail_words.cu",
     "stream_segment": "stream_segment.cu",
+    "gather_probes": "gather_probes.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -77,11 +78,16 @@ _SIGNATURES = {
     "stream_segment": {
         "stream_segment": (_P,) * 5 + (_L, _I, _I, _P),
     },
+    "gather_probes": {
+        "lane_gather": (_P, _P, _P, _L, _L, _L, _P),
+        "sublane_gather": (_P, _P, _P, _L, _I, _P),
+    },
 }
 
 # launch counts per kernel entry (K2 counts its OR and SUM forms apart)
 LAUNCHES: dict[str, int] = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 0,
-                            "staircase_segment": 0, "round_tail_words": 0, "stream_segment": 0}
+                            "staircase_segment": 0, "round_tail_words": 0, "stream_segment": 0,
+                            "lane_gather": 0, "sublane_gather": 0}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 

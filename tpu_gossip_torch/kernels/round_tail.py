@@ -22,8 +22,9 @@ namesake: ``"fused"`` (and ``"reference"``, ``"packed"``) take the wide age,
 
 On a CUDA tensor ``"fused"`` and ``"pallas"`` launch K3, and ``"packed"``
 and ``"packed_pallas"`` launch K4 (the word chain is their plain version,
-for CPU tensors only); ``"reference"`` is for CPU tensors only and raises
-on CUDA, so the card's main path never takes a plain version.
+for CPU tensors only). ``"reference"`` is the JAX package's multi-pass XLA
+tail, no kernel's plain version: plain torch on either device, as XLA ran
+it, so ``--profile-round`` times it on the card as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -285,8 +286,6 @@ def round_tail(seen, forwarded, infected_round, recovered, incoming, receptive,
     kw = dict(forward_once=forward_once, sir_recover_rounds=sir_recover_rounds, expired=expired)
     args = (seen, forwarded, infected_round, recovered, incoming, receptive, transmit, fresh, rnd)
     if impl == "reference":
-        if seen.device.type != "cpu":
-            raise ValueError("tail impl 'reference' is the CPU oracle; on CUDA use 'fused' (K3)")
         return tail_reference(*args, **kw)
     if impl in ("packed", "packed_pallas"):
         return tail_packed(*args, pallas=impl == "packed_pallas", **kw)
