@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 lane shuffle, K2 plane fold, K3
-round tail, K4 packed word tail, K5 staircase segment, K6 streaming
-segment, and the lane and sublane gathers of the probes P1-P5) from
-``tpu_gossip_torch/csrc`` and the host C++
+Builds the port's CUDA kernels (K1 lane shuffle with its two fused
+transpose entries, K2 plane fold, K3 round tail, K4 packed word tail, K5
+staircase segment, K6 streaming segment, and the lane and sublane gathers
+of the probes P1-P5) from ``tpu_gossip_torch/csrc`` and the host C++
 preferential-attachment library, holds each kernel against its plain
-PyTorch version on the card (exact equality; K3 and K4 in both SIR-age
-modes, past ROUND_CAP too), reproduces the JAX-pinned n=20000 digests
-(``tpu_gossip_torch/reference_digests.json``, packed and sharded runs
-included), then drives eight paths at 1M peers (push_pull, fanout 1, 16
+PyTorch version on the card (exact equality; each K1 entry at int8 and
+int32 tables, ragged tiles too; K3 at slot widths 1, 3, 7, 16 and 32; K3
+and K4 in both SIR-age modes, past ROUND_CAP too), reproduces the
+JAX-pinned digests (``tpu_gossip_torch/reference_digests.json``: ten
+n=20000 runs, packed and sharded included, and the 1M matching
+headline), then drives eight paths at 1M peers (push_pull, fanout 1, 16
 slots, to 99% coverage), each with its launches counted from zero: the
 matching headline (K1, K2, K3), the power-law CSR swarm delivered by the
 staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
@@ -18,9 +20,12 @@ staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
 path (K4 alone), each packed run digest-equal to its unpacked twin, and
 the bucketed sharded engine on a one-shard mesh over the same graph: its
 receive through K6 (K6, K3), its scatter twin (K3) and its packed twin
-(K6, K4), all three digest-equal. Then it times each kernel at its path's
-shapes beside its byte bound, its plain version and the one torch call
-that computes the same function, where there is one. Last come the
+(K6, K4), all three digest-equal. One partner pass of the headline plan
+is counted apart: 2K+1 K1 launches and no torch transpose. Then it times
+each kernel at its path's shapes beside its byte bound, its plain
+version and the one torch call that computes the same function, where
+there is one, kernel and yardstick in turns, and the whole partner pass
+beside the same stages run unfused (K1 and the torch transposes). Last come the
 probes: both probe kernels held exactly against their plain versions at
 every probe shape (P4 against K1 too) and timed, the four ported probe
 scripts (``tpu_gossip_torch/experiments``) run with their launches
@@ -92,6 +97,13 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, other, iters: int = 50) -> tuple[float, float]:
+    """Mean device times of ``kernel`` and ``other`` (:func:`time_ms`),
+    timed in turns: kernel, other, other, kernel."""
+    a1, b1, b2, a2 = (time_ms(fn, iters) for fn in (kernel, other, other, kernel))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Exact comparison: raises on any difference, returns 0."""
     if a.dtype != b.dtype or a.shape != b.shape:
@@ -107,15 +119,21 @@ def lane_tables(rows: int, dtype: torch.dtype, gen: torch.Generator, dev) -> tor
     return torch.argsort(u, dim=1).to(dtype)
 
 
+K1_ENTRIES = ("lane_shuffle", "lane_shuffle_t", "tinv_lane_shuffle")
+
+
 def check_k1(dev, gen, main_rows: int) -> int:
-    from tpu_gossip_torch.kernels.permute import lane_shuffle, lane_shuffle_plain
+    """Each K1 entry against its plain version at the 1M plan's rows (int8
+    and int32 tables) and at small and ragged (R % 32 != 0) shapes."""
+    from tpu_gossip_torch.kernels import permute
 
     err = 0
-    for rows, dt in ((main_rows, torch.int8), (main_rows, torch.int32), (40, torch.int32),
+    for rows, dt in ((main_rows, torch.int8), (main_rows, torch.int32), (40, torch.int32), (72, torch.int32),
                      (96, torch.int8), (2056, torch.int32), (4128, torch.int8)):
         x = torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=gen, device=dev, dtype=torch.int32)
         idx = lane_tables(rows, dt, gen, dev)
-        err = max(err, max_err(lane_shuffle(x, idx), lane_shuffle_plain(x, idx)))
+        for entry in K1_ENTRIES:
+            err = max(err, max_err(getattr(permute, entry)(x, idx), getattr(permute, f"{entry}_plain")(x, idx)))
     return err
 
 
@@ -162,11 +180,14 @@ FLAG_GRID = [(fo, sir, f, e) for fo in (False, True) for sir in (0, 4) for f in 
 
 def check_k3(dev, gen, n_main: int) -> int:
     """K3 against its plain version over forward-once, SIR, fresh and
-    expired at round 9, and in both SIR-age modes at round 32771."""
+    expired at round 9, and in both SIR-age modes at round 32771, at slot
+    widths that put several rows in a 16-element vector (1), vectors
+    across row ends (3, 7) and rows of whole vectors (16, 32), N*M mod 16
+    left over in each small shape."""
     from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
 
     err = 0
-    for n, m in ((n_main, M_SLOTS), (1001, 7)):
+    for n, m in ((n_main, M_SLOTS), (1001, 7), (4099, 1), (1001, 3), (1001, 32)):
         for rnd_v, ages in ((9, (False,)), (32771, (False, True))):
             ops = tail_operands(n, m, gen, dev, rnd=9) if rnd_v == 9 else cap_edge_operands(n, m, gen, dev)
             rnd = torch.tensor(rnd_v, dtype=torch.int32, device=dev)
@@ -312,7 +333,8 @@ def check_k6(dev, gen, setup: dict) -> int:
 
 
 def phase_digest(root: Path, dev) -> list[dict]:
-    """The port's CLI at every JAX-pinned n=20000 configuration."""
+    """The port's CLI at every JAX-pinned configuration (the n=20000 runs
+    and the 1M matching headline)."""
     from tpu_gossip_torch.cli import run_sim
 
     out = []
@@ -529,20 +551,83 @@ def time_k6(setup: dict, dev, gen) -> dict:
                 bytes=(plan.n_tiles + windows) * TILE * 4 + plan.n_blocks * plan.rows * 4)
 
 
+def partner_pass_counts(plan, dev) -> dict:
+    """One ``plan.partner`` pass with its K1 launches (in all and by entry)
+    and the torch transposes it runs counted; fails unless a K-stage plan
+    makes 2K+1 launches and no transpose."""
+    from tpu_gossip_torch.kernels import native, permute
+
+    x = torch.zeros((plan.rows, 128), dtype=torch.int32, device=dev)
+    transposes = {"transpose_pass": 0, "untranspose_pass": 0}
+    saved = {name: getattr(permute, name) for name in transposes}
+
+    def counted(name):
+        def fn(t):
+            transposes[name] += 1
+            return saved[name](t)
+        return fn
+
+    native.reset_launches()
+    try:
+        for name in transposes:
+            setattr(permute, name, counted(name))
+        plan.partner(x)
+    finally:
+        for name, fn in saved.items():
+            setattr(permute, name, fn)
+    torch.cuda.synchronize()
+    out = dict(stages=len(plan.stages), k1_launches=native.LAUNCHES["lane_shuffle"],
+               by_entry=dict(native.K1_ENTRIES), torch_transposes=sum(transposes.values()))
+    if out["k1_launches"] != 2 * len(plan.lanes) + 1 or out["torch_transposes"]:
+        raise AssertionError(f"a partner pass of a {len(plan.lanes)}-stage plan ran {out}")
+    return out
+
+
+def time_partner_pass(plan, x) -> dict:
+    """The whole partner pass as ``plan.partner`` runs it (fused K1 entries)
+    and the same stages unfused (K1 ``lane_shuffle`` and the torch
+    transposes), held equal, then timed in turns. Bytes: each K1 launch
+    reads x and its table and writes out once."""
+    from tpu_gossip_torch.kernels.permute import fuse_stages, lane_shuffle, transpose_pass, untranspose_pass
+
+    def unfused():
+        y = x
+        for stage in plan.stages:
+            if stage[0] == "lane":
+                y = lane_shuffle(y, stage[1])
+            else:
+                y = (transpose_pass if stage[0] == "t" else untranspose_pass)(y)
+        return y
+
+    max_err(plan.partner(x), unfused())
+    ms, unfused_ms = in_turns(lambda: plan.partner(x), unfused, 20)
+    launches = len(fuse_stages(plan.stages))
+    return dict(ms=ms, unfused_ms=unfused_ms, launches=launches,
+                bytes=launches * plan.rows * 128 * (4 + plan.lanes[0].element_size() + 4))
+
+
 def phase_timing(plan, dev, gen, n: int) -> dict:
     """Each kernel, its plain version and its library call at the main
-    path's shapes."""
-    from tpu_gossip_torch.kernels.permute import fold_planes, fold_planes_plain, lane_shuffle, lane_shuffle_plain
+    path's shapes (kernel and library in turns), and the partner pass."""
+    from tpu_gossip_torch.kernels import permute
+    from tpu_gossip_torch.kernels.permute import fold_planes, fold_planes_plain
     from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
 
     x = plan.expand(torch.arange(plan.n, dtype=torch.int32, device=dev))
     tab = plan.lanes[0]
     idx_long = tab.to(torch.int64)
-    slots = plan.rows * 128
-    out = {"lane_shuffle": dict(
-        ms=time_ms(lambda: lane_shuffle(x, tab)), plain_ms=time_ms(lambda: lane_shuffle_plain(x, tab)),
-        library_ms=time_ms(lambda: torch.gather(x, 1, idx_long)),
-        bytes=slots * (4 + tab.element_size() + 4))}
+    k1_bytes = plan.rows * 128 * (4 + tab.element_size() + 4)
+    libraries = {  # one torch.gather (int64 index made beforehand), with the transpose it absorbs
+        "lane_shuffle": lambda: torch.gather(x, 1, idx_long),
+        "lane_shuffle_t": lambda: torch.gather(x, 1, idx_long).t().contiguous(),
+        "tinv_lane_shuffle": lambda: torch.gather(x.view(128, plan.rows).t().contiguous(), 1, idx_long),
+    }
+    out = {}
+    for entry, library in libraries.items():
+        kernel, plain = getattr(permute, entry), getattr(permute, f"{entry}_plain")
+        ms, library_ms = in_turns(lambda: kernel(x, tab), library)
+        out[entry] = dict(ms=ms, plain_ms=time_ms(lambda: plain(x, tab)), library_ms=library_ms, bytes=k1_bytes)
+    out["partner_pass"] = time_partner_pass(plan, x)
     pm = [(so, cs, c, pd) for (_, so, c, pd, cs) in plan.classes if c >= 8192]
     fold_bytes = sum((pd + 1) * cs * 4 for (_, cs, _, pd) in pm)
     flat = x.reshape(-1)
@@ -559,9 +644,8 @@ def phase_timing(plan, dev, gen, n: int) -> dict:
     ops = tail_operands(n + 1, M_SLOTS, gen, dev, rnd=9)
     targs = (*(ops[k] for k in TAIL_PLANES), None, torch.tensor(9, dtype=torch.int32, device=dev))
     tkw = dict(forward_once=False, sir_recover_rounds=0)
-    out["round_tail"] = dict(ms=time_ms(lambda: tail_kernel(*targs, **tkw)),
-                             plain_ms=time_ms(lambda: tail_fused(*targs, **tkw)),
-                             loop_ms=loop_ms(lambda: tail_kernel(*targs, **tkw)),
+    ms, plain_ms = in_turns(lambda: tail_kernel(*targs, **tkw), lambda: tail_fused(*targs, **tkw))
+    out["round_tail"] = dict(ms=ms, plain_ms=plain_ms, loop_ms=loop_ms(lambda: tail_kernel(*targs, **tkw)),
                              library_ms=None, bytes=(n + 1) * M_SLOTS * (6 + 4))
     out["round_tail_words"] = time_k4(targs, n + 1)
     return out
@@ -729,6 +813,10 @@ def run_profile_round(card: str, n: int) -> dict:
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
+    ("lane_shuffle_t", "lane_shuffle_t", "tpu_gossip_torch/csrc/lane_shuffle.cu",
+     "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
+    ("tinv_lane_shuffle", "tinv_lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
+     "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
     ("fold_planes[or]", "fold_planes_or", "tpu_gossip_torch/csrc/fold_planes.cu",
      "tpu_gossip/kernels/permute.py:229", "fold_planes"),
     ("fold_planes[sum]", "fold_planes_sum", "tpu_gossip_torch/csrc/fold_planes.cu",
@@ -823,7 +911,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
 
     # phase 3: the JAX-pinned digests at n=20000 through the port's CLI
     for got in phase_digest(root, dev):
-        print(f"n=20000 digests equal the JAX reference: {got['mode']} {got['state_digest']} "
+        print(f"n={got['n_peers']} digests equal the JAX reference: {got['mode']} {got['state_digest']} "
               f"{got['stats_digest']}", flush=True)
 
     # phase 4a: the matching headline, every launch counted from 0
@@ -831,14 +919,16 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     native.reset_launches()
     hgraph, plan, run = phase_headline(dev, N_HEADLINE)
     launches = dict(native.LAUNCHES)
+    k1_entries = dict(native.K1_ENTRIES)
     peak = run["peak"]
     rounds = run["rounds"]
     check_launches("matching", launches, MATCHING_PATH, rounds)
     print(f"[{card}] headline n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: "
           f"plan build {run['build_s']} s, rounds to 99% {rounds}, coverage {run['coverage']}, "
           f"{run['run_s'] * 1e3 / rounds} ms/round, {N_HEADLINE * rounds / run['run_s']} peers*rounds/s, "
-          f"max_memory_allocated {peak} B (run alone {run['run_peak']} B)", flush=True)
-    print(f"[{card}] matching-path launches: {launches}", flush=True)
+          f"max_memory_allocated {peak} B (run alone {run['run_peak']} B), final state_digest {run['digest']}", flush=True)
+    print(f"[{card}] matching-path launches: {launches}; K1 by entry {k1_entries}", flush=True)
+    print(f"[{card}] one partner pass of the headline plan: {partner_pass_counts(plan, dev)}", flush=True)
 
     # phase 4b: the staircase path, counted from 0: graph and plans built
     # on the card, run to 99% through K5
@@ -852,7 +942,8 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     print(f"[{card}] staircase n={N_HEADLINE} gamma=2.5 m={M_SLOTS} push_pull fanout 1: {sinfo}", flush=True)
     print(f"[{card}] staircase run: plan build (host) {sinfo['host_plan_s']} s, rounds to 99% {srun['rounds']}, "
           f"coverage {srun['coverage']}, {srun['run_s'] * 1e3 / srun['rounds']} ms/round, "
-          f"{N_HEADLINE * srun['rounds'] / srun['run_s']} peers*rounds/s, max_memory_allocated {s_peak} B",
+          f"{N_HEADLINE * srun['rounds'] / srun['run_s']} peers*rounds/s, max_memory_allocated {s_peak} B, "
+          f"final state_digest {srun['digest']}",
           flush=True)
     print(f"[{card}] staircase-path launches: {s_launches}", flush=True)
 
@@ -862,7 +953,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     check_launches("exactly-k", dict(native.LAUNCHES), XLA_PATH, xrun["rounds"])
     print(f"[{card}] exactly-k XLA run on the same graph: rounds to 99% {xrun['rounds']}, coverage "
           f"{xrun['coverage']}, {xrun['run_s'] * 1e3 / xrun['rounds']} ms/round, "
-          f"run max_memory_allocated {xrun['run_peak']} B", flush=True)
+          f"run max_memory_allocated {xrun['run_peak']} B, final state_digest {xrun['digest']}", flush=True)
 
     # phases 4d and 4e: the packed twins of 4a (same state and plan) and of
     # 4c (same graph), counted from 0, each digest-equal to its twin
@@ -909,14 +1000,17 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
         print(f"[{card}] {what} n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: rounds to 99% {r['rounds']}, "
               f"coverage {r['coverage']}, {r['run_s'] * 1e3 / r['rounds']} ms/round, "
               f"{N_HEADLINE * r['rounds'] / r['run_s']} peers*rounds/s, run max_memory_allocated {r['run_peak']} B"
-              + ("" if what == "sharded staircase" else ", final state digest equal to the K6 run's"), flush=True)
+              + (f", final state_digest {r['digest']}" if what == "sharded staircase"
+                 else ", final state digest equal to the K6 run's"), flush=True)
         print(f"[{card}] {what}-path launches: {shard_launches[what]}", flush=True)
 
     # phase 5: kernel times at each path's shapes
     times = phase_timing(plan, dev, gen, N_HEADLINE)
     times["staircase_segment"] = time_k5(splan, dev, gen)
     times["stream_segment"] = time_k6(shard, dev, gen)
-    path_launches = dict(launches, staircase_segment=s_launches["staircase_segment"],
+    path_launches = dict(launches, lane_shuffle_t=k1_entries["lane_shuffle_t"],
+                         tinv_lane_shuffle=k1_entries["tinv_lane_shuffle"],
+                         staircase_segment=s_launches["staircase_segment"],
                          round_tail_words=packed_launches["packed matching"]["round_tail_words"],
                          stream_segment=shard_launches["sharded staircase"]["stream_segment"])
     kernels = []
@@ -934,6 +1028,11 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
         reads = "" if t.get("windows_read") is None else f", {t['windows_read']} stream windows read"
         print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us "
               f"({t['bytes']} B{reads}), plain {t['plain_ms'] * 1e3} us, library {lib}{loop}", flush=True)
+
+    pp = times["partner_pass"]
+    print(f"[{card}] partner pass ({pp['launches']} K1 launches, no transpose): {pp['ms'] * 1e3} us, bound "
+          f"{pp['bytes'] / HBM_BYTES_PER_S * 1e6} us ({pp['bytes']} B); the same stages unfused (K1 lane_shuffle "
+          f"and the torch transposes) {pp['unfused_ms'] * 1e3} us", flush=True)
 
     # phase 6: the probe kernels (P1-P5): (a) exact at every probe shape,
     # (b) timed, (c) the four ported probe scripts with their launches

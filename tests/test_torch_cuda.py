@@ -28,18 +28,64 @@ def _gen(dev, seed):
     return g
 
 
-@pytest.mark.parametrize("rows,dtype", [(40, torch.int32), (2056, torch.int32), (96, torch.int8), (43424, torch.int8)])
-def test_lane_shuffle_kernel_equals_plain(dev, rows, dtype):
-    from tpu_gossip_torch.kernels.native import LAUNCHES
-    from tpu_gossip_torch.kernels.permute import lane_shuffle, lane_shuffle_plain
+@pytest.mark.parametrize("entry", ["lane_shuffle", "lane_shuffle_t", "tinv_lane_shuffle"])
+@pytest.mark.parametrize("rows,dtype", [(40, torch.int32), (72, torch.int32), (2056, torch.int32), (96, torch.int8),
+                                        (4128, torch.int8), (43424, torch.int8), (43424, torch.int32)])
+def test_lane_shuffle_kernel_equals_plain(dev, entry, rows, dtype):
+    """Each K1 entry, ragged int32 tiles (R % 32 != 0) among the shapes."""
+    from tpu_gossip_torch.kernels import permute
+    from tpu_gossip_torch.kernels.native import K1_ENTRIES, LAUNCHES
 
     g = _gen(dev, rows)
     x = torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=g, device=dev, dtype=torch.int32)
     idx = torch.argsort(torch.rand((rows, 128), generator=g, device=dev), dim=1).to(dtype)
+    before, before_entry = LAUNCHES["lane_shuffle"], K1_ENTRIES[entry]
+    got = getattr(permute, entry)(x, idx)
+    assert LAUNCHES["lane_shuffle"] == before + 1 and K1_ENTRIES[entry] == before_entry + 1
+    assert torch.equal(got, getattr(permute, f"{entry}_plain")(x, idx))
+
+
+@pytest.mark.parametrize("n", [2000, 500_000])
+def test_partner_pass_on_card_runs_fused_shuffles_and_no_transpose(dev, n, monkeypatch):
+    """A K-stage plan's pass on the card: 2K+1 K1 launches, no torch
+    transpose, and the plain stages' result."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip_torch.kernels import permute
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+
+    _, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
+    x = torch.randint(-2**31, 2**31 - 1, (plan.rows, 128), generator=_gen(dev, 5), device=dev, dtype=torch.int32)
+    want = x
+    for stage in plan.stages:
+        if stage[0] == "lane":
+            want = permute.lane_shuffle_plain(want, stage[1])
+        else:
+            want = (permute.transpose_pass if stage[0] == "t" else permute.untranspose_pass)(want)
+    for name in ("transpose_pass", "untranspose_pass"):
+        monkeypatch.setattr(permute, name, lambda x, name=name: pytest.fail(f"partner pass ran {name}"))
     before = LAUNCHES["lane_shuffle"]
-    got = lane_shuffle(x, idx)
-    assert LAUNCHES["lane_shuffle"] == before + 1
-    assert torch.equal(got, lane_shuffle_plain(x, idx))
+    got = plan.partner(x)
+    assert LAUNCHES["lane_shuffle"] - before == 2 * len(plan.lanes) + 1
+    assert torch.equal(got, want)
+
+
+def test_kernels_refuse_unaligned_operands(dev):
+    from tpu_gossip_torch.kernels.permute import lane_shuffle, lane_shuffle_t, tinv_lane_shuffle
+    from tpu_gossip_torch.kernels.round_tail import tail_kernel
+
+    flat = torch.zeros(33 * 128, dtype=torch.int32, device=dev)
+    x = flat[1 : 1 + 32 * 128].view(32, 128)
+    idx = torch.zeros((32, 128), dtype=torch.int8, device=dev)
+    for fn in (lane_shuffle, lane_shuffle_t, tinv_lane_shuffle):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(x, idx)
+    planes = [torch.zeros((64, 3), dtype=torch.bool, device=dev) for _ in range(6)]
+    ir = torch.full((64, 3), -1, dtype=torch.int16, device=dev)
+    shifted = torch.zeros(64 * 3 + 1, dtype=torch.bool, device=dev)[1:].view(64, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_kernel(shifted, planes[0], ir, *planes[1:5], None, torch.tensor(1, device=dev),
+                    forward_once=False, sir_recover_rounds=0)
 
 
 @pytest.mark.parametrize("op", ["or", "sum"])
@@ -95,6 +141,26 @@ def test_round_tail_kernel_cap_edge_equals_plain(dev, rnd, age_saturated):
     for kw in (dict(expired=None), dict(expired=expired)):
         kw.update(forward_once=True, sir_recover_rounds=4, age_saturated=age_saturated)
         for a, p in zip(tail_kernel(*ops, fresh, r, **kw), tail_fused(*ops, fresh, r, **kw)):
+            assert torch.equal(a, p)
+
+
+@pytest.mark.parametrize("m", [1, 3, 16, 32])
+@pytest.mark.parametrize("n", [1001, 4099])
+def test_round_tail_kernel_vector_widths_equal_plain(dev, m, n):
+    """K3's 16-element vectors across row ends (m = 3), several rows a
+    vector (m = 1) and rows of whole vectors (m = 16, 32), with the
+    N*M mod 16 remainder, every flag, rounds 9 and 32771, both SIR ages."""
+    from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
+
+    g = _gen(dev, m * 7 + n)
+    ops = _cap_edge_tail(dev, n, m, g)
+    fresh = torch.rand(n, generator=g, device=dev) < 0.1
+    expired = torch.rand(m, generator=g, device=dev) < 0.3
+    for fo, sir, f, e, rnd, sat in itertools.product([False, True], [0, 4], [None, fresh], [None, expired],
+                                                     [9, 32771], [False, True]):
+        r = torch.tensor(rnd, dtype=torch.int32, device=dev)
+        kw = dict(forward_once=fo, sir_recover_rounds=sir, expired=e, age_saturated=sat)
+        for a, p in zip(tail_kernel(*ops, f, r, **kw), tail_fused(*ops, f, r, **kw)):
             assert torch.equal(a, p)
 
 

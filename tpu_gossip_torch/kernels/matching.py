@@ -4,7 +4,7 @@ Ports ``matching_flood`` and ``matching_sampled`` (:80) of
 ``tpu_gossip/kernels/matching.py``: the round's dissemination as
 
     expand   per-node packed words -> stub slots   (class broadcast)
-    partner  slot j <- word of owner(pi(j))        (K1 lane shuffles + transposes)
+    partner  slot j <- word of owner(pi(j))        (K1 lane shuffles, transposes fused in)
     reduce   OR slots into receivers               (K2 plane folds + index-add)
 
 Sampling is the Bernoulli-per-edge law: per-slot uint32 thresholds gate

@@ -28,6 +28,7 @@ import torch
 __all__ = [
     "SOURCES",
     "LAUNCHES",
+    "K1_ENTRIES",
     "reset_launches",
     "build_all",
     "start_compile",
@@ -36,6 +37,7 @@ __all__ = [
     "check",
     "stream_of",
     "require_cuda",
+    "require_aligned",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -59,8 +61,8 @@ SOURCES = {
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "lane_shuffle": {
-        "lane_shuffle_i8": (_P, _P, _P, _L, _P),
-        "lane_shuffle_i32": (_P, _P, _P, _L, _P),
+        f"{entry}_{t}": (_P, _P, _P, _L, _P)
+        for entry in ("lane_shuffle", "lane_shuffle_t", "tinv_lane_shuffle") for t in ("i8", "i32")
     },
     "fold_planes": {
         "fold_planes_or": (_P, _P, _L, _L, _I, _P),
@@ -88,13 +90,16 @@ _SIGNATURES = {
 LAUNCHES: dict[str, int] = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 0,
                             "staircase_segment": 0, "round_tail_words": 0, "stream_segment": 0,
                             "lane_gather": 0, "sublane_gather": 0}
+# K1's launches by entry; each also counts once under LAUNCHES["lane_shuffle"]
+K1_ENTRIES: dict[str, int] = {"lane_shuffle": 0, "lane_shuffle_t": 0, "tinv_lane_shuffle": 0}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set every kernel's launch count to 0 (K1's counts by entry too)."""
+    for counts in (LAUNCHES, K1_ENTRIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -199,3 +204,11 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: operands must share one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")
+
+
+def require_aligned(what: str, *tensors: torch.Tensor, align: int = 16) -> None:
+    """Every operand's data starts on an ``align``-byte boundary (the
+    kernels' 16-byte accesses), or raise."""
+    for t in tensors:
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: operands must start on a {align}-byte boundary")

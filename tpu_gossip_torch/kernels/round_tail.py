@@ -138,8 +138,9 @@ def tail_kernel(seen, forwarded, infected_round, recovered, incoming, receptive,
                 transmit, fresh, rnd, *, forward_once: bool, sir_recover_rounds: int,
                 expired=None, age_saturated: bool = False):
     """K3: the whole tail in one launch on CUDA tensors (``tail_fused`` on
-    CPU tensors). When neither forward-once nor a reset touches
-    ``forwarded`` it passes through untouched."""
+    CPU tensors); the seven (N, M) planes must start on 16-byte boundaries
+    (the kernel's vector accesses). When neither forward-once nor a reset
+    touches ``forwarded`` it passes through untouched."""
     _check_tail(seen, forwarded, infected_round, recovered, incoming, receptive,
                 transmit, fresh, expired)
     kw = dict(forward_once=forward_once, sir_recover_rounds=sir_recover_rounds, expired=expired,
@@ -151,6 +152,7 @@ def tail_kernel(seen, forwarded, infected_round, recovered, incoming, receptive,
     operands = [seen, infected_round, recovered, incoming, receptive, forwarded, transmit, rnd16, rnd32]
     operands += [t for t in (fresh, expired) if t is not None]
     native.require_cuda("round_tail", *operands)
+    native.require_aligned("round_tail", *operands[:7])
     n, m = seen.shape
     needs_fwd = forward_once or fresh is not None or expired is not None
     o_seen = torch.empty_like(seen)
