@@ -3,12 +3,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 lane shuffle with its two fused
-transpose entries, K2 plane fold, K3 round tail, K4 packed word tail, K5
+transpose entries, K2 class fold, K3 round tail, K4 packed word tail, K5
 staircase segment, K6 streaming segment, and the lane and sublane gathers
 of the probes P1-P5) from ``tpu_gossip_torch/csrc`` and the host C++
 preferential-attachment library, holds each kernel against its plain
 PyTorch version on the card (exact equality; each K1 entry at int8 and
-int32 tables, ragged tiles too; K3 at slot widths 1, 3, 7, 16 and 32; K3
+int32 tables, ragged tiles too; K2 one class and a whole class table a
+launch, on the 1M plan and crafted tables; K3 at slot widths 1, 3, 7, 16 and 32; K3
 and K4 in both SIR-age modes, past ROUND_CAP too), reproduces the
 JAX-pinned digests (``tpu_gossip_torch/reference_digests.json``: ten
 n=20000 runs, packed and sharded included, and the 1M matching
@@ -21,11 +22,13 @@ path (K4 alone), each packed run digest-equal to its unpacked twin, and
 the bucketed sharded engine on a one-shard mesh over the same graph: its
 receive through K6 (K6, K3), its scatter twin (K3) and its packed twin
 (K6, K4), all three digest-equal. One partner pass of the headline plan
-is counted apart: 2K+1 K1 launches and no torch transpose. Then it times
+is counted apart: 2K+1 K1 launches and no torch transpose; and one reduce:
+one K2 launch, the only kernel the profiler sees. Then it times
 each kernel at its path's shapes beside its byte bound, its plain
 version and the one torch call that computes the same function, where
 there is one, kernel and yardstick in turns, and the whole partner pass
-beside the same stages run unfused (K1 and the torch transposes). Last come the
+beside the same stages run unfused (K1 and the torch transposes); K2 also
+over each block kind of its work table alone. Last come the
 probes: both probe kernels held exactly against their plain versions at
 every probe shape (P4 against K1 too) and timed, the four ported probe
 scripts (``tpu_gossip_torch/experiments``) run with their launches
@@ -40,6 +43,7 @@ JAX nor the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -97,10 +101,34 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(kernel, other, iters: int = 50) -> tuple[float, float]:
-    """Mean device times of ``kernel`` and ``other`` (:func:`time_ms`),
+def cold_ms(fn, iters: int = 30) -> float:
+    """Mean device time of ``fn`` with L2 cold: each launch follows a read
+    of 128 MB (more than the card's 50 MB L2) and is timed alone by its own
+    events, all queued behind a sleep kernel as in :func:`time_ms`."""
+    flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flush.sum()
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(int(issue_s * 4e9) + 1000)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def in_turns(kernel, other, iters: int = 50, timer=time_ms) -> tuple[float, float]:
+    """Mean device times of ``kernel`` and ``other`` (by ``timer``),
     timed in turns: kernel, other, other, kernel."""
-    a1, b1, b2, a2 = (time_ms(fn, iters) for fn in (kernel, other, other, kernel))
+    a1, b1, b2, a2 = (timer(fn, iters) for fn in (kernel, other, other, kernel))
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -138,18 +166,39 @@ def check_k1(dev, gen, main_rows: int) -> int:
 
 
 def check_k2(dev, gen, classes, rows: int) -> int:
-    from tpu_gossip_torch.kernels.permute import fold_planes, fold_planes_plain
+    """K2 against its plain version: one position-major class a launch
+    (``fold_planes``) at the 1M plan's classes and two small ones, and the
+    whole class table a launch (``fold_classes``) on the 1M plan and on the
+    crafted tables of ``kernels/fold_cases.py`` (node gaps, hubs, pad_deg 1
+    to 5000)."""
+    from tpu_gossip_torch.core.matching_topology import class_layout
+    from tpu_gossip_torch.kernels.fold_cases import CRAFTED, crafted_classes
+    from tpu_gossip_torch.kernels.permute import fold_classes, fold_classes_plain, fold_planes, fold_planes_plain
 
     slots = torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=gen, device=dev, dtype=torch.int32)
     small = torch.randint(0, 2**16, (64, 128), generator=gen, device=dev, dtype=torch.int32)
     cases = [(slots, so, cs, c, pd) for (_, so, c, pd, cs) in classes if c >= 8192]
     cases += [(small, 0, 1024, 1000, 1), (small, 1024, 2048, 2047, 3)]
+    tables = [(classes, rows, N_HEADLINE)] + [crafted_classes(name) for name in CRAFTED]
     err = 0
     for op in ("or", "sum"):
         for buf, so, cs, c, pd in cases:
             err = max(err, max_err(fold_planes(buf, so, cs, c, pd, op),
                                    fold_planes_plain(buf, so, cs, c, pd, op)))
+        for cls, r, n_out in tables:
+            layout = class_layout(cls, r, n_out, dev)
+            buf = slots if r == rows else torch.randint(-2**31, 2**31 - 1, (r, 128), generator=gen, device=dev,
+                                                        dtype=torch.int32)
+            err = max(err, max_err(fold_classes(buf, layout, op), fold_classes_plain(buf, layout, op)))
     return err
+
+
+def fold_bytes(layout) -> int:
+    """Bytes one whole reduce must move: the count * pad_deg slots of each
+    class read once (neither a plane's stride padding nor a zero row's
+    nothing), every output written once."""
+    read = sum(count * pd for (_, _, count, pd, _, _) in layout.table_rows)
+    return 4 * (read + layout.n)
 
 
 def tail_operands(n: int, m: int, gen, dev, rnd: int):
@@ -583,6 +632,32 @@ def partner_pass_counts(plan, dev) -> dict:
     return out
 
 
+def reduce_kernels(plan, dev) -> dict:
+    """One ``plan.reduce`` under ``torch.profiler``: fails unless it is one
+    K2 launch and the card runs that kernel and no other. A trace that holds
+    no device activity at all (the profiler lost it; the launch was counted
+    and checked) is taken again, at most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_gossip_torch.kernels import native
+
+    x = torch.zeros((plan.rows, 128), dtype=torch.int32, device=dev)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        native.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            plan.reduce(x, "or")
+            torch.cuda.synchronize()
+        kernels = {ev.key: ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+        launches = {k: v for k, v in native.LAUNCHES.items() if v}
+        if kernels:
+            break
+    if launches != {"fold_planes_or": 1} or len(kernels) != 1 or "fold_classes_kernel" not in next(iter(kernels)):
+        raise AssertionError(f"a reduce launched {launches} and ran {kernels} on the card")
+    return dict(launches=launches, device_kernels=kernels)
+
+
 def time_partner_pass(plan, x) -> dict:
     """The whole partner pass as ``plan.partner`` runs it (fused K1 entries)
     and the same stages unfused (K1 ``lane_shuffle`` and the torch
@@ -606,11 +681,24 @@ def time_partner_pass(plan, x) -> dict:
                 bytes=launches * plan.rows * 128 * (4 + plan.lanes[0].element_size() + 4))
 
 
+def fold_kind_times(x, layout) -> dict:
+    """K2 (OR) over the blocks of one kind of its work table alone, L2 cold
+    and warm, in us: where the whole reduce's time goes."""
+    from tpu_gossip_torch.kernels import permute
+
+    out = {}
+    for name, kind in (("hub", permute.FOLD_HUB), ("staged", permute.FOLD_STAGED), ("plane", permute.FOLD_PLANE)):
+        part = dataclasses.replace(layout, work=layout.work[layout.work[:, 3] == kind].contiguous())
+        kernel = lambda part=part: permute.fold_classes(x, part, "or")  # noqa: E731
+        out[name] = dict(blocks=part.work.shape[0], cold_us=cold_ms(kernel) * 1e3, warm_us=time_ms(kernel) * 1e3)
+    return out
+
+
 def phase_timing(plan, dev, gen, n: int) -> dict:
     """Each kernel, its plain version and its library call at the main
     path's shapes (kernel and library in turns), and the partner pass."""
     from tpu_gossip_torch.kernels import permute
-    from tpu_gossip_torch.kernels.permute import fold_planes, fold_planes_plain
+    from tpu_gossip_torch.kernels.permute import fold_classes, fold_classes_plain
     from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
 
     x = plan.expand(torch.arange(plan.n, dtype=torch.int32, device=dev))
@@ -628,19 +716,23 @@ def phase_timing(plan, dev, gen, n: int) -> dict:
         ms, library_ms = in_turns(lambda: kernel(x, tab), library)
         out[entry] = dict(ms=ms, plain_ms=time_ms(lambda: plain(x, tab)), library_ms=library_ms, bytes=k1_bytes)
     out["partner_pass"] = time_partner_pass(plan, x)
-    pm = [(so, cs, c, pd) for (_, so, c, pd, cs) in plan.classes if c >= 8192]
-    fold_bytes = sum((pd + 1) * cs * 4 for (_, cs, _, pd) in pm)
+    # K2's 26 MB stay in L2 across back-to-back launches, so its time is
+    # taken with L2 cold (the bound is the device memory's), warm beside it
+    layout = plan.layout
     flat = x.reshape(-1)
 
-    def fold_all(fn, op):
-        return lambda: [fn(x, so, cs, c, pd, op) for (so, cs, c, pd) in pm]
+    def library():  # one index_add_ over every slot, the dead ones into row n
+        return torch.zeros(n + 1, dtype=torch.int32, device=dev).index_add_(0, layout.slot_node, flat)[:n]
 
+    max_err(library(), fold_classes(x, layout, "sum"))
+    empty_ms = cold_ms(lambda: torch.cuda._sleep(1))  # what the method itself costs a launch
     for op in ("or", "sum"):
-        out[f"fold_planes_{op}"] = dict(ms=time_ms(fold_all(fold_planes, op)),
-                                        plain_ms=time_ms(fold_all(fold_planes_plain, op)),
-                                        library_ms=None, bytes=fold_bytes)
-    out["fold_planes_sum"]["library_ms"] = time_ms(
-        lambda: [flat[so: so + pd * cs].view(pd, cs).sum(0, dtype=torch.int32) for (so, cs, c, pd) in pm])
+        kernel = lambda op=op: fold_classes(x, layout, op)  # noqa: E731
+        ms, library_ms = in_turns(kernel, library, 30, cold_ms) if op == "sum" else (cold_ms(kernel), None)
+        out[f"fold_planes_{op}"] = dict(ms=ms, plain_ms=cold_ms(lambda op=op: fold_classes_plain(x, layout, op), 10),
+                                        library_ms=library_ms, warm_ms=time_ms(kernel), empty_ms=empty_ms,
+                                        bytes=fold_bytes(layout))
+    out["fold_planes_or"]["by_kind"] = fold_kind_times(x, layout)
     ops = tail_operands(n + 1, M_SLOTS, gen, dev, rnd=9)
     targs = (*(ops[k] for k in TAIL_PLANES), None, torch.tensor(9, dtype=torch.int32, device=dev))
     tkw = dict(forward_once=False, sir_recover_rounds=0)
@@ -839,13 +931,14 @@ PROBES = (  # (name, row of time_probes, the Pallas probe it replaces)
 )
 # the launches each path must make, and must not make, per round (None: at
 # least one; a key left out is not checked)
-MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "fold_planes_sum": None, "round_tail": None,
+# (4a's build adds one fold_planes_sum, checked apart)
+MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": 1, "round_tail": None,
                  "staircase_segment": 0, "round_tail_words": 0, "stream_segment": 0}
 STAIRCASE_PATH = {"lane_shuffle": 0, "fold_planes_or": 0, "fold_planes_sum": 0, "round_tail": 1,
                   "staircase_segment": 1, "round_tail_words": 0, "stream_segment": 0}
 XLA_PATH = dict(STAIRCASE_PATH, staircase_segment=0)
 # the packed headline reuses 4a's plan, so the build's SUM fold is not in its window
-PACKED_MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail": 0, "staircase_segment": 0,
+PACKED_MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": 1, "round_tail": 0, "staircase_segment": 0,
                         "round_tail_words": 1, "stream_segment": 0}
 PACKED_XLA_PATH = dict(XLA_PATH, round_tail=0, round_tail_words=1)
 # the sharded paths on a one-shard mesh: one K6 launch a round (one 32-slot group)
@@ -923,12 +1016,16 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     peak = run["peak"]
     rounds = run["rounds"]
     check_launches("matching", launches, MATCHING_PATH, rounds)
+    if launches["fold_planes_sum"] != 1:
+        raise AssertionError(f"the matching plan's build launched fold_planes_sum {launches['fold_planes_sum']} "
+                             "times, needs 1")
     print(f"[{card}] headline n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1: "
           f"plan build {run['build_s']} s, rounds to 99% {rounds}, coverage {run['coverage']}, "
           f"{run['run_s'] * 1e3 / rounds} ms/round, {N_HEADLINE * rounds / run['run_s']} peers*rounds/s, "
           f"max_memory_allocated {peak} B (run alone {run['run_peak']} B), final state_digest {run['digest']}", flush=True)
     print(f"[{card}] matching-path launches: {launches}; K1 by entry {k1_entries}", flush=True)
     print(f"[{card}] one partner pass of the headline plan: {partner_pass_counts(plan, dev)}", flush=True)
+    print(f"[{card}] one reduce of the headline plan: {reduce_kernels(plan, dev)}", flush=True)
 
     # phase 4b: the staircase path, counted from 0: graph and plans built
     # on the card, run to 99% through K5
@@ -1024,7 +1121,10 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
         })
         lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3} us"
         loop = "" if t.get("loop_ms") is None else f", back-to-back calls {t['loop_ms'] * 1e3} us"
+        loop += "" if t.get("warm_ms") is None else (f"; timed with L2 cold (an empty launch timed so: "
+                                                     f"{t['empty_ms'] * 1e3} us), L2 warm {t['warm_ms'] * 1e3} us")
         loop += "" if t.get("wrapper_ms") is None else f", wrapper with its check {t['wrapper_ms'] * 1e3} us"
+        loop += "" if t.get("by_kind") is None else f"; each block kind alone {t['by_kind']}"
         reads = "" if t.get("windows_read") is None else f", {t['windows_read']} stream windows read"
         print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us "
               f"({t['bytes']} B{reads}), plain {t['plain_ms'] * 1e3} us, library {lib}{loop}", flush=True)

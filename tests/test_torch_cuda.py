@@ -100,6 +100,54 @@ def test_fold_planes_kernel_equals_plain(dev, slot_off, cstride, count, pad_deg,
                        fold_planes_plain(x, slot_off, cstride, count, pad_deg, op))
 
 
+@pytest.mark.parametrize("op", ["or", "sum"])
+@pytest.mark.parametrize("case", ["mixed", "gaps", "node_major", "plan1000000"])
+def test_fold_classes_kernel_equals_plain(dev, case, op):
+    """K2 over a whole class table, one launch: the crafted tables (gaps,
+    hubs, pad_deg 1 to 5000) and the 1M plan's."""
+    from tpu_gossip_torch.kernels.fold_cases import crafted_classes
+    from tpu_gossip_torch.core.matching_topology import class_layout, plan_shape
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.permute import fold_classes, fold_classes_plain
+
+    if case.startswith("plan"):
+        n_out = int(case[4:])
+        _, _, classes, rows = plan_shape(n_out)
+    else:
+        classes, rows, n_out = crafted_classes(case)
+    layout = class_layout(classes, rows, n_out, dev)
+    x = torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=_gen(dev, rows), device=dev, dtype=torch.int32)
+    before = LAUNCHES[f"fold_planes_{op}"]
+    got = fold_classes(x, layout, op)
+    assert LAUNCHES[f"fold_planes_{op}"] == before + 1
+    assert torch.equal(got, fold_classes_plain(x, layout, op))
+
+
+def test_plan_reduce_is_one_k2_launch_and_nothing_else(dev):
+    """One ``plan.reduce`` on the card: one K2 launch counted, and the
+    profiler sees that one kernel on the device and no other."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.permute import fold_classes_plain
+
+    _, plan = matching_powerlaw_graph(200_000, fanout=1, key=prng.key(0, dev), device=dev)
+    x = torch.randint(-2**31, 2**31 - 1, (plan.rows, 128), generator=_gen(dev, 2), device=dev, dtype=torch.int32)
+    plan.reduce(x, "or")  # built and loaded before the count
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = plan.reduce(x, "or")
+        torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]} == {"fold_planes_or": 1}
+    kernels = [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "fold_classes_kernel" in kernels[0], kernels
+    assert torch.equal(got, fold_classes_plain(x, plan.layout, "or"))
+
+
 @pytest.mark.parametrize("fo,sir,fresh,expired", list(itertools.product([False, True], [0, 4], [False, True], [False, True])))
 def test_round_tail_kernel_equals_plain(dev, fo, sir, fresh, expired):
     from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel

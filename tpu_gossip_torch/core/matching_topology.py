@@ -19,8 +19,8 @@ as the rounds, and the realized degrees fold through K2.
 Expand and reduce follow the JAX layout exactly (position-major classes
 of count >= 8192 with 1024-aligned planes, node-major classes otherwise).
 Expand is one gather through a slot -> node table computed once per plan
-(:class:`ClassLayout`); reduce folds each position-major class with
-``fold_planes`` and the node-major classes with one index-add.
+(:class:`ClassLayout`); reduce is one K2 launch (``fold_classes``) over
+the plan's class table, node gaps and the tail included.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.device_topology import DeviceGraph
 from tpu_gossip_torch.core.topology import pareto_icdf
 from tpu_gossip_torch.device import resolve_device
-from tpu_gossip_torch.kernels.permute import apply_pipeline, fold_planes, inverse_tables
+from tpu_gossip_torch.kernels.permute import apply_pipeline, fold_classes, fold_work, inverse_tables
 from tpu_gossip_torch.kernels.pallas_segment import bernoulli_threshold_device
 
 __all__ = [
@@ -43,6 +43,7 @@ __all__ = [
     "ClassLayout",
     "MatchingPlan",
     "class_layout",
+    "class_table",
     "expand_classes",
     "matching_powerlaw_graph",
     "pipeline_stages",
@@ -63,20 +64,39 @@ class ClassLayout:
 
     ``slot_node`` (rows*128,) int32 is the node each slot broadcasts from,
     ``n`` for dead slots (alignment gaps, stride padding, the tail), which
-    read as 0. ``nm_slots``/``nm_owner`` list the node-major classes' slots
-    and their nodes for the index-add reduce.
+    read as 0. ``table_rows`` is the class table (:func:`class_table`),
+    ``table`` the same (rows, 6) int64 on the plan's device and ``work``
+    K2's (blocks, 4) int32 work table over it (``permute.fold_work``).
     """
 
     n: int
     slot_node: torch.Tensor
-    nm_slots: torch.Tensor
-    nm_owner: torch.Tensor
+    table_rows: tuple
+    table: torch.Tensor
+    work: torch.Tensor
+
+
+def class_table(classes: tuple, n_out: int) -> tuple:
+    """K2's class table of ``classes`` over ``n_out`` nodes: one row
+    (node_off, slot_off, count, pad_deg, plane_stride, node_stride) a class,
+    position-major (count >= 8192) with (cstride, 1) strides and node-major
+    with (1, pad_deg), and a pad_deg-0 row, which folds to zeros, for each
+    node gap and for the tail up to ``n_out`` (JAX ``reduce_classes``)."""
+    rows, cur = [], 0
+    for node_off, slot_off, count, pad_deg, cstride in classes:
+        if node_off > cur:
+            rows.append((cur, 0, node_off - cur, 0, 0, 0))
+        strides = (cstride, 1) if count >= _POS_MAJOR_MIN else (1, pad_deg)
+        rows.append((node_off, slot_off, count, pad_deg) + strides)
+        cur = node_off + count
+    if n_out > cur:
+        rows.append((cur, 0, n_out - cur, 0, 0, 0))
+    return tuple(rows)
 
 
 def class_layout(classes: tuple, rows: int, n: int, device) -> ClassLayout:
     """The :class:`ClassLayout` of ``classes`` over ``rows`` slot rows."""
     slot_node = np.full(rows * 128, n, dtype=np.int32)
-    nm_slots, nm_owner = [], []
     for node_off, slot_off, count, pad_deg, cstride in classes:
         ids = np.arange(node_off, node_off + count, dtype=np.int32)
         if count >= _POS_MAJOR_MIN:
@@ -84,16 +104,14 @@ def class_layout(classes: tuple, rows: int, n: int, device) -> ClassLayout:
             plane[:count] = ids
             slot_node[slot_off : slot_off + pad_deg * cstride] = np.tile(plane, pad_deg)
         else:
-            run = np.repeat(ids, pad_deg)
-            slot_node[slot_off : slot_off + count * pad_deg] = run
-            nm_slots.append(np.arange(slot_off, slot_off + count * pad_deg, dtype=np.int32))
-            nm_owner.append(run)
-    cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int32)  # noqa: E731
+            slot_node[slot_off : slot_off + count * pad_deg] = np.repeat(ids, pad_deg)
+    table = class_table(classes, n)
     return ClassLayout(
         n=n,
         slot_node=torch.from_numpy(slot_node).to(device),
-        nm_slots=torch.from_numpy(cat(nm_slots)).to(device),
-        nm_owner=torch.from_numpy(cat(nm_owner)).to(device),
+        table_rows=table,
+        table=torch.tensor(table, dtype=torch.int64).reshape(-1, 6).to(device),
+        work=torch.from_numpy(fold_work(table)).to(device),
     )
 
 
@@ -158,7 +176,7 @@ class MatchingPlan:
 
     def reduce(self, slots: torch.Tensor, op: str = "or") -> torch.Tensor:
         """Fold slot values (R, 128) into per-node values (n,)."""
-        return reduce_classes(slots, self.classes, self.layout, op)
+        return reduce_classes(slots, self.layout, op)
 
 
 def pipeline_stages(lanes: tuple, m3, lanes_inv: tuple) -> tuple:
@@ -180,31 +198,11 @@ def expand_classes(x_n: torch.Tensor, layout: ClassLayout, rows: int) -> torch.T
     return ext.index_select(0, layout.slot_node).view(rows, 128)
 
 
-def reduce_classes(slots: torch.Tensor, classes: tuple, layout: ClassLayout,
-                   op: str = "or") -> torch.Tensor:
-    """Fold slot values (rows, 128) into per-node values (layout.n,): each
-    position-major class through ``fold_planes`` (K2), the node-major
-    classes by one index-add (``op`` "or" folds each bit as a count)."""
-    if op not in ("or", "sum"):
-        raise ValueError(f"reduce op must be 'or' or 'sum', got {op!r}")
-    n_out = layout.n
-    out = torch.zeros((n_out,), dtype=slots.dtype, device=slots.device)
-    for node_off, slot_off, count, pad_deg, cstride in classes:
-        if count >= _POS_MAJOR_MIN:
-            out[node_off : node_off + count] = fold_planes(slots, slot_off, cstride, count, pad_deg, op)
-    if layout.nm_slots.numel():
-        vals = slots.reshape(-1).index_select(0, layout.nm_slots)
-        if op == "sum":
-            out.index_add_(0, layout.nm_owner, vals)
-        else:
-            shifts = torch.arange(32, dtype=torch.int32, device=slots.device)
-            bits = (vals[:, None] >> shifts) & 1
-            counts = torch.zeros((n_out, 32), dtype=torch.int32, device=slots.device)
-            counts.index_add_(0, layout.nm_owner, bits)
-            words = ((counts > 0).to(torch.int64) << shifts.to(torch.int64)).sum(1)
-            words = torch.where(words >= 2**31, words - 2**32, words).to(slots.dtype)
-            out |= words
-    return out
+def reduce_classes(slots: torch.Tensor, layout: ClassLayout, op: str = "or") -> torch.Tensor:
+    """Fold slot values (rows, 128) into per-node values (layout.n,), ``op``
+    "or" (delivery words) or "sum" (degree counts): one K2 launch over the
+    layout's class table on the card (``permute.fold_classes``)."""
+    return fold_classes(slots, layout, op)
 
 
 def quantile_degrees(n: int, gamma: float, d_min: int, d_max: int) -> np.ndarray:

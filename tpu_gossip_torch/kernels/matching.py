@@ -5,7 +5,7 @@ Ports ``matching_flood`` and ``matching_sampled`` (:80) of
 
     expand   per-node packed words -> stub slots   (class broadcast)
     partner  slot j <- word of owner(pi(j))        (K1 lane shuffles, transposes fused in)
-    reduce   OR slots into receivers               (K2 plane folds + index-add)
+    reduce   OR slots into receivers               (K2, one launch over the class table)
 
 Sampling is the Bernoulli-per-edge law: per-slot uint32 thresholds gate
 each direction of every surviving edge, one draw per direction per round,

@@ -65,8 +65,8 @@ _SIGNATURES = {
         for entry in ("lane_shuffle", "lane_shuffle_t", "tinv_lane_shuffle") for t in ("i8", "i32")
     },
     "fold_planes": {
-        "fold_planes_or": (_P, _P, _L, _L, _I, _P),
-        "fold_planes_sum": (_P, _P, _L, _L, _I, _P),
+        "fold_planes_or": (_P, _P, _P, _P, _L, _P),
+        "fold_planes_sum": (_P, _P, _P, _P, _L, _P),
     },
     "round_tail": {
         "round_tail": (_P,) * 15 + (_L, _I, _I, _I, _I, _I, _P),

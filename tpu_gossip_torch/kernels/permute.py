@@ -9,8 +9,10 @@ gather. :func:`apply_pipeline` runs each shuffle next to a transpose as one
 K1 launch that does both (:func:`lane_shuffle_t`,
 :func:`tinv_lane_shuffle`; :func:`fuse_stages` pairs them), so a matching
 plan's pass launches K1 2K+1 times and transposes nothing.
-:func:`fold_planes` (a CUDA kernel, ``csrc/fold_planes.cu``) is the class
-reduction of the position-major degree classes.
+:func:`fold_classes` (a CUDA kernel, ``csrc/fold_planes.cu``) is the class
+reduction: one launch folds every class of a plan, position-major and
+node-major, and writes zeros on its node gaps; :func:`fold_planes`, the
+counterpart of the JAX function, is the same kernel on one class.
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises. The sharded transpose
@@ -19,6 +21,7 @@ variants belong to a later slice.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpu_gossip_torch.kernels import native
@@ -37,6 +40,10 @@ __all__ = [
     "inverse_tables",
     "fold_planes",
     "fold_planes_plain",
+    "fold_classes",
+    "fold_classes_plain",
+    "fold_kind",
+    "fold_work",
 ]
 
 
@@ -164,14 +171,92 @@ def apply_pipeline(x: torch.Tensor, stages: tuple) -> torch.Tensor:
     return x
 
 
+# K2's work table (csrc/fold_planes.cu): one entry (row, k0, k1, kind) a
+# block of 256 threads, folding nodes [k0, k1) of class-table row ``row``;
+# the kinds and sizes are the kernel's (its Kind, kThreads, kChunk, kHubDeg)
+FOLD_ZERO, FOLD_PLANE, FOLD_STAGED, FOLD_HUB = 0, 1, 2, 3
+FOLD_THREADS = 256
+FOLD_CHUNK = 4096  # words of node-major slots a staged block folds
+FOLD_HUB_DEG = 1024  # node-major rows at or above this pad_deg fold one node a block
+
+
+def fold_kind(row: tuple) -> int:
+    """The kind of K2 block that folds a class-table row ``(node_off,
+    slot_off, count, pad_deg, plane_stride, node_stride)``: zeros for
+    pad_deg 0, position-major for a plane stride other than 1, node-major
+    (staged, or one hub node a block) otherwise."""
+    pad_deg, plane_stride = row[3], row[4]
+    if pad_deg == 0:
+        return FOLD_ZERO
+    if plane_stride != 1:
+        return FOLD_PLANE
+    return FOLD_HUB if pad_deg >= FOLD_HUB_DEG else FOLD_STAGED
+
+
+def _check_row(row: tuple) -> None:
+    node_off, slot_off, count, pad_deg, plane_stride, node_stride = row
+    kind = fold_kind(row)
+    if min(row) < 0 or node_off + count >= 2**31:
+        raise ValueError(f"bad class-table row {row}")
+    if kind == FOLD_PLANE and (slot_off % 1024 or plane_stride % 1024 or node_stride != 1 or count > plane_stride):
+        raise ValueError(f"position-major row {row} needs 1024-aligned slot_off/plane_stride >= count, node_stride 1")
+    if kind in (FOLD_STAGED, FOLD_HUB) and node_stride != pad_deg:
+        raise ValueError(f"node-major row {row} needs plane_stride 1 and node_stride = pad_deg")
+
+
+def fold_work(table: tuple) -> np.ndarray:
+    """K2's work table over a class table (rows as :func:`fold_kind` reads
+    them): (blocks, 4) int32 entries (row, k0, k1, kind), the hub nodes
+    first (the longest blocks start in the first wave), then the staged,
+    position-major and zero blocks. A staged block takes whole nodes, at
+    most FOLD_CHUNK words; a position-major or zero block 1024 nodes."""
+    parts = {kind: [] for kind in (FOLD_HUB, FOLD_STAGED, FOLD_PLANE, FOLD_ZERO)}
+    for i, row in enumerate(table):
+        _check_row(row)
+        kind = fold_kind(row)
+        count, pad_deg = row[2], row[3]
+        if kind == FOLD_HUB:
+            span = 1
+        elif kind == FOLD_STAGED:
+            span = FOLD_CHUNK // pad_deg
+        else:
+            span = 4 * FOLD_THREADS
+        k0 = np.arange(0, count, span, dtype=np.int64)
+        parts[kind].append(np.stack([np.full_like(k0, i), k0, np.minimum(k0 + span, count),
+                                     np.full_like(k0, kind)], axis=1))
+    blocks = [p for kind in parts for p in parts[kind]]
+    return np.concatenate(blocks).astype(np.int32) if blocks else np.zeros((0, 4), np.int32)
+
+
+def _fold_launch(slots: torch.Tensor, table: torch.Tensor, work: torch.Tensor, n_out: int,
+                 op: str) -> torch.Tensor:
+    """One K2 launch over a class table on the card: (n_out,) int32, each
+    output written once."""
+    native.require_cuda("fold_planes", slots, table, work)
+    native.require_aligned("fold_planes", slots)
+    out = torch.empty((n_out,), dtype=torch.int32, device=slots.device)
+    if work.shape[0] == 0:
+        return out
+    lib = native.library("fold_planes")
+    fn = lib.fold_planes_or if op == "or" else lib.fold_planes_sum
+    native.check(fn(slots.data_ptr(), out.data_ptr(), table.data_ptr(), work.data_ptr(), work.shape[0],
+                    native.stream_of(slots)), "fold_planes")
+    native.LAUNCHES[f"fold_planes_{op}"] += 1
+    return out
+
+
+def _check_op(slots: torch.Tensor, op: str) -> None:
+    if op not in ("or", "sum"):
+        raise ValueError(f"fold op must be 'or' or 'sum', got {op!r}")
+    if slots.dtype != torch.int32:
+        raise ValueError(f"the fold takes int32 slots, got {slots.dtype}")
+
+
 def _check_fold(slots: torch.Tensor, slot_off: int, cstride: int, count: int,
                 pad_deg: int, op: str) -> None:
     if slot_off % 1024 or cstride % 1024:
         raise ValueError("fold_planes needs 1024-aligned slot_off/cstride")
-    if op not in ("or", "sum"):
-        raise ValueError(f"fold_planes op must be 'or' or 'sum', got {op!r}")
-    if slots.dtype != torch.int32:
-        raise ValueError(f"fold_planes folds int32 planes, got {slots.dtype}")
+    _check_op(slots, op)
     if not 0 <= count <= cstride or pad_deg < 1:
         raise ValueError(f"bad class shape count={count} cstride={cstride} pad_deg={pad_deg}")
     if slot_off + pad_deg * cstride > slots.numel():
@@ -180,7 +265,7 @@ def _check_fold(slots: torch.Tensor, slot_off: int, cstride: int, count: int,
 
 def fold_planes_plain(slots: torch.Tensor, slot_off: int, cstride: int,
                       count: int, pad_deg: int, op: str = "or") -> torch.Tensor:
-    """Plain version of K2."""
+    """Plain version of K2 on one position-major class."""
     planes = slots.reshape(-1)[slot_off : slot_off + pad_deg * cstride].view(pad_deg, cstride)
     if op == "sum":
         out = planes.sum(0, dtype=torch.int32)
@@ -194,17 +279,59 @@ def fold_planes_plain(slots: torch.Tensor, slot_off: int, cstride: int,
 def fold_planes(slots: torch.Tensor, slot_off: int, cstride: int, count: int,
                 pad_deg: int, op: str = "or") -> torch.Tensor:
     """``out[j] = fold_i slots[slot_off + i*cstride + j]`` for j < count,
-    fold = OR or SUM; ``slot_off`` and ``cstride`` 1024-aligned."""
+    fold = OR or SUM; ``slot_off`` and ``cstride`` 1024-aligned. On the
+    card: K2 over a one-row class table."""
     _check_fold(slots, slot_off, cstride, count, pad_deg, op)
     if slots.device.type == "cpu":
         return fold_planes_plain(slots, slot_off, cstride, count, pad_deg, op)
     native.require_cuda("fold_planes", slots)
-    out = torch.empty((cstride,), dtype=torch.int32, device=slots.device)
-    lib = native.library("fold_planes")
-    fn = lib.fold_planes_or if op == "or" else lib.fold_planes_sum
-    native.check(
-        fn(slots.data_ptr(), out.data_ptr(), slot_off, cstride, pad_deg, native.stream_of(slots)),
-        "fold_planes",
-    )
-    native.LAUNCHES[f"fold_planes_{op}"] += 1
-    return out[:count]
+    table = ((0, slot_off, count, pad_deg, cstride, 1),)
+    return _fold_launch(slots, torch.tensor(table, dtype=torch.int64, device=slots.device),
+                        torch.from_numpy(fold_work(table)).to(slots.device), count, op)
+
+
+def fold_classes_plain(slots: torch.Tensor, layout, op: str = "or") -> torch.Tensor:
+    """Plain version of :func:`fold_classes`: each position-major row by
+    :func:`fold_planes_plain`, the node-major rows by one index-add (``op``
+    "or" folds each bit as a count), zeros elsewhere."""
+    out = torch.zeros((layout.n,), dtype=slots.dtype, device=slots.device)
+    node_major = []
+    for row in layout.table_rows:
+        node_off, slot_off, count, pad_deg, plane_stride, _ = row
+        if fold_kind(row) == FOLD_PLANE:
+            out[node_off : node_off + count] = fold_planes_plain(slots, slot_off, plane_stride, count, pad_deg, op)
+        elif pad_deg:
+            node_major.append((node_off, slot_off, count * pad_deg, pad_deg))
+    if node_major:
+        # each node-major row's slots are one contiguous run, node by node
+        node_off, slot_off, size, pad_deg = torch.tensor(node_major, device=slots.device).T
+        start = torch.cumsum(size, 0) - size
+        row = torch.repeat_interleave(torch.arange(len(size), device=slots.device), size)
+        j = torch.arange(row.numel(), device=slots.device) - start[row]
+        nm_owner = node_off[row] + j // pad_deg[row]
+        vals = slots.reshape(-1).index_select(0, slot_off[row] + j)
+        if op == "sum":
+            out.index_add_(0, nm_owner, vals)
+        else:
+            shifts = torch.arange(32, dtype=torch.int32, device=slots.device)
+            bits = (vals[:, None] >> shifts) & 1
+            counts = torch.zeros((layout.n, 32), dtype=torch.int32, device=slots.device)
+            counts.index_add_(0, nm_owner, bits)
+            words = ((counts > 0).to(torch.int64) << shifts.to(torch.int64)).sum(1)
+            words = torch.where(words >= 2**31, words - 2**32, words).to(slots.dtype)
+            out |= words
+    return out
+
+
+def fold_classes(slots: torch.Tensor, layout, op: str = "or") -> torch.Tensor:
+    """``out[node_off + k] = fold_{i < pad_deg} slots[slot_off +
+    i*plane_stride + k*node_stride]`` for every row of the class table of
+    ``layout`` (a ``core.matching_topology.ClassLayout``) and k < count,
+    zeros on its pad_deg-0 rows: (layout.n,) int32 per-node values of
+    (rows, 128) int32 slots, fold = OR or SUM. On the card: one K2 launch."""
+    _check_op(slots, op)
+    if slots.numel() != layout.slot_node.numel():
+        raise ValueError(f"the layout folds {layout.slot_node.numel()} slots, got {slots.numel()}")
+    if slots.device.type == "cpu":
+        return fold_classes_plain(slots, layout, op)
+    return _fold_launch(slots, layout.table, layout.work, layout.n, op)
