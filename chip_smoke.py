@@ -30,7 +30,8 @@ there is one, kernel and yardstick in turns, and the whole partner pass
 beside the same stages run unfused (K1 and the torch transposes); K2 also
 over each block kind of its work table alone. Last come the
 probes: both probe kernels held exactly against their plain versions at
-every probe shape (P4 against K1 too) and timed, the four ported probe
+every probe shape and ragged ones (P4 against K1 too) and timed (P1-P3
+with L2 cold, their operands fitting in L2), the four ported probe
 scripts (``tpu_gossip_torch/experiments``) run with their launches
 counted, and ``run_sim --profile-round 6`` on the 1M headline, which must
 launch K1, K2 and K3.
@@ -51,6 +52,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from tpu_gossip_torch.utils.profiling import cold_ms, in_turns, time_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 N_HEADLINE = 1_000_000
@@ -77,59 +80,6 @@ def loop_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
-    The launches are queued behind a sleep kernel twice as long as the
-    host takes to issue them, so the card runs them back to back and the
-    host's launch cost is not counted."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    issue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(issue_s * 4e9) + 1000)  # cycles: twice issue_s at up to 2 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cold_ms(fn, iters: int = 30) -> float:
-    """Mean device time of ``fn`` with L2 cold: each launch follows a read
-    of 128 MB (more than the card's 50 MB L2) and is timed alone by its own
-    events, all queued behind a sleep kernel as in :func:`time_ms`."""
-    flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        flush.sum()
-        fn()
-    issue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(int(issue_s * 4e9) + 1000)
-    for start, end in events:
-        flush.sum()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(start.elapsed_time(end) for start, end in events) / iters
-
-
-def in_turns(kernel, other, iters: int = 50, timer=time_ms) -> tuple[float, float]:
-    """Mean device times of ``kernel`` and ``other`` (by ``timer``),
-    timed in turns: kernel, other, other, kernel."""
-    a1, b1, b2, a2 = (timer(fn, iters) for fn in (kernel, other, other, kernel))
-    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -797,13 +747,26 @@ def probe_fns(tab, idx, group):
             lambda: torch.gather(tab3, dim, il3))
 
 
+RAGGED_LANE = ((3, 40000, 9), (5, 65540, 10), (1, 262144, 3), (7, 32768, 14), (2, 8196, 6), (4, 6, 12))
+RAGGED_SUBLANE = ((100, 4097), (8192, 47105), (1, 9), (5000, 20000), (8192, 16389))
+
+
 def check_probes(dev, gen) -> int:
     """Both probe kernels against their plain versions at every probe
-    shape, exactly; P4's output against K1's ``lane_shuffle`` too."""
+    shape, exactly; P4's output against K1's ``lane_shuffle`` too; and the
+    staged routes at ragged shapes: lane_gather (T, W, N) with a partly
+    staged row, W not a multiple of 4, and sublane_gather group 0 (T, N)
+    with idx rows not a multiple of the slab's step or box."""
     from tpu_gossip_torch.kernels.permute import lane_shuffle
 
+    def ints(shape, hi=2**31 - 1, lo=-2**31):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    cases = list(probe_operands(dev, gen))
+    cases += [(f"lane {c}", ints(c[:2]), ints((c[2], c[1]), c[1], 0), None) for c in RAGGED_LANE]
+    cases += [(f"sublane {c}", ints((c[0], 128)), ints((c[1], 128), c[0], 0), 0) for c in RAGGED_SUBLANE]
     err = 0
-    for name, tab, idx, group in probe_operands(dev, gen):
+    for name, tab, idx, group in cases:
         kernel, plain, _ = probe_fns(tab, idx, group)
         got = kernel()
         err = max(err, max_err(got, plain()))
@@ -815,18 +778,38 @@ def check_probes(dev, gen) -> int:
 def time_probes(dev, gen) -> dict:
     """Each probe's kernel at its row's shape (P1 at 8192 rows, axis 1 in the
     row and axis 0 beside it; P2 at (8, 131072, 4)), its plain version and
-    its ``torch.gather``. Bytes: idx read and out written once, 4 B an
-    element each, the table read once."""
+    its ``torch.gather``. P1, P2 and P3 fit in L2 (12.6, 37.7 and 52.4 MB
+    against 50), so their times are taken with L2 cold (``cold_ms``), kernel
+    and ``torch.gather`` in turns, warm beside them; P4 and P5 warm. Bytes:
+    idx read and out written once, 4 B an element each, the table read
+    once; ``gathers``: the random reads, one an idx element."""
     cases = {c[0]: c[1:] for c in probe_operands(dev, gen)}
     rows = {"P1 axis 0": "P1 rows=8192 axis=0", "P1": "P1 rows=8192 axis=1", "P2": "P2 S=8 W=131072 steps=4",
             "P3": "P3", "P4": "P4", "P5": "P5"}
     out = {}
+    empty_ms = cold_ms(lambda: torch.cuda._sleep(1))  # what the cold method itself costs a launch
     for key, case in rows.items():
         tab, idx, group = cases[case]
         kernel, plain, library = probe_fns(tab, idx, group)
-        out[key] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain, 10), library_ms=time_ms(library, 10),
-                        bytes=(2 * idx.numel() + tab.numel()) * 4)
+        t = dict(bytes=(2 * idx.numel() + tab.numel()) * 4, gathers=idx.numel())
+        if key in ("P4", "P5"):
+            t.update(ms=time_ms(kernel), plain_ms=time_ms(plain, 10), library_ms=time_ms(library, 10))
+        else:
+            ms, library_ms = in_turns(kernel, library, 30, cold_ms)
+            t.update(ms=ms, library_ms=library_ms, plain_ms=cold_ms(plain, 10), warm_ms=time_ms(kernel),
+                     empty_ms=empty_ms)
+        out[key] = t
     return out
+
+
+def probe_line(card: str, name: str, t: dict) -> str:
+    """One probe row's times beside its bound, with its random-gather rate."""
+    cold = "" if t.get("warm_ms") is None else (
+        f" with L2 cold (an empty launch timed so: {t['empty_ms'] * 1e3} us), L2 warm {t['warm_ms'] * 1e3} us "
+        f"({t['gathers'] / t['warm_ms'] / 1e6} G/s warm)")
+    return (f"[{card}] {name}: {t['ms'] * 1e3} us{cold}, {t['gathers'] / t['ms'] / 1e6} G gathers/s, bound "
+            f"{t['bytes'] / HBM_BYTES_PER_S * 1e6} us ({t['bytes']} B), plain {t['plain_ms'] * 1e3} us, "
+            f"library (torch.gather) {t['library_ms'] * 1e3} us")
 
 
 def run_probe_scripts(card: str) -> dict:
@@ -1145,10 +1128,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     probe_launches = run_probe_scripts(card)
     run_profile_round(card, N_HEADLINE)
     print(f"[{card}] phase 6: {time.perf_counter() - t0:.2f} s", flush=True)
-    a0 = ptimes["P1 axis 0"]
-    print(f"[{card}] P1 axis 0 (sublane_gather, 8192 rows): {a0['ms'] * 1e3} us, bound "
-          f"{a0['bytes'] / HBM_BYTES_PER_S * 1e6} us ({a0['bytes']} B), plain {a0['plain_ms'] * 1e3} us, "
-          f"library {a0['library_ms'] * 1e3} us", flush=True)
+    print(probe_line(card, "P1 axis 0 (sublane_gather, 8192 rows)", ptimes["P1 axis 0"]), flush=True)
     for name, key, replaces in PROBES:
         t = ptimes[key]
         kernels.append({
@@ -1157,9 +1137,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": t["library_ms"],
         })
-        print(f"[{card}] {name}: {t['ms'] * 1e3} us, bound {kernels[-1]['bound_ms'] * 1e3} us ({t['bytes']} B), "
-              f"plain {t['plain_ms'] * 1e3} us, library (torch.gather) {t['library_ms'] * 1e3} us, "
-              f"launches in its script {probe_launches[key]}", flush=True)
+        print(f"{probe_line(card, name, t)}, launches in its script {probe_launches[key]}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

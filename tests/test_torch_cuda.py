@@ -418,8 +418,17 @@ def test_shard_digest_on_card_equals_cpu(dev, extra):
     _assert_card_equals_cpu(["--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--shard", *extra])
 
 
-@pytest.mark.parametrize("t_rows,width,n_rows", [(8192, 128, 8192), (8, 1024, 512), (8, 131072, 32),
-                                                 (65536, 128, 65536), (4, 6, 12)])
+# every P2 shape (32 KB rows staged whole, 256 and 512 KB rows in part, 4 KB
+# rows on the L2 route), P1 axis 1 and P4 (T = N, the L2 route), ragged
+# staged shapes (a row just past the stage, a 1 MB row, one block a row) and
+# W not a multiple of 4
+LANE_CASES = [(8, 1024, 512), (8, 8192, 256), (16, 8192, 256), (8, 65536, 64), (16, 65536, 128), (8, 131072, 32),
+              (8, 128, 8), (64, 128, 64), (512, 128, 512), (2048, 128, 2048), (8192, 128, 8192),
+              (65536, 128, 65536), (3, 40000, 9), (5, 65540, 10), (1, 262144, 3), (7, 32768, 14), (2, 8196, 6),
+              (4, 6, 12), (3, 10, 9)]
+
+
+@pytest.mark.parametrize("t_rows,width,n_rows", LANE_CASES)
 def test_lane_gather_kernel_equals_plain(dev, t_rows, width, n_rows):
     from tpu_gossip_torch.kernels.native import LAUNCHES
     from tpu_gossip_torch.kernels.permute import lane_shuffle
@@ -436,7 +445,15 @@ def test_lane_gather_kernel_equals_plain(dev, t_rows, width, n_rows):
         assert torch.equal(got, lane_shuffle(tab, idx))
 
 
-@pytest.mark.parametrize("t_rows,n_rows,group", [(8192, 47104, 0), (64, 64, 0), (65536, 65536, 8), (48, 48, 16)])
+# P3 and ragged slab shapes (group 0, at least two idx rows a table row),
+# every P1 axis-0 row count and a table past the slab (the L2 route), P5
+# and another group
+SUBLANE_CASES = [(8192, 47104, 0), (8192, 47105, 0), (100, 4097, 0), (1, 9, 0), (5000, 20000, 0), (8192, 16389, 0),
+                 (8, 8, 0), (64, 64, 0), (512, 512, 0), (2048, 2048, 0), (8192, 8192, 0), (9000, 20000, 0),
+                 (65536, 65536, 8), (48, 48, 16)]
+
+
+@pytest.mark.parametrize("t_rows,n_rows,group", SUBLANE_CASES)
 def test_sublane_gather_kernel_equals_plain(dev, t_rows, n_rows, group):
     from tpu_gossip_torch.kernels.native import LAUNCHES
     from tpu_gossip_torch.kernels.probes import sublane_gather, sublane_gather_plain

@@ -10,8 +10,9 @@ random int32 reads from an N = 1,048,576-word table, slope-timed:
               down its rows, in chunks
   lane        ``torch.gather`` along the lanes of (E / 128, 128) rows alone
   pallas_taa0 the same tall sublane gather as the CUDA kernel
-              ``sublane_gather`` (``kernels/probes.py``), the table read
-              through L2 where the TPU kernel held it in VMEM
+              ``sublane_gather`` (``kernels/probes.py``), the table staged
+              in shared memory a 4-lane column slab a block, where the TPU
+              kernel held it in VMEM
 
 The first four are plain torch, as JAX left them to XLA. The summary gives
 each in ms at E.

@@ -3,9 +3,10 @@
 Ports ``experiments/pallas_wide_lane_gather.py``: a (S, W) table resident
 for the whole call and ``steps`` blocks of (S, W) indices in [0, W),
 ``out[j*S + s, w] = table[s, idx[j*S + s, w]]``. On the TPU the table sat
-in VMEM; here it is read through L2 by the CUDA kernel ``lane_gather``
-(``kernels/probes.py``). Each shape is checked against numpy, then
-slope-timed.
+in VMEM; here the CUDA kernel ``lane_gather`` (``kernels/probes.py``)
+stages each table row in a block's shared memory (up to 224 KB of it; the
+rest of a wider row is read through L2). Each shape is checked against
+numpy, then slope-timed.
 
     python -m tpu_gossip_torch.experiments.pallas_wide_lane_gather
 """

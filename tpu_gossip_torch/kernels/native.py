@@ -82,7 +82,9 @@ _SIGNATURES = {
     },
     "gather_probes": {
         "lane_gather": (_P, _P, _P, _L, _L, _L, _P),
+        "lane_gather_staged": (_P, _P, _P, _L, _L, _L, _L, _L, _P),
         "sublane_gather": (_P, _P, _P, _L, _I, _P),
+        "sublane_gather_slab": (_P, _P, _P, _L, _L, _L, _P),
     },
 }
 

@@ -32,7 +32,7 @@ import torch
 
 from tpu_gossip_torch.device import resolve_device
 
-__all__ = ["trace", "slope_time", "profile_round_stages", "format_stage_table"]
+__all__ = ["trace", "slope_time", "time_ms", "cold_ms", "in_turns", "profile_round_stages", "format_stage_table"]
 
 TRACE_FILE = "trace.json"
 
@@ -99,6 +99,59 @@ def slope_time(body, carry, n1: int, n2: int, reps: int = 3, operands=()) -> flo
 
     dt = (run(n2) - run(n1)) / (n2 - n1)
     return dt if dt > 0 else float("nan")
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+    The launches are queued behind a sleep kernel twice as long as the
+    host takes to issue them, so the card runs them back to back and the
+    host's launch cost is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(issue_s * 4e9) + 1000)  # cycles: twice issue_s at up to 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int = 30) -> float:
+    """Mean device time of ``fn`` with L2 cold: each launch follows a read
+    of 128 MB (more than the card's 50 MB L2) and is timed alone by its own
+    events, all queued behind a sleep kernel as in :func:`time_ms`."""
+    flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flush.sum()
+        fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(int(issue_s * 4e9) + 1000)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def in_turns(kernel, other, iters: int = 50, timer=time_ms) -> tuple[float, float]:
+    """Mean device times of ``kernel`` and ``other`` (by ``timer``),
+    timed in turns: kernel, other, other, kernel."""
+    a1, b1, b2, a2 = (timer(fn, iters) for fn in (kernel, other, other, kernel))
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def _fold(c: torch.Tensor, *arrays: torch.Tensor) -> torch.Tensor:
