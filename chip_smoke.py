@@ -11,9 +11,9 @@ PyTorch version on the card (exact equality; each K1 entry at int8 and
 int32 tables, ragged tiles too; K2 one class and a whole class table a
 launch, on the 1M plan and crafted tables; K3 at slot widths 1, 3, 7, 16 and 32; K3
 and K4 in both SIR-age modes, past ROUND_CAP too), reproduces the
-JAX-pinned digests (``tpu_gossip_torch/reference_digests.json``: ten
-n=20000 runs, packed and sharded included, and the 1M matching
-headline), then drives eight paths at 1M peers (push_pull, fanout 1, 16
+JAX-pinned digests (``tpu_gossip_torch/reference_digests.json``:
+seventeen n=20000 runs, packed, sharded and churned included, the 1M
+matching headline and the 1M churn headline), then drives eight paths at 1M peers (push_pull, fanout 1, 16
 slots, to 99% coverage), each with its launches counted from zero: the
 matching headline (K1, K2, K3), the power-law CSR swarm delivered by the
 staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
@@ -21,7 +21,18 @@ staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
 path (K4 alone), each packed run digest-equal to its unpacked twin, and
 the bucketed sharded engine on a one-shard mesh over the same graph: its
 receive through K6 (K6, K3), its scatter twin (K3) and its packed twin
-(K6, K4), all three digest-equal. One partner pass of the headline plan
+(K6, K4), all three digest-equal. Then BASELINE config 5 (Poisson churn
+0.002/0.02 with 2 fresh degree-preferential edges a rejoiner) for a fixed
+horizon on every path, launches counted from zero: 4i the matching
+headline with a 65536-row side-path table (K1, K2, K3 with the churn's
+fresh mask), digest-equal to the JAX-pinned 1M churn run; 4j its packed
+twin (K4); 4k staircase (K5) and 4l exactly-k on the power-law graph,
+dense side paths; 4m the staircase remat loop (72 rounds, a fold every
+24, table 49152), each segment's plan built on the host and the card
+and held equal, each fold held against a numpy model of the edge
+multiset, 0 overflow edges; 4n the sharded K6 path and its scatter twin,
+digest-equal; 4o the sharded remat loop (32 rounds, one fold and
+re-partition, K6's plans rebuilt and timed). One partner pass of the headline plan
 is counted apart: 2K+1 K1 launches and no torch transpose; and one reduce:
 one K2 launch, the only kernel the profiler sees. Then it times
 each kernel at its path's shapes beside its byte bound, its plain
@@ -342,7 +353,7 @@ def phase_digest(root: Path, dev) -> list[dict]:
         if unknown:
             raise AssertionError(f"reference argv not understood: {unknown}")
         got = run_sim.run(args)
-        for k in ("state_digest", "stats_digest", "rounds_to_target", "total_msgs", "final_coverage"):
+        for k in ref["summary"]:
             if got[k] != ref["summary"][k]:
                 raise AssertionError(f"{ref['source']}: {k} {got[k]} != JAX reference {ref['summary'][k]}")
         out.append(got)
@@ -455,6 +466,349 @@ def run_sharded(dev, setup: dict, plan, what: str, packed: bool = False) -> dict
     return dict(rounds=rounds, coverage=cov, run_s=run_s, run_peak=run_peak, digest=state_digest(fin))
 
 
+# BASELINE config 5 at the JAX bench's widths (bench.py, "churn_rewire_1m_*")
+CHURN = dict(churn_leave_prob=0.002, churn_join_prob=0.02, rewire_slots=2)
+CHURN_ROUNDS = 16
+REMAT_EVERY, REMAT_CAP, REMAT_ROUNDS = 24, 49152, 72
+SHARD_REMAT_EVERY, SHARD_REMAT_ROUNDS = 16, 32
+
+
+def churn_cfg(n_peers: int, cap: int = 0):
+    from tpu_gossip_torch.core.state import SwarmConfig
+
+    return SwarmConfig(n_peers=n_peers, msg_slots=M_SLOTS, fanout=1, mode="push_pull", rewire_compact_cap=cap,
+                       **CHURN)
+
+
+def check_churned(fin, what: str, n_real: int) -> None:
+    """A churned final state: the infection latch agrees with seen, no
+    rejoined row holds a stale slot, fresh targets are member rows or -1,
+    and no pad slot joined."""
+    live = fin.alive & ~fin.declared_dead
+    if bool((fin.infected_round[:, 0] >= 0).ne(fin.seen[:, 0]).any()):
+        raise AssertionError(f"{what} infected_round latch disagrees with seen")
+    if bool((fin.alive & ~fin.exists).any()):
+        raise AssertionError(f"{what} run brought a non-member slot alive")
+    tg = fin.rewire_targets[fin.rewired]
+    if bool(((tg < -1) | (tg >= fin.exists.shape[0])).any()) or bool((~fin.exists[tg[tg >= 0].long()]).any()):
+        raise AssertionError(f"{what} run holds a fresh target that is no member row")
+    if int(live[n_real:].sum()) != 0:
+        raise AssertionError(f"{what} run reached a pad slot")
+
+
+def run_churn(dev, what: str, step, state, rounds: int, n_real: int, packed: bool = False) -> dict:
+    """``step(state, rounds) -> (state, stats)`` from ``state`` (packed
+    first when ``packed``), timed, its peak taken alone; the final
+    (unpacked) state checked. Returns rounds, digests, seconds, run peak,
+    coverage and the rewired count."""
+    from tpu_gossip_torch.core.packed import PackedSwarm, pack_state, unpack_state
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    if packed:
+        state = pack_state(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fin, stats = step(state, rounds)
+    cov = stats.coverage.cpu()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated(dev)
+    if isinstance(fin, PackedSwarm) != packed:
+        raise AssertionError(f"{what} run returned a {type(fin).__name__}")
+    if packed:
+        fin = unpack_state(fin)
+    if int(fin.round) != rounds or not bool(torch.isfinite(cov).all()) or not 0.9 <= float(cov[-1]) <= 1.0:
+        raise AssertionError(f"{what} run ended at round {int(fin.round)} with coverage {cov.tolist()}")
+    check_churned(fin, what, n_real)
+    return dict(rounds=rounds, digest=state_digest(fin), stats_digest=stats_digest(stats), run_s=run_s,
+                run_peak=run_peak, coverage=float(cov[-1]), rewired=int(fin.rewired.sum()),
+                total_msgs=int(stats.msgs_sent.sum()), fin=fin)
+
+
+def churn_line(card: str, what: str, r: dict, launches: dict, extra: str = "") -> str:
+    # a remat loop's ms/round is its rounds' alone; amortized adds what the
+    # CLI's loop pays an epoch (host plan build, fold, re-partition, K6 plans)
+    ms = (f"{r['round_ms']} ms/round (amortized over the epochs' rebuilds {r['amortized_ms']})"
+          if "round_ms" in r else f"{r['run_s'] * 1e3 / r['rounds']} ms/round")
+    return (f"[{card}] {what} n={N_HEADLINE} m={M_SLOTS} push_pull fanout 1, churn leave 0.002 join 0.02 rewire 2"
+            f"{extra}: {r['rounds']} rounds, final coverage {r['coverage']}, rewired rows {r['rewired']}, "
+            f"{ms}, run max_memory_allocated {r['run_peak']} B, "
+            f"final state_digest {r['digest']} stats_digest {r['stats_digest']}; launches {launches}")
+
+
+def fold_model(st, cap: int):
+    """The fold ``rematerialize_rewired`` must make, in numpy: the kept
+    edges (both endpoints members and not rewired) plus each rejoiner's
+    valid fresh targets, both ways, as sorted (src, dst) pairs."""
+    import numpy as np
+
+    row_ptr, col = st.row_ptr.cpu().numpy().astype(np.int64), st.col_idx.cpu().numpy().astype(np.int64)
+    exists, rewired = st.exists.cpu().numpy(), st.rewired.cpu().numpy()
+    e = int(row_ptr[-1])
+    src = np.repeat(np.arange(len(row_ptr) - 1), np.diff(row_ptr))
+    dst = col[:e]
+    keep = exists[src] & exists[dst] & ~rewired[src] & ~rewired[dst]
+    tg = st.rewire_targets.cpu().numpy().astype(np.int64)
+    r = np.repeat(np.arange(tg.shape[0]), tg.shape[1])
+    t = tg.reshape(-1)
+    fv = rewired[r] & (t >= 0) & (t != r)
+    pairs = np.concatenate([np.stack([src[keep], dst[keep]], 1), np.stack([r[fv], t[fv]], 1),
+                            np.stack([t[fv], r[fv]], 1)])
+    if len(pairs) > cap:
+        raise AssertionError(f"the fold model holds {len(pairs)} edges, past the capacity {cap}")
+    return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+
+
+def check_fold(before, after, cap: int) -> None:
+    """The folded CSR against :func:`fold_model`: the same edge multiset,
+    row-major, ``col_idx`` at capacity with a self-loop tail."""
+    import numpy as np
+
+    want = fold_model(before, cap)
+    row_ptr = after.row_ptr.cpu().numpy().astype(np.int64)
+    col = after.col_idx.cpu().numpy().astype(np.int64)
+    e = int(row_ptr[-1])
+    src = np.repeat(np.arange(len(row_ptr) - 1), np.diff(row_ptr))
+    got = np.stack([src, col[:e]], 1)
+    got = got[np.lexsort((got[:, 1], got[:, 0]))]
+    if col.shape[0] != cap or not np.array_equal(got, want):
+        raise AssertionError(f"the folded CSR ({e} edges, capacity {col.shape[0]}) is not the model's "
+                             f"({len(want)} edges, capacity {cap})")
+    if e < cap and not bool((col[e:] == col[e]).all()):
+        raise AssertionError("the folded CSR's tail past row_ptr[-1] is not one row's self-loops")
+    if bool(after.rewired.any()) or bool((after.rewire_targets != -1).any()) or bool(after.degree_credit.any()):
+        raise AssertionError("the fold left rewired rows, fresh targets or credit behind")
+
+
+def plans_equal(plan, dplan) -> int:
+    """The host-built and card-built staircase plans: equal routing tables
+    and thresholds within 2^-22 relative + 1 (the card's float32
+    thresholds are within 2^-24 relative of the host's float64 ones before
+    the ceil, which may then differ by one); returns the largest threshold
+    difference."""
+    for name in ("n", "n_tiles", "n_blocks", "rows"):
+        if getattr(plan, name) != getattr(dplan, name):
+            raise AssertionError(f"device plan {name} {getattr(dplan, name)} != host {getattr(plan, name)}")
+    for name in ("tile_block", "offs", "col_gather"):
+        if not torch.equal(getattr(plan, name), getattr(dplan, name)):
+            raise AssertionError(f"device plan routing table {name} differs from the host build")
+    thr_err = 0
+    for t in ("push_thresh", "pull_thresh"):
+        diff = (getattr(plan, t) - getattr(dplan, t)).abs()
+        if bool((diff > 1 + getattr(plan, t) * 2.0**-22).any()):
+            raise AssertionError(f"device plan {t} off the host's by more than 2^-22 relative + 1")
+        thr_err = max(thr_err, int(diff.max()))
+    return thr_err
+
+
+def run_remat(dev, dgraph, what: str) -> dict:
+    """4m: the staircase remat loop at the JAX bench's operating point
+    (``run_sim --remat-every 24 --rewire-compact-cap 49152``): each
+    segment's plan built on the host and on the card, held equal; each
+    fold checked against the numpy model."""
+    import numpy as np
+
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.state import init_swarm
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan, build_staircase_plan_device
+    from tpu_gossip_torch.sim.engine import _concat, remat_capacity, rematerialize_rewired, simulate
+
+    graph = dgraph.as_padded_graph()
+    cfg = churn_cfg(graph.n, REMAT_CAP)
+    origins = np.random.default_rng(0).choice(N_HEADLINE, size=1, replace=False)
+    state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=dgraph.exists, device=dev)
+    cap = remat_capacity(state, cfg)
+    info = dict(capacity=cap, plan_host_s=[], plan_device_s=[], fold_s=[], rounds_s=0.0, thresh_max_abs_diff=0,
+                overflow=0)
+
+    def step(st, rounds):
+        parts = []
+        while int(st.round) < rounds:
+            plan = timed(info["plan_host_s"], lambda: build_staircase_plan(st.row_ptr, st.col_idx, fanout=1,
+                                                                           device=dev))
+            dplan = timed(info["plan_device_s"], lambda: build_staircase_plan_device(st.row_ptr, st.col_idx,
+                                                                                     fanout=1))
+            info["thresh_max_abs_diff"] = max(info["thresh_max_abs_diff"], plans_equal(plan, dplan))
+            del dplan
+            seg = []
+            st, stats = timed(seg, lambda: simulate(st, cfg, min(REMAT_EVERY, rounds - int(st.round)), plan))
+            info["rounds_s"] += seg[0]
+            parts.append(stats)
+            if int(st.round) < rounds:
+                folded, over = timed(info["fold_s"], lambda: rematerialize_rewired(st, cfg, cap))
+                info["overflow"] += int(over)
+                check_fold(st, folded, cap)
+                st = folded
+        return st, _concat(parts)
+
+    r = run_churn(dev, what, step, state, REMAT_ROUNDS, N_HEADLINE)
+    if info["overflow"] != 0 or len(info["fold_s"]) != 2:
+        raise AssertionError(f"{what}: {len(info['fold_s'])} folds, {info['overflow']} overflow edges")
+    # what the CLI's loop pays: the rounds, a host plan build a segment and the folds
+    epoch_s = sum(info["plan_host_s"]) + sum(info["fold_s"])
+    return dict(r, info=info, round_ms=info["rounds_s"] * 1e3 / REMAT_ROUNDS,
+                amortized_ms=(info["rounds_s"] + epoch_s) * 1e3 / REMAT_ROUNDS)
+
+
+def timed(acc: list, fn):
+    """``fn()`` between two synchronisations, its seconds appended to ``acc``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    acc.append(time.perf_counter() - t0)
+    return out
+
+
+def run_shard_churn(dev, setup: dict, plan, what: str) -> dict:
+    """4n: the sharded churn path on 4f's one-shard set-up, dense side
+    paths, through K6 with ``plan`` and the scatter receive without."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+
+    sg, mesh = setup["sg"], setup["mesh"]
+    cfg = churn_cfg(sg.n_pad)
+    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
+    state = dist.shard_swarm(dist.init_sharded_swarm(sg, setup["rel"], setup["pos"], cfg, key=prng.key(0, dev),
+                                                     origins=origins, device=dev), mesh)
+    return run_churn(dev, what, lambda st, k: dist.simulate_dist(st, cfg, sg, mesh, k, plan), state, CHURN_ROUNDS,
+                     sg.n)
+
+
+def run_shard_remat(dev, setup: dict, what: str) -> dict:
+    """4o: ``run_sim --shard --staircase --remat-every 16`` for 32 rounds:
+    one fold, one re-partition (seed 1), the state re-sharded and K6's
+    plans rebuilt (timed); the fold checked against the numpy model."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.sim.engine import _concat, remat_capacity, rematerialize_rewired
+
+    sg, mesh = setup["sg"], setup["mesh"]
+    cfg = churn_cfg(sg.n_pad)
+    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
+    state = dist.shard_swarm(dist.init_sharded_swarm(sg, setup["rel"], setup["pos"], cfg, key=prng.key(0, dev),
+                                                     origins=origins, device=dev), mesh)
+    info = dict(overflow=0, rounds_s=[], fold_s=[], repartition_s=[], plan_s=[])
+    epoch = dict(sg=sg, plan=setup["plan"])
+
+    def step(st, rounds):
+        parts = []
+        while int(st.round) < rounds:
+            st, stats = timed(info["rounds_s"], lambda: dist.simulate_dist(st, cfg, epoch["sg"], mesh,
+                                                                           SHARD_REMAT_EVERY, epoch["plan"]))
+            parts.append(stats)
+            if int(st.round) < rounds:
+                cap = remat_capacity(st, cfg)
+                folded, over = timed(info["fold_s"], lambda: rematerialize_rewired(st, cfg, cap))
+                check_fold(st, folded, cap)
+
+                def repartition():
+                    sg_new, moved, _ = dist.repartition_swarm(folded, mesh.size, seed=1)
+                    return sg_new, dist.shard_swarm(moved, mesh)
+
+                epoch["sg"], st = timed(info["repartition_s"], repartition)
+                epoch["plan"] = timed(info["plan_s"], lambda: dist.build_shard_plans(epoch["sg"]))
+                info.update(bucket=epoch["sg"].bucket, n_tiles=epoch["plan"].n_tiles)
+                info["overflow"] += int(over)
+        return st, _concat(parts)
+
+    r = run_churn(dev, what, step, state, SHARD_REMAT_ROUNDS, sg.n)
+    if info["overflow"] != 0 or len(info["plan_s"]) != 1:
+        raise AssertionError(f"{what}: overflow {info['overflow']}, {len(info['plan_s'])} re-partitions")
+    rounds_s = sum(info["rounds_s"])
+    epoch_s = sum(info["fold_s"]) + sum(info["repartition_s"]) + sum(info["plan_s"])
+    return dict(r, info=info, round_ms=rounds_s * 1e3 / SHARD_REMAT_ROUNDS,
+                amortized_ms=(rounds_s + epoch_s) * 1e3 / SHARD_REMAT_ROUNDS)
+
+
+def phase_churn(dev, card: str, hgraph, plan, dgraph, splan, shard: dict, pin: dict) -> dict:
+    """Phases 4i-4o: BASELINE config 5 at 1M on every delivery path, each
+    run's launches counted from 0; returns the launches by phase."""
+    import numpy as np
+
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.state import init_swarm
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim.engine import simulate
+
+    out = {}
+
+    def local(graph_, cfg, pl, what, packed=False):
+        g = graph_.as_padded_graph()
+        origins = np.random.default_rng(0).choice(N_HEADLINE, size=1, replace=False)
+        st = init_swarm(g, cfg, key=prng.key(0, dev), origins=origins, exists=graph_.exists, device=dev)
+        native.reset_launches()
+        r = run_churn(dev, what, lambda s, k: simulate(s, cfg, k, pl), st, CHURN_ROUNDS, N_HEADLINE, packed)
+        out[what] = dict(native.LAUNCHES)
+        return r
+
+    # 4i: the matching headline under churn, compact side paths (cap 65536);
+    # its digests are the JAX-pinned 1M churn entry's
+    m_cfg = churn_cfg(hgraph.as_padded_graph().n, 65536)
+    r_i = local(hgraph, m_cfg, plan, "4i churn matching")
+    check_launches("4i churn matching", out["4i churn matching"], CHURN_MATCHING_PATH, CHURN_ROUNDS)
+    for k, v in (("state_digest", r_i["digest"]), ("stats_digest", r_i["stats_digest"]),
+                 ("total_msgs", r_i["total_msgs"])):
+        if v != pin[k]:
+            raise AssertionError(f"4i churn matching {k} {v} != the JAX pin's {pin[k]} ({pin['source']})")
+    print(churn_line(card, "4i churn matching", r_i, out["4i churn matching"], ", compact cap 65536")
+          + "; digests equal the JAX pin", flush=True)
+    # 4j: its packed twin
+    r_j = local(hgraph, m_cfg, plan, "4j churn matching packed", packed=True)
+    check_launches("4j churn matching packed", out["4j churn matching packed"], CHURN_PACKED_MATCHING_PATH,
+                   CHURN_ROUNDS)
+    if (r_j["digest"], r_j["stats_digest"]) != (r_i["digest"], r_i["stats_digest"]):
+        raise AssertionError("4j packed churn run's digests differ from 4i's")
+    print(churn_line(card, "4j churn matching packed", r_j, out["4j churn matching packed"], ", compact cap 65536")
+          + "; digest-equal to 4i", flush=True)
+    del r_i["fin"], r_j["fin"]
+    # 4k and 4l: staircase (K5) and exactly-k churn on 4b's graph, dense side paths
+    c_cfg = churn_cfg(dgraph.as_padded_graph().n)
+    for what, pl, want in (("4k churn staircase", splan, CHURN_STAIRCASE_PATH),
+                           ("4l churn exactly-k", None, CHURN_XLA_PATH)):
+        r = local(dgraph, c_cfg, pl, what)
+        check_launches(what, out[what], want, CHURN_ROUNDS)
+        print(churn_line(card, what, r, out[what], ", dense side paths"), flush=True)
+        del r["fin"]
+    # 4m: the staircase remat loop
+    native.reset_launches()
+    r_m = run_remat(dev, dgraph, "4m churn staircase remat")
+    out["4m churn staircase remat"] = dict(native.LAUNCHES)
+    check_launches("4m churn staircase remat", out["4m churn staircase remat"], CHURN_STAIRCASE_PATH,
+                   REMAT_ROUNDS)
+    print(churn_line(card, "4m churn staircase remat", r_m, out["4m churn staircase remat"],
+                     f", remat every {REMAT_EVERY}, compact cap {REMAT_CAP}")
+          + f"; remats 2, remat_overflow_edges {r_m['info']['overflow']}, {r_m['info']}", flush=True)
+    del r_m["fin"]
+    # 4n: the sharded churn path (K6) and its scatter twin
+    r_n = {}
+    for what, pl, want in (("4n churn sharded staircase", shard["plan"], CHURN_SHARD_PATH),
+                           ("4n churn sharded scatter", None, CHURN_XLA_PATH)):
+        native.reset_launches()
+        r_n[what] = run_shard_churn(dev, shard, pl, what)
+        out[what] = dict(native.LAUNCHES)
+        check_launches(what, out[what], want, CHURN_ROUNDS)
+        print(churn_line(card, what, r_n[what], out[what], ", dense side paths, one-shard mesh"), flush=True)
+        del r_n[what]["fin"]
+    a, b = r_n.values()
+    if (a["digest"], a["stats_digest"]) != (b["digest"], b["stats_digest"]):
+        raise AssertionError("4n scatter twin's digests differ from the K6 run's")
+    # 4o: the sharded remat loop
+    native.reset_launches()
+    r_o = run_shard_remat(dev, shard, "4o churn sharded remat")
+    out["4o churn sharded remat"] = dict(native.LAUNCHES)
+    check_launches("4o churn sharded remat", out["4o churn sharded remat"], CHURN_SHARD_PATH, SHARD_REMAT_ROUNDS)
+    print(churn_line(card, "4o churn sharded remat", r_o, out["4o churn sharded remat"],
+                     f", remat every {SHARD_REMAT_EVERY}, one-shard mesh")
+          + f"; remats 1, remat_overflow_edges {r_o['info']['overflow']}, {r_o['info']}", flush=True)
+    return out
+
+
 def phase_staircase(dev, n: int):
     """The slice's path: the power-law swarm built on the card, its
     staircase plan built on the host as the CLI builds it (and on the card,
@@ -473,20 +827,7 @@ def phase_staircase(dev, n: int):
     dgraph, graph_s = timed(lambda: device_powerlaw_graph(n, gamma=2.5, key=prng.key(0, dev), device=dev))
     plan, host_s = timed(lambda: build_staircase_plan(dgraph.row_ptr, dgraph.col_idx, fanout=1, device=dev))
     dplan, device_s = timed(lambda: build_staircase_plan_device(dgraph.row_ptr, dgraph.col_idx, fanout=1))
-    for name in ("n", "n_tiles", "n_blocks", "rows"):
-        if getattr(plan, name) != getattr(dplan, name):
-            raise AssertionError(f"device plan {name} {getattr(dplan, name)} != host {getattr(plan, name)}")
-    for name in ("tile_block", "offs", "col_gather"):
-        if not torch.equal(getattr(plan, name), getattr(dplan, name)):
-            raise AssertionError(f"device plan routing table {name} differs from the host build")
-    # float32 thresholds are within 2^-24 relative of the host's float64
-    # ones before the ceil, which may then differ by one
-    thr_err = 0
-    for t in ("push_thresh", "pull_thresh"):
-        diff = (getattr(plan, t) - getattr(dplan, t)).abs()
-        if bool((diff > 1 + getattr(plan, t) * 2.0**-22).any()):
-            raise AssertionError(f"device plan {t} off the host's by more than 2^-22 relative + 1")
-        thr_err = max(thr_err, int(diff.max()))
+    thr_err = plans_equal(plan, dplan)
     deg = dgraph.degrees
     info = dict(graph_s=graph_s, host_plan_s=host_s, device_plan_s=device_s, thresh_max_abs_diff=thr_err,
                 n_tiles=plan.n_tiles, n_blocks=plan.n_blocks, sentinel_slots=int(deg[-1]),
@@ -928,6 +1269,12 @@ PACKED_XLA_PATH = dict(XLA_PATH, round_tail=0, round_tail_words=1)
 SHARD_STAIRCASE_PATH = dict(XLA_PATH, stream_segment=1)
 SHARD_SCATTER_PATH = dict(XLA_PATH)
 SHARD_PACKED_PATH = dict(SHARD_STAIRCASE_PATH, round_tail=0, round_tail_words=1)
+# the churn paths (4i-4o): the same kernels a round, the churn's fresh mask in the tail
+CHURN_MATCHING_PATH = dict(MATCHING_PATH, fold_planes_sum=0)
+CHURN_PACKED_MATCHING_PATH = dict(PACKED_MATCHING_PATH, fold_planes_sum=0)
+CHURN_STAIRCASE_PATH = STAIRCASE_PATH
+CHURN_XLA_PATH = XLA_PATH
+CHURN_SHARD_PATH = SHARD_STAIRCASE_PATH
 
 
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
@@ -1083,6 +1430,16 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
               + (f", final state_digest {r['digest']}" if what == "sharded staircase"
                  else ", final state digest equal to the K6 run's"), flush=True)
         print(f"[{card}] {what}-path launches: {shard_launches[what]}", flush=True)
+
+    # phases 4i-4o: BASELINE config 5 (churn and re-wiring) at 1M on every
+    # delivery path, each counted from 0 (the 1M churn pin is the JAX CLI's)
+    t0 = time.perf_counter()
+    pin = [r for r in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+           if "--churn-join" in r["argv"] and "1000000" in r["argv"]][0]
+    churn_launches = phase_churn(dev, card, hgraph, plan, dgraph, splan, shard,
+                                 dict(pin["summary"], source=pin["source"]))
+    print(f"[{card}] phases 4i-4o: {time.perf_counter() - t0:.2f} s; launches by phase {churn_launches}",
+          flush=True)
 
     # phase 5: kernel times at each path's shapes
     times = phase_timing(plan, dev, gen, N_HEADLINE)

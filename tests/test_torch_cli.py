@@ -129,7 +129,7 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
     ["--graph", "chung-lu", "--silent-frac", "0.1", "--device", "cpu"],
     ["--graph", "pa", "--checkpoint-every", "5", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
-    ["--graph", "matching", "--churn-leave", "0.1", "--device", "cpu"],
+    ["--graph", "matching", "--churn-leave", "0.1", "--grow", "200", "--device", "cpu"],
 ])
 def test_cli_flags_of_later_slices_exit_2(capsys, argv):
     assert tcli.main(["--peers", "100", *argv]) == 2

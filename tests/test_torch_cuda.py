@@ -465,3 +465,133 @@ def test_sublane_gather_kernel_equals_plain(dev, t_rows, n_rows, group):
     got = sublane_gather(tab, idx, group)
     assert LAUNCHES["sublane_gather"] == before + 1
     assert torch.equal(got, sublane_gather_plain(tab, idx, group))
+
+
+# ---------------------------------------------------------------- churn
+
+
+CHURN = dict(churn_leave_prob=0.01, churn_join_prob=0.2, rewire_slots=2)
+
+
+def _churned(dev, n=20000, rounds=6, cap=0):
+    """A Chung-Lu swarm on the card after a few rounds of heavy churn,
+    and one more round's tail operands with the churn stage's fresh mask."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core import topology as tt
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.sim import engine, stages
+
+    deg = tt.powerlaw_degree_sequence(n, rng=np.random.default_rng(3))
+    g = tt.build_csr(n, tt.configuration_model(deg, rng=np.random.default_rng(4)))
+    cfg = SwarmConfig(n_peers=n, msg_slots=16, mode="push_pull", fanout=1, rewire_compact_cap=cap, **CHURN)
+    st = init_swarm(g, cfg, key=prng.key(1, dev), origins=[0, 7, 99], device=dev)
+    st, _ = engine.simulate(st, cfg, rounds)
+    _, tr, rc = engine.compute_roles(st)
+    tx = engine.transmit_bitmap(st, cfg, tr)
+    _, kp, kq, kl, kj = prng.split(st.rng, 5)
+    inc, _ = engine._disseminate_local(st, cfg, tx, tr, rc, kp, kq)
+    churn = stages._churn_stage(cfg)
+    vals = {k: getattr(st, k) for k in churn.reads if hasattr(st, k)}
+    vals.update(rnd=st.round + 1, k_leave=kl, k_join=kj)
+    fresh = churn.fn(stages.StageView(vals, churn))["fresh"]
+    assert int(fresh.sum()) > 0 and int(st.rewired.sum()) > 0
+    return cfg, st, dict(incoming=inc, receptive=rc, transmit=tx, fresh=fresh, rnd=st.round + 1)
+
+
+@pytest.mark.parametrize("cap", [0, 512])
+@pytest.mark.parametrize("fo,sir", [(False, 0), (True, 4)])
+def test_tail_kernels_with_fresh_on_churned_state_equal_plain(dev, cap, fo, sir):
+    """K3 and K4 with the churn stage's fresh row mask, on a churned state."""
+    from tpu_gossip_torch.core.packed import pack_bits
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words, tail_fused, tail_words_plain
+
+    _, st, op = _churned(dev, cap=cap)
+    planes = (st.seen, st.forwarded, st.infected_round, st.recovered, op["incoming"], op["receptive"],
+              op["transmit"], op["fresh"], op["rnd"])
+    kw = dict(forward_once=fo, sir_recover_rounds=sir)
+    before = LAUNCHES["round_tail"], LAUNCHES["round_tail_words"]
+    got = round_tail(*planes, impl="fused", **kw)
+    want = tail_fused(*planes, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    words = [pack_bits(p) if p.dtype == torch.bool and p.dim() == 2 else p for p in planes]
+    got_w = round_tail_words(*words, m=16, **kw)
+    want_w = tail_words_plain(*words, m=16, age_saturated=False, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got_w, want_w))
+    assert (LAUNCHES["round_tail"], LAUNCHES["round_tail_words"]) == (before[0] + 1, before[1] + 1)
+    # the rejoined rows come out reset
+    fresh = op["fresh"]
+    assert not bool(got[0][fresh].any()) and bool((got[2][fresh] == -1).all())
+
+
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("kind", ["push_pull", "push", "pull"])
+def test_stream_segment_with_blocked_runs_equals_scatter_and_plain(dev, s, kind):
+    """K6 receiving runs the stale-edge filter zeroed (rewired receivers):
+    the same bits and bill as the scatter receive, and each launch equal to
+    its plain version."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.packed import packed_width, words8_to_words32
+    from tpu_gossip_torch.dist import mesh as dm
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.pallas_segment import stream_segment_or, stream_segment_plain
+
+    sg, plans = _shard_plans(dev, "chung_lu", s)
+    g = _gen(dev, s)
+    transmit = torch.rand((sg.n_pad, 16), generator=g, device=dev) < 0.3
+    blocked = torch.rand((sg.n_pad,), generator=g, device=dev) < 0.2
+    keys = prng.split(prng.key(3, dev), s)
+    before = LAUNCHES["stream_segment"]
+    k6 = dm._exchange(transmit & ~blocked[:, None], sg, keys, kind, 1, plans, blocked)
+    scatter = dm._exchange(transmit & ~blocked[:, None], sg, keys, kind, 1, None, blocked)
+    assert LAUNCHES["stream_segment"] == before + s
+    assert torch.equal(k6[0], scatter[0]) and int(k6[1]) == int(scatter[1]) > 0
+    assert not bool(k6[0][blocked].any())
+    active, acts = dm.activation(sg, keys, kind, 1)
+    received = dm.drop_blocked(dm.all_to_all(dm.send_payload(transmit, sg, active, acts)), sg, blocked)
+    words, _ = dm.bill(received, packed_width(16))
+    for d in range(s):
+        flat32 = words8_to_words32(words[d]).reshape(s * sg.bucket, -1)[:, 0].contiguous()
+        args = (plans.tile_block[d], plans.window_idx[d], plans.offs[d], flat32, plans.rows, plans.n_blocks)
+        assert torch.equal(stream_segment_or(*args), stream_segment_plain(*args))
+
+
+def test_remat_plan_rebuild_on_card(dev):
+    """A fold on the card, its staircase plan built on the host and on the
+    card (equal routing tables), and K5 over the rebuilt plan delivering
+    what ``flood_all`` delivers over the folded CSR (its tail ignored)."""
+    from tpu_gossip_torch.kernels.gossip import flood_all
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan, build_staircase_plan_device, segment_or
+    from tpu_gossip_torch.sim import engine
+
+    cfg, st, _ = _churned(dev)
+    folded, over = engine.rematerialize_rewired(st, cfg, engine.remat_capacity(st, cfg))
+    assert int(over) == 0 and int(folded.row_ptr[-1]) < folded.col_idx.shape[0]
+    plan = build_staircase_plan(folded.row_ptr, folded.col_idx, device=dev)
+    dplan = build_staircase_plan_device(folded.row_ptr, folded.col_idx)
+    for name in ("tile_block", "offs", "col_gather"):
+        assert torch.equal(getattr(plan, name), getattr(dplan, name)), name
+    before = LAUNCHES["staircase_segment"]
+    got = segment_or(plan, folded.seen, 16)
+    assert LAUNCHES["staircase_segment"] == before + 1
+    assert torch.equal(got, flood_all(folded.seen, folded.row_ptr, folded.col_idx))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--graph", "matching", "--rewire-compact-cap", "256"],
+    ["--graph", "matching", "--rewire-compact-cap", "256", "--packed"],
+    ["--graph", "chung-lu", "--staircase"],
+    ["--graph", "chung-lu", "--staircase", "--remat-every", "7"],
+    ["--graph", "chung-lu", "--shard", "--staircase", "--remat-every", "7"],
+])
+def test_churn_digest_on_card_equals_cpu(dev, argv):
+    from tpu_gossip_torch.cli import run_sim
+
+    argv = ["--peers", "2000", "--rounds", "20", "--digest", "--quiet", "--mode", "push_pull", "--fanout", "1",
+            "--churn-leave", "0.01", "--churn-join", "0.1", "--rewire-slots", "2", *argv]
+    parser = run_sim.build_parser()
+    card, cpu = (run_sim.run(parser.parse_args(argv + ["--device", d])) for d in ("cuda", "cpu"))
+    for summary in (card, cpu):
+        summary.pop("epoch_rebuild_seconds_total", None)
+    assert card == cpu

@@ -180,7 +180,9 @@ def test_refused_arguments_raise_not_ported(graph, what):
 
         _, sg = matching_powerlaw_graph(200, fanout=1, key=prng.key(0, "cpu"), device="cpu")
     elif what == "rewire_slots":
-        tc = dataclasses.replace(tc, rewire_slots=2)
+        # re-wiring itself runs on this engine; its burst churn (a scenario) is the faults slice's
+        tc = dataclasses.replace(tc, rewire_slots=2, churn_join_prob=0.1)
+        kw["scenario"] = object()
     else:
         kw[what] = True if what == "collect_ici" else object()
     with pytest.raises(NotImplementedError, match="not ported"):

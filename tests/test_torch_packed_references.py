@@ -22,7 +22,7 @@ def test_packed_references_equal_their_unpacked_twins():
     refs = json.loads(REF.read_text())
     by_argv = {_flags(r["argv"]): r for r in refs}
     packed = _packed_refs()
-    assert len(packed) == 4
+    assert len(packed) == 5
     twins = 0
     for ref in packed:
         assert ref["source"].startswith("python -m tpu_gossip.cli.run_sim")
@@ -30,7 +30,7 @@ def test_packed_references_equal_their_unpacked_twins():
         if twin is not None:
             assert twin["summary"] == ref["summary"]
             twins += 1
-    assert twins == 3
+    assert twins == 4
 
 
 def test_packed_pallas_sir_reference_digest_is_what_jax_produces(capsys):

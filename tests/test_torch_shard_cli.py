@@ -86,7 +86,7 @@ def test_shard_reference_digests_are_what_jax_produces(capsys, shards, packed):
     on a one-device mesh, and the port's CLI prints them on the CPU."""
     shards(1)
     (ref,) = [r for r in json.loads(REF.read_text())
-              if "--shard" in r["argv"] and ("--packed" in r["argv"]) == packed]
+              if "--shard" in r["argv"] and ("--packed" in r["argv"]) == packed and "--churn-join" not in r["argv"]]
     assert ref["source"].startswith("python -m tpu_gossip.cli.run_sim") and "one-device mesh" in ref["source"]
     _check_reference(capsys, ref)
 

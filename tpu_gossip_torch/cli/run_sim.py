@@ -10,6 +10,9 @@
         --fanout 1 --graph chung-lu --shard --staircase
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph matching --profile-round 6
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph matching --churn-leave 0.002 --churn-join 0.02 \\
+        --rewire-slots 2 --rewire-compact-cap 65536 --rounds 16 --digest
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -26,12 +29,20 @@ unpacked before the digest, as the JAX CLI does. With ``--shard`` the CSR
 graphs run on the bucketed sharded engine (``dist/mesh.py``) over a mesh
 of one shard per card (one on the CPU), its receive through K6 with
 ``--staircase``; the summary adds ``devices`` and ``transport`` (always
-``dense``), as the JAX CLI's does. The summary keys are the JAX CLI's.
+``dense``), as the JAX CLI's does. ``--churn-leave``/``--churn-join``
+run Poisson churn on every engine, with ``--rewire-slots`` fresh
+degree-preferential edges per rejoiner (``--rewire-compact-cap`` bounds
+their side paths to a table of rewired rows); ``--remat-every R`` folds
+the fresh edges into the CSR every R rounds (``rematerialize_rewired``),
+rebuilding the staircase plan, and under ``--shard`` re-partitioning the
+swarm and rebuilding K6's plans. The summary keys are the JAX CLI's.
 ``--profile-round R`` advances R rounds of the local unpacked engine and
 prints the slope-timed stage decomposition of its round instead
 (``utils/profiling.py``); ``--profile DIR`` records a ``torch.profiler``
 trace of the run. Runs on ``--device cuda`` unless told otherwise; every
-other flag of the JAX CLI is not ported yet and exits 2.
+other flag of the JAX CLI is not ported yet and exits 2 (the checkpoint
+flags, the checkpointed remat loops among them, come with the checkpoint
+slice).
 """
 
 from __future__ import annotations
@@ -45,9 +56,9 @@ import numpy as np
 _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
-    "and the bucketed sharded engine over the CSR graphs (later slices add faults, "
-    "churn, growth, streams, control, checkpoints, fleets, the sharded "
-    "matching engine and the multi-card exchange)"
+    "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
+    "included (later slices add faults, growth, streams, control, checkpoints, "
+    "fleets, the sharded matching engine and the multi-card exchange)"
 )
 
 
@@ -69,7 +80,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-rounds", type=int, default=1000)
     p.add_argument("--forward-once", action="store_true")
     p.add_argument("--sir-recover", type=int, default=0, help="rounds until SIR recovery (0 = off)")
+    p.add_argument("--churn-leave", type=float, default=0.0, help="per-round leave probability")
+    p.add_argument("--churn-join", type=float, default=0.0, help="per-round rejoin probability")
+    p.add_argument("--rewire-slots", type=int, default=0,
+                   help="rejoiners attach this many fresh degree-preferential edges (0 = reuse slot edges)")
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--rewire-compact-cap", type=int, default=0, metavar="CAP",
+                   help="bound the fresh-edge side paths to a CAP-row table of rewired peers (O(CAP) instead "
+                   "of O(N) random access; at most CAP joiners re-wire per round; pair with --remat-every so "
+                   "the rewired set stays under CAP). 0 = exact dense paths")
+    p.add_argument("--remat-every", type=int, default=0, metavar="R",
+                   help="every R rounds, fold rejoiners' fresh edges into the CSR and clear the rewired set "
+                   "(sim.engine.rematerialize_rewired); with --staircase the plan is rebuilt per segment; "
+                   "with --shard the fold is followed by a re-partition of the swarm (dist.repartition_swarm: "
+                   "fresh bucket tables and shard plans). 0 = off")
     p.add_argument("--staircase", action="store_true",
                    help="deliver through the staircase segment kernel (K5): exact "
                    "segment OR for flood, Bernoulli-per-edge sampling for push and "
@@ -100,9 +124,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "resume" or any(a.startswith("--checkpoint") for a in argv):
+        from tpu_gossip_torch.sim.stages import not_ported
+
+        print(str(not_ported("checkpointing (--checkpoint, --checkpoint-every, resume; the checkpointed remat "
+                             "loops among them)", "checkpoints (ROADMAP item 8)")), file=sys.stderr)
+        return 2
     args, unknown = build_parser().parse_known_args(argv)
     if unknown:
         print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
+        return 2
+    if args.packed and args.remat_every > 0:
+        print("--packed cannot compose with --remat-every: the epoch fold (rematerialize_rewired / "
+              "re-partition) rebuilds the unpacked CSR between segments; run the remat loop unpacked",
+              file=sys.stderr)
+        return 2
+    if args.graph == "matching" and args.remat_every > 0 and not args.shard:
+        print("--graph matching cannot re-materialize locally (its pairing IS the delivery plan: a folded CSR "
+              "has no pipeline); use --shard, whose remat path falls back to the bucketed-CSR engine on the "
+              "exported CSR", file=sys.stderr)
         return 2
     if args.shard and args.tail != "fused":
         print(f"--tail {args.tail} selects the LOCAL engine's tail implementation; the sharded engines "
@@ -139,7 +179,6 @@ def run(args: argparse.Namespace) -> dict:
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.device import resolve_device
-    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
     from tpu_gossip_torch.sim.engine import run_until_coverage, simulate
     from tpu_gossip_torch.sim.stages import not_ported
     from tpu_gossip_torch.utils.profiling import trace
@@ -166,14 +205,16 @@ def run(args: argparse.Namespace) -> dict:
             deg = topology.powerlaw_degree_sequence(args.peers, gamma=args.gamma, rng=rng)
             edges = topology.configuration_model(deg, rng=rng)
         graph = topology.build_csr(args.peers, edges)
-        if args.staircase and not args.shard:
-            plan = build_staircase_plan(graph.row_ptr, graph.col_idx,
-                                        fanout=None if args.mode == "flood" else args.fanout, device=dev)
+        if args.staircase and not args.shard and args.remat_every == 0:
+            # (with --remat-every the plan is rebuilt per segment instead)
+            plan = _staircase_plan(args, graph, dev)
     cfg_kw = dict(msg_slots=args.slots, fanout=args.fanout, mode=args.mode, forward_once=args.forward_once,
-                  sir_recover_rounds=args.sir_recover)
+                  sir_recover_rounds=args.sir_recover, churn_leave_prob=args.churn_leave,
+                  churn_join_prob=args.churn_join, rewire_slots=args.rewire_slots,
+                  rewire_compact_cap=args.rewire_compact_cap)
     origins = rng.choice(args.peers, size=min(args.origins, args.peers), replace=False)
     if args.shard:
-        cfg, state, horizon, to_target, extra = _shard_runners(args, graph, origins, cfg_kw, dev)
+        cfg, state, horizon, to_target, extra, epoch = _shard_runners(args, graph, origins, cfg_kw, dev)
     else:
         cfg = SwarmConfig(n_peers=graph.n, **cfg_kw)
         state = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins,
@@ -189,8 +230,150 @@ def run(args: argparse.Namespace) -> dict:
         if args.profile_round > 0:
             return _profile_round(args, cfg, state, plan)
     with trace(args.profile):
-        summary = _run_body(args, cfg, state, horizon, to_target, extra)
+        if args.remat_every > 0 and args.shard:
+            summary = _run_shard_with_remat(args, cfg, state, *epoch)
+        elif args.remat_every > 0:
+            summary = _run_with_remat(args, cfg, state, dev)
+        else:
+            summary = _run_body(args, cfg, state, horizon, to_target, extra)
     summary["packed"] = args.packed
+    return summary
+
+
+def _staircase_plan(args: argparse.Namespace, graph, dev):
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan
+
+    return build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=None if args.mode == "flood" else args.fanout,
+                                device=dev)
+
+
+def _horizon_summary(args: argparse.Namespace, stats, **extra) -> dict:
+    """The fixed-horizon summary row, one schema for every engine."""
+    from tpu_gossip_torch.sim import metrics as M
+
+    return {
+        "summary": True,
+        "n_peers": args.peers,
+        "mode": args.mode,
+        "rounds_run": args.rounds,
+        "rounds_to_target": M.rounds_to_coverage(stats, args.target),
+        "final_coverage": float(stats.coverage[-1]),
+        "total_msgs": int(stats.msgs_sent.sum()),
+        **extra,
+    }
+
+
+def _remat_loop(args: argparse.Namespace, state, run_segment, fold):
+    """The epoch loop of both remat runners: segments of ``--remat-every``
+    rounds (to the horizon, or until ``--target`` with no horizon), each
+    but the last followed by ``fold``. Returns the final state, the
+    segments' stats (a horizon only), the number of folds and the wall
+    seconds."""
+    import time
+
+    total = args.rounds if args.rounds > 0 else args.max_rounds
+    parts, remats = [], 0
+    t0 = time.perf_counter()
+    while int(state.round) < total:
+        state, stats = run_segment(state, min(args.remat_every, total - int(state.round)))
+        if args.rounds > 0:
+            parts.append(stats)
+        elif float(state.coverage(0)) >= args.target:
+            break
+        if int(state.round) < total:
+            state = fold(state)
+            remats += 1
+    return state, parts, remats, time.perf_counter() - t0
+
+
+def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: dict, sim_wall: float) -> dict:
+    """The summary of a remat run: the horizon row with the digests, or
+    the run-to-target row."""
+    from tpu_gossip_torch.sim.engine import _concat
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    if args.rounds > 0:
+        stats = _concat(parts)
+        if not args.quiet:
+            from tpu_gossip_torch.sim import metrics as M
+
+            M.write_jsonl(stats, sys.stdout)
+        summary = _horizon_summary(args, stats, **extra)
+        if args.digest:
+            summary.update(state_digest=state_digest(state), stats_digest=stats_digest(stats))
+        return summary
+    rounds = int(state.round)
+    return {
+        "summary": True, "mode": args.mode, "n_peers": args.peers, "rounds": rounds, "target": args.target,
+        "wall_seconds": wall, "peers_rounds_per_sec": args.peers * rounds / max(wall, 1e-9),
+        "coverage": float(state.coverage(0)), "ms_per_round": sim_wall / max(rounds, 1) * 1000.0, **extra,
+    }
+
+
+def _run_with_remat(args: argparse.Namespace, cfg, state, dev) -> dict:
+    """--remat-every R on the local engine: R rounds, then fold the fresh
+    edges into the CSR at the capacity taken once from the initial graph;
+    with --staircase the plan is rebuilt from each segment's CSR."""
+    from tpu_gossip_torch.sim.engine import remat_capacity, rematerialize_rewired, run_until_coverage, simulate
+
+    cap = remat_capacity(state, cfg)
+    overflow = []
+
+    def run_segment(st, seg):
+        plan = _staircase_plan(args, st, dev) if args.staircase else None
+        if args.rounds > 0:
+            return simulate(st, cfg, seg, plan, args.tail)
+        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail), None
+
+    def fold(st):
+        st, over = rematerialize_rewired(st, cfg, cap)
+        overflow.append(over)
+        return st
+
+    state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
+    extra = {"remat_every": args.remat_every, "remats": remats,
+             "remat_overflow_edges": sum(int(o) for o in overflow)}
+    return _remat_summary(args, state, parts, wall, extra, wall)
+
+
+def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans) -> dict:
+    """--shard --remat-every R: R rounds on the mesh, then fold the fresh
+    edges into the CSR, re-partition the live swarm (seed ``--seed`` plus
+    the fold's ordinal), re-shard it and rebuild K6's plans with
+    --staircase. The rebuilds' seconds are reported apart."""
+    import time
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.sim.engine import remat_capacity, rematerialize_rewired
+
+    epoch = {"sg": sg, "plans": plans, "overflow": 0, "rebuild_s": 0.0, "folds": 0}
+
+    def run_segment(st, seg):
+        if args.rounds > 0:
+            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"])
+        return dist.run_until_coverage_dist(st, cfg, epoch["sg"], mesh, args.target, seg,
+                                            shard_plan=epoch["plans"]), None
+
+    def fold(st):
+        t0 = time.perf_counter()
+        st, over = rematerialize_rewired(st, cfg, remat_capacity(st, cfg))
+        epoch["folds"] += 1
+        epoch["sg"], st, _ = dist.repartition_swarm(st, mesh.size, seed=args.seed + epoch["folds"])
+        st = dist.shard_swarm(st, mesh)
+        if epoch["plans"] is not None:
+            epoch["plans"] = dist.build_shard_plans(epoch["sg"])
+        epoch["overflow"] += int(over)
+        epoch["rebuild_s"] += time.perf_counter() - t0
+        return st
+
+    state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
+    out = {"devices": mesh.size, "remat_every": args.remat_every, "remats": remats,
+           "remat_overflow_edges": epoch["overflow"],
+           "epoch_rebuild_seconds_total": round(epoch["rebuild_s"], 3)}
+    summary = _remat_summary(args, state, parts, wall, out, wall - epoch["rebuild_s"])
+    if args.rounds == 0:
+        summary["ms_per_round_amortized"] = wall / max(int(state.round), 1) * 1000.0
+    summary["transport"] = "dense"
     return summary
 
 
@@ -206,16 +389,7 @@ def _run_body(args: argparse.Namespace, cfg, state, horizon, to_target, extra: d
             fin = unpack_state(fin)
         if not args.quiet:
             M.write_jsonl(stats, sys.stdout)
-        summary = {
-            "summary": True,
-            "n_peers": args.peers,
-            "mode": args.mode,
-            "rounds_run": args.rounds,
-            "rounds_to_target": M.rounds_to_coverage(stats, args.target),
-            "final_coverage": float(stats.coverage[-1]),
-            "total_msgs": int(stats.msgs_sent.sum()),
-            **extra,
-        }
+        summary = _horizon_summary(args, stats, **extra)
         if args.digest:
             summary.update(state_digest=state_digest(fin), stats_digest=stats_digest(stats))
     else:
@@ -261,7 +435,7 @@ def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
     """--shard: partition the graph over the mesh (pads born dead), with
     --staircase build K6's plans, seed ``origins`` through the partition's
     relabelling; returns ``(cfg, state, horizon, to_target, extra summary
-    keys)``."""
+    keys, (mesh, sharded graph, plans))``."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.state import SwarmConfig
@@ -279,7 +453,7 @@ def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans)
 
-    return cfg, state, horizon, to_target, {"devices": mesh.size, "transport": "dense"}
+    return cfg, state, horizon, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans)
 
 
 if __name__ == "__main__":

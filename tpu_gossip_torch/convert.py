@@ -4,7 +4,9 @@ The JAX package's ``MatchingPlan``, ``StaircasePlan``, ``ShardedGraph``,
 ``ShardPlans``, ``SwarmState`` and ``PackedSwarm`` leaves, handed over as
 numpy arrays, become the port's dataclasses on ``device``, so the port's
 round can run on a plan or partition the JAX package built (and a state
-it seeded, packed or not).
+it seeded, packed or not, churned or folded: a re-materialized
+``col_idx`` at its capacity and live ``rewire_targets`` and
+``degree_credit`` are leaves like any other).
 :func:`to_numpy` goes the other way, giving each leaf the dtype and shape
 the JAX package stores. This module imports neither JAX nor the JAX
 package: the caller does the conversion to numpy.

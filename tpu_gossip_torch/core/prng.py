@@ -10,7 +10,13 @@ equals the JAX package's draw bit for bit:
   over the row-major flat index ``i``;
 - ``split(k, n)[i] = (x0, x1)`` of the same hash at counter ``i``;
 - ``fold_in(k, d) = threefry2x32(k, (0, d))``;
-- ``uniform`` = ``bitcast((bits >> 9) | 0x3F800000) - 1.0`` in float32.
+- ``uniform`` = ``bitcast((bits >> 9) | 0x3F800000) - 1.0`` in float32;
+- ``randint(k, shape, lo, hi)``: ``hi, lo = bits`` of ``split(k)``'s two
+  children, ``span = uint32(hi - lo)`` (1 where ``hi <= lo``),
+  ``mult = (2^16 % span)^2 % span`` and ``off = ((hi_bits % span) * mult +
+  lo_bits % span) % span``, every product and sum wrapped to 32 bits as
+  the uint32 arithmetic of ``jax.random.randint`` wraps it (so ``mult`` is
+  0 for any span of 2^16 or more).
 
 A key is an int64 tensor of shape (2,) holding two uint32 words. All word
 arithmetic runs in int64 masked to 32 bits: ``>>`` on ``torch.uint32`` is
@@ -23,7 +29,7 @@ import torch
 
 from tpu_gossip_torch.device import resolve_device
 
-__all__ = ["key", "split", "fold_in", "bits", "uniform", "key_data", "threefry2x32"]
+__all__ = ["key", "split", "fold_in", "bits", "uniform", "randint", "key_data", "threefry2x32"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -93,3 +99,20 @@ def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.uniform(k, shape)`` in float32 on [0, 1)."""
     b = (bits(k, shape) >> 9) | 0x3F800000
     return b.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32 result).
+    ``minval`` and ``maxval`` are ints or 0-d tensors on the key's device
+    (a tensor bound stays on the device: no host synchronisation)."""
+    dev = k.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    k1, k2 = split(k)
+    hi_bits, lo_bits = bits(k1, shape), bits(k2, shape)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _M32)
+    mult = (65536 % span) * (65536 % span) & _M32
+    mult = mult % span
+    off = ((hi_bits % span) * mult & _M32) + lo_bits % span
+    off = (off & _M32) % span
+    return (lo + off).to(torch.int32)

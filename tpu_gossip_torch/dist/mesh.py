@@ -20,10 +20,14 @@ device mesh and exchanges with ``all_to_all``. Here the mesh is
 axis written out as a leading dimension. Shard ``s``'s payload row ``d``
 is what it sends shard ``d``, so the exchange is the (S_src, S_dst)
 transpose of the stacked payload, and shard ``s``'s draws come from its
-own key exactly as the JAX package derives it. The exchange over NCCL with
-one process per card, the matching mesh, the sparse, auto and hier
-transports, the ``IciRound`` counters and re-wiring on this engine are a
-later slice and raise ``NotImplementedError``.
+own key exactly as the JAX package derives it. Under churn re-wiring a
+rewired sender's static out-edges carry nothing, deliveries to a rewired
+row over static edges are dropped before billing, and the rejoiners'
+fresh edges go through the local engine's ``fresh_rewire_traffic`` over
+the mesh's global state. :func:`repartition_swarm` is the epoch rebuild
+after a CSR fold. The exchange over NCCL with one process per card, the
+matching mesh, the sparse, auto and hier transports and the ``IciRound``
+counters are a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from tpu_gossip_torch.core.topology import Graph, build_csr
 from tpu_gossip_torch.device import resolve_device
 from tpu_gossip_torch.kernels.packed_ops import popcount_rows
 from tpu_gossip_torch.kernels.pallas_segment import TILE, _pad_tiles, _slot_groups, stream_segment_or, unpack_words
+from tpu_gossip_torch.sim.engine import _ratio, fresh_rewire_traffic
 from tpu_gossip_torch.sim.stages import not_ported, run_protocol_round
 
 __all__ = [
@@ -54,6 +59,7 @@ __all__ = [
     "build_shard_plans",
     "init_sharded_swarm",
     "shard_swarm",
+    "repartition_swarm",
     "gossip_round_dist",
     "simulate_dist",
     "run_until_coverage_dist",
@@ -312,6 +318,45 @@ def init_sharded_swarm(sg: ShardedGraph, relabeled: Graph, position: np.ndarray,
     return state
 
 
+def repartition_swarm(state: SwarmState, n_shards: int, *, seed: int = 0
+                      ) -> tuple[ShardedGraph, SwarmState, np.ndarray]:
+    """Re-partition a live swarm's current CSR (its capacity tail
+    trimmed) and move every per-peer plane through the new permutation into
+    the padded slot space, pads born dead as in :func:`init_sharded_swarm`.
+    Fresh targets and admitting peers are peer ids, so they map through the
+    permutation too. Host-side, once an epoch; the tables and the state
+    stay where the state lies. Returns ``(sg, new_state, position)``."""
+    n = int(state.alive.shape[0])
+    dev = state.alive.device
+    e_real = int(state.row_ptr[-1])
+    graph = Graph(n=n, row_ptr=_host(state.row_ptr).astype(np.int32),
+                  col_idx=_host(state.col_idx)[:e_real].astype(np.int32))
+    sg, relabeled, position = partition_graph(graph, n_shards, seed=seed, device=dev)
+    pos = torch.as_tensor(position, dtype=torch.int64, device=dev)
+    fills = {"declared_dead": True, "infected_round": -1, "rewire_targets": -1, "join_round": -1,
+             "admitted_by": -1}
+
+    def remap(name, x):
+        out = torch.full((sg.n_pad,) + tuple(x.shape[1:]), fills.get(name, 0), dtype=x.dtype, device=dev)
+        out[pos] = x
+        return out
+
+    def to_slot(ids):
+        return torch.where(ids >= 0, pos[torch.clamp(ids, 0, n - 1).to(torch.int64)].to(ids.dtype), ids)
+
+    state = dataclasses.replace(state, rewire_targets=to_slot(state.rewire_targets),
+                                admitted_by=to_slot(state.admitted_by))
+    updates = {
+        f.name: remap(f.name, getattr(state, f.name)) for f in dataclasses.fields(state)
+        if f.name not in ("row_ptr", "col_idx", "rng") and getattr(state, f.name).ndim >= 1
+        and getattr(state, f.name).shape[0] == n
+    }
+    new_state = dataclasses.replace(
+        state, row_ptr=torch.as_tensor(relabeled.row_ptr, device=dev).to(torch.int32),
+        col_idx=torch.as_tensor(relabeled.col_idx, device=dev).to(torch.int32), **updates)
+    return sg, new_state, position
+
+
 def shard_swarm(state, mesh: Mesh):
     """The state (SwarmState or PackedSwarm) with every tensor on the
     mesh's device; the shards are row ranges of ``per_shard`` rows."""
@@ -322,13 +367,6 @@ def shard_swarm(state, mesh: Mesh):
 
 
 # ------------------------------------------------------------ the exchange
-
-
-def _ratio(num: float, deg: torch.Tensor) -> torch.Tensor:
-    """``num / max(deg, 1)`` in float32, as JAX computes an int by int32
-    true divide (both operands converted, then one IEEE division)."""
-    d = torch.clamp(deg, min=1).to(torch.float32)
-    return torch.full_like(d, float(num)) / d
 
 
 def _uniform_rows(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
@@ -417,14 +455,27 @@ def receive(received: torch.Tensor, sg: ShardedGraph, shard_plan, m: int) -> tor
     return out[0] if s == 1 else torch.cat(out)
 
 
+def drop_blocked(received: torch.Tensor, sg: ShardedGraph, blocked_rows: torch.Tensor) -> torch.Tensor:
+    """The receiver-side stale filter: every received entry bound for a
+    ``blocked_rows`` row (a rewired slot, whose static in-edges are the
+    departed occupant's) zeroed, billing byte included, before billing."""
+    rows = (sg.recv_dst.to(torch.int64) + _shard_base(sg, received.device)).view(-1)
+    keep = ~blocked_rows[rows].view(sg.recv_dst.shape)
+    return torch.where(keep[..., None], received, 0)
+
+
 def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout: int,
-              shard_plan=None) -> tuple[torch.Tensor, torch.Tensor]:
+              shard_plan=None, blocked_rows=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One bucketed exchange; returns (incoming (n_pad, m) bool, int64
     messages). ``kind`` is the activation: push, pull, flood or the merged
-    push_pull, which carries both directions on one wire."""
+    push_pull, which carries both directions on one wire. Deliveries to
+    ``blocked_rows`` are neither delivered nor billed."""
     m = transmit.shape[1]
     active, acts = activation(sg, keys, kind, fanout)
-    received, msgs = bill(all_to_all(send_payload(transmit, sg, active, acts)), packed_width(m))
+    received = all_to_all(send_payload(transmit, sg, active, acts))
+    if blocked_rows is not None:
+        received = drop_blocked(received, sg, blocked_rows)
+    received, msgs = bill(received, packed_width(m))
     return receive(received, sg, shard_plan, m), msgs
 
 
@@ -432,32 +483,45 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
                           receptive, k_push, k_pull):
     """The bucketed engine's delivery; returns ``(incoming, msgs_sent)``.
 
-    Both keys are split once more, child 0 driving delivery (child 1 is
-    the re-wiring traffic's in the JAX package), then into one key per
-    shard. push_pull without forward_once is the merged path (one
-    exchange, the pull answer being the push transmit); with it, a push
-    and a pull exchange. Each pulling peer with neighbours bills one
-    request."""
+    Both keys are split once more, child 0 driving delivery and child 1
+    the re-wiring traffic, then into one key per shard. push_pull without
+    forward_once is the merged path (one exchange, the pull answer being
+    the push transmit); with it, a push and a pull exchange. Each pulling
+    peer with neighbours bills one request. Under re-wiring (push and
+    push_pull) rewired rows send nothing over static edges, receive
+    nothing over them, bill no static pull, and their fresh edges carry
+    ``fresh_rewire_traffic``; flood ignores re-wiring."""
     s = sg.n_shards
-    k_push = prng.split(k_push)[0]
-    k_pull = prng.split(k_pull)[0]
+    k_push, k_rw_push = prng.split(k_push)
+    k_pull, k_rw_pull = prng.split(k_pull)
+    rewiring = cfg.rewire_slots > 0 and cfg.mode in ("push", "push_pull")
+    static_tx = transmit & ~state.rewired[:, None] if rewiring else transmit
+    blocked = state.rewired if rewiring else None
+    answer = state.seen & transmitter
     merged = cfg.mode == "push_pull" and not cfg.forward_once
     incoming = torch.zeros_like(state.seen)
     msgs = torch.zeros((), dtype=torch.int64, device=transmit.device)
     if cfg.mode == "push_pull":
-        pulls = ((sg.deg > 0) & receptive.any(-1)).sum()
+        pulls = (sg.deg > 0) & receptive.any(-1)
+        if rewiring:
+            pulls = pulls & ~state.rewired
+        pulls = pulls.sum()
     if merged:
-        inc, sent = _exchange(transmit, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan)
+        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan, blocked)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode in ("push", "push_pull") and not merged:
-        inc, sent = _exchange(transmit, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan)
+        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan, blocked)
         incoming, msgs = incoming | inc, msgs + sent
     if cfg.mode == "push_pull" and not merged:
-        answer = state.seen & transmitter
-        inc, sent = _exchange(answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan)
+        static_answer = answer & ~state.rewired[:, None] if rewiring else answer
+        inc, sent = _exchange(static_answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan, blocked)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode == "flood":
         inc, sent = _exchange(transmit, sg, None, "flood", cfg.fanout, shard_plan)
+        incoming, msgs = incoming | inc, msgs + sent
+    if rewiring:
+        inc, sent = fresh_rewire_traffic(state, cfg, transmit, answer, receptive.any(-1), k_rw_push, k_rw_pull,
+                                         do_pull=cfg.mode == "push_pull")
         incoming, msgs = incoming | inc, msgs + sent
     return incoming, msgs.to(torch.int32)
 
@@ -487,8 +551,6 @@ def _check_round(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, later: dic
     for name in ("transport", "collect_ici"):
         if later.pop(name, None) not in (None, False):
             raise not_ported(f"the {name} argument", LATER)
-    if cfg.rewire_slots > 0:
-        raise not_ported("re-wiring on the bucketed engine (rewire_slots > 0)", LATER)
     if sg.n_shards != mesh.size:
         raise ValueError(f"graph partitioned for {sg.n_shards} shards but the mesh has {mesh.size}: "
                          f"repartition with partition_graph(g, {mesh.size})")

@@ -7,7 +7,11 @@ all 30 fields (planes the port does not run yet report zeros,
 (:262) with every delivery family of one device: the sampled kernel
 paths over a MatchingPlan or a StaircasePlan, the exactly-k XLA push and
 pull halves over the CSR, and flood through ``matching_flood``,
-``segment_or`` or ``flood_all``; ``advance_round`` (:821),
+``segment_or`` or ``flood_all``; the churn re-wiring delivery
+(``_substitute_rewired`` :749, ``reverse_fresh_push`` :424,
+``fresh_rewire_traffic`` :457 and its compact twin :529) and the CSR
+fold that empties it (``remat_capacity`` :616, ``rematerialize_rewired``
+:633); ``validate_rewire_width`` (:803); ``advance_round`` (:821),
 ``gossip_round`` (:1012), ``simulate`` (:1114) and ``run_until_coverage``
 (:1170). Each entry point takes a ``PackedSwarm`` too, runs the round on
 its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``.
@@ -17,25 +21,26 @@ JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``run_until_coverage`` reads its stop condition on the host once per round
 (one device synchronisation per round; a packed state's from one bit
 column). Rounds are functional: each returns
-a new state and leaves its input's planes unchanged. Churn re-wiring
-(``rewire_slots > 0``), the controller and re-materialisation belong to
-later slices and raise ``NotImplementedError``.
+a new state and leaves its input's planes unchanged. The controller
+belongs to a later slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
+from tpu_gossip_torch.core.device_topology import repeat_ids
 from tpu_gossip_torch.core.packed import is_packed
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.kernels.gossip import flood_all, pull_fanout, push_fanout, sample_fanout_targets
 from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
 from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan, segment_or, segment_sampled
-from tpu_gossip_torch.sim.stages import build_round_stages, not_ported, run_protocol_round, run_stages
+from tpu_gossip_torch.sim.stages import build_round_stages, first_rows, run_protocol_round, run_stages
 
 __all__ = [
     "RoundStats",
@@ -43,6 +48,10 @@ __all__ = [
     "transmit_bitmap",
     "kernel_path_masks",
     "validate_rewire_width",
+    "reverse_fresh_push",
+    "fresh_rewire_traffic",
+    "remat_capacity",
+    "rematerialize_rewired",
     "advance_round",
     "gossip_round",
     "simulate",
@@ -142,15 +151,6 @@ def kernel_path_masks(state: SwarmState, cfg: SwarmConfig, transmit: torch.Tenso
     return tx, answer, rec_rows
 
 
-def validate_rewire_width(state: SwarmState, cfg: SwarmConfig) -> None:
-    """Fail when the state's rewire table is narrower than the config's."""
-    if cfg.rewire_slots > state.rewire_targets.shape[1]:
-        raise ValueError(
-            f"cfg.rewire_slots={cfg.rewire_slots} exceeds the state's "
-            f"rewire_targets width {state.rewire_targets.shape[1]}"
-        )
-
-
 def _is_csr_free(state: SwarmState) -> bool:
     """A graph built without its CSR (``col_idx`` of one dummy entry)."""
     return state.col_idx.shape[0] == 1 and state.row_ptr.shape[0] > 3
@@ -165,6 +165,207 @@ def _require_csr(state: SwarmState, what: str) -> None:
         )
 
 
+def validate_rewire_width(state: SwarmState, cfg: SwarmConfig) -> None:
+    """Fail when the state's rewire table is narrower than the config's,
+    and when churn joins would draw re-wiring endpoints from a graph built
+    without its CSR (the draws would index past its one-entry ``col_idx``)."""
+    if cfg.rewire_slots > state.rewire_targets.shape[1]:
+        raise ValueError(
+            f"cfg.rewire_slots={cfg.rewire_slots} exceeds the state's "
+            f"rewire_targets width {state.rewire_targets.shape[1]}: the "
+            "checkpoint was saved with fewer slots; pad rewire_targets or "
+            "lower rewire_slots"
+        )
+    if cfg.rewire_slots > 0 and cfg.churn_join_prob > 0 and _is_csr_free(state):
+        raise ValueError(
+            "churn re-wiring needs the neighbor list: this graph was built "
+            "without a CSR export (matching_powerlaw_graph(export_csr="
+            "False)); rebuild with export_csr=True"
+        )
+
+
+def _substitute_rewired(state, cfg: SwarmConfig, tgt, valid, key):
+    """Rewired peers sample their targets from their fresh attachments
+    instead of the departed occupant's CSR row; a -1 fresh target (a
+    sentinel draw) stays invalid."""
+    soff = prng.randint(key, tuple(tgt.shape), 0, cfg.rewire_slots).to(torch.int64)
+    stgt = torch.gather(state.rewire_targets[:, : cfg.rewire_slots], 1, soff)
+    rw = state.rewired[:, None]
+    return (torch.where(rw, torch.clamp(stgt, min=0), tgt.to(stgt.dtype)),
+            torch.where(rw, stgt >= 0, valid))
+
+
+def _ratio(num: float, deg: torch.Tensor) -> torch.Tensor:
+    """``num / max(deg, 1)`` in float32, as JAX computes an int by int32
+    true divide (both operands converted, then one IEEE division)."""
+    d = torch.clamp(deg, min=1).to(torch.float32)
+    return torch.full_like(d, float(num)) / d
+
+
+def _degrees(state) -> torch.Tensor:
+    return (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
+
+
+def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key):
+    """Delivery to rejoiners along the reverse of their fresh edges: each
+    fresh target ``t`` pushes back at its per-edge rate ``fanout/deg(t)``.
+    Returns ``(incoming, msgs)``."""
+    stgt = state.rewire_targets[:, : cfg.rewire_slots]
+    tgt = torch.clamp(stgt, min=0).to(torch.int64)
+    p = _ratio(cfg.fanout, _degrees(state)[tgt])
+    fire = state.rewired[:, None] & (stgt >= 0) & (prng.uniform(key, tuple(stgt.shape)) < p)
+    back = transmit[tgt]  # (N, S, M)
+    msgs = (back.sum(-1) * fire).sum()
+    return (back & fire[:, :, None]).any(dim=1), msgs
+
+
+def _or_rows(incoming, rows, vals):
+    """``incoming.at[rows].max(vals, mode="drop")`` for bool planes, rows
+    equal to ``n`` dropped: an OR-add into a spare row."""
+    n, m = incoming.shape
+    hits = torch.zeros((n + 1, m), dtype=torch.int32, device=incoming.device)
+    hits.index_add_(0, rows.reshape(-1).to(torch.int64), vals.reshape(-1, m).to(torch.int32))
+    return incoming | (hits[:n] > 0)
+
+
+def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_any, k_push, k_pull,
+                         do_pull: bool):
+    """Delivery over the rejoiners' fresh degree-preferential edges, which
+    no static edge table carries: push to ``fanout`` draws from the fresh
+    targets, the reverse pass back (:func:`reverse_fresh_push`) and, with
+    ``do_pull``, one pull from a fresh target. Dense over every row, or
+    over a ``rewire_compact_cap``-row table of the rewired rows. Returns
+    ``(incoming, msgs)``."""
+    if cfg.rewire_compact_cap > 0:
+        return _fresh_rewire_traffic_compact(state, cfg, transmit, answer, receptive_any, k_push, k_pull,
+                                             do_pull)
+    n, s = state.rewired.shape[0], cfg.rewire_slots
+    k_push, k_rev = prng.split(k_push)
+
+    def draw(key, width):
+        soff = prng.randint(key, (n, width), 0, s).to(torch.int64)
+        stgt = torch.gather(state.rewire_targets[:, :s], 1, soff)
+        return torch.clamp(stgt, min=0), state.rewired[:, None] & (stgt >= 0)
+
+    tgt, valid = draw(k_push, cfg.fanout)
+    push_valid = valid & transmit.any(-1)[:, None]
+    incoming = push_fanout(transmit, tgt, push_valid)
+    msgs = (transmit.sum(-1) * push_valid.sum(-1)).sum()
+    rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rev)
+    incoming, msgs = incoming | rev, msgs + rev_msgs
+    if do_pull:
+        ptgt, pvalid = draw(k_pull, 1)
+        pvalid = pvalid & receptive_any[:, None]
+        incoming = incoming | pull_fanout(answer, ptgt, pvalid)
+        msgs = msgs + pvalid.sum() + (answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pvalid[:, 0]).sum()
+    return incoming, msgs
+
+
+def _fresh_rewire_traffic_compact(state, cfg: SwarmConfig, transmit, answer, receptive_any, k_push, k_pull,
+                                  do_pull: bool):
+    """:func:`fresh_rewire_traffic` over the first ``cap`` rewired rows
+    (``first_rows``, no host sync): every gather, scatter and draw runs at
+    (cap, ·); rewired rows past the cap get no fresh traffic this round."""
+    n, s = state.rewired.shape[0], cfg.rewire_slots
+    cap = min(cfg.rewire_compact_cap, n)
+    w = cfg.fanout
+    k_push, k_rev = prng.split(k_push)
+    idx, live = first_rows(state.rewired, cap)
+    tg = state.rewire_targets[idx, :s]  # (cap, S)
+    tx_rows = transmit[idx]  # (cap, M)
+    row_or_drop = torch.where(live, idx, n)
+
+    def draw(key, width):
+        soff = prng.randint(key, (cap, width), 0, s).to(torch.int64)
+        stgt = torch.gather(tg, 1, soff)
+        return torch.clamp(stgt, min=0), live[:, None] & (stgt >= 0)
+
+    tgt, valid = draw(k_push, w)
+    push_valid = valid & tx_rows.any(-1)[:, None]
+    payload = tx_rows[:, None, :] & push_valid[:, :, None]  # (cap, K, M)
+    incoming = _or_rows(torch.zeros_like(transmit), tgt, payload)
+    msgs = (tx_rows.sum(-1) * push_valid.sum(-1)).sum()
+
+    rtgt = torch.clamp(tg, min=0).to(torch.int64)
+    p = _ratio(cfg.fanout, _degrees(state)[rtgt])
+    fire = live[:, None] & (tg >= 0) & (prng.uniform(k_rev, tuple(tg.shape)) < p)
+    back = transmit[rtgt]  # (cap, S, M)
+    incoming = _or_rows(incoming, row_or_drop, (back & fire[:, :, None]).any(dim=1))
+    msgs = msgs + (back.sum(-1) * fire).sum()
+
+    if do_pull:
+        ptgt, pvalid = draw(k_pull, 1)
+        pvalid = pvalid & receptive_any[idx][:, None]
+        incoming = _or_rows(incoming, row_or_drop, pull_fanout(answer, ptgt, pvalid))
+        msgs = msgs + pvalid.sum() + (answer[ptgt[:, 0]].sum(-1) * pvalid[:, 0]).sum()
+    return incoming, msgs
+
+
+def remat_capacity(state, cfg: SwarmConfig) -> int:
+    """The fixed ``col_idx`` capacity of a re-materialization loop, taken
+    once from the pre-churn graph: one bidirectional fresh edge set per
+    peer of headroom."""
+    return int(state.col_idx.shape[0]) + 2 * int(state.alive.shape[0]) * max(cfg.rewire_slots, 1)
+
+
+def rematerialize_rewired(state: SwarmState, cfg: SwarmConfig, capacity: int):
+    """Fold the rejoiners' fresh edges into the CSR and empty ``rewired``.
+
+    Drops every stale edge (an endpoint rewired or not a member), appends
+    each rejoiner's fresh edges both ways, rebuilds the CSR by a stable
+    sort of the edge list by source row and clears ``rewired``,
+    ``rewire_targets`` and ``degree_credit``. The new ``col_idx`` has
+    ``capacity`` entries: those past ``row_ptr[-1]`` are self-loops on the
+    last row with edges. Returns ``(new_state, overflow)``, ``overflow``
+    the edges dropped because the kept set exceeded ``capacity`` (0-d
+    int32 tensor; the highest rows' edges go first). The input state is
+    left as it was; a plan over the old CSR must be rebuilt."""
+    n = state.alive.shape[0]
+    dev = state.alive.device
+    e_in = state.col_idx.shape[0]
+    s = max(cfg.rewire_slots, 1)
+    deg = state.row_ptr[1:] - state.row_ptr[:-1]
+    src_old = repeat_ids(deg, e_in).to(torch.int64)
+    in_range = torch.arange(e_in, device=dev) < state.row_ptr[-1]
+    dst_old = state.col_idx.to(torch.int64)
+    safe = torch.clamp(dst_old, 0, n - 1)
+    keep = (in_range & state.exists[src_old] & state.exists[safe]
+            & ~state.rewired[src_old] & ~state.rewired[safe])
+
+    ft = state.rewire_targets[:, :s].to(torch.int64)
+    r_ids = torch.arange(n, dtype=torch.int64, device=dev)[:, None].expand(n, s)
+    fv = state.rewired[:, None] & (ft >= 0) & (ft != r_ids)
+    t_ids = torch.clamp(ft, 0, n - 1)
+    srcs = torch.cat([torch.where(keep, src_old, n), torch.where(fv, r_ids, n).reshape(-1),
+                      torch.where(fv, t_ids, n).reshape(-1)])
+    dsts = torch.cat([dst_old, t_ids.reshape(-1), r_ids.reshape(-1)])
+    total = srcs.shape[0]
+
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, srcs, torch.ones_like(srcs))
+    row_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts[:n], 0)])
+    overflow = torch.clamp(row_ptr[-1] - capacity, min=0)
+    row_ptr = torch.clamp(row_ptr, max=capacity)
+
+    # invalid entries carry src=n, so the sort moves them to the tail,
+    # which becomes self-loops on the last row with edges
+    r_star = torch.where(counts[:n] > 0, torch.arange(n, device=dev), 0).max()
+    if total < capacity:
+        srcs = torch.cat([srcs, srcs.new_full((capacity - total,), n)])
+        dsts = torch.cat([dsts, dsts.new_zeros(capacity - total)])
+    order = torch.argsort(srcs, stable=True)[:capacity]
+    new_col = torch.where(torch.arange(capacity, device=dev) < row_ptr[-1], dsts[order], r_star)
+    new_state = dataclasses.replace(
+        state,
+        row_ptr=row_ptr.to(state.row_ptr.dtype),
+        col_idx=new_col.to(state.col_idx.dtype),
+        rewired=torch.zeros_like(state.rewired),
+        rewire_targets=torch.full_like(state.rewire_targets, -1),
+        degree_credit=torch.zeros_like(state.degree_credit),
+    )
+    return new_state, overflow.to(torch.int32)
+
+
 def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitter,
                        receptive, k_push, k_pull, plan=None):
     """Single-device dissemination; returns ``(incoming, msgs_sent)``.
@@ -173,14 +374,21 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
     StaircasePlan) carries push / push-pull through its kernel path
     (Bernoulli per edge); without one, push and pull sample exactly
     ``fanout`` and one neighbour over the CSR. Flood goes through the plan
-    when there is one, else ``flood_all``."""
+    when there is one, else ``flood_all``.
+
+    With churn re-wiring (``cfg.rewire_slots > 0``, push and push_pull)
+    the kernel paths carry the static bulk with rewired rows masked
+    (:func:`kernel_path_masks`) and the rejoiners' fresh edges go through
+    :func:`fresh_rewire_traffic`; the exactly-k path substitutes fresh
+    targets for rewired senders and pullers, drops CSR edges pointing at
+    a rewired slot, and adds the reverse pass. Flood ignores re-wiring."""
     if plan is not None and not isinstance(plan, (MatchingPlan, StaircasePlan)):
         raise TypeError(f"plan must be a MatchingPlan or StaircasePlan, got {type(plan).__name__}")
-    if cfg.rewire_slots > 0:
-        raise not_ported("fresh-edge re-wiring traffic (rewire_slots > 0)", "churn and re-wiring")
-    # the JAX engine re-splits both keys; child 0 drives delivery, child 1
-    # the re-wiring side paths (k_pull's child is drawn only where it is read)
-    k_push = prng.split(k_push)[0]
+    # the JAX engine re-splits both keys: child 0 drives delivery, child 1
+    # the re-wiring side paths
+    k_push, k_rw_push = prng.split(k_push)
+    k_pull, k_rw_pull = prng.split(k_pull)
+    rewiring = cfg.rewire_slots > 0
     sampled = cfg.mode in ("push", "push_pull")
     gates = plan is not None and (getattr(plan, "push_thresh", None) is not None
                                   or getattr(plan, "deg_other", None) is not None)
@@ -189,20 +397,37 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
             raise ValueError(f"plan built for fanout={plan.fanout} but cfg.fanout={cfg.fanout}")
         tx, answer, rec_rows = kernel_path_masks(state, cfg, transmit, transmitter, receptive)
         deliver = matching_sampled if isinstance(plan, MatchingPlan) else segment_sampled
-        return deliver(plan, tx, answer, cfg.msg_slots, k_push, receptive_rows=rec_rows,
-                       do_push=True, do_pull=cfg.mode == "push_pull")
+        incoming, msgs_sent = deliver(plan, tx, answer, cfg.msg_slots, k_push, receptive_rows=rec_rows,
+                                      do_push=True, do_pull=cfg.mode == "push_pull")
+        if rewiring:
+            fresh_inc, fresh_msgs = fresh_rewire_traffic(
+                state, cfg, transmit, state.seen & transmitter, receptive.any(-1), k_rw_push, k_rw_pull,
+                do_pull=cfg.mode == "push_pull")
+            incoming, msgs_sent = incoming | fresh_inc, _i32(msgs_sent.to(torch.int64) + fresh_msgs)
+        return incoming, msgs_sent
     msgs_sent = torch.zeros((), dtype=torch.int64, device=transmit.device)
     incoming = torch.zeros_like(state.seen)
     if sampled:
         _require_csr(state, "XLA sampled delivery")
         tgt, valid = sample_fanout_targets(k_push, state.row_ptr, state.col_idx, cfg.fanout)
+        if rewiring:
+            k_rw_push, k_rw_rev = prng.split(k_rw_push)
+            tgt, valid = _substitute_rewired(state, cfg, tgt, valid, k_rw_push)
+            # a CSR edge pointing at a rewired slot is the departed
+            # occupant's: only fresh-edge traffic reaches a rejoiner
+            valid = valid & (state.rewired[:, None] | ~state.rewired[tgt.to(torch.int64)])
+            rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rw_rev)
+            incoming, msgs_sent = incoming | rev, msgs_sent + rev_msgs
         push_valid = valid & transmit.any(-1)[:, None]
         incoming = incoming | push_fanout(transmit, tgt, push_valid)
         msgs_sent = msgs_sent + (transmit.sum(-1) * push_valid.sum(-1)).sum()
     if cfg.mode == "push_pull":
         # each live peer asks one neighbour for the responder's full seen set
         answer = state.seen & transmitter
-        ptgt, pvalid = sample_fanout_targets(prng.split(k_pull)[0], state.row_ptr, state.col_idx, 1)
+        ptgt, pvalid = sample_fanout_targets(k_pull, state.row_ptr, state.col_idx, 1)
+        if rewiring:
+            ptgt, pvalid = _substitute_rewired(state, cfg, ptgt, pvalid, k_rw_pull)
+            pvalid = pvalid & (state.rewired[:, None] | ~state.rewired[ptgt.to(torch.int64)])
         pull_ok = pvalid & receptive.any(-1)[:, None]
         incoming = incoming | pull_fanout(answer, ptgt, pull_ok)
         shipped = answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pull_ok[:, 0]
@@ -215,20 +440,23 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
         else:
             _require_csr(state, "XLA flood delivery")
             incoming = incoming | flood_all(transmit, state.row_ptr, state.col_idx)
-        deg = (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
-        msgs_sent = msgs_sent + (transmit.sum(-1) * deg).sum()
+        msgs_sent = msgs_sent + (transmit.sum(-1) * _degrees(state)).sum()
     return incoming, _i32(msgs_sent)
 
 
 def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, transmit,
-                  rnd, key, receptive, *, tail: str = "fused"):
-    """Everything after dissemination (liveness, then the one-pass slot
-    tail) and the round's stats; returns ``(new_state, RoundStats)``."""
+                  rnd, key, k_leave, k_join, receptive, *, tail: str = "fused"):
+    """Everything after dissemination (liveness, churn, then the one-pass
+    slot tail, which resets the rejoined rows) and the round's stats;
+    returns ``(new_state, RoundStats)``."""
     values = {
+        "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
         "infected_round": state.infected_round, "recovered": state.recovered,
         "alive": state.alive, "silent": state.silent, "last_hb": state.last_hb,
-        "declared_dead": state.declared_dead, "rnd": rnd,
+        "declared_dead": state.declared_dead, "rewired": state.rewired,
+        "rewire_targets": state.rewire_targets, "degree_credit": state.degree_credit,
+        "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming, "transmit": transmit,
         "receptive": receptive, "fresh": None, "expired": None,
     }
@@ -239,9 +467,9 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         infected_round=values["infected_round"], recovered=values["recovered"],
         exists=state.exists, alive=values["alive"], silent=values["silent"],
         last_hb=values["last_hb"], declared_dead=values["declared_dead"],
-        rewired=state.rewired, rewire_targets=state.rewire_targets,
+        rewired=values["rewired"], rewire_targets=values["rewire_targets"],
         fault_held=state.fault_held, join_round=state.join_round,
-        admitted_by=state.admitted_by, degree_credit=state.degree_credit,
+        admitted_by=state.admitted_by, degree_credit=values["degree_credit"],
         slot_lease=state.slot_lease, control_lvl=state.control_lvl,
         pipe_buf=state.pipe_buf, suspect_round=state.suspect_round,
         suspect_mark=state.suspect_mark, quarantine=state.quarantine,
@@ -267,6 +495,11 @@ def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = 
 
 def _stack(rows: list[RoundStats]) -> RoundStats:
     return RoundStats(*(torch.stack(col) for col in zip(*rows)))
+
+
+def _concat(parts: list[RoundStats]) -> RoundStats:
+    """Stats of consecutive horizons joined along the round axis."""
+    return RoundStats(*(torch.cat(col) for col in zip(*parts)))
 
 
 def simulate(state: SwarmState, cfg: SwarmConfig, num_rounds: int, plan=None,

@@ -17,9 +17,12 @@ it:
 The liveness stage is the bool engine's, unchanged: it reads only (N,) row
 masks, decoded once a round from the shared flags word. The key sequence is
 the bool round's, split for split, so a packed run's state and integer
-stats are bit-identical to the unpacked run's. Scenarios, growth, streams,
-control, pipelining, the quorum detector, live ingestion and churn are
-later slices and raise ``NotImplementedError``.
+stats are bit-identical to the unpacked run's. The churn stage is the bool
+engine's too (row-level; ``rewired`` rides the flags word), and the word
+tail resets the rejoined rows (``fresh``). Under churn re-wiring the
+delivery is the bool engine's on decoded planes, side paths included.
+Scenarios, growth, streams, control, pipelining, the quorum detector and
+live ingestion are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
-from tpu_gossip_torch.sim.stages import Stage, _liveness_stage, check_later, not_ported, run_stages
+from tpu_gossip_torch.sim.stages import Stage, _churn_stage, _liveness_stage, check_later, has_churn, run_stages
 
 __all__ = [
     "gossip_round_packed",
@@ -137,37 +140,39 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
 
 
 def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused") -> tuple[Stage, ...]:
-    """The packed stages of one config: the bool engine's liveness stage
-    (row-level), then the word tail."""
-    if cfg.churn_leave_prob > 0.0 or cfg.churn_join_prob > 0.0:
-        raise not_ported("churn (churn_leave_prob/churn_join_prob)", "churn and re-wiring")
-    return (_liveness_stage(cfg), _tail_stage_packed(cfg, tail, m))
+    """The packed stages of one config: the bool engine's row-level
+    liveness and churn stages, then the word tail."""
+    churn = (_churn_stage(cfg),) if has_churn(cfg) else ()
+    return (_liveness_stage(cfg), *churn, _tail_stage_packed(cfg, tail, m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
-                         rnd, key, receptive_w, *, tail: str = "fused"):
+                         rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused"):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly."""
     values = {
+        "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
         "infected_round": ps.infected_round, "recovered": ps.recovered,
         "alive": flags["alive"], "silent": flags["silent"], "last_hb": ps.last_hb,
-        "declared_dead": flags["declared_dead"], "rnd": rnd,
+        "declared_dead": flags["declared_dead"], "rewired": flags["rewired"],
+        "rewire_targets": ps.rewire_targets, "degree_credit": ps.degree_credit,
+        "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming_w, "transmit": transmit_w,
         "receptive": receptive_w, "fresh": None, "expired": None,
     }
     values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail), values)
     row_flags = dict(flags, alive=values["alive"], silent=values["silent"],
-                     declared_dead=values["declared_dead"])
+                     declared_dead=values["declared_dead"], rewired=values["rewired"])
     new_state = PackedSwarm(
         row_ptr=ps.row_ptr, col_idx=ps.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
         infected_round=values["infected_round"], recovered=values["recovered"],
         flags=pack_flags(row_flags), last_hb=values["last_hb"],
-        rewire_targets=ps.rewire_targets, fault_held=ps.fault_held,
+        rewire_targets=values["rewire_targets"], fault_held=ps.fault_held,
         join_round=ps.join_round, admitted_by=ps.admitted_by,
-        degree_credit=ps.degree_credit, slot_lease=ps.slot_lease,
+        degree_credit=values["degree_credit"], slot_lease=ps.slot_lease,
         control_lvl=ps.control_lvl, pipe_buf=ps.pipe_buf,
         suspect_round=ps.suspect_round, suspect_mark=ps.suspect_mark,
         rng=key, round=rnd, msg_slots=ps.msg_slots,
@@ -210,11 +215,12 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, *, tail: str 
     check_later(later)
     _engine.validate_rewire_width(ps, cfg)
     rnd = ps.round + 1
-    key, k_push, k_pull, _k_leave, _k_join = prng.split(ps.rng, 5)
+    key, k_push, k_pull, k_leave, k_join = prng.split(ps.rng, 5)
     flags = _decode_flags(ps)
     _active, role_w, tx_w = packed_round_head(ps, cfg, flags)
     inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull)
-    return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_w, rnd, key, role_w, tail=tail)
+    return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_w, rnd, key, k_leave, k_join, role_w,
+                                tail=tail)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):

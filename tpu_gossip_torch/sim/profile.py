@@ -4,6 +4,8 @@
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --staircase
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --packed
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --shard --staircase
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --churn-leave 0.002 \\
+        --churn-join 0.02 --rewire-slots 2 --rewire-compact-cap 65536
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -24,7 +26,15 @@ a one-shard mesh, its receive through K6 with ``--staircase`` and the
 scatter without, and the stages are the sharded round's: key splits,
 draws, send gather and payload, exchange, bill, receive, then the tail (K3,
 or K4 with ``--packed``, whose stages are then the packed round's with the
-sharded delivery). Needs a CUDA device.
+sharded delivery). The churn flags (``--churn-leave``, ``--churn-join``,
+``--rewire-slots``, ``--rewire-compact-cap``) run the warm and timed
+rounds under churn and add the churn round's own stages: ``churn_draws``
+(the churn stage: departures, rejoins, the re-wiring draws and their
+credit), ``fresh_side_paths`` (``fresh_rewire_traffic`` over the rewired
+rows) and, with ``--remat-every R`` on a CSR graph, ``remat`` (one
+``rematerialize_rewired`` fold, with ``remat_per_round`` its share of R
+rounds) and on the sharded path ``repartition`` (the epoch's
+re-partition, re-shard and K6 plans). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from tpu_gossip_torch.core.packed import pack_bits, pack_state, packed_width, un
 from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words
 from tpu_gossip_torch.sim import engine
 from tpu_gossip_torch.sim import packed_engine as pe
+from tpu_gossip_torch.sim.stages import has_churn
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -215,6 +226,38 @@ def packed_stage_times(ps, cfg, plan, reps: int, shard=None) -> dict:
     return {name: _event_ms(fn, reps) for name, fn in stages.items()}
 
 
+def churn_stage_times(state, cfg, reps: int, remat_cap: int | None, shard=None) -> dict:
+    """The churn round's own stages on an unpacked state, timed alone (ms);
+    ``shard`` (the ``(mesh, plans)`` pair) adds the epoch re-partition."""
+    from tpu_gossip_torch.sim import stages as st
+
+    _, transmitter, receptive = engine.compute_roles(state)
+    transmit = engine.transmit_bitmap(state, cfg, transmitter)
+    _, _, _, k_leave, k_join = prng.split(state.rng, 5)
+    churn = st._churn_stage(cfg)
+    values = {name: getattr(state, name) for name in churn.reads if hasattr(state, name)}
+    values.update(rnd=state.round + 1, k_leave=k_leave, k_join=k_join)
+    k_rw = prng.split(prng.split(state.rng, 5)[1])[1]
+    stages = {"churn_draws": lambda: churn.fn(st.StageView(values, churn))}
+    if cfg.rewire_slots > 0:
+        stages["fresh_side_paths"] = lambda: engine.fresh_rewire_traffic(
+            state, cfg, transmit, state.seen & transmitter, receptive.any(-1), k_rw, k_rw,
+            do_pull=cfg.mode == "push_pull")
+    if remat_cap is not None:
+        stages["remat"] = lambda: engine.rematerialize_rewired(state, cfg, remat_cap)
+    if shard is not None and remat_cap is not None:
+        mesh, plans = shard
+
+        def repartition():
+            sg, st2, _ = dist.repartition_swarm(state, mesh.size, seed=1)
+            dist.shard_swarm(st2, mesh)
+            return dist.build_shard_plans(sg) if plans is not None else sg
+
+        stages["repartition"] = repartition
+    return {name: _event_ms(fn, reps if name not in ("remat", "repartition") else max(1, reps // 10))
+            for name, fn in stages.items()}
+
+
 def trace_rounds(state, step, rounds: int) -> dict:
     """torch.profiler over ``rounds`` rounds: device time by kernel name
     (kernel rows only, so no time is counted twice) and the device's busy
@@ -247,6 +290,24 @@ def trace_rounds(state, step, rounds: int) -> dict:
     }
 
 
+def _cfg_kw(args) -> dict:
+    return dict(msg_slots=16, fanout=1, mode="push_pull", churn_leave_prob=args.churn_leave,
+                churn_join_prob=args.churn_join, rewire_slots=args.rewire_slots,
+                rewire_compact_cap=args.rewire_compact_cap)
+
+
+def _churn_keys(args) -> dict:
+    return {k: getattr(args, k) for k in ("churn_leave", "churn_join", "rewire_slots", "rewire_compact_cap",
+                                          "remat_every")}
+
+
+def _with_share(churn: dict, remat_every: int) -> dict:
+    """The churn stages, with the fold's share of ``remat_every`` rounds."""
+    if "remat" in churn:
+        churn = dict(churn, remat_per_round=churn["remat"] / remat_every)
+    return churn
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--peers", type=int, default=1_000_000)
@@ -256,6 +317,12 @@ def main(argv=None) -> int:
                    help="profile the packed round (no --staircase, except with --shard)")
     p.add_argument("--shard", action="store_true",
                    help="profile the bucketed sharded round on a one-shard mesh (--graph device or pa)")
+    p.add_argument("--churn-leave", type=float, default=0.0, help="per-round leave probability")
+    p.add_argument("--churn-join", type=float, default=0.0, help="per-round rejoin probability")
+    p.add_argument("--rewire-slots", type=int, default=0, help="fresh degree-preferential edges per rejoiner")
+    p.add_argument("--rewire-compact-cap", type=int, default=0, help="rows of the fresh side paths' table (0 = dense)")
+    p.add_argument("--remat-every", type=int, default=0,
+                   help="time one CSR fold (and, with --shard, the epoch re-partition) and its share of R rounds")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -263,6 +330,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile needs a CUDA device")
     dev = torch.device("cuda", 0)
+    if args.remat_every > 0 and (args.graph == "matching" or args.packed):
+        raise SystemExit("--remat-every folds a CSR graph's unpacked state (--graph device or pa, no --packed)")
     if args.shard:
         return main_shard(args, dev)
     n = args.peers
@@ -277,10 +346,12 @@ def main(argv=None) -> int:
         graph = topology.build_csr(n, topology.preferential_attachment(n, 3, rng=np.random.default_rng(0)))
     if args.graph != "matching" and args.staircase:
         plan = seg.build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=1, device=dev)
-    cfg = SwarmConfig(n_peers=graph.n, msg_slots=16, fanout=1, mode="push_pull")
+    cfg = SwarmConfig(n_peers=graph.n, **_cfg_kw(args))
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
+    cap = engine.remat_capacity(state, cfg) if args.remat_every > 0 else None
     state, _ = engine.simulate(state, cfg, args.warm, plan)
+    churn = churn_stage_times(state, cfg, args.reps, cap) if has_churn(cfg) else {}
     if args.packed:
         if args.staircase:
             raise SystemExit("--packed profiles the matching and exactly-k paths; drop --staircase")
@@ -292,8 +363,9 @@ def main(argv=None) -> int:
         stages = staircase_stage_times(state, cfg, plan, args.reps)
     else:
         stages = {"whole_round": _event_ms(lambda: engine.gossip_round(state, cfg, None), args.reps)}
+    stages.update(_with_share(churn, args.remat_every))
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
-                      "packed": args.packed, "stage_ms": stages}))
+                      "packed": args.packed, **_churn_keys(args), "stage_ms": stages}))
     print(json.dumps({"trace": trace_rounds(state, lambda s: engine.gossip_round(s, cfg, plan), args.rounds)}))
     return 0
 
@@ -312,18 +384,21 @@ def main_shard(args, dev) -> int:
     mesh = dist.make_mesh(device=dev)
     sg, rel, pos = dist.partition_graph(graph, mesh.size, device=dev)
     plan = dist.build_shard_plans(sg) if args.staircase else None
-    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=16, fanout=1, mode="push_pull")
+    cfg = SwarmConfig(n_peers=sg.n_pad, **_cfg_kw(args))
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = dist.shard_swarm(dist.init_sharded_swarm(sg, rel, pos, cfg, key=prng.key(0, dev), origins=origins,
                                                      device=dev), mesh)
+    cap = engine.remat_capacity(state, cfg) if args.remat_every > 0 else None
     state, _ = dist.simulate_dist(state, cfg, sg, mesh, args.warm, plan)
+    churn = churn_stage_times(state, cfg, args.reps, cap, shard=(mesh, plan)) if has_churn(cfg) else {}
     if args.packed:
         state = pack_state(state)
         stages = packed_stage_times(state, cfg, plan, args.reps, shard=(sg, mesh))
     else:
         stages = shard_stage_times(state, cfg, sg, mesh, plan, args.reps)
+    stages.update(_with_share(churn, args.remat_every))
     print(json.dumps({"graph": args.graph, "shard": True, "shards": mesh.size, "staircase": plan is not None,
-                      "packed": args.packed, "stage_ms": stages}))
+                      "packed": args.packed, **_churn_keys(args), "stage_ms": stages}))
     step = lambda s: dist.gossip_round_dist(s, cfg, sg, mesh, plan)  # noqa: E731
     print(json.dumps({"trace": trace_rounds(state, step, args.rounds)}))
     return 0
