@@ -45,7 +45,20 @@ every probe shape and ragged ones (P4 against K1 too) and timed (P1-P3
 with L2 cold, their operands fitting in L2), the four ported probe
 scripts (``tpu_gossip_torch/experiments``) run with their launches
 counted, and ``run_sim --profile-round 6`` on the 1M headline, which must
-launch K1, K2 and K3.
+launch K1, K2 and K3. Last, phase 7 drives durable checkpoints and crash
+recovery through the CLI, each run its own process, its checkpoints in a
+temporary directory: 7a the 1M headline checkpointed every 4 rounds
+(``--keep 2``), SIGKILLed once its round-8 checkpoint lands, that
+checkpoint's bytes flipped, and ``run_sim resume`` rolling back to round 4
+and finishing on the JAX pin; 7b its packed twin, uninterrupted and
+resumed from round 8; 7c the 1M churn pin resumed from round 8; 7d the
+sharded remat loop (32 rounds, a fold every 16) resumed on its epoch
+boundary, the fold and the re-partition with seed 1 replayed, 0 overflow
+edges, digest-equal to its uninterrupted run; 7e the n=20000 matching pin
+written on the card and resumed on the CPU, and the reverse. It prints the
+checkpoints' bytes and files, the seconds a save, the recovery seconds and
+the resumed run's peak memory; 7a fails if its resume holds more than its
+uninterrupted twin, at the horizon's start or at its peak.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -57,6 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1226,6 +1240,238 @@ def run_profile_round(card: str, n: int) -> dict:
     return summary
 
 
+# ------------------------------------------------------------ phase 7: checkpoints
+
+CKPT_WROTE = re.compile(r"checkpoint: wrote (ckpt-\d{8}) \((\d+) bytes, (\d+) files\) in ([0-9.]+) s")
+CKPT_RECOVERED = re.compile(r"resume: recovered in ([0-9.]+) s \((.*)\)")
+CKPT_PEAK = re.compile(r"checkpoint: device peak max_memory_allocated (\d+) B \(the build (\d+) B; the horizon "
+                       r"(\d+) B, from (\d+) B allocated at its start\)")
+CKPT_FOLD = re.compile(r"remat: fold at round (\d+), (\d+) overflow edges, re-partition seed (\d+)")
+
+
+def cli_start(root: Path, argv: list[str]) -> subprocess.Popen:
+    """``python -m tpu_gossip_torch.cli.run_sim argv`` started in its own
+    process."""
+    return subprocess.Popen([sys.executable, "-m", "tpu_gossip_torch.cli.run_sim", *argv], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_finish(proc: subprocess.Popen, what: str) -> tuple[dict, str]:
+    """Wait for a :func:`cli_start` process; fails unless it exits 0.
+    Returns the summary (its last stdout line) and its stderr."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: run_sim {' '.join(proc.args[3:])} exited {proc.returncode}: {err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1]), err
+
+
+def cli_run(root: Path, argv: list[str], what: str) -> tuple[dict, str]:
+    """One run_sim process, start to end."""
+    return cli_finish(cli_start(root, argv), what)
+
+
+def check_pin(summary: dict, pin: dict, what: str) -> None:
+    for k, want in pin["summary"].items():
+        if summary[k] != want:
+            raise AssertionError(f"{what}: {k} {summary[k]} != the JAX pin's {want} ({pin['source']})")
+
+
+def ckpt_saves(err: str) -> list[dict]:
+    """The checkpoints a run's stderr says it wrote: name, bytes, files,
+    seconds."""
+    return [dict(name=m.group(1), bytes=int(m.group(2)), files=int(m.group(3)), seconds=float(m.group(4)))
+            for m in CKPT_WROTE.finditer(err)]
+
+
+def device_peak(err: str, what: str) -> dict:
+    """A durable run's device peak from its stderr: the whole run's, the
+    build's, the horizon's and the bytes allocated as the horizon began."""
+    m = CKPT_PEAK.search(err)
+    if m is None:
+        raise AssertionError(f"{what}: the run logged no device peak: {err[-2000:]}")
+    return dict(zip(("peak", "build", "horizon", "start"), (int(g) for g in m.groups())))
+
+
+def peak_text(p: dict) -> str:
+    return (f"max_memory_allocated {p['peak']} B (build {p['build']} B, horizon {p['horizon']} B from "
+            f"{p['start']} B allocated at its start)")
+
+
+def recovery(err: str, resumed_from: str, what: str) -> dict:
+    """A resume's stderr: it must have resumed from ``resumed_from``;
+    returns its recovery seconds (and their parts) and its device peak."""
+    if f"resume: {resumed_from} at round" not in err:
+        raise AssertionError(f"{what}: the resume did not start from {resumed_from}: {err[-2000:]}")
+    rec = CKPT_RECOVERED.search(err)
+    if rec is None:
+        raise AssertionError(f"{what}: the resume logged no recovery time: {err[-2000:]}")
+    return dict(seconds=float(rec.group(1)), parts=rec.group(2), peak=device_peak(err, what))
+
+
+def ckpt_line(card: str, what: str, saves: list[dict], rec: dict, extra: str = "") -> str:
+    secs = [s["seconds"] for s in saves]
+    return (f"[{card}] {what}: checkpoints {[s['name'] for s in saves]}, {saves[0]['bytes']} B in "
+            f"{saves[0]['files']} files each ({[s['bytes'] for s in saves]} B), seconds a save {secs} (mean "
+            f"{sum(secs) / len(secs)}), recovery {rec['seconds']} s ({rec['parts']}), resumed run's "
+            f"{peak_text(rec['peak'])}{extra}")
+
+
+def kill_at(root: Path, argv: list[str], line: str) -> str:
+    """Run ``run_sim argv`` and SIGKILL it as soon as its stderr logs
+    ``line``; returns the stderr it logged. Fails if the run ends first."""
+    proc = subprocess.Popen([sys.executable, "-m", "tpu_gossip_torch.cli.run_sim", *argv], cwd=root,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    seen = []
+    try:
+        for got in proc.stderr:
+            seen.append(got)
+            if line in got:
+                proc.kill()
+                break
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        proc.stderr.close()
+    if not seen or line not in seen[-1]:
+        raise AssertionError(f"the run ended before it logged {line!r}: {''.join(seen)[-2000:]}")
+    return "".join(seen)
+
+
+def phase_checkpoints(root: Path, card: str, headline_peak: int) -> dict:
+    """Phase 7: durable checkpoints and crash recovery through the CLI, each
+    run its own process, at 1M peers (7e at 20000): 7a a checkpointed
+    headline SIGKILLed after its round-8 checkpoint, that checkpoint
+    corrupted, resumed from round 4 onto the JAX pin, its device memory held
+    to the same run's uninterrupted; 7b its packed twin,
+    uninterrupted and resumed from round 8; 7c the churn pin resumed from
+    round 8; 7d the sharded remat loop resumed on its epoch boundary (the
+    fold and the re-partition with seed + 1 replayed, 0 overflow edges),
+    digest-equal to its uninterrupted run; 7e checkpoints written on the
+    card resumed on the CPU and the reverse. Returns the figures by phase."""
+    import shutil
+    import tempfile
+
+    from tpu_gossip_torch.ckpt import corrupt_checkpoint, list_checkpoint_steps, verify_checkpoint
+
+    refs = json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+    headline = [r for r in refs if "1000000" in r["argv"] and "--churn-join" not in r["argv"]][0]
+    churn = [r for r in refs if "1000000" in r["argv"] and "--churn-join" in r["argv"]][0]
+    small = refs[0]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
+        tmp = Path(tmp)
+
+        # 7a: SIGKILL once ckpt-8 lands, flip a byte of it, resume from ckpt-4
+        t0 = time.perf_counter()
+        d = tmp / "7a"
+        err = kill_at(root, headline["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--keep", "2"],
+                      "checkpoint: wrote ckpt-00000008")
+        saves = ckpt_saves(err)
+        later = [p for step, p in list_checkpoint_steps(d) if step > 8 and (p / "MANIFEST.json").is_file()]
+        if later:
+            raise AssertionError(f"7a: the kill came after a later checkpoint landed: {later}")
+        verify_checkpoint(d / "ckpt-00000008")
+        corrupt_checkpoint(d / "ckpt-00000008", "flip_byte")
+        summary, err = cli_run(root, ["resume", str(d)], "7a resume")
+        if "checkpoint: rolling back past ckpt-00000008" not in err:
+            raise AssertionError(f"7a: the resume logged no rollback past the corrupted ckpt-00000008: {err[-2000:]}")
+        check_pin(summary, headline, "7a resume")
+        rec = recovery(err, "ckpt-00000004", "7a")
+        # the same checkpointed run uninterrupted: the peak a resume is held to
+        full, err = cli_run(root, headline["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir",
+                                                      str(tmp / "7a-full"), "--keep", "2"], "7a uninterrupted")
+        check_pin(full, headline, "7a uninterrupted")
+        twin = device_peak(err, "7a uninterrupted")
+        # a second device copy of the state left by the load would add its 166 MB at the horizon's start
+        for k in ("start", "horizon"):
+            if rec["peak"][k] > twin[k] + (16 << 20):
+                raise AssertionError(f"7a: the resumed run's {k} bytes {rec['peak'][k]} exceed the uninterrupted "
+                                     f"run's {twin[k]} by more than 16 MiB")
+        out["7a"] = dict(saves=saves, recovery=rec, uninterrupted_peak=twin, seconds=time.perf_counter() - t0)
+        print(ckpt_line(card, "7a headline, SIGKILL after ckpt-00000008, flipped byte, resumed from ckpt-00000004",
+                        saves, rec, f"; the same run uninterrupted {peak_text(twin)}; 4a's, plan build included: "
+                        f"{headline_peak} B; digests equal the JAX pin; {out['7a']['seconds']:.2f} s"), flush=True)
+
+        # 7b: the packed twin, uninterrupted, then resumed from round 8
+        t0 = time.perf_counter()
+        d = tmp / "7b"
+        full, err = cli_run(root, headline["argv"] + ["--packed", "--checkpoint-every", "4", "--checkpoint-dir",
+                                                      str(d)], "7b")
+        saves = ckpt_saves(err)
+        check_pin(full, headline, "7b uninterrupted")
+        shutil.rmtree(d / "ckpt-00000012")
+        summary, err = cli_run(root, ["resume", str(d)], "7b resume")
+        check_pin(summary, headline, "7b resume")
+        rec = recovery(err, "ckpt-00000008", "7b")
+        out["7b"] = dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0)
+        print(ckpt_line(card, "7b packed headline, resumed from ckpt-00000008", saves, rec,
+                        f"; both runs' digests equal the JAX pin; {out['7b']['seconds']:.2f} s"), flush=True)
+
+        # 7c: the churn headline, uninterrupted, then resumed from round 8
+        t0 = time.perf_counter()
+        d = tmp / "7c"
+        full, err = cli_run(root, churn["argv"] + ["--checkpoint-every", "8", "--checkpoint-dir", str(d)], "7c")
+        saves = ckpt_saves(err)
+        check_pin(full, churn, "7c uninterrupted")
+        summary, err = cli_run(root, ["resume", str(d)], "7c resume")
+        check_pin(summary, churn, "7c resume")
+        rec = recovery(err, "ckpt-00000008", "7c")
+        out["7c"] = dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0)
+        print(ckpt_line(card, "7c churn headline, resumed from ckpt-00000008", saves, rec,
+                        f"; both runs' digests equal the JAX pin; {out['7c']['seconds']:.2f} s"), flush=True)
+
+        # 7d: the sharded remat loop, resumed on its epoch boundary (round 16)
+        t0 = time.perf_counter()
+        d = tmp / "7d"
+        argv = ["--peers", "1000000", "--mode", "push_pull", "--fanout", "1", "--seed", "0", "--graph", "chung-lu",
+                "--shard", "--staircase", "--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2",
+                "--remat-every", "16", "--rounds", "32", "--digest", "--quiet"]
+        full, err_full = cli_run(root, argv + ["--checkpoint-every", "16", "--checkpoint-dir", str(d)], "7d")
+        saves = ckpt_saves(err_full)
+        summary, err = cli_run(root, ["resume", str(d)], "7d resume")
+        rec = recovery(err, "ckpt-00000016", "7d")
+        folds = [tuple(int(g) for g in m.groups()) for m in CKPT_FOLD.finditer(err)]
+        if folds != [(16, 0, 1)] or [tuple(int(g) for g in m.groups()) for m in CKPT_FOLD.finditer(err_full)] != folds:
+            raise AssertionError(f"7d: the folds (round, overflow edges, seed) were {folds}, need [(16, 0, 1)] in "
+                                 "both runs")
+        timing = ("wall_seconds",)
+        if {k: v for k, v in summary.items() if k not in timing} != {k: v for k, v in full.items() if k not in timing}:
+            raise AssertionError(f"7d: the resumed summary {summary} != the uninterrupted one {full}")
+        out["7d"] = dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0, digest=summary["state_digest"])
+        print(ckpt_line(card, "7d sharded remat loop, resumed from ckpt-00000016 (fold replayed, re-partition "
+                        "seed 1, 0 overflow edges)", saves, rec,
+                        f"; digests equal the uninterrupted run's ({summary['state_digest']}); "
+                        f"{out['7d']['seconds']:.2f} s"), flush=True)
+
+        # 7e: n=20000, written on the card and resumed on the CPU, and the
+        # reverse (the two directions' processes side by side: nothing timed)
+        t0 = time.perf_counter()
+        legs = (("card->cpu", "cuda", "cpu"), ("cpu->card", "cpu", "cuda"))
+        writes = [cli_start(root, small["argv"] + ["--checkpoint-every", "8", "--checkpoint-dir",
+                                                   str(tmp / f"7e-{w}"), "--device", w]) for _n, w, _r in legs]
+        for (name, _w, _r), proc in zip(legs, writes):
+            cli_finish(proc, f"7e {name} write")
+        resumes = []
+        for name, write_on, resume_on in legs:
+            shutil.rmtree(tmp / f"7e-{write_on}" / "ckpt-00000016")
+            resumes.append(cli_start(root, ["resume", str(tmp / f"7e-{write_on}"), "--device", resume_on]))
+        for (name, _w, _r), proc in zip(legs, resumes):
+            summary, err = cli_finish(proc, f"7e {name} resume")
+            if "resume: ckpt-00000008 at round" not in err:
+                raise AssertionError(f"7e {name}: the resume did not start from ckpt-00000008")
+            check_pin(summary, small, f"7e {name}")
+        out["7e"] = dict(seconds=time.perf_counter() - t0)
+        print(f"[{card}] 7e n=20000: ckpt-00000008 written on the card resumed on the CPU, and written on the CPU "
+              f"resumed on the card, both onto the JAX pin; {out['7e']['seconds']:.2f} s", flush=True)
+    return out
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -1495,6 +1741,11 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
             "library_ms": t["library_ms"],
         })
         print(f"{probe_line(card, name, t)}, launches in its script {probe_launches[key]}", flush=True)
+
+    # phase 7: durable checkpoints and crash recovery through the CLI (7a-7e)
+    t0 = time.perf_counter()
+    phase_checkpoints(root, card, peak)
+    print(f"[{card}] phase 7: {time.perf_counter() - t0:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

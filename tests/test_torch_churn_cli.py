@@ -3,7 +3,8 @@ chip_smoke.py drives at 1M (matching with a compact side-path table, its
 packed twin, the staircase and exactly-k paths with dense side paths, the
 staircase remat loop, the sharded K6 path and its scatter twin, the
 sharded remat loop) prints the JAX summary, digests and remat counts
-included, at n=2000, and the refusals exit 2 where the JAX CLI's do."""
+included, at n=2000, the refusals exit 2 where the JAX CLI's do, and the
+checkpointed remat loops resume across the packages."""
 
 import pytest
 
@@ -78,9 +79,18 @@ def test_churn_cli_refusals_exit_2_like_jax(capsys, argv, says):
     ["--checkpoint-every", "4", "--checkpoint-dir", "ck", "--remat-every", "4"],
     ["--shard", "--checkpoint-every", "4", "--checkpoint-dir", "ck", "--remat-every", "4"],
 ])
-def test_checkpointed_remat_is_not_ported(capsys, argv):
+def test_checkpointed_remat_is_not_ported(capsys, tmp_path, one_shard, argv):
+    """The checkpointed remat loops, local and sharded: each runs with the
+    JAX CLI's summary, and its epoch-boundary checkpoint (round 4, before
+    the fold) resumes in either package onto the same digests."""
     full = ["--peers", "300", "--graph", "chung-lu", "--rounds", "8", "--churn-join", "0.1", "--rewire-slots", "2",
-            *argv, "--device", "cpu"]
-    assert tcli.main(full) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "item 8" in err
+            "--digest", *argv]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    want, _ = _summary(capsys, jcli.main, [jdir if a == "ck" else a for a in full])
+    got, _ = _summary(capsys, tcli.main, [tdir if a == "ck" else a for a in full] + ["--device", "cpu"])
+    for k in TIMING:
+        got.pop(k, None), want.pop(k, None)
+    assert got == want and got["remats"] == 1
+    for main, d, extra in ((tcli.main, jdir, ["--device", "cpu"]), (jcli.main, tdir, [])):
+        res, _ = _summary(capsys, main, ["resume", d, *extra])
+        assert (res["state_digest"], res["stats_digest"]) == (want["state_digest"], want["stats_digest"])

@@ -127,7 +127,7 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--graph", "chung-lu", "--silent-frac", "0.1", "--device", "cpu"],
-    ["--graph", "pa", "--checkpoint-every", "5", "--device", "cpu"],
+    ["--graph", "pa", "--scenario", "s.toml", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
     ["--graph", "matching", "--churn-leave", "0.1", "--grow", "200", "--device", "cpu"],
 ])

@@ -595,3 +595,50 @@ def test_churn_digest_on_card_equals_cpu(dev, argv):
     for summary in (card, cpu):
         summary.pop("epoch_rebuild_seconds_total", None)
     assert card == cpu
+
+
+def _ckpt_swarm(dev, n=4000):
+    """A churned Chung-Lu swarm after 6 rounds on ``dev``, and its config."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core import topology as tt
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.sim import engine
+
+    deg = tt.powerlaw_degree_sequence(n, rng=np.random.default_rng(3))
+    g = tt.build_csr(n, tt.configuration_model(deg, rng=np.random.default_rng(4)))
+    cfg = SwarmConfig(n_peers=n, msg_slots=16, mode="push_pull", fanout=1, **CHURN)
+    st = init_swarm(g, cfg, key=prng.key(1, dev), origins=[0, 7, 99], device=dev)
+    return cfg, engine.simulate(st, cfg, 6)[0]
+
+
+def _save_load(form, st, tmp_path, to):
+    from tpu_gossip_torch.ckpt import load_checkpoint, save_checkpoint
+    from tpu_gossip_torch.core.packed import pack_state
+    from tpu_gossip_torch.core.state import load_swarm, save_swarm
+
+    if form == "flat npz":
+        save_swarm(tmp_path / "st.npz", st)
+        return load_swarm(tmp_path / "st.npz", device=to)
+    save_checkpoint(tmp_path, pack_state(st) if form == "packed checkpoint" else st, step=6, shards=3)
+    return load_checkpoint(tmp_path / "ckpt-00000006", device=to)[0]
+
+
+@pytest.mark.parametrize("form", ["checkpoint", "packed checkpoint", "flat npz"])
+@pytest.mark.parametrize("written_on", ["cuda", "cpu"])
+def test_checkpoint_crosses_card_and_cpu_leaf_equal(dev, tmp_path, form, written_on):
+    """A state saved from the card loads onto the CPU leaf for leaf, and the
+    reverse; both copies then run on to equal digests, each on its device."""
+    from tpu_gossip_torch.convert import to_numpy
+    from tpu_gossip_torch.sim import engine
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    other = "cpu" if written_on == "cuda" else "cuda"
+    cfg, st = _ckpt_swarm(torch.device(written_on))
+    back = _save_load(form, st, tmp_path, other)
+    assert back.seen.device.type == other
+    want, got = to_numpy(st), to_numpy(back)
+    for name, arr in want.items():
+        assert got[name].dtype == arr.dtype and np.array_equal(got[name], arr), name
+    fin_a, stats_a = engine.simulate(st, cfg, 4)
+    fin_b, stats_b = engine.simulate(back, cfg, 4)
+    assert state_digest(fin_a) == state_digest(fin_b)

@@ -13,7 +13,10 @@ the 128-lane row shuffle (K1), the plane fold (K2), the round tail (K3),
 the packed word tail (K4), the staircase segment OR (K5) and its
 streaming form, the sharded engine's receive (K6). It
 is held bit for bit against the JAX package through
-``state_digest``/``stats_digest``. It imports neither JAX nor the JAX
+``state_digest``/``stats_digest``. ``tpu_gossip_torch.ckpt`` writes and
+reads the JAX package's durable checkpoints (``run_sim
+--checkpoint-every``, ``run_sim resume``), so a run either package
+checkpointed, the other finishes. It imports neither JAX nor the JAX
 package.
 
 Entry points take ``device`` and default to ``"cuda"``; pass

@@ -13,6 +13,10 @@
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph matching --churn-leave 0.002 --churn-join 0.02 \\
         --rewire-slots 2 --rewire-compact-cap 65536 --rounds 16 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph matching --rounds 16 --checkpoint-every 4 \\
+        --checkpoint-dir D --keep 2
+    python -m tpu_gossip_torch.cli.run_sim resume D
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -39,17 +43,24 @@ swarm and rebuilding K6's plans. The summary keys are the JAX CLI's.
 ``--profile-round R`` advances R rounds of the local unpacked engine and
 prints the slope-timed stage decomposition of its round instead
 (``utils/profiling.py``); ``--profile DIR`` records a ``torch.profiler``
-trace of the run. Runs on ``--device cuda`` unless told otherwise; every
-other flag of the JAX CLI is not ported yet and exits 2 (the checkpoint
-flags, the checkpointed remat loops among them, come with the checkpoint
-slice).
+trace of the run. ``--checkpoint-every K --checkpoint-dir D`` writes a
+durable checkpoint every K rounds of a fixed horizon (``ckpt/``: sharded
+atomic files, the manifest written last) on every engine, the remat loops
+included, and ``run_sim resume D`` finishes the run from the newest
+complete checkpoint, rolling back past torn ones, on the same final state
+and integer stats as the uninterrupted run, whichever package wrote the
+checkpoint; ``--checkpoint F`` saves the final state as one npz
+(``save_swarm``). Runs on ``--device cuda`` unless told otherwise; every
+other flag of the JAX CLI is not ported yet and exits 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import time
 
 import numpy as np
 
@@ -57,9 +68,31 @@ _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
-    "included (later slices add faults, growth, streams, control, checkpoints, "
-    "fleets, the sharded matching engine and the multi-card exchange)"
+    "included, with checkpoints and resume (later slices add faults, growth, streams, "
+    "control, fleets, the sharded matching engine and the multi-card exchange)"
 )
+_ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded matching engine (ROADMAP item 11b)",
+                              "multi-process (ROADMAP item 11c)")
+# the JAX CLI's flags the port has not ported: the JAX parser's default of
+# each (the only value a JAX checkpoint's run section may hold for it here)
+# and the slice that brings it
+JAX_FLAG_DEFAULTS = {
+    "silent_frac": (0.0, _ITEM9), "scenario": ("", _ITEM9),
+    "grow": (0, _ITEM9), "grow_rate": (0, _ITEM9), "grow_capacity": (0, _ITEM9),
+    "stream": (0.0, _ITEM9), "stream_origins": ("uniform", _ITEM9), "slot_ttl": (0, _ITEM9),
+    "stream_hashes": (1, _ITEM9), "stream_burst_every": (0, _ITEM9), "stream_burst_mult": (4.0, _ITEM9),
+    "stream_hot_frac": (0.01, _ITEM9), "stream_hot_weight": (0.9, _ITEM9),
+    "control": (0.0, _ITEM9), "control_bounds": ("", _ITEM9), "refresh_every": (0, _ITEM9),
+    "quorum_k": (None, _ITEM9), "suspicion_window": (None, _ITEM9), "accusation_budget": (None, _ITEM9),
+    "transport": ("dense", _ITEM11B), "builder": ("local", _ITEM11B),
+    "pipeline": (None, _ITEM11C), "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
+    "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
+}
+# layout facts a manifest records beside the args, and the JAX validators' extras
+_KNOWN_EXTRA = {"devices", "control_lo", "control_hi"}
+# port flags no manifest records: the JAX CLI has no --device, and a trace
+# directory is this process's
+_UNRECORDED = ("device", "profile")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,68 +151,329 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--digest", action="store_true",
                    help="add state_digest/stats_digest to a fixed-horizon summary")
     p.add_argument("--quiet", action="store_true", help="summary line only, no per-round JSONL")
+    p.add_argument("--checkpoint", type=str, default="", help="save the final SwarmState to this .npz")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                   help="durable periodic checkpoints (ckpt/): every K rounds of a fixed --rounds horizon, a "
+                   "sharded atomic checkpoint (temp file and rename a file, the manifest with sha256 digests "
+                   "written last) into --checkpoint-dir; `run_sim resume D` finishes the run from the newest "
+                   "complete one on the same final state and integer stats. With --shard --remat-every R, K "
+                   "must be a multiple of R")
+    p.add_argument("--checkpoint-dir", type=str, default="", metavar="D",
+                   help="directory the periodic checkpoints land in (one ckpt-<round> subdirectory each)")
+    p.add_argument("--keep", type=int, default=0, metavar="N",
+                   help="prune all but the newest N checkpoints after each save (0 = keep all)")
+    p.add_argument("--checkpoint-shards", type=int, default=0, metavar="S",
+                   help="file-level shard count a checkpoint (a storage choice: any S loads into the same "
+                   "state). Default: the mesh size under --shard, else 1")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] == "resume" or any(a.startswith("--checkpoint") for a in argv):
-        from tpu_gossip_torch.sim.stages import not_ported
-
-        print(str(not_ported("checkpointing (--checkpoint, --checkpoint-every, resume; the checkpointed remat "
-                             "loops among them)", "checkpoints (ROADMAP item 8)")), file=sys.stderr)
-        return 2
+    if argv and argv[0] == "resume":
+        return _main_resume(argv[1:])
     args, unknown = build_parser().parse_known_args(argv)
     if unknown:
         print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
         return 2
+    return _run(args)
+
+
+def _refusal(args: argparse.Namespace) -> str | None:
+    """The reason a flag combination cannot run (exit 2), or None."""
+    ckpt_err = _validate_ckpt(args)
+    if ckpt_err:
+        return ckpt_err
     if args.packed and args.remat_every > 0:
-        print("--packed cannot compose with --remat-every: the epoch fold (rematerialize_rewired / "
-              "re-partition) rebuilds the unpacked CSR between segments; run the remat loop unpacked",
-              file=sys.stderr)
-        return 2
+        return ("--packed cannot compose with --remat-every: the epoch fold (rematerialize_rewired / "
+                "re-partition) rebuilds the unpacked CSR between segments; run the remat loop unpacked")
     if args.graph == "matching" and args.remat_every > 0 and not args.shard:
-        print("--graph matching cannot re-materialize locally (its pairing IS the delivery plan: a folded CSR "
-              "has no pipeline); use --shard, whose remat path falls back to the bucketed-CSR engine on the "
-              "exported CSR", file=sys.stderr)
-        return 2
+        return ("--graph matching cannot re-materialize locally (its pairing IS the delivery plan: a folded CSR "
+                "has no pipeline); use --shard, whose remat path falls back to the bucketed-CSR engine on the "
+                "exported CSR")
     if args.shard and args.tail != "fused":
-        print(f"--tail {args.tail} selects the LOCAL engine's tail implementation; the sharded engines "
-              "always run the fused tail", file=sys.stderr)
-        return 2
+        return (f"--tail {args.tail} selects the LOCAL engine's tail implementation; the sharded engines "
+                "always run the fused tail")
     if args.profile_round > 0 and args.shard:
-        print("--profile-round decomposes the LOCAL round (use tpu_gossip_torch/experiments/dist_profile.py "
-              "for the sharded engine)", file=sys.stderr)
-        return 2
+        return ("--profile-round decomposes the LOCAL round (use tpu_gossip_torch/experiments/dist_profile.py "
+                "for the sharded engine)")
     if args.profile_round > 0 and args.packed:
-        print("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
-              "boundary codec: drop --packed for the decomposition", file=sys.stderr)
-        return 2
+        return ("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
+                "boundary codec: drop --packed for the decomposition")
+    return None
+
+
+def _run(args: argparse.Namespace, resume: "_Resume | None" = None) -> int:
+    """The run body behind ``main`` and ``resume``: validate, run, print
+    the summary, then save ``--checkpoint``; the exit code out."""
     from tpu_gossip_torch.device import resolve_device
 
+    err = _refusal(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
     try:
         resolve_device(args.device)
     except RuntimeError as e:
         print(str(e), file=sys.stderr)
         return 2
     try:
-        summary = run(args)
+        summary, fin = _execute(args, resume)
     except NotImplementedError as e:  # a part of a later slice (not_ported), e.g. --shard on several cards
         print(str(e), file=sys.stderr)
         return 2
     print(json.dumps(summary))
+    if args.checkpoint and fin is not None:
+        from tpu_gossip_torch.core.state import save_swarm
+
+        save_swarm(args.checkpoint, fin)
     return 0
+
+
+@dataclasses.dataclass
+class _Resume:
+    """A loaded checkpoint on its way into a rebuilt run: the state (on the
+    host until the swap), the stats prefix, the manifest, and the
+    recovery's clock (its start, and the seconds of ``latest_complete``
+    and ``load_checkpoint``)."""
+
+    state: object
+    prefix: dict | None
+    manifest: dict
+    t0: float
+    scan_s: float
+    load_s: float
+
+
+def _main_resume(argv: list[str]) -> int:
+    """``run_sim resume D``: crash recovery from the newest complete
+    checkpoint under ``D``, rolling back past torn or corrupt ones with a
+    logged reason. The run config recorded in the manifest rebuilds the
+    graph and plans (deterministic in the seed), the checkpointed state
+    replaces the fresh one, and the horizon finishes bit-identically to the
+    uninterrupted run, the digests in the summary. A manifest either
+    package wrote is read; a recorded flag the port has not ported is
+    accepted only at the JAX CLI's default."""
+    from tpu_gossip_torch.ckpt import CheckpointError, latest_complete, load_checkpoint
+    from tpu_gossip_torch.device import resolve_device
+    from tpu_gossip_torch.sim.stages import not_ported
+
+    p = argparse.ArgumentParser(prog="run_sim resume", description="Resume a checkpointed run bit-exactly")
+    p.add_argument("directory", help="the run's --checkpoint-dir")
+    p.add_argument("--quiet", action="store_true", help="summary line only (overrides the recorded flag)")
+    p.add_argument("--local", action="store_true",
+                   help="restore a --shard --graph matching checkpoint into the local engine")
+    p.add_argument("--hosts", type=int, default=-1, metavar="H", help="re-fold a sharded run's mesh over H hosts")
+    p.add_argument("--lane", type=int, default=-1, metavar="K", help="fleet checkpoints: resume lane K")
+    p.add_argument("--solo", action="store_true", help="with --lane K: finish lane K unbatched")
+    p.add_argument("--device", default="cuda", help="torch device the run finishes on (cuda or cpu)")
+    rargs = p.parse_args(argv)
+    refused = None
+    if rargs.local:
+        refused = not_ported("run_sim resume --local (a sharded matching checkpoint into the local engine)",
+                             _ITEM11B)
+    elif rargs.hosts >= 1:
+        refused = not_ported("run_sim resume --hosts (a sharded checkpoint re-folded over hosts)", _ITEM11C)
+    elif rargs.lane >= 0 or rargs.solo:
+        refused = not_ported("run_sim resume --lane/--solo (a fleet checkpoint's lane)", "fleet (ROADMAP item 10)")
+    if refused is not None:
+        print(str(refused), file=sys.stderr)
+        return 2
+    try:
+        resolve_device(rargs.device)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    try:
+        path, manifest = latest_complete(rargs.directory, log=_stderr_log)
+    except CheckpointError as e:
+        print(f"resume: {e}", file=sys.stderr)
+        return 2
+    scan_s = time.perf_counter() - t0
+    run_cfg = manifest.get("run")
+    if not run_cfg:
+        print("resume: the checkpoint manifest carries no run config (library-written checkpoint?) — resume "
+              "rebuilds the run from the manifest's `run` section", file=sys.stderr)
+        return 2
+    if manifest.get("kind") == "fleet":
+        print(str(not_ported("resuming a kind='fleet' checkpoint (a fleet campaign)", "fleet (ROADMAP item 10)")),
+              file=sys.stderr)
+        return 2
+    base = vars(build_parser().parse_args([]))
+    stale = []
+    for key, value in run_cfg.items():
+        if key in base or key in _KNOWN_EXTRA:
+            continue
+        if key in JAX_FLAG_DEFAULTS:
+            default, item = JAX_FLAG_DEFAULTS[key]
+            if value != default:
+                flag = "--" + key.replace("_", "-")
+                print(str(not_ported(f"{flag} {value!r} (recorded in the checkpoint's run section)", item)),
+                      file=sys.stderr)
+                return 2
+            continue
+        stale.append(key)
+    args = argparse.Namespace(**{**base, **{k: v for k, v in run_cfg.items() if k in base}})
+    args.device = rargs.device
+    if stale:
+        print(f"resume: manifest records unknown args {sorted(stale)} (ignored beyond layout checks)",
+              file=sys.stderr)
+    args.quiet = bool(rargs.quiet or args.quiet)
+    print(f"resume: {path.name} at round {manifest['round']} of {args.rounds} ({manifest.get('kind', 'run')})",
+          file=sys.stderr)
+    try:
+        t1 = time.perf_counter()
+        state, prefix, _ = load_checkpoint(path, manifest=manifest, device="cpu")
+        resume = _Resume(state, prefix, manifest, t0, scan_s, time.perf_counter() - t1)
+        del state
+        return _run(args, resume=resume)
+    except (CheckpointError, ValueError) as e:
+        print(f"resume: {e}", file=sys.stderr)
+        return 2
+
+
+def _validate_ckpt(args: argparse.Namespace) -> str | None:
+    """The reason a checkpoint config cannot run (the JAX CLI's wording),
+    or None."""
+    if args.checkpoint_every < 0:
+        return "--checkpoint-every must be >= 0"
+    if args.checkpoint_every == 0:
+        set_flags = [name for name, dflt in (("--checkpoint-dir", args.checkpoint_dir == ""),
+                                             ("--keep", args.keep == 0),
+                                             ("--checkpoint-shards", args.checkpoint_shards == 0)) if not dflt]
+        if set_flags:
+            return f"{set_flags[0]} shapes periodic checkpointing; add --checkpoint-every K"
+        return None
+    if not args.checkpoint_dir:
+        return ("--checkpoint-every needs --checkpoint-dir D — the durable directory the ckpt-<round> "
+                "checkpoints land in")
+    if args.rounds <= 0:
+        return ("--checkpoint-every segments a FIXED horizon; a run-to-coverage loop is a single on-device "
+                "while_loop with no deterministic segment grid to cut at — pass --rounds R")
+    if args.profile_round > 0:
+        return ("--profile-round slope-times the round's stages instead of running a horizon; drop the "
+                "checkpoint flags")
+    if args.keep < 0 or args.checkpoint_shards < 0:
+        return "--keep and --checkpoint-shards must be >= 0"
+    if args.checkpoint_every >= args.rounds:
+        return (f"--checkpoint-every {args.checkpoint_every} must be below --rounds {args.rounds}, or no "
+                "checkpoint would ever land inside the horizon")
+    if args.shard and args.remat_every > 0 and args.checkpoint_every % args.remat_every != 0:
+        return ("--checkpoint-every must be a MULTIPLE of --remat-every under --shard: mid-epoch mesh state "
+                "cannot be re-placed without that epoch's partition tables, so checkpoints land at epoch "
+                "boundaries (pre-fold) and resume replays the fold + re-partition deterministically "
+                "(docs/checkpointing.md)")
+    return None
+
+
+def _ckpt_policy(args: argparse.Namespace, shards: int, extra: dict | None = None):
+    """The run's CheckpointPolicy, or None without --checkpoint-every;
+    ``shards`` is the path's default file count, ``extra`` layout facts
+    a resume checks."""
+    if args.checkpoint_every <= 0:
+        return None
+    from tpu_gossip_torch.ckpt import CheckpointPolicy
+
+    run_cfg = _manifest_run_config(args)
+    run_cfg.update(extra or {})
+    return CheckpointPolicy(every=args.checkpoint_every, directory=args.checkpoint_dir, keep=args.keep,
+                            shards=args.checkpoint_shards or shards, run_config=run_cfg)
+
+
+def _manifest_run_config(args: argparse.Namespace) -> dict:
+    """The manifest's ``run`` section: every settled arg under the JAX
+    CLI's name (the port's own --device and --profile left out), so either
+    package's ``resume`` rebuilds the run."""
+    return {k: v for k, v in vars(args).items()
+            if not k.startswith("_") and k not in _UNRECORDED
+            and (v is None or isinstance(v, (str, int, float, bool)))}
+
+
+def _stderr_log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _split_host_stats(sd: dict):
+    """The driver's joined host stats back into a RoundStats of tensors."""
+    import torch
+
+    from tpu_gossip_torch.sim.engine import RoundStats
+
+    return RoundStats(*(torch.from_numpy(np.asarray(sd[f])) for f in RoundStats._fields))
+
+
+def _swap_in_resume(resume: _Resume, shape: tuple, args: argparse.Namespace, dev):
+    """The checkpointed state in place of the fresh one (whose shape the
+    rebuilt layout gave; the fresh state is dropped first, so the card
+    never holds both), moved to ``dev``; returns ``(state, stats
+    prefix)``. A layout mismatch fails with a named reason."""
+    from tpu_gossip_torch.ckpt import CheckpointError
+
+    loaded, manifest = resume.state, resume.manifest
+    if tuple(loaded.seen.shape) != tuple(shape):
+        raise CheckpointError(
+            f"checkpoint state is (N={loaded.seen.shape[0]}, M={loaded.seen.shape[1]}) but the rebuilt run layout "
+            f"is (N={shape[0]}, M={shape[1]}) — the manifest's recorded config no longer reproduces this layout")
+    if int(manifest.get("round", 0)) >= args.rounds:
+        raise CheckpointError(f"checkpoint round {manifest.get('round')} is not inside the run's horizon "
+                              f"({args.rounds} rounds) — nothing to resume")
+    t0 = time.perf_counter()
+    rebuild_s = t0 - resume.t0 - resume.scan_s - resume.load_s
+    state = dataclasses.replace(loaded, **{f.name: getattr(loaded, f.name).to(dev)
+                                           for f in dataclasses.fields(loaded)})
+    resume.state = None
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    _stderr_log(f"resume: recovered in {t1 - resume.t0:.3f} s (latest_complete {resume.scan_s:.3f} s, "
+                f"load_checkpoint {resume.load_s:.3f} s, graph and plans rebuilt {rebuild_s:.3f} s, state to "
+                f"{dev} {t1 - t0:.3f} s)")
+    return state, resume.prefix
+
+
+def _check_resume_devices(resume: _Resume | None, mesh_size: int) -> None:
+    """A mesh checkpoint resumes onto a mesh of the size it recorded."""
+    if resume is None:
+        return
+    from tpu_gossip_torch.ckpt import CheckpointError
+
+    recorded = (resume.manifest.get("run") or {}).get("devices")
+    if recorded is not None and int(recorded) != int(mesh_size):
+        raise CheckpointError(
+            f"checkpoint was written by a {recorded}-device mesh run but this process has {mesh_size} devices — "
+            f"resume on a {recorded}-device mesh")
+
+
+def _digest_summary(args: argparse.Namespace, fin, stats, durable: bool = False) -> dict:
+    """state/stats digests for the summary row: with --digest, and always
+    on a checkpointed or resumed run (the recovery contract's keys)."""
+    if not (args.digest or durable):
+        return {}
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    return {"state_digest": state_digest(fin), "stats_digest": stats_digest(stats)}
 
 
 def run(args: argparse.Namespace) -> dict:
     """The run body: parsed ``args`` in, the summary dict out (per-round
     JSONL goes to stdout first unless ``--quiet``)."""
+    return _execute(args)[0]
+
+
+def _execute(args: argparse.Namespace, resume: _Resume | None = None):
+    """:func:`run`'s body; returns ``(summary, final state)`` (the state
+    None for ``--profile-round``). With ``resume``, the graph, plans and
+    fresh state are rebuilt from the recorded args, then the checkpointed
+    state takes the fresh one's place."""
     from tpu_gossip_torch.core import prng, topology
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.device import resolve_device
-    from tpu_gossip_torch.sim.engine import run_until_coverage, simulate
+    from tpu_gossip_torch.sim.engine import remat_capacity, run_until_coverage, simulate
     from tpu_gossip_torch.sim.stages import not_ported
     from tpu_gossip_torch.utils.profiling import trace
 
@@ -214,30 +508,67 @@ def run(args: argparse.Namespace) -> dict:
                   rewire_compact_cap=args.rewire_compact_cap)
     origins = rng.choice(args.peers, size=min(args.origins, args.peers), replace=False)
     if args.shard:
-        cfg, state, horizon, to_target, extra, epoch = _shard_runners(args, graph, origins, cfg_kw, dev)
+        cfg, state, segment, to_target, extra, epoch = _shard_runners(args, graph, origins, cfg_kw, dev)
+        policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
+        _check_resume_devices(resume, epoch[0].size)
     else:
         cfg = SwarmConfig(n_peers=graph.n, **cfg_kw)
         state = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins,
                            exists=exists, device=dev)
         extra = {}
 
-        def horizon(st):
-            return simulate(st, cfg, args.rounds, plan, args.tail)
+        def segment(st, rounds):
+            return simulate(st, cfg, rounds, plan, args.tail)
 
         def to_target(st):
             return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail)
 
         if args.profile_round > 0:
-            return _profile_round(args, cfg, state, plan)
+            return _profile_round(args, cfg, state, plan), None
+        policy = _ckpt_policy(args, shards=1)
+    # the local remat loop's capacity comes from the fresh state, as in the
+    # uninterrupted run, before a resumed state takes its place
+    cap = remat_capacity(state, cfg) if args.remat_every > 0 and not args.shard else 0
+    prefix = None
+    if resume is not None:
+        shape = tuple(state.seen.shape)
+        del state
+        state, prefix = _swap_in_resume(resume, shape, args, dev)
+    durable = policy is not None or resume is not None
+    marks = _horizon_start(dev) if durable and dev.type == "cuda" else None
     with trace(args.profile):
         if args.remat_every > 0 and args.shard:
-            summary = _run_shard_with_remat(args, cfg, state, *epoch)
+            summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, policy=policy, prefix=prefix,
+                                                 durable=durable)
         elif args.remat_every > 0:
-            summary = _run_with_remat(args, cfg, state, dev)
+            summary, fin = _run_with_remat(args, cfg, state, dev, cap, policy=policy, prefix=prefix,
+                                           durable=durable)
+        elif args.rounds > 0:
+            fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
+            summary = {**_horizon_summary(args, stats, **extra), **_digest_summary(args, fin, stats, durable)}
         else:
-            summary = _run_body(args, cfg, state, horizon, to_target, extra)
+            summary, fin = _run_to_target(args, cfg, state, to_target, extra)
+    if marks is not None:
+        import torch
+
+        build, start = marks
+        horizon = torch.cuda.max_memory_allocated(dev)
+        _stderr_log(f"checkpoint: device peak max_memory_allocated {max(build, horizon)} B (the build {build} B; "
+                    f"the horizon {horizon} B, from {start} B allocated at its start)")
     summary["packed"] = args.packed
-    return summary
+    return summary, fin
+
+
+def _horizon_start(dev) -> tuple[int, int]:
+    """On the card, as a durable horizon starts: the device peak of the
+    build (graph, plans, state, a resumed state's load) and the bytes
+    allocated now; the peak is then reset, so the horizon's is its own."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    marks = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return marks
 
 
 def _staircase_plan(args: argparse.Namespace, graph, dev):
@@ -264,13 +595,11 @@ def _horizon_summary(args: argparse.Namespace, stats, **extra) -> dict:
 
 
 def _remat_loop(args: argparse.Namespace, state, run_segment, fold):
-    """The epoch loop of both remat runners: segments of ``--remat-every``
-    rounds (to the horizon, or until ``--target`` with no horizon), each
-    but the last followed by ``fold``. Returns the final state, the
-    segments' stats (a horizon only), the number of folds and the wall
-    seconds."""
-    import time
-
+    """The epoch loop of both remat runners without checkpoints: segments
+    of ``--remat-every`` rounds (to the horizon, or until ``--target``
+    with no horizon), each but the last followed by ``fold``. Returns the
+    final state, the segments' stats (a horizon only), the number of folds
+    and the wall seconds."""
     total = args.rounds if args.rounds > 0 else args.max_rounds
     parts, remats = [], 0
     t0 = time.perf_counter()
@@ -290,7 +619,6 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
     """The summary of a remat run: the horizon row with the digests, or
     the run-to-target row."""
     from tpu_gossip_torch.sim.engine import _concat
-    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
 
     if args.rounds > 0:
         stats = _concat(parts)
@@ -299,8 +627,7 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
 
             M.write_jsonl(stats, sys.stdout)
         summary = _horizon_summary(args, stats, **extra)
-        if args.digest:
-            summary.update(state_digest=state_digest(state), stats_digest=stats_digest(stats))
+        summary.update(_digest_summary(args, state, stats))
         return summary
     rounds = int(state.round)
     return {
@@ -310,43 +637,91 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
     }
 
 
-def _run_with_remat(args: argparse.Namespace, cfg, state, dev) -> dict:
+def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, prefix, *, fold=None,
+                              pack: bool = False):
+    """Every fixed horizon, through ``ckpt.run_checkpointed``: segments
+    cut at the checkpoint grid (and, with ``fold``, the remat grid), a
+    checkpoint between segments, a resumed run's stats prefix in front;
+    one segment without a policy. A packed run's checkpoints hold the
+    packed carry as it is. Returns the final state (unpacked), the stats
+    and the wall seconds."""
+    from tpu_gossip_torch.ckpt import host_stats, run_checkpointed
+    from tpu_gossip_torch.core.packed import pack_state, unpack_state
+
+    def seg_run(st, seg):
+        st, s = segment(st, seg)
+        return st, host_stats(s)
+
+    t0 = time.perf_counter()
+    fin, sd = run_checkpointed(pack_state(state) if pack else state, args.rounds, seg_run, policy=policy,
+                               stats_prefix=prefix, fold_every=args.remat_every if fold else 0, fold=fold,
+                               log=_stderr_log)
+    wall = time.perf_counter() - t0
+    stats = _split_host_stats(sd)
+    if not args.quiet:
+        from tpu_gossip_torch.sim import metrics as M
+
+        M.write_jsonl(stats, sys.stdout)
+    return (unpack_state(fin) if pack else fin), stats, wall
+
+
+def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, *, policy=None, prefix=None,
+                    durable: bool = False):
     """--remat-every R on the local engine: R rounds, then fold the fresh
-    edges into the CSR at the capacity taken once from the initial graph;
-    with --staircase the plan is rebuilt from each segment's CSR."""
-    from tpu_gossip_torch.sim.engine import remat_capacity, rematerialize_rewired, run_until_coverage, simulate
+    edges into the CSR at the capacity ``cap`` taken once from the fresh
+    initial state; with --staircase the plan is rebuilt from each
+    segment's CSR. Checkpointed or resumed (``durable``), the horizon runs
+    through the driver, whose fold hook folds at the epoch boundaries (a
+    run resumed on one replays its fold first); ``remats`` is then the
+    whole horizon's count."""
+    from tpu_gossip_torch.sim.engine import rematerialize_rewired, run_until_coverage, simulate
 
-    cap = remat_capacity(state, cfg)
     overflow = []
-
-    def run_segment(st, seg):
-        plan = _staircase_plan(args, st, dev) if args.staircase else None
-        if args.rounds > 0:
-            return simulate(st, cfg, seg, plan, args.tail)
-        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail), None
 
     def fold(st):
         st, over = rematerialize_rewired(st, cfg, cap)
         overflow.append(over)
+        if durable:
+            _stderr_log(f"remat: fold at round {int(st.round)}, {int(over)} overflow edges")
         return st
 
+    def horizon_segment(st, seg):
+        return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail)
+
+    r = args.remat_every
+    if durable:
+        fin, stats, wall = _run_checkpointed_horizon(args, state, horizon_segment, policy, prefix, fold=fold)
+        summary = _horizon_summary(args, stats, remat_every=r, remats=(args.rounds - 1) // r,
+                                   remat_overflow_edges=sum(int(o) for o in overflow), wall_seconds=wall)
+        summary.update(_digest_summary(args, fin, stats, durable=True))
+        return summary, fin
+
+    def run_segment(st, seg):
+        if args.rounds > 0:
+            return horizon_segment(st, seg)
+        plan = _staircase_plan(args, st, dev) if args.staircase else None
+        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail), None
+
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
-    extra = {"remat_every": args.remat_every, "remats": remats,
-             "remat_overflow_edges": sum(int(o) for o in overflow)}
-    return _remat_summary(args, state, parts, wall, extra, wall)
+    extra = {"remat_every": r, "remats": remats, "remat_overflow_edges": sum(int(o) for o in overflow)}
+    return _remat_summary(args, state, parts, wall, extra, wall), state
 
 
-def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans) -> dict:
+def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, *, policy=None, prefix=None,
+                          durable: bool = False):
     """--shard --remat-every R: R rounds on the mesh, then fold the fresh
-    edges into the CSR, re-partition the live swarm (seed ``--seed`` plus
-    the fold's ordinal), re-shard it and rebuild K6's plans with
-    --staircase. The rebuilds' seconds are reported apart."""
-    import time
-
+    edges into the CSR, re-partition the live swarm with seed ``--seed``
+    plus the fold's index (the round over R, so a resumed run draws the
+    partition the uninterrupted one drew), re-shard it and rebuild K6's
+    plans with --staircase. Checkpointed or resumed (``durable``), the
+    horizon runs through the driver; its checkpoints land on the epoch
+    boundaries before the fold, and a resumed run replays the fold first.
+    The rebuilds' seconds are reported apart."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.sim.engine import remat_capacity, rematerialize_rewired
 
-    epoch = {"sg": sg, "plans": plans, "overflow": 0, "rebuild_s": 0.0, "folds": 0}
+    r = args.remat_every
+    epoch = {"sg": sg, "plans": plans, "overflow": 0, "rebuild_s": 0.0}
 
     def run_segment(st, seg):
         if args.rounds > 0:
@@ -356,52 +731,51 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans)
 
     def fold(st):
         t0 = time.perf_counter()
+        seed = args.seed + int(st.round) // r
         st, over = rematerialize_rewired(st, cfg, remat_capacity(st, cfg))
-        epoch["folds"] += 1
-        epoch["sg"], st, _ = dist.repartition_swarm(st, mesh.size, seed=args.seed + epoch["folds"])
+        epoch["sg"], st, _ = dist.repartition_swarm(st, mesh.size, seed=seed)
         st = dist.shard_swarm(st, mesh)
         if epoch["plans"] is not None:
             epoch["plans"] = dist.build_shard_plans(epoch["sg"])
         epoch["overflow"] += int(over)
         epoch["rebuild_s"] += time.perf_counter() - t0
+        if durable:
+            _stderr_log(f"remat: fold at round {int(st.round)}, {int(over)} overflow edges, re-partition seed "
+                        f"{seed}")
         return st
 
+    if durable:
+        fin, stats, wall = _run_checkpointed_horizon(args, state, run_segment, policy, prefix, fold=fold)
+        summary = _horizon_summary(args, stats, devices=mesh.size, remat_every=r, remats=(args.rounds - 1) // r,
+                                   wall_seconds=wall)
+        summary.update(_digest_summary(args, fin, stats, durable=True))
+        summary["transport"] = "dense"
+        return summary, fin
+
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
-    out = {"devices": mesh.size, "remat_every": args.remat_every, "remats": remats,
-           "remat_overflow_edges": epoch["overflow"],
+    out = {"devices": mesh.size, "remat_every": r, "remats": remats, "remat_overflow_edges": epoch["overflow"],
            "epoch_rebuild_seconds_total": round(epoch["rebuild_s"], 3)}
     summary = _remat_summary(args, state, parts, wall, out, wall - epoch["rebuild_s"])
     if args.rounds == 0:
         summary["ms_per_round_amortized"] = wall / max(int(state.round), 1) * 1000.0
     summary["transport"] = "dense"
-    return summary
+    return summary, state
 
 
-def _run_body(args: argparse.Namespace, cfg, state, horizon, to_target, extra: dict) -> dict:
-    """The fixed horizon or the run to ``--target``; returns the summary."""
+def _run_to_target(args: argparse.Namespace, cfg, state, to_target, extra: dict):
+    """The run to ``--target`` (the benchmark summary); returns the summary
+    and the final state."""
     from tpu_gossip_torch.core.packed import pack_state, unpack_state
     from tpu_gossip_torch.sim import metrics as M
-    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
 
-    if args.rounds > 0:
-        fin, stats = horizon(pack_state(state) if args.packed else state)
-        if args.packed:
-            fin = unpack_state(fin)
-        if not args.quiet:
-            M.write_jsonl(stats, sys.stdout)
-        summary = _horizon_summary(args, stats, **extra)
-        if args.digest:
-            summary.update(state_digest=state_digest(fin), stats_digest=stats_digest(stats))
-    else:
-        def cov_run(st):
-            out = to_target(pack_state(st) if args.packed else st)
-            return unpack_state(out) if args.packed else out
+    def cov_run(st):
+        out = to_target(pack_state(st) if args.packed else st)
+        return unpack_state(out) if args.packed else out
 
-        # a sharded run reports the real peer count, not the padded slot count
-        result, _ = M.bench_swarm(state, cfg, args.target, args.max_rounds, run=cov_run,
-                                  n_peers=args.peers if args.shard else None)
-        summary = {"summary": True, "mode": args.mode, **extra, **json.loads(result.to_json())}
-    return summary
+    # a sharded run reports the real peer count, not the padded slot count
+    result, fin = M.bench_swarm(state, cfg, args.target, args.max_rounds, run=cov_run,
+                                n_peers=args.peers if args.shard else None)
+    return {"summary": True, "mode": args.mode, **extra, **json.loads(result.to_json())}, fin
 
 
 def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
@@ -434,7 +808,7 @@ def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
 def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
     """--shard: partition the graph over the mesh (pads born dead), with
     --staircase build K6's plans, seed ``origins`` through the partition's
-    relabelling; returns ``(cfg, state, horizon, to_target, extra summary
+    relabelling; returns ``(cfg, state, segment, to_target, extra summary
     keys, (mesh, sharded graph, plans))``."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.core import prng
@@ -447,13 +821,13 @@ def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
     state = dist.shard_swarm(dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev),
                                                      origins=origins, device=dev), mesh)
 
-    def horizon(st):
-        return dist.simulate_dist(st, cfg, sg, mesh, args.rounds, plans)
+    def segment(st, rounds):
+        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans)
 
-    return cfg, state, horizon, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans)
+    return cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans)
 
 
 if __name__ == "__main__":

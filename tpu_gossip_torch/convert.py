@@ -21,7 +21,7 @@ import torch
 
 from tpu_gossip_torch.core.matching_topology import MatchingPlan, class_layout
 from tpu_gossip_torch.core.packed import PackedSwarm
-from tpu_gossip_torch.core.state import SwarmState
+from tpu_gossip_torch.core.state import SwarmState, state_from_host
 from tpu_gossip_torch.device import resolve_device
 from tpu_gossip_torch.dist.mesh import ShardedGraph, ShardPlans
 from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan
@@ -112,8 +112,9 @@ def _state_leaves(cls, leaves: dict, dev) -> dict:
 
 def state_from_jax(leaves: dict, device: str | torch.device = "cuda") -> SwarmState:
     """A port SwarmState from the JAX state's leaves as numpy arrays (the
-    key as its uint32 (2,) key data)."""
-    return SwarmState(**_state_leaves(SwarmState, leaves, resolve_device(device)))
+    key as its uint32 (2,) key data), validated against the PLANES
+    registry."""
+    return state_from_host(leaves, device)
 
 
 def packed_state_from_jax(leaves: dict, msg_slots: int, device: str | torch.device = "cuda") -> PackedSwarm:
