@@ -356,13 +356,20 @@ def check_k6(dev, gen, setup: dict) -> int:
     return err
 
 
+def fault_pin(ref: dict) -> bool:
+    """A pin of the fault plane (silent peers or a scenario): phase 8's."""
+    return "--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]
+
+
 def phase_digest(root: Path, dev) -> list[dict]:
-    """The port's CLI at every JAX-pinned configuration (the n=20000 runs
-    and the 1M matching headline)."""
+    """The port's CLI at every JAX-pinned configuration of the earlier
+    slices (the n=20000 runs and the 1M headlines)."""
     from tpu_gossip_torch.cli import run_sim
 
     out = []
     for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text()):
+        if fault_pin(ref):  # phase 8's
+            continue
         args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
         if unknown:
             raise AssertionError(f"reference argv not understood: {unknown}")
@@ -1472,6 +1479,254 @@ def phase_checkpoints(root: Path, card: str, headline_peak: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 8: the fault plane
+
+# the kernel launches a fault path makes over a horizon of R rounds, P of
+# them with an active partition (side B's second delivery pass)
+def fault_launches(path: str, rounds: int, partitioned: int = 0) -> dict:
+    both = rounds + partitioned
+    return {
+        "matching": {"fold_planes_or": both, "round_tail": rounds, "round_tail_words": 0, "staircase_segment": 0,
+                     "stream_segment": 0},
+        "packed matching": {"fold_planes_or": both, "round_tail": 0, "round_tail_words": rounds,
+                            "staircase_segment": 0, "stream_segment": 0},
+        "staircase": {"lane_shuffle": 0, "fold_planes_or": 0, "staircase_segment": both, "round_tail": rounds,
+                      "round_tail_words": 0, "stream_segment": 0},
+        "sharded staircase": {"lane_shuffle": 0, "fold_planes_or": 0, "staircase_segment": 0, "stream_segment": both,
+                              "round_tail": rounds, "round_tail_words": 0},
+        "sharded scatter": {"lane_shuffle": 0, "fold_planes_or": 0, "staircase_segment": 0, "stream_segment": 0,
+                            "round_tail": rounds, "round_tail_words": 0},
+        "sharded packed": {"lane_shuffle": 0, "fold_planes_or": 0, "staircase_segment": 0, "stream_segment": both,
+                           "round_tail": 0, "round_tail_words": rounds},
+    }[path]
+
+
+def cli_here(argv: list[str], dev) -> dict:
+    """run_sim's run body in this process (so the kernels' launch counters
+    see it), every launch counted from 0: the summary, the per-round rows,
+    the final (unpacked) state, the launches, the fixed horizon's wall
+    seconds (graph, plans and state built before it) and the device peak
+    over it (the peak reset as it starts)."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels import native
+
+    args = run_sim.build_parser().parse_args(argv + ["--device", str(dev)])
+    err = run_sim._scenario_refusal(args) or run_sim._refusal(args)
+    if err:
+        raise AssertionError(f"run_sim {' '.join(argv)} refused: {err}")
+    horizon = {}
+    plain = run_sim._run_checkpointed_horizon
+
+    def timed(*a, **k):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        horizon["start_bytes"] = torch.cuda.memory_allocated(dev)
+        out = plain(*a, **k)
+        torch.cuda.synchronize(dev)
+        horizon.update(wall_s=out[2], peak=torch.cuda.max_memory_allocated(dev))
+        return out
+
+    native.reset_launches()
+    run_sim._run_checkpointed_horizon = timed
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary, fin = run_sim._execute(args)
+        torch.cuda.synchronize(dev)
+    finally:
+        run_sim._run_checkpointed_horizon = plain
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    return dict(summary=summary, rows=rows, fin=fin, launches=dict(native.LAUNCHES), horizon=horizon,
+                call_s=time.perf_counter() - t0)
+
+
+def check_counts(what: str, launches: dict, want: dict) -> None:
+    for key, n in want.items():
+        if launches[key] != n:
+            raise AssertionError(f"{what} launched {key} {launches[key]} times, needs {n}")
+
+
+def fault_line(card: str, what: str, r: dict, extra: str = "") -> str:
+    s, h = r["summary"], r["horizon"]
+    rounds = s.get("rounds_run") or s.get("rounds")
+    timing = (f"{h['wall_s'] * 1e3 / rounds} ms/round over the horizon, peak {h['peak']} B (from {h['start_bytes']} "
+              f"B at its start)" if h else f"{r['call_s']:.2f} s for the whole call, graph build included")
+    return (f"[{card}] {what}: {timing}; launches {({k: v for k, v in r['launches'].items() if v})}; "
+            f"state_digest {s.get('state_digest', '-')}{extra}")
+
+
+def same_run(a: dict, b: dict, what: str) -> None:
+    """Twins: the same summary apart from the ``packed`` flag and timings."""
+    drop = ("packed", "wall_seconds", "epoch_rebuild_seconds_total")
+    sa = {k: v for k, v in a["summary"].items() if k not in drop}
+    sb = {k: v for k, v in b["summary"].items() if k not in drop}
+    if sa != sb:
+        raise AssertionError(f"{what}: the twins' summaries differ: {sa} != {sb}")
+
+
+def phase_faults(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
+    """Phase 8: silent peers and the fault plane through the CLI. 8a
+    BASELINE config 2 at its 1000 peers (onto the JAX pin; no peer declared
+    dead through round 7, all 100 silent peers from round 8) and the
+    n=20000 fault pins; 8b config 2's flags on the 1M matching headline
+    (onto the JAX pin; every silent peer declared, no other) and its packed
+    twin; 8c the four catalogued scenarios at 1M on the headline, each
+    equal to its packed twin, lossy-links and split-brain onto the JAX pins,
+    split-brain launching K2 once a round plus once a partitioned round and
+    K3 once a round; 8d split-brain on the staircase, rack-failure on the
+    sharded K6 path with its scatter and packed twins, lossy-links on the
+    sharded remat loop; 8e lossy-links at n=20000 killed after its round-20
+    checkpoint (mid-delay) and resumed on the CPU (written on the CPU, on
+    the card), onto the JAX pin. Returns the figures by run. ``n_big``
+    replaces the 1M runs' peer count (the pins are checked only at 1M)."""
+    import shutil
+    import tempfile
+
+    pins = [r for r in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+            if fault_pin(r)]
+    by_argv = {" ".join(r["argv"]): r for r in pins}
+    out = {}
+
+    def pinned(argv: list[str]) -> dict | None:
+        """The JAX pin of a 1M run (every 1M pin must be found)."""
+        pin = by_argv.get(" ".join(argv))
+        if pin is None and n_big == N_HEADLINE and argv[1] == str(N_HEADLINE) and (
+                "--silent-frac" in argv or "lossy_links" in " ".join(argv) or "split_brain" in " ".join(argv)):
+            raise AssertionError(f"no JAX pin for {' '.join(argv)}")
+        return pin
+
+    # 8a: config 2 at 1000 peers, then the other small pins
+    t0 = time.perf_counter()
+    c2 = [r for r in pins if r["argv"][1] == "1000"][0]
+    r = cli_here([a for a in c2["argv"] if a != "--quiet"], dev)
+    check_pin(r["summary"], c2, "8a config 2")
+    dead = [row["n_declared_dead"] for row in r["rows"]]
+    if dead[:7] != [0] * 7 or dead[7:] != [100] * (len(dead) - 7):
+        raise AssertionError(f"8a: config 2 declared {dead} dead by round, needs 0 through round 7 and 100 after")
+    print(f"[{card}] 8a config 2 (1000 peers, pa m=3, 8 slots, push fanout 3, 10% silent): n_declared_dead by round "
+          f"{dead}, digests equal the JAX pin ({r['summary']['state_digest']})", flush=True)
+    for ref in pins:
+        if ref["argv"][1] == "20000":
+            got = cli_here(ref["argv"], dev)
+            check_pin(got["summary"], ref, "8a n=20000")
+            print(f"[{card}] 8a n=20000 pin equal: {' '.join(ref['argv'][2:-3])}", flush=True)
+    out["8a"] = dict(seconds=time.perf_counter() - t0)
+
+    big = ["--peers", str(n_big), "--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--digest", "--quiet"]
+
+    # 8b: config 2's flags on the 1M headline, and its packed twin
+    t0 = time.perf_counter()
+    argv = big + ["--slots", "16", "--silent-frac", "0.1", "--rounds", "16"]
+    r = cli_here(argv, dev)
+    pin = pinned(argv)
+    if pin is not None:
+        check_pin(r["summary"], pin, "8b")
+    check_counts("8b", r["launches"], fault_launches("matching", 16))
+    fin = r["fin"]
+    silent, dead, real = fin.silent, fin.declared_dead, fin.exists
+    if int(silent.sum()) != n_big // 10 or bool((silent & ~dead).any()) or bool((dead & real & ~silent).any()):
+        raise AssertionError(f"8b: {int(silent.sum())} silent peers, {int((silent & ~dead).sum())} of them not "
+                             f"declared, {int((dead & real & ~silent).sum())} peers declared that were never silent")
+    p = cli_here(argv + ["--packed"], dev)
+    same_run(r, p, "8b packed twin")
+    check_counts("8b packed", p["launches"], fault_launches("packed matching", 16))
+    out["8b"] = dict(unpacked=r["horizon"], packed=p["horizon"], seconds=time.perf_counter() - t0)
+    print(fault_line(card, f"8b config 2's flags at n={n_big} on the matching headline (16 rounds)", r,
+                     f"; all {n_big // 10} silent peers declared dead, no other peer"
+                     + ("; digests equal the JAX pin" if pin is not None else "")), flush=True)
+    print(fault_line(card, "8b packed twin", p, ", digest-equal"), flush=True)
+    del fin, silent, dead, real, r, p
+
+    # 8c: the four catalogued scenarios at 1M on the headline, each with its packed twin
+    t0 = time.perf_counter()
+    for name, partitioned in (("split_brain", 16), ("lossy_links", 0), ("rack_failure", 0), ("churn_storm", 0)):
+        argv = big + ["--scenario", f"scenarios/{name}.toml", "--rounds", "32"]
+        r = cli_here(argv, dev)
+        pin = pinned(argv)
+        if pin is not None:
+            check_pin(r["summary"], pin, f"8c {name}")
+        check_counts(f"8c {name}", r["launches"], fault_launches("matching", 32, partitioned))
+        p = cli_here(argv + ["--packed"], dev)
+        same_run(r, p, f"8c {name} packed twin")
+        check_counts(f"8c {name} packed", p["launches"], fault_launches("packed matching", 32, partitioned))
+        out[f"8c {name}"] = dict(unpacked=r["horizon"], packed=p["horizon"], phases=r["summary"]["phases"])
+        pinned_text = "; digests equal the JAX pin" if pin is not None else ""
+        print(fault_line(card, f"8c {name} at n={n_big} on the matching headline (32 rounds)", r,
+                         f"; phases {json.dumps(r['summary']['phases'])}{pinned_text}"), flush=True)
+        print(fault_line(card, f"8c {name} packed twin", p, ", digest-equal"), flush=True)
+        del r, p
+    d = out["8c lossy_links"]["unpacked"]["peak"] - out["8c split_brain"]["unpacked"]["peak"]
+    print(f"[{card}] 8c lossy-links' two (N, M) = ({n_big + 1}, 16) uniforms a round: horizon peak "
+          f"{out['8c lossy_links']['unpacked']['peak']} B, {d} B above split-brain's (no draws)", flush=True)
+    out["8c"] = dict(seconds=time.perf_counter() - t0)
+
+    # 8d: the other delivery paths at 1M (Chung-Lu, 24 rounds; the remat loop 32)
+    t0 = time.perf_counter()
+    csr = ["--peers", str(n_big), "--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--digest", "--quiet"]
+    r = cli_here(csr + ["--staircase", "--scenario", "scenarios/split_brain.toml", "--rounds", "24"], dev)
+    check_counts("8d staircase", r["launches"], fault_launches("staircase", 24, 16))
+    out["8d staircase"] = r["horizon"]
+    print(fault_line(card, f"8d split-brain on the staircase at n={n_big} (24 rounds)", r,
+                     f"; phases {json.dumps(r['summary']['phases'])}"), flush=True)
+    rack = csr + ["--shard", "--scenario", "scenarios/rack_failure.toml", "--rounds", "24"]
+    twins = {}
+    for what, extra in (("sharded staircase", ["--staircase"]), ("sharded scatter", []),
+                        ("sharded packed", ["--staircase", "--packed"])):
+        twins[what] = cli_here(rack + extra, dev)
+        check_counts(f"8d {what}", twins[what]["launches"], fault_launches(what, 24))
+        if what != "sharded staircase":
+            same_run(twins["sharded staircase"], twins[what], f"8d {what}")
+        out[f"8d {what}"] = twins[what]["horizon"]
+        print(fault_line(card, f"8d rack-failure, {what} at n={n_big} (24 rounds)", twins[what],
+                         f"; phases {json.dumps(twins[what]['summary']['phases'])}" if what == "sharded staircase"
+                         else ", digest-equal to the K6 run"), flush=True)
+    del twins
+    r = cli_here(csr + ["--shard", "--staircase", "--scenario", "scenarios/lossy_links.toml", "--churn-leave", "0.002",
+                        "--churn-join", "0.02", "--rewire-slots", "2", "--remat-every", "16", "--rounds", "32"], dev)
+    if r["summary"]["remats"] != 1 or r["summary"]["remat_overflow_edges"] != 0:
+        raise AssertionError(f"8d remat loop: {r['summary']['remats']} folds, {r['summary']['remat_overflow_edges']} "
+                             "overflow edges; needs 1 and 0")
+    check_counts("8d remat loop", r["launches"], {"stream_segment": 32, "round_tail": 32})
+    out["8d remat"] = dict(call_s=r["call_s"], rebuild_s=r["summary"]["epoch_rebuild_seconds_total"])
+    print(fault_line(card, f"8d lossy-links on the sharded remat loop at n={n_big} (32 rounds, a fold and a re-partition "
+                     "at round 16, 0 overflow edges)", r), flush=True)
+    del r
+    out["8d"] = dict(seconds=time.perf_counter() - t0)
+
+    # 8e: n=20000 lossy-links checkpointed every 4 rounds, killed after
+    # ckpt-20 (inside the loss-and-delay phase, its delay buffer live) and
+    # resumed on the other device, both ways, onto the JAX pin
+    from tpu_gossip_torch.ckpt import load_checkpoint
+
+    t0 = time.perf_counter()
+    small = [r for r in pins if r["argv"][1] == "20000" and "scenarios/lossy_links.toml" in r["argv"]][0]
+    held = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-faults-") as tmp:
+        tmp = Path(tmp)
+        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = tmp / write_on
+            kill_at(root, small["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
+                                           write_on], "checkpoint: wrote ckpt-00000020")
+            for late in (24, 28):
+                shutil.rmtree(d / f"ckpt-{late:08d}", ignore_errors=True)
+            held[write_on] = int(load_checkpoint(d / "ckpt-00000020", device="cpu")[0].fault_held.sum())
+            if held[write_on] == 0:
+                raise AssertionError("8e: ckpt-00000020 holds an empty delay buffer; the resume would not be mid-delay")
+            summary, err = cli_run(root, ["resume", str(d), "--device", resume_on], f"8e {write_on} resume")
+            if "resume: ckpt-00000020 at round 20" not in err:
+                raise AssertionError(f"8e: the resume did not start from ckpt-00000020: {err[-2000:]}")
+            check_pin(summary, small, f"8e {write_on}->{resume_on}")
+    out["8e"] = dict(seconds=time.perf_counter() - t0, held=held)
+    print(f"[{card}] 8e lossy-links n=20000 killed after ckpt-00000020 (delay buffer {held} bits) on the card and "
+          f"resumed on the CPU, and the reverse, both onto the JAX pin (phases included); "
+          f"{out['8e']['seconds']:.2f} s", flush=True)
+    return out
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -1746,6 +2001,12 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     t0 = time.perf_counter()
     phase_checkpoints(root, card, peak)
     print(f"[{card}] phase 7: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # phase 8: silent peers and the fault plane through the CLI (8a-8e)
+    t0 = time.perf_counter()
+    faults = phase_faults(root, dev, card)
+    print(f"[{card}] phase 8: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in faults.items() if 'seconds' in v} }", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

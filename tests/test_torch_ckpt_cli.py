@@ -160,9 +160,23 @@ def test_resume_of_a_fleet_manifest_exits_2(capsys, tmp_path, jax_dir):
 def test_resume_of_an_unported_recorded_flag_exits_2(capsys, tmp_path, jax_dir, key, value, flag, item):
     """A JAX manifest holding a flag the port has not ported, at another
     value than JAX's default, names the flag and the slice; at the default
-    it resumes."""
+    it resumes. A flag ported since (``--scenario`` and ``--silent-frac``,
+    ROADMAP item 9a) resumes as the JAX CLI's resume does: the same exit
+    code, error line or summary (a recorded scenario file that is not there
+    exits 2 with the JAX CLI's words)."""
     d = _rewrite_run(jax_dir, tmp_path / "ck", **{key: value})
     capsys.readouterr()
+    if key not in tcli.JAX_FLAG_DEFAULTS:
+        rc = jcli.main(["resume", str(d)])
+        want = capsys.readouterr()
+        assert tcli.main(["resume", str(d), "--device", "cpu"]) == rc
+        got = capsys.readouterr()
+        if rc:
+            assert got.err.strip().splitlines()[-1] == want.err.strip().splitlines()[-1]
+            assert flag in got.err
+        else:
+            assert got.out.strip().splitlines()[-1] == want.out.strip().splitlines()[-1]
+        return
     assert tcli.main(["resume", str(d), "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and flag in err and item in err

@@ -13,6 +13,12 @@ from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 REF = Path(__file__).resolve().parent.parent / "tpu_gossip_torch" / "reference_digests.json"
 
 
+def fault_pin(ref) -> bool:
+    """A pin of the fault plane (silent peers or a scenario); the pins of
+    earlier slices are the others."""
+    return "--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]
+
+
 def _summary(capsys, main, argv):
     assert main(argv) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -126,8 +132,8 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--graph", "chung-lu", "--silent-frac", "0.1", "--device", "cpu"],
-    ["--graph", "pa", "--scenario", "s.toml", "--device", "cpu"],
+    ["--graph", "chung-lu", "--quorum-k", "2", "--device", "cpu"],
+    ["--graph", "pa", "--stream", "0.5", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
     ["--graph", "matching", "--churn-leave", "0.1", "--grow", "200", "--device", "cpu"],
 ])

@@ -642,3 +642,45 @@ def test_checkpoint_crosses_card_and_cpu_leaf_equal(dev, tmp_path, form, written
     fin_a, stats_a = engine.simulate(st, cfg, 4)
     fin_b, stats_b = engine.simulate(back, cfg, 4)
     assert state_digest(fin_a) == state_digest(fin_b)
+
+
+# the fault plane: each path's launches over R rounds, P of them partitioned (side B's second delivery)
+FAULT_PATHS = {
+    "matching": lambda r, p: {"fold_planes_or": r + p, "round_tail": r, "round_tail_words": 0},
+    "packed matching": lambda r, p: {"fold_planes_or": r + p, "round_tail": 0, "round_tail_words": r},
+    "staircase": lambda r, p: {"staircase_segment": r + p, "round_tail": r, "fold_planes_or": 0},
+    "exactly-k": lambda r, p: {"staircase_segment": 0, "round_tail": r, "fold_planes_or": 0},
+    "sharded staircase": lambda r, p: {"stream_segment": r + p, "round_tail": r},
+    "sharded scatter": lambda r, p: {"stream_segment": 0, "round_tail": r},
+    "sharded packed": lambda r, p: {"stream_segment": r + p, "round_tail": 0, "round_tail_words": r},
+}
+
+
+@pytest.mark.parametrize("argv,path,partitioned", [
+    (["--graph", "matching", "--scenario", "scenarios/split_brain.toml"], "matching", 16),
+    (["--graph", "matching", "--packed", "--scenario", "scenarios/lossy_links.toml"], "packed matching", 0),
+    (["--graph", "matching", "--silent-frac", "0.1", "--scenario", "scenarios/rack_failure.toml"], "matching", 0),
+    (["--graph", "chung-lu", "--staircase", "--scenario", "scenarios/split_brain.toml"], "staircase", 16),
+    (["--graph", "chung-lu", "--scenario", "scenarios/churn_storm.toml", "--churn-leave", "0.002", "--churn-join",
+      "0.02", "--rewire-slots", "2"], "exactly-k", 0),
+    (["--graph", "chung-lu", "--shard", "--staircase", "--scenario", "scenarios/rack_failure.toml"],
+     "sharded staircase", 0),
+    (["--graph", "chung-lu", "--shard", "--scenario", "scenarios/split_brain.toml"], "sharded scatter", 16),
+    (["--graph", "chung-lu", "--shard", "--staircase", "--packed", "--scenario", "scenarios/lossy_links.toml"],
+     "sharded packed", 0),
+])
+def test_fault_digest_on_card_equals_cpu(dev, argv, path, partitioned):
+    """Each fault path at n=20000 on the card equals its CPU run (summary,
+    phase report and digests), with the card run's launches counted."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    argv = ["--peers", "20000", "--rounds", "32", "--digest", "--quiet", "--mode", "push_pull", "--fanout", "1", *argv]
+    parser = run_sim.build_parser()
+    reset_launches()
+    card = run_sim.run(parser.parse_args(argv + ["--device", "cuda"]))
+    launches = dict(LAUNCHES)
+    assert card == run_sim.run(parser.parse_args(argv + ["--device", "cpu"]))
+    assert card["phases"]
+    for key, n in FAULT_PATHS[path](32, partitioned).items():
+        assert launches[key] == n, (key, launches)

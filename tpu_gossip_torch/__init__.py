@@ -16,8 +16,10 @@ is held bit for bit against the JAX package through
 ``state_digest``/``stats_digest``. ``tpu_gossip_torch.ckpt`` writes and
 reads the JAX package's durable checkpoints (``run_sim
 --checkpoint-every``, ``run_sim resume``), so a run either package
-checkpointed, the other finishes. It imports neither JAX nor the JAX
-package.
+checkpointed, the other finishes. ``tpu_gossip_torch.faults`` runs the
+JAX package's fault scenarios (loss, delay, partitions, blackouts, churn
+bursts; ``run_sim --scenario``) and silent peers (``--silent-frac``) on
+every engine above. It imports neither JAX nor the JAX package.
 
 Entry points take ``device`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version.

@@ -17,14 +17,24 @@
         --fanout 1 --graph matching --rounds 16 --checkpoint-every 4 \\
         --checkpoint-dir D --keep 2
     python -m tpu_gossip_torch.cli.run_sim resume D
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000 --graph pa --m 3 \
+        --slots 8 --fanout 3 --mode push --silent-frac 0.1 --rounds 20 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \
+        --fanout 1 --graph matching --scenario scenarios/split_brain.toml \
+        --rounds 32 --digest
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
 attachment with ``--m`` edges per node, or ``chung-lu``, the configuration
 model, both on the host from ``np.random.default_rng(seed)``), with
 ``--staircase`` a host-built staircase plan for the CSR families, then
-seed the origins drawn from the same ``rng`` after the graph, exactly as
-the JAX CLI draws them. Then either run a fixed ``--rounds`` horizon (one
+seed the origins drawn from the same ``rng`` after the graph, and with
+``--silent-frac`` the silent peers drawn after them, exactly as the JAX
+CLI draws them. ``--scenario F`` runs the fault schedule in the TOML file
+``F`` (``faults/``: loss, delay, partitions, blackouts, churn bursts) on
+every engine, validated before anything is built with the JAX CLI's
+words, and adds ``scenario`` (and on a fixed horizon its per-phase
+``phases`` report) to the summary. Then either run a fixed ``--rounds`` horizon (one
 JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
 print the benchmark summary. With ``--packed`` the seeded state is packed
@@ -68,8 +78,9 @@ _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
-    "included, with checkpoints and resume (later slices add faults, growth, streams, "
-    "control, fleets, the sharded matching engine and the multi-card exchange)"
+    "included, with checkpoints and resume, silent peers and fault scenarios (later slices add "
+    "adversaries, growth, streams, control, fleets, the sharded matching engine and the multi-card "
+    "exchange)"
 )
 _ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded matching engine (ROADMAP item 11b)",
                               "multi-process (ROADMAP item 11c)")
@@ -77,7 +88,6 @@ _ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded match
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
 JAX_FLAG_DEFAULTS = {
-    "silent_frac": (0.0, _ITEM9), "scenario": ("", _ITEM9),
     "grow": (0, _ITEM9), "grow_rate": (0, _ITEM9), "grow_capacity": (0, _ITEM9),
     "stream": (0.0, _ITEM9), "stream_origins": ("uniform", _ITEM9), "slot_ttl": (0, _ITEM9),
     "stream_hashes": (1, _ITEM9), "stream_burst_every": (0, _ITEM9), "stream_burst_mult": (4.0, _ITEM9),
@@ -113,6 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-rounds", type=int, default=1000)
     p.add_argument("--forward-once", action="store_true")
     p.add_argument("--sir-recover", type=int, default=0, help="rounds until SIR recovery (0 = off)")
+    p.add_argument("--silent-frac", type=float, default=0.0, help="fraction of peers made silent (fault injection)")
     p.add_argument("--churn-leave", type=float, default=0.0, help="per-round leave probability")
     p.add_argument("--churn-join", type=float, default=0.0, help="per-round rejoin probability")
     p.add_argument("--rewire-slots", type=int, default=0,
@@ -165,6 +176,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-shards", type=int, default=0, metavar="S",
                    help="file-level shard count a checkpoint (a storage choice: any S loads into the same "
                    "state). Default: the mesh size under --shard, else 1")
+    p.add_argument("--scenario", type=str, default="", metavar="TOML",
+                   help="fault scenario schedule (tpu_gossip_torch/faults/): time-phased message loss, delivery "
+                   "delay, split-brain partitions, node/shard blackouts, churn bursts, injected from a PRNG "
+                   "stream of their own on every engine (local and sharded rounds stay bit-identical). The "
+                   "schedule is validated before the run: phases beyond --rounds/--max-rounds or overlapping "
+                   "phases are config errors")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -204,12 +221,53 @@ def _refusal(args: argparse.Namespace) -> str | None:
     return None
 
 
+def _scenario_refusal(args: argparse.Namespace) -> str | None:
+    """Parse and validate ``--scenario`` before anything is built; the
+    reason it cannot run (exit 2, the JAX CLI's words), or None. The phase
+    classes of later slices are refused as the JAX CLI refuses them without
+    ``--grow`` or ``--quorum-k``."""
+    if not args.scenario:
+        return None
+    from tpu_gossip_torch.faults import ScenarioError, parse_scenario
+
+    try:
+        spec = parse_scenario(args.scenario)
+        spec.validate(total_rounds=_total_rounds(args), n_peers=args.peers,
+                      n_shards=_mesh_size(args) if args.shard else None)
+    except (ScenarioError, OSError) as e:
+        return f"--scenario: {e}"
+    except (RuntimeError, NotImplementedError) as e:  # no card, or a mesh of a later slice
+        return str(e)
+    if args.profile_round > 0:
+        return "--profile-round measures the fault-free round's stage decomposition; drop --scenario"
+    if args.shard and args.remat_every > 0 and spec.uses_node_sets:
+        return ("--scenario with node-scoped faults cannot compose with --shard --remat-every: the epoch "
+                "re-partition permutes peers, so compiled node masks would hit the wrong rows after the first "
+                "rebuild (scalar loss/delay/full-swarm churn phases are fine)")
+    if spec.uses_join_burst:
+        return "--scenario: join_burst phases are admission waves for a growing run; add --grow"
+    if spec.uses_adversaries:
+        return ("--scenario: Byzantine adversary phases (accusers/forgers/floods) need the quorum-defense planes; "
+                "add --quorum-k K (K=1 reproduces the reference's single-report purge — the unhardened baseline)")
+    return None
+
+
+def _total_rounds(args: argparse.Namespace) -> int:
+    return args.rounds if args.rounds > 0 else args.max_rounds
+
+
+def _mesh_size(args: argparse.Namespace) -> int:
+    from tpu_gossip_torch import dist
+
+    return dist.make_mesh(device=args.device).size
+
+
 def _run(args: argparse.Namespace, resume: "_Resume | None" = None) -> int:
     """The run body behind ``main`` and ``resume``: validate, run, print
     the summary, then save ``--checkpoint``; the exit code out."""
     from tpu_gossip_torch.device import resolve_device
 
-    err = _refusal(args)
+    err = _scenario_refusal(args) or _refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 2
@@ -478,6 +536,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     from tpu_gossip_torch.utils.profiling import trace
 
     dev = resolve_device(args.device)
+    spec = _scenario_spec(args)
     rng = np.random.default_rng(args.seed)
     exists = plan = None
     if args.graph == "matching":
@@ -506,22 +565,26 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                   sir_recover_rounds=args.sir_recover, churn_leave_prob=args.churn_leave,
                   churn_join_prob=args.churn_join, rewire_slots=args.rewire_slots,
                   rewire_compact_cap=args.rewire_compact_cap)
-    origins = rng.choice(args.peers, size=min(args.origins, args.peers), replace=False)
+    origins, silent_ids = _sample_ids(args, rng)
     if args.shard:
-        cfg, state, segment, to_target, extra, epoch = _shard_runners(args, graph, origins, cfg_kw, dev)
+        cfg, state, segment, to_target, extra, epoch = _shard_runners(args, graph, origins, silent_ids, cfg_kw, dev,
+                                                                      spec)
         policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
         _check_resume_devices(resume, epoch[0].size)
     else:
         cfg = SwarmConfig(n_peers=graph.n, **cfg_kw)
         state = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins,
                            exists=exists, device=dev)
+        state.silent = _set_rows(state.silent, silent_ids)
+        scen = _compile_cli_scenario(spec, args, graph.n, dev)
         extra = {}
 
         def segment(st, rounds):
-            return simulate(st, cfg, rounds, plan, args.tail)
+            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen)
 
         def to_target(st):
-            return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail)
+            return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail,
+                                      scenario=scen)
 
         if args.profile_round > 0:
             return _profile_round(args, cfg, state, plan), None
@@ -540,14 +603,17 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         if args.remat_every > 0 and args.shard:
             summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, policy=policy, prefix=prefix,
                                                  durable=durable)
+            summary.update(_scenario_summary(spec))
         elif args.remat_every > 0:
-            summary, fin = _run_with_remat(args, cfg, state, dev, cap, policy=policy, prefix=prefix,
+            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, policy=policy, prefix=prefix,
                                            durable=durable)
+            summary.update(_scenario_summary(spec))
         elif args.rounds > 0:
             fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
-            summary = {**_horizon_summary(args, stats, **extra), **_digest_summary(args, fin, stats, durable)}
+            summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats)),
+                       **_digest_summary(args, fin, stats, durable)}
         else:
-            summary, fin = _run_to_target(args, cfg, state, to_target, extra)
+            summary, fin = _run_to_target(args, cfg, state, to_target, {**extra, **_scenario_summary(spec)})
     if marks is not None:
         import torch
 
@@ -557,6 +623,62 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                     f"the horizon {horizon} B, from {start} B allocated at its start)")
     summary["packed"] = args.packed
     return summary, fin
+
+
+def _scenario_spec(args: argparse.Namespace):
+    """The run's parsed ``--scenario``, None without one."""
+    if not args.scenario:
+        return None
+    from tpu_gossip_torch.faults import parse_scenario
+
+    return parse_scenario(args.scenario)
+
+
+def _sample_ids(args: argparse.Namespace, rng):
+    """Origin peers, then silent peers, drawn once from the run's ``rng``
+    as the JAX CLI draws them (the sharded path maps both through
+    ``position``)."""
+    origins = rng.choice(args.peers, size=min(args.origins, args.peers), replace=False)
+    silent_ids = None
+    if args.silent_frac > 0:
+        k = int(args.silent_frac * args.peers)
+        silent_ids = rng.choice(args.peers, size=k, replace=False)
+    return origins, silent_ids
+
+
+def _set_rows(mask, rows):
+    """``mask`` with ``rows`` (numpy ids, or None for none) set."""
+    if rows is None:
+        return mask
+    import torch
+
+    return mask.index_fill(0, torch.as_tensor(np.asarray(rows), dtype=torch.int64, device=mask.device), True)
+
+
+def _compile_cli_scenario(spec, args: argparse.Namespace, n_slots: int, dev, node_map=None, shard_ranges=None,
+                          n_shards=None):
+    """Compile the parsed --scenario for one engine's slot layout on
+    ``dev`` (node sets are declared over real peer ids; ``node_map`` is the
+    engine's id-to-row mapping, the bucketed mesh's ``position``)."""
+    if spec is None:
+        return None
+    from tpu_gossip_torch.faults import compile_scenario
+
+    return compile_scenario(spec, n_peers=args.peers, n_slots=n_slots, total_rounds=_total_rounds(args),
+                            node_map=node_map, shard_ranges=shard_ranges, n_shards=n_shards, device=dev)
+
+
+def _scenario_summary(spec, stats=None) -> dict:
+    """Summary-row fields for an active scenario, with the per-phase report
+    when per-round stats exist."""
+    if spec is None:
+        return {}
+    out = {"scenario": spec.name}
+    if stats is not None:
+        from tpu_gossip_torch.sim import metrics as M
+
+        out["phases"] = M.phase_report(stats, spec)
+    return out
 
 
 def _horizon_start(dev) -> tuple[int, int]:
@@ -665,7 +787,7 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
     return (unpack_state(fin) if pack else fin), stats, wall
 
 
-def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, *, policy=None, prefix=None,
+def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, *, policy=None, prefix=None,
                     durable: bool = False):
     """--remat-every R on the local engine: R rounds, then fold the fresh
     edges into the CSR at the capacity ``cap`` taken once from the fresh
@@ -686,7 +808,8 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, *, poli
         return st
 
     def horizon_segment(st, seg):
-        return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail)
+        return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail,
+                        scenario=scen)
 
     r = args.remat_every
     if durable:
@@ -700,15 +823,15 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, *, poli
         if args.rounds > 0:
             return horizon_segment(st, seg)
         plan = _staircase_plan(args, st, dev) if args.staircase else None
-        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail), None
+        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail, scenario=scen), None
 
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     extra = {"remat_every": r, "remats": remats, "remat_overflow_edges": sum(int(o) for o in overflow)}
     return _remat_summary(args, state, parts, wall, extra, wall), state
 
 
-def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, *, policy=None, prefix=None,
-                          durable: bool = False):
+def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, scen=None, *, policy=None,
+                          prefix=None, durable: bool = False):
     """--shard --remat-every R: R rounds on the mesh, then fold the fresh
     edges into the CSR, re-partition the live swarm with seed ``--seed``
     plus the fold's index (the round over R, so a resumed run draws the
@@ -716,7 +839,9 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
     plans with --staircase. Checkpointed or resumed (``durable``), the
     horizon runs through the driver; its checkpoints land on the epoch
     boundaries before the fold, and a resumed run replays the fold first.
-    The rebuilds' seconds are reported apart."""
+    The rebuilds' seconds are reported apart. A scenario (scalar phases
+    only: node masks would not survive the re-partition) stays compiled
+    over the first epoch's layout, as in the JAX CLI."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.sim.engine import remat_capacity, rematerialize_rewired
 
@@ -725,9 +850,9 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
 
     def run_segment(st, seg):
         if args.rounds > 0:
-            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"])
+            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen)
         return dist.run_until_coverage_dist(st, cfg, epoch["sg"], mesh, args.target, seg,
-                                            shard_plan=epoch["plans"]), None
+                                            shard_plan=epoch["plans"], scenario=scen), None
 
     def fold(st):
         t0 = time.perf_counter()
@@ -805,11 +930,13 @@ def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
             "warm_rounds": args.profile_round, "stages_ms": stages_ms(stages)}
 
 
-def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
+def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw: dict, dev, spec=None):
     """--shard: partition the graph over the mesh (pads born dead), with
-    --staircase build K6's plans, seed ``origins`` through the partition's
-    relabelling; returns ``(cfg, state, segment, to_target, extra summary
-    keys, (mesh, sharded graph, plans))``."""
+    --staircase build K6's plans, seed ``origins`` and the silent peers
+    through the partition's relabelling, compile the scenario over the
+    padded slot space through ``position``; returns ``(cfg, state,
+    segment, to_target, extra summary keys, (mesh, sharded graph, plans,
+    compiled scenario))``."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.state import SwarmConfig
@@ -818,16 +945,22 @@ def _shard_runners(args: argparse.Namespace, graph, origins, cfg_kw: dict, dev):
     sg, relabeled, position = dist.partition_graph(graph, mesh.size, seed=args.seed, device=dev)
     cfg = SwarmConfig(n_peers=sg.n_pad, **cfg_kw)
     plans = dist.build_shard_plans(sg) if args.staircase else None
-    state = dist.shard_swarm(dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev),
-                                                     origins=origins, device=dev), mesh)
+    state = dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev), origins=origins,
+                                    device=dev)
+    state.silent = _set_rows(state.silent, None if silent_ids is None else position[silent_ids])
+    state = dist.shard_swarm(state, mesh)
+    scen = _compile_cli_scenario(spec, args, sg.n_pad, dev, node_map=lambda ids: position[np.asarray(ids)],
+                                 shard_ranges=dist.shard_ranges(mesh.size, sg.per_shard, mesh=mesh),
+                                 n_shards=mesh.size)
 
     def segment(st, rounds):
-        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans)
+        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen)
 
     def to_target(st):
-        return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans)
+        return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
+                                            scenario=scen)
 
-    return cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans)
+    return cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans, scen)
 
 
 if __name__ == "__main__":

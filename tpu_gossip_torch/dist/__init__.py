@@ -3,7 +3,8 @@
 Ports the bucketed engine of ``tpu_gossip/dist/`` (``dist/mesh.py``): a
 graph partitioned into per-shard buckets, one exchange a round, and the
 receive through K6 (``--shard --staircase``) or the scatter OR, churn
-re-wiring and the epoch re-partition after a CSR fold included. The mesh
+re-wiring, fault scenarios and the epoch re-partition after a CSR fold
+included. The mesh
 is S shards in one process on one device; the multi-process exchange and
 the other engines and transports of ``tpu_gossip/dist/`` are a later
 slice.
@@ -20,6 +21,7 @@ from tpu_gossip_torch.dist.mesh import (
     partition_graph,
     repartition_swarm,
     run_until_coverage_dist,
+    shard_ranges,
     shard_swarm,
     simulate_dist,
 )
@@ -35,6 +37,7 @@ __all__ = [
     "partition_graph",
     "repartition_swarm",
     "run_until_coverage_dist",
+    "shard_ranges",
     "shard_swarm",
     "simulate_dist",
 ]

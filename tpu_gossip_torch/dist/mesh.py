@@ -25,7 +25,12 @@ rewired sender's static out-edges carry nothing, deliveries to a rewired
 row over static edges are dropped before billing, and the rejoiners'
 fresh edges go through the local engine's ``fresh_rewire_traffic`` over
 the mesh's global state. :func:`repartition_swarm` is the epoch rebuild
-after a CSR fold. The exchange over NCCL with one process per card, the
+after a CSR fold; it moves the delay buffer (``fault_held``) with its
+rows. A ``scenario`` (``faults/``) wraps the delivery exactly as on the
+local engine, its masks compiled over the padded slot space through
+``position`` (:func:`shard_ranges` for whole-shard sets), so a scenario
+run equals the local run of the same engine family bit for bit. The
+exchange over NCCL with one process per card, the
 matching mesh, the sparse, auto and hier transports and the ``IciRound``
 counters are a later slice and raise ``NotImplementedError``.
 """
@@ -60,6 +65,7 @@ __all__ = [
     "init_sharded_swarm",
     "shard_swarm",
     "repartition_swarm",
+    "shard_ranges",
     "gossip_round_dist",
     "simulate_dist",
     "run_until_coverage_dist",
@@ -357,6 +363,17 @@ def repartition_swarm(state: SwarmState, n_shards: int, *, seed: int = 0
     return sg, new_state, position
 
 
+def shard_ranges(n_shards: int, block: int, mesh: Mesh | None = None) -> list[tuple[int, int]]:
+    """Per-shard ``[lo, hi)`` row ranges of the padded slot space: shard
+    ``s`` owns rows ``[s * block, (s + 1) * block)``. With ``mesh``, its
+    size must be ``n_shards``."""
+    if n_shards < 1 or block < 1:
+        raise ValueError(f"shard_ranges needs n_shards >= 1 and block >= 1, got ({n_shards}, {block})")
+    if mesh is not None and int(mesh.size) != n_shards:
+        raise ValueError(f"mesh has {int(mesh.size)} devices but the layout expects {n_shards} shards")
+    return [(s * block, (s + 1) * block) for s in range(n_shards)]
+
+
 def shard_swarm(state, mesh: Mesh):
     """The state (SwarmState or PackedSwarm) with every tensor on the
     mesh's device; the shards are row ranges of ``per_shard`` rows."""
@@ -566,18 +583,28 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, sha
     stages; returns ``(new_state, RoundStats)``. With ``shard_plan`` the
     receive runs K6, else the scatter OR. A ``PackedSwarm`` runs the
     packed-native round, whose delivery decodes the transmit and role
-    planes for the exchange and packs the product, and stays packed. The
-    arguments of later slices (``scenario``, ``growth``, ``transport``,
-    ``collect_ici``, ``stream``, ``control``, ``pipeline``, ``liveness``,
-    ``inject``) raise ``NotImplementedError``."""
+    planes for the exchange and packs the product, and stays packed.
+    ``scenario`` injects the round's faults around the exchange (and, on
+    the packed round, around its bool twin). The arguments of later
+    slices (``growth``, ``transport``, ``collect_ici``, ``stream``,
+    ``control``, ``pipeline``, ``liveness``, ``inject``) raise
+    ``NotImplementedError``."""
     _check_round(state, cfg, sg, mesh, shard_plan, later)
     if is_packed(state):
-        from tpu_gossip_torch.sim.packed_engine import run_protocol_round_packed
+        from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed
 
         def deliver_words(tx_w, role_w, flags, kp, kq):
             return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq)
 
-        return run_protocol_round_packed(state, cfg, deliver_words, **later)
+        def deliver_bool_factory(flags, seen_b):
+            shim = _delivery_shim(state, flags, seen_b)
+
+            def deliver(tx, tr, rc, kp, kq):
+                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq)
+
+            return deliver
+
+        return run_protocol_round_packed(state, cfg, deliver_words, deliver_bool_factory, **later)
 
     def disseminate(tx, tr, rc, kp, kq):
         return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq)
@@ -589,11 +616,13 @@ def simulate_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, num_rou
                   shard_plan: ShardPlans | None = None, **later):
     """A fixed horizon of sharded rounds; returns the final state and the
     per-round stats stacked along a leading (num_rounds,) axis."""
-    from tpu_gossip_torch.sim.engine import _stack
+    from tpu_gossip_torch.sim.engine import _stack, host_rounds
 
+    r0 = host_rounds(state, later)
     rows = []
-    for _ in range(num_rounds):
-        state, st = gossip_round_dist(state, cfg, sg, mesh, shard_plan, **dict(later))
+    for i in range(num_rounds):
+        state, st = gossip_round_dist(state, cfg, sg, mesh, shard_plan, host_round=None if r0 is None else r0 + i,
+                                      **dict(later))
         rows.append(st)
     return state, _stack(rows)
 
@@ -604,9 +633,14 @@ def run_until_coverage_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mes
     """Sharded rounds until ``coverage(slot) >= target`` (compared in
     float32) or ``max_rounds``, reading the stop condition on the host once
     a round; rounds used = ``result.round - state.round``."""
+    from tpu_gossip_torch.sim.engine import host_rounds
+
     start = state.round
+    r0 = host_rounds(state, later)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
-    s = state
+    s, i = state, 0
     while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
-        s, _ = gossip_round_dist(s, cfg, sg, mesh, shard_plan, **dict(later))
+        s, _ = gossip_round_dist(s, cfg, sg, mesh, shard_plan, host_round=None if r0 is None else r0 + i,
+                                 **dict(later))
+        i += 1
     return s

@@ -14,7 +14,10 @@ fold that empties it (``remat_capacity`` :616, ``rematerialize_rewired``
 :633); ``validate_rewire_width`` (:803); ``advance_round`` (:821),
 ``gossip_round`` (:1012), ``simulate`` (:1114) and ``run_until_coverage``
 (:1170). Each entry point takes a ``PackedSwarm`` too, runs the round on
-its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``.
+its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``, and a
+``scenario`` (``faults/``): the round's faults wrap the delivery, the
+delay buffer rides ``fault_held`` and the three fault counters land in
+``RoundStats``.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
@@ -67,7 +70,7 @@ class RoundStats(NamedTuple):
     n_infected: torch.Tensor  # i32 — peers having seen slot 0
     n_alive: torch.Tensor  # i32 — alive & not declared dead
     n_declared_dead: torch.Tensor  # i32
-    msgs_dropped: torch.Tensor  # i32 — fault plane (0 here)
+    msgs_dropped: torch.Tensor  # i32 — fault plane (0 without loss/delay)
     msgs_held: torch.Tensor
     msgs_delivered: torch.Tensor
     n_members: torch.Tensor  # i32 — slots with exists=True
@@ -98,7 +101,7 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32)
 
 
-def _stats(state: SwarmState, msgs_sent: torch.Tensor) -> RoundStats:
+def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -117,6 +120,8 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor) -> RoundStats:
         slot_age=zm,
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
     )
+    if fstats is not None:
+        counters.update(fstats._asdict())
     return RoundStats(**counters)
 
 
@@ -445,10 +450,15 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
 
 
 def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, transmit,
-                  rnd, key, k_leave, k_join, receptive, *, tail: str = "fused"):
+                  rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
+                  churn_faults: bool = False, fault_held=None, fstats=None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
-    returns ``(new_state, RoundStats)``."""
+    returns ``(new_state, RoundStats)``. ``faults`` (the round's
+    ``RoundFaults``) makes blacked-out rows silent to the detector and,
+    with ``churn_faults``, folds the burst into the churn draws;
+    ``fault_held`` is the delay buffer to carry (the input's when None) and
+    ``fstats`` the round's fault counters."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -458,9 +468,10 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "rewire_targets": state.rewire_targets, "degree_credit": state.degree_credit,
         "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming, "transmit": transmit,
-        "receptive": receptive, "fresh": None, "expired": None,
+        "receptive": receptive, "fresh": None, "expired": None, "faults": faults,
     }
-    values = run_stages(build_round_stages(cfg, tail=tail), values)
+    values = run_stages(build_round_stages(cfg, tail=tail, has_faults=faults is not None,
+                                           churn_faults=churn_faults), values)
     new_state = SwarmState(
         row_ptr=state.row_ptr, col_idx=state.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
@@ -468,20 +479,22 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         exists=state.exists, alive=values["alive"], silent=values["silent"],
         last_hb=values["last_hb"], declared_dead=values["declared_dead"],
         rewired=values["rewired"], rewire_targets=values["rewire_targets"],
-        fault_held=state.fault_held, join_round=state.join_round,
+        fault_held=state.fault_held if fault_held is None else fault_held, join_round=state.join_round,
         admitted_by=state.admitted_by, degree_credit=values["degree_credit"],
         slot_lease=state.slot_lease, control_lvl=state.control_lvl,
         pipe_buf=state.pipe_buf, suspect_round=state.suspect_round,
         suspect_mark=state.suspect_mark, quarantine=state.quarantine,
         rng=key, round=rnd,
     )
-    return new_state, _stats(new_state, msgs_sent)
+    return new_state, _stats(new_state, msgs_sent, fstats)
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
                  **later):
     """Advance the swarm one round; returns ``(new_state, RoundStats)``. A
-    ``PackedSwarm`` runs the packed-native round and stays packed."""
+    ``PackedSwarm`` runs the packed-native round and stays packed.
+    ``scenario`` injects the round's faults (``host_round``, the state's
+    round on the host, spares a device read)."""
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import gossip_round_packed
 
@@ -502,13 +515,22 @@ def _concat(parts: list[RoundStats]) -> RoundStats:
     return RoundStats(*(torch.cat(col) for col in zip(*parts)))
 
 
+def host_rounds(state, later: dict):
+    """Under a scenario, the state's round read once on the host (the
+    horizon loops count on from it); None otherwise."""
+    return int(state.round) if later.get("scenario") is not None else None
+
+
 def simulate(state: SwarmState, cfg: SwarmConfig, num_rounds: int, plan=None,
              tail: str = "fused", **later):
     """Run a fixed horizon; returns the final state and the per-round
-    stats stacked along a leading (num_rounds,) axis."""
+    stats stacked along a leading (num_rounds,) axis. ``scenario`` threads
+    a compiled fault schedule through every round; the state's round is
+    its cursor."""
+    r0 = host_rounds(state, later)
     rows = []
-    for _ in range(num_rounds):
-        state, st = gossip_round(state, cfg, plan, tail=tail, **later)
+    for i in range(num_rounds):
+        state, st = gossip_round(state, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i, **later)
         rows.append(st)
     return state, _stack(rows)
 
@@ -517,10 +539,13 @@ def run_until_coverage(state: SwarmState, cfg: SwarmConfig, target: float = 0.99
                        max_rounds: int = 1000, slot: int = 0, plan=None,
                        tail: str = "fused", **later) -> SwarmState:
     """Rounds until ``coverage(slot) >= target`` (compared in float32) or
-    ``max_rounds``; rounds used = ``result.round - state.round``."""
+    ``max_rounds``; rounds used = ``result.round - state.round``. Under a
+    ``scenario`` rounds past its schedule run quiescent."""
     start = state.round
+    r0 = host_rounds(state, later)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
-    s = state
+    s, i = state, 0
     while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
-        s, _ = gossip_round(s, cfg, plan, tail=tail, **later)
+        s, _ = gossip_round(s, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i, **later)
+        i += 1
     return s

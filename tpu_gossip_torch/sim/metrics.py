@@ -1,7 +1,8 @@
 """Per-round metrics and the run-to-coverage benchmark.
 
 Ports ``BenchResult``, ``rounds_to_coverage``, ``bench_swarm``,
-``stats_rows`` and ``write_jsonl`` of ``tpu_gossip/sim/metrics.py``.
+``stats_rows``, ``write_jsonl``, ``recoverage_rounds`` and
+``phase_report`` of ``tpu_gossip/sim/metrics.py``.
 ``bench_swarm`` times on the host clock around work that ends in
 ``torch.cuda.synchronize()`` on a CUDA state.
 """
@@ -19,7 +20,8 @@ import torch
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.sim.engine import RoundStats, run_until_coverage
 
-__all__ = ["BenchResult", "rounds_to_coverage", "bench_swarm", "stats_rows", "write_jsonl"]
+__all__ = ["BenchResult", "rounds_to_coverage", "bench_swarm", "stats_rows", "write_jsonl", "recoverage_rounds",
+           "phase_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +104,58 @@ def write_jsonl(stats: RoundStats, sink: IO[str]) -> None:
     """One JSON object per round."""
     for row in stats_rows(stats):
         sink.write(json.dumps(row) + "\n")
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def recoverage_rounds(stats: RoundStats, after_round: int, target: float = 0.99) -> int:
+    """Rounds needed to regain ``target`` coverage after round
+    ``after_round`` (1-based: a partition's heal round); -1 if the horizon
+    never recovers."""
+    cov = _host(stats.coverage)[after_round:]
+    hit = np.nonzero(cov >= target)[0]
+    return int(hit[0]) + 1 if hit.size else -1
+
+
+def phase_report(stats: RoundStats, spec, *, heal_target: float = 0.99) -> list[dict]:
+    """Per-phase fault telemetry of a fixed-horizon run under a scenario
+    (``spec``, the ``ScenarioSpec`` it was compiled from): the realised
+    delivery-loss rate (dropped / (dropped + delivered)), the held buffer's
+    peak, the new dead declarations and the rounds from phase start to the
+    first, the coverage at the phase's end, and for a partition the rounds
+    to regain ``heal_target`` of the run's peak coverage after the heal.
+    ``n_declared_dead`` is not monotone (a rejoin clears a verdict), so
+    detection counts the phase's peak over its starting value."""
+    cov = _host(stats.coverage)
+    dropped = _host(stats.msgs_dropped)
+    held = _host(stats.msgs_held)
+    delivered = _host(stats.msgs_delivered)
+    dead = _host(stats.n_declared_dead)
+    horizon = len(cov)
+    ceiling = float(cov.max()) if horizon else 0.0
+    rows: list[dict] = []
+    for p in spec.phases:
+        lo, hi = p.start, min(p.end, horizon)
+        if lo >= horizon:
+            continue
+        d = int(dropped[lo:hi].sum())
+        dv = int(delivered[lo:hi].sum())
+        dead_before = int(dead[lo - 1]) if lo > 0 else 0
+        newly_dead = np.nonzero(dead[lo:hi] > dead_before)[0]
+        detection_new = max(int(dead[lo:hi].max()) - dead_before, 0)
+        row = {
+            "phase": p.name,
+            "rounds": [lo + 1, hi],
+            "msgs_dropped": d,
+            "delivery_loss_rate": d / max(d + dv, 1),
+            "msgs_held_max": int(held[lo:hi].max()) if hi > lo else 0,
+            "detection_new": detection_new,
+            "detection_latency_rounds": (int(newly_dead[0]) + 1 if detection_new > 0 and newly_dead.size else -1),
+            "coverage_end": float(cov[hi - 1]),
+        }
+        if p.partition is not None:
+            row["recoverage_rounds_after_heal"] = recoverage_rounds(stats, hi, heal_target * ceiling)
+        rows.append(row)
+    return rows

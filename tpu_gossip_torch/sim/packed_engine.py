@@ -21,8 +21,13 @@ stats are bit-identical to the unpacked run's. The churn stage is the bool
 engine's too (row-level; ``rewired`` rides the flags word), and the word
 tail resets the rejoined rows (``fresh``). Under churn re-wiring the
 delivery is the bool engine's on decoded planes, side paths included.
-Scenarios, growth, streams, control, pipelining, the quorum detector and
-live ingestion are later slices and raise ``NotImplementedError``.
+Under a scenario the fault head latches bool planes (the held buffer, the
+blackout and partition masks): the round decodes ``seen``, the role words
+and ``fault_held`` once, runs the bool head around the engine's bool
+delivery (``deliver_bool_factory``) and packs ``incoming``, the effective
+transmit plane and the held buffer back. Growth, streams, control,
+pipelining, the quorum detector and live ingestion are later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
-from tpu_gossip_torch.sim.stages import Stage, _churn_stage, _liveness_stage, check_later, has_churn, run_stages
+from tpu_gossip_torch.sim.stages import (Stage, _churn_stage, _liveness_stage, check_later, fault_round, has_churn,
+                                        run_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -139,18 +145,23 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
     return Stage("tail", reads, writes, fn)
 
 
-def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused") -> tuple[Stage, ...]:
+def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", has_faults: bool = False,
+                               churn_faults: bool = False) -> tuple[Stage, ...]:
     """The packed stages of one config: the bool engine's row-level
-    liveness and churn stages, then the word tail."""
-    churn = (_churn_stage(cfg),) if has_churn(cfg) else ()
-    return (_liveness_stage(cfg), *churn, _tail_stage_packed(cfg, tail, m))
+    liveness and churn stages (fault-aware as there), then the word tail."""
+    burst = has_faults and churn_faults
+    churn = (_churn_stage(cfg, burst),) if has_churn(cfg) or burst else ()
+    return (_liveness_stage(cfg, has_faults), *churn, _tail_stage_packed(cfg, tail, m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
-                         rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused"):
+                         rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
+                         churn_faults: bool = False, fault_held_w=None, fstats=None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
-    decoded bools; the flags word is packed again once, at assembly."""
+    decoded bools; the flags word is packed again once, at assembly.
+    ``fault_held_w`` is the packed delay buffer to carry (the input's when
+    None), ``fstats`` the round's fault counters."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -160,9 +171,10 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "rewire_targets": ps.rewire_targets, "degree_credit": ps.degree_credit,
         "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming_w, "transmit": transmit_w,
-        "receptive": receptive_w, "fresh": None, "expired": None,
+        "receptive": receptive_w, "fresh": None, "expired": None, "faults": faults,
     }
-    values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail), values)
+    values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, has_faults=faults is not None,
+                                                   churn_faults=churn_faults), values)
     row_flags = dict(flags, alive=values["alive"], silent=values["silent"],
                      declared_dead=values["declared_dead"], rewired=values["rewired"])
     new_state = PackedSwarm(
@@ -170,17 +182,18 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         seen=values["seen"], forwarded=values["forwarded"],
         infected_round=values["infected_round"], recovered=values["recovered"],
         flags=pack_flags(row_flags), last_hb=values["last_hb"],
-        rewire_targets=values["rewire_targets"], fault_held=ps.fault_held,
+        rewire_targets=values["rewire_targets"],
+        fault_held=ps.fault_held if fault_held_w is None else fault_held_w,
         join_round=ps.join_round, admitted_by=ps.admitted_by,
         degree_credit=values["degree_credit"], slot_lease=ps.slot_lease,
         control_lvl=ps.control_lvl, pipe_buf=ps.pipe_buf,
         suspect_round=ps.suspect_round, suspect_mark=ps.suspect_mark,
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
-    return new_state, _stats_packed(new_state, row_flags, msgs_sent)
+    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats)
 
 
-def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent):
+def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
     agree bit for bit, the padding being zero)."""
@@ -203,31 +216,61 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent):
         slot_age=zm,
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
     )
+    if fstats is not None:
+        counters.update(fstats._asdict())
     return RoundStats(**counters)
 
 
-def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, *, tail: str = "fused", **later):
+def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
+                              tail: str = "fused", scenario=None, host_round: int | None = None, **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
-    k_pull) -> (inc_w, msgs_sent)``, then the packed stages."""
+    k_pull) -> (inc_w, msgs_sent)``, then the packed stages. Under a
+    ``scenario``, ``deliver_bool_factory(flags, seen_b) -> deliver(tx, tr,
+    rc, k_push, k_pull)`` builds the full-width delivery the fault head
+    wraps: the round's planes decode once at this boundary and the
+    products pack back."""
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
     _engine.validate_rewire_width(ps, cfg)
+    m = ps.msg_slots
     rnd = ps.round + 1
     key, k_push, k_pull, k_leave, k_join = prng.split(ps.rng, 5)
     flags = _decode_flags(ps)
     _active, role_w, tx_w = packed_round_head(ps, cfg, flags)
-    inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull)
-    return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_w, rnd, key, k_leave, k_join, role_w,
-                                tail=tail)
+    if scenario is None:
+        inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull)
+        tx_eff_w, held_w, telem, rf = tx_w, None, None, None
+    else:
+        from tpu_gossip_torch.faults.inject import scenario_dissemination
+
+        seen_b = unpack_bits(ps.seen, m)
+        role_b = unpack_bits(role_w, m)
+        shim = types.SimpleNamespace(rng=ps.rng, fault_held=unpack_bits(ps.fault_held, m), seen=seen_b)
+        incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
+            scenario, shim, fault_round(ps, host_round), unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull,
+            deliver_bool_factory(flags, seen_b))
+        inc_w, tx_eff_w, held_w = pack_bits(incoming), pack_bits(tx_eff), pack_bits(held)
+    return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
+                                tail=tail, faults=rf, churn_faults=scenario is not None and scenario.has_churn,
+                                fault_held_w=held_w, fstats=telem)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):
     """Advance a packed swarm one round on its words; returns ``(new packed
     state, RoundStats)``, bit-identical to the bool round."""
+    from tpu_gossip_torch.sim import engine as _engine
 
     def deliver_words(tx_w, role_w, flags, kp, kq):
         return _disseminate_local_packed(ps, cfg, flags, role_w, tx_w, kp, kq, plan)
 
-    return run_protocol_round_packed(ps, cfg, deliver_words, tail=tail, **later)
+    def deliver_bool_factory(flags, seen_b):
+        shim = _delivery_shim(ps, flags, seen_b)
+
+        def deliver(tx, tr, rc, kp, kq):
+            return _engine._disseminate_local(shim, cfg, tx, tr, rc, kp, kq, plan)
+
+        return deliver
+
+    return run_protocol_round_packed(ps, cfg, deliver_words, deliver_bool_factory, tail=tail, **later)

@@ -6,6 +6,8 @@
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device --shard --staircase
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --churn-leave 0.002 \\
         --churn-join 0.02 --rewire-slots 2 --rewire-compact-cap 65536
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 18 \\
+        --scenario scenarios/lossy_links.toml
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -34,7 +36,12 @@ credit), ``fresh_side_paths`` (``fresh_rewire_traffic`` over the rewired
 rows) and, with ``--remat-every R`` on a CSR graph, ``remat`` (one
 ``rematerialize_rewired`` fold, with ``remat_per_round`` its share of R
 rounds) and on the sharded path ``repartition`` (the epoch's
-re-partition, re-shard and K6 plans). Needs a CUDA device.
+re-partition, re-shard and K6 plans). ``--scenario F`` (the local
+unpacked round) runs the warm and traced rounds under the fault schedule
+in ``F`` and adds ``fault_draws``
+(the fault head's two ``(N, M)`` uniforms), ``fault_round`` (the whole
+round under the scenario at the round after the warm ones) and
+``plain_round`` (the same round without it). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -323,6 +330,8 @@ def main(argv=None) -> int:
     p.add_argument("--rewire-compact-cap", type=int, default=0, help="rows of the fresh side paths' table (0 = dense)")
     p.add_argument("--remat-every", type=int, default=0,
                    help="time one CSR fold (and, with --shard, the epoch re-partition) and its share of R rounds")
+    p.add_argument("--scenario", type=str, default="",
+                   help="fault schedule (TOML) the warm and traced rounds run under (local unpacked round)")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -333,6 +342,8 @@ def main(argv=None) -> int:
     if args.remat_every > 0 and (args.graph == "matching" or args.packed):
         raise SystemExit("--remat-every folds a CSR graph's unpacked state (--graph device or pa, no --packed)")
     if args.shard:
+        if args.scenario:
+            raise SystemExit("--scenario profiles the local unpacked round; drop --shard")
         return main_shard(args, dev)
     n = args.peers
     exists = plan = None
@@ -350,7 +361,16 @@ def main(argv=None) -> int:
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
     cap = engine.remat_capacity(state, cfg) if args.remat_every > 0 else None
-    state, _ = engine.simulate(state, cfg, args.warm, plan)
+    sc = None
+    if args.scenario:
+        if args.packed:
+            raise SystemExit("--scenario profiles the local unpacked round; drop --packed")
+        from tpu_gossip_torch.faults import compile_scenario, parse_scenario
+
+        spec = parse_scenario(args.scenario)
+        sc = compile_scenario(spec, n_peers=n, n_slots=graph.n, device=dev,
+                              total_rounds=max(spec.last_round, args.warm + args.rounds))
+    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc)
     churn = churn_stage_times(state, cfg, args.reps, cap) if has_churn(cfg) else {}
     if args.packed:
         if args.staircase:
@@ -364,10 +384,36 @@ def main(argv=None) -> int:
     else:
         stages = {"whole_round": _event_ms(lambda: engine.gossip_round(state, cfg, None), args.reps)}
     stages.update(_with_share(churn, args.remat_every))
+    if sc is not None:
+        stages.update(fault_stage_times(state, cfg, plan, sc, args.warm, args.reps))
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
-                      "packed": args.packed, **_churn_keys(args), "stage_ms": stages}))
-    print(json.dumps({"trace": trace_rounds(state, lambda s: engine.gossip_round(s, cfg, plan), args.rounds)}))
+                      "packed": args.packed, **_churn_keys(args), "scenario": args.scenario or None,
+                      "stage_ms": stages}))
+    rnd = [args.warm]
+
+    def step(s):
+        out = engine.gossip_round(s, cfg, plan, scenario=sc, host_round=rnd[0] if sc is not None else None)
+        rnd[0] += 1
+        return out
+
+    print(json.dumps({"trace": trace_rounds(state, step, args.rounds)}))
     return 0
+
+
+def fault_stage_times(state, cfg, plan, sc, at: int, reps: int) -> dict:
+    """The fault head's own cost on a warm state at round ``at``: its two
+    ``(N, M)`` uniforms (drawn whether or not a phase is lossy, when any
+    is), the whole round under the scenario and the same round without."""
+    from tpu_gossip_torch.core.streams import FAULT_STREAM_SALT
+
+    k_loss, k_delay, _, _ = prng.split(prng.fold_in(state.rng, FAULT_STREAM_SALT), 4)
+    shape = tuple(state.seen.shape)
+    out = {}
+    if sc.has_loss_delay:
+        out["fault_draws"] = _event_ms(lambda: (prng.uniform(k_loss, shape), prng.uniform(k_delay, shape)), reps)
+    out["fault_round"] = _event_ms(lambda: engine.gossip_round(state, cfg, plan, scenario=sc, host_round=at), reps)
+    out["plain_round"] = _event_ms(lambda: engine.gossip_round(state, cfg, plan), reps)
+    return out
 
 
 def main_shard(args, dev) -> int:

@@ -1,18 +1,20 @@
 """The round as declared stages: the shared driver of every engine.
 
 Ports ``Stage``, ``StageView``, ``run_stages``, ``_liveness_stage`` (the
-direct detector), ``_churn_stage`` (:298, Poisson churn and the re-wiring
-draws), ``_tail_stage``, ``build_round_stages`` (:673) and
-``run_protocol_round`` (:739) of ``tpu_gossip/sim/stages.py``. Each stage
-names the carries it reads and writes and :func:`run_stages` enforces the
-declarations. :func:`run_protocol_round` does the 5-way key split, the
-role masks, the engine's dissemination and the post-delivery stages
-(liveness, churn, tail).
+direct detector, blacked-out rows read as silent), ``_churn_stage`` (:298,
+Poisson churn, the scenario's burst thresholds and the re-wiring draws),
+``_tail_stage``, ``build_round_stages`` (:673),
+``effective_transmit_planes`` (:724) and ``run_protocol_round`` (:739) of
+``tpu_gossip/sim/stages.py``. Each stage names the carries it reads and
+writes and :func:`run_stages` enforces the declarations.
+:func:`run_protocol_round` does the 5-way key split, the role masks, the
+engine's dissemination (wrapped by the scenario head,
+``faults.inject.scenario_dissemination``, under a scenario) and the
+post-delivery stages (liveness, churn, tail).
 
-Scenarios (with their churn bursts), growth, streams, control,
-pipelining, the quorum detector (with its quarantined rejoin) and live
-ingestion are later slices; their arguments raise ``NotImplementedError``
-here.
+Growth, streams, control, pipelining, the quorum detector (with its
+quarantined rejoin) and live ingestion are later slices; their arguments
+raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from tpu_gossip_torch.core import prng
 
 __all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "run_protocol_round", "not_ported",
-           "check_later", "first_rows", "has_churn"]
+           "check_later", "first_rows", "has_churn", "effective_transmit_planes", "fault_round"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,25 +77,27 @@ def run_stages(stages: tuple[Stage, ...], values: dict) -> dict:
     return values
 
 
-def _liveness_stage(cfg) -> Stage:
-    """Heartbeat emission + the direct failure detector (row-level)."""
+def _liveness_stage(cfg, has_faults: bool = False) -> Stage:
+    """Heartbeat emission + the direct failure detector (row-level). Under a
+    scenario a blacked-out row is a silent one for the phase: it emits no
+    heartbeat and answers no probe, and the dead declaration it earns
+    stays."""
     from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
 
     def fn(ctx):
+        silent_now = ctx["silent"] | ctx["faults"].blackout if has_faults else ctx["silent"]
         last_hb = emit_heartbeats(
-            ctx["last_hb"], ctx["alive"], ctx["silent"], ctx["declared_dead"],
+            ctx["last_hb"], ctx["alive"], silent_now, ctx["declared_dead"],
             ctx["rnd"], cfg.hb_period_rounds,
         )
         last_hb, declared_dead = detect_failures(
-            last_hb, ctx["alive"], ctx["silent"], ctx["declared_dead"], ctx["rnd"],
+            last_hb, ctx["alive"], silent_now, ctx["declared_dead"], ctx["rnd"],
             cfg.timeout_rounds, cfg.detect_period_rounds,
         )
         return {"last_hb": last_hb, "declared_dead": declared_dead}
 
-    return Stage(
-        "liveness", ("silent", "alive", "declared_dead", "last_hb", "rnd"),
-        ("last_hb", "declared_dead"), fn,
-    )
+    reads = ("silent", "alive", "declared_dead", "last_hb", "rnd") + (("faults",) if has_faults else ())
+    return Stage("liveness", reads, ("last_hb", "declared_dead"), fn)
 
 
 def first_rows(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +129,16 @@ def _add_at(vec: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor, delta: int
     return out[:n]
 
 
-def _churn_stage(cfg) -> Stage:
+def _burst_threshold(p_cfg: float, burst: torch.Tensor, p_burst: torch.Tensor) -> torch.Tensor:
+    """``1 - (1 - p_cfg) * (1 - where(burst, p_burst, 0))`` per row in
+    float32, rounded as JAX evaluates it: ``1 - p_cfg`` in double, then
+    rounded to float32 where it meets the float32 table."""
+    keep_cfg = torch.tensor(1.0 - p_cfg, dtype=torch.float32, device=burst.device)
+    extra = torch.where(burst, p_burst, torch.zeros((), dtype=torch.float32, device=burst.device))
+    return 1.0 - keep_cfg * (1.0 - extra)
+
+
+def _churn_stage(cfg, burst: bool = False) -> Stage:
     """Poisson churn, row-level half (BASELINE config 5), and the
     re-wiring draws: departures, rejoins of vacant member slots with fresh
     row state, and each rejoiner's ``rewire_slots`` degree-preferential
@@ -134,9 +147,12 @@ def _churn_stage(cfg) -> Stage:
     joiner rows. The fresh rows' slot planes are reset by the tail
     (``fresh``). Self draws and draws on non-member rows become -1;
     ``degree_credit`` releases an overwritten rejoiner's targets and
-    grants the new ones."""
+    grants the new ones. With ``burst`` the scenario's leave and join
+    probabilities fold into the same draws as per-row thresholds
+    (``P = 1 - (1 - p_cfg)(1 - p_burst)`` on burst rows): keys and shapes
+    are untouched, and both draws run every round."""
     reads = ("alive", "silent", "exists", "last_hb", "declared_dead", "rewired", "rewire_targets",
-             "degree_credit", "row_ptr", "col_idx", "rnd", "k_leave", "k_join")
+             "degree_credit", "row_ptr", "col_idx", "rnd", "k_leave", "k_join") + (("faults",) if burst else ())
     writes = ("alive", "silent", "last_hb", "declared_dead", "rewired", "rewire_targets", "degree_credit", "fresh")
 
     def fn(ctx):
@@ -146,11 +162,18 @@ def _churn_stage(cfg) -> Stage:
         declared_dead, rewired = ctx["declared_dead"], ctx["rewired"]
         rewire_targets, degree_credit = ctx["rewire_targets"], ctx["degree_credit"]
         fresh = None
-        if cfg.churn_leave_prob > 0.0:
-            alive = alive & ~_below(prng.uniform(ctx["k_leave"], tuple(alive.shape)), cfg.churn_leave_prob)
-        if cfg.churn_join_prob > 0.0:
+        faults = ctx["faults"] if burst else None
+        if cfg.churn_leave_prob > 0.0 or burst:
+            u = prng.uniform(ctx["k_leave"], tuple(alive.shape))
+            gone = (u < _burst_threshold(cfg.churn_leave_prob, faults.burst, faults.leave) if burst
+                    else _below(u, cfg.churn_leave_prob))
+            alive = alive & ~gone
+        if cfg.churn_join_prob > 0.0 or burst:
             k_join, k_rw = prng.split(ctx["k_join"])
-            fresh = ~alive & ctx["exists"] & _below(prng.uniform(k_join, tuple(alive.shape)), cfg.churn_join_prob)
+            u = prng.uniform(k_join, tuple(alive.shape))
+            back = (u < _burst_threshold(cfg.churn_join_prob, faults.burst, faults.join) if burst
+                    else _below(u, cfg.churn_join_prob))
+            fresh = ~alive & ctx["exists"] & back
             alive = alive | fresh
             silent = silent & ~fresh
             last_hb = torch.where(fresh, saturate_round(ctx["rnd"], last_hb.dtype), last_hb)
@@ -227,18 +250,20 @@ def has_churn(cfg) -> bool:
     return cfg.churn_leave_prob > 0.0 or cfg.churn_join_prob > 0.0
 
 
-def build_round_stages(cfg, *, tail: str = "fused") -> tuple[Stage, ...]:
-    """The post-dissemination stages of one config: liveness, churn (when
-    the config churns), then the tail."""
-    churn = (_churn_stage(cfg),) if has_churn(cfg) else ()
-    return (_liveness_stage(cfg), *churn, _tail_stage(cfg, tail))
+def build_round_stages(cfg, *, tail: str = "fused", has_faults: bool = False,
+                       churn_faults: bool = False) -> tuple[Stage, ...]:
+    """The post-dissemination stages of one config: liveness (reading the
+    round's faults under a scenario), churn (when the config churns or the
+    scenario has a churn burst, then in its burst form), then the tail."""
+    burst = has_faults and churn_faults
+    churn = (_churn_stage(cfg, burst),) if has_churn(cfg) or burst else ()
+    return (_liveness_stage(cfg, has_faults), *churn, _tail_stage(cfg, tail))
 
 
 def check_later(later: dict) -> None:
     """Refuse the arguments of later slices (given and not None) and any
     unknown argument."""
-    for name, where in (("scenario", "faults (ROADMAP item 9, with the churn stage's burst form)"),
-                        ("growth", "growth"), ("stream", "traffic"),
+    for name, where in (("growth", "growth"), ("stream", "traffic"),
                         ("control", "control"), ("pipeline", "multi-device"),
                         ("liveness", "composed-planes (ROADMAP item 9: the quorum detector, with the "
                                      "churn stage's quarantined rejoin)"),
@@ -249,7 +274,29 @@ def check_later(later: dict) -> None:
         raise TypeError(f"unexpected arguments {sorted(later)}")
 
 
-def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", **later):
+def effective_transmit_planes(state, cfg, scenario=None):
+    """(tx_eff, transmitter, receptive) for this round as the round
+    computes them: the transmit plane after the round's blackout mask."""
+    from tpu_gossip_torch.sim import engine as _engine
+
+    _, transmitter, receptive = _engine.compute_roles(state)
+    transmit = _engine.transmit_bitmap(state, cfg, transmitter)
+    if scenario is not None and scenario.has_blackout:
+        rf = scenario.at_round(state.round + 1)
+        transmit = transmit & ~rf.blackout[:, None]
+    return transmit, transmitter, receptive
+
+
+def fault_round(state, host_round: int | None) -> int:
+    """The round number a scenario's tables are read at: the state's next
+    round as a Python int (from ``host_round``, the state's round when the
+    caller knows it, else read off the device once), so the phase and the
+    partition branch are picked on the host."""
+    return (int(state.round) if host_round is None else int(host_round)) + 1
+
+
+def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
+                       host_round: int | None = None, **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
@@ -258,6 +305,12 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     drive the churn stage), computes the role masks, delivers, and runs
     the stages through
     ``sim.engine.advance_round``. Returns ``(new_state, RoundStats)``.
+
+    ``scenario`` (a :class:`~tpu_gossip_torch.faults.CompiledScenario`)
+    wraps the delivery in the round's faults; its draws come from their own
+    stream, so a quiescent scenario changes no bit. ``host_round`` is
+    ``state.round`` when the caller knows it on the host (the horizon
+    loops do), sparing a device read a round.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -267,7 +320,16 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     key, k_push, k_pull, k_leave, k_join = prng.split(state.rng, 5)
     _, transmitter, receptive = _engine.compute_roles(state)
     transmit = _engine.transmit_bitmap(state, cfg, transmitter)
-    incoming, msgs_sent = disseminate(transmit, transmitter, receptive, k_push, k_pull)
+    if scenario is None:
+        incoming, msgs_sent = disseminate(transmit, transmitter, receptive, k_push, k_pull)
+        tx_eff, held, telem, rf = transmit, None, None, None
+    else:
+        from tpu_gossip_torch.faults.inject import scenario_dissemination
+
+        incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
+            scenario, state, fault_round(state, host_round), transmit, transmitter, receptive,
+            k_push, k_pull, disseminate)
     return _engine.advance_round(
-        state, cfg, incoming, msgs_sent, transmit, rnd, key, k_leave, k_join, receptive, tail=tail,
+        state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
+        faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
     )
