@@ -58,7 +58,18 @@ edges, digest-equal to its uninterrupted run; 7e the n=20000 matching pin
 written on the card and resumed on the CPU, and the reverse. It prints the
 checkpoints' bytes and files, the seconds a save, the recovery seconds and
 the resumed run's peak memory; 7a fails if its resume holds more than its
-uninterrupted twin, at the horizon's start or at its peak.
+uninterrupted twin, at the horizon's start or at its peak. Phase 8 drives
+silent peers and the fault scenarios through the CLI in this process (8a
+config 2 and the n=20000 fault pins, 8b config 2's flags at 1M, 8c the
+four catalogued scenarios at 1M with packed twins, 8d the staircase and
+sharded paths, 8e a mid-delay checkpoint across card and CPU), and phase
+9 the quorum detector and the Byzantine adversaries (9a the quorum pins,
+config 2 at quorum 3 and the n=20000 siege on every engine; 9b the
+siege on the 1M matching headline at quorum 3 onto the JAX pin, its
+packed twin and quorum 1, ms/round over the siege and the aftermath
+apart; 9c the siege at 1M on the sharded K6 path, its scatter twin and
+the staircase, and a mid-siege checkpoint across card and CPU), each run's
+launches counted from zero; it prints phase 9's seconds and the script's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -356,9 +367,15 @@ def check_k6(dev, gen, setup: dict) -> int:
     return err
 
 
+def quorum_pin(ref: dict) -> bool:
+    """A pin of the quorum detector (``--quorum-k``): phase 9's."""
+    return "--quorum-k" in ref["argv"]
+
+
 def fault_pin(ref: dict) -> bool:
-    """A pin of the fault plane (silent peers or a scenario): phase 8's."""
-    return "--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]
+    """A pin of the fault plane (silent peers or a scenario) without the
+    quorum detector: phase 8's."""
+    return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not quorum_pin(ref)
 
 
 def phase_digest(root: Path, dev) -> list[dict]:
@@ -368,7 +385,7 @@ def phase_digest(root: Path, dev) -> list[dict]:
 
     out = []
     for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text()):
-        if fault_pin(ref):  # phase 8's
+        if fault_pin(ref) or quorum_pin(ref):  # phase 8's and phase 9's
             continue
         args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
         if unknown:
@@ -1501,20 +1518,34 @@ def fault_launches(path: str, rounds: int, partitioned: int = 0) -> dict:
     }[path]
 
 
-def cli_here(argv: list[str], dev) -> dict:
+def cli_here(argv: list[str], dev, marks: bool = False) -> dict:
     """run_sim's run body in this process (so the kernels' launch counters
     see it), every launch counted from 0: the summary, the per-round rows,
     the final (unpacked) state, the launches, the fixed horizon's wall
     seconds (graph, plans and state built before it) and the device peak
-    over it (the peak reset as it starts)."""
+    over it (the peak reset as it starts). With ``marks`` (a local
+    engine's horizon), a CUDA event is recorded as the horizon starts and
+    after each round, and ``round_ms`` holds the ms between consecutive
+    ones: each round's span on the card's clock, idle gaps included."""
     import contextlib
     import io
 
     from tpu_gossip_torch.cli import run_sim
     from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim import engine
+
+    events = []
+    plain_round = engine.gossip_round
+
+    def marked(*a, **k):
+        out = plain_round(*a, **k)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
 
     args = run_sim.build_parser().parse_args(argv + ["--device", str(dev)])
-    err = run_sim._scenario_refusal(args) or run_sim._refusal(args)
+    err = (run_sim._scenario_refusal(args) or run_sim._validate_liveness(args, run_sim._scenario_spec(args))
+           or run_sim._refusal(args))
     if err:
         raise AssertionError(f"run_sim {' '.join(argv)} refused: {err}")
     horizon = {}
@@ -1524,6 +1555,9 @@ def cli_here(argv: list[str], dev) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         horizon["start_bytes"] = torch.cuda.memory_allocated(dev)
+        if marks:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
         out = plain(*a, **k)
         torch.cuda.synchronize(dev)
         horizon.update(wall_s=out[2], peak=torch.cuda.max_memory_allocated(dev))
@@ -1531,6 +1565,8 @@ def cli_here(argv: list[str], dev) -> dict:
 
     native.reset_launches()
     run_sim._run_checkpointed_horizon = timed
+    if marks:
+        engine.gossip_round = marked
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -1539,9 +1575,11 @@ def cli_here(argv: list[str], dev) -> dict:
         torch.cuda.synchronize(dev)
     finally:
         run_sim._run_checkpointed_horizon = plain
+        engine.gossip_round = plain_round
     rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
     return dict(summary=summary, rows=rows, fin=fin, launches=dict(native.LAUNCHES), horizon=horizon,
-                call_s=time.perf_counter() - t0)
+                call_s=time.perf_counter() - t0,
+                round_ms=[a.elapsed_time(b) for a, b in zip(events, events[1:])])
 
 
 def check_counts(what: str, launches: dict, want: dict) -> None:
@@ -1727,6 +1765,173 @@ def phase_faults(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 9: the quorum detector
+
+SIEGE = ["--scenario", "scenarios/byzantine_siege.toml"]
+SIEGE_ROUNDS = (6, 45)  # the siege phase's rounds (1-based, inclusive); the aftermath's are 46-55
+
+
+def quorum_path(argv: list[str]) -> str:
+    """The delivery path of a run_sim argv (fault_launches' names)."""
+    if "--shard" in argv:
+        return "sharded staircase" if "--staircase" in argv else "sharded scatter"
+    if "matching" in argv:
+        return "packed matching" if "--packed" in argv else "matching"
+    return "staircase" if "--staircase" in argv else "exactly-k"
+
+
+def check_quorum_launches(what: str, argv: list[str], r: dict) -> None:
+    """Every launch a quorum run must make, counted from 0: the path's
+    kernels once a round (K1 at least once on matching), none other."""
+    rounds = int(argv[argv.index("--rounds") + 1])
+    path = quorum_path(argv)
+    want = (fault_launches(path, rounds) if path != "exactly-k" else
+            {"lane_shuffle": 0, "fold_planes_or": 0, "staircase_segment": 0, "stream_segment": 0,
+             "round_tail": rounds, "round_tail_words": 0})
+    check_counts(what, r["launches"], want)
+    if "matching" in path and r["launches"]["lane_shuffle"] == 0:
+        raise AssertionError(f"{what}: the matching path launched no K1")
+
+
+def phase_ms(round_ms: list[float], lo: int, hi: int) -> float:
+    """Mean ms/round over rounds ``lo``-``hi`` (1-based, inclusive)."""
+    span = round_ms[lo - 1:hi]
+    return sum(span) / len(span)
+
+
+def quorum_line(card: str, what: str, r: dict, extra: str = "") -> str:
+    lv = r["summary"]["liveness"]
+    split = ""
+    if r.get("round_ms"):
+        rm = r["round_ms"]
+        split = (f"; {phase_ms(rm, *SIEGE_ROUNDS)} ms/round over the siege (rounds 6-45), "
+                 f"{phase_ms(rm, 46, 55)} over the aftermath (46-55), {phase_ms(rm, 1, 5)} before it")
+    return fault_line(card, what, r, f"{split}; liveness {json.dumps(lv)}{extra}")
+
+
+def phase_quorum(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
+    """Phase 9: the quorum detector and the Byzantine adversaries through
+    the CLI, launches counted from 0 a run. 9a the JAX pins at n <= 20000:
+    config 2 at quorum 3 (the unhardened run's state, every silent peer
+    declared at round 8) and the n=20000 siege at quorum 3 and 1, packed,
+    on the staircase, sharded, and on PA push with config 5's churn; 9b the
+    siege on the 1M matching headline at quorum 3 (onto the JAX pin,
+    eviction precision at least 0.95), its packed twin, and at quorum 1
+    (false evictions, as the reference's single-report purge makes them),
+    ms/round over the siege and the aftermath apart; 9c the siege at 1M on
+    the sharded K6 path with its scatter twin and on the staircase (K5),
+    and the n=20000 siege killed after its round-8 checkpoint (suspicions
+    open) and resumed on the other device, both ways, onto the pin.
+    Returns the figures by part. ``n_big`` replaces the 1M runs' peer
+    count (the pin is checked only at 1M)."""
+    import shutil
+    import tempfile
+
+    refs = json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+    pins = [r for r in refs if quorum_pin(r)]
+    out = {}
+
+    # 9a: the small pins
+    t0 = time.perf_counter()
+    for ref in pins:
+        if ref["argv"][1] == "1000000":
+            continue
+        argv = [a for a in ref["argv"] if a != "--quiet"]
+        r = cli_here(argv, dev)
+        what = (f"9a n={argv[1]} {quorum_path(argv)}{' with config 5 churn' if '--churn-join' in argv else ''}, "
+                f"quorum {r['summary']['liveness']['quorum_k']}")
+        check_pin(r["summary"], ref, what)
+        check_quorum_launches(what, argv, r)
+        if "--silent-frac" in argv:
+            i = ref["argv"].index("--quorum-k")
+            plain = [p for p in refs if p["argv"] == ref["argv"][:i] + ref["argv"][i + 2:]][0]
+            dead = [row["n_declared_dead"] for row in r["rows"]]
+            if r["summary"]["state_digest"] != plain["summary"]["state_digest"] or dead[:7] != [0] * 7 or (
+                    dead[7:] != [100] * (len(dead) - 7)):
+                raise AssertionError(f"{what}: state {r['summary']['state_digest']} (unhardened "
+                                     f"{plain['summary']['state_digest']}), dead by round {dead}")
+            what += f", dead by round {dead}, the unhardened run's state"
+        print(quorum_line(card, what, r, "; equal to the JAX pin"), flush=True)
+        del r
+    out["9a"] = dict(seconds=time.perf_counter() - t0)
+
+    # 9b: the 1M headline under the siege
+    t0 = time.perf_counter()
+    big = ["--peers", str(n_big), "--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--digest", "--quiet",
+           "--slots", "16", *SIEGE, "--quorum-k", "3", "--rounds", "56"]
+    pin = {" ".join(p["argv"]): p for p in pins}.get(" ".join(big))
+    if pin is None and n_big == N_HEADLINE:
+        raise AssertionError(f"no JAX pin for {' '.join(big)}")
+    runs = {}
+    for what, argv in (("quorum 3", big), ("quorum 3 packed", big + ["--packed"]),
+                       ("quorum 1", big[:-4] + ["--quorum-k", "1", "--rounds", "56"])):
+        r = runs[what] = cli_here(argv, dev, marks=True)
+        check_quorum_launches(f"9b {what}", argv, r)
+        lv = r["summary"]["liveness"]
+        if what == "quorum 3":
+            if pin is not None:
+                check_pin(r["summary"], pin, "9b quorum 3")
+            if lv["eviction_precision"] < 0.95 or lv["quarantined"] == 0:
+                raise AssertionError(f"9b quorum 3: eviction precision {lv['eviction_precision']}, "
+                                     f"{lv['quarantined']} quarantined")
+        elif what == "quorum 3 packed":
+            same_run(runs["quorum 3"], r, "9b packed twin")
+        elif lv["false_evictions"] == 0:
+            raise AssertionError("9b quorum 1: no false eviction; the single-report purge evicts healthy peers")
+        out[f"9b {what}"] = dict(horizon=r["horizon"], siege_ms=phase_ms(r["round_ms"], *SIEGE_ROUNDS),
+                                 aftermath_ms=phase_ms(r["round_ms"], 46, 55), liveness=lv)
+        extra = ("; digests equal the JAX pin" if what == "quorum 3" and pin is not None else
+                 ", digest-equal to quorum 3" if what == "quorum 3 packed" else "")
+        print(quorum_line(card, f"9b the byzantine siege at n={n_big} on the matching headline, {what} (56 rounds)",
+                          r, extra), flush=True)
+    del runs, r
+    out["9b"] = dict(seconds=time.perf_counter() - t0)
+
+    # 9c: the other engines at 1M, then a checkpoint cut mid-siege
+    t0 = time.perf_counter()
+    csr = ["--peers", str(n_big), "--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--digest", "--quiet",
+           *SIEGE, "--quorum-k", "3", "--rounds", "56"]
+    twins = {}
+    for what, argv in (("sharded staircase", csr + ["--shard", "--staircase"]), ("sharded scatter", csr + ["--shard"]),
+                       ("staircase", csr + ["--staircase"])):
+        r = twins[what] = cli_here(argv, dev)
+        check_quorum_launches(f"9c {what}", argv, r)
+        if what == "sharded scatter":
+            same_run(twins["sharded staircase"], r, "9c scatter twin")
+        if r["summary"]["liveness"]["eviction_precision"] < 0.95:
+            raise AssertionError(f"9c {what}: eviction precision {r['summary']['liveness']['eviction_precision']}")
+        out[f"9c {what}"] = dict(horizon=r["horizon"], liveness=r["summary"]["liveness"])
+        print(quorum_line(card, f"9c the siege at n={n_big} on Chung-Lu, {what}, quorum 3 (56 rounds)", r,
+                          ", digest-equal to the K6 run" if what == "sharded scatter" else ""), flush=True)
+    del twins, r
+    from tpu_gossip_torch.ckpt import load_checkpoint
+
+    small = [p for p in pins if p["argv"][1] == "20000" and "matching" in p["argv"] and "--packed" not in p["argv"]
+             and p["summary"]["liveness"]["quorum_k"] == 3][0]
+    opened = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-quorum-") as tmp:
+        tmp = Path(tmp)
+        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = tmp / write_on
+            kill_at(root, small["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
+                                           write_on], "checkpoint: wrote ckpt-00000008")
+            for late in range(12, 56, 4):
+                shutil.rmtree(d / f"ckpt-{late:08d}", ignore_errors=True)
+            mid = load_checkpoint(d / "ckpt-00000008", device="cpu")[0]
+            opened[write_on] = int((mid.suspect_round >= 0).sum())
+            if opened[write_on] == 0:
+                raise AssertionError("9c: ckpt-00000008 holds no open suspicion; the resume would not be mid-siege")
+            summary, err = cli_run(root, ["resume", str(d), "--device", resume_on], f"9c {write_on} resume")
+            if "resume: ckpt-00000008 at round 8" not in err:
+                raise AssertionError(f"9c: the resume did not start from ckpt-00000008: {err[-2000:]}")
+            check_pin(summary, small, f"9c {write_on}->{resume_on}")
+    out["9c"] = dict(seconds=time.perf_counter() - t0, open_suspicions=opened)
+    print(f"[{card}] 9c the n=20000 siege at quorum 3 killed after ckpt-00000008 ({opened} open suspicions) on the "
+          f"card and resumed on the CPU, and the reverse, both onto the JAX pin (liveness and phases included)",
+          flush=True)
+    return out
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -1801,6 +2006,7 @@ def main() -> int:
 
 def smoke(root: Path, dev: torch.device, card: str) -> int:
     """Every phase on ``dev``; raises on the first that fails."""
+    t_script = time.perf_counter()
     from tpu_gossip_torch.core.matching_topology import plan_shape
     from tpu_gossip_torch.kernels import native
 
@@ -2007,6 +2213,13 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     faults = phase_faults(root, dev, card)
     print(f"[{card}] phase 8: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in faults.items() if 'seconds' in v} }", flush=True)
+
+    # phase 9: the quorum detector and the Byzantine adversaries through the CLI (9a-9c)
+    t0 = time.perf_counter()
+    quorum = phase_quorum(root, dev, card)
+    print(f"[{card}] phase 9: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in quorum.items() if 'seconds' in v} }; the script "
+          f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -335,12 +335,12 @@ def test_repartition_swarm_equals_jax(s):
         assert t_state_digest(tnew) == j_state_digest(jnew)
 
 
-@pytest.mark.parametrize("what", ["scenario", "liveness"])
+@pytest.mark.parametrize("what", ["scenario", "growth"])
 def test_burst_and_quarantined_churn_are_not_ported(what):
-    """The churn stage's quarantined rejoin (the quorum detector) and a
-    churn burst composed with admission waves (the growth plane) raise
-    ``not_ported`` naming their ROADMAP item; the burst form itself runs
-    (``test_torch_faults.py``)."""
+    """The growth plane (its argument, and a churn burst composed with
+    admission waves) raises ``not_ported`` naming its ROADMAP item; the
+    burst form itself runs (``test_torch_faults.py``), and so does the
+    quarantined rejoin (``test_torch_adversary.py``)."""
     _, _, (tc, tsw) = _build_csr_swarms(200, seed=1)
     arg = object()
     if what == "scenario":

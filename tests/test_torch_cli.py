@@ -132,7 +132,7 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--graph", "chung-lu", "--quorum-k", "2", "--device", "cpu"],
+    ["--graph", "chung-lu", "--control", "0.9", "--device", "cpu"],
     ["--graph", "pa", "--stream", "0.5", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
     ["--graph", "matching", "--churn-leave", "0.1", "--grow", "200", "--device", "cpu"],

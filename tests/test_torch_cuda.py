@@ -684,3 +684,84 @@ def test_fault_digest_on_card_equals_cpu(dev, argv, path, partitioned):
     assert card["phases"]
     for key, n in FAULT_PATHS[path](32, partitioned).items():
         assert launches[key] == n, (key, launches)
+
+
+# the quorum detector under the byzantine siege (56 rounds, no partition)
+@pytest.mark.parametrize("argv,path", [
+    (["--graph", "matching"], "matching"),
+    (["--graph", "matching", "--quorum-k", "1"], "matching"),
+    (["--graph", "matching", "--packed"], "packed matching"),
+    (["--graph", "chung-lu", "--staircase"], "staircase"),
+    (["--graph", "chung-lu", "--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2",
+      "--rewire-compact-cap", "4096"], "exactly-k"),
+    (["--graph", "chung-lu", "--shard", "--staircase"], "sharded staircase"),
+    (["--graph", "chung-lu", "--shard"], "sharded scatter"),
+    (["--graph", "chung-lu", "--shard", "--staircase", "--packed"], "sharded packed"),
+])
+def test_quorum_digest_on_card_equals_cpu(dev, argv, path):
+    """The siege at quorum 3 (or 1) on each path at n=20000: the card run
+    equals the CPU run (summary, ``liveness`` and ``phases`` blocks,
+    digests), its launches counted."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    argv = ["--peers", "20000", "--rounds", "56", "--digest", "--quiet", "--mode", "push_pull", "--fanout", "1",
+            "--scenario", "scenarios/byzantine_siege.toml", "--quorum-k", "3", *argv]
+    parser = run_sim.build_parser()
+
+    def run(device):
+        args = parser.parse_args(argv + ["--device", device])
+        assert run_sim._validate_liveness(args, run_sim._scenario_spec(args)) is None
+        return run_sim.run(args)
+
+    reset_launches()
+    card = run("cuda")
+    launches = dict(LAUNCHES)
+    assert card == run("cpu")
+    assert card["liveness"]["accusations"] > 0 and card["phases"]
+    for key, n in FAULT_PATHS[path](56, 0).items():
+        assert launches[key] == n, (key, launches)
+
+
+def test_quorum_stages_on_card_equal_cpu(dev):
+    """The detector's and the flood's scatters at 1M rows on the card give
+    the CPU's bits (every scatter is order-free)."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.faults import compile_scenario, scenario_from_dict
+    from tpu_gossip_torch.faults.inject import flood_replay
+    from tpu_gossip_torch.kernels import liveness as lv
+
+    n, rnd = 1_000_001, 20
+    g = np.random.default_rng(0)
+    planes = {
+        "last_hb": (rnd - g.integers(0, 13, n)).astype(np.int16), "alive": g.random(n) < 0.85,
+        "silent": g.random(n) < 0.2, "declared_dead": g.random(n) < 0.1,
+        "suspect_round": np.where(g.random(n) < 0.35, rnd - g.integers(0, 9, n), -1).astype(np.int16),
+        "suspect_mark": (g.integers(0, 4, n) + 256 * g.integers(0, 4, n)).astype(np.int16),
+        "quarantine": g.random(n) < 0.05, "exists": g.random(n) < 0.97,
+    }
+    accuser, forger = g.random(n) < 0.05, g.random(n) < 0.03
+    seen = g.random((n, 16)) < 0.5
+    sc_spec = scenario_from_dict({"phases": [{"start": 0, "end": 4, "floods": {"frac": 0.05, "seed": 5},
+                                              "flood_fanout": 3, "blackout": {"frac": 0.1, "seed": 2}}]})
+
+    def run(device):
+        t = {k: torch.from_numpy(v).to(device) for k, v in planes.items()}
+        r = torch.tensor(rnd, dtype=torch.int32, device=device)
+        last, forged = lv.forge_heartbeats(t["last_hb"], t["suspect_round"], torch.from_numpy(forger).to(device), r,
+                                           prng.key(8, device), torch.tensor(2, device=device), 2)
+        out = lv.quorum_liveness(lv.compile_quorum(3, window=4, budget=2), last, t["alive"], t["silent"],
+                                 t["declared_dead"], t["suspect_round"], t["suspect_mark"], t["quarantine"],
+                                 t["exists"], r, 6, 2, k_accuse=prng.key(5, device),
+                                 accuser_ok=torch.from_numpy(accuser).to(device))
+        sc = compile_scenario(sc_spec, n_peers=n, n_slots=n, total_rounds=8, device=device)
+        rf = sc.at_round(2)
+        replay, bill = flood_replay(sc, rf, torch.from_numpy(seen).to(device), rf.flooder & ~rf.blackout,
+                                    prng.key(4, device))
+        return {**{k: v.cpu() for k, v in out.items()}, "forged": forged.cpu(), "replay": replay.cpu(),
+                "bill": bill.cpu()}
+
+    card, cpu = run("cuda"), run("cpu")
+    for k in cpu:
+        assert torch.equal(card[k], cpu[k]), k
+    assert int(card["adv_accusations"]) > 0 and bool(card["newly_quarantined"].any()) and int(card["bill"]) > 0

@@ -179,16 +179,20 @@ def test_refused_arguments_raise_not_ported(graph, what):
         from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
 
         _, sg = matching_powerlaw_graph(200, fanout=1, key=prng.key(0, "cpu"), device="cpu")
-    elif what in ("rewire_slots", "scenario"):
-        # re-wiring and scenarios run on this engine, churn bursts included;
-        # a scenario's admission waves are the growth slice's
+    elif what in ("rewire_slots", "scenario", "liveness"):
+        # re-wiring, scenarios and the quorum detector run on this engine,
+        # churn bursts included; a scenario's admission waves are the
+        # growth slice's
         from tpu_gossip_torch.faults import compile_scenario, scenario_from_dict
+        from tpu_gossip_torch.kernels.liveness import compile_quorum
 
         if what == "rewire_slots":
             _, (tc, ts, tsg, tm) = _build(graph, 2, mode="push_pull", fanout=1, rewire_slots=2, churn_join_prob=0.1)
         kw["scenario"] = compile_scenario(
             scenario_from_dict({"phases": [{"start": 0, "end": 4, "churn_join": 0.2, "join_burst": 2}]}),
             n_peers=N, n_slots=tsg.n_pad, total_rounds=8, device="cpu")
+        if what == "liveness":
+            kw["liveness"] = compile_quorum(3)
     else:
         kw[what] = True if what == "collect_ici" else object()
     with pytest.raises(NotImplementedError, match="not ported"):

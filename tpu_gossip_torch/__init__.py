@@ -19,7 +19,10 @@ reads the JAX package's durable checkpoints (``run_sim
 checkpointed, the other finishes. ``tpu_gossip_torch.faults`` runs the
 JAX package's fault scenarios (loss, delay, partitions, blackouts, churn
 bursts; ``run_sim --scenario``) and silent peers (``--silent-frac``) on
-every engine above. It imports neither JAX nor the JAX package.
+every engine above, and ``kernels.liveness.compile_quorum`` its quorum
+failure detector (``liveness=``, ``run_sim --quorum-k``), under which a
+scenario's Byzantine accusers, forgers and flooders act. It imports
+neither JAX nor the JAX package.
 
 Entry points take ``device`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version.

@@ -22,6 +22,9 @@
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \
         --fanout 1 --graph matching --scenario scenarios/split_brain.toml \
         --rounds 32 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph matching --scenario scenarios/byzantine_siege.toml \\
+        --quorum-k 3 --rounds 56 --digest
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -34,7 +37,11 @@ CLI draws them. ``--scenario F`` runs the fault schedule in the TOML file
 ``F`` (``faults/``: loss, delay, partitions, blackouts, churn bursts) on
 every engine, validated before anything is built with the JAX CLI's
 words, and adds ``scenario`` (and on a fixed horizon its per-phase
-``phases`` report) to the summary. Then either run a fixed ``--rounds`` horizon (one
+``phases`` report) to the summary. ``--quorum-k K`` (with
+``--suspicion-window`` and ``--accusation-budget``) hardens the failure
+detector into the quorum suspicion machine on every engine, lets a
+scenario field Byzantine accusers, forgers and flooders, and adds the
+``liveness`` block to the summary. Then either run a fixed ``--rounds`` horizon (one
 JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
 print the benchmark summary. With ``--packed`` the seeded state is packed
@@ -78,9 +85,9 @@ _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
-    "included, with checkpoints and resume, silent peers and fault scenarios (later slices add "
-    "adversaries, growth, streams, control, fleets, the sharded matching engine and the multi-card "
-    "exchange)"
+    "included, with checkpoints and resume, silent peers, fault scenarios and the quorum detector with "
+    "its adversaries (later slices add growth, streams, control, fleets, the sharded matching engine and "
+    "the multi-card exchange)"
 )
 _ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded matching engine (ROADMAP item 11b)",
                               "multi-process (ROADMAP item 11c)")
@@ -93,7 +100,6 @@ JAX_FLAG_DEFAULTS = {
     "stream_hashes": (1, _ITEM9), "stream_burst_every": (0, _ITEM9), "stream_burst_mult": (4.0, _ITEM9),
     "stream_hot_frac": (0.01, _ITEM9), "stream_hot_weight": (0.9, _ITEM9),
     "control": (0.0, _ITEM9), "control_bounds": ("", _ITEM9), "refresh_every": (0, _ITEM9),
-    "quorum_k": (None, _ITEM9), "suspicion_window": (None, _ITEM9), "accusation_budget": (None, _ITEM9),
     "transport": ("dense", _ITEM11B), "builder": ("local", _ITEM11B),
     "pipeline": (None, _ITEM11C), "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
     "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
@@ -182,6 +188,35 @@ def build_parser() -> argparse.ArgumentParser:
                    "stream of their own on every engine (local and sharded rounds stay bit-identical). The "
                    "schedule is validated before the run: phases beyond --rounds/--max-rounds or overlapping "
                    "phases are config errors")
+    p.add_argument(
+        "--quorum-k", type=int, default=None, metavar="K",
+        help="harden the failure detector into the witness-quorum "
+        "suspicion machine (kernels/liveness.py, docs/"
+        "adversarial_model.md): a stale peer is only SUSPECTED, and "
+        "declared dead after K distinct witness confirmations inside the "
+        "suspicion window. K=1 degrades to the reference's single-report "
+        "purge (bit-identical to the unhardened detector with no "
+        "adversaries); K>1 defends against Byzantine accusers — a "
+        "scenario with accusers/forgers/floods phases REQUIRES this "
+        "flag. The summary JSON gains a `liveness` block (evictions, "
+        "false evictions, precision, quarantined count)",
+    )
+    p.add_argument(
+        "--suspicion-window", type=int, default=None, metavar="W",
+        help="rounds a suspicion may accumulate witness votes before it "
+        "expires without quorum (default: 2x the detector sweep period). "
+        "Must be at least the sweep period — the PING grace — or a "
+        "suspicion would expire before its probe could refute. Needs "
+        "--quorum-k",
+    )
+    p.add_argument(
+        "--accusation-budget", type=int, default=None, metavar="B",
+        help="false accusations (victim refutes inside the window) a "
+        "peer may emit before the quarantine verdict latches: its sends "
+        "are masked, its accusations ignored, its rewire slots released "
+        "through the degree-credit book (default 3; 0 disables "
+        "quarantine). Needs --quorum-k",
+    )
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -246,10 +281,71 @@ def _scenario_refusal(args: argparse.Namespace) -> str | None:
                 "rebuild (scalar loss/delay/full-swarm churn phases are fine)")
     if spec.uses_join_burst:
         return "--scenario: join_burst phases are admission waves for a growing run; add --grow"
-    if spec.uses_adversaries:
-        return ("--scenario: Byzantine adversary phases (accusers/forgers/floods) need the quorum-defense planes; "
-                "add --quorum-k K (K=1 reproduces the reference's single-report purge — the unhardened baseline)")
     return None
+
+
+def _validate_liveness(args: argparse.Namespace, spec) -> str | None:
+    """The reason a --quorum-k config cannot run (exit 2, the JAX CLI's
+    words), or None; an adversary scenario without --quorum-k is refused
+    here. Settles the window default (twice the detector's sweep) and the
+    budget default (3) into ``args``, so every engine path and the
+    checkpoint manifest read one config."""
+    from tpu_gossip_torch.core.state import SwarmConfig
+    from tpu_gossip_torch.kernels.liveness import SUSPECT_STRIKE_CAP, SUSPECT_VOTE_CAP
+
+    sweep = SwarmConfig.__dataclass_fields__["detect_period_rounds"].default
+    if args.quorum_k is None:
+        set_flags = [name for name, dflt in (("--suspicion-window", args.suspicion_window is None),
+                                             ("--accusation-budget", args.accusation_budget is None)) if not dflt]
+        if set_flags:
+            return f"{set_flags[0]} shapes the quorum failure detector; add --quorum-k K"
+        if spec is not None and spec.uses_adversaries:
+            return ("--scenario: Byzantine adversary phases (accusers/forgers/floods) need the quorum-defense "
+                    "planes; add --quorum-k K (K=1 reproduces the reference's single-report purge — the "
+                    "unhardened baseline)")
+        return None
+    if args.quorum_k < 1:
+        return (f"--quorum-k {args.quorum_k} must be >= 1 — at least one witness must confirm a suspicion (K=1 is "
+                "the reference's single-report behavior)")
+    if args.quorum_k > SUSPECT_VOTE_CAP:
+        return f"--quorum-k {args.quorum_k} exceeds the packed vote counter's cap ({SUSPECT_VOTE_CAP})"
+    if args.suspicion_window is None:
+        args.suspicion_window = 2 * sweep
+    if args.suspicion_window < sweep:
+        return (f"--suspicion-window {args.suspicion_window} is shorter than the detector sweep period ({sweep} "
+                "rounds — the PING grace): a suspicion would expire before its probe could refute it")
+    if args.accusation_budget is None:
+        args.accusation_budget = 3
+    if not 0 <= args.accusation_budget <= SUSPECT_STRIKE_CAP:
+        return (f"--accusation-budget {args.accusation_budget} outside [0, {SUSPECT_STRIKE_CAP}] (the packed "
+                "strike counter's range; 0 disables quarantine)")
+    if args.profile_round > 0:
+        return "--profile-round measures the unhardened round's stage decomposition; drop --quorum-k"
+    return None
+
+
+def _compile_cli_liveness(args: argparse.Namespace):
+    """The run's ``QuorumSpec`` (one for every engine path), None without
+    --quorum-k."""
+    if args.quorum_k is None:
+        return None
+    from tpu_gossip_torch.kernels.liveness import compile_quorum
+
+    return compile_quorum(quorum_k=args.quorum_k, window=args.suspicion_window, budget=args.accusation_budget)
+
+
+def _liveness_summary(args: argparse.Namespace, stats=None) -> dict:
+    """The summary's ``liveness`` block under --quorum-k: the detector's
+    config and, when per-round stats exist, ``sim.metrics.liveness_report``."""
+    if args.quorum_k is None:
+        return {}
+    out = {"quorum_k": args.quorum_k, "suspicion_window": args.suspicion_window,
+           "accusation_budget": args.accusation_budget}
+    if stats is not None:
+        from tpu_gossip_torch.sim import metrics as M
+
+        out.update(M.liveness_report(stats))
+    return {"liveness": out}
 
 
 def _total_rounds(args: argparse.Namespace) -> int:
@@ -267,7 +363,7 @@ def _run(args: argparse.Namespace, resume: "_Resume | None" = None) -> int:
     the summary, then save ``--checkpoint``; the exit code out."""
     from tpu_gossip_torch.device import resolve_device
 
-    err = _scenario_refusal(args) or _refusal(args)
+    err = _scenario_refusal(args) or _validate_liveness(args, _scenario_spec(args)) or _refusal(args)
     if err:
         print(err, file=sys.stderr)
         return 2
@@ -537,6 +633,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
 
     dev = resolve_device(args.device)
     spec = _scenario_spec(args)
+    lqs = _compile_cli_liveness(args)
     rng = np.random.default_rng(args.seed)
     exists = plan = None
     if args.graph == "matching":
@@ -568,7 +665,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     origins, silent_ids = _sample_ids(args, rng)
     if args.shard:
         cfg, state, segment, to_target, extra, epoch = _shard_runners(args, graph, origins, silent_ids, cfg_kw, dev,
-                                                                      spec)
+                                                                      spec, lqs)
         policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
         _check_resume_devices(resume, epoch[0].size)
     else:
@@ -580,11 +677,11 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         extra = {}
 
         def segment(st, rounds):
-            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen)
+            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen, liveness=lqs)
 
         def to_target(st):
             return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail,
-                                      scenario=scen)
+                                      scenario=scen, liveness=lqs)
 
         if args.profile_round > 0:
             return _profile_round(args, cfg, state, plan), None
@@ -601,19 +698,21 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     marks = _horizon_start(dev) if durable and dev.type == "cuda" else None
     with trace(args.profile):
         if args.remat_every > 0 and args.shard:
-            summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, policy=policy, prefix=prefix,
+            summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, lqs, policy=policy, prefix=prefix,
                                                  durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.remat_every > 0:
-            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, policy=policy, prefix=prefix,
+            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, policy=policy, prefix=prefix,
                                            durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.rounds > 0:
             fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
-            summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats)),
+            summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats),
+                                          **_liveness_summary(args, stats)),
                        **_digest_summary(args, fin, stats, durable)}
         else:
-            summary, fin = _run_to_target(args, cfg, state, to_target, {**extra, **_scenario_summary(spec)})
+            summary, fin = _run_to_target(args, cfg, state, to_target,
+                                          {**extra, **_scenario_summary(spec), **_liveness_summary(args)})
     if marks is not None:
         import torch
 
@@ -737,9 +836,11 @@ def _remat_loop(args: argparse.Namespace, state, run_segment, fold):
     return state, parts, remats, time.perf_counter() - t0
 
 
-def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: dict, sim_wall: float) -> dict:
+def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: dict, sim_wall: float,
+                   target_liveness: bool = True) -> dict:
     """The summary of a remat run: the horizon row with the digests, or
-    the run-to-target row."""
+    the run-to-target row (with the ``liveness`` block's config when
+    ``target_liveness``: the JAX CLI's sharded remat row has none)."""
     from tpu_gossip_torch.sim.engine import _concat
 
     if args.rounds > 0:
@@ -748,7 +849,7 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
             from tpu_gossip_torch.sim import metrics as M
 
             M.write_jsonl(stats, sys.stdout)
-        summary = _horizon_summary(args, stats, **extra)
+        summary = _horizon_summary(args, stats, **extra, **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, state, stats))
         return summary
     rounds = int(state.round)
@@ -756,6 +857,7 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
         "summary": True, "mode": args.mode, "n_peers": args.peers, "rounds": rounds, "target": args.target,
         "wall_seconds": wall, "peers_rounds_per_sec": args.peers * rounds / max(wall, 1e-9),
         "coverage": float(state.coverage(0)), "ms_per_round": sim_wall / max(rounds, 1) * 1000.0, **extra,
+        **(_liveness_summary(args) if target_liveness else {}),
     }
 
 
@@ -787,8 +889,8 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
     return (unpack_state(fin) if pack else fin), stats, wall
 
 
-def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, *, policy=None, prefix=None,
-                    durable: bool = False):
+def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, *, policy=None,
+                    prefix=None, durable: bool = False):
     """--remat-every R on the local engine: R rounds, then fold the fresh
     edges into the CSR at the capacity ``cap`` taken once from the fresh
     initial state; with --staircase the plan is rebuilt from each
@@ -809,13 +911,14 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
 
     def horizon_segment(st, seg):
         return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail,
-                        scenario=scen)
+                        scenario=scen, liveness=lqs)
 
     r = args.remat_every
     if durable:
         fin, stats, wall = _run_checkpointed_horizon(args, state, horizon_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, remat_every=r, remats=(args.rounds - 1) // r,
-                                   remat_overflow_edges=sum(int(o) for o in overflow), wall_seconds=wall)
+                                   remat_overflow_edges=sum(int(o) for o in overflow), wall_seconds=wall,
+                                   **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, fin, stats, durable=True))
         return summary, fin
 
@@ -823,15 +926,16 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
         if args.rounds > 0:
             return horizon_segment(st, seg)
         plan = _staircase_plan(args, st, dev) if args.staircase else None
-        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail, scenario=scen), None
+        return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail, scenario=scen,
+                                  liveness=lqs), None
 
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     extra = {"remat_every": r, "remats": remats, "remat_overflow_edges": sum(int(o) for o in overflow)}
     return _remat_summary(args, state, parts, wall, extra, wall), state
 
 
-def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, scen=None, *, policy=None,
-                          prefix=None, durable: bool = False):
+def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, scen=None, lqs=None, *,
+                          policy=None, prefix=None, durable: bool = False):
     """--shard --remat-every R: R rounds on the mesh, then fold the fresh
     edges into the CSR, re-partition the live swarm with seed ``--seed``
     plus the fold's index (the round over R, so a resumed run draws the
@@ -850,9 +954,9 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
 
     def run_segment(st, seg):
         if args.rounds > 0:
-            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen)
+            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen, liveness=lqs)
         return dist.run_until_coverage_dist(st, cfg, epoch["sg"], mesh, args.target, seg,
-                                            shard_plan=epoch["plans"], scenario=scen), None
+                                            shard_plan=epoch["plans"], scenario=scen, liveness=lqs), None
 
     def fold(st):
         t0 = time.perf_counter()
@@ -872,7 +976,7 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
     if durable:
         fin, stats, wall = _run_checkpointed_horizon(args, state, run_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, devices=mesh.size, remat_every=r, remats=(args.rounds - 1) // r,
-                                   wall_seconds=wall)
+                                   wall_seconds=wall, **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, fin, stats, durable=True))
         summary["transport"] = "dense"
         return summary, fin
@@ -880,7 +984,7 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     out = {"devices": mesh.size, "remat_every": r, "remats": remats, "remat_overflow_edges": epoch["overflow"],
            "epoch_rebuild_seconds_total": round(epoch["rebuild_s"], 3)}
-    summary = _remat_summary(args, state, parts, wall, out, wall - epoch["rebuild_s"])
+    summary = _remat_summary(args, state, parts, wall, out, wall - epoch["rebuild_s"], target_liveness=False)
     if args.rounds == 0:
         summary["ms_per_round_amortized"] = wall / max(int(state.round), 1) * 1000.0
     summary["transport"] = "dense"
@@ -930,7 +1034,7 @@ def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
             "warm_rounds": args.profile_round, "stages_ms": stages_ms(stages)}
 
 
-def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw: dict, dev, spec=None):
+def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw: dict, dev, spec=None, lqs=None):
     """--shard: partition the graph over the mesh (pads born dead), with
     --staircase build K6's plans, seed ``origins`` and the silent peers
     through the partition's relabelling, compile the scenario over the
@@ -954,11 +1058,11 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
                                  n_shards=mesh.size)
 
     def segment(st, rounds):
-        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen)
+        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
-                                            scenario=scen)
+                                            scenario=scen, liveness=lqs)
 
     return cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans, scen)
 

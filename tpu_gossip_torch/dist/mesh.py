@@ -29,7 +29,8 @@ after a CSR fold; it moves the delay buffer (``fault_held``) with its
 rows. A ``scenario`` (``faults/``) wraps the delivery exactly as on the
 local engine, its masks compiled over the padded slot space through
 ``position`` (:func:`shard_ranges` for whole-shard sets), so a scenario
-run equals the local run of the same engine family bit for bit. The
+run equals the local run of the same engine family bit for bit, and so
+does a run under the quorum detector (``liveness``) with its adversaries. The
 exchange over NCCL with one process per card, the
 matching mesh, the sparse, auto and hier transports and the ``IciRound``
 counters are a later slice and raise ``NotImplementedError``.
@@ -585,9 +586,11 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, sha
     packed-native round, whose delivery decodes the transmit and role
     planes for the exchange and packs the product, and stays packed.
     ``scenario`` injects the round's faults around the exchange (and, on
-    the packed round, around its bool twin). The arguments of later
-    slices (``growth``, ``transport``, ``collect_ici``, ``stream``,
-    ``control``, ``pipeline``, ``liveness``, ``inject``) raise
+    the packed round, around its bool twin); ``liveness`` (a
+    ``QuorumSpec``) runs the quorum detector and the scenario's
+    adversaries, their draws at global shape as on the local engine. The
+    arguments of later slices (``growth``, ``transport``, ``collect_ici``,
+    ``stream``, ``control``, ``pipeline``, ``inject``) raise
     ``NotImplementedError``."""
     _check_round(state, cfg, sg, mesh, shard_plan, later)
     if is_packed(state):

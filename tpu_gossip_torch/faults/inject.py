@@ -1,8 +1,9 @@
 """Runtime fault injection: the fault plane's device half.
 
 Ports ``RoundFaults``, ``FaultTelemetry``, ``CompiledScenario`` (with
-``at_round``), ``faulted_dissemination``, ``scenario_dissemination`` and
-``drain_held`` of ``tpu_gossip/faults/inject.py``. A compiled scenario is a
+``at_round``), ``faulted_dissemination`` (its flood replay as
+:func:`flood_replay`), ``scenario_dissemination`` and ``drain_held`` of
+``tpu_gossip/faults/inject.py``. A compiled scenario is a
 set of per-phase tables on the device plus a per-round phase index; the
 ``has_*`` flags decide which fault classes a round runs at all, so an
 absent class costs nothing.
@@ -30,6 +31,12 @@ Fault classes (the JAX package's semantics, bit for bit):
   detector sees them as silent, and their dead declarations stay.
 - **churn burst**: per-row leave/join thresholds folded into the churn
   stage's own draws.
+- **flood** (an adversary class): flooders replay their whole seen rows at
+  sampled targets, drawn from the adversary stream the round driver
+  folds; the replay respects the partition and blackouts and rides the
+  loss/delay stage. Accusers and forgers act in the liveness stage
+  (``kernels/liveness.py``); every adversary class needs the quorum
+  detector, and the round driver refuses them without it.
 
 The loss/delay draws, the masks and the held-buffer merge are plain torch
 on the device; the delivery they wrap runs the engine's kernels.
@@ -55,6 +62,7 @@ __all__ = [
     "scenario_dissemination",
     "drain_held",
     "check_ported",
+    "flood_replay",
 ]
 
 
@@ -69,6 +77,12 @@ class RoundFaults(NamedTuple):
     blackout: torch.Tensor  # bool (N,): rows cut off from the network
     group_b: torch.Tensor  # bool (N,): partition side B
     pass_b: bool | None  # whether side B's delivery pass runs (None: read it off group_b)
+    accuser: torch.Tensor | None = None  # bool (N,): rows emitting false dead-verdicts
+    forger: torch.Tensor | None = None  # bool (N,): rows forging heartbeats
+    flooder: torch.Tensor | None = None  # bool (N,): rows replaying their seen bitmaps
+    forge_fanout: torch.Tensor | None = None  # i32: forged heartbeats per forger this round
+    flood_fanout: torch.Tensor | None = None  # i32: replay targets per flooder this round
+    forge_width: int = 0  # the forgers' draw width: the schedule's largest forge fanout
 
 
 class FaultTelemetry(NamedTuple):
@@ -139,26 +153,22 @@ class CompiledScenario:
         else:
             ph = int(self.phase_host[min(max(int(rnd) - 1, 0), last)])
             pass_b = bool(self.pass_b_host[ph])
+        def pick(table):
+            return None if table is None else table[ph]
+
         return RoundFaults(
             loss=self.loss[ph], delay=self.delay[ph], leave=self.leave[ph], join=self.join[ph],
             burst=self.burst[ph], blackout=self.blackout[ph], group_b=self.group_b[ph], pass_b=pass_b,
+            accuser=pick(self.accuser), forger=pick(self.forger), flooder=pick(self.flooder),
+            forge_fanout=pick(self.forge_fanout), flood_fanout=pick(self.flood_fanout),
+            forge_width=self.max_forge_fanout,
         )
 
 
 def check_ported(scenario: CompiledScenario) -> None:
-    """Refuse the phase classes of later slices: adversaries (with the JAX
-    package's words, whose round refuses them without the quorum
-    detector) and admission waves."""
+    """Refuse the phase class of a later slice: admission waves."""
     from tpu_gossip_torch.sim.stages import not_ported
 
-    if scenario.has_adversary:
-        raise ValueError(
-            "the scenario fields Byzantine adversaries (accusers/forgers/"
-            "floods) but no QuorumSpec is active — adversary rounds need "
-            "the defense planes compiled in; pass liveness=compile_quorum"
-            "(...) (quorum_k=1 reproduces the reference's single-report "
-            "purge)"
-        )
     if scenario.has_join_burst:
         raise not_ported("a scenario's join_burst phases (admission waves)", "growth (ROADMAP item 9c)")
 
@@ -168,7 +178,7 @@ def _count(x: torch.Tensor) -> torch.Tensor:
 
 
 def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: Callable, transmit, transmitter,
-                          receptive, held, seen, k_push, k_pull, k_fault):
+                          receptive, held, seen, k_push, k_pull, k_fault, flood_ok=None, k_flood=None):
     """One round's dissemination with the scenario's faults applied.
 
     ``deliver(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
@@ -178,7 +188,10 @@ def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: 
     ``new_held`` the delay buffer to carry. Side B's pass runs when
     ``rf.pass_b`` says so (read off the device when it is None); on a round
     whose side B is empty it would deliver nothing, so running it anyway
-    changes no bit, only the launches."""
+    changes no bit, only the launches. Under a flood phase the rows of
+    ``flood_ok`` replay their whole ``seen`` rows at ``rf.flood_fanout``
+    targets drawn from ``k_flood`` (:func:`flood_replay`) before the loss
+    and delay stage."""
     k_loss, k_delay, k_push_b, k_pull_b = prng.split(k_fault, 4)
 
     if scenario.has_partition:
@@ -205,6 +218,11 @@ def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: 
         raw, msgs = deliver(transmit, transmitter, receptive, k_push, k_pull)
         recv_ok = None
 
+    if scenario.has_floods:
+        replay, replay_msgs = flood_replay(scenario, rf, seen, flood_ok, k_flood)
+        raw = raw | replay
+        msgs = (msgs.to(torch.int64) + replay_msgs).to(torch.int32)
+
     if scenario.has_loss_delay:
         # loss: a last-hop drop on the merged delivery plane
         keep = prng.uniform(k_loss, tuple(raw.shape)) >= rf.loss
@@ -229,14 +247,41 @@ def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: 
     return incoming, msgs, tx_eff, new_held, telem
 
 
+def flood_replay(scenario: CompiledScenario, rf: RoundFaults, seen, flood_ok, k_flood):
+    """The flood attack's traffic: each row of ``flood_ok`` sends its whole
+    ``seen`` row to ``rf.flood_fanout`` of ``scenario.max_flood_fanout``
+    targets drawn uniformly from ``k_flood`` (drawn every round, at full
+    width, so a draw's stream position depends only on the round). A
+    replay never crosses the partition and never reaches a blacked-out
+    row. Returns the (N, M) plane it delivers (an OR over its targets) and
+    its bill, ``seen.sum(-1) * act.sum(-1)`` summed."""
+    n, m = seen.shape
+    fw = scenario.max_flood_fanout
+    tgt = prng.randint(k_flood, (n, fw), 0, n).to(torch.int64)
+    act = flood_ok[:, None] & (torch.arange(fw, device=seen.device)[None, :] < rf.flood_fanout)
+    if scenario.has_partition:
+        act = act & (rf.group_b[tgt] == rf.group_b[:, None])
+    if scenario.has_blackout:
+        act = act & ~rf.blackout[tgt]
+    payload = (seen[:, None, :] & act[:, :, None]).reshape(n * fw, m)
+    hits = torch.zeros((n, m), dtype=torch.int32, device=seen.device)
+    hits.index_add_(0, tgt.reshape(-1), payload.to(torch.int32))
+    bill = (seen.sum(-1, dtype=torch.int64) * act.sum(-1, dtype=torch.int64)).sum()
+    return hits > 0, bill
+
+
 def scenario_dissemination(scenario: CompiledScenario, state, rnd, transmit, transmitter, receptive, k_push, k_pull,
-                           deliver: Callable):
+                           deliver: Callable, k_flood=None):
     """The per-round scenario head every engine shares: the round's fault
     parameters (``rnd`` is the round's 1-based number: a Python int picks
     them on the host, a 0-d tensor on the device), the fault stream
     ``fold_in(state.rng, FAULT_STREAM_SALT)`` and
     :func:`faulted_dissemination` around ``deliver``. ``state`` needs
-    ``rng``, ``fault_held`` and ``seen``. Returns ``(incoming, msgs_sent,
+    ``rng``, ``fault_held`` and ``seen``, and under a flood phase
+    ``alive``, ``declared_dead`` and ``quarantine``: the rows that flood
+    are the phase's flooders that are alive, undeclared, not quarantined
+    and not blacked out. ``k_flood`` is the adversary stream's flood child
+    (the round driver derives it). Returns ``(incoming, msgs_sent,
     tx_effective, new_held, telemetry, round_faults)``."""
     check_ported(scenario)
     if scenario.blackout.device != transmit.device:
@@ -244,9 +289,14 @@ def scenario_dissemination(scenario: CompiledScenario, state, rnd, transmit, tra
                          f"{transmit.device}: compile it with device={str(transmit.device)!r}")
     rf = scenario.at_round(rnd)
     k_fault = prng.fold_in(state.rng, FAULT_STREAM_SALT)
+    flood_ok = None
+    if scenario.has_floods:
+        flood_ok = rf.flooder & state.alive & ~state.declared_dead & ~state.quarantine
+        if scenario.has_blackout:
+            flood_ok = flood_ok & ~rf.blackout
     incoming, msgs, tx_eff, new_held, telem = faulted_dissemination(
         scenario, rf, deliver, transmit, transmitter, receptive, state.fault_held, state.seen, k_push, k_pull,
-        k_fault)
+        k_fault, flood_ok, k_flood)
     return incoming, msgs, tx_eff, new_held, telem, rf
 
 

@@ -14,10 +14,12 @@ fold that empties it (``remat_capacity`` :616, ``rematerialize_rewired``
 :633); ``validate_rewire_width`` (:803); ``advance_round`` (:821),
 ``gossip_round`` (:1012), ``simulate`` (:1114) and ``run_until_coverage``
 (:1170). Each entry point takes a ``PackedSwarm`` too, runs the round on
-its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``, and a
+its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``, a
 ``scenario`` (``faults/``): the round's faults wrap the delivery, the
 delay buffer rides ``fault_held`` and the three fault counters land in
-``RoundStats``.
+``RoundStats``; and ``liveness``, a ``QuorumSpec`` (``kernels/liveness.py``):
+the quorum detector replaces the direct one, a scenario's adversaries
+act, and the six detector columns of ``RoundStats`` are filled.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
@@ -85,7 +87,7 @@ class RoundStats(NamedTuple):
     control_fanout: torch.Tensor
     msgs_duplicate: torch.Tensor
     control_refreshed: torch.Tensor
-    evictions_new: torch.Tensor  # i32 — quorum detector (0 here)
+    evictions_new: torch.Tensor  # i32 — quorum detector (0 without liveness)
     false_evictions: torch.Tensor
     n_quarantined: torch.Tensor
     dead_undeclared: torch.Tensor
@@ -101,7 +103,18 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32)
 
 
-def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None) -> RoundStats:
+def liveness_counters(ltel, liveness, exists, alive, declared_dead, quarantine) -> dict:
+    """The six quorum-detector columns of RoundStats: the round's
+    counters from ``ltel``, and, on a hardened run only, the quarantined
+    rows and the dead members not yet declared."""
+    out = {} if ltel is None else ltel._asdict()
+    if liveness is not None:
+        out.update(n_quarantined=quarantine.sum(dtype=torch.int32),
+                   dead_undeclared=(exists & ~alive & ~declared_dead).sum(dtype=torch.int32))
+    return out
+
+
+def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -122,6 +135,8 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None) -> RoundStat
     )
     if fstats is not None:
         counters.update(fstats._asdict())
+    counters.update(liveness_counters(ltel, liveness, state.exists, state.alive, state.declared_dead,
+                                      state.quarantine))
     return RoundStats(**counters)
 
 
@@ -451,14 +466,18 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
 
 def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, transmit,
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
-                  churn_faults: bool = False, fault_held=None, fstats=None):
+                  churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
+                  k_accuse=None, k_forge=None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
     ``RoundFaults``) makes blacked-out rows silent to the detector and,
     with ``churn_faults``, folds the burst into the churn draws;
     ``fault_held`` is the delay buffer to carry (the input's when None) and
-    ``fstats`` the round's fault counters."""
+    ``fstats`` the round's fault counters. ``liveness`` (a ``QuorumSpec``)
+    runs the quorum detector, with the accusers (drawing from
+    ``k_accuse``) and forgers (``k_forge``) the round's faults field;
+    without it the suspicion planes pass through untouched."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -469,9 +488,11 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming, "transmit": transmit,
         "receptive": receptive, "fresh": None, "expired": None, "faults": faults,
+        "suspect_round": state.suspect_round, "suspect_mark": state.suspect_mark,
+        "quarantine": state.quarantine, "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
     }
-    values = run_stages(build_round_stages(cfg, tail=tail, has_faults=faults is not None,
-                                           churn_faults=churn_faults), values)
+    values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
+                                           liveness=liveness), values)
     new_state = SwarmState(
         row_ptr=state.row_ptr, col_idx=state.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
@@ -482,11 +503,11 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         fault_held=state.fault_held if fault_held is None else fault_held, join_round=state.join_round,
         admitted_by=state.admitted_by, degree_credit=values["degree_credit"],
         slot_lease=state.slot_lease, control_lvl=state.control_lvl,
-        pipe_buf=state.pipe_buf, suspect_round=state.suspect_round,
-        suspect_mark=state.suspect_mark, quarantine=state.quarantine,
+        pipe_buf=state.pipe_buf, suspect_round=values["suspect_round"],
+        suspect_mark=values["suspect_mark"], quarantine=values["quarantine"],
         rng=key, round=rnd,
     )
-    return new_state, _stats(new_state, msgs_sent, fstats)
+    return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness)
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
@@ -494,7 +515,8 @@ def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = 
     """Advance the swarm one round; returns ``(new_state, RoundStats)``. A
     ``PackedSwarm`` runs the packed-native round and stays packed.
     ``scenario`` injects the round's faults (``host_round``, the state's
-    round on the host, spares a device read)."""
+    round on the host, spares a device read); ``liveness`` (a
+    ``QuorumSpec``) hardens the detector."""
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import gossip_round_packed
 

@@ -1,8 +1,8 @@
 """Per-round metrics and the run-to-coverage benchmark.
 
 Ports ``BenchResult``, ``rounds_to_coverage``, ``bench_swarm``,
-``stats_rows``, ``write_jsonl``, ``recoverage_rounds`` and
-``phase_report`` of ``tpu_gossip/sim/metrics.py``.
+``stats_rows``, ``write_jsonl``, ``recoverage_rounds``, ``phase_report``
+and ``liveness_report`` of ``tpu_gossip/sim/metrics.py``.
 ``bench_swarm`` times on the host clock around work that ends in
 ``torch.cuda.synchronize()`` on a CUDA state.
 """
@@ -21,7 +21,7 @@ from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.sim.engine import RoundStats, run_until_coverage
 
 __all__ = ["BenchResult", "rounds_to_coverage", "bench_swarm", "stats_rows", "write_jsonl", "recoverage_rounds",
-           "phase_report"]
+           "phase_report", "liveness_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,3 +159,31 @@ def phase_report(stats: RoundStats, spec, *, heal_target: float = 0.99) -> list[
             row["recoverage_rounds_after_heal"] = recoverage_rounds(stats, hi, heal_target * ceiling)
         rows.append(row)
     return rows
+
+
+def liveness_report(stats: RoundStats) -> dict:
+    """The quorum detector's summary over a run (the CLI's ``liveness``
+    block): evictions and false ones (a victim responsive when declared),
+    ``eviction_precision`` (1 - false/total), ``eviction_recall`` (true
+    declarations over those plus the dead still undeclared at the end),
+    the quarantined rows at the end, the undeclared dead at the end, the
+    rounds with any dead member undeclared (``forgery_stall_rounds``), and
+    the accusations and forged heartbeats emitted. Host-side."""
+    evictions = int(_host(stats.evictions_new).astype(np.int64).sum())
+    false_ev = int(_host(stats.false_evictions).astype(np.int64).sum())
+    true_ev = evictions - false_ev
+    undeclared = _host(stats.dead_undeclared)
+    undeclared_final = int(undeclared[-1]) if undeclared.size else 0
+    quarantined = _host(stats.n_quarantined)
+    return {
+        "evictions": evictions,
+        "false_evictions": false_ev,
+        "eviction_precision": round(true_ev / evictions, 4) if evictions else None,
+        "eviction_recall": (round(true_ev / (true_ev + undeclared_final), 4)
+                            if true_ev + undeclared_final else None),
+        "quarantined": int(quarantined[-1]) if quarantined.size else 0,
+        "dead_undeclared_final": undeclared_final,
+        "forgery_stall_rounds": int((undeclared > 0).sum()),
+        "accusations": int(_host(stats.adv_accusations).astype(np.int64).sum()),
+        "forged_heartbeats": int(_host(stats.adv_forged).astype(np.int64).sum()),
+    }

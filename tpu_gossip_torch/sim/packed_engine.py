@@ -25,8 +25,10 @@ Under a scenario the fault head latches bool planes (the held buffer, the
 blackout and partition masks): the round decodes ``seen``, the role words
 and ``fault_held`` once, runs the bool head around the engine's bool
 delivery (``deliver_bool_factory``) and packs ``incoming``, the effective
-transmit plane and the held buffer back. Growth, streams, control,
-pipelining, the quorum detector and live ingestion are later slices and
+transmit plane and the held buffer back. The quorum detector runs as in
+the bool engine (its stages are row-level; ``quarantine`` rides the flags
+word) and masks a quarantined row's transmit words in the head. Growth,
+streams, control, pipelining and live ingestion are later slices and
 raise ``NotImplementedError``.
 """
 
@@ -39,8 +41,8 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
-from tpu_gossip_torch.sim.stages import (Stage, _churn_stage, _liveness_stage, check_later, fault_round, has_churn,
-                                        run_stages)
+from tpu_gossip_torch.sim.stages import (Stage, _churn_stage, _liveness_stage, adversary_keys, check_later,
+                                        fault_round, has_churn, require_quorum, run_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -55,15 +57,18 @@ def _decode_flags(ps: PackedSwarm) -> dict:
     return {n: unpack_flag(ps.flags, n) for n in FLAG_PLANES}
 
 
-def packed_round_head(ps: PackedSwarm, cfg, flags: dict):
+def packed_round_head(ps: PackedSwarm, cfg, flags: dict, liveness=None):
     """(active, role_w, tx_w): the word twin of ``compute_roles`` +
-    ``transmit_bitmap``. ``role_w`` packs ``active[:, None] & ~recovered``
-    and is both transmitter and receptive."""
+    ``transmit_bitmap`` (+ the quarantine's send mask with ``liveness``).
+    ``role_w`` packs ``active[:, None] & ~recovered`` and is both
+    transmitter and receptive."""
     active = flags["alive"] & ~flags["declared_dead"]
     role_w = po.role_words(ps.recovered, active, ps.msg_slots)
     tx_w = po.and_words(ps.seen, role_w)
     if cfg.forward_once:
         tx_w = po.andnot_words(tx_w, ps.forwarded)
+    if liveness is not None:
+        tx_w = po.mask_rows(tx_w, ~flags["quarantine"])
     return active, role_w, tx_w
 
 
@@ -145,23 +150,26 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
     return Stage("tail", reads, writes, fn)
 
 
-def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", has_faults: bool = False,
-                               churn_faults: bool = False) -> tuple[Stage, ...]:
-    """The packed stages of one config: the bool engine's row-level
-    liveness and churn stages (fault-aware as there), then the word tail."""
-    burst = has_faults and churn_faults
-    churn = (_churn_stage(cfg, burst),) if has_churn(cfg) or burst else ()
-    return (_liveness_stage(cfg, has_faults), *churn, _tail_stage_packed(cfg, tail, m))
+def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None, churn_faults: bool = False,
+                               liveness=None) -> tuple[Stage, ...]:
+    """The packed stages of one round: the bool engine's row-level
+    liveness and churn stages (fault-aware and hardened as there), then
+    the word tail."""
+    burst = faults is not None and churn_faults
+    churn = (_churn_stage(cfg, burst, defended=liveness is not None),) if has_churn(cfg) or burst else ()
+    return (_liveness_stage(cfg, faults, liveness), *churn, _tail_stage_packed(cfg, tail, m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
-                         churn_faults: bool = False, fault_held_w=None, fstats=None):
+                         churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
+                         k_accuse=None, k_forge=None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
     ``fault_held_w`` is the packed delay buffer to carry (the input's when
-    None), ``fstats`` the round's fault counters."""
+    None), ``fstats`` the round's fault counters; ``liveness`` and the
+    adversary arguments as in ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -172,11 +180,14 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming_w, "transmit": transmit_w,
         "receptive": receptive_w, "fresh": None, "expired": None, "faults": faults,
+        "suspect_round": ps.suspect_round, "suspect_mark": ps.suspect_mark, "quarantine": flags["quarantine"],
+        "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
     }
-    values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, has_faults=faults is not None,
-                                                   churn_faults=churn_faults), values)
+    values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, faults=faults,
+                                                   churn_faults=churn_faults, liveness=liveness), values)
     row_flags = dict(flags, alive=values["alive"], silent=values["silent"],
-                     declared_dead=values["declared_dead"], rewired=values["rewired"])
+                     declared_dead=values["declared_dead"], rewired=values["rewired"],
+                     quarantine=values["quarantine"])
     new_state = PackedSwarm(
         row_ptr=ps.row_ptr, col_idx=ps.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
@@ -187,17 +198,17 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         join_round=ps.join_round, admitted_by=ps.admitted_by,
         degree_credit=values["degree_credit"], slot_lease=ps.slot_lease,
         control_lvl=ps.control_lvl, pipe_buf=ps.pipe_buf,
-        suspect_round=ps.suspect_round, suspect_mark=ps.suspect_mark,
+        suspect_round=values["suspect_round"], suspect_mark=values["suspect_mark"],
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
-    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats)
+    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness)
 
 
-def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None):
+def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
     agree bit for bit, the padding being zero)."""
-    from tpu_gossip_torch.sim.engine import RoundStats
+    from tpu_gossip_torch.sim.engine import RoundStats, liveness_counters
 
     live = flags["alive"] & ~flags["declared_dead"]
     dev = ps.seen.device
@@ -218,27 +229,33 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None):
     )
     if fstats is not None:
         counters.update(fstats._asdict())
+    counters.update(liveness_counters(ltel, liveness, flags["exists"], flags["alive"], flags["declared_dead"],
+                                      flags["quarantine"]))
     return RoundStats(**counters)
 
 
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
-                              tail: str = "fused", scenario=None, host_round: int | None = None, **later):
+                              tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
+                              **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
     k_pull) -> (inc_w, msgs_sent)``, then the packed stages. Under a
     ``scenario``, ``deliver_bool_factory(flags, seen_b) -> deliver(tx, tr,
     rc, k_push, k_pull)`` builds the full-width delivery the fault head
     wraps: the round's planes decode once at this boundary and the
-    products pack back."""
+    products pack back; the flood replay runs in that head too. The
+    adversary stream's fold and ``liveness`` are the bool driver's."""
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
+    require_quorum(scenario, liveness)
     _engine.validate_rewire_width(ps, cfg)
     m = ps.msg_slots
     rnd = ps.round + 1
     key, k_push, k_pull, k_leave, k_join = prng.split(ps.rng, 5)
     flags = _decode_flags(ps)
-    _active, role_w, tx_w = packed_round_head(ps, cfg, flags)
+    _active, role_w, tx_w = packed_round_head(ps, cfg, flags, liveness)
+    k_accuse, k_forge, k_flood = adversary_keys(scenario, ps.rng)
     if scenario is None:
         inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull)
         tx_eff_w, held_w, telem, rf = tx_w, None, None, None
@@ -247,14 +264,17 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
 
         seen_b = unpack_bits(ps.seen, m)
         role_b = unpack_bits(role_w, m)
-        shim = types.SimpleNamespace(rng=ps.rng, fault_held=unpack_bits(ps.fault_held, m), seen=seen_b)
+        shim = types.SimpleNamespace(rng=ps.rng, fault_held=unpack_bits(ps.fault_held, m), seen=seen_b,
+                                     alive=flags["alive"], declared_dead=flags["declared_dead"],
+                                     quarantine=flags["quarantine"])
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, shim, fault_round(ps, host_round), unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull,
-            deliver_bool_factory(flags, seen_b))
+            deliver_bool_factory(flags, seen_b), k_flood=k_flood)
         inc_w, tx_eff_w, held_w = pack_bits(incoming), pack_bits(tx_eff), pack_bits(held)
     return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
                                 tail=tail, faults=rf, churn_faults=scenario is not None and scenario.has_churn,
-                                fault_held_w=held_w, fstats=telem)
+                                fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
+                                k_forge=k_forge)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):

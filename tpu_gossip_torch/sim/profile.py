@@ -8,6 +8,8 @@
         --churn-join 0.02 --rewire-slots 2 --rewire-compact-cap 65536
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 18 \\
         --scenario scenarios/lossy_links.toml
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 12 \\
+        --scenario scenarios/byzantine_siege.toml --quorum-k 3
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -41,7 +43,16 @@ unpacked round) runs the warm and traced rounds under the fault schedule
 in ``F`` and adds ``fault_draws``
 (the fault head's two ``(N, M)`` uniforms), ``fault_round`` (the whole
 round under the scenario at the round after the warm ones) and
-``plain_round`` (the same round without it). Needs a CUDA device.
+``plain_round`` (the same round without it). ``--quorum-k K`` (local
+unpacked round, window 4, budget 3) runs every round under the quorum
+detector and adds ``liveness`` (the hardened stage alone: forged
+heartbeats, accusations, the suspicion machine, the quarantine's credit
+release) beside ``liveness_direct`` (the unhardened stage on the same
+state), and under an adversary scenario ``adv_draws`` (the adversary
+stream's fold and its three ``randint`` draws: ``(N,)`` accusations,
+``(N, forge width)`` forgeries, ``(N, flood width)`` floods) and
+``flood_replay`` (the flood's payload scatter and bill). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -332,6 +343,9 @@ def main(argv=None) -> int:
                    help="time one CSR fold (and, with --shard, the epoch re-partition) and its share of R rounds")
     p.add_argument("--scenario", type=str, default="",
                    help="fault schedule (TOML) the warm and traced rounds run under (local unpacked round)")
+    p.add_argument("--quorum-k", type=int, default=0,
+                   help="run the rounds under the quorum detector with this quorum (window 4, budget 3) and time "
+                   "its stages (local unpacked round; 0 = the direct detector)")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -342,9 +356,16 @@ def main(argv=None) -> int:
     if args.remat_every > 0 and (args.graph == "matching" or args.packed):
         raise SystemExit("--remat-every folds a CSR graph's unpacked state (--graph device or pa, no --packed)")
     if args.shard:
-        if args.scenario:
-            raise SystemExit("--scenario profiles the local unpacked round; drop --shard")
+        if args.scenario or args.quorum_k:
+            raise SystemExit("--scenario and --quorum-k profile the local unpacked round; drop --shard")
         return main_shard(args, dev)
+    if args.packed and args.quorum_k:
+        raise SystemExit("--quorum-k profiles the local unpacked round; drop --packed")
+    lqs = None
+    if args.quorum_k:
+        from tpu_gossip_torch.kernels.liveness import compile_quorum
+
+        lqs = compile_quorum(args.quorum_k)
     n = args.peers
     exists = plan = None
     if args.graph == "matching":
@@ -370,7 +391,7 @@ def main(argv=None) -> int:
         spec = parse_scenario(args.scenario)
         sc = compile_scenario(spec, n_peers=n, n_slots=graph.n, device=dev,
                               total_rounds=max(spec.last_round, args.warm + args.rounds))
-    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc)
+    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs)
     churn = churn_stage_times(state, cfg, args.reps, cap) if has_churn(cfg) else {}
     if args.packed:
         if args.staircase:
@@ -385,14 +406,17 @@ def main(argv=None) -> int:
         stages = {"whole_round": _event_ms(lambda: engine.gossip_round(state, cfg, None), args.reps)}
     stages.update(_with_share(churn, args.remat_every))
     if sc is not None:
-        stages.update(fault_stage_times(state, cfg, plan, sc, args.warm, args.reps))
+        stages.update(fault_stage_times(state, cfg, plan, sc, args.warm, args.reps, lqs))
+    if lqs is not None:
+        stages.update(liveness_stage_times(state, cfg, sc, lqs, args.warm, args.reps))
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
                       "packed": args.packed, **_churn_keys(args), "scenario": args.scenario or None,
-                      "stage_ms": stages}))
+                      "quorum_k": args.quorum_k or None, "stage_ms": stages}))
     rnd = [args.warm]
 
     def step(s):
-        out = engine.gossip_round(s, cfg, plan, scenario=sc, host_round=rnd[0] if sc is not None else None)
+        out = engine.gossip_round(s, cfg, plan, scenario=sc, host_round=rnd[0] if sc is not None else None,
+                                  liveness=lqs)
         rnd[0] += 1
         return out
 
@@ -400,10 +424,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def fault_stage_times(state, cfg, plan, sc, at: int, reps: int) -> dict:
+def fault_stage_times(state, cfg, plan, sc, at: int, reps: int, lqs=None) -> dict:
     """The fault head's own cost on a warm state at round ``at``: its two
     ``(N, M)`` uniforms (drawn whether or not a phase is lossy, when any
-    is), the whole round under the scenario and the same round without."""
+    is), the whole round under the scenario and the same round without
+    (both under the quorum detector ``lqs`` when it is given)."""
     from tpu_gossip_torch.core.streams import FAULT_STREAM_SALT
 
     k_loss, k_delay, _, _ = prng.split(prng.fold_in(state.rng, FAULT_STREAM_SALT), 4)
@@ -411,8 +436,46 @@ def fault_stage_times(state, cfg, plan, sc, at: int, reps: int) -> dict:
     out = {}
     if sc.has_loss_delay:
         out["fault_draws"] = _event_ms(lambda: (prng.uniform(k_loss, shape), prng.uniform(k_delay, shape)), reps)
-    out["fault_round"] = _event_ms(lambda: engine.gossip_round(state, cfg, plan, scenario=sc, host_round=at), reps)
-    out["plain_round"] = _event_ms(lambda: engine.gossip_round(state, cfg, plan), reps)
+    out["fault_round"] = _event_ms(
+        lambda: engine.gossip_round(state, cfg, plan, scenario=sc, host_round=at, liveness=lqs), reps)
+    out["plain_round"] = _event_ms(lambda: engine.gossip_round(state, cfg, plan, liveness=lqs), reps)
+    return out
+
+
+def liveness_stage_times(state, cfg, sc, lqs, at: int, reps: int) -> dict:
+    """The quorum detector's cost on a warm state at round ``at``: the
+    hardened liveness stage alone (with the scenario's adversaries and
+    faults when ``sc`` is given) beside the direct stage, and under an
+    adversary scenario the adversary stream's draws and the flood replay."""
+    from tpu_gossip_torch.faults.inject import flood_replay
+    from tpu_gossip_torch.sim.stages import _liveness_stage, adversary_keys, run_stages
+
+    rf = None if sc is None else sc.at_round(at + 1)
+    k_accuse, k_forge, k_flood = adversary_keys(sc, state.rng)
+    values = {name: getattr(state, name) for name in (
+        "silent", "alive", "declared_dead", "last_hb", "exists", "suspect_round", "suspect_mark", "quarantine",
+        "rewired", "rewire_targets", "degree_credit")}
+    values.update(rnd=state.round + 1, faults=rf, k_accuse=k_accuse, k_forge=k_forge)
+    hardened = _liveness_stage(cfg, rf, lqs)
+    direct = _liveness_stage(cfg, rf)
+    out = {"liveness": _event_ms(lambda: run_stages((hardened,), dict(values)), reps),
+           "liveness_direct": _event_ms(lambda: run_stages((direct,), dict(values)), reps)}
+    if sc is None or not sc.has_adversary:
+        return out
+    n = state.alive.shape[0]
+    widths = ((), (sc.max_forge_fanout,), (sc.max_flood_fanout,))
+    drawn = (sc.has_accusers, sc.has_forgers, sc.has_floods)
+
+    def draws():
+        keys = adversary_keys(sc, state.rng)
+        return [prng.randint(k, (n, *w), 0, n) for k, w, on in zip(keys, widths, drawn) if on]
+
+    out["adv_draws"] = _event_ms(draws, reps)
+    if sc.has_floods:
+        flood_ok = rf.flooder & state.alive & ~state.declared_dead & ~state.quarantine
+        if sc.has_blackout:
+            flood_ok = flood_ok & ~rf.blackout
+        out["flood_replay"] = _event_ms(lambda: flood_replay(sc, rf, state.seen, flood_ok, k_flood), reps)
     return out
 
 

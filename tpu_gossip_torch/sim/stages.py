@@ -1,20 +1,22 @@
 """The round as declared stages: the shared driver of every engine.
 
-Ports ``Stage``, ``StageView``, ``run_stages``, ``_liveness_stage`` (the
-direct detector, blacked-out rows read as silent), ``_churn_stage`` (:298,
-Poisson churn, the scenario's burst thresholds and the re-wiring draws),
-``_tail_stage``, ``build_round_stages`` (:673),
+Ports ``Stage``, ``StageView``, ``run_stages``, ``_liveness_stage`` (:175,
+the direct detector with blacked-out rows read as silent, or the quorum
+detector with the accusers' and forgers' half and the quarantine's credit
+release), ``_churn_stage`` (:298, Poisson churn, the scenario's burst
+thresholds, the re-wiring draws and the defended rejoin of quarantined
+rows), ``_tail_stage``, ``build_round_stages`` (:673),
 ``effective_transmit_planes`` (:724) and ``run_protocol_round`` (:739) of
 ``tpu_gossip/sim/stages.py``. Each stage names the carries it reads and
 writes and :func:`run_stages` enforces the declarations.
-:func:`run_protocol_round` does the 5-way key split, the role masks, the
-engine's dissemination (wrapped by the scenario head,
+:func:`run_protocol_round` does the 5-way key split, the role masks (with
+the quarantine's send mask under the quorum detector), the adversary
+stream's fold, the engine's dissemination (wrapped by the scenario head,
 ``faults.inject.scenario_dissemination``, under a scenario) and the
 post-delivery stages (liveness, churn, tail).
 
-Growth, streams, control, pipelining, the quorum detector (with its
-quarantined rejoin) and live ingestion are later slices; their arguments
-raise ``NotImplementedError`` here.
+Growth, streams, control, pipelining and live ingestion are later slices;
+their arguments raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import torch
 from tpu_gossip_torch.core import prng
 
 __all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "run_protocol_round", "not_ported",
-           "check_later", "first_rows", "has_churn", "effective_transmit_planes", "fault_round"]
+           "check_later", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
+           "require_quorum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,12 +80,35 @@ def run_stages(stages: tuple[Stage, ...], values: dict) -> dict:
     return values
 
 
-def _liveness_stage(cfg, has_faults: bool = False) -> Stage:
-    """Heartbeat emission + the direct failure detector (row-level). Under a
-    scenario a blacked-out row is a silent one for the phase: it emits no
-    heartbeat and answers no probe, and the dead declaration it earns
-    stays."""
-    from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
+def _liveness_stage(cfg, faults=None, liveness=None) -> Stage:
+    """Heartbeat emission and failure detection (row-level). Under a
+    scenario (``faults``, the round's ``RoundFaults``) a blacked-out row is
+    a silent one for the phase: it emits no heartbeat and answers no
+    probe, and the dead declaration it earns stays.
+
+    With ``liveness`` (a ``QuorumSpec``) the quorum detector
+    (``kernels.liveness.quorum_liveness``) replaces the direct one: the
+    forgers' heartbeats land first, the accusers' verdicts vote with the
+    witnesses (when the scenario fields them: ``faults.forger`` and
+    ``faults.accuser`` are set), and a newly quarantined row's fresh edges
+    are released through ``degree_credit`` as it leaves the rewired set.
+    Adversaries emit only while alive, undeclared, not quarantined and not
+    blacked out. The stage then also writes ``ltel``, the round's
+    counters. ``liveness=None`` carries the suspicion planes untouched."""
+    from tpu_gossip_torch.kernels.liveness import (LivenessTelemetry, detect_failures, emit_heartbeats,
+                                                    forge_heartbeats, quorum_liveness)
+
+    has_faults = faults is not None
+    has_accusers = has_faults and faults.accuser is not None
+    has_forgers = has_faults and faults.forger is not None
+    reads = ("silent", "alive", "declared_dead", "last_hb", "rnd") + (("faults",) if has_faults else ())
+    writes = ("last_hb", "declared_dead")
+    if liveness is not None:
+        reads = reads + ("exists", "suspect_round", "suspect_mark", "quarantine", "rewired", "rewire_targets",
+                         "degree_credit") + (("k_accuse",) if has_accusers else ()) + (
+                             ("k_forge",) if has_forgers else ())
+        writes = writes + ("suspect_round", "suspect_mark", "quarantine", "rewired", "rewire_targets",
+                           "degree_credit", "ltel")
 
     def fn(ctx):
         silent_now = ctx["silent"] | ctx["faults"].blackout if has_faults else ctx["silent"]
@@ -90,14 +116,42 @@ def _liveness_stage(cfg, has_faults: bool = False) -> Stage:
             ctx["last_hb"], ctx["alive"], silent_now, ctx["declared_dead"],
             ctx["rnd"], cfg.hb_period_rounds,
         )
-        last_hb, declared_dead = detect_failures(
-            last_hb, ctx["alive"], silent_now, ctx["declared_dead"], ctx["rnd"],
-            cfg.timeout_rounds, cfg.detect_period_rounds,
-        )
-        return {"last_hb": last_hb, "declared_dead": declared_dead}
+        if liveness is None:
+            last_hb, declared_dead = detect_failures(
+                last_hb, ctx["alive"], silent_now, ctx["declared_dead"], ctx["rnd"],
+                cfg.timeout_rounds, cfg.detect_period_rounds,
+            )
+            return {"last_hb": last_hb, "declared_dead": declared_dead}
 
-    reads = ("silent", "alive", "declared_dead", "last_hb", "rnd") + (("faults",) if has_faults else ())
-    return Stage("liveness", reads, ("last_hb", "declared_dead"), fn)
+        adv_forged = torch.zeros((), dtype=torch.int32, device=last_hb.device)
+        if has_forgers or has_accusers:
+            rf = ctx["faults"]
+            can_emit = ctx["alive"] & ~ctx["declared_dead"] & ~ctx["quarantine"] & ~rf.blackout
+        if has_forgers:
+            last_hb, adv_forged = forge_heartbeats(last_hb, ctx["suspect_round"], rf.forger & can_emit, ctx["rnd"],
+                                                   ctx["k_forge"], rf.forge_fanout, rf.forge_width)
+        out = quorum_liveness(
+            liveness, last_hb, ctx["alive"], silent_now, ctx["declared_dead"], ctx["suspect_round"],
+            ctx["suspect_mark"], ctx["quarantine"], ctx["exists"], ctx["rnd"], cfg.timeout_rounds,
+            cfg.detect_period_rounds, k_accuse=ctx["k_accuse"] if has_accusers else None,
+            accuser_ok=rf.accuser & can_emit if has_accusers else None,
+        )
+        # a quarantined row rejoins its CSR edges: its fresh targets'
+        # credit goes back and it leaves the rewired set
+        rewired, rewire_targets = ctx["rewired"], ctx["rewire_targets"]
+        newly_q = out["newly_quarantined"]
+        q_rw = newly_q & rewired
+        degree_credit = _add_at(ctx["degree_credit"], rewire_targets, q_rw[:, None] & (rewire_targets >= 0), -1)
+        return {
+            "last_hb": out["last_hb"], "declared_dead": out["declared_dead"],
+            "suspect_round": out["suspect_round"], "suspect_mark": out["suspect_mark"],
+            "quarantine": out["quarantine"], "rewired": rewired & ~newly_q,
+            "rewire_targets": torch.where(q_rw[:, None], -1, rewire_targets), "degree_credit": degree_credit,
+            "ltel": LivenessTelemetry(evictions_new=out["evictions_new"], false_evictions=out["false_evictions"],
+                                      adv_accusations=out["adv_accusations"], adv_forged=adv_forged),
+        }
+
+    return Stage("liveness", reads, writes, fn)
 
 
 def first_rows(mask: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -138,7 +192,7 @@ def _burst_threshold(p_cfg: float, burst: torch.Tensor, p_burst: torch.Tensor) -
     return 1.0 - keep_cfg * (1.0 - extra)
 
 
-def _churn_stage(cfg, burst: bool = False) -> Stage:
+def _churn_stage(cfg, burst: bool = False, defended: bool = False) -> Stage:
     """Poisson churn, row-level half (BASELINE config 5), and the
     re-wiring draws: departures, rejoins of vacant member slots with fresh
     row state, and each rejoiner's ``rewire_slots`` degree-preferential
@@ -150,9 +204,14 @@ def _churn_stage(cfg, burst: bool = False) -> Stage:
     grants the new ones. With ``burst`` the scenario's leave and join
     probabilities fold into the same draws as per-row thresholds
     (``P = 1 - (1 - p_cfg)(1 - p_burst)`` on burst rows): keys and shapes
-    are untouched, and both draws run every round."""
+    are untouched, and both draws run every round. ``defended`` (the
+    quorum detector is on): a quarantined rejoiner takes no fresh edges
+    and rejoins on its slot's CSR edges (``fresh_rw = fresh &
+    ~quarantine``); only masks move, so with nobody quarantined the round
+    is unchanged."""
     reads = ("alive", "silent", "exists", "last_hb", "declared_dead", "rewired", "rewire_targets",
-             "degree_credit", "row_ptr", "col_idx", "rnd", "k_leave", "k_join") + (("faults",) if burst else ())
+             "degree_credit", "row_ptr", "col_idx", "rnd", "k_leave", "k_join") + (("faults",) if burst else ()) + (
+                 ("quarantine",) if defended else ())
     writes = ("alive", "silent", "last_hb", "declared_dead", "rewired", "rewire_targets", "degree_credit", "fresh")
 
     def fn(ctx):
@@ -178,6 +237,8 @@ def _churn_stage(cfg, burst: bool = False) -> Stage:
             silent = silent & ~fresh
             last_hb = torch.where(fresh, saturate_round(ctx["rnd"], last_hb.dtype), last_hb)
             declared_dead = declared_dead & ~fresh
+            # quarantined identities rejoin on their slot's CSR edges
+            fresh_rw = fresh & ~ctx["quarantine"] if defended else fresh
             col_idx = ctx["col_idx"]
             if cfg.rewire_slots > 0 and col_idx.shape[0] > 0:
                 n, s = rewire_targets.shape
@@ -186,16 +247,16 @@ def _churn_stage(cfg, burst: bool = False) -> Stage:
                 if cap == 0:
                     jrows = torch.arange(n, dtype=torch.int64, device=alive.device)
                 else:
-                    jrows, jlive = first_rows(fresh, cap)
+                    jrows, jlive = first_rows(fresh_rw, cap)
                 draws = col_idx[prng.randint(k_rw, (jrows.shape[0], s), 0, e_real).to(torch.int64)]
                 ok = ctx["exists"][draws.to(torch.int64)] & (draws.to(torch.int64) != jrows[:, None])
                 draws = torch.where(ok, draws, -1)
-                released = (fresh & rewired)[:, None] & (rewire_targets >= 0)
+                released = (fresh_rw & rewired)[:, None] & (rewire_targets >= 0)
                 degree_credit = _add_at(degree_credit, rewire_targets, released, -1)
                 if cap == 0:
-                    degree_credit = _add_at(degree_credit, draws, fresh[:, None] & (draws >= 0), 1)
-                    rewire_targets = torch.where(fresh[:, None], draws, rewire_targets)
-                    rewired = rewired | fresh
+                    degree_credit = _add_at(degree_credit, draws, fresh_rw[:, None] & (draws >= 0), 1)
+                    rewire_targets = torch.where(fresh_rw[:, None], draws, rewire_targets)
+                    rewired = rewired | fresh_rw
                 else:
                     degree_credit = _add_at(degree_credit, draws, jlive[:, None] & (draws >= 0), 1)
                     sel = torch.where(jlive, jrows, n)
@@ -250,23 +311,23 @@ def has_churn(cfg) -> bool:
     return cfg.churn_leave_prob > 0.0 or cfg.churn_join_prob > 0.0
 
 
-def build_round_stages(cfg, *, tail: str = "fused", has_faults: bool = False,
-                       churn_faults: bool = False) -> tuple[Stage, ...]:
-    """The post-dissemination stages of one config: liveness (reading the
-    round's faults under a scenario), churn (when the config churns or the
-    scenario has a churn burst, then in its burst form), then the tail."""
-    burst = has_faults and churn_faults
-    churn = (_churn_stage(cfg, burst),) if has_churn(cfg) or burst else ()
-    return (_liveness_stage(cfg, has_faults), *churn, _tail_stage(cfg, tail))
+def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
+                       liveness=None) -> tuple[Stage, ...]:
+    """The post-dissemination stages of one round: liveness (reading the
+    round's ``faults`` under a scenario, the quorum detector and the
+    adversaries' half with ``liveness``), churn (when the config churns or
+    the scenario has a churn burst, then in its burst form; defended with
+    ``liveness``), then the tail."""
+    burst = faults is not None and churn_faults
+    churn = (_churn_stage(cfg, burst, defended=liveness is not None),) if has_churn(cfg) or burst else ()
+    return (_liveness_stage(cfg, faults, liveness), *churn, _tail_stage(cfg, tail))
 
 
 def check_later(later: dict) -> None:
     """Refuse the arguments of later slices (given and not None) and any
     unknown argument."""
-    for name, where in (("growth", "growth"), ("stream", "traffic"),
+    for name, where in (("growth", "growth (ROADMAP item 9c)"), ("stream", "traffic"),
                         ("control", "control"), ("pipeline", "multi-device"),
-                        ("liveness", "composed-planes (ROADMAP item 9: the quorum detector, with the "
-                                     "churn stage's quarantined rejoin)"),
                         ("inject", "serving")):
         if later.pop(name, None) is not None:
             raise not_ported(f"the {name} argument", where)
@@ -295,8 +356,32 @@ def fault_round(state, host_round: int | None) -> int:
     return (int(state.round) if host_round is None else int(host_round)) + 1
 
 
+def adversary_keys(scenario, rng):
+    """``(k_accuse, k_forge, k_flood)``: the adversary stream's three
+    children, ``split(fold_in(rng, ADVERSARY_STREAM_SALT), 3)``, folded
+    once a round when the scenario fields adversaries; Nones otherwise."""
+    if scenario is None or not scenario.has_adversary:
+        return None, None, None
+    from tpu_gossip_torch.core.streams import ADVERSARY_STREAM_SALT
+
+    k_accuse, k_forge, k_flood = prng.split(prng.fold_in(rng, ADVERSARY_STREAM_SALT), 3)
+    return k_accuse, k_forge, k_flood
+
+
+def require_quorum(scenario, liveness) -> None:
+    """An adversary scenario needs the quorum detector: JAX's ValueError."""
+    if scenario is not None and scenario.has_adversary and liveness is None:
+        raise ValueError(
+            "the scenario fields Byzantine adversaries (accusers/forgers/"
+            "floods) but no QuorumSpec is active — adversary rounds need "
+            "the defense planes compiled in; pass liveness=compile_quorum"
+            "(...) (quorum_k=1 reproduces the reference's single-report "
+            "purge)"
+        )
+
+
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
-                       host_round: int | None = None, **later):
+                       host_round: int | None = None, liveness=None, **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
@@ -310,16 +395,26 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     wraps the delivery in the round's faults; its draws come from their own
     stream, so a quiescent scenario changes no bit. ``host_round`` is
     ``state.round`` when the caller knows it on the host (the horizon
-    loops do), sparing a device read a round.
+    loops do), sparing a device read a round. ``liveness`` (a
+    ``QuorumSpec``) runs the quorum detector: a quarantined row's sends
+    are masked, and a scenario's adversaries draw from the adversary
+    stream (:func:`adversary_keys`); adversaries without it raise JAX's
+    ValueError.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
+    require_quorum(scenario, liveness)
     _engine.validate_rewire_width(state, cfg)
     rnd = state.round + 1
     key, k_push, k_pull, k_leave, k_join = prng.split(state.rng, 5)
     _, transmitter, receptive = _engine.compute_roles(state)
     transmit = _engine.transmit_bitmap(state, cfg, transmitter)
+    if liveness is not None:
+        # a quarantined peer still receives and stays a member; its sends
+        # are masked
+        transmit = transmit & ~state.quarantine[:, None]
+    k_accuse, k_forge, k_flood = adversary_keys(scenario, state.rng)
     if scenario is None:
         incoming, msgs_sent = disseminate(transmit, transmitter, receptive, k_push, k_pull)
         tx_eff, held, telem, rf = transmit, None, None, None
@@ -328,8 +423,9 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
 
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, state, fault_round(state, host_round), transmit, transmitter, receptive,
-            k_push, k_pull, disseminate)
+            k_push, k_pull, disseminate, k_flood=k_flood)
     return _engine.advance_round(
         state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
+        liveness=liveness, k_accuse=k_accuse, k_forge=k_forge,
     )
