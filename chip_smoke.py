@@ -13,7 +13,8 @@ launch, on the 1M plan and crafted tables; K3 at slot widths 1, 3, 7, 16 and 32;
 and K4 in both SIR-age modes, past ROUND_CAP too), reproduces the
 JAX-pinned digests (``tpu_gossip_torch/reference_digests.json``:
 seventeen n=20000 runs, packed, sharded and churned included, the 1M
-matching headline and the 1M churn headline), then drives eight paths at 1M peers (push_pull, fanout 1, 16
+matching headline and the 1M churn headline; the later phases check the
+rest), then drives eight paths at 1M peers (push_pull, fanout 1, 16
 slots, to 99% coverage), each with its launches counted from zero: the
 matching headline (K1, K2, K3), the power-law CSR swarm delivered by the
 staircase kernel (K5, K3), the exactly-k XLA delivery on the same graph
@@ -69,7 +70,20 @@ siege on the 1M matching headline at quorum 3 onto the JAX pin, its
 packed twin and quorum 1, ms/round over the siege and the aftermath
 apart; 9c the siege at 1M on the sharded K6 path, its scatter twin and
 the staircase, and a mid-siege checkpoint across card and CPU), each run's
-launches counted from zero; it prints phase 9's seconds and the script's.
+launches counted from zero. Phase 10 drives growth (``growth/``, ``run_sim
+--grow``): 10a the eight n=20000 growth pins (JAX CLI) through the CLI on
+every engine (matching and its packed twin, PA under config 5's churn,
+the staircase remat loop, the bucketed mesh and its packed twin, silent
+peers, the flash-crowd scenario's join_burst waves); 10b the 1M matching
+headline growing 950000 -> 1000000 at 256 joins a round for 32 rounds onto
+its JAX pin, its packed twin digest-equal, the same capacity-padded state
+growing and fixed-n side by side (ms/round from CUDA events, peaks, the
+draw's chunk) and ``sim.profile --grow`` (the growth stage split into the
+Gumbel draw, the top-k and the scatters); 10c ``bench.py::bench_grow``'s
+configuration to the end of its schedule (197 rounds), membership at the
+target and ``degree_gamma`` within 1e-3 of the host fit; 10d a mid-growth
+n=20000 checkpoint killed and resumed on the other device, both ways. It
+prints phase 10's seconds and the script's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -367,15 +381,21 @@ def check_k6(dev, gen, setup: dict) -> int:
     return err
 
 
+def growth_pin(ref: dict) -> bool:
+    """A pin of the growth plane (``--grow``): phase 10's."""
+    return "--grow" in ref["argv"]
+
+
 def quorum_pin(ref: dict) -> bool:
     """A pin of the quorum detector (``--quorum-k``): phase 9's."""
-    return "--quorum-k" in ref["argv"]
+    return "--quorum-k" in ref["argv"] and not growth_pin(ref)
 
 
 def fault_pin(ref: dict) -> bool:
     """A pin of the fault plane (silent peers or a scenario) without the
-    quorum detector: phase 8's."""
-    return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not quorum_pin(ref)
+    quorum detector or growth: phase 8's."""
+    return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not quorum_pin(ref) and (
+        not growth_pin(ref))
 
 
 def phase_digest(root: Path, dev) -> list[dict]:
@@ -385,7 +405,7 @@ def phase_digest(root: Path, dev) -> list[dict]:
 
     out = []
     for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text()):
-        if fault_pin(ref) or quorum_pin(ref):  # phase 8's and phase 9's
+        if fault_pin(ref) or quorum_pin(ref) or growth_pin(ref):  # phase 8's, 9's and 10's
             continue
         args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
         if unknown:
@@ -1544,8 +1564,7 @@ def cli_here(argv: list[str], dev, marks: bool = False) -> dict:
         return out
 
     args = run_sim.build_parser().parse_args(argv + ["--device", str(dev)])
-    err = (run_sim._scenario_refusal(args) or run_sim._validate_liveness(args, run_sim._scenario_spec(args))
-           or run_sim._refusal(args))
+    err = run_sim.validate(args)
     if err:
         raise AssertionError(f"run_sim {' '.join(argv)} refused: {err}")
     horizon = {}
@@ -1932,6 +1951,266 @@ def phase_quorum(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 10: growth
+
+GROW_BIG = ["--graph", "matching", "--peers", "950000", "--grow", "1000000", "--grow-rate", "256", "--rounds", "32",
+            "--mode", "push_pull", "--fanout", "1", "--digest", "--quiet"]
+BENCH_GROW = dict(n0=950_000, target=1_000_000, rate=256, attach=3)  # bench.py::bench_grow's configuration
+
+
+def growth_launches(argv: list[str], rounds: int) -> dict:
+    """The kernel launches a growing CLI run makes over its horizon: its
+    delivery path's kernels once a round (K1 checked apart), no other."""
+    packed = "--packed" in argv
+    tail = {"round_tail": 0 if packed else rounds, "round_tail_words": rounds if packed else 0}
+    if "matching" in argv:
+        return {"fold_planes_or": rounds, "staircase_segment": 0, "stream_segment": 0, **tail}
+    k5 = rounds if "--staircase" in argv and "--shard" not in argv else 0
+    k6 = rounds if "--staircase" in argv and "--shard" in argv else 0
+    return {"lane_shuffle": 0, "fold_planes_or": 0, "staircase_segment": k5, "stream_segment": k6, **tail}
+
+
+def check_growth_run(what: str, argv: list[str], r: dict) -> None:
+    rounds = int(argv[argv.index("--rounds") + 1])
+    check_counts(what, r["launches"], growth_launches(argv, rounds))
+    if "matching" in argv and r["launches"]["lane_shuffle"] == 0:
+        raise AssertionError(f"{what}: the matching path launched no K1")
+
+
+def growth_line(card: str, what: str, r: dict, extra: str = "") -> str:
+    s = r["summary"]
+    grown = {k: s[k] for k in ("n_members", "grow_rate", "degree_gamma")}
+    rm = ""
+    if r.get("round_ms"):
+        rm = f"; {sum(r['round_ms']) / len(r['round_ms'])} ms/round by CUDA events a round"
+    return fault_line(card, what, r, f"; growth {grown}{rm}{extra}")
+
+
+def timed_rounds(dev, step, state, rounds: int) -> tuple:
+    """``rounds`` calls of ``step`` from ``state``, a CUDA event after each:
+    the final state and stats, the ms of each round, the device peak over
+    them (reset as they start) and the bytes allocated at their start."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    ev = [torch.cuda.Event(enable_timing=True)]
+    ev[0].record()
+    rows = []
+    for _ in range(rounds):
+        state, st = step(state)
+        rows.append(st)
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+    torch.cuda.synchronize(dev)
+    from tpu_gossip_torch.sim.engine import _stack
+
+    return state, _stack(rows), [a.elapsed_time(b) for a, b in zip(ev, ev[1:])], \
+        torch.cuda.max_memory_allocated(dev), start
+
+
+def grow_vs_fixed(dev, graph, cfg, state, grow, plan, rounds: int) -> dict:
+    """The same capacity-padded state run ``rounds`` rounds growing and with
+    ``growth=None``, as bench_grow prices it: each run's final state, ms a
+    round and device peak, and its launches counted from 0."""
+    from tpu_gossip_torch.core.state import clone_state
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim import engine
+
+    out = {}
+    for what, g in (("growing", grow), ("fixed", None)):
+        native.reset_launches()
+        fin, stats, ms, peak, start = timed_rounds(
+            dev, lambda s: engine.gossip_round(s, cfg, plan, growth=g), clone_state(state), rounds)
+        out[what] = dict(fin=fin, stats=stats, ms=ms, ms_per_round=sum(ms) / len(ms), peak=peak, start=start,
+                         launches=dict(native.LAUNCHES))
+    return out
+
+
+def run_growth_profile(root: Path, card: str) -> dict:
+    """``sim.profile --grow`` on 10b's configuration: the growth stage row
+    and its split, the growing and plain rounds, and the traced round."""
+    proc = subprocess.run([sys.executable, "-m", "tpu_gossip_torch.sim.profile", "--peers", "950000", "--grow",
+                           "1000000", "--grow-rate", "256", "--warm", "8", "--rounds", "3", "--reps", "5"], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"sim.profile --grow exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    stages, trace = lines[0]["stage_ms"], lines[1]["trace"]
+    for key in ("growth", "growth_draw", "growth_top_k", "growth_scatters", "growth_round", "plain_round"):
+        if key not in stages:
+            raise AssertionError(f"sim.profile --grow printed no {key} row: {stages}")
+    print(f"[{card}] 10b sim.profile --grow (n=950000 -> 1000000, 256 joins a round, 8 warm rounds): growth stage "
+          f"{stages['growth']} ms (draw {stages['growth_draw']}, top-k {stages['growth_top_k']}, cursor, log degrees "
+          f"and scatters {stages['growth_scatters']}; {stages['growth_chunk_rows']} rows a draw chunk), growing round "
+          f"{stages['growth_round']} ms, the same round without growth {stages['plain_round']} ms; every stage "
+          f"{stages}; traced: {trace['wall_ms_per_round']} ms/round wall, {trace['device_ms_per_round']} ms device, "
+          f"busy {trace['device_busy_share']}, top kernels {trace['top_kernels_ms_per_round'][:8]}", flush=True)
+    return dict(stages=stages, trace={k: v for k, v in trace.items() if k != "top_kernels_ms_per_round"})
+
+
+def phase_growth(root: Path, dev, card: str) -> dict:
+    """Phase 10: growth on the card. 10a the JAX pins at n <= 20000 through
+    the CLI (every engine, join_burst waves under flash-crowd-under-fire),
+    launches counted from 0 a run; 10b the 1M matching headline growing
+    (950000 -> 1000000, 256 joins a round, 32 rounds) onto its JAX pin,
+    its packed twin digest-equal, the same capacity-padded state growing
+    and fixed-n (ms/round and peaks), and ``sim.profile --grow``; 10c
+    bench_grow's configuration to the end of its schedule (the device
+    power-law graph of 950000 padded to 1000001 rows, exactly-k delivery),
+    membership at the target and the device gamma track within 1e-3 of the
+    host fit; 10d the n=20000 matching pin killed after its mid-growth
+    round-8 checkpoint and resumed on the other device, both ways."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.growth import compile_growth, matching_admit_rows, pad_graph_for_growth
+    from tpu_gossip_torch.growth.engine import DRAW_CHUNK_WORDS, draw_chunk_rows, realized_degrees
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    refs = json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+    pins = [r for r in refs if growth_pin(r)]
+    out = {}
+
+    # 10a: the small pins, every engine
+    t0 = time.perf_counter()
+    for ref in pins:
+        if ref["argv"][ref["argv"].index("--peers") + 1] != "20000":
+            continue
+        argv = [a for a in ref["argv"] if a != "--quiet"]
+        r = cli_here(argv, dev)
+        what = f"10a run_sim {' '.join(a for a in argv if a != '--digest')}"
+        check_pin(r["summary"], ref, what)
+        check_growth_run(what, argv, r)
+        print(growth_line(card, what, r, "; equal to the JAX pin"), flush=True)
+        del r
+    out["10a"] = dict(seconds=time.perf_counter() - t0)
+
+    # 10b: the 1M matching headline growing, its packed twin, and the same
+    # state growing and fixed-n
+    t0 = time.perf_counter()
+    pin = {" ".join(p["argv"]): p for p in pins}[" ".join(GROW_BIG)]
+    runs = {}
+    for what, argv in (("growing", GROW_BIG), ("growing packed", GROW_BIG + ["--packed"])):
+        r = runs[what] = cli_here(argv, dev, marks=True)
+        check_growth_run(f"10b {what}", argv, r)
+        if what == "growing":
+            check_pin(r["summary"], pin, "10b")
+            if r["launches"]["fold_planes_sum"] != 1:
+                raise AssertionError(f"10b: the plan build launched fold_planes_sum {r['launches']['fold_planes_sum']} "
+                                     "times, needs 1")
+        else:
+            same_run(runs["growing"], r, "10b packed twin")
+        print(growth_line(card, f"10b the matching headline growing 950000 -> 1000000, 256 joins a round, {what} "
+                                f"(32 rounds)", r, "; digests equal the JAX pin" if what == "growing" else
+                          ", digest-equal to the unpacked run"), flush=True)
+        out[f"10b cli {what}"] = dict(horizon=r["horizon"], launches=r["launches"],
+                                      ms_per_round=sum(r["round_ms"]) / len(r["round_ms"]))
+    cli_digest = runs["growing"]["summary"]["state_digest"]
+    del runs, r
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+
+    dgraph, plan = matching_powerlaw_graph_sharded(950_000, 1, fanout=1, key=prng.key(0, dev), growth_rows=50_000,
+                                                   device=dev)
+    graph = dgraph.as_padded_graph()
+    cfg = SwarmConfig(n_peers=graph.n, msg_slots=M_SLOTS, fanout=1, mode="push_pull", rewire_slots=3)
+    origins = np.random.default_rng(0).choice(950_000, size=1, replace=False)
+    state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=dgraph.exists, device=dev)
+    grow = compile_growth(n_initial=950_000, target=1_000_000, n_slots=graph.n, joins_per_round=256, attach_m=3,
+                          admit_rows=matching_admit_rows(plan, 50_000), device=dev)
+    pair = grow_vs_fixed(dev, graph, cfg, state, grow, plan, 32)
+    if state_digest(pair["growing"]["fin"]) != cli_digest:
+        raise AssertionError("10b: the library's growing run differs from the CLI's")
+    chunk = draw_chunk_rows(graph.n, dev)
+    for what in ("growing", "fixed"):
+        p = pair[what]
+        out[f"10b {what}"] = {k: v for k, v in p.items() if k not in ("fin", "stats", "ms")}
+        chunk_text = (f"; draw chunk {chunk} rows of {graph.n} (DRAW_CHUNK_WORDS {DRAW_CHUNK_WORDS['cuda']})"
+                      if what == "growing" else "")
+        print(f"[{card}] 10b the same capacity-padded state (n_state {graph.n}), {what}: {p['ms_per_round']} "
+              f"ms/round over 32 rounds (each {p['ms']}), peak {p['peak']} B from {p['start']} B at the start; "
+              f"launches {({k: v for k, v in p['launches'].items() if v})}{chunk_text}", flush=True)
+    print(f"[{card}] 10b growing/fixed: {pair['growing']['ms_per_round'] / pair['fixed']['ms_per_round']}x the "
+          f"ms/round, peak {pair['growing']['peak'] - pair['fixed']['peak']} B above; the library's growing run "
+          f"equals the CLI's digest", flush=True)
+    del pair, state, plan, dgraph, graph
+    out["10b profile"] = run_growth_profile(root, card)
+    out["10b"] = dict(seconds=time.perf_counter() - t0)
+
+    # 10c: bench_grow's configuration to the end of its schedule
+    t0 = time.perf_counter()
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+    from tpu_gossip_torch.core.topology import fit_powerlaw_gamma
+
+    b = BENCH_GROW
+    dg = device_powerlaw_graph(b["n0"], gamma=2.5, key=prng.key(0, dev), device=dev)
+    cap = b["target"] + 1  # and the device graph's sentinel row
+    graph, pad_exists = pad_graph_for_growth(dg.as_padded_graph(), cap)
+    # the sentinel stays a non-member and is never admitted: admission starts past it
+    pad_exists[: b["n0"] + 1] = dg.exists.cpu().numpy()
+    cfg = SwarmConfig(n_peers=cap, msg_slots=M_SLOTS, fanout=1, mode="push_pull", rewire_slots=b["attach"])
+    state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=np.arange(M_SLOTS), origin_slots=np.arange(M_SLOTS),
+                       exists=torch.from_numpy(pad_exists).to(dev), device=dev)
+    grow = compile_growth(n_initial=b["n0"] + 1, target=cap, n_slots=cap, joins_per_round=b["rate"],
+                          attach_m=b["attach"], device=dev)
+    rounds = (b["target"] - b["n0"]) // b["rate"] + 2
+    pair = grow_vs_fixed(dev, graph, cfg, state, grow, None, rounds)
+    fin, stats = pair["growing"]["fin"], pair["growing"]["stats"]
+    members = int(fin.exists.sum())
+    deg = realized_degrees(fin.row_ptr, fin.exists, fin.rewired, fin.rewire_targets, fin.degree_credit).cpu().numpy()
+    host_gamma = fit_powerlaw_gamma(deg[fin.exists.cpu().numpy()])
+    dev_gamma = float(stats.degree_gamma[-1])
+    check_counts("10c growing", pair["growing"]["launches"], {"lane_shuffle": 0, "fold_planes_or": 0,
+                                                              "round_tail": rounds, "staircase_segment": 0})
+    if members != b["target"] or abs(dev_gamma - host_gamma) > 1e-3:
+        raise AssertionError(f"10c: {members} members (target {b['target']}), device gamma {dev_gamma} against the "
+                             f"host fit {host_gamma}")
+    for what in ("growing", "fixed"):
+        p = pair[what]
+        out[f"10c {what}"] = {k: v for k, v in p.items() if k not in ("fin", "stats", "ms")}
+    out["10c"] = dict(members=members, device_gamma=dev_gamma, host_gamma=host_gamma, rounds=rounds)
+    print(f"[{card}] 10c bench_grow's configuration (device power-law graph n0={b['n0']} padded to {cap} rows, "
+          f"{b['rate']} joins a round, attach {b['attach']}, exactly-k push_pull, {rounds} rounds): n_members "
+          f"{members}, device degree_gamma {dev_gamma} against the host fit {host_gamma} (|diff| "
+          f"{abs(dev_gamma - host_gamma)}); growing {pair['growing']['ms_per_round']} ms/round, peak "
+          f"{pair['growing']['peak']} B; fixed-n {pair['fixed']['ms_per_round']} ms/round, peak {pair['fixed']['peak']} "
+          f"B; launches {({k: v for k, v in pair['growing']['launches'].items() if v})}", flush=True)
+    del pair, fin, state, graph, dg
+    out["10c"]["seconds"] = time.perf_counter() - t0
+
+    # 10d: a mid-growth checkpoint killed and resumed on the other device
+    t0 = time.perf_counter()
+    from tpu_gossip_torch.ckpt import load_checkpoint
+
+    small = [p for p in pins if p["argv"][1] == "20000" and "matching" in p["argv"] and "--packed" not in p["argv"]
+             and "--scenario" not in p["argv"]][0]
+    members = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-growth-") as tmp:
+        tmp = Path(tmp)
+        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = tmp / write_on
+            kill_at(root, small["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
+                                           write_on], "checkpoint: wrote ckpt-00000008")
+            for late in range(12, 20, 4):
+                shutil.rmtree(d / f"ckpt-{late:08d}", ignore_errors=True)
+            mid = load_checkpoint(d / "ckpt-00000008", device="cpu")[0]
+            members[write_on] = int(mid.exists.sum())
+            if not 20_000 < members[write_on] < int(small["argv"][small["argv"].index("--grow") + 1]):
+                raise AssertionError(f"10d: ckpt-00000008 holds {members[write_on]} members; not mid-growth")
+            summary, err = cli_run(root, ["resume", str(d), "--device", resume_on], f"10d {write_on} resume")
+            if "resume: ckpt-00000008 at round 8" not in err:
+                raise AssertionError(f"10d: the resume did not start from ckpt-00000008: {err[-2000:]}")
+            check_pin(summary, small, f"10d {write_on}->{resume_on}")
+    out["10d"] = dict(seconds=time.perf_counter() - t0, members=members)
+    print(f"[{card}] 10d the n=20000 matching pin ({' '.join(small['argv'])}) killed after ckpt-00000008 "
+          f"({members} members) on "
+          f"the card and resumed on the CPU, and the reverse, both onto the JAX pin", flush=True)
+    return out
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -2218,7 +2497,13 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     t0 = time.perf_counter()
     quorum = phase_quorum(root, dev, card)
     print(f"[{card}] phase 9: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in quorum.items() if 'seconds' in v} }; the script "
+          f"{ {k: round(v['seconds'], 2) for k, v in quorum.items() if 'seconds' in v} }", flush=True)
+
+    # phase 10: growth (10a-10d)
+    t0 = time.perf_counter()
+    growth = phase_growth(root, dev, card)
+    print(f"[{card}] phase 10: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in growth.items() if 'seconds' in v} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

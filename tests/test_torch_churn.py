@@ -335,19 +335,13 @@ def test_repartition_swarm_equals_jax(s):
         assert t_state_digest(tnew) == j_state_digest(jnew)
 
 
-@pytest.mark.parametrize("what", ["scenario", "growth"])
+@pytest.mark.parametrize("what", ["stream", "control"])
 def test_burst_and_quarantined_churn_are_not_ported(what):
-    """The growth plane (its argument, and a churn burst composed with
-    admission waves) raises ``not_ported`` naming its ROADMAP item; the
-    burst form itself runs (``test_torch_faults.py``), and so does the
-    quarantined rejoin (``test_torch_adversary.py``)."""
+    """The planes of later slices (streams, control) raise ``not_ported`` on
+    a churned round, naming their slice; the burst form runs
+    (``test_torch_faults.py``), the quarantined rejoin
+    (``test_torch_adversary.py``) and growth's admission waves
+    (``test_torch_growth_runs.py``) too."""
     _, _, (tc, tsw) = _build_csr_swarms(200, seed=1)
-    arg = object()
-    if what == "scenario":
-        from tpu_gossip_torch.faults import compile_scenario, scenario_from_dict
-
-        arg = compile_scenario(scenario_from_dict({"phases": [{"start": 0, "end": 4, "churn_leave": 0.2,
-                                                                "join_burst": 2}]}),
-                               n_peers=200, n_slots=200, total_rounds=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet.*item 9"):
-        te.gossip_round(tsw, tc, **{what: arg})
+    with pytest.raises(NotImplementedError, match="not ported yet.*(traffic|control) slice"):
+        te.gossip_round(tsw, tc, **{what: object()})

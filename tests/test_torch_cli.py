@@ -13,10 +13,16 @@ from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 REF = Path(__file__).resolve().parent.parent / "tpu_gossip_torch" / "reference_digests.json"
 
 
+def growth_pin(ref) -> bool:
+    """A pin of the growth plane (``--grow``): the last slice's, after the
+    quorum detector's."""
+    return "--grow" in ref["argv"]
+
+
 def fault_pin(ref) -> bool:
-    """A pin of the fault plane (silent peers or a scenario); the pins of
-    earlier slices are the others."""
-    return "--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]
+    """A pin of the fault plane (silent peers or a scenario, no growth);
+    the pins of earlier slices are the others but the growth pins."""
+    return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not growth_pin(ref)
 
 
 def _summary(capsys, main, argv):
@@ -135,7 +141,7 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
     ["--graph", "chung-lu", "--control", "0.9", "--device", "cpu"],
     ["--graph", "pa", "--stream", "0.5", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
-    ["--graph", "matching", "--churn-leave", "0.1", "--grow", "200", "--device", "cpu"],
+    ["--graph", "matching", "--churn-leave", "0.1", "--refresh-every", "4", "--device", "cpu"],
 ])
 def test_cli_flags_of_later_slices_exit_2(capsys, argv):
     assert tcli.main(["--peers", "100", *argv]) == 2

@@ -765,3 +765,72 @@ def test_quorum_stages_on_card_equal_cpu(dev):
     for k in cpu:
         assert torch.equal(card[k], cpu[k]), k
     assert int(card["adv_accusations"]) > 0 and bool(card["newly_quarantined"].any()) and int(card["bill"]) > 0
+
+
+def test_gumbel_table_and_log_on_card_equal_cpu(dev):
+    """XLA's float32 ``log`` (``prng.xla_log``) over every input the
+    Gumbel draw can feed it, and the 2^23-entry Gumbel table, are the
+    CPU's bits on the card (plain float64 arithmetic rounds alike)."""
+    from tpu_gossip_torch.core import prng
+
+    j = torch.arange(1, 1 << 23, dtype=torch.int32)
+    u = (j | 0x3F800000).view(torch.float32) - 1.0
+    for x in (u, -prng.xla_log(u), torch.arange(1, 1 << 24, dtype=torch.float32)):
+        assert torch.equal(prng.xla_log(x.to(dev)).cpu(), prng.xla_log(x))
+    assert torch.equal(prng.gumbel_table(dev).cpu(), prng.gumbel_table("cpu"))
+
+
+@pytest.mark.parametrize("rows,chunk", [(3, None), (256, None), (256, 7), (17, 1)])
+def test_gumbel_top_k_on_card_equals_cpu_at_1m_columns(dev, rows, chunk):
+    """The admission draw's Gumbel-top-k at 1M columns, ties seeded in
+    (equal log degrees) and -inf columns: the card's targets and
+    finiteness equal the CPU's, and any chunking equals the whole draw."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.growth.engine import gumbel_top_k
+
+    n = 1_000_001
+    g = np.random.default_rng(rows)
+    deg = g.integers(1, 6, n).astype(np.float32)
+    log_deg = torch.from_numpy(np.where(g.random(n) < 0.1, -np.inf, np.log(deg)).astype(np.float32))
+    cpu = gumbel_top_k(prng.key(rows, "cpu"), log_deg, rows, 3, chunk)
+    card = gumbel_top_k(prng.key(rows, dev), log_deg.to(dev), rows, 3, chunk)
+    whole = gumbel_top_k(prng.key(rows, dev), log_deg.to(dev), rows, 3, rows)
+    for a, b, c in zip(card, cpu, whole):
+        assert torch.equal(a.cpu(), b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("argv,path", [
+    (["--graph", "matching"], "matching"),
+    (["--graph", "matching", "--packed"], "packed matching"),
+    (["--graph", "chung-lu", "--staircase", "--remat-every", "8"], "staircase"),
+    (["--graph", "pa", "--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2", "--grow-rate", "64"],
+     "exactly-k"),
+    (["--graph", "chung-lu", "--shard", "--staircase"], "sharded staircase"),
+    (["--graph", "chung-lu", "--shard", "--packed"], "sharded packed scatter"),
+    (["--graph", "matching", "--scenario", "scenarios/flash_crowd_under_fire.toml"], "matching"),
+])
+def test_growth_digest_on_card_equals_cpu(dev, argv, path):
+    """A growing run (n=20000 to 24000, 24 rounds) on each engine: the card
+    equals the CPU (summary, membership, gamma, digests), the card run's
+    launches counted."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    argv = ["--peers", "20000", "--grow", "24000", "--rounds", "24", "--digest", "--quiet", "--mode", "push_pull",
+            "--fanout", "1", *argv]
+    parser = run_sim.build_parser()
+
+    def run(device):
+        args = parser.parse_args(argv + ["--device", device])
+        assert run_sim.validate(args) is None
+        return run_sim.run(args)
+
+    reset_launches()
+    card = run("cuda")
+    launches = dict(LAUNCHES)
+    assert card == run("cpu")
+    assert card["n_members"] > 20000
+    paths = {**FAULT_PATHS, "sharded packed scatter": lambda r, p: {"stream_segment": 0, "round_tail": 0,
+                                                                     "round_tail_words": r}}
+    for key, n in paths[path](24, 0).items():
+        assert launches[key] == n, (key, launches)

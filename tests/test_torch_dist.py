@@ -167,8 +167,8 @@ def test_converted_jax_partition_runs_like_the_port(graph):
     assert t_state_digest(a) == t_state_digest(b)
 
 
-REFUSED = ["matching_plan", "transport", "collect_ici", "rewire_slots", "scenario", "growth", "stream", "control",
-           "pipeline", "liveness", "inject"]
+REFUSED = ["matching_plan", "transport", "collect_ici", "rewire_slots", "scenario", "packed_stream", "stream",
+           "control", "pipeline", "liveness", "inject"]
 
 
 @pytest.mark.parametrize("what", REFUSED)
@@ -179,10 +179,15 @@ def test_refused_arguments_raise_not_ported(graph, what):
         from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
 
         _, sg = matching_powerlaw_graph(200, fanout=1, key=prng.key(0, "cpu"), device="cpu")
+    elif what == "packed_stream":
+        # the packed round refuses the streams of a later slice too
+        from tpu_gossip_torch.core.packed import pack_state
+
+        ts, kw["stream"] = pack_state(ts), object()
     elif what in ("rewire_slots", "scenario", "liveness"):
-        # re-wiring, scenarios and the quorum detector run on this engine,
-        # churn bursts included; a scenario's admission waves are the
-        # growth slice's
+        # re-wiring, scenarios (admission waves included), the quorum
+        # detector and growth run on this engine, churn bursts included;
+        # each case adds a stream, the traffic slice's
         from tpu_gossip_torch.faults import compile_scenario, scenario_from_dict
         from tpu_gossip_torch.kernels.liveness import compile_quorum
 
@@ -193,6 +198,7 @@ def test_refused_arguments_raise_not_ported(graph, what):
             n_peers=N, n_slots=tsg.n_pad, total_rounds=8, device="cpu")
         if what == "liveness":
             kw["liveness"] = compile_quorum(3)
+        kw["stream"] = object()
     else:
         kw[what] = True if what == "collect_ici" else object()
     with pytest.raises(NotImplementedError, match="not ported"):

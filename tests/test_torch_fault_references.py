@@ -28,9 +28,9 @@ def test_fault_pins_follow_the_earlier_slices_pins():
     """The nineteen pins of the earlier slices come first, in their order;
     the fault pins follow, each naming its JAX source."""
     refs = json.loads(REF.read_text())
-    assert not any(fault_pin(r) for r in refs[:19]) and all(fault_pin(r) for r in refs[19:])
+    assert not any(fault_pin(r) for r in refs[:19]) and all(fault_pin(r) for r in refs[19:39])
     assert len(_fault_refs("small")) == 9 and len(_fault_refs("1M")) == 3
-    for r in refs[19:]:
+    for r in refs[19:39]:
         assert r["source"].startswith("python -m tpu_gossip.cli.run_sim " + " ".join(r["argv"]))
         assert "JAX package" in r["source"]
         if "--scenario" in r["argv"]:

@@ -80,9 +80,9 @@ REFUSALS = {  # name: (argv after the base, scenario file text or None)
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_fault_cli_refusals_exit_2_with_jax_words(capsys, tmp_path, one_shard, name):
-    """Invalid scenarios, and the phase keys of later slices (adversaries,
-    admission waves), which the JAX CLI refuses without --quorum-k and
-    --grow, flags the port does not take yet."""
+    """Invalid scenarios, and the phase keys the JAX CLI refuses without
+    their flags: adversaries without --quorum-k, admission waves without
+    --grow."""
     extra, text = REFUSALS[name]
     argv = ["--peers", "300", "--graph", "chung-lu", *extra]
     if text is not None:

@@ -1,0 +1,60 @@
+"""Each engine growing through ``run_sim --grow`` at n=2000, the port's
+CLI against the JAX CLI on the CPU: the local matching path and its
+packed twin, preferential attachment under churn, the staircase remat
+loop with spare capacity, the one-process bucketed mesh (K6 receive, and
+packed with the scatter receive), silent peers on exactly-k, and the
+flash-crowd scenario's join_burst waves; the summary and every per-round
+row equal (``degree_gamma`` within 1e-5), and the run to coverage."""
+
+import json
+
+import numpy as np
+import pytest
+
+from tpu_gossip.cli import run_sim as jcli
+from tpu_gossip_torch.cli import run_sim as tcli
+from tests.test_torch_churn_cli import one_shard  # noqa: F401
+from tests.test_torch_cli import _summary
+from tests.test_torch_slice import _one_torch_thread  # noqa: F401
+
+M = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
+ENGINES = {
+    "matching": M + ["--graph", "matching", "--grow", "2600"],
+    "matching_packed": M + ["--graph", "matching", "--packed", "--grow", "2600"],
+    "pa_push_churn": ["--peers", "2000", "--graph", "pa", "--m", "3", "--slots", "8", "--fanout", "3", "--mode",
+                      "push", "--churn-leave", "0.01", "--churn-join", "0.1", "--rewire-slots", "2", "--grow", "2400",
+                      "--grow-rate", "64"],
+    "staircase_remat": M + ["--graph", "chung-lu", "--staircase", "--remat-every", "4", "--grow", "2400",
+                            "--grow-capacity", "2500"],
+    "shard": M + ["--graph", "chung-lu", "--shard", "--staircase", "--grow", "2400"],
+    "shard_packed": M + ["--graph", "chung-lu", "--shard", "--packed", "--grow", "2400"],
+    "silent_exactly_k": M + ["--graph", "chung-lu", "--silent-frac", "0.1", "--grow", "2400"],
+    "flash_crowd": M + ["--graph", "matching", "--grow", "2400", "--scenario",
+                        "scenarios/flash_crowd_under_fire.toml"],
+}
+TIMING = ("wall_seconds", "peers_rounds_per_sec", "ms_per_round", "ms_per_round_amortized",
+          "epoch_rebuild_seconds_total", "packed")
+
+
+@pytest.mark.parametrize("name", list(ENGINES))
+def test_growing_run_equals_jax_cli(capsys, one_shard, name):
+    argv = ENGINES[name] + ["--rounds", "16", "--digest"]
+    want, want_rows = _summary(capsys, jcli.main, argv)
+    got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
+    assert {k: v for k, v in got.items() if k not in TIMING} == {k: v for k, v in want.items() if k not in TIMING}
+    got_rows, want_rows = [json.loads(r) for r in got_rows], [json.loads(r) for r in want_rows]
+    # degree_gamma is the plane's one float reduction: held to JAX's own
+    # local/sharded tolerance; every other column is equal
+    np.testing.assert_allclose([r.pop("degree_gamma") for r in got_rows],
+                               [r.pop("degree_gamma") for r in want_rows], rtol=1e-5)
+    assert got_rows == want_rows
+    assert got["n_members"] > 2000
+
+
+@pytest.mark.parametrize("name", ["matching_packed", "shard"])
+def test_growing_run_to_coverage_equals_jax_cli(capsys, one_shard, name):
+    argv = ENGINES[name]
+    want, _ = _summary(capsys, jcli.main, argv)
+    got, _ = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
+    for k in ("rounds", "coverage", "n_members", "grow_rate", "degree_gamma"):
+        assert got[k] == want[k], k

@@ -146,3 +146,57 @@ def test_sampled_needs_fanout(built):
     with pytest.raises(ValueError):
         tmatch.matching_sampled(dataclasses.replace(tp, fanout=None), torch.zeros((tp.n + 1, 4), dtype=torch.bool),
                                 None, 4, prng.key(0, "cpu"))
+
+
+# the sharded layout (matching_powerlaw_graph_sharded, block_keys=False):
+# (n, shards, growth rows a block)
+SHARDED = [(2000, 1, 0), (2000, 1, 500), (3000, 2, 0), (3000, 2, 100), (800, 8, 0), (800, 8, 32)]
+
+
+@pytest.mark.parametrize("n,s,growth", SHARDED, ids=[f"n{n}_s{s}_g{g}" for n, s, g in SHARDED])
+def test_sharded_layout_equals_jax(n, s, growth):
+    """Every plan table, the CSR (its sentinel the last pad row), ``exists``
+    and the layout statics equal JAX's at S = 1, 2 and 8, with and without
+    reserved growth rows; the host law ``sharded_layout`` too."""
+    jg, jp = jmt.matching_powerlaw_graph_sharded(n, s, fanout=1, key=jax.random.key(2), growth_rows=growth)
+    tg, tp = tmt.matching_powerlaw_graph_sharded(n, s, fanout=1, key=prng.key(2, "cpu"), growth_rows=growth,
+                                                 device="cpu")
+    for leaf in ("m3", "valid", "deg_other", "deg_real"):
+        _eq(getattr(jp, leaf), getattr(tp, leaf))
+    for a, b in zip(jp.lanes + jp.lanes_inv, tp.lanes + tp.lanes_inv):
+        _eq(a, b)
+    for leaf in ("row_ptr", "col_idx", "exists"):
+        _eq(getattr(jg, leaf), getattr(tg, leaf))
+    for f in ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk", "per_rows", "local_classes"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    assert tg.n == jg.n
+    want, got = jmt.sharded_layout(n, s, growth_rows=growth), tmt.sharded_layout(n, s, growth_rows=growth)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert tmt.deg_table_dtype(want["d_max"]) == torch.int16 and tmt.deg_table_dtype(2**15) == torch.int32
+    # the growth rows are node gaps of the class table: they fold to 0
+    reserved = np.flatnonzero((np.arange(tp.n) % tp.n_blk >= tp.n_per) & (np.arange(tp.n) % tp.n_blk < tp.n_blk - 1))
+    assert reserved.size == s * growth and not tp.deg_real.numpy()[reserved].any()
+
+
+def test_sharded_layout_csr_free_export_equals_jax():
+    jg, jp = jmt.matching_powerlaw_graph_sharded(2000, 1, key=jax.random.key(1), growth_rows=64, export_csr=False)
+    tg, tp = tmt.matching_powerlaw_graph_sharded(2000, 1, key=prng.key(1, "cpu"), growth_rows=64, export_csr=False,
+                                                 device="cpu")
+    for leaf in ("row_ptr", "col_idx"):
+        _eq(getattr(jg, leaf), getattr(tg, leaf))
+
+
+def test_sharded_layout_refusals():
+    """JAX's refusals in its words; the distributable derivation and the
+    table ledger raise ``not_ported`` naming the sharded matching slice."""
+    for kw, words in ((dict(n_shards=3), "must divide 128"), (dict(n_shards=2, growth_rows=-1), "must be >= 0")):
+        with pytest.raises(ValueError, match=words):
+            jmt.matching_powerlaw_graph_sharded(200, **kw)
+        with pytest.raises(ValueError, match=words):
+            tmt.matching_powerlaw_graph_sharded(200, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        tmt.matching_powerlaw_graph_sharded(200, 2, block_keys=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        tmt.plan_table_widths(1_000_000)

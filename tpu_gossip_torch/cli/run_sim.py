@@ -25,6 +25,9 @@
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph matching --scenario scenarios/byzantine_siege.toml \\
         --quorum-k 3 --rounds 56 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 950000 --grow 1000000 \\
+        --grow-rate 256 --mode push_pull --fanout 1 --graph matching \\
+        --rounds 32 --digest
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -41,7 +44,13 @@ words, and adds ``scenario`` (and on a fixed horizon its per-phase
 ``--suspicion-window`` and ``--accusation-budget``) hardens the failure
 detector into the quorum suspicion machine on every engine, lets a
 scenario field Byzantine accusers, forgers and flooders, and adds the
-``liveness`` block to the summary. Then either run a fixed ``--rounds`` horizon (one
+``liveness`` block to the summary. ``--grow TARGET`` (with ``--grow-rate``
+and ``--grow-capacity``) grows the swarm to TARGET peers while it gossips
+(``growth/``: per-round join batches admitted by preferential attachment,
+``join_burst`` scenario phases adding waves) on every engine; the matching
+graph is then built in the sharded layout at one shard with the capacity
+as reserved rows, a CSR graph padded to the capacity, and the summary
+adds the final membership and the degree tail's gamma. Then either run a fixed ``--rounds`` horizon (one
 JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
 print the benchmark summary. With ``--packed`` the seeded state is packed
@@ -85,9 +94,9 @@ _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
-    "included, with checkpoints and resume, silent peers, fault scenarios and the quorum detector with "
-    "its adversaries (later slices add growth, streams, control, fleets, the sharded matching engine and "
-    "the multi-card exchange)"
+    "included, with checkpoints and resume, silent peers, fault scenarios, the quorum detector with "
+    "its adversaries and growth (later slices add streams, control, fleets, the sharded matching engine "
+    "and the multi-card exchange)"
 )
 _ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded matching engine (ROADMAP item 11b)",
                               "multi-process (ROADMAP item 11c)")
@@ -95,7 +104,6 @@ _ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded match
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
 JAX_FLAG_DEFAULTS = {
-    "grow": (0, _ITEM9), "grow_rate": (0, _ITEM9), "grow_capacity": (0, _ITEM9),
     "stream": (0.0, _ITEM9), "stream_origins": ("uniform", _ITEM9), "slot_ttl": (0, _ITEM9),
     "stream_hashes": (1, _ITEM9), "stream_burst_every": (0, _ITEM9), "stream_burst_mult": (4.0, _ITEM9),
     "stream_hot_frac": (0.01, _ITEM9), "stream_hot_weight": (0.9, _ITEM9),
@@ -217,6 +225,21 @@ def build_parser() -> argparse.ArgumentParser:
         "through the degree-credit book (default 3; 0 disables "
         "quarantine). Needs --quorum-k",
     )
+    p.add_argument(
+        "--grow", type=int, default=0, metavar="TARGET_N",
+        help="grow the swarm to TARGET_N peers while gossiping (growth/): per-round join batches are admitted "
+        "INSIDE the round, each joiner attaching --m fresh edges by preferential attachment over the current "
+        "realized degree vector (Gumbel-top-k from a dedicated PRNG stream, so local and sharded runs stay "
+        "bit-identical). Composes with --scenario join_burst phases (admission waves) and every delivery "
+        "engine; node-scoped scenario sets stay declared over the INITIAL --peers ids",
+    )
+    p.add_argument("--grow-rate", type=int, default=0, metavar="J",
+                   help="joins admitted per round (default: sized so TARGET_N is reached in about half of "
+                   "--rounds/--max-rounds)")
+    p.add_argument("--grow-capacity", type=int, default=0, metavar="CAP",
+                   help="state capacity in peer slots (>= TARGET_N; default TARGET_N). Slots beyond the target "
+                   "stay reserved: headroom for resuming the checkpoint into a later, larger growth schedule "
+                   "without a state rebuild")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -230,6 +253,19 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
         return 2
     return _run(args)
+
+
+def validate(args: argparse.Namespace) -> str | None:
+    """Every check of a parsed run config, in the JAX CLI's order (the
+    scenario, growth, the quorum detector, then the rest): the first
+    reason it cannot run (exit 2), or None. Settles the defaults the
+    validators fill in (``grow_rate``, ``grow_capacity``, the detector's
+    window and budget) into ``args``."""
+    spec = None
+    err = _scenario_refusal(args)
+    if err is None and args.scenario:
+        spec = _scenario_spec(args)
+    return err or _validate_grow(args, spec) or _validate_liveness(args, spec) or _refusal(args)
 
 
 def _refusal(args: argparse.Namespace) -> str | None:
@@ -253,6 +289,11 @@ def _refusal(args: argparse.Namespace) -> str | None:
     if args.profile_round > 0 and args.packed:
         return ("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
                 "boundary codec: drop --packed for the decomposition")
+    if args.profile_round > 0 and args.grow:
+        from tpu_gossip_torch.sim.stages import not_ported
+
+        return str(not_ported("--profile-round with --grow (the growth row of the stage table)",
+                              "pipelined rounds and composed profile rows (ROADMAP item 9f)"))
     return None
 
 
@@ -270,6 +311,11 @@ def _scenario_refusal(args: argparse.Namespace) -> str | None:
         spec.validate(total_rounds=_total_rounds(args), n_peers=args.peers,
                       n_shards=_mesh_size(args) if args.shard else None)
     except (ScenarioError, OSError) as e:
+        if args.grow and "outside" in str(e):
+            # node sets bind to the INITIAL membership: grown peers have no
+            # stable scenario-addressable id
+            return (f"--scenario: {e}\nnote: with --grow, node-scoped scenario sets are declared over the "
+                    f"INITIAL --peers ids [0, {args.peers}) — grown peers are not scenario-addressable")
         return f"--scenario: {e}"
     except (RuntimeError, NotImplementedError) as e:  # no card, or a mesh of a later slice
         return str(e)
@@ -279,9 +325,77 @@ def _scenario_refusal(args: argparse.Namespace) -> str | None:
         return ("--scenario with node-scoped faults cannot compose with --shard --remat-every: the epoch "
                 "re-partition permutes peers, so compiled node masks would hit the wrong rows after the first "
                 "rebuild (scalar loss/delay/full-swarm churn phases are fine)")
-    if spec.uses_join_burst:
-        return "--scenario: join_burst phases are admission waves for a growing run; add --grow"
     return None
+
+
+def _validate_grow(args: argparse.Namespace, spec) -> str | None:
+    """The reason a --grow config cannot run (exit 2, the JAX CLI's words),
+    or None. Settles the rate and capacity defaults into ``args``, so every
+    engine path and the checkpoint manifest read one config."""
+    if not args.grow:
+        if spec is not None and spec.uses_join_burst:
+            return "--scenario: join_burst phases are admission waves for a growing run; add --grow"
+        return None
+    if args.grow <= args.peers:
+        return f"--grow {args.grow} must exceed --peers {args.peers} (the target is the grown swarm size)"
+    if args.grow_capacity == 0:
+        args.grow_capacity = args.grow
+    if args.grow_capacity < args.grow:
+        return f"--grow-capacity {args.grow_capacity} below the growth target {args.grow}"
+    if args.grow_rate < 0:
+        return "--grow-rate must be >= 0"
+    if args.grow_rate == 0:
+        # default pace: the target in about half the horizon, so the grown
+        # swarm still gossips at full size for a while
+        args.grow_rate = max(1, -(-(args.grow - args.peers) // max(_total_rounds(args) // 2, 1)))
+    if args.m >= args.peers:
+        return f"--m {args.m} fresh edges per joiner needs at least that many initial peers (--peers {args.peers})"
+    if args.shard and args.remat_every > 0:
+        return ("--grow cannot compose with --shard --remat-every: the epoch re-partition permutes peers, so the "
+                "compiled admission schedule would admit the wrong rows after the first rebuild (local "
+                "--remat-every composes fine)")
+    return None
+
+
+def _rewire_slots(args: argparse.Namespace) -> int:
+    """Growth edges ride the re-wiring plane: a growing config needs at
+    least --m target slots a row."""
+    return max(args.rewire_slots, args.m) if args.grow else args.rewire_slots
+
+
+def _compile_cli_growth(args: argparse.Namespace, spec, n_slots: int, dev, plan=None, node_map=None):
+    """The --grow admission schedule for one engine's layout on ``dev``
+    (None without --grow): the matching layout's reserved rows in
+    round-robin order, else the flat rows after the initial peers, mapped
+    through ``node_map`` (the bucketed mesh's ``position``)."""
+    if not args.grow:
+        return None
+    from tpu_gossip_torch.growth import compile_growth, matching_admit_rows
+
+    admit = matching_admit_rows(plan, args.grow - args.peers) if plan is not None else None
+    return compile_growth(n_initial=args.peers, target=args.grow, n_slots=n_slots, joins_per_round=args.grow_rate,
+                          attach_m=args.m, admit_rows=admit, node_map=node_map,
+                          max_join_burst=spec.max_join_burst if spec is not None else 0, device=dev)
+
+
+def _growth_summary(args: argparse.Namespace, fin) -> dict:
+    """Final membership and the degree tail's gamma (the host fit of the
+    live realized degrees, 4 decimals; None on a tail too thin), from the
+    final state of a growing run."""
+    if not args.grow:
+        return {}
+    from tpu_gossip_torch.core.topology import fit_powerlaw_gamma
+    from tpu_gossip_torch.growth.engine import realized_degrees
+
+    deg = realized_degrees(fin.row_ptr, fin.exists, fin.rewired, fin.rewire_targets, fin.degree_credit)
+    deg = deg.cpu().numpy()
+    live = (fin.alive & ~fin.declared_dead).cpu().numpy()
+    try:
+        gamma = round(fit_powerlaw_gamma(deg[live]), 4)
+    except ValueError:  # tail too thin (tiny swarms)
+        gamma = None
+    return {"grow_target": args.grow, "grow_rate": args.grow_rate, "grow_capacity": args.grow_capacity,
+            "n_members": int(fin.exists.sum()), "degree_gamma": gamma}
 
 
 def _validate_liveness(args: argparse.Namespace, spec) -> str | None:
@@ -363,7 +477,7 @@ def _run(args: argparse.Namespace, resume: "_Resume | None" = None) -> int:
     the summary, then save ``--checkpoint``; the exit code out."""
     from tpu_gossip_torch.device import resolve_device
 
-    err = _scenario_refusal(args) or _validate_liveness(args, _scenario_spec(args)) or _refusal(args)
+    err = validate(args)
     if err:
         print(err, file=sys.stderr)
         return 2
@@ -623,8 +737,10 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     None for ``--profile-round``). With ``resume``, the graph, plans and
     fresh state are rebuilt from the recorded args, then the checkpointed
     state takes the fresh one's place."""
+    import torch
+
     from tpu_gossip_torch.core import prng, topology
-    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph, matching_powerlaw_graph_sharded
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.device import resolve_device
     from tpu_gossip_torch.sim.engine import remat_capacity, run_until_coverage, simulate
@@ -639,11 +755,19 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     if args.graph == "matching":
         if args.shard:
             raise not_ported("--shard --graph matching (the sharded matching engine)", "multi-device (11b)")
-        dgraph, plan = matching_powerlaw_graph(
-            args.peers, gamma=args.gamma,
-            fanout=None if args.mode == "flood" else args.fanout,
-            key=prng.key(args.seed, dev), device=dev,
-        )
+        fanout = None if args.mode == "flood" else args.fanout
+        if args.grow:
+            # the sharded layout's build at one shard: its growth rows are
+            # reserved node gaps of the class table the pairing pipeline
+            # never touches, the one matching growth layout
+            dgraph, plan = matching_powerlaw_graph_sharded(
+                args.peers, 1, gamma=args.gamma, fanout=fanout, key=prng.key(args.seed, dev),
+                growth_rows=args.grow_capacity - args.peers, device=dev,
+            )
+        else:
+            dgraph, plan = matching_powerlaw_graph(
+                args.peers, gamma=args.gamma, fanout=fanout, key=prng.key(args.seed, dev), device=dev,
+            )
         graph, exists = dgraph.as_padded_graph(), dgraph.exists
         if args.staircase:
             print("note: --staircase is ignored with --graph matching (the "
@@ -655,17 +779,22 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
             deg = topology.powerlaw_degree_sequence(args.peers, gamma=args.gamma, rng=rng)
             edges = topology.configuration_model(deg, rng=rng)
         graph = topology.build_csr(args.peers, edges)
+        if args.grow and not args.shard:
+            from tpu_gossip_torch.growth import pad_graph_for_growth
+
+            graph, exists = pad_graph_for_growth(graph, args.grow_capacity)
+            exists = torch.from_numpy(exists).to(dev)
         if args.staircase and not args.shard and args.remat_every == 0:
             # (with --remat-every the plan is rebuilt per segment instead)
             plan = _staircase_plan(args, graph, dev)
     cfg_kw = dict(msg_slots=args.slots, fanout=args.fanout, mode=args.mode, forward_once=args.forward_once,
                   sir_recover_rounds=args.sir_recover, churn_leave_prob=args.churn_leave,
-                  churn_join_prob=args.churn_join, rewire_slots=args.rewire_slots,
+                  churn_join_prob=args.churn_join, rewire_slots=_rewire_slots(args),
                   rewire_compact_cap=args.rewire_compact_cap)
     origins, silent_ids = _sample_ids(args, rng)
     if args.shard:
-        cfg, state, segment, to_target, extra, epoch = _shard_runners(args, graph, origins, silent_ids, cfg_kw, dev,
-                                                                      spec, lqs)
+        cfg, state, segment, to_target, extra, epoch, grow = _shard_runners(args, graph, origins, silent_ids, cfg_kw,
+                                                                            dev, spec, lqs)
         policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
         _check_resume_devices(resume, epoch[0].size)
     else:
@@ -674,14 +803,15 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                            exists=exists, device=dev)
         state.silent = _set_rows(state.silent, silent_ids)
         scen = _compile_cli_scenario(spec, args, graph.n, dev)
+        grow = _compile_cli_growth(args, spec, graph.n, dev, plan=plan if args.graph == "matching" else None)
         extra = {}
 
         def segment(st, rounds):
-            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen, liveness=lqs)
+            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen, liveness=lqs, growth=grow)
 
         def to_target(st):
             return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail,
-                                      scenario=scen, liveness=lqs)
+                                      scenario=scen, liveness=lqs, growth=grow)
 
         if args.profile_round > 0:
             return _profile_round(args, cfg, state, plan), None
@@ -702,8 +832,8 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                                                  durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.remat_every > 0:
-            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, policy=policy, prefix=prefix,
-                                           durable=durable)
+            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, grow, policy=policy,
+                                           prefix=prefix, durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.rounds > 0:
             fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
@@ -720,6 +850,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         horizon = torch.cuda.max_memory_allocated(dev)
         _stderr_log(f"checkpoint: device peak max_memory_allocated {max(build, horizon)} B (the build {build} B; "
                     f"the horizon {horizon} B, from {start} B allocated at its start)")
+    summary.update(_growth_summary(args, fin))
     summary["packed"] = args.packed
     return summary, fin
 
@@ -889,8 +1020,8 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
     return (unpack_state(fin) if pack else fin), stats, wall
 
 
-def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, *, policy=None,
-                    prefix=None, durable: bool = False):
+def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, grow=None, *,
+                    policy=None, prefix=None, durable: bool = False):
     """--remat-every R on the local engine: R rounds, then fold the fresh
     edges into the CSR at the capacity ``cap`` taken once from the fresh
     initial state; with --staircase the plan is rebuilt from each
@@ -911,7 +1042,7 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
 
     def horizon_segment(st, seg):
         return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail,
-                        scenario=scen, liveness=lqs)
+                        scenario=scen, liveness=lqs, growth=grow)
 
     r = args.remat_every
     if durable:
@@ -927,7 +1058,7 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
             return horizon_segment(st, seg)
         plan = _staircase_plan(args, st, dev) if args.staircase else None
         return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail, scenario=scen,
-                                  liveness=lqs), None
+                                  liveness=lqs, growth=grow), None
 
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     extra = {"remat_every": r, "remats": remats, "remat_overflow_edges": sum(int(o) for o in overflow)}
@@ -1040,31 +1171,40 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
     through the partition's relabelling, compile the scenario over the
     padded slot space through ``position``; returns ``(cfg, state,
     segment, to_target, extra summary keys, (mesh, sharded graph, plans,
-    compiled scenario))``."""
+    compiled scenario), compiled growth)``. Under --grow the graph is padded
+    to the capacity first and the admission order is the original ids'
+    through ``position``."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.state import SwarmConfig
 
     mesh = dist.make_mesh(device=dev)
+    gexists = None
+    if args.grow:
+        from tpu_gossip_torch.growth import pad_graph_for_growth
+
+        graph, gexists = pad_graph_for_growth(graph, args.grow_capacity)
     sg, relabeled, position = dist.partition_graph(graph, mesh.size, seed=args.seed, device=dev)
     cfg = SwarmConfig(n_peers=sg.n_pad, **cfg_kw)
     plans = dist.build_shard_plans(sg) if args.staircase else None
     state = dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev), origins=origins,
-                                    device=dev)
+                                    exists=gexists, device=dev)
     state.silent = _set_rows(state.silent, None if silent_ids is None else position[silent_ids])
     state = dist.shard_swarm(state, mesh)
     scen = _compile_cli_scenario(spec, args, sg.n_pad, dev, node_map=lambda ids: position[np.asarray(ids)],
                                  shard_ranges=dist.shard_ranges(mesh.size, sg.per_shard, mesh=mesh),
                                  n_shards=mesh.size)
+    grow = _compile_cli_growth(args, spec, sg.n_pad, dev, node_map=lambda ids: position[np.asarray(ids)])
 
     def segment(st, rounds):
-        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs)
+        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
-                                            scenario=scen, liveness=lqs)
+                                            scenario=scen, liveness=lqs, growth=grow)
 
-    return cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans, scen)
+    return (cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans, scen),
+            grow)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,17 @@
 """Structured-matching power-law topology: the gather-free graph family.
 
-Ports the classic (single-layout) build of
-``tpu_gossip/core/matching_topology.py``: ``quantile_degrees`` (:424),
-``_plan_classes`` (:434), ``MatchingPlan`` (:218), ``pipeline_stages``,
-``expand_classes``, ``reduce_classes``, ``_build_plan`` (:488, the
-``block_keys=False`` derivation, with and without the CSR export) and
-``matching_powerlaw_graph`` (:683). The sharded layouts belong to a later
-slice.
+Ports ``tpu_gossip/core/matching_topology.py``: ``quantile_degrees``
+(:424), ``_plan_classes`` (:434), ``MatchingPlan`` (:218),
+``pipeline_stages``, ``expand_classes``, ``reduce_classes``,
+``deg_table_dtype``, ``sharded_layout`` (:101), ``_build_plan`` (:488, the
+``block_keys=False`` derivation, with and without the CSR export, with
+JAX's ``sentinel`` and ``int8_tables`` overrides),
+``matching_powerlaw_graph`` (:683) and ``matching_powerlaw_graph_sharded``
+(:741, its ``block_keys=False`` derivation at any shard count dividing
+128, with ``growth_rows``: the local engine runs it through the plan's
+global classes view, and it is the matching layout of a growing run).
+``block_keys=True`` and ``plan_table_widths`` come with the sharded
+matching engine (ROADMAP item 11b).
 
 Degrees are the truncated-Pareto law at deterministic quantiles; nodes are
 grouped into classes of equal padded degree; slot ``j``'s partner is
@@ -44,14 +49,66 @@ __all__ = [
     "MatchingPlan",
     "class_layout",
     "class_table",
+    "deg_table_dtype",
     "expand_classes",
     "matching_powerlaw_graph",
+    "matching_powerlaw_graph_sharded",
+    "plan_table_widths",
     "pipeline_stages",
     "quantile_degrees",
     "reduce_classes",
+    "sharded_layout",
 ]
 
 DEG_TABLE_CAP = 2**15 - 1
+
+_ITEM11B = "sharded matching engine (ROADMAP item 11b)"
+
+
+def deg_table_dtype(d_max: int) -> torch.dtype:
+    """The declared degree-table dtype for a build capped at ``d_max``."""
+    return torch.int16 if d_max <= DEG_TABLE_CAP else torch.int32
+
+
+def sharded_layout(n: int, n_shards: int, gamma: float = 2.5, d_min: int = 2, d_max: int | None = None,
+                   growth_rows: int = 0) -> dict:
+    """The host planning of the sharded matching layout (JAX's law): each
+    of ``n_shards`` identical blocks holds ``n_per = ceil(n / n_shards)``
+    peers at the quantile degrees of ``n_per``, ``growth_rows`` reserved
+    rows and one pad row; each shard's slot rows round up to whole
+    (gran, 128) tiles, gran 32 when the global slot count reaches 2^19."""
+    if d_max is None:
+        d_max = max(d_min + 1, int(round(n ** (1.0 / (gamma - 1.0)))))
+    n_per = -(-n // n_shards)
+    deg_local = quantile_degrees(n_per, gamma, d_min, d_max)
+    local_classes = _plan_classes(deg_local)
+    last = local_classes[-1]
+    n_slots_local = last[1] + last[3] * last[4]
+    gran = 32 if n_slots_local * n_shards >= (1 << 19) else 8
+    per_rows = math.ceil(n_slots_local / (128 * gran)) * gran
+    rows = per_rows * n_shards
+    n_blk = n_per + growth_rows + 1
+    return {
+        "d_max": d_max,
+        "n_per": n_per,
+        "deg_local": deg_local,
+        "local_classes": local_classes,
+        "per_rows": per_rows,
+        "rows": rows,
+        "n_blk": n_blk,
+        "n_state": n_shards * n_blk,
+        "n_stages": max(2, math.ceil(math.log(max(rows, 2)) / math.log(128))),
+        "int8_tables": per_rows % 32 == 0,
+    }
+
+
+def plan_table_widths(*args, **kwargs):
+    """The declared plan-table ledger (JAX's ``plan_table_widths``): a part
+    of the sharded matching engine's slice."""
+    from tpu_gossip_torch.sim.stages import not_ported
+
+    raise not_ported("plan_table_widths (the matching plan's table ledger)", _ITEM11B)
+
 
 # classes at or above this node count store slots position-major with
 # 1024-aligned plane strides (folded by K2); smaller classes node-major
@@ -259,14 +316,20 @@ def _real_mask(deg: torch.Tensor, classes: tuple, rows: int) -> torch.Tensor:
 
 def _build_plan(key: torch.Tensor, deg: torch.Tensor, *, n: int, rows: int,
                 classes: tuple, layout: ClassLayout, export_csr: bool = True,
+                sentinel: int | None = None, int8_tables: bool | None = None,
                 deg_cap: int | None = None):
-    """The classic plan derivation (JAX ``_build_plan`` with
-    ``block_keys=False`` and the sentinel-row CSR)."""
+    """The plan derivation of JAX ``_build_plan`` with ``block_keys=False``.
+    ``sentinel`` None appends row ``n`` to the CSR to absorb the erased
+    edges; the sharded layout passes its last pad row instead, so the CSR
+    has exactly ``n`` rows. ``int8_tables`` overrides the narrow lane-table
+    choice (default: ``rows % 32 == 0``)."""
     r = rows
     dev = deg.device
     n_stages = max(2, math.ceil(math.log(max(r, 2)) / math.log(128)))
     keys = prng.split(key, n_stages + 1)
-    tdt = torch.int8 if r % 32 == 0 else torch.int32
+    if int8_tables is None:
+        int8_tables = r % 32 == 0
+    tdt = torch.int8 if int8_tables else torch.int32
 
     lanes = tuple(
         torch.argsort(prng.uniform(keys[i], (r, 128)), dim=1, stable=True).to(tdt)
@@ -318,20 +381,23 @@ def _build_plan(key: torch.Tensor, deg: torch.Tensor, *, n: int, rows: int,
     if narrow:
         deg_other = torch.clamp(deg_other, max=DEG_TABLE_CAP).to(torch.int16)
 
+    sent_row = n if sentinel is None else sentinel
+    n_rows = n + 1 if sentinel is None else n  # CSR rows, the sentinel's included
     if export_csr:
-        src = torch.where(valid.reshape(-1), owner.reshape(-1), n)
-        dst = torch.where(valid.reshape(-1), other_owner.reshape(-1), n)
+        src = torch.where(valid.reshape(-1), owner.reshape(-1), sent_row)
+        dst = torch.where(valid.reshape(-1), other_owner.reshape(-1), sent_row)
         csr_order = torch.argsort(src, stable=True)
         col_idx = dst[csr_order]
         row_ptr = torch.searchsorted(
-            src[csr_order], torch.arange(n + 2, dtype=torch.int32, device=dev), side="left"
+            src[csr_order], torch.arange(n_rows + 1, dtype=torch.int32, device=dev), side="left"
         ).to(torch.int32)
     else:
         row_ptr = torch.cat([
             torch.zeros((1,), dtype=torch.int32, device=dev),
             torch.cumsum(deg_real, 0, dtype=torch.int32),
         ])
-        row_ptr = torch.cat([row_ptr, row_ptr[-1:]])
+        if sentinel is None:  # deg_real covers n rows; add the sentinel's
+            row_ptr = torch.cat([row_ptr, row_ptr[-1:]])
         col_idx = torch.zeros((1,), dtype=torch.int32, device=dev)
     return lanes, m3, lanes_inv, valid, deg_other, deg_real, row_ptr, col_idx
 
@@ -384,3 +450,73 @@ def matching_powerlaw_graph(
     )
     exists = torch.arange(n + 1, device=dev) < n
     return DeviceGraph(row_ptr=row_ptr, col_idx=col_idx, exists=exists, n=n), plan
+
+
+def matching_powerlaw_graph_sharded(
+    n: int,
+    n_shards: int,
+    gamma: float = 2.5,
+    d_min: int = 2,
+    d_max: int | None = None,
+    *,
+    fanout: int | None = None,
+    key: torch.Tensor | None = None,
+    export_csr: bool = True,
+    growth_rows: int = 0,
+    block_keys: bool = False,
+    device: str | torch.device = "cuda",
+) -> tuple[DeviceGraph, MatchingPlan]:
+    """The structured-matching swarm laid out for an ``n_shards`` mesh (JAX
+    ``matching_powerlaw_graph_sharded``, ``block_keys=False``).
+
+    The slot array is ``n_shards`` identical per-shard blocks laid out by
+    one shared ``local_classes`` table; state rows are shard blocks of
+    ``n_blk = n_per + growth_rows + 1``: ``n_per`` peers, ``growth_rows``
+    reserved growth-capacity rows (degree 0, outside every class, born
+    non-existent) and one pad row, the last of which is the CSR sentinel.
+    The plan's global ``classes`` are the per-shard tables shifted by the
+    block offsets, so the local engine runs it unchanged; the pairing
+    pipeline spans the whole global array. Peer id ``s * n_blk + j`` is
+    shard ``s``'s j-th-lowest-degree peer."""
+    s = n_shards
+    if s < 1 or 128 % s:
+        raise ValueError(
+            f"n_shards={s} must divide 128 (the transpose all_to_all splits "
+            "the lane axis)"
+        )
+    if growth_rows < 0:
+        raise ValueError(f"growth_rows={growth_rows} must be >= 0")
+    if block_keys:
+        from tpu_gossip_torch.sim.stages import not_ported
+
+        raise not_ported("matching_powerlaw_graph_sharded(block_keys=True) (the distributable derivation)",
+                         _ITEM11B)
+    dev = resolve_device(device)
+    if key is None:
+        key = prng.key(0, dev)
+    lay = sharded_layout(n, s, gamma, d_min, d_max, growth_rows)
+    d_max, n_per = lay["d_max"], lay["n_per"]
+    local_classes, per_rows = lay["local_classes"], lay["per_rows"]
+    rows, n_blk, n_state = lay["rows"], lay["n_blk"], lay["n_state"]
+    classes = tuple(
+        (sh * n_blk + no, sh * per_rows * 128 + so, c, pd, cs)
+        for sh in range(s)
+        for (no, so, c, pd, cs) in local_classes
+    )
+    deg_state = np.zeros(n_state, dtype=np.int32)
+    for sh in range(s):
+        deg_state[sh * n_blk: sh * n_blk + n_per] = lay["deg_local"]
+    layout = class_layout(classes, rows, n_state, dev)
+    lanes, m3, lanes_inv, valid, deg_other, deg_real, row_ptr, col_idx = _build_plan(
+        key.to(dev), torch.from_numpy(deg_state).to(dev), n=n_state, rows=rows, classes=classes,
+        layout=layout, export_csr=export_csr, sentinel=n_state - 1, int8_tables=lay["int8_tables"],
+        deg_cap=d_max,
+    )
+    plan = MatchingPlan(
+        lanes=lanes, m3=m3, lanes_inv=lanes_inv, valid=valid,
+        deg_other=deg_other, deg_real=deg_real, n=n_state, rows=rows, classes=classes,
+        fanout=fanout, mesh_shards=s, n_per=n_per, n_blk=n_blk, per_rows=per_rows,
+        local_classes=local_classes, layout=layout,
+    )
+    exists = (torch.arange(n_state, device=dev) % n_blk) < n_per
+    return DeviceGraph(row_ptr=row_ptr, col_idx=col_idx, exists=exists, n=n_state - 1), plan

@@ -10,7 +10,18 @@ equals the JAX package's draw bit for bit:
   over the row-major flat index ``i``;
 - ``split(k, n)[i] = (x0, x1)`` of the same hash at counter ``i``;
 - ``fold_in(k, d) = threefry2x32(k, (0, d))``;
-- ``uniform`` = ``bitcast((bits >> 9) | 0x3F800000) - 1.0`` in float32;
+- ``uniform`` = ``bitcast((bits >> 9) | 0x3F800000) - 1.0`` in float32,
+  then ``max(minval, floats * (maxval - minval) + minval)`` with the
+  multiply-add fused, as XLA's CPU backend fuses it;
+- ``gumbel(k, shape)`` = ``-log(-log(uniform(k, shape, tiny, 1)))`` (JAX's
+  "low" mode), with :func:`xla_log`, the float32 ``log`` XLA's CPU backend
+  emits (not ``torch.log``: the two differ by one ULP on about 14% of the
+  draw's inputs). The uniform depends on ``bits >> 9`` alone, so the
+  2^23 possible Gumbel values are tabulated once a device
+  (:func:`gumbel_table`) and a draw is one gather;
+- ``bits``, ``uniform`` and ``gumbel`` take a counter ``offset``: element
+  ``i`` of the draw uses counter ``offset + i``, so a draw cut into row
+  chunks equals the whole draw chunk by chunk;
 - ``randint(k, shape, lo, hi)``: ``hi, lo = bits`` of ``split(k)``'s two
   children, ``span = uint32(hi - lo)`` (1 where ``hi <= lo``),
   ``mult = (2^16 % span)^2 % span`` and ``off = ((hi_bits % span) * mult +
@@ -29,7 +40,8 @@ import torch
 
 from tpu_gossip_torch.device import resolve_device
 
-__all__ = ["key", "split", "fold_in", "bits", "uniform", "randint", "key_data", "threefry2x32"]
+__all__ = ["key", "split", "fold_in", "bits", "uniform", "gumbel", "gumbel_table", "randint", "key_data",
+           "threefry2x32", "xla_log"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -68,8 +80,8 @@ def threefry2x32(
     return x0, x1
 
 
-def _counters(k: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    idx = torch.arange(n, dtype=torch.int64, device=k.device)
+def _counters(k: torch.Tensor, n: int, offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device)
     return (idx >> 32) & _M32, idx & _M32
 
 
@@ -86,19 +98,108 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
-def bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2^32)."""
+def bits(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2^32);
+    with ``offset``, the elements at flat positions ``offset + i`` of a
+    larger draw."""
     n = 1
     for d in shape:
         n *= int(d)
-    y0, y1 = threefry2x32(k, *_counters(k, n))
+    y0, y1 = threefry2x32(k, *_counters(k, n, offset))
     return (y0 ^ y1).reshape(shape)
 
 
-def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """``jax.random.uniform(k, shape)`` in float32 on [0, 1)."""
-    b = (bits(k, shape) >> 9) | 0x3F800000
-    return b.to(torch.int32).view(torch.float32) - 1.0
+def _fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add rounds
+    it: the float64 product of two float32 values is exact, so only the
+    sum rounds before the final rounding to float32. Plain float64
+    arithmetic, so the CPU and the card round it alike."""
+    f64 = torch.float64
+    a, b, c = (torch.as_tensor(v, dtype=torch.float32) for v in (a, b, c))
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
+
+
+def uniform(k: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``: on
+    [0, 1) by default; else ``max(minval, floats * (maxval - minval) +
+    minval)`` in float32, the multiply-add fused as XLA fuses it."""
+    b = (bits(k, shape, offset) >> 9) | 0x3F800000
+    return _bounded(b.to(torch.int32).view(torch.float32) - 1.0, minval, maxval)
+
+
+def _bounded(floats: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """JAX's map of [0, 1) floats onto [minval, maxval)."""
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32)
+    span = torch.tensor(maxval, dtype=torch.float32) - lo
+    return torch.clamp(_fma32(floats, span.to(floats.device), lo.to(floats.device)), min=float(lo))
+
+
+# XLA's CPU float32 log (the Cephes polynomial of its vectorised
+# codegen): constants as its LLVM IR spells them
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+          -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2, _SQRTHF = -2.12194440e-4, 0.693359375, 0.707106781186547524
+_MIN_NORM = 1.1754943508222875e-38
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of a float32 tensor bit for bit as XLA's CPU backend
+    computes it: the exponent split, the sqrt(1/2) fold and the degree-8
+    polynomial in three interleaved Horner chains, with ten of its
+    multiply-adds fused exactly where the compiled code fuses them
+    (:func:`_fma32`); 0 and a subnormal (read as 0) give -inf, +inf gives
+    +inf, a negative or NaN input NaN."""
+    f32 = torch.float32
+    x = x.to(f32)
+    c = {i: torch.tensor(v, dtype=f32, device=x.device) for i, v in enumerate(_LOG_P)}
+    xm = torch.clamp(x, min=_MIN_NORM)
+    b = xm.view(torch.int32)
+    e = ((b >> 23) - 127).to(f32) + 1.0
+    m = ((b & -2139095041) | 0x3F000000).view(f32)
+    below = m < torch.tensor(_SQRTHF, dtype=f32)
+    t = (m - 1.0) + torch.where(below, m, torch.zeros_like(m))
+    e = e - below.to(f32)
+    t2 = t * t
+    t3 = t2 * t
+    y = _fma32(_fma32(c[0], t, c[1]), t, c[2])
+    y1 = _fma32(_fma32(c[3], t, c[4]), t, c[5])
+    y1 = _fma32(y, t3, y1)
+    y2 = _fma32(_fma32(c[6], t, c[7]), t, c[8])
+    y = _fma32(t3, y1, y2)
+    q1e = torch.tensor(_LOG_Q1, dtype=f32, device=x.device) * e
+    y = _fma32(y, t3, q1e)
+    r = _fma32(torch.tensor(-0.5, dtype=f32, device=x.device), t2, t) + y
+    r = _fma32(torch.tensor(_LOG_Q2, dtype=f32, device=x.device), e, r)
+    r = torch.where((x <= 0) | torch.isnan(x), torch.full_like(r, float("nan")), r)
+    r = torch.where(x == float("inf"), torch.full_like(r, float("inf")), r)
+    # XLA's CPU code reads subnormals as zero (denormals-are-zero)
+    return torch.where(x.abs() < _MIN_NORM, torch.full_like(r, float("-inf")), r)
+
+
+_GUMBEL_TABLES: dict = {}
+
+
+def gumbel_table(device) -> torch.Tensor:
+    """The (2^23,) float32 table of every value ``gumbel`` can draw: entry
+    ``j`` is ``-log(-log(u))`` for ``u = max(tiny, j * 2^-23 + tiny)``, the
+    uniform of a draw whose ``bits >> 9`` is ``j``. Built once a device."""
+    dev = torch.device(device)
+    key_ = str(dev)
+    if key_ not in _GUMBEL_TABLES:
+        j = torch.arange(1 << 23, dtype=torch.int32, device=dev)
+        u = _bounded((j | 0x3F800000).view(torch.float32) - 1.0, _MIN_NORM, 1.0)
+        _GUMBEL_TABLES[key_] = -xla_log(-xla_log(u))
+    return _GUMBEL_TABLES[key_]
+
+
+def gumbel(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape, float32)`` ("low" mode); with
+    ``offset``, the elements at flat positions ``offset + i`` of a larger
+    draw. One threefry draw and one gather from :func:`gumbel_table`."""
+    return gumbel_table(k.device)[bits(k, shape, offset) >> 9]
 
 
 def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval) -> torch.Tensor:

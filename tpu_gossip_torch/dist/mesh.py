@@ -30,8 +30,10 @@ rows. A ``scenario`` (``faults/``) wraps the delivery exactly as on the
 local engine, its masks compiled over the padded slot space through
 ``position`` (:func:`shard_ranges` for whole-shard sets), so a scenario
 run equals the local run of the same engine family bit for bit, and so
-does a run under the quorum detector (``liveness``) with its adversaries. The
-exchange over NCCL with one process per card, the
+does a run under the quorum detector (``liveness``) with its adversaries,
+and a growing run (``growth``, its admission rows mapped through
+``position``): the admission draws at global shape, as on the local
+engine. The exchange over NCCL with one process per card, the
 matching mesh, the sparse, auto and hier transports and the ``IciRound``
 counters are a later slice and raise ``NotImplementedError``.
 """
@@ -588,10 +590,10 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, sha
     ``scenario`` injects the round's faults around the exchange (and, on
     the packed round, around its bool twin); ``liveness`` (a
     ``QuorumSpec``) runs the quorum detector and the scenario's
-    adversaries, their draws at global shape as on the local engine. The
-    arguments of later slices (``growth``, ``transport``, ``collect_ici``,
-    ``stream``, ``control``, ``pipeline``, ``inject``) raise
-    ``NotImplementedError``."""
+    adversaries, their draws at global shape as on the local engine, and
+    ``growth`` admits the round's join batch. The arguments of later slices
+    (``transport``, ``collect_ici``, ``stream``, ``control``, ``pipeline``,
+    ``inject``) raise ``NotImplementedError``."""
     _check_round(state, cfg, sg, mesh, shard_plan, later)
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed

@@ -61,7 +61,6 @@ __all__ = [
     "faulted_dissemination",
     "scenario_dissemination",
     "drain_held",
-    "check_ported",
     "flood_replay",
 ]
 
@@ -83,6 +82,7 @@ class RoundFaults(NamedTuple):
     forge_fanout: torch.Tensor | None = None  # i32: forged heartbeats per forger this round
     flood_fanout: torch.Tensor | None = None  # i32: replay targets per flooder this round
     forge_width: int = 0  # the forgers' draw width: the schedule's largest forge fanout
+    join_burst: torch.Tensor | None = None  # i32: extra growth admissions this round (growth/)
 
 
 class FaultTelemetry(NamedTuple):
@@ -161,16 +161,8 @@ class CompiledScenario:
             burst=self.burst[ph], blackout=self.blackout[ph], group_b=self.group_b[ph], pass_b=pass_b,
             accuser=pick(self.accuser), forger=pick(self.forger), flooder=pick(self.flooder),
             forge_fanout=pick(self.forge_fanout), flood_fanout=pick(self.flood_fanout),
-            forge_width=self.max_forge_fanout,
+            forge_width=self.max_forge_fanout, join_burst=pick(self.join_burst),
         )
-
-
-def check_ported(scenario: CompiledScenario) -> None:
-    """Refuse the phase class of a later slice: admission waves."""
-    from tpu_gossip_torch.sim.stages import not_ported
-
-    if scenario.has_join_burst:
-        raise not_ported("a scenario's join_burst phases (admission waves)", "growth (ROADMAP item 9c)")
 
 
 def _count(x: torch.Tensor) -> torch.Tensor:
@@ -283,7 +275,6 @@ def scenario_dissemination(scenario: CompiledScenario, state, rnd, transmit, tra
     and not blacked out. ``k_flood`` is the adversary stream's flood child
     (the round driver derives it). Returns ``(incoming, msgs_sent,
     tx_effective, new_held, telemetry, round_faults)``."""
-    check_ported(scenario)
     if scenario.blackout.device != transmit.device:
         raise ValueError(f"the scenario's tables lie on {scenario.blackout.device} but the round runs on "
                          f"{transmit.device}: compile it with device={str(transmit.device)!r}")

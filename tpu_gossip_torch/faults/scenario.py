@@ -34,8 +34,9 @@ through the engine's layout (``node_map``, the bucketed mesh's
 The reader handles the restricted TOML subset scenarios use:
 ``[scenario]``, ``[[phase]]``, scalar values, arrays and one-level inline
 tables. The adversary phase keys (``accusers``, ``forgers``, ``floods``)
-and ``join_burst`` parse and compile as in the JAX package; the round
-refuses a scenario that uses them, their planes being later slices.
+and ``join_burst`` parse and compile as in the JAX package: the quorum
+detector (``kernels/liveness.py``) runs the first, the growth stage
+(``growth/``) reads the second as admission waves.
 """
 
 from __future__ import annotations

@@ -19,7 +19,9 @@ its words (``sim/packed_engine.py``) and returns a ``PackedSwarm``, a
 delay buffer rides ``fault_held`` and the three fault counters land in
 ``RoundStats``; and ``liveness``, a ``QuorumSpec`` (``kernels/liveness.py``):
 the quorum detector replaces the direct one, a scenario's adversaries
-act, and the six detector columns of ``RoundStats`` are filled.
+act, and the six detector columns of ``RoundStats`` are filled; and
+``growth``, a ``CompiledGrowth`` (``growth/``): the round admits its join
+batch after churn and ``degree_gamma`` tracks the realized degrees' tail.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
@@ -76,7 +78,7 @@ class RoundStats(NamedTuple):
     msgs_held: torch.Tensor
     msgs_delivered: torch.Tensor
     n_members: torch.Tensor  # i32 — slots with exists=True
-    degree_gamma: torch.Tensor  # f32 — growth plane (0 here)
+    degree_gamma: torch.Tensor  # f32 — growth plane (0 without a schedule)
     stream_offered: torch.Tensor  # i32 — streaming plane (0 here)
     stream_injected: torch.Tensor
     stream_conflated: torch.Tensor
@@ -114,7 +116,19 @@ def liveness_counters(ltel, liveness, exists, alive, declared_dead, quarantine) 
     return out
 
 
-def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None) -> RoundStats:
+def growth_gamma(growth, row_ptr, exists, rewired, rewire_targets, degree_credit, live) -> torch.Tensor:
+    """The ``degree_gamma`` column: the running Hill gamma of the realized
+    degrees under a growth schedule, 0.0 without one."""
+    if growth is None:
+        return torch.zeros((), dtype=torch.float32, device=exists.device)
+    from tpu_gossip_torch.growth.engine import hill_gamma_device, realized_degrees
+
+    deg = realized_degrees(row_ptr, exists, rewired, rewire_targets, degree_credit)
+    return hill_gamma_device(deg, live, growth.gamma_d_min)
+
+
+def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None,
+           growth=None) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -128,7 +142,8 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, l
         n_alive=_i32(live.sum()),
         n_declared_dead=_i32(state.declared_dead.sum()),
         n_members=_i32(state.exists.sum()),
-        degree_gamma=torch.zeros((), dtype=torch.float32, device=dev),
+        degree_gamma=growth_gamma(growth, state.row_ptr, state.exists, state.rewired, state.rewire_targets,
+                                  state.degree_credit, live),
         slot_infected=zm,
         slot_age=zm,
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
@@ -467,7 +482,7 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
 def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, transmit,
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
                   churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
-                  k_accuse=None, k_forge=None):
+                  k_accuse=None, k_forge=None, growth=None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
@@ -477,7 +492,10 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     ``fstats`` the round's fault counters. ``liveness`` (a ``QuorumSpec``)
     runs the quorum detector, with the accusers (drawing from
     ``k_accuse``) and forgers (``k_forge``) the round's faults field;
-    without it the suspicion planes pass through untouched."""
+    without it the suspicion planes pass through untouched. ``growth`` (a
+    ``CompiledGrowth``) admits the round's join batch after churn (from
+    ``fold_in(state.rng, GROWTH_STREAM_SALT)``) and fills
+    ``degree_gamma``."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -485,6 +503,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "alive": state.alive, "silent": state.silent, "last_hb": state.last_hb,
         "declared_dead": state.declared_dead, "rewired": state.rewired,
         "rewire_targets": state.rewire_targets, "degree_credit": state.degree_credit,
+        "join_round": state.join_round, "admitted_by": state.admitted_by, "rng": state.rng,
         "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming, "transmit": transmit,
         "receptive": receptive, "fresh": None, "expired": None, "faults": faults,
@@ -492,22 +511,22 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "quarantine": state.quarantine, "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
     }
     values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
-                                           liveness=liveness), values)
+                                           liveness=liveness, growth=growth), values)
     new_state = SwarmState(
         row_ptr=state.row_ptr, col_idx=state.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
         infected_round=values["infected_round"], recovered=values["recovered"],
-        exists=state.exists, alive=values["alive"], silent=values["silent"],
+        exists=values["exists"], alive=values["alive"], silent=values["silent"],
         last_hb=values["last_hb"], declared_dead=values["declared_dead"],
         rewired=values["rewired"], rewire_targets=values["rewire_targets"],
-        fault_held=state.fault_held if fault_held is None else fault_held, join_round=state.join_round,
-        admitted_by=state.admitted_by, degree_credit=values["degree_credit"],
+        fault_held=state.fault_held if fault_held is None else fault_held, join_round=values["join_round"],
+        admitted_by=values["admitted_by"], degree_credit=values["degree_credit"],
         slot_lease=state.slot_lease, control_lvl=state.control_lvl,
         pipe_buf=state.pipe_buf, suspect_round=values["suspect_round"],
         suspect_mark=values["suspect_mark"], quarantine=values["quarantine"],
         rng=key, round=rnd,
     )
-    return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness)
+    return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness, growth)
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",

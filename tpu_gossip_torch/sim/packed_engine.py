@@ -27,9 +27,11 @@ and ``fault_held`` once, runs the bool head around the engine's bool
 delivery (``deliver_bool_factory``) and packs ``incoming``, the effective
 transmit plane and the held buffer back. The quorum detector runs as in
 the bool engine (its stages are row-level; ``quarantine`` rides the flags
-word) and masks a quarantined row's transmit words in the head. Growth,
-streams, control, pipelining and live ingestion are later slices and
-raise ``NotImplementedError``.
+word) and masks a quarantined row's transmit words in the head. Growth
+admission is the bool engine's row-level stage too (``exists`` rides the
+flags word; the registry planes are carried as they are), and
+``degree_gamma`` is computed as there. Streams, control, pipelining and
+live ingestion are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
-from tpu_gossip_torch.sim.stages import (Stage, _churn_stage, _liveness_stage, adversary_keys, check_later,
-                                        fault_round, has_churn, require_quorum, run_stages)
+from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, fault_round, require_quorum,
+                                        row_stages, run_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -151,25 +153,24 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
 
 
 def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None, churn_faults: bool = False,
-                               liveness=None) -> tuple[Stage, ...]:
+                               liveness=None, growth=None) -> tuple[Stage, ...]:
     """The packed stages of one round: the bool engine's row-level
-    liveness and churn stages (fault-aware and hardened as there), then
-    the word tail."""
-    burst = faults is not None and churn_faults
-    churn = (_churn_stage(cfg, burst, defended=liveness is not None),) if has_churn(cfg) or burst else ()
-    return (_liveness_stage(cfg, faults, liveness), *churn, _tail_stage_packed(cfg, tail, m))
+    liveness, churn and growth stages (fault-aware and hardened as there),
+    then the word tail."""
+    return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
+            _tail_stage_packed(cfg, tail, m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
                          churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
-                         k_accuse=None, k_forge=None):
+                         k_accuse=None, k_forge=None, growth=None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
     ``fault_held_w`` is the packed delay buffer to carry (the input's when
-    None), ``fstats`` the round's fault counters; ``liveness`` and the
-    adversary arguments as in ``advance_round``."""
+    None), ``fstats`` the round's fault counters; ``liveness``, the
+    adversary arguments and ``growth`` as in ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -177,6 +178,7 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "alive": flags["alive"], "silent": flags["silent"], "last_hb": ps.last_hb,
         "declared_dead": flags["declared_dead"], "rewired": flags["rewired"],
         "rewire_targets": ps.rewire_targets, "degree_credit": ps.degree_credit,
+        "join_round": ps.join_round, "admitted_by": ps.admitted_by, "rng": ps.rng,
         "rnd": rnd, "k_leave": k_leave, "k_join": k_join,
         "incoming": incoming_w, "transmit": transmit_w,
         "receptive": receptive_w, "fresh": None, "expired": None, "faults": faults,
@@ -184,8 +186,9 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
     }
     values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, faults=faults,
-                                                   churn_faults=churn_faults, liveness=liveness), values)
-    row_flags = dict(flags, alive=values["alive"], silent=values["silent"],
+                                                   churn_faults=churn_faults, liveness=liveness, growth=growth),
+                        values)
+    row_flags = dict(flags, exists=values["exists"], alive=values["alive"], silent=values["silent"],
                      declared_dead=values["declared_dead"], rewired=values["rewired"],
                      quarantine=values["quarantine"])
     new_state = PackedSwarm(
@@ -195,20 +198,20 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         flags=pack_flags(row_flags), last_hb=values["last_hb"],
         rewire_targets=values["rewire_targets"],
         fault_held=ps.fault_held if fault_held_w is None else fault_held_w,
-        join_round=ps.join_round, admitted_by=ps.admitted_by,
+        join_round=values["join_round"], admitted_by=values["admitted_by"],
         degree_credit=values["degree_credit"], slot_lease=ps.slot_lease,
         control_lvl=ps.control_lvl, pipe_buf=ps.pipe_buf,
         suspect_round=values["suspect_round"], suspect_mark=values["suspect_mark"],
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
-    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness)
+    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness, growth)
 
 
-def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None):
+def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None, growth=None):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
     agree bit for bit, the padding being zero)."""
-    from tpu_gossip_torch.sim.engine import RoundStats, liveness_counters
+    from tpu_gossip_torch.sim.engine import RoundStats, growth_gamma, liveness_counters
 
     live = flags["alive"] & ~flags["declared_dead"]
     dev = ps.seen.device
@@ -222,7 +225,8 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
         n_alive=live.sum().to(torch.int32),
         n_declared_dead=flags["declared_dead"].sum().to(torch.int32),
         n_members=flags["exists"].sum().to(torch.int32),
-        degree_gamma=torch.zeros((), dtype=torch.float32, device=dev),
+        degree_gamma=growth_gamma(growth, ps.row_ptr, flags["exists"], flags["rewired"], ps.rewire_targets,
+                                  ps.degree_credit, live),
         slot_infected=zm,
         slot_age=zm,
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
@@ -236,7 +240,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
 
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
                               tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
-                              **later):
+                              growth=None, **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
     k_pull) -> (inc_w, msgs_sent)``, then the packed stages. Under a
@@ -274,7 +278,7 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
     return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
                                 tail=tail, faults=rf, churn_faults=scenario is not None and scenario.has_churn,
                                 fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
-                                k_forge=k_forge)
+                                k_forge=k_forge, growth=growth)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):

@@ -10,6 +10,8 @@
         --scenario scenarios/lossy_links.toml
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --warm 12 \\
         --scenario scenarios/byzantine_siege.toml --quorum-k 3
+    python -m tpu_gossip_torch.sim.profile --peers 950000 --grow 1000000 \\
+        --grow-rate 256
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -51,8 +53,17 @@ release) beside ``liveness_direct`` (the unhardened stage on the same
 state), and under an adversary scenario ``adv_draws`` (the adversary
 stream's fold and its three ``randint`` draws: ``(N,)`` accusations,
 ``(N, forge width)`` forgeries, ``(N, flood width)`` floods) and
-``flood_replay`` (the flood's payload scatter and bill). Needs a CUDA
-device.
+``flood_replay`` (the flood's payload scatter and bill). ``--grow TARGET``
+(``--grow-rate J`` joins a round, attach 3) builds the swarm at the
+capacity TARGET (the matching graph in its sharded layout at one shard
+with the capacity as reserved rows, a CSR graph padded as ``bench.py``'s
+``bench_grow`` pads it), runs every round growing and adds the growth
+stage: ``growth`` (the whole admission), split into ``growth_draw`` (the
+``(J, N)`` Gumbel draw), ``growth_top_k`` (the tie-ordered top-k over its
+scores) and ``growth_scatters`` (the cursor, the log degrees and the
+registry and credit scatters), with ``growth_round`` and
+``plain_round`` (the same round with ``growth=None``) beside them and
+``growth_chunk_rows`` the draw's rows a chunk. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -67,7 +78,7 @@ import torch
 from tpu_gossip_torch import dist
 from tpu_gossip_torch.core import prng, topology
 from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
-from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph, matching_powerlaw_graph_sharded
 from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
 from tpu_gossip_torch.kernels import pallas_segment as seg
 from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
@@ -310,8 +321,57 @@ def trace_rounds(state, step, rounds: int) -> dict:
 
 def _cfg_kw(args) -> dict:
     return dict(msg_slots=16, fanout=1, mode="push_pull", churn_leave_prob=args.churn_leave,
-                churn_join_prob=args.churn_join, rewire_slots=args.rewire_slots,
+                churn_join_prob=args.churn_join,
+                rewire_slots=max(args.rewire_slots, GROW_ATTACH) if getattr(args, "grow", 0) else args.rewire_slots,
                 rewire_compact_cap=args.rewire_compact_cap)
+
+
+GROW_ATTACH = 3
+
+
+def growth_stage_times(state, cfg, plan, grow, reps: int) -> dict:
+    """The growth stage on a warm state, timed alone (ms), and split: the
+    Gumbel draw, the top-k over its scores (precomputed) and the rest
+    (cursor, log degrees, scatters); then the whole round with and without
+    the schedule."""
+    from tpu_gossip_torch.core.streams import GROWTH_STREAM_SALT
+    from tpu_gossip_torch.growth import engine as ge
+
+    n = state.exists.shape[0]
+    jb, m = grow.max_batch, grow.attach_m
+    chunk = ge.draw_chunk_rows(n, state.exists.device)
+    key = prng.fold_in(state.rng, GROWTH_STREAM_SALT)
+    planes = {f: getattr(state, f) for f in ("exists", "alive", "silent", "last_hb", "declared_dead", "rewired",
+                                               "rewire_targets", "join_round", "admitted_by", "degree_credit")}
+    rnd = state.round + 1
+    zero = torch.zeros((), dtype=torch.int32, device=rnd.device)
+    log_deg = ge.attach_log_degrees(state.row_ptr, state.exists, state.alive, state.declared_dead, state.rewired,
+                                    state.rewire_targets, state.degree_credit)
+    chunks = [(r0, min(jb, r0 + chunk)) for r0 in range(0, jb, chunk)]
+
+    def draw():
+        return [prng.gumbel(key, (r1 - r0, n), offset=r0 * n) for r0, r1 in chunks]
+
+    scores = [log_deg[None, :] + g for g in draw()]
+    finite, targets = ge.gumbel_top_k(key, log_deg, jb, m)
+
+    def scatters():
+        rows, live = ge.admission_batch(grow, state.exists, zero)
+        ge.attach_log_degrees(state.row_ptr, state.exists, state.alive, state.declared_dead, state.rewired,
+                              state.rewire_targets, state.degree_credit)
+        return ge.admit(grow, rows, live, finite, targets, rnd, **planes)
+
+    stages = {
+        "growth": lambda: ge.apply_growth(grow, state.rng, rnd, zero, row_ptr=state.row_ptr, **planes),
+        "growth_draw": draw,
+        "growth_top_k": lambda: [ge._top_k_tie_low(sc, m) for sc in scores],
+        "growth_scatters": scatters,
+        "growth_round": lambda: engine.gossip_round(state, cfg, plan, growth=grow),
+        "plain_round": lambda: engine.gossip_round(state, cfg, plan),
+    }
+    out = {name: _event_ms(fn, reps) for name, fn in stages.items()}
+    out["growth_chunk_rows"] = chunk
+    return out
 
 
 def _churn_keys(args) -> dict:
@@ -346,6 +406,9 @@ def main(argv=None) -> int:
     p.add_argument("--quorum-k", type=int, default=0,
                    help="run the rounds under the quorum detector with this quorum (window 4, budget 3) and time "
                    "its stages (local unpacked round; 0 = the direct detector)")
+    p.add_argument("--grow", type=int, default=0, metavar="TARGET",
+                   help="build the swarm at capacity TARGET and run every round growing toward it (local round)")
+    p.add_argument("--grow-rate", type=int, default=256, help="joins a round under --grow")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -361,14 +424,22 @@ def main(argv=None) -> int:
         return main_shard(args, dev)
     if args.packed and args.quorum_k:
         raise SystemExit("--quorum-k profiles the local unpacked round; drop --packed")
+    if args.grow and (args.packed or args.scenario or args.quorum_k or args.remat_every or args.shard
+                      or args.grow <= args.peers):
+        raise SystemExit("--grow profiles the local unpacked round to a TARGET above --peers; drop --packed, "
+                         "--shard, --scenario, --quorum-k and --remat-every")
     lqs = None
     if args.quorum_k:
         from tpu_gossip_torch.kernels.liveness import compile_quorum
 
         lqs = compile_quorum(args.quorum_k)
     n = args.peers
-    exists = plan = None
-    if args.graph == "matching":
+    exists = plan = grow = None
+    if args.graph == "matching" and args.grow:
+        dgraph, plan = matching_powerlaw_graph_sharded(n, 1, fanout=1, key=prng.key(0, dev),
+                                                       growth_rows=args.grow - n, device=dev)
+        graph, exists = dgraph.as_padded_graph(), dgraph.exists
+    elif args.graph == "matching":
         dgraph, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
         graph, exists = dgraph.as_padded_graph(), dgraph.exists
     elif args.graph == "device":
@@ -376,12 +447,29 @@ def main(argv=None) -> int:
         graph, exists = dgraph.as_padded_graph(), dgraph.exists
     else:
         graph = topology.build_csr(n, topology.preferential_attachment(n, 3, rng=np.random.default_rng(0)))
+    n_initial = graph.n
+    if args.grow and args.graph != "matching":
+        from tpu_gossip_torch.growth import pad_graph_for_growth
+
+        # bench_grow's layout: the device graph's sentinel row stays a
+        # non-member and admission starts past it
+        graph, pad_exists = pad_graph_for_growth(graph, args.grow + (n_initial - n))
+        if exists is not None:
+            pad_exists[:n_initial] = exists.cpu().numpy()
+        exists = torch.from_numpy(pad_exists).to(dev)
     if args.graph != "matching" and args.staircase:
         plan = seg.build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=1, device=dev)
     cfg = SwarmConfig(n_peers=graph.n, **_cfg_kw(args))
     origins = np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
     cap = engine.remat_capacity(state, cfg) if args.remat_every > 0 else None
+    if args.grow:
+        from tpu_gossip_torch.growth import compile_growth, matching_admit_rows
+
+        admit = matching_admit_rows(plan, args.grow - n) if args.graph == "matching" else None
+        grow = compile_growth(n_initial=n if admit is not None else n_initial,
+                              target=args.grow if admit is not None else graph.n, n_slots=graph.n,
+                              joins_per_round=args.grow_rate, attach_m=GROW_ATTACH, admit_rows=admit, device=dev)
     sc = None
     if args.scenario:
         if args.packed:
@@ -391,7 +479,7 @@ def main(argv=None) -> int:
         spec = parse_scenario(args.scenario)
         sc = compile_scenario(spec, n_peers=n, n_slots=graph.n, device=dev,
                               total_rounds=max(spec.last_round, args.warm + args.rounds))
-    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs)
+    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs, growth=grow)
     churn = churn_stage_times(state, cfg, args.reps, cap) if has_churn(cfg) else {}
     if args.packed:
         if args.staircase:
@@ -409,14 +497,16 @@ def main(argv=None) -> int:
         stages.update(fault_stage_times(state, cfg, plan, sc, args.warm, args.reps, lqs))
     if lqs is not None:
         stages.update(liveness_stage_times(state, cfg, sc, lqs, args.warm, args.reps))
+    if grow is not None:
+        stages.update(growth_stage_times(state, cfg, plan, grow, args.reps))
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
                       "packed": args.packed, **_churn_keys(args), "scenario": args.scenario or None,
-                      "quorum_k": args.quorum_k or None, "stage_ms": stages}))
+                      "quorum_k": args.quorum_k or None, "grow": args.grow or None, "stage_ms": stages}))
     rnd = [args.warm]
 
     def step(s):
         out = engine.gossip_round(s, cfg, plan, scenario=sc, host_round=rnd[0] if sc is not None else None,
-                                  liveness=lqs)
+                                  liveness=lqs, growth=grow)
         rnd[0] += 1
         return out
 

@@ -7,16 +7,18 @@ release), ``_churn_stage`` (:298, Poisson churn, the scenario's burst
 thresholds, the re-wiring draws and the defended rejoin of quarantined
 rows), ``_tail_stage``, ``build_round_stages`` (:673),
 ``effective_transmit_planes`` (:724) and ``run_protocol_round`` (:739) of
-``tpu_gossip/sim/stages.py``. Each stage names the carries it reads and
+``tpu_gossip/sim/stages.py``, and ``_growth_stage`` (:483, the
+preferential-attachment admission of ``growth/``, reading the fault
+head's ``join_burst``). Each stage names the carries it reads and
 writes and :func:`run_stages` enforces the declarations.
 :func:`run_protocol_round` does the 5-way key split, the role masks (with
 the quarantine's send mask under the quorum detector), the adversary
 stream's fold, the engine's dissemination (wrapped by the scenario head,
 ``faults.inject.scenario_dissemination``, under a scenario) and the
-post-delivery stages (liveness, churn, tail).
+post-delivery stages (liveness, churn, growth, tail).
 
-Growth, streams, control, pipelining and live ingestion are later slices;
-their arguments raise ``NotImplementedError`` here.
+Streams, control, pipelining and live ingestion are later slices; their
+arguments raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from tpu_gossip_torch.core import prng
 
 __all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "run_protocol_round", "not_ported",
-           "check_later", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
+           "check_later", "row_stages", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
            "require_quorum"]
 
 
@@ -278,6 +280,36 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False) -> Stage:
     return Stage("churn", reads, writes, fn)
 
 
+def _growth_stage(cfg, growth, has_faults: bool) -> Stage:
+    """Preferential-attachment admission (``growth/engine.py``), row-level:
+    this round's join batch is admitted after the churn draws, from the
+    growth stream, so a zero-join or exhausted schedule reproduces the
+    fixed-n run bit for bit. An admitted row's slot planes are untouched
+    (a never-member row was never receptive), so the tail needs no reset
+    for it."""
+    if cfg.rewire_slots < growth.attach_m:
+        raise ValueError(
+            f"growth.attach_m={growth.attach_m} needs "
+            f"cfg.rewire_slots >= {growth.attach_m} — growth edges "
+            "ride the re-wiring plane's delivery paths"
+        )
+    fields = ("exists", "alive", "silent", "last_hb", "declared_dead", "rewired",
+              "rewire_targets", "join_round", "admitted_by", "degree_credit")
+    reads = ("rng", "rnd", "row_ptr") + fields + (("faults",) if has_faults else ())
+
+    def fn(ctx):
+        from tpu_gossip_torch.growth.engine import apply_growth
+
+        jb = ctx["faults"].join_burst if has_faults else None
+        if jb is None:
+            jb = torch.zeros((), dtype=torch.int32, device=ctx["exists"].device)
+        grown = apply_growth(growth, ctx["rng"], ctx["rnd"], jb, row_ptr=ctx["row_ptr"],
+                             **{f: ctx[f] for f in fields})
+        return {f: grown[f] for f in fields}
+
+    return Stage("growth", reads, fields, fn)
+
+
 def _tail_stage(cfg, tail: str) -> Stage:
     """One traversal of the (N, M) slot planes (kernels.round_tail)."""
     reads = (
@@ -311,22 +343,31 @@ def has_churn(cfg) -> bool:
     return cfg.churn_leave_prob > 0.0 or cfg.churn_join_prob > 0.0
 
 
-def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
-                       liveness=None) -> tuple[Stage, ...]:
-    """The post-dissemination stages of one round: liveness (reading the
-    round's ``faults`` under a scenario, the quorum detector and the
-    adversaries' half with ``liveness``), churn (when the config churns or
-    the scenario has a churn burst, then in its burst form; defended with
-    ``liveness``), then the tail."""
+def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, growth=None) -> tuple[Stage, ...]:
+    """The row-level stages of one round, in JAX's order: liveness
+    (reading the round's ``faults`` under a scenario, the quorum detector
+    and the adversaries' half with ``liveness``), churn (when the config
+    churns or the scenario has a churn burst, then in its burst form;
+    defended with ``liveness``), then growth admission (with ``growth``, a
+    ``CompiledGrowth``)."""
     burst = faults is not None and churn_faults
     churn = (_churn_stage(cfg, burst, defended=liveness is not None),) if has_churn(cfg) or burst else ()
-    return (_liveness_stage(cfg, faults, liveness), *churn, _tail_stage(cfg, tail))
+    grow = (_growth_stage(cfg, growth, faults is not None),) if growth is not None else ()
+    return (_liveness_stage(cfg, faults, liveness), *churn, *grow)
+
+
+def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
+                       liveness=None, growth=None) -> tuple[Stage, ...]:
+    """The post-dissemination stages of one round: :func:`row_stages`,
+    then the tail."""
+    return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
+            _tail_stage(cfg, tail))
 
 
 def check_later(later: dict) -> None:
     """Refuse the arguments of later slices (given and not None) and any
     unknown argument."""
-    for name, where in (("growth", "growth (ROADMAP item 9c)"), ("stream", "traffic"),
+    for name, where in (("stream", "traffic"),
                         ("control", "control"), ("pipeline", "multi-device"),
                         ("inject", "serving")):
         if later.pop(name, None) is not None:
@@ -381,7 +422,7 @@ def require_quorum(scenario, liveness) -> None:
 
 
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
-                       host_round: int | None = None, liveness=None, **later):
+                       host_round: int | None = None, liveness=None, growth=None, **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
@@ -399,7 +440,8 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     ``QuorumSpec``) runs the quorum detector: a quarantined row's sends
     are masked, and a scenario's adversaries draw from the adversary
     stream (:func:`adversary_keys`); adversaries without it raise JAX's
-    ValueError.
+    ValueError. ``growth`` (a ``CompiledGrowth``) admits the round's join
+    batch after churn.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -427,5 +469,5 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     return _engine.advance_round(
         state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
-        liveness=liveness, k_accuse=k_accuse, k_forge=k_forge,
+        liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth,
     )
