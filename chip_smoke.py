@@ -82,8 +82,26 @@ draw's chunk) and ``sim.profile --grow`` (the growth stage split into the
 Gumbel draw, the top-k and the scatters); 10c ``bench.py::bench_grow``'s
 configuration to the end of its schedule (197 rounds), membership at the
 target and ``degree_gamma`` within 1e-3 of the host fit; 10d a mid-growth
-n=20000 checkpoint killed and resumed on the other device, both ways. It
-prints phase 10's seconds and the script's.
+n=20000 checkpoint killed and resumed on the other device, both ways.
+Phase 11 drives the streaming plane (``traffic/``, ``run_sim --stream``):
+first ``prng.poisson`` (both branches) and ``lgamma32`` (the integers
+1..2^24) against the CPU's bits; 11a the nine n<=20000 stream pins (JAX
+CLI) through the CLI on every engine (matching and its packed twin,
+Chung-Lu exactly-k with the degree law and two Bloom planes, PA with the
+hotspot law, the Chung-Lu staircase with bursts, the bucketed mesh with
+K6 and its packed twin, the staircase remat loop under churn, and
+flash-crowd-under-fire as its header runs it), each run's leases aging
+out through K3 or K4; 11b the 1M matching headline under a stream (rate
+4, bursts x4 every 6 rounds, TTL 24, 48 rounds) onto its JAX pin, its
+packed twin digest-equal; 11c ``bench.py::bench_stream``'s configuration
+at full width (the 1M device power-law graph, 32 slots, fanout 2,
+exactly-k push_pull, TTL 25, a batch of 16) at rates 0.5, 1.5 and 4.0,
+each 25 warm and 96 measured rounds beside the unloaded run on the same
+state (ms/round, the steady-state report, the peak, K3's launches), K3
+and K4 against their plain versions under a live age-out mask, and
+``sim.profile --stream 4``; 11d a mid-stream n=20000 checkpoint killed
+and resumed on the other device, both ways. It prints phase 11's seconds
+and the script's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -381,21 +399,26 @@ def check_k6(dev, gen, setup: dict) -> int:
     return err
 
 
+def stream_pin(ref: dict) -> bool:
+    """A pin of the streaming plane (``--stream``): phase 11's."""
+    return "--stream" in ref["argv"]
+
+
 def growth_pin(ref: dict) -> bool:
-    """A pin of the growth plane (``--grow``): phase 10's."""
-    return "--grow" in ref["argv"]
+    """A pin of the growth plane (``--grow``, no stream): phase 10's."""
+    return "--grow" in ref["argv"] and not stream_pin(ref)
 
 
 def quorum_pin(ref: dict) -> bool:
     """A pin of the quorum detector (``--quorum-k``): phase 9's."""
-    return "--quorum-k" in ref["argv"] and not growth_pin(ref)
+    return "--quorum-k" in ref["argv"] and not growth_pin(ref) and not stream_pin(ref)
 
 
 def fault_pin(ref: dict) -> bool:
     """A pin of the fault plane (silent peers or a scenario) without the
-    quorum detector or growth: phase 8's."""
+    quorum detector, growth or a stream: phase 8's."""
     return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not quorum_pin(ref) and (
-        not growth_pin(ref))
+        not growth_pin(ref)) and not stream_pin(ref)
 
 
 def phase_digest(root: Path, dev) -> list[dict]:
@@ -405,7 +428,7 @@ def phase_digest(root: Path, dev) -> list[dict]:
 
     out = []
     for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text()):
-        if fault_pin(ref) or quorum_pin(ref) or growth_pin(ref):  # phase 8's, 9's and 10's
+        if fault_pin(ref) or quorum_pin(ref) or growth_pin(ref) or stream_pin(ref):  # phase 8's, 9's, 10's and 11's
             continue
         args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
         if unknown:
@@ -2211,6 +2234,293 @@ def phase_growth(root: Path, dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 11: streams
+
+STREAM_BIG = ["--peers", "1000000", "--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--stream", "4",
+              "--stream-burst-every", "6", "--slot-ttl", "24", "--rounds", "48", "--digest", "--quiet"]
+BENCH_STREAM = dict(n=1_000_000, rates=(0.5, 1.5, 4.0), msg_slots=32, fanout=2, measure=96)  # bench.py::bench_stream
+
+
+def stream_line(card: str, what: str, r: dict, extra: str = "") -> str:
+    s = r["summary"]["stream"]
+    keys = ("msgs_offered", "msgs_injected", "msgs_conflated", "msgs_expired", "delivery_ratio", "conflation_rate",
+            "episodes_completed", "rounds_to_coverage")
+    rm = ""
+    if r.get("round_ms"):
+        rm = f"; {sum(r['round_ms']) / len(r['round_ms'])} ms/round by CUDA events a round"
+    return fault_line(card, what, r, f"; stream {({k: s[k] for k in keys})}{rm}{extra}")
+
+
+def check_stream_run(what: str, argv: list[str], r: dict) -> None:
+    """A streamed CLI run's path launches (its tail once a round, every
+    round carrying the stream's expired mask), and an age-out that bit."""
+    check_growth_run(what, argv, r)
+    expired = sum(row["stream_expired"] for row in r["rows"]) if r["rows"] else r["summary"]["stream"]["msgs_expired"]
+    if expired <= 0:
+        raise AssertionError(f"{what}: no lease aged out, so the tail never saw a live expired mask")
+
+
+def check_stream_prng(dev) -> dict:
+    """``prng.poisson`` on the card over both branches and ``lgamma32``
+    over the integers 1..2^24 give the CPU's bits; the draws per second."""
+    from tpu_gossip_torch.core import prng
+
+    x = torch.arange(1, (1 << 24) + 1, dtype=torch.float32)
+    gx = x.to(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = prng.lgamma32(gx)
+    torch.cuda.synchronize(dev)
+    lg_s = time.perf_counter() - t0
+    if not torch.equal(got.cpu().view(torch.int32), prng.lgamma32(x).view(torch.int32)):
+        raise AssertionError("11: lgamma32 on the card differs from the CPU's on the integers 1..2^24")
+    gen = torch.Generator().manual_seed(11)
+    keys = torch.randint(0, 2 ** 32, (4096, 2), generator=gen, dtype=torch.int64)
+    for rate in (0.5, 4.0, 9.999999, 10.0, 16.0, 400.0):
+        lam = torch.full((4096,), rate, dtype=torch.float32)
+        if not torch.equal(prng.poisson(keys.to(dev), lam.to(dev)).cpu(), prng.poisson(keys, lam)):
+            raise AssertionError(f"11: poisson on the card differs from the CPU's at rate {rate}")
+    return dict(lgamma_s=lg_s)
+
+
+def live_mask_tails(dev, cfg, state, strm, step) -> dict:
+    """K3 and K4 against their plain versions with a real age-out mask: the
+    first round at or after ``state`` whose lease table expires a slot."""
+    from tpu_gossip_torch.core.packed import pack_bits
+    from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words, tail_fused, tail_words_plain
+    from tpu_gossip_torch.sim import engine
+    from tpu_gossip_torch.traffic import slot_expiry
+
+    for _ in range(30):
+        expired = slot_expiry(state.slot_lease, state.round + 1, strm.ttl)
+        if bool(expired.any()):
+            break
+        state = step(state)[0]
+    else:
+        raise AssertionError("11c: no lease aged out in 30 rounds")
+    _, transmitter, receptive = engine.compute_roles(state)
+    transmit = engine.transmit_bitmap(state, cfg, transmitter)
+    planes = (state.seen, state.forwarded, state.infected_round, state.recovered, state.seen, receptive, transmit,
+              None, state.round + 1)
+    m = state.seen.shape[1]
+    err = 0
+    for fo, sir in ((False, 0), (True, 4)):
+        kw = dict(forward_once=fo, sir_recover_rounds=sir, expired=expired)
+        for a, b in zip(round_tail(*planes, impl="fused", **kw), tail_fused(*planes, **kw)):
+            err = max(err, max_err(a, b))
+        words = [pack_bits(p) if p is not None and p.dtype == torch.bool and p.dim() == 2 else p for p in planes]
+        for a, b in zip(round_tail_words(*words, m=m, **kw), tail_words_plain(*words, m=m, age_saturated=False, **kw)):
+            err = max(err, max_err(a, b))
+    return dict(err=err, round=int(state.round) + 1, expired_slots=int(expired.sum()))
+
+
+def stream_rounds(dev, cfg, state, strm, rounds: int) -> dict:
+    """``rounds`` rounds from a copy of ``state`` under ``strm`` (None: the
+    unloaded run), the round and key mirrored on the host as the horizon
+    loops mirror them, launches counted from 0: the final state, stats,
+    ms a round by CUDA events and the device peak."""
+    from tpu_gossip_torch.core.state import clone_state
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim import engine
+    from tpu_gossip_torch.sim.stages import next_host_key
+
+    cursor = {"round": int(state.round), "key": state.rng.cpu() if strm is not None else None}
+
+    def step(s):
+        out = engine.gossip_round(s, cfg, None, stream=strm, host_round=cursor["round"], host_rng=cursor["key"])
+        cursor["round"] += 1
+        cursor["key"] = next_host_key(cursor["key"])
+        return out
+
+    native.reset_launches()
+    fin, stats, ms, peak, start = timed_rounds(dev, step, clone_state(state), rounds)
+    return dict(fin=fin, stats=stats, ms=ms, ms_per_round=sum(ms) / len(ms), peak=peak, start=start,
+                launches=dict(native.LAUNCHES), step=step)
+
+
+def run_stream_profile(root: Path, card: str) -> dict:
+    """``sim.profile --stream 4`` on 11c's configuration: the stream's stage
+    rows on a loaded state, the loaded and plain rounds, the traced round."""
+    proc = subprocess.run([sys.executable, "-m", "tpu_gossip_torch.sim.profile", "--peers", "1000000", "--graph",
+                           "device", "--stream", "4", "--warm", "40", "--rounds", "3", "--reps", "5"], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"sim.profile --stream exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    stages, trace = lines[0]["stage_ms"], lines[1]["trace"]
+    for key in ("stream_ageout", "stream_inject", "stream_poisson_host", "stream_draws", "stream_landing",
+                "stream_scatter", "slot_stats", "stream_round", "plain_round"):
+        if key not in stages:
+            raise AssertionError(f"sim.profile --stream printed no {key} row: {stages}")
+    print(f"[{card}] 11c sim.profile --stream 4 (device power-law graph n=1000000, 32 slots, fanout 2, TTL "
+          f"{lines[0]['slot_ttl']}, 40 warm rounds, {stages['stream_arrivals']} arrivals in the profiled round): "
+          f"stream_ageout {stages['stream_ageout']} ms, stream_inject {stages['stream_inject']} ms (Poisson count on "
+          f"the host {stages['stream_poisson_host']} ms wall, origin and slot draws {stages['stream_draws']}, "
+          f"landing {stages['stream_landing']}, scatter {stages['stream_scatter']}), slot_stats "
+          f"{stages['slot_stats']} ms, stream_round {stages['stream_round']} ms against plain_round "
+          f"{stages['plain_round']} ms; every stage {stages}; traced: {trace['wall_ms_per_round']} ms/round wall, "
+          f"{trace['device_ms_per_round']} ms device, busy {trace['device_busy_share']}, top kernels "
+          f"{trace['top_kernels_ms_per_round'][:8]}", flush=True)
+    return dict(stages=stages, trace={k: v for k, v in trace.items() if k != "top_kernels_ms_per_round"})
+
+
+def phase_stream(root: Path, dev, card: str) -> dict:
+    """Phase 11: the streaming plane on the card. First ``prng.poisson``
+    and ``lgamma32`` against the CPU's bits. 11a the JAX stream pins at
+    n <= 20000 through the CLI on every engine (matching and its packed
+    twin, Chung-Lu exactly-k with the degree law and two Bloom planes, PA
+    with the hotspot law, the Chung-Lu staircase with bursts, the bucketed
+    mesh with K6 and its packed twin, the staircase remat loop under churn,
+    flash-crowd-under-fire with growth), launches counted from 0 a run and
+    an age-out in each; 11b the 1M matching headline under a stream (rate
+    4, bursts every 6, TTL 24, 48 rounds) onto its JAX pin and its packed
+    twin digest-equal; 11c ``bench.py::bench_stream``'s configuration at
+    full width (the 1M device power-law graph, 32 slots, fanout 2,
+    exactly-k push_pull, TTL 25, a batch of 16) at rates 0.5, 1.5 and 4.0,
+    each 25 warm and 96 measured rounds beside the unloaded run on the same
+    state, K3 and K4 against their plain versions under a live age-out
+    mask, and ``sim.profile --stream 4``; 11d the n=20000 matching pin
+    killed after its round-24 checkpoint (leases live, expiries past) and
+    resumed on the other device, both ways."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.sim import metrics as SM
+    from tpu_gossip_torch.traffic import compile_stream, default_max_inject, min_feasible_ttl
+
+    refs = json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+    pins = [r for r in refs if stream_pin(r)]
+    out = {}
+
+    t0 = time.perf_counter()
+    out["11 prng"] = check_stream_prng(dev)
+    print(f"[{card}] 11 prng.poisson (both branches, 4096 keys at six rates) and lgamma32 (the integers 1..2^24, "
+          f"{out['11 prng']['lgamma_s']} s on the card) equal the CPU's bits", flush=True)
+
+    # 11a: the small pins, every engine
+    for ref in pins:
+        if ref["argv"][ref["argv"].index("--peers") + 1] == "1000000":
+            continue
+        argv = [a for a in ref["argv"] if a != "--quiet"]
+        r = cli_here(argv, dev)
+        what = f"11a run_sim {' '.join(a for a in argv if a != '--digest')}"
+        check_pin(r["summary"], ref, what)
+        check_stream_run(what, argv, r)
+        print(stream_line(card, what, r, "; equal to the JAX pin"), flush=True)
+        del r
+    out["11a"] = dict(seconds=time.perf_counter() - t0)
+
+    # 11b: the 1M matching headline under a stream, and its packed twin
+    t0 = time.perf_counter()
+    pin = {" ".join(p["argv"]): p for p in pins}[" ".join(STREAM_BIG)]
+    runs = {}
+    for what, argv in (("streamed", STREAM_BIG), ("streamed packed", STREAM_BIG + ["--packed"])):
+        r = runs[what] = cli_here(argv, dev, marks=True)
+        check_stream_run(f"11b {what}", argv, r)
+        if what == "streamed":
+            check_pin(r["summary"], pin, "11b")
+        else:
+            same_run(runs["streamed"], r, "11b packed twin")
+        print(stream_line(card, f"11b the 1M matching headline under a stream (rate 4, bursts x4 every 6 rounds, TTL "
+                                f"24, 48 rounds), {what}", r, "; digests equal the JAX pin" if what == "streamed"
+                          else ", digest-equal to the unpacked run"), flush=True)
+        out[f"11b {what}"] = dict(horizon=r["horizon"], launches=r["launches"],
+                                  ms_per_round=sum(r["round_ms"]) / len(r["round_ms"]))
+    del runs, r
+    out["11b"] = dict(seconds=time.perf_counter() - t0)
+
+    # 11c: bench_stream's configuration at full width: the saturation curve
+    t0 = time.perf_counter()
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+
+    b = BENCH_STREAM
+    dg = device_powerlaw_graph(b["n"], gamma=2.5, key=prng.key(0, dev), device=dev)
+    cfg = SwarmConfig(n_peers=dg.n_pad, msg_slots=b["msg_slots"], fanout=b["fanout"], mode="push_pull")
+    state = init_swarm(dg.as_padded_graph(), cfg, exists=dg.exists, key=prng.key(0, dev), device=dev)
+    ttl = int(1.5 * min_feasible_ttl(b["n"], b["fanout"]))
+    batch = default_max_inject(max(b["rates"]))
+    rows = np.flatnonzero(dg.exists.cpu().numpy())
+    horizon = ttl + b["measure"]
+    unloaded = stream_rounds(dev, cfg, state, None, horizon)
+    check_launches("11c unloaded", unloaded["launches"], XLA_PATH, horizon)
+    out["11c unloaded"] = dict(ms_per_round=unloaded["ms_per_round"], peak=unloaded["peak"])
+    print(f"[{card}] 11c bench_stream's configuration (device power-law graph n={b['n']}, {b['msg_slots']} slots, "
+          f"fanout {b['fanout']}, exactly-k push_pull, TTL {ttl}, batch {batch}, {ttl} warm + {b['measure']} measured "
+          f"rounds), unloaded: {unloaded['ms_per_round']} ms/round by CUDA events, peak {unloaded['peak']} B "
+          f"(from {unloaded['start']} B at the start); launches "
+          f"{({k: v for k, v in unloaded['launches'].items() if v})}", flush=True)
+    del unloaded
+    for rate in b["rates"]:
+        strm = compile_stream(rate=rate, msg_slots=b["msg_slots"], ttl=ttl, origin_rows=rows, max_inject=batch,
+                              device=dev)
+        r = stream_rounds(dev, cfg, state, strm, horizon)
+        check_launches(f"11c rate {rate}", r["launches"], XLA_PATH, horizon)
+        rep = SM.steady_state_report(r["stats"], target=0.99, round_seconds=cfg.round_seconds, warmup_rounds=ttl)
+        offered, injected = int(r["stats"].stream_offered.sum()), int(r["stats"].stream_injected.sum())
+        expired = int(r["stats"].stream_expired.sum())
+        if injected != offered or expired <= 0 or not 0 <= rep["delivery_ratio"] <= 1:
+            raise AssertionError(f"11c rate {rate}: offered {offered}, injected {injected} (k=1, every peer up: "
+                                 f"equal), {expired} leases aged out, delivery ratio {rep['delivery_ratio']}")
+        if abs(rep["offered_per_round"] - rate) > 5 * (rate / b["measure"]) ** 0.5:
+            raise AssertionError(f"11c rate {rate}: {rep['offered_per_round']} offered a round")
+        row = dict(rate=rate, ms_per_round=r["ms_per_round"], peak=r["peak"], k3_launches=r["launches"]["round_tail"],
+                   **{k: rep[k] for k in ("delivered_per_round", "delivered_msgs_per_sec", "offered_per_round",
+                                          "delivery_ratio", "conflation_rate", "episodes_completed")},
+                   p50=rep["rounds_to_coverage"]["p50"], p99=rep["rounds_to_coverage"]["p99"], expired=expired)
+        out[f"11c rate {rate}"] = row
+        print(f"[{card}] 11c rate {rate} msgs/round: {row['ms_per_round']} ms/round loaded against "
+              f"{out['11c unloaded']['ms_per_round']} unloaded (CUDA events, the host's Poisson count and the "
+              f"landing's launches included); delivered_per_round {row['delivered_per_round']}, delivered "
+              f"{row['delivered_msgs_per_sec']} msgs/s at 5 s rounds, offered_per_round {row['offered_per_round']}, "
+              f"delivery_ratio {row['delivery_ratio']}, conflation_rate {row['conflation_rate']}, rounds to 99% "
+              f"p50 {row['p50']} p99 {row['p99']}, episodes_completed {row['episodes_completed']}, {expired} leases "
+              f"aged out, max_memory_allocated {row['peak']} B, K3 launches {row['k3_launches']} ({horizon} rounds)",
+              flush=True)
+        if rate == max(b["rates"]):
+            tails = live_mask_tails(dev, cfg, r["fin"], strm, r["step"])
+            if tails["err"] != 0:
+                raise AssertionError(f"11c: K3/K4 under the live age-out mask differ from their plain versions: {tails}")
+            out["11c live mask"] = tails
+            print(f"[{card}] 11c K3 and K4 equal their plain versions under the live age-out mask of round "
+                  f"{tails['round']} ({tails['expired_slots']} slots recycled), forward-once and SIR on and off",
+                  flush=True)
+        del r
+    del state, dg
+    out["11c profile"] = run_stream_profile(root, card)
+    out["11c"] = dict(seconds=time.perf_counter() - t0)
+
+    # 11d: a mid-stream checkpoint killed and resumed on the other device
+    t0 = time.perf_counter()
+    from tpu_gossip_torch.ckpt import load_checkpoint
+
+    small = [p for p in pins if p["argv"][1] == "20000" and "matching" in p["argv"] and "--packed" not in p["argv"]][0]
+    leases = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
+        tmp = Path(tmp)
+        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = tmp / write_on
+            kill_at(root, small["argv"] + ["--checkpoint-every", "12", "--checkpoint-dir", str(d), "--device",
+                                           write_on], "checkpoint: wrote ckpt-00000024")
+            shutil.rmtree(d / "ckpt-00000036", ignore_errors=True)
+            mid = load_checkpoint(d / "ckpt-00000024", device="cpu")[0]
+            leases[write_on] = int((mid.slot_lease >= 0).sum())
+            if leases[write_on] == 0 or int(mid.slot_lease.min()) < -1:
+                raise AssertionError(f"11d: ckpt-00000024 holds no live lease ({mid.slot_lease.tolist()})")
+            summary, err = cli_run(root, ["resume", str(d), "--device", resume_on], f"11d {write_on} resume")
+            if "resume: ckpt-00000024 at round 24" not in err:
+                raise AssertionError(f"11d: the resume did not start from ckpt-00000024: {err[-2000:]}")
+            check_pin(summary, small, f"11d {write_on}->{resume_on}")
+    out["11d"] = dict(seconds=time.perf_counter() - t0, live_leases=leases)
+    print(f"[{card}] 11d the n=20000 matching stream pin ({' '.join(small['argv'])}) killed after ckpt-00000024 "
+          f"({leases} live leases, TTL 20, so leases have aged out before it) on the card and resumed on the CPU, "
+          f"and the reverse, both onto the JAX pin", flush=True)
+    return out
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -2503,7 +2813,13 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     t0 = time.perf_counter()
     growth = phase_growth(root, dev, card)
     print(f"[{card}] phase 10: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in growth.items() if 'seconds' in v} }; the script "
+          f"{ {k: round(v['seconds'], 2) for k, v in growth.items() if 'seconds' in v} }", flush=True)
+
+    # phase 11: streams (11a-11d)
+    t0 = time.perf_counter()
+    stream = phase_stream(root, dev, card)
+    print(f"[{card}] phase 11: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in stream.items() if 'seconds' in v} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

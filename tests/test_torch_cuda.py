@@ -834,3 +834,101 @@ def test_growth_digest_on_card_equals_cpu(dev, argv, path):
                                                                      "round_tail_words": r}}
     for key, n in paths[path](24, 0).items():
         assert launches[key] == n, (key, launches)
+
+
+def test_poisson_and_lgamma32_on_card_equal_cpu(dev):
+    """The stream's count on the card: ``prng.poisson`` over both branches
+    and ``lgamma32`` over the integers 1..2^24 give the CPU's bits."""
+    from tpu_gossip_torch.core import prng
+
+    x = torch.arange(1, (1 << 24) + 1, dtype=torch.float32)
+    for lo in range(0, x.numel(), 1 << 22):
+        chunk = x[lo:lo + (1 << 22)]
+        assert torch.equal(prng.lgamma32(chunk.to(dev)).cpu().view(torch.int32), prng.lgamma32(chunk).view(torch.int32))
+    keys = torch.from_numpy(np.random.default_rng(0).integers(0, 2 ** 32, size=(4096, 2), dtype=np.uint64)
+                            .astype(np.int64))
+    for rate in (0.5, 4.0, 9.999999, 10.0, 16.0, 400.0):
+        lam = torch.full((4096,), rate, dtype=torch.float32)
+        assert torch.equal(prng.poisson(keys.to(dev), lam.to(dev)).cpu(), prng.poisson(keys, lam))
+
+
+def _streamed(dev, rounds=30):
+    """A loaded state on the card (n=20000 exactly-k push_pull, rate 4,
+    TTL 20) one round before an age-out, and that round's expired mask."""
+    from tpu_gossip_torch.core import prng, topology
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.sim import engine
+    from tpu_gossip_torch.traffic import compile_stream, slot_expiry
+
+    n = 20000
+    g = topology.build_csr(n, topology.configuration_model(
+        topology.powerlaw_degree_sequence(n, 2.5, rng=np.random.default_rng(0)), rng=np.random.default_rng(1)))
+    cfg = SwarmConfig(n_peers=n, msg_slots=16, fanout=1, mode="push_pull")
+    st = init_swarm(g, cfg, key=prng.key(0, dev), origins=[0], device=dev)
+    strm = compile_stream(rate=4.0, msg_slots=16, ttl=20, origin_rows=np.arange(n), device=dev)
+    st, _ = engine.simulate(st, cfg, rounds, stream=strm)
+    for _ in range(20):
+        expired = slot_expiry(st.slot_lease, st.round + 1, strm.ttl)
+        if bool(expired.any()):
+            return cfg, st, expired
+        st, _ = engine.gossip_round(st, cfg, stream=strm)
+    raise AssertionError("no lease aged out in 20 rounds")
+
+
+@pytest.mark.parametrize("fo,sir", [(False, 0), (True, 4)])
+def test_tail_kernels_with_a_live_age_out_mask_equal_plain(dev, fo, sir):
+    """K3 and K4 with the expired mask a stream's age-out produces, on the
+    loaded state it produced it for: the recycled columns come out clear."""
+    from tpu_gossip_torch.core.packed import pack_bits
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words, tail_fused, tail_words_plain
+    from tpu_gossip_torch.sim import engine
+
+    cfg, st, expired = _streamed(dev)
+    _, transmitter, receptive = engine.compute_roles(st)
+    transmit = engine.transmit_bitmap(st, cfg, transmitter)
+    planes = (st.seen, st.forwarded, st.infected_round, st.recovered, st.seen, receptive, transmit, None,
+              st.round + 1)
+    kw = dict(forward_once=fo, sir_recover_rounds=sir, expired=expired)
+    before = LAUNCHES["round_tail"], LAUNCHES["round_tail_words"]
+    got = round_tail(*planes, impl="fused", **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, tail_fused(*planes, **kw)))
+    words = [pack_bits(p) if p is not None and p.dtype == torch.bool and p.dim() == 2 else p for p in planes]
+    got_w = round_tail_words(*words, m=16, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got_w, tail_words_plain(*words, m=16, age_saturated=False, **kw)))
+    assert (LAUNCHES["round_tail"], LAUNCHES["round_tail_words"]) == (before[0] + 1, before[1] + 1)
+    assert not bool(got[0][:, expired].any()) and bool((got[2][:, expired] == -1).all())
+
+
+@pytest.mark.parametrize("argv,path", [
+    (["--graph", "matching"], "matching"),
+    (["--graph", "matching", "--packed", "--stream-origins", "hotspot"], "packed matching"),
+    (["--graph", "chung-lu", "--staircase", "--stream-burst-every", "3"], "staircase"),
+    (["--graph", "chung-lu", "--stream-origins", "degree", "--stream-hashes", "2"], "exactly-k"),
+    (["--graph", "chung-lu", "--shard", "--staircase"], "sharded staircase"),
+    (["--graph", "chung-lu", "--staircase", "--remat-every", "8", "--churn-leave", "0.002", "--churn-join", "0.02",
+      "--rewire-slots", "2"], "staircase"),
+])
+def test_stream_digest_on_card_equals_cpu(dev, argv, path):
+    """A loaded run (n=20000, rate 4, TTL 20, 32 rounds) on each engine:
+    the card equals the CPU (summary, the stream block, digests), the card
+    run launching its path's kernels and K3 or K4 once a round."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    argv = ["--peers", "20000", "--stream", "4", "--slot-ttl", "20", "--rounds", "32", "--digest", "--quiet",
+            "--mode", "push_pull", "--fanout", "1", *argv]
+    parser = run_sim.build_parser()
+
+    def run(device):
+        args = parser.parse_args(argv + ["--device", device])
+        assert run_sim.validate(args) is None
+        return run_sim.run(args)
+
+    reset_launches()
+    card = run("cuda")
+    launches = dict(LAUNCHES)
+    assert card == run("cpu")
+    assert card["stream"]["msgs_expired"] > 0
+    for key, n in FAULT_PATHS[path](32, 0).items():
+        assert launches[key] == n, (key, launches)

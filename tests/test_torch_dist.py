@@ -179,15 +179,21 @@ def test_refused_arguments_raise_not_ported(graph, what):
         from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
 
         _, sg = matching_powerlaw_graph(200, fanout=1, key=prng.key(0, "cpu"), device="cpu")
-    elif what == "packed_stream":
-        # the packed round refuses the streams of a later slice too
+    elif what in ("packed_stream", "stream"):
+        # streams run on this engine, packed or not; composed with a later
+        # slice's argument (pipelining, control) they are refused
         from tpu_gossip_torch.core.packed import pack_state
+        from tpu_gossip_torch.traffic import compile_stream
 
-        ts, kw["stream"] = pack_state(ts), object()
+        kw["stream"] = compile_stream(rate=2.0, msg_slots=16, ttl=20, origin_rows=np.arange(N), device="cpu")
+        if what == "packed_stream":
+            ts, kw["pipeline"] = pack_state(ts), object()
+        else:
+            kw["control"] = object()
     elif what in ("rewire_slots", "scenario", "liveness"):
         # re-wiring, scenarios (admission waves included), the quorum
         # detector and growth run on this engine, churn bursts included;
-        # each case adds a stream, the traffic slice's
+        # each case adds a live-ingestion batch, the serving slice's
         from tpu_gossip_torch.faults import compile_scenario, scenario_from_dict
         from tpu_gossip_torch.kernels.liveness import compile_quorum
 
@@ -198,7 +204,7 @@ def test_refused_arguments_raise_not_ported(graph, what):
             n_peers=N, n_slots=tsg.n_pad, total_rounds=8, device="cpu")
         if what == "liveness":
             kw["liveness"] = compile_quorum(3)
-        kw["stream"] = object()
+        kw["inject"] = object()
     else:
         kw[what] = True if what == "collect_ici" else object()
     with pytest.raises(NotImplementedError, match="not ported"):

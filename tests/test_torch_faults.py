@@ -469,12 +469,12 @@ def test_scenario_on_another_device_is_refused(graph):
 def test_later_phase_classes_are_refused(graph):
     """Adversary phases without the quorum detector are refused with the
     JAX round's words; a scenario (admission waves included) under a
-    stream, the traffic slice's, as not ported."""
+    live-ingestion batch, the serving slice's, as not ported."""
     (_, _), (tc, ts) = _swarms(graph)
     for d, kw, err, says in (
             ({"phases": [{"start": 0, "end": 4, "floods": {"ids": [1]}}]}, {}, ValueError, "QuorumSpec"),
-            ({"phases": [{"start": 0, "end": 4, "join_burst": 3}]}, {"stream": object()}, NotImplementedError,
-             "traffic")):
+            ({"phases": [{"start": 0, "end": 4, "join_burst": 3}]}, {"inject": object()}, NotImplementedError,
+             "serving")):
         _, tsc = _compile(d)
         with pytest.raises(err, match=says):
             t_sim(ts, tc, 2, scenario=tsc, **kw)

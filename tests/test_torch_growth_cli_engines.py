@@ -4,9 +4,17 @@ packed twin, preferential attachment under churn, the staircase remat
 loop with spare capacity, the one-process bucketed mesh (K6 receive, and
 packed with the scatter receive), silent peers on exactly-k, and the
 flash-crowd scenario's join_burst waves; the summary and every per-round
-row equal (``degree_gamma`` within 1e-5), and the run to coverage."""
+row equal (``degree_gamma`` within 1e-5), and the run to coverage. The JAX
+CLI's half of a run that compiles a composed scenario runs in a child
+process (:func:`jax_cli_child`), retried once if XLA's CPU compiler kills
+it with a signal; the port's half runs in this process."""
 
 import json
+import os
+import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,10 +44,49 @@ TIMING = ("wall_seconds", "peers_rounds_per_sec", "ms_per_round", "ms_per_round_
           "epoch_rebuild_seconds_total", "packed")
 
 
+ROOT = Path(__file__).resolve().parent.parent
+# a child the reference compiler took down: it is run once more
+COMPILER_SIGNALS = (signal.SIGSEGV, signal.SIGABRT)
+_CHILD = """import sys
+from tpu_gossip import dist
+make_mesh = dist.make_mesh
+if sys.argv[1] == "one_shard":
+    dist.make_mesh = lambda *a, **k: make_mesh(1)
+from tpu_gossip.cli import run_sim
+sys.exit(run_sim.main(sys.argv[2:]))
+"""
+
+
+def jax_cli_child(argv, one_shard: bool = False):
+    """The JAX CLI on ``argv`` in a child process (on a one-device mesh with
+    ``one_shard``), as :func:`tests.test_torch_cli._summary` returns it:
+    ``(summary, per-round lines)``. A child killed by a signal of the
+    reference compiler (SIGSEGV, SIGABRT) is run exactly once more; any
+    other failure fails."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    cmd = [sys.executable, "-c", _CHILD, "one_shard" if one_shard else "-", *argv]
+    for attempt in range(2):
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if attempt == 0 and proc.returncode in tuple(-s for s in COMPILER_SIGNALS):
+            continue
+        break
+    assert proc.returncode == 0, f"JAX CLI exited {proc.returncode}: {proc.stderr[-3000:]}"
+    lines = proc.stdout.strip().splitlines()
+    return json.loads(lines[-1]), lines[:-1]
+
+
+def jax_cli(capsys, argv, one_shard: bool = False):
+    """The JAX CLI's half of a comparison: in a child process when the run
+    compiles a composed scenario, in this process otherwise."""
+    if "--scenario" in argv:
+        return jax_cli_child(argv, one_shard)
+    return _summary(capsys, jcli.main, argv)
+
+
 @pytest.mark.parametrize("name", list(ENGINES))
 def test_growing_run_equals_jax_cli(capsys, one_shard, name):
     argv = ENGINES[name] + ["--rounds", "16", "--digest"]
-    want, want_rows = _summary(capsys, jcli.main, argv)
+    want, want_rows = jax_cli(capsys, argv, one_shard=True)
     got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
     assert {k: v for k, v in got.items() if k not in TIMING} == {k: v for k, v in want.items() if k not in TIMING}
     got_rows, want_rows = [json.loads(r) for r in got_rows], [json.loads(r) for r in want_rows]

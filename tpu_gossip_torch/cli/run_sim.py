@@ -28,6 +28,9 @@
     python -m tpu_gossip_torch.cli.run_sim --peers 950000 --grow 1000000 \\
         --grow-rate 256 --mode push_pull --fanout 1 --graph matching \\
         --rounds 32 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph matching --stream 4 --stream-burst-every 6 \\
+        --slot-ttl 24 --rounds 48 --digest
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -50,7 +53,12 @@ and ``--grow-capacity``) grows the swarm to TARGET peers while it gossips
 ``join_burst`` scenario phases adding waves) on every engine; the matching
 graph is then built in the sharded layout at one shard with the capacity
 as reserved rows, a CSR graph padded to the capacity, and the summary
-adds the final membership and the degree tail's gamma. Then either run a fixed ``--rounds`` horizon (one
+adds the final membership and the degree tail's gamma. ``--stream RATE``
+(with ``--stream-origins``, ``--slot-ttl``, ``--stream-hashes``, the burst
+and hotspot knobs) injects a sustained Poisson message stream on every
+engine (``traffic/``), its leases aging out through the round tail, and
+adds the ``stream`` block (the steady-state serving report) to the summary
+of the fixed horizon it needs. Then either run a fixed ``--rounds`` horizon (one
 JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
 print the benchmark summary. With ``--packed`` the seeded state is packed
@@ -95,19 +103,17 @@ _LATER = (
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
     "included, with checkpoints and resume, silent peers, fault scenarios, the quorum detector with "
-    "its adversaries and growth (later slices add streams, control, fleets, the sharded matching engine "
-    "and the multi-card exchange)"
+    "its adversaries, growth and streams (later slices add control (ROADMAP item 9e), pipelined rounds "
+    "(9f), fleets (10), the sharded matching engine (11b), the multi-card exchange (11c) and serving (12))"
 )
-_ITEM9, _ITEM11B, _ITEM11C = ("composed planes (ROADMAP item 9)", "sharded matching engine (ROADMAP item 11b)",
-                              "multi-process (ROADMAP item 11c)")
+_ITEM9E, _ITEM11B, _ITEM11C = ("adaptive control (ROADMAP item 9e)", "sharded matching engine (ROADMAP item 11b)",
+                               "multi-process (ROADMAP item 11c)")
+_ITEM9F = "pipelined rounds and composed profile rows (ROADMAP item 9f)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
 JAX_FLAG_DEFAULTS = {
-    "stream": (0.0, _ITEM9), "stream_origins": ("uniform", _ITEM9), "slot_ttl": (0, _ITEM9),
-    "stream_hashes": (1, _ITEM9), "stream_burst_every": (0, _ITEM9), "stream_burst_mult": (4.0, _ITEM9),
-    "stream_hot_frac": (0.01, _ITEM9), "stream_hot_weight": (0.9, _ITEM9),
-    "control": (0.0, _ITEM9), "control_bounds": ("", _ITEM9), "refresh_every": (0, _ITEM9),
+    "control": (0.0, _ITEM9E), "control_bounds": ("", _ITEM9E), "refresh_every": (0, _ITEM9E),
     "transport": ("dense", _ITEM11B), "builder": ("local", _ITEM11B),
     "pipeline": (None, _ITEM11C), "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
     "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
@@ -240,6 +246,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="state capacity in peer slots (>= TARGET_N; default TARGET_N). Slots beyond the target "
                    "stay reserved: headroom for resuming the checkpoint into a later, larger growth schedule "
                    "without a state rebuild")
+    p.add_argument("--stream", type=float, default=0.0, metavar="RATE",
+                   help="streaming serving plane (traffic/): inject a sustained message stream at RATE Poisson "
+                   "arrivals per round, each message leasing dedup slot(s) that age out after --slot-ttl rounds, "
+                   "so the (N, M) bitmap becomes a sliding window over live messages. Draws come from a dedicated "
+                   "PRNG stream on every engine (local and sharded loaded runs stay bit-identical; rate 0 = off). "
+                   "Needs a fixed --rounds horizon; the summary gains the steady-state serving block")
+    p.add_argument("--stream-origins", choices=["uniform", "degree", "hotspot"], default="uniform", metavar="DIST",
+                   help="origin law for injected messages: uniform over the initial membership, degree "
+                   "(degree-proportional), or hotspot (--stream-hot-frac of the lowest peer ids originate "
+                   "--stream-hot-weight of the traffic)")
+    p.add_argument("--slot-ttl", type=int, default=0, metavar="R",
+                   help="rounds a message holds its dedup slot(s) before the age-out recycles them (default: 3x "
+                   "the feasible coverage horizon); a TTL below the feasible horizon is rejected")
+    p.add_argument("--stream-hashes", type=int, default=1, metavar="K",
+                   help="Bloom planes per message: 1 = slot conflation, >=2 = k-hash Bloom dedup (arrivals whose "
+                   "planes are all leased are suppressed at ingestion)")
+    p.add_argument("--stream-burst-every", type=int, default=0, metavar="B",
+                   help="bursty arrivals: every B-th round draws at RATE * --stream-burst-mult (0 = pure Poisson)")
+    p.add_argument("--stream-burst-mult", type=float, default=4.0, metavar="X")
+    p.add_argument("--stream-hot-frac", type=float, default=0.01, metavar="F")
+    p.add_argument("--stream-hot-weight", type=float, default=0.9, metavar="W")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -265,7 +292,8 @@ def validate(args: argparse.Namespace) -> str | None:
     err = _scenario_refusal(args)
     if err is None and args.scenario:
         spec = _scenario_spec(args)
-    return err or _validate_grow(args, spec) or _validate_liveness(args, spec) or _refusal(args)
+    return (err or _validate_grow(args, spec) or _validate_stream(args) or _validate_liveness(args, spec)
+            or _refusal(args))
 
 
 def _refusal(args: argparse.Namespace) -> str | None:
@@ -289,12 +317,84 @@ def _refusal(args: argparse.Namespace) -> str | None:
     if args.profile_round > 0 and args.packed:
         return ("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
                 "boundary codec: drop --packed for the decomposition")
-    if args.profile_round > 0 and args.grow:
+    if args.profile_round > 0 and (args.grow or args.stream > 0):
         from tpu_gossip_torch.sim.stages import not_ported
 
-        return str(not_ported("--profile-round with --grow (the growth row of the stage table)",
-                              "pipelined rounds and composed profile rows (ROADMAP item 9f)"))
+        what = "--grow (the growth row" if args.grow else "--stream (the stream rows"
+        return str(not_ported(f"--profile-round with {what} of the stage table)", _ITEM9F))
     return None
+
+
+def _validate_stream(args: argparse.Namespace) -> str | None:
+    """The reason a --stream config cannot run (exit 2, the JAX CLI's
+    words), or None. Settles the TTL default (three times the feasible
+    coverage horizon) into ``args``, so every engine path and the
+    checkpoint manifest read one config."""
+    if args.stream == 0:
+        set_flags = [name for name, dflt in (("--slot-ttl", args.slot_ttl == 0),
+                                             ("--stream-origins", args.stream_origins == "uniform"),
+                                             ("--stream-hashes", args.stream_hashes == 1),
+                                             ("--stream-burst-every", args.stream_burst_every == 0)) if not dflt]
+        if set_flags:
+            return f"{set_flags[0]} shapes the streaming workload; add --stream RATE"
+        return None
+    from tpu_gossip_torch.traffic import min_feasible_ttl
+
+    if args.stream < 0:
+        return f"--stream {args.stream} must be a non-negative arrival rate"
+    if args.rounds <= 0 and args.profile_round == 0:
+        return ("--stream measures a steady state over a fixed horizon — run-to-coverage stops on slot 0, which "
+                "the age-out recycles; pass --rounds R (R >> --slot-ttl)")
+    if args.shard and args.remat_every > 0:
+        return ("--stream cannot compose with --shard --remat-every: the epoch re-partition permutes peers, so the "
+                "compiled origin tables would inject at the wrong rows after the first rebuild (local "
+                "--remat-every composes fine)")
+    if not (1 <= args.stream_hashes <= args.slots):
+        return (f"--stream-hashes {args.stream_hashes} outside [1, --slots {args.slots}] — the Bloom planes live "
+                "in the slot dimension")
+    if args.stream_burst_every < 0 or args.stream_burst_mult <= 0:
+        return "--stream-burst-every must be >= 0 and --stream-burst-mult > 0"
+    if not (0 < args.stream_hot_frac <= 1) or not (0 <= args.stream_hot_weight <= 1):
+        return "--stream-hot-frac must lie in (0, 1] and --stream-hot-weight in [0, 1]"
+    feasible = min_feasible_ttl(args.peers, args.fanout, args.mode)
+    if args.slot_ttl == 0:
+        args.slot_ttl = 3 * feasible
+    if args.slot_ttl < feasible:
+        return (f"--slot-ttl {args.slot_ttl} is below the feasible coverage horizon (~{feasible} rounds for "
+                f"{args.peers} peers at fanout {args.fanout}): every message would be recycled before it could "
+                "possibly cover — raise the TTL or the fanout")
+    return None
+
+
+def _compile_cli_stream(args: argparse.Namespace, origin_rows, dev):
+    """The --stream workload for one engine's row layout on ``dev`` (None
+    without --stream); ``origin_rows`` is the id-ordered table of the
+    initial members' state rows."""
+    if args.stream <= 0:
+        return None
+    from tpu_gossip_torch.traffic import compile_stream
+
+    return compile_stream(rate=args.stream, msg_slots=args.slots, ttl=args.slot_ttl,
+                          origin_rows=np.asarray(origin_rows), origins=args.stream_origins,
+                          k_hashes=args.stream_hashes, hot_frac=args.stream_hot_frac,
+                          hot_weight=args.stream_hot_weight, burst_every=args.stream_burst_every,
+                          burst_mult=args.stream_burst_mult, device=dev)
+
+
+def _stream_summary(args: argparse.Namespace, cfg, stats=None) -> dict:
+    """The summary's ``stream`` block: the workload's config and, when
+    per-round stats exist, ``sim.metrics.steady_state_report`` past one TTL
+    of warmup (at most half the horizon)."""
+    if args.stream <= 0:
+        return {}
+    out = {"stream": {"rate": args.stream, "origins": args.stream_origins, "slot_ttl": args.slot_ttl,
+                      "k_hashes": args.stream_hashes}}
+    if stats is not None:
+        from tpu_gossip_torch.sim import metrics as M
+
+        out["stream"].update(M.steady_state_report(stats, target=args.target, round_seconds=cfg.round_seconds,
+                                                   warmup_rounds=min(args.slot_ttl, args.rounds // 2)))
+    return out
 
 
 def _scenario_refusal(args: argparse.Namespace) -> str | None:
@@ -795,6 +895,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     if args.shard:
         cfg, state, segment, to_target, extra, epoch, grow = _shard_runners(args, graph, origins, silent_ids, cfg_kw,
                                                                             dev, spec, lqs)
+        strm = None  # (the bucketed runners carry their own, in the mesh's rows)
         policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
         _check_resume_devices(resume, epoch[0].size)
     else:
@@ -804,10 +905,13 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         state.silent = _set_rows(state.silent, silent_ids)
         scen = _compile_cli_scenario(spec, args, graph.n, dev)
         grow = _compile_cli_growth(args, spec, graph.n, dev, plan=plan if args.graph == "matching" else None)
+        strm = _compile_cli_stream(args, np.arange(graph.n) if exists is None else
+                                   np.flatnonzero(_host_mask(exists)), dev)
         extra = {}
 
         def segment(st, rounds):
-            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen, liveness=lqs, growth=grow)
+            return simulate(st, cfg, rounds, plan, args.tail, scenario=scen, liveness=lqs, growth=grow,
+                            stream=strm)
 
         def to_target(st):
             return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail,
@@ -832,13 +936,13 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                                                  durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.remat_every > 0:
-            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, grow, policy=policy,
+            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, grow, strm, policy=policy,
                                            prefix=prefix, durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.rounds > 0:
             fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
             summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats),
-                                          **_liveness_summary(args, stats)),
+                                          **_stream_summary(args, cfg, stats), **_liveness_summary(args, stats)),
                        **_digest_summary(args, fin, stats, durable)}
         else:
             summary, fin = _run_to_target(args, cfg, state, to_target,
@@ -853,6 +957,11 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     summary.update(_growth_summary(args, fin))
     summary["packed"] = args.packed
     return summary, fin
+
+
+def _host_mask(mask) -> np.ndarray:
+    """A bool row mask (numpy, or a tensor on any device) as numpy."""
+    return mask.detach().cpu().numpy() if hasattr(mask, "detach") else np.asarray(mask)
 
 
 def _scenario_spec(args: argparse.Namespace):
@@ -968,7 +1077,7 @@ def _remat_loop(args: argparse.Namespace, state, run_segment, fold):
 
 
 def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: dict, sim_wall: float,
-                   target_liveness: bool = True) -> dict:
+                   target_liveness: bool = True, cfg=None) -> dict:
     """The summary of a remat run: the horizon row with the digests, or
     the run-to-target row (with the ``liveness`` block's config when
     ``target_liveness``: the JAX CLI's sharded remat row has none)."""
@@ -980,7 +1089,8 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
             from tpu_gossip_torch.sim import metrics as M
 
             M.write_jsonl(stats, sys.stdout)
-        summary = _horizon_summary(args, stats, **extra, **_liveness_summary(args, stats))
+        summary = _horizon_summary(args, stats, **extra, **_stream_summary(args, cfg, stats),
+                                   **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, state, stats))
         return summary
     rounds = int(state.round)
@@ -1020,8 +1130,8 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
     return (unpack_state(fin) if pack else fin), stats, wall
 
 
-def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, grow=None, *,
-                    policy=None, prefix=None, durable: bool = False):
+def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, grow=None, strm=None,
+                    *, policy=None, prefix=None, durable: bool = False):
     """--remat-every R on the local engine: R rounds, then fold the fresh
     edges into the CSR at the capacity ``cap`` taken once from the fresh
     initial state; with --staircase the plan is rebuilt from each
@@ -1042,14 +1152,14 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
 
     def horizon_segment(st, seg):
         return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail,
-                        scenario=scen, liveness=lqs, growth=grow)
+                        scenario=scen, liveness=lqs, growth=grow, stream=strm)
 
     r = args.remat_every
     if durable:
         fin, stats, wall = _run_checkpointed_horizon(args, state, horizon_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, remat_every=r, remats=(args.rounds - 1) // r,
                                    remat_overflow_edges=sum(int(o) for o in overflow), wall_seconds=wall,
-                                   **_liveness_summary(args, stats))
+                                   **_stream_summary(args, cfg, stats), **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, fin, stats, durable=True))
         return summary, fin
 
@@ -1058,11 +1168,11 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
             return horizon_segment(st, seg)
         plan = _staircase_plan(args, st, dev) if args.staircase else None
         return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail, scenario=scen,
-                                  liveness=lqs, growth=grow), None
+                                  liveness=lqs, growth=grow, stream=strm), None
 
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     extra = {"remat_every": r, "remats": remats, "remat_overflow_edges": sum(int(o) for o in overflow)}
-    return _remat_summary(args, state, parts, wall, extra, wall), state
+    return _remat_summary(args, state, parts, wall, extra, wall, cfg=cfg), state
 
 
 def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, scen=None, lqs=None, *,
@@ -1195,9 +1305,11 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
                                  shard_ranges=dist.shard_ranges(mesh.size, sg.per_shard, mesh=mesh),
                                  n_shards=mesh.size)
     grow = _compile_cli_growth(args, spec, sg.n_pad, dev, node_map=lambda ids: position[np.asarray(ids)])
+    strm = _compile_cli_stream(args, position[np.arange(args.peers)], dev)
 
     def segment(st, rounds):
-        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow)
+        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow,
+                                  stream=strm)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,

@@ -22,6 +22,11 @@ equals the JAX package's draw bit for bit:
 - ``bits``, ``uniform`` and ``gumbel`` take a counter ``offset``: element
   ``i`` of the draw uses counter ``offset + i``, so a draw cut into row
   chunks equals the whole draw chunk by chunk;
+- ``poisson(k, lam)``: ``jax.random.poisson``'s two branches, Knuth's
+  product of uniforms below 10 and Hormann's transformed rejection at 10
+  and above, with the float32 ``log``, ``log1p`` and ``lgamma``
+  (:func:`lgamma32`, the Lanczos decomposition XLA compiles) and every
+  multiply-add the compiled rejection body fuses;
 - ``randint(k, shape, lo, hi)``: ``hi, lo = bits`` of ``split(k)``'s two
   children, ``span = uint32(hi - lo)`` (1 where ``hi <= lo``),
   ``mult = (2^16 % span)^2 % span`` and ``off = ((hi_bits % span) * mult +
@@ -41,7 +46,7 @@ import torch
 from tpu_gossip_torch.device import resolve_device
 
 __all__ = ["key", "split", "fold_in", "bits", "uniform", "gumbel", "gumbel_table", "randint", "key_data",
-           "threefry2x32", "xla_log"]
+           "threefry2x32", "xla_log", "xla_log1p", "lgamma32", "poisson"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -217,3 +222,167 @@ def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval) -> torch.Te
     off = ((hi_bits % span) * mult & _M32) + lo_bits % span
     off = (off & _M32) % span
     return (lo + off).to(torch.int32)
+
+
+# XLA's CPU log1p (its elemental emitter): log(1 + x) past sqrt(2) - 1,
+# else the Cephes rational x - x^2/2 + x^3 P(x)/Q(x), highest power first
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+            2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+            3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` of a float32 tensor as XLA's CPU backend computes it:
+    :func:`xla_log` of ``1 + x`` where ``|x| >= sqrt(2) - 1``, else
+    ``x + fma(x^2, -0.5, x^3 * P(x) / Q(x))`` with both polynomials in
+    Horner form, each step after the first a fused multiply-add (the first
+    is ``x * 0 + c``, two roundings, as the compiled code keeps it)."""
+    x = x.to(torch.float32)
+    big = xla_log(x + 1.0)
+    zero = x * 0.0
+
+    def horner(coeffs):
+        r = zero + _f32(coeffs[0], x)
+        for c in coeffs[1:]:
+            r = _fma32(r, x, _f32(c, x))
+        return r
+
+    x2 = x * x
+    small = x + _fma32(x2, _f32(-0.5, x), (x * x2) * (horner(_LOG1P_P) / horner(_LOG1P_Q)))
+    return torch.where(x.abs() < _f32(0.41421356237309504880, x), small, big)
+
+
+# the Lanczos approximation XLA decomposes lgamma into (g = 7): the base
+# coefficient rounds to 1.0 in float32
+_LANCZOS = (676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+            771.3234287776530788486528258894, -176.61502916214059906584551354,
+            12.507343278686904814458936853, -0.13857109526572011689554707,
+            9.984369578019570859563e-6, 1.50563273514931155834e-7)
+_LOG_PI, _LOG_SQRT_2PI, _LOG_LANCZOS_HALF = 1.1447298858494002, 0.91893853320467274178, 2.0149030205422647
+
+
+def _lgamma_z(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``lgamma(x)`` given ``z``, the Lanczos argument
+    ``x - 1`` (the caller's: inside ``jax.random.poisson`` the compiled
+    program folds ``(k + 1) - 1`` to ``k``). For ``x >= 0.5``:
+    ``a = 1 + sum(c_i / (z + i))`` left to right, ``log t = log1p(z *
+    float32(1/7.5)) + log(7.5)`` and ``fma((z + 0.5) - (z + 7.5) / log t,
+    log t, log(sqrt(2 pi))) + log(a)``, exactly as compiled. Below 0.5
+    the reflection ``log(pi) - log|sin(pi frac|x|)| - lgamma(1 - x)``,
+    whose ``sin`` is torch's, not XLA's: exact wherever ``x >= 0.5``."""
+    reflect = x < 0.5
+    zz = torch.where(reflect, -x, z)
+    acc = None
+    for i, c in enumerate(_LANCZOS, start=1):
+        q = _f32(c, x) / (zz + float(i))
+        acc = q + 1.0 if acc is None else acc + q
+    log_t = xla_log1p(zz * _f32(1.0 / 7.5, x)) + _f32(_LOG_LANCZOS_HALF, x)
+    main = _fma32((zz + 0.5) - (zz + 7.5) / log_t, log_t, _f32(_LOG_SQRT_2PI, x)) + xla_log(acc)
+    ax = x.abs()
+    frac = ax - torch.floor(ax)
+    frac = torch.where(frac > 0.5, 1.0 - frac, frac)
+    denom = xla_log(torch.sin(_f32(3.141592653589793, x) * frac))
+    refl = torch.where(torch.isfinite(denom), (_f32(_LOG_PI, x) - denom) - main, -denom)
+    out = torch.where(reflect, refl, main)
+    return torch.where(torch.isinf(x), torch.full_like(out, float("inf")), out)
+
+
+def lgamma32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.lgamma`` of a float32 tensor bit for bit as XLA's CPU
+    backend computes it for ``x >= 0.5`` (:func:`_lgamma_z` with ``z = x -
+    1``); not ``torch.lgamma``, which differs on about half of the integers
+    below 2^24, nor the correctly rounded value."""
+    x = x.to(torch.float32)
+    return _lgamma_z(x, x - 1.0)
+
+
+def _key_rows(keys: torch.Tensor, num: int) -> torch.Tensor:
+    """``split`` of each of the (B, 2) ``keys``: (B, num, 2)."""
+    kk = keys.T[:, :, None]
+    y0, y1 = threefry2x32(kk, *_counters(keys, num))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def _uniform_rows(keys: torch.Tensor) -> torch.Tensor:
+    """One float32 ``uniform`` on [0, 1) per (B, 2) key (counter 0)."""
+    z = torch.zeros((1,), dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys.T[:, :, None], z, z)
+    b = ((y0 ^ y1)[:, 0] >> 9) | 0x3F800000
+    return b.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _poisson_knuth(keys: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Knuth's loop a lane: split, count, add the log of a uniform, while
+    the float32 log product stays above ``-lam``; the count less one."""
+    k = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
+    log_prod = torch.zeros_like(lam)
+    going = log_prod > -lam
+    while bool(going.any()):
+        rows = _key_rows(keys, 2)
+        keys, sub = rows[:, 0], rows[:, 1]
+        k = torch.where(going, k + 1, k)
+        log_prod = log_prod + xla_log(_uniform_rows(sub))
+        going = log_prod > -lam
+    return k - 1
+
+
+def _poisson_rejection(keys: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Hormann's transformed rejection a lane, as compiled: ``b =
+    fma(sqrt(lam), 2.53, 0.931)``, ``a = fma(b, 0.02483, -0.059)``, then a
+    three-way split an iteration, ``k = floor(fma(2a / us + b, u, lam) +
+    0.43)``, ``s = log(v inv_alpha / (a / us^2 + b))`` and ``t = fma(k,
+    log lam, -lam) - lgamma(k + 1)``; each lane keeps its first accepted
+    ``k``."""
+    f = lambda v: _f32(v, lam)  # noqa: E731
+    log_lam = xla_log(lam)
+    b = _fma32(torch.sqrt(lam), f(2.53), f(0.931))
+    a = _fma32(b, f(0.02483), f(-0.059))
+    inv_alpha = f(1.1239) + f(1.1328) / (b - f(3.4))
+    v_r = f(0.9277) - f(3.6224) / (b - 2.0)
+    two_a = a * 2.0
+    k_out = torch.full_like(lam, -1.0)
+    done = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    while not bool(done.all()):
+        rows = _key_rows(keys, 3)
+        keys = rows[:, 0]
+        u = _uniform_rows(rows[:, 1]) - 0.5
+        v = _uniform_rows(rows[:, 2])
+        us = 0.5 - u.abs()
+        k = torch.floor(_fma32(two_a / us + b, u, lam) + f(0.43))
+        s = xla_log(v * inv_alpha / (a / (us * us) + b))
+        t = _fma32(k, log_lam, -lam) - _lgamma_z(k + 1.0, k)
+        accept1 = (us >= f(0.07)) & (v <= v_r)
+        reject = (k < 0) | ((us < f(0.013)) & (v > us))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept & ~done, k, k_out)
+        done = done | accept
+    return k_out
+
+
+def poisson(k: torch.Tensor, lam, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``jax.random.poisson(k, lam, dtype=int32)`` with a scalar shape: one
+    draw a key, ``k`` a key (2,) or a batch of keys (B, 2) beside ``lam``
+    (B,) float32 rates (a Python float is rounded to float32). Knuth's
+    branch where ``lam < 10``, the rejection branch elsewhere, 0 where
+    ``lam == 0``; each lane's loop runs until it ends, as the scalar
+    ``while_loop`` does (on a CUDA key the loop condition is read on the
+    host an iteration)."""
+    single = k.dim() == 1
+    keys = k.reshape(-1, 2)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=keys.device).reshape(-1).expand(keys.shape[0])
+    knuth = torch.isnan(lam) | (lam < 10)
+    out = torch.zeros(lam.shape, dtype=torch.int64, device=keys.device)
+    if bool(knuth.any()):
+        idx = torch.nonzero(knuth).reshape(-1)
+        out[idx] = _poisson_knuth(keys[idx], lam[idx]).to(torch.int64)
+    if not bool(knuth.all()):
+        idx = torch.nonzero(~knuth).reshape(-1)
+        out[idx] = _poisson_rejection(keys[idx], lam[idx]).to(torch.int64)
+    out = torch.where(lam == 0, torch.zeros_like(out), out).to(dtype)
+    return out[0] if single else out

@@ -3,7 +3,8 @@
 Ports ``ROUND_CAP``, ``saturate_round``, ``SwarmConfig``, ``SwarmState``
 (every one of its 25 planes, in the JAX field order, which is the
 ``state_digest`` leaf order), ``coverage``, ``init_swarm`` (:783) and
-``clone_state`` of ``tpu_gossip/core/state.py``; the plane registry
+``clone_state`` of ``tpu_gossip/core/state.py``; the message hashes
+``message_slot`` and ``message_slots`` (:728, :747, host FNV-1a); the plane registry
 (``PlaneSpec``, ``PLANES``, ``plane_registry``, :110-198) and the helpers
 the checkpoint store stands on (``cast_to_declared``,
 ``validate_state_planes``, ``zero_suspicion``, ``stack_states``,
@@ -35,6 +36,8 @@ __all__ = [
     "SwarmState",
     "init_swarm",
     "clone_state",
+    "message_slot",
+    "message_slots",
     "PlaneSpec",
     "PLANES",
     "plane_registry",
@@ -200,6 +203,31 @@ def init_swarm(
         rng=key.to(dev).clone(),
         round=torch.tensor(0, dtype=torch.int32, device=dev),
     )
+
+
+def message_slot(message_id: int | str, msg_slots: int) -> int:
+    """A message identity's dedup slot: plane 0 of :func:`message_slots`.
+    Two rumors hashing to one slot are conflated (the intended semantics
+    past capacity; ``sim.metrics.expected_conflations`` prices it)."""
+    return message_slots(message_id, msg_slots, 1)[0]
+
+
+def message_slots(message_id: int | str, msg_slots: int, k: int = 1) -> tuple[int, ...]:
+    """``k`` dedup slots for one message, the Bloom view for k > 1: plane
+    ``i`` is FNV-1a seeded by ``i`` over the id's bytes (a string's UTF-8,
+    an int's 64-bit little-endian two's complement, wrapped), modulo
+    ``msg_slots``."""
+    if k <= 0 or k > msg_slots:
+        raise ValueError(f"k must be in [1, msg_slots]; got {k}")
+    data = (message_id.encode() if isinstance(message_id, str)
+            else (int(message_id) & 0xFFFFFFFFFFFFFFFF).to_bytes(8, "little"))
+    out = []
+    for plane in range(k):
+        h = (2166136261 ^ (plane * 0x9E3779B9)) & 0xFFFFFFFF
+        for b in data:
+            h = ((h ^ b) * 16777619) & 0xFFFFFFFF
+        out.append(h % msg_slots)
+    return tuple(out)
 
 
 def clone_state(state: SwarmState) -> SwarmState:

@@ -33,7 +33,8 @@ run equals the local run of the same engine family bit for bit, and so
 does a run under the quorum detector (``liveness``) with its adversaries,
 and a growing run (``growth``, its admission rows mapped through
 ``position``): the admission draws at global shape, as on the local
-engine. The exchange over NCCL with one process per card, the
+engine, and so does a streamed run (``stream``, its origin rows mapped
+through ``position``). The exchange over NCCL with one process per card, the
 matching mesh, the sparse, auto and hier transports and the ``IciRound``
 counters are a later slice and raise ``NotImplementedError``.
 """
@@ -590,10 +591,11 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, sha
     ``scenario`` injects the round's faults around the exchange (and, on
     the packed round, around its bool twin); ``liveness`` (a
     ``QuorumSpec``) runs the quorum detector and the scenario's
-    adversaries, their draws at global shape as on the local engine, and
-    ``growth`` admits the round's join batch. The arguments of later slices
-    (``transport``, ``collect_ici``, ``stream``, ``control``, ``pipeline``,
-    ``inject``) raise ``NotImplementedError``."""
+    adversaries, their draws at global shape as on the local engine,
+    ``growth`` admits the round's join batch and ``stream`` runs a
+    streaming workload at global shape (its origin table in the mesh's
+    rows). The arguments of later slices (``transport``, ``collect_ici``,
+    ``control``, ``pipeline``, ``inject``) raise ``NotImplementedError``."""
     _check_round(state, cfg, sg, mesh, shard_plan, later)
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed
@@ -621,13 +623,15 @@ def simulate_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, num_rou
                   shard_plan: ShardPlans | None = None, **later):
     """A fixed horizon of sharded rounds; returns the final state and the
     per-round stats stacked along a leading (num_rounds,) axis."""
-    from tpu_gossip_torch.sim.engine import _stack, host_rounds
+    from tpu_gossip_torch.sim.engine import _stack
+    from tpu_gossip_torch.sim.stages import host_cursor, next_host_key
 
-    r0 = host_rounds(state, later)
+    r0, hkey = host_cursor(state, later)
     rows = []
     for i in range(num_rounds):
         state, st = gossip_round_dist(state, cfg, sg, mesh, shard_plan, host_round=None if r0 is None else r0 + i,
-                                      **dict(later))
+                                      host_rng=hkey, **dict(later))
+        hkey = next_host_key(hkey)
         rows.append(st)
     return state, _stack(rows)
 
@@ -638,14 +642,15 @@ def run_until_coverage_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mes
     """Sharded rounds until ``coverage(slot) >= target`` (compared in
     float32) or ``max_rounds``, reading the stop condition on the host once
     a round; rounds used = ``result.round - state.round``."""
-    from tpu_gossip_torch.sim.engine import host_rounds
+    from tpu_gossip_torch.sim.stages import host_cursor, next_host_key
 
     start = state.round
-    r0 = host_rounds(state, later)
+    r0, hkey = host_cursor(state, later)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
     s, i = state, 0
     while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
         s, _ = gossip_round_dist(s, cfg, sg, mesh, shard_plan, host_round=None if r0 is None else r0 + i,
-                                 **dict(later))
+                                 host_rng=hkey, **dict(later))
+        hkey = next_host_key(hkey)
         i += 1
     return s

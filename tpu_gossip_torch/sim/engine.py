@@ -21,13 +21,19 @@ delay buffer rides ``fault_held`` and the three fault counters land in
 the quorum detector replaces the direct one, a scenario's adversaries
 act, and the six detector columns of ``RoundStats`` are filled; and
 ``growth``, a ``CompiledGrowth`` (``growth/``): the round admits its join
-batch after churn and ``degree_gamma`` tracks the realized degrees' tail.
+batch after churn and ``degree_gamma`` tracks the realized degrees' tail;
+and ``stream``, a ``CompiledStream`` (``traffic/``): leases past their TTL
+recycle through the tail, the round's arrivals land after it, and the
+four stream columns and the per-slot tracks (``slot_infected``,
+``slot_age``) are filled.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
 ``run_until_coverage`` reads its stop condition on the host once per round
 (one device synchronisation per round; a packed state's from one bit
-column). Rounds are functional: each returns
+column). Both loops read the state's round (under a scenario or a stream)
+and key (under a stream) once and carry them on the host
+(``sim.stages.host_cursor``). Rounds are functional: each returns
 a new state and leaves its input's planes unchanged. The controller
 belongs to a later slice.
 """
@@ -47,7 +53,8 @@ from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.kernels.gossip import flood_all, pull_fanout, push_fanout, sample_fanout_targets
 from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
 from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan, segment_or, segment_sampled
-from tpu_gossip_torch.sim.stages import build_round_stages, first_rows, run_protocol_round, run_stages
+from tpu_gossip_torch.sim.stages import (build_round_stages, first_rows, host_cursor, next_host_key,
+                                        run_protocol_round, run_stages)
 
 __all__ = [
     "RoundStats",
@@ -127,13 +134,22 @@ def growth_gamma(growth, row_ptr, exists, rewired, rewire_targets, degree_credit
     return hill_gamma_device(deg, live, growth.gamma_d_min)
 
 
+def slot_tracks(seen: torch.Tensor, live: torch.Tensor, slot_lease: torch.Tensor, rnd, stream) -> dict:
+    """The ``slot_infected`` and ``slot_age`` columns: zeros without a
+    stream, else each slot's live infected count (the (N, M) column sum,
+    priced on streaming runs only) and its lease's age (-1 when free)."""
+    if stream is None:
+        zm = torch.zeros(slot_lease.shape, dtype=torch.int32, device=seen.device)
+        return {"slot_infected": zm, "slot_age": zm}
+    return {"slot_infected": (seen & live[:, None]).sum(dim=0, dtype=torch.int32),
+            "slot_age": torch.where(slot_lease >= 0, rnd - slot_lease, -1).to(torch.int32)}
+
+
 def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None,
-           growth=None) -> RoundStats:
+           growth=None, stream=None, stel=None) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
-    m = state.seen.shape[1]
-    zm = torch.zeros((m,), dtype=torch.int32, device=dev)
     counters = dict.fromkeys(RoundStats._fields, z)
     counters.update(
         coverage=state.coverage(0),
@@ -144,15 +160,24 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, l
         n_members=_i32(state.exists.sum()),
         degree_gamma=growth_gamma(growth, state.row_ptr, state.exists, state.rewired, state.rewire_targets,
                                   state.degree_credit, live),
-        slot_infected=zm,
-        slot_age=zm,
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
+        **slot_tracks(state.seen, live, state.slot_lease, state.round, stream),
     )
     if fstats is not None:
         counters.update(fstats._asdict())
+    counters.update(stream_counters(stel))
     counters.update(liveness_counters(ltel, liveness, state.exists, state.alive, state.declared_dead,
                                       state.quarantine))
     return RoundStats(**counters)
+
+
+def stream_counters(stel) -> dict:
+    """The four ``stream_*`` columns from the round's ``StreamTelemetry``
+    (none without a stream)."""
+    if stel is None:
+        return {}
+    return {"stream_offered": stel.offered, "stream_injected": stel.injected,
+            "stream_conflated": stel.conflated, "stream_expired": stel.expired}
 
 
 def compute_roles(state: SwarmState):
@@ -195,8 +220,8 @@ def _require_csr(state: SwarmState, what: str) -> None:
     if _is_csr_free(state):
         raise ValueError(
             f"{what} reads the CSR neighbor list, but this graph was built without one "
-            "(matching_powerlaw_graph(export_csr=False)); rebuild with export_csr=True "
-            "or deliver via the matching plan"
+            "(matching_powerlaw_graph(export_csr=False)) — XLA would silently clamp the "
+            "out-of-bounds gathers; rebuild with export_csr=True or deliver via the matching plan"
         )
 
 
@@ -482,7 +507,8 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
 def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, transmit,
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
                   churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
-                  k_accuse=None, k_forge=None, growth=None):
+                  k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
+                  host_rnd: int | None = None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
@@ -495,7 +521,11 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     without it the suspicion planes pass through untouched. ``growth`` (a
     ``CompiledGrowth``) admits the round's join batch after churn (from
     ``fold_in(state.rng, GROWTH_STREAM_SALT)``) and fills
-    ``degree_gamma``."""
+    ``degree_gamma``. ``stream`` (a ``CompiledStream``) recycles the
+    leases past their TTL through the tail (and out of the delay buffer),
+    injects the round's arrivals after it (``host_rng``/``host_rnd``: the
+    round's root key and round on the host) and fills the stream
+    columns."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -509,9 +539,12 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "receptive": receptive, "fresh": None, "expired": None, "faults": faults,
         "suspect_round": state.suspect_round, "suspect_mark": state.suspect_mark,
         "quarantine": state.quarantine, "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
+        "slot_lease": state.slot_lease, "held": state.fault_held if fault_held is None else fault_held,
+        "stel": None,
     }
     values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
-                                           liveness=liveness, growth=growth), values)
+                                           liveness=liveness, growth=growth, stream=stream, host_rng=host_rng,
+                                           host_rnd=host_rnd), values)
     new_state = SwarmState(
         row_ptr=state.row_ptr, col_idx=state.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
@@ -519,14 +552,15 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         exists=values["exists"], alive=values["alive"], silent=values["silent"],
         last_hb=values["last_hb"], declared_dead=values["declared_dead"],
         rewired=values["rewired"], rewire_targets=values["rewire_targets"],
-        fault_held=state.fault_held if fault_held is None else fault_held, join_round=values["join_round"],
+        fault_held=values["held"], join_round=values["join_round"],
         admitted_by=values["admitted_by"], degree_credit=values["degree_credit"],
-        slot_lease=state.slot_lease, control_lvl=state.control_lvl,
+        slot_lease=values["slot_lease"], control_lvl=state.control_lvl,
         pipe_buf=state.pipe_buf, suspect_round=values["suspect_round"],
         suspect_mark=values["suspect_mark"], quarantine=values["quarantine"],
         rng=key, round=rnd,
     )
-    return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness, growth)
+    return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness, growth, stream,
+                             values["stel"])
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
@@ -556,22 +590,19 @@ def _concat(parts: list[RoundStats]) -> RoundStats:
     return RoundStats(*(torch.cat(col) for col in zip(*parts)))
 
 
-def host_rounds(state, later: dict):
-    """Under a scenario, the state's round read once on the host (the
-    horizon loops count on from it); None otherwise."""
-    return int(state.round) if later.get("scenario") is not None else None
-
-
 def simulate(state: SwarmState, cfg: SwarmConfig, num_rounds: int, plan=None,
              tail: str = "fused", **later):
     """Run a fixed horizon; returns the final state and the per-round
     stats stacked along a leading (num_rounds,) axis. ``scenario`` threads
-    a compiled fault schedule through every round; the state's round is
-    its cursor."""
-    r0 = host_rounds(state, later)
+    a compiled fault schedule through every round, ``stream`` a compiled
+    streaming workload; the state's round is their cursor, read once on
+    the host with the state's key (``host_cursor``)."""
+    r0, hkey = host_cursor(state, later)
     rows = []
     for i in range(num_rounds):
-        state, st = gossip_round(state, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i, **later)
+        state, st = gossip_round(state, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i,
+                                 host_rng=hkey, **later)
+        hkey = next_host_key(hkey)
         rows.append(st)
     return state, _stack(rows)
 
@@ -583,10 +614,12 @@ def run_until_coverage(state: SwarmState, cfg: SwarmConfig, target: float = 0.99
     ``max_rounds``; rounds used = ``result.round - state.round``. Under a
     ``scenario`` rounds past its schedule run quiescent."""
     start = state.round
-    r0 = host_rounds(state, later)
+    r0, hkey = host_cursor(state, later)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
     s, i = state, 0
     while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
-        s, _ = gossip_round(s, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i, **later)
+        s, _ = gossip_round(s, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i, host_rng=hkey,
+                            **later)
+        hkey = next_host_key(hkey)
         i += 1
     return s

@@ -1,8 +1,10 @@
 """Per-round metrics and the run-to-coverage benchmark.
 
 Ports ``BenchResult``, ``rounds_to_coverage``, ``bench_swarm``,
-``stats_rows``, ``write_jsonl``, ``recoverage_rounds``, ``phase_report``
-and ``liveness_report`` of ``tpu_gossip/sim/metrics.py``.
+``stats_rows``, ``write_jsonl``, ``recoverage_rounds``, ``phase_report``,
+``liveness_report`` and the streaming plane's host reports
+(``stream_episodes``, ``steady_state_report``, ``expected_conflations``,
+``bloom_false_positive_rate``) of ``tpu_gossip/sim/metrics.py``.
 ``bench_swarm`` times on the host clock around work that ends in
 ``torch.cuda.synchronize()`` on a CUDA state.
 """
@@ -21,7 +23,8 @@ from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.sim.engine import RoundStats, run_until_coverage
 
 __all__ = ["BenchResult", "rounds_to_coverage", "bench_swarm", "stats_rows", "write_jsonl", "recoverage_rounds",
-           "phase_report", "liveness_report"]
+           "phase_report", "liveness_report", "stream_episodes", "steady_state_report", "expected_conflations",
+           "bloom_false_positive_rate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,3 +190,106 @@ def liveness_report(stats: RoundStats) -> dict:
         "accusations": int(_host(stats.adv_accusations).astype(np.int64).sum()),
         "forged_heartbeats": int(_host(stats.adv_forged).astype(np.int64).sum()),
     }
+
+
+def stream_episodes(stats, target: float = 0.99) -> list[dict]:
+    """Per-message lease episodes of a streaming run, from the per-slot
+    tracks (``slot_age``, ``slot_infected``): an episode starts where a
+    slot's age reads 0 and ends where the age resets or reads -1; its
+    message completes at the first round its live coverage reaches
+    ``target`` of that round's alive count, and the age there is its
+    rounds-to-coverage. Episodes open at the horizon are censored
+    (``end_round`` -1). Rows: ``slot``, ``start_round`` (1-based),
+    ``end_round``, ``completed_age`` (-1 never), ``peak_coverage``."""
+    age = _host(stats.slot_age)
+    infected = _host(stats.slot_infected)
+    alive = np.maximum(_host(stats.n_alive), 1)
+    horizon, m = age.shape
+    cov = infected / alive[:, None]
+    episodes: list[dict] = []
+    for s in range(m):
+        start = None
+        for r in range(horizon):
+            a = age[r, s]
+            if a == 0 and start is not None:
+                episodes.append(_close_episode(s, start, r, cov, age, target))
+                start = r
+            elif a == 0:
+                start = r
+            elif a < 0 and start is not None:
+                episodes.append(_close_episode(s, start, r, cov, age, target))
+                start = None
+        if start is not None:
+            ep = _close_episode(s, start, horizon, cov, age, target)
+            ep["end_round"] = -1  # censored: the horizon cut it, not the TTL
+            episodes.append(ep)
+    return episodes
+
+
+def _close_episode(s, start, end, cov, age, target):
+    span = cov[start:end, s]
+    hit = np.nonzero(span >= target)[0]
+    return {
+        "slot": s,
+        "start_round": start + 1,
+        "end_round": end,
+        "completed_age": int(age[start + hit[0], s]) if hit.size else -1,
+        "peak_coverage": float(span.max()) if span.size else 0.0,
+    }
+
+
+def steady_state_report(stats, *, target: float = 0.99, round_seconds: float = 5.0, warmup_rounds: int = 0) -> dict:
+    """A streaming run's steady-state summary: delivered messages a round
+    and a second, p50/p99 rounds-to-coverage per message, the conflation
+    (or Bloom suppression) rate and the delivered-to-closed ratio, over
+    the rounds after ``warmup_rounds`` (episodes injected inside the
+    warmup are skipped)."""
+    horizon = len(_host(stats.coverage))
+    w = min(max(warmup_rounds, 0), horizon)
+    rounds = max(horizon - w, 1)
+    counters = {f: int(_host(getattr(stats, f"stream_{f}"))[w:].sum())
+                for f in ("offered", "injected", "conflated", "expired")}
+    eps = [e for e in stream_episodes(stats, target) if e["start_round"] > w]
+    done = [e["completed_age"] for e in eps if e["completed_age"] >= 0]
+    ended = [e for e in eps if e["end_round"] >= 0]
+    done_ended = sum(1 for e in ended if e["completed_age"] >= 0)
+    lat = np.asarray(done, dtype=np.float64)
+    return {
+        "rounds_measured": rounds,
+        "warmup_rounds": w,
+        **{f"msgs_{k}": v for k, v in counters.items()},
+        "offered_per_round": round(counters["offered"] / rounds, 3),
+        "injected_per_round": round(counters["injected"] / rounds, 3),
+        "conflation_rate": round(counters["conflated"] / max(counters["offered"], 1), 4),
+        "episodes": len(eps),
+        "episodes_completed": len(done),
+        "episodes_expired_uncovered": len(ended) - done_ended,
+        "delivered_per_round": round(len(done) / rounds, 3),
+        "delivered_msgs_per_sec": round(len(done) / (rounds * round_seconds), 4),
+        # censored (still-open) episodes judge neither way
+        "delivery_ratio": round(done_ended / max(len(ended), 1), 4),
+        "rounds_to_coverage": {
+            "p50": float(np.percentile(lat, 50)) if lat.size else None,
+            "p99": float(np.percentile(lat, 99)) if lat.size else None,
+            "mean": round(float(lat.mean()), 3) if lat.size else None,
+        },
+    }
+
+
+def expected_conflations(n_rumors: int, msg_slots: int) -> float:
+    """Expected rumors sharing a slot with an earlier one under k = 1 slot
+    dedup: ``R - M (1 - (1 - 1/M)^R)``."""
+    if n_rumors <= 0:
+        return 0.0
+    m = float(msg_slots)
+    return n_rumors - m * (1.0 - (1.0 - 1.0 / m) ** n_rumors)
+
+
+def bloom_false_positive_rate(n_rumors: int, msg_slots: int, hashes: int) -> float:
+    """P(a novel rumor reads as seen) under k-hash Bloom dedup:
+    ``(1 - (1 - 1/M)^(kR))^k``."""
+    if n_rumors <= 0:
+        return 0.0
+    m = float(msg_slots)
+    fill = 1.0 - (1.0 - 1.0 / m) ** (hashes * n_rumors)
+    return fill ** hashes

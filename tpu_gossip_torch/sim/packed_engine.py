@@ -30,8 +30,11 @@ the bool engine (its stages are row-level; ``quarantine`` rides the flags
 word) and masks a quarantined row's transmit words in the head. Growth
 admission is the bool engine's row-level stage too (``exists`` rides the
 flags word; the registry planes are carried as they are), and
-``degree_gamma`` is computed as there. Streams, control, pipelining and
-live ingestion are later slices and raise ``NotImplementedError``.
+``degree_gamma`` is computed as there. A stream's age-out drops the
+recycled columns from the packed held buffer and hands K4 the expired
+mask; its injection decodes the seen words at its boundary and packs the
+product, as JAX's packed twin does. Control, pipelining and live
+ingestion are later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
 from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, fault_round, require_quorum,
-                                        row_stages, run_stages)
+                                        row_stages, run_stages, stream_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -153,24 +156,29 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
 
 
 def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None, churn_faults: bool = False,
-                               liveness=None, growth=None) -> tuple[Stage, ...]:
+                               liveness=None, growth=None, stream=None, host_rng=None,
+                               host_rnd: int | None = None) -> tuple[Stage, ...]:
     """The packed stages of one round: the bool engine's row-level
     liveness, churn and growth stages (fault-aware and hardened as there),
-    then the word tail."""
+    then the word tail, with a stream's age-out before it (the held
+    buffer's column drop a packed AND) and its injection after it (the
+    seen words decoded and packed again at that boundary)."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
-            _tail_stage_packed(cfg, tail, m))
+            *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
                          churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
-                         k_accuse=None, k_forge=None, growth=None):
+                         k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
+                         host_rnd: int | None = None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
     ``fault_held_w`` is the packed delay buffer to carry (the input's when
     None), ``fstats`` the round's fault counters; ``liveness``, the
-    adversary arguments and ``growth`` as in ``advance_round``."""
+    adversary arguments, ``growth`` and ``stream`` as in
+    ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -184,9 +192,11 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "receptive": receptive_w, "fresh": None, "expired": None, "faults": faults,
         "suspect_round": ps.suspect_round, "suspect_mark": ps.suspect_mark, "quarantine": flags["quarantine"],
         "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
+        "slot_lease": ps.slot_lease, "held": ps.fault_held if fault_held_w is None else fault_held_w, "stel": None,
     }
     values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, faults=faults,
-                                                   churn_faults=churn_faults, liveness=liveness, growth=growth),
+                                                   churn_faults=churn_faults, liveness=liveness, growth=growth,
+                                                   stream=stream, host_rng=host_rng, host_rnd=host_rnd),
                         values)
     row_flags = dict(flags, exists=values["exists"], alive=values["alive"], silent=values["silent"],
                      declared_dead=values["declared_dead"], rewired=values["rewired"],
@@ -197,26 +207,28 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         infected_round=values["infected_round"], recovered=values["recovered"],
         flags=pack_flags(row_flags), last_hb=values["last_hb"],
         rewire_targets=values["rewire_targets"],
-        fault_held=ps.fault_held if fault_held_w is None else fault_held_w,
+        fault_held=values["held"],
         join_round=values["join_round"], admitted_by=values["admitted_by"],
-        degree_credit=values["degree_credit"], slot_lease=ps.slot_lease,
+        degree_credit=values["degree_credit"], slot_lease=values["slot_lease"],
         control_lvl=ps.control_lvl, pipe_buf=ps.pipe_buf,
         suspect_round=values["suspect_round"], suspect_mark=values["suspect_mark"],
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
-    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness, growth)
+    return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness, growth,
+                                    stream, values["stel"])
 
 
-def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None, growth=None):
+def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None, growth=None,
+                  stream=None, stel=None):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
-    agree bit for bit, the padding being zero)."""
-    from tpu_gossip_torch.sim.engine import RoundStats, growth_gamma, liveness_counters
+    agree bit for bit, the padding being zero); a stream's per-slot
+    infected count sums the decoded words, as JAX's twin does."""
+    from tpu_gossip_torch.sim.engine import RoundStats, growth_gamma, liveness_counters, slot_tracks, stream_counters
 
     live = flags["alive"] & ~flags["declared_dead"]
     dev = ps.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
-    zm = torch.zeros((ps.msg_slots,), dtype=torch.int32, device=dev)
     counters = dict.fromkeys(RoundStats._fields, z)
     counters.update(
         coverage=ps.coverage(0),
@@ -227,12 +239,13 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
         n_members=flags["exists"].sum().to(torch.int32),
         degree_gamma=growth_gamma(growth, ps.row_ptr, flags["exists"], flags["rewired"], ps.rewire_targets,
                                   ps.degree_credit, live),
-        slot_infected=zm,
-        slot_age=zm,
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
+        **slot_tracks(ps.seen if stream is None else unpack_bits(ps.seen, ps.msg_slots), live, ps.slot_lease,
+                      ps.round, stream),
     )
     if fstats is not None:
         counters.update(fstats._asdict())
+    counters.update(stream_counters(stel))
     counters.update(liveness_counters(ltel, liveness, flags["exists"], flags["alive"], flags["declared_dead"],
                                       flags["quarantine"]))
     return RoundStats(**counters)
@@ -240,7 +253,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
 
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
                               tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
-                              growth=None, **later):
+                              growth=None, stream=None, host_rng=None, **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
     k_pull) -> (inc_w, msgs_sent)``, then the packed stages. Under a
@@ -278,7 +291,8 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
     return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
                                 tail=tail, faults=rf, churn_faults=scenario is not None and scenario.has_churn,
                                 fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
-                                k_forge=k_forge, growth=growth)
+                                k_forge=k_forge, growth=growth, stream=stream, host_rng=host_rng,
+                                host_rnd=None if host_round is None else host_round + 1)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):

@@ -12,6 +12,8 @@
         --scenario scenarios/byzantine_siege.toml --quorum-k 3
     python -m tpu_gossip_torch.sim.profile --peers 950000 --grow 1000000 \\
         --grow-rate 256
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device \\
+        --stream 4 --warm 40
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -63,7 +65,20 @@ stage: ``growth`` (the whole admission), split into ``growth_draw`` (the
 scores) and ``growth_scatters`` (the cursor, the log degrees and the
 registry and credit scatters), with ``growth_round`` and
 ``plain_round`` (the same round with ``growth=None``) beside them and
-``growth_chunk_rows`` the draw's rows a chunk. Needs a CUDA device.
+``growth_chunk_rows`` the draw's rows a chunk. ``--stream RATE`` runs
+every round (the warm ones included) under ``bench.py``'s ``bench_stream``
+workload: 32 slots, fanout 2, TTL ``1.5 * min_feasible_ttl(n, 2)``, the
+batch of ``default_max_inject(4.0)`` arrivals, uniform origins, no seeded
+epidemic; warm past one TTL so leases age out, it adds the stream's
+stages on the loaded state: ``stream_ageout`` (the expiry mask, the lease
+and held-buffer updates), ``stream_inject`` (the whole injection), split
+into ``stream_poisson_host`` (the arrival count on the host, wall ms),
+``stream_draws`` (the origin and slot draws at the batch shape),
+``stream_landing`` (the sequential landing, ``stream_arrivals`` steps)
+and ``stream_scatter`` (the bits and the latch), ``slot_stats`` (the
+per-slot columns, the (N, M) column sum among them), and
+``stream_round`` beside ``plain_round`` (the same round without the
+stream). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -87,7 +102,7 @@ from tpu_gossip_torch.core.packed import pack_bits, pack_state, packed_width, un
 from tpu_gossip_torch.kernels.round_tail import round_tail, round_tail_words
 from tpu_gossip_torch.sim import engine
 from tpu_gossip_torch.sim import packed_engine as pe
-from tpu_gossip_torch.sim.stages import has_churn
+from tpu_gossip_torch.sim.stages import has_churn, next_host_key
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -320,7 +335,9 @@ def trace_rounds(state, step, rounds: int) -> dict:
 
 
 def _cfg_kw(args) -> dict:
-    return dict(msg_slots=16, fanout=1, mode="push_pull", churn_leave_prob=args.churn_leave,
+    stream = getattr(args, "stream", 0.0) > 0
+    return dict(msg_slots=32 if stream else 16, fanout=2 if stream else 1, mode="push_pull",
+                churn_leave_prob=args.churn_leave,
                 churn_join_prob=args.churn_join,
                 rewire_slots=max(args.rewire_slots, GROW_ATTACH) if getattr(args, "grow", 0) else args.rewire_slots,
                 rewire_compact_cap=args.rewire_compact_cap)
@@ -374,6 +391,70 @@ def growth_stage_times(state, cfg, plan, grow, reps: int) -> dict:
     return out
 
 
+def _host_ms(fn, reps: int) -> float:
+    """Wall ms of a host-side call, mean over ``reps``."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+STREAM_PEAK_RATE = 4.0  # bench_stream's largest rate: the batch every rate compiles to
+
+
+def bench_stream_workload(state, cfg, exists, rate: float, device):
+    """``bench.py::bench_stream``'s compiled stream at ``rate`` for a swarm
+    whose real rows ``exists`` marks: TTL ``1.5 * min_feasible_ttl(n,
+    fanout)`` and the peak rate's batch."""
+    from tpu_gossip_torch.traffic import compile_stream, default_max_inject, min_feasible_ttl
+
+    rows = np.flatnonzero(exists.cpu().numpy()) if exists is not None else np.arange(state.seen.shape[0])
+    return compile_stream(rate=rate, msg_slots=cfg.msg_slots, ttl=int(1.5 * min_feasible_ttl(rows.size, cfg.fanout)),
+                          origin_rows=rows, max_inject=default_max_inject(STREAM_PEAK_RATE), device=device)
+
+
+def stream_stage_times(state, cfg, plan, strm, reps: int) -> dict:
+    """The stream's stages on a loaded state, timed alone (ms): the
+    age-out, the injection whole and in its parts, the per-slot columns,
+    and the round with and without the stream."""
+    from tpu_gossip_torch.sim.stages import _stream_ageout_stage, run_stages
+    from tpu_gossip_torch.traffic import engine as tr
+
+    rnd = state.round + 1
+    host_rnd, host_rng = int(state.round) + 1, state.rng.cpu()
+    n, m = state.seen.shape
+    planes = dict(row_ptr=state.row_ptr, col_idx=state.col_idx, exists=state.exists)
+    n_arr = tr.round_arrivals(strm, host_rng, host_rnd)
+    origins, slots = tr.stream_draws(strm, state.rng, n=n, m=m, **planes)
+    safe_o = torch.clamp(origins[:n_arr], 0, n - 1).to(torch.int64)
+    ok = state.exists[safe_o] & state.alive[safe_o] & ~state.declared_dead[safe_o]
+    _, landed, _ = tr.land_arrivals(state.slot_lease, slots[:n_arr], ok, rnd, strm.k_hashes)
+    live = state.alive & ~state.declared_dead
+    ageout = _stream_ageout_stage(strm)
+    zero = torch.zeros((), dtype=torch.int32, device=rnd.device)
+    stages = {
+        "stream_ageout": lambda: run_stages((ageout,), {"slot_lease": state.slot_lease, "rnd": rnd,
+                                                        "held": state.fault_held}),
+        "stream_inject": lambda: tr.apply_stream(
+            strm, state.rng, rnd, zero, seen=state.seen, infected_round=state.infected_round,
+            slot_lease=state.slot_lease, alive=state.alive, declared_dead=state.declared_dead, host_rng=host_rng,
+            host_rnd=host_rnd, **planes),
+        "stream_draws": lambda: tr.stream_draws(strm, state.rng, n=n, m=m, **planes),
+        "stream_landing": lambda: tr.land_arrivals(state.slot_lease, slots[:n_arr], ok, rnd, strm.k_hashes),
+        "stream_scatter": lambda: tr.scatter_arrivals(state.seen, state.infected_round, safe_o, slots[:n_arr],
+                                                      landed, rnd),
+        "slot_stats": lambda: engine.slot_tracks(state.seen, live, state.slot_lease, state.round, strm),
+        "stream_round": lambda: engine.gossip_round(state, cfg, plan, stream=strm, host_rng=host_rng,
+                                                    host_round=host_rnd - 1),
+        "plain_round": lambda: engine.gossip_round(state, cfg, plan),
+    }
+    out = {name: _event_ms(fn, reps) for name, fn in stages.items()}
+    out["stream_poisson_host"] = _host_ms(lambda: tr.round_arrivals(strm, host_rng, host_rnd), reps)
+    out["stream_arrivals"] = n_arr
+    return out
+
+
 def _churn_keys(args) -> dict:
     return {k: getattr(args, k) for k in ("churn_leave", "churn_join", "rewire_slots", "rewire_compact_cap",
                                           "remat_every")}
@@ -409,6 +490,9 @@ def main(argv=None) -> int:
     p.add_argument("--grow", type=int, default=0, metavar="TARGET",
                    help="build the swarm at capacity TARGET and run every round growing toward it (local round)")
     p.add_argument("--grow-rate", type=int, default=256, help="joins a round under --grow")
+    p.add_argument("--stream", type=float, default=0.0, metavar="RATE",
+                   help="run every round under bench_stream's workload at RATE arrivals a round (32 slots, "
+                   "fanout 2; local round) and time the stream's stages")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -419,11 +503,14 @@ def main(argv=None) -> int:
     if args.remat_every > 0 and (args.graph == "matching" or args.packed):
         raise SystemExit("--remat-every folds a CSR graph's unpacked state (--graph device or pa, no --packed)")
     if args.shard:
-        if args.scenario or args.quorum_k:
-            raise SystemExit("--scenario and --quorum-k profile the local unpacked round; drop --shard")
+        if args.scenario or args.quorum_k or args.stream:
+            raise SystemExit("--scenario, --quorum-k and --stream profile the local unpacked round; drop --shard")
         return main_shard(args, dev)
     if args.packed and args.quorum_k:
         raise SystemExit("--quorum-k profiles the local unpacked round; drop --packed")
+    if args.stream and (args.packed or args.scenario or args.quorum_k or args.grow or args.remat_every):
+        raise SystemExit("--stream profiles the local unpacked round; drop --packed, --scenario, --quorum-k, "
+                         "--grow and --remat-every")
     if args.grow and (args.packed or args.scenario or args.quorum_k or args.remat_every or args.shard
                       or args.grow <= args.peers):
         raise SystemExit("--grow profiles the local unpacked round to a TARGET above --peers; drop --packed, "
@@ -460,9 +547,10 @@ def main(argv=None) -> int:
     if args.graph != "matching" and args.staircase:
         plan = seg.build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=1, device=dev)
     cfg = SwarmConfig(n_peers=graph.n, **_cfg_kw(args))
-    origins = np.random.default_rng(0).choice(n, size=1, replace=False)
+    origins = None if args.stream else np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
     cap = engine.remat_capacity(state, cfg) if args.remat_every > 0 else None
+    strm = bench_stream_workload(state, cfg, exists, args.stream, dev) if args.stream else None
     if args.grow:
         from tpu_gossip_torch.growth import compile_growth, matching_admit_rows
 
@@ -479,7 +567,7 @@ def main(argv=None) -> int:
         spec = parse_scenario(args.scenario)
         sc = compile_scenario(spec, n_peers=n, n_slots=graph.n, device=dev,
                               total_rounds=max(spec.last_round, args.warm + args.rounds))
-    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs, growth=grow)
+    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs, growth=grow, stream=strm)
     churn = churn_stage_times(state, cfg, args.reps, cap) if has_churn(cfg) else {}
     if args.packed:
         if args.staircase:
@@ -499,15 +587,21 @@ def main(argv=None) -> int:
         stages.update(liveness_stage_times(state, cfg, sc, lqs, args.warm, args.reps))
     if grow is not None:
         stages.update(growth_stage_times(state, cfg, plan, grow, args.reps))
+    if strm is not None:
+        stages.update(stream_stage_times(state, cfg, plan, strm, args.reps))
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
                       "packed": args.packed, **_churn_keys(args), "scenario": args.scenario or None,
-                      "quorum_k": args.quorum_k or None, "grow": args.grow or None, "stage_ms": stages}))
+                      "quorum_k": args.quorum_k or None, "grow": args.grow or None, "stream": args.stream or None,
+                      "slot_ttl": strm.ttl if strm is not None else None, "stage_ms": stages}))
     rnd = [args.warm]
+    hkey = [state.rng.cpu() if strm is not None else None]
 
     def step(s):
-        out = engine.gossip_round(s, cfg, plan, scenario=sc, host_round=rnd[0] if sc is not None else None,
-                                  liveness=lqs, growth=grow)
+        out = engine.gossip_round(s, cfg, plan, scenario=sc,
+                                  host_round=rnd[0] if sc is not None or strm is not None else None,
+                                  liveness=lqs, growth=grow, stream=strm, host_rng=hkey[0])
         rnd[0] += 1
+        hkey[0] = next_host_key(hkey[0])
         return out
 
     print(json.dumps({"trace": trace_rounds(state, step, args.rounds)}))

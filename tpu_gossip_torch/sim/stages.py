@@ -17,8 +17,12 @@ stream's fold, the engine's dissemination (wrapped by the scenario head,
 ``faults.inject.scenario_dissemination``, under a scenario) and the
 post-delivery stages (liveness, churn, growth, tail).
 
-Streams, control, pipelining and live ingestion are later slices; their
-arguments raise ``NotImplementedError`` here.
+``_stream_ageout_stage`` and ``_stream_inject_stage``
+(``tpu_gossip/sim/stages.py:526,576``) run a stream (``traffic/``): the age-out before the tail, whose ``expired``
+mask clears the recycled columns, and the injection after it.
+
+Control, pipelining and live ingestion are later slices; their arguments
+raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ import torch
 
 from tpu_gossip_torch.core import prng
 
-__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "run_protocol_round", "not_ported",
+__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "stream_stages", "run_protocol_round",
+           "not_ported", "host_cursor", "next_host_key",
            "check_later", "row_stages", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
            "require_quorum"]
 
@@ -333,6 +338,62 @@ def _tail_stage(cfg, tail: str) -> Stage:
     return Stage("tail", reads, writes, fn)
 
 
+def _stream_ageout_stage(stream, packed: bool = False) -> Stage:
+    """Slot columns past their TTL recycle (``traffic/``): the expired mask
+    folds into the tail like the churn fresh mask, and the delay buffer
+    drops the recycled columns' held bits (they belong to the recycled
+    message); on packed words that drop is a packed-column AND."""
+
+    def fn(ctx):
+        from tpu_gossip_torch.core.packed import pack_bits
+        from tpu_gossip_torch.traffic.engine import slot_expiry
+
+        expired = slot_expiry(ctx["slot_lease"], ctx["rnd"], stream.ttl)
+        slot_lease = torch.where(expired, torch.full_like(ctx["slot_lease"], -1), ctx["slot_lease"])
+        held = ctx["held"] & (pack_bits(~expired) if packed else ~expired)[None, :]
+        return {"expired": expired, "slot_lease": slot_lease, "held": held}
+
+    return Stage("stream_ageout", ("slot_lease", "rnd", "held"), ("expired", "slot_lease", "held"), fn)
+
+
+def _stream_inject_stage(stream, host_rng=None, host_rnd: int | None = None, packed_m: int | None = None) -> Stage:
+    """The stream's injection (``traffic/``), after the tail: a round-r
+    arrival first transmits in round r + 1 and a just-recycled slot is
+    leasable again. ``host_rng`` and ``host_rnd`` are the round's root key
+    and round on the host (read off the device when None). With
+    ``packed_m`` the seen plane is words: the injection decodes them at
+    this boundary and packs the product, as JAX's packed twin does."""
+    reads = ("rng", "rnd", "expired", "seen", "infected_round", "slot_lease", "row_ptr", "col_idx", "exists",
+             "alive", "declared_dead")
+    writes = ("seen", "infected_round", "slot_lease", "stel")
+
+    def fn(ctx):
+        from tpu_gossip_torch.core.packed import pack_bits, unpack_bits
+        from tpu_gossip_torch.traffic.engine import apply_stream
+
+        seen = ctx["seen"] if packed_m is None else unpack_bits(ctx["seen"], packed_m)
+        seen, infected_round, slot_lease, stel = apply_stream(
+            stream, ctx["rng"], ctx["rnd"], ctx["expired"].sum(dtype=torch.int32), seen=seen,
+            infected_round=ctx["infected_round"], slot_lease=ctx["slot_lease"], row_ptr=ctx["row_ptr"],
+            col_idx=ctx["col_idx"], exists=ctx["exists"], alive=ctx["alive"],
+            declared_dead=ctx["declared_dead"], host_rng=host_rng, host_rnd=host_rnd)
+        return {"seen": seen if packed_m is None else pack_bits(seen), "infected_round": infected_round,
+                "slot_lease": slot_lease, "stel": stel}
+
+    return Stage("stream_inject", reads, writes, fn)
+
+
+def stream_stages(stream, tail_stage: Stage, host_rng=None, host_rnd: int | None = None,
+                  packed_m: int | None = None) -> tuple[Stage, ...]:
+    """The tail with the stream's age-out before it and its injection after
+    it, as ``build_round_stages`` places them; the tail alone without a
+    stream."""
+    if stream is None:
+        return (tail_stage,)
+    return (_stream_ageout_stage(stream, packed_m is not None), tail_stage,
+            _stream_inject_stage(stream, host_rng, host_rnd, packed_m))
+
+
 def not_ported(what: str, where: str) -> NotImplementedError:
     """The error a part of a later slice raises."""
     return NotImplementedError(f"{what} is not ported yet: it comes with the {where} slice")
@@ -357,18 +418,19 @@ def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, g
 
 
 def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
-                       liveness=None, growth=None) -> tuple[Stage, ...]:
+                       liveness=None, growth=None, stream=None, host_rng=None,
+                       host_rnd: int | None = None) -> tuple[Stage, ...]:
     """The post-dissemination stages of one round: :func:`row_stages`,
-    then the tail."""
+    then, with a ``stream``, its age-out, the tail and its injection
+    (:func:`stream_stages`), else the tail."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
-            _tail_stage(cfg, tail))
+            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd))
 
 
 def check_later(later: dict) -> None:
     """Refuse the arguments of later slices (given and not None) and any
     unknown argument."""
-    for name, where in (("stream", "traffic"),
-                        ("control", "control"), ("pipeline", "multi-device"),
+    for name, where in (("control", "control"), ("pipeline", "multi-device"),
                         ("inject", "serving")):
         if later.pop(name, None) is not None:
             raise not_ported(f"the {name} argument", where)
@@ -422,7 +484,8 @@ def require_quorum(scenario, liveness) -> None:
 
 
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
-                       host_round: int | None = None, liveness=None, growth=None, **later):
+                       host_round: int | None = None, liveness=None, growth=None, stream=None, host_rng=None,
+                       **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
@@ -441,7 +504,10 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     are masked, and a scenario's adversaries draw from the adversary
     stream (:func:`adversary_keys`); adversaries without it raise JAX's
     ValueError. ``growth`` (a ``CompiledGrowth``) admits the round's join
-    batch after churn.
+    batch after churn. ``stream`` (a ``CompiledStream``) ages leases out
+    through the tail and injects the round's arrivals after it;
+    ``host_rng`` is ``state.rng`` on the host when the caller mirrors it
+    (the horizon loops do), sparing a device read a round.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -469,5 +535,22 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     return _engine.advance_round(
         state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
-        liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth,
+        liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth, stream=stream,
+        host_rng=host_rng, host_rnd=None if host_round is None else host_round + 1,
     )
+
+
+def host_cursor(state, later: dict) -> tuple[int | None, torch.Tensor | None]:
+    """``(round, key)``: the state's round and root key read once on the
+    host for the horizon loops, which count the round on and split the key
+    on from them (:func:`next_host_key`); the round under a scenario or a
+    stream, the key under a stream, None otherwise."""
+    stream = later.get("stream") is not None
+    r0 = int(state.round) if later.get("scenario") is not None or stream else None
+    return r0, state.rng.cpu() if stream else None
+
+
+def next_host_key(host_rng: torch.Tensor | None) -> torch.Tensor | None:
+    """The next round's root key on the host: child 0 of the round's
+    5-way split, as the round derives it."""
+    return None if host_rng is None else prng.split(host_rng, 5)[0]

@@ -15,8 +15,9 @@ Ports ``tpu_gossip/utils/profiling.py``:
   carry, as JAX's do, so every stage pays that one reduction.
 - :func:`format_stage_table` prints the stages as JAX's does.
 
-Growth, streams and control are later slices, so the decomposition takes
-no such planes.
+The growth, stream and control rows of the decomposition come with the
+pipelined rounds (ROADMAP item 9f); ``sim/profile.py --grow`` and
+``--stream`` time those planes' own stages meanwhile.
 """
 
 from __future__ import annotations
