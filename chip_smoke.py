@@ -100,8 +100,23 @@ each 25 warm and 96 measured rounds beside the unloaded run on the same
 state (ms/round, the steady-state report, the peak, K3's launches), K3
 and K4 against their plain versions under a live age-out mask, and
 ``sim.profile --stream 4``; 11d a mid-stream n=20000 checkpoint killed
-and resumed on the other device, both ways. It prints phase 11's seconds
-and the script's.
+and resumed on the other device, both ways. Phase 12 drives the adaptive
+controller (``control/``, ``run_sim --control``): 12a the seven n<=20000
+control pins (JAX CLI) through the CLI on every engine (the matching
+headline and its packed twin, PA exactly-k with fresh edges and the
+PeerSwap refresh, the Chung-Lu staircase under a late loss, whose
+effective fanout must visit 5, the bucketed mesh with K6 and its packed
+twin, the degraded scenario under a stream), every round's effective
+fanout inside the bounds; 12b ``bench.py::bench_control``'s policy on the
+1M matching headline (fanout 3, bounds 1..6, 48 rounds) onto its JAX pin,
+its packed twin digest-equal, the static run and the zero-adjustment run
+(bounds 3,3) on the same state, the zero-adjustment trajectory the static
+one's beyond the four control columns, and the message bill of the
+controlled and static runs cut at their rounds to 99%; 12c the 1M stream
+headline under the controller onto its JAX pin; 12d pin 2 killed after
+its round-16 checkpoint and resumed on the other device, both ways; 12e
+``sim.profile --control 0.99``. It prints phase 12's seconds and the
+script's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -399,26 +414,32 @@ def check_k6(dev, gen, setup: dict) -> int:
     return err
 
 
+def control_pin(ref: dict) -> bool:
+    """A pin of the adaptive controller (``--control``): phase 12's."""
+    return "--control" in ref["argv"]
+
+
 def stream_pin(ref: dict) -> bool:
-    """A pin of the streaming plane (``--stream``): phase 11's."""
-    return "--stream" in ref["argv"]
+    """A pin of the streaming plane (``--stream``, no controller): phase 11's."""
+    return "--stream" in ref["argv"] and not control_pin(ref)
 
 
 def growth_pin(ref: dict) -> bool:
-    """A pin of the growth plane (``--grow``, no stream): phase 10's."""
-    return "--grow" in ref["argv"] and not stream_pin(ref)
+    """A pin of the growth plane (``--grow``, no stream, no controller):
+    phase 10's."""
+    return "--grow" in ref["argv"] and not stream_pin(ref) and not control_pin(ref)
 
 
 def quorum_pin(ref: dict) -> bool:
     """A pin of the quorum detector (``--quorum-k``): phase 9's."""
-    return "--quorum-k" in ref["argv"] and not growth_pin(ref) and not stream_pin(ref)
+    return "--quorum-k" in ref["argv"] and not growth_pin(ref) and not stream_pin(ref) and not control_pin(ref)
 
 
 def fault_pin(ref: dict) -> bool:
     """A pin of the fault plane (silent peers or a scenario) without the
-    quorum detector, growth or a stream: phase 8's."""
+    quorum detector, growth, a stream or the controller: phase 8's."""
     return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not quorum_pin(ref) and (
-        not growth_pin(ref)) and not stream_pin(ref)
+        not growth_pin(ref)) and not stream_pin(ref) and not control_pin(ref)
 
 
 def phase_digest(root: Path, dev) -> list[dict]:
@@ -428,8 +449,8 @@ def phase_digest(root: Path, dev) -> list[dict]:
 
     out = []
     for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text()):
-        if fault_pin(ref) or quorum_pin(ref) or growth_pin(ref) or stream_pin(ref):  # phase 8's, 9's, 10's and 11's
-            continue
+        if fault_pin(ref) or quorum_pin(ref) or growth_pin(ref) or stream_pin(ref) or control_pin(ref):
+            continue  # phase 8's, 9's, 10's, 11's and 12's
         args, unknown = run_sim.build_parser().parse_known_args(ref["argv"] + ["--device", str(dev)])
         if unknown:
             raise AssertionError(f"reference argv not understood: {unknown}")
@@ -2521,6 +2542,232 @@ def phase_stream(root: Path, dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12: adaptive control
+
+CONTROL_BIG = ["--peers", "1000000", "--graph", "matching", "--mode", "push_pull", "--fanout", "3", "--control",
+               "0.99", "--control-bounds", "1,6", "--rounds", "48", "--digest", "--quiet"]  # bench_control's policy
+CONTROL_STREAM_BIG = ["--peers", "1000000", "--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--stream",
+                      "4", "--stream-burst-every", "6", "--slot-ttl", "24", "--control", "0.9", "--rounds", "48",
+                      "--digest", "--quiet"]
+SCENARIO_ARG = "LATE_LOSS_TOML"  # a pin's argv naming the file its scenario_text is written to
+CONTROL_COLUMNS = ("control_level", "control_fanout", "msgs_duplicate", "control_refreshed")
+
+
+def without(argv: list[str], *flags: str) -> list[str]:
+    """``argv`` without each of ``flags`` and its value."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in flags:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+def pin_argv(ref: dict, tmp: Path) -> list[str]:
+    """A pin's argv, ``--quiet`` dropped, a scenario given as text written to
+    a file where the argv names it."""
+    argv = [a for a in ref["argv"] if a != "--quiet"]
+    if "scenario_text" in ref:
+        path = tmp / "late_loss.toml"
+        path.write_text(ref["scenario_text"])
+        argv = [str(path) if a == SCENARIO_ARG else a for a in argv]
+    return argv
+
+
+def check_control_run(what: str, argv: list[str], r: dict) -> None:
+    """A controlled CLI run's path launches (its delivery kernels and tail
+    once a round), and every round's effective fanout inside the bounds."""
+    check_growth_run(what, argv, r)
+    lo, hi = r["summary"]["control"]["bounds"]
+    fanouts = {row["control_fanout"] for row in r["rows"]}
+    if not fanouts or not fanouts <= set(range(lo, hi + 1)):
+        raise AssertionError(f"{what}: effective fanouts {sorted(fanouts)} outside the bounds [{lo}, {hi}]")
+
+
+def control_line(card: str, what: str, r: dict, extra: str = "") -> str:
+    fanouts = [row["control_fanout"] for row in r["rows"]]
+    rm = ""
+    if r.get("round_ms"):
+        rm = f"; {sum(r['round_ms']) / len(r['round_ms'])} ms/round by CUDA events a round"
+    return fault_line(card, what, r, f"; control_fanout {fanouts}; reliability {r['summary']['reliability']}{rm}"
+                                     f"{extra}")
+
+
+def message_bill(rows: list[dict], target: float = 0.99) -> dict:
+    """bench_control's bill: the messages sent up to the run's rounds to
+    ``target`` over the infections held then."""
+    cov = [row["coverage"] for row in rows]
+    rtc = next((i + 1 for i, c in enumerate(cov) if c >= target), -1)
+    cut = rtc if rtc > 0 else len(rows)
+    msgs = sum(row["msgs_sent"] for row in rows[:cut])
+    ninf = rows[cut - 1]["n_infected"]
+    return dict(rounds_to_target=rtc, msgs_to_target=msgs, infections_delivered=ninf,
+                msgs_per_delivered_infection=round(msgs / max(ninf, 1), 3))
+
+
+def zero_adjustment_identity(static: dict, zero: dict) -> None:
+    """The zero-adjustment run's protocol trajectory is the static run's:
+    every plane of the final state but the cursor, every row but the four
+    control columns."""
+    for f in dataclasses.fields(static["fin"]):
+        if f.name != "control_lvl" and not torch.equal(getattr(static["fin"], f.name), getattr(zero["fin"], f.name)):
+            raise AssertionError(f"12b zero adjustment: plane {f.name} differs from the static run's")
+    strip = [{k: v for k, v in row.items() if k not in CONTROL_COLUMNS} for row in static["rows"]]
+    if strip != [{k: v for k, v in row.items() if k not in CONTROL_COLUMNS} for row in zero["rows"]]:
+        raise AssertionError("12b zero adjustment: the rows differ from the static run's beyond the control columns")
+    if any(row["control_fanout"] != 3 or row["control_level"] != 0 for row in zero["rows"]):
+        raise AssertionError("12b zero adjustment: the controller left its one level")
+
+
+def run_control_profile(root: Path, card: str) -> dict:
+    """``sim.profile --control 0.99`` at 1M (bench_control's policy on the
+    matching headline): the control stage's rows and the traced round."""
+    proc = subprocess.run([sys.executable, "-m", "tpu_gossip_torch.sim.profile", "--peers", "1000000", "--control",
+                           "0.99", "--warm", "6", "--rounds", "3", "--reps", "5"], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"sim.profile --control exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    stages, trace = lines[0]["stage_ms"], lines[1]["trace"]
+    for key in ("control_resolve", "control_apply", "control_refresh", "controlled_round", "plain_round"):
+        if key not in stages:
+            raise AssertionError(f"sim.profile --control printed no {key} row: {stages}")
+    print(f"[{card}] 12e sim.profile --control 0.99 (the matching graph n=1000000, push_pull, fanout 3, bounds 1..6, "
+          f"6 warm rounds): control_resolve {stages['control_resolve']} ms, control_apply {stages['control_apply']} "
+          f"ms, control_refresh {stages['control_refresh']} ms, controlled_round {stages['controlled_round']} ms "
+          f"against plain_round {stages['plain_round']} ms; every stage {stages}; traced: "
+          f"{trace['wall_ms_per_round']} ms/round wall, {trace['device_ms_per_round']} ms device, busy "
+          f"{trace['device_busy_share']}, top kernels {trace['top_kernels_ms_per_round'][:8]}", flush=True)
+    return dict(stages=stages, trace={k: v for k, v in trace.items() if k != "top_kernels_ms_per_round"})
+
+
+def phase_control(root: Path, dev, card: str) -> dict:
+    """Phase 12: the adaptive controller on the card. 12a the JAX control
+    pins at n <= 20000 through the CLI on every engine (matching and its
+    packed twin, PA exactly-k with fresh edges and the refresh, the
+    Chung-Lu staircase under a late loss, whose effective fanout visits 5,
+    the bucketed mesh with K6 and its packed twin, the degraded scenario
+    under a stream), launches counted from 0 a run; 12b bench_control's
+    policy on the 1M matching headline (48 rounds) onto its JAX pin, its
+    packed twin digest-equal, the static run and the zero-adjustment run
+    (bounds 3,3) on the same state, the zero-adjustment trajectory the
+    static one's beyond the control columns, and the message bill of the
+    controlled and static runs cut at their rounds to 0.99; 12c the 1M
+    stream headline under the controller onto its JAX pin; 12d pin 2
+    (PA, the refresh every 4 rounds) killed after its round-16 checkpoint
+    and resumed on the other device, both ways; 12e ``sim.profile
+    --control``."""
+    import shutil
+    import tempfile
+
+    refs = json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+    pins = [r for r in refs if control_pin(r)]
+    out = {}
+
+    # 12a: the small pins, every engine
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-control-") as tmp:
+        for ref in pins:
+            if ref["argv"][ref["argv"].index("--peers") + 1] == "1000000":
+                continue
+            argv = pin_argv(ref, Path(tmp))
+            r = cli_here(argv, dev)
+            what = f"12a run_sim {' '.join(a for a in ref['argv'] if a not in ('--digest', '--quiet'))}"
+            check_pin(r["summary"], ref, what)
+            check_control_run(what, argv, r)
+            fanouts = [row["control_fanout"] for row in r["rows"]]
+            if "scenario_text" in ref and 5 not in fanouts:
+                raise AssertionError(f"{what}: the effective fanout never visits 5 ({fanouts})")
+            print(control_line(card, what, r, "; equal to the JAX pin"), flush=True)
+            del r
+    out["12a"] = dict(seconds=time.perf_counter() - t0)
+
+    # 12b: bench_control's policy at 1M, its packed twin, the static and
+    # zero-adjustment runs on the same state, and the message bill
+    t0 = time.perf_counter()
+    pin = {" ".join(p["argv"]): p for p in pins}[" ".join(CONTROL_BIG)]
+    static_argv = without(CONTROL_BIG, "--control", "--control-bounds")
+    runs = {}
+    for what, argv in (("controlled", CONTROL_BIG), ("controlled packed", CONTROL_BIG + ["--packed"]),
+                       ("static", static_argv), ("zero adjustment", static_argv + ["--control", "0.99",
+                                                                                    "--control-bounds", "3,3"])):
+        argv = [a for a in argv if a != "--quiet"]
+        r = runs[what] = cli_here(argv, dev, marks=True)
+        check_growth_run(f"12b {what}", argv, r)
+        if what == "controlled":
+            check_pin(r["summary"], pin, "12b")
+        elif what == "controlled packed":
+            same_run(runs["controlled"], r, "12b packed twin")
+        r["bill"] = message_bill(r["rows"])
+        r["ms_per_round"] = sum(r["round_ms"]) / len(r["round_ms"])
+        if what.startswith("controlled"):
+            r["fin"] = None  # only the static and zero-adjustment states are compared
+        line = control_line if "reliability" in r["summary"] else fault_line
+        print(line(card, f"12b bench_control's policy on the 1M matching headline (push_pull, fanout 3, 48 rounds), "
+                         f"{what}", r, f"; bill to 99% {r['bill']}; {r['ms_per_round']} ms/round by CUDA events"),
+              flush=True)
+        out[f"12b {what}"] = dict(horizon=r["horizon"], launches=r["launches"], ms_per_round=r["ms_per_round"],
+                                  bill=r["bill"])
+    zero_adjustment_identity(runs["static"], runs["zero adjustment"])
+    c, st = runs["controlled"]["bill"], runs["static"]["bill"]
+    reduction = round(1.0 - c["msgs_per_delivered_infection"] / st["msgs_per_delivered_infection"], 4)
+    reliability = runs["controlled"]["summary"]["reliability"]
+    print(f"[{card}] 12b the zero-adjustment run (bounds 3,3) equals the static run beyond the four control columns "
+          f"(every plane but control_lvl, every row); message bill to 99%: controlled {c} against static {st}, "
+          f"msgs per delivered infection reduced by {reduction}; the controlled run's reliability block "
+          f"{reliability}", flush=True)
+    del runs, r
+    out["12b"] = dict(seconds=time.perf_counter() - t0, reduction=reduction, reliability=reliability)
+
+    # 12c: the 1M stream headline under the controller
+    t0 = time.perf_counter()
+    pin = {" ".join(p["argv"]): p for p in pins}[" ".join(CONTROL_STREAM_BIG)]
+    argv = [a for a in CONTROL_STREAM_BIG if a != "--quiet"]
+    r = cli_here(argv, dev, marks=True)
+    check_pin(r["summary"], pin, "12c")
+    check_stream_run("12c", argv, r)
+    check_control_run("12c", argv, r)
+    out["12c"] = dict(horizon=r["horizon"], launches=r["launches"],
+                      ms_per_round=sum(r["round_ms"]) / len(r["round_ms"]))
+    print(control_line(card, "12c the 1M matching headline under a stream (rate 4, bursts x4 every 6 rounds, TTL 24, "
+                             "48 rounds) and the controller (0.9)", r, "; digests equal the JAX pin"), flush=True)
+    del r
+    out["12c"]["seconds"] = time.perf_counter() - t0
+
+    # 12d: pin 2 killed after a refresh round's checkpoint, resumed on the other device
+    t0 = time.perf_counter()
+    from tpu_gossip_torch.ckpt import load_checkpoint
+
+    small = [p for p in pins if "--refresh-every" in p["argv"] and p["argv"][1] == "20000"][0]
+    cursors = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-control-") as tmp:
+        tmp = Path(tmp)
+        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+            d = tmp / write_on
+            kill_at(root, small["argv"] + ["--checkpoint-every", "8", "--checkpoint-dir", str(d), "--device",
+                                           write_on], "checkpoint: wrote ckpt-00000016")
+            shutil.rmtree(d / "ckpt-00000024", ignore_errors=True)
+            cursors[write_on] = int(load_checkpoint(d / "ckpt-00000016", device="cpu")[0].control_lvl)
+            if cursors[write_on] < 0:
+                raise AssertionError(f"12d: ckpt-00000016 holds no cursor ({cursors[write_on]})")
+            summary, err = cli_run(root, ["resume", str(d), "--device", resume_on], f"12d {write_on} resume")
+            if "resume: ckpt-00000016 at round 16" not in err:
+                raise AssertionError(f"12d: the resume did not start from ckpt-00000016: {err[-2000:]}")
+            check_pin(summary, small, f"12d {write_on}->{resume_on}")
+    out["12d"] = dict(seconds=time.perf_counter() - t0, cursors=cursors)
+    print(f"[{card}] 12d pin 2 ({' '.join(small['argv'])}) killed after ckpt-00000016 (a refresh round; cursor "
+          f"{cursors}) on the card and resumed on the CPU, and the reverse, both onto the JAX pin", flush=True)
+
+    # 12e: the control stage's rows
+    t0 = time.perf_counter()
+    out["12e profile"] = run_control_profile(root, card)
+    out["12e"] = dict(seconds=time.perf_counter() - t0)
+    return out
+
+
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
     ("lane_shuffle", "lane_shuffle", "tpu_gossip_torch/csrc/lane_shuffle.cu",
      "tpu_gossip/kernels/permute.py:77", "lane_shuffle"),
@@ -2819,7 +3066,13 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     t0 = time.perf_counter()
     stream = phase_stream(root, dev, card)
     print(f"[{card}] phase 11: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in stream.items() if 'seconds' in v} }; the script "
+          f"{ {k: round(v['seconds'], 2) for k, v in stream.items() if 'seconds' in v} }", flush=True)
+
+    # phase 12: adaptive control (12a-12e)
+    t0 = time.perf_counter()
+    control = phase_control(root, dev, card)
+    print(f"[{card}] phase 12: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in control.items() if 'seconds' in v} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -335,14 +335,14 @@ def test_repartition_swarm_equals_jax(s):
         assert t_state_digest(tnew) == j_state_digest(jnew)
 
 
-@pytest.mark.parametrize("what", ["pipeline", "control"])
+@pytest.mark.parametrize("what", ["pipeline", "inject"])
 def test_burst_and_quarantined_churn_are_not_ported(what):
-    """The planes of later slices (pipelining, control) raise ``not_ported``
-    on a churned round, naming their slice; the burst form runs
-    (``test_torch_faults.py``), the quarantined rejoin
+    """The planes of later slices (pipelining, live ingestion) raise
+    ``not_ported`` on a churned round, naming their slice; the burst form
+    runs (``test_torch_faults.py``), the quarantined rejoin
     (``test_torch_adversary.py``), growth's admission waves
-    (``test_torch_growth_runs.py``) and streams (``test_torch_stream.py``)
-    too."""
+    (``test_torch_growth_runs.py``), streams (``test_torch_stream.py``) and
+    the controller (``test_torch_control*.py``) too."""
     _, _, (tc, tsw) = _build_csr_swarms(200, seed=1)
-    with pytest.raises(NotImplementedError, match="not ported yet.*(multi-device|control) slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet.*(multi-device|serving) slice"):
         te.gossip_round(tsw, tc, **{what: object()})

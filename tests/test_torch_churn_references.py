@@ -11,14 +11,14 @@ import pytest
 
 from tpu_gossip_torch.cli import run_sim as tcli
 from tests.test_torch_churn_cli import one_shard  # noqa: F401
-from tests.test_torch_cli import REF, _summary, fault_pin, growth_pin, stream_pin
+from tests.test_torch_cli import REF, _summary, control_pin, fault_pin, growth_pin, stream_pin
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 
 def _churn_refs():
     return [r for r in json.loads(REF.read_text())
             if "--churn-join" in r["argv"] and "20000" in r["argv"] and not fault_pin(r) and not growth_pin(r)
-            and not stream_pin(r)]
+            and not stream_pin(r) and not control_pin(r)]
 
 
 @pytest.mark.parametrize("i", range(7))

@@ -13,24 +13,30 @@ from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 REF = Path(__file__).resolve().parent.parent / "tpu_gossip_torch" / "reference_digests.json"
 
 
+def control_pin(ref) -> bool:
+    """A pin of the adaptive controller (``--control``): the last slice's,
+    after the streaming plane's."""
+    return "--control" in ref["argv"]
+
+
 def stream_pin(ref) -> bool:
-    """A pin of the streaming plane (``--stream``): the last slice's, after
+    """A pin of the streaming plane (``--stream``, no controller), after
     the growth plane's."""
-    return "--stream" in ref["argv"]
+    return "--stream" in ref["argv"] and not control_pin(ref)
 
 
 def growth_pin(ref) -> bool:
-    """A pin of the growth plane (``--grow``, no stream), after the quorum
-    detector's."""
-    return "--grow" in ref["argv"] and not stream_pin(ref)
+    """A pin of the growth plane (``--grow``, no stream, no controller),
+    after the quorum detector's."""
+    return "--grow" in ref["argv"] and not stream_pin(ref) and not control_pin(ref)
 
 
 def fault_pin(ref) -> bool:
     """A pin of the fault plane (silent peers or a scenario, no growth, no
-    stream); the pins of earlier slices are the others but the growth and
-    stream pins."""
+    stream, no controller); the pins of earlier slices are the others but
+    the growth, stream and control pins."""
     return ("--scenario" in ref["argv"] or "--silent-frac" in ref["argv"]) and not growth_pin(ref) and (
-        not stream_pin(ref))
+        not stream_pin(ref)) and not control_pin(ref)
 
 
 def _summary(capsys, main, argv):
@@ -146,10 +152,10 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--graph", "chung-lu", "--control", "0.9", "--device", "cpu"],
+    ["--graph", "chung-lu", "--control", "0.9", "--profile-round", "4", "--device", "cpu"],
     ["--graph", "pa", "--stream", "0.5", "--rounds", "20", "--pipeline", "1", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
-    ["--graph", "matching", "--churn-leave", "0.1", "--refresh-every", "4", "--device", "cpu"],
+    ["--graph", "matching", "--control", "0.9", "--rounds", "8", "--pipeline", "1", "--device", "cpu"],
 ])
 def test_cli_flags_of_later_slices_exit_2(capsys, argv):
     assert tcli.main(["--peers", "100", *argv]) == 2

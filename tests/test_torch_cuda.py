@@ -6,6 +6,7 @@ Run them on the card with
 suite's conftest imports JAX, which a GPU machine need not have).
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -930,5 +931,102 @@ def test_stream_digest_on_card_equals_cpu(dev, argv, path):
     launches = dict(LAUNCHES)
     assert card == run("cpu")
     assert card["stream"]["msgs_expired"] > 0
+    for key, n in FAULT_PATHS[path](32, 0).items():
+        assert launches[key] == n, (key, launches)
+
+
+@pytest.mark.parametrize("fanout", [1, 3, 8])
+def test_controlled_segment_sampled_on_card_equals_cpu(dev, fanout):
+    """K5's wrapper under the controller on the card, every effective
+    fanout from 1 to twice the plan's (the scaled thresholds, the pull gate
+    and the needy rows): the CPU's delivery and bill, one K5 launch a
+    call."""
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core import topology as tt
+    from tpu_gossip_torch.kernels.native import LAUNCHES
+    from tpu_gossip_torch.kernels.pallas_segment import build_staircase_plan, segment_sampled
+
+    deg = tt.powerlaw_degree_sequence(20000, rng=np.random.default_rng(fanout))
+    g = tt.build_csr(20000, tt.configuration_model(deg, rng=np.random.default_rng(1)))
+    plans = {d: build_staircase_plan(g.row_ptr, g.col_idx, fanout=fanout, device=d) for d in ("cpu", dev)}
+    rng = np.random.default_rng(fanout)
+    tx = torch.from_numpy(rng.random((g.n, 16)) < 0.3)
+    rec = torch.from_numpy(rng.random(g.n) < 0.9)
+    needy = torch.from_numpy(rng.random(g.n) < 0.6)
+    for m_eff in range(1, 2 * fanout + 1):
+        out = {}
+        for d in ("cpu", dev):
+            before = LAUNCHES["staircase_segment"]
+            out[str(d)] = segment_sampled(
+                plans[d], tx.to(d), None, 16, prng.key(m_eff, d), receptive_rows=rec.to(d), do_push=True,
+                do_pull=True, fanout=torch.tensor(m_eff, dtype=torch.int32, device=d),
+                pull_gate=torch.tensor(bool(m_eff % 2), device=d), pull_needy_rows=needy.to(d))
+            assert LAUNCHES["staircase_segment"] == before + (0 if d == "cpu" else 1)
+        (ci, cm), (gi, gm) = out["cpu"], out[str(dev)]
+        assert torch.equal(ci, gi.cpu()) and int(cm) == int(gm) > 0, m_eff
+
+
+@pytest.mark.parametrize("kind", ["push_pull", "push", "pull"])
+def test_controlled_bucketed_exchange_on_card_equals_cpu(dev, kind):
+    """The bucketed exchange with the controller's decision (the effective
+    fanout in the push law, the pull gate, the needy rows on the merged
+    wire) on the card through K6, against the CPU's scatter receive."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.control import RoundControl
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.dist import mesh as dm
+
+    sg, plans = _shard_plans(dev, "chung_lu", 4)
+    cpu_sg = dataclasses.replace(sg, **{f.name: getattr(sg, f.name).cpu() for f in dataclasses.fields(sg)
+                                        if isinstance(getattr(sg, f.name), torch.Tensor)})
+    g = _gen(dev, 7)
+    transmit = torch.rand((sg.n_pad, 16), generator=g, device=dev) < 0.3
+    blocked = torch.rand((sg.n_pad,), generator=g, device=dev) < 0.1
+    needy = torch.rand((sg.n_pad,), generator=g, device=dev) < 0.5
+    for m_eff, gate in ((1, True), (3, False), (6, True)):
+        out = {}
+        for d, graph, plan in ((dev, sg, plans), ("cpu", cpu_sg, None)):
+            rc = RoundControl(m_eff=torch.tensor(m_eff, dtype=torch.int32, device=d),
+                              pull_on=torch.tensor(gate, device=d), lvl=torch.tensor(0, dtype=torch.int32, device=d),
+                              width=6, needy=needy.to(d))
+            keys = prng.split(prng.key(3, d), 4)
+            out[str(d)] = dm._exchange((transmit & ~blocked[:, None]).to(d), graph, keys, kind, 2, plan,
+                                       blocked.to(d), rc)
+        (gi, gm), (ci, cm) = out[str(dev)], out["cpu"]
+        assert torch.equal(gi.cpu(), ci) and int(gm) == int(cm), (kind, m_eff)
+        # a closed pull gate ships nothing on the pull wire
+        assert (int(gm) > 0) == (kind != "pull" or gate), (kind, m_eff)
+    assert isinstance(dist.make_mesh(1, device=dev), dist.Mesh)
+
+
+@pytest.mark.parametrize("argv,path", [
+    (["--graph", "matching", "--fanout", "1", "--control", "0.99"], "matching"),
+    (["--graph", "matching", "--fanout", "1", "--packed", "--control", "0.99"], "packed matching"),
+    (["--graph", "chung-lu", "--staircase", "--fanout", "3", "--control-bounds", "1,6", "--control", "0.99"],
+     "staircase"),
+    (["--graph", "chung-lu", "--fanout", "3", "--churn-leave", "0.01", "--churn-join", "0.05", "--rewire-slots", "6",
+      "--refresh-every", "4", "--control", "0.9"], "exactly-k"),
+    (["--graph", "chung-lu", "--shard", "--staircase", "--fanout", "2", "--control", "0.9"], "sharded staircase"),
+])
+def test_control_digest_on_card_equals_cpu(dev, argv, path):
+    """A controlled run (n=20000, 32 rounds) on each engine: the card equals
+    the CPU (summary, the control and reliability blocks, digests), the
+    card run launching its path's kernels and K3 or K4 once a round."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    argv = ["--peers", "20000", "--rounds", "32", "--digest", "--quiet", "--mode", "push_pull", *argv]
+    parser = run_sim.build_parser()
+
+    def run(device):
+        args = parser.parse_args(argv + ["--device", device])
+        assert run_sim.validate(args) is None
+        return run_sim.run(args)
+
+    reset_launches()
+    card = run("cuda")
+    launches = dict(LAUNCHES)
+    assert card == run("cpu")
+    assert card["reliability"]["messages_judged"] == 1
     for key, n in FAULT_PATHS[path](32, 0).items():
         assert launches[key] == n, (key, launches)

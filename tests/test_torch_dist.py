@@ -181,7 +181,7 @@ def test_refused_arguments_raise_not_ported(graph, what):
         _, sg = matching_powerlaw_graph(200, fanout=1, key=prng.key(0, "cpu"), device="cpu")
     elif what in ("packed_stream", "stream"):
         # streams run on this engine, packed or not; composed with a later
-        # slice's argument (pipelining, control) they are refused
+        # slice's argument (pipelining, live ingestion) they are refused
         from tpu_gossip_torch.core.packed import pack_state
         from tpu_gossip_torch.traffic import compile_stream
 
@@ -189,7 +189,14 @@ def test_refused_arguments_raise_not_ported(graph, what):
         if what == "packed_stream":
             ts, kw["pipeline"] = pack_state(ts), object()
         else:
-            kw["control"] = object()
+            kw["inject"] = object()
+    elif what == "control":
+        # the controller runs on this engine; composed with pipelining it
+        # is refused
+        from tpu_gossip_torch.control import compile_control
+
+        kw["control"] = compile_control(target_ratio=0.9, fanout=1, device="cpu")
+        kw["pipeline"] = object()
     elif what in ("rewire_slots", "scenario", "liveness"):
         # re-wiring, scenarios (admission waves included), the quorum
         # detector and growth run on this engine, churn bursts included;

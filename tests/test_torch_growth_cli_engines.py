@@ -7,7 +7,9 @@ flash-crowd scenario's join_burst waves; the summary and every per-round
 row equal (``degree_gamma`` within 1e-5), and the run to coverage. The JAX
 CLI's half of a run that compiles a composed scenario runs in a child
 process (:func:`jax_cli_child`), retried once if XLA's CPU compiler kills
-it with a signal; the port's half runs in this process."""
+it with a signal; the port's half runs in this process. Other files run
+the JAX half of an in-process comparison so through
+:func:`jax_in_child`."""
 
 import json
 import os
@@ -57,22 +59,39 @@ sys.exit(run_sim.main(sys.argv[2:]))
 """
 
 
-def jax_cli_child(argv, one_shard: bool = False):
-    """The JAX CLI on ``argv`` in a child process (on a one-device mesh with
-    ``one_shard``), as :func:`tests.test_torch_cli._summary` returns it:
-    ``(summary, per-round lines)``. A child killed by a signal of the
-    reference compiler (SIGSEGV, SIGABRT) is run exactly once more; any
-    other failure fails."""
+_CALL = """import importlib, json, sys
+fn = getattr(importlib.import_module(sys.argv[1]), sys.argv[2])
+print(json.dumps(fn(*json.loads(sys.argv[3]))))
+"""
+
+
+def _child(cmd: list[str], what: str) -> list[str]:
+    """``cmd`` run from the repo root on the CPU, its stdout lines. A child
+    killed by a signal of the reference compiler (SIGSEGV, SIGABRT) is run
+    exactly once more; any other failure fails."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
-    cmd = [sys.executable, "-c", _CHILD, "one_shard" if one_shard else "-", *argv]
     for attempt in range(2):
         proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
         if attempt == 0 and proc.returncode in tuple(-s for s in COMPILER_SIGNALS):
             continue
         break
-    assert proc.returncode == 0, f"JAX CLI exited {proc.returncode}: {proc.stderr[-3000:]}"
-    lines = proc.stdout.strip().splitlines()
+    assert proc.returncode == 0, f"{what} exited {proc.returncode}: {proc.stderr[-3000:]}"
+    return proc.stdout.strip().splitlines()
+
+
+def jax_cli_child(argv, one_shard: bool = False):
+    """The JAX CLI on ``argv`` in a child process (on a one-device mesh with
+    ``one_shard``), as :func:`tests.test_torch_cli._summary` returns it:
+    ``(summary, per-round lines)``, retried once on a compiler signal."""
+    lines = _child([sys.executable, "-c", _CHILD, "one_shard" if one_shard else "-", *argv], "JAX CLI")
     return json.loads(lines[-1]), lines[:-1]
+
+
+def jax_in_child(module: str, fn: str, *args):
+    """``module.fn(*args)`` in a child process, its JSON result: the JAX half
+    of an in-process comparison, kept out of a test worker whose XLA CPU
+    compiler might die under load; retried once on a compiler signal."""
+    return json.loads(_child([sys.executable, "-c", _CALL, module, fn, json.dumps(args)], f"{module}.{fn}")[-1])
 
 
 def jax_cli(capsys, argv, one_shard: bool = False):

@@ -75,11 +75,12 @@ def test_packed_round_refuses_later_slices():
     (_, _, _), (tc, ts, tp) = build_both(500, seed=0, mode="push_pull", fanout=1)
     from tpu_gossip_torch.faults import compile_scenario, scenario_from_dict
 
-    # a scenario's admission waves run (growth); control is the control slice's
+    # a scenario's admission waves run (growth); a live-ingestion batch is
+    # the serving slice's
     waves = compile_scenario(scenario_from_dict({"phases": [{"start": 0, "end": 2, "join_burst": 3}]}), n_peers=500,
                              n_slots=ts.seen.shape[0], total_rounds=4, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        gossip_round(pack_state(ts), tc, tp, scenario=waves, control=object())
+        gossip_round(pack_state(ts), tc, tp, scenario=waves, inject=object())
     with pytest.raises(TypeError):
         gossip_round(pack_state(ts), tc, tp, bogus=1)
     with pytest.raises(ValueError):

@@ -5,7 +5,7 @@ the port's CLI prints on the CPU."""
 
 import json
 
-from tests.test_torch_cli import REF, _check_reference, fault_pin, growth_pin, stream_pin
+from tests.test_torch_cli import REF, _check_reference, control_pin, fault_pin, growth_pin, stream_pin
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 
@@ -16,7 +16,8 @@ def _flags(argv) -> frozenset:
 
 def _packed_refs() -> list[dict]:
     return [r for r in json.loads(REF.read_text())
-            if "--packed" in r["argv"] and not fault_pin(r) and not growth_pin(r) and not stream_pin(r)]
+            if "--packed" in r["argv"] and not fault_pin(r) and not growth_pin(r) and not stream_pin(r)
+            and not control_pin(r)]
 
 
 def test_packed_references_equal_their_unpacked_twins():

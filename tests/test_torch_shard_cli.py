@@ -10,7 +10,7 @@ from tpu_gossip import dist as jdist
 from tpu_gossip.cli import run_sim as jcli
 from tpu_gossip_torch import dist as tdist
 from tpu_gossip_torch.cli import run_sim as tcli
-from tests.test_torch_cli import REF, _check_reference, _summary, fault_pin, growth_pin, stream_pin
+from tests.test_torch_cli import REF, _check_reference, _summary, control_pin, fault_pin, growth_pin, stream_pin
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 
@@ -87,7 +87,7 @@ def test_shard_reference_digests_are_what_jax_produces(capsys, shards, packed):
     shards(1)
     (ref,) = [r for r in json.loads(REF.read_text())
               if "--shard" in r["argv"] and ("--packed" in r["argv"]) == packed and "--churn-join" not in r["argv"]
-              and not fault_pin(r) and not growth_pin(r) and not stream_pin(r)]
+              and not fault_pin(r) and not growth_pin(r) and not stream_pin(r) and not control_pin(r)]
     assert ref["source"].startswith("python -m tpu_gossip.cli.run_sim") and "one-device mesh" in ref["source"]
     _check_reference(capsys, ref)
 

@@ -46,7 +46,7 @@ def test_stream_refusals_in_jax_words(capsys, argv):
 
 @pytest.mark.parametrize("argv,item", [
     (["--profile-round", "4"], "9f"),
-    (["--rounds", "20", "--control", "0.9"], "9e"),
+    (["--rounds", "20", "--hosts", "2"], "11c"),
     (["--rounds", "20", "--pipeline", "1"], "9f"),
     (["--rounds", "20", "--shard", "--graph", "matching"], "11b"),
 ])

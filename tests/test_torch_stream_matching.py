@@ -2,8 +2,9 @@
 ``test_matching_stream_local_vs_sharded_bit_identical``, on the CPU: a
 loaded run on the S=8 matching layout with growth rows, in push-pull and
 flood with the hotspot law, under the chaos scenario and while a flash
-crowd joins, equal to JAX's local run of the same cell. The sharded half
-(the matching mesh) waits for the sharded matching engine (ROADMAP item
+crowd joins, equal to JAX's local run of the same cell (the JAX run in a
+child process, :func:`jax_matching_stream`). The sharded half (the
+matching mesh) waits for the sharded matching engine (ROADMAP item
 11b)."""
 
 import jax
@@ -22,7 +23,7 @@ from tpu_gossip_torch.sim import engine as te
 from tpu_gossip_torch.utils.digest import state_digest as t_state_digest
 from tpu_gossip_torch.utils.digest import stats_digest as t_stats_digest
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
-from tests.test_torch_stream import _np, streams
+from tests.test_torch_stream import _np
 
 
 STREAM_STATE_FIELDS = ("seen", "exists", "alive", "rewired", "declared_dead", "recovered", "last_hb",
@@ -34,6 +35,46 @@ def _matching_rows(plan, ids):
     return (ids // plan.n_per) * plan.n_blk + (ids % plan.n_per)
 
 
+CHAOS = {"name": "chaos", "phases": [
+    {"name": "lossy", "start": 0, "end": 2, "loss": 0.3, "delay": 0.3},
+    {"name": "split", "start": 2, "end": 4, "partition": "half", "loss": 0.1},
+    {"name": "storm", "start": 4, "end": 6, "churn_leave": 0.1, "churn_join": 0.3,
+     "blackout": {"frac": 0.1, "seed": 9}}]}
+
+
+def _cell(compose, mode):
+    """The cell's config kwargs (growth rows re-wire; the scenario churns)."""
+    extra = dict(rewire_slots=2) if compose == "growth" else {}
+    if compose == "scenario":
+        extra = dict(churn_leave_prob=0.02, churn_join_prob=0.2, rewire_slots=2)
+    return dict(msg_slots=8, fanout=2, mode=mode, **extra)
+
+
+def jax_matching_stream(mode: str, law: str, compose) -> dict:
+    """The JAX half of :func:`test_matching_stream_on_the_sharded_layout_equals_jax_local`:
+    its run's digests and the stream state planes as lists."""
+    from tpu_gossip import faults as jf
+    from tpu_gossip import growth as jg
+    from tpu_gossip import traffic as jt
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded as jb
+
+    jgraph, jplan = jb(800, 8, fanout=2, key=jax.random.key(0), growth_rows=32)
+    kw = dict(n_peers=jplan.n, **_cell(compose, mode))
+    js = j_init(jgraph.as_padded_graph(), JConfig(**kw), origins=[0, 5], exists=jgraph.exists, key=jax.random.key(3))
+    jstrm = jt.compile_stream(rate=4.0, msg_slots=8, ttl=7, origin_rows=_matching_rows(jplan, np.arange(800)),
+                              origins=law, burst_every=3)
+    jsc = jgp = None
+    if compose == "scenario":
+        jsc = jf.compile_scenario(jf.scenario_from_dict(CHAOS), n_peers=800, n_slots=jplan.n, total_rounds=10,
+                                  node_map=lambda ids: _matching_rows(jplan, ids))
+    elif compose == "growth":
+        jgp = jg.compile_growth(n_initial=800, target=900, n_slots=jplan.n, joins_per_round=16, attach_m=2,
+                                admit_rows=jg.matching_admit_rows(jplan, 100))
+    jfin, jst = je.simulate(js, JConfig(**kw), 10, jplan, "fused", jsc, jgp, jstrm)
+    return dict(state=j_state_digest(jfin), stats=j_stats_digest(jst),
+                fields={f: np.asarray(getattr(jfin, f)).tolist() for f in STREAM_STATE_FIELDS})
+
+
 @pytest.mark.parametrize("mode,law,compose", [
     ("push_pull", "uniform", None), ("flood", "hotspot", None), ("push_pull", "uniform", "scenario"),
     ("push_pull", "uniform", "growth")], ids=["push_pull", "flood_hotspot", "chaos_scenario", "flash_crowd"])
@@ -41,50 +82,37 @@ def test_matching_stream_on_the_sharded_layout_equals_jax_local(mode, law, compo
     """The local half of test_matching_stream_local_vs_sharded_bit_identical:
     a loaded run (rate 4, bursts every 3 rounds, TTL 7) on the S=8
     matching layout with 32 growth rows a block, under the chaos scenario
-    or a flash crowd, equal to JAX's local run, the load biting. The
-    sharded half (the matching mesh) waits for the sharded matching engine
-    (ROADMAP item 11b)."""
-    from tpu_gossip import faults as jf
-    from tpu_gossip import growth as jg
-    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded as jb
+    or a flash crowd, equal to JAX's local run, the load biting. The JAX
+    half runs in a child process, as a test worker's XLA CPU compiler has
+    died under the suite's load on it. The sharded half (the matching
+    mesh) waits for the sharded matching engine (ROADMAP item 11b)."""
     from tpu_gossip_torch import faults as tf
     from tpu_gossip_torch import growth as tg
+    from tpu_gossip_torch import traffic as tt
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded as tb
+    from tests.test_torch_growth_cli_engines import jax_in_child
 
-    jgraph, jplan = jb(800, 8, fanout=2, key=jax.random.key(0), growth_rows=32)
     tgraph, tplan = tb(800, 8, fanout=2, key=prng.key(0, "cpu"), growth_rows=32, device="cpu")
-    extra = dict(rewire_slots=2) if compose == "growth" else {}
-    if compose == "scenario":
-        extra = dict(churn_leave_prob=0.02, churn_join_prob=0.2, rewire_slots=2)
-    kw = dict(n_peers=tplan.n, msg_slots=8, fanout=2, mode=mode, **extra)
-    js = j_init(jgraph.as_padded_graph(), JConfig(**kw), origins=[0, 5], exists=jgraph.exists, key=jax.random.key(3))
+    kw = dict(n_peers=tplan.n, **_cell(compose, mode))
     ts = t_init(tgraph.as_padded_graph(), TConfig(**kw), origins=[0, 5], exists=tgraph.exists,
                 key=prng.key(3, "cpu"), device="cpu")
-    jstrm, tstrm = streams(rate=4.0, msg_slots=8, ttl=7, origin_rows=_matching_rows(tplan, np.arange(800)),
-                           origins=law, burst_every=3)
-    jsc = tsc = jgp = tgp = None
+    tstrm = tt.compile_stream(rate=4.0, msg_slots=8, ttl=7, origin_rows=_matching_rows(tplan, np.arange(800)),
+                              origins=law, burst_every=3, device="cpu")
+    tsc = tgp = None
     if compose == "scenario":
-        d = {"name": "chaos", "phases": [
-            {"name": "lossy", "start": 0, "end": 2, "loss": 0.3, "delay": 0.3},
-            {"name": "split", "start": 2, "end": 4, "partition": "half", "loss": 0.1},
-            {"name": "storm", "start": 4, "end": 6, "churn_leave": 0.1, "churn_join": 0.3,
-             "blackout": {"frac": 0.1, "seed": 9}}]}
-        skw = dict(n_peers=800, n_slots=tplan.n, total_rounds=10, node_map=lambda ids: _matching_rows(tplan, ids))
-        jsc = jf.compile_scenario(jf.scenario_from_dict(d), **skw)
-        tsc = tf.compile_scenario(tf.scenario_from_dict(d), **skw, device="cpu")
+        tsc = tf.compile_scenario(tf.scenario_from_dict(CHAOS), n_peers=800, n_slots=tplan.n, total_rounds=10,
+                                  node_map=lambda ids: _matching_rows(tplan, ids), device="cpu")
     elif compose == "growth":
-        gkw = dict(n_initial=800, target=900, n_slots=tplan.n, joins_per_round=16, attach_m=2)
-        jgp = jg.compile_growth(**gkw, admit_rows=jg.matching_admit_rows(jplan, 100))
-        tgp = tg.compile_growth(**gkw, admit_rows=tg.matching_admit_rows(tplan, 100), device="cpu")
-    jfin, jst = je.simulate(js, JConfig(**kw), 10, jplan, "fused", jsc, jgp, jstrm)
+        tgp = tg.compile_growth(n_initial=800, target=900, n_slots=tplan.n, joins_per_round=16, attach_m=2,
+                                admit_rows=tg.matching_admit_rows(tplan, 100), device="cpu")
+    want = jax_in_child("tests.test_torch_stream_matching", "jax_matching_stream", mode, law, compose)
     tfin, tst = te.simulate(ts, TConfig(**kw), 10, tplan, "fused", scenario=tsc, growth=tgp, stream=tstrm)
-    assert t_state_digest(tfin) == j_state_digest(jfin) and t_stats_digest(tst) == j_stats_digest(jst)
+    assert t_state_digest(tfin) == want["state"] and t_stats_digest(tst) == want["stats"]
     for f in STREAM_STATE_FIELDS:
-        np.testing.assert_array_equal(_np(getattr(tfin, f)), np.asarray(getattr(jfin, f)), err_msg=f)
+        got = _np(getattr(tfin, f))
+        np.testing.assert_array_equal(got, np.asarray(want["fields"][f], dtype=got.dtype), err_msg=f)
     assert int(tst.stream_injected.sum()) > 10 and int(tst.stream_expired.sum()) > 0
     if compose == "scenario":
         assert int(tst.msgs_dropped.sum()) > 0
     if compose == "growth":
         assert int(tst.n_members[-1]) == 900
-
-

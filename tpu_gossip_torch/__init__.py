@@ -21,8 +21,12 @@ JAX package's fault scenarios (loss, delay, partitions, blackouts, churn
 bursts; ``run_sim --scenario``) and silent peers (``--silent-frac``) on
 every engine above, and ``kernels.liveness.compile_quorum`` its quorum
 failure detector (``liveness=``, ``run_sim --quorum-k``), under which a
-scenario's Byzantine accusers, forgers and flooders act. It imports
-neither JAX nor the JAX package.
+scenario's Byzantine accusers, forgers and flooders act;
+``tpu_gossip_torch.growth`` grows a swarm while it gossips (``--grow``),
+``tpu_gossip_torch.traffic`` runs sustained message streams
+(``--stream``) and ``tpu_gossip_torch.control`` the adaptive fanout and
+push/push-pull controller with its PeerSwap refresh (``control=``,
+``run_sim --control``). It imports neither JAX nor the JAX package.
 
 Entry points take ``device`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version.

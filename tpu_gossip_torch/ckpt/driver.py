@@ -6,7 +6,10 @@ the driver runs the horizon in segments cut at the checkpoint grid (and
 the remat grid), saves the state and the stats so far between segments,
 and joins the segments' stats into the one trajectory the summary reads.
 A resumed run therefore ends on the same state and the same integer stats
-as the run that was never interrupted.
+as the run that was never interrupted. The planes' cursors (``fault_held``,
+``slot_lease``, ``control_lvl``) ride the state, so a scenario, a stream
+or a controller (given to the segment runner) resumes with no bookkeeping
+of its own.
 """
 
 from __future__ import annotations

@@ -31,6 +31,9 @@
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 1 --graph matching --stream 4 --stream-burst-every 6 \\
         --slot-ttl 24 --rounds 48 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 3 --graph matching --control 0.99 --control-bounds 1,6 \\
+        --rounds 48 --digest
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -58,7 +61,12 @@ adds the final membership and the degree tail's gamma. ``--stream RATE``
 and hotspot knobs) injects a sustained Poisson message stream on every
 engine (``traffic/``), its leases aging out through the round tail, and
 adds the ``stream`` block (the steady-state serving report) to the summary
-of the fixed horizon it needs. Then either run a fixed ``--rounds`` horizon (one
+of the fixed horizon it needs. ``--control TARGET`` (with
+``--control-bounds LO,HI`` and ``--refresh-every K``) closes the fanout
+feedback loop on every engine (``control/``: the AIMD fanout and
+push/push-pull mix, the PeerSwap refresh on the re-wiring plane) and adds
+the ``control`` block, and on a fixed horizon the ``reliability`` block,
+to the summary. Then either run a fixed ``--rounds`` horizon (one
 JSON row per round, then the summary, with ``state_digest`` and
 ``stats_digest`` under ``--digest``) or run to ``--target`` coverage and
 print the benchmark summary. With ``--packed`` the seeded state is packed
@@ -103,17 +111,15 @@ _LATER = (
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
     "included, with checkpoints and resume, silent peers, fault scenarios, the quorum detector with "
-    "its adversaries, growth and streams (later slices add control (ROADMAP item 9e), pipelined rounds "
+    "its adversaries, growth, streams and adaptive control (later slices add pipelined rounds "
     "(9f), fleets (10), the sharded matching engine (11b), the multi-card exchange (11c) and serving (12))"
 )
-_ITEM9E, _ITEM11B, _ITEM11C = ("adaptive control (ROADMAP item 9e)", "sharded matching engine (ROADMAP item 11b)",
-                               "multi-process (ROADMAP item 11c)")
+_ITEM11B, _ITEM11C = "sharded matching engine (ROADMAP item 11b)", "multi-process (ROADMAP item 11c)"
 _ITEM9F = "pipelined rounds and composed profile rows (ROADMAP item 9f)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
 JAX_FLAG_DEFAULTS = {
-    "control": (0.0, _ITEM9E), "control_bounds": ("", _ITEM9E), "refresh_every": (0, _ITEM9E),
     "transport": ("dense", _ITEM11B), "builder": ("local", _ITEM11B),
     "pipeline": (None, _ITEM11C), "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
     "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
@@ -267,6 +273,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream-burst-mult", type=float, default=4.0, metavar="X")
     p.add_argument("--stream-hot-frac", type=float, default=0.01, metavar="F")
     p.add_argument("--stream-hot-weight", type=float, default=0.9, metavar="W")
+    p.add_argument("--control", type=float, default=0.0, metavar="TARGET_RATIO",
+                   help="adaptive protocol control (control/): close the fanout feedback loop inside the round, "
+                   "defending the declared delivery-ratio target. Each round an AIMD policy widens the effective "
+                   "fanout when the observed delivery signals fall below TARGET_RATIO (realized loss, lagging "
+                   "stream slots) and shrinks it when the duplicate rate saturates; in push_pull mode the "
+                   "anti-entropy half runs only at-or-below the static --fanout. Runs on every engine from a "
+                   "dedicated PRNG stream; the summary gains the reliability contract block on fixed-horizon runs")
+    p.add_argument("--control-bounds", type=str, default="", metavar="LO,HI",
+                   help="the policy's fanout bounds (default: 1,2*--fanout, clamped to --rewire-slots when churn "
+                   "re-wiring is active). --fanout must lie inside; LO,HI = --fanout,--fanout is the "
+                   "zero-adjustment controller, bit-identical to the static run")
+    p.add_argument("--refresh-every", type=int, default=0, metavar="K",
+                   help="PeerSwap neighbour refresh: every K rounds each live re-wired peer swaps one fresh-edge "
+                   "slot for a new degree-preferential draw (degree-credit bookkeeping preserved). Needs "
+                   "--control and the re-wiring plane (--rewire-slots/--grow); 0 = off")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -284,16 +305,17 @@ def main(argv: list[str] | None = None) -> int:
 
 def validate(args: argparse.Namespace) -> str | None:
     """Every check of a parsed run config, in the JAX CLI's order (the
-    scenario, growth, the quorum detector, then the rest): the first
-    reason it cannot run (exit 2), or None. Settles the defaults the
-    validators fill in (``grow_rate``, ``grow_capacity``, the detector's
+    scenario, growth, the stream, the controller, the quorum detector,
+    then the rest): the first reason it cannot run (exit 2), or None.
+    Settles the defaults the validators fill in (``grow_rate``,
+    ``grow_capacity``, ``slot_ttl``, the control bounds, the detector's
     window and budget) into ``args``."""
     spec = None
     err = _scenario_refusal(args)
     if err is None and args.scenario:
         spec = _scenario_spec(args)
-    return (err or _validate_grow(args, spec) or _validate_stream(args) or _validate_liveness(args, spec)
-            or _refusal(args))
+    return (err or _validate_grow(args, spec) or _validate_stream(args) or _validate_control(args)
+            or _validate_liveness(args, spec) or _refusal(args))
 
 
 def _refusal(args: argparse.Namespace) -> str | None:
@@ -317,12 +339,92 @@ def _refusal(args: argparse.Namespace) -> str | None:
     if args.profile_round > 0 and args.packed:
         return ("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
                 "boundary codec: drop --packed for the decomposition")
-    if args.profile_round > 0 and (args.grow or args.stream > 0):
+    if args.profile_round > 0 and (args.grow or args.stream > 0 or args.control > 0):
         from tpu_gossip_torch.sim.stages import not_ported
 
-        what = "--grow (the growth row" if args.grow else "--stream (the stream rows"
+        what = ("--grow (the growth row" if args.grow else "--stream (the stream rows" if args.stream > 0
+                else "--control (the control rows")
         return str(not_ported(f"--profile-round with {what} of the stage table)", _ITEM9F))
     return None
+
+
+def _validate_control(args: argparse.Namespace) -> str | None:
+    """The reason a --control config cannot run (exit 2, the JAX CLI's
+    words), or None. Settles the bounds (``control_lo``, ``control_hi``)
+    into ``args``, so every engine path and the checkpoint manifest read
+    one config."""
+    if args.control == 0:
+        set_flags = [name for name, dflt in (("--control-bounds", args.control_bounds == ""),
+                                             ("--refresh-every", args.refresh_every == 0)) if not dflt]
+        if set_flags:
+            return f"{set_flags[0]} shapes the adaptive-control policy; add --control TARGET_RATIO"
+        return None
+    if not (0.0 < args.control <= 1.0):
+        return f"--control {args.control} must be a delivery-ratio target in (0, 1]"
+    if args.mode == "flood":
+        return ("--control modulates the sampled fanout and the anti-entropy mix; flood delivery has neither — "
+                "use --mode push or push_pull")
+    rewire = _rewire_slots(args)
+    if args.control_bounds:
+        try:
+            lo_s, hi_s = args.control_bounds.split(",")
+            lo, hi = int(lo_s), int(hi_s)
+        except ValueError:
+            return f"--control-bounds {args.control_bounds!r} must be LO,HI (two integers)"
+        if lo < 1:
+            return f"--control-bounds lower bound {lo} must be >= 1"
+        if hi < lo:
+            return f"--control-bounds {lo},{hi} has LO > HI"
+        if not (lo <= args.fanout <= hi):
+            return (f"--control-bounds [{lo}, {hi}] must contain --fanout {args.fanout} — the policy must be able "
+                    "to express the static rate")
+        if rewire > 0 and hi > rewire:
+            return (f"--control-bounds upper bound {hi} exceeds the re-wiring width --rewire-slots {rewire}: a "
+                    "widened rejoiner would redraw its few fresh edges past their useful multiplicity; raise "
+                    "--rewire-slots or lower HI")
+    else:
+        lo, hi = 1, max(2 * args.fanout, args.fanout)
+        if rewire > 0:
+            hi = max(args.fanout, min(hi, rewire))
+        if rewire > 0 and hi > rewire:
+            return (f"the default control bounds need HI >= --fanout {args.fanout}, but --rewire-slots is "
+                    f"{rewire}; raise --rewire-slots or pass --control-bounds")
+    args.control_lo, args.control_hi = lo, hi
+    if args.refresh_every < 0:
+        return "--refresh-every must be >= 0"
+    if args.refresh_every > 0 and rewire == 0:
+        return ("--refresh-every rides the re-wiring plane (rewire_targets) — only re-wired peers carry "
+                "swappable fresh edges; add --rewire-slots (with churn) or --grow")
+    return None
+
+
+def _compile_cli_control(args: argparse.Namespace, dev):
+    """The --control policy on ``dev`` (None without --control): layout-
+    blind, so one spec serves every engine path and survives an epoch
+    re-partition; its TTL is the stream's slot TTL under --stream."""
+    if args.control <= 0:
+        return None
+    from tpu_gossip_torch.control import compile_control
+
+    return compile_control(target_ratio=args.control, fanout=args.fanout, lo=args.control_lo, hi=args.control_hi,
+                           refresh_every=args.refresh_every, ttl=args.slot_ttl if args.stream > 0 else 0,
+                           device=dev)
+
+
+def _control_summary(args: argparse.Namespace, cfg=None, stats=None) -> dict:
+    """The summary's ``control`` block (the policy's config) and, when
+    per-round stats exist, the ``reliability`` block
+    (``sim.metrics.reliability_report``)."""
+    if args.control <= 0:
+        return {}
+    out = {"control": {"target_ratio": args.control, "bounds": [args.control_lo, args.control_hi],
+                       "refresh_every": args.refresh_every}}
+    if stats is not None:
+        from tpu_gossip_torch.sim import metrics as M
+
+        out["reliability"] = M.reliability_report(stats, target_ratio=args.control, coverage_target=args.target,
+                                                  round_seconds=cfg.round_seconds if cfg is not None else 5.0)
+    return out
 
 
 def _validate_stream(args: argparse.Namespace) -> str | None:
@@ -850,6 +952,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     dev = resolve_device(args.device)
     spec = _scenario_spec(args)
     lqs = _compile_cli_liveness(args)
+    ctl = _compile_cli_control(args, dev)
     rng = np.random.default_rng(args.seed)
     exists = plan = None
     if args.graph == "matching":
@@ -894,7 +997,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     origins, silent_ids = _sample_ids(args, rng)
     if args.shard:
         cfg, state, segment, to_target, extra, epoch, grow = _shard_runners(args, graph, origins, silent_ids, cfg_kw,
-                                                                            dev, spec, lqs)
+                                                                            dev, spec, lqs, ctl)
         strm = None  # (the bucketed runners carry their own, in the mesh's rows)
         policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
         _check_resume_devices(resume, epoch[0].size)
@@ -911,11 +1014,11 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
 
         def segment(st, rounds):
             return simulate(st, cfg, rounds, plan, args.tail, scenario=scen, liveness=lqs, growth=grow,
-                            stream=strm)
+                            stream=strm, control=ctl)
 
         def to_target(st):
             return run_until_coverage(st, cfg, args.target, args.max_rounds, plan=plan, tail=args.tail,
-                                      scenario=scen, liveness=lqs, growth=grow)
+                                      scenario=scen, liveness=lqs, growth=grow, control=ctl)
 
         if args.profile_round > 0:
             return _profile_round(args, cfg, state, plan), None
@@ -932,21 +1035,24 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     marks = _horizon_start(dev) if durable and dev.type == "cuda" else None
     with trace(args.profile):
         if args.remat_every > 0 and args.shard:
-            summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, lqs, policy=policy, prefix=prefix,
+            summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, lqs, ctl, policy=policy, prefix=prefix,
                                                  durable=durable)
             summary.update(_scenario_summary(spec))
+            summary.update(_control_summary(args))
         elif args.remat_every > 0:
-            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, grow, strm, policy=policy,
+            summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, grow, strm, ctl, policy=policy,
                                            prefix=prefix, durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.rounds > 0:
             fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
             summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats),
-                                          **_stream_summary(args, cfg, stats), **_liveness_summary(args, stats)),
+                                          **_stream_summary(args, cfg, stats), **_control_summary(args, cfg, stats),
+                                          **_liveness_summary(args, stats)),
                        **_digest_summary(args, fin, stats, durable)}
         else:
             summary, fin = _run_to_target(args, cfg, state, to_target,
-                                          {**extra, **_scenario_summary(spec), **_liveness_summary(args)})
+                                          {**extra, **_scenario_summary(spec), **_control_summary(args),
+                                           **_liveness_summary(args)})
     if marks is not None:
         import torch
 
@@ -1090,7 +1196,7 @@ def _remat_summary(args: argparse.Namespace, state, parts, wall: float, extra: d
 
             M.write_jsonl(stats, sys.stdout)
         summary = _horizon_summary(args, stats, **extra, **_stream_summary(args, cfg, stats),
-                                   **_liveness_summary(args, stats))
+                                   **_control_summary(args, cfg, stats), **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, state, stats))
         return summary
     rounds = int(state.round)
@@ -1131,7 +1237,7 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
 
 
 def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, grow=None, strm=None,
-                    *, policy=None, prefix=None, durable: bool = False):
+                    ctl=None, *, policy=None, prefix=None, durable: bool = False):
     """--remat-every R on the local engine: R rounds, then fold the fresh
     edges into the CSR at the capacity ``cap`` taken once from the fresh
     initial state; with --staircase the plan is rebuilt from each
@@ -1152,14 +1258,15 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
 
     def horizon_segment(st, seg):
         return simulate(st, cfg, seg, _staircase_plan(args, st, dev) if args.staircase else None, args.tail,
-                        scenario=scen, liveness=lqs, growth=grow, stream=strm)
+                        scenario=scen, liveness=lqs, growth=grow, stream=strm, control=ctl)
 
     r = args.remat_every
     if durable:
         fin, stats, wall = _run_checkpointed_horizon(args, state, horizon_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, remat_every=r, remats=(args.rounds - 1) // r,
                                    remat_overflow_edges=sum(int(o) for o in overflow), wall_seconds=wall,
-                                   **_stream_summary(args, cfg, stats), **_liveness_summary(args, stats))
+                                   **_stream_summary(args, cfg, stats), **_control_summary(args, cfg, stats),
+                                   **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, fin, stats, durable=True))
         return summary, fin
 
@@ -1168,14 +1275,14 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
             return horizon_segment(st, seg)
         plan = _staircase_plan(args, st, dev) if args.staircase else None
         return run_until_coverage(st, cfg, args.target, seg, plan=plan, tail=args.tail, scenario=scen,
-                                  liveness=lqs, growth=grow, stream=strm), None
+                                  liveness=lqs, growth=grow, stream=strm, control=ctl), None
 
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     extra = {"remat_every": r, "remats": remats, "remat_overflow_edges": sum(int(o) for o in overflow)}
     return _remat_summary(args, state, parts, wall, extra, wall, cfg=cfg), state
 
 
-def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, scen=None, lqs=None, *,
+def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans, scen=None, lqs=None, ctl=None, *,
                           policy=None, prefix=None, durable: bool = False):
     """--shard --remat-every R: R rounds on the mesh, then fold the fresh
     edges into the CSR, re-partition the live swarm with seed ``--seed``
@@ -1195,9 +1302,11 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
 
     def run_segment(st, seg):
         if args.rounds > 0:
-            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen, liveness=lqs)
+            return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen, liveness=lqs,
+                                      control=ctl)
         return dist.run_until_coverage_dist(st, cfg, epoch["sg"], mesh, args.target, seg,
-                                            shard_plan=epoch["plans"], scenario=scen, liveness=lqs), None
+                                            shard_plan=epoch["plans"], scenario=scen, liveness=lqs,
+                                            control=ctl), None
 
     def fold(st):
         t0 = time.perf_counter()
@@ -1217,7 +1326,8 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
     if durable:
         fin, stats, wall = _run_checkpointed_horizon(args, state, run_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, devices=mesh.size, remat_every=r, remats=(args.rounds - 1) // r,
-                                   wall_seconds=wall, **_liveness_summary(args, stats))
+                                   wall_seconds=wall, **_control_summary(args, cfg, stats),
+                                   **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, fin, stats, durable=True))
         summary["transport"] = "dense"
         return summary, fin
@@ -1225,7 +1335,8 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
     out = {"devices": mesh.size, "remat_every": r, "remats": remats, "remat_overflow_edges": epoch["overflow"],
            "epoch_rebuild_seconds_total": round(epoch["rebuild_s"], 3)}
-    summary = _remat_summary(args, state, parts, wall, out, wall - epoch["rebuild_s"], target_liveness=False)
+    summary = _remat_summary(args, state, parts, wall, out, wall - epoch["rebuild_s"], target_liveness=False,
+                             cfg=cfg)
     if args.rounds == 0:
         summary["ms_per_round_amortized"] = wall / max(int(state.round), 1) * 1000.0
     summary["transport"] = "dense"
@@ -1275,7 +1386,8 @@ def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
             "warm_rounds": args.profile_round, "stages_ms": stages_ms(stages)}
 
 
-def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw: dict, dev, spec=None, lqs=None):
+def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw: dict, dev, spec=None, lqs=None,
+                   ctl=None):
     """--shard: partition the graph over the mesh (pads born dead), with
     --staircase build K6's plans, seed ``origins`` and the silent peers
     through the partition's relabelling, compile the scenario over the
@@ -1309,11 +1421,11 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
 
     def segment(st, rounds):
         return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow,
-                                  stream=strm)
+                                  stream=strm, control=ctl)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
-                                            scenario=scen, liveness=lqs, growth=grow)
+                                            scenario=scen, liveness=lqs, growth=grow, control=ctl)
 
     return (cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans, scen),
             grow)

@@ -34,7 +34,10 @@ does a run under the quorum detector (``liveness``) with its adversaries,
 and a growing run (``growth``, its admission rows mapped through
 ``position``): the admission draws at global shape, as on the local
 engine, and so does a streamed run (``stream``, its origin rows mapped
-through ``position``). The exchange over NCCL with one process per card, the
+through ``position``) and a controlled one (``control``: the round's
+effective fanout and pull gate enter every shard's activation, the needy
+rows filter the pull direction receiver-side, and the refresh draws at
+global shape). The exchange over NCCL with one process per card, the
 matching mesh, the sparse, auto and hier transports and the ``IciRound``
 counters are a later slice and raise ``NotImplementedError``.
 """
@@ -395,12 +398,15 @@ def _uniform_rows(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return torch.stack([prng.uniform(k, shape) for k in keys])
 
 
-def activation(sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout: int):
+def activation(sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout, pull_gate=None):
     """Each bucket entry's firing, (S, S, B) bool, and on the merged
     push_pull path the per-direction billing byte (uint8, bit 0 push, bit
     1 pull), else None. ``keys`` holds one key per shard; shard ``s``
     draws its (S, B) row of uniforms from its own key (the merged path
-    splits it into a push and a pull key first)."""
+    splits it into a push and a pull key first). ``fanout`` is an int or
+    the controller's effective fanout (int32 0-d), entering the push law
+    ``fanout / max(src_deg, 1)``; ``pull_gate`` (bool 0-d) masks the pull
+    activation."""
     s, b = sg.n_shards, sg.bucket
     valid = sg.send_valid
     if kind == "flood":
@@ -408,12 +414,15 @@ def activation(sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout: int):
     if kind == "push":
         return valid & (_uniform_rows(keys, (s, b)) < _ratio(fanout, sg.send_src_deg)), None
     if kind == "pull":
-        return valid & (_uniform_rows(keys, (s, b)) < _ratio(1, sg.send_dst_deg)), None
+        act_q = valid & (_uniform_rows(keys, (s, b)) < _ratio(1, sg.send_dst_deg))
+        return (act_q if pull_gate is None else act_q & pull_gate), None
     if kind != "push_pull":
         raise ValueError(f"unknown activation {kind!r}")
     kpq = torch.stack([prng.split(k) for k in keys])  # (S, 2, 2)
     act_p = valid & (_uniform_rows(kpq[:, 0], (s, b)) < _ratio(fanout, sg.send_src_deg))
     act_q = valid & (_uniform_rows(kpq[:, 1], (s, b)) < _ratio(1, sg.send_dst_deg))
+    if pull_gate is not None:
+        act_q = act_q & pull_gate
     return act_p | act_q, act_p.to(torch.uint8) | (act_q.to(torch.uint8) << 1)
 
 
@@ -476,32 +485,57 @@ def receive(received: torch.Tensor, sg: ShardedGraph, shard_plan, m: int) -> tor
     return out[0] if s == 1 else torch.cat(out)
 
 
+def _received_rows(sg: ShardedGraph, rows: torch.Tensor, device) -> torch.Tensor:
+    """A per-row (n_pad,) bool read at every received entry's destination
+    row, shaped like ``recv_dst``."""
+    dst = (sg.recv_dst.to(torch.int64) + _shard_base(sg, device)).view(-1)
+    return rows[dst].view(sg.recv_dst.shape)
+
+
 def drop_blocked(received: torch.Tensor, sg: ShardedGraph, blocked_rows: torch.Tensor) -> torch.Tensor:
     """The receiver-side stale filter: every received entry bound for a
     ``blocked_rows`` row (a rewired slot, whose static in-edges are the
     departed occupant's) zeroed, billing byte included, before billing."""
-    rows = (sg.recv_dst.to(torch.int64) + _shard_base(sg, received.device)).view(-1)
-    keep = ~blocked_rows[rows].view(sg.recv_dst.shape)
+    keep = ~_received_rows(sg, blocked_rows, received.device)
     return torch.where(keep[..., None], received, 0)
 
 
-def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout: int,
-              shard_plan=None, blocked_rows=None) -> tuple[torch.Tensor, torch.Tensor]:
+def drop_sated_pulls(received: torch.Tensor, sg: ShardedGraph, needy_rows: torch.Tensor, w: int) -> torch.Tensor:
+    """The needy-pull gate on the merged wire: a sated puller issued no
+    request, so the pull bit of every entry bound for a row outside
+    ``needy_rows`` is cleared before billing; the words stay (their push
+    direction is untouched)."""
+    acts = received[..., w]
+    received = received.clone()
+    received[..., w] = torch.where(_received_rows(sg, needy_rows, received.device), acts, acts & 1)
+    return received
+
+
+def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout,
+              shard_plan=None, blocked_rows=None, rctl=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One bucketed exchange; returns (incoming (n_pad, m) bool, int64
     messages). ``kind`` is the activation: push, pull, flood or the merged
     push_pull, which carries both directions on one wire. Deliveries to
-    ``blocked_rows`` are neither delivered nor billed."""
+    ``blocked_rows`` are neither delivered nor billed. ``rctl`` (the
+    controller's round decision) puts ``m_eff`` in the push law and
+    ``pull_on`` on the pull activation, and on the merged wire bills no
+    pull of a sated row."""
     m = transmit.shape[1]
-    active, acts = activation(sg, keys, kind, fanout)
+    w = packed_width(m)
+    if rctl is not None:
+        fanout = rctl.m_eff
+    active, acts = activation(sg, keys, kind, fanout, None if rctl is None else rctl.pull_on)
     received = all_to_all(send_payload(transmit, sg, active, acts))
     if blocked_rows is not None:
         received = drop_blocked(received, sg, blocked_rows)
-    received, msgs = bill(received, packed_width(m))
+    if kind == "push_pull" and rctl is not None and rctl.needy is not None:
+        received = drop_sated_pulls(received, sg, rctl.needy, w)
+    received, msgs = bill(received, w)
     return receive(received, sg, shard_plan, m), msgs
 
 
 def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, transmit, transmitter,
-                          receptive, k_push, k_pull):
+                          receptive, k_push, k_pull, rctl=None):
     """The bucketed engine's delivery; returns ``(incoming, msgs_sent)``.
 
     Both keys are split once more, child 0 driving delivery and child 1
@@ -511,7 +545,11 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
     peer with neighbours bills one request. Under re-wiring (push and
     push_pull) rewired rows send nothing over static edges, receive
     nothing over them, bill no static pull, and their fresh edges carry
-    ``fresh_rewire_traffic``; flood ignores re-wiring."""
+    ``fresh_rewire_traffic``; flood ignores re-wiring. Under a controller
+    (``rctl``) the exchanges take its decision (:func:`_exchange`), a
+    sated puller's pull exchange drops its deliveries like a stale edge's,
+    and the pull requests are billed only where the pull half runs and
+    only for needy rows."""
     s = sg.n_shards
     k_push, k_rw_push = prng.split(k_push)
     k_pull, k_rw_pull = prng.split(k_pull)
@@ -522,33 +560,43 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
     merged = cfg.mode == "push_pull" and not cfg.forward_once
     incoming = torch.zeros_like(state.seen)
     msgs = torch.zeros((), dtype=torch.int64, device=transmit.device)
+    needy = None if rctl is None else rctl.needy
     if cfg.mode == "push_pull":
         pulls = (sg.deg > 0) & receptive.any(-1)
         if rewiring:
             pulls = pulls & ~state.rewired
+        if needy is not None:
+            pulls = pulls & needy
         pulls = pulls.sum()
+        if rctl is not None:
+            pulls = torch.where(rctl.pull_on, pulls, 0)
     if merged:
-        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan, blocked)
+        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan, blocked,
+                              rctl)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode in ("push", "push_pull") and not merged:
-        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan, blocked)
+        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan, blocked, rctl)
         incoming, msgs = incoming | inc, msgs + sent
     if cfg.mode == "push_pull" and not merged:
         static_answer = answer & ~state.rewired[:, None] if rewiring else answer
-        inc, sent = _exchange(static_answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan, blocked)
+        pull_blocked = blocked
+        if needy is not None:
+            pull_blocked = ~needy if blocked is None else blocked | ~needy
+        inc, sent = _exchange(static_answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan,
+                              pull_blocked, rctl)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode == "flood":
         inc, sent = _exchange(transmit, sg, None, "flood", cfg.fanout, shard_plan)
         incoming, msgs = incoming | inc, msgs + sent
     if rewiring:
         inc, sent = fresh_rewire_traffic(state, cfg, transmit, answer, receptive.any(-1), k_rw_push, k_rw_pull,
-                                         do_pull=cfg.mode == "push_pull")
+                                         do_pull=cfg.mode == "push_pull", rctl=rctl)
         incoming, msgs = incoming | inc, msgs + sent
     return incoming, msgs.to(torch.int32)
 
 
 def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, flags: dict, role_w, tx_w,
-                                 k_push, k_pull):
+                                 k_push, k_pull, rctl=None):
     """The packed round's delivery; returns ``(inc_w, msgs_sent)``. The
     exchange indexes rows of the bool planes, so the transmit and role
     words decode here, once a round, and the product packs again."""
@@ -558,7 +606,7 @@ def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_p
     shim = _delivery_shim(ps, flags, unpack_bits(ps.seen, m))
     role_b = unpack_bits(role_w, m)
     inc, msgs = _disseminate_bucketed(shim, cfg, sg, shard_plan, unpack_bits(tx_w, m), role_b, role_b, k_push,
-                                      k_pull)
+                                      k_pull, rctl)
     return pack_bits(inc), msgs
 
 
@@ -594,27 +642,29 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, sha
     adversaries, their draws at global shape as on the local engine,
     ``growth`` admits the round's join batch and ``stream`` runs a
     streaming workload at global shape (its origin table in the mesh's
-    rows). The arguments of later slices (``transport``, ``collect_ici``,
-    ``control``, ``pipeline``, ``inject``) raise ``NotImplementedError``."""
+    rows), and ``control`` (a ``ControlSpec``, layout-blind) runs the
+    adaptive controller, its decision riding every exchange. The arguments
+    of later slices (``transport``, ``collect_ici``, ``pipeline``,
+    ``inject``) raise ``NotImplementedError``."""
     _check_round(state, cfg, sg, mesh, shard_plan, later)
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed
 
-        def deliver_words(tx_w, role_w, flags, kp, kq):
-            return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq)
+        def deliver_words(tx_w, role_w, flags, kp, kq, rctl):
+            return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq, rctl)
 
         def deliver_bool_factory(flags, seen_b):
             shim = _delivery_shim(state, flags, seen_b)
 
-            def deliver(tx, tr, rc, kp, kq):
-                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq)
+            def deliver(tx, tr, rc, kp, kq, rctl):
+                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl)
 
             return deliver
 
         return run_protocol_round_packed(state, cfg, deliver_words, deliver_bool_factory, **later)
 
-    def disseminate(tx, tr, rc, kp, kq):
-        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq)
+    def disseminate(tx, tr, rc, kp, kq, rctl):
+        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl)
 
     return run_protocol_round(state, cfg, disseminate, **later)
 

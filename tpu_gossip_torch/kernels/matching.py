@@ -11,8 +11,8 @@ Sampling is the Bernoulli-per-edge law: per-slot uint32 thresholds gate
 each direction of every surviving edge, one draw per direction per round,
 drawn with the same threefry keys as the JAX package. ``msgs`` counts the
 delivered slot-bits per fired edge plus one request per fired pull edge of
-a receptive puller, in int32. The controller hooks of the JAX signature
-(``fanout``, ``pull_gate``, ``pull_needy_rows``) belong to a later slice.
+a receptive puller, in int32. The adaptive controller's hooks
+(``fanout``, ``pull_gate``, ``pull_needy_rows``) move only the gates.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import torch
 
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
-from tpu_gossip_torch.kernels.pallas_segment import _slot_groups, pack_words, popcount, unpack_words
+from tpu_gossip_torch.kernels.pallas_segment import (_slot_groups, check_control_hooks, pack_words, popcount,
+                                                     unpack_words)
 
 __all__ = ["matching_flood", "matching_sampled"]
 
@@ -58,14 +59,25 @@ def matching_sampled(
     receptive_rows: torch.Tensor | None = None,
     do_push: bool = True,
     do_pull: bool = False,
+    fanout: torch.Tensor | None = None,
+    pull_gate: torch.Tensor | None = None,
+    pull_needy_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sampled (push / push-pull) delivery; returns ``(incoming (n_state, m)
     bool, msgs_sent int32)``. ``answer=None`` answers pulls with
     ``transmit``; ``receptive_rows`` (n_state,) gates the pull half by the
-    puller and zeroes non-receptive rows' deliveries."""
+    puller and zeroes non-receptive rows' deliveries.
+
+    The controller's round decision: ``fanout`` (int32 0-d tensor) enters
+    the push law ``B(fanout/deg)``, recomputed from the same degree tables
+    (equal to the plan's static fanout, the gates are the static ones);
+    ``pull_gate`` (bool 0-d) masks the pull activation, billing included;
+    ``pull_needy_rows`` ((n_state,) bool) masks it by the puller, through
+    the class expand the receptive gate rides."""
     if plan.fanout is None or plan.deg_other is None:
         raise ValueError("plan built without fanout — no sampling gates")
     n_state = transmit.shape[0]
+    check_control_hooks(n_state, fanout, pull_gate, pull_needy_rows)
     shape = (plan.rows, 128)
     k_push, k_pull = prng.split(key)
     msgs = torch.zeros((), dtype=torch.int64, device=transmit.device)
@@ -75,9 +87,13 @@ def matching_sampled(
         rec_slots = plan.expand(rec_rows_n.to(torch.int32)) > 0
     active_p = active_q = pull_bill = None
     if do_push:
-        active_p = prng.bits(k_push, shape) < plan.push_threshold()
+        active_p = prng.bits(k_push, shape) < plan.push_threshold(fanout)
     if do_pull:
         active_q = prng.bits(k_pull, shape) < plan.pull_threshold()
+        if pull_gate is not None:
+            active_q = active_q & pull_gate
+        if pull_needy_rows is not None:
+            active_q = active_q & (plan.expand(pull_needy_rows[: plan.n].to(torch.int32)) > 0)
         pull_bill = active_q.to(torch.int32)
     outs = []
     for lo, w in _slot_groups(m):

@@ -22,8 +22,9 @@ The TPU kernels contract a one-hot "staircase" matrix on the MXU and zero
 each output block on its first visit (the plan's ``first_visit`` table).
 The card needs neither: K5 and K6 reduce runs of equal destination with
 warp shuffles and atomics into outputs the wrapper zeroes, so the port's
-plans carry no ``first_visit``. The controller hooks of
-``segment_sampled`` belong to a later slice.
+plans carry no ``first_visit``. The adaptive controller's hooks of
+``segment_sampled`` rescale its push thresholds and mask its pull half in
+the wrapper (:func:`scaled_push_thresholds`); K5 is launched unchanged.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.device_topology import repeat_ids
 from tpu_gossip_torch.device import resolve_device
 from tpu_gossip_torch.kernels import native
-from tpu_gossip_torch.sim.stages import not_ported
 
 __all__ = [
     "ROWS",
@@ -56,6 +56,7 @@ __all__ = [
     "stream_segment_or",
     "segment_or",
     "segment_sampled",
+    "scaled_push_thresholds",
 ]
 
 ROWS = 1024  # output rows per block
@@ -419,9 +420,15 @@ def segment_sampled(plan: StaircasePlan, transmit: torch.Tensor, answer: torch.T
     ``transmit``. The pull bill (one request per fired pull edge plus the
     pulled bits) is summed per puller row by K5 on the last group's launch.
     ``receptive_rows`` masks whole rows after the kernel, deliveries and
-    bill alike. ``msgs`` counts delivered push bits plus the billed rows."""
-    if fanout is not None or pull_gate is not None or pull_needy_rows is not None:
-        raise not_ported("controller hooks of segment_sampled (fanout, pull_gate, pull_needy_rows)", "control")
+    bill alike. ``msgs`` counts delivered push bits plus the billed rows.
+
+    The controller's round decision: ``fanout`` (int32 0-d tensor) rescales
+    the plan's push thresholds (:func:`scaled_push_thresholds`);
+    ``pull_gate`` (bool 0-d) masks the pull activation; ``pull_needy_rows``
+    ((N,) bool) masks the billed rows after K5, as the receptive mask does
+    (a sated row's pulled bits still merge: it holds every live bit they
+    could carry). K5 itself is launched unchanged."""
+    check_control_hooks(transmit.shape[0], fanout, pull_gate, pull_needy_rows)
     if plan.push_thresh is None:
         raise ValueError("plan built without fanout — no sampling thresholds")
     if m > 2**18:
@@ -431,9 +438,12 @@ def segment_sampled(plan: StaircasePlan, transmit: torch.Tensor, answer: torch.T
     msgs = torch.zeros((), dtype=torch.int64, device=transmit.device)
     active_p = active_q = pull_bill = bill_row = None
     if do_push:
-        active_p = prng.bits(k_push, shape) < plan.push_thresh
+        pt = plan.push_thresh if fanout is None else scaled_push_thresholds(plan, fanout)
+        active_p = prng.bits(k_push, shape) < pt
     if do_pull:
         active_q = prng.bits(k_pull, shape) < plan.pull_thresh
+        if pull_gate is not None:
+            active_q = active_q & pull_gate
         pull_bill = active_q.to(torch.int32)
     groups = _slot_groups(m)
     outs = []
@@ -461,5 +471,37 @@ def segment_sampled(plan: StaircasePlan, transmit: torch.Tensor, answer: torch.T
         billed = torch.round(bill_row).to(torch.int32)
         if receptive_rows is not None:
             billed = torch.where(receptive_rows, billed, 0)
+        if pull_needy_rows is not None:
+            billed = torch.where(pull_needy_rows, billed, 0)
         msgs = msgs + billed.sum()
     return incoming, msgs.to(torch.int32)
+
+
+def check_control_hooks(n: int, fanout, pull_gate, pull_needy_rows) -> None:
+    """The sampled kernels' controller hooks are the round's decision: a
+    0-d effective ``fanout`` and ``pull_gate`` and an (n,) bool
+    ``pull_needy_rows``, or None."""
+    for name, hook, shape in (("fanout", fanout, ()), ("pull_gate", pull_gate, ()),
+                              ("pull_needy_rows", pull_needy_rows, (n,))):
+        if hook is not None and tuple(hook.shape) != shape:
+            raise ValueError(f"{name} must be a tensor of shape {shape} (the controller's round decision), "
+                             f"got shape {tuple(hook.shape)}")
+
+
+def scaled_push_thresholds(plan: StaircasePlan, fanout: torch.Tensor) -> torch.Tensor:
+    """The plan's uint32 push thresholds (int64) at the controller's
+    effective ``fanout`` (int32 0-d tensor), as XLA computes JAX's
+    ``pt.astype(f32) * (fanout.astype(f32) / f32(plan.fanout))``: the
+    division by the constant compiles to a multiply by the float32
+    reciprocal (for ``plan.fanout = 3`` and ``fanout = 5``, ``5 *
+    0.333333343`` rounds to 1.66666675 where ``5 / 3`` gives 1.66666663).
+    Then the float32 product, the ``2^32 - 2^8`` cap, truncation to an
+    unsigned integer, and the plan's own table where ``fanout`` is the
+    plan's fanout."""
+    f32 = torch.float32
+    dev = plan.push_thresh.device
+    recip = torch.tensor(1.0, dtype=f32, device=dev) / torch.tensor(float(plan.fanout), dtype=f32, device=dev)
+    scale = fanout.to(f32) * recip
+    cap = torch.tensor(2.0 ** 32 - 2.0 ** 8, dtype=f32, device=dev)
+    scaled = torch.minimum(plan.push_thresh.to(f32) * scale, cap).to(torch.int64)
+    return torch.where(fanout == plan.fanout, plan.push_thresh, scaled)

@@ -1,8 +1,8 @@
 """The protocol round loop.
 
 Ports the local path of ``tpu_gossip/sim/engine.py``: ``RoundStats`` with
-all 30 fields (planes the port does not run yet report zeros,
-``control_level`` -1) and ``_stats``; ``compute_roles``,
+all 30 fields (planes the port does not run yet report zeros) and
+``_stats``; ``compute_roles``,
 ``transmit_bitmap`` and ``kernel_path_masks``; ``_disseminate_local``
 (:262) with every delivery family of one device: the sampled kernel
 paths over a MatchingPlan or a StaircasePlan, the exactly-k XLA push and
@@ -25,7 +25,11 @@ batch after churn and ``degree_gamma`` tracks the realized degrees' tail;
 and ``stream``, a ``CompiledStream`` (``traffic/``): leases past their TTL
 recycle through the tail, the round's arrivals land after it, and the
 four stream columns and the per-slot tracks (``slot_infected``,
-``slot_age``) are filled.
+``slot_age``) are filled; and ``control``, a ``ControlSpec``
+(``control/``): the round's decision (effective fanout, pull gate, needy
+rows) is resolved before delivery and reaches every path, the control
+stage runs last, and the four control columns are filled (``control_level``
+-1 without a controller).
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
@@ -34,8 +38,7 @@ JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 column). Both loops read the state's round (under a scenario or a stream)
 and key (under a stream) once and carry them on the host
 (``sim.stages.host_cursor``). Rounds are functional: each returns
-a new state and leaves its input's planes unchanged. The controller
-belongs to a later slice.
+a new state and leaves its input's planes unchanged.
 """
 
 from __future__ import annotations
@@ -92,7 +95,7 @@ class RoundStats(NamedTuple):
     stream_expired: torch.Tensor
     slot_infected: torch.Tensor  # i32 (M,)
     slot_age: torch.Tensor  # i32 (M,)
-    control_level: torch.Tensor  # i32 — control plane (-1 here)
+    control_level: torch.Tensor  # i32 — control plane (-1 without a controller)
     control_fanout: torch.Tensor
     msgs_duplicate: torch.Tensor
     control_refreshed: torch.Tensor
@@ -146,7 +149,7 @@ def slot_tracks(seen: torch.Tensor, live: torch.Tensor, slot_lease: torch.Tensor
 
 
 def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None,
-           growth=None, stream=None, stel=None) -> RoundStats:
+           growth=None, stream=None, stel=None, ctel=None) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -166,9 +169,19 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, l
     if fstats is not None:
         counters.update(fstats._asdict())
     counters.update(stream_counters(stel))
+    counters.update(control_counters(ctel))
     counters.update(liveness_counters(ltel, liveness, state.exists, state.alive, state.declared_dead,
                                       state.quarantine))
     return RoundStats(**counters)
+
+
+def control_counters(ctel) -> dict:
+    """The four control columns from the round's ``ControlTelemetry``
+    (none without a controller: ``control_level`` stays -1)."""
+    if ctel is None:
+        return {}
+    return {"control_level": ctel.level, "control_fanout": ctel.fanout, "msgs_duplicate": ctel.duplicate,
+            "control_refreshed": ctel.refreshed}
 
 
 def stream_counters(stel) -> dict:
@@ -255,10 +268,14 @@ def _substitute_rewired(state, cfg: SwarmConfig, tgt, valid, key):
             torch.where(rw, stgt >= 0, valid))
 
 
-def _ratio(num: float, deg: torch.Tensor) -> torch.Tensor:
+def _ratio(num, deg: torch.Tensor) -> torch.Tensor:
     """``num / max(deg, 1)`` in float32, as JAX computes an int by int32
-    true divide (both operands converted, then one IEEE division)."""
+    true divide (both operands converted, then one IEEE division).
+    ``num`` is a Python number or a 0-d tensor on ``deg``'s device (the
+    controller's effective fanout), which stays there: no host read."""
     d = torch.clamp(deg, min=1).to(torch.float32)
+    if isinstance(num, torch.Tensor):
+        return num.to(torch.float32) / d
     return torch.full_like(d, float(num)) / d
 
 
@@ -266,13 +283,14 @@ def _degrees(state) -> torch.Tensor:
     return (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
 
 
-def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key):
+def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key, m_eff=None):
     """Delivery to rejoiners along the reverse of their fresh edges: each
-    fresh target ``t`` pushes back at its per-edge rate ``fanout/deg(t)``.
-    Returns ``(incoming, msgs)``."""
+    fresh target ``t`` pushes back at its per-edge rate ``fanout/deg(t)``,
+    the controller's ``m_eff`` (int32 0-d) in place of ``fanout`` when
+    given. Returns ``(incoming, msgs)``."""
     stgt = state.rewire_targets[:, : cfg.rewire_slots]
     tgt = torch.clamp(stgt, min=0).to(torch.int64)
-    p = _ratio(cfg.fanout, _degrees(state)[tgt])
+    p = _ratio(cfg.fanout if m_eff is None else m_eff, _degrees(state)[tgt])
     fire = state.rewired[:, None] & (stgt >= 0) & (prng.uniform(key, tuple(stgt.shape)) < p)
     back = transmit[tgt]  # (N, S, M)
     msgs = (back.sum(-1) * fire).sum()
@@ -288,17 +306,40 @@ def _or_rows(incoming, rows, vals):
     return incoming | (hits[:n] > 0)
 
 
+def _width_mask(valid, rctl):
+    """The exactly-k draws of a controlled round are made at width
+    ``rctl.width``; the columns past the round's ``m_eff`` go dark."""
+    if rctl is None:
+        return valid
+    return valid & (torch.arange(rctl.width, device=valid.device) < rctl.m_eff)[None, :]
+
+
+def _pull_mask(pvalid, rctl, needy_rows=None):
+    """A controlled round's pull half: gated by ``pull_on`` and, with the
+    needy-pull gate, by the puller's need (``needy_rows``, the rows of
+    ``rctl.needy`` the pulls belong to)."""
+    if rctl is None:
+        return pvalid
+    pvalid = pvalid & rctl.pull_on
+    if rctl.needy is not None:
+        pvalid = pvalid & (rctl.needy if needy_rows is None else needy_rows)[:, None]
+    return pvalid
+
+
 def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_any, k_push, k_pull,
-                         do_pull: bool):
+                         do_pull: bool, rctl=None):
     """Delivery over the rejoiners' fresh degree-preferential edges, which
     no static edge table carries: push to ``fanout`` draws from the fresh
     targets, the reverse pass back (:func:`reverse_fresh_push`) and, with
     ``do_pull``, one pull from a fresh target. Dense over every row, or
-    over a ``rewire_compact_cap``-row table of the rewired rows. Returns
-    ``(incoming, msgs)``."""
+    over a ``rewire_compact_cap``-row table of the rewired rows. Under a
+    controller (``rctl``) the push draws are made at width ``hi`` with the
+    columns past ``m_eff`` dark, the reverse pass runs at ``m_eff`` and
+    the pull half is gated as on the static edges. Returns ``(incoming,
+    msgs)``."""
     if cfg.rewire_compact_cap > 0:
         return _fresh_rewire_traffic_compact(state, cfg, transmit, answer, receptive_any, k_push, k_pull,
-                                             do_pull)
+                                             do_pull, rctl)
     n, s = state.rewired.shape[0], cfg.rewire_slots
     k_push, k_rev = prng.split(k_push)
 
@@ -307,28 +348,28 @@ def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_an
         stgt = torch.gather(state.rewire_targets[:, :s], 1, soff)
         return torch.clamp(stgt, min=0), state.rewired[:, None] & (stgt >= 0)
 
-    tgt, valid = draw(k_push, cfg.fanout)
-    push_valid = valid & transmit.any(-1)[:, None]
+    tgt, valid = draw(k_push, cfg.fanout if rctl is None else rctl.width)
+    push_valid = _width_mask(valid, rctl) & transmit.any(-1)[:, None]
     incoming = push_fanout(transmit, tgt, push_valid)
     msgs = (transmit.sum(-1) * push_valid.sum(-1)).sum()
-    rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rev)
+    rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rev, None if rctl is None else rctl.m_eff)
     incoming, msgs = incoming | rev, msgs + rev_msgs
     if do_pull:
         ptgt, pvalid = draw(k_pull, 1)
-        pvalid = pvalid & receptive_any[:, None]
+        pvalid = _pull_mask(pvalid & receptive_any[:, None], rctl)
         incoming = incoming | pull_fanout(answer, ptgt, pvalid)
         msgs = msgs + pvalid.sum() + (answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pvalid[:, 0]).sum()
     return incoming, msgs
 
 
 def _fresh_rewire_traffic_compact(state, cfg: SwarmConfig, transmit, answer, receptive_any, k_push, k_pull,
-                                  do_pull: bool):
+                                  do_pull: bool, rctl=None):
     """:func:`fresh_rewire_traffic` over the first ``cap`` rewired rows
     (``first_rows``, no host sync): every gather, scatter and draw runs at
     (cap, ·); rewired rows past the cap get no fresh traffic this round."""
     n, s = state.rewired.shape[0], cfg.rewire_slots
     cap = min(cfg.rewire_compact_cap, n)
-    w = cfg.fanout
+    w = cfg.fanout if rctl is None else rctl.width
     k_push, k_rev = prng.split(k_push)
     idx, live = first_rows(state.rewired, cap)
     tg = state.rewire_targets[idx, :s]  # (cap, S)
@@ -341,13 +382,13 @@ def _fresh_rewire_traffic_compact(state, cfg: SwarmConfig, transmit, answer, rec
         return torch.clamp(stgt, min=0), live[:, None] & (stgt >= 0)
 
     tgt, valid = draw(k_push, w)
-    push_valid = valid & tx_rows.any(-1)[:, None]
+    push_valid = _width_mask(valid, rctl) & tx_rows.any(-1)[:, None]
     payload = tx_rows[:, None, :] & push_valid[:, :, None]  # (cap, K, M)
     incoming = _or_rows(torch.zeros_like(transmit), tgt, payload)
     msgs = (tx_rows.sum(-1) * push_valid.sum(-1)).sum()
 
     rtgt = torch.clamp(tg, min=0).to(torch.int64)
-    p = _ratio(cfg.fanout, _degrees(state)[rtgt])
+    p = _ratio(cfg.fanout if rctl is None else rctl.m_eff, _degrees(state)[rtgt])
     fire = live[:, None] & (tg >= 0) & (prng.uniform(k_rev, tuple(tg.shape)) < p)
     back = transmit[rtgt]  # (cap, S, M)
     incoming = _or_rows(incoming, row_or_drop, (back & fire[:, :, None]).any(dim=1))
@@ -355,7 +396,8 @@ def _fresh_rewire_traffic_compact(state, cfg: SwarmConfig, transmit, answer, rec
 
     if do_pull:
         ptgt, pvalid = draw(k_pull, 1)
-        pvalid = pvalid & receptive_any[idx][:, None]
+        pvalid = _pull_mask(pvalid & receptive_any[idx][:, None], rctl,
+                            None if rctl is None or rctl.needy is None else rctl.needy[idx])
         incoming = _or_rows(incoming, row_or_drop, pull_fanout(answer, ptgt, pvalid))
         msgs = msgs + pvalid.sum() + (answer[ptgt[:, 0]].sum(-1) * pvalid[:, 0]).sum()
     return incoming, msgs
@@ -427,7 +469,7 @@ def rematerialize_rewired(state: SwarmState, cfg: SwarmConfig, capacity: int):
 
 
 def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitter,
-                       receptive, k_push, k_pull, plan=None):
+                       receptive, k_push, k_pull, plan=None, rctl=None):
     """Single-device dissemination; returns ``(incoming, msgs_sent)``.
 
     A plan with sampling gates and a ``fanout`` (MatchingPlan or
@@ -441,7 +483,14 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
     (:func:`kernel_path_masks`) and the rejoiners' fresh edges go through
     :func:`fresh_rewire_traffic`; the exactly-k path substitutes fresh
     targets for rewired senders and pullers, drops CSR edges pointing at
-    a rewired slot, and adds the reverse pass. Flood ignores re-wiring."""
+    a rewired slot, and adds the reverse pass. Flood ignores re-wiring.
+
+    ``rctl`` (a :class:`~tpu_gossip_torch.control.RoundControl`) is an
+    active controller's round decision: the kernel paths take ``m_eff``,
+    ``pull_on`` and the needy rows as their gate hooks; the exactly-k path
+    draws at width ``rctl.width`` and darkens the columns past ``m_eff``;
+    the pull half is gated by ``pull_on`` and the needy rows. Zero-
+    adjustment bounds make every mask all-true and every gate static."""
     if plan is not None and not isinstance(plan, (MatchingPlan, StaircasePlan)):
         raise TypeError(f"plan must be a MatchingPlan or StaircasePlan, got {type(plan).__name__}")
     # the JAX engine re-splits both keys: child 0 drives delivery, child 1
@@ -458,27 +507,31 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
         tx, answer, rec_rows = kernel_path_masks(state, cfg, transmit, transmitter, receptive)
         deliver = matching_sampled if isinstance(plan, MatchingPlan) else segment_sampled
         incoming, msgs_sent = deliver(plan, tx, answer, cfg.msg_slots, k_push, receptive_rows=rec_rows,
-                                      do_push=True, do_pull=cfg.mode == "push_pull")
+                                      do_push=True, do_pull=cfg.mode == "push_pull",
+                                      fanout=None if rctl is None else rctl.m_eff,
+                                      pull_gate=None if rctl is None else rctl.pull_on,
+                                      pull_needy_rows=None if rctl is None else rctl.needy)
         if rewiring:
             fresh_inc, fresh_msgs = fresh_rewire_traffic(
                 state, cfg, transmit, state.seen & transmitter, receptive.any(-1), k_rw_push, k_rw_pull,
-                do_pull=cfg.mode == "push_pull")
+                do_pull=cfg.mode == "push_pull", rctl=rctl)
             incoming, msgs_sent = incoming | fresh_inc, _i32(msgs_sent.to(torch.int64) + fresh_msgs)
         return incoming, msgs_sent
     msgs_sent = torch.zeros((), dtype=torch.int64, device=transmit.device)
     incoming = torch.zeros_like(state.seen)
     if sampled:
         _require_csr(state, "XLA sampled delivery")
-        tgt, valid = sample_fanout_targets(k_push, state.row_ptr, state.col_idx, cfg.fanout)
+        tgt, valid = sample_fanout_targets(k_push, state.row_ptr, state.col_idx,
+                                           cfg.fanout if rctl is None else rctl.width)
         if rewiring:
             k_rw_push, k_rw_rev = prng.split(k_rw_push)
             tgt, valid = _substitute_rewired(state, cfg, tgt, valid, k_rw_push)
             # a CSR edge pointing at a rewired slot is the departed
             # occupant's: only fresh-edge traffic reaches a rejoiner
             valid = valid & (state.rewired[:, None] | ~state.rewired[tgt.to(torch.int64)])
-            rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rw_rev)
+            rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rw_rev, None if rctl is None else rctl.m_eff)
             incoming, msgs_sent = incoming | rev, msgs_sent + rev_msgs
-        push_valid = valid & transmit.any(-1)[:, None]
+        push_valid = _width_mask(valid, rctl) & transmit.any(-1)[:, None]
         incoming = incoming | push_fanout(transmit, tgt, push_valid)
         msgs_sent = msgs_sent + (transmit.sum(-1) * push_valid.sum(-1)).sum()
     if cfg.mode == "push_pull":
@@ -488,7 +541,7 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
         if rewiring:
             ptgt, pvalid = _substitute_rewired(state, cfg, ptgt, pvalid, k_rw_pull)
             pvalid = pvalid & (state.rewired[:, None] | ~state.rewired[ptgt.to(torch.int64)])
-        pull_ok = pvalid & receptive.any(-1)[:, None]
+        pull_ok = _pull_mask(pvalid & receptive.any(-1)[:, None], rctl)
         incoming = incoming | pull_fanout(answer, ptgt, pull_ok)
         shipped = answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pull_ok[:, 0]
         msgs_sent = msgs_sent + pull_ok.sum() + shipped.sum()
@@ -508,7 +561,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
                   churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
                   k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                  host_rnd: int | None = None):
+                  host_rnd: int | None = None, control=None, rctl=None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
@@ -525,7 +578,10 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     leases past their TTL through the tail (and out of the delay buffer),
     injects the round's arrivals after it (``host_rng``/``host_rnd``: the
     round's root key and round on the host) and fills the stream
-    columns."""
+    columns. ``control`` (a ``ControlSpec``) runs the control stage last:
+    the AIMD update of ``control_lvl`` from the round's feedback (against
+    ``rctl``, the decision delivery realized) and the PeerSwap refresh;
+    without it ``control_lvl`` passes through untouched."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -540,11 +596,12 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "suspect_round": state.suspect_round, "suspect_mark": state.suspect_mark,
         "quarantine": state.quarantine, "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
         "slot_lease": state.slot_lease, "held": state.fault_held if fault_held is None else fault_held,
-        "stel": None,
+        "stel": None, "control_lvl": state.control_lvl, "rctl": rctl, "fstats": fstats,
+        "seen_prev": state.seen, "ctel": None,
     }
     values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
                                            liveness=liveness, growth=growth, stream=stream, host_rng=host_rng,
-                                           host_rnd=host_rnd), values)
+                                           host_rnd=host_rnd, control=control), values)
     new_state = SwarmState(
         row_ptr=state.row_ptr, col_idx=state.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
@@ -554,13 +611,13 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         rewired=values["rewired"], rewire_targets=values["rewire_targets"],
         fault_held=values["held"], join_round=values["join_round"],
         admitted_by=values["admitted_by"], degree_credit=values["degree_credit"],
-        slot_lease=values["slot_lease"], control_lvl=state.control_lvl,
+        slot_lease=values["slot_lease"], control_lvl=values["control_lvl"],
         pipe_buf=state.pipe_buf, suspect_round=values["suspect_round"],
         suspect_mark=values["suspect_mark"], quarantine=values["quarantine"],
         rng=key, round=rnd,
     )
     return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness, growth, stream,
-                             values["stel"])
+                             values["stel"], values["ctel"])
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
@@ -575,8 +632,8 @@ def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = 
 
         return gossip_round_packed(state, cfg, plan, tail=tail, **later)
 
-    def disseminate(tx, tr, rc, kp, kq):
-        return _disseminate_local(state, cfg, tx, tr, rc, kp, kq, plan)
+    def disseminate(tx, tr, rc, kp, kq, rctl):
+        return _disseminate_local(state, cfg, tx, tr, rc, kp, kq, plan, rctl)
 
     return run_protocol_round(state, cfg, disseminate, tail=tail, **later)
 

@@ -2,9 +2,10 @@
 
 Ports ``BenchResult``, ``rounds_to_coverage``, ``bench_swarm``,
 ``stats_rows``, ``write_jsonl``, ``recoverage_rounds``, ``phase_report``,
-``liveness_report`` and the streaming plane's host reports
+``liveness_report``, the streaming plane's host reports
 (``stream_episodes``, ``steady_state_report``, ``expected_conflations``,
-``bloom_false_positive_rate``) of ``tpu_gossip/sim/metrics.py``.
+``bloom_false_positive_rate``) and the controller's ``reliability_report``
+of ``tpu_gossip/sim/metrics.py``.
 ``bench_swarm`` times on the host clock around work that ends in
 ``torch.cuda.synchronize()`` on a CUDA state.
 """
@@ -24,7 +25,7 @@ from tpu_gossip_torch.sim.engine import RoundStats, run_until_coverage
 
 __all__ = ["BenchResult", "rounds_to_coverage", "bench_swarm", "stats_rows", "write_jsonl", "recoverage_rounds",
            "phase_report", "liveness_report", "stream_episodes", "steady_state_report", "expected_conflations",
-           "bloom_false_positive_rate"]
+           "bloom_false_positive_rate", "reliability_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,3 +294,55 @@ def bloom_false_positive_rate(n_rumors: int, msg_slots: int, hashes: int) -> flo
     m = float(msg_slots)
     fill = 1.0 - (1.0 - 1.0 / m) ** (hashes * n_rumors)
     return fill ** hashes
+
+
+def reliability_report(stats, *, target_ratio: float, coverage_target: float = 0.99,
+                       round_seconds: float = 5.0) -> dict:
+    """The reliability contract of one run at the declared delivery-ratio
+    ``target_ratio`` (the CLI's ``reliability`` block under ``--control``):
+    whether the run held it (``holds``), the messages paid per delivered
+    infection and the p50/p99 rounds to ``coverage_target``.
+
+    A streaming run (its per-slot tracks carry data) judges per message:
+    each lease episode that closed inside the horizon covered or expired
+    uncovered, and the delivery ratio is the covered share (no closed
+    episode: ``delivery_ratio`` None and a vacuous ``holds``; read
+    ``messages_judged``). A single-epidemic run judges its one message:
+    delivered iff the coverage reached ``coverage_target``. Host-side."""
+    cov = _host(stats.coverage)
+    msgs = int(_host(stats.msgs_sent).astype(np.int64).sum())
+    slot_inf = _host(stats.slot_infected)
+    if _host(stats.stream_offered).astype(np.int64).sum() > 0 or slot_inf.any():
+        # every new (peer, slot) infection: the positive increments of the
+        # live-holder track (re-infections after churn or expiry count)
+        d = np.diff(slot_inf.astype(np.int64), axis=0, prepend=np.zeros((1, slot_inf.shape[1]), np.int64))
+        infections = int(np.clip(d, 0, None).sum())
+        eps = stream_episodes(stats, coverage_target)
+        done = [e["completed_age"] for e in eps if e["completed_age"] >= 0]
+        ended = [e for e in eps if e["end_round"] >= 0]
+        done_ended = sum(1 for e in ended if e["completed_age"] >= 0)
+        delivery_ratio = done_ended / len(ended) if ended else None
+        lat = np.asarray(done, dtype=np.float64)
+        p50 = float(np.percentile(lat, 50)) if lat.size else None
+        p99 = float(np.percentile(lat, 99)) if lat.size else None
+        judged = len(ended)
+    else:
+        d = np.diff(_host(stats.n_infected).astype(np.int64), prepend=np.int64(0))
+        infections = int(np.clip(d, 0, None).sum())
+        rtc = rounds_to_coverage(stats, coverage_target)
+        delivery_ratio = 1.0 if rtc > 0 else 0.0
+        p50 = p99 = float(rtc) if rtc > 0 else None
+        judged = 1
+    return {
+        "target_ratio": float(target_ratio),
+        "coverage_target": float(coverage_target),
+        "delivery_ratio": None if delivery_ratio is None else round(delivery_ratio, 4),
+        "holds": bool(delivery_ratio is None or delivery_ratio >= target_ratio),
+        "messages_judged": judged,
+        "msgs_total": msgs,
+        "infections_delivered": infections,
+        "msgs_per_delivered_infection": round(msgs / max(infections, 1), 3),
+        "rounds_to_coverage": {"p50": p50, "p99": p99},
+        "seconds_to_coverage_p99": None if p99 is None else round(p99 * round_seconds, 1),
+        "peak_coverage": float(cov.max()) if cov.size else 0.0,
+    }

@@ -33,7 +33,10 @@ flags word; the registry planes are carried as they are), and
 ``degree_gamma`` is computed as there. A stream's age-out drops the
 recycled columns from the packed held buffer and hands K4 the expired
 mask; its injection decodes the seen words at its boundary and packs the
-product, as JAX's packed twin does. Control, pipelining and live
+product, as JAX's packed twin does. The adaptive controller resolves the
+round's decision from the decoded seen plane (its slot coverage and needy
+rows need bools), hands it to the delivery and runs the control stage
+last, decoding the three slot planes it reads. Pipelining and live
 ingestion are later slices and raise ``NotImplementedError``.
 """
 
@@ -46,8 +49,8 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
-from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, fault_round, require_quorum,
-                                        row_stages, run_stages, stream_stages)
+from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, control_stages, fault_round,
+                                        require_quorum, resolve_control, row_stages, run_stages, stream_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -87,14 +90,15 @@ def _delivery_shim(ps: PackedSwarm, flags: dict, seen_b: torch.Tensor):
 
 
 def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k_push, k_pull,
-                              plan=None):
+                              plan=None, rctl=None):
     """Single-device packed dissemination; returns ``(inc_w, msgs_sent)``.
 
     Word-native for exactly-k push and push-pull over the CSR (no plan, no
     re-wiring): the push half decodes the payload for the scatter alone,
     the pull half gathers and ORs words, and the bill is popcounts. Every
     other cell runs the bool engine's delivery on decoded planes and packs
-    the product."""
+    the product. ``rctl`` is the controller's round decision, taken as the
+    bool engine takes it."""
     from tpu_gossip_torch.kernels.gossip import push_fanout, sample_fanout_targets
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -104,15 +108,15 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
         role_b = unpack_bits(role_w, m)
         shim = _delivery_shim(ps, flags, unpack_bits(ps.seen, m))
         incoming, msgs_sent = _engine._disseminate_local(
-            shim, cfg, unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull, plan)
+            shim, cfg, unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull, plan, rctl)
         return pack_bits(incoming), msgs_sent
 
     # the bool engine re-splits both keys; child 0 drives delivery
     k_push = prng.split(k_push)[0]
     k_pull = prng.split(k_pull)[0]
     _engine._require_csr(ps, "XLA sampled delivery")
-    tgt, valid = sample_fanout_targets(k_push, ps.row_ptr, ps.col_idx, cfg.fanout)
-    push_valid = valid & po.rows_any(tx_w)[:, None]
+    tgt, valid = sample_fanout_targets(k_push, ps.row_ptr, ps.col_idx, cfg.fanout if rctl is None else rctl.width)
+    push_valid = _engine._width_mask(valid, rctl) & po.rows_any(tx_w)[:, None]
     # the one full-width transient of this path: the scatter ORs bools
     inc_w = pack_bits(push_fanout(unpack_bits(tx_w, m), tgt, push_valid))
     msgs_sent = (po.popcount_rows(tx_w).to(torch.int64) * push_valid.sum(-1)).sum()
@@ -120,7 +124,7 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
         # pull answers ship the responder's full seen set
         answer_w = po.and_words(ps.seen, role_w)
         ptgt, pvalid = sample_fanout_targets(k_pull, ps.row_ptr, ps.col_idx, 1)
-        pull_ok = pvalid & po.rows_any(role_w)[:, None]
+        pull_ok = _engine._pull_mask(pvalid & po.rows_any(role_w)[:, None], rctl)
         inc_w = po.or_words(inc_w, po.pull_words(answer_w, ptgt, pull_ok))
         shipped = po.popcount_rows(answer_w)[ptgt[:, 0].to(torch.int64)] * pull_ok[:, 0]
         msgs_sent = msgs_sent + pull_ok.sum() + shipped.sum()
@@ -157,28 +161,30 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
 
 def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None, churn_faults: bool = False,
                                liveness=None, growth=None, stream=None, host_rng=None,
-                               host_rnd: int | None = None) -> tuple[Stage, ...]:
+                               host_rnd: int | None = None, control=None) -> tuple[Stage, ...]:
     """The packed stages of one round: the bool engine's row-level
     liveness, churn and growth stages (fault-aware and hardened as there),
     then the word tail, with a stream's age-out before it (the held
     buffer's column drop a packed AND) and its injection after it (the
-    seen words decoded and packed again at that boundary)."""
+    seen words decoded and packed again at that boundary), then the
+    control stage on decoded planes."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
-            *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m))
+            *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m),
+            *control_stages(cfg, control, packed_m=m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
                          churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
                          k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                         host_rnd: int | None = None):
+                         host_rnd: int | None = None, control=None, rctl=None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
     ``fault_held_w`` is the packed delay buffer to carry (the input's when
     None), ``fstats`` the round's fault counters; ``liveness``, the
-    adversary arguments, ``growth`` and ``stream`` as in
-    ``advance_round``."""
+    adversary arguments, ``growth``, ``stream``, ``control`` and ``rctl``
+    as in ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -193,10 +199,12 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "suspect_round": ps.suspect_round, "suspect_mark": ps.suspect_mark, "quarantine": flags["quarantine"],
         "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
         "slot_lease": ps.slot_lease, "held": ps.fault_held if fault_held_w is None else fault_held_w, "stel": None,
+        "control_lvl": ps.control_lvl, "rctl": rctl, "fstats": fstats, "seen_prev": ps.seen, "ctel": None,
     }
     values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, faults=faults,
                                                    churn_faults=churn_faults, liveness=liveness, growth=growth,
-                                                   stream=stream, host_rng=host_rng, host_rnd=host_rnd),
+                                                   stream=stream, host_rng=host_rng, host_rnd=host_rnd,
+                                                   control=control),
                         values)
     row_flags = dict(flags, exists=values["exists"], alive=values["alive"], silent=values["silent"],
                      declared_dead=values["declared_dead"], rewired=values["rewired"],
@@ -210,21 +218,22 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         fault_held=values["held"],
         join_round=values["join_round"], admitted_by=values["admitted_by"],
         degree_credit=values["degree_credit"], slot_lease=values["slot_lease"],
-        control_lvl=ps.control_lvl, pipe_buf=ps.pipe_buf,
+        control_lvl=values["control_lvl"], pipe_buf=ps.pipe_buf,
         suspect_round=values["suspect_round"], suspect_mark=values["suspect_mark"],
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
     return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness, growth,
-                                    stream, values["stel"])
+                                    stream, values["stel"], values["ctel"])
 
 
 def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None, growth=None,
-                  stream=None, stel=None):
+                  stream=None, stel=None, ctel=None):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
     agree bit for bit, the padding being zero); a stream's per-slot
     infected count sums the decoded words, as JAX's twin does."""
-    from tpu_gossip_torch.sim.engine import RoundStats, growth_gamma, liveness_counters, slot_tracks, stream_counters
+    from tpu_gossip_torch.sim.engine import (RoundStats, control_counters, growth_gamma, liveness_counters,
+                                             slot_tracks, stream_counters)
 
     live = flags["alive"] & ~flags["declared_dead"]
     dev = ps.seen.device
@@ -246,6 +255,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
     if fstats is not None:
         counters.update(fstats._asdict())
     counters.update(stream_counters(stel))
+    counters.update(control_counters(ctel))
     counters.update(liveness_counters(ltel, liveness, flags["exists"], flags["alive"], flags["declared_dead"],
                                       flags["quarantine"]))
     return RoundStats(**counters)
@@ -253,15 +263,17 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
 
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
                               tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
-                              growth=None, stream=None, host_rng=None, **later):
+                              growth=None, stream=None, host_rng=None, control=None, **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
-    k_pull) -> (inc_w, msgs_sent)``, then the packed stages. Under a
+    k_pull, rctl) -> (inc_w, msgs_sent)``, then the packed stages. Under a
     ``scenario``, ``deliver_bool_factory(flags, seen_b) -> deliver(tx, tr,
-    rc, k_push, k_pull)`` builds the full-width delivery the fault head
-    wraps: the round's planes decode once at this boundary and the
+    rc, k_push, k_pull, rctl)`` builds the full-width delivery the fault
+    head wraps: the round's planes decode once at this boundary and the
     products pack back; the flood replay runs in that head too. The
-    adversary stream's fold and ``liveness`` are the bool driver's."""
+    adversary stream's fold and ``liveness`` are the bool round's; under
+    ``control`` the round's decision is resolved on the decoded seen
+    plane."""
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
@@ -272,27 +284,32 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
     key, k_push, k_pull, k_leave, k_join = prng.split(ps.rng, 5)
     flags = _decode_flags(ps)
     _active, role_w, tx_w = packed_round_head(ps, cfg, flags, liveness)
+    # the controller and the fault head read bool slot planes: decode once
+    seen_b = None if control is None and scenario is None else unpack_bits(ps.seen, m)
+    rctl = None if control is None else resolve_control(control, types.SimpleNamespace(
+        control_lvl=ps.control_lvl, alive=flags["alive"], declared_dead=flags["declared_dead"], seen=seen_b,
+        slot_lease=ps.slot_lease), cfg)
     k_accuse, k_forge, k_flood = adversary_keys(scenario, ps.rng)
     if scenario is None:
-        inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull)
+        inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull, rctl)
         tx_eff_w, held_w, telem, rf = tx_w, None, None, None
     else:
         from tpu_gossip_torch.faults.inject import scenario_dissemination
 
-        seen_b = unpack_bits(ps.seen, m)
         role_b = unpack_bits(role_w, m)
         shim = types.SimpleNamespace(rng=ps.rng, fault_held=unpack_bits(ps.fault_held, m), seen=seen_b,
                                      alive=flags["alive"], declared_dead=flags["declared_dead"],
                                      quarantine=flags["quarantine"])
+        deliver = deliver_bool_factory(flags, seen_b)
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, shim, fault_round(ps, host_round), unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull,
-            deliver_bool_factory(flags, seen_b), k_flood=k_flood)
+            lambda tx, tr, rc, kp, kq: deliver(tx, tr, rc, kp, kq, rctl), k_flood=k_flood)
         inc_w, tx_eff_w, held_w = pack_bits(incoming), pack_bits(tx_eff), pack_bits(held)
     return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
                                 tail=tail, faults=rf, churn_faults=scenario is not None and scenario.has_churn,
                                 fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
                                 k_forge=k_forge, growth=growth, stream=stream, host_rng=host_rng,
-                                host_rnd=None if host_round is None else host_round + 1)
+                                host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):
@@ -300,14 +317,14 @@ def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused",
     state, RoundStats)``, bit-identical to the bool round."""
     from tpu_gossip_torch.sim import engine as _engine
 
-    def deliver_words(tx_w, role_w, flags, kp, kq):
-        return _disseminate_local_packed(ps, cfg, flags, role_w, tx_w, kp, kq, plan)
+    def deliver_words(tx_w, role_w, flags, kp, kq, rctl):
+        return _disseminate_local_packed(ps, cfg, flags, role_w, tx_w, kp, kq, plan, rctl)
 
     def deliver_bool_factory(flags, seen_b):
         shim = _delivery_shim(ps, flags, seen_b)
 
-        def deliver(tx, tr, rc, kp, kq):
-            return _engine._disseminate_local(shim, cfg, tx, tr, rc, kp, kq, plan)
+        def deliver(tx, tr, rc, kp, kq, rctl):
+            return _engine._disseminate_local(shim, cfg, tx, tr, rc, kp, kq, plan, rctl)
 
         return deliver
 

@@ -14,6 +14,7 @@
         --grow-rate 256
     python -m tpu_gossip_torch.sim.profile --peers 1000000 --graph device \\
         --stream 4 --warm 40
+    python -m tpu_gossip_torch.sim.profile --peers 1000000 --control 0.99
 
 Builds a swarm (push_pull, fanout 1, 16 slots) over ``--graph``: the
 matching graph (the headline), ``device`` (the power-law configuration
@@ -78,7 +79,16 @@ into ``stream_poisson_host`` (the arrival count on the host, wall ms),
 and ``stream_scatter`` (the bits and the latch), ``slot_stats`` (the
 per-slot columns, the (N, M) column sum among them), and
 ``stream_round`` beside ``plain_round`` (the same round without the
-stream). Needs a CUDA device.
+stream). ``--control TARGET`` runs every round (the warm ones included)
+under ``bench.py``'s ``bench_control`` policy (fanout 3, bounds 1..6,
+push_pull, the delivery-ratio target TARGET) and adds the control stage's
+rows on the warm state: ``control_resolve`` (``control_round``: the
+cursor, the knee gate's slot coverage and the needy rows),
+``control_apply`` (``apply_control``'s AIMD update from the round's
+feedback), ``control_refresh`` (the PeerSwap refresh at full shape:
+its draws, the credit scatter-adds and the swap), and
+``controlled_round`` beside ``plain_round`` (the same round without the
+controller). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -334,9 +344,20 @@ def trace_rounds(state, step, rounds: int) -> dict:
     }
 
 
+def _fanout(args) -> int:
+    """The round's fanout: bench_stream's 2 under --stream, bench_control's
+    3 under --control, else the headline's 1."""
+    if getattr(args, "stream", 0.0) > 0:
+        return 2
+    return CONTROL_FANOUT if getattr(args, "control", 0.0) > 0 else 1
+
+
+CONTROL_FANOUT = 3  # bench_control's static fanout; its bounds are 1..2x
+
+
 def _cfg_kw(args) -> dict:
     stream = getattr(args, "stream", 0.0) > 0
-    return dict(msg_slots=32 if stream else 16, fanout=2 if stream else 1, mode="push_pull",
+    return dict(msg_slots=32 if stream else 16, fanout=_fanout(args), mode="push_pull",
                 churn_leave_prob=args.churn_leave,
                 churn_join_prob=args.churn_join,
                 rewire_slots=max(args.rewire_slots, GROW_ATTACH) if getattr(args, "grow", 0) else args.rewire_slots,
@@ -455,6 +476,36 @@ def stream_stage_times(state, cfg, plan, strm, reps: int) -> dict:
     return out
 
 
+def control_stage_times(state, cfg, plan, ctl, reps: int) -> dict:
+    """The control stage's rows on a warm controlled state, timed alone
+    (ms), its feedback read off the next round: the resolve, the AIMD
+    update, the PeerSwap refresh at full shape (over the state's whole
+    re-wiring table, every row drawing) and the round with and without
+    the controller."""
+    import dataclasses
+
+    from tpu_gossip_torch.control.engine import apply_control, control_round, peerswap_refresh
+
+    rc = control_round(ctl, state, want_needy=True)
+    nxt, _ = engine.gossip_round(state, cfg, plan, control=ctl)
+    rnd = state.round + 1
+    feedback = dict(incoming=nxt.seen, seen_prev=state.seen, seen=nxt.seen, alive=state.alive,
+                    declared_dead=state.declared_dead, exists=state.exists, rewired=state.rewired,
+                    rewire_targets=state.rewire_targets, degree_credit=state.degree_credit, row_ptr=state.row_ptr,
+                    col_idx=state.col_idx, slot_lease=state.slot_lease, rewire_slots=0)
+    every = dataclasses.replace(ctl, refresh_every=1)
+    refresh = dict(exists=state.exists, rewired=state.rewired, alive=state.alive,
+                   rewire_targets=state.rewire_targets, degree_credit=state.degree_credit, row_ptr=state.row_ptr,
+                   col_idx=state.col_idx, rewire_slots=state.rewire_targets.shape[1])
+    return {
+        "control_resolve": _event_ms(lambda: control_round(ctl, state, want_needy=True), reps),
+        "control_apply": _event_ms(lambda: apply_control(ctl, state.rng, rnd, rc, **feedback), reps),
+        "control_refresh": _event_ms(lambda: peerswap_refresh(every, state.rng, rnd, **refresh), reps),
+        "controlled_round": _event_ms(lambda: engine.gossip_round(state, cfg, plan, control=ctl), reps),
+        "plain_round": _event_ms(lambda: engine.gossip_round(state, cfg, plan), reps),
+    }
+
+
 def _churn_keys(args) -> dict:
     return {k: getattr(args, k) for k in ("churn_leave", "churn_join", "rewire_slots", "rewire_compact_cap",
                                           "remat_every")}
@@ -493,6 +544,9 @@ def main(argv=None) -> int:
     p.add_argument("--stream", type=float, default=0.0, metavar="RATE",
                    help="run every round under bench_stream's workload at RATE arrivals a round (32 slots, "
                    "fanout 2; local round) and time the stream's stages")
+    p.add_argument("--control", type=float, default=0.0, metavar="TARGET",
+                   help="run every round under bench_control's policy (fanout 3, bounds 1..6, push_pull) at this "
+                   "delivery-ratio target and time the control stage's rows (local unpacked round)")
     p.add_argument("--warm", type=int, default=6)
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--reps", type=int, default=20)
@@ -503,14 +557,19 @@ def main(argv=None) -> int:
     if args.remat_every > 0 and (args.graph == "matching" or args.packed):
         raise SystemExit("--remat-every folds a CSR graph's unpacked state (--graph device or pa, no --packed)")
     if args.shard:
-        if args.scenario or args.quorum_k or args.stream:
-            raise SystemExit("--scenario, --quorum-k and --stream profile the local unpacked round; drop --shard")
+        if args.scenario or args.quorum_k or args.stream or args.control:
+            raise SystemExit("--scenario, --quorum-k, --stream and --control profile the local unpacked round; "
+                             "drop --shard")
         return main_shard(args, dev)
     if args.packed and args.quorum_k:
         raise SystemExit("--quorum-k profiles the local unpacked round; drop --packed")
     if args.stream and (args.packed or args.scenario or args.quorum_k or args.grow or args.remat_every):
         raise SystemExit("--stream profiles the local unpacked round; drop --packed, --scenario, --quorum-k, "
                          "--grow and --remat-every")
+    if args.control and (args.packed or args.scenario or args.quorum_k or args.grow or args.stream
+                         or args.remat_every):
+        raise SystemExit("--control profiles the local unpacked round; drop --packed, --scenario, --quorum-k, "
+                         "--grow, --stream and --remat-every")
     if args.grow and (args.packed or args.scenario or args.quorum_k or args.remat_every or args.shard
                       or args.grow <= args.peers):
         raise SystemExit("--grow profiles the local unpacked round to a TARGET above --peers; drop --packed, "
@@ -527,7 +586,7 @@ def main(argv=None) -> int:
                                                        growth_rows=args.grow - n, device=dev)
         graph, exists = dgraph.as_padded_graph(), dgraph.exists
     elif args.graph == "matching":
-        dgraph, plan = matching_powerlaw_graph(n, fanout=1, key=prng.key(0, dev), device=dev)
+        dgraph, plan = matching_powerlaw_graph(n, fanout=_fanout(args), key=prng.key(0, dev), device=dev)
         graph, exists = dgraph.as_padded_graph(), dgraph.exists
     elif args.graph == "device":
         dgraph = device_powerlaw_graph(n, gamma=2.5, key=prng.key(0, dev), device=dev)
@@ -545,12 +604,17 @@ def main(argv=None) -> int:
             pad_exists[:n_initial] = exists.cpu().numpy()
         exists = torch.from_numpy(pad_exists).to(dev)
     if args.graph != "matching" and args.staircase:
-        plan = seg.build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=1, device=dev)
+        plan = seg.build_staircase_plan(graph.row_ptr, graph.col_idx, fanout=_fanout(args), device=dev)
     cfg = SwarmConfig(n_peers=graph.n, **_cfg_kw(args))
     origins = None if args.stream else np.random.default_rng(0).choice(n, size=1, replace=False)
     state = init_swarm(graph, cfg, key=prng.key(0, dev), origins=origins, exists=exists, device=dev)
     cap = engine.remat_capacity(state, cfg) if args.remat_every > 0 else None
     strm = bench_stream_workload(state, cfg, exists, args.stream, dev) if args.stream else None
+    ctl = None
+    if args.control:
+        from tpu_gossip_torch.control import compile_control
+
+        ctl = compile_control(target_ratio=args.control, fanout=cfg.fanout, lo=1, hi=2 * cfg.fanout, device=dev)
     if args.grow:
         from tpu_gossip_torch.growth import compile_growth, matching_admit_rows
 
@@ -567,7 +631,8 @@ def main(argv=None) -> int:
         spec = parse_scenario(args.scenario)
         sc = compile_scenario(spec, n_peers=n, n_slots=graph.n, device=dev,
                               total_rounds=max(spec.last_round, args.warm + args.rounds))
-    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs, growth=grow, stream=strm)
+    state, _ = engine.simulate(state, cfg, args.warm, plan, scenario=sc, liveness=lqs, growth=grow, stream=strm,
+                               control=ctl)
     churn = churn_stage_times(state, cfg, args.reps, cap) if has_churn(cfg) else {}
     if args.packed:
         if args.staircase:
@@ -589,17 +654,20 @@ def main(argv=None) -> int:
         stages.update(growth_stage_times(state, cfg, plan, grow, args.reps))
     if strm is not None:
         stages.update(stream_stage_times(state, cfg, plan, strm, args.reps))
+    if ctl is not None:
+        stages.update(control_stage_times(state, cfg, plan, ctl, args.reps))
     print(json.dumps({"graph": args.graph, "staircase": plan is not None and args.graph != "matching",
                       "packed": args.packed, **_churn_keys(args), "scenario": args.scenario or None,
                       "quorum_k": args.quorum_k or None, "grow": args.grow or None, "stream": args.stream or None,
-                      "slot_ttl": strm.ttl if strm is not None else None, "stage_ms": stages}))
+                      "control": args.control or None, "slot_ttl": strm.ttl if strm is not None else None,
+                      "stage_ms": stages}))
     rnd = [args.warm]
     hkey = [state.rng.cpu() if strm is not None else None]
 
     def step(s):
         out = engine.gossip_round(s, cfg, plan, scenario=sc,
                                   host_round=rnd[0] if sc is not None or strm is not None else None,
-                                  liveness=lqs, growth=grow, stream=strm, host_rng=hkey[0])
+                                  liveness=lqs, growth=grow, stream=strm, host_rng=hkey[0], control=ctl)
         rnd[0] += 1
         hkey[0] = next_host_key(hkey[0])
         return out

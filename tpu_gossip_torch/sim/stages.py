@@ -20,9 +20,12 @@ post-delivery stages (liveness, churn, growth, tail).
 ``_stream_ageout_stage`` and ``_stream_inject_stage``
 (``tpu_gossip/sim/stages.py:526,576``) run a stream (``traffic/``): the age-out before the tail, whose ``expired``
 mask clears the recycled columns, and the injection after it.
+``_control_stage`` (:640) runs the adaptive controller (``control/``) last,
+after the injection; ``run_protocol_round`` resolves the round's
+``RoundControl`` before delivery, after the quarantine mask.
 
-Control, pipelining and live ingestion are later slices; their arguments
-raise ``NotImplementedError`` here.
+Pipelining and live ingestion are later slices; their arguments raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch
 
 from tpu_gossip_torch.core import prng
 
-__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "stream_stages", "run_protocol_round",
+__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "stream_stages", "control_stages",
+           "resolve_control", "run_protocol_round",
            "not_ported", "host_cursor", "next_host_key",
            "check_later", "row_stages", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
            "require_quorum"]
@@ -383,6 +387,42 @@ def _stream_inject_stage(stream, host_rng=None, host_rnd: int | None = None, pac
     return Stage("stream_inject", reads, writes, fn)
 
 
+CONTROL_READS = ("rng", "rnd", "rctl", "incoming", "seen_prev", "seen", "alive", "declared_dead", "exists",
+                 "rewired", "rewire_targets", "degree_credit", "row_ptr", "col_idx", "slot_lease", "fstats",
+                 "control_lvl")
+
+
+def _control_stage(cfg, control, packed_m: int | None = None) -> Stage:
+    """Adaptive control (``control/``), last: the AIMD level update reads
+    the round's final liveness and lease tables, and the PeerSwap refresh
+    acts on the post-churn, post-growth re-wiring plane. With ``packed_m``
+    the slot planes are words, and the three that ``apply_control`` reads
+    (``incoming``, ``seen_prev``, ``seen``) decode at this boundary."""
+
+    def fn(ctx):
+        from tpu_gossip_torch.control.engine import apply_control
+        from tpu_gossip_torch.core.packed import unpack_bits
+
+        def plane(name):
+            return ctx[name] if packed_m is None else unpack_bits(ctx[name], packed_m)
+
+        control_lvl, rewire_targets, degree_credit, ctel = apply_control(
+            control, ctx["rng"], ctx["rnd"], ctx["rctl"], incoming=plane("incoming"), seen_prev=plane("seen_prev"),
+            seen=plane("seen"), alive=ctx["alive"], declared_dead=ctx["declared_dead"], exists=ctx["exists"],
+            rewired=ctx["rewired"], rewire_targets=ctx["rewire_targets"], degree_credit=ctx["degree_credit"],
+            row_ptr=ctx["row_ptr"], col_idx=ctx["col_idx"], slot_lease=ctx["slot_lease"],
+            rewire_slots=cfg.rewire_slots, fstats=ctx["fstats"])
+        return {"control_lvl": control_lvl, "rewire_targets": rewire_targets, "degree_credit": degree_credit,
+                "ctel": ctel}
+
+    return Stage("control", CONTROL_READS, ("control_lvl", "rewire_targets", "degree_credit", "ctel"), fn)
+
+
+def control_stages(cfg, control, packed_m: int | None = None) -> tuple[Stage, ...]:
+    """The control stage when a controller runs, else none."""
+    return () if control is None else (_control_stage(cfg, control, packed_m),)
+
+
 def stream_stages(stream, tail_stage: Stage, host_rng=None, host_rnd: int | None = None,
                   packed_m: int | None = None) -> tuple[Stage, ...]:
     """The tail with the stream's age-out before it and its injection after
@@ -419,19 +459,19 @@ def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, g
 
 def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
                        liveness=None, growth=None, stream=None, host_rng=None,
-                       host_rnd: int | None = None) -> tuple[Stage, ...]:
+                       host_rnd: int | None = None, control=None) -> tuple[Stage, ...]:
     """The post-dissemination stages of one round: :func:`row_stages`,
     then, with a ``stream``, its age-out, the tail and its injection
-    (:func:`stream_stages`), else the tail."""
+    (:func:`stream_stages`), else the tail; then, with ``control``, the
+    control stage."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
-            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd))
+            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd), *control_stages(cfg, control))
 
 
 def check_later(later: dict) -> None:
     """Refuse the arguments of later slices (given and not None) and any
     unknown argument."""
-    for name, where in (("control", "control"), ("pipeline", "multi-device"),
-                        ("inject", "serving")):
+    for name, where in (("pipeline", "multi-device"), ("inject", "serving")):
         if later.pop(name, None) is not None:
             raise not_ported(f"the {name} argument", where)
     if later:
@@ -483,13 +523,25 @@ def require_quorum(scenario, liveness) -> None:
         )
 
 
+def resolve_control(control, state, cfg):
+    """The round's ``RoundControl`` (None without a controller), resolved
+    from ``state``'s cursor before delivery; the needy rows only where a
+    pull half consumes them."""
+    if control is None:
+        return None
+    from tpu_gossip_torch.control.engine import control_round
+
+    return control_round(control, state, want_needy=cfg.mode == "push_pull")
+
+
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
                        host_round: int | None = None, liveness=None, growth=None, stream=None, host_rng=None,
-                       **later):
+                       control=None, **later):
     """One whole protocol round, engine-agnostic.
 
-    ``disseminate(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
-    msgs_sent)`` is the engine's delivery core. The driver splits the
+    ``disseminate(tx, transmitter, receptive, k_push, k_pull, rctl) ->
+    (incoming, msgs_sent)`` is the engine's delivery core, ``rctl`` the
+    round's ``RoundControl`` (None without a controller). It splits the
     state's key five ways (next key, push, pull, leave, join: the last two
     drive the churn stage), computes the role masks, delivers, and runs
     the stages through
@@ -507,7 +559,10 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     batch after churn. ``stream`` (a ``CompiledStream``) ages leases out
     through the tail and injects the round's arrivals after it;
     ``host_rng`` is ``state.rng`` on the host when the caller mirrors it
-    (the horizon loops do), sparing a device read a round.
+    (the horizon loops do), sparing a device read a round. ``control`` (a
+    ``ControlSpec``) resolves the round's decision from the state's cursor
+    after the quarantine mask, hands it to every delivery (the scenario
+    head's included) and runs the control stage last.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -522,21 +577,22 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
         # a quarantined peer still receives and stays a member; its sends
         # are masked
         transmit = transmit & ~state.quarantine[:, None]
+    rctl = resolve_control(control, state, cfg)
     k_accuse, k_forge, k_flood = adversary_keys(scenario, state.rng)
     if scenario is None:
-        incoming, msgs_sent = disseminate(transmit, transmitter, receptive, k_push, k_pull)
+        incoming, msgs_sent = disseminate(transmit, transmitter, receptive, k_push, k_pull, rctl)
         tx_eff, held, telem, rf = transmit, None, None, None
     else:
         from tpu_gossip_torch.faults.inject import scenario_dissemination
 
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, state, fault_round(state, host_round), transmit, transmitter, receptive,
-            k_push, k_pull, disseminate, k_flood=k_flood)
+            k_push, k_pull, lambda tx, tr, rc, kp, kq: disseminate(tx, tr, rc, kp, kq, rctl), k_flood=k_flood)
     return _engine.advance_round(
         state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
         liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth, stream=stream,
-        host_rng=host_rng, host_rnd=None if host_round is None else host_round + 1,
+        host_rng=host_rng, host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
     )
 
 
