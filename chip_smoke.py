@@ -80,8 +80,9 @@ its JAX pin, its packed twin digest-equal, the same capacity-padded state
 growing and fixed-n side by side (ms/round from CUDA events, peaks, the
 draw's chunk) and ``sim.profile --grow`` (the growth stage split into the
 Gumbel draw, the top-k and the scatters); 10c ``bench.py::bench_grow``'s
-configuration to the end of its schedule (197 rounds), membership at the
-target and ``degree_gamma`` within 1e-3 of the host fit; 10d a mid-growth
+configuration for the first 32 rounds of its 197-round schedule (cut from
+the whole schedule to keep the script inside its time), membership at
+950000 + 32 x 256 and ``degree_gamma`` within 1e-3 of the host fit; 10d a mid-growth
 n=20000 checkpoint killed and resumed on the other device, both ways.
 Phase 11 drives the streaming plane (``traffic/``, ``run_sim --stream``):
 first ``prng.poisson`` (both branches) and ``lgamma32`` (the integers
@@ -115,8 +116,29 @@ one's beyond the four control columns, and the message bill of the
 controlled and static runs cut at their rounds to 99%; 12c the 1M stream
 headline under the controller onto its JAX pin; 12d pin 2 killed after
 its round-16 checkpoint and resumed on the other device, both ways; 12e
-``sim.profile --control 0.99``. It prints phase 12's seconds and the
-script's.
+``sim.profile --control 0.99``. Phase 13 drives pipelined rounds and
+fleets (``sim/stages.py::PipelineSpec``, ``fleet/``): 13a the four
+pipelined JAX pins of ``reference_pins.json`` (``--shard --staircase
+--pipeline 1`` at n=20000, unpacked and packed, plain and under a stream
+whose age-out runs inside the horizon), K6 and K3 or K4 once a round, and
+``--pipeline 0`` onto the serial sharded pin; 13b ``bench_pipeline``'s
+comparison on the one-process bucketed mesh over 4f's set-up (48 rounds,
+serial and pipelined in turns: ms/round by CUDA events and wall, rounds to
+99%, peaks, K6 and K3 launches), the pipelined run onto its JAX pin; 13c
+the catalogue campaign's 21 lanes (four processes at once, each running
+its lanes through the solo round as the fleet does, while this process
+runs the next two checks) onto the JAX pin's
+lane digests and family blocks, ``run_sim fleet --lane 5 --solo`` equal to
+lane 5, and a 4-lane campaign checkpointed a file a lane, killed after
+its round-4 checkpoint and resumed whole and as ``--lane 3 --solo`` on the
+other device, both ways; 13d ``bench_fleet``'s configuration at full width
+(n=131072, K = 1, 8, 32, 10 rounds) beside K solo runs of the same lanes;
+13e ``run_sim --profile-round`` with ``--grow``, ``--stream 4`` and
+``--control 0.99`` at 1M (the composed rows). It prints phase 13's seconds
+and the script's. Each check of a checkpoint written on one device and
+resumed on the other (8e, 9c, 10d, 11d, 12d) runs its two directions at
+once, and 10c runs the first 32 rounds of ``bench_grow``'s schedule, to
+keep the script inside its time.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1409,6 +1431,18 @@ def ckpt_line(card: str, what: str, saves: list[dict], rec: dict, extra: str = "
             f"{peak_text(rec['peak'])}{extra}")
 
 
+def both_ways(leg) -> None:
+    """``leg(write_on, resume_on)`` for a checkpoint written on the card
+    and resumed on the CPU and for the reverse, both at once (two threads,
+    each waiting on its own processes); the first failure is raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(leg, w, r) for w, r in (("cuda", "cpu"), ("cpu", "cuda"))]
+    for f in futures:
+        f.result()
+
+
 def kill_at(root: Path, argv: list[str], line: str) -> str:
     """Run ``run_sim argv`` and SIGKILL it as soon as its stderr logs
     ``line``; returns the stderr it logged. Fails if the run ends first."""
@@ -1808,7 +1842,8 @@ def phase_faults(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
     held = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-faults-") as tmp:
         tmp = Path(tmp)
-        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+
+        def leg(write_on, resume_on):
             d = tmp / write_on
             kill_at(root, small["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
                                            write_on], "checkpoint: wrote ckpt-00000020")
@@ -1821,6 +1856,8 @@ def phase_faults(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
             if "resume: ckpt-00000020 at round 20" not in err:
                 raise AssertionError(f"8e: the resume did not start from ckpt-00000020: {err[-2000:]}")
             check_pin(summary, small, f"8e {write_on}->{resume_on}")
+
+        both_ways(leg)
     out["8e"] = dict(seconds=time.perf_counter() - t0, held=held)
     print(f"[{card}] 8e lossy-links n=20000 killed after ckpt-00000020 (delay buffer {held} bits) on the card and "
           f"resumed on the CPU, and the reverse, both onto the JAX pin (phases included); "
@@ -1974,7 +2011,8 @@ def phase_quorum(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
     opened = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-quorum-") as tmp:
         tmp = Path(tmp)
-        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+
+        def leg(write_on, resume_on):
             d = tmp / write_on
             kill_at(root, small["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
                                            write_on], "checkpoint: wrote ckpt-00000008")
@@ -1988,6 +2026,8 @@ def phase_quorum(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
             if "resume: ckpt-00000008 at round 8" not in err:
                 raise AssertionError(f"9c: the resume did not start from ckpt-00000008: {err[-2000:]}")
             check_pin(summary, small, f"9c {write_on}->{resume_on}")
+
+        both_ways(leg)
     out["9c"] = dict(seconds=time.perf_counter() - t0, open_suspicions=opened)
     print(f"[{card}] 9c the n=20000 siege at quorum 3 killed after ckpt-00000008 ({opened} open suspicions) on the "
           f"card and resumed on the CPU, and the reverse, both onto the JAX pin (liveness and phases included)",
@@ -2000,6 +2040,7 @@ def phase_quorum(root: Path, dev, card: str, n_big: int = N_HEADLINE) -> dict:
 GROW_BIG = ["--graph", "matching", "--peers", "950000", "--grow", "1000000", "--grow-rate", "256", "--rounds", "32",
             "--mode", "push_pull", "--fanout", "1", "--digest", "--quiet"]
 BENCH_GROW = dict(n0=950_000, target=1_000_000, rate=256, attach=3)  # bench.py::bench_grow's configuration
+BENCH_GROW_ROUNDS = 32  # of its 197-round schedule: the script's time limit
 
 
 def growth_launches(argv: list[str], rounds: int) -> dict:
@@ -2099,10 +2140,10 @@ def phase_growth(root: Path, dev, card: str) -> dict:
     (950000 -> 1000000, 256 joins a round, 32 rounds) onto its JAX pin,
     its packed twin digest-equal, the same capacity-padded state growing
     and fixed-n (ms/round and peaks), and ``sim.profile --grow``; 10c
-    bench_grow's configuration to the end of its schedule (the device
-    power-law graph of 950000 padded to 1000001 rows, exactly-k delivery),
-    membership at the target and the device gamma track within 1e-3 of the
-    host fit; 10d the n=20000 matching pin killed after its mid-growth
+    bench_grow's configuration for the first ``BENCH_GROW_ROUNDS`` rounds of
+    its schedule (the device power-law graph of 950000 padded to 1000001
+    rows, exactly-k delivery), membership at 950000 plus 256 a round and
+    the device gamma track within 1e-3 of the host fit; 10d the n=20000 matching pin killed after its mid-growth
     round-8 checkpoint and resumed on the other device, both ways."""
     import shutil
     import tempfile
@@ -2184,7 +2225,7 @@ def phase_growth(root: Path, dev, card: str) -> dict:
     out["10b profile"] = run_growth_profile(root, card)
     out["10b"] = dict(seconds=time.perf_counter() - t0)
 
-    # 10c: bench_grow's configuration to the end of its schedule
+    # 10c: bench_grow's configuration, the first BENCH_GROW_ROUNDS rounds of its schedule
     t0 = time.perf_counter()
     from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
     from tpu_gossip_torch.core.topology import fit_powerlaw_gamma
@@ -2200,7 +2241,7 @@ def phase_growth(root: Path, dev, card: str) -> dict:
                        exists=torch.from_numpy(pad_exists).to(dev), device=dev)
     grow = compile_growth(n_initial=b["n0"] + 1, target=cap, n_slots=cap, joins_per_round=b["rate"],
                           attach_m=b["attach"], device=dev)
-    rounds = (b["target"] - b["n0"]) // b["rate"] + 2
+    rounds = BENCH_GROW_ROUNDS
     pair = grow_vs_fixed(dev, graph, cfg, state, grow, None, rounds)
     fin, stats = pair["growing"]["fin"], pair["growing"]["stats"]
     members = int(fin.exists.sum())
@@ -2209,9 +2250,9 @@ def phase_growth(root: Path, dev, card: str) -> dict:
     dev_gamma = float(stats.degree_gamma[-1])
     check_counts("10c growing", pair["growing"]["launches"], {"lane_shuffle": 0, "fold_planes_or": 0,
                                                               "round_tail": rounds, "staircase_segment": 0})
-    if members != b["target"] or abs(dev_gamma - host_gamma) > 1e-3:
-        raise AssertionError(f"10c: {members} members (target {b['target']}), device gamma {dev_gamma} against the "
-                             f"host fit {host_gamma}")
+    if members != b["n0"] + rounds * b["rate"] or abs(dev_gamma - host_gamma) > 1e-3:
+        raise AssertionError(f"10c: {members} members (want {b['n0'] + rounds * b['rate']}), device gamma "
+                             f"{dev_gamma} against the host fit {host_gamma}")
     for what in ("growing", "fixed"):
         p = pair[what]
         out[f"10c {what}"] = {k: v for k, v in p.items() if k not in ("fin", "stats", "ms")}
@@ -2234,7 +2275,8 @@ def phase_growth(root: Path, dev, card: str) -> dict:
     members = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-growth-") as tmp:
         tmp = Path(tmp)
-        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+
+        def leg(write_on, resume_on):
             d = tmp / write_on
             kill_at(root, small["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
                                            write_on], "checkpoint: wrote ckpt-00000008")
@@ -2248,6 +2290,8 @@ def phase_growth(root: Path, dev, card: str) -> dict:
             if "resume: ckpt-00000008 at round 8" not in err:
                 raise AssertionError(f"10d: the resume did not start from ckpt-00000008: {err[-2000:]}")
             check_pin(summary, small, f"10d {write_on}->{resume_on}")
+
+        both_ways(leg)
     out["10d"] = dict(seconds=time.perf_counter() - t0, members=members)
     print(f"[{card}] 10d the n=20000 matching pin ({' '.join(small['argv'])}) killed after ckpt-00000008 "
           f"({members} members) on "
@@ -2522,7 +2566,8 @@ def phase_stream(root: Path, dev, card: str) -> dict:
     leases = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
         tmp = Path(tmp)
-        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+
+        def leg(write_on, resume_on):
             d = tmp / write_on
             kill_at(root, small["argv"] + ["--checkpoint-every", "12", "--checkpoint-dir", str(d), "--device",
                                            write_on], "checkpoint: wrote ckpt-00000024")
@@ -2535,6 +2580,8 @@ def phase_stream(root: Path, dev, card: str) -> dict:
             if "resume: ckpt-00000024 at round 24" not in err:
                 raise AssertionError(f"11d: the resume did not start from ckpt-00000024: {err[-2000:]}")
             check_pin(summary, small, f"11d {write_on}->{resume_on}")
+
+        both_ways(leg)
     out["11d"] = dict(seconds=time.perf_counter() - t0, live_leases=leases)
     print(f"[{card}] 11d the n=20000 matching stream pin ({' '.join(small['argv'])}) killed after ckpt-00000024 "
           f"({leases} live leases, TTL 20, so leases have aged out before it) on the card and resumed on the CPU, "
@@ -2745,7 +2792,8 @@ def phase_control(root: Path, dev, card: str) -> dict:
     cursors = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-control-") as tmp:
         tmp = Path(tmp)
-        for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+
+        def leg(write_on, resume_on):
             d = tmp / write_on
             kill_at(root, small["argv"] + ["--checkpoint-every", "8", "--checkpoint-dir", str(d), "--device",
                                            write_on], "checkpoint: wrote ckpt-00000016")
@@ -2757,6 +2805,8 @@ def phase_control(root: Path, dev, card: str) -> dict:
             if "resume: ckpt-00000016 at round 16" not in err:
                 raise AssertionError(f"12d: the resume did not start from ckpt-00000016: {err[-2000:]}")
             check_pin(summary, small, f"12d {write_on}->{resume_on}")
+
+        both_ways(leg)
     out["12d"] = dict(seconds=time.perf_counter() - t0, cursors=cursors)
     print(f"[{card}] 12d pin 2 ({' '.join(small['argv'])}) killed after ckpt-00000016 (a refresh round; cursor "
           f"{cursors}) on the card and resumed on the CPU, and the reverse, both onto the JAX pin", flush=True)
@@ -2766,6 +2816,438 @@ def phase_control(root: Path, dev, card: str) -> dict:
     out["12e profile"] = run_control_profile(root, card)
     out["12e"] = dict(seconds=time.perf_counter() - t0)
     return out
+
+
+# ---------------------------------------------- phase 13: pipelined rounds and fleets
+
+PIPELINE_BIG_ROUNDS = 48  # bench.py::bench_pipeline's comparison, long enough for both runs to reach 99%
+CATALOGUE = "scenarios/campaigns/catalogue_smoke.toml"
+# bench.py::bench_fleet's configuration: K composed lanes (a lossy sweep, a
+# stream and the controller) of n-peer Chung-Lu swarms, 10 rounds
+BENCH_FLEET = dict(n=131_072, ks=(1, 8, 32), rounds=10)
+# a small campaign for the checkpoint round trip across devices (4 lanes, 12
+# rounds, a file a lane every 4)
+SMALL_CAMPAIGN = """[campaign]
+name = "chip-small"
+seed = 1
+[base]
+peers = 64
+rounds = 12
+slots = 4
+fanout = 2
+mode = "push_pull"
+stream_rate = 1.0
+slot_ttl = 10
+control = 0.9
+control_hi = 3
+rewire_slots = 3
+churn_join = 0.02
+[[family]]
+name = "lossy"
+scenario = "lossy.toml"
+seeds = 2
+[[family.sweep]]
+axis = "phase.loss"
+dist = "uniform"
+lo = 0.05
+hi = 0.3
+[[family]]
+name = "quiet"
+scenario = "lossy.toml"
+seeds = 2
+"""
+SMALL_SCENARIO = ("[scenario]\nname = \"lossy\"\n[[phase]]\nname = \"lossy\"\nstart = 0\nend = 6\nloss = 0.2\n"
+                  "delay = 0.1\n")
+COMPOSED_PROFILE = ["--peers", "950000", "--grow", "1000000", "--grow-rate", "32", "--graph", "matching", "--mode",
+                    "push_pull", "--fanout", "1", "--stream", "4", "--control", "0.99", "--profile-round", "4"]
+
+
+def pipeline_1m(dev, shard: dict, depth, rounds: int = PIPELINE_BIG_ROUNDS) -> dict:
+    """bench_pipeline's comparison on the one-process bucketed mesh over
+    4f's set-up (the 1M device power-law graph on one shard, K6 receive):
+    one origin from ``default_rng(0)``, push_pull fanout 1, 16 slots,
+    ``rounds`` rounds at ``depth`` (None: serial), launches counted from 0,
+    a CUDA event a round."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.state import SwarmConfig
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim import metrics as M
+    from tpu_gossip_torch.sim.stages import compile_pipeline
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    sg, mesh = shard["sg"], shard["mesh"]
+    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
+    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
+    state = dist.shard_swarm(dist.init_sharded_swarm(sg, shard["rel"], shard["pos"], cfg, key=prng.key(0, dev),
+                                                     origins=origins, device=dev), mesh)
+    pipe = None if depth is None else compile_pipeline(depth)
+
+    def step(st):
+        return dist.gossip_round_dist(st, cfg, sg, mesh, shard["plan"], pipeline=pipe)
+
+    native.reset_launches()
+    t0 = time.perf_counter()
+    fin, stats, round_ms, peak, start = timed_rounds(dev, step, state, rounds)
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    check_launches(f"13b {'serial' if depth is None else 'pipelined'}", launches, SHARD_STAIRCASE_PATH, rounds)
+    return dict(state_digest=state_digest(fin), stats_digest=stats_digest(stats),
+                rounds_to_target=M.rounds_to_coverage(stats, 0.99), final_coverage=float(stats.coverage[-1]),
+                wall_ms_per_round=wall * 1e3 / rounds, event_ms_per_round=sum(round_ms) / rounds, peak=peak,
+                start=start, launches={k: v for k, v in launches.items() if v},
+                pipe_buf_bits=int(fin.pipe_buf.sum()))
+
+
+def phase_pipeline(root: Path, dev, card: str, shard: dict) -> dict:
+    """13a: the four pipelined JAX pins at n=20000 (``--shard --staircase
+    --pipeline 1``, packed and unpacked, plain and under a stream whose
+    age-out runs inside the horizon) through the CLI, launches counted from
+    0 (K6 once a round, K3 or K4 once a round), and ``--pipeline 0`` onto
+    the serial pin of ``reference_digests.json``; 13b bench_pipeline's
+    comparison at 1M on 4f's set-up, serial and pipelined in turns, the
+    pipelined run onto its JAX pin."""
+    pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
+    out = {}
+    t0 = time.perf_counter()
+    for ref in pins["pipeline"]:
+        argv = [a for a in ref["argv"] if a != "--quiet"]
+        what = f"13a run_sim {' '.join(a for a in ref['argv'] if a not in ('--digest', '--quiet'))}"
+        r = cli_here(argv, dev)
+        check_pin(r["summary"], ref, what)
+        if "--stream" in argv:
+            check_stream_run(what, argv, r)
+            print(stream_line(card, what, r, "; equal to the JAX pin"), flush=True)
+        else:
+            check_growth_run(what, argv, r)
+            print(fault_line(card, what, r, "; equal to the JAX pin"), flush=True)
+        del r
+    serial = [ref for ref in json.loads((root / "tpu_gossip_torch" / "reference_digests.json").read_text())
+              if ref["argv"] == SERIAL_SHARD_PIN][0]
+    r = cli_here([a for a in SERIAL_SHARD_PIN if a != "--quiet"] + ["--pipeline", "0"], dev)
+    check_pin(r["summary"], serial, "13a --pipeline 0")
+    if r["summary"].get("pipeline") != 0:
+        raise AssertionError(f"13a --pipeline 0 reported pipeline {r['summary'].get('pipeline')}")
+    print(fault_line(card, "13a the serial sharded pin with --pipeline 0", r, "; equal to the serial JAX pin"),
+          flush=True)
+    out["13a"] = dict(seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    pin = pins["pipeline_1m"]
+    runs = {"serial": [], "pipelined": []}
+    for what in ("serial", "pipelined", "pipelined", "serial"):
+        runs[what].append(pipeline_1m(dev, shard, None if what == "serial" else 1))
+    for what, (a, b) in runs.items():
+        for k in ("state_digest", "stats_digest", "rounds_to_target", "pipe_buf_bits"):
+            if a[k] != b[k]:
+                raise AssertionError(f"13b {what}: the two runs' {k} differ: {a[k]} != {b[k]}")
+    piped = runs["pipelined"][0]
+    for k, want in pin["summary"].items():
+        if piped[k] != want:
+            raise AssertionError(f"13b pipelined: {k} {piped[k]} != the JAX pin's {want} ({pin['source']})")
+    if runs["serial"][0]["pipe_buf_bits"] != 0 or piped["pipe_buf_bits"] == 0:
+        raise AssertionError("13b: the serial run touched pipe_buf or the pipelined run left it empty")
+    for what, pair in runs.items():
+        print(f"[{card}] 13b bench_pipeline's comparison on the one-process bucketed mesh (4f's 1M graph, one shard, "
+              f"K6 receive, push_pull fanout 1, {M_SLOTS} slots, {PIPELINE_BIG_ROUNDS} rounds), {what}: "
+              f"{[round(r['event_ms_per_round'], 4) for r in pair]} ms/round by CUDA events, "
+              f"{[round(r['wall_ms_per_round'], 4) for r in pair]} by wall (the turns serial, pipelined, pipelined, "
+              f"serial), rounds to 99% {pair[0]['rounds_to_target']}, final coverage {pair[0]['final_coverage']}, "
+              f"peak {pair[0]['peak']} B (from {pair[0]['start']} B), launches {pair[0]['launches']}, "
+              f"state_digest {pair[0]['state_digest']}"
+              + ("; equal to the JAX pin" if what == "pipelined" else ""), flush=True)
+    print(f"[{card}] 13b the JAX package's own bench_pipeline runs the sharded matching mesh (ROADMAP item 11b, not "
+          "ported); this comparison runs the bucketed mesh the port has", flush=True)
+    out["13b"] = dict(seconds=time.perf_counter() - t0,
+                      runs={w: [{k: r[k] for k in ("event_ms_per_round", "wall_ms_per_round", "rounds_to_target",
+                                                    "peak", "launches")} for r in pair] for w, pair in runs.items()})
+    return out
+
+
+def check_report(got: dict, want: dict, path: str = "report") -> None:
+    """A fleet summary's family blocks against the JAX pin's: integers,
+    strings and booleans equal, floats within 1e-6."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"13c {path}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            check_report(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"13c {path}: {len(got)} entries != {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_report(a, b, f"{path}[{i}]")
+    elif isinstance(want, float):
+        if abs(got - want) > 1e-6:
+            raise AssertionError(f"13c {path}: {got} != the JAX pin's {want}")
+    elif got != want:
+        raise AssertionError(f"13c {path}: {got} != the JAX pin's {want}")
+
+
+def run_fleet_cli(argv: list[str], dev) -> dict:
+    """``run_sim`` (fleet or resume) in this process; its summary."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.cli import run_sim
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run_sim.main(argv + ["--device", str(dev)])
+    if rc != 0:
+        raise AssertionError(f"run_sim {' '.join(argv)} exited {rc}: {err.getvalue()[-3000:]}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def fleet_lanes(camp, k: int):
+    """The first ``k`` lanes of a compiled campaign: the stacked states and
+    each plane's plans."""
+    states = dataclasses.replace(camp.states, **{f.name: getattr(camp.states, f.name)[:k]
+                                                 for f in dataclasses.fields(camp.states)})
+    return states, [None if p is None else p[:k] for p in (camp.scenario, camp.growth, camp.stream, camp.control)]
+
+
+LANE_PROCESSES = 4
+LANE_CHILD = """import json, sys, time
+import numpy as np
+import torch
+from tpu_gossip_torch import fleet
+from tpu_gossip_torch.ckpt import host_stats
+from tpu_gossip_torch.kernels import native
+lo, hi, path, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+camp = fleet.compile_campaign(fleet.parse_campaign(path), device="cuda")
+native.reset_launches()
+t0 = time.perf_counter()
+digests = {}
+for k in range(lo, hi):
+    fin, stats = fleet.run_lane_solo(camp, k)
+    digests[str(k)] = fleet.state_digest(fin)
+    np.savez(f"{out}/lane-{k}.npz", **host_stats(stats))
+torch.cuda.synchronize()
+print(json.dumps({"digests": digests, "launches": dict(native.LAUNCHES), "wall": time.perf_counter() - t0}))
+"""
+
+
+def start_catalogue_lanes(root: Path, tmp: Path, k: int) -> list:
+    """The catalogue's ``k`` lanes on the card in ``LANE_PROCESSES``
+    processes at once, each compiling the campaign and running its share of
+    the lanes through the solo round (a fleet lane is its solo run)."""
+    cuts = [k * i // LANE_PROCESSES for i in range(LANE_PROCESSES + 1)]
+    return [subprocess.Popen([sys.executable, "-c", LANE_CHILD, str(lo), str(hi), str(root / CATALOGUE), str(tmp)],
+                             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for lo, hi in zip(cuts, cuts[1:])]
+
+
+def finish_catalogue_lanes(procs: list, tmp: Path, k: int):
+    """Wait for :func:`start_catalogue_lanes`' processes: every lane's
+    state digest, the stacked stats, the summed launches and the wall
+    seconds of the slowest process's lanes."""
+    import numpy as np
+
+    from tpu_gossip_torch.sim.engine import RoundStats
+
+    digests, launches, wall = {}, {}, 0.0
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"13c: a lane process exited {proc.returncode}: {err[-3000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        digests.update(got["digests"])
+        for key, n in got["launches"].items():
+            launches[key] = launches.get(key, 0) + n
+        wall = max(wall, got["wall"])
+    parts = [np.load(tmp / f"lane-{i}.npz") for i in range(k)]
+    stats = RoundStats(*(torch.from_numpy(np.stack([p[f] for p in parts])) for f in RoundStats._fields))
+    return {str(i): digests[str(i)] for i in range(k)}, stats, launches, wall
+
+
+def bench_fleet(dev, card: str, tmp: Path) -> dict:
+    """13d: bench.py::bench_fleet's configuration at full width, the fleet
+    at K = 1, 8 and 32 lanes beside K in-process solo runs of the same
+    lanes (the fleet runs its lanes in turn through the solo round, so the
+    two should match), swarms/s, peers*rounds/s, the peak and K3's
+    launches."""
+    from tpu_gossip_torch import fleet
+    from tpu_gossip_torch.kernels import native
+
+    b = BENCH_FLEET
+    scen = tmp / "lossy_short.toml"
+    scen.write_text(f"[scenario]\nname = \"lossy-short\"\n[[phase]]\nname = \"lossy\"\nstart = 0\n"
+                    f"end = {max(b['rounds'] - 2, 1)}\nloss = 0.2\ndelay = 0.1\n")
+    camp_path = tmp / "fleet_bench.toml"
+    camp_path.write_text(
+        f"[campaign]\nname = \"fleet-bench\"\nseed = 0\n[base]\npeers = {b['n']}\nrounds = {b['rounds']}\n"
+        "slots = 16\nfanout = 2\nmode = \"push_pull\"\ngraph = \"chung-lu\"\ncoverage_target = 0.95\n"
+        "target_ratio = 0.9\nstream_rate = 1.0\nslot_ttl = 24\ncontrol = 0.9\ncontrol_hi = 4\nrewire_slots = 4\n"
+        f"[[family]]\nname = \"lossy\"\nscenario = \"{scen}\"\nseeds = {max(b['ks'])}\n"
+        "[[family.sweep]]\naxis = \"phase.loss\"\ndist = \"uniform\"\nlo = 0.05\nhi = 0.4\n")
+    t0 = time.perf_counter()
+    camp = fleet.compile_campaign(fleet.parse_campaign(camp_path), device=dev)
+    torch.cuda.synchronize(dev)
+    compile_s = time.perf_counter() - t0
+    fleet.run_lane_solo(camp, 0)  # warm
+    rows = {}
+    for k in b["ks"]:
+        states, plans = fleet_lanes(camp, k)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+        native.reset_launches()
+        t0 = time.perf_counter()
+        fin, stats = fleet.simulate_fleet(states, camp.cfg, b["rounds"], *plans, camp.liveness)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check_counts(f"13d K={k}", launches, {"round_tail": k * b["rounds"], "lane_shuffle": 0, "fold_planes_or": 0,
+                                             "staircase_segment": 0, "stream_segment": 0, "round_tail_words": 0})
+        digests = [fleet.state_digest(dataclasses.replace(fin, **{f.name: getattr(fin, f.name)[i] for f in
+                                                                  dataclasses.fields(fin)})) for i in range(k)]
+        del fin, stats
+        t0 = time.perf_counter()
+        for i in range(k):
+            solo, _ = fleet.run_lane_solo(camp, i)
+            if fleet.state_digest(solo) != digests[i]:
+                raise AssertionError(f"13d K={k}: lane {i} differs from its solo run")
+        torch.cuda.synchronize(dev)
+        serial = time.perf_counter() - t0
+        rows[k] = dict(fleet_wall_s=wall, swarms_per_s=k / wall, swarm_rounds_per_s=k * b["rounds"] / wall,
+                       peers_rounds_per_s=k * b["n"] * b["rounds"] / wall, ms_per_round_per_lane=wall * 1e3 /
+                       (k * b["rounds"]), serial_solo_wall_s=serial, serial_swarms_per_s=k / serial,
+                       fleet_over_serial=serial / wall, peak=peak, start=start, k3_launches=launches["round_tail"])
+        print(f"[{card}] 13d bench_fleet's configuration (n={b['n']} Chung-Lu, {b['rounds']} rounds, 16 slots, "
+              f"push_pull fanout 2, stream 1.0 TTL 24, control 0.9 hi 4, rewire 4, loss 0.05-0.4) K={k}: fleet "
+              f"{wall} s, {rows[k]['swarms_per_s']} swarms/s, {rows[k]['peers_rounds_per_s']} peers*rounds/s, "
+              f"{rows[k]['ms_per_round_per_lane']} ms a lane-round; {k} solo runs {serial} s "
+              f"({rows[k]['serial_swarms_per_s']} swarms/s, fleet/serial speed {rows[k]['fleet_over_serial']}); "
+              f"peak {peak} B (from {start} B); K3 launches {launches['round_tail']}; every lane equals its solo "
+              f"run", flush=True)
+    return dict(compile_s=compile_s, rows=rows)
+
+
+def fleet_checkpoint_across_devices(root: Path, dev, card: str, tmp: Path) -> None:
+    """A 4-lane campaign checkpointed a file a lane every 4 rounds, killed
+    after its round-4 checkpoint on one device and finished on the other,
+    whole and as ``--lane 3 --solo``, both ways: the uninterrupted run's
+    lane digests."""
+    import shutil
+
+    (tmp / "lossy.toml").write_text(SMALL_SCENARIO)
+    camp_path = tmp / "campaign.toml"
+    camp_path.write_text(SMALL_CAMPAIGN)
+    full = run_fleet_cli(["fleet", str(camp_path)], dev)
+    for write_on, resume_on in (("cuda", "cpu"), ("cpu", "cuda")):
+        d = tmp / write_on
+        kill_at(root, ["fleet", str(camp_path), "--checkpoint-every", "4", "--checkpoint-dir", str(d), "--device",
+                       write_on], "checkpoint: wrote ckpt-00000004")
+        shutil.rmtree(d / "ckpt-00000008", ignore_errors=True)
+        lane = run_fleet_cli(["resume", str(d), "--lane", "3", "--solo"], resume_on)
+        whole = run_fleet_cli(["resume", str(d)], resume_on)
+        if lane["state_digest"] != full["lane_digests"]["3"] or whole["lane_digests"] != full["lane_digests"]:
+            raise AssertionError(f"13c: the fleet written on {write_on} and resumed on {resume_on} differs")
+    print(f"[{card}] 13c a 4-lane campaign checkpointed a file a lane every 4 rounds, killed after ckpt-00000004 on "
+          "the card and resumed on the CPU, and the reverse, whole and as --lane 3 --solo: the uninterrupted run's "
+          "lane digests", flush=True)
+
+
+def phase_fleet(root: Path, dev, card: str) -> dict:
+    """13c: the catalogue campaign (21 lanes at n=96 under every scenario
+    family, 60 rounds) on the card, every lane's digests and the summary's
+    family blocks onto the JAX pin, K3 once a lane-round; ``--lane 5
+    --solo`` equal to its fleet lane; a small campaign checkpointed a file
+    a lane, killed after its round-4 checkpoint and finished whole and as
+    ``--lane 3 --solo`` on the other device, both ways. 13d
+    ``bench_fleet``'s configuration at full width."""
+    import tempfile
+
+    from tpu_gossip_torch import fleet
+
+    pin = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())["fleet"]
+    out = {}
+    t0 = time.perf_counter()
+    camp = fleet.compile_campaign(fleet.parse_campaign(root / CATALOGUE), device="cpu")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as tmp:
+        tmp = Path(tmp)
+        (tmp / "lanes").mkdir()
+        procs = start_catalogue_lanes(root, tmp / "lanes", camp.k)
+        try:
+            # meanwhile, in this process: lane 5 alone through the CLI, and
+            # a small campaign's checkpoint across the devices
+            solo = run_fleet_cli(["fleet", str(root / CATALOGUE), "--lane", "5", "--solo"], dev)
+            fleet_checkpoint_across_devices(root, dev, card, tmp)
+            lanes, stats, launches, wall = finish_catalogue_lanes(procs, tmp / "lanes", camp.k)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        check_counts("13c", launches, {"round_tail": camp.k * camp.rounds, "lane_shuffle": 0, "fold_planes_or": 0,
+                                       "staircase_segment": 0, "stream_segment": 0, "round_tail_words": 0})
+        want = pin["summary"]
+        if lanes != want["lane_digests"]:
+            bad = [k for k in lanes if lanes[k] != want["lane_digests"][k]]
+            raise AssertionError(f"13c: lanes {bad} differ from the JAX pin")
+        if {str(k): fleet.stats_digest(stats, k) for k in range(camp.k)} != want["stats_digests"]:
+            raise AssertionError("13c: a lane's stats digest differs from the JAX pin")
+        report = fleet.campaign_report(camp, stats)
+        families = [{k: f.get(k) for k in ("family", "lanes", "lanes_judged", "reliability", "frontier")
+                     if f.get(k) is not None} for f in report["families"]]
+        check_report(families, want["families"], "families")
+        if solo["state_digest"] != lanes["5"] or solo["stats_digest"] != want["stats_digests"]["5"]:
+            raise AssertionError("13c: --lane 5 --solo differs from the fleet's lane 5")
+        verdicts = [(f["family"], f["reliability"]["mean"], f["reliability"]["certified"]) for f in families]
+        print(f"[{card}] 13c {CATALOGUE} ({camp.k} lanes, n=96, {camp.rounds} rounds; {LANE_PROCESSES} processes at "
+              f"once beside the checkpoint run, each running its lanes in turn as the fleet does): {wall} s, "
+              f"{camp.k * camp.rounds / wall} swarm-rounds/s; launches {({k: v for k, v in launches.items() if v})}; "
+              f"every lane's digests and the family blocks equal the JAX pin; run_sim fleet --lane 5 --solo equals "
+              f"lane 5; families {verdicts}", flush=True)
+        del stats, camp
+        out["13c"] = dict(seconds=time.perf_counter() - t0, wall=wall, launches=launches)
+        t0 = time.perf_counter()
+        out["13d"] = bench_fleet(dev, card, tmp)
+        out["13d"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_composed_profile(card: str, dev) -> dict:
+    """13e: ``run_sim --profile-round`` with ``--grow``, ``--stream 4`` and
+    ``--control 0.99`` on the 1M matching headline growing toward 1M (32
+    joins a round, so the Gumbel draw does not swamp the slopes): the
+    growth, stream and control rows between the key splits and the
+    transport probe, K1, K2 and K3 launched."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels import native
+
+    native.reset_launches()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run_sim.main(COMPOSED_PROFILE + ["--device", str(dev)])
+    launches = dict(native.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"run_sim {' '.join(COMPOSED_PROFILE)} exited {rc}: {err.getvalue()[-3000:]}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    want = PROFILE_STAGES[:6] + ["growth", "stream", "control"] + PROFILE_STAGES[6:]
+    if list(summary["stages_ms"]) != want:
+        raise AssertionError(f"13e --profile-round stages {list(summary['stages_ms'])} != {want}")
+    check_launches("13e --profile-round", launches, {"lane_shuffle": None, "fold_planes_or": None,
+                                                     "round_tail": None}, 1)
+    print(f"[{card}] 13e run_sim {' '.join(COMPOSED_PROFILE)}: stages_ms {summary['stages_ms']}; launches "
+          f"{({k: v for k, v in launches.items() if v})}", flush=True)
+    return summary
+
+
+SERIAL_SHARD_PIN = ["--peers", "20000", "--mode", "push_pull", "--fanout", "1", "--graph", "chung-lu", "--shard",
+                    "--staircase", "--rounds", "20", "--digest", "--quiet"]
 
 
 KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
@@ -3072,7 +3554,17 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     t0 = time.perf_counter()
     control = phase_control(root, dev, card)
     print(f"[{card}] phase 12: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in control.items() if 'seconds' in v} }; the script "
+          f"{ {k: round(v['seconds'], 2) for k, v in control.items() if 'seconds' in v} }", flush=True)
+
+    # phase 13: pipelined rounds (13a, 13b), fleets (13c, 13d) and the composed profile rows (13e)
+    t0 = time.perf_counter()
+    pipeline = phase_pipeline(root, dev, card, shard)
+    fleets = phase_fleet(root, dev, card)
+    t1 = time.perf_counter()
+    run_composed_profile(card, dev)
+    parts = {**pipeline, **fleets, "13e": dict(seconds=time.perf_counter() - t1)}
+    print(f"[{card}] phase 13: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in parts.items() if 'seconds' in v} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -337,12 +337,24 @@ def test_repartition_swarm_equals_jax(s):
 
 @pytest.mark.parametrize("what", ["pipeline", "inject"])
 def test_burst_and_quarantined_churn_are_not_ported(what):
-    """The planes of later slices (pipelining, live ingestion) raise
-    ``not_ported`` on a churned round, naming their slice; the burst form
-    runs (``test_torch_faults.py``), the quarantined rejoin
+    """Live ingestion, a later slice, raises ``not_ported`` on a churned
+    round, naming its slice; a pipelined churned round runs (ROADMAP item
+    9f: the round stores its issue in ``pipe_buf``; its cells against JAX
+    are ``test_torch_pipeline.py``'s), and so do the burst form
+    (``test_torch_faults.py``), the quarantined rejoin
     (``test_torch_adversary.py``), growth's admission waves
     (``test_torch_growth_runs.py``), streams (``test_torch_stream.py``) and
-    the controller (``test_torch_control*.py``) too."""
+    the controller (``test_torch_control*.py``)."""
     _, _, (tc, tsw) = _build_csr_swarms(200, seed=1)
-    with pytest.raises(NotImplementedError, match="not ported yet.*(multi-device|serving) slice"):
+    if what == "pipeline":
+        from tpu_gossip_torch.sim.stages import compile_pipeline
+
+        serial, _ = te.gossip_round(tsw, tc)
+        piped, _ = te.gossip_round(tsw, tc, pipeline=compile_pipeline(1))
+        # the buffer holds the issued exchange: every bit the serial round
+        # newly delivered is in it
+        assert bool(piped.pipe_buf.any()) and not bool((serial.seen & ~tsw.seen & ~piped.pipe_buf).any())
+        assert torch.equal(piped.alive, serial.alive) and torch.equal(piped.rng, serial.rng)
+        return
+    with pytest.raises(NotImplementedError, match="not ported yet.*serving slice"):
         te.gossip_round(tsw, tc, **{what: object()})

@@ -152,10 +152,10 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--graph", "chung-lu", "--control", "0.9", "--profile-round", "4", "--device", "cpu"],
-    ["--graph", "pa", "--stream", "0.5", "--rounds", "20", "--pipeline", "1", "--device", "cpu"],
+    ["--graph", "chung-lu", "--control", "0.9", "--rounds", "8", "--transport", "sparse", "--device", "cpu"],
+    ["--graph", "pa", "--stream", "0.5", "--rounds", "20", "--hosts", "2", "--device", "cpu"],
     ["--graph", "matching", "--shard", "--device", "cpu"],
-    ["--graph", "matching", "--control", "0.9", "--rounds", "8", "--pipeline", "1", "--device", "cpu"],
+    ["--graph", "matching", "--control", "0.9", "--rounds", "8", "--shard", "--pipeline", "1", "--device", "cpu"],
 ])
 def test_cli_flags_of_later_slices_exit_2(capsys, argv):
     assert tcli.main(["--peers", "100", *argv]) == 2

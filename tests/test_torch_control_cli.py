@@ -50,8 +50,8 @@ def test_control_refusals_in_jax_words(capsys, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--profile-round", "4"], "9f"),
-    (["--rounds", "20", "--pipeline", "1"], "9f"),
+    (["--rounds", "20", "--shard", "--graph", "matching", "--pipeline", "1"], "11b"),
+    (["--rounds", "20", "--transport", "sparse"], "11b"),
     (["--rounds", "20", "--shard", "--graph", "matching"], "11b"),
 ])
 def test_control_with_a_later_slice_exits_2_naming_its_item(capsys, argv, item):

@@ -1030,3 +1030,59 @@ def test_control_digest_on_card_equals_cpu(dev, argv, path):
     assert card["reliability"]["messages_judged"] == 1
     for key, n in FAULT_PATHS[path](32, 0).items():
         assert launches[key] == n, (key, launches)
+
+
+@pytest.mark.parametrize("extra,tail", [
+    (["--staircase"], "round_tail"),
+    (["--packed"], "round_tail_words"),
+    (["--staircase", "--stream", "2", "--slot-ttl", "20"], "round_tail"),
+])
+def test_pipelined_digest_on_card_equals_cpu(dev, extra, tail):
+    """A pipelined run on the one-process bucketed mesh (n=20000, 24
+    rounds): the card equals the CPU (summary and digests), launching its
+    tail kernel once a round and K6 once a round with ``--staircase``."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    argv = ["--peers", "20000", "--graph", "chung-lu", "--mode", "push_pull", "--fanout", "1", "--shard",
+            "--pipeline", "1", "--rounds", "24", "--digest", "--quiet", *extra]
+    parser = run_sim.build_parser()
+
+    def run(device):
+        args = parser.parse_args(argv + ["--device", device])
+        assert run_sim.validate(args) is None
+        return run_sim.run(args)
+
+    reset_launches()
+    card = run("cuda")
+    launches = dict(LAUNCHES)
+    assert card == run("cpu") and card["pipeline"] == 1
+    assert launches[tail] == 24 and launches["stream_segment"] == (24 if "--staircase" in extra else 0)
+
+
+def test_fleet_lanes_on_card_equal_cpu(dev, tmp_path):
+    """A 4-lane campaign (a loss sweep, a stream, the controller) run on
+    the card and on the CPU: every lane's digests equal, K3 once a
+    lane-round."""
+    from tpu_gossip_torch import fleet
+    from tpu_gossip_torch.core.state import lane_state
+    from tpu_gossip_torch.kernels.native import LAUNCHES, reset_launches
+
+    (tmp_path / "lossy.toml").write_text("[scenario]\nname = \"lossy\"\n[[phase]]\nname = \"lossy\"\nstart = 0\n"
+                                         "end = 6\nloss = 0.2\ndelay = 0.1\n")
+    spec = fleet.campaign_from_dict({
+        "name": "card", "seed": 1,
+        "base": {"peers": 64, "rounds": 12, "slots": 4, "fanout": 2, "mode": "push_pull", "stream_rate": 1.0,
+                 "slot_ttl": 10, "control": 0.9, "control_hi": 3, "rewire_slots": 3, "churn_join": 0.02},
+        "families": [{"name": "lossy", "scenario": str(tmp_path / "lossy.toml"), "seeds": 4,
+                      "sweeps": [{"axis": "phase.loss", "dist": "uniform", "lo": 0.05, "hi": 0.3}]}]})
+    digests = {}
+    for device in ("cuda", "cpu"):
+        camp = fleet.compile_campaign(spec, device=device)
+        reset_launches()
+        fin, stats = fleet.run_campaign(camp)
+        if device == "cuda":
+            assert LAUNCHES["round_tail"] == camp.k * camp.rounds
+        digests[device] = [(fleet.state_digest(lane_state(fin, k)), fleet.stats_digest(stats, k))
+                           for k in range(camp.k)]
+    assert digests["cuda"] == digests["cpu"]

@@ -187,16 +187,23 @@ def test_refused_arguments_raise_not_ported(graph, what):
 
         kw["stream"] = compile_stream(rate=2.0, msg_slots=16, ttl=20, origin_rows=np.arange(N), device="cpu")
         if what == "packed_stream":
-            ts, kw["pipeline"] = pack_state(ts), object()
-        else:
-            kw["inject"] = object()
+            ts = pack_state(ts)
+        kw["inject"] = object()
     elif what == "control":
-        # the controller runs on this engine; composed with pipelining it
-        # is refused
+        # the controller runs on this engine; composed with live ingestion
+        # it is refused
         from tpu_gossip_torch.control import compile_control
 
         kw["control"] = compile_control(target_ratio=0.9, fanout=1, device="cpu")
-        kw["pipeline"] = object()
+        kw["inject"] = object()
+    elif what == "pipeline":
+        # pipelined rounds run on this engine (test_torch_pipeline.py); on
+        # the matching mesh, a later slice, they are refused with it
+        from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+        from tpu_gossip_torch.sim.stages import compile_pipeline
+
+        _, sg = matching_powerlaw_graph(200, fanout=1, key=prng.key(0, "cpu"), device="cpu")
+        kw["pipeline"] = compile_pipeline(1)
     elif what in ("rewire_slots", "scenario", "liveness"):
         # re-wiring, scenarios (admission waves included), the quorum
         # detector and growth run on this engine, churn bursts included;

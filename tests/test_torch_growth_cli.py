@@ -48,11 +48,12 @@ def test_grow_refusals_exit_2_with_jax_words(capsys, tmp_path, one_shard, name):
 
 @pytest.mark.parametrize("argv,says", [
     (["--graph", "matching", "--shard", "--grow", "128"], "(11b)"),
-    (["--graph", "pa", "--grow", "128", "--profile-round", "2"], "item 9f"),
+    (["--graph", "pa", "--grow", "128", "--rounds", "8", "--transport", "sparse"], "(11b)"),
 ])
 def test_grow_flags_of_later_slices_exit_2(capsys, argv, says):
-    """The sharded matching engine and the composed profile rows are later
-    slices: refused with exit 2, naming them."""
+    """The sharded matching engine and the transports are a later slice:
+    refused with exit 2, naming it (the composed profile rows came with 9f:
+    ``test_torch_pipeline_cli.py``)."""
     assert tcli.main(["--peers", "64", *argv, "--device", "cpu"]) == 2
     assert says in capsys.readouterr().err
 

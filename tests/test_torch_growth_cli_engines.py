@@ -120,7 +120,7 @@ def test_growing_run_equals_jax_cli(capsys, one_shard, name):
 @pytest.mark.parametrize("name", ["matching_packed", "shard"])
 def test_growing_run_to_coverage_equals_jax_cli(capsys, one_shard, name):
     argv = ENGINES[name]
-    want, _ = _summary(capsys, jcli.main, argv)
+    want, _ = jax_cli_child(argv, one_shard=True)
     got, _ = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
     for k in ("rounds", "coverage", "n_members", "grow_rate", "degree_gamma"):
         assert got[k] == want[k], k

@@ -18,10 +18,10 @@ from tpu_gossip_torch.core import packed as tpk
 from tpu_gossip_torch.kernels import native
 from tpu_gossip_torch.kernels import packed_ops as tpo
 from tpu_gossip_torch.kernels import round_tail as ttail
+from tests.jax_pins import NAMES, cap_edge_operands
 from tests.test_torch_slice import _one_torch_thread, build_both  # noqa: F401
 
 MS = [1, 8, 13, 16, 17]
-NAMES = ("seen", "forwarded", "infected_round", "recovered", "incoming", "receptive", "transmit")
 
 
 def _bools(shape, seed, p=0.4):
@@ -137,17 +137,6 @@ def test_packed_ops_equal_jax(m):
         tpo.pull_words(wb_t, torch.from_numpy(tgt), torch.from_numpy(valid)))
     _eq(jpo.gather_or_words(wb_j, jnp.asarray(tgt), jnp.asarray(valid)),
         tpo.gather_or_words(wb_t, torch.from_numpy(tgt), torch.from_numpy(valid)))
-
-
-def cap_edge_operands(n, m, seed, rnd):
-    """Tail operands whose ``infected_round`` holds ROUND_CAP, -1 and small
-    values, and mostly receptive incoming deliveries."""
-    rng = np.random.default_rng(seed)
-    b = lambda p: rng.random((n, m)) < p  # noqa: E731
-    ir = rng.choice(np.array([32767, 32766, -1, 0, 1, 5, 8], np.int16), (n, m))
-    ops = dict(seen=b(0.5), forwarded=b(0.3), infected_round=ir, recovered=b(0.2),
-               incoming=b(0.5), receptive=b(0.9), transmit=b(0.5))
-    return ops, rng.random(n) < 0.1, rng.random(m) < 0.3
 
 
 # each port impl against its JAX namesake: the XLA forms take the SIR age

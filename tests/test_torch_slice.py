@@ -2,6 +2,10 @@
 bit, through state_digest/stats_digest (tpu_gossip/fleet/engine.py)."""
 
 import dataclasses
+import fcntl
+import subprocess
+import tempfile
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -26,10 +30,39 @@ from tpu_gossip_torch.utils.digest import state_digest as t_state_digest
 from tpu_gossip_torch.utils.digest import stats_digest as t_stats_digest
 
 
+def ensure_jax_native_pa() -> None:
+    """Build the JAX package's C++ preferential-attachment library when it
+    is missing, as ``tests/unit/test_native.py`` builds it, one process at a
+    time (a file lock). The JAX package's ``--graph pa`` draws with it when
+    it exists and with a numpy generator otherwise, while the port always
+    runs its copy of the C++ one, so a comparison made before any test has
+    built the library would hold the port to the other generator. A host
+    without the toolchain keeps the fallback (the comparisons that need the
+    library skip there)."""
+    import tpu_gossip.native as native
+
+    if native._load() is not None:
+        return
+    with open(Path(tempfile.gettempdir()) / "tpu_gossip_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        native._lib = None
+        if native._load() is None:
+            try:
+                subprocess.run(["make", "-C", str(Path(native.__file__).parent)], check=True, capture_output=True,
+                               timeout=120)
+            except (OSError, subprocess.SubprocessError):
+                return
+            native._lib = None
+            native._load()
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One torch thread per test worker, so the suite's wall-clock tests in
-    the other workers keep their cores (restored after the module)."""
+    the other workers keep their cores (restored after the module); and the
+    JAX package's native PA library built before the module's comparisons
+    (:func:`ensure_jax_native_pa`), whatever order the tests run in."""
+    ensure_jax_native_pa()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -39,18 +72,33 @@ def _one_torch_thread():
 HEADLINE = dict(mode="push_pull", fanout=1)
 
 
-def build_both(n, seed=0, **cfg_kw):
-    """The same swarm built by both packages: (jax cfg, state, plan), (port ...)."""
+def _swarm_args(n, seed, cfg_kw):
     kw = dict(n_peers=n + 1, msg_slots=16, **cfg_kw)
     fan = None if kw.get("mode") == "flood" else kw.get("fanout", 3)
-    origins = np.random.default_rng(seed).choice(n, size=1, replace=False)
+    return kw, fan, np.random.default_rng(seed).choice(n, size=1, replace=False)
+
+
+def build_jax(n, seed=0, **cfg_kw):
+    """The JAX package's matching swarm: (cfg, state, plan)."""
+    kw, fan, origins = _swarm_args(n, seed, cfg_kw)
     jg, jp = jbuild(n, fanout=fan, key=jax.random.key(seed))
     js = jinit(jg.as_padded_graph(), JConfig(**kw), key=jax.random.key(seed), origins=origins,
                exists=jg.exists)
+    return JConfig(**kw), js, jp
+
+
+def build_port(n, seed=0, **cfg_kw):
+    """The same swarm built by the port, on the CPU: (cfg, state, plan)."""
+    kw, fan, origins = _swarm_args(n, seed, cfg_kw)
     tg, tp = tbuild(n, fanout=fan, key=prng.key(seed, "cpu"), device="cpu")
     ts = tinit(tg.as_padded_graph(), TConfig(**kw), key=prng.key(seed, "cpu"), origins=origins,
                exists=tg.exists, device="cpu")
-    return (JConfig(**kw), js, jp), (TConfig(**kw), ts, tp)
+    return TConfig(**kw), ts, tp
+
+
+def build_both(n, seed=0, **cfg_kw):
+    """The same swarm built by both packages: (jax cfg, state, plan), (port ...)."""
+    return build_jax(n, seed, **cfg_kw), build_port(n, seed, **cfg_kw)
 
 
 def assert_same_run(j, t, rounds):

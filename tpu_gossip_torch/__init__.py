@@ -26,7 +26,11 @@ scenario's Byzantine accusers, forgers and flooders act;
 ``tpu_gossip_torch.traffic`` runs sustained message streams
 (``--stream``) and ``tpu_gossip_torch.control`` the adaptive fanout and
 push/push-pull controller with its PeerSwap refresh (``control=``,
-``run_sim --control``). It imports neither JAX nor the JAX package.
+``run_sim --control``); ``sim.stages.compile_pipeline`` pipelines the
+rounds (``pipeline=``, ``run_sim --shard --pipeline 1``) and
+``tpu_gossip_torch.fleet`` runs Monte Carlo certification campaigns of
+seeded lanes (``run_sim fleet``). It imports neither JAX nor the JAX
+package.
 
 Entry points take ``device`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version.

@@ -34,6 +34,10 @@
     python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
         --fanout 3 --graph matching --control 0.99 --control-bounds 1,6 \\
         --rounds 48 --digest
+    python -m tpu_gossip_torch.cli.run_sim --peers 1000000 --mode push_pull \\
+        --fanout 1 --graph chung-lu --shard --staircase --pipeline 1 --rounds 48
+    python -m tpu_gossip_torch.cli.run_sim fleet \\
+        scenarios/campaigns/catalogue_smoke.toml --report report.json
 
 Ports the local path of ``tpu_gossip/cli/run_sim.py``: build the graph
 (``--graph matching`` on the device; ``pa`` by the C++ preferential
@@ -92,8 +96,15 @@ included, and ``run_sim resume D`` finishes the run from the newest
 complete checkpoint, rolling back past torn ones, on the same final state
 and integer stats as the uninterrupted run, whichever package wrote the
 checkpoint; ``--checkpoint F`` saves the final state as one npz
-(``save_swarm``). Runs on ``--device cuda`` unless told otherwise; every
-other flag of the JAX CLI is not ported yet and exits 2.
+(``save_swarm``). ``--shard --pipeline 1`` pipelines the rounds
+(``sim/stages.py::PipelineSpec``: each delivers the exchange the round
+before issued), and ``--profile-round`` composes with ``--grow``,
+``--stream`` and ``--control``. ``run_sim fleet campaign.toml`` runs a
+fleet campaign (``fleet/``) and prints its certification summary, with
+``--lane K --solo`` one lane alone, and checkpoints a file a lane that
+``run_sim resume D [--lane K --solo]`` finishes. Runs on ``--device
+cuda`` unless told otherwise; every other flag of the JAX CLI is not
+ported yet and exits 2.
 """
 
 from __future__ import annotations
@@ -111,17 +122,17 @@ _LATER = (
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
     "included, with checkpoints and resume, silent peers, fault scenarios, the quorum detector with "
-    "its adversaries, growth, streams and adaptive control (later slices add pipelined rounds "
-    "(9f), fleets (10), the sharded matching engine (11b), the multi-card exchange (11c) and serving (12))"
+    "its adversaries, growth, streams, adaptive control, pipelined rounds and fleet campaigns (later "
+    "slices add the sharded matching engine and the transports (11b), the multi-card exchange (11c) and "
+    "serving (12))"
 )
 _ITEM11B, _ITEM11C = "sharded matching engine (ROADMAP item 11b)", "multi-process (ROADMAP item 11c)"
-_ITEM9F = "pipelined rounds and composed profile rows (ROADMAP item 9f)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
 JAX_FLAG_DEFAULTS = {
     "transport": ("dense", _ITEM11B), "builder": ("local", _ITEM11B),
-    "pipeline": (None, _ITEM11C), "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
+    "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
     "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
 }
 # layout facts a manifest records beside the args, and the JAX validators' extras
@@ -288,6 +299,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PeerSwap neighbour refresh: every K rounds each live re-wired peer swaps one fresh-edge "
                    "slot for a new degree-preferential draw (degree-credit bookkeeping preserved). Needs "
                    "--control and the re-wiring plane (--rewire-slots/--grow); 0 = off")
+    p.add_argument("--pipeline", type=int, choices=[0, 1], default=None, metavar="DEPTH",
+                   help="pipelined sharded rounds (sim/stages.py): 1 double-buffers the exchange, each round "
+                   "delivering the exchange the round before issued (delivery one round stale); 0 is the serial "
+                   "schedule, bit-identical to omitting the flag. Requires --shard")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -296,6 +311,8 @@ def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "resume":
         return _main_resume(argv[1:])
+    if argv and argv[0] == "fleet":
+        return _main_fleet(argv[1:])
     args, unknown = build_parser().parse_known_args(argv)
     if unknown:
         print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
@@ -326,6 +343,9 @@ def _refusal(args: argparse.Namespace) -> str | None:
     if args.packed and args.remat_every > 0:
         return ("--packed cannot compose with --remat-every: the epoch fold (rematerialize_rewired / "
                 "re-partition) rebuilds the unpacked CSR between segments; run the remat loop unpacked")
+    if args.pipeline is not None and not args.shard:
+        return ("--pipeline overlaps the SHARDED exchange with the shard-local tail (sim/stages.py); add --shard "
+                "(the local engine has no collective to overlap)")
     if args.graph == "matching" and args.remat_every > 0 and not args.shard:
         return ("--graph matching cannot re-materialize locally (its pairing IS the delivery plan: a folded CSR "
                 "has no pipeline); use --shard, whose remat path falls back to the bucketed-CSR engine on the "
@@ -339,12 +359,6 @@ def _refusal(args: argparse.Namespace) -> str | None:
     if args.profile_round > 0 and args.packed:
         return ("--profile-round decomposes the UNPACKED round's stages; the packed carry adds only the "
                 "boundary codec: drop --packed for the decomposition")
-    if args.profile_round > 0 and (args.grow or args.stream > 0 or args.control > 0):
-        from tpu_gossip_torch.sim.stages import not_ported
-
-        what = ("--grow (the growth row" if args.grow else "--stream (the stream rows" if args.stream > 0
-                else "--control (the control rows")
-        return str(not_ported(f"--profile-round with {what} of the stage table)", _ITEM9F))
     return None
 
 
@@ -739,17 +753,6 @@ def _main_resume(argv: list[str]) -> int:
     p.add_argument("--solo", action="store_true", help="with --lane K: finish lane K unbatched")
     p.add_argument("--device", default="cuda", help="torch device the run finishes on (cuda or cpu)")
     rargs = p.parse_args(argv)
-    refused = None
-    if rargs.local:
-        refused = not_ported("run_sim resume --local (a sharded matching checkpoint into the local engine)",
-                             _ITEM11B)
-    elif rargs.hosts >= 1:
-        refused = not_ported("run_sim resume --hosts (a sharded checkpoint re-folded over hosts)", _ITEM11C)
-    elif rargs.lane >= 0 or rargs.solo:
-        refused = not_ported("run_sim resume --lane/--solo (a fleet checkpoint's lane)", "fleet (ROADMAP item 10)")
-    if refused is not None:
-        print(str(refused), file=sys.stderr)
-        return 2
     try:
         resolve_device(rargs.device)
     except RuntimeError as e:
@@ -768,8 +771,23 @@ def _main_resume(argv: list[str]) -> int:
               "rebuilds the run from the manifest's `run` section", file=sys.stderr)
         return 2
     if manifest.get("kind") == "fleet":
-        print(str(not_ported("resuming a kind='fleet' checkpoint (a fleet campaign)", "fleet (ROADMAP item 10)")),
+        if rargs.local:
+            print("resume: --local restores a sharded-matching RUN checkpoint; fleet checkpoints resume batched (or "
+                  "one lane via --lane K --solo)", file=sys.stderr)
+            return 2
+        return _resume_fleet(rargs, path, manifest)
+    if rargs.lane >= 0 or rargs.solo:
+        print("resume: --lane/--solo select a fleet checkpoint's lane; this is a single-run checkpoint",
               file=sys.stderr)
+        return 2
+    refused = None
+    if rargs.local:
+        refused = not_ported("run_sim resume --local (a sharded matching checkpoint into the local engine)",
+                             _ITEM11B)
+    elif rargs.hosts >= 1:
+        refused = not_ported("run_sim resume --hosts (a sharded checkpoint re-folded over hosts)", _ITEM11C)
+    if refused is not None:
+        print(str(refused), file=sys.stderr)
         return 2
     base = vars(build_parser().parse_args([]))
     stale = []
@@ -802,6 +820,215 @@ def _main_resume(argv: list[str]) -> int:
     except (CheckpointError, ValueError) as e:
         print(f"resume: {e}", file=sys.stderr)
         return 2
+
+
+def _main_fleet(argv: list[str]) -> int:
+    """``run_sim fleet campaign.toml``: compile and run a Monte Carlo
+    certification campaign (``fleet/``) and print the certification
+    summary. ``--lane K --solo`` runs lane K alone through the plain
+    ``simulate`` over the plans the campaign compiled for it and prints its
+    digests, the other half of the lane-equals-solo contract. Config errors
+    exit 2 with ``fleet: ...``, as in the JAX CLI."""
+    from tpu_gossip_torch import fleet
+    from tpu_gossip_torch.device import resolve_device
+    from tpu_gossip_torch.faults import ScenarioError
+
+    p = argparse.ArgumentParser(prog="run_sim fleet", description="Monte Carlo certification campaigns")
+    p.add_argument("campaign", help="campaign TOML (scenarios/campaigns/)")
+    p.add_argument("--report", default="", metavar="PATH",
+                   help="write the FULL certification report JSON here (per-lane detail included; stdout carries "
+                   "the compact summary)")
+    p.add_argument("--lane", type=int, default=-1, metavar="K", help="with --solo: the lane to run alone")
+    p.add_argument("--solo", action="store_true",
+                   help="run --lane K alone through sim.engine.simulate over the lane's compiled plans and print "
+                   "its digests (the conformance oracle; bit-identical to lane K of the fleet)")
+    p.add_argument("--quiet", action="store_true", help="omit per-lane digests from the summary row")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                   help="durable periodic checkpointing of the whole lane stack (one file per lane); `run_sim "
+                   "resume D` finishes the campaign bit-identically, `resume D --lane K --solo` recovers one lane")
+    p.add_argument("--checkpoint-dir", type=str, default="", metavar="D")
+    p.add_argument("--keep", type=int, default=0, metavar="N",
+                   help="retention: keep the newest N checkpoints (0 = all)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    args = p.parse_args(argv)
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    try:
+        camp = fleet.compile_campaign(fleet.parse_campaign(args.campaign), device=dev)
+    except (fleet.CampaignError, ScenarioError, OSError) as e:
+        print(f"fleet: {e}", file=sys.stderr)
+        return 2
+
+    if args.solo:
+        if args.lane < 0:
+            print("fleet: --solo needs --lane K", file=sys.stderr)
+            return 2
+        try:
+            fin, stats = fleet.run_lane_solo(camp, args.lane)
+        except fleet.CampaignError as e:
+            print(f"fleet: {e}", file=sys.stderr)
+            return 2
+        from tpu_gossip_torch.sim import metrics as M
+
+        print(json.dumps({
+            "summary": True, "fleet": "solo", "campaign": camp.name, "lane": args.lane,
+            "state_digest": fleet.state_digest(fin), "stats_digest": fleet.stats_digest(stats),
+            "reliability": M.reliability_report(stats, target_ratio=camp.target_ratio,
+                                                coverage_target=camp.coverage_target),
+        }))
+        return 0
+    err = _fleet_refusal(args, camp)
+    if err:
+        print(f"fleet: {err}", file=sys.stderr)
+        return 2
+    policy = _fleet_policy(args, camp, args.campaign, report=args.report, quiet=args.quiet)
+    t0 = time.perf_counter()
+    if policy is not None:
+        fin, stats = _run_fleet_checkpointed(camp, camp.states, policy)
+    else:
+        fin, stats = fleet.run_campaign(camp, keep_states=False)
+        if dev.type == "cuda":  # the wall clock stops after the last round
+            import torch
+
+            torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    camp.states, camp.consumed = fin, True
+    return _emit_fleet_summary(camp, fin, stats, wall, quiet=args.quiet, report_path=args.report)
+
+
+def _fleet_refusal(args: argparse.Namespace, camp) -> str | None:
+    """The reason a fleet run's flags cannot run (the JAX CLI's words,
+    after ``fleet: ``), or None."""
+    if args.lane >= 0:
+        return "--lane selects the --solo lane; drop it for the batched run (every lane runs)"
+    if args.checkpoint_every < 0 or args.keep < 0:
+        return "--checkpoint-every and --keep must be >= 0"
+    if args.checkpoint_every and not args.checkpoint_dir:
+        return "--checkpoint-every needs --checkpoint-dir D"
+    if args.checkpoint_dir and not args.checkpoint_every:
+        return "--checkpoint-dir shapes periodic checkpointing; add --checkpoint-every K"
+    if args.checkpoint_every and args.checkpoint_every >= camp.rounds:
+        return (f"--checkpoint-every {args.checkpoint_every} must be below the campaign horizon ({camp.rounds} "
+                "rounds)")
+    return None
+
+
+def _run_fleet_checkpointed(camp, state, policy, prefix=None):
+    """The fleet's horizon in segments with a checkpoint between them (one
+    file a lane); returns ``(final states, stacked stats)``."""
+    from tpu_gossip_torch import fleet
+    from tpu_gossip_torch.ckpt import host_stats, run_checkpointed
+
+    def seg_run(st, seg):
+        st, s = fleet.simulate_fleet(st, camp.cfg, seg, camp.scenario, camp.growth, camp.stream, camp.control,
+                                     camp.liveness)
+        return st, host_stats(s)
+
+    fin, sd = run_checkpointed(state, camp.rounds, seg_run, policy=policy, stats_prefix=prefix, round_axis=1,
+                               log=_stderr_log)
+    return fin, _split_host_stats(sd)
+
+
+def _fleet_policy(a, camp, campaign_path, *, report="", quiet=False):
+    """The fleet run's CheckpointPolicy (one checkpoint file a lane), or
+    None without --checkpoint-every."""
+    if not getattr(a, "checkpoint_every", 0):
+        return None
+    from tpu_gossip_torch.ckpt import CheckpointPolicy
+
+    return CheckpointPolicy(every=a.checkpoint_every, directory=a.checkpoint_dir, keep=a.keep, shards=camp.k,
+                            kind="fleet",
+                            run_config={"campaign": campaign_path, "report": report, "quiet": bool(quiet),
+                                        "checkpoint_every": a.checkpoint_every, "checkpoint_dir": a.checkpoint_dir,
+                                        "keep": a.keep})
+
+
+def _emit_fleet_summary(camp, fin, stats, wall: float, *, quiet: bool, report_path: str,
+                        rounds_timed: int | None = None) -> int:
+    """The campaign's certification summary (and the full report to
+    ``report_path``), one emitter for the plain, checkpointed and resumed
+    runs; ``rounds_timed`` is the rounds ``wall`` covers (a resumed run
+    timed only what it ran)."""
+    from tpu_gossip_torch import fleet
+    from tpu_gossip_torch.core.state import lane_state
+
+    report = fleet.campaign_report(camp, stats)
+    timed = camp.rounds if rounds_timed is None else rounds_timed
+    summary = {
+        "summary": True, "fleet": True, "campaign": camp.name, "lanes": camp.k, "rounds": camp.rounds,
+        "n_peers": int(camp.base.get("peers", 0)), "wall_seconds": round(wall, 3),
+        "swarm_rounds_per_sec": round(camp.k * timed / max(wall, 1e-9), 2),
+        "families": [{k: f.get(k) for k in ("family", "lanes", "lanes_judged", "reliability", "frontier")
+                      if f.get(k) is not None} for f in report["families"]],
+    }
+    if not quiet:
+        summary["lane_digests"] = {str(k): fleet.state_digest(lane_state(fin, k)) for k in range(camp.k)}
+        summary["stats_digests"] = {str(k): fleet.stats_digest(stats, k) for k in range(camp.k)}
+    print(json.dumps(summary))
+    if report_path:
+        with open(report_path, "w") as f:
+            json.dump(report, f, indent=1)
+            f.write("\n")
+    return 0
+
+
+def _resume_fleet(rargs, path, manifest) -> int:
+    """Fleet crash recovery: rebuild the campaign from the recorded TOML,
+    put the checkpointed lane stack (or one lane, ``--lane K --solo``) in,
+    finish the horizon and print the summary the uninterrupted run would
+    have printed, lane digests equal."""
+    from tpu_gossip_torch import fleet
+    from tpu_gossip_torch.ckpt import CheckpointError, load_checkpoint
+    from tpu_gossip_torch.device import resolve_device
+    from tpu_gossip_torch.faults import ScenarioError
+
+    dev = resolve_device(rargs.device)
+    run_cfg = manifest["run"]
+    try:
+        camp = fleet.compile_campaign(fleet.parse_campaign(run_cfg["campaign"]), device=dev)
+    except (fleet.CampaignError, ScenarioError, OSError, KeyError) as e:
+        print(f"resume: cannot rebuild campaign {run_cfg.get('campaign')!r}: {e}", file=sys.stderr)
+        return 2
+    if rargs.solo or rargs.lane >= 0:
+        if not (rargs.solo and rargs.lane >= 0):
+            print("resume: per-lane recovery needs BOTH --lane K and --solo", file=sys.stderr)
+            return 2
+        try:
+            st, _prefix, _ = load_checkpoint(path, lane=rargs.lane, manifest=manifest, device=dev)
+        except CheckpointError as e:
+            print(f"resume: {e}", file=sys.stderr)
+            return 2
+        from tpu_gossip_torch.sim.engine import simulate
+
+        _st0, sc, gr, sp, cp = camp.lane(rargs.lane)
+        fin, _stats = simulate(st, camp.cfg, camp.rounds - int(st.round), None, "fused", scenario=sc, growth=gr,
+                               stream=sp, control=cp, liveness=camp.liveness)
+        print(json.dumps({"summary": True, "fleet": "solo-resume", "campaign": camp.name, "lane": rargs.lane,
+                          "state_digest": fleet.state_digest(fin)}))
+        return 0
+    try:
+        state, prefix, _ = load_checkpoint(path, manifest=manifest, device=dev)
+    except CheckpointError as e:
+        print(f"resume: {e}", file=sys.stderr)
+        return 2
+    start_round = int(state.round.reshape(-1)[0])
+    if start_round >= camp.rounds:
+        print("resume: checkpoint round is past the campaign horizon — nothing to resume", file=sys.stderr)
+        return 2
+    policy = _fleet_policy(argparse.Namespace(checkpoint_every=run_cfg.get("checkpoint_every", 0),
+                                              checkpoint_dir=run_cfg.get("checkpoint_dir", ""),
+                                              keep=run_cfg.get("keep", 0)),
+                           camp, run_cfg.get("campaign", ""), report=run_cfg.get("report", ""),
+                           quiet=run_cfg.get("quiet", False))
+    t0 = time.perf_counter()
+    fin, stats = _run_fleet_checkpointed(camp, state, policy, prefix)
+    wall = time.perf_counter() - t0
+    camp.states, camp.consumed = fin, True
+    return _emit_fleet_summary(camp, fin, stats, wall, quiet=bool(rargs.quiet or run_cfg.get("quiet")),
+                               report_path=run_cfg.get("report", ""), rounds_timed=camp.rounds - start_round)
 
 
 def _validate_ckpt(args: argparse.Namespace) -> str | None:
@@ -1021,7 +1248,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                                       scenario=scen, liveness=lqs, growth=grow, control=ctl)
 
         if args.profile_round > 0:
-            return _profile_round(args, cfg, state, plan), None
+            return _profile_round(args, cfg, state, plan, grow, strm, ctl), None
         policy = _ckpt_policy(args, shards=1)
     # the local remat loop's capacity comes from the fresh state, as in the
     # uninterrupted run, before a resumed state takes its place
@@ -1038,6 +1265,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
             summary, fin = _run_shard_with_remat(args, cfg, state, *epoch, lqs, ctl, policy=policy, prefix=prefix,
                                                  durable=durable)
             summary.update(_scenario_summary(spec))
+            summary.update(_pipeline_summary(args))
             summary.update(_control_summary(args))
         elif args.remat_every > 0:
             summary, fin = _run_with_remat(args, cfg, state, dev, cap, scen, lqs, grow, strm, ctl, policy=policy,
@@ -1293,20 +1521,22 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
     boundaries before the fold, and a resumed run replays the fold first.
     The rebuilds' seconds are reported apart. A scenario (scalar phases
     only: node masks would not survive the re-partition) stays compiled
-    over the first epoch's layout, as in the JAX CLI."""
+    over the first epoch's layout, as in the JAX CLI; so does a --pipeline
+    schedule."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.sim.engine import remat_capacity, rematerialize_rewired
 
+    pipe = _compile_cli_pipeline(args)
     r = args.remat_every
     epoch = {"sg": sg, "plans": plans, "overflow": 0, "rebuild_s": 0.0}
 
     def run_segment(st, seg):
         if args.rounds > 0:
             return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen, liveness=lqs,
-                                      control=ctl)
+                                      control=ctl, pipeline=pipe)
         return dist.run_until_coverage_dist(st, cfg, epoch["sg"], mesh, args.target, seg,
                                             shard_plan=epoch["plans"], scenario=scen, liveness=lqs,
-                                            control=ctl), None
+                                            control=ctl, pipeline=pipe), None
 
     def fold(st):
         t0 = time.perf_counter()
@@ -1359,10 +1589,12 @@ def _run_to_target(args: argparse.Namespace, cfg, state, to_target, extra: dict)
     return {"summary": True, "mode": args.mode, **extra, **json.loads(result.to_json())}, fin
 
 
-def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
-    """--profile-round R: advance R rounds (mid-epidemic slot densities),
-    then slope-time each stage and the composed round per tail; the table
-    goes to stderr, the summary (ms a round, NaN as null) is returned. The
+def _profile_round(args: argparse.Namespace, cfg, state, plan, grow=None, strm=None, ctl=None) -> dict:
+    """--profile-round R: advance R rounds (mid-epidemic slot densities;
+    with --grow, --stream or --control those planes run in the warm rounds
+    too), then slope-time each stage (the growth, stream and control rows
+    with their planes) and the composed round per tail; the table goes to
+    stderr, the summary (ms a round, NaN as null) is returned. The
     ``transport_compact`` stage measures the sparse lane's compaction at
     this swarm's synthetic 8-shard bucket geometry: capacity the directed
     edges per (src, dst) pair rounded up to whole 1024-entry windows, budget
@@ -1372,15 +1604,15 @@ def _profile_round(args: argparse.Namespace, cfg, state, plan) -> dict:
     from tpu_gossip_torch.sim.engine import simulate
     from tpu_gossip_torch.utils.profiling import format_stage_table, profile_round_stages, stages_ms, trace
 
-    warm, _ = simulate(clone_state(state), cfg, args.profile_round, plan)
+    warm, _ = simulate(clone_state(state), cfg, args.profile_round, plan, growth=grow, stream=strm, control=ctl)
     tails = ("reference", "fused") if args.tail != "pallas" else ("reference", "fused", "pallas")
     s_probe = 8
     e_real = int(state.row_ptr[-1])
     b_probe = max(1024, -(-e_real // (s_probe * s_probe * 1024)) * 1024)
     probe = (s_probe, b_probe, len(_slot_groups(args.slots)), max(b_probe // 8, 1))
     with trace(args.profile):
-        stages = profile_round_stages(warm, cfg, plan, tails=tails, transport_probe=probe,
-                                      device=state.seen.device)
+        stages = profile_round_stages(warm, cfg, plan, tails=tails, growth=grow, stream=strm, control=ctl,
+                                      transport_probe=probe, device=state.seen.device)
     print(format_stage_table(stages), file=sys.stderr)
     return {"summary": True, "profile_round": True, "mode": args.mode, "n_peers": args.peers,
             "warm_rounds": args.profile_round, "stages_ms": stages_ms(stages)}
@@ -1418,17 +1650,32 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
                                  n_shards=mesh.size)
     grow = _compile_cli_growth(args, spec, sg.n_pad, dev, node_map=lambda ids: position[np.asarray(ids)])
     strm = _compile_cli_stream(args, position[np.arange(args.peers)], dev)
+    pipe = _compile_cli_pipeline(args)
 
     def segment(st, rounds):
         return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow,
-                                  stream=strm, control=ctl)
+                                  stream=strm, control=ctl, pipeline=pipe)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
-                                            scenario=scen, liveness=lqs, growth=grow, control=ctl)
+                                            scenario=scen, liveness=lqs, growth=grow, control=ctl, pipeline=pipe)
 
-    return (cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense"}, (mesh, sg, plans, scen),
-            grow)
+    return (cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense", **_pipeline_summary(args)},
+            (mesh, sg, plans, scen), grow)
+
+
+def _pipeline_summary(args: argparse.Namespace) -> dict:
+    """The summary's ``pipeline`` field of a --shard run (absent: serial)."""
+    return {} if args.pipeline is None else {"pipeline": args.pipeline}
+
+
+def _compile_cli_pipeline(args: argparse.Namespace):
+    """The --pipeline spec, None without the flag."""
+    if args.pipeline is None:
+        return None
+    from tpu_gossip_torch.sim.stages import compile_pipeline
+
+    return compile_pipeline(args.pipeline)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,9 @@ engine, and so does a streamed run (``stream``, its origin rows mapped
 through ``position``) and a controlled one (``control``: the round's
 effective fanout and pull gate enter every shard's activation, the needy
 rows filter the pull direction receiver-side, and the refresh draws at
-global shape). The exchange over NCCL with one process per card, the
+global shape). A pipelined round (``pipeline`` at depth 1) delivers the
+exchange the round before issued and stores its own in ``pipe_buf``, as
+the local engine does. The exchange over NCCL with one process per card, the
 matching mesh, the sparse, auto and hier transports and the ``IciRound``
 counters are a later slice and raise ``NotImplementedError``.
 """
@@ -643,9 +645,11 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, sha
     ``growth`` admits the round's join batch and ``stream`` runs a
     streaming workload at global shape (its origin table in the mesh's
     rows), and ``control`` (a ``ControlSpec``, layout-blind) runs the
-    adaptive controller, its decision riding every exchange. The arguments
-    of later slices (``transport``, ``collect_ici``, ``pipeline``,
-    ``inject``) raise ``NotImplementedError``."""
+    adaptive controller, its decision riding every exchange. ``pipeline``
+    (a ``PipelineSpec``) at depth 1 delivers the exchange the last round
+    issued through the shard-local tail and carries this round's in
+    ``pipe_buf``. The arguments of later slices (``transport``,
+    ``collect_ici``, ``inject``) raise ``NotImplementedError``."""
     _check_round(state, cfg, sg, mesh, shard_plan, later)
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed

@@ -29,7 +29,9 @@ four stream columns and the per-slot tracks (``slot_infected``,
 (``control/``): the round's decision (effective fanout, pull gate, needy
 rows) is resolved before delivery and reaches every path, the control
 stage runs last, and the four control columns are filled (``control_level``
--1 without a controller).
+-1 without a controller); and ``pipeline``, a ``PipelineSpec``
+(``sim/stages.py``): at depth 1 each round delivers the exchange the last
+one issued (``pipe_buf``) and stores its own.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
@@ -561,7 +563,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
                   churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
                   k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                  host_rnd: int | None = None, control=None, rctl=None):
+                  host_rnd: int | None = None, control=None, rctl=None, pipe_buf=None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
@@ -581,7 +583,10 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     columns. ``control`` (a ``ControlSpec``) runs the control stage last:
     the AIMD update of ``control_lvl`` from the round's feedback (against
     ``rctl``, the decision delivery realized) and the PeerSwap refresh;
-    without it ``control_lvl`` passes through untouched."""
+    without it ``control_lvl`` passes through untouched. ``pipe_buf`` is
+    the in-flight exchange a pipelined round stores (None: the state's
+    buffer rides through untouched); a stream's recycled columns die in
+    it, as they do in the delay buffer."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -602,6 +607,10 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
                                            liveness=liveness, growth=growth, stream=stream, host_rng=host_rng,
                                            host_rnd=host_rnd, control=control), values)
+    if pipe_buf is not None and values["expired"] is not None:
+        # the issue read the pre-expiry seen plane: a retired message's
+        # in-flight bits would otherwise deliver into the column's new lease
+        pipe_buf = pipe_buf & ~values["expired"][None, :]
     new_state = SwarmState(
         row_ptr=state.row_ptr, col_idx=state.col_idx,
         seen=values["seen"], forwarded=values["forwarded"],
@@ -612,7 +621,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         fault_held=values["held"], join_round=values["join_round"],
         admitted_by=values["admitted_by"], degree_credit=values["degree_credit"],
         slot_lease=values["slot_lease"], control_lvl=values["control_lvl"],
-        pipe_buf=state.pipe_buf, suspect_round=values["suspect_round"],
+        pipe_buf=state.pipe_buf if pipe_buf is None else pipe_buf, suspect_round=values["suspect_round"],
         suspect_mark=values["suspect_mark"], quarantine=values["quarantine"],
         rng=key, round=rnd,
     )

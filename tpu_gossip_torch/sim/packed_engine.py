@@ -36,8 +36,10 @@ mask; its injection decodes the seen words at its boundary and packs the
 product, as JAX's packed twin does. The adaptive controller resolves the
 round's decision from the decoded seen plane (its slot coverage and needy
 rows need bools), hands it to the delivery and runs the control stage
-last, decoding the three slot planes it reads. Pipelining and live
-ingestion are later slices and raise ``NotImplementedError``.
+last, decoding the three slot planes it reads. A pipelined round swaps
+the delivered words for the buffered ones (``pipe_buf``) and masks a
+stream's recycled columns out of the words it stores. Live ingestion is a
+later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
 from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, control_stages, fault_round,
-                                        require_quorum, resolve_control, row_stages, run_stages, stream_stages)
+                                        pipeline_swap, require_quorum, resolve_control, row_stages, run_stages,
+                                        stream_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -177,14 +180,15 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
                          churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
                          k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                         host_rnd: int | None = None, control=None, rctl=None):
+                         host_rnd: int | None = None, control=None, rctl=None, pipe_buf_w=None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
     ``fault_held_w`` is the packed delay buffer to carry (the input's when
     None), ``fstats`` the round's fault counters; ``liveness``, the
-    adversary arguments, ``growth``, ``stream``, ``control`` and ``rctl``
-    as in ``advance_round``."""
+    adversary arguments, ``growth``, ``stream``, ``control``, ``rctl`` and
+    ``pipe_buf_w`` (the stored in-flight words, a recycled column masked
+    out of them) as in ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -206,6 +210,8 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
                                                    stream=stream, host_rng=host_rng, host_rnd=host_rnd,
                                                    control=control),
                         values)
+    if pipe_buf_w is not None and values["expired"] is not None:
+        pipe_buf_w = po.mask_cols(pipe_buf_w, pack_bits(~values["expired"]))
     row_flags = dict(flags, exists=values["exists"], alive=values["alive"], silent=values["silent"],
                      declared_dead=values["declared_dead"], rewired=values["rewired"],
                      quarantine=values["quarantine"])
@@ -218,7 +224,7 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         fault_held=values["held"],
         join_round=values["join_round"], admitted_by=values["admitted_by"],
         degree_credit=values["degree_credit"], slot_lease=values["slot_lease"],
-        control_lvl=values["control_lvl"], pipe_buf=ps.pipe_buf,
+        control_lvl=values["control_lvl"], pipe_buf=ps.pipe_buf if pipe_buf_w is None else pipe_buf_w,
         suspect_round=values["suspect_round"], suspect_mark=values["suspect_mark"],
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
@@ -263,7 +269,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
 
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
                               tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
-                              growth=None, stream=None, host_rng=None, control=None, **later):
+                              growth=None, stream=None, host_rng=None, control=None, pipeline=None, **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
     k_pull, rctl) -> (inc_w, msgs_sent)``, then the packed stages. Under a
@@ -273,7 +279,8 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
     products pack back; the flood replay runs in that head too. The
     adversary stream's fold and ``liveness`` are the bool round's; under
     ``control`` the round's decision is resolved on the decoded seen
-    plane."""
+    plane; ``pipeline`` swaps the words as ``run_protocol_round`` swaps
+    the bool plane."""
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
@@ -305,11 +312,13 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
             scenario, shim, fault_round(ps, host_round), unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull,
             lambda tx, tr, rc, kp, kq: deliver(tx, tr, rc, kp, kq, rctl), k_flood=k_flood)
         inc_w, tx_eff_w, held_w = pack_bits(incoming), pack_bits(tx_eff), pack_bits(held)
+    inc_w, pipe_buf_w = pipeline_swap(pipeline, ps.pipe_buf, inc_w)
     return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
                                 tail=tail, faults=rf, churn_faults=scenario is not None and scenario.has_churn,
                                 fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
                                 k_forge=k_forge, growth=growth, stream=stream, host_rng=host_rng,
-                                host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl)
+                                host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
+                                pipe_buf_w=pipe_buf_w)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):

@@ -24,7 +24,10 @@ mask clears the recycled columns, and the injection after it.
 after the injection; ``run_protocol_round`` resolves the round's
 ``RoundControl`` before delivery, after the quarantine mask.
 
-Pipelining and live ingestion are later slices; their arguments raise
+``PipelineSpec`` and ``compile_pipeline`` (:74-99) select the pipelined
+schedule: at depth 1 ``run_protocol_round`` delivers the exchange the last
+round issued (``state.pipe_buf``) and carries this round's in its place
+(:840-846). Live ingestion is a later slice; its argument raises
 ``NotImplementedError`` here.
 """
 
@@ -37,11 +40,36 @@ import torch
 
 from tpu_gossip_torch.core import prng
 
-__all__ = ["Stage", "StageView", "run_stages", "build_round_stages", "stream_stages", "control_stages",
+__all__ = ["Stage", "StageView", "run_stages", "PipelineSpec", "compile_pipeline", "build_round_stages",
+           "stream_stages", "control_stages",
            "resolve_control", "run_protocol_round",
-           "not_ported", "host_cursor", "next_host_key",
+           "pipeline_swap", "not_ported", "host_cursor", "next_host_key",
            "check_later", "row_stages", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
            "require_quorum"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineSpec:
+    """The pipelined schedule. ``depth=0`` is the serial schedule, bit for
+    bit what ``pipeline=None`` runs; ``depth=1`` double-buffers the
+    exchange through ``SwarmState.pipe_buf``: round *t* delivers what round
+    *t-1* issued and issues its own, one round of delivery staleness.
+    Deeper pipelines would add staleness and no overlap, so the depth is
+    capped at 1."""
+
+    depth: int = 1
+
+    def __post_init__(self):
+        if self.depth not in (0, 1):
+            raise ValueError(
+                f"pipeline depth must be 0 (serial, bit-identical) or 1 "
+                f"(double-buffered exchange); got {self.depth}"
+            )
+
+
+def compile_pipeline(depth: int = 1) -> PipelineSpec:
+    """Validate and freeze a pipelined-execution spec (see PipelineSpec)."""
+    return PipelineSpec(depth=depth)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -471,9 +499,8 @@ def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: b
 def check_later(later: dict) -> None:
     """Refuse the arguments of later slices (given and not None) and any
     unknown argument."""
-    for name, where in (("pipeline", "multi-device"), ("inject", "serving")):
-        if later.pop(name, None) is not None:
-            raise not_ported(f"the {name} argument", where)
+    if later.pop("inject", None) is not None:
+        raise not_ported("the inject argument", "serving")
     if later:
         raise TypeError(f"unexpected arguments {sorted(later)}")
 
@@ -536,7 +563,7 @@ def resolve_control(control, state, cfg):
 
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
                        host_round: int | None = None, liveness=None, growth=None, stream=None, host_rng=None,
-                       control=None, **later):
+                       control=None, pipeline=None, **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull, rctl) ->
@@ -562,7 +589,12 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     (the horizon loops do), sparing a device read a round. ``control`` (a
     ``ControlSpec``) resolves the round's decision from the state's cursor
     after the quarantine mask, hands it to every delivery (the scenario
-    head's included) and runs the control stage last.
+    head's included) and runs the control stage last. ``pipeline`` (a
+    ``PipelineSpec``) at depth 1 swaps the delivered plane for the
+    exchange the last round issued (``state.pipe_buf``) and carries this
+    round's issue in flight; everything on the issue side (billing, the
+    ``tx_eff`` latch, fault telemetry, the held buffer) stays with the
+    round that issued it. Depth 0 and None are the serial schedule.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -588,12 +620,24 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, state, fault_round(state, host_round), transmit, transmitter, receptive,
             k_push, k_pull, lambda tx, tr, rc, kp, kq: disseminate(tx, tr, rc, kp, kq, rctl), k_flood=k_flood)
+    incoming, pipe_buf = pipeline_swap(pipeline, state.pipe_buf, incoming)
     return _engine.advance_round(
         state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
         liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth, stream=stream,
         host_rng=host_rng, host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
+        pipe_buf=pipe_buf,
     )
+
+
+def pipeline_swap(pipeline, buffered, issued):
+    """``(delivered, stored)``: under a depth-1 ``pipeline`` the buffered
+    exchange delivers and the issued one is stored; otherwise the issued
+    plane delivers and nothing is stored (None: the state's buffer rides
+    through untouched)."""
+    if pipeline is not None and pipeline.depth > 0:
+        return buffered, issued
+    return issued, None
 
 
 def host_cursor(state, later: dict) -> tuple[int | None, torch.Tensor | None]:

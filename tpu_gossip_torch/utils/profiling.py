@@ -9,15 +9,13 @@ Ports ``tpu_gossip/utils/profiling.py``:
   cancels.
 - :func:`profile_round_stages` decomposes one fault-free local round into
   its stages (delivery, the tail per implementation, liveness, stats, the
-  key splits, the sparse transport's compaction, the composed round per
-  tail), in the JAX package's order and under its names: ``run_sim
-  --profile-round R``. Every stage body folds its outputs into an int32
+  key splits, the growth, stream and control stages when those planes are
+  passed, the sparse transport's compaction, the composed round per tail
+  with every passed plane active), in the JAX package's order and under
+  its names: ``run_sim --profile-round R``, with ``--grow``, ``--stream``
+  and ``--control``. Every stage body folds its outputs into an int32
   carry, as JAX's do, so every stage pays that one reduction.
 - :func:`format_stage_table` prints the stages as JAX's does.
-
-The growth, stream and control rows of the decomposition come with the
-pipelined rounds (ROADMAP item 9f); ``sim/profile.py --grow`` and
-``--stream`` time those planes' own stages meanwhile.
 """
 
 from __future__ import annotations
@@ -162,7 +160,7 @@ def _fold(c: torch.Tensor, *arrays: torch.Tensor) -> torch.Tensor:
 
 
 def profile_round_stages(state, cfg, plan=None, *, reps: int = 3, loop_lengths: tuple[int, int] = (4, 24),
-                         tails: tuple[str, ...] = ("reference", "fused"),
+                         tails: tuple[str, ...] = ("reference", "fused"), growth=None, stream=None, control=None,
                          transport_probe: tuple[int, int, int, int] | None = None,
                          device: str | torch.device = "cuda") -> dict[str, float]:
     """Stage decomposition of one fault-free local round, seconds a round.
@@ -177,22 +175,36 @@ def profile_round_stages(state, cfg, plan=None, *, reps: int = 3, loop_lengths: 
       delivery's ``incoming`` (``fused`` and ``pallas`` launch K3 on the
       card; ``reference`` is JAX's multi-pass tail in plain torch);
     - ``liveness``: heartbeat emission and the failure detector;
-    - ``stats``: the per-round ``RoundStats`` reductions;
+    - ``stats``: the per-round ``RoundStats`` reductions (with the passed
+      planes' tracks);
     - ``rng``: the round's 5-way key split;
+    - ``growth``: the admission stage (``growth/engine.apply_growth``: the
+      Gumbel-top-k draw and the registry scatters), with a ``growth``
+      schedule;
+    - ``stream``: the streaming stage (``slot_expiry`` and
+      ``apply_stream``: the host's arrival count, the device draws, the
+      landing), with a ``stream`` workload;
+    - ``control``: the controller (``control_round``, the AIMD update and
+      the PeerSwap refresh of ``apply_control``), with a ``control``
+      policy;
     - ``transport_compact``: the sparse transport's compaction round trip
       (``dist/transport.py``: occupancy header, compact index, gather,
       scatter) over a synthetic ``transport_probe = (s, b, g, budget)``
       payload about 1/8 occupied, when given;
-    - ``full_round[<impl>]``: the composed ``gossip_round`` per tail.
+    - ``full_round[<impl>]``: the composed ``gossip_round`` per tail, every
+      passed plane active.
 
     Stage sums need not equal the full round: each stage alone pays its
     own launches.
     """
+    from tpu_gossip_torch.control.engine import apply_control, control_round
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.dist.transport import compact_index, gather_compact, occupancy_counts, scatter_compact
     from tpu_gossip_torch.kernels.liveness import detect_failures, emit_heartbeats
+    from tpu_gossip_torch.growth.engine import apply_growth
     from tpu_gossip_torch.kernels.round_tail import round_tail
     from tpu_gossip_torch.sim import engine
+    from tpu_gossip_torch.traffic.engine import apply_stream, slot_expiry
 
     dev = resolve_device(device)
     if state.seen.device.type != dev.type:
@@ -235,12 +247,44 @@ def profile_round_stages(state, cfg, plan=None, *, reps: int = 3, loop_lengths: 
         return _fold(c, hb, dead)
 
     def t_stats(i, c, st):
-        stats = engine._stats(st, rounds[i])
+        stats = engine._stats(st, rounds[i], growth=growth, stream=stream)
         return _fold(c, stats.msgs_sent, stats.n_infected, stats.n_alive) ^ (stats.coverage > 0.5).to(torch.int32)
 
     def t_rng(i, c):
         keys = prng.split(prng.fold_in(k_rng, i), 5)
         return _fold(c, keys[:, 0].to(torch.int32))
+
+    # the planes' per-iteration keys, fold_in(state.rng, i) as JAX's stage
+    # bodies draw them: made once, on the device and (for the stream's
+    # arrival count, which is drawn on the host) on the host
+    keys = [prng.fold_in(state.rng, i) for i in range(max(n1, n2))]
+    host_keys = [k.cpu() for k in keys] if stream is not None else None
+    zero_i32 = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def t_growth(i, c, st, gp):
+        grown = apply_growth(gp, keys[i], rounds[i], zero_i32, row_ptr=st.row_ptr, exists=st.exists,
+                             alive=st.alive, silent=st.silent, last_hb=st.last_hb, declared_dead=st.declared_dead,
+                             rewired=st.rewired, rewire_targets=st.rewire_targets, join_round=st.join_round,
+                             admitted_by=st.admitted_by, degree_credit=st.degree_credit)
+        return _fold(c, grown["exists"], grown["join_round"], grown["degree_credit"])
+
+    def t_stream(i, c, st, sp):
+        expired = slot_expiry(st.slot_lease, rounds[i], sp.ttl)
+        lease = torch.where(expired, -1, st.slot_lease)
+        seen, infected_round, lease, stel = apply_stream(
+            sp, keys[i], rounds[i], expired.sum(dtype=torch.int32), seen=st.seen,
+            infected_round=st.infected_round, slot_lease=lease, row_ptr=st.row_ptr, col_idx=st.col_idx,
+            exists=st.exists, alive=st.alive, declared_dead=st.declared_dead, host_rng=host_keys[i], host_rnd=i)
+        return _fold(c, seen, infected_round, lease, stel.injected)
+
+    def t_control(i, c, st, inc, cp):
+        rctl = control_round(cp, st, want_needy=cfg.mode == "push_pull")
+        lvl, tgts, credit, ctel = apply_control(
+            cp, keys[i], rounds[i], rctl, incoming=inc, seen_prev=st.seen, seen=st.seen | inc, alive=st.alive,
+            declared_dead=st.declared_dead, exists=st.exists, rewired=st.rewired,
+            rewire_targets=st.rewire_targets, degree_credit=st.degree_credit, row_ptr=st.row_ptr,
+            col_idx=st.col_idx, slot_lease=st.slot_lease, rewire_slots=cfg.rewire_slots, fstats=None)
+        return _fold(c, lvl, tgts, credit, ctel.fanout)
 
     def t_transport(i, c, payload):
         _, b_probe, _, budget = transport_probe
@@ -250,8 +294,8 @@ def profile_round_stages(state, cfg, plan=None, *, reps: int = 3, loop_lengths: 
         return _fold(c, occupancy_counts(occ), back)
 
     def round_body(impl):
-        def body(i, s, pl):
-            return engine.gossip_round(s, cfg, pl, tail=impl)[0]
+        def body(i, s, pl, gp, sp, cp):
+            return engine.gossip_round(s, cfg, pl, tail=impl, growth=gp, stream=sp, control=cp)[0]
 
         return body
 
@@ -264,6 +308,12 @@ def profile_round_stages(state, cfg, plan=None, *, reps: int = 3, loop_lengths: 
     stages["liveness"] = slope_time(t_liveness, zero, n1, n2, reps, operands=(state,))
     stages["stats"] = slope_time(t_stats, zero, n1, n2, reps, operands=(state,))
     stages["rng"] = slope_time(t_rng, zero, n1, n2, reps)
+    if growth is not None:
+        stages["growth"] = slope_time(t_growth, zero, n1, n2, reps, operands=(state, growth))
+    if stream is not None:
+        stages["stream"] = slope_time(t_stream, zero, n1, n2, reps, operands=(state, stream))
+    if control is not None:
+        stages["control"] = slope_time(t_control, zero, n1, n2, reps, operands=(state, incoming, control))
     if transport_probe is not None:
         s_probe, b_probe, g_probe, _budget = transport_probe
         # a plausibly sparse synthetic payload (~1/8 occupancy, the compact
@@ -272,7 +322,8 @@ def profile_round_stages(state, cfg, plan=None, *, reps: int = 3, loop_lengths: 
         payload = torch.where(occ_mask, 0x5A5A5A5A, 0).to(torch.int32).expand(s_probe, b_probe, g_probe).contiguous()
         stages["transport_compact"] = slope_time(t_transport, zero, n1, n2, reps, operands=(payload,))
     for impl in tails:
-        stages[f"full_round[{impl}]"] = slope_time(round_body(impl), state, n1, n2, reps, operands=(plan,))
+        stages[f"full_round[{impl}]"] = slope_time(round_body(impl), state, n1, n2, reps,
+                                                   operands=(plan, growth, stream, control))
     return stages
 
 
