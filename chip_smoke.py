@@ -122,9 +122,10 @@ pipelined JAX pins of ``reference_pins.json`` (``--shard --staircase
 --pipeline 1`` at n=20000, unpacked and packed, plain and under a stream
 whose age-out runs inside the horizon), K6 and K3 or K4 once a round, and
 ``--pipeline 0`` onto the serial sharded pin; 13b ``bench_pipeline``'s
-comparison on the one-process bucketed mesh over 4f's set-up (48 rounds,
-serial and pipelined in turns: ms/round by CUDA events and wall, rounds to
-99%, peaks, K6 and K3 launches), the pipelined run onto its JAX pin; 13c
+comparison on its own set-up, the 1M sharded matching mesh at one shard
+(24 rounds, serial and pipelined in turns: ms/round by CUDA events and
+wall, rounds to 99%, peaks, K1, K2 and K3 launches), the pipelined run
+onto its JAX pin; 13c
 the catalogue campaign's 21 lanes (four processes at once, each running
 its lanes through the solo round as the fleet does, while this process
 runs the next two checks) onto the JAX pin's
@@ -134,8 +135,25 @@ its round-4 checkpoint and resumed whole and as ``--lane 3 --solo`` on the
 other device, both ways; 13d ``bench_fleet``'s configuration at full width
 (n=131072, K = 1, 8, 32, 10 rounds) beside K solo runs of the same lanes;
 13e ``run_sim --profile-round`` with ``--grow``, ``--stream 4`` and
-``--control 0.99`` at 1M (the composed rows). It prints phase 13's seconds
-and the script's. Each check of a checkpoint written on one device and
+``--control 0.99`` at 1M (the composed rows). Phase 14 drives the sharded
+matching engine and its transports (``dist/matching_mesh.py``,
+``dist/transport.py``, ``dist/builder.py``): 14a K1 over the mesh's
+stacked blocks and K2 over its shard-major class table against their
+plain versions at the 1M S = 8 layout, K2's zeros on every shard's pad
+rows; 14b ``bench_dist_matching``'s configuration (1M, 16 origins on 16
+slots, push_pull fanout 1, to 99%) at S = 1 (14b) and S = 8 (14c), the
+local engine on the plan and the mesh under the dense, sparse and auto
+transports, all digest-equal, launches counted from 0 a run (K1 7 a
+round, lane stages only; K2 and K3 once), the S = 8 dense run's digest
+and ICI totals, the sparse replay's digests and totals and auto's totals
+onto the JAX pins, the packed twin (the exchange on the words, K4); 14d
+``--builder dist`` at 1M S = 8 against the block-keyed build, leaf for
+leaf; 14e the eleven
+n=20000 sharded matching pins of ``reference_pins.json`` through the CLI
+on an 8-shard mesh (dense, sparse, auto packed, the dist builder, churn,
+split-brain, the siege at quorum 3, growth, a stream, the controller, a
+depth-1 pipeline). It prints phase 13's and 14's seconds and the
+script's. Each check of a checkpoint written on one device and
 resumed on the other (8e, 9c, 10d, 11d, 12d) runs its two directions at
 once, and 10c runs the first 32 rounds of ``bench_grow``'s schedule, to
 keep the script inside its time.
@@ -1657,7 +1675,7 @@ def cli_here(argv: list[str], dev, marks: bool = False) -> dict:
             events[-1].record()
         out = plain(*a, **k)
         torch.cuda.synchronize(dev)
-        horizon.update(wall_s=out[2], peak=torch.cuda.max_memory_allocated(dev))
+        horizon.update(wall_s=out[3], peak=torch.cuda.max_memory_allocated(dev))
         return out
 
     native.reset_launches()
@@ -2820,7 +2838,7 @@ def phase_control(root: Path, dev, card: str) -> dict:
 
 # ---------------------------------------------- phase 13: pipelined rounds and fleets
 
-PIPELINE_BIG_ROUNDS = 48  # bench.py::bench_pipeline's comparison, long enough for both runs to reach 99%
+PIPELINE_BIG_ROUNDS = 24  # bench.py::bench_pipeline's horizon
 CATALOGUE = "scenarios/campaigns/catalogue_smoke.toml"
 # bench.py::bench_fleet's configuration: K composed lanes (a lossy sweep, a
 # stream and the controller) of n-peer Chung-Lu swarms, 10 rounds
@@ -2862,38 +2880,30 @@ COMPOSED_PROFILE = ["--peers", "950000", "--grow", "1000000", "--grow-rate", "32
                     "push_pull", "--fanout", "1", "--stream", "4", "--control", "0.99", "--profile-round", "4"]
 
 
-def pipeline_1m(dev, shard: dict, depth, rounds: int = PIPELINE_BIG_ROUNDS) -> dict:
-    """bench_pipeline's comparison on the one-process bucketed mesh over
-    4f's set-up (the 1M device power-law graph on one shard, K6 receive):
-    one origin from ``default_rng(0)``, push_pull fanout 1, 16 slots,
-    ``rounds`` rounds at ``depth`` (None: serial), launches counted from 0,
-    a CUDA event a round."""
-    import numpy as np
-
+def pipeline_1m(dev, setup: dict, depth, rounds: int = PIPELINE_BIG_ROUNDS) -> dict:
+    """bench_pipeline's comparison on its own set-up: the 1M sharded
+    matching mesh at one shard (phase 14's layout, ``make_mesh()`` on one
+    card), 16 origins on 16 slots, push_pull fanout 1, ``rounds`` rounds at
+    ``depth`` (None: serial), launches counted from 0, a CUDA event a
+    round."""
     from tpu_gossip_torch import dist
-    from tpu_gossip_torch.core import prng
-    from tpu_gossip_torch.core.state import SwarmConfig
     from tpu_gossip_torch.kernels import native
     from tpu_gossip_torch.sim import metrics as M
     from tpu_gossip_torch.sim.stages import compile_pipeline
     from tpu_gossip_torch.utils.digest import state_digest, stats_digest
 
-    sg, mesh = shard["sg"], shard["mesh"]
-    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
-    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
-    state = dist.shard_swarm(dist.init_sharded_swarm(sg, shard["rel"], shard["pos"], cfg, key=prng.key(0, dev),
-                                                     origins=origins, device=dev), mesh)
+    plan, mesh, cfg = setup["plan_m"], setup["mesh"], setup["cfg"]
     pipe = None if depth is None else compile_pipeline(depth)
 
     def step(st):
-        return dist.gossip_round_dist(st, cfg, sg, mesh, shard["plan"], pipeline=pipe)
+        return dist.gossip_round_dist(st, cfg, plan, mesh, pipeline=pipe)
 
     native.reset_launches()
     t0 = time.perf_counter()
-    fin, stats, round_ms, peak, start = timed_rounds(dev, step, state, rounds)
+    fin, stats, round_ms, peak, start = timed_rounds(dev, step, setup["state"], rounds)
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
-    check_launches(f"13b {'serial' if depth is None else 'pipelined'}", launches, SHARD_STAIRCASE_PATH, rounds)
+    check_launches(f"13b {'serial' if depth is None else 'pipelined'}", launches, MESH_PATH, rounds)
     return dict(state_digest=state_digest(fin), stats_digest=stats_digest(stats),
                 rounds_to_target=M.rounds_to_coverage(stats, 0.99), final_coverage=float(stats.coverage[-1]),
                 wall_ms_per_round=wall * 1e3 / rounds, event_ms_per_round=sum(round_ms) / rounds, peak=peak,
@@ -2901,13 +2911,14 @@ def pipeline_1m(dev, shard: dict, depth, rounds: int = PIPELINE_BIG_ROUNDS) -> d
                 pipe_buf_bits=int(fin.pipe_buf.sum()))
 
 
-def phase_pipeline(root: Path, dev, card: str, shard: dict) -> dict:
+def phase_pipeline(root: Path, dev, card: str, setup: dict) -> dict:
     """13a: the four pipelined JAX pins at n=20000 (``--shard --staircase
     --pipeline 1``, packed and unpacked, plain and under a stream whose
     age-out runs inside the horizon) through the CLI, launches counted from
     0 (K6 once a round, K3 or K4 once a round), and ``--pipeline 0`` onto
     the serial pin of ``reference_digests.json``; 13b bench_pipeline's
-    comparison at 1M on 4f's set-up, serial and pipelined in turns, the
+    comparison on its own set-up (the 1M sharded matching mesh at one
+    shard, ``setup`` from phase 14), serial and pipelined in turns, the
     pipelined run onto its JAX pin."""
     pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
     out = {}
@@ -2938,7 +2949,7 @@ def phase_pipeline(root: Path, dev, card: str, shard: dict) -> dict:
     pin = pins["pipeline_1m"]
     runs = {"serial": [], "pipelined": []}
     for what in ("serial", "pipelined", "pipelined", "serial"):
-        runs[what].append(pipeline_1m(dev, shard, None if what == "serial" else 1))
+        runs[what].append(pipeline_1m(dev, setup, None if what == "serial" else 1))
     for what, (a, b) in runs.items():
         for k in ("state_digest", "stats_digest", "rounds_to_target", "pipe_buf_bits"):
             if a[k] != b[k]:
@@ -2950,16 +2961,14 @@ def phase_pipeline(root: Path, dev, card: str, shard: dict) -> dict:
     if runs["serial"][0]["pipe_buf_bits"] != 0 or piped["pipe_buf_bits"] == 0:
         raise AssertionError("13b: the serial run touched pipe_buf or the pipelined run left it empty")
     for what, pair in runs.items():
-        print(f"[{card}] 13b bench_pipeline's comparison on the one-process bucketed mesh (4f's 1M graph, one shard, "
-              f"K6 receive, push_pull fanout 1, {M_SLOTS} slots, {PIPELINE_BIG_ROUNDS} rounds), {what}: "
+        print(f"[{card}] 13b bench_pipeline's comparison on its own set-up (the 1M sharded matching mesh, one shard, "
+              f"push_pull fanout 1, {M_SLOTS} origins on {M_SLOTS} slots, {PIPELINE_BIG_ROUNDS} rounds), {what}: "
               f"{[round(r['event_ms_per_round'], 4) for r in pair]} ms/round by CUDA events, "
               f"{[round(r['wall_ms_per_round'], 4) for r in pair]} by wall (the turns serial, pipelined, pipelined, "
               f"serial), rounds to 99% {pair[0]['rounds_to_target']}, final coverage {pair[0]['final_coverage']}, "
               f"peak {pair[0]['peak']} B (from {pair[0]['start']} B), launches {pair[0]['launches']}, "
               f"state_digest {pair[0]['state_digest']}"
               + ("; equal to the JAX pin" if what == "pipelined" else ""), flush=True)
-    print(f"[{card}] 13b the JAX package's own bench_pipeline runs the sharded matching mesh (ROADMAP item 11b, not "
-          "ported); this comparison runs the bucketed mesh the port has", flush=True)
     out["13b"] = dict(seconds=time.perf_counter() - t0,
                       runs={w: [{k: r[k] for k in ("event_ms_per_round", "wall_ms_per_round", "rounds_to_target",
                                                     "peak", "launches")} for r in pair] for w, pair in runs.items()})
@@ -3301,6 +3310,263 @@ CHURN_XLA_PATH = XLA_PATH
 CHURN_SHARD_PATH = SHARD_STAIRCASE_PATH
 
 
+# ---------------------------------- phase 14: the sharded matching mesh and its transports
+
+MESH_SHARDS = 8
+MESH_MAX_ROUNDS = 300
+# a round on the matching mesh at 1M (three transpose stages): one partner
+# pass of 7 K1 lane stages, one K2 reduce, one tail (K3, or K4 packed)
+MESH_PATH = {"lane_shuffle": 7, "fold_planes_or": 1, "fold_planes_sum": 0, "round_tail": 1, "round_tail_words": 0,
+             "staircase_segment": 0, "stream_segment": 0}
+PACKED_MESH_PATH = dict(MESH_PATH, round_tail=0, round_tail_words=1)
+
+
+def mesh_setup_1m(dev, shards: int) -> dict:
+    """bench_dist_matching's layout: ``matching_powerlaw_graph_sharded(1M,
+    shards, gamma=2.5, fanout=1, key 0, export_csr=False)``, push_pull
+    fanout 1, origins ``arange(16)`` on slots ``arange(16)``, state key 0;
+    the plan and state placed on a ``shards``-shard mesh, the build's
+    seconds and device peak."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g, plan = matching_powerlaw_graph_sharded(N_HEADLINE, shards, gamma=2.5, fanout=1, key=prng.key(0, dev),
+                                              export_csr=False, device=dev)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    mesh = dist.make_mesh(shards, device=dev)
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
+    st = init_swarm(g.as_padded_graph(), cfg, origins=np.arange(M_SLOTS), origin_slots=np.arange(M_SLOTS),
+                    exists=g.exists, key=prng.key(0, dev), device=dev)
+    return dict(plan=plan, plan_m=dist.shard_matching_plan(plan, mesh), mesh=mesh, cfg=cfg,
+                state=dist.shard_swarm(st, mesh), build_s=build_s, build_peak=torch.cuda.max_memory_allocated(dev),
+                shards=shards)
+
+
+def mesh_coverage_run(dev, step, state, what: str, want: dict, packed: bool = False) -> dict:
+    """``step`` to 99% coverage of slot 0 (compared in float32, at most
+    MESH_MAX_ROUNDS rounds), a CUDA event a round, launches counted from 0
+    and checked against ``want``; an ICI counter a step returns is summed.
+    The rounds, the unpacked final state's digest, ms a round by events and
+    by wall, the device peak, the launches, the counter's totals (the JAX
+    package's byte-plane model) and the transpose stages the port itself
+    ran on a compact lane and dense."""
+    from tpu_gossip_torch.core.packed import unpack_state
+    from tpu_gossip_torch.dist.transport import accumulate_ici, lane_counts, reset_lane_counts, zero_ici_totals
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    tgt = torch.tensor(0.99, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    native.reset_launches()
+    reset_lane_counts()
+    tot, rounds, ev = None, 0, [torch.cuda.Event(enable_timing=True)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    while bool(state.coverage(0) < tgt) and rounds < MESH_MAX_ROUNDS:
+        out = step(state)
+        state, rounds = out[0], rounds + 1
+        if len(out) == 3:
+            tot = accumulate_ici(zero_ici_totals(dev) if tot is None else tot, out[2])
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    check_launches(what, launches, want, rounds)
+    k1 = dict(native.K1_ENTRIES)
+    fin = unpack_state(state) if packed else state
+    cov = float(fin.coverage(0))
+    if not 0.99 <= cov <= 1.0:
+        raise AssertionError(f"{what} ended at coverage {cov} after {rounds} rounds")
+    return dict(rounds=rounds, digest=state_digest(fin), coverage=cov,
+                event_ms=sum(a.elapsed_time(b) for a, b in zip(ev, ev[1:])) / rounds, wall_ms=wall * 1e3 / rounds,
+                peak=torch.cuda.max_memory_allocated(dev), start=start,
+                launches={k: v for k, v in launches.items() if v}, k1_entries={k: v for k, v in k1.items() if v},
+                ici=None if tot is None else tot.words(), port_lanes=lane_counts())
+
+
+def mesh_line(card: str, what: str, r: dict, extra: str = "") -> str:
+    return (f"[{card}] {what}: rounds to 99% {r['rounds']}, coverage {r['coverage']}, {r['event_ms']} ms/round by "
+            f"CUDA events, {r['wall_ms']} by wall, peak {r['peak']} B (from {r['start']} B), launches "
+            f"{r['launches']}, K1 by entry {r['k1_entries']}"
+            + ("" if r["ici"] is None else f", ICI words (JAX's wire model) {r['ici']}")
+            + f", the port's transpose stages {r['port_lanes']}; state_digest {r['digest']}{extra}")
+
+
+def check_k1_k2_mesh(dev, gen, setup: dict) -> int:
+    """K1 over the mesh's stacked blocks (one launch over all S·per rows,
+    each of the plan's lane tables) and K2 over its shard-major class table
+    (OR and SUM), each against its plain version; K2's outputs on every
+    shard's pad rows are zero."""
+    from tpu_gossip_torch.kernels import permute
+
+    plan = setup["plan_m"]
+    x = torch.randint(-2**31, 2**31 - 1, (plan.rows, 128), generator=gen, device=dev, dtype=torch.int32)
+    err = 0
+    for tbl in (*plan.lanes, plan.m3, *plan.lanes_inv):
+        err = max(err, max_err(permute.lane_shuffle(x, tbl), permute.lane_shuffle_plain(x, tbl)))
+    pad = torch.arange(plan.n, device=dev) % plan.n_blk >= plan.n_per
+    for op in ("or", "sum"):
+        got = permute.fold_classes(x, plan.layout, op)
+        err = max(err, max_err(got, permute.fold_classes_plain(x, plan.layout, op)))
+        if bool(got[pad].any()):
+            raise AssertionError(f"K2 ({op}) wrote nonzero values on the mesh's pad rows")
+    return err
+
+
+def plans_equal_leafwise(a, ga, b, gb, what: str) -> None:
+    for f in ("lanes", "lanes_inv"):
+        if not all(torch.equal(x, y) for x, y in zip(getattr(a, f), getattr(b, f))):
+            raise AssertionError(f"{what}: {f} differ")
+    for f in ("m3", "valid", "deg_other", "deg_real"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: {f} differ")
+    for f in ("row_ptr", "col_idx", "exists"):
+        if not torch.equal(getattr(ga, f), getattr(gb, f)):
+            raise AssertionError(f"{what}: graph {f} differ")
+
+
+def phase_mesh(root: Path, dev, card: str, gen, one: dict) -> dict:
+    """14a: K1 and K2 against their plain versions at the mesh's shapes
+    (the 1M layout at S = 8, K2's shard-major table and its pad rows);
+    bench_dist_matching's configuration, the local engine on the plan and
+    the mesh dense, sparse and auto, all equal: 14b at S = 1 (``one``),
+    14c at S = 8 with the packed twin, the dense run's digest and ICI
+    totals, the sparse replay and auto's totals onto the JAX pins; 14d
+    ``--builder dist`` at 1M S = 8 against the block-keyed build, leaf for
+    leaf; 14e the n=20000 sharded matching pins through the CLI on an
+    8-shard mesh."""
+    import unittest.mock
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip_torch.core.packed import pack_state
+    from tpu_gossip_torch.sim.engine import gossip_round
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
+    out = {}
+    t0 = time.perf_counter()
+    eight = mesh_setup_1m(dev, MESH_SHARDS)
+    out["14a"] = dict(max_abs_err=check_k1_k2_mesh(dev, gen, eight))
+    print(f"[{card}] 14a K1 over the 1M S={MESH_SHARDS} mesh's stacked blocks (every lane table) and K2 over its "
+          f"shard-major class table equal their plain versions: max_abs_err {out['14a']['max_abs_err']}; K2 writes "
+          f"zeros on every shard's pad rows", flush=True)
+    runs = {}
+    for setup in (one, eight):
+        s, cfg, plan, mesh = setup["shards"], setup["cfg"], setup["plan_m"], setup["mesh"]
+        part = "14b" if s == 1 else "14c"
+        t1 = time.perf_counter()
+        print(f"[{card}] {part} layout S={s}: rows {plan.rows} ({plan.per_rows} a shard), state rows {plan.n}, build "
+              f"{setup['build_s']:.3f} s, build peak {setup['build_peak']} B", flush=True)
+        local = mesh_coverage_run(dev, lambda st: gossip_round(st, cfg, setup["plan"]), setup["state"],
+                                  f"{part} S={s} local", MESH_PATH)
+        print(mesh_line(card, f"{part} S={s} the local engine on the same plan", local), flush=True)
+        runs[(s, "local")] = local
+        for name in ("dense", "sparse", "auto"):
+            tr = None if name == "dense" else dist.build_transport(plan, mode=name, mesh=mesh)
+            collect = s == MESH_SHARDS and name != "sparse"
+
+            def step(st, tr=tr, collect=collect):
+                return dist.gossip_round_dist(st, cfg, plan, mesh, transport=tr, collect_ici=collect)
+
+            r = mesh_coverage_run(dev, step, setup["state"], f"{part} S={s} {name}", MESH_PATH)
+            if (r["rounds"], r["digest"]) != (local["rounds"], local["digest"]):
+                raise AssertionError(f"{part} S={s} {name}: ({r['rounds']}, {r['digest']}) != the local run's")
+            if r["k1_entries"].get("lane_shuffle_t") or r["k1_entries"].get("tinv_lane_shuffle"):
+                raise AssertionError(f"{part} S={s} {name}: a fused K1 entry ran on the mesh")
+            modes = "" if tr is None else f", stage modes {tr.stage_mode}, budget {tr.budget}, active {tr.active}"
+            print(mesh_line(card, f"{part} S={s} mesh {name}", r, f"; equal to the local run{modes}"), flush=True)
+            runs[(s, name)] = r
+        if s == 1:
+            out["14b"] = dict(seconds=time.perf_counter() - t1)
+    pin = pins["mesh_1m"]
+    dense = runs[(MESH_SHARDS, "dense")]
+    if dense["digest"] != pin["dense"]["state_digest"] or dense["rounds"] != pin["dense"]["rounds"] \
+            or dense["ici"] != pin["dense"]["ici"]:
+        raise AssertionError(f"14c S={MESH_SHARDS} dense: ({dense['rounds']}, {dense['digest']}, {dense['ici']}) != "
+                             f"the JAX pin's {pin['dense']} ({pin['source']})")
+    if runs[(MESH_SHARDS, "auto")]["ici"] != pin["auto"]["ici"]:
+        raise AssertionError(f"14c auto: ICI {runs[(MESH_SHARDS, 'auto')]['ici']} != the JAX pin's {pin['auto']}")
+    s8 = eight
+    tr = dist.build_transport(s8["plan_m"], mode="sparse", mesh=s8["mesh"])
+    fin, (stats, ici) = dist.simulate_dist(s8["state"], s8["cfg"], s8["plan_m"], s8["mesh"], dense["rounds"],
+                                           transport=tr, collect_ici=True)
+    got = {"state_digest": state_digest(fin), "stats_digest": stats_digest(stats),
+           "ici": {f: int(getattr(ici, f).sum()) for f in ici._fields}}
+    if got != {k: pin["sparse"][k] for k in got}:
+        raise AssertionError(f"14c sparse replay: {got} != the JAX pin's {pin['sparse']}")
+    print(f"[{card}] 14c S={MESH_SHARDS} dense run onto the JAX pin (digest, {dense['rounds']} rounds, ICI totals "
+          f"{dense['ici']}); the sparse replay's digests and ICI totals {got['ici']} onto the JAX pin; auto's totals "
+          f"onto the JAX pin (active {pin['auto']['active']})", flush=True)
+    packed = mesh_coverage_run(dev, lambda st: dist.gossip_round_dist(st, s8["cfg"], s8["plan_m"], s8["mesh"],
+                                                                      transport=tr),
+                               pack_state(s8["state"]), f"14c S={MESH_SHARDS} packed sparse", PACKED_MESH_PATH,
+                               packed=True)
+    if (packed["rounds"], packed["digest"]) != (dense["rounds"], dense["digest"]):
+        raise AssertionError("14c packed twin differs from the dense run")
+    print(mesh_line(card, f"14c S={MESH_SHARDS} packed twin (sparse transport, the exchange on the words)", packed,
+                    "; equal to the unpacked run"), flush=True)
+    runs[(MESH_SHARDS, "packed")] = packed
+    out["14c"] = dict(seconds=time.perf_counter() - t0 - out["14b"]["seconds"],
+                      runs={f"S={s} {n}": {k: r[k] for k in ("rounds", "event_ms", "wall_ms", "peak", "launches",
+                                                              "ici", "port_lanes")} for (s, n), r in runs.items()})
+    del eight, fin, stats, s8
+
+    t0 = time.perf_counter()
+    mesh8 = dist.make_mesh(MESH_SHARDS, device=dev)
+    builds = {}
+    for name in ("block_keys", "dist"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        if name == "dist":
+            built = dist.matching_powerlaw_graph_dist(N_HEADLINE, mesh8, gamma=2.5, fanout=1, key=prng.key(0, dev))
+        else:
+            built = matching_powerlaw_graph_sharded(N_HEADLINE, MESH_SHARDS, gamma=2.5, fanout=1,
+                                                    key=prng.key(0, dev), block_keys=True, device=dev)
+        torch.cuda.synchronize(dev)
+        builds[name] = dict(graph=built[0], plan=built[1], seconds=time.perf_counter() - t1,
+                            peak=torch.cuda.max_memory_allocated(dev))
+    plans_equal_leafwise(builds["dist"]["plan"], builds["dist"]["graph"], builds["block_keys"]["plan"],
+                         builds["block_keys"]["graph"], "14d")
+    print(f"[{card}] 14d --builder dist at 1M S={MESH_SHARDS} (CSR exported) equals the block-keyed build leaf for "
+          f"leaf: dist {builds['dist']['seconds']:.3f} s, peak {builds['dist']['peak']} B; block-keyed "
+          f"{builds['block_keys']['seconds']:.3f} s, peak {builds['block_keys']['peak']} B", flush=True)
+    out["14d"] = dict(seconds=time.perf_counter() - t0, **{k: {"s": v["seconds"], "peak": v["peak"]}
+                                                          for k, v in builds.items()})
+    del builds
+
+    t0 = time.perf_counter()
+    make = dist.make_mesh
+    with unittest.mock.patch.object(dist, "make_mesh",
+                                    lambda n_shards=None, device="cuda": make(MESH_SHARDS, device=device)):
+        for ref in pins["mesh"]:
+            argv = [a for a in ref["argv"] if a != "--quiet"]
+            what = f"14e run_sim {' '.join(a for a in ref['argv'] if a not in ('--digest', '--quiet'))}"
+            r = cli_here(argv, dev)
+            check_pin(r["summary"], ref, what)
+            tail = "round_tail_words" if "--packed" in argv else "round_tail"
+            check_launches(what, r["launches"], {"lane_shuffle": None, "fold_planes_or": None, tail: 1},
+                           r["summary"]["rounds_run"])
+            print(fault_line(card, what, r, f"; equal to the JAX pin on a {ref['shards']}-device mesh"), flush=True)
+            del r
+    out["14e"] = dict(seconds=time.perf_counter() - t0)
+    return out
+
+
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
     """Fail unless ``launches`` (counted from 0 over one path) are what the
     path must launch: per round, or at least once where ``want`` says None."""
@@ -3556,15 +3822,23 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     print(f"[{card}] phase 12: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in control.items() if 'seconds' in v} }", flush=True)
 
-    # phase 13: pipelined rounds (13a, 13b), fleets (13c, 13d) and the composed profile rows (13e)
+    # phase 13: pipelined rounds (13a, 13b on phase 14's 1M one-shard matching mesh), fleets (13c, 13d)
+    # and the composed profile rows (13e)
     t0 = time.perf_counter()
-    pipeline = phase_pipeline(root, dev, card, shard)
+    one = mesh_setup_1m(dev, 1)
+    pipeline = phase_pipeline(root, dev, card, one)
     fleets = phase_fleet(root, dev, card)
     t1 = time.perf_counter()
     run_composed_profile(card, dev)
     parts = {**pipeline, **fleets, "13e": dict(seconds=time.perf_counter() - t1)}
     print(f"[{card}] phase 13: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in parts.items() if 'seconds' in v} }; the script "
+          f"{ {k: round(v['seconds'], 2) for k, v in parts.items() if 'seconds' in v} }", flush=True)
+
+    # phase 14: the sharded matching mesh and its transports (14a-14e)
+    t0 = time.perf_counter()
+    mesh = phase_mesh(root, dev, card, gen, one)
+    print(f"[{card}] phase 14: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in mesh.items() if 'seconds' in v} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,27 @@
-"""The JAX package's halves of the pipelined-round and fleet comparisons,
-as JSON-able results. Each function builds its run from plain arguments,
-so the port's test builds the same run from the same arguments.
+"""The JAX package's halves of the pipelined-round, fleet and sharded
+matching comparisons, as JSON-able results. Each function builds its run
+from plain arguments, so the port's test builds the same run from the
+same arguments.
 
 :data:`CASES` names the runs the port's tests compare with; their results
 are pinned in ``tests/jax_pins.json`` (so a test compares the port's run
 with the pin, in its own process), and ``test_jax_pins_are_current`` of
-each group recomputes the group here in a child process
-(``tests.test_torch_growth_cli_engines.jax_in_child``) and holds it to the
-file. The pins of ``tpu_gossip_torch/reference_pins.json`` that
+each group recomputes the group, or for the costlier groups (``mesh``,
+``mesh_cli``, ``mesh_facts``, ``stream_cli``, ``tail_words``) a batch of it, here in a
+child process (``tests.test_torch_growth_cli_engines.jax_in_child``) and
+holds it to the file; ``profile`` holds timing-free shapes no test
+recomputes. The pins of ``tpu_gossip_torch/reference_pins.json`` that
 ``chip_smoke.py`` runs on the card come from here too::
 
     JAX_PLATFORMS=cpu python -m tests.jax_pins write        # tests/jax_pins.json
-    JAX_PLATFORMS=cpu python -m tests.jax_pins bucketed_pipeline_1m
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -m tests.jax_pins write mesh mesh_cli mesh_facts stream_cli profile tail_words
+    JAX_PLATFORMS=cpu python -m tests.jax_pins matching_pipeline_1m
     JAX_PLATFORMS=cpu python -m tests.jax_pins cli_pin ARGV...
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -m tests.jax_pins dist_matching_1m            # phase 14's 1M pins
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -m tests.jax_pins mesh_card_pins              # phase 14's n=20000 pins
 """
 
 from __future__ import annotations
@@ -72,6 +81,12 @@ def word_tail_forms(m, forward_once, sir):
                                                     jnp.asarray(expired))
         out.append([(str(np.asarray(a).dtype), np.asarray(a).tolist()) for a in want])
     return out
+
+
+def word_tail_digests(m, forward_once, sir) -> list:
+    """:func:`word_tail_forms` as a sha256 an output (:func:`leaf_digest`)."""
+    return [[leaf_digest(np.asarray(a, dtype=dtype)) for dtype, a in outs]
+            for outs in word_tail_forms(m, forward_once, sir)]
 
 
 def _digests(fin, stats) -> dict:
@@ -276,29 +291,401 @@ def matching_pipeline_run(n: int, shards: int, key: int, rounds: int, pipeline) 
     return {**_digests(fin, stats), "pipe_buf_bits": int(np.asarray(fin.pipe_buf).sum())}
 
 
-def bucketed_pipeline_1m(n: int = 1_000_000, rounds: int = 48) -> dict:
-    """``bench.py::bench_pipeline``'s comparison on the one-process
-    bucketed mesh: the 1M device power-law graph (``key(0)``, gamma 2.5)
-    exported and partitioned over one shard, push_pull fanout 1, 16
-    slots, one origin drawn by ``default_rng(0)``, ``rounds`` rounds
-    pipelined at depth 1; the digests, rounds to 99% and final coverage."""
+def _ici_words(tot) -> dict:
+    """An ``IciTotals`` or a stacked ``IciRound`` as exact python ints."""
+    if hasattr(tot, "words"):
+        return tot.words()
+    return {f: int(np.asarray(getattr(tot, f)).astype(np.int64).sum()) for f in tot._fields}
+
+
+def dist_matching_1m(n: int = 1_000_000, shards: int = 8) -> dict:
+    """``bench.py::bench_dist_matching``'s configuration on an ``shards``
+    mesh: ``matching_powerlaw_graph_sharded(n, shards, gamma=2.5,
+    fanout=1, key(0), export_csr=False)``, push_pull, 16 slots, origins
+    ``arange(16)`` on slots ``arange(16)``, to 0.99 coverage (at most 300
+    rounds). The dense run's digest, rounds and ICI totals; the sparse
+    transport replayed over those rounds with the counter (digests and
+    totals); the auto transport's static gate and totals."""
     import jax
 
-    from tpu_gossip.core.device_topology import device_powerlaw_graph
-    from tpu_gossip.core.state import SwarmConfig
-    from tpu_gossip.dist import init_sharded_swarm, make_mesh, partition_graph, shard_swarm, simulate_dist
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.core.state import SwarmConfig, clone_state, init_swarm
+    from tpu_gossip.dist import (build_transport, make_mesh, run_until_coverage_dist, shard_matching_plan,
+                                 shard_swarm, simulate_dist)
+    from tpu_gossip.fleet.engine import state_digest
+
+    g, plan = matching_powerlaw_graph_sharded(n, shards, gamma=2.5, fanout=1, key=jax.random.key(0),
+                                              export_csr=False)
+    mesh = make_mesh(shards)
+    plan_m = shard_matching_plan(plan, mesh)
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=16, fanout=1, mode="push_pull")
+    st = shard_swarm(init_swarm(g.as_padded_graph(), cfg, origins=np.arange(16), origin_slots=np.arange(16),
+                                exists=g.exists, key=jax.random.key(0)), mesh)
+    fin, tot = run_until_coverage_dist(clone_state(st), cfg, plan_m, mesh, 0.99, 300, collect_ici=True)
+    rounds = int(fin.round)
+    out = {"rows": plan.rows, "per_rows": plan.per_rows, "n_state": plan.n,
+           "dense": {"state_digest": state_digest(fin), "rounds": rounds, "ici": _ici_words(tot),
+                     "coverage": float(fin.coverage(0))}}
+    sparse = build_transport(plan_m, mode="sparse", mesh=mesh)
+    sfin, (stats, ici) = simulate_dist(clone_state(st), cfg, plan_m, mesh, rounds, None, None, None, sparse, True)
+    out["sparse"] = {**_digests(sfin, stats), "ici": _ici_words(ici), "stage_mode": list(sparse.stage_mode),
+                     "budget": sparse.budget}
+    auto = build_transport(plan_m, mode="auto", mesh=mesh)
+    afin, atot = run_until_coverage_dist(clone_state(st), cfg, plan_m, mesh, 0.99, 300, transport=auto,
+                                         collect_ici=True)
+    out["auto"] = {"active": bool(auto.active), "state_digest": state_digest(afin), "ici": _ici_words(atot)}
+    return out
+
+
+def matching_pipeline_1m(n: int = 1_000_000, shards: int = 1, rounds: int = 24, pipeline=1) -> dict:
+    """``bench.py::bench_pipeline``'s configuration: the sharded matching
+    mesh (``matching_powerlaw_graph_sharded(n, shards, gamma=2.5,
+    fanout=1, key(0), export_csr=False)``), push_pull, 16 slots, origins
+    ``arange(16)`` on slots ``arange(16)``, a ``rounds``-round horizon at
+    ``pipeline`` (None: serial); the digests, rounds to 99% and final
+    coverage."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+    from tpu_gossip.dist import make_mesh, shard_matching_plan, shard_swarm, simulate_dist
     from tpu_gossip.sim import metrics as M
     from tpu_gossip.sim.stages import compile_pipeline
 
-    graph = device_powerlaw_graph(n, gamma=2.5, key=jax.random.key(0)).to_host_graph()
-    mesh = make_mesh(1)
-    sg, rel, pos = partition_graph(graph, 1, seed=0)
-    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=16, fanout=1, mode="push_pull")
-    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
-    st = shard_swarm(init_sharded_swarm(sg, rel, pos, cfg, key=jax.random.key(0), origins=origins), mesh)
-    fin, stats = simulate_dist(st, cfg, sg, mesh, rounds, pipeline=compile_pipeline(1))
+    g, plan = matching_powerlaw_graph_sharded(n, shards, gamma=2.5, fanout=1, key=jax.random.key(0),
+                                              export_csr=False)
+    mesh = make_mesh(shards)
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=16, fanout=1, mode="push_pull")
+    st = shard_swarm(init_swarm(g.as_padded_graph(), cfg, origins=np.arange(16), origin_slots=np.arange(16),
+                                exists=g.exists, key=jax.random.key(0)), mesh)
+    fin, stats = simulate_dist(st, cfg, shard_matching_plan(plan, mesh), mesh, rounds,
+                               pipeline=None if pipeline is None else compile_pipeline(pipeline))
     return {**_digests(fin, stats), "rounds_to_target": M.rounds_to_coverage(stats, 0.99),
             "final_coverage": float(np.asarray(stats.coverage)[-1])}
+
+
+SIEGE_SMALL = {
+    "name": "siege-small",
+    "phases": [{"name": "adv", "start": 0, "end": 6, "accusers": {"frac": 0.06, "seed": 3},
+                "forgers": {"frac": 0.04, "seed": 4}, "floods": {"frac": 0.05, "seed": 5},
+                "blackout": {"frac": 0.1, "seed": 2}}],
+}
+
+
+def matching_mesh_run(n: int, shards: int, mode: str = "push_pull", rounds: int = 8, transport: str = "dense",
+                      packed: bool = False, plane: str = "", pipeline=None, builder: str = "local",
+                      ici: bool = False) -> dict:
+    """A run of the sharded matching mesh at ``shards`` shards over
+    ``matching_powerlaw_graph_sharded(n, shards, fanout=2, key(1))``
+    (``growth_rows`` 16 under the growth plane, ``block_keys`` with
+    ``builder="dist"``, which builds it with ``matching_powerlaw_graph_dist``),
+    8 slots, origins 0 and 5 mapped to rows, the state key 3, ``rounds``
+    rounds through ``simulate_dist`` under ``transport`` (dense: None) and
+    at most one ``plane``: churn, scenario (the pipelined-round chaos
+    scenario), quorum (a short siege at quorum 3), growth, stream or
+    control; the digests and, with ``ici``, the counters' totals."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.core.packed import pack_state, unpack_state
+    from tpu_gossip.core.state import SwarmConfig, init_swarm, shard_ranges
+    from tpu_gossip.dist import (build_transport, make_mesh, matching_powerlaw_graph_dist, shard_matching_plan,
+                                 shard_swarm, simulate_dist)
+    from tpu_gossip.sim.stages import compile_pipeline
+
+    mesh = make_mesh(shards)
+    fanout = None if mode == "flood" else 2
+    grow_rows = 16 if plane == "growth" else 0
+    if builder == "dist":
+        g, plan = matching_powerlaw_graph_dist(n, mesh, fanout=fanout, key=jax.random.key(1), growth_rows=grow_rows)
+    else:
+        g, plan = matching_powerlaw_graph_sharded(n, shards, fanout=fanout, key=jax.random.key(1),
+                                                  growth_rows=grow_rows)
+    plan = shard_matching_plan(plan, mesh)
+    churn = dict(churn_leave_prob=0.02, churn_join_prob=0.2, rewire_slots=2) if plane == "churn" else {}
+    if plane == "growth":
+        churn = dict(rewire_slots=2)  # growth edges ride the re-wiring plane
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=8, fanout=2, mode=mode, **churn)
+
+    def to_rows(ids):
+        ids = np.asarray(ids)
+        return (ids // plan.n_per) * plan.n_blk + (ids % plan.n_per)
+
+    st = shard_swarm(init_swarm(g.as_padded_graph(), cfg, origins=to_rows([0, 5]), exists=g.exists,
+                                key=jax.random.key(3)), mesh)
+    kw = {}
+    if plane in ("scenario", "quorum"):
+        from tpu_gossip.faults import compile_scenario, scenario_from_dict
+
+        kw["scenario"] = compile_scenario(scenario_from_dict(CHAOS if plane == "scenario" else SIEGE_SMALL),
+                                          n_peers=plan.n_per * shards, n_slots=plan.n, total_rounds=rounds,
+                                          node_map=to_rows, shard_ranges=shard_ranges(shards, plan.n_blk),
+                                          n_shards=shards)
+    if plane == "quorum":
+        from tpu_gossip.kernels.liveness import compile_quorum
+
+        kw["liveness"] = compile_quorum(3, 4, 2)
+    if plane == "growth":
+        from tpu_gossip.growth import compile_growth, matching_admit_rows
+
+        joins = 8 * shards
+        kw["growth"] = compile_growth(n_initial=plan.n_per * shards, target=plan.n_per * shards + joins,
+                                      n_slots=plan.n, joins_per_round=4, attach_m=2,
+                                      admit_rows=matching_admit_rows(plan, joins))
+    if plane == "stream":
+        from tpu_gossip.traffic import compile_stream
+
+        kw["stream"] = compile_stream(rate=1.5, msg_slots=8, ttl=6, origin_rows=to_rows(np.arange(plan.n_per * shards)),
+                                      k_hashes=1)
+    if plane == "control":
+        from tpu_gossip.control import compile_control
+
+        kw["control"] = compile_control(target_ratio=0.9, fanout=2, lo=1, hi=4)
+    if pipeline is not None:
+        kw["pipeline"] = compile_pipeline(pipeline)
+    tr = None if transport == "dense" else build_transport(plan, mode=transport, mesh=mesh)
+    if tr is not None:
+        kw["transport"] = tr
+    out = simulate_dist(pack_state(st) if packed else st, cfg, plan, mesh, rounds, collect_ici=ici, **kw)
+    fin, stats = out if not ici else (out[0], out[1][0])
+    res = _digests(unpack_state(fin) if packed else fin, stats)
+    if ici:
+        res["ici"] = _ici_words(out[1][1])
+    return res
+
+
+def mesh_transport_tables(n: int, shards: int, mode: str = "sparse", hub_rows_frac: float = 1 / 32) -> dict:
+    """``build_transport`` of ``matching_powerlaw_graph_sharded(n, shards,
+    fanout=2, key(1))``'s plan, computed without a mesh: the static fields,
+    the leaf slots' count and each hub table."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.dist import build_transport
+
+    _, plan = matching_powerlaw_graph_sharded(n, shards, fanout=2, key=jax.random.key(1))
+    tr = build_transport(plan, mode=mode, hub_rows_frac=hub_rows_frac)
+    return {"active": tr.active, "budget": tr.budget, "stage_mode": list(tr.stage_mode),
+            "hub_degree_min": tr.hub_degree_min, "leaf": int(np.asarray(tr.leaf_slots).sum()),
+            "hub_tables": [np.asarray(t).tolist() for t in tr.hub_tables]}
+
+
+def _leaf(a):
+    """A JAX leaf (or a tuple of them) as ``{"dtype", "data"}`` JSON."""
+    if isinstance(a, tuple):
+        return [_leaf(x) for x in a]
+    a = np.asarray(a)
+    return {"dtype": str(a.dtype), "data": a.tolist()}
+
+
+def leaf_digest(a) -> str:
+    """sha256 of one leaf's dtype name and bytes (a tuple: of each)."""
+    import hashlib
+
+    if isinstance(a, (tuple, list)):
+        return hashlib.sha256("".join(leaf_digest(x) for x in a).encode()).hexdigest()
+    a = np.ascontiguousarray(np.asarray(a))
+    return hashlib.sha256(str(a.dtype).encode() + a.tobytes()).hexdigest()
+
+
+def sharded_plan_digests(n: int, shards: int, fanout: int, key: int, block_keys: bool = False,
+                         export_csr: bool = True, growth_rows: int = 0) -> dict:
+    """:func:`sharded_plan_leaves` as a digest a leaf (:func:`leaf_digest`)."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+
+    g, plan = matching_powerlaw_graph_sharded(n, shards, fanout=fanout, key=jax.random.key(key),
+                                              block_keys=block_keys, export_csr=export_csr, growth_rows=growth_rows)
+    return {**{k: leaf_digest(getattr(plan, k)) for k in ("lanes", "m3", "lanes_inv", "valid", "deg_other",
+                                                          "deg_real")},
+            **{k: leaf_digest(getattr(g, k)) for k in ("row_ptr", "col_idx", "exists")}}
+
+
+def sharded_plan_leaves(n: int, shards: int, fanout: int, key: int, block_keys: bool = False,
+                        export_csr: bool = True, growth_rows: int = 0) -> dict:
+    """``matching_powerlaw_graph_sharded``'s plan leaves, static fields and
+    graph arrays (no mesh)."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+
+    g, plan = matching_powerlaw_graph_sharded(n, shards, fanout=fanout, key=jax.random.key(key),
+                                              block_keys=block_keys, export_csr=export_csr, growth_rows=growth_rows)
+    names = ("lanes", "m3", "lanes_inv", "valid", "deg_other", "deg_real")
+    static = {k: getattr(plan, k) for k in ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk",
+                                           "per_rows", "local_classes")}
+    return {"plan": {k: _leaf(getattr(plan, k)) for k in names}, "static": static,
+            "graph": {k: _leaf(getattr(g, k)) for k in ("row_ptr", "col_idx", "exists")}}
+
+
+def transport_tables(n: int, shards: int, mode: str, hub_rows_frac: float) -> dict:
+    """``build_transport`` of ``matching_powerlaw_graph_sharded(n, shards,
+    fanout=2, key(1))``'s plan (no mesh): every field and table."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.dist import build_transport
+
+    _, plan = matching_powerlaw_graph_sharded(n, shards, fanout=2, key=jax.random.key(1))
+    tr = build_transport(plan, mode=mode, hub_rows_frac=hub_rows_frac)
+    out = {f: getattr(tr, f) for f in ("engine", "mode", "active", "budget", "hub_degree_min", "n_shards",
+                                       "fingerprint")}
+    out["stage_mode"] = list(tr.stage_mode)
+    out["leaf_slots"] = leaf_digest(tr.leaf_slots)
+    out["hub_tables"] = [np.asarray(t).tolist() for t in tr.hub_tables]
+    return out
+
+
+def ici_counter_cases(n: int, shards: int, m: int) -> dict:
+    """JAX's ``ici_round_matching`` (dense and sparse, with and without an
+    answer plane, three densities) on ``matching_powerlaw_graph_sharded(n,
+    shards, fanout=2, key(1))``'s plan and ``ici_round_bucketed`` (merged and
+    split, dense and sparse, two densities) on :func:`bucketed_setup`'s
+    partition, the planes drawn from ``default_rng(shards + m)`` in the
+    order ``tests/test_torch_mesh.py`` draws them; and the plan's dense wire
+    declarations."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.dist import build_transport
+    from tpu_gossip.dist import matching_mesh as jmm
+    from tpu_gossip.dist import transport as jt
+
+    def words(ici):
+        return {f: int(np.asarray(getattr(ici, f))) for f in ici._fields}
+
+    _, plan = matching_powerlaw_graph_sharded(n, shards, fanout=2, key=jax.random.key(1))
+    rng = np.random.default_rng(shards + m)
+    tr = build_transport(plan, "sparse")
+    matching = jax.jit(jt.ici_round_matching, static_argnums=(2,))
+    out = {"matching": [], "bucketed": []}
+    for density in (0.0005, 0.01, 0.5):
+        tx = rng.random((plan.n, m)) < density
+        ans = rng.random((plan.n, m)) < density
+        for trans in (None, tr):
+            for a in (None, ans):
+                out["matching"].append(words(matching(plan, trans, m, jnp.asarray(tx),
+                                                      None if a is None else jnp.asarray(a))))
+    sg = bucketed_setup(600, 3, 0, shards)[0]
+    btr = build_transport(sg, "sparse")
+    for density in (0.002, 0.3):
+        tx_any, ans_any = rng.random(sg.n_pad) < density, rng.random(sg.n_pad) < density
+        for merged, a in ((True, None), (False, ans_any)):
+            for trans in (None, btr):
+                out["bucketed"].append(words(jt.ici_round_bucketed(sg, trans, 2, jnp.asarray(tx_any),
+                                                                   None if a is None else jnp.asarray(a), merged)))
+    out["wire"] = [jmm.dense_wire_words(plan, 16, mode, fo, bp) for mode in ("push", "push_pull", "flood")
+                   for fo in (False, True) for bp in (False, True)]
+    return out
+
+
+def ici_totals_fold(rounds: list) -> dict:
+    """``IciTotals.words()`` of ``accumulate_ici`` folding ``rounds`` (each
+    an ``IciRound``'s seven int32 values) into ``zero_ici_totals()``."""
+    import jax.numpy as jnp
+
+    from tpu_gossip.dist import transport as jt
+
+    tot = jt.zero_ici_totals()
+    for r in rounds:
+        tot = jt.accumulate_ici(tot, jt.IciRound(*(jnp.int32(v) for v in r)))
+    return tot.words()
+
+
+def cli_mesh(shards: int, *argv: str) -> dict:
+    """The JAX CLI's summary line for ``argv`` on a ``shards``-device mesh
+    (``make_mesh`` pinned to that many of the forced host devices), timing
+    fields left out; a refused run's exit code and last stderr line."""
+    import contextlib
+    import io
+
+    from tpu_gossip import dist
+    from tpu_gossip.cli import run_sim
+
+    make_mesh = dist.make_mesh
+    dist.make_mesh = lambda *a, **k: make_mesh(int(shards))
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = run_sim.main(list(argv))
+    finally:
+        dist.make_mesh = make_mesh
+    if rc != 0:
+        return {"exit": rc, "stderr": err.getvalue().strip().splitlines()[-1]}
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    for k in ("wall_seconds", "swarm_rounds_per_sec", "peers_rounds_per_sec", "ms_per_round",
+              "ms_per_round_amortized", "epoch_rebuild_seconds_total"):
+        summary.pop(k, None)
+    return summary
+
+
+def cli_mesh_runs(shards: int, argvs: list) -> list:
+    """:func:`cli_mesh` on each of ``argvs`` in turn, in this process."""
+    return [cli_mesh(shards, *argv) for argv in argvs]
+
+
+def cli_mesh_pin(shards: int, *argv: str) -> dict:
+    """A pin entry of ``reference_pins.json``: the JAX CLI's command line on
+    a ``shards``-device mesh and its summary, timing fields left out."""
+    return {"source": f"python -m tpu_gossip.cli.run_sim {' '.join(argv)} (JAX package, CPU, a {shards}-device "
+                      "mesh of forced host devices)", "shards": int(shards), "argv": list(argv),
+            "summary": cli_mesh(shards, *argv)}
+
+
+MESH_CARD_BASE = ["--peers", "20000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1"]
+MESH_CARD_RUNS = [
+    ["--rounds", "24"],
+    ["--rounds", "24", "--transport", "sparse"],
+    ["--rounds", "24", "--transport", "auto", "--packed"],
+    ["--rounds", "24", "--builder", "dist"],
+    ["--rounds", "24", "--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2"],
+    ["--rounds", "32", "--scenario", "scenarios/split_brain.toml"],
+    ["--rounds", "56", "--scenario", "scenarios/byzantine_siege.toml", "--quorum-k", "3"],
+    ["--rounds", "20", "--grow", "22000", "--grow-rate", "100"],
+    ["--rounds", "40", "--stream", "2", "--slot-ttl", "20"],
+    ["--rounds", "24", "--control", "0.99"],
+    ["--rounds", "24", "--pipeline", "1"],
+]
+
+
+def mesh_card_pins(shards: int = 8) -> list:
+    """The n=20000 sharded matching pins ``chip_smoke.py`` phase 14 runs on
+    the card: :data:`MESH_CARD_RUNS` on a ``shards``-device mesh."""
+    return [cli_mesh_pin(shards, *MESH_CARD_BASE, *run, "--digest", "--quiet") for run in MESH_CARD_RUNS]
+
+
+def seeded_matching_run(n: int, seed: int, rounds: int) -> dict:
+    """``tests/test_torch_slice.py``'s headline swarm built by the JAX
+    package (push_pull fanout 1, 16 slots, one origin drawn by
+    ``default_rng(seed)``): its state and plan leaves and static fields as
+    lists, its digest, and the digest and key of ``rounds`` rounds on."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+    from tpu_gossip.fleet.engine import state_digest
+    from tpu_gossip.sim.engine import simulate
+
+    cfg = SwarmConfig(n_peers=n + 1, msg_slots=16, mode="push_pull", fanout=1)
+    g, plan = matching_powerlaw_graph(n, fanout=1, key=jax.random.key(seed))
+    st = init_swarm(g.as_padded_graph(), cfg, key=jax.random.key(seed),
+                    origins=np.random.default_rng(seed).choice(n, size=1, replace=False), exists=g.exists)
+    def leaf(a):
+        return [leaf(x) for x in a] if isinstance(a, tuple) else {"dtype": str(np.asarray(a).dtype),
+                                                                   "data": np.asarray(a).tolist()}
+
+    state = {f.name: leaf(jax.random.key_data(st.rng) if f.name == "rng" else getattr(st, f.name))
+             for f in dataclasses.fields(st)}
+    digest = state_digest(st)
+    fin, _ = simulate(st, cfg, rounds, plan)  # (donates st)
+    names = ("lanes", "m3", "lanes_inv", "valid", "deg_other", "deg_real")
+    static = {k: getattr(plan, k) for k in ("n", "rows", "classes", "fanout", "mesh_shards", "n_per", "n_blk",
+                                           "per_rows", "local_classes")}
+    return {"state": state, "plan": {k: leaf(getattr(plan, k)) for k in names}, "static": static,
+            "state_digest": digest, "final_digest": state_digest(fin),
+            "final_rng": np.asarray(jax.random.key_data(fin.rng)).tolist()}
 
 
 def campaign_run(campaign: dict, lanes: list | None = None, root: str | None = None) -> dict:
@@ -408,6 +795,75 @@ def cli_exits(argvs: list) -> list:
     return out
 
 
+def cli_with_stderr(argv: list) -> dict:
+    """The JAX CLI on ``argv`` in this process: its exit code, summary line
+    and stderr."""
+    import contextlib
+    import io
+
+    from tpu_gossip.cli import run_sim
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = run_sim.main(list(argv))
+    lines = out.getvalue().strip().splitlines()
+    return {"rc": rc, "summary": json.loads(lines[-1]) if rc == 0 else None, "stderr": err.getvalue()}
+
+
+def cli_profile_shape(*argv: str) -> dict:
+    """The timing-free shape of the JAX CLI's ``--profile-round`` output:
+    the summary's keys and fields, its stage names in order, and the stage
+    table's row count on stderr."""
+    run = cli_with_stderr(list(argv))
+    summary = run["summary"]
+    return {"keys": list(summary), "stages": list(summary["stages_ms"]),
+            "fields": {k: summary[k] for k in ("summary", "profile_round", "mode", "n_peers", "warm_rounds")},
+            "table_rows": run["stderr"].count("\n| ")}
+
+
+def profile_stage_keys(n: int, runs: list) -> list:
+    """``utils.profiling.profile_round_stages``'s stage names, in order, on
+    ``tests/test_torch_profiling.py``'s matching swarm of ``n`` peers, for
+    each ``(tails, transport_probe)`` of ``runs``."""
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+    from tpu_gossip.utils.profiling import profile_round_stages
+
+    g, plan = matching_powerlaw_graph(n, gamma=2.5, fanout=1, key=jax.random.key(0))
+    cfg = SwarmConfig(n_peers=n + 1, msg_slots=16, mode="push_pull", fanout=1)
+    st = init_swarm(g.as_padded_graph(), cfg, key=jax.random.key(0), origins=np.arange(4), exists=g.exists)
+    return [list(profile_round_stages(st, cfg, plan, tails=tuple(tails), transport_probe=None if tp is None
+                                      else tuple(tp), reps=1, loop_lengths=(1, 2)))
+            for tails, tp in runs]
+
+
+def cli_lines(one_shard: bool, *argv: str) -> dict:
+    """The JAX CLI's summary and per-round JSON lines for ``argv`` (its mesh
+    pinned to one device with ``one_shard``), as the port's CLI tests read
+    them."""
+    import contextlib
+    import io
+
+    from tpu_gossip import dist
+    from tpu_gossip.cli import run_sim
+
+    make_mesh = dist.make_mesh
+    if one_shard:
+        dist.make_mesh = lambda *a, **k: make_mesh(1)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_sim.main(list(argv))
+    finally:
+        dist.make_mesh = make_mesh
+    if rc != 0:
+        raise SystemExit(f"JAX CLI exited {rc} on {argv}")
+    lines = out.getvalue().strip().splitlines()
+    return {"summary": json.loads(lines[-1]), "rows": lines[:-1]}
+
+
 def cli(argv: list) -> dict:
     """The JAX CLI's summary line for ``argv``, on one device."""
     import contextlib
@@ -436,6 +892,69 @@ def cli_pin(*argv: str) -> dict:
             "argv": list(argv), "summary": summary}
 
 
+MESH_CLI_BASE = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--quiet", "--seed", "2"]
+MATCHING_SHARD = ["--graph", "matching", "--shard"]
+# the sharded CLI paths the port's CLI tests compare with, on a 2-device mesh
+MESH_CLI = {
+    "dense": [*MESH_CLI_BASE, *MATCHING_SHARD, "--rounds", "8", "--digest"],
+    "sparse": [*MESH_CLI_BASE, *MATCHING_SHARD, "--rounds", "8", "--digest", "--transport", "sparse"],
+    "auto_packed": [*MESH_CLI_BASE, *MATCHING_SHARD, "--rounds", "8", "--digest", "--transport", "auto", "--packed"],
+    "dist_sparse": [*MESH_CLI_BASE, *MATCHING_SHARD, "--rounds", "8", "--digest", "--builder", "dist",
+                    "--transport", "sparse"],
+    "flood": [*MESH_CLI_BASE[:2], "--mode", "flood", *MESH_CLI_BASE[4:], *MATCHING_SHARD, "--rounds", "6",
+              "--digest"],
+    "target_sparse": [*MESH_CLI_BASE, *MATCHING_SHARD, "--transport", "sparse"],
+    "remat_fallback": [*MESH_CLI_BASE, *MATCHING_SHARD, "--churn-leave", "0.01", "--churn-join", "0.1",
+                       "--rewire-slots", "2", "--remat-every", "4", "--rounds", "8", "--digest"],
+    "pa_sparse": [*MESH_CLI_BASE, "--graph", "pa", "--shard", "--rounds", "8", "--digest", "--transport", "sparse"],
+    "chung_lu_staircase_auto": [*MESH_CLI_BASE, "--graph", "chung-lu", "--shard", "--staircase", "--rounds", "8",
+                                "--digest", "--transport", "auto"],
+    "pa_target_sparse": [*MESH_CLI_BASE, "--graph", "pa", "--shard", "--transport", "sparse"],
+    "ckpt12": [*MESH_CLI_BASE, *MATCHING_SHARD, "--rounds", "12", "--digest", "--transport", "sparse"],
+    # the cases that refused the sharded matching engine before it was ported
+    "control_pipeline": ["--peers", "96", "--slots", "4", "--fanout", "2", "--quiet", "--control", "0.9", "--rounds",
+                         "20", "--shard", "--graph", "matching", "--pipeline", "1"],
+    "control": ["--peers", "96", "--slots", "4", "--fanout", "2", "--quiet", "--control", "0.9", "--rounds", "20",
+                "--shard", "--graph", "matching"],
+    "stream_pipeline": ["--peers", "96", "--slots", "4", "--fanout", "2", "--quiet", "--stream", "2", "--rounds", "20",
+                        "--shard", "--graph", "matching", "--pipeline", "1"],
+    "stream": ["--peers", "96", "--slots", "4", "--fanout", "2", "--quiet", "--stream", "2", "--rounds", "20",
+               "--shard", "--graph", "matching"],
+    "grow_target": ["--peers", "64", "--graph", "matching", "--shard", "--grow", "128", "--max-rounds", "40"],
+    "small_target": ["--peers", "100", "--rounds", "2", "--graph", "matching", "--shard"],
+    "small_chung_lu_sparse": ["--peers", "100", "--rounds", "2", "--graph", "chung-lu", "--shard", "--transport",
+                              "sparse"],
+    "matching_target": ["--peers", "100", "--graph", "matching", "--shard", "--max-rounds", "40"],
+    "matching_control_pipeline": ["--peers", "100", "--graph", "matching", "--control", "0.9", "--rounds", "8",
+                                  "--shard", "--pipeline", "1"],
+}
+
+STREAM_M = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", "matching"]
+STREAM_S = ["--stream", "2", "--slot-ttl", "20", "--rounds", "40", "--digest"]
+STREAM_C = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
+# the streamed CLI runs of test_torch_stream_cli.py (local engines) and
+# test_torch_stream_cli_engines.py (each engine, meshes of one shard)
+STREAM_ENGINES = {
+    "matching": STREAM_M + STREAM_S,
+    "matching_hotspot_burst": STREAM_M + ["--stream-origins", "hotspot", "--stream-burst-every", "4"] + STREAM_S,
+    "matching_packed": STREAM_M + ["--packed"] + STREAM_S,
+    "pa_hotspot_packed": ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", "pa", "--m", "3",
+                          "--packed", "--stream-origins", "hotspot"] + STREAM_S,
+}
+STREAM_ENGINES_ONE_SHARD = {
+    "chung_lu_degree_bloom": STREAM_C + ["--graph", "chung-lu", "--stream-origins", "degree", "--stream-hashes",
+                                         "2"] + STREAM_S,
+    "pa_hotspot": STREAM_C + ["--graph", "pa", "--m", "3", "--stream-origins", "hotspot"] + STREAM_S,
+    "staircase_burst": STREAM_C + ["--graph", "chung-lu", "--staircase", "--stream", "4", "--stream-burst-every",
+                                   "3", "--slot-ttl", "20", "--rounds", "40", "--digest"],
+    "staircase_packed": STREAM_C + ["--graph", "chung-lu", "--staircase", "--packed"] + STREAM_S,
+    "shard_k6": STREAM_C + ["--graph", "pa", "--m", "2", "--shard", "--staircase"] + STREAM_S,
+    "shard_packed": STREAM_C + ["--graph", "pa", "--m", "2", "--shard", "--packed"] + STREAM_S,
+    "staircase_remat_churn": STREAM_C + ["--graph", "chung-lu", "--staircase", "--remat-every", "8", "--churn-leave",
+                                         "0.01", "--churn-join", "0.1", "--rewire-slots", "2"] + STREAM_S,
+    "silent": STREAM_C + ["--graph", "chung-lu", "--silent-frac", "0.1"] + STREAM_S,
+}
+
 # the pinned runs, by group: name -> (function, arguments)
 CASES = {
     "pipeline": {
@@ -449,6 +968,42 @@ CASES = {
         "serial_tail": ("local_pipeline_run", [150, 3, 11, 2, [0], "push", 4, 5, 1, 0.0, 6, False, False, 2, None]),
         "expired": ("local_pipeline_run", [200, 3, 13, 6, [0, 1, 2], "push_pull", 4, 14, 1, 1.0, 6]),
     },
+    "mesh": {
+        **{f"s{s}": ("matching_mesh_run", [1200, s, "push_pull", 8, "dense", False, "", None, "local", True])
+           for s in (2, 4, 8)},
+        "s8_push": ("matching_mesh_run", [1200, 8, "push", 8, "dense", False, "", None, "local", True]),
+        "s8_flood": ("matching_mesh_run", [1200, 8, "flood", 8, "dense", False, "", None, "local", True]),
+        "s8_sparse": ("matching_mesh_run", [1200, 8, "push_pull", 8, "sparse", False, "", None, "local", True]),
+        "s4_auto": ("matching_mesh_run", [1200, 4, "push_pull", 8, "auto", False, "", None, "local", True]),
+        "s8_packed_sparse": ("matching_mesh_run", [1200, 8, "push_pull", 8, "sparse", True, "", None, "local", True]),
+        "s8_dist": ("matching_mesh_run", [1200, 8, "push_pull", 8, "dense", False, "", None, "dist", False]),
+        **{f"s4_{plane}": ("matching_mesh_run", [1200, 4, "push_pull", 8, "dense", False, plane, None, "local", False])
+           for plane in ("churn", "scenario", "quorum", "growth", "stream", "control")},
+        "s4_pipeline": ("matching_mesh_run", [1200, 4, "push_pull", 8, "dense", False, "", 1, "local", False]),
+    },
+    "mesh_cli": {name: ("cli_mesh", [2, *argv]) for name, argv in MESH_CLI.items()},
+    # the word tail's two JAX forms on K4's grid (tests/test_torch_tail_words.py)
+    "tail_words": {f"m{m}_fo{int(fo)}_sir{sir}": ("word_tail_digests", [m, fo, sir])
+                   for m in (16, 13, 1, 17) for fo in (False, True) for sir in (0, 4)},
+    # the JAX halves of tests/test_torch_mesh.py (no mesh)
+    "mesh_facts": {
+        "tables_s8_auto": ("transport_tables", [1500, 8, "auto", 1 / 32]),
+        "tables_s2_sparse_frac8": ("transport_tables", [1500, 2, "sparse", 1 / 8]),
+        "ici_s1_m16": ("ici_counter_cases", [1500, 1, 16]),
+        "ici_s8_m12": ("ici_counter_cases", [1500, 8, 12]),
+        "block_keys_s4": ("sharded_plan_digests", [1500, 4, 1, 5, True, False, 7]),
+        "block_keys_s8": ("sharded_plan_digests", [1500, 8, 1, 5, True, True, 3]),
+        "totals": ("ici_totals_fold", [[[v * (i + 1) for v in (2**25 + 3, 5, 7, 1, 2, 0, 0)] for i in range(40)]]),
+    },
+    # the timing-free shapes the profile tests compare (no mesh)
+    "profile": {
+        "stage_keys_500": ("profile_stage_keys", [500, [[["reference", "fused", "pallas"], None],
+                                                        [["reference", "fused"], [8, 1024, 1, 128]]]]),
+        "cli_500": ("cli_profile_shape", ["--peers", "500", "--graph", "matching", "--mode", "push_pull", "--fanout",
+                                          "1", "--profile-round", "2"]),
+    },
+    "stream_cli": {**{name: ("cli_lines", [False, *argv]) for name, argv in STREAM_ENGINES.items()},
+                   **{name: ("cli_lines", [True, *argv]) for name, argv in STREAM_ENGINES_ONE_SHARD.items()}},
     "fleet": {
         "composed": ("campaign_run", [composed_campaign(), [0, 7, 13]]),
         "mix": ("campaign_run", [MIX_CAMPAIGN, [], "scenarios/campaigns"]),

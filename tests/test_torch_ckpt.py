@@ -306,7 +306,7 @@ def test_host_stats_and_concat_keep_jax_dtypes(states):
     assert joined["coverage"].dtype == np.float32 and joined["degree_gamma"].dtype == np.float32
     for k, v in want.items():
         assert joined[k].dtype == v.dtype and np.array_equal(joined[k], v), k
-    assert tstats_digest(_split_host_stats(joined)) == jstats_digest(jengine.RoundStats(**want))
+    assert tstats_digest(_split_host_stats(joined)[0]) == jstats_digest(jengine.RoundStats(**want))
 
 
 def test_run_checkpointed_resume_replays_the_fold(tmp_path, states):

@@ -118,15 +118,15 @@ def jax_dir(tmp_path_factory):
 
 
 @pytest.mark.parametrize("extra,names", [
-    (["--local"], "item 11b"),
+    (["--local"], "restores a --shard --graph matching checkpoint"),
     (["--hosts", "2"], "item 11c"),
     (["--lane", "1", "--solo"], "single-run checkpoint"),
     (["--lane", "0"], "single-run checkpoint"),
 ])
 def test_resume_options_of_later_slices_exit_2(capsys, jax_dir, extra, names):
-    """The options of later slices exit 2 naming their item; the fleet's
-    lane options (ROADMAP item 10) on a run checkpoint exit 2 in JAX's
-    words."""
+    """``--hosts`` (ROADMAP item 11c) exits 2 naming its item; ``--local``
+    on a local run's checkpoint (11b, ported since) and the fleet's lane
+    options (ROADMAP item 10) on a run checkpoint exit 2 in JAX's words."""
     capsys.readouterr()
     assert tcli.main(["resume", str(jax_dir), "--device", "cpu", *extra]) == 2
     err = capsys.readouterr().err

@@ -54,10 +54,14 @@ def test_control_refusals_in_jax_words(capsys, argv):
     (["--rounds", "20", "--transport", "sparse"], "11b"),
     (["--rounds", "20", "--shard", "--graph", "matching"], "11b"),
 ])
-def test_control_with_a_later_slice_exits_2_naming_its_item(capsys, argv, item):
-    assert tcli.main(BASE + ["--control", "0.9", *argv, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+def test_control_with_a_later_slice_exits_2_naming_its_item(capsys, monkeypatch, argv, item):
+    """The controller on the sharded matching mesh (ROADMAP item 11b, ported
+    since) equals the JAX CLI's run on a 2-device mesh, pipelined or not;
+    ``--transport`` without ``--shard`` exits 2 in JAX's words."""
+    from tests.test_torch_mesh_cli import equals_jax_mesh_cli
+
+    got = equals_jax_mesh_cli(capsys, monkeypatch, BASE + ["--control", "0.9", *argv])
+    assert ("control" in got) == ("--shard" in argv) and item == "11b"
 
 
 M = ["--peers", "2000", "--mode", "push_pull"]

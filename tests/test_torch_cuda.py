@@ -549,7 +549,8 @@ def test_stream_segment_with_blocked_runs_equals_scatter_and_plain(dev, s, kind)
     assert torch.equal(k6[0], scatter[0]) and int(k6[1]) == int(scatter[1]) > 0
     assert not bool(k6[0][blocked].any())
     active, acts = dm.activation(sg, keys, kind, 1)
-    received = dm.drop_blocked(dm.all_to_all(dm.send_payload(transmit, sg, active, acts)), sg, blocked)
+    received = dm.drop_blocked(dm.all_to_all(dm.send_payload(dm.payload_words(transmit, sg), active, acts)), sg,
+                               blocked)
     words, _ = dm.bill(received, packed_width(16))
     for d in range(s):
         flat32 = words8_to_words32(words[d]).reshape(s * sg.bucket, -1)[:, 0].contiguous()
@@ -1086,3 +1087,61 @@ def test_fleet_lanes_on_card_equal_cpu(dev, tmp_path):
         digests[device] = [(fleet.state_digest(lane_state(fin, k)), fleet.stats_digest(stats, k))
                            for k in range(camp.k)]
     assert digests["cuda"] == digests["cpu"]
+
+
+@pytest.mark.parametrize("s", [1, 2, 8])
+@pytest.mark.parametrize("transport", ["dense", "sparse", "packed"])
+def test_matching_mesh_on_card_equals_cpu(dev, s, transport):
+    """The sharded matching engine on one card equals its CPU run (the
+    plain kernels) and the card's local round on the same plan; a round
+    launches K1 2K+1 times (lane stages only), K2 and K3 (K4 packed)
+    once."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip_torch.core.packed import pack_state, unpack_state
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim.engine import simulate
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    rounds, out = 6, {}
+    for d in (dev, torch.device("cpu")):
+        g, plan = matching_powerlaw_graph_sharded(20000, s, fanout=1, key=prng.key(2, d), device=d)
+        mesh = dist.make_mesh(s, device=d)
+        cfg = SwarmConfig(n_peers=plan.n, msg_slots=16, fanout=1, mode="push_pull")
+        st = init_swarm(g.as_padded_graph(), cfg, origins=[0, 7], exists=g.exists, key=prng.key(1, d), device=d)
+        pm = dist.shard_matching_plan(plan, mesh)
+        tr = None if transport == "dense" else dist.build_transport(pm, "sparse", mesh=mesh)
+        native.reset_launches()
+        fin, stats = dist.simulate_dist(pack_state(st) if transport == "packed" else st, cfg, pm, mesh, rounds,
+                                        transport=tr)
+        launches, k1 = dict(native.LAUNCHES), dict(native.K1_ENTRIES)
+        fin = unpack_state(fin) if transport == "packed" else fin
+        lfin, lstats = simulate(st, cfg, rounds, plan)
+        out[d.type] = (state_digest(fin), stats_digest(stats), state_digest(lfin), stats_digest(lstats), launches,
+                       k1, sum(1 for st_ in plan.stages if st_[0] == "lane"))
+    assert out["cuda"][:2] == out["cpu"][:2] == out["cuda"][2:4]
+    launches, k1, lanes = out["cuda"][4:]
+    assert launches["lane_shuffle"] == k1["lane_shuffle"] == lanes * rounds  # no fused entry on the mesh
+    assert launches["fold_planes_or"] == rounds
+    assert launches["round_tail" if transport != "packed" else "round_tail_words"] == rounds
+
+
+def test_sparse_transposes_on_card_equal_dense(dev):
+    """The compact lanes of the matching transposes on the card rebuild the
+    dense lanes' blocks (hub rows and leaf rows, sentinels included)."""
+    from tpu_gossip_torch.dist import transport as tt
+    from tpu_gossip_torch.kernels import permute
+
+    g = _gen(dev, 3)
+    s, per, h, cap = 8, 64, 4, 10
+    hub = torch.stack([torch.randperm(per, generator=g, device=dev)[:h] for _ in range(s)]).to(torch.int32)
+    x = torch.zeros((s, per, 128), dtype=torch.int32, device=dev)
+    for i in range(s):
+        rows = torch.randperm(per, generator=g, device=dev)[:cap]
+        x[i, rows, 3] = i + 1
+        x[i, hub[i].long()] = 9
+    assert torch.equal(tt.transpose_pass_sparse(x, s, hub, cap), permute.transpose_pass_sharded(x, s))
+    assert torch.equal(tt.untranspose_pass_sparse(x * 0, s, hub[:, :0], cap), permute.untranspose_pass_sharded(
+        x * 0, s))

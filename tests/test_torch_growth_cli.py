@@ -47,15 +47,19 @@ def test_grow_refusals_exit_2_with_jax_words(capsys, tmp_path, one_shard, name):
 
 
 @pytest.mark.parametrize("argv,says", [
-    (["--graph", "matching", "--shard", "--grow", "128"], "(11b)"),
+    (["--graph", "matching", "--shard", "--grow", "128", "--max-rounds", "40"], "(11b)"),
     (["--graph", "pa", "--grow", "128", "--rounds", "8", "--transport", "sparse"], "(11b)"),
 ])
-def test_grow_flags_of_later_slices_exit_2(capsys, argv, says):
-    """The sharded matching engine and the transports are a later slice:
-    refused with exit 2, naming it (the composed profile rows came with 9f:
-    ``test_torch_pipeline_cli.py``)."""
-    assert tcli.main(["--peers", "64", *argv, "--device", "cpu"]) == 2
-    assert says in capsys.readouterr().err
+def test_grow_flags_of_later_slices_exit_2(capsys, monkeypatch, argv, says):
+    """The sharded matching engine and the transports (ROADMAP item 11b,
+    ported since): a growing run to target on the 2-shard matching mesh
+    equals the JAX CLI's on a 2-device mesh; ``--transport`` without
+    ``--shard`` exits 2 in JAX's words (the composed profile rows came with
+    9f: ``test_torch_pipeline_cli.py``)."""
+    from tests.test_torch_mesh_cli import equals_jax_mesh_cli
+
+    got = equals_jax_mesh_cli(capsys, monkeypatch, ["--peers", "64", *argv])
+    assert ("grow_target" in got) == ("--shard" in argv) and says == "(11b)"
 
 
 def test_grow_summary_keys_equal_jax(capsys):

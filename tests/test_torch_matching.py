@@ -190,13 +190,16 @@ def test_sharded_layout_csr_free_export_equals_jax():
 
 def test_sharded_layout_refusals():
     """JAX's refusals in its words; the distributable derivation and the
-    table ledger raise ``not_ported`` naming the sharded matching slice."""
+    table ledger (ROADMAP item 11b, ported since) equal JAX's: the
+    block-keyed plan's tables and CSR, the ledger at 1M."""
     for kw, words in ((dict(n_shards=3), "must divide 128"), (dict(n_shards=2, growth_rows=-1), "must be >= 0")):
         with pytest.raises(ValueError, match=words):
             jmt.matching_powerlaw_graph_sharded(200, **kw)
         with pytest.raises(ValueError, match=words):
             tmt.matching_powerlaw_graph_sharded(200, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tmt.matching_powerlaw_graph_sharded(200, 2, block_keys=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tmt.plan_table_widths(1_000_000)
+    jg, jp = jmt.matching_powerlaw_graph_sharded(200, 2, block_keys=True)
+    tg, tp = tmt.matching_powerlaw_graph_sharded(200, 2, block_keys=True, device="cpu")
+    for a, b in zip(tp.lanes + (tp.m3, tp.valid, tg.row_ptr, tg.col_idx), jp.lanes + (jp.m3, jp.valid, jg.row_ptr,
+                                                                                        jg.col_idx)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert tmt.plan_table_widths(1_000_000) == jmt.plan_table_widths(1_000_000)

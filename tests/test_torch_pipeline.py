@@ -149,9 +149,10 @@ def test_flood_depth1_closed_form():
 
 
 def test_depth1_matching_run_equals_jax():
-    """The pipelined local matching engine over ``tests/sim/test_pipeline.py``'s
-    eight-shard layout (the JAX test's local half; its mesh half is the
-    sharded matching engine, ROADMAP item 11b)."""
+    """The pipelined matching engine over ``tests/sim/test_pipeline.py``'s
+    eight-shard layout: the local run (the JAX test's local half) equals
+    JAX's, and so does the same run on the 8-shard matching mesh (its mesh
+    half, which JAX holds bit-identical to the local one)."""
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
 
     g, plan = matching_powerlaw_graph_sharded(800, 8, fanout=2, key=prng.key(0, "cpu"), growth_rows=32,
@@ -162,6 +163,10 @@ def test_depth1_matching_run_equals_jax():
     got = {**digests(fin, stats), "pipe_buf_bits": int(fin.pipe_buf.sum())}
     assert got["pipe_buf_bits"] > 0  # the buffer is live
     assert got == pin("matching_6")
+    mesh = tdist.make_mesh(8, device="cpu")
+    fin, stats = tdist.simulate_dist(tdist.shard_swarm(st, mesh), cfg, tdist.shard_matching_plan(plan, mesh), mesh, 6,
+                                     pipeline=compile_pipeline(1))
+    assert {**digests(fin, stats), "pipe_buf_bits": int(fin.pipe_buf.sum())} == got
 
 
 def test_depth1_continuation_is_exact():

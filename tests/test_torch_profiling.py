@@ -5,7 +5,6 @@ and the sparse transport's compaction helpers against
 import json
 import math
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,33 +104,36 @@ def test_compaction_helpers_on_a_2d_payload():
     assert (tt.scatter_compact(idx, vals, 6).numpy() == payload).all()
 
 
-def _swarms(n):
-    from tpu_gossip.core.matching_topology import matching_powerlaw_graph as jgraph
-    from tpu_gossip.core.state import SwarmConfig as JConfig, init_swarm as jinit
+def _port_swarm(n):
+    """The port's matching swarm of ``tests.jax_pins.profile_stage_keys``."""
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
 
-    g, plan = jgraph(n, gamma=2.5, fanout=1, key=jax.random.key(0))
-    jcfg = JConfig(n_peers=n + 1, msg_slots=16, mode="push_pull", fanout=1)
-    jst = jinit(g.as_padded_graph(), jcfg, key=jax.random.key(0), origins=np.arange(4), exists=g.exists)
     tg, tplan = matching_powerlaw_graph(n, gamma=2.5, fanout=1, key=prng.key(0, "cpu"), device="cpu")
     tcfg = SwarmConfig(n_peers=n + 1, msg_slots=16, mode="push_pull", fanout=1)
     tst = init_swarm(tg.as_padded_graph(), tcfg, key=prng.key(0, "cpu"), origins=np.arange(4), exists=tg.exists,
                      device="cpu")
-    return (jst, jcfg, plan), (tst, tcfg, tplan)
+    return tst, tcfg, tplan
 
 
 def test_profile_round_stages_keys_equal_jax():
     """Both tail sets, the second with the compaction probe: JAX's stage
-    names in JAX's order; every value a positive number or NaN."""
-    (jst, jcfg, jplan), (tst, tcfg, tplan) = _swarms(500)
+    names in JAX's order; every value a positive number or NaN. The JAX
+    names are pinned (tests/jax_pins.json, group profile): the JAX
+    profile's in-process compiles are the slowest of the file, and any
+    in-process compile can lose a worker to XLA's CPU compiler under the
+    suite's load."""
+    from tests.jax_pins import CASES, pinned
+
+    tst, tcfg, tplan = _port_swarm(500)
     fast = dict(reps=1, loop_lengths=(1, 2))
-    probe = (8, 1024, 1, 128)
-    for tails, tp in ((("reference", "fused", "pallas"), None), (("reference", "fused"), probe)):
-        want = jprof.profile_round_stages(jst, jcfg, jplan, tails=tails, transport_probe=tp, **fast)
+    n, runs = CASES["profile"]["stage_keys_500"][1]
+    assert n == 500
+    for (tails, tp), want in zip(runs, pinned("profile", "stage_keys_500")):
+        tails, tp = tuple(tails), None if tp is None else tuple(tp)
         got = tprof.profile_round_stages(tst, tcfg, tplan, tails=tails, transport_probe=tp, device="cpu", **fast)
-        assert list(got) == list(want)
+        assert list(got) == want
         assert all(v > 0 or math.isnan(v) for v in got.values())
 
 

@@ -75,9 +75,20 @@ def test_cli_shard_run_to_target_equals_jax(capsys, shards):
     (["--graph", "chung-lu", "--shard", "--tail", "pallas"], "fused tail"),
     (["--graph", "chung-lu", "--transport", "sparse"], "not ported yet"),
 ])
-def test_cli_shard_refusals_exit_2(capsys, argv, says):
-    assert tcli.main(["--peers", "100", "--rounds", "2", *argv, "--device", "cpu"]) == 2
-    assert says in capsys.readouterr().err
+def test_cli_shard_refusals_exit_2(capsys, monkeypatch, argv, says):
+    """``--hosts`` (ROADMAP item 11c) and a non-fused tail exit 2; the
+    sharded matching engine and the transports (11b, ported since) equal
+    the JAX CLI on a 2-device mesh, ``--transport`` without ``--shard``
+    exiting 2 in JAX's words."""
+    full = ["--peers", "100", "--rounds", "2", *argv]
+    if "--hosts" in argv or "--tail" in argv:
+        assert tcli.main(full + ["--device", "cpu"]) == 2
+        assert says in capsys.readouterr().err
+        return
+    from tests.test_torch_mesh_cli import equals_jax_mesh_cli
+
+    got = equals_jax_mesh_cli(capsys, monkeypatch, full)
+    assert ("devices" in got) == ("--shard" in argv) and says == "not ported yet"
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -16,7 +16,8 @@ from tpu_gossip.cli import run_sim as jcli
 from tpu_gossip_torch.cli import run_sim as tcli
 from tests.test_torch_churn_cli import one_shard  # noqa: F401
 from tests.test_torch_cli import _skip_without_jax_native_pa, _summary
-from tests.test_torch_growth_cli_engines import jax_cli
+from tests.jax_pins import CASES, STREAM_ENGINES, STREAM_S, pinned
+from tests.test_torch_growth_cli_engines import jax_cli_child
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 BASE = ["--peers", "96", "--slots", "4", "--fanout", "2", "--quiet"]
@@ -50,10 +51,20 @@ def test_stream_refusals_in_jax_words(capsys, argv):
     (["--rounds", "20", "--transport", "sparse"], "11b"),
     (["--rounds", "20", "--shard", "--graph", "matching"], "11b"),
 ])
-def test_stream_with_a_later_slice_exits_2_naming_its_item(capsys, argv, item):
-    assert tcli.main(BASE + ["--stream", "2", *argv, "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and item in err
+def test_stream_with_a_later_slice_exits_2_naming_its_item(capsys, monkeypatch, argv, item):
+    """``--hosts`` (ROADMAP item 11c) exits 2 naming its item; the stream on
+    the sharded matching mesh (11b, ported since) equals the JAX CLI's run
+    on a 2-device mesh, pipelined or not, and ``--transport`` without
+    ``--shard`` exits 2 in JAX's words."""
+    if item == "11c":
+        assert tcli.main(BASE + ["--stream", "2", *argv, "--device", "cpu"]) == 2
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and item in err
+        return
+    from tests.test_torch_mesh_cli import equals_jax_mesh_cli
+
+    got = equals_jax_mesh_cli(capsys, monkeypatch, BASE + ["--stream", "2", *argv])
+    assert ("stream" in got) == ("--shard" in argv)
 
 
 def test_stream_summary_block_equals_jax(capsys):
@@ -76,15 +87,7 @@ def test_default_ttl_is_three_feasible_horizons_as_jax(capsys):
     assert got["stream"] == want["stream"] and got["stream"]["slot_ttl"] == 3 * 15
 
 
-M = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", "matching"]
-S = ["--stream", "2", "--slot-ttl", "20", "--rounds", "40", "--digest"]
-ENGINES = {
-    "matching": M + S,
-    "matching_hotspot_burst": M + ["--stream-origins", "hotspot", "--stream-burst-every", "4"] + S,
-    "matching_packed": M + ["--packed"] + S,
-    "pa_hotspot_packed": ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", "pa", "--m", "3",
-                          "--packed", "--stream-origins", "hotspot"] + S,
-}
+S, ENGINES = STREAM_S, STREAM_ENGINES
 TIMING = ("wall_seconds", "peers_rounds_per_sec", "ms_per_round", "ms_per_round_amortized",
           "epoch_rebuild_seconds_total", "packed")
 
@@ -93,7 +96,15 @@ def check_engine(capsys, argv, one_shard=False):
     """The port's CLI prints the JAX CLI's summary and rows for ``argv``."""
     if "--graph" not in argv or argv[argv.index("--graph") + 1] == "pa":
         _skip_without_jax_native_pa()
-    want, want_rows = jax_cli(capsys, argv, one_shard=one_shard)
+    # the JAX half pinned in tests/jax_pins.json (group stream_cli), or in a
+    # child process for an unpinned argv: its in-process compile has lost a
+    # test worker to XLA's CPU compiler under the suite's load
+    names = [k for k, (_, args) in CASES["stream_cli"].items() if args == [one_shard, *argv]]
+    if names:
+        pin = pinned("stream_cli", names[0])
+        want, want_rows = pin["summary"], pin["rows"]
+    else:
+        want, want_rows = jax_cli_child(argv, one_shard=one_shard)
     got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
     assert {k: v for k, v in got.items() if k not in TIMING} == {k: v for k, v in want.items() if k not in TIMING}
     got_rows, want_rows = [json.loads(r) for r in got_rows], [json.loads(r) for r in want_rows]

@@ -10,23 +10,12 @@ per-round row equal. The scenario runs are
 
 import pytest
 
+from tests.jax_pins import STREAM_ENGINES_ONE_SHARD
 from tests.test_torch_churn_cli import one_shard  # noqa: F401
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
-from tests.test_torch_stream_cli import S, check_engine
+from tests.test_torch_stream_cli import check_engine
 
-C = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
-ENGINES = {
-    "chung_lu_degree_bloom": C + ["--graph", "chung-lu", "--stream-origins", "degree", "--stream-hashes", "2"] + S,
-    "pa_hotspot": C + ["--graph", "pa", "--m", "3", "--stream-origins", "hotspot"] + S,
-    "staircase_burst": C + ["--graph", "chung-lu", "--staircase", "--stream", "4", "--stream-burst-every", "3",
-                            "--slot-ttl", "20", "--rounds", "40", "--digest"],
-    "staircase_packed": C + ["--graph", "chung-lu", "--staircase", "--packed"] + S,
-    "shard_k6": C + ["--graph", "pa", "--m", "2", "--shard", "--staircase"] + S,
-    "shard_packed": C + ["--graph", "pa", "--m", "2", "--shard", "--packed"] + S,
-    "staircase_remat_churn": C + ["--graph", "chung-lu", "--staircase", "--remat-every", "8", "--churn-leave", "0.01",
-                                  "--churn-join", "0.1", "--rewire-slots", "2"] + S,
-    "silent": C + ["--graph", "chung-lu", "--silent-frac", "0.1"] + S,
-}
+ENGINES = STREAM_ENGINES_ONE_SHARD  # (their JAX results pinned in tests/jax_pins.json, group stream_cli)
 
 
 @pytest.mark.parametrize("name", list(ENGINES))

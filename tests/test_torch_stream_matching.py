@@ -3,9 +3,8 @@
 loaded run on the S=8 matching layout with growth rows, in push-pull and
 flood with the hotspot law, under the chaos scenario and while a flash
 crowd joins, equal to JAX's local run of the same cell (the JAX run in a
-child process, :func:`jax_matching_stream`). The sharded half (the
-matching mesh) waits for the sharded matching engine (ROADMAP item
-11b)."""
+child process, :func:`jax_matching_stream`), and its sharded half: the
+same run on the 8-shard matching mesh equals the local one."""
 
 import jax
 import numpy as np
@@ -84,8 +83,8 @@ def test_matching_stream_on_the_sharded_layout_equals_jax_local(mode, law, compo
     matching layout with 32 growth rows a block, under the chaos scenario
     or a flash crowd, equal to JAX's local run, the load biting. The JAX
     half runs in a child process, as a test worker's XLA CPU compiler has
-    died under the suite's load on it. The sharded half (the matching
-    mesh) waits for the sharded matching engine (ROADMAP item 11b)."""
+    died under the suite's load on it. The sharded half: the same run on
+    the 8-shard matching mesh equals the local one."""
     from tpu_gossip_torch import faults as tf
     from tpu_gossip_torch import growth as tg
     from tpu_gossip_torch import traffic as tt
@@ -116,3 +115,9 @@ def test_matching_stream_on_the_sharded_layout_equals_jax_local(mode, law, compo
         assert int(tst.msgs_dropped.sum()) > 0
     if compose == "growth":
         assert int(tst.n_members[-1]) == 900
+    from tpu_gossip_torch import dist as tdist
+
+    mesh = tdist.make_mesh(8, device="cpu")
+    mfin, mst = tdist.simulate_dist(tdist.shard_swarm(ts, mesh), TConfig(**kw), tdist.shard_matching_plan(tplan, mesh),
+                                    mesh, 10, scenario=tsc, growth=tgp, stream=tstrm)
+    assert t_state_digest(mfin) == want["state"] and t_stats_digest(mst) == want["stats"]

@@ -54,7 +54,9 @@ def host_stats(stats, ici=None) -> dict:
     out = {f: getattr(stats, f).detach().cpu().numpy() for f in stats._fields}
     if ici is not None:
         for f in ici._fields:
-            out[f"ici__{f}"] = np.asarray(getattr(ici, f))
+            v = getattr(ici, f)
+            v = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+            out[f"ici__{f}"] = v.astype(np.int32)  # the JAX package's int32 counters
     return out
 
 

@@ -121,17 +121,16 @@ _LATER = (
     "this flag is not ported yet; the port runs the local engine over the "
     "matching, preferential-attachment and Chung-Lu graphs, packed or not, "
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
-    "included, with checkpoints and resume, silent peers, fault scenarios, the quorum detector with "
-    "its adversaries, growth, streams, adaptive control, pipelined rounds and fleet campaigns (later "
-    "slices add the sharded matching engine and the transports (11b), the multi-card exchange (11c) and "
-    "serving (12))"
+    "included, and the sharded matching engine with the dense, sparse and auto transports, with "
+    "checkpoints and resume, silent peers, fault scenarios, the quorum detector with its adversaries, "
+    "growth, streams, adaptive control, pipelined rounds and fleet campaigns (later slices add the "
+    "multi-card exchange with --hosts and the hier transport (11c) and serving (12))"
 )
-_ITEM11B, _ITEM11C = "sharded matching engine (ROADMAP item 11b)", "multi-process (ROADMAP item 11c)"
+_ITEM11C = "multi-process (ROADMAP item 11c)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
 JAX_FLAG_DEFAULTS = {
-    "transport": ("dense", _ITEM11B), "builder": ("local", _ITEM11B),
     "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
     "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
 }
@@ -186,8 +185,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="carry the swarm as packed state planes (uint8 bit words, one flags "
                    "byte); the round computes on the words, bit-identical to the unpacked run")
     p.add_argument("--shard", action="store_true",
-                   help="run the bucketed sharded engine over a mesh of one shard per card "
-                   "(dist/mesh.py); with --staircase each shard's receive runs K6")
+                   help="run the sharded engine over a mesh of one shard per card: the bucketed engine "
+                   "(dist/mesh.py) over a CSR graph, with --staircase each shard's receive through K6; the "
+                   "sharded matching engine (dist/matching_mesh.py) with --graph matching")
+    p.add_argument("--transport", choices=["dense", "sparse", "auto", "hier"], default="dense",
+                   help="sharded-exchange transport (dist/transport.py): dense ships the rectangular exchange; "
+                   "sparse gates each exchange on an occupancy header and ships the occupied entries (bucketed) "
+                   "or leaf rows (matching, hubs on a dense sub-lane) compacted; auto is sparse only where the "
+                   "static geometry predicts a byte win; hier needs a host axis (ROADMAP item 11c). Bit-identical "
+                   "to dense in every mode. Requires --shard; the summary gains the realized occupancy and bytes")
+    p.add_argument("--builder", choices=["local", "dist"], default="local",
+                   help="the sharded matching layout's builder: local (matching_powerlaw_graph_sharded) or dist "
+                   "(dist/builder.py: each shard derives its own blocks, bit-identical to the block-keyed local "
+                   "build). dist needs --shard --graph matching")
     p.add_argument("--profile-round", type=int, default=0, metavar="R",
                    help="instead of the normal run: advance R warm rounds, then slope-time the round's "
                    "stage decomposition (delivery, tail per implementation, liveness, stats, rng, the "
@@ -328,6 +338,11 @@ def validate(args: argparse.Namespace) -> str | None:
     ``grow_capacity``, ``slot_ttl``, the control bounds, the detector's
     window and budget) into ``args``."""
     spec = None
+    if args.transport == "hier":
+        from tpu_gossip_torch.sim.stages import not_ported
+
+        return str(not_ported("--transport hier (the two-level ICI/DCN transport of a (hosts, devices) mesh)",
+                              _ITEM11C))
     err = _scenario_refusal(args)
     if err is None and args.scenario:
         spec = _scenario_spec(args)
@@ -343,9 +358,18 @@ def _refusal(args: argparse.Namespace) -> str | None:
     if args.packed and args.remat_every > 0:
         return ("--packed cannot compose with --remat-every: the epoch fold (rematerialize_rewired / "
                 "re-partition) rebuilds the unpacked CSR between segments; run the remat loop unpacked")
+    if args.builder == "dist" and not (args.shard and args.graph == "matching"):
+        return ("--builder dist builds the matching layout born on the mesh (dist/builder.py); it needs --shard "
+                "--graph matching")
+    if args.builder == "dist" and args.remat_every > 0:
+        return ("--builder dist cannot compose with --remat-every: the remat path falls back to the bucketed-CSR "
+                "engine, which rebuilds from a host partition")
     if args.pipeline is not None and not args.shard:
         return ("--pipeline overlaps the SHARDED exchange with the shard-local tail (sim/stages.py); add --shard "
                 "(the local engine has no collective to overlap)")
+    if args.transport != "dense" and not args.shard:
+        return (f"--transport {args.transport} compacts the sharded exchanges (dist/transport.py); add --shard "
+                "(the local engine moves no ICI bytes)")
     if args.graph == "matching" and args.remat_every > 0 and not args.shard:
         return ("--graph matching cannot re-materialize locally (its pairing IS the delivery plan: a folded CSR "
                 "has no pipeline); use --shard, whose remat path falls back to the bucketed-CSR engine on the "
@@ -780,14 +804,14 @@ def _main_resume(argv: list[str]) -> int:
         print("resume: --lane/--solo select a fleet checkpoint's lane; this is a single-run checkpoint",
               file=sys.stderr)
         return 2
-    refused = None
-    if rargs.local:
-        refused = not_ported("run_sim resume --local (a sharded matching checkpoint into the local engine)",
-                             _ITEM11B)
-    elif rargs.hosts >= 1:
-        refused = not_ported("run_sim resume --hosts (a sharded checkpoint re-folded over hosts)", _ITEM11C)
-    if refused is not None:
-        print(str(refused), file=sys.stderr)
+    if rargs.hosts >= 1:
+        print(str(not_ported("run_sim resume --hosts (a sharded checkpoint re-folded over hosts)", _ITEM11C)),
+              file=sys.stderr)
+        return 2
+    if rargs.local and not (run_cfg.get("shard") and run_cfg.get("graph") == "matching"
+                            and not run_cfg.get("remat_every")):
+        print("resume: --local restores a --shard --graph matching checkpoint (no --remat-every) into the local "
+              "engine", file=sys.stderr)
         return 2
     base = vars(build_parser().parse_args([]))
     stale = []
@@ -805,6 +829,7 @@ def _main_resume(argv: list[str]) -> int:
         stale.append(key)
     args = argparse.Namespace(**{**base, **{k: v for k, v in run_cfg.items() if k in base}})
     args.device = rargs.device
+    args._resume_local = rargs.local
     if stale:
         print(f"resume: manifest records unknown args {sorted(stale)} (ignored beyond layout checks)",
               file=sys.stderr)
@@ -929,7 +954,7 @@ def _run_fleet_checkpointed(camp, state, policy, prefix=None):
 
     fin, sd = run_checkpointed(state, camp.rounds, seg_run, policy=policy, stats_prefix=prefix, round_axis=1,
                                log=_stderr_log)
-    return fin, _split_host_stats(sd)
+    return fin, _split_host_stats(sd)[0]
 
 
 def _fleet_policy(a, camp, campaign_path, *, report="", quiet=False):
@@ -1093,12 +1118,62 @@ def _stderr_log(msg: str) -> None:
 
 
 def _split_host_stats(sd: dict):
-    """The driver's joined host stats back into a RoundStats of tensors."""
+    """The driver's joined host stats back into ``(RoundStats, IciRound |
+    None)`` of tensors: the transport counters ride the ``ici__`` prefix."""
     import torch
 
     from tpu_gossip_torch.sim.engine import RoundStats
 
-    return RoundStats(*(torch.from_numpy(np.asarray(sd[f])) for f in RoundStats._fields))
+    stats = RoundStats(*(torch.from_numpy(np.asarray(sd[f])) for f in RoundStats._fields))
+    ici = None
+    if any(k.startswith("ici__") for k in sd):
+        from tpu_gossip_torch.dist.transport import IciRound
+
+        ici = IciRound(*(torch.from_numpy(np.asarray(sd[f"ici__{f}"])) for f in IciRound._fields))
+    return stats, ici
+
+
+def _layout_summary(args: argparse.Namespace) -> dict:
+    """The summary's layout fields: whether the run carried packed state
+    and, off the default, which matching builder laid the graph out."""
+    out = {"packed": bool(args.packed)}
+    if getattr(args, "builder", "local") != "local":
+        out["builder"] = args.builder
+    return out
+
+
+def _transport_summary(args: argparse.Namespace, ici=None, rounds: int = 0, graph=None) -> dict:
+    """The summary's transport fields of a --shard run: the configured lane
+    and, when the counter ran, the realized bytes a round (dense, shipped,
+    occupied; ``dense_bool`` the bool-plane wire of ``graph``) and the
+    compact lanes taken. On the matching mesh these are the JAX package's
+    byte-plane wire model, as its summary prints them; the port's pipeline
+    moves int32 words and gates its own lanes on them
+    (``dist.transport.lane_counts``)."""
+    if not args.shard:
+        return {}
+    out = {"transport": args.transport}
+    if ici is None:
+        return out
+    tot = {f: int(np.asarray(getattr(ici, f)).astype(np.int64).sum()) for f in ici._fields}
+    r = max(rounds, 1)
+    out["ici_bytes_per_round"] = {
+        "dense": round(4 * tot["dense_words"] / r, 1),
+        "shipped": round(4 * tot["shipped_words"] / r, 1),
+        "occupied": round(4 * tot["occupied_words"] / r, 1),
+        "reduction_vs_dense": round(tot["dense_words"] / max(tot["shipped_words"], 1), 3),
+    }
+    if graph is not None:
+        from tpu_gossip_torch.core.matching_topology import MatchingPlan
+
+        if isinstance(graph, MatchingPlan):
+            from tpu_gossip_torch.dist.matching_mesh import dense_wire_words
+        else:
+            from tpu_gossip_torch.dist.mesh import dense_wire_words
+        out["ici_bytes_per_round"]["dense_bool"] = round(
+            4 * dense_wire_words(graph, args.slots, args.mode, args.forward_once, bool_planes=True), 1)
+    out["sparse_lanes"] = {"taken": tot["sparse_lanes"], "gated": tot["total_lanes"]}
+    return out
 
 
 def _swap_in_resume(resume: _Resume, shape: tuple, args: argparse.Namespace, dev):
@@ -1142,7 +1217,8 @@ def _check_resume_devices(resume: _Resume | None, mesh_size: int) -> None:
     if recorded is not None and int(recorded) != int(mesh_size):
         raise CheckpointError(
             f"checkpoint was written by a {recorded}-device mesh run but this process has {mesh_size} devices — "
-            f"resume on a {recorded}-device mesh")
+            f"resume on a {recorded}-device mesh, or (sharded matching) restore into the local engine with "
+            "`run_sim resume D --local`")
 
 
 def _digest_summary(args: argparse.Namespace, fin, stats, durable: bool = False) -> dict:
@@ -1173,7 +1249,6 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
     from tpu_gossip_torch.device import resolve_device
     from tpu_gossip_torch.sim.engine import remat_capacity, run_until_coverage, simulate
-    from tpu_gossip_torch.sim.stages import not_ported
     from tpu_gossip_torch.utils.profiling import trace
 
     dev = resolve_device(args.device)
@@ -1181,10 +1256,26 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     lqs = _compile_cli_liveness(args)
     ctl = _compile_cli_control(args, dev)
     rng = np.random.default_rng(args.seed)
-    exists = plan = None
-    if args.graph == "matching":
-        if args.shard:
-            raise not_ported("--shard --graph matching (the sharded matching engine)", "multi-device (11b)")
+    exists = plan = graph = None
+    local = bool(getattr(args, "_resume_local", False))
+    if args.graph == "matching" and args.shard:
+        reason = None
+        if args.remat_every > 0:
+            reason = "--remat-every re-materializes the CSR, which the matching pipeline cannot absorb"
+        elif not local and 128 % _mesh_size(args):
+            reason = (f"mesh size {_mesh_size(args)} does not divide 128 (the sharded matching transpose's lane "
+                      "split)")
+        if reason is not None:
+            # the one bucketed-CSR fallback: the classic build's exported CSR
+            print(f"note: {reason} — falling back to the bucketed-CSR shard engine on the exported CSR",
+                  file=sys.stderr)
+            dgraph, _ = matching_powerlaw_graph(args.peers, gamma=args.gamma, fanout=None,
+                                                key=prng.key(args.seed, dev), device=dev)
+            graph = dgraph.to_host_graph()
+        elif args.staircase:
+            print("note: --staircase is ignored with --graph matching (the "
+                  "matching pipeline IS the delivery plan)", file=sys.stderr)
+    elif args.graph == "matching":
         fanout = None if args.mode == "flood" else args.fanout
         if args.grow:
             # the sharded layout's build at one shard: its growth rows are
@@ -1222,9 +1313,14 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                   churn_join_prob=args.churn_join, rewire_slots=_rewire_slots(args),
                   rewire_compact_cap=args.rewire_compact_cap)
     origins, silent_ids = _sample_ids(args, rng)
-    if args.shard:
-        cfg, state, segment, to_target, extra, epoch, grow = _shard_runners(args, graph, origins, silent_ids, cfg_kw,
-                                                                            dev, spec, lqs, ctl)
+    replay = None
+    if args.shard and graph is None:
+        cfg, state, segment, to_target, extra, replay, n_build = _shard_matching_runners(
+            args, origins, silent_ids, cfg_kw, dev, spec, lqs, ctl, local, resume)
+        policy = _ckpt_policy(args, shards=n_build, extra={"devices": n_build})
+    elif args.shard:
+        cfg, state, segment, to_target, extra, epoch, grow, replay = _shard_runners(
+            args, graph, origins, silent_ids, cfg_kw, dev, spec, lqs, ctl)
         strm = None  # (the bucketed runners carry their own, in the mesh's rows)
         policy = _ckpt_policy(args, shards=epoch[0].size, extra={"devices": epoch[0].size})
         _check_resume_devices(resume, epoch[0].size)
@@ -1258,6 +1354,10 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         shape = tuple(state.seen.shape)
         del state
         state, prefix = _swap_in_resume(resume, shape, args, dev)
+        if local and prefix is not None:
+            # the local restore ships no ICI bytes: the byte accounting ends
+            # at the crash (the trajectory's stats are the transport's own)
+            prefix = {k: v for k, v in prefix.items() if not k.startswith("ici__")}
     durable = policy is not None or resume is not None
     marks = _horizon_start(dev) if durable and dev.type == "cuda" else None
     with trace(args.profile):
@@ -1272,15 +1372,24 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
                                            prefix=prefix, durable=durable)
             summary.update(_scenario_summary(spec))
         elif args.rounds > 0:
-            fin, stats, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix, pack=args.packed)
+            fin, stats, ici, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix,
+                                                               pack=args.packed)
+            wire = extra.pop("_wire", None)
             summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats),
+                                          **_transport_summary(args, ici, args.rounds, wire),
                                           **_stream_summary(args, cfg, stats), **_control_summary(args, cfg, stats),
                                           **_liveness_summary(args, stats)),
                        **_digest_summary(args, fin, stats, durable)}
         else:
+            wire = extra.pop("_wire", None)
             summary, fin = _run_to_target(args, cfg, state, to_target,
                                           {**extra, **_scenario_summary(spec), **_control_summary(args),
                                            **_liveness_summary(args)})
+            rounds = int(fin.round) - int(state.round)
+            # the timed run carries no counter; an untimed replay of the
+            # realized horizon (the same rounds, bit for bit) reads the bytes
+            ici = replay(state, rounds) if replay is not None and rounds > 0 else None
+            summary.update(_transport_summary(args, ici, rounds, wire))
     if marks is not None:
         import torch
 
@@ -1289,7 +1398,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         _stderr_log(f"checkpoint: device peak max_memory_allocated {max(build, horizon)} B (the build {build} B; "
                     f"the horizon {horizon} B, from {start} B allocated at its start)")
     summary.update(_growth_summary(args, fin))
-    summary["packed"] = args.packed
+    summary.update(_layout_summary(args))
     return summary, fin
 
 
@@ -1449,19 +1558,19 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
 
     def seg_run(st, seg):
         st, s = segment(st, seg)
-        return st, host_stats(s)
+        return st, host_stats(*s) if type(s) is tuple else host_stats(s)  # (stats, ici) with a counter
 
     t0 = time.perf_counter()
     fin, sd = run_checkpointed(pack_state(state) if pack else state, args.rounds, seg_run, policy=policy,
                                stats_prefix=prefix, fold_every=args.remat_every if fold else 0, fold=fold,
                                log=_stderr_log)
     wall = time.perf_counter() - t0
-    stats = _split_host_stats(sd)
+    stats, ici = _split_host_stats(sd)
     if not args.quiet:
         from tpu_gossip_torch.sim import metrics as M
 
         M.write_jsonl(stats, sys.stdout)
-    return (unpack_state(fin) if pack else fin), stats, wall
+    return (unpack_state(fin) if pack else fin), stats, ici, wall
 
 
 def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=None, lqs=None, grow=None, strm=None,
@@ -1490,7 +1599,7 @@ def _run_with_remat(args: argparse.Namespace, cfg, state, dev, cap: int, scen=No
 
     r = args.remat_every
     if durable:
-        fin, stats, wall = _run_checkpointed_horizon(args, state, horizon_segment, policy, prefix, fold=fold)
+        fin, stats, _, wall = _run_checkpointed_horizon(args, state, horizon_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, remat_every=r, remats=(args.rounds - 1) // r,
                                    remat_overflow_edges=sum(int(o) for o in overflow), wall_seconds=wall,
                                    **_stream_summary(args, cfg, stats), **_control_summary(args, cfg, stats),
@@ -1528,15 +1637,20 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
 
     pipe = _compile_cli_pipeline(args)
     r = args.remat_every
-    epoch = {"sg": sg, "plans": plans, "overflow": 0, "rebuild_s": 0.0}
+
+    def transport_for(sg_now):
+        # the compact lane's tables key on the bucket layout: rebuilt each epoch
+        return None if args.transport == "dense" else dist.build_transport(sg_now, mode=args.transport)
+
+    epoch = {"sg": sg, "plans": plans, "overflow": 0, "rebuild_s": 0.0, "transport": transport_for(sg)}
 
     def run_segment(st, seg):
         if args.rounds > 0:
             return dist.simulate_dist(st, cfg, epoch["sg"], mesh, seg, epoch["plans"], scenario=scen, liveness=lqs,
-                                      control=ctl, pipeline=pipe)
+                                      control=ctl, pipeline=pipe, transport=epoch["transport"])
         return dist.run_until_coverage_dist(st, cfg, epoch["sg"], mesh, args.target, seg,
                                             shard_plan=epoch["plans"], scenario=scen, liveness=lqs,
-                                            control=ctl, pipeline=pipe), None
+                                            control=ctl, pipeline=pipe, transport=epoch["transport"]), None
 
     def fold(st):
         t0 = time.perf_counter()
@@ -1546,6 +1660,7 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
         st = dist.shard_swarm(st, mesh)
         if epoch["plans"] is not None:
             epoch["plans"] = dist.build_shard_plans(epoch["sg"])
+        epoch["transport"] = transport_for(epoch["sg"])
         epoch["overflow"] += int(over)
         epoch["rebuild_s"] += time.perf_counter() - t0
         if durable:
@@ -1554,12 +1669,12 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
         return st
 
     if durable:
-        fin, stats, wall = _run_checkpointed_horizon(args, state, run_segment, policy, prefix, fold=fold)
+        fin, stats, _, wall = _run_checkpointed_horizon(args, state, run_segment, policy, prefix, fold=fold)
         summary = _horizon_summary(args, stats, devices=mesh.size, remat_every=r, remats=(args.rounds - 1) // r,
                                    wall_seconds=wall, **_control_summary(args, cfg, stats),
                                    **_liveness_summary(args, stats))
         summary.update(_digest_summary(args, fin, stats, durable=True))
-        summary["transport"] = "dense"
+        summary["transport"] = args.transport
         return summary, fin
 
     state, parts, remats, wall = _remat_loop(args, state, run_segment, fold)
@@ -1569,7 +1684,7 @@ def _run_shard_with_remat(args: argparse.Namespace, cfg, state, mesh, sg, plans,
                              cfg=cfg)
     if args.rounds == 0:
         summary["ms_per_round_amortized"] = wall / max(int(state.round), 1) * 1000.0
-    summary["transport"] = "dense"
+    summary["transport"] = args.transport
     return summary, state
 
 
@@ -1618,16 +1733,33 @@ def _profile_round(args: argparse.Namespace, cfg, state, plan, grow=None, strm=N
             "warm_rounds": args.profile_round, "stages_ms": stages_ms(stages)}
 
 
+def _ici_runners(args: argparse.Namespace, transport, run_horizon):
+    """``(segment, replay)`` of a sharded run: with a transport the horizon
+    runs with the counter (segments return ``(stats, ici)``), and
+    ``replay(state, rounds)`` reads the counter off an untimed replay of a
+    run to target; without one, the plain segment and no replay."""
+    if transport is None:
+        return (lambda st, rounds: run_horizon(st, rounds, False)), None
+
+    def replay(st, rounds):
+        from tpu_gossip_torch.core.packed import pack_state
+
+        return run_horizon(pack_state(st) if args.packed else st, rounds, True)[1][1]
+
+    return (lambda st, rounds: run_horizon(st, rounds, True)), replay
+
+
 def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw: dict, dev, spec=None, lqs=None,
                    ctl=None):
     """--shard: partition the graph over the mesh (pads born dead), with
-    --staircase build K6's plans, seed ``origins`` and the silent peers
-    through the partition's relabelling, compile the scenario over the
-    padded slot space through ``position``; returns ``(cfg, state,
-    segment, to_target, extra summary keys, (mesh, sharded graph, plans,
-    compiled scenario), compiled growth)``. Under --grow the graph is padded
-    to the capacity first and the admission order is the original ids'
-    through ``position``."""
+    --staircase build K6's plans, with --transport the compact lane's
+    tables, seed ``origins`` and the silent peers through the partition's
+    relabelling, compile the scenario over the padded slot space through
+    ``position``; returns ``(cfg, state, segment, to_target, extra summary
+    keys, (mesh, sharded graph, plans, compiled scenario), compiled growth,
+    the counter's replay)``. Under --grow the graph is padded to the
+    capacity first and the admission order is the original ids' through
+    ``position``."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.state import SwarmConfig
@@ -1639,6 +1771,7 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
 
         graph, gexists = pad_graph_for_growth(graph, args.grow_capacity)
     sg, relabeled, position = dist.partition_graph(graph, mesh.size, seed=args.seed, device=dev)
+    transport = None if args.transport == "dense" else dist.build_transport(sg, mode=args.transport)
     cfg = SwarmConfig(n_peers=sg.n_pad, **cfg_kw)
     plans = dist.build_shard_plans(sg) if args.staircase else None
     state = dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev), origins=origins,
@@ -1652,16 +1785,100 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
     strm = _compile_cli_stream(args, position[np.arange(args.peers)], dev)
     pipe = _compile_cli_pipeline(args)
 
-    def segment(st, rounds):
+    def run_horizon(st, rounds, ici):
         return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow,
-                                  stream=strm, control=ctl, pipeline=pipe)
+                                  stream=strm, control=ctl, pipeline=pipe, transport=transport, collect_ici=ici)
 
     def to_target(st):
         return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
-                                            scenario=scen, liveness=lqs, growth=grow, control=ctl, pipeline=pipe)
+                                            scenario=scen, liveness=lqs, growth=grow, control=ctl, pipeline=pipe,
+                                            transport=transport)
 
-    return (cfg, state, segment, to_target, {"devices": mesh.size, "transport": "dense", **_pipeline_summary(args)},
-            (mesh, sg, plans, scen), grow)
+    segment, replay = _ici_runners(args, transport, run_horizon)
+    return (cfg, state, segment, to_target, {"devices": mesh.size, "_wire": sg, **_pipeline_summary(args)},
+            (mesh, sg, plans, scen), grow, replay)
+
+
+def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_kw: dict, dev, spec=None, lqs=None,
+                            ctl=None, local: bool = False, resume=None):
+    """--shard --graph matching: the sharded matching layout built for the
+    mesh (``--builder dist``: shard by shard, equal to the block-keyed local
+    build), the plan and the state placed on it, peers ``i`` mapped to
+    rows skipping each shard's pad rows, the planes compiled over those
+    rows; returns ``(cfg, state, segment, to_target, extra summary keys,
+    the counter's replay, the layout's shard count)``. ``local`` (``run_sim
+    resume D --local``) rebuilds the checkpoint's S-shard layout and
+    finishes on the local engine over the unplaced plan."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.sim.engine import simulate
+
+    mesh = None
+    if local:
+        from tpu_gossip_torch.ckpt import CheckpointError
+
+        n_build = int(((resume.manifest.get("run") or {}) if resume else {}).get("devices") or 0)
+        if n_build <= 0:
+            raise CheckpointError("checkpoint manifest records no device count — cannot rebuild the sharded "
+                                  "matching layout for a local restore")
+        if args.transport != "dense":
+            print("note: the recorded --transport compacts MESH collectives; the local restore moves no ICI bytes "
+                  "(trajectory unchanged — the transport reorders bytes, never draws)", file=sys.stderr)
+    else:
+        mesh = dist.make_mesh(device=dev)
+        _check_resume_devices(resume, mesh.size)
+        n_build = mesh.size
+    grow_rows = -(-(args.grow_capacity - args.peers) // n_build) if args.grow else 0
+    fanout = None if args.mode == "flood" else args.fanout
+    key = prng.key(args.seed, dev)
+    if args.builder == "dist" and not local:
+        dgraph, plan = dist.matching_powerlaw_graph_dist(args.peers, mesh, gamma=args.gamma, fanout=fanout, key=key,
+                                                         growth_rows=grow_rows)
+    else:
+        # a local restore of a --builder dist run rebuilds the same layout
+        # through the block-keyed derivation
+        dgraph, plan = matching_powerlaw_graph_sharded(args.peers, n_build, gamma=args.gamma, fanout=fanout, key=key,
+                                                       growth_rows=grow_rows, block_keys=args.builder == "dist",
+                                                       device=dev)
+    if not local:
+        plan = dist.shard_matching_plan(plan, mesh)
+    transport = (dist.build_transport(plan, mode=args.transport, mesh=mesh)
+                 if args.transport != "dense" and not local else None)
+    cfg = SwarmConfig(n_peers=plan.n, **cfg_kw)
+
+    def to_rows(ids):
+        """Peer index -> state row (skipping each shard's pad rows)."""
+        ids = np.asarray(ids)
+        return (ids // plan.n_per) * plan.n_blk + (ids % plan.n_per)
+
+    state = init_swarm(dgraph.as_padded_graph(), cfg, key=prng.key(args.seed, dev), origins=to_rows(origins),
+                       exists=dgraph.exists, device=dev)
+    state.silent = _set_rows(state.silent, None if silent_ids is None else to_rows(silent_ids))
+    if not local:
+        state = dist.shard_swarm(state, mesh)
+    scen = _compile_cli_scenario(spec, args, plan.n, dev, node_map=to_rows,
+                                 shard_ranges=dist.shard_ranges(n_build, plan.n_blk, mesh=mesh), n_shards=n_build)
+    grow = _compile_cli_growth(args, spec, plan.n, dev, plan=plan)
+    strm = _compile_cli_stream(args, to_rows(np.arange(args.peers)), dev)
+    pipe = _compile_cli_pipeline(args)
+    planes = dict(scenario=scen, liveness=lqs, growth=grow, stream=strm, control=ctl, pipeline=pipe)
+
+    def run_horizon(st, rounds, ici):
+        if local:
+            return simulate(st, cfg, rounds, plan, "fused", **planes)
+        return dist.simulate_dist(st, cfg, plan, mesh, rounds, transport=transport, collect_ici=ici, **planes)
+
+    def to_target(st):
+        return dist.run_until_coverage_dist(st, cfg, plan, mesh, args.target, args.max_rounds, transport=transport,
+                                            **planes)
+
+    segment, replay = _ici_runners(args, transport, run_horizon)
+    extra = {"devices": n_build, "_wire": plan, **_pipeline_summary(args)}
+    if args.rounds <= 0:
+        extra["delivery"] = "matching"
+    return cfg, state, segment, to_target, extra, replay, n_build
 
 
 def _pipeline_summary(args: argparse.Namespace) -> dict:

@@ -52,10 +52,11 @@ def _tensor(a, dev) -> torch.Tensor | None:
 
 def plan_from_jax(leaves: dict, static: dict, device: str | torch.device = "cuda") -> MatchingPlan:
     """A port MatchingPlan from the JAX plan's array leaves (numpy; ``lanes``
-    and ``lanes_inv`` as sequences) and its static fields."""
+    and ``lanes_inv`` as sequences) and its static fields; a sharded plan
+    (``mesh_shards > 1``) keeps its ``local_classes``, ``per_rows``,
+    ``n_blk`` and its narrow table widths, its class layout the global
+    shard-major one."""
     dev = resolve_device(device)
-    if static.get("mesh_shards", 1) != 1:
-        raise NotImplementedError("sharded matching plans come with the multi-device slice")
     kw = {name: static[name] for name in PLAN_STATIC if name in static}
     kw["classes"] = tuple(tuple(int(v) for v in c) for c in kw["classes"])
     kw["local_classes"] = tuple(tuple(int(v) for v in c) for c in kw.get("local_classes", ()))

@@ -10,8 +10,10 @@ JAX's ``sentinel`` and ``int8_tables`` overrides),
 (:741, its ``block_keys=False`` derivation at any shard count dividing
 128, with ``growth_rows``: the local engine runs it through the plan's
 global classes view, and it is the matching layout of a growing run).
-``block_keys=True`` and ``plan_table_widths`` come with the sharded
-matching engine (ROADMAP item 11b).
+With ``block_keys=True`` the random tables draw per shard block and the
+erased edges absorb into each shard's own pad row (the distributable
+derivation ``dist/builder.py`` reproduces one shard at a time);
+``plan_table_widths`` (:146) is the plan's table ledger.
 
 Degrees are the truncated-Pareto law at deterministic quantiles; nodes are
 grouped into classes of equal padded degree; slot ``j``'s partner is
@@ -47,6 +49,7 @@ __all__ = [
     "DEG_TABLE_CAP",
     "ClassLayout",
     "MatchingPlan",
+    "MeshRoute",
     "class_layout",
     "class_table",
     "deg_table_dtype",
@@ -61,9 +64,6 @@ __all__ = [
 ]
 
 DEG_TABLE_CAP = 2**15 - 1
-
-_ITEM11B = "sharded matching engine (ROADMAP item 11b)"
-
 
 def deg_table_dtype(d_max: int) -> torch.dtype:
     """The declared degree-table dtype for a build capped at ``d_max``."""
@@ -102,12 +102,36 @@ def sharded_layout(n: int, n_shards: int, gamma: float = 2.5, d_min: int = 2, d_
     }
 
 
-def plan_table_widths(*args, **kwargs):
-    """The declared plan-table ledger (JAX's ``plan_table_widths``): a part
-    of the sharded matching engine's slice."""
-    from tpu_gossip_torch.sim.stages import not_ported
-
-    raise not_ported("plan_table_widths (the matching plan's table ledger)", _ITEM11B)
+def plan_table_widths(n: int, gamma: float = 2.5, d_min: int = 2, d_max: int | None = None,
+                      n_shards: int = 1) -> dict:
+    """The declared MatchingPlan table widths and bytes at a scale (JAX's
+    ``plan_table_widths``): host arithmetic only, ``name -> {dtype, shape,
+    bytes, why}``."""
+    if n_shards > 1:
+        lay = sharded_layout(n, n_shards, gamma, d_min, d_max)
+        d_max, rows = lay["d_max"], lay["rows"]
+        int8_ok, n_state, k = lay["int8_tables"], lay["n_state"], lay["n_stages"]
+    else:
+        d_max, _, _, rows = plan_shape(n, gamma, d_min, d_max)
+        int8_ok, n_state = rows % 32 == 0, n + 1
+        k = max(2, math.ceil(math.log(max(rows, 2)) / math.log(128)))
+    lane_dt, lane_b = ("int8", 1) if int8_ok else ("int32", 4)
+    deg_dt, deg_b = ("int16", 2) if d_max <= DEG_TABLE_CAP else ("int32", 4)
+    slots = rows * 128
+    return {
+        "lanes": {"dtype": lane_dt, "shape": f"({k}, {rows}, 128)", "bytes": k * slots * lane_b,
+                  "why": "lane ids < 128 — int8 when the (32, 128) tile granularity holds"},
+        "lanes_inv": {"dtype": lane_dt, "shape": f"({k}, {rows}, 128)", "bytes": k * slots * lane_b,
+                      "why": "inverse tables, same law"},
+        "m3": {"dtype": lane_dt, "shape": f"({rows}, 128)", "bytes": slots * lane_b,
+               "why": "pairing involution, lane ids"},
+        "valid": {"dtype": "bool", "shape": f"({rows}, 128)", "bytes": slots, "why": "erasure-survivor bit"},
+        "deg_other": {"dtype": deg_dt, "shape": f"({rows}, 128)", "bytes": slots * deg_b,
+                      "why": f"partner degrees <= d_max={d_max}; int16 saturating at DEG_TABLE_CAP={DEG_TABLE_CAP} "
+                      "when the cap permits"},
+        "deg_real": {"dtype": deg_dt, "shape": f"({n_state},)", "bytes": n_state * deg_b,
+                     "why": "realized degrees, same cap"},
+    }
 
 
 # classes at or above this node count store slots position-major with
@@ -173,13 +197,23 @@ def class_layout(classes: tuple, rows: int, n: int, device) -> ClassLayout:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshRoute:
+    """How a plan on the one-process mesh moves its slot data: the sharded
+    passes, each transpose on its compact lane where ``transport`` (an
+    active ``dist.transport.Transport``, or None: always dense) admits it."""
+
+    transport: object = None
+
+
+@dataclasses.dataclass(frozen=True)
 class MatchingPlan:
     """Static routing state for structured-matching delivery (the JAX
     field order). ``classes`` holds (node_off, slot_off, count, pad_deg,
     cstride) runs; lane tables are int8 (int32 on small plans); ``valid``
     marks slots that survived erasure; sampling gates are computed per
     round from ``deg_other``/``deg_real``. ``layout`` is the port's index
-    view of ``classes``."""
+    view of ``classes``; ``route``, set on a plan a mesh round runs, makes
+    :meth:`partner` take the sharded passes."""
 
     lanes: tuple
     m3: torch.Tensor
@@ -197,6 +231,7 @@ class MatchingPlan:
     per_rows: int = 0
     local_classes: tuple = ()
     layout: ClassLayout | None = dataclasses.field(default=None, compare=False, repr=False)
+    route: MeshRoute | None = dataclasses.field(default=None, compare=False, repr=False)
 
     def with_fanout(self, fanout: int) -> "MatchingPlan":
         """Rebind the sampling fanout (gates are computed per round)."""
@@ -224,8 +259,14 @@ class MatchingPlan:
         return pipeline_stages(self.lanes, self.m3, self.lanes_inv)
 
     def partner(self, x: torch.Tensor) -> torch.Tensor:
-        """out[j] = x[pi(j)] over (R, 128) int32 slot data: one pipeline pass."""
-        return apply_pipeline(x, self.stages)
+        """out[j] = x[pi(j)] over (R, 128) int32 slot data: one pipeline pass,
+        the fused local one, or on a mesh (``route``) the sharded one over
+        the ``mesh_shards`` stacked blocks with the transport's gated lanes."""
+        if self.route is None:
+            return apply_pipeline(x, self.stages)
+        tr = self.route.transport
+        lanes = None if tr is None else tr.lanes(*tr.gates(x))
+        return apply_pipeline(x, self.stages, n_shards=self.mesh_shards, lanes=lanes)
 
     def expand(self, x_n: torch.Tensor) -> torch.Tensor:
         """Broadcast per-node values (n,) onto slots (R, 128)."""
@@ -317,12 +358,15 @@ def _real_mask(deg: torch.Tensor, classes: tuple, rows: int) -> torch.Tensor:
 def _build_plan(key: torch.Tensor, deg: torch.Tensor, *, n: int, rows: int,
                 classes: tuple, layout: ClassLayout, export_csr: bool = True,
                 sentinel: int | None = None, int8_tables: bool | None = None,
-                deg_cap: int | None = None):
-    """The plan derivation of JAX ``_build_plan`` with ``block_keys=False``.
-    ``sentinel`` None appends row ``n`` to the CSR to absorb the erased
-    edges; the sharded layout passes its last pad row instead, so the CSR
-    has exactly ``n`` rows. ``int8_tables`` overrides the narrow lane-table
-    choice (default: ``rows % 32 == 0``)."""
+                deg_cap: int | None = None, block_keys: bool = False, n_shards: int = 1,
+                n_blk: int = 0):
+    """The plan derivation of JAX ``_build_plan``. ``sentinel`` None
+    appends row ``n`` to the CSR to absorb the erased edges; the sharded
+    layout passes its last pad row instead, so the CSR has exactly ``n``
+    rows. ``int8_tables`` overrides the narrow lane-table choice (default:
+    ``rows % 32 == 0``). ``block_keys`` (with ``n_shards``/``n_blk``)
+    draws every table as per-shard ``fold_in(stage_key, shard)`` blocks
+    and absorbs each shard's erased edges into its own pad row."""
     r = rows
     dev = deg.device
     n_stages = max(2, math.ceil(math.log(max(r, 2)) / math.log(128)))
@@ -331,11 +375,17 @@ def _build_plan(key: torch.Tensor, deg: torch.Tensor, *, n: int, rows: int,
         int8_tables = r % 32 == 0
     tdt = torch.int8 if int8_tables else torch.int32
 
+    def table_bits(k):
+        if not block_keys:
+            return prng.uniform(k, (r, 128))
+        per = r // n_shards
+        return torch.cat([prng.uniform(prng.fold_in(k, sh), (per, 128)) for sh in range(n_shards)])
+
     lanes = tuple(
-        torch.argsort(prng.uniform(keys[i], (r, 128)), dim=1, stable=True).to(tdt)
+        torch.argsort(table_bits(keys[i]), dim=1, stable=True).to(tdt)
         for i in range(n_stages)
     )
-    p = torch.argsort(prng.uniform(keys[n_stages], (r, 128)), dim=1, stable=True)
+    p = torch.argsort(table_bits(keys[n_stages]), dim=1, stable=True)
     a, b = p[:, 0::2], p[:, 1::2]
     m3 = torch.zeros((r, 128), dtype=torch.int64, device=dev)
     m3.scatter_(1, a, b)
@@ -383,6 +433,9 @@ def _build_plan(key: torch.Tensor, deg: torch.Tensor, *, n: int, rows: int,
 
     sent_row = n if sentinel is None else sentinel
     n_rows = n + 1 if sentinel is None else n  # CSR rows, the sentinel's included
+    if block_keys:  # each shard's erased edges absorb into its own pad row
+        shard_of = sentinel_fill.reshape(-1) // ((r // n_shards) * 128)
+        sent_row = shard_of * n_blk + (n_blk - 1)
     if export_csr:
         src = torch.where(valid.reshape(-1), owner.reshape(-1), sent_row)
         dst = torch.where(valid.reshape(-1), other_owner.reshape(-1), sent_row)
@@ -467,7 +520,7 @@ def matching_powerlaw_graph_sharded(
     device: str | torch.device = "cuda",
 ) -> tuple[DeviceGraph, MatchingPlan]:
     """The structured-matching swarm laid out for an ``n_shards`` mesh (JAX
-    ``matching_powerlaw_graph_sharded``, ``block_keys=False``).
+    ``matching_powerlaw_graph_sharded``).
 
     The slot array is ``n_shards`` identical per-shard blocks laid out by
     one shared ``local_classes`` table; state rows are shard blocks of
@@ -477,7 +530,9 @@ def matching_powerlaw_graph_sharded(
     The plan's global ``classes`` are the per-shard tables shifted by the
     block offsets, so the local engine runs it unchanged; the pairing
     pipeline spans the whole global array. Peer id ``s * n_blk + j`` is
-    shard ``s``'s j-th-lowest-degree peer."""
+    shard ``s``'s j-th-lowest-degree peer. ``block_keys=True`` is the
+    distributable derivation (``_build_plan``), the layout
+    ``dist.builder.matching_powerlaw_graph_dist`` builds shard by shard."""
     s = n_shards
     if s < 1 or 128 % s:
         raise ValueError(
@@ -486,11 +541,6 @@ def matching_powerlaw_graph_sharded(
         )
     if growth_rows < 0:
         raise ValueError(f"growth_rows={growth_rows} must be >= 0")
-    if block_keys:
-        from tpu_gossip_torch.sim.stages import not_ported
-
-        raise not_ported("matching_powerlaw_graph_sharded(block_keys=True) (the distributable derivation)",
-                         _ITEM11B)
     dev = resolve_device(device)
     if key is None:
         key = prng.key(0, dev)
@@ -510,7 +560,7 @@ def matching_powerlaw_graph_sharded(
     lanes, m3, lanes_inv, valid, deg_other, deg_real, row_ptr, col_idx = _build_plan(
         key.to(dev), torch.from_numpy(deg_state).to(dev), n=n_state, rows=rows, classes=classes,
         layout=layout, export_csr=export_csr, sentinel=n_state - 1, int8_tables=lay["int8_tables"],
-        deg_cap=d_max,
+        deg_cap=d_max, block_keys=block_keys, n_shards=s, n_blk=n_blk,
     )
     plan = MatchingPlan(
         lanes=lanes, m3=m3, lanes_inv=lanes_inv, valid=valid,

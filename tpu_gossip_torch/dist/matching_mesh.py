@@ -1,0 +1,154 @@
+"""The sharded matching engine: the gather-free pipeline on the mesh.
+
+Ports ``tpu_gossip/dist/matching_mesh.py``. Under the per-shard layout of
+``matching_powerlaw_graph_sharded`` every stage of the matching round is
+shard-local but the transposes: the S shards each own ``n_blk`` state
+rows and ``per_rows`` slot rows laid out by one ``local_classes`` table,
+so the plan's global (R, 128) slot array is S stacked (per_rows, 128)
+blocks and its global class table is ``local_classes`` repeated at the
+shard offsets. On the one-process mesh the round is therefore the local
+engine's round (``sim.engine.gossip_round``) on the plan with a
+``MeshRoute``, which changes only the partner pass:
+
+- expand: one gather over the stacked blocks;
+- lane stages: one K1 launch over all S·per rows (the lane tables are row
+  blocks of the global tables);
+- transposes: one exchange each (``kernels/permute.py::
+  transpose_pass_sharded``, or the transport's compact lanes);
+- reduce: one K2 launch over the shard-major class table, every shard's
+  fold at once, zeros on each shard's pad and growth rows.
+
+The gates are the local engine's, drawn at the plan's global (R, 128)
+shape, so a mesh round equals the local round on the same plan bit for
+bit, under every plane the round composes. The packed round hands the
+pipeline the state's uint8 words directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+
+
+from tpu_gossip_torch.core.matching_topology import MatchingPlan, MeshRoute
+from tpu_gossip_torch.core.packed import is_packed, packed_width, unpack_bits
+from tpu_gossip_torch.kernels import packed_ops as po
+
+__all__ = ["dense_wire_words", "shard_matching_plan", "gossip_round_dist_matching"]
+
+
+def dense_wire_words(plan: MatchingPlan, m: int, mode: str, forward_once: bool = False,
+                     bool_planes: bool = False) -> int:
+    """The matching engine's wire declaration: the global dense exchange
+    words of one fault-free round (one (R, 128) byte plane a byte group a
+    transpose stage; the pull direction ships its own plane only under
+    ``forward_once``). ``bool_planes`` prices one byte plane a slot."""
+    from tpu_gossip_torch.dist.transport import matching_dense_stage_words
+
+    n_stages = sum(1 for st in plan.stages if st[0] in ("t", "tinv"))
+    groups = m if bool_planes else packed_width(m)
+    if mode not in ("push", "push_pull", "flood"):
+        raise ValueError(f"unknown mode {mode!r}")
+    apps = 2 if (mode == "push_pull" and forward_once) else 1
+    return apps * groups * n_stages * matching_dense_stage_words(plan.rows)
+
+
+def _check_layout(plan: MatchingPlan, mesh) -> None:
+    if plan.mesh_shards != mesh.size:
+        raise ValueError(f"plan laid out for {plan.mesh_shards} shards but mesh has {mesh.size} devices — rebuild "
+                         f"with matching_powerlaw_graph_sharded(n, {mesh.size})")
+
+
+def shard_matching_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
+    """The plan placed on the mesh: every table (its shard blocks stacked)
+    and the class layout on the mesh's device."""
+    _check_layout(plan, mesh)
+
+    def put(t):
+        return None if t is None else t.to(mesh.device)
+
+    lay = plan.layout
+    return dataclasses.replace(
+        plan, lanes=tuple(put(t) for t in plan.lanes), m3=put(plan.m3),
+        lanes_inv=tuple(put(t) for t in plan.lanes_inv), valid=put(plan.valid), deg_other=put(plan.deg_other),
+        deg_real=put(plan.deg_real),
+        layout=None if lay is None else dataclasses.replace(lay, slot_node=put(lay.slot_node), table=put(lay.table),
+                                                            work=put(lay.work)),
+    )
+
+
+def _routed(plan: MatchingPlan, transport) -> MatchingPlan:
+    """The plan with its mesh route: the sharded passes, gated by the
+    transport when it is active."""
+    if transport is not None:
+        transport.check_matches_plan(plan)
+        if not transport.active:
+            transport = None
+    return dataclasses.replace(plan, route=MeshRoute(transport))
+
+
+def _check_round(state, cfg, plan: MatchingPlan, mesh) -> None:
+    _check_layout(plan, mesh)
+    if state.seen.device != mesh.device:
+        raise ValueError(f"state lies on {state.seen.device} but the mesh is on {mesh.device}: shard_swarm it")
+    if cfg.mode in ("push", "push_pull"):
+        if plan.fanout is None or plan.deg_other is None:
+            raise ValueError("sampled matching delivery needs a plan built with fanout= "
+                             "(matching_powerlaw_graph_sharded(..., fanout=cfg.fanout))")
+        if plan.fanout != cfg.fanout:
+            raise ValueError(f"plan built for fanout={plan.fanout} but cfg.fanout={cfg.fanout}")
+
+
+def gossip_round_dist_matching(state, cfg, plan: MatchingPlan, mesh, *, transport=None, collect_ici: bool = False,
+                               **planes):
+    """One sharded matching round: the local engine's round on the plan's
+    mesh route; returns ``(new_state, RoundStats)``, with ``collect_ici``
+    an :class:`~tpu_gossip_torch.dist.transport.IciRound` third.
+    Bit-identical to the local round on the same plan and state under every
+    plane ``run_protocol_round`` takes (``planes``: scenario, liveness,
+    growth, stream, control, pipeline, the host cursors). A
+    ``PackedSwarm`` runs the packed round, its exchange on the words."""
+    from tpu_gossip_torch.sim.engine import gossip_round
+
+    _check_round(state, cfg, plan, mesh)
+    out = gossip_round(state, cfg, _routed(plan, transport), **planes)
+    if not collect_ici:
+        return out
+    return (*out, _round_ici(state, cfg, plan, transport, planes.get("scenario")))
+
+
+def _round_ici(state, cfg, plan, transport, scenario):
+    """The counter charges the round's issued exchange: the bool round's
+    effective planes, or the packed head's words with liveness=None (the
+    counter's fault-free model reads transmit without the quarantine
+    mask), decoded once."""
+    if not is_packed(state):
+        from tpu_gossip_torch.sim.stages import effective_transmit_planes
+
+        tx_eff, transmitter, receptive = effective_transmit_planes(state, cfg, scenario)
+        return _ici_matching(state, cfg, plan, transport, tx_eff, transmitter, receptive)
+    from tpu_gossip_torch.sim.packed_engine import _decode_flags, packed_round_head
+
+    m = cfg.msg_slots
+    flags = _decode_flags(state)
+    _, role_w, tx_w = packed_round_head(state, cfg, flags, None)
+    if scenario is not None and scenario.has_blackout:
+        rf = scenario.at_round(state.round + 1)
+        tx_w = po.mask_rows(tx_w, ~rf.blackout)
+    role_b = unpack_bits(role_w, m)
+    shim = types.SimpleNamespace(seen=unpack_bits(state.seen, m), rewired=flags["rewired"])
+    return _ici_matching(shim, cfg, plan, transport, unpack_bits(tx_w, m), role_b, role_b)
+
+
+def _ici_matching(state, cfg, plan, transport, transmit, transmitter, receptive):
+    """The analytic counter's view of one matching round: the plane masks
+    the exchange is fed (fault-free single-pass model)."""
+    from tpu_gossip_torch.dist.transport import ici_round_matching
+    from tpu_gossip_torch.sim.engine import kernel_path_masks
+
+    if cfg.mode == "flood":
+        return ici_round_matching(plan, transport, cfg.msg_slots, transmit, None)
+    tx, answer, _ = kernel_path_masks(state, cfg, transmit, transmitter, receptive)
+    if cfg.mode != "push_pull":
+        answer = None  # the pull direction never runs
+    return ici_round_matching(plan, transport, cfg.msg_slots, tx, answer)

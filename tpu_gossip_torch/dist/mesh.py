@@ -39,9 +39,12 @@ effective fanout and pull gate enter every shard's activation, the needy
 rows filter the pull direction receiver-side, and the refresh draws at
 global shape). A pipelined round (``pipeline`` at depth 1) delivers the
 exchange the round before issued and stores its own in ``pipe_buf``, as
-the local engine does. The exchange over NCCL with one process per card, the
-matching mesh, the sparse, auto and hier transports and the ``IciRound``
-counters are a later slice and raise ``NotImplementedError``.
+the local engine does. ``transport`` (``dist/transport.py``) moves a
+round's exchange through the compact lane wherever its header proves the
+budget holds, and ``collect_ici`` appends the round's analytic ICI word
+counters. A ``MatchingPlan`` in place of the graph runs the sharded
+matching engine (``dist/matching_mesh.py``). The exchange over NCCL with
+one process per card and the hierarchical transport are ROADMAP item 11c.
 """
 
 from __future__ import annotations
@@ -78,9 +81,11 @@ __all__ = [
     "gossip_round_dist",
     "simulate_dist",
     "run_until_coverage_dist",
+    "dense_wire_words",
+    "all_to_all",
 ]
 
-LATER = "multi-device (11b)"  # the slice that brings the rest of tpu_gossip/dist
+LATER = "multi-device exchange (ROADMAP item 11c)"  # the slice that brings one process per card
 
 
 @dataclasses.dataclass(frozen=True)
@@ -433,14 +438,18 @@ def _shard_base(sg: ShardedGraph, device) -> torch.Tensor:
     return (torch.arange(sg.n_shards, dtype=torch.int64, device=device) * sg.per_shard).view(-1, 1, 1)
 
 
-def send_payload(transmit: torch.Tensor, sg: ShardedGraph, active: torch.Tensor, acts) -> torch.Tensor:
-    """The (S_src, S_dst, B, W[+1]) uint8 payload: each entry's sender's
-    packed words (``pack_bits``, the byte wire) where it fires, else 0;
-    the billing byte appended on the merged path."""
+def payload_words(transmit: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
+    """(S_src, S_dst, B, W) uint8: each bucket entry's sender's packed
+    words (``pack_bits``, the byte wire), before activation."""
     words = pack_bits(transmit)
-    w = words.shape[1]
     rows = (sg.send_src.to(torch.int64) + _shard_base(sg, words.device)).view(-1)
-    vals = words.index_select(0, rows).view(*sg.send_src.shape, w)
+    return words.index_select(0, rows).view(*sg.send_src.shape, words.shape[1])
+
+
+def send_payload(vals: torch.Tensor, active: torch.Tensor, acts) -> torch.Tensor:
+    """The (S_src, S_dst, B, W[+1]) uint8 payload: each entry's sender's
+    packed words (``vals``, :func:`payload_words`) where it fires, else 0;
+    the billing byte appended on the merged path."""
     payload = torch.where(active[..., None], vals, 0)
     if acts is not None:
         payload = torch.cat([payload, acts[..., None]], dim=-1)
@@ -513,21 +522,64 @@ def drop_sated_pulls(received: torch.Tensor, sg: ShardedGraph, needy_rows: torch
     return received
 
 
+def dense_wire_words(sg: ShardedGraph, m: int, mode: str, forward_once: bool = False,
+                     bool_planes: bool = False) -> int:
+    """The bucketed engine's wire declaration: the global dense exchange
+    words of one fault-free round (the merged push_pull wire carries one
+    billing byte more; the split path two exchanges). ``bool_planes``
+    prices one byte a slot."""
+    from tpu_gossip_torch.dist.transport import bucketed_dense_exchange_words
+
+    s, b = sg.n_shards, sg.bucket
+    w = m if bool_planes else packed_width(m)
+    if mode in ("push", "flood"):
+        return bucketed_dense_exchange_words(s, b, w)
+    if mode != "push_pull":
+        raise ValueError(f"unknown mode {mode!r}")
+    if not forward_once:
+        return bucketed_dense_exchange_words(s, b, w + 1)
+    return 2 * bucketed_dense_exchange_words(s, b, w)
+
+
+def _compact_exchange(payload: torch.Tensor, occ: torch.Tensor, cap: int) -> torch.Tensor:
+    """The bucketed compact lane: each (source, destination) row's occupied
+    entries gathered to ``cap`` with their index plane, both exchanged,
+    and scattered back into the dense receive buffer the dense lane gives."""
+    from tpu_gossip_torch.dist.transport import compact_index, gather_compact, scatter_compact
+
+    s, _, b = occ.shape
+    idx = compact_index(occ.reshape(s * s, b), cap)
+    cvals = gather_compact(payload.reshape((s * s, b) + tuple(payload.shape[3:])), idx)
+    idx_r = all_to_all(idx.view(s, s, cap)).view(s * s, cap)
+    cvals_r = all_to_all(cvals.view((s, s, cap) + tuple(cvals.shape[2:]))).view(cvals.shape)
+    return scatter_compact(idx_r, cvals_r, b).view(payload.shape)
+
+
 def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout,
-              shard_plan=None, blocked_rows=None, rctl=None) -> tuple[torch.Tensor, torch.Tensor]:
+              shard_plan=None, blocked_rows=None, rctl=None, transport=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One bucketed exchange; returns (incoming (n_pad, m) bool, int64
     messages). ``kind`` is the activation: push, pull, flood or the merged
     push_pull, which carries both directions on one wire. Deliveries to
     ``blocked_rows`` are neither delivered nor billed. ``rctl`` (the
     controller's round decision) puts ``m_eff`` in the push law and
     ``pull_on`` on the pull activation, and on the merged wire bills no
-    pull of a sated row."""
+    pull of a sated row. An active ``transport`` takes the compact lane
+    when the header (each (source, destination) row's entries whose
+    sender's words are nonzero, read before activation, so no draw moves)
+    fits its budget on every row; the receive buffer is the dense one."""
     m = transmit.shape[1]
     w = packed_width(m)
     if rctl is not None:
         fanout = rctl.m_eff
     active, acts = activation(sg, keys, kind, fanout, None if rctl is None else rctl.pull_on)
-    received = all_to_all(send_payload(transmit, sg, active, acts))
+    vals = payload_words(transmit, sg)
+    payload = send_payload(vals, active, acts)
+    if transport is not None and transport.active:
+        occ = sg.send_valid & (vals != 0).any(-1)
+        fits = bool(occ.sum(-1).max() <= transport.budget)
+        received = _compact_exchange(payload, occ, transport.budget) if fits else all_to_all(payload)
+    else:
+        received = all_to_all(payload)
     if blocked_rows is not None:
         received = drop_blocked(received, sg, blocked_rows)
     if kind == "push_pull" and rctl is not None and rctl.needy is not None:
@@ -537,7 +589,7 @@ def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind
 
 
 def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, transmit, transmitter,
-                          receptive, k_push, k_pull, rctl=None):
+                          receptive, k_push, k_pull, rctl=None, transport=None):
     """The bucketed engine's delivery; returns ``(incoming, msgs_sent)``.
 
     Both keys are split once more, child 0 driving delivery and child 1
@@ -574,10 +626,11 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
             pulls = torch.where(rctl.pull_on, pulls, 0)
     if merged:
         inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan, blocked,
-                              rctl)
+                              rctl, transport)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode in ("push", "push_pull") and not merged:
-        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan, blocked, rctl)
+        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan, blocked, rctl,
+                              transport)
         incoming, msgs = incoming | inc, msgs + sent
     if cfg.mode == "push_pull" and not merged:
         static_answer = answer & ~state.rewired[:, None] if rewiring else answer
@@ -585,10 +638,10 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
         if needy is not None:
             pull_blocked = ~needy if blocked is None else blocked | ~needy
         inc, sent = _exchange(static_answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan,
-                              pull_blocked, rctl)
+                              pull_blocked, rctl, transport)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode == "flood":
-        inc, sent = _exchange(transmit, sg, None, "flood", cfg.fanout, shard_plan)
+        inc, sent = _exchange(transmit, sg, None, "flood", cfg.fanout, shard_plan, transport=transport)
         incoming, msgs = incoming | inc, msgs + sent
     if rewiring:
         inc, sent = fresh_rewire_traffic(state, cfg, transmit, answer, receptive.any(-1), k_rw_push, k_rw_pull,
@@ -598,7 +651,7 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
 
 
 def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, flags: dict, role_w, tx_w,
-                                 k_push, k_pull, rctl=None):
+                                 k_push, k_pull, rctl=None, transport=None):
     """The packed round's delivery; returns ``(inc_w, msgs_sent)``. The
     exchange indexes rows of the bool planes, so the transmit and role
     words decode here, once a round, and the product packs again."""
@@ -608,20 +661,15 @@ def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_p
     shim = _delivery_shim(ps, flags, unpack_bits(ps.seen, m))
     role_b = unpack_bits(role_w, m)
     inc, msgs = _disseminate_bucketed(shim, cfg, sg, shard_plan, unpack_bits(tx_w, m), role_b, role_b, k_push,
-                                      k_pull, rctl)
+                                      k_pull, rctl, transport)
     return pack_bits(inc), msgs
 
 
 # ---------------------------------------------------------------- the round
 
 
-def _check_round(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, later: dict) -> None:
-    """Refuse what this slice does not run and what does not fit."""
-    if isinstance(sg, MatchingPlan):
-        raise not_ported("the sharded matching engine (a MatchingPlan on the mesh)", LATER)
-    for name in ("transport", "collect_ici"):
-        if later.pop(name, None) not in (None, False):
-            raise not_ported(f"the {name} argument", LATER)
+def _check_round(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, transport) -> None:
+    """Refuse what does not fit."""
     if sg.n_shards != mesh.size:
         raise ValueError(f"graph partitioned for {sg.n_shards} shards but the mesh has {mesh.size}: "
                          f"repartition with partition_graph(g, {mesh.size})")
@@ -629,82 +677,166 @@ def _check_round(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, later: dic
         raise ValueError(f"state lies on {state.seen.device} but the mesh is on {mesh.device}: shard_swarm it")
     if shard_plan is not None:
         shard_plan.check_matches(sg)
+    if transport is not None:
+        transport.check_matches_graph(sg)
 
 
-def gossip_round_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, shard_plan: ShardPlans | None = None,
-                      **later):
+def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: ShardPlans | None = None, *,
+                      transport=None, collect_ici: bool = False, **planes):
     """One sharded round: the bucketed exchange, then the local engine's
-    stages; returns ``(new_state, RoundStats)``. With ``shard_plan`` the
-    receive runs K6, else the scatter OR. A ``PackedSwarm`` runs the
-    packed-native round, whose delivery decodes the transmit and role
-    planes for the exchange and packs the product, and stays packed.
-    ``scenario`` injects the round's faults around the exchange (and, on
-    the packed round, around its bool twin); ``liveness`` (a
-    ``QuorumSpec``) runs the quorum detector and the scenario's
-    adversaries, their draws at global shape as on the local engine,
-    ``growth`` admits the round's join batch and ``stream`` runs a
+    stages; returns ``(new_state, RoundStats)``, with ``collect_ici`` the
+    round's :class:`~tpu_gossip_torch.dist.transport.IciRound` third. With
+    ``shard_plan`` the receive runs K6, else the scatter OR. A
+    ``MatchingPlan`` in place of ``sg`` runs the sharded matching engine
+    (``dist/matching_mesh.py``, bit-identical to the local matching round).
+    A ``PackedSwarm`` runs the packed-native round, whose delivery decodes
+    the transmit and role planes for the exchange and packs the product,
+    and stays packed. ``transport`` takes the compact lane of each
+    exchange its header lets through. ``planes`` are
+    ``run_protocol_round``'s: ``scenario`` injects the round's faults
+    around the exchange (and, on the packed round, around its bool twin);
+    ``liveness`` (a ``QuorumSpec``) runs the quorum detector and the
+    scenario's adversaries, their draws at global shape as on the local
+    engine, ``growth`` admits the round's join batch and ``stream`` runs a
     streaming workload at global shape (its origin table in the mesh's
     rows), and ``control`` (a ``ControlSpec``, layout-blind) runs the
     adaptive controller, its decision riding every exchange. ``pipeline``
     (a ``PipelineSpec``) at depth 1 delivers the exchange the last round
     issued through the shard-local tail and carries this round's in
-    ``pipe_buf``. The arguments of later slices (``transport``,
-    ``collect_ici``, ``inject``) raise ``NotImplementedError``."""
-    _check_round(state, cfg, sg, mesh, shard_plan, later)
+    ``pipe_buf``. ``inject`` (serving) raises ``NotImplementedError``."""
+    if isinstance(sg, MatchingPlan):
+        if shard_plan is not None:
+            raise ValueError("shard_plan is the bucketed CSR engine's staircase receive; matching delivery has no "
+                             "scatter to replace — pass shard_plan=None")
+        from tpu_gossip_torch.dist.matching_mesh import gossip_round_dist_matching
+
+        return gossip_round_dist_matching(state, cfg, sg, mesh, transport=transport, collect_ici=collect_ici,
+                                          **planes)
+    _check_round(state, cfg, sg, mesh, shard_plan, transport)
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed
 
         def deliver_words(tx_w, role_w, flags, kp, kq, rctl):
-            return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq, rctl)
+            return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq, rctl,
+                                                transport)
 
         def deliver_bool_factory(flags, seen_b):
             shim = _delivery_shim(state, flags, seen_b)
 
             def deliver(tx, tr, rc, kp, kq, rctl):
-                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl)
+                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport)
 
             return deliver
 
-        return run_protocol_round_packed(state, cfg, deliver_words, deliver_bool_factory, **later)
+        out = run_protocol_round_packed(state, cfg, deliver_words, deliver_bool_factory, **planes)
+        return (*out, _ici_bucketed_packed(state, cfg, sg, transport, planes.get("scenario"))) if collect_ici else out
 
     def disseminate(tx, tr, rc, kp, kq, rctl):
-        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl)
+        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport)
 
-    return run_protocol_round(state, cfg, disseminate, **later)
+    out = run_protocol_round(state, cfg, disseminate, **planes)
+    if not collect_ici:
+        return out
+    from tpu_gossip_torch.sim.stages import effective_transmit_planes
+
+    # the fault-free single-pass model on the round's issued (post-blackout) plane
+    tx_eff, transmitter, _ = effective_transmit_planes(state, cfg, planes.get("scenario"))
+    return (*out, _ici_bucketed(state, cfg, sg, transport, tx_eff, transmitter))
 
 
-def simulate_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, num_rounds: int,
-                  shard_plan: ShardPlans | None = None, **later):
+def _ici_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, transport, transmit, transmitter):
+    """The analytic counter's view of one bucketed round: the plane masks
+    the exchange applies, reduced to per-row nonzero indicators."""
+    from tpu_gossip_torch.dist.transport import ici_round_bucketed
+
+    rewiring = cfg.rewire_slots > 0 and cfg.mode in ("push", "push_pull")
+    merged = cfg.mode == "push_pull" and not cfg.forward_once
+    tx_any, ans_any = transmit.any(-1), None
+    if cfg.mode != "flood":
+        if rewiring:
+            tx_any = tx_any & ~state.rewired
+        if cfg.mode == "push_pull" and not merged:
+            ans_any = (state.seen & transmitter).any(-1)
+            if rewiring:
+                ans_any = ans_any & ~state.rewired
+    return ici_round_bucketed(sg, transport, packed_width(cfg.msg_slots), tx_any, ans_any, merged)
+
+
+def _ici_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, transport, scenario):
+    """:func:`_ici_bucketed` off the packed words (the head without the
+    quarantine mask, as the fault-free model reads transmit)."""
+    from tpu_gossip_torch.dist.transport import ici_round_bucketed
+    from tpu_gossip_torch.kernels import packed_ops as po
+    from tpu_gossip_torch.sim.packed_engine import _decode_flags, packed_round_head
+
+    flags = _decode_flags(ps)
+    _, role_w, tx_w = packed_round_head(ps, cfg, flags, None)
+    if scenario is not None and scenario.has_blackout:
+        tx_w = po.mask_rows(tx_w, ~scenario.at_round(ps.round + 1).blackout)
+    rewiring = cfg.rewire_slots > 0 and cfg.mode in ("push", "push_pull")
+    merged = cfg.mode == "push_pull" and not cfg.forward_once
+    tx_any, ans_any = po.rows_any(tx_w), None
+    if cfg.mode != "flood":
+        if rewiring:
+            tx_any = tx_any & ~flags["rewired"]
+        if cfg.mode == "push_pull" and not merged:
+            ans_any = po.rows_any(po.and_words(ps.seen, role_w))
+            if rewiring:
+                ans_any = ans_any & ~flags["rewired"]
+    return ici_round_bucketed(sg, transport, packed_width(cfg.msg_slots), tx_any, ans_any, merged)
+
+
+def _stack_ici(rows: list):
+    from tpu_gossip_torch.dist.transport import IciRound
+
+    return IciRound(*(torch.stack([getattr(r, f) for r in rows]) for f in IciRound._fields))
+
+
+def simulate_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, num_rounds: int,
+                  shard_plan: ShardPlans | None = None, *, collect_ici: bool = False, **planes):
     """A fixed horizon of sharded rounds; returns the final state and the
-    per-round stats stacked along a leading (num_rounds,) axis."""
+    per-round stats stacked along a leading (num_rounds,) axis; with
+    ``collect_ici``, ``(state, (stats, ici))``, the counters stacked too."""
     from tpu_gossip_torch.sim.engine import _stack
     from tpu_gossip_torch.sim.stages import host_cursor, next_host_key
 
-    r0, hkey = host_cursor(state, later)
-    rows = []
+    r0, hkey = host_cursor(state, planes)
+    rows, icis = [], []
     for i in range(num_rounds):
-        state, st = gossip_round_dist(state, cfg, sg, mesh, shard_plan, host_round=None if r0 is None else r0 + i,
-                                      host_rng=hkey, **dict(later))
+        out = gossip_round_dist(state, cfg, sg, mesh, shard_plan, collect_ici=collect_ici,
+                                host_round=None if r0 is None else r0 + i, host_rng=hkey, **dict(planes))
+        state, st = out[0], out[1]
+        if collect_ici:
+            icis.append(out[2])
         hkey = next_host_key(hkey)
         rows.append(st)
+    if collect_ici:
+        return state, (_stack(rows), _stack_ici(icis))
     return state, _stack(rows)
 
 
-def run_until_coverage_dist(state, cfg: SwarmConfig, sg: ShardedGraph, mesh: Mesh, target: float = 0.99,
-                            max_rounds: int = 1000, slot: int = 0, shard_plan: ShardPlans | None = None,
-                            **later):
+def run_until_coverage_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, target: float = 0.99,
+                            max_rounds: int = 1000, slot: int = 0, shard_plan: ShardPlans | None = None, *,
+                            collect_ici: bool = False, **planes):
     """Sharded rounds until ``coverage(slot) >= target`` (compared in
     float32) or ``max_rounds``, reading the stop condition on the host once
-    a round; rounds used = ``result.round - state.round``."""
+    a round; rounds used = ``result.round - state.round``. With
+    ``collect_ici``, ``(state, IciTotals)``: the counters summed over the
+    rounds."""
+    from tpu_gossip_torch.dist.transport import accumulate_ici, zero_ici_totals
     from tpu_gossip_torch.sim.stages import host_cursor, next_host_key
 
     start = state.round
-    r0, hkey = host_cursor(state, later)
+    r0, hkey = host_cursor(state, planes)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
+    tot = zero_ici_totals(state.seen.device) if collect_ici else None
     s, i = state, 0
     while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
-        s, _ = gossip_round_dist(s, cfg, sg, mesh, shard_plan, host_round=None if r0 is None else r0 + i,
-                                 host_rng=hkey, **dict(later))
+        out = gossip_round_dist(s, cfg, sg, mesh, shard_plan, collect_ici=collect_ici,
+                                host_round=None if r0 is None else r0 + i, host_rng=hkey, **dict(planes))
+        s = out[0]
+        if collect_ici:
+            tot = accumulate_ici(tot, out[2])
         hkey = next_host_key(hkey)
         i += 1
-    return s
+    return (s, tot) if collect_ici else s

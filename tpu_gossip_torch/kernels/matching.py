@@ -13,6 +13,12 @@ drawn with the same threefry keys as the JAX package. ``msgs`` counts the
 delivered slot-bits per fired edge plus one request per fired pull edge of
 a receptive puller, in int32. The adaptive controller's hooks
 (``fanout``, ``pull_gate``, ``pull_needy_rows``) move only the gates.
+With ``words`` the slot planes are a packed state's (n, W) uint8 bit
+words, moved four to an int32 word, and so is the product.
+
+The partner pass is the plan's own (``MatchingPlan.partner``): the fused
+local pipeline, or on a mesh the sharded passes its ``route`` names, so
+the sharded engine runs this delivery unchanged.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
+from tpu_gossip_torch.core.packed import packed_width, words8_to_words32, words32_to_words8
 from tpu_gossip_torch.kernels.pallas_segment import (_slot_groups, check_control_hooks, pack_words, popcount,
                                                      unpack_words)
 
@@ -36,17 +43,29 @@ def _pad_rows(x: torch.Tensor, n_state: int) -> torch.Tensor:
     return x
 
 
-def matching_flood(plan: MatchingPlan, transmit: torch.Tensor, m: int) -> torch.Tensor:
+def _group_words(x: torch.Tensor, m: int, words: bool) -> list[torch.Tensor]:
+    """(n,) int32 words of each 32-slot group of ``x``: bool (n, m) slots,
+    or the packed (n, W) uint8 words with ``words``."""
+    if words:
+        w32 = words8_to_words32(x)
+        return [w32[:, g] for g in range(w32.shape[1])]
+    return [pack_words(x[:, lo : lo + w]) for lo, w in _slot_groups(m)]
+
+
+def _ungroup(outs: list[torch.Tensor], m: int, words: bool) -> torch.Tensor:
+    if words:
+        return words32_to_words8(torch.stack(outs, dim=1), packed_width(m))
+    parts = [unpack_words(o, w) for o, (_, w) in zip(outs, _slot_groups(m))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def matching_flood(plan: MatchingPlan, transmit: torch.Tensor, m: int, *, words: bool = False) -> torch.Tensor:
     """incoming[i] = OR over neighbours j of transmit[j] (flood delivery)."""
-    n_state = transmit.shape[0]
     outs = []
-    for lo, w in _slot_groups(m):
-        words = pack_words(transmit[: plan.n, lo : lo + w])
-        across = plan.partner(plan.expand(words))
-        across = torch.where(plan.valid, across, 0)
-        outs.append(unpack_words(plan.reduce(across, "or"), w))
-    inc = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return _pad_rows(inc, n_state)
+    for txg in _group_words(transmit[: plan.n], m, words):
+        across = torch.where(plan.valid, plan.partner(plan.expand(txg)), 0)
+        outs.append(plan.reduce(across, "or"))
+    return _pad_rows(_ungroup(outs, m, words), transmit.shape[0])
 
 
 def matching_sampled(
@@ -62,9 +81,12 @@ def matching_sampled(
     fanout: torch.Tensor | None = None,
     pull_gate: torch.Tensor | None = None,
     pull_needy_rows: torch.Tensor | None = None,
+    words: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sampled (push / push-pull) delivery; returns ``(incoming (n_state, m)
-    bool, msgs_sent int32)``. ``answer=None`` answers pulls with
+    bool, msgs_sent int32)``, the incoming (n_state, W) uint8 words with
+    ``words`` (``transmit`` and ``answer`` words too; ``receptive_rows``
+    stays a row mask). ``answer=None`` answers pulls with
     ``transmit``; ``receptive_rows`` (n_state,) gates the pull half by the
     puller and zeroes non-receptive rows' deliveries.
 
@@ -95,28 +117,27 @@ def matching_sampled(
         if pull_needy_rows is not None:
             active_q = active_q & (plan.expand(pull_needy_rows[: plan.n].to(torch.int32)) > 0)
         pull_bill = active_q.to(torch.int32)
+    tx_groups = _group_words(transmit[: plan.n], m, words)
+    ans_groups = (_group_words(answer[: plan.n], m, words) if do_pull and answer is not None
+                  else [None] * len(tx_groups))
     outs = []
-    for lo, w in _slot_groups(m):
-        tx_words = pack_words(transmit[: plan.n, lo : lo + w])
-        slot_tx = plan.partner(plan.expand(tx_words))
+    for txg, ansg in zip(tx_groups, ans_groups):
+        slot_tx = plan.partner(plan.expand(txg))
         combined = torch.zeros(shape, dtype=torch.int32, device=transmit.device)
         if do_push:
             wp = torch.where(active_p, slot_tx, 0)
             combined = combined | wp
             msgs = msgs + popcount(wp).sum()
         if do_pull:
-            slot_ans = (
-                slot_tx
-                if answer is None
-                else plan.partner(plan.expand(pack_words(answer[: plan.n, lo : lo + w])))
-            )
+            slot_ans = slot_tx if ansg is None else plan.partner(plan.expand(ansg))
             wq = torch.where(active_q, slot_ans, 0)
             combined = combined | wq
             pull_bill = pull_bill + popcount(wq)
-        outs.append(unpack_words(plan.reduce(combined, "or"), w))
-    incoming = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        outs.append(plan.reduce(combined, "or"))
+    incoming = _ungroup(outs, m, words)
     if rec_rows_n is not None:
-        incoming = incoming & rec_rows_n[:, None]
+        rec = rec_rows_n[:, None]
+        incoming = torch.where(rec, incoming, 0) if words else incoming & rec
     if do_pull:
         if rec_slots is not None:
             pull_bill = torch.where(rec_slots, pull_bill, 0)

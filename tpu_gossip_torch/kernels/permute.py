@@ -15,8 +15,14 @@ node-major, and writes zeros on its node gaps; :func:`fold_planes`, the
 counterpart of the JAX function, is the same kernel on one class.
 
 Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
-for CUDA tensors it launches the kernel or raises. The sharded transpose
-variants belong to a later slice.
+for CUDA tensors it launches the kernel or raises.
+
+On a mesh (``apply_pipeline(..., n_shards=S)``) the (R, 128) slot data is
+S stacked (per, 128) shard blocks: a lane stage stays one K1 launch over
+all S·per rows (the lane tables are row blocks of the global table), and
+each transpose stage is :func:`transpose_pass_sharded` or
+:func:`untranspose_pass_sharded`, built on the mesh's one exchange
+(``dist/mesh.py::all_to_all``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ __all__ = [
     "tinv_lane_shuffle_plain",
     "transpose_pass",
     "untranspose_pass",
+    "transpose_pass_sharded",
+    "untranspose_pass_sharded",
     "fuse_stages",
     "apply_pipeline",
     "inverse_tables",
@@ -126,6 +134,42 @@ def untranspose_pass(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(128, r).t().contiguous()
 
 
+def _lane_width(n_shards: int) -> int:
+    if n_shards < 1 or 128 % n_shards:
+        raise ValueError(f"transpose sharding needs 128 % n_shards == 0, got {n_shards}")
+    return 128 // n_shards
+
+
+def transpose_pass_sharded(x: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """:func:`transpose_pass` over the stacked (S, per, 128) shard blocks
+    of a global (R, 128) array: each shard splits its block's lanes into S
+    pieces, the exchange hands shard d every shard's d-th piece (the (R,
+    128/S) lane slab d of the global array, source-major), and a local
+    transpose-reshape orders the slab column-major. Returns (S, per, 128)."""
+    from tpu_gossip_torch.dist.mesh import all_to_all
+
+    s, per, _ = x.shape
+    if s != n_shards:
+        raise ValueError(f"{s} stacked blocks for a {n_shards}-shard mesh")
+    w = _lane_width(s)
+    slab = all_to_all(x.view(s, per, s, w).transpose(1, 2))  # (S_dst, S_src, per, w)
+    return slab.view(s, s * per, w).transpose(1, 2).reshape(s, per, 128)
+
+
+def untranspose_pass_sharded(x: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Inverse of :func:`transpose_pass_sharded`: the local un-reshape to
+    each shard's (R, 128/S) lane slab of the output, the exchange of its
+    S row pieces, and the lanes concatenated in source order."""
+    from tpu_gossip_torch.dist.mesh import all_to_all
+
+    s, per, _ = x.shape
+    if s != n_shards:
+        raise ValueError(f"{s} stacked blocks for a {n_shards}-shard mesh")
+    w = _lane_width(s)
+    slab = x.view(s, w, s * per).transpose(1, 2).reshape(s, s, per, w)  # (S_src, S_dst, per, w)
+    return all_to_all(slab).transpose(1, 2).reshape(s, per, 128)
+
+
 def inverse_tables(idx: torch.Tensor) -> torch.Tensor:
     """Per-row inverse permutation table, dtype-preserving (plan time)."""
     return torch.argsort(idx.to(torch.int32), dim=1, stable=True).to(idx.dtype)
@@ -152,12 +196,20 @@ def fuse_stages(stages: tuple) -> tuple:
 
 
 _STAGE_OPS = {"lane": lane_shuffle, "lane_t": lane_shuffle_t, "tinv_lane": tinv_lane_shuffle}
+_SHARDED_T = {"t": transpose_pass_sharded, "tinv": untranspose_pass_sharded}
 
 
-def apply_pipeline(x: torch.Tensor, stages: tuple) -> torch.Tensor:
+def apply_pipeline(x: torch.Tensor, stages: tuple, *, n_shards: int | None = None, lanes: tuple | None = None
+                   ) -> torch.Tensor:
     """Apply a ("lane", table) / ("t",) / ("tinv",) stage tuple to (R, 128)
     slot data, left to right, as data operations; each shuffle beside a
-    transpose runs fused (:func:`fuse_stages`)."""
+    transpose runs fused (:func:`fuse_stages`). With ``n_shards`` the data
+    is that many stacked shard blocks: each lane stage is one K1 launch
+    over all rows and each transpose one sharded pass, or, where ``lanes``
+    (one entry a transpose stage, a transport's gate decision) names a
+    compact lane, that lane's ``lane(kind, blocks)``."""
+    if n_shards is not None:
+        return _apply_pipeline_sharded(x, stages, n_shards, lanes)
     for stage in fuse_stages(stages):
         kind = stage[0]
         if kind in _STAGE_OPS:
@@ -169,6 +221,26 @@ def apply_pipeline(x: torch.Tensor, stages: tuple) -> torch.Tensor:
         else:
             raise ValueError(f"unknown stage kind {kind!r}")
     return x
+
+
+def _apply_pipeline_sharded(x: torch.Tensor, stages: tuple, s: int, lanes: tuple | None) -> torch.Tensor:
+    r = x.shape[0]
+    ti = 0
+    for stage in stages:
+        kind = stage[0]
+        if kind == "lane":
+            x = lane_shuffle(x.view(r, 128), stage[1])
+            continue
+        if kind not in _SHARDED_T:
+            raise ValueError(f"unknown stage kind {kind!r}")
+        lane = None if lanes is None else lanes[ti]
+        ti += 1
+        blocks = x.view(s, r // s, 128)
+        x = _SHARDED_T[kind](blocks, s) if lane is None else lane(kind, blocks)
+    if lanes is not None and ti != len(lanes):
+        raise ValueError(f"{len(lanes)} transpose-stage lanes but the pipeline has {ti} transposes — rebuild the "
+                         "transport from this plan")
+    return x.reshape(r, 128)
 
 
 # K2's work table (csrc/fold_planes.cu): one entry (row, k0, k1, kind) a

@@ -49,8 +49,10 @@ import types
 import torch
 
 from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
+from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
 from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, control_stages, fault_round,
                                         pipeline_swap, require_quorum, resolve_control, row_stages, run_stages,
                                         stream_stages)
@@ -96,16 +98,21 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
                               plan=None, rctl=None):
     """Single-device packed dissemination; returns ``(inc_w, msgs_sent)``.
 
-    Word-native for exactly-k push and push-pull over the CSR (no plan, no
-    re-wiring): the push half decodes the payload for the scatter alone,
-    the pull half gathers and ORs words, and the bill is popcounts. Every
-    other cell runs the bool engine's delivery on decoded planes and packs
-    the product. ``rctl`` is the controller's round decision, taken as the
-    bool engine takes it."""
+    Word-native without re-wiring for exactly-k push and push-pull over
+    the CSR (the push half decodes the payload for the scatter alone, the
+    pull half gathers and ORs words, the bill is popcounts) and for a
+    ``MatchingPlan`` (its pipeline moves the state's words, four to an
+    int32 word). Every other cell runs the bool engine's delivery on
+    decoded planes and packs the product. ``rctl`` is the controller's
+    round decision, taken as the bool engine takes it."""
     from tpu_gossip_torch.kernels.gossip import push_fanout, sample_fanout_targets
     from tpu_gossip_torch.sim import engine as _engine
 
     m = ps.msg_slots
+    gated = cfg.mode == "flood" or (getattr(plan, "fanout", None) is not None
+                                    and getattr(plan, "deg_other", None) is not None)
+    if isinstance(plan, MatchingPlan) and cfg.rewire_slots == 0 and gated:
+        return _matching_words(ps, cfg, role_w, tx_w, k_push, k_pull, plan, rctl)
     word_native = plan is None and cfg.rewire_slots == 0 and cfg.mode in ("push", "push_pull")
     if not word_native:
         role_b = unpack_bits(role_w, m)
@@ -132,6 +139,31 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
         shipped = po.popcount_rows(answer_w)[ptgt[:, 0].to(torch.int64)] * pull_ok[:, 0]
         msgs_sent = msgs_sent + pull_ok.sum() + shipped.sum()
     return inc_w, msgs_sent.to(torch.int32)
+
+
+def _matching_words(ps: PackedSwarm, cfg, role_w, tx_w, k_push, k_pull, plan: MatchingPlan, rctl):
+    """The matching plan's delivery on the words (no re-wiring): the bool
+    engine's key splits and masks (``kernel_path_masks`` without rewired
+    rows), its billing, bit for bit."""
+    m = ps.msg_slots
+    inc_w = torch.zeros_like(ps.seen)
+    msgs = torch.zeros((), dtype=torch.int64, device=ps.seen.device)
+    if cfg.mode in ("push", "push_pull"):
+        if plan.fanout != cfg.fanout:
+            raise ValueError(f"plan built for fanout={plan.fanout} but cfg.fanout={cfg.fanout}")
+        kp = prng.split(k_push)[0]  # the bool delivery's splits (the re-wiring children go unused)
+        answer_w = po.and_words(ps.seen, role_w) if cfg.forward_once else None
+        inc_w, n = matching_sampled(
+            plan, tx_w, answer_w, m, kp, receptive_rows=po.rows_any(role_w), do_push=True,
+            do_pull=cfg.mode == "push_pull", fanout=None if rctl is None else rctl.m_eff,
+            pull_gate=None if rctl is None else rctl.pull_on, pull_needy_rows=None if rctl is None else rctl.needy,
+            words=True)
+        msgs = msgs + n
+    if cfg.mode == "flood":
+        inc_w = po.or_words(inc_w, matching_flood(plan, tx_w, m, words=True))
+        deg = ps.row_ptr[1:] - ps.row_ptr[:-1]
+        msgs = msgs + (po.popcount_rows(tx_w).to(torch.int64) * deg).sum()
+    return inc_w, msgs.to(torch.int32)
 
 
 def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:

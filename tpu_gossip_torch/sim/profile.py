@@ -211,7 +211,7 @@ def shard_stage_times(state, cfg, sg, mesh, plan, reps: int) -> dict:
 
     keys = shard_keys()
     active, acts = dist.mesh.activation(sg, keys, "push_pull", cfg.fanout)
-    payload = dist.mesh.send_payload(transmit, sg, active, acts)
+    payload = dist.mesh.send_payload(dist.mesh.payload_words(transmit, sg), active, acts)
     received = dist.mesh.all_to_all(payload)
     words, _ = dist.mesh.bill(received, packed_width(m))
     head, tail = _common_stages(state, cfg, None)
@@ -219,7 +219,7 @@ def shard_stage_times(state, cfg, sg, mesh, plan, reps: int) -> dict:
         "key_splits": lambda: torch.stack([prng.split(k) for k in shard_keys()]),
         "roles_transmit": head["roles_transmit"],
         "draws_gates": lambda: dist.mesh.activation(sg, keys, "push_pull", cfg.fanout),
-        "send_gather_payload": lambda: dist.mesh.send_payload(transmit, sg, active, acts),
+        "send_gather_payload": lambda: dist.mesh.send_payload(dist.mesh.payload_words(transmit, sg), active, acts),
         "exchange": lambda: dist.mesh.all_to_all(payload),
         "bill": lambda: dist.mesh.bill(received, packed_width(m)),
         "receive_k6" if plan is not None else "receive_scatter": lambda: dist.mesh.receive(words, sg, plan, m),
