@@ -152,8 +152,23 @@ leaf; 14e the eleven
 n=20000 sharded matching pins of ``reference_pins.json`` through the CLI
 on an 8-shard mesh (dense, sparse, auto packed, the dist builder, churn,
 split-brain, the siege at quorum 3, growth, a stream, the controller, a
-depth-1 pipeline). It prints phase 13's and 14's seconds and the
-script's. Each check of a checkpoint written on one device and
+depth-1 pipeline). Phase 15, serving (``serve/``, ``traffic/ingest.py``,
+``run_sim serve``): 15a K3 at ``bench_serve``'s 1,000,001 x 32 and the
+headline's x 16 and K4 x 16 against their plain versions; 15b
+``bench.py::bench_serve``'s configuration (``device_powerlaw_graph(1M)``,
+32 slots, push_pull fanout 2, a rate-0 stream, windows of 1024, 12
+unpaced rounds) live under 8 loopback clients x 400 lines, a warm-up,
+then unloaded and loaded runs in turns on one state, each trace's rounds
+and offered arrivals checked and K3 counted from 0 (one a round), the
+loaded run replayed bit for bit on the card and one QUERY answered with a
+round, the replay's first rounds under ``torch.profiler``, the ingest
+stage at a full window, and every host synchronisation of a served round
+(``torch.cuda.set_sync_debug_mode``); 15c a numpy-seeded 1M trace
+(``serve/trace.py::scripted_trace``) replayed onto ``reference_pins.json``'s
+JAX pin; 15d ``run_sim serve`` on the 1M matching graph, packed and on the
+one-card mesh under the same load, each with ``--replay-check``, the live
+rounds' launches counted apart from the replay's (K1 7, K2 1, K3 or K4 1
+a round). It prints phase 13's, 14's and 15's seconds and the script's. Each check of a checkpoint written on one device and
 resumed on the other (8e, 9c, 10d, 11d, 12d) runs its two directions at
 once, and 10c runs the first 32 rounds of ``bench_grow``'s schedule, to
 keep the script inside its time.
@@ -3567,6 +3582,461 @@ def phase_mesh(root: Path, dev, card: str, gen, one: dict) -> dict:
     return out
 
 
+# ---------------------------------- phase 15: serving (ROADMAP item 12)
+
+# bench.py::bench_serve's configuration: the swarm, the load and the run
+BENCH_SERVE = dict(n=1_000_000, gamma=2.5, msg_slots=32, fanout=2, max_inject=1024, rounds=12, clients=8,
+                   msgs_per_client=400)
+# the matching engines under the same load through the CLI (15d), with
+# bench_serve's window; paced at 20 rounds/s so the clients' lines land
+# inside the 12 windows
+SERVE_CLI = ["--peers", "1000000", "--graph", "matching", "--mode", "push_pull", "--fanout", "1", "--slots", "16",
+             "--rounds", "12", "--replay-check", "--quiet", "--rounds-per-sec", "20", "--max-inject", "1024"]
+# a served round's launches: the exactly-k path (bench_serve) one tail; the
+# matching paths a partner pass (K1, 7 launches on the mesh), a reduce (K2)
+# and a tail (K3, K4 packed)
+SERVE_XLA_PATH = dict(XLA_PATH)
+SERVE_PROFILE_ROUNDS = 4  # the profiled replay's rounds: the loaded run's full windows land in rounds 1-3
+SERVE_MATCHING_PATH = dict(MATCHING_PATH)
+SERVE_PACKED_PATH = dict(PACKED_MATCHING_PATH)
+SERVE_MESH_PATH = dict(MESH_PATH)
+
+
+def check_served_tails(dev, gen, n_xla: int, n_matching: int) -> int:
+    """K3 at the served shapes (bench_serve's rows by 32 slots, the matching
+    headline's by 16) and K4 at the packed matching rows by 16 slots, each
+    against its plain version, the stream's age-out mask live and absent,
+    forward-once and SIR off and on."""
+    from tpu_gossip_torch.core.packed import pack_bits
+    from tpu_gossip_torch.kernels.round_tail import round_tail_words, tail_fused, tail_kernel, tail_words_plain
+
+    err = 0
+    rnd = torch.tensor(9, dtype=torch.int32, device=dev)
+    for n, m in ((n_xla, BENCH_SERVE["msg_slots"]), (n_matching, M_SLOTS)):
+        ops = tail_operands(n, m, gen, dev, rnd=9)
+        args = (*(ops[k] for k in TAIL_PLANES), None, rnd)
+        for fo, sir, use_exp in ((False, 0, True), (False, 0, False), (True, 4, True)):
+            kw = dict(forward_once=fo, sir_recover_rounds=sir, expired=ops["expired"] if use_exp else None)
+            for a, b in zip(tail_kernel(*args, **kw), tail_fused(*args, **kw)):
+                err = max(err, max_err(a, b))
+            if m == M_SLOTS:
+                words = [pack_bits(ops[k]) if k != "infected_round" else ops[k] for k in TAIL_PLANES]
+                got = round_tail_words(*words, None, rnd, m=m, pallas=True, **kw)
+                want = tail_words_plain(*words, None, rnd, m=m, age_saturated=True, **kw)
+                for a, b in zip(got, want):
+                    err = max(err, max_err(a, b))
+    return err
+
+
+def serve_setup_1m(dev) -> dict:
+    """bench_serve's swarm on the card: ``device_powerlaw_graph(1M,
+    gamma=2.5, key 0)``, 32 slots, push_pull fanout 2, the state from key 0,
+    a rate-0 stream with ``ttl = int(1.5 * min_feasible_ttl(1M, 2))``, the
+    ingest plan (1024 a window, k = 1) and the serving step."""
+    import numpy as np
+
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+    from tpu_gossip_torch.serve import build_step
+    from tpu_gossip_torch.traffic import compile_stream, min_feasible_ttl
+    from tpu_gossip_torch.traffic.ingest import IngestPlan
+
+    c = BENCH_SERVE
+    t0 = time.perf_counter()
+    dg = device_powerlaw_graph(c["n"], gamma=c["gamma"], key=prng.key(0, dev), device=dev)
+    cfg = SwarmConfig(n_peers=dg.n_pad, msg_slots=c["msg_slots"], fanout=c["fanout"], mode="push_pull")
+    state = init_swarm(dg.as_padded_graph(), cfg, exists=dg.exists, key=prng.key(0, dev), device=dev)
+    ttl = int(1.5 * min_feasible_ttl(c["n"], c["fanout"]))
+    rows = np.flatnonzero(dg.exists.cpu().numpy())
+    strm = compile_stream(rate=0.0, msg_slots=c["msg_slots"], ttl=ttl, origin_rows=rows, device=dev)
+    plan = IngestPlan(msg_slots=c["msg_slots"], max_inject=c["max_inject"], k_hashes=1)
+    torch.cuda.synchronize(dev)
+    return dict(cfg=cfg, state=state, rows=rows, plan=plan, ttl=ttl, step=lambda: build_step(cfg, stream=strm),
+                build_s=time.perf_counter() - t0)
+
+
+def query_until_live(port: int, box: dict, timeout: float = 60.0) -> None:
+    """``QUERY status`` lines to the frontend until its snapshot holds a
+    round (``round`` >= 0) or the run ends: the last reply kept."""
+    import socket
+
+    from tpu_gossip_torch.serve.protocol import encode_query
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=10.0) as sock:
+                sock.sendall(encode_query("status"))
+                box["query"] = json.loads(sock.makefile().readline())
+        except (OSError, ValueError):
+            return
+        if box["query"].get("round", -1) >= 0:
+            return
+        time.sleep(0.01)
+
+
+def serve_run(dev, setup: dict, load: bool) -> dict:
+    """One served run of ``BENCH_SERVE["rounds"]`` unpaced windows on the
+    setup's state: with ``load``, the clients (8 x 400 lines, no jitter)
+    and a QUERY client race the windows, as bench_serve's do. Launches
+    counted from 0 and the device peak over the run; ms/round by wall, the
+    accepted rate, the driver's busy share (its wall less its waits on the
+    card's events)."""
+    import threading
+
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.serve import ServeDriver, ServeFrontend, run_load
+
+    c = BENCH_SERVE
+    fe = ServeFrontend(origin_rows=setup["rows"], max_inject=c["max_inject"], port=0)
+    fe.start()
+    box, threads = {}, []
+    try:
+        if load:
+            threads = [threading.Thread(target=lambda: box.update(load=run_load(
+                "127.0.0.1", fe.port, clients=c["clients"], msgs_per_client=c["msgs_per_client"], seed=0)),
+                daemon=True), threading.Thread(target=query_until_live, args=(fe.port, box), daemon=True)]
+            for t in threads:
+                t.start()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+        native.reset_launches()
+        driver = ServeDriver(setup["step"](), setup["state"], fe, setup["plan"], rounds=c["rounds"])
+        fe.query_snapshot = driver.snapshot
+        rep = driver.run()
+        torch.cuda.synchronize(dev)
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for t in threads:
+            t.join(timeout=120.0)
+    finally:
+        fe.stop()
+    return dict(rep=rep, launches=launches, peak=peak, start=start, counters=fe.counters.as_dict(),
+                ms=rep.wall_seconds * 1e3 / rep.rounds, busy=1.0 - rep.wait_seconds / rep.wall_seconds,
+                accepted_per_s=rep.trace.total_arrivals / rep.wall_seconds, load=box.get("load"),
+                query=box.get("query"))
+
+
+def check_served(what: str, r: dict, rounds: int, want: dict) -> None:
+    """A served run's trace has its rounds, every recorded arrival was
+    offered to the card (deferred is not dropped), and the path launched
+    what it must."""
+    rep = r["rep"]
+    if rep.trace.num_rounds != rounds:
+        raise AssertionError(f"{what}: trace holds {rep.trace.num_rounds} rounds, needs {rounds}")
+    if int(rep.stats.ingest_offered.sum()) != rep.trace.total_arrivals:
+        raise AssertionError(f"{what}: ingest_offered {int(rep.stats.ingest_offered.sum())} != the trace's "
+                             f"{rep.trace.total_arrivals} arrivals")
+    check_launches(what, r["launches"], want, rounds)
+
+
+def full_window(setup: dict, dev, seed: int):
+    """A full window (``max_inject`` arrivals at seeded member rows with
+    seeded payload hashes) of the setup's ingest plan on ``dev``."""
+    import numpy as np
+
+    from tpu_gossip_torch.traffic.ingest import make_batch
+
+    j = setup["plan"].max_inject
+    rng = np.random.default_rng(seed)
+    return make_batch(setup["plan"], setup["rows"][rng.integers(0, len(setup["rows"]), j)],
+                      [int(h) for h in rng.integers(0, 2**62, j)], device=dev)
+
+
+def served_round_syncs(dev, setup: dict, state) -> list[str]:
+    """Every host synchronisation two chained served rounds make, a full
+    window landed in each (the step's one read of the state's round and key
+    made before): ``torch.cuda.set_sync_debug_mode`` warns at each, and the
+    port's innermost frame of each warning's stack is kept."""
+    import traceback
+    import warnings
+
+    batch = full_window(setup, dev, 1)
+    step = setup["step"]()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize(dev)
+    sites = set()
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            frames = [f for f in stack if "tpu_gossip_torch" in f.filename] or stack[-3:]
+            sites.add(" <- ".join(f"{Path(f.filename).parent.name}/{Path(f.filename).name}:{f.lineno} ({f.line})"
+                                  for f in reversed(frames[-3:])))
+
+    torch.cuda.set_sync_debug_mode("warn")  # (its own notice is not a synchronisation)
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        try:
+            for _ in range(2):
+                state, _ = step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+    return sorted(sites)
+
+
+def ingest_window_ms(dev, setup: dict, state) -> dict:
+    """The ingest stage at a full window (``max_inject`` arrivals) on the
+    served state: ``apply_arrivals`` alone (unpacked states), and a whole
+    served round with the full window against one with an empty window
+    (CUDA events around back-to-back calls: the larger of the device's time
+    and the host's launches)."""
+    from tpu_gossip_torch.core.packed import is_packed
+    from tpu_gossip_torch.traffic.ingest import apply_arrivals, empty_batch
+
+    full = full_window(setup, dev, 2)
+    rnd = state.round + 1
+
+    def land():
+        return apply_arrivals(full, rnd, seen=state.seen, infected_round=state.infected_round,
+                              slot_lease=state.slot_lease, exists=state.exists, alive=state.alive,
+                              declared_dead=state.declared_dead)
+
+    step = setup["step"]()
+    zero = empty_batch(setup["plan"], dev)
+    return dict(apply_arrivals_ms=None if is_packed(state) else loop_ms(land, iters=5),
+                round_full_ms=loop_ms(lambda: step(state, full), iters=5),
+                round_empty_ms=loop_ms(lambda: step(state, zero), iters=5))
+
+
+def matching_setup(dev, extra: list[str]) -> dict:
+    """The 15d swarm ``run_sim serve`` builds for ``SERVE_CLI + extra``
+    (``_serve_swarm``, the rate-0 stream, the step), for its served-round
+    timings apart from the CLI's run."""
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.core.packed import pack_state
+    from tpu_gossip_torch.serve import build_step
+    from tpu_gossip_torch.traffic import compile_stream
+    from tpu_gossip_torch.traffic.ingest import IngestPlan
+
+    p = run_sim.build_parser()
+    run_sim._add_serve_args(p)
+    args = p.parse_args(SERVE_CLI + extra + ["--device", str(dev)])
+    cfg, plan, mesh, rows, make_state = run_sim._serve_swarm(args, dev)
+    strm = compile_stream(rate=0.0, msg_slots=args.slots, ttl=args.slot_ttl, origin_rows=rows, device=dev)
+    state = make_state()
+    return dict(cfg=cfg, state=pack_state(state) if args.packed else state, rows=rows,
+                plan=IngestPlan(msg_slots=args.slots, max_inject=args.max_inject, k_hashes=args.stream_hashes),
+                step=lambda: build_step(cfg, plan, mesh=mesh, stream=strm))
+
+
+def serve_cli_run(root: Path, dev, argv: list[str], want: dict) -> dict:
+    """``run_sim serve`` in this process under bench_serve's load (8 x 400
+    lines, the clients connecting once the frontend listens), the live
+    rounds' launches counted from 0 apart from the replay's; the summary,
+    the launches, the live run's ms/round, peak and the driver's busy
+    share."""
+    import contextlib
+    import io
+    import socket
+    import threading
+
+    from tpu_gossip_torch.cli import run_sim
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.serve import ServeDriver, run_load
+
+    c = BENCH_SERVE
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    box, live = {}, {}
+
+    def clients():
+        deadline = time.monotonic() + 300.0
+        while time.monotonic() < deadline:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+                break
+            except OSError:
+                time.sleep(0.01)
+        box["load"] = run_load("127.0.0.1", port, clients=c["clients"], msgs_per_client=c["msgs_per_client"],
+                               seed=0)
+
+    plain_run = ServeDriver.run
+
+    def counted(self):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        live["start"] = torch.cuda.memory_allocated(dev)
+        native.reset_launches()
+        rep = plain_run(self)
+        torch.cuda.synchronize(dev)
+        live.update(launches=dict(native.LAUNCHES), peak=torch.cuda.max_memory_allocated(dev),
+                    busy=1.0 - rep.wait_seconds / rep.wall_seconds)
+        native.reset_launches()
+        return rep
+
+    t = threading.Thread(target=clients, daemon=True)
+    t.start()
+    ServeDriver.run = counted
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = run_sim.main(["serve", *argv, "--port", str(port), "--device", str(dev)])
+        torch.cuda.synchronize(dev)
+    finally:
+        ServeDriver.run = plain_run
+    t.join(timeout=120.0)
+    if rc != 0:
+        raise AssertionError(f"run_sim serve {' '.join(argv)} exited {rc}: {err.getvalue()[-2000:]}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    replay_launches = dict(native.LAUNCHES)
+    rounds = summary["rounds_run"]
+    check_launches(f"served {' '.join(argv[-4:])}", live["launches"], want, rounds)
+    check_launches(f"replayed {' '.join(argv[-4:])}", replay_launches, want, rounds)
+    if not summary["replay"]["bit_identical"]:
+        raise AssertionError(f"run_sim serve {' '.join(argv)}: the replay diverged")
+    sv = summary["serve"]
+    if sv["ingest_offered"] != sv["trace_arrivals"] or sv["trace_rounds"] != rounds:
+        raise AssertionError(f"run_sim serve {' '.join(argv)}: trace {sv['trace_rounds']} rounds, "
+                             f"{sv['trace_arrivals']} arrivals, {sv['ingest_offered']} offered")
+    return dict(summary=summary, launches={k: v for k, v in live["launches"].items() if v}, peak=live["peak"],
+                start=live["start"], busy=live["busy"], load=box.get("load"), call_s=time.perf_counter() - t0)
+
+
+def serve_line(card: str, what: str, r: dict) -> str:
+    rep = r["rep"]
+    st = rep.stats
+    return (f"[{card}] {what}: {r['ms']} ms/round by wall over {rep.rounds} unpaced rounds, "
+            f"{rep.trace.total_arrivals} arrivals accepted ({r['accepted_per_s']} msgs/s accepted), ingest offered "
+            f"{int(st.ingest_offered.sum())} injected {int(st.ingest_injected.sum())} conflated "
+            f"{int(st.ingest_conflated.sum())} overflow {int(st.ingest_overflow.sum())} (by round "
+            f"{st.ingest_offered.tolist()}), driver busy share {r['busy']}, peak {r['peak']} B (from {r['start']} "
+            f"B), launches {({k: v for k, v in r['launches'].items() if v})}, frontend {r['counters']}")
+
+
+def serve_pin_replay(root: Path, setup: dict) -> dict:
+    """15c: ``reference_pins.json``'s ``serve_1m`` trace (``scripted_trace``
+    of its seed over bench_serve's members) replayed through the serving
+    step onto the JAX package's digests and ingest sums."""
+    from tpu_gossip_torch.serve import replay_trace, stack_round_stats
+    from tpu_gossip_torch.serve.trace import scripted_trace
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    pin = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())["serve_1m"]
+    trace = scripted_trace(setup["plan"], setup["rows"], pin["config"]["rounds"], pin["config"]["seed"])
+    fin, trail = replay_trace(trace, setup["step"](), setup["state"])
+    stats = stack_round_stats(trail)
+    got = dict(state_digest=state_digest(fin), stats_digest=stats_digest(stats), arrivals=trace.total_arrivals,
+               ingest={k: int(getattr(stats, f"ingest_{k}").sum()) for k in ("offered", "injected", "conflated",
+                                                                             "overflow")})
+    for k, v in got.items():
+        if v != pin[k]:
+            raise AssertionError(f"15c: {k} {v} != the JAX pin's {pin[k]} ({pin['source']})")
+    return got
+
+
+def phase_serve(root: Path, dev, card: str, gen) -> dict:
+    """Phase 15: the serving plane on the card (15a-15d)."""
+    from tpu_gossip_torch.serve import replay_trace, stack_round_stats
+    from tpu_gossip_torch.sim.profile import trace_rounds
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    parts = {}
+    c = BENCH_SERVE
+    t0 = time.perf_counter()
+    setup = serve_setup_1m(dev)
+    err = check_served_tails(dev, gen, setup["cfg"].n_peers, N_HEADLINE + 1)
+    torch.cuda.synchronize(dev)
+    print(f"[{card}] 15a: K3 at {setup['cfg'].n_peers} x {c['msg_slots']} and {N_HEADLINE + 1} x {M_SLOTS}, K4 at "
+          f"{N_HEADLINE + 1} x {M_SLOTS}, each equal to its plain version: max_abs_err {err}; bench_serve's swarm "
+          f"built in {setup['build_s']:.2f} s (ttl {setup['ttl']})", flush=True)
+    parts["15a"] = dict(seconds=time.perf_counter() - t0, err=err)
+
+    # 15b: bench_serve live, unloaded and loaded in turns on the same state
+    t0 = time.perf_counter()
+    turns = (("warm-up, unloaded", False), ("unloaded", False), ("loaded", True), ("loaded again", True),
+             ("unloaded again", False))
+    runs = {}
+    for what, load in turns:
+        runs[what] = r = serve_run(dev, setup, load)
+        check_served(f"bench_serve {what}", r, c["rounds"], SERVE_XLA_PATH)
+        print(serve_line(card, f"15b bench_serve n={c['n']} {what}", r), flush=True)
+    loaded = runs["loaded"]
+    quiet = [runs["unloaded"]["ms"], runs["unloaded again"]["ms"]]
+    busy = [runs["loaded"]["ms"], runs["loaded again"]["ms"]]
+    rep = loaded["rep"]
+    if rep.trace.total_arrivals == 0 or loaded["load"] is None or loaded["load"].errors:
+        raise AssertionError(f"15b: the load did not land: {loaded['load']}, {rep.trace.total_arrivals} arrivals")
+    q = loaded["query"]
+    if not isinstance(q, dict) or q.get("round", -1) < 0:
+        raise AssertionError(f"15b: the QUERY reply {q!r} holds no round")
+    live_sd, live_td = state_digest(rep.state), stats_digest(rep.stats)
+    fin2, trail = replay_trace(rep.trace, setup["step"](), setup["state"])
+    if (state_digest(fin2), stats_digest(stack_round_stats(trail))) != (live_sd, live_td):
+        raise AssertionError("15b: the replay of the live trace diverged on the card")
+    print(f"[{card}] 15b: the live run replays bit for bit on the card (state_digest {live_sd}, stats_digest "
+          f"{live_td}); QUERY status -> {q}; loaded {busy} against unloaded {quiet} ms/round: loaded/unloaded "
+          f"{sum(busy) / sum(quiet)}", flush=True)
+    marks = {"runs and replay": time.perf_counter() - t0}
+    # the profiler over the trace's first rounds (its full windows among them)
+    batches = list(rep.trace.batches(dev))[:SERVE_PROFILE_ROUNDS]
+    step = setup["step"]()
+    feed = iter(batches)
+    prof = trace_rounds(setup["state"], lambda s: step(s, next(feed)), len(batches))
+    marks["profiler"] = time.perf_counter() - t0
+    ingest = ingest_window_ms(dev, setup, rep.state)
+    marks["ingest"] = time.perf_counter() - t0
+    syncs = served_round_syncs(dev, setup, rep.state)
+    marks["syncs"] = time.perf_counter() - t0
+    print(f"[{card}] 15b replayed under torch.profiler ({len(batches)} rounds): {prof['wall_ms_per_round']} "
+          f"ms/round wall, "
+          f"{prof['device_ms_per_round']} ms device, device busy share {prof['device_busy_share']}, top kernels "
+          f"{prof['top_kernels_ms_per_round'][:8]}", flush=True)
+    print(f"[{card}] 15b ingest at a full window ({c['max_inject']} arrivals): apply_arrivals "
+          f"{ingest['apply_arrivals_ms']} ms, a served round {ingest['round_full_ms']} ms against "
+          f"{ingest['round_empty_ms']} ms with an empty window; host synchronisations in a served round: "
+          f"{len(syncs)} {syncs}; 15b's seconds so far by step {marks}", flush=True)
+    parts["15b"] = dict(seconds=time.perf_counter() - t0, loaded_ms=busy, unloaded_ms=quiet,
+                        accepted_per_s=[r["accepted_per_s"] for r in runs.values() if r["rep"].trace.total_arrivals],
+                        ingest=ingest, syncs=syncs, busy=loaded["busy"], device_busy=prof["device_busy_share"],
+                        peak=loaded["peak"], launches=loaded["launches"])
+
+    # 15c: a numpy-seeded 1M trace replayed on the card onto the JAX pin
+    t0 = time.perf_counter()
+    got = serve_pin_replay(root, setup)
+    print(f"[{card}] 15c: the seeded 1M trace ({got['arrivals']} arrivals, overflow {got['ingest']['overflow']}) "
+          f"replays on the card onto the JAX pin: state_digest {got['state_digest']}", flush=True)
+    parts["15c"] = dict(seconds=time.perf_counter() - t0)
+    del setup, runs, loaded, rep, fin2, trail, batches
+
+    # 15d: the matching engines through run_sim serve under the same load
+    t0 = time.perf_counter()
+    from tpu_gossip_torch.traffic import min_feasible_ttl
+
+    ttl = ["--slot-ttl", str(min_feasible_ttl(N_HEADLINE, 1, "push_pull"))]
+    cli = {}
+    for what, extra, want in (("local", [], SERVE_MATCHING_PATH), ("packed", ["--packed"], SERVE_PACKED_PATH),
+                              ("mesh S=1", ["--shard"], SERVE_MESH_PATH)):
+        r = serve_cli_run(root, dev, SERVE_CLI + ttl + extra, want)
+        s = r["summary"]
+        cli[what] = r
+        print(f"[{card}] 15d run_sim serve matching {what}: {s['serve']['ms_per_round']} ms/round paced, "
+              f"{s['serve']['trace_arrivals']} arrivals (overflow {s['serve']['ingest_overflow']}), replay "
+              f"bit_identical {s['replay']['bit_identical']}, driver busy share {r['busy']}, peak {r['peak']} B (from "
+              f"{r['start']} B), live launches {r['launches']}, coverage {s['final_coverage']}, state_digest "
+              f"{s['state_digest']}, {r['call_s']:.2f} s for the call", flush=True)
+        ms = matching_setup(dev, ttl + extra)
+        r["ingest"] = ingest_window_ms(dev, ms, ms["state"])
+        r["syncs"] = served_round_syncs(dev, ms, ms["state"])
+        del ms
+        print(f"[{card}] 15d {what}: a served round {r['ingest']['round_full_ms']} ms with a full window "
+              f"({c['max_inject']} arrivals) against {r['ingest']['round_empty_ms']} ms with an empty one"
+              + ("" if r["ingest"]["apply_arrivals_ms"] is None else
+                 f", apply_arrivals {r['ingest']['apply_arrivals_ms']} ms")
+              + f"; host synchronisations in a served round: {len(r['syncs'])} {r['syncs']}", flush=True)
+    parts["15d"] = dict(seconds=time.perf_counter() - t0, cli={k: dict(busy=v["busy"], peak=v["peak"],
+                                                                      launches=v["launches"], ingest=v["ingest"],
+                                                                      syncs=v["syncs"])
+                                                              for k, v in cli.items()})
+    return parts
+
+
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
     """Fail unless ``launches`` (counted from 0 over one path) are what the
     path must launch: per round, or at least once where ``want`` says None."""
@@ -3839,6 +4309,12 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     mesh = phase_mesh(root, dev, card, gen, one)
     print(f"[{card}] phase 14: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in mesh.items() if 'seconds' in v} }; the script "
+          f"{time.perf_counter() - t_script:.2f} s", flush=True)
+    # phase 15: serving (15a-15d)
+    t0 = time.perf_counter()
+    serve = phase_serve(root, dev, card, gen)
+    print(f"[{card}] phase 15: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in serve.items()} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

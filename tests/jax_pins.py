@@ -33,6 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
+from tpu_gossip_torch.serve.trace import scripted_windows  # noqa: F401 (a numpy generator both halves read)
+
 
 # the round tail's operand planes, in ``round_tail``'s argument order
 NAMES = ("seen", "forwarded", "infected_round", "recovered", "incoming", "receptive", "transmit")
@@ -955,6 +957,557 @@ STREAM_ENGINES_ONE_SHARD = {
     "silent": STREAM_C + ["--graph", "chung-lu", "--silent-frac", "0.1"] + STREAM_S,
 }
 
+def trace_windows(path: str) -> list:
+    """A saved serve trace's windows, ``[[(row, hash), ...], overflow]`` a
+    round, read from the JSONL (either package's)."""
+    with open(path) as fh:
+        lines = [json.loads(line) for line in fh if line.strip()][1:]
+    return [[list(zip(d["origins"], d["hashes"])), d["overflow"]] for d in lines]
+
+
+def windows_take(windows: list, rows: bool):
+    """A ``ServeFrontend.take_window`` that hands out ``windows`` in turn
+    (origins mapped through the frontend's origin table unless ``rows``),
+    billing each overflow as the frontend does; empty windows after."""
+    queue = list(windows)
+
+    def take_window(self):
+        if not queue:
+            return [], 0
+        window, overflow = queue.pop(0)
+        window = [(int(o) if rows else self.origin_rows[int(o)], int(h)) for o, h in window]
+        self.counters.overflow_billed += overflow
+        return window, overflow
+
+    return take_window
+
+
+SERVE_ASIDE = ("wall_seconds", "ms_per_round", "port", "trace_path")
+
+
+def serve_summary(summary: dict) -> dict:
+    """A ``run_sim serve`` summary with its timing and port keys aside."""
+    summary = dict(summary, serve={k: v for k, v in summary["serve"].items() if k not in SERVE_ASIDE})
+    return summary
+
+
+def serve_cli(shards: int, windows: list, rows: bool, *argv: str) -> dict:
+    """The JAX CLI's ``run_sim serve`` on ``argv`` (``make_mesh`` pinned to
+    ``shards`` of the forced host devices) with the frontend's windows
+    replaced by ``windows`` (:func:`windows_take`): its summary with the
+    timing and port keys aside, or a refused run's exit code and last
+    stderr line."""
+    import contextlib
+    import io
+
+    from tpu_gossip import dist
+    from tpu_gossip.cli import run_sim
+    from tpu_gossip.serve.frontend import ServeFrontend
+
+    make_mesh, take = dist.make_mesh, ServeFrontend.take_window
+    dist.make_mesh = lambda *a, **k: make_mesh(int(shards))
+    ServeFrontend.take_window = windows_take(windows, rows)
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = run_sim.main(["serve", *argv])
+    finally:
+        dist.make_mesh, ServeFrontend.take_window = make_mesh, take
+    if rc != 0:
+        return {"exit": rc, "stderr": err.getvalue().strip().splitlines()[-1]}
+    return serve_summary(json.loads(out.getvalue().strip().splitlines()[-1]))
+
+
+def serve_scripted(shards: int, seed: int, *argv: str) -> dict:
+    """:func:`serve_cli` on :func:`scripted_windows` of ``seed``, sized by
+    the argv's ``--rounds``, ``--max-inject`` and ``--peers``."""
+    return serve_cli(shards, argv_windows(seed, argv), False, *argv)
+
+
+def argv_windows(seed: int, argv) -> list:
+    """:func:`scripted_windows` sized by a serve argv's ``--rounds``,
+    ``--max-inject`` and ``--peers``."""
+    def flag(name, default=None):
+        return int(argv[list(argv).index(name) + 1]) if name in argv else default
+
+    return scripted_windows(seed, flag("--rounds"), flag("--max-inject", 64), flag("--peers"))
+
+
+def ingest_rules() -> dict:
+    """``tests/serve/test_ingest.py``'s engine cases run by the JAX package:
+    each case's state and stats digests (and the stats it asserts on)."""
+    import jax
+
+    from tpu_gossip.core.device_topology import device_powerlaw_graph
+    from tpu_gossip.core.packed import pack_state, unpack_state
+    from tpu_gossip.core.state import SwarmConfig, init_swarm, message_slots
+    from tpu_gossip.sim.engine import gossip_round
+    from tpu_gossip.traffic.ingest import IngestPlan, empty_batch, make_batch
+
+    dg = device_powerlaw_graph(INGEST_N, gamma=2.5, key=jax.random.key(0))
+    cfg = SwarmConfig(n_peers=dg.n_pad, msg_slots=INGEST_M, fanout=3, mode="push")
+    state = init_swarm(dg.as_padded_graph(), cfg, key=jax.random.key(0), origins=np.array([0]), exists=dg.exists)
+    out = {}
+    for name, (origins, hashes, overflow, k, packed) in ingest_cases(int(dg.n_pad), message_slots).items():
+        plan = IngestPlan(msg_slots=INGEST_M, max_inject=4, k_hashes=k)
+        batch = empty_batch(plan) if origins is None else make_batch(plan, origins, hashes, overflow=overflow)
+        fin, stats = gossip_round(pack_state(state) if packed else state, cfg, inject=batch)
+        fin = unpack_state(fin) if packed else fin
+        out[name] = {**_digests(fin, jax.tree.map(lambda a: a[None], stats)),
+                     "ingest": [int(getattr(stats, f"ingest_{c}")) for c in ("offered", "injected", "conflated",
+                                                                              "overflow")]}
+    return out
+
+
+INGEST_N, INGEST_M = 48, 8
+
+
+def ingest_cases(n_pad: int, message_slots) -> dict:
+    """The ingest rules' batches: ``(origins or None for the empty batch,
+    payload hashes, overflow, k, packed)``; the hashes are the ones
+    ``tests/serve/test_ingest.py`` picks (distinct k=1 slots, two on one
+    slot), found with the caller's ``message_slots``."""
+    distinct, seen_slots, h = [], set(), 1
+    while len(distinct) < 3:
+        sl = message_slots(h, INGEST_M, 1)[0]
+        if sl not in seen_slots:
+            seen_slots.add(sl)
+            distinct.append(h)
+        h += 1
+    by_slot, h = {}, 1
+    while True:
+        sl = message_slots(h, INGEST_M, 1)[0]
+        if sl in by_slot:
+            same = [by_slot[sl], h]
+            break
+        by_slot[sl] = h
+        h += 1
+    return {
+        "zero_batch": (None, [], 0, 1, False),
+        "overflow_billed": ([2], distinct[:1], 5, 1, False),
+        "land_and_latch": ([2, 3, 4], distinct, 0, 1, False),
+        "dead_origin": ([n_pad - 1], distinct[:1], 0, 1, False),
+        "same_slot_conflates": ([2, 3], same, 0, 1, False),
+        "k2_bloom_planes": ([5], [12345], 0, 2, False),
+        "packed_parity": ([2, 9, 11], distinct, 0, 1, True),
+        "next_round_transmit": ([7], distinct[:1], 0, 1, False),
+    }
+
+
+SERVE_BASE = ["--slots", "8", "--slot-ttl", "20", "--rounds", "10", "--max-inject", "6", "--quiet", "--seed", "3",
+              "--replay-check"]
+# the served engines of tests/test_torch_serve_replay.py: name -> (shards, argv)
+SERVE_ENGINES = {
+    "pa": (1, ["--peers", "400", "--graph", "pa", "--m", "3", "--mode", "push_pull", "--fanout", "2", *SERVE_BASE]),
+    "chung_lu": (1, ["--peers", "400", "--graph", "chung-lu", "--mode", "push", "--fanout", "3", *SERVE_BASE]),
+    "matching": (1, ["--peers", "600", "--graph", "matching", "--mode", "push_pull", "--fanout", "1", *SERVE_BASE]),
+    "matching_packed": (1, ["--peers", "600", "--graph", "matching", "--mode", "push_pull", "--fanout", "1",
+                            "--packed", *SERVE_BASE]),
+    "mesh_s2": (2, ["--peers", "600", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
+                    *SERVE_BASE]),
+    "pa_k2_stream": (1, ["--peers", "400", "--graph", "pa", "--mode", "push", "--fanout", "2", "--stream", "1.5",
+                         "--stream-hashes", "2", *SERVE_BASE]),
+}
+SERVE_SEED = 11
+SERVE_REFUSED = [
+    ["--peers", "48", "--slots", "4", "--fanout", "2", "--quiet", *extra] for extra in (
+        ["--slot-ttl", "12"], ["--rounds", "20"], ["--rounds", "20", "--slot-ttl", "2"],
+        ["--rounds", "20", "--slot-ttl", "12", "--port", "70000"],
+        ["--rounds", "20", "--slot-ttl", "12", "--rounds-per-sec", "-1"],
+        ["--rounds", "20", "--slot-ttl", "12", "--max-inject", "0"],
+        ["--rounds", "20", "--slot-ttl", "12", "--stream-hashes", "5"],
+        ["--rounds", "20", "--stream", "2", "--slot-ttl", "2"],
+        ["--rounds", "20", "--slot-ttl", "12", "--shard"],
+        ["--rounds", "20", "--slot-ttl", "12", "--control", "0.9"],
+        ["--rounds", "20", "--slot-ttl", "12", "--grow", "96"],
+        ["--rounds", "20", "--slot-ttl", "12", "--remat-every", "8"],
+        ["--rounds", "20", "--slot-ttl", "12", "--scenario", "scenarios/split_brain.toml"],
+        ["--rounds", "20", "--slot-ttl", "12", "--shard", "--graph", "matching", "--pipeline", "1"],
+        ["--rounds", "20", "--slot-ttl", "12", "--profile-round", "2"],
+        ["--rounds", "20", "--slot-ttl", "12", "--shard", "--graph", "matching", "--transport", "sparse"],
+        ["--rounds", "20", "--slot-ttl", "12", "--checkpoint-every", "4", "--checkpoint-dir", "d"])]
+
+
+def serve_refusals(argvs: list) -> list:
+    """``[exit code, last stderr line]`` of the JAX CLI's ``run_sim serve``
+    on each argv (each refused before anything is built)."""
+    return [list(serve_cli(1, [], False, *argv).values()) for argv in argvs]
+
+
+SERVE_1M = dict(n=1_000_000, gamma=2.5, graph_key=0, state_key=0, msg_slots=32, fanout=2, mode="push_pull",
+                max_inject=1024, k_hashes=1, rounds=12, seed=0)
+
+
+def serve_1m_pin() -> dict:
+    """``chip_smoke.py`` phase 15c's pin: ``bench.py::bench_serve``'s swarm
+    (``device_powerlaw_graph(1M, gamma=2.5, key 0)``, 32 slots, push_pull
+    fanout 2, a rate-0 stream with ``ttl = int(1.5 * min_feasible_ttl(1M,
+    2))``, ``max_inject`` 1024, k = 1) replaying the numpy-seeded trace of
+    ``scripted_windows(0, 12, 1024, members)`` through the JAX package's
+    serving step."""
+    import jax
+
+    from tpu_gossip.core.device_topology import device_powerlaw_graph
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+    from tpu_gossip.serve import TraceRecorder, build_step, replay_trace
+    from tpu_gossip.serve.driver import stack_round_stats
+    from tpu_gossip.traffic import compile_stream, min_feasible_ttl
+    from tpu_gossip.traffic.ingest import IngestPlan
+
+    c = SERVE_1M
+    dg = device_powerlaw_graph(c["n"], gamma=c["gamma"], key=jax.random.key(c["graph_key"]))
+    cfg = SwarmConfig(n_peers=dg.n_pad, msg_slots=c["msg_slots"], fanout=c["fanout"], mode=c["mode"])
+    state = init_swarm(dg.as_padded_graph(), cfg, exists=dg.exists, key=jax.random.key(c["state_key"]))
+    ttl = int(1.5 * min_feasible_ttl(c["n"], c["fanout"]))
+    rows = np.flatnonzero(np.asarray(dg.exists))
+    strm = compile_stream(rate=0.0, msg_slots=c["msg_slots"], ttl=ttl, origin_rows=rows)
+    plan = IngestPlan(msg_slots=c["msg_slots"], max_inject=c["max_inject"], k_hashes=c["k_hashes"])
+    rec = TraceRecorder(plan)
+    for r, (window, overflow) in enumerate(scripted_windows(c["seed"], c["rounds"], c["max_inject"], len(rows))):
+        rec.record_round(r, [(int(rows[i]), h) for i, h in window], overflow)
+    trace = rec.finish()
+    fin, trail = replay_trace(trace, build_step(cfg, stream=strm), state)
+    stats = stack_round_stats([jax.device_get(s) for s in trail])
+    return {"source": "JAX_PLATFORMS=cpu python -m tests.jax_pins serve_1m_pin (JAX package, CPU)",
+            "config": dict(c, ttl=ttl), "arrivals": trace.total_arrivals,
+            "ingest": {k: int(np.asarray(getattr(stats, f"ingest_{k}")).sum())
+                       for k in ("offered", "injected", "conflated", "overflow")},
+            "coverage": float(np.asarray(stats.coverage)[-1]), **_digests(fin, stats)}
+
+
+CONTROL_CHURN = dict(churn_leave_prob=0.01, churn_join_prob=0.05, rewire_slots=3)
+
+
+def control_pa_graph(n: int = 300, seed: int = 0, m: int = 3, native: bool = False):
+    """The control tests' PA graph (host numpy, or the native generator)."""
+    from tpu_gossip.core.topology import build_csr, preferential_attachment
+
+    return build_csr(n, preferential_attachment(n, m=m, use_native=native, rng=np.random.default_rng(seed)))
+
+
+def _control_swarm(g, seed=0, exists=None, **kw):
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+
+    cfg = SwarmConfig(n_peers=g.n, **kw)
+    return cfg, init_swarm(g, cfg, origins=[0], exists=exists, key=_jax_key(seed))
+
+
+def _jax_key(seed):
+    import jax
+
+    return jax.random.key(seed)
+
+
+def _control_matching(n, fanout, key, slots):
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+
+    dg, plan = matching_powerlaw_graph(n, gamma=2.5, fanout=fanout, key=_jax_key(key))
+    cfg = SwarmConfig(n_peers=dg.n_pad, msg_slots=slots, fanout=fanout, mode="push_pull")
+    return cfg, init_swarm(dg.as_padded_graph(), cfg, origins=[0], exists=dg.exists, key=_jax_key(key)), plan
+
+
+def _control_sim(swarm, rounds, plan=None, control=None):
+    from tpu_gossip.core.state import clone_state
+    from tpu_gossip.sim.engine import simulate
+
+    cfg, state = swarm
+    return _digests(*simulate(clone_state(state), cfg, rounds, plan, control=control))
+
+
+def control_runs_case(name: str) -> list:
+    """The JAX halves of ``tests/test_torch_control_runs.py``: each case's
+    runs (plain, zero-adjustment or active control) as digests, in the
+    test's order."""
+    from tpu_gossip.control import compile_control
+    from tpu_gossip.kernels.pallas_segment import build_staircase_plan
+
+    if name.startswith("zero_exactly_k_"):
+        sw = _control_swarm(control_pa_graph(), msg_slots=4, fanout=3, mode=name[len("zero_exactly_k_"):],
+                            **CONTROL_CHURN)
+        z = compile_control(target_ratio=0.9, fanout=3, lo=3, hi=3)
+        return [_control_sim(sw, 15), _control_sim(sw, 15, control=z)]
+    if name == "zero_staircase_matching":
+        g = control_pa_graph()
+        sw = _control_swarm(g, msg_slots=4, fanout=2, mode="push_pull")
+        sp = build_staircase_plan(g.row_ptr, g.col_idx, fanout=2)
+        z = compile_control(target_ratio=0.9, fanout=2, lo=2, hi=2)
+        cfg, st, mp = _control_matching(256, 2, 0, 4)
+        return [_control_sim(sw, 12, sp), _control_sim(sw, 12, sp, z), _control_sim((cfg, st), 12, mp),
+                _control_sim((cfg, st), 12, mp, z)]
+    if name.startswith("bucketed_active_s"):
+        from tpu_gossip.core.state import SwarmConfig
+        from tpu_gossip.dist import init_sharded_swarm, make_mesh, partition_graph, shard_swarm, simulate_dist
+
+        shards = int(name[len("bucketed_active_s"):])
+        sg, rel, pos = partition_graph(control_pa_graph(400), shards, seed=1, window=1024)
+        cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=4, mode="push_pull", fanout=3, churn_leave_prob=0.01,
+                          churn_join_prob=0.05, rewire_slots=5)
+        mesh = make_mesh(shards)
+        st = shard_swarm(init_sharded_swarm(sg, rel, pos, cfg, key=_jax_key(1), origins=[0, 5]), mesh)
+        a = compile_control(target_ratio=0.9, fanout=3, lo=1, hi=5, refresh_every=4)
+        return [_digests(*simulate_dist(st, cfg, sg, mesh, 12, control=a))]
+    if name.startswith("controlled_exactly_k_cap"):
+        sw = _control_swarm(control_pa_graph(), msg_slots=4, fanout=3, mode="push_pull",
+                            rewire_compact_cap=int(name[len("controlled_exactly_k_cap"):]), **CONTROL_CHURN)
+        c = compile_control(target_ratio=0.9, fanout=3, lo=1, hi=3, refresh_every=2)
+        return [_control_sim(sw, 20, control=c)]
+    if name == "controlled_staircase_matching":
+        g = control_pa_graph()
+        sw = _control_swarm(g, msg_slots=4, fanout=3, mode="push_pull", rewire_slots=5, churn_join_prob=0.05)
+        sp = build_staircase_plan(g.row_ptr, g.col_idx, fanout=3)
+        c1 = compile_control(target_ratio=0.99, fanout=3, lo=1, hi=5, refresh_every=3)
+        cfg, st, mp = _control_matching(2000, 2, 1, 8)
+        c2 = compile_control(target_ratio=0.9, fanout=2, lo=1, hi=4)
+        return [_control_sim(sw, 16, sp, c1), _control_sim((cfg, st), 16, mp, c2)]
+    raise KeyError(name)
+
+
+# tests/test_torch_pipeline_profile.py's --profile-round runs: each plane alone, then composed
+PROFILE_BASE = ["--peers", "300", "--mode", "push_pull", "--fanout", "2", "--profile-round", "2"]
+PROFILE_PLANES = {"grow": ["--grow", "360", "--grow-rate", "12"], "stream": ["--stream", "2", "--slot-ttl", "12"],
+                  "control": ["--control", "0.99"]}
+PROFILE_COMPOSED = PROFILE_BASE + [a for argv in PROFILE_PLANES.values() for a in argv]
+
+# tests/test_torch_packed_engine.py's packed runs: name -> (graph, cfg keywords, tail)
+PACKED_RUNS = {
+    "matching_push_pull_f1": ("matching", dict(mode="push_pull", fanout=1), "fused"),
+    "xla_push_pull_f1": ("xla", dict(mode="push_pull", fanout=1), "fused"),
+    "xla_push_f3": ("xla", dict(mode="push", fanout=3), "fused"),
+    "xla_flood": ("xla", dict(mode="flood"), "fused"),
+    "staircase_push_pull_f1": ("staircase", dict(mode="push_pull", fanout=1), "fused"),
+    "xla_sir4_tail_pallas": ("xla", dict(mode="push_pull", fanout=1, sir_recover_rounds=4), "pallas"),
+    "matching_forward_once": ("matching", dict(mode="push_pull", fanout=1, forward_once=True), "fused"),
+}
+
+
+def _jax_packed_swarm(graph: str, seed: int, **cfg_kw):
+    """``tests/test_torch_packed_engine.py``'s swarm, the JAX half: the
+    n=2000 matching swarm of ``test_torch_slice.build_jax`` or the Chung-Lu
+    one of ``test_torch_staircase.build_both_csr``."""
+    if graph == "matching":
+        from tests.test_torch_slice import build_jax
+
+        return build_jax(2000, seed, **cfg_kw)
+    from tests.test_torch_staircase import build_both_csr
+
+    return build_both_csr(2000, seed=seed, staircase=graph == "staircase", **cfg_kw)[0]
+
+
+def packed_simulate(name: str) -> dict:
+    """The JAX packed run of ``PACKED_RUNS[name]``: 20 rounds of the packed
+    state, its digests packed and unpacked, the stats digest, coverage."""
+    from tpu_gossip.core.packed import pack_state, unpack_state
+    from tpu_gossip.fleet.engine import state_digest
+    from tpu_gossip.sim.engine import simulate
+
+    graph, cfg_kw, tail = PACKED_RUNS[name]
+    jc, js, jp = _jax_packed_swarm(graph, 1, **cfg_kw)
+    fin, stats = simulate(pack_state(js), jc, 20, jp, tail)
+    return {**_digests(fin, stats), "unpacked_digest": state_digest(unpack_state(fin)),
+            "coverage": np.asarray(stats.coverage).tolist()}
+
+
+def packed_coverage(graph: str) -> dict:
+    """The JAX packed run to 99% coverage (seed 2, push_pull fanout 1)."""
+    import jax
+
+    from tpu_gossip.core.packed import pack_state
+    from tpu_gossip.fleet.engine import state_digest
+    from tpu_gossip.sim.engine import run_until_coverage
+
+    jc, js, jp = _jax_packed_swarm(graph, 2, mode="push_pull", fanout=1)
+    fin = run_until_coverage(pack_state(js), jc, 0.99, 1000, plan=jp)
+    return {"round": int(fin.round), "state_digest": state_digest(fin),
+            "coverage": float(np.asarray(jax.device_get(fin.coverage(0))))}
+
+
+GROWTH_M = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
+# tests/test_torch_growth_cli_engines.py's growing CLI runs (16 rounds, --digest added)
+GROWTH_ENGINES = {
+    "matching": GROWTH_M + ["--graph", "matching", "--grow", "2600"],
+    "matching_packed": GROWTH_M + ["--graph", "matching", "--packed", "--grow", "2600"],
+    "pa_push_churn": ["--peers", "2000", "--graph", "pa", "--m", "3", "--slots", "8", "--fanout", "3", "--mode",
+                      "push", "--churn-leave", "0.01", "--churn-join", "0.1", "--rewire-slots", "2", "--grow", "2400",
+                      "--grow-rate", "64"],
+    "staircase_remat": GROWTH_M + ["--graph", "chung-lu", "--staircase", "--remat-every", "4", "--grow", "2400",
+                                   "--grow-capacity", "2500"],
+    "shard": GROWTH_M + ["--graph", "chung-lu", "--shard", "--staircase", "--grow", "2400"],
+    "shard_packed": GROWTH_M + ["--graph", "chung-lu", "--shard", "--packed", "--grow", "2400"],
+    "silent_exactly_k": GROWTH_M + ["--graph", "chung-lu", "--silent-frac", "0.1", "--grow", "2400"],
+    "flash_crowd": GROWTH_M + ["--graph", "matching", "--grow", "2400", "--scenario",
+                               "scenarios/flash_crowd_under_fire.toml"],
+}
+GROWTH_HORIZON = ["--rounds", "16", "--digest"]
+
+
+def staircase_simulate(name: str) -> dict:
+    """``tests/test_torch_staircase.py::jax_simulate_digests`` (the JAX half
+    of its ``test_simulate_digests_equal_jax``)."""
+    from tests.test_torch_staircase import jax_simulate_digests
+
+    return jax_simulate_digests(name)
+
+
+CONTROL_M = ["--peers", "2000", "--mode", "push_pull"]
+# the controlled CLI runs of tests/test_torch_control_cli.py (local engines) and
+# tests/test_torch_control_cli_engines.py (the bucketed mesh, the remat loops)
+CONTROL_CLI_LOCAL = {
+    "exactly_k_refresh": CONTROL_M + ["--graph", "pa", "--m", "3", "--slots", "8", "--fanout", "3", "--churn-leave",
+                                      "0.01", "--churn-join", "0.05", "--rewire-slots", "6", "--refresh-every", "4",
+                                      "--control", "0.9", "--rounds", "20"],
+    "staircase_bounds": CONTROL_M + ["--graph", "chung-lu", "--staircase", "--fanout", "3", "--control-bounds", "1,6",
+                                     "--control", "0.99", "--rounds", "20"],
+    "matching_packed": CONTROL_M + ["--graph", "matching", "--fanout", "1", "--packed", "--control", "0.99",
+                                    "--rounds", "20"],
+    "matching_to_target": CONTROL_M + ["--graph", "matching", "--fanout", "2", "--control", "0.95"],
+    "stream_scenario": CONTROL_M + ["--graph", "chung-lu", "--fanout", "2", "--stream", "2", "--slot-ttl", "12",
+                                    "--scenario", "scenarios/lossy_links.toml", "--control", "0.9", "--rounds", "32"],
+}
+CONTROL_CLI_MESH = {
+    "shard_staircase": CONTROL_M + ["--graph", "chung-lu", "--fanout", "2", "--shard", "--staircase", "--control",
+                                    "0.9", "--rounds", "16"],
+    "shard_to_target": CONTROL_M + ["--graph", "chung-lu", "--fanout", "2", "--shard", "--control", "0.95"],
+    "remat_staircase": CONTROL_M + ["--graph", "chung-lu", "--staircase", "--fanout", "2", "--churn-leave", "0.01",
+                                    "--churn-join", "0.05", "--rewire-slots", "4", "--remat-every", "6",
+                                    "--refresh-every", "2", "--control", "0.9", "--rounds", "16"],
+    "remat_to_target": CONTROL_M + ["--graph", "chung-lu", "--fanout", "2", "--churn-join", "0.05", "--rewire-slots",
+                                    "4", "--remat-every", "6", "--control", "0.9"],
+    "shard_remat": CONTROL_M + ["--graph", "chung-lu", "--fanout", "2", "--shard", "--churn-leave", "0.01",
+                                "--churn-join", "0.05", "--rewire-slots", "4", "--remat-every", "6", "--refresh-every",
+                                "3", "--control", "0.9", "--rounds", "16"],
+}
+
+
+def digest_argv(argv: list) -> list:
+    """A CLI argv with ``--digest`` on a fixed horizon."""
+    return argv + (["--digest"] if "--rounds" in argv else [])
+
+
+ADV_SIEGE = ["--scenario", "scenarios/byzantine_siege.toml"]
+ADV_BASE = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--digest", "--seed", "3", "--quorum-k", "3"]
+ADV_CHURN = ["--churn-leave", "0.01", "--churn-join", "0.1", "--rewire-slots", "2"]
+# the quorum detector's CLI runs of tests/test_torch_adversary_cli.py (phase 9 of chip_smoke.py, shrunk)
+ADV_PATHS = {
+    "siege_matching": ["--graph", "matching", *ADV_SIEGE, "--rounds", "56"],
+    "siege_matching_k1": ["--graph", "matching", *ADV_SIEGE, "--rounds", "56", "--quorum-k", "1"],
+    "siege_matching_packed": ["--graph", "matching", "--packed", *ADV_SIEGE, "--rounds", "56", "--quiet"],
+    "siege_staircase": ["--graph", "chung-lu", "--staircase", *ADV_SIEGE, "--rounds", "56", "--quiet"],
+    "siege_exactly_k_churn_compact": ["--graph", "chung-lu", *ADV_SIEGE, *ADV_CHURN, "--rewire-compact-cap", "64",
+                                      "--rounds", "56", "--quiet"],
+    "siege_shard_k6": ["--graph", "chung-lu", "--shard", "--staircase", *ADV_SIEGE, "--rounds", "56", "--quiet"],
+    "siege_shard_scatter_churn": ["--graph", "chung-lu", "--shard", *ADV_SIEGE, *ADV_CHURN, "--rounds", "56",
+                                  "--quiet"],
+    "siege_local_remat": ["--graph", "chung-lu", "--staircase", *ADV_SIEGE, *ADV_CHURN, "--remat-every", "14",
+                          "--rounds", "56", "--quiet"],
+    "silent_shard_remat": ["--graph", "chung-lu", "--shard", "--silent-frac", "0.05", *ADV_CHURN, "--remat-every",
+                           "8", "--rounds", "24", "--quiet", "--suspicion-window", "6", "--accusation-budget", "0"],
+    "siege_to_target": ["--graph", "matching", *ADV_SIEGE, "--max-rounds", "60", "--quiet"],
+    "siege_shard_to_target": ["--graph", "chung-lu", "--shard", "--staircase", *ADV_SIEGE, "--max-rounds", "60",
+                              "--quiet"],
+    "silent_shard_remat_to_target": ["--graph", "chung-lu", "--shard", "--silent-frac", "0.05", *ADV_CHURN,
+                                     "--remat-every", "8", "--max-rounds", "40", "--quiet"],
+}
+ADV_TOML = ('[scenario]\nname = "adv"\n\n[[phase]]\nname = "a"\nstart = 0\nend = {end}\n'
+            "accusers = {{frac = 0.05, seed = 1}}\n{extra}")
+# tests/sim/test_adversary.py's summary cell: accusers and a blackout at 96 peers, quorum 3 with the settled defaults
+ADV_SUMMARY = (dict(end=8, extra="blackout = {frac = 0.1, seed = 2}\n"),
+               ["--peers", "96", "--rounds", "16", "--quiet", "--quorum-k", "3", "--graph", "chung-lu", "--digest"])
+
+
+def adv_toml(path: str, end: int, extra: str) -> str:
+    """Write the adversary scenario of ``tests/test_torch_adversary_cli.py``
+    to ``path``; returns ``path``."""
+    Path(path).write_text(ADV_TOML.format(end=end, extra=extra))
+    return path
+
+
+def adversary_summary_cell() -> dict:
+    """:func:`cli_lines` of :data:`ADV_SUMMARY` (its scenario written to a
+    temporary file: the summary names the scenario, not the file)."""
+    import tempfile
+
+    toml, argv = ADV_SUMMARY
+    with tempfile.TemporaryDirectory() as d:
+        return cli_lines(True, *argv, "--scenario", adv_toml(f"{d}/adv.toml", **toml))
+
+
+COMPOSED_PAIR = {"name": "t", "phases": [
+    {"name": "lossy", "start": 1, "end": 5, "loss": 0.2, "delay": 0.2},
+    {"name": "storm", "start": 5, "end": 9, "churn_leave": 0.05, "churn_join": 0.2,
+     "blackout": {"frac": 0.1, "seed": 1}, "join_burst": 2}]}
+
+
+def control_pairs_case(name: str) -> list:
+    """The JAX halves of ``tests/test_torch_control_pairs.py``: each run's
+    digests (and, for the acceptance pairs, JAX's reports on its stats), in
+    the test's order."""
+    from tpu_gossip.control import compile_control
+    from tpu_gossip.faults import compile_scenario, parse_scenario, scenario_from_dict
+    from tpu_gossip.kernels import liveness as jl
+    from tpu_gossip.sim import metrics as JM
+    from tpu_gossip.traffic import compile_stream
+
+    from tests.test_torch_slice import ensure_jax_native_pa
+
+    if name == "composed":
+        from tpu_gossip.growth import compile_growth, pad_graph_for_growth
+
+        n, cap, rounds = 200, 224, 15
+        g, exists = pad_graph_for_growth(control_pa_graph(n), cap)
+        cfg, st = _control_swarm(g, exists=exists, msg_slots=8, fanout=2, mode="push_pull", churn_leave_prob=0.01,
+                                 churn_join_prob=0.05, rewire_slots=4)
+        kw = dict(scenario=compile_scenario(scenario_from_dict(COMPOSED_PAIR), n_peers=n, n_slots=cap,
+                                            total_rounds=rounds),
+                  growth=compile_growth(n_initial=n, target=cap, n_slots=cap, joins_per_round=2, attach_m=2,
+                                        max_join_burst=2),
+                  stream=compile_stream(rate=2.0, msg_slots=8, ttl=10, origin_rows=np.arange(n), k_hashes=2),
+                  control=compile_control(target_ratio=0.9, fanout=2, lo=1, hi=4, refresh_every=3, ttl=10))
+        return [_control_run(cfg, st, rounds, **kw)[0]]
+    ensure_jax_native_pa()
+    if name == "degraded":
+        path, n, rounds, ttl = "scenarios/degraded_under_control.toml", 96, 60, 12
+        cfg, st = _control_swarm(control_pa_graph(n, native=True), msg_slots=8, fanout=2, mode="push_pull",
+                                 churn_join_prob=0.02, rewire_slots=4)
+        sc = compile_scenario(parse_scenario(path), n_peers=n, n_slots=n, total_rounds=rounds)
+        strm = compile_stream(rate=1.5, msg_slots=8, ttl=ttl, origin_rows=np.arange(n))
+        c = compile_control(target_ratio=0.9, fanout=2, lo=1, hi=4, refresh_every=5, ttl=ttl)
+        out = []
+        for ctl in (None, c):
+            d, stats = _control_run(cfg, st, rounds, scenario=sc, stream=strm, control=ctl)
+            out.append({**d, "reliability": JM.reliability_report(stats, target_ratio=0.9, coverage_target=0.95)})
+        return out
+    if name == "siege":
+        path, n, rounds = "scenarios/byzantine_siege.toml", 96, 55
+        cfg, st = _control_swarm(control_pa_graph(n, m=2, native=True), msg_slots=8, fanout=2, mode="push_pull",
+                                 rewire_slots=6, churn_join_prob=0.02)
+        spec = parse_scenario(path)
+        spec.validate(total_rounds=rounds, n_peers=n)
+        sc = compile_scenario(spec, n_peers=n, n_slots=n, total_rounds=rounds)
+        strm = compile_stream(rate=1.5, msg_slots=8, ttl=24, origin_rows=np.arange(n))
+        c = compile_control(target_ratio=0.9, fanout=2, lo=1, hi=6, refresh_every=5, ttl=24)
+        return [_control_run(cfg, st, rounds, scenario=sc, stream=strm, control=c,
+                             liveness=jl.compile_quorum(k, window=4, budget=2))[0] for k in (1, 3)]
+    raise KeyError(name)
+
+
+def _control_run(cfg, state, rounds, **kw):
+    """``(digests, host stats)`` of a JAX ``simulate`` on a clone of ``state``."""
+    import jax
+
+    from tpu_gossip.core.state import clone_state
+    from tpu_gossip.sim.engine import simulate
+
+    fin, stats = simulate(clone_state(state), cfg, rounds, **kw)
+    return _digests(fin, stats), jax.device_get(stats)
+
+
+CONTROL_PAIRS = ["composed", "degraded", "siege"]
+CONTROL_RUNS = ["zero_exactly_k_push", "zero_exactly_k_push_pull", "zero_staircase_matching", "bucketed_active_s1",
+                "bucketed_active_s3", "controlled_exactly_k_cap0", "controlled_exactly_k_cap64",
+                "controlled_staircase_matching"]
+
+
 # the pinned runs, by group: name -> (function, arguments)
 CASES = {
     "pipeline": {
@@ -1001,9 +1554,36 @@ CASES = {
                                                         [["reference", "fused"], [8, 1024, 1, 128]]]]),
         "cli_500": ("cli_profile_shape", ["--peers", "500", "--graph", "matching", "--mode", "push_pull", "--fanout",
                                           "1", "--profile-round", "2"]),
+        "composed_300": ("cli_profile_shape", PROFILE_COMPOSED),
     },
     "stream_cli": {**{name: ("cli_lines", [False, *argv]) for name, argv in STREAM_ENGINES.items()},
                    **{name: ("cli_lines", [True, *argv]) for name, argv in STREAM_ENGINES_ONE_SHARD.items()}},
+    # the JAX halves of tests/test_torch_control_runs.py
+    "control_runs": {name: ("control_runs_case", [name]) for name in CONTROL_RUNS},
+    # the JAX halves of tests/test_torch_staircase.py's runs and
+    # tests/test_torch_growth_cli_engines.py's engines (the mesh on one device)
+    "staircase": {name: ("staircase_simulate", [name]) for name in
+                  ("xla_push_f3", "xla_push_pull_f1", "xla_flood", "staircase_push_pull_f1", "staircase_flood",
+                   "staircase_push_f2_forward_once_sir")},
+    "growth_cli": {name: ("cli_lines", [True, *argv, *GROWTH_HORIZON]) for name, argv in GROWTH_ENGINES.items()},
+    # the JAX halves of tests/test_torch_packed_engine.py
+    "packed_engine": {**{name: ("packed_simulate", [name]) for name in PACKED_RUNS},
+                      **{f"coverage_{g}": ("packed_coverage", [g]) for g in ("matching", "xla")}},
+    # the JAX halves of tests/test_torch_control_cli*.py (the mesh pinned to one device)
+    "control_cli": {name: ("cli_lines", [True, *digest_argv(argv)])
+                    for name, argv in {**CONTROL_CLI_LOCAL, **CONTROL_CLI_MESH}.items()},
+    # the JAX halves of tests/test_torch_adversary_cli.py (its mesh pinned to one device)
+    "adversary_cli": {**{name: ("cli_lines", [True, *ADV_BASE, *argv]) for name, argv in ADV_PATHS.items()},
+                      "summary_cell": ("adversary_summary_cell", [])},
+    # the JAX halves of tests/test_torch_control_pairs.py
+    "control_pairs": {name: ("control_pairs_case", [name]) for name in CONTROL_PAIRS},
+    # the serving plane (tests/test_torch_serve_*.py): the ingest rules, each
+    # engine's CLI on scripted windows, the refusals
+    "serve": {
+        "ingest_rules": ("ingest_rules", []),
+        **{name: ("serve_scripted", [shards, SERVE_SEED, *argv]) for name, (shards, argv) in SERVE_ENGINES.items()},
+        "refusals": ("serve_refusals", [SERVE_REFUSED]),
+    },
     "fleet": {
         "composed": ("campaign_run", [composed_campaign(), [0, 7, 13]]),
         "mix": ("campaign_run", [MIX_CAMPAIGN, [], "scenarios/campaigns"]),

@@ -5,7 +5,9 @@ the siege (``scenarios/byzantine_siege.toml``) on every engine the port
 runs at n=2000 (summary, ``liveness`` and ``phases`` blocks, digests and
 rows), a checkpoint cut inside the siege with suspicions open finished by
 the other package, and the quorum cases of
-``tests/conformance/test_liveness_band.py``."""
+``tests/conformance/test_liveness_band.py``. The summary cell's and the
+engines' JAX halves are pinned in ``tests/jax_pins.json`` (group
+``adversary_cli``), one of them rechecked in a child process."""
 
 import json
 import shutil
@@ -15,8 +17,10 @@ import pytest
 
 from tpu_gossip.cli import run_sim as jcli
 from tpu_gossip_torch.cli import run_sim as tcli
+from tests import jax_pins
 from tests.test_torch_churn_cli import TIMING, one_shard  # noqa: F401
 from tests.test_torch_cli import _summary
+from tests.test_torch_growth_cli_engines import jax_in_child
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 SIEGE = ["--scenario", "scenarios/byzantine_siege.toml"]
@@ -57,44 +61,30 @@ def test_cli_quorum_rejections_say_what_jax_says(capsys, tmp_path, name):
 
 def test_cli_liveness_summary_block_equals_jax(capsys, tmp_path):
     """tests/sim/test_adversary.py's summary cell: accusers and a blackout
-    at 96 peers, quorum 3 with the settled defaults."""
-    argv = ["--peers", "96", "--rounds", "16", "--quiet", "--quorum-k", "3", "--graph", "chung-lu", "--digest",
-            "--scenario", _toml(tmp_path, end=8, extra="blackout = {frac = 0.1, seed = 2}\n")]
-    want, _ = _summary(capsys, jcli.main, argv)
-    got, _ = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
+    at 96 peers, quorum 3 with the settled defaults (JAX's summary pinned
+    in ``tests/jax_pins.json``, group ``adversary_cli``)."""
+    toml, argv = jax_pins.ADV_SUMMARY
+    want = jax_pins.pinned("adversary_cli", "summary_cell")["summary"]
+    got, _ = _summary(capsys, tcli.main, [*argv, "--scenario", jax_pins.adv_toml(str(tmp_path / "adv.toml"), **toml),
+                                          "--device", "cpu"])
     assert got == want
     lv = got["liveness"]
     assert (lv["quorum_k"], lv["suspicion_window"], lv["accusation_budget"]) == (3, 4, 3)
     assert lv["accusations"] > 0 and lv["eviction_precision"] is not None
 
 
-BASE = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--digest", "--seed", "3", "--quorum-k", "3"]
-CHURN = ["--churn-leave", "0.01", "--churn-join", "0.1", "--rewire-slots", "2"]
-PATHS = {  # name: extra argv (phase 9 of chip_smoke.py, shrunk)
-    "siege_matching": ["--graph", "matching", *SIEGE, "--rounds", "56"],
-    "siege_matching_k1": ["--graph", "matching", *SIEGE, "--rounds", "56", "--quorum-k", "1"],
-    "siege_matching_packed": ["--graph", "matching", "--packed", *SIEGE, "--rounds", "56", "--quiet"],
-    "siege_staircase": ["--graph", "chung-lu", "--staircase", *SIEGE, "--rounds", "56", "--quiet"],
-    "siege_exactly_k_churn_compact": ["--graph", "chung-lu", *SIEGE, *CHURN, "--rewire-compact-cap", "64",
-                                      "--rounds", "56", "--quiet"],
-    "siege_shard_k6": ["--graph", "chung-lu", "--shard", "--staircase", *SIEGE, "--rounds", "56", "--quiet"],
-    "siege_shard_scatter_churn": ["--graph", "chung-lu", "--shard", *SIEGE, *CHURN, "--rounds", "56", "--quiet"],
-    "siege_local_remat": ["--graph", "chung-lu", "--staircase", *SIEGE, *CHURN, "--remat-every", "14",
-                          "--rounds", "56", "--quiet"],
-    "silent_shard_remat": ["--graph", "chung-lu", "--shard", "--silent-frac", "0.05", *CHURN, "--remat-every", "8",
-                           "--rounds", "24", "--quiet", "--suspicion-window", "6", "--accusation-budget", "0"],
-    "siege_to_target": ["--graph", "matching", *SIEGE, "--max-rounds", "60", "--quiet"],
-    "siege_shard_to_target": ["--graph", "chung-lu", "--shard", "--staircase", *SIEGE, "--max-rounds", "60",
-                              "--quiet"],
-    "silent_shard_remat_to_target": ["--graph", "chung-lu", "--shard", "--silent-frac", "0.05", *CHURN,
-                                     "--remat-every", "8", "--max-rounds", "40", "--quiet"],
-}
+BASE = jax_pins.ADV_BASE
+PATHS = jax_pins.ADV_PATHS  # name: extra argv (phase 9 of chip_smoke.py, shrunk)
 
 
 @pytest.mark.parametrize("name", list(PATHS))
 def test_quorum_cli_summary_and_rows_equal_jax(capsys, one_shard, name):
+    """Each engine's siege against the JAX CLI's summary and rows, pinned in
+    ``tests/jax_pins.json`` (group ``adversary_cli``, the JAX mesh on one
+    device)."""
     argv = BASE + PATHS[name]
-    want, want_rows = _summary(capsys, jcli.main, argv)
+    pin = jax_pins.pinned("adversary_cli", name)
+    want, want_rows = dict(pin["summary"]), pin["rows"]
     got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
     for k in TIMING:
         assert (k in got) == (k in want), k
@@ -112,6 +102,13 @@ def test_quorum_cli_summary_and_rows_equal_jax(capsys, one_shard, name):
             assert lv["false_evictions"] > 0 and lv["quarantined"] == 0
         else:
             assert lv["eviction_precision"] >= 0.95 and lv["quarantined"] > 0
+
+
+def test_jax_pins_are_current():
+    """One case of the group recomputed by the JAX CLI in a child process."""
+    name = "summary_cell"
+    got = jax_in_child("tests.jax_pins", "compute", "adversary_cli", [name])
+    assert got == {name: jax_pins.pinned("adversary_cli", name)}
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -234,15 +234,24 @@ def test_fresh_rewire_traffic_equals_jax(cap, do_pull):
 
 
 def _build_csr_swarms(n, seed=0, **cfg_kw):
+    g, kw, origins = _csr_swarm_args(n, seed, cfg_kw)
+    jsw = j_init(g, JConfig(**kw), key=jax.random.key(seed), origins=origins)
+    return g, (JConfig(**kw), jsw), _port_csr_swarm(n, seed, **cfg_kw)
+
+
+def _csr_swarm_args(n, seed, cfg_kw):
     g = chung_lu(n, seed=seed)
     kw = dict(n_peers=n, msg_slots=16, mode="push_pull", fanout=1, **CHURN)
     kw.update(cfg_kw)
-    origins = np.random.default_rng(seed).choice(n, size=2, replace=False)
-    jsw = j_init(g, JConfig(**kw), key=jax.random.key(seed), origins=origins)
+    return g, kw, np.random.default_rng(seed).choice(n, size=2, replace=False)
+
+
+def _port_csr_swarm(n, seed=0, **cfg_kw):
+    """The port's half of :func:`_build_csr_swarms`: ``(cfg, state)``."""
     from tpu_gossip_torch.core.state import init_swarm as t_init
 
-    tsw = t_init(g, TConfig(**kw), key=prng.key(seed, "cpu"), origins=origins, device="cpu")
-    return g, (JConfig(**kw), jsw), (TConfig(**kw), tsw)
+    g, kw, origins = _csr_swarm_args(n, seed, cfg_kw)
+    return TConfig(**kw), t_init(g, TConfig(**kw), key=prng.key(seed, "cpu"), origins=origins, device="cpu")
 
 
 def test_validate_rewire_width_refuses_csr_free_graph_like_jax():
@@ -337,15 +346,18 @@ def test_repartition_swarm_equals_jax(s):
 
 @pytest.mark.parametrize("what", ["pipeline", "inject"])
 def test_burst_and_quarantined_churn_are_not_ported(what):
-    """Live ingestion, a later slice, raises ``not_ported`` on a churned
-    round, naming its slice; a pipelined churned round runs (ROADMAP item
-    9f: the round stores its issue in ``pipe_buf``; its cells against JAX
-    are ``test_torch_pipeline.py``'s), and so do the burst form
+    """Every plane once refused on a churned round runs now: a pipelined
+    churned round (ROADMAP item 9f: the round stores its issue in
+    ``pipe_buf``; its cells against JAX are ``test_torch_pipeline.py``'s)
+    and live ingestion (ROADMAP item 12: a zero-count batch equals no
+    batch, a landed arrival sets its bit; its cells against JAX are
+    ``test_torch_serve_*.py``'s), as do the burst form
     (``test_torch_faults.py``), the quarantined rejoin
     (``test_torch_adversary.py``), growth's admission waves
     (``test_torch_growth_runs.py``), streams (``test_torch_stream.py``) and
-    the controller (``test_torch_control*.py``)."""
-    _, _, (tc, tsw) = _build_csr_swarms(200, seed=1)
+    the controller (``test_torch_control*.py``). A batch of another type is
+    refused."""
+    tc, tsw = _port_csr_swarm(200, seed=1)
     if what == "pipeline":
         from tpu_gossip_torch.sim.stages import compile_pipeline
 
@@ -356,5 +368,17 @@ def test_burst_and_quarantined_churn_are_not_ported(what):
         assert bool(piped.pipe_buf.any()) and not bool((serial.seen & ~tsw.seen & ~piped.pipe_buf).any())
         assert torch.equal(piped.alive, serial.alive) and torch.equal(piped.rng, serial.rng)
         return
-    with pytest.raises(NotImplementedError, match="not ported yet.*serving slice"):
+    from tpu_gossip_torch.core.state import message_slots
+    from tpu_gossip_torch.traffic.ingest import IngestPlan, empty_batch, make_batch
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    plan = IngestPlan(msg_slots=tc.msg_slots, max_inject=2)
+    plain, _ = te.gossip_round(tsw, tc)
+    zero, zstats = te.gossip_round(tsw, tc, inject=empty_batch(plan, "cpu"))
+    assert state_digest(zero) == state_digest(plain) and int(zstats.ingest_offered) == 0
+    row = int(torch.nonzero(plain.alive & ~plain.declared_dead)[0])
+    landed, stats = te.gossip_round(tsw, tc, inject=make_batch(plan, [row], [77], device="cpu"))
+    assert bool(landed.seen[row, message_slots(77, tc.msg_slots, 1)[0]]) and int(stats.ingest_injected) == 1
+    assert torch.equal(landed.alive, plain.alive) and torch.equal(landed.rng, plain.rng)
+    with pytest.raises(TypeError, match="InjectBatch"):
         te.gossip_round(tsw, tc, **{what: object()})

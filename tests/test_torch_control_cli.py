@@ -4,8 +4,10 @@ CLI's first stderr line; the summary (its ``control`` and ``reliability``
 blocks, the digests) and every per-round row equal the JAX CLI's on the
 local engines at n=2000 (the exactly-k path with the refresh, the
 staircase, the matching graph packed and to the target, a stream under a
-scenario, whose JAX half runs in a child process; the bucketed mesh and
-the remat loops are ``test_torch_control_cli_engines.py``'s); the items
+scenario; the JAX CLI's summaries and rows pinned in
+``tests/jax_pins.json``, group ``control_cli``, one rechecked in a child
+process; the bucketed mesh and the remat loops are
+``test_torch_control_cli_engines.py``'s); the items
 still to come exit 2 naming them; and a controlled checkpoint written by
 either package resumes in the other onto the uninterrupted run's
 digests."""
@@ -19,7 +21,8 @@ from tpu_gossip.cli import run_sim as jcli
 from tpu_gossip_torch.cli import run_sim as tcli
 from tests.test_torch_churn_cli import one_shard  # noqa: F401
 from tests.test_torch_cli import _summary
-from tests.test_torch_growth_cli_engines import TIMING, jax_cli
+from tests import jax_pins
+from tests.test_torch_growth_cli_engines import TIMING, jax_in_child
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 BASE = ["--peers", "96", "--slots", "4", "--fanout", "2", "--quiet"]
@@ -64,18 +67,8 @@ def test_control_with_a_later_slice_exits_2_naming_its_item(capsys, monkeypatch,
     assert ("control" in got) == ("--shard" in argv) and item == "11b"
 
 
-M = ["--peers", "2000", "--mode", "push_pull"]
-ENGINES = {
-    "exactly_k_refresh": M + ["--graph", "pa", "--m", "3", "--slots", "8", "--fanout", "3", "--churn-leave", "0.01",
-                              "--churn-join", "0.05", "--rewire-slots", "6", "--refresh-every", "4", "--control",
-                              "0.9", "--rounds", "20"],
-    "staircase_bounds": M + ["--graph", "chung-lu", "--staircase", "--fanout", "3", "--control-bounds", "1,6",
-                             "--control", "0.99", "--rounds", "20"],
-    "matching_packed": M + ["--graph", "matching", "--fanout", "1", "--packed", "--control", "0.99", "--rounds", "20"],
-    "matching_to_target": M + ["--graph", "matching", "--fanout", "2", "--control", "0.95"],
-    "stream_scenario": M + ["--graph", "chung-lu", "--fanout", "2", "--stream", "2", "--slot-ttl", "12", "--scenario",
-                            "scenarios/lossy_links.toml", "--control", "0.9", "--rounds", "32"],
-}
+M = jax_pins.CONTROL_M
+ENGINES = jax_pins.CONTROL_CLI_LOCAL
 
 
 @pytest.mark.parametrize("name", list(ENGINES))
@@ -84,10 +77,12 @@ def test_controlled_run_equals_jax_cli(capsys, one_shard, name):
 
 
 def check_engine(capsys, engines, name):
-    """One controlled CLI run against the JAX CLI's: the summary, every
-    row and the control blocks."""
-    argv = engines[name] + (["--digest"] if "--rounds" in engines[name] else [])
-    want, want_rows = jax_cli(capsys, argv, one_shard=True)
+    """One controlled CLI run against the JAX CLI's, pinned in
+    ``tests/jax_pins.json`` (group ``control_cli``, the JAX mesh on one
+    device): the summary, every row and the control blocks."""
+    argv = jax_pins.digest_argv(engines[name])
+    pin = jax_pins.pinned("control_cli", name)
+    want, want_rows = pin["summary"], pin["rows"]
     got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
     assert {k: v for k, v in got.items() if k not in TIMING} == {k: v for k, v in want.items() if k not in TIMING}
     assert [json.loads(r) for r in got_rows] == [json.loads(r) for r in want_rows]
@@ -105,6 +100,14 @@ def check_engine(capsys, engines, name):
         assert {r["control_fanout"] for r in rows} <= set(range(c["bounds"][0], c["bounds"][1] + 1))
     if "--refresh-every" in argv and "--rounds" in argv:
         assert sum(json.loads(r)["control_refreshed"] for r in got_rows) > 0
+
+
+def test_jax_pins_are_current():
+    """One case of the ``control_cli`` group recomputed by the JAX CLI in a
+    child process."""
+    name = "staircase_bounds"
+    assert jax_in_child("tests.jax_pins", "compute", "control_cli", [name]) == {
+        name: jax_pins.pinned("control_cli", name)}
 
 
 @pytest.mark.parametrize("write_with", ["port", "jax"])

@@ -5,11 +5,12 @@ loop with spare capacity, the one-process bucketed mesh (K6 receive, and
 packed with the scatter receive), silent peers on exactly-k, and the
 flash-crowd scenario's join_burst waves; the summary and every per-round
 row equal (``degree_gamma`` within 1e-5), and the run to coverage. The JAX
-CLI's half of a run that compiles a composed scenario runs in a child
-process (:func:`jax_cli_child`), retried once if XLA's CPU compiler kills
-it with a signal; the port's half runs in this process. Other files run
-the JAX half of an in-process comparison so through
-:func:`jax_in_child`."""
+CLI's summaries and rows of the fixed horizons are pinned in
+``tests/jax_pins.json`` (group ``growth_cli``), one engine recomputed in a
+child process; the runs to coverage run the JAX CLI in a child process
+(:func:`jax_cli_child`), retried once if XLA's CPU compiler kills it with
+a signal; the port's half runs in this process. Other files run the JAX
+half of an in-process comparison so through :func:`jax_in_child`."""
 
 import json
 import os
@@ -23,25 +24,13 @@ import pytest
 
 from tpu_gossip.cli import run_sim as jcli
 from tpu_gossip_torch.cli import run_sim as tcli
+from tests import jax_pins
 from tests.test_torch_churn_cli import one_shard  # noqa: F401
 from tests.test_torch_cli import _summary
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
-M = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
-ENGINES = {
-    "matching": M + ["--graph", "matching", "--grow", "2600"],
-    "matching_packed": M + ["--graph", "matching", "--packed", "--grow", "2600"],
-    "pa_push_churn": ["--peers", "2000", "--graph", "pa", "--m", "3", "--slots", "8", "--fanout", "3", "--mode",
-                      "push", "--churn-leave", "0.01", "--churn-join", "0.1", "--rewire-slots", "2", "--grow", "2400",
-                      "--grow-rate", "64"],
-    "staircase_remat": M + ["--graph", "chung-lu", "--staircase", "--remat-every", "4", "--grow", "2400",
-                            "--grow-capacity", "2500"],
-    "shard": M + ["--graph", "chung-lu", "--shard", "--staircase", "--grow", "2400"],
-    "shard_packed": M + ["--graph", "chung-lu", "--shard", "--packed", "--grow", "2400"],
-    "silent_exactly_k": M + ["--graph", "chung-lu", "--silent-frac", "0.1", "--grow", "2400"],
-    "flash_crowd": M + ["--graph", "matching", "--grow", "2400", "--scenario",
-                        "scenarios/flash_crowd_under_fire.toml"],
-}
+M = jax_pins.GROWTH_M
+ENGINES = jax_pins.GROWTH_ENGINES
 TIMING = ("wall_seconds", "peers_rounds_per_sec", "ms_per_round", "ms_per_round_amortized",
           "epoch_rebuild_seconds_total", "packed")
 
@@ -104,8 +93,12 @@ def jax_cli(capsys, argv, one_shard: bool = False):
 
 @pytest.mark.parametrize("name", list(ENGINES))
 def test_growing_run_equals_jax_cli(capsys, one_shard, name):
-    argv = ENGINES[name] + ["--rounds", "16", "--digest"]
-    want, want_rows = jax_cli(capsys, argv, one_shard=True)
+    """Each engine growing against the JAX CLI's summary and rows, pinned in
+    ``tests/jax_pins.json`` (group ``growth_cli``, the JAX mesh on one
+    device)."""
+    argv = ENGINES[name] + jax_pins.GROWTH_HORIZON
+    pin = jax_pins.pinned("growth_cli", name)
+    want, want_rows = dict(pin["summary"]), pin["rows"]
     got, got_rows = _summary(capsys, tcli.main, argv + ["--device", "cpu"])
     assert {k: v for k, v in got.items() if k not in TIMING} == {k: v for k, v in want.items() if k not in TIMING}
     got_rows, want_rows = [json.loads(r) for r in got_rows], [json.loads(r) for r in want_rows]
@@ -115,6 +108,14 @@ def test_growing_run_equals_jax_cli(capsys, one_shard, name):
                                [r.pop("degree_gamma") for r in want_rows], rtol=1e-5)
     assert got_rows == want_rows
     assert got["n_members"] > 2000
+
+
+def test_growth_pins_are_current():
+    """One engine of the ``growth_cli`` group recomputed by the JAX CLI in a
+    child process."""
+    name = "silent_exactly_k"
+    assert jax_in_child("tests.jax_pins", "compute", "growth_cli", [name]) == {
+        name: jax_pins.pinned("growth_cli", name)}
 
 
 @pytest.mark.parametrize("name", ["matching_packed", "shard"])

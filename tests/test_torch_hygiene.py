@@ -46,6 +46,7 @@ def test_port_imports_with_jax_blocked():
         "import tpu_gossip_torch.kernels.probes, tpu_gossip_torch.utils.profiling, tpu_gossip_torch.dist.transport\n"
         "import tpu_gossip_torch.ckpt, tpu_gossip_torch.ckpt.chaos\n"
         "import tpu_gossip_torch.faults, tpu_gossip_torch.core.streams\n"
+        "import tpu_gossip_torch.serve, tpu_gossip_torch.compat.wire, tpu_gossip_torch.traffic.ingest\n"
         "from tpu_gossip_torch.experiments import pallas_gather_caps, pallas_wide_lane_gather, gather_probe\n"
         "from tpu_gossip_torch.experiments import perm_pipeline_probe, matching_round_profile, dist_profile\n"
         "print('ok')\n"

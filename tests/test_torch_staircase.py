@@ -204,6 +204,19 @@ def build_both_csr(n, seed=0, staircase=False, **cfg_kw):
     return (JConfig(**kw), js, jp), (TConfig(**kw), ts, tp)
 
 
+def build_port_csr(n, seed=0, staircase=False, **cfg_kw):
+    """The port's half of :func:`build_both_csr`: ``(cfg, state, plan)``."""
+    g = chung_lu(n, seed)
+    kw = dict(n_peers=n, msg_slots=16, **cfg_kw)
+    origins = np.random.default_rng(seed + 100).choice(n, size=1, replace=False)
+    ts = tinit(g, TConfig(**kw), key=prng.key(seed, "cpu"), origins=origins, device="cpu")
+    tp = None
+    if staircase:
+        tp = tseg.build_staircase_plan(g.row_ptr, g.col_idx, None if kw.get("mode") == "flood" else
+                                       kw.get("fanout", 3), device="cpu")
+    return TConfig(**kw), ts, tp
+
+
 RUNS = {
     "xla_push_f3": (dict(mode="push", fanout=3), False),
     "xla_push_pull_f1": (dict(mode="push_pull", fanout=1), False),
@@ -226,18 +239,30 @@ def jax_simulate_digests(name: str) -> dict:
 
 @pytest.mark.parametrize("name", list(RUNS))
 def test_simulate_digests_equal_jax(name):
-    """Each run equal to JAX's; the JAX half runs in a child process, as a
-    test worker's XLA CPU compiler has died under the suite's load on it."""
-    from tests.test_torch_growth_cli_engines import jax_in_child
+    """Each run equal to JAX's, pinned in ``tests/jax_pins.json`` (group
+    ``staircase``: a test worker's XLA CPU compiler has died under the
+    suite's load on the JAX half; :func:`test_simulate_pins_are_current`
+    recomputes one in a child process)."""
+    from tests.jax_pins import pinned
 
     cfg_kw, staircase = RUNS[name]
-    _, (tc, ts, tp) = build_both_csr(2000, seed=1, staircase=staircase, **cfg_kw)
-    want = jax_in_child("tests.test_torch_staircase", "jax_simulate_digests", name)
+    tc, ts, tp = build_port_csr(2000, seed=1, staircase=staircase, **cfg_kw)
+    want = pinned("staircase", name)
     tf, tst = tsim(ts, tc, 20, tp)
     assert t_state_digest(tf) == want["state"]
     assert t_stats_digest(tst) == want["stats"]
     np.testing.assert_array_equal(np.asarray(want["coverage"], dtype=np.float32), tst.coverage.numpy())
     assert int(tst.msgs_sent.sum()) > 0
+
+
+def test_simulate_pins_are_current():
+    """One run of the ``staircase`` group recomputed by the JAX package in a
+    child process."""
+    from tests.jax_pins import pinned
+    from tests.test_torch_growth_cli_engines import jax_in_child
+
+    name = "staircase_push_f2_forward_once_sir"
+    assert jax_in_child("tests.test_torch_staircase", "jax_simulate_digests", name) == pinned("staircase", name)
 
 
 @pytest.mark.parametrize("staircase", [False, True])

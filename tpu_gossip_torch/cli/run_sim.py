@@ -123,8 +123,8 @@ _LATER = (
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
     "included, and the sharded matching engine with the dense, sparse and auto transports, with "
     "checkpoints and resume, silent peers, fault scenarios, the quorum detector with its adversaries, "
-    "growth, streams, adaptive control, pipelined rounds and fleet campaigns (later slices add the "
-    "multi-card exchange with --hosts and the hier transport (11c) and serving (12))"
+    "growth, streams, adaptive control, pipelined rounds, fleet campaigns and serving (a later slice adds the "
+    "multi-card exchange with --hosts and the hier transport (11c))"
 )
 _ITEM11C = "multi-process (ROADMAP item 11c)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
@@ -323,6 +323,8 @@ def main(argv: list[str] | None = None) -> int:
         return _main_resume(argv[1:])
     if argv and argv[0] == "fleet":
         return _main_fleet(argv[1:])
+    if argv and argv[0] == "serve":
+        return _main_serve(argv[1:])
     args, unknown = build_parser().parse_known_args(argv)
     if unknown:
         print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
@@ -1893,6 +1895,282 @@ def _compile_cli_pipeline(args: argparse.Namespace):
     from tpu_gossip_torch.sim.stages import compile_pipeline
 
     return compile_pipeline(args.pipeline)
+
+
+def _add_serve_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group("serving", "run_sim serve: the live ingestion frontend (tpu_gossip_torch/serve/)")
+    g.add_argument("--port", type=int, default=0, metavar="P",
+                   help="listen port (0 = ephemeral; the bound port is announced on stderr)")
+    g.add_argument("--serve-host", type=str, default="127.0.0.1", metavar="H", help="listen address")
+    g.add_argument("--rounds-per-sec", type=float, default=0.0, metavar="R",
+                   help="pace round windows at R/sec (0 = unpaced: as fast as the device steps)")
+    g.add_argument("--max-inject", type=int, default=64, metavar="J",
+                   help="static per-round injection batch; arrivals past it defer to the next window and are "
+                   "counted as overflow — never dropped silently")
+    g.add_argument("--trace-out", type=str, default="", metavar="F",
+                   help="record every accepted arrival as (round, origin, payload_hash) to this JSONL — the "
+                   "bit-exact replay input (serve/trace.py), in the JAX package's format")
+    g.add_argument("--replay-check", action="store_true",
+                   help="after serving, replay the recorded trace through the pure-sim injection path and fail "
+                   "(exit 1) unless state digest + integer-stat trajectory match bit for bit")
+    g.add_argument("--serve-target-ratio", type=float, default=0.9, metavar="T",
+                   help="delivery-ratio target the reliability report certifies against")
+
+
+def _validate_serve(args: argparse.Namespace) -> str | None:
+    """The reason a serving config cannot run (exit 2, the JAX CLI's
+    words), or None; the serving twin of :func:`_validate_stream`."""
+    if args.rounds <= 0:
+        return ("serve runs a fixed horizon of round windows — pass --rounds R; run-to-coverage has no serving "
+                "window to batch arrivals into")
+    if not (0 <= args.port <= 65535):
+        return f"--port {args.port} outside [0, 65535]"
+    if args.rounds_per_sec < 0:
+        return f"--rounds-per-sec {args.rounds_per_sec} must be >= 0"
+    if args.max_inject < 1:
+        return f"--max-inject {args.max_inject} must be >= 1"
+    if args.stream <= 0 and args.slot_ttl == 0:
+        return ("serve lands live arrivals in the streaming slot plane, which needs its age-out lease configured: "
+                "pass --slot-ttl T (and optionally --stream RATE for background synthetic load)")
+    if args.stream <= 0:
+        # a rate-0 stream: the slot plane's knobs are checked here (the
+        # stream's validator refuses a TTL without a rate, but serving is
+        # the rate here)
+        from tpu_gossip_torch.traffic import min_feasible_ttl
+
+        if not (1 <= args.stream_hashes <= args.slots):
+            return (f"--stream-hashes {args.stream_hashes} outside [1, --slots {args.slots}] — the Bloom planes "
+                    "live in the slot dimension")
+        feasible = min_feasible_ttl(args.peers, args.fanout, args.mode)
+        if args.slot_ttl < feasible:
+            return (f"--slot-ttl {args.slot_ttl} is below the feasible coverage horizon (~{feasible} rounds for "
+                    f"{args.peers} peers at fanout {args.fanout}) — every served message would be recycled before "
+                    "it could possibly cover")
+    else:
+        err = _validate_stream(args)
+        if err:
+            return err
+    if args.scenario:
+        return ("serve does not compose with --scenario yet: fault phases would make live delivery attribution "
+                "ambiguous (run the fault catalogue through run_sim/fleet instead)")
+    if args.grow:
+        return "serve does not compose with --grow yet: grown peers have no client-addressable identity to map " \
+               "arrivals onto"
+    if args.control > 0:
+        return ("serve does not compose with --control yet: the controller and the live load would chase each "
+                "other's delivery ratio — serve certifies the STATIC protocol")
+    if args.remat_every > 0:
+        return ("serve cannot compose with --remat-every: the epoch re-partition permutes peers, so the frontend's "
+                "client-to-row map would inject at the wrong rows")
+    if args.pipeline is not None:
+        return ("serve double-buffers the injection window against the in-flight device round itself "
+                "(serve/driver.py); --pipeline's exchange overlap does not compose with it")
+    if args.profile_round > 0:
+        return "--profile-round decomposes the offline round; drop it for serve"
+    if args.transport != "dense":
+        return (f"--transport {args.transport} is not wired through the serving driver; run the transport A/B "
+                "offline")
+    if args.checkpoint_every:
+        return ("serve does not checkpoint mid-run (the trace IS the recovery artifact: replay it); drop "
+                "--checkpoint-every")
+    if args.shard and args.graph != "matching":
+        return "serve's sharded engine is the matching mesh (dist/matching_mesh.py); add --graph matching or drop " \
+               "--shard"
+    return None
+
+
+def _serve_swarm(args: argparse.Namespace, dev):
+    """The served swarm, built as the JAX CLI's ``run_sim serve`` builds it:
+    the origins and silent peers drawn first from ``default_rng(seed)``,
+    then the graph (``--graph pa``/``chung-lu`` on the host from the same
+    generator, the matching graph on the device; no staircase plan), or
+    with ``--shard`` the sharded matching layout on the mesh. Returns
+    ``(cfg, plan, mesh, origin_rows, make_state)``: ``origin_rows`` is the
+    id-ordered table of the state rows clients map onto."""
+    from tpu_gossip_torch.core import prng, topology
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+
+    rng = np.random.default_rng(args.seed)
+    origins, silent_ids = _sample_ids(args, rng)
+    fanout = None if args.mode == "flood" else args.fanout
+    cfg_kw = dict(msg_slots=args.slots, fanout=args.fanout, mode=args.mode, forward_once=args.forward_once,
+                  sir_recover_rounds=args.sir_recover, churn_leave_prob=args.churn_leave,
+                  churn_join_prob=args.churn_join, rewire_slots=_rewire_slots(args),
+                  rewire_compact_cap=args.rewire_compact_cap)
+    mesh = plan = exists = None
+    if args.graph == "matching" and args.shard:
+        from tpu_gossip_torch import dist
+        from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+
+        mesh = dist.make_mesh(device=dev)
+        if 128 % mesh.size:
+            raise ValueError(f"serve: mesh size {mesh.size} does not divide 128 (the sharded matching transpose's "
+                             "lane split)")
+        dgraph, plan = matching_powerlaw_graph_sharded(args.peers, mesh.size, gamma=args.gamma, fanout=fanout,
+                                                       key=prng.key(args.seed, dev), device=dev)
+        plan = dist.shard_matching_plan(plan, mesh)
+
+        def to_rows(ids):
+            ids = np.asarray(ids)
+            return (ids // plan.n_per) * plan.n_blk + (ids % plan.n_per)
+
+        cfg = SwarmConfig(n_peers=plan.n, **cfg_kw)
+        origin_rows = to_rows(np.arange(args.peers))
+
+        def make_state():
+            st = init_swarm(dgraph.as_padded_graph(), cfg, key=prng.key(args.seed, dev), origins=to_rows(origins),
+                            exists=dgraph.exists, device=dev)
+            st.silent = _set_rows(st.silent, None if silent_ids is None else to_rows(silent_ids))
+            return dist.shard_swarm(st, mesh)
+
+        return cfg, plan, mesh, origin_rows, make_state
+    if args.graph == "matching":
+        from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph
+
+        dgraph, plan = matching_powerlaw_graph(args.peers, gamma=args.gamma, fanout=fanout,
+                                               key=prng.key(args.seed, dev), device=dev)
+        graph, exists = dgraph.as_padded_graph(), dgraph.exists
+    elif args.graph == "pa":
+        graph = topology.build_csr(args.peers, topology.preferential_attachment(args.peers, m=args.m, rng=rng))
+    else:
+        deg = topology.powerlaw_degree_sequence(args.peers, gamma=args.gamma, rng=rng)
+        graph = topology.build_csr(args.peers, topology.configuration_model(deg, rng=rng))
+    cfg = SwarmConfig(n_peers=graph.n, **cfg_kw)
+    origin_rows = np.arange(graph.n) if exists is None else np.flatnonzero(_host_mask(exists))
+
+    def make_state():
+        st = init_swarm(graph, cfg, key=prng.key(args.seed, dev), origins=origins, exists=exists, device=dev)
+        st.silent = _set_rows(st.silent, silent_ids)
+        return st
+
+    return cfg, plan, mesh, origin_rows, make_state
+
+
+def _main_serve(argv: list[str]) -> int:
+    """``run_sim serve``: accept reference-wire clients on a socket and
+    disseminate their payloads through the swarm on the card.
+
+    The frontend thread batches arrivals a round window; the driver
+    overlaps each window's host work with the card's round and records the
+    ``(round, origin, payload_hash)`` trace, whose replay is bit-identical
+    to the live run (``--replay-check`` replays it in this process, exit 1
+    when it diverges). The announce line ``{"serving": true, ...}`` goes to
+    stderr before round 0; the summary carries the JAX CLI's keys: the
+    ``serve`` block with the frontend's counters, ``steady_state``,
+    ``reliability`` and the digests."""
+    from tpu_gossip_torch.core.packed import pack_state, unpack_state
+    from tpu_gossip_torch.device import resolve_device
+    from tpu_gossip_torch.sim import metrics as M
+    from tpu_gossip_torch.traffic.ingest import IngestPlan
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    p = build_parser()
+    _add_serve_args(p)
+    args, unknown = p.parse_known_args(argv)
+    if unknown:
+        print(f"{' '.join(unknown)}: {_LATER}", file=sys.stderr)
+        return 2
+    # the quorum flags settle their defaults as on every run (JAX's serve
+    # passes an unset window through to a spec that cannot take it)
+    err = _validate_serve(args) or _validate_liveness(args, None)
+    if err:
+        print(err, file=sys.stderr)
+        return 2
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    try:
+        cfg, plan, mesh, origin_rows, make_state = _serve_swarm(args, dev)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    if args.stream > 0:
+        strm = _compile_cli_stream(args, origin_rows, dev)
+    else:
+        # a rate-0 stream: a masked no-op injection whose age-out lease and
+        # per-slot tracks are what the live arrivals ride
+        from tpu_gossip_torch.traffic import compile_stream
+
+        strm = compile_stream(rate=0.0, msg_slots=args.slots, ttl=args.slot_ttl, origin_rows=np.asarray(origin_rows),
+                              k_hashes=args.stream_hashes, device=dev)
+    lqs = _compile_cli_liveness(args)
+
+    from tpu_gossip_torch.serve import ServeDriver, ServeFrontend, build_step, replay_trace, stack_round_stats
+
+    ingest_plan = IngestPlan(msg_slots=args.slots, max_inject=args.max_inject, k_hashes=args.stream_hashes)
+
+    def fresh_state():
+        st = make_state()
+        return pack_state(st) if args.packed else st
+
+    def fresh_step():
+        return build_step(cfg, plan, mesh=mesh, tail=args.tail if not args.shard else "fused", stream=strm,
+                          liveness=lqs)
+
+    driver_box: dict = {}
+    frontend = ServeFrontend(host=args.serve_host, port=args.port, origin_rows=origin_rows,
+                             max_inject=args.max_inject,
+                             query_snapshot=lambda: driver_box["d"].snapshot() if "d" in driver_box else {})
+    try:
+        frontend.start()
+    except (OSError, TimeoutError) as e:
+        print(f"serve: cannot listen on {args.serve_host}:{args.port}: {e}", file=sys.stderr)
+        return 2
+    try:
+        # announce the bound port before the first round, so scripted
+        # clients connect while the run is live
+        print(json.dumps({"serving": True, "host": args.serve_host, "port": frontend.port, "rounds": args.rounds,
+                          "rounds_per_sec": args.rounds_per_sec, "max_inject": args.max_inject}),
+              file=sys.stderr, flush=True)
+        driver = ServeDriver(fresh_step(), fresh_state(), frontend, ingest_plan, rounds=args.rounds,
+                             rounds_per_sec=args.rounds_per_sec, coverage_target=args.target)
+        driver_box["d"] = driver
+        rep = driver.run()
+    finally:
+        frontend.stop()
+
+    stats = rep.stats
+    live_sd, live_td = state_digest(rep.state), stats_digest(stats)
+    if not args.quiet:
+        M.write_jsonl(stats, sys.stdout)
+    round_seconds = 1.0 / args.rounds_per_sec if args.rounds_per_sec > 0 else cfg.round_seconds
+    summary = _horizon_summary(args, stats)
+    summary["serve"] = {
+        "host": args.serve_host, "port": frontend.port, "rounds_per_sec": args.rounds_per_sec,
+        "max_inject": args.max_inject, "wall_seconds": round(rep.wall_seconds, 3),
+        "ms_per_round": round(1000.0 * rep.wall_seconds / args.rounds, 3),
+        "trace_rounds": rep.trace.num_rounds, "trace_arrivals": rep.trace.total_arrivals,
+        **{f"ingest_{k}": int(getattr(stats, f"ingest_{k}").sum()) for k in ("offered", "injected", "conflated",
+                                                                              "overflow")},
+        "counters": frontend.counters.as_dict(),
+    }
+    summary["steady_state"] = M.steady_state_report(stats, target=args.target, round_seconds=round_seconds,
+                                                    warmup_rounds=min(args.slot_ttl, args.rounds // 2))
+    summary["reliability"] = M.reliability_report(stats, target_ratio=args.serve_target_ratio,
+                                                  coverage_target=args.target, round_seconds=round_seconds)
+    summary["state_digest"] = live_sd
+    summary["stats_digest"] = live_td
+    if args.trace_out:
+        rep.trace.save(args.trace_out)
+        summary["serve"]["trace_path"] = args.trace_out
+    rc = 0
+    if args.replay_check:
+        fin2, trail = replay_trace(rep.trace, fresh_step(), fresh_state())
+        replay_sd, replay_td = state_digest(fin2), stats_digest(stack_round_stats(trail))
+        identical = replay_sd == live_sd and replay_td == live_td
+        summary["replay"] = {"state_digest": replay_sd, "stats_digest": replay_td, "bit_identical": identical}
+        if not identical:
+            print(f"serve: trace replay DIVERGED from the live run (state {live_sd[:12]}../{replay_sd[:12]}.., "
+                  f"stats {live_td[:12]}../{replay_td[:12]}..)", file=sys.stderr)
+            rc = 1
+    print(json.dumps(summary))
+    if args.checkpoint:
+        from tpu_gossip_torch.core.state import save_swarm
+
+        save_swarm(args.checkpoint, unpack_state(rep.state) if args.packed else rep.state)
+    return rc
 
 
 if __name__ == "__main__":

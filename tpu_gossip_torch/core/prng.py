@@ -207,13 +207,21 @@ def gumbel(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> torch.Te
     return gumbel_table(k.device)[bits(k, shape, offset) >> 9]
 
 
+def _int_bound(v, dev) -> torch.Tensor:
+    """A randint bound as a 0-d int64 tensor on ``dev``: a Python number is
+    filled in place there (a copy of host memory to the card would wait for
+    the card's queue to drain)."""
+    if torch.is_tensor(v):
+        return v.to(device=dev, dtype=torch.int64)
+    return torch.full((), int(v), dtype=torch.int64, device=dev)
+
+
 def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` (int32 result).
     ``minval`` and ``maxval`` are ints or 0-d tensors on the key's device
     (a tensor bound stays on the device: no host synchronisation)."""
     dev = k.device
-    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
-    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    lo, hi = _int_bound(minval, dev), _int_bound(maxval, dev)
     k1, k2 = split(k)
     hi_bits, lo_bits = bits(k1, shape), bits(k2, shape)
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _M32)

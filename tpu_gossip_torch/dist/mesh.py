@@ -703,7 +703,9 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: Shard
     adaptive controller, its decision riding every exchange. ``pipeline``
     (a ``PipelineSpec``) at depth 1 delivers the exchange the last round
     issued through the shard-local tail and carries this round's in
-    ``pipe_buf``. ``inject`` (serving) raises ``NotImplementedError``."""
+    ``pipe_buf``. ``inject`` (a serving batch) runs on the matching mesh,
+    which the JAX CLI serves from; on this engine it raises
+    ``NotImplementedError``."""
     if isinstance(sg, MatchingPlan):
         if shard_plan is not None:
             raise ValueError("shard_plan is the bucketed CSR engine's staircase receive; matching delivery has no "
@@ -713,6 +715,9 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: Shard
         return gossip_round_dist_matching(state, cfg, sg, mesh, transport=transport, collect_ici=collect_ici,
                                           **planes)
     _check_round(state, cfg, sg, mesh, shard_plan, transport)
+    if planes.get("inject") is not None:
+        raise not_ported("the inject argument on the bucketed sharded engine (run_sim serve --shard runs the "
+                         "matching mesh)", "bucketed-engine serving")
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import _delivery_shim, run_protocol_round_packed
 

@@ -131,7 +131,7 @@ def bernoulli_threshold_device(p: torch.Tensor) -> torch.Tensor:
     ``min(ceil(clip(p, 0, 1) * 2^32), 4294967040)`` computed in float32,
     4294967040 being the largest float32 below 2^32."""
     t = torch.ceil(torch.clamp(p, 0.0, 1.0) * 4294967296.0)
-    return torch.minimum(t, torch.tensor(4294967040.0, dtype=torch.float32, device=p.device)).to(torch.int64)
+    return torch.minimum(t, torch.full((), 4294967040.0, dtype=torch.float32, device=p.device)).to(torch.int64)
 
 
 def _check_rows(rows: int) -> None:
@@ -500,8 +500,8 @@ def scaled_push_thresholds(plan: StaircasePlan, fanout: torch.Tensor) -> torch.T
     plan's fanout."""
     f32 = torch.float32
     dev = plan.push_thresh.device
-    recip = torch.tensor(1.0, dtype=f32, device=dev) / torch.tensor(float(plan.fanout), dtype=f32, device=dev)
+    recip = torch.full((), 1.0, dtype=f32, device=dev) / torch.full((), float(plan.fanout), dtype=f32, device=dev)
     scale = fanout.to(f32) * recip
-    cap = torch.tensor(2.0 ** 32 - 2.0 ** 8, dtype=f32, device=dev)
+    cap = torch.full((), 2.0 ** 32 - 2.0 ** 8, dtype=f32, device=dev)
     scaled = torch.minimum(plan.push_thresh.to(f32) * scale, cap).to(torch.int64)
     return torch.where(fanout == plan.fanout, plan.push_thresh, scaled)

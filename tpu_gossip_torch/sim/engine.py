@@ -31,7 +31,10 @@ rows) is resolved before delivery and reaches every path, the control
 stage runs last, and the four control columns are filled (``control_level``
 -1 without a controller); and ``pipeline``, a ``PipelineSpec``
 (``sim/stages.py``): at depth 1 each round delivers the exchange the last
-one issued (``pipe_buf``) and stores its own.
+one issued (``pipe_buf``) and stores its own; and ``inject``, an
+``InjectBatch`` (``traffic/ingest.py``): a live-serving window's arrivals
+land after the tail and the stream's injection and fill the four
+``ingest_*`` columns.
 
 JAX runs the horizon as one compiled ``scan`` and the coverage loop as a
 ``while_loop`` on the device; here both are Python loops over rounds.
@@ -107,7 +110,7 @@ class RoundStats(NamedTuple):
     dead_undeclared: torch.Tensor
     adv_accusations: torch.Tensor
     adv_forged: torch.Tensor
-    ingest_offered: torch.Tensor  # i32 — live ingestion (0 here)
+    ingest_offered: torch.Tensor  # i32 — live ingestion (0 without a batch)
     ingest_injected: torch.Tensor
     ingest_conflated: torch.Tensor
     ingest_overflow: torch.Tensor
@@ -151,7 +154,7 @@ def slot_tracks(seen: torch.Tensor, live: torch.Tensor, slot_lease: torch.Tensor
 
 
 def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None,
-           growth=None, stream=None, stel=None, ctel=None) -> RoundStats:
+           growth=None, stream=None, stel=None, ctel=None, itel=None) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -171,10 +174,20 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, l
     if fstats is not None:
         counters.update(fstats._asdict())
     counters.update(stream_counters(stel))
+    counters.update(ingest_counters(itel))
     counters.update(control_counters(ctel))
     counters.update(liveness_counters(ltel, liveness, state.exists, state.alive, state.declared_dead,
                                       state.quarantine))
     return RoundStats(**counters)
+
+
+def ingest_counters(itel) -> dict:
+    """The four ``ingest_*`` columns from the round's ``IngestTelemetry``
+    (none without a batch)."""
+    if itel is None:
+        return {}
+    return {"ingest_offered": itel.offered, "ingest_injected": itel.injected,
+            "ingest_conflated": itel.conflated, "ingest_overflow": itel.overflow}
 
 
 def control_counters(ctel) -> dict:
@@ -563,7 +576,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
                   churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
                   k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                  host_rnd: int | None = None, control=None, rctl=None, pipe_buf=None):
+                  host_rnd: int | None = None, control=None, rctl=None, pipe_buf=None, inject=None):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
@@ -586,7 +599,9 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     without it ``control_lvl`` passes through untouched. ``pipe_buf`` is
     the in-flight exchange a pipelined round stores (None: the state's
     buffer rides through untouched); a stream's recycled columns die in
-    it, as they do in the delay buffer."""
+    it, as they do in the delay buffer. ``inject`` (an ``InjectBatch``)
+    lands a serving window's arrivals after the stream's injection and
+    fills the ``ingest_*`` columns."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -602,11 +617,11 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         "quarantine": state.quarantine, "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
         "slot_lease": state.slot_lease, "held": state.fault_held if fault_held is None else fault_held,
         "stel": None, "control_lvl": state.control_lvl, "rctl": rctl, "fstats": fstats,
-        "seen_prev": state.seen, "ctel": None,
+        "seen_prev": state.seen, "ctel": None, "inject": inject, "itel": None,
     }
     values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
                                            liveness=liveness, growth=growth, stream=stream, host_rng=host_rng,
-                                           host_rnd=host_rnd, control=control), values)
+                                           host_rnd=host_rnd, control=control, inject=inject), values)
     if pipe_buf is not None and values["expired"] is not None:
         # the issue read the pre-expiry seen plane: a retired message's
         # in-flight bits would otherwise deliver into the column's new lease
@@ -626,7 +641,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         rng=key, round=rnd,
     )
     return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness, growth, stream,
-                             values["stel"], values["ctel"])
+                             values["stel"], values["ctel"], values["itel"])
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
@@ -635,7 +650,8 @@ def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = 
     ``PackedSwarm`` runs the packed-native round and stays packed.
     ``scenario`` injects the round's faults (``host_round``, the state's
     round on the host, spares a device read); ``liveness`` (a
-    ``QuorumSpec``) hardens the detector."""
+    ``QuorumSpec``) hardens the detector; ``inject`` (an ``InjectBatch``)
+    lands a serving window's arrivals."""
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import gossip_round_packed
 
@@ -662,12 +678,17 @@ def simulate(state: SwarmState, cfg: SwarmConfig, num_rounds: int, plan=None,
     stats stacked along a leading (num_rounds,) axis. ``scenario`` threads
     a compiled fault schedule through every round, ``stream`` a compiled
     streaming workload; the state's round is their cursor, read once on
-    the host with the state's key (``host_cursor``)."""
+    the host with the state's key (``host_cursor``). ``inject``, a
+    sequence of ``num_rounds`` batches (JAX's stacked ``InjectBatch``),
+    lands one a round: the whole-run replay of a served trace."""
+    batches = later.pop("inject", None)
+    if batches is not None and len(batches) != num_rounds:
+        raise ValueError(f"inject holds {len(batches)} batches for {num_rounds} rounds")
     r0, hkey = host_cursor(state, later)
     rows = []
     for i in range(num_rounds):
         state, st = gossip_round(state, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i,
-                                 host_rng=hkey, **later)
+                                 host_rng=hkey, inject=None if batches is None else batches[i], **later)
         hkey = next_host_key(hkey)
         rows.append(st)
     return state, _stack(rows)
@@ -679,6 +700,9 @@ def run_until_coverage(state: SwarmState, cfg: SwarmConfig, target: float = 0.99
     """Rounds until ``coverage(slot) >= target`` (compared in float32) or
     ``max_rounds``; rounds used = ``result.round - state.round``. Under a
     ``scenario`` rounds past its schedule run quiescent."""
+    if later.get("inject") is not None:
+        raise TypeError("run_until_coverage lands no serving batches (JAX's takes no inject): serve a fixed "
+                        "horizon through simulate or gossip_round")
     start = state.round
     r0, hkey = host_cursor(state, later)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)

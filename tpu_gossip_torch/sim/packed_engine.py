@@ -38,8 +38,10 @@ round's decision from the decoded seen plane (its slot coverage and needy
 rows need bools), hands it to the delivery and runs the control stage
 last, decoding the three slot planes it reads. A pipelined round swaps
 the delivered words for the buffered ones (``pipe_buf``) and masks a
-stream's recycled columns out of the words it stores. Live ingestion is a
-later slice and raises ``NotImplementedError``.
+stream's recycled columns out of the words it stores. A serving window's
+batch (``inject``) lands after the stream's injection, decoding the seen
+words at that boundary and packing the product, as JAX's
+``_ingest_stage_packed`` does.
 """
 
 from __future__ import annotations
@@ -53,9 +55,9 @@ from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
 from tpu_gossip_torch.kernels import packed_ops as po
 from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
-from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_later, control_stages, fault_round,
-                                        pipeline_swap, require_quorum, resolve_control, row_stages, run_stages,
-                                        stream_stages)
+from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_inject, check_later, control_stages,
+                                        fault_round, ingest_stages, pipeline_swap, require_quorum, resolve_control,
+                                        row_stages, run_stages, stream_stages)
 
 __all__ = [
     "gossip_round_packed",
@@ -196,31 +198,31 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
 
 def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None, churn_faults: bool = False,
                                liveness=None, growth=None, stream=None, host_rng=None,
-                               host_rnd: int | None = None, control=None) -> tuple[Stage, ...]:
+                               host_rnd: int | None = None, control=None, inject=None) -> tuple[Stage, ...]:
     """The packed stages of one round: the bool engine's row-level
     liveness, churn and growth stages (fault-aware and hardened as there),
     then the word tail, with a stream's age-out before it (the held
     buffer's column drop a packed AND) and its injection after it (the
-    seen words decoded and packed again at that boundary), then the
-    control stage on decoded planes."""
+    seen words decoded and packed again at that boundary), a serving
+    batch's landing likewise, then the control stage on decoded planes."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
             *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m),
-            *control_stages(cfg, control, packed_m=m))
+            *ingest_stages(inject, packed_m=m), *control_stages(cfg, control, packed_m=m))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
                          churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
                          k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                         host_rnd: int | None = None, control=None, rctl=None, pipe_buf_w=None):
+                         host_rnd: int | None = None, control=None, rctl=None, pipe_buf_w=None, inject=None):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
     ``fault_held_w`` is the packed delay buffer to carry (the input's when
     None), ``fstats`` the round's fault counters; ``liveness``, the
-    adversary arguments, ``growth``, ``stream``, ``control``, ``rctl`` and
+    adversary arguments, ``growth``, ``stream``, ``control``, ``rctl``,
     ``pipe_buf_w`` (the stored in-flight words, a recycled column masked
-    out of them) as in ``advance_round``."""
+    out of them) and ``inject`` as in ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -236,11 +238,12 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         "k_accuse": k_accuse, "k_forge": k_forge, "ltel": None,
         "slot_lease": ps.slot_lease, "held": ps.fault_held if fault_held_w is None else fault_held_w, "stel": None,
         "control_lvl": ps.control_lvl, "rctl": rctl, "fstats": fstats, "seen_prev": ps.seen, "ctel": None,
+        "inject": inject, "itel": None,
     }
     values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, faults=faults,
                                                    churn_faults=churn_faults, liveness=liveness, growth=growth,
                                                    stream=stream, host_rng=host_rng, host_rnd=host_rnd,
-                                                   control=control),
+                                                   control=control, inject=inject),
                         values)
     if pipe_buf_w is not None and values["expired"] is not None:
         pipe_buf_w = po.mask_cols(pipe_buf_w, pack_bits(~values["expired"]))
@@ -261,17 +264,17 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
     return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness, growth,
-                                    stream, values["stel"], values["ctel"])
+                                    stream, values["stel"], values["ctel"], values["itel"])
 
 
 def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None, growth=None,
-                  stream=None, stel=None, ctel=None):
+                  stream=None, stel=None, ctel=None, itel=None):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
     agree bit for bit, the padding being zero); a stream's per-slot
     infected count sums the decoded words, as JAX's twin does."""
-    from tpu_gossip_torch.sim.engine import (RoundStats, control_counters, growth_gamma, liveness_counters,
-                                             slot_tracks, stream_counters)
+    from tpu_gossip_torch.sim.engine import (RoundStats, control_counters, growth_gamma, ingest_counters,
+                                             liveness_counters, slot_tracks, stream_counters)
 
     live = flags["alive"] & ~flags["declared_dead"]
     dev = ps.seen.device
@@ -293,6 +296,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
     if fstats is not None:
         counters.update(fstats._asdict())
     counters.update(stream_counters(stel))
+    counters.update(ingest_counters(itel))
     counters.update(control_counters(ctel))
     counters.update(liveness_counters(ltel, liveness, flags["exists"], flags["alive"], flags["declared_dead"],
                                       flags["quarantine"]))
@@ -301,7 +305,8 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
 
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
                               tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
-                              growth=None, stream=None, host_rng=None, control=None, pipeline=None, **later):
+                              growth=None, stream=None, host_rng=None, control=None, pipeline=None, inject=None,
+                              **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
     k_pull, rctl) -> (inc_w, msgs_sent)``, then the packed stages. Under a
@@ -312,10 +317,11 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
     adversary stream's fold and ``liveness`` are the bool round's; under
     ``control`` the round's decision is resolved on the decoded seen
     plane; ``pipeline`` swaps the words as ``run_protocol_round`` swaps
-    the bool plane."""
+    the bool plane; ``inject`` lands a serving window's batch."""
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
+    check_inject(inject)
     require_quorum(scenario, liveness)
     _engine.validate_rewire_width(ps, cfg)
     m = ps.msg_slots
@@ -350,7 +356,7 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
                                 fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
                                 k_forge=k_forge, growth=growth, stream=stream, host_rng=host_rng,
                                 host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
-                                pipe_buf_w=pipe_buf_w)
+                                pipe_buf_w=pipe_buf_w, inject=inject)
 
 
 def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):

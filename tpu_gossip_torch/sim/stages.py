@@ -27,8 +27,10 @@ after the injection; ``run_protocol_round`` resolves the round's
 ``PipelineSpec`` and ``compile_pipeline`` (:74-99) select the pipelined
 schedule: at depth 1 ``run_protocol_round`` delivers the exchange the last
 round issued (``state.pipe_buf``) and carries this round's in its place
-(:840-846). Live ingestion is a later slice; its argument raises
-``NotImplementedError`` here.
+(:840-846). ``_ingest_stage`` (:609) lands a live-serving window's
+arrivals (``traffic/ingest.py``, an ``InjectBatch``) after the stream's
+injection, on the same lease table; ``run_protocol_round`` takes the batch
+as ``inject``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 from tpu_gossip_torch.core import prng
 
 __all__ = ["Stage", "StageView", "run_stages", "PipelineSpec", "compile_pipeline", "build_round_stages",
-           "stream_stages", "control_stages",
+           "stream_stages", "control_stages", "ingest_stages", "check_inject",
            "resolve_control", "run_protocol_round",
            "pipeline_swap", "not_ported", "host_cursor", "next_host_key",
            "check_later", "row_stages", "first_rows", "has_churn", "effective_transmit_planes", "fault_round", "adversary_keys",
@@ -415,6 +417,49 @@ def _stream_inject_stage(stream, host_rng=None, host_rnd: int | None = None, pac
     return Stage("stream_inject", reads, writes, fn)
 
 
+def _ingest_stage(packed_m: int | None = None) -> Stage:
+    """Live-arrival injection (``traffic/ingest.py``), after the tail like
+    the stream's: a round-r arrival first transmits in round r + 1, and
+    origins are gated on the round's final liveness. Runs after
+    ``stream_inject``, so synthetic and live traffic compose: the stream's
+    draws are untouched (ingest consumes no randomness) and both share the
+    one lease table. The batch rides the carry dict (``inject``). With
+    ``packed_m`` the seen plane is words, decoded at this boundary and
+    packed again when the window holds arrivals, as JAX's packed twin does
+    (``sim/packed_engine.py:276``)."""
+    reads = ("rnd", "inject", "seen", "infected_round", "slot_lease", "exists", "alive", "declared_dead")
+    writes = ("seen", "infected_round", "slot_lease", "itel")
+
+    def fn(ctx):
+        from tpu_gossip_torch.core.packed import pack_bits, unpack_bits
+        from tpu_gossip_torch.traffic.ingest import apply_arrivals
+
+        batch = ctx["inject"]
+        words = packed_m is not None and batch.count > 0
+        seen, infected_round, slot_lease, itel = apply_arrivals(
+            batch, ctx["rnd"], seen=unpack_bits(ctx["seen"], packed_m) if words else ctx["seen"],
+            infected_round=ctx["infected_round"], slot_lease=ctx["slot_lease"], exists=ctx["exists"],
+            alive=ctx["alive"], declared_dead=ctx["declared_dead"])
+        return {"seen": pack_bits(seen) if words else seen, "infected_round": infected_round,
+                "slot_lease": slot_lease, "itel": itel}
+
+    return Stage("ingest", reads, writes, fn)
+
+
+def ingest_stages(inject, packed_m: int | None = None) -> tuple[Stage, ...]:
+    """The ingest stage when the round lands a batch, else none."""
+    return () if inject is None else (_ingest_stage(packed_m),)
+
+
+def check_inject(inject) -> None:
+    """``inject`` must be None or an :class:`~tpu_gossip_torch.traffic.
+    ingest.InjectBatch` on the round's device."""
+    from tpu_gossip_torch.traffic.ingest import InjectBatch
+
+    if inject is not None and not isinstance(inject, InjectBatch):
+        raise TypeError(f"inject must be an InjectBatch (traffic.ingest.make_batch), got {type(inject).__name__}")
+
+
 CONTROL_READS = ("rng", "rnd", "rctl", "incoming", "seen_prev", "seen", "alive", "declared_dead", "exists",
                  "rewired", "rewire_targets", "degree_credit", "row_ptr", "col_idx", "slot_lease", "fstats",
                  "control_lvl")
@@ -487,20 +532,19 @@ def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, g
 
 def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
                        liveness=None, growth=None, stream=None, host_rng=None,
-                       host_rnd: int | None = None, control=None) -> tuple[Stage, ...]:
+                       host_rnd: int | None = None, control=None, inject=None) -> tuple[Stage, ...]:
     """The post-dissemination stages of one round: :func:`row_stages`,
     then, with a ``stream``, its age-out, the tail and its injection
-    (:func:`stream_stages`), else the tail; then, with ``control``, the
-    control stage."""
+    (:func:`stream_stages`), else the tail; then, with ``inject`` (an
+    ``InjectBatch``), the ingest stage; then, with ``control``, the control
+    stage."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
-            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd), *control_stages(cfg, control))
+            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd), *ingest_stages(inject),
+            *control_stages(cfg, control))
 
 
 def check_later(later: dict) -> None:
-    """Refuse the arguments of later slices (given and not None) and any
-    unknown argument."""
-    if later.pop("inject", None) is not None:
-        raise not_ported("the inject argument", "serving")
+    """Refuse any unknown argument."""
     if later:
         raise TypeError(f"unexpected arguments {sorted(later)}")
 
@@ -563,7 +607,7 @@ def resolve_control(control, state, cfg):
 
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
                        host_round: int | None = None, liveness=None, growth=None, stream=None, host_rng=None,
-                       control=None, pipeline=None, **later):
+                       control=None, pipeline=None, inject=None, **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull, rctl) ->
@@ -595,10 +639,14 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     round's issue in flight; everything on the issue side (billing, the
     ``tx_eff`` latch, fault telemetry, the held buffer) stays with the
     round that issued it. Depth 0 and None are the serial schedule.
+    ``inject`` (an ``InjectBatch``) lands a live-serving window's arrivals
+    after the tail and the stream's injection (:func:`_ingest_stage`); a
+    zero-count batch equals ``inject=None`` bit for bit.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
     check_later(later)
+    check_inject(inject)
     require_quorum(scenario, liveness)
     _engine.validate_rewire_width(state, cfg)
     rnd = state.round + 1
@@ -626,7 +674,7 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
         liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth, stream=stream,
         host_rng=host_rng, host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
-        pipe_buf=pipe_buf,
+        pipe_buf=pipe_buf, inject=inject,
     )
 
 
