@@ -133,7 +133,8 @@ lane digests and family blocks, ``run_sim fleet --lane 5 --solo`` equal to
 lane 5, and a 4-lane campaign checkpointed a file a lane, killed after
 its round-4 checkpoint and resumed whole and as ``--lane 3 --solo`` on the
 other device, both ways; 13d ``bench_fleet``'s configuration at full width
-(n=131072, K = 1, 8, 32, 10 rounds) beside K solo runs of the same lanes;
+(n=131072, K = 1, 8, 32, the first 5 of its 10 rounds) beside K solo runs
+of the same lanes;
 13e ``run_sim --profile-round`` with ``--grow``, ``--stream 4`` and
 ``--control 0.99`` at 1M (the composed rows). Phase 14 drives the sharded
 matching engine and its transports (``dist/matching_mesh.py``,
@@ -168,9 +169,28 @@ stage at a full window, and every host synchronisation of a served round
 JAX pin; 15d ``run_sim serve`` on the 1M matching graph, packed and on the
 one-card mesh under the same load, each with ``--replay-check``, the live
 rounds' launches counted apart from the replay's (K1 7, K2 1, K3 or K4 1
-a round). It prints phase 13's, 14's and 15's seconds and the script's. Each check of a checkpoint written on one device and
-resumed on the other (8e, 9c, 10d, 11d, 12d) runs its two directions at
-once, and 10c runs the first 32 rounds of ``bench_grow``'s schedule, to
+a round). Phase 16, the tpu-sim transport and the socket nodes
+(``compat/``, ``cli/run_seed.py``, ``cli/run_peer.py``): 16a K3 against
+its plain version at the swarm's 1,000,000 x 64, then the north-star
+swarm, 1,000,000 ``PeerNode(transport="tpu-sim")`` registered into one
+``SimCluster(msg_slots=64, fanout=3, mode="push", seed=0)`` on the card,
+``materialize(m=3)``, three messages (the highest-degree peer, peer 0,
+peer n-1), ``step(R)`` to the JAX run's 99% round, 1,000 peers killed and
+1,000 silenced, ``step(12)``: both digests of each step, the declared dead
+and the three coverages onto ``reference_pins.json``'s ``simnet_1m``, K3
+once a round and no other kernel (launches from 0), the registration and
+``materialize`` seconds, ms/round by CUDA events, the peak over what was
+resident; 16b ``tests/conformance/test_curves.py``'s barrier-stepped socket
+curve against three ``SimCluster`` curves on the card over the same fixed
+graph, at 40 peers and at 1,000 (the slow test's tolerances; the 1k leg
+says it did not run when ``RLIMIT_NOFILE`` cannot be raised to 10,000);
+16c two ``run_seed`` and four ``run_peer`` processes on a temporary
+``config.txt`` at ``--time-scale 0.01``, two stdin lines in every other
+peer's log, ``exit`` to every node, each exiting 0. It prints phase 13's,
+14's, 15's and 16's seconds and the script's. Each check of a checkpoint
+written on one device and resumed on the other (8e, 9c, 10d, 11d, 12d)
+runs its two directions at once, 10c runs the first 32 rounds of
+``bench_grow``'s schedule and 13d the first 5 of ``bench_fleet``'s 10, to
 keep the script inside its time.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
@@ -2856,8 +2876,9 @@ def phase_control(root: Path, dev, card: str) -> dict:
 PIPELINE_BIG_ROUNDS = 24  # bench.py::bench_pipeline's horizon
 CATALOGUE = "scenarios/campaigns/catalogue_smoke.toml"
 # bench.py::bench_fleet's configuration: K composed lanes (a lossy sweep, a
-# stream and the controller) of n-peer Chung-Lu swarms, 10 rounds
-BENCH_FLEET = dict(n=131_072, ks=(1, 8, 32), rounds=10)
+# stream and the controller) of n-peer Chung-Lu swarms, the first 5 of its 10
+# rounds (cut to keep the script inside its time once phase 16 joined it)
+BENCH_FLEET = dict(n=131_072, ks=(1, 8, 32), rounds=5)
 # a small campaign for the checkpoint round trip across devices (4 lanes, 12
 # rounds, a file a lane every 4)
 SMALL_CAMPAIGN = """[campaign]
@@ -4037,6 +4058,352 @@ def phase_serve(root: Path, dev, card: str, gen) -> dict:
     return parts
 
 
+# phase 16: the tpu-sim transport (compat/simnet.py) launches the exactly-k round's kernels: K3 once a round
+SIMNET_PATH = dict(XLA_PATH, lane_gather=0, sublane_gather=0)
+CURVE_FANOUT, CURVE_TICK = 3, 0.08  # tests/conformance/test_curves.py's push fanout and socket tick
+# (peers, rounds, |r50 diff|, |r99 diff|): its tier-1 40-peer case and its slow 1k case's tolerances
+CURVE_LEGS = ((40, 25, 3, 5), (1000, 20, 2, 3))
+CURVE_FDS = 10_000  # the 1k leg's descriptors: 1000 servers and ~2 x 3000 connections
+CLI_SEEDS, CLI_PEERS = 2, 4
+
+
+def simnet_addr(i: int) -> tuple:
+    """Peer ``i``'s address in the 1M swarm (``tests/jax_pins.py::simnet_addr``)."""
+    return (f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}", 9000)
+
+
+def check_simnet_tail(dev, gen, n: int, m: int) -> int:
+    """K3 at 16a's shape against its plain version, with the flags of the
+    exactly-k push round (no churn ``fresh``, no ``expired`` mask, the
+    unsaturated SIR age), forward-once and SIR off and on."""
+    from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
+
+    err = 0
+    ops = tail_operands(n, m, gen, dev, rnd=9)
+    args = (*(ops[k] for k in TAIL_PLANES), None, torch.tensor(9, dtype=torch.int32, device=dev))
+    for fo, sir in ((False, 0), (True, 4)):
+        kw = dict(forward_once=fo, sir_recover_rounds=sir, age_saturated=False, expired=None)
+        for a, b in zip(tail_kernel(*args, **kw), tail_fused(*args, **kw)):
+            err = max(err, max_err(a, b))
+    return err
+
+
+def simnet_swarm(dev, card: str, pin: dict, gen) -> dict:
+    """16a: K3 at the swarm's shape against its plain version; then the
+    pin's swarm through ``PeerNode(transport="tpu-sim")`` and
+    ``SimCluster`` on ``dev``: registration, ``materialize``, the three
+    messages, ``step(R)``, the victims killed and silenced, ``step(12)``,
+    each against the JAX pin; launches counted from 0 over the two steps."""
+    import numpy as np
+
+    from tpu_gossip_torch.compat.peer import PeerNode
+    from tpu_gossip_torch.compat.simnet import SimCluster
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.sim.metrics import coverage_curve, rounds_to_coverage
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    c = pin["config"]
+    n, rounds = c["n"], pin["rounds"]
+    k3_err = check_simnet_tail(dev, gen, n, c["msg_slots"])
+    torch.cuda.synchronize(dev)
+    print(f"[{card}] 16a: K3 at {n} x {c['msg_slots']} (the exactly-k push round's flags, forward-once and SIR "
+          f"off and on) equal to its plain version: max_abs_err {k3_err}", flush=True)
+    cluster = SimCluster(msg_slots=c["msg_slots"], fanout=c["fanout"], mode=c["mode"], seed=c["seed"], device=dev)
+    t0 = time.perf_counter()
+    peers = [PeerNode(*simnet_addr(i), transport="tpu-sim", cluster=cluster) for i in range(n)]
+    register_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cluster.materialize(m=c["m"])
+    torch.cuda.synchronize(dev)
+    materialize_s = time.perf_counter() - t0
+    origins = [int(np.argmax(cluster._graph.degrees)), 0, n - 1]
+    if origins != pin["origins"]:
+        raise AssertionError(f"16a: origins {origins} != the JAX pin's {pin['origins']}: another graph")
+    for i, text in zip(origins, pin["texts"]):
+        peers[i].gossip(text)
+    victims = np.random.default_rng(c["victims_seed"]).choice(n, size=c["kill"] + c["silence"], replace=False)
+    killed, silenced = victims[:c["kill"]].tolist(), victims[c["kill"]:].tolist()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    native.reset_launches()
+    ev[0].record()
+    first = cluster.step(rounds)
+    ev[1].record()
+    mid = cluster.state
+    for i in killed:
+        cluster.kill(peers[i].addr)
+    for i in silenced:
+        peers[i].set_silent(True)
+    ev[2].record()
+    second = cluster.step(c["after"])
+    ev[3].record()
+    torch.cuda.synchronize(dev)
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_launches("16a tpu-sim", launches, SIMNET_PATH, rounds + c["after"])
+    got = {"steps": [{"stats_digest": stats_digest(first), "state_digest": state_digest(mid)},
+                     {"stats_digest": stats_digest(second), "state_digest": state_digest(cluster.state)}],
+           "declared_dead": sum(cluster.is_declared_dead(peers[i].addr) for i in killed + silenced)}
+    for k, v in got.items():
+        if v != pin[k]:
+            raise AssertionError(f"16a: {k} {v} != the JAX pin's {pin[k]} ({pin['source']})")
+    coverage = [cluster.coverage(t) for t in pin["texts"]]
+    curve = coverage_curve(first)
+    worst = max(max(abs(a - b) for a, b in zip(coverage, pin["coverage"])),
+                max(abs(float(a) - b) for a, b in zip(curve, pin["curve"])))
+    if worst > 1e-6:
+        raise AssertionError(f"16a: coverages {coverage} or the curve differ from the JAX pin's by {worst}")
+    r99 = rounds_to_coverage(first, 0.99)
+    if r99 != rounds:
+        raise AssertionError(f"16a: coverage_curve passes 99% at round {r99}, the pin's horizon is {rounds}")
+    r = dict(k3_err=k3_err, register_s=register_s, materialize_s=materialize_s, rounds=rounds, r99=r99,
+             ms_first=ev[0].elapsed_time(ev[1]) / rounds, ms_after=ev[2].elapsed_time(ev[3]) / c["after"],
+             peak=peak, resident=resident, launches=launches, coverage=coverage,
+             declared_dead=got["declared_dead"], worst=worst)
+    print(f"[{card}] 16a tpu-sim swarm n={n} m={c['msg_slots']} push fanout {c['fanout']}: registered "
+          f"{n} PeerNode(transport='tpu-sim') in {register_s:.2f} s, materialize(m={c['m']}) {materialize_s:.2f} s "
+          f"(the native PA build, CSR and the state on the card); step({rounds}) {r['ms_first']} ms/round and, "
+          f"after {c['kill']} kills and {c['silence']} silenced, step({c['after']}) {r['ms_after']} ms/round (CUDA "
+          f"events); rounds to 99% from coverage_curve {r99}; max_memory_allocated {peak} B (from {resident} B "
+          f"resident); launches {launches}; declared dead {got['declared_dead']} of {c['kill'] + c['silence']}; "
+          f"coverages {coverage} (max |diff| to the pin {worst}); state_digest {got['steps'][1]['state_digest']} "
+          f"and both stats digests equal to the JAX pin", flush=True)
+    return r
+
+
+async def socket_curve(graph, origin: int, rounds: int, tmp: Path) -> list:
+    """``tests/conformance/test_curves.py::socket_curve`` on the port's
+    ``PeerNode``: barrier-stepped push gossip over localhost sockets."""
+    import asyncio
+
+    from tpu_gossip_torch.compat.peer import PeerNode
+    from tpu_gossip_torch.compat.timing import ProtocolTiming
+
+    n = graph.n
+    timing = ProtocolTiming(gossip_period=CURVE_TICK, heartbeat_period=10.0, detect_period=10.0,
+                            heartbeat_timeout=60.0)
+    addrs = [("127.0.0.1", p) for p in free_ports(n)]
+    peers = [PeerNode(*a, timing=timing, relay_mode="manual", fanout=CURVE_FANOUT, log_dir=str(tmp)) for a in addrs]
+    try:
+        for p in peers:
+            await p.start_detached()
+        for i, p in enumerate(peers):
+            await p.connect_to([addrs[j] for j in graph.neighbors(i) if j > i])
+        await asyncio.sleep(CURVE_TICK)
+        peers[origin].gossip("conformance-msg")
+        curve = []
+        for _ in range(rounds):
+            snaps = [list(p.seen_messages) for p in peers]
+            for p, snap in zip(peers, snaps):
+                await p.push_tick(snap)
+            # settle: three stable polls of the round's coverage
+            deadline, prev, stable = asyncio.get_event_loop().time() + 2.0, -1, 0
+            while asyncio.get_event_loop().time() < deadline and stable < 3:
+                cur = sum(p.has_seen("conformance-msg") for p in peers)
+                stable, prev = (stable + 1 if cur == prev else 0), cur
+                await asyncio.sleep(0.01)
+            curve.append(sum(p.has_seen("conformance-msg") for p in peers) / n)
+        return curve
+    finally:
+        for p in peers:
+            if p.running:
+                await p.stop()
+
+
+def free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def sim_curve(dev, graph, origin: int, rounds: int, seed: int) -> list:
+    """``test_curves.py::sim_curve`` on the card: the message's coverage a
+    round through ``SimCluster.step(1)``."""
+    from tpu_gossip_torch.compat.peer import PeerNode
+    from tpu_gossip_torch.compat.simnet import SimCluster
+
+    cluster = SimCluster(msg_slots=8, fanout=CURVE_FANOUT, seed=seed, device=dev)
+    peers = [PeerNode("10.0.0.1", 9000 + i, transport="tpu-sim", cluster=cluster) for i in range(graph.n)]
+    cluster.materialize(graph=graph)
+    peers[origin].gossip("conformance-msg")
+    curve = []
+    for _ in range(rounds):
+        cluster.step(1)
+        curve.append(cluster.coverage("conformance-msg"))
+    return curve
+
+
+def rounds_to(curve: list, frac: float) -> int:
+    hit = [i for i, c in enumerate(curve) if c >= frac]
+    return hit[0] + 1 if hit else len(curve) + 10
+
+
+def curve_leg(dev, card: str, n: int, rounds: int, tol50: int, tol99: int, tmp: Path) -> dict:
+    """One leg of 16b: the socket curve and three card curves on
+    ``default_rng(42)``'s fixed PA graph, held to ``test_curves.py``'s
+    tolerances at this size."""
+    import asyncio
+    from statistics import median
+
+    import numpy as np
+
+    from tpu_gossip_torch.core.topology import build_csr, preferential_attachment
+
+    graph = build_csr(n, preferential_attachment(n, m=3, use_native=False, rng=np.random.default_rng(42)))
+    origin = int(np.argmax(graph.degrees))
+    t0 = time.perf_counter()
+    sock = asyncio.run(socket_curve(graph, origin, rounds, tmp))
+    sock_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sims = [sim_curve(dev, graph, origin, rounds, s) for s in range(3)]
+    sim_s = time.perf_counter() - t0
+    r = {"socket": (rounds_to(sock, 0.5), rounds_to(sock, 0.99)),
+         "sims": [(rounds_to(c, 0.5), rounds_to(c, 0.99)) for c in sims]}
+    s50, s99 = median(a for a, _ in r["sims"]), median(b for _, b in r["sims"])
+    bad = []
+    if sock[-1] < 0.99 or any(c[-1] < 0.99 for c in sims):
+        bad.append(f"final coverage socket {sock[-1]}, sims {[c[-1] for c in sims]}")
+    if abs(r["socket"][0] - s50) > tol50 or abs(r["socket"][1] - s99) > tol99:
+        bad.append(f"rounds to 50%/99% socket {r['socket']} against the sims' medians {s50}/{s99}")
+    if any(b < a - 1e-9 for a, b in zip(sock, sock[1:])):
+        bad.append("the socket curve falls")
+    if n == CURVE_LEGS[0][0]:
+        mean = np.mean(np.asarray(sims), axis=0)
+        if np.max(np.abs(np.asarray(sock)[2:rounds - 5] - mean[2:rounds - 5])) > 0.35:
+            bad.append("mid-curve gap > 0.35")
+    if bad:
+        raise AssertionError(f"16b n={n}: {'; '.join(bad)}")
+    print(f"[{card}] 16b n={n} fixed PA graph (default_rng(42), hub origin {origin}), {rounds} rounds: socket "
+          f"(barrier-stepped, {n} localhost PeerNodes, {sock_s:.2f} s) rounds to 50%/99% {r['socket']}; SimCluster "
+          f"on the card, seeds 0-2 ({sim_s:.2f} s) {r['sims']}, medians {s50}/{s99}; within |{tol50}|/|{tol99}|",
+          flush=True)
+    return dict(r, sock_s=sock_s, sim_s=sim_s)
+
+
+def conformance_curves(dev, card: str, tmp: Path) -> dict:
+    """16b: the 40-peer leg, then the 1k leg with ``RLIMIT_NOFILE`` raised
+    to ``CURVE_FDS`` (restored after; the leg says it did not run when the
+    limit cannot be raised)."""
+    import resource
+
+    out = {}
+    n, rounds, tol50, tol99 = CURVE_LEGS[0]
+    out[n] = curve_leg(dev, card, n, rounds, tol50, tol99, tmp)
+    n, rounds, tol50, tol99 = CURVE_LEGS[1]
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    raised = False
+    if soft < CURVE_FDS:
+        try:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (CURVE_FDS, hard))
+            raised = True
+        except (ValueError, OSError):
+            print(f"[{card}] 16b n={n}: did not run: RLIMIT_NOFILE {soft}/{hard} cannot be raised to {CURVE_FDS}",
+                  flush=True)
+            return out
+    try:
+        out[n] = curve_leg(dev, card, n, rounds, tol50, tol99, tmp)
+    finally:
+        if raised:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (soft, hard))
+    return out
+
+
+def wait_for(cond, what: str, procs: list, timeout: float = 60.0) -> None:
+    """Poll ``cond`` until it holds; fail on timeout or a process that died."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        dead = [p.args for p in procs if p.poll() is not None]
+        if dead or time.monotonic() > deadline:
+            raise AssertionError(f"16c: {what}: " + (f"{dead} exited" if dead else f"not within {timeout} s"))
+        time.sleep(0.05)
+
+
+def cli_swarm(root: Path, card: str, tmp: Path) -> dict:
+    """16c: ``run_seed`` twice and ``run_peer`` four times from the port on a
+    temporary ``config.txt`` at ``--time-scale 0.01``: one stdin line
+    gossiped at the last peer and one at the first reach every other peer's
+    log, then ``exit`` on every node's stdin, each process exiting 0."""
+    import os
+
+    config = tmp / "config.txt"
+    config.write_text("")
+    ports = free_ports(CLI_SEEDS + CLI_PEERS)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    log = lambda name: (tmp / name).read_text() if (tmp / name).exists() else ""  # noqa: E731
+
+    def start(module: str, port: int) -> subprocess.Popen:
+        return subprocess.Popen([sys.executable, "-m", f"tpu_gossip_torch.cli.{module}", "--port", str(port),
+                                 "--config", str(config), "--time-scale", "0.01", "--quiet"], cwd=tmp, env=env,
+                                stdin=subprocess.PIPE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    seeds = [start("run_seed", p) for p in ports[:CLI_SEEDS]]
+    procs = list(seeds)
+    try:
+        wait_for(lambda: all(f"127.0.0.1:{p}" in config.read_text() and "Seed listening" in log(f"seed_log_{p}.txt")
+                             for p in ports[:CLI_SEEDS]), "the seeds' start", procs)
+        peers = []
+        for p in ports[CLI_SEEDS:]:
+            peers.append(start("run_peer", p))
+            procs.append(peers[-1])
+            wait_for(lambda: "Peer up" in log(f"peer_log_{p}.txt"), f"peer {p}'s bootstrap", procs)
+        up_s = time.perf_counter() - t0
+        lines = {0: "chip-smoke-line-from-the-first-peer", CLI_PEERS - 1: "chip-smoke-line-from-the-last-peer"}
+        for k, text in lines.items():
+            peers[k].stdin.write(text + "\n")
+            peers[k].stdin.flush()
+        t1 = time.perf_counter()
+        for k, text in lines.items():
+            for j, p in enumerate(ports[CLI_SEEDS:]):
+                if j != k:
+                    wait_for(lambda: f"Gossip: {text}" in log(f"peer_log_{p}.txt"), f"{text!r} at peer {p}", procs)
+        relay_s = time.perf_counter() - t1
+        codes = []
+        for proc in peers + seeds:
+            proc.stdin.write("exit\n")
+            proc.stdin.flush()
+            codes.append(proc.wait(timeout=60))
+        if any(codes):
+            raise AssertionError(f"16c: exit codes {codes}: {[p.stderr.read()[-2000:] for p in procs]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    registered = sum(log(f"seed_log_{p}.txt").count("Registered peer") for p in ports[:CLI_SEEDS])
+    r = dict(up_s=up_s, relay_s=relay_s, codes=codes, registered=registered, seconds=time.perf_counter() - t0)
+    print(f"[{card}] 16c: {CLI_SEEDS} run_seed and {CLI_PEERS} run_peer processes (--time-scale 0.01) up in "
+          f"{up_s:.2f} s ({registered} registrations logged by the seeds), two stdin lines in every other peer's log "
+          f"{relay_s:.2f} s after they were sent, 'exit' to every node: exit codes {codes}", flush=True)
+    return r
+
+
+def phase_simnet(root: Path, dev, card: str, gen) -> dict:
+    """Phase 16: the tpu-sim transport on the card (16a), the conformance
+    curves (16b) and the socket CLIs (16c)."""
+    import tempfile
+
+    parts = {}
+    pin = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())["simnet_1m"]
+    t0 = time.perf_counter()
+    parts["16a"] = simnet_swarm(dev, card, pin, gen)
+    parts["16a"]["seconds"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        parts["16b"] = dict(legs=conformance_curves(dev, card, Path(d)), seconds=time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as d:
+        parts["16c"] = cli_swarm(root, card, Path(d))
+    return parts
+
+
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
     """Fail unless ``launches`` (counted from 0 over one path) are what the
     path must launch: per round, or at least once where ``want`` says None."""
@@ -4315,6 +4682,12 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     serve = phase_serve(root, dev, card, gen)
     print(f"[{card}] phase 15: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in serve.items()} }; the script "
+          f"{time.perf_counter() - t_script:.2f} s", flush=True)
+    # phase 16: the tpu-sim transport, the conformance curves and the socket CLIs (16a-16c)
+    t0 = time.perf_counter()
+    simnet = phase_simnet(root, dev, card, gen)
+    print(f"[{card}] phase 16: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in simnet.items()} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,8 @@ recomputes. The pins of ``tpu_gossip_torch/reference_pins.json`` that
         python -m tests.jax_pins dist_matching_1m            # phase 14's 1M pins
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python -m tests.jax_pins mesh_card_pins              # phase 14's n=20000 pins
+    JAX_PLATFORMS=cpu python -m tests.jax_pins write simnet  # the tpu-sim transport's runs
+    JAX_PLATFORMS=cpu python -m tests.jax_pins simnet_1m_pin # phase 16a's 1M pin
 """
 
 from __future__ import annotations
@@ -1502,6 +1504,250 @@ def _control_run(cfg, state, rounds, **kw):
     return _digests(fin, stats), jax.device_get(stats)
 
 
+# tests/test_torch_simnet.py's scripted SimCluster runs: name -> (cluster keywords, peers, ops); an op is
+# ("materialize", m, fixed-graph seed or None), ("gossip", peer, text), ("silent", peer, value), ("kill", peer)
+# or ("step", rounds)
+SIMNET_SCRIPTS = {
+    "one_message": (dict(msg_slots=16, fanout=3, seed=0), 500,
+                    [("materialize", 3, None), ("gossip", 0, "hello"), ("step", 14)]),
+    "several_messages": (dict(msg_slots=32, fanout=2, mode="push_pull", seed=3), 1200,
+                         [("materialize", 3, None), ("gossip", 0, "msg-a"), ("gossip", 10, "msg-b"), ("step", 4),
+                          ("gossip", 700, "msg-c"), ("gossip", 0, "msg-a"), ("step", 10)]),
+    "bloom_k3": (dict(msg_slots=32, fanout=3, seed=1, dedup_hashes=3), 600,
+                 [("materialize", 3, None), ("gossip", 0, "alpha"), ("gossip", 5, "beta"), ("step", 6),
+                  ("gossip", 9, "gamma"), ("step", 8)]),
+    "silent_before_and_after": (dict(msg_slots=8, fanout=3, seed=2), 400,
+                                [("silent", 5, True), ("silent", 6, True), ("silent", 6, False),
+                                 ("materialize", 3, None), ("silent", 9, True), ("gossip", 0, "x"), ("step", 12)]),
+    "kill": (dict(msg_slots=8, fanout=3, seed=4), 400,
+             [("materialize", 3, None), ("gossip", 1, "y"), ("step", 3), ("kill", 2), ("kill", 50),
+              ("silent", 60, True), ("step", 12)]),
+    "fixed_graph": (dict(msg_slots=8, fanout=3, seed=7), 300,
+                    [("materialize", 3, 42), ("gossip", 0, "z"), ("step", 10)]),
+    "config_kw_flood_sir": (dict(msg_slots=16, fanout=2, mode="flood", seed=5, sir_recover_rounds=4,
+                                 timeout_rounds=4), 2000,
+                            [("materialize", 2, None), ("gossip", 0, "flood"), ("gossip", 3, "flood-2"),
+                             ("step", 10)]),
+}
+
+
+def simnet_addr(i: int) -> tuple:
+    """Peer ``i``'s address in the scripted and 1M swarms."""
+    return (f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}", 9000)
+
+
+def simnet_fixed_graph(pkg: str, n: int, seed: int):
+    """``tests/conformance/test_curves.py::fixed_graph``: a ``use_native=False``
+    PA graph (m = 3, ``default_rng(seed)``), built by ``pkg``'s topology."""
+    if pkg == "jax":
+        from tpu_gossip.core.topology import build_csr, preferential_attachment
+    else:
+        from tpu_gossip_torch.core.topology import build_csr, preferential_attachment
+    return build_csr(n, preferential_attachment(n, m=3, use_native=False, rng=np.random.default_rng(seed)))
+
+
+def simnet_script(pkg: str, name: str, device: str = "cpu") -> dict:
+    """``SIMNET_SCRIPTS[name]`` through ``pkg``'s ``PeerNode(transport="tpu-sim")``
+    and ``SimCluster`` (``"jax"`` or ``"torch"``, the port on ``device``):
+    each step's stats digest and the state digest after it, then each
+    message's coverage and ``has_seen`` at three peers, and every peer's
+    ``is_declared_dead``."""
+    from tests.test_torch_slice import ensure_jax_native_pa
+
+    ensure_jax_native_pa()
+    if pkg == "jax":
+        from tpu_gossip.compat.peer import PeerNode
+        from tpu_gossip.compat.simnet import SimCluster
+        from tpu_gossip.fleet.engine import state_digest, stats_digest
+
+        extra = {}
+    else:
+        from tpu_gossip_torch.compat.peer import PeerNode
+        from tpu_gossip_torch.compat.simnet import SimCluster
+        from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+        extra = {"device": device}
+    kw, n, ops = SIMNET_SCRIPTS[name]
+    cluster = SimCluster(**kw, **extra)
+    peers = [PeerNode(*simnet_addr(i), transport="tpu-sim", cluster=cluster) for i in range(n)]
+    out, texts = {"steps": []}, []
+    for op, *args in ops:
+        if op == "materialize":
+            m, graph_seed = args
+            cluster.materialize(m=m, graph=None if graph_seed is None else simnet_fixed_graph(pkg, n, graph_seed))
+        elif op == "gossip":
+            peers[args[0]].gossip(args[1])
+            texts += [args[1]] if args[1] not in texts else []
+        elif op == "silent":
+            peers[args[0]].set_silent(args[1])
+        elif op == "kill":
+            cluster.kill(peers[args[0]].addr)
+        else:
+            stats = cluster.step(args[0])
+            out["steps"].append({"stats_digest": stats_digest(stats), "state_digest": state_digest(cluster.state)})
+    out["coverage"] = {t: cluster.coverage(t) for t in texts}
+    out["has_seen"] = {t: [peers[i].has_seen(t) for i in (0, n // 2, n - 1)] for t in texts}
+    out["declared_dead"] = [i for i in range(n) if cluster.is_declared_dead(peers[i].addr)]
+    return out
+
+
+def simnet_curve(n: int, rounds: int, seed: int, origin: int | None = None) -> list:
+    """``tests/conformance/test_curves.py::sim_curve`` run by the JAX package
+    on :func:`simnet_fixed_graph` (``default_rng(42)``), from the
+    highest-degree peer by default: the message's coverage a round (the
+    port's twin is ``chip_smoke.py::sim_curve``)."""
+    from tpu_gossip.compat.peer import PeerNode
+    from tpu_gossip.compat.simnet import SimCluster
+
+    graph = simnet_fixed_graph("jax", n, 42)
+    origin = int(np.argmax(graph.degrees)) if origin is None else origin
+    cluster = SimCluster(msg_slots=8, fanout=3, seed=seed)
+    peers = [PeerNode("10.0.0.1", 9000 + i, transport="tpu-sim", cluster=cluster) for i in range(n)]
+    cluster.materialize(graph=graph)
+    peers[origin].gossip("conformance-msg")
+    curve = []
+    for _ in range(rounds):
+        cluster.step(1)
+        curve.append(cluster.coverage("conformance-msg"))
+    return curve
+
+
+# tests/conformance/test_liveness_band.py's tier-1 runs: name -> (timing scale, quorum k or None, timeout factor)
+LIVENESS_BAND = {"reference": (1.0, None, 1), "quorum_2": (0.01, 2, 1), "slow_timeout": (1.0, None, 2)}
+LIVENESS_N, LIVENESS_SILENT = 500, 50
+
+
+def liveness_band_run(pkg: str, name: str) -> dict:
+    """``test_liveness_band.py::_detection_round``'s run through ``pkg``'s
+    ``ProtocolTiming``, ``simulate`` and quorum detector: the round constants
+    the timing maps to, the detection round, the digests and the declared
+    rows."""
+    scale, quorum_k, slow = LIVENESS_BAND[name]
+    if pkg == "jax":
+        import jax
+        import jax.numpy as jnp
+
+        from tpu_gossip.compat.timing import ProtocolTiming
+        from tpu_gossip.core.state import SwarmConfig, init_swarm
+        from tpu_gossip.core.topology import build_csr, preferential_attachment
+        from tpu_gossip.fleet.engine import state_digest, stats_digest
+        from tpu_gossip.kernels.liveness import compile_quorum
+        from tpu_gossip.sim.engine import simulate
+
+        key = jax.random.key(0)
+    else:
+        import torch
+
+        from tpu_gossip_torch.compat.timing import ProtocolTiming
+        from tpu_gossip_torch.core import prng
+        from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+        from tpu_gossip_torch.core.topology import build_csr, preferential_attachment
+        from tpu_gossip_torch.kernels.liveness import compile_quorum
+        from tpu_gossip_torch.sim.engine import simulate
+        from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+        key = prng.key(0, "cpu")
+    t = ProtocolTiming().scaled(scale)
+    round_s = t.gossip_period
+    consts = dict(hb_period_rounds=round(t.heartbeat_period / round_s),
+                  timeout_rounds=round(t.heartbeat_timeout / round_s) * slow,
+                  detect_period_rounds=round(t.detect_period / round_s))
+    cfg = SwarmConfig(n_peers=LIVENESS_N, msg_slots=4, fanout=3, mode="push", round_seconds=round_s, **consts)
+    graph = build_csr(LIVENESS_N, preferential_attachment(LIVENESS_N, m=3, use_native=False,
+                                                          rng=np.random.default_rng(7)))
+    kw = {} if pkg == "jax" else {"device": "cpu"}
+    state = init_swarm(graph, cfg, origins=[0], key=key, **kw)
+    silent_ids = np.random.default_rng(7).choice(LIVENESS_N, size=LIVENESS_SILENT, replace=False)
+    if pkg == "jax":
+        state.silent = state.silent.at[jnp.asarray(silent_ids)].set(True)
+    else:
+        silent = state.silent.clone()
+        silent[torch.as_tensor(silent_ids)] = True
+        state = dataclasses.replace(state, silent=silent)
+    liveness = None if quorum_k is None else compile_quorum(quorum_k, window=4, budget=3)
+    fin, stats = simulate(state, cfg, 20 if slow > 1 else 12, liveness=liveness)
+    dead = np.asarray(stats.n_declared_dead).tolist()
+    hit = [r for r, d in enumerate(dead) if d >= LIVENESS_SILENT]
+    return {"consts": consts, "detection_round": hit[0] + 1 if hit else -1, "n_declared_dead": dead,
+            "declared": np.flatnonzero(np.asarray(fin.declared_dead)).tolist(),
+            "silent": sorted(silent_ids.tolist()), "state_digest": state_digest(fin),
+            "stats_digest": stats_digest(stats)}
+
+
+SIMNET_1M = dict(n=1_000_000, msg_slots=64, fanout=3, mode="push", seed=0, m=3, kill=1000, silence=1000,
+                 after=12, victims_seed=1)
+
+
+def simnet_1m_texts(msg_slots: int = SIMNET_1M["msg_slots"]) -> list:
+    """The 1M swarm's three messages: the first the first ``north-star-J``
+    hashing to slot 0 (so ``RoundStats.coverage`` is its coverage), then two
+    on slots of their own."""
+    from tpu_gossip_torch.core.state import message_slot
+
+    first = next(f"north-star-{j}" for j in range(10_000) if message_slot(f"north-star-{j}", msg_slots) == 0)
+    return [first, "second-message", "third-message"]
+
+
+def simnet_1m_victims(c: dict = SIMNET_1M) -> tuple:
+    """The 1M swarm's killed and silenced peer ids."""
+    v = np.random.default_rng(c["victims_seed"]).choice(c["n"], size=c["kill"] + c["silence"], replace=False)
+    return v[:c["kill"]].tolist(), v[c["kill"]:].tolist()
+
+
+def simnet_1m_pin() -> dict:
+    """``chip_smoke.py`` phase 16a's pin: ``SimCluster(msg_slots=64, fanout=3,
+    mode="push", seed=0)`` over 1,000,000 ``PeerNode(transport="tpu-sim")``s,
+    ``materialize(m=3)`` (the native PA generator, built first), the three
+    messages of :func:`simnet_1m_texts` gossiped by the highest-degree peer,
+    peer 0 and peer n-1, ``step(R)`` with R the round the first message
+    passes 99% (``run_until_coverage`` on a copy), then the victims of
+    :func:`simnet_1m_victims` killed and silenced and ``step(12)``."""
+    import gc
+
+    from tpu_gossip.compat.peer import PeerNode
+    from tpu_gossip.compat.simnet import SimCluster
+    from tpu_gossip.core.state import clone_state
+    from tpu_gossip.fleet.engine import state_digest, stats_digest
+    from tpu_gossip.sim.engine import run_until_coverage
+
+    from tests.test_torch_slice import ensure_jax_native_pa
+
+    import tpu_gossip.native as native
+
+    ensure_jax_native_pa()
+    if native._load() is None:
+        raise RuntimeError("the 1M pin needs tpu_gossip/native/libtpugossip.so (make -C tpu_gossip/native)")
+    c = SIMNET_1M
+    cluster = SimCluster(msg_slots=c["msg_slots"], fanout=c["fanout"], mode=c["mode"], seed=c["seed"])
+    gc.disable()
+    peers = [PeerNode(*simnet_addr(i), transport="tpu-sim", cluster=cluster) for i in range(c["n"])]
+    gc.enable()
+    cluster.materialize(m=c["m"])
+    texts = simnet_1m_texts()
+    origins = [int(np.argmax(cluster._graph.degrees)), 0, c["n"] - 1]
+    for i, text in zip(origins, texts):
+        peers[i].gossip(text)
+    probe = run_until_coverage(clone_state(cluster.state), cluster.cfg, 0.99, 200, slot=0)
+    rounds = int(probe.round) - int(cluster.state.round)
+    del probe
+    first = cluster.step(rounds)
+    mid = state_digest(cluster.state)
+    killed, silenced = simnet_1m_victims()
+    for i in killed:
+        cluster.kill(peers[i].addr)
+    for i in silenced:
+        peers[i].set_silent(True)
+    second = cluster.step(c["after"])
+    return {"source": "JAX_PLATFORMS=cpu python -m tests.jax_pins simnet_1m_pin (JAX package, CPU, the native PA "
+                      "generator tpu_gossip/native/libtpugossip.so built)",
+            "config": c, "texts": texts, "origins": origins, "rounds": rounds,
+            "curve": np.asarray(first.coverage).tolist(),
+            "steps": [{"stats_digest": stats_digest(first), "state_digest": mid},
+                      {"stats_digest": stats_digest(second), "state_digest": state_digest(cluster.state)}],
+            "declared_dead": sum(cluster.is_declared_dead(peers[i].addr) for i in killed + silenced),
+            "coverage": [cluster.coverage(t) for t in texts]}
+
+
 CONTROL_PAIRS = ["composed", "degraded", "siege"]
 CONTROL_RUNS = ["zero_exactly_k_push", "zero_exactly_k_push_pull", "zero_staircase_matching", "bucketed_active_s1",
                 "bucketed_active_s3", "controlled_exactly_k_cap0", "controlled_exactly_k_cap64",
@@ -1583,6 +1829,14 @@ CASES = {
         "ingest_rules": ("ingest_rules", []),
         **{name: ("serve_scripted", [shards, SERVE_SEED, *argv]) for name, (shards, argv) in SERVE_ENGINES.items()},
         "refusals": ("serve_refusals", [SERVE_REFUSED]),
+    },
+    # the tpu-sim transport (tests/test_torch_simnet.py, tests/test_torch_conformance.py): the scripted
+    # SimCluster runs, the 40-peer conformance curves and the liveness band's tier-1 runs
+    "simnet": {
+        **{name: ("simnet_script", ["jax", name]) for name in SIMNET_SCRIPTS},
+        **{f"curve_40_s{s}": ("simnet_curve", [40, 25, s]) for s in (0, 1, 2)},
+        "curve_40_s7_origin0": ("simnet_curve", [40, 10, 7, 0]),
+        **{f"liveness_{name}": ("liveness_band_run", ["jax", name]) for name in LIVENESS_BAND},
     },
     "fleet": {
         "composed": ("campaign_run", [composed_campaign(), [0, 7, 13]]),

@@ -1145,3 +1145,38 @@ def test_sparse_transposes_on_card_equal_dense(dev):
     assert torch.equal(tt.transpose_pass_sparse(x, s, hub, cap), permute.transpose_pass_sharded(x, s))
     assert torch.equal(tt.untranspose_pass_sparse(x * 0, s, hub[:, :0], cap), permute.untranspose_pass_sharded(
         x * 0, s))
+
+
+@pytest.mark.parametrize("kw", [dict(msg_slots=16, fanout=3), dict(msg_slots=32, fanout=2, mode="push_pull",
+                                                                    dedup_hashes=3)])
+def test_simcluster_on_card_equals_cpu(dev, kw):
+    """A small ``SimCluster`` script (silent before and after
+    ``materialize``, three messages, a kill, two steps) gives the same
+    digests, coverages and verdicts on the card as on the CPU; each round
+    launches K3 once and no other kernel."""
+    from tpu_gossip_torch.compat.peer import PeerNode
+    from tpu_gossip_torch.compat.simnet import SimCluster
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        cluster = SimCluster(seed=3, device=d, **kw)
+        peers = [PeerNode("10.0.0.1", 9000 + i, transport="tpu-sim", cluster=cluster) for i in range(1500)]
+        peers[5].set_silent(True)
+        cluster.materialize(m=3)
+        peers[9].set_silent(True)
+        for i, text in ((0, "a"), (700, "b"), (1499, "c")):
+            peers[i].gossip(text)
+        native.reset_launches()
+        first = cluster.step(6)
+        cluster.kill(peers[3].addr)
+        second = cluster.step(10)
+        launches = dict(native.LAUNCHES)
+        out[d.type] = (state_digest(cluster.state), stats_digest(first), stats_digest(second),
+                       [cluster.coverage(t) for t in "abc"], [cluster.is_declared_dead(peers[i].addr)
+                                                              for i in (3, 5, 9, 10)], [peers[-1].has_seen(t)
+                                                                                        for t in "abc"])
+        if d.type == "cuda":
+            assert launches.pop("round_tail") == 16 and not any(launches.values()), launches
+    assert out["cuda"] == out["cpu"]

@@ -47,6 +47,8 @@ def test_port_imports_with_jax_blocked():
         "import tpu_gossip_torch.ckpt, tpu_gossip_torch.ckpt.chaos\n"
         "import tpu_gossip_torch.faults, tpu_gossip_torch.core.streams\n"
         "import tpu_gossip_torch.serve, tpu_gossip_torch.compat.wire, tpu_gossip_torch.traffic.ingest\n"
+        "import tpu_gossip_torch.compat, tpu_gossip_torch.compat.simnet, tpu_gossip_torch.cli.run_seed\n"
+        "import tpu_gossip_torch.cli.run_peer\n"
         "from tpu_gossip_torch.experiments import pallas_gather_caps, pallas_wide_lane_gather, gather_probe\n"
         "from tpu_gossip_torch.experiments import perm_pipeline_probe, matching_round_profile, dist_profile\n"
         "print('ok')\n"

@@ -34,32 +34,43 @@ package.
 
 Entry points take ``device`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run every kernel's plain PyTorch version.
+``tpu_gossip_torch.compat`` runs the reference's socket peer and seed
+(``python -m tpu_gossip_torch.cli.run_seed``, ``run_peer``) and, with
+``compat.simnet.SimCluster``, the same ``PeerNode`` API over a whole swarm
+on the card (``transport="tpu-sim"``). The names below load their modules
+on first use, so the socket nodes start without importing torch.
 """
 
-from tpu_gossip_torch.core.device_topology import DeviceGraph, device_powerlaw_graph
-from tpu_gossip_torch.core.matching_topology import MatchingPlan, matching_powerlaw_graph
-from tpu_gossip_torch.core.packed import PackedSwarm, pack_state, unpack_state
-from tpu_gossip_torch.core.state import SwarmConfig, SwarmState, clone_state, init_swarm
-from tpu_gossip_torch.kernels.pallas_segment import StaircasePlan, build_staircase_plan, build_staircase_plan_device
-from tpu_gossip_torch.sim.engine import RoundStats, gossip_round, run_until_coverage, simulate
+import importlib
 
-__all__ = [
-    "DeviceGraph",
-    "MatchingPlan",
-    "PackedSwarm",
-    "RoundStats",
-    "StaircasePlan",
-    "SwarmConfig",
-    "SwarmState",
-    "build_staircase_plan",
-    "build_staircase_plan_device",
-    "clone_state",
-    "device_powerlaw_graph",
-    "gossip_round",
-    "init_swarm",
-    "matching_powerlaw_graph",
-    "pack_state",
-    "run_until_coverage",
-    "simulate",
-    "unpack_state",
-]
+# each public name -> the module that defines it, loaded on first use
+_EXPORTS = {
+    "DeviceGraph": "tpu_gossip_torch.core.device_topology",
+    "device_powerlaw_graph": "tpu_gossip_torch.core.device_topology",
+    "MatchingPlan": "tpu_gossip_torch.core.matching_topology",
+    "matching_powerlaw_graph": "tpu_gossip_torch.core.matching_topology",
+    "PackedSwarm": "tpu_gossip_torch.core.packed",
+    "pack_state": "tpu_gossip_torch.core.packed",
+    "unpack_state": "tpu_gossip_torch.core.packed",
+    "SwarmConfig": "tpu_gossip_torch.core.state",
+    "SwarmState": "tpu_gossip_torch.core.state",
+    "clone_state": "tpu_gossip_torch.core.state",
+    "init_swarm": "tpu_gossip_torch.core.state",
+    "StaircasePlan": "tpu_gossip_torch.kernels.pallas_segment",
+    "build_staircase_plan": "tpu_gossip_torch.kernels.pallas_segment",
+    "build_staircase_plan_device": "tpu_gossip_torch.kernels.pallas_segment",
+    "RoundStats": "tpu_gossip_torch.sim.engine",
+    "gossip_round": "tpu_gossip_torch.sim.engine",
+    "run_until_coverage": "tpu_gossip_torch.sim.engine",
+    "simulate": "tpu_gossip_torch.sim.engine",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_EXPORTS[name]), name)
+    globals()[name] = value
+    return value

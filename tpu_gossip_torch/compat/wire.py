@@ -1,8 +1,9 @@
 """Wire-protocol codecs: the de-facto API between reference processes.
 
 The port's own copy of ``tpu_gossip/compat/wire.py``, byte-compatible with
-it: the serving frontend (``serve/``) frames and parses with it, and the
-port imports nothing of the JAX package.
+it: the port's socket nodes (``compat/peer.py``, ``compat/seed.py``) and the
+serving frontend (``serve/``) frame and parse with it, and the port
+imports nothing of the JAX package.
 
 One function pair per message of SURVEY.md §2.4. Text messages are
 newline-terminated ASCII with Python-literal addresses parsed via
@@ -163,8 +164,8 @@ def classify(line: str | bytes) -> tuple[str, Any]:
     Peer.py:206,286, Seed.py:440-441) | malformed (a recognized prefix whose
     payload fails to parse) | empty.
 
-    Network bytes are untrusted, and the reader loops (the serving frontend,
-    serve/frontend.py) dispatch straight off this function: if it raised, one
+    Network bytes are untrusted, and the reader loops (compat/peer.py,
+    compat/seed.py, serve/frontend.py) dispatch straight off this function: if it raised, one
     malformed address (or non-UTF-8 bytes, accepted here via
     ``errors="replace"``) would kill the connection's reader and leak the
     socket — the reference has exactly that latent bug (its per-connection

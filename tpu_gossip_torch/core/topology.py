@@ -1,11 +1,13 @@
 """Graph container, the shared degree law and the host graph builders.
 
-Ports ``tpu_gossip/core/topology.py``: ``Graph`` (:52), ``pareto_icdf``
-(:77), ``powerlaw_degree_sequence`` (:88), ``configuration_model`` (:115),
+Ports ``tpu_gossip/core/topology.py``: ``Graph`` (:52, with ``degrees``
+and ``neighbors``, :70-74), ``pareto_icdf`` (:77),
+``powerlaw_degree_sequence`` (:88), ``configuration_model`` (:115),
 ``preferential_attachment`` (:139), ``build_csr`` (:193), ``save_graph`` /
-``load_graph`` (:211, :217), ``hill_gamma`` and ``fit_powerlaw_gamma``
-(:236, :246). The builders are host numpy code, copied as they are, so the
-same ``np.random.default_rng`` seed gives the same graph in both packages.
+``load_graph`` (:211, :217), ``edges_to_adjacency_sets`` (:226),
+``hill_gamma`` and ``fit_powerlaw_gamma`` (:236, :246). The builders are
+host numpy code, copied as they are, so the same
+``np.random.default_rng`` seed gives the same graph in both packages.
 ``preferential_attachment(use_native=True)`` runs the port's own copy of
 the C++ Barabási–Albert generator (``tpu_gossip_torch/native``).
 """
@@ -23,6 +25,7 @@ __all__ = [
     "configuration_model",
     "preferential_attachment",
     "build_csr",
+    "edges_to_adjacency_sets",
     "hill_gamma",
     "fit_powerlaw_gamma",
     "save_graph",
@@ -42,6 +45,17 @@ class Graph:
     @property
     def num_edges(self) -> int:
         return int(self.col_idx.shape[0]) // 2
+
+    @property
+    def degrees(self):
+        """Each node's neighbour count, int32 (numpy, or a tensor for a
+        tensor graph)."""
+        d = self.row_ptr[1:] - self.row_ptr[:-1]
+        return d.astype(np.int32) if isinstance(d, np.ndarray) else d.int()
+
+    def neighbors(self, i: int):
+        """Node ``i``'s neighbours, a slice of ``col_idx``."""
+        return self.col_idx[self.row_ptr[i]:self.row_ptr[i + 1]]
 
 
 def pareto_icdf(u, gamma: float, d_min: int, d_max: int):
@@ -140,6 +154,16 @@ def load_graph(path) -> Graph:
     data = np.load(path)
     return Graph(n=int(data["n"]), row_ptr=data["row_ptr"].astype(np.int32),
                  col_idx=data["col_idx"].astype(np.int32))
+
+
+def edges_to_adjacency_sets(edges: np.ndarray) -> dict[int, set[int]]:
+    """Edge list -> {node: set(neighbours)}, the reference's
+    ``network_topology`` shape (Seed.py:71,131-149)."""
+    adj: dict[int, set[int]] = {}
+    for u, v in edges:
+        adj.setdefault(int(u), set()).add(int(v))
+        adj.setdefault(int(v), set()).add(int(u))
+    return adj
 
 
 def hill_gamma(tail_count, log_moment):

@@ -1,9 +1,10 @@
 """Per-round metrics and the run-to-coverage benchmark.
 
-Ports ``BenchResult``, ``rounds_to_coverage``, ``bench_swarm``,
-``stats_rows``, ``write_jsonl``, ``recoverage_rounds``, ``phase_report``,
-``liveness_report``, the streaming plane's host reports
-(``stream_episodes``, ``steady_state_report``, ``expected_conflations``,
+Ports ``BenchResult``, ``rounds_to_coverage``, ``coverage_curve``,
+``bench_swarm``, ``stats_rows``, ``write_jsonl``, ``run_with_metrics``,
+``recoverage_rounds``, ``phase_report``, ``liveness_report``, the
+streaming plane's host reports (``stream_episodes``,
+``steady_state_report``, ``expected_conflations``,
 ``bloom_false_positive_rate``) and the controller's ``reliability_report``
 of ``tpu_gossip/sim/metrics.py``.
 ``bench_swarm`` times on the host clock around work that ends in
@@ -21,11 +22,11 @@ import numpy as np
 import torch
 
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
-from tpu_gossip_torch.sim.engine import RoundStats, run_until_coverage
+from tpu_gossip_torch.sim.engine import RoundStats, run_until_coverage, simulate
 
-__all__ = ["BenchResult", "rounds_to_coverage", "bench_swarm", "stats_rows", "write_jsonl", "recoverage_rounds",
-           "phase_report", "liveness_report", "stream_episodes", "steady_state_report", "expected_conflations",
-           "bloom_false_positive_rate", "reliability_report"]
+__all__ = ["BenchResult", "rounds_to_coverage", "coverage_curve", "bench_swarm", "stats_rows", "write_jsonl",
+           "run_with_metrics", "recoverage_rounds", "phase_report", "liveness_report", "stream_episodes",
+           "steady_state_report", "expected_conflations", "bloom_false_positive_rate", "reliability_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +50,11 @@ def rounds_to_coverage(stats: RoundStats, target: float = 0.99) -> int:
     cov = stats.coverage.detach().cpu().numpy()
     hit = np.nonzero(cov >= np.float32(target))[0]
     return int(hit[0]) + 1 if hit.size else -1
+
+
+def coverage_curve(stats: RoundStats) -> np.ndarray:
+    """Coverage-vs-round curve as a host array (conformance comparisons)."""
+    return stats.coverage.detach().cpu().numpy()
 
 
 def _sync(state: SwarmState) -> None:
@@ -108,6 +114,15 @@ def write_jsonl(stats: RoundStats, sink: IO[str]) -> None:
     """One JSON object per round."""
     for row in stats_rows(stats):
         sink.write(json.dumps(row) + "\n")
+
+
+def run_with_metrics(state: SwarmState, cfg: SwarmConfig, num_rounds: int,
+                     sink: IO[str] | None = None) -> tuple[SwarmState, RoundStats]:
+    """``simulate`` plus optional JSONL emission of its rows."""
+    fin, stats = simulate(state, cfg, num_rounds)
+    if sink is not None:
+        write_jsonl(stats, sink)
+    return fin, stats
 
 
 def _host(x) -> np.ndarray:
