@@ -48,7 +48,7 @@ scripts (``tpu_gossip_torch/experiments``) run with their launches
 counted, and ``run_sim --profile-round 6`` on the 1M headline, which must
 launch K1, K2 and K3. Last, phase 7 drives durable checkpoints and crash
 recovery through the CLI, each run its own process, its checkpoints in a
-temporary directory: 7a the 1M headline checkpointed every 4 rounds
+temporary directory, 7a-7d's chains of processes side by side: 7a the 1M headline checkpointed every 4 rounds
 (``--keep 2``), SIGKILLed once its round-8 checkpoint lands, that
 checkpoint's bytes flipped, and ``run_sim resume`` rolling back to round 4
 and finishing on the JAX pin; 7b its packed twin, uninterrupted and
@@ -60,7 +60,7 @@ written on the card and resumed on the CPU, and the reverse. It prints the
 checkpoints' bytes and files, the seconds a save, the recovery seconds and
 the resumed run's peak memory; 7a fails if its resume holds more than its
 uninterrupted twin, at the horizon's start or at its peak. Phase 8 drives
-silent peers and the fault scenarios through the CLI in this process (8a
+silent peers and the fault scenarios through the CLI in its lane's process (8a
 config 2 and the n=20000 fault pins, 8b config 2's flags at 1M, 8c the
 four catalogued scenarios at 1M with packed twins, 8d the staircase and
 sharded paths, 8e a mid-delay checkpoint across card and CPU), and phase
@@ -126,7 +126,7 @@ comparison on its own set-up, the 1M sharded matching mesh at one shard
 (24 rounds, serial and pipelined in turns: ms/round by CUDA events and
 wall, rounds to 99%, peaks, K1, K2 and K3 launches), the pipelined run
 onto its JAX pin; 13c
-the catalogue campaign's 21 lanes (four processes at once, each running
+the catalogue campaign's 21 lanes (six processes at once, each running
 its lanes through the solo round as the fleet does, while this process
 runs the next two checks) onto the JAX pin's
 lane digests and family blocks, ``run_sim fleet --lane 5 --solo`` equal to
@@ -185,13 +185,29 @@ curve against three ``SimCluster`` curves on the card over the same fixed
 graph, at 40 peers and at 1,000 (the slow test's tolerances; the 1k leg
 says it did not run when ``RLIMIT_NOFILE`` cannot be raised to 10,000);
 16c two ``run_seed`` and four ``run_peer`` processes on a temporary
-``config.txt`` at ``--time-scale 0.01``, two stdin lines in every other
-peer's log, ``exit`` to every node, each exiting 0. It prints phase 13's,
-14's, 15's and 16's seconds and the script's. Each check of a checkpoint
+``config.txt`` at ``--time-scale 0.1``, two stdin lines in every other
+peer's log, ``exit`` to every node, each exiting 0. Phase 17, several
+processes (``cluster/``): 17a ``bench_dist_matching``'s 1M layout at S = 8
+as two gloo ranks of four shards sharing the card
+(``cluster.launch.launch_workers`` running this script's
+``--cluster-rank``; each rank builds the layout whole and keeps its rows),
+dense and hier to 99%, each rank on ``mesh_1m``'s digest and rounds, the
+dense ICI totals and the hier leg's, K1 7, K2 1 and K3 1 a round counted
+from 0 in each rank, the exchange timed by CUDA events around
+``dist/mesh.py::all_to_all``, the bytes a rank ships, each rank's peak, and
+the one-process S = 8 mesh before and after the ranks; 17b
+``device_powerlaw_graph(1M)`` on the S = 2 bucketed mesh through K6, a
+shard a rank, 16 rounds, against its one-process twin; 17c the ranks'
+checkpoint at round 8 resumed in one process onto the pin; 17d two ranks
+under ``--backend nccl`` on the one card refused, exit 2 naming the
+device. It prints phase 13's to 17's seconds and the script's. Each check of a checkpoint
 written on one device and resumed on the other (8e, 9c, 10d, 11d, 12d)
 runs its two directions at once, 10c runs the first 32 rounds of
-``bench_grow``'s schedule and 13d the first 5 of ``bench_fleet``'s 10, to
-keep the script inside its time.
+``bench_grow``'s schedule and 13d the first 5 of ``bench_fleet``'s 10, and
+phases 7 to 13 run side by side, a process a lane of :data:`SIDE_BY_SIDE`
+(``python3 chip_smoke.py --lane 8,9``), to keep the script inside its
+time: their seconds and ms/round are taken beside the other lanes, while
+phases 1 to 6 (the kernels' times) and 14 to 17 run alone.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -473,13 +489,14 @@ def stream_cases(dev, setup: dict):
     yield dist.build_shard_plans(sg0, rows=128), 1, 2 * sg0.bucket
 
 
-def check_k6(dev, gen, setup: dict) -> int:
-    """K6 against its plain version at word widths m = 1, 16 and 32, words
-    random with bit 31 set in the first slots."""
+def check_k6(dev, gen, cases) -> int:
+    """K6 against its plain version on each (plan, shard, length) of
+    ``cases`` at word widths m = 1, 16 and 32, words random with bit 31 set
+    in the first slots."""
     from tpu_gossip_torch.kernels.pallas_segment import stream_segment_or, stream_segment_plain
 
     err = 0
-    for plan, d, length in stream_cases(dev, setup):
+    for plan, d, length in cases:
         vals = torch.randint(-2**31, 2**31 - 1, (length,), generator=gen, device=dev, dtype=torch.int32)
         vals[:8] = -2**31
         for m in (1, 16, 32):
@@ -1518,6 +1535,9 @@ def kill_at(root: Path, argv: list[str], line: str) -> str:
     return "".join(seen)
 
 
+CKPT_CHAINS = 4  # phase 7's chains of processes running at once
+
+
 def phase_checkpoints(root: Path, card: str, headline_peak: int) -> dict:
     """Phase 7: durable checkpoints and crash recovery through the CLI, each
     run its own process, at 1M peers (7e at 20000): 7a a checkpointed
@@ -1528,9 +1548,12 @@ def phase_checkpoints(root: Path, card: str, headline_peak: int) -> dict:
     round 8; 7d the sharded remat loop resumed on its epoch boundary (the
     fold and the re-partition with seed + 1 replayed, 0 overflow edges),
     digest-equal to its uninterrupted run; 7e checkpoints written on the
-    card resumed on the CPU and the reverse. Returns the figures by phase."""
+    card resumed on the CPU and the reverse. 7a-7d run side by side,
+    :data:`CKPT_CHAINS` processes at a time, so their save and recovery
+    seconds are measured beside each other. Returns the figures by phase."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from tpu_gossip_torch.ckpt import corrupt_checkpoint, list_checkpoint_steps, verify_checkpoint
 
@@ -1542,87 +1565,105 @@ def phase_checkpoints(root: Path, card: str, headline_peak: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
         tmp = Path(tmp)
 
-        # 7a: SIGKILL once ckpt-8 lands, flip a byte of it, resume from ckpt-4
-        t0 = time.perf_counter()
-        d = tmp / "7a"
-        err = kill_at(root, headline["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--keep", "2"],
-                      "checkpoint: wrote ckpt-00000008")
-        saves = ckpt_saves(err)
-        later = [p for step, p in list_checkpoint_steps(d) if step > 8 and (p / "MANIFEST.json").is_file()]
-        if later:
-            raise AssertionError(f"7a: the kill came after a later checkpoint landed: {later}")
-        verify_checkpoint(d / "ckpt-00000008")
-        corrupt_checkpoint(d / "ckpt-00000008", "flip_byte")
-        summary, err = cli_run(root, ["resume", str(d)], "7a resume")
-        if "checkpoint: rolling back past ckpt-00000008" not in err:
-            raise AssertionError(f"7a: the resume logged no rollback past the corrupted ckpt-00000008: {err[-2000:]}")
-        check_pin(summary, headline, "7a resume")
-        rec = recovery(err, "ckpt-00000004", "7a")
-        # the same checkpointed run uninterrupted: the peak a resume is held to
-        full, err = cli_run(root, headline["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir",
-                                                      str(tmp / "7a-full"), "--keep", "2"], "7a uninterrupted")
-        check_pin(full, headline, "7a uninterrupted")
-        twin = device_peak(err, "7a uninterrupted")
+        # 7a-7d side by side, each chain of processes in its own thread
+        def part_7a():
+            # SIGKILL once ckpt-8 lands, flip a byte of it, resume from ckpt-4
+            t0 = time.perf_counter()
+            d = tmp / "7a"
+            err = kill_at(root, headline["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir", str(d), "--keep",
+                                                    "2"], "checkpoint: wrote ckpt-00000008")
+            saves = ckpt_saves(err)
+            later = [p for step, p in list_checkpoint_steps(d) if step > 8 and (p / "MANIFEST.json").is_file()]
+            if later:
+                raise AssertionError(f"7a: the kill came after a later checkpoint landed: {later}")
+            verify_checkpoint(d / "ckpt-00000008")
+            corrupt_checkpoint(d / "ckpt-00000008", "flip_byte")
+            summary, err = cli_run(root, ["resume", str(d)], "7a resume")
+            if "checkpoint: rolling back past ckpt-00000008" not in err:
+                raise AssertionError(f"7a: the resume logged no rollback past the corrupted ckpt-00000008: "
+                                     f"{err[-2000:]}")
+            check_pin(summary, headline, "7a resume")
+            return dict(saves=saves, recovery=recovery(err, "ckpt-00000004", "7a"), seconds=time.perf_counter() - t0)
+
+        def part_7a_full():
+            # the same checkpointed run uninterrupted: the peak a resume is held to
+            full, err = cli_run(root, headline["argv"] + ["--checkpoint-every", "4", "--checkpoint-dir",
+                                                          str(tmp / "7a-full"), "--keep", "2"], "7a uninterrupted")
+            check_pin(full, headline, "7a uninterrupted")
+            return device_peak(err, "7a uninterrupted")
+
+        def part_7b():
+            # the packed twin, uninterrupted, then resumed from round 8
+            t0 = time.perf_counter()
+            d = tmp / "7b"
+            full, err = cli_run(root, headline["argv"] + ["--packed", "--checkpoint-every", "4", "--checkpoint-dir",
+                                                          str(d)], "7b")
+            saves = ckpt_saves(err)
+            check_pin(full, headline, "7b uninterrupted")
+            shutil.rmtree(d / "ckpt-00000012")
+            summary, err = cli_run(root, ["resume", str(d)], "7b resume")
+            check_pin(summary, headline, "7b resume")
+            return dict(saves=saves, recovery=recovery(err, "ckpt-00000008", "7b"), seconds=time.perf_counter() - t0)
+
+        def part_7c():
+            # the churn headline, uninterrupted, then resumed from round 8
+            t0 = time.perf_counter()
+            d = tmp / "7c"
+            full, err = cli_run(root, churn["argv"] + ["--checkpoint-every", "8", "--checkpoint-dir", str(d)], "7c")
+            saves = ckpt_saves(err)
+            check_pin(full, churn, "7c uninterrupted")
+            summary, err = cli_run(root, ["resume", str(d)], "7c resume")
+            check_pin(summary, churn, "7c resume")
+            return dict(saves=saves, recovery=recovery(err, "ckpt-00000008", "7c"), seconds=time.perf_counter() - t0)
+
+        def part_7d():
+            # the sharded remat loop, resumed on its epoch boundary (round 16)
+            t0 = time.perf_counter()
+            d = tmp / "7d"
+            argv = ["--peers", "1000000", "--mode", "push_pull", "--fanout", "1", "--seed", "0", "--graph",
+                    "chung-lu", "--shard", "--staircase", "--churn-leave", "0.002", "--churn-join", "0.02",
+                    "--rewire-slots", "2", "--remat-every", "16", "--rounds", "32", "--digest", "--quiet"]
+            full, err_full = cli_run(root, argv + ["--checkpoint-every", "16", "--checkpoint-dir", str(d)], "7d")
+            saves = ckpt_saves(err_full)
+            summary, err = cli_run(root, ["resume", str(d)], "7d resume")
+            rec = recovery(err, "ckpt-00000016", "7d")
+            folds = [tuple(int(g) for g in m.groups()) for m in CKPT_FOLD.finditer(err)]
+            if folds != [(16, 0, 1)] or \
+                    [tuple(int(g) for g in m.groups()) for m in CKPT_FOLD.finditer(err_full)] != folds:
+                raise AssertionError(f"7d: the folds (round, overflow edges, seed) were {folds}, need [(16, 0, 1)] in "
+                                     "both runs")
+            timing = ("wall_seconds",)
+            if {k: v for k, v in summary.items() if k not in timing} != \
+                    {k: v for k, v in full.items() if k not in timing}:
+                raise AssertionError(f"7d: the resumed summary {summary} != the uninterrupted one {full}")
+            return dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0, digest=summary["state_digest"])
+
+        # the longest chain first; four processes on the card at a time
+        with ThreadPoolExecutor(CKPT_CHAINS) as pool:
+            futures = {name: pool.submit(fn) for name, fn in (("7d", part_7d), ("7a", part_7a),
+                                                              ("7a full", part_7a_full), ("7b", part_7b),
+                                                              ("7c", part_7c))}
+        got = {name: f.result() for name, f in futures.items()}
+        twin, rec = got["7a full"], got["7a"]["recovery"]
         # a second device copy of the state left by the load would add its 166 MB at the horizon's start
         for k in ("start", "horizon"):
             if rec["peak"][k] > twin[k] + (16 << 20):
                 raise AssertionError(f"7a: the resumed run's {k} bytes {rec['peak'][k]} exceed the uninterrupted "
                                      f"run's {twin[k]} by more than 16 MiB")
-        out["7a"] = dict(saves=saves, recovery=rec, uninterrupted_peak=twin, seconds=time.perf_counter() - t0)
+        out["7a"] = dict(got["7a"], uninterrupted_peak=twin)
         print(ckpt_line(card, "7a headline, SIGKILL after ckpt-00000008, flipped byte, resumed from ckpt-00000004",
-                        saves, rec, f"; the same run uninterrupted {peak_text(twin)}; 4a's, plan build included: "
-                        f"{headline_peak} B; digests equal the JAX pin; {out['7a']['seconds']:.2f} s"), flush=True)
-
-        # 7b: the packed twin, uninterrupted, then resumed from round 8
-        t0 = time.perf_counter()
-        d = tmp / "7b"
-        full, err = cli_run(root, headline["argv"] + ["--packed", "--checkpoint-every", "4", "--checkpoint-dir",
-                                                      str(d)], "7b")
-        saves = ckpt_saves(err)
-        check_pin(full, headline, "7b uninterrupted")
-        shutil.rmtree(d / "ckpt-00000012")
-        summary, err = cli_run(root, ["resume", str(d)], "7b resume")
-        check_pin(summary, headline, "7b resume")
-        rec = recovery(err, "ckpt-00000008", "7b")
-        out["7b"] = dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0)
-        print(ckpt_line(card, "7b packed headline, resumed from ckpt-00000008", saves, rec,
-                        f"; both runs' digests equal the JAX pin; {out['7b']['seconds']:.2f} s"), flush=True)
-
-        # 7c: the churn headline, uninterrupted, then resumed from round 8
-        t0 = time.perf_counter()
-        d = tmp / "7c"
-        full, err = cli_run(root, churn["argv"] + ["--checkpoint-every", "8", "--checkpoint-dir", str(d)], "7c")
-        saves = ckpt_saves(err)
-        check_pin(full, churn, "7c uninterrupted")
-        summary, err = cli_run(root, ["resume", str(d)], "7c resume")
-        check_pin(summary, churn, "7c resume")
-        rec = recovery(err, "ckpt-00000008", "7c")
-        out["7c"] = dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0)
-        print(ckpt_line(card, "7c churn headline, resumed from ckpt-00000008", saves, rec,
-                        f"; both runs' digests equal the JAX pin; {out['7c']['seconds']:.2f} s"), flush=True)
-
-        # 7d: the sharded remat loop, resumed on its epoch boundary (round 16)
-        t0 = time.perf_counter()
-        d = tmp / "7d"
-        argv = ["--peers", "1000000", "--mode", "push_pull", "--fanout", "1", "--seed", "0", "--graph", "chung-lu",
-                "--shard", "--staircase", "--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2",
-                "--remat-every", "16", "--rounds", "32", "--digest", "--quiet"]
-        full, err_full = cli_run(root, argv + ["--checkpoint-every", "16", "--checkpoint-dir", str(d)], "7d")
-        saves = ckpt_saves(err_full)
-        summary, err = cli_run(root, ["resume", str(d)], "7d resume")
-        rec = recovery(err, "ckpt-00000016", "7d")
-        folds = [tuple(int(g) for g in m.groups()) for m in CKPT_FOLD.finditer(err)]
-        if folds != [(16, 0, 1)] or [tuple(int(g) for g in m.groups()) for m in CKPT_FOLD.finditer(err_full)] != folds:
-            raise AssertionError(f"7d: the folds (round, overflow edges, seed) were {folds}, need [(16, 0, 1)] in "
-                                 "both runs")
-        timing = ("wall_seconds",)
-        if {k: v for k, v in summary.items() if k not in timing} != {k: v for k, v in full.items() if k not in timing}:
-            raise AssertionError(f"7d: the resumed summary {summary} != the uninterrupted one {full}")
-        out["7d"] = dict(saves=saves, recovery=rec, seconds=time.perf_counter() - t0, digest=summary["state_digest"])
-        print(ckpt_line(card, "7d sharded remat loop, resumed from ckpt-00000016 (fold replayed, re-partition "
-                        "seed 1, 0 overflow edges)", saves, rec,
-                        f"; digests equal the uninterrupted run's ({summary['state_digest']}); "
-                        f"{out['7d']['seconds']:.2f} s"), flush=True)
+                        out["7a"]["saves"], rec, f"; the same run uninterrupted {peak_text(twin)}; 4a's, plan build "
+                        f"included: {headline_peak} B; digests equal the JAX pin; {out['7a']['seconds']:.2f} s"),
+              flush=True)
+        for name, what in (("7b", "7b packed headline, resumed from ckpt-00000008"),
+                           ("7c", "7c churn headline, resumed from ckpt-00000008"),
+                           ("7d", "7d sharded remat loop, resumed from ckpt-00000016 (fold replayed, re-partition "
+                            "seed 1, 0 overflow edges)")):
+            out[name] = got[name]
+            same = (f"digests equal the uninterrupted run's ({got[name]['digest']})" if name == "7d"
+                    else "both runs' digests equal the JAX pin")
+            print(ckpt_line(card, what, got[name]["saves"], got[name]["recovery"],
+                            f"; {same}; {got[name]['seconds']:.2f} s (beside the other chains)"), flush=True)
 
         # 7e: n=20000, written on the card and resumed on the CPU, and the
         # reverse (the two directions' processes side by side: nothing timed)
@@ -3054,7 +3095,7 @@ def fleet_lanes(camp, k: int):
     return states, [None if p is None else p[:k] for p in (camp.scenario, camp.growth, camp.stream, camp.control)]
 
 
-LANE_PROCESSES = 4
+LANE_PROCESSES = 6
 LANE_CHILD = """import json, sys, time
 import numpy as np
 import torch
@@ -3439,14 +3480,13 @@ def mesh_line(card: str, what: str, r: dict, extra: str = "") -> str:
             + f", the port's transpose stages {r['port_lanes']}; state_digest {r['digest']}{extra}")
 
 
-def check_k1_k2_mesh(dev, gen, setup: dict) -> int:
-    """K1 over the mesh's stacked blocks (one launch over all S·per rows,
-    each of the plan's lane tables) and K2 over its shard-major class table
-    (OR and SUM), each against its plain version; K2's outputs on every
-    shard's pad rows are zero."""
+def check_k1_k2_mesh(dev, gen, plan) -> int:
+    """K1 over a mesh plan's stacked blocks (one launch over all the rows
+    the process holds, each of the plan's lane tables) and K2 over its
+    shard-major class table (OR and SUM), each against its plain version;
+    K2's outputs on every shard's pad rows are zero."""
     from tpu_gossip_torch.kernels import permute
 
-    plan = setup["plan_m"]
     x = torch.randint(-2**31, 2**31 - 1, (plan.rows, 128), generator=gen, device=dev, dtype=torch.int32)
     err = 0
     for tbl in (*plan.lanes, plan.m3, *plan.lanes_inv):
@@ -3496,7 +3536,7 @@ def phase_mesh(root: Path, dev, card: str, gen, one: dict) -> dict:
     out = {}
     t0 = time.perf_counter()
     eight = mesh_setup_1m(dev, MESH_SHARDS)
-    out["14a"] = dict(max_abs_err=check_k1_k2_mesh(dev, gen, eight))
+    out["14a"] = dict(max_abs_err=check_k1_k2_mesh(dev, gen, eight["plan_m"]))
     print(f"[{card}] 14a K1 over the 1M S={MESH_SHARDS} mesh's stacked blocks (every lane table) and K2 over its "
           f"shard-major class table equal their plain versions: max_abs_err {out['14a']['max_abs_err']}; K2 writes "
           f"zeros on every shard's pad rows", flush=True)
@@ -4065,6 +4105,10 @@ CURVE_FANOUT, CURVE_TICK = 3, 0.08  # tests/conformance/test_curves.py's push fa
 CURVE_LEGS = ((40, 25, 3, 5), (1000, 20, 2, 3))
 CURVE_FDS = 10_000  # the 1k leg's descriptors: 1000 servers and ~2 x 3000 connections
 CLI_SEEDS, CLI_PEERS = 2, 4
+# 16c's protocol clock: a tenth of the reference's, so a connect waits 0.5 s
+# and a peer is stale after 3 s (at 0.01 a 50 ms connect timeout on a busy
+# host left a peer without the link a line needed)
+CLI_TIME_SCALE = 0.1
 
 
 def simnet_addr(i: int) -> tuple:
@@ -4072,10 +4116,11 @@ def simnet_addr(i: int) -> tuple:
     return (f"10.{i >> 16}.{(i >> 8) & 255}.{i & 255}", 9000)
 
 
-def check_simnet_tail(dev, gen, n: int, m: int) -> int:
-    """K3 at 16a's shape against its plain version, with the flags of the
-    exactly-k push round (no churn ``fresh``, no ``expired`` mask, the
-    unsaturated SIR age), forward-once and SIR off and on."""
+def check_static_tail(dev, gen, n: int, m: int) -> int:
+    """K3 at (n, m) against its plain version, with the flags of a static
+    round (no churn ``fresh``, no ``expired`` mask, the unsaturated SIR
+    age), forward-once and SIR off and on: 16a's exactly-k push round, and
+    a rank's rows in 17."""
     from tpu_gossip_torch.kernels.round_tail import tail_fused, tail_kernel
 
     err = 0
@@ -4104,7 +4149,7 @@ def simnet_swarm(dev, card: str, pin: dict, gen) -> dict:
 
     c = pin["config"]
     n, rounds = c["n"], pin["rounds"]
-    k3_err = check_simnet_tail(dev, gen, n, c["msg_slots"])
+    k3_err = check_static_tail(dev, gen, n, c["msg_slots"])
     torch.cuda.synchronize(dev)
     print(f"[{card}] 16a: K3 at {n} x {c['msg_slots']} (the exactly-k push round's flags, forward-once and SIR "
           f"off and on) equal to its plain version: max_abs_err {k3_err}", flush=True)
@@ -4328,9 +4373,10 @@ def wait_for(cond, what: str, procs: list, timeout: float = 60.0) -> None:
 
 def cli_swarm(root: Path, card: str, tmp: Path) -> dict:
     """16c: ``run_seed`` twice and ``run_peer`` four times from the port on a
-    temporary ``config.txt`` at ``--time-scale 0.01``: one stdin line
-    gossiped at the last peer and one at the first reach every other peer's
-    log, then ``exit`` on every node's stdin, each process exiting 0."""
+    temporary ``config.txt`` at ``--time-scale`` :data:`CLI_TIME_SCALE`: one
+    stdin line gossiped at the last peer and one at the first reach every
+    other peer's log, then ``exit`` on every node's stdin, each process
+    exiting 0."""
     import os
 
     config = tmp / "config.txt"
@@ -4341,7 +4387,8 @@ def cli_swarm(root: Path, card: str, tmp: Path) -> dict:
 
     def start(module: str, port: int) -> subprocess.Popen:
         return subprocess.Popen([sys.executable, "-m", f"tpu_gossip_torch.cli.{module}", "--port", str(port),
-                                 "--config", str(config), "--time-scale", "0.01", "--quiet"], cwd=tmp, env=env,
+                                 "--config", str(config), "--time-scale", str(CLI_TIME_SCALE), "--quiet"], cwd=tmp,
+                                env=env,
                                 stdin=subprocess.PIPE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
 
     t0 = time.perf_counter()
@@ -4373,6 +4420,9 @@ def cli_swarm(root: Path, card: str, tmp: Path) -> dict:
             codes.append(proc.wait(timeout=60))
         if any(codes):
             raise AssertionError(f"16c: exit codes {codes}: {[p.stderr.read()[-2000:] for p in procs]}")
+    except AssertionError as e:
+        tails = {f.name: f.read_text()[-1500:] for f in sorted(tmp.glob("*_log_*.txt"))}
+        raise AssertionError(f"{e}\nthe nodes' logs (tails): {tails}") from None
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -4380,7 +4430,7 @@ def cli_swarm(root: Path, card: str, tmp: Path) -> dict:
                 proc.wait()
     registered = sum(log(f"seed_log_{p}.txt").count("Registered peer") for p in ports[:CLI_SEEDS])
     r = dict(up_s=up_s, relay_s=relay_s, codes=codes, registered=registered, seconds=time.perf_counter() - t0)
-    print(f"[{card}] 16c: {CLI_SEEDS} run_seed and {CLI_PEERS} run_peer processes (--time-scale 0.01) up in "
+    print(f"[{card}] 16c: {CLI_SEEDS} run_seed and {CLI_PEERS} run_peer processes (--time-scale {CLI_TIME_SCALE}) up in "
           f"{up_s:.2f} s ({registered} registrations logged by the seeds), two stdin lines in every other peer's log "
           f"{relay_s:.2f} s after they were sent, 'exit' to every node: exit codes {codes}", flush=True)
     return r
@@ -4404,6 +4454,361 @@ def phase_simnet(root: Path, dev, card: str, gen) -> dict:
     return parts
 
 
+# phase 17: several processes (ROADMAP item 11c): two gloo ranks sharing the card
+CLUSTER_HOSTS, CLUSTER_PER = 2, 4  # ranks, and the shards each holds, on bench_dist_matching's S = 8 layout
+CLUSTER_CKPT_ROUND = 8
+CLUSTER_BUCKETED_ROUNDS = 16
+CLUSTER_MATCHING_PATH = {"lane_shuffle": 7, "fold_planes_or": 1, "round_tail": 1}  # a rank, a round
+CLUSTER_BUCKETED_PATH = {"stream_segment": 1, "round_tail": 1}  # K6 a shard held, K3 once, a round
+CLUSTER_RESULT = "cluster-rank-result "
+
+
+class ExchangeMeter:
+    """Times every call of the mesh's one exchange (``dist/mesh.py::
+    all_to_all``) with CUDA events around it and counts the bytes this
+    process ships to the others through it, while installed."""
+
+    def __init__(self):
+        from tpu_gossip_torch.dist import mesh as dmesh
+
+        self._mesh, self._inner = dmesh, dmesh.all_to_all
+        self.reset()
+
+    def reset(self):
+        self.events, self.bytes = [], 0
+
+    def __call__(self, payload):
+        from tpu_gossip_torch.cluster.topology import world
+
+        l, g = payload.shape[:2]
+        if l != g:
+            w = world()
+            self.bytes += payload.numel() * payload.element_size() * (w - 1) // w
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self._inner(payload)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def __enter__(self):
+        self._mesh.all_to_all = self
+        return self
+
+    def __exit__(self, *exc):
+        self._mesh.all_to_all = self._inner
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def cluster_matching_setup(dev, mesh) -> dict:
+    """bench_dist_matching's 1M layout (:func:`mesh_setup_1m`) built whole,
+    then cut to ``mesh``'s rows of this process: the plan, the state and
+    the hier transport (built from the whole plan); the whole ones go."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip_torch.core.state import SwarmConfig, init_swarm
+
+    t0 = time.perf_counter()
+    g, plan = matching_powerlaw_graph_sharded(N_HEADLINE, mesh.size, gamma=2.5, fanout=1, key=prng.key(0, dev),
+                                              export_csr=False, device=dev)
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
+    st = init_swarm(g.as_padded_graph(), cfg, origins=np.arange(M_SLOTS), origin_slots=np.arange(M_SLOTS),
+                    exists=g.exists, key=prng.key(0, dev), device=dev)
+    hier = dist.build_transport(plan, mode="hier", hosts=mesh.hosts) if mesh.hosts > 1 else None
+    out = dict(cfg=cfg, hier=hier, mesh=mesh, plan=dist.shard_matching_plan(plan, mesh),
+               state=dist.shard_swarm(st, mesh))
+    del g, plan, st
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    out["build_s"] = time.perf_counter() - t0
+    return out
+
+
+def cluster_run(dev, setup: dict, transport, what: str, want: dict | None = None) -> dict:
+    """The mesh round with the counter to 99% of slot 0 (the coverage
+    reduced over the ranks), launches counted from 0, a CUDA event a round
+    and around each exchange; the whole final state's digest, ms a round,
+    the exchange's share, bytes shipped to the other ranks a round, the
+    run's device peak and the ICI totals."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.dist.transport import accumulate_ici, zero_ici_totals
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    cfg, plan, mesh, state = setup["cfg"], setup["plan"], setup["mesh"], setup["state"]
+    tot, rounds = zero_ici_totals(dev), 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    native.reset_launches()
+    ev = [torch.cuda.Event(enable_timing=True)]
+    with ExchangeMeter() as meter:
+        t0 = time.perf_counter()
+        ev[0].record()
+        while float(dist.swarm_coverage(state, 0)) < 0.99 and rounds < MESH_MAX_ROUNDS:
+            state, _, ici = dist.gossip_round_dist(state, cfg, plan, mesh, transport=transport, collect_ici=True)
+            tot = accumulate_ici(tot, ici)
+            rounds += 1
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    if want is not None:
+        check_launches(what, launches, want, rounds)
+    fin = dist.gather_swarm(state, mesh)
+    event_ms = sum(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+    return dict(rounds=rounds, digest=state_digest(fin), coverage=float(fin.coverage(0)),
+                event_ms=event_ms / rounds, wall_ms=wall * 1e3 / rounds, exchange_ms=meter.ms() / rounds,
+                exchange_share=meter.ms() / event_ms, bytes=meter.bytes // rounds,
+                peak=torch.cuda.max_memory_allocated(dev), start=start,
+                launches={k: v for k, v in launches.items() if v}, ici=tot.words())
+
+
+def cluster_bucketed_setup(dev, mesh) -> dict:
+    """4b's graph on an S = 2 bucketed mesh with K6's plans (``run_sim
+    --shard --staircase``), one origin from ``default_rng(0)``; cut to this
+    process's shard when ``mesh`` spans processes."""
+    import numpy as np
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.core import prng
+    from tpu_gossip_torch.core.device_topology import device_powerlaw_graph
+    from tpu_gossip_torch.core.state import SwarmConfig
+
+    t0 = time.perf_counter()
+    graph = device_powerlaw_graph(N_HEADLINE, gamma=2.5, key=prng.key(0, dev), device=dev).to_host_graph()
+    sg, rel, pos = dist.partition_graph(graph, mesh.size, device=dev)
+    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=M_SLOTS, fanout=1, mode="push_pull")
+    origins = np.random.default_rng(0).choice(sg.n, size=1, replace=False)
+    st = dist.init_sharded_swarm(sg, rel, pos, cfg, key=prng.key(0, dev), origins=origins, device=dev)
+    out = dict(cfg=cfg, mesh=mesh, sg=dist.shard_graph(sg, mesh),
+               plans=dist.shard_plans(dist.build_shard_plans(sg), mesh), state=dist.shard_swarm(st, mesh))
+    del graph, sg, rel, pos, st
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    out["build_s"] = time.perf_counter() - t0
+    return out
+
+
+def cluster_bucketed_run(dev, setup: dict, what: str) -> dict:
+    """:data:`CLUSTER_BUCKETED_ROUNDS` rounds of the bucketed mesh through
+    K6, launches counted from 0; the whole final state's digest and the
+    stats digest, ms a round, the exchange, the bytes and the peak."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.kernels import native
+    from tpu_gossip_torch.utils.digest import state_digest, stats_digest
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    native.reset_launches()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with ExchangeMeter() as meter:
+        a.record()
+        fin, stats = dist.simulate_dist(setup["state"], setup["cfg"], setup["sg"], setup["mesh"],
+                                        CLUSTER_BUCKETED_ROUNDS, setup["plans"])
+        b.record()
+        torch.cuda.synchronize(dev)
+    launches = dict(native.LAUNCHES)
+    check_launches(what, launches, dict(CLUSTER_BUCKETED_PATH, stream_segment=setup["mesh"].local),
+                   CLUSTER_BUCKETED_ROUNDS)
+    fin = dist.gather_swarm(fin, setup["mesh"])
+    ms = a.elapsed_time(b)
+    return dict(state_digest=state_digest(fin), stats_digest=stats_digest(stats),
+                event_ms=ms / CLUSTER_BUCKETED_ROUNDS, exchange_ms=meter.ms() / CLUSTER_BUCKETED_ROUNDS,
+                exchange_share=meter.ms() / ms, bytes=meter.bytes // CLUSTER_BUCKETED_ROUNDS,
+                peak=torch.cuda.max_memory_allocated(dev), start=start,
+                launches={k: v for k, v in launches.items() if v})
+
+
+def cluster_rank(argv: list[str]) -> int:
+    """One rank of phase 17 (``python -m chip_smoke --cluster-rank DIR``
+    with the launcher's flags): 17a's dense and hier runs, 17c's
+    checkpoint at round 8 into DIR (rank 0 writes), 17b's bucketed run;
+    one result line. Before each run the rank holds K1 and K2 (on its lane
+    tables and its own class layout), K3 (at its state rows) and K6 (on its
+    shards' plans) against their plain versions on its own inputs."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.ckpt import host_stats, save_checkpoint
+    from tpu_gossip_torch.cluster import make_cluster_mesh
+    from tpu_gossip_torch.cluster.launch import init_distributed
+
+    def flag(name):
+        return argv[argv.index(name) + 1]
+
+    rank, hosts = int(flag("--process-id")), int(flag("--num-processes"))
+    dev = torch.device(init_distributed(flag("--coordinator"), hosts, rank, flag("--dist-backend"), "cuda"))
+    out = {"rank": rank, "device": str(dev), "backend": torch.distributed.get_backend()}
+    mesh = make_cluster_mesh(MESH_SHARDS, hosts, dev)
+    setup = cluster_matching_setup(dev, mesh)
+    out["rows"] = {"state": int(setup["state"].seen.shape[0]), "slots": int(setup["plan"].rows),
+                   "lane_table": list(setup["plan"].lanes[0].shape)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rank)
+    out["max_abs_err"] = {"17a lane_shuffle, fold_classes": check_k1_k2_mesh(dev, gen, setup["plan"]),
+                          "17a round_tail": check_static_tail(dev, gen, out["rows"]["state"], M_SLOTS)}
+    for name, tr in (("dense", None), ("hier", setup["hier"])):
+        out[name] = cluster_run(dev, setup, tr, f"17a rank {rank} {name}", CLUSTER_MATCHING_PATH)
+    fin, stats = dist.simulate_dist(setup["state"], setup["cfg"], setup["plan"], mesh, CLUSTER_CKPT_ROUND)
+    whole = dist.gather_swarm(fin, mesh)
+    if rank == 0:
+        save_checkpoint(Path(flag("--cluster-rank")), whole, step=CLUSTER_CKPT_ROUND, shards=MESH_SHARDS,
+                        stats=host_stats(stats), run_config={"bench": "dist_matching", "devices": MESH_SHARDS})
+    torch.distributed.barrier()
+    del setup, fin, whole
+    torch.cuda.empty_cache()
+    bucketed = cluster_bucketed_setup(dev, make_cluster_mesh(2, hosts, dev))
+    sg, plans = bucketed["sg"], bucketed["plans"]
+    held = [(plans, d, sg.n_shards * sg.bucket) for d in range(bucketed["mesh"].local)]
+    out["max_abs_err"].update({
+        "17b stream_segment": check_k6(dev, gen, held),
+        "17b round_tail": check_static_tail(dev, gen, int(bucketed["state"].seen.shape[0]), M_SLOTS)})
+    out["bucketed"] = cluster_bucketed_run(dev, bucketed, f"17b rank {rank}")
+    print(CLUSTER_RESULT + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def cluster_results(text: str) -> dict:
+    """Each rank's result line from the launcher's ``[i]``-prefixed output."""
+    got = {}
+    for line in text.splitlines():
+        m = re.match(r"\[(\d+)\] " + re.escape(CLUSTER_RESULT) + r"(.*)$", line)
+        if m:
+            got[int(m.group(1))] = json.loads(m.group(2))
+    return got
+
+
+def phase_cluster(root: Path, dev, card: str) -> dict:
+    """17a: bench_dist_matching's 1M layout at S = 8 as two gloo ranks of
+    four shards sharing the card, dense and hier, onto ``mesh_1m`` (the
+    dense ICI totals, the hier leg's), the one-process S = 8 mesh before
+    and after in turns; 17b: 4b's graph on the S = 2 bucketed mesh through
+    K6, a shard a rank, against its one-process twin; 17c: the ranks'
+    checkpoint at round 8 resumed in one process (--hosts 1) onto the pin;
+    17d: NCCL with two ranks on one card refused, exit 2."""
+    import io
+    import tempfile
+
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.ckpt import latest_complete, load_checkpoint
+    from tpu_gossip_torch.cluster import make_cluster_mesh
+    from tpu_gossip_torch.cluster.launch import launch_workers
+
+    pin = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())["mesh_1m"]
+    out = {}
+    # 17d's two interpreters start first and are read before anything is timed
+    t0 = time.perf_counter()
+    nccl = subprocess.Popen([sys.executable, "-m", "tpu_gossip_torch.cluster.launch", "--nprocs", str(CLUSTER_HOSTS),
+                             "--devices-per-host", str(CLUSTER_PER), "--backend", "nccl", "--port",
+                             str(free_ports(1)[0]), "--timeout", "60", "--", "--shard", "--graph", "matching",
+                             "--peers", "2000", "--rounds", "2"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    one_b = cluster_bucketed_setup(dev, make_cluster_mesh(2, 1, dev))
+    twin_b = cluster_bucketed_run(dev, one_b, "17b one process")
+    del one_b
+    one = cluster_matching_setup(dev, make_cluster_mesh(MESH_SHARDS, 1, dev))
+    nccl_out, _ = nccl.communicate(timeout=90)
+    refused = time.perf_counter() - t0
+    before = cluster_run(dev, one, None, "17a one process", None)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="phase17-")
+    tmp = Path(tmp_dir.name)
+    buf = io.StringIO()
+    port = free_ports(1)[0]
+    t1 = time.perf_counter()
+    rc = launch_workers(["--cluster-rank", str(tmp / "ckpt")], CLUSTER_HOSTS, CLUSTER_PER, port=port, timeout=300,
+                        backend="gloo", module="chip_smoke", out=buf)
+    ranks_s = time.perf_counter() - t1
+    text = buf.getvalue()
+    ranks = cluster_results(text)
+    if rc != 0 or sorted(ranks) != list(range(CLUSTER_HOSTS)):
+        raise AssertionError(f"17: the two ranks exited {rc} with results from {sorted(ranks)}:\n{text[-6000:]}")
+    after = cluster_run(dev, one, None, "17a one process", None)
+    dense_pin = {k: v for k, v in pin["dense"]["ici"].items() if not k.startswith("dcn_")}
+    for r, got in ranks.items():
+        if set(got["max_abs_err"].values()) != {0}:
+            raise AssertionError(f"17 rank {r}: a kernel disagrees with its plain version on the rank's inputs: "
+                                 f"{got['max_abs_err']}")
+        for name in ("dense", "hier"):
+            g = got[name]
+            if (g["rounds"], g["digest"]) != (pin["dense"]["rounds"], pin["dense"]["state_digest"]):
+                raise AssertionError(f"17a rank {r} {name}: ({g['rounds']}, {g['digest']}) != the pin's")
+        dense_ici = got["dense"]["ici"]
+        # on two host rows JAX prices the flat pipeline whole on the host axis
+        if {k: v for k, v in dense_ici.items() if not k.startswith("dcn_")} != dense_pin or \
+                (dense_ici["dcn_dense_words"], dense_ici["dcn_shipped_words"]) != \
+                (dense_pin["dense_words"], dense_pin["shipped_words"]):
+            raise AssertionError(f"17a rank {r} dense ICI {dense_ici} != the pin's {pin['dense']['ici']}")
+        if got["hier"]["ici"] != pin["hier"]["ici"]:
+            raise AssertionError(f"17a rank {r} hier ICI {got['hier']['ici']} != the hier leg's {pin['hier']['ici']}")
+        if {k: got["bucketed"][k] for k in ("state_digest", "stats_digest")} != \
+                {k: twin_b[k] for k in ("state_digest", "stats_digest")}:
+            raise AssertionError(f"17b rank {r}: {got['bucketed']} != the one-process S = 2 run's {twin_b}")
+        rows = got["rows"]
+        if rows["state"] * CLUSTER_HOSTS != one["state"].seen.shape[0] or \
+                rows["slots"] * CLUSTER_HOSTS != one["plan"].rows:
+            raise AssertionError(f"17a rank {r} holds {rows}, not 1/{CLUSTER_HOSTS} of the rows")
+    for r, got in ranks.items():
+        for name in ("dense", "hier"):
+            g = got[name]
+            print(f"[{card}] 17a rank {r} of {CLUSTER_HOSTS} ({got['backend']}, {got['device']}, {CLUSTER_PER} shards, "
+                  f"rows {got['rows']}) {name}: rounds to 99% {g['rounds']}, coverage {g['coverage']}, "
+                  f"{g['event_ms']} ms/round by CUDA events ({g['wall_ms']} by wall), the exchange "
+                  f"{g['exchange_ms']} ms/round ({g['exchange_share']} of the round), {g['bytes']} B shipped to the "
+                  f"other rank a round, run peak {g['peak']} B (from {g['start']} B), launches {g['launches']}, ICI "
+                  f"words {g['ici']}; state_digest on the pin", flush=True)
+        print(f"[{card}] 17 rank {r}: its kernels against their plain versions on its own inputs (K1 on each held "
+              f"lane table, K2 OR and SUM on its class layout, K3 at its state rows, K6 on its shards' plans): "
+              f"max_abs_err {got['max_abs_err']}", flush=True)
+        b = got["bucketed"]
+        print(f"[{card}] 17b rank {r} (S = 2, a shard a rank, K6): {b['event_ms']} ms/round, the exchange "
+              f"{b['exchange_ms']} ms/round ({b['exchange_share']}), {b['bytes']} B shipped a round, run peak "
+              f"{b['peak']} B (from {b['start']} B), launches {b['launches']}; digests equal the one-process S = 2 "
+              f"run's", flush=True)
+    for name, r in (("before", before), ("after", after)):
+        print(f"[{card}] 17a one process S = {MESH_SHARDS} dense ({name} the ranks): rounds {r['rounds']}, "
+              f"{r['event_ms']} ms/round by CUDA events ({r['wall_ms']} by wall), the exchange {r['exchange_ms']} "
+              f"ms/round, run peak {r['peak']} B (from {r['start']} B held as it starts), state_digest "
+              f"{'on' if r['digest'] == pin['dense']['state_digest'] else 'OFF'} the pin", flush=True)
+    print(f"[{card}] 17b one process S = 2 (K6): {twin_b['event_ms']} ms/round, run peak {twin_b['peak']} B (from "
+          f"{twin_b['start']} B held as it starts), launches {twin_b['launches']}", flush=True)
+    if before["digest"] != pin["dense"]["state_digest"] or after["digest"] != pin["dense"]["state_digest"]:
+        raise AssertionError("17a: the one-process mesh left the pin")
+    out["17ab"] = dict(seconds=time.perf_counter() - t0, ranks_s=ranks_s)
+
+    t0 = time.perf_counter()
+    path, manifest = latest_complete(tmp / "ckpt")
+    state, _, _ = load_checkpoint(path, manifest=manifest, device=dev)
+    fin = dist.run_until_coverage_dist(dist.shard_swarm(state, one["mesh"]), one["cfg"], one["plan"], one["mesh"],
+                                       0.99, MESH_MAX_ROUNDS)
+    from tpu_gossip_torch.utils.digest import state_digest
+
+    got = (int(fin.round), state_digest(fin))
+    if got != (pin["dense"]["rounds"], pin["dense"]["state_digest"]):
+        raise AssertionError(f"17c: the ranks' round-{CLUSTER_CKPT_ROUND} checkpoint resumed in one process at "
+                             f"{got}, not on the pin")
+    print(f"[{card}] 17c the ranks' checkpoint ({manifest['round']} rounds, {path.name}) resumed in one process "
+          f"(--hosts 1, S = {MESH_SHARDS}) to round {got[0]} on the pin", flush=True)
+    out["17c"] = dict(seconds=time.perf_counter() - t0)
+    del one, state, fin
+    tmp_dir.cleanup()
+
+    names = re.findall(r"cluster: rank \d+: .*", nccl_out)
+    if nccl.returncode != 2 or refused > 60 or len(names) != CLUSTER_HOSTS or "cuda:0" not in names[0]:
+        raise AssertionError(f"17d: nccl on one card exited {nccl.returncode} within {refused:.2f} s:\n"
+                             f"{nccl_out[-3000:]}")
+    print(f"[{card}] 17d --backend nccl with {CLUSTER_HOSTS} ranks on one card: exit {nccl.returncode} within "
+          f"{refused:.2f} s (read after 17b's one-process run; started with the phase); {names[0]}", flush=True)
+    out["17d"] = dict(seconds=refused)
+    return out
+
+
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
     """Fail unless ``launches`` (counted from 0 over one path) are what the
     path must launch: per round, or at least once where ``want`` says None."""
@@ -4414,12 +4819,96 @@ def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:
             raise AssertionError(f"{what} path launched {key} {got} times, needs {need}")
 
 
+SIDE_BY_SIDE = (("13",), ("7", "10"), ("8", "9"), ("11", "12"))
+"""Phases 7-13 as four lanes, each a process running its phases in turn,
+all four at once. The phases share nothing but the card and the built
+kernels, and each counts its own launches from 0 in its own process."""
+LANE_TIMEOUT_S = 900
+
+
+def run_phase(name: str, root: Path, dev, card: str, headline_peak: int) -> None:
+    """Phase ``name`` (7-13) on ``dev``, its seconds printed."""
+    t0 = time.perf_counter()
+    if name == "7":
+        phase_checkpoints(root, card, headline_peak)
+        print(f"[{card}] phase 7: {time.perf_counter() - t0:.2f} s", flush=True)
+        return
+    if name == "13":  # pipelined rounds on the 1M one-shard matching mesh (13a, 13b), fleets (13c, 13d), 13e
+        pipeline = phase_pipeline(root, dev, card, mesh_setup_1m(dev, 1))
+        fleets = phase_fleet(root, dev, card)
+        t1 = time.perf_counter()
+        run_composed_profile(card, dev)
+        parts = {**pipeline, **fleets, "13e": dict(seconds=time.perf_counter() - t1)}
+    else:  # 8 faults, 9 quorum and adversaries, 10 growth, 11 streams, 12 control
+        parts = {"8": phase_faults, "9": phase_quorum, "10": phase_growth, "11": phase_stream,
+                 "12": phase_control}[name](root, dev, card)
+    print(f"[{card}] phase {name}: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in parts.items() if 'seconds' in v} }", flush=True)
+
+
+def lane(root: Path, argv: list[str]) -> int:
+    """One lane of :data:`SIDE_BY_SIDE` (``--lane 8,9 --headline-peak B``)."""
+    card = card_line()
+    for name in argv[argv.index("--lane") + 1].split(","):
+        run_phase(name, root, torch.device("cuda", 0), card, int(argv[argv.index("--headline-peak") + 1]))
+    return 0
+
+
+def side_by_side(root: Path, card: str, headline_peak: int) -> None:
+    """The lanes of :data:`SIDE_BY_SIDE` at once, each in its own session;
+    fails when one fails or outlasts LANE_TIMEOUT_S, and then stops the
+    others. Each lane's output is printed whole, in lane order."""
+    import os
+    import signal
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lanes-") as tmp:
+        files = [(Path(tmp) / f"{i}.out", Path(tmp) / f"{i}.err") for i in range(len(SIDE_BY_SIDE))]
+        procs, seconds, failed = [], {}, None
+        try:
+            for names, (out, err) in zip(SIDE_BY_SIDE, files):
+                with open(out, "w") as fo, open(err, "w") as fe:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(root / "chip_smoke.py"), "--lane", ",".join(names),
+                         "--headline-peak", str(headline_peak)],
+                        cwd=root, stdout=fo, stderr=fe, start_new_session=True))
+            while len(seconds) < len(procs) and failed is None:
+                if time.perf_counter() - t0 > LANE_TIMEOUT_S:
+                    failed = f"the lanes still ran after {LANE_TIMEOUT_S} s"
+                time.sleep(0.5)
+                for names, proc in zip(SIDE_BY_SIDE, procs):
+                    rc = proc.poll()
+                    if rc is not None and names not in seconds:
+                        seconds[names] = time.perf_counter() - t0
+                        if rc != 0 and failed is None:
+                            failed = f"lane {','.join(names)} exited {rc}"
+        finally:
+            for proc in procs:  # the lane and whatever it left running
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+        for names, (out, err) in zip(SIDE_BY_SIDE, files):
+            print(out.read_text(), end="", flush=True)
+            print(err.read_text(), end="", file=sys.stderr, flush=True)
+    if failed is not None:
+        raise AssertionError(f"phases 7-13: {failed}")
+    print(f"[{card}] phases 7-13 side by side: {time.perf_counter() - t0:.2f} s; each lane "
+          f"{ {','.join(k): round(v, 2) for k, v in seconds.items()} }", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
+    if "--cluster-rank" in sys.argv:
+        return cluster_rank(sys.argv)
+    if "--lane" in sys.argv:
+        return lane(root, sys.argv)
     card = card_line()
     print(card, flush=True)
     return smoke(root, torch.device("cuda", 0), card)
@@ -4536,7 +5025,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     print(f"[{card}] sharded set-up n={N_HEADLINE} gamma=2.5, one-shard mesh: {shard['info']}", flush=True)
     # K6 against its plain version, on this set-up's plan among others (phase
     # 2's check, made here so the set-up is built once and 4a-4e's peaks exclude it)
-    errs["stream_segment"] = check_k6(dev, gen, shard)
+    errs["stream_segment"] = check_k6(dev, gen, stream_cases(dev, shard))
     print(f"K6 equals its plain version: {errs['stream_segment']}", flush=True)
     shard_runs, shard_launches = {}, {}
     for what, pl, packed, want in (("sharded staircase", shard["plan"], False, SHARD_STAIRCASE_PATH),
@@ -4624,52 +5113,11 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
         })
         print(f"{probe_line(card, name, t)}, launches in its script {probe_launches[key]}", flush=True)
 
-    # phase 7: durable checkpoints and crash recovery through the CLI (7a-7e)
-    t0 = time.perf_counter()
-    phase_checkpoints(root, card, peak)
-    print(f"[{card}] phase 7: {time.perf_counter() - t0:.2f} s", flush=True)
-
-    # phase 8: silent peers and the fault plane through the CLI (8a-8e)
-    t0 = time.perf_counter()
-    faults = phase_faults(root, dev, card)
-    print(f"[{card}] phase 8: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in faults.items() if 'seconds' in v} }", flush=True)
-
-    # phase 9: the quorum detector and the Byzantine adversaries through the CLI (9a-9c)
-    t0 = time.perf_counter()
-    quorum = phase_quorum(root, dev, card)
-    print(f"[{card}] phase 9: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in quorum.items() if 'seconds' in v} }", flush=True)
-
-    # phase 10: growth (10a-10d)
-    t0 = time.perf_counter()
-    growth = phase_growth(root, dev, card)
-    print(f"[{card}] phase 10: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in growth.items() if 'seconds' in v} }", flush=True)
-
-    # phase 11: streams (11a-11d)
-    t0 = time.perf_counter()
-    stream = phase_stream(root, dev, card)
-    print(f"[{card}] phase 11: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in stream.items() if 'seconds' in v} }", flush=True)
-
-    # phase 12: adaptive control (12a-12e)
-    t0 = time.perf_counter()
-    control = phase_control(root, dev, card)
-    print(f"[{card}] phase 12: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in control.items() if 'seconds' in v} }", flush=True)
-
-    # phase 13: pipelined rounds (13a, 13b on phase 14's 1M one-shard matching mesh), fleets (13c, 13d)
-    # and the composed profile rows (13e)
-    t0 = time.perf_counter()
+    # phases 7-13 side by side, a lane a process: 7 checkpoints and crash recovery, 8 the fault
+    # plane, 9 the quorum detector and adversaries, 10 growth, 11 streams, 12 adaptive control,
+    # 13 pipelined rounds, fleets and the composed profile rows
+    side_by_side(root, card, peak)
     one = mesh_setup_1m(dev, 1)
-    pipeline = phase_pipeline(root, dev, card, one)
-    fleets = phase_fleet(root, dev, card)
-    t1 = time.perf_counter()
-    run_composed_profile(card, dev)
-    parts = {**pipeline, **fleets, "13e": dict(seconds=time.perf_counter() - t1)}
-    print(f"[{card}] phase 13: {time.perf_counter() - t0:.2f} s; by part "
-          f"{ {k: round(v['seconds'], 2) for k, v in parts.items() if 'seconds' in v} }", flush=True)
 
     # phase 14: the sharded matching mesh and its transports (14a-14e)
     t0 = time.perf_counter()
@@ -4688,6 +5136,12 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     simnet = phase_simnet(root, dev, card, gen)
     print(f"[{card}] phase 16: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in simnet.items()} }; the script "
+          f"{time.perf_counter() - t_script:.2f} s", flush=True)
+    # phase 17: several processes, two gloo ranks sharing the card (17a-17d)
+    t0 = time.perf_counter()
+    cluster = phase_cluster(root, dev, card)
+    print(f"[{card}] phase 17: {time.perf_counter() - t0:.2f} s; by part "
+          f"{ {k: round(v['seconds'], 2) for k, v in cluster.items()} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

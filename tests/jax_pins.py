@@ -24,6 +24,10 @@ recomputes. The pins of ``tpu_gossip_torch/reference_pins.json`` that
         python -m tests.jax_pins mesh_card_pins              # phase 14's n=20000 pins
     JAX_PLATFORMS=cpu python -m tests.jax_pins write simnet  # the tpu-sim transport's runs
     JAX_PLATFORMS=cpu python -m tests.jax_pins simnet_1m_pin # phase 16a's 1M pin
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -m tests.jax_pins write cluster               # the (hosts, devices) cells and runs
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -m tests.jax_pins dist_matching_1m_hier       # phase 17a's hier leg
 """
 
 from __future__ import annotations
@@ -309,7 +313,8 @@ def dist_matching_1m(n: int = 1_000_000, shards: int = 8) -> dict:
     ``arange(16)`` on slots ``arange(16)``, to 0.99 coverage (at most 300
     rounds). The dense run's digest, rounds and ICI totals; the sparse
     transport replayed over those rounds with the counter (digests and
-    totals); the auto transport's static gate and totals."""
+    totals); the auto transport's static gate and totals; the hier leg
+    (:func:`dist_matching_1m_hier`)."""
     import jax
 
     from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
@@ -338,7 +343,186 @@ def dist_matching_1m(n: int = 1_000_000, shards: int = 8) -> dict:
     afin, atot = run_until_coverage_dist(clone_state(st), cfg, plan_m, mesh, 0.99, 300, transport=auto,
                                          collect_ici=True)
     out["auto"] = {"active": bool(auto.active), "state_digest": state_digest(afin), "ici": _ici_words(atot)}
+    out["hier"] = dist_matching_1m_hier(n, shards)
     return out
+
+
+def dist_matching_1m_hier(n: int = 1_000_000, shards: int = 8, hosts: int = 2) -> dict:
+    """:func:`dist_matching_1m`'s ``hier`` leg: the same layout and swarm
+    on the (``hosts``, ``shards / hosts``) fold of the forced host devices
+    (``make_cluster_mesh(hosts=)``, the JAX CLI's ``--hosts 2``) under
+    ``build_transport(plan, "hier", hosts=)``, run to 0.99 coverage: the
+    digest, the rounds and the ICI totals with their DCN columns."""
+    import jax
+
+    from tpu_gossip.cluster import make_cluster_mesh
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+    from tpu_gossip.dist import build_transport, run_until_coverage_dist, shard_matching_plan, shard_swarm
+    from tpu_gossip.fleet.engine import state_digest
+
+    g, plan = matching_powerlaw_graph_sharded(n, shards, gamma=2.5, fanout=1, key=jax.random.key(0),
+                                              export_csr=False)
+    mesh = make_cluster_mesh(shards, hosts=hosts)
+    plan_m = shard_matching_plan(plan, mesh)
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=16, fanout=1, mode="push_pull")
+    st = shard_swarm(init_swarm(g.as_padded_graph(), cfg, origins=np.arange(16), origin_slots=np.arange(16),
+                                exists=g.exists, key=jax.random.key(0)), mesh)
+    tr = build_transport(plan_m, mode="hier", hosts=hosts)
+    fin, tot = run_until_coverage_dist(st, cfg, plan_m, mesh, 0.99, 300, transport=tr, collect_ici=True)
+    return {"hosts": hosts, "state_digest": state_digest(fin), "rounds": int(fin.round), "ici": _ici_words(tot),
+            "dcn_budget": tr.dcn_budget, "coverage": float(fin.coverage(0))}
+
+
+def field_digest(a) -> str:
+    """sha256 of an integer or bool plane's values (as int64) and shape."""
+    a = np.asarray(a)
+    return leaf_digest((a.astype(np.int64), np.asarray(a.shape)))
+
+
+def stream_matching_case(mode: str, law: str, compose) -> dict:
+    """The JAX half of ``tests/test_torch_stream_matching.py``'s cell
+    (``jax_matching_stream`` there), each stream state plane as its
+    :func:`field_digest`."""
+    from tests.test_torch_stream_matching import jax_matching_stream
+
+    out = jax_matching_stream(mode, law, compose)
+    return {**out, "fields": {f: field_digest(v) for f, v in out["fields"].items()}}
+
+
+def fold_classes_case(case: str, op: str) -> str:
+    """The JAX half of ``tests/test_torch_fold_classes.py``'s
+    ``test_reduce_classes_equals_jax`` (``jax_fold_case`` there)."""
+    from tests.test_torch_fold_classes import jax_fold_case
+
+    return jax_fold_case(case, op)
+
+
+# its cases: crafted class tables (kernels/fold_cases.py) and two plans' classes
+FOLD_CLASSES_CASES = ["mixed", "gaps", "node_major", "plan2000", "plan20000"]
+
+
+# tests/test_torch_stream_matching.py's cells: name -> (mode, origin law, composed plane)
+STREAM_MATCHING = {"push_pull": ("push_pull", "uniform", None), "flood_hotspot": ("flood", "hotspot", None),
+                   "chaos_scenario": ("push_pull", "uniform", "scenario"),
+                   "flash_crowd": ("push_pull", "uniform", "growth")}
+
+
+# tests/sim/test_cluster.py's swarms (tests/test_torch_cluster.py)
+N_BUCKETED, N_MATCHING = 250, 256
+
+
+def cluster_bucketed_graph():
+    """The cluster cells' bucketed graph: JAX's numpy PA generator at
+    N_BUCKETED, m 3, and its CSR (host arrays both packages build from)."""
+    from tpu_gossip.core import topology
+
+    return topology.preferential_attachment(N_BUCKETED, m=3, use_native=False)
+
+
+def cluster_bucketed(hosts: int, transport: str) -> dict:
+    """tests/sim/test_cluster.py's bucketed cell: 8 shards (partition seed
+    1), push_pull fanout 2, 8 slots, churn (0.02, 0.2), origin 0, 6 rounds
+    on the (``hosts``, 8 / hosts) fold (1: the flat mesh) under
+    ``transport`` (dense: None): the digests and the ICI totals."""
+    from tpu_gossip import SwarmConfig, build_csr
+    from tpu_gossip.cluster import make_cluster_mesh
+    from tpu_gossip.dist import build_transport, init_sharded_swarm, partition_graph, shard_swarm, simulate_dist
+
+    g = build_csr(N_BUCKETED, cluster_bucketed_graph())
+    sg, relabeled, position = partition_graph(g, 8, seed=1)
+    cfg = SwarmConfig(n_peers=sg.n_pad, msg_slots=8, fanout=2, mode="push_pull", churn_leave_prob=0.02,
+                      churn_join_prob=0.2)
+    st = init_sharded_swarm(sg, relabeled, position, cfg, origins=[0])
+    mesh = make_cluster_mesh(8, hosts=hosts)
+    tp = None if transport == "dense" else build_transport(sg, mode=transport, hosts=hosts)
+    fin, (stats, ici) = simulate_dist(shard_swarm(st, mesh), cfg, sg, mesh, 6, transport=tp, collect_ici=True)
+    return {**_digests(fin, stats), "ici": _ici_words(ici)}
+
+
+def _cluster_matching_swarm():
+    import jax
+
+    from tpu_gossip.core.matching_topology import matching_powerlaw_graph_sharded
+    from tpu_gossip.core.state import SwarmConfig, init_swarm
+
+    dg, plan = matching_powerlaw_graph_sharded(N_MATCHING, 8, gamma=2.5, fanout=1, key=jax.random.key(0),
+                                               export_csr=False)
+    cfg = SwarmConfig(n_peers=plan.n, msg_slots=16, fanout=1, mode="push_pull")
+    st = init_swarm(dg.as_padded_graph(), cfg, origins=[0], exists=dg.exists, key=jax.random.key(0))
+    return plan, cfg, st
+
+
+def cluster_matching(rounds: int, hosts: int, packed: bool = False) -> dict:
+    """tests/sim/test_cluster.py's matching cell: 8 shards at N_MATCHING,
+    push_pull fanout 1, 16 slots, origin 0, ``rounds`` rounds on the
+    (``hosts``, 8 / hosts) fold under the hier transport (``hosts`` 0: the
+    local engine, no counters); ``packed`` carries the packed state."""
+    from tpu_gossip.cluster import make_cluster_mesh
+    from tpu_gossip.core.packed import pack_state, unpack_state
+    from tpu_gossip.dist import build_transport, shard_matching_plan, shard_swarm, simulate_dist
+    from tpu_gossip.sim.engine import simulate
+
+    plan, cfg, st = _cluster_matching_swarm()
+    if not hosts:
+        return _digests(*simulate(st, cfg, rounds, plan))
+    mesh = make_cluster_mesh(8, hosts=hosts)
+    splan = shard_matching_plan(plan, mesh)
+    tp = build_transport(plan, mode="hier", hosts=hosts)
+    sharded = shard_swarm(st, mesh)
+    fin, (stats, ici) = simulate_dist(pack_state(sharded) if packed else sharded, cfg, splan, mesh, rounds,
+                                      transport=tp, collect_ici=True)
+    return {**_digests(unpack_state(fin) if packed else fin, stats), "ici": _ici_words(ici)}
+
+
+def cluster_composed() -> dict:
+    """tests/sim/test_cluster.py's composed cell on the local engine: the
+    audit's chaos scenario, stream (k 2, bursty) and control plan (ttl 8),
+    6 rounds."""
+    from tpu_gossip.analysis.entrypoints import _chaos_scenario, _control_plan, _stream_plan
+    from tpu_gossip.sim.engine import simulate
+
+    plan, cfg, st = _cluster_matching_swarm()
+    kw = dict(scenario=_chaos_scenario(plan.n, N_MATCHING), stream=_stream_plan(16, np.asarray(st.exists)),
+              control=_control_plan(ttl=8))
+    return _digests(*simulate(st, cfg, 6, plan, **kw))
+
+
+def cli_cluster(shards: int, *argv: str) -> dict:
+    """:func:`cli_mesh` with the cluster mesh pinned to ``shards`` devices
+    too (``--hosts H`` folds those)."""
+    import tpu_gossip.cluster as cl
+
+    make = cl.make_cluster_mesh
+    cl.make_cluster_mesh = lambda n_devices=None, hosts=1: make(int(shards), hosts)
+    try:
+        return cli_mesh(shards, *argv)
+    finally:
+        cl.make_cluster_mesh = make
+
+
+CLUSTER_M = ["--peers", "2000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1", "--seed",
+             "4", "--quiet", "--digest"]
+CLUSTER_B = ["--peers", "1200", "--graph", "chung-lu", "--shard", "--mode", "push_pull", "--fanout", "2",
+             "--slots", "8", "--quiet", "--digest"]
+# the runs tests/test_torch_cluster_procs.py launches as two gloo ranks,
+# each held to the JAX CLI's one-process run on the same fold: name ->
+# (mesh size, argv)
+CLUSTER_CLI = {
+    "acceptance_hier": (8, ["--peers", "2000", "--graph", "matching", "--shard", "--transport", "hier", "--rounds",
+                            "12", "--digest", "--quiet", "--hosts", "2"]),
+    "matching_dense": (4, [*CLUSTER_M, "--rounds", "10", "--hosts", "2"]),
+    "matching_hier": (4, [*CLUSTER_M, "--rounds", "10", "--hosts", "2", "--transport", "hier"]),
+    "matching_target": (4, [*CLUSTER_M[:-1], "--hosts", "2", "--transport", "hier", "--target", "0.95",
+                            "--max-rounds", "60"]),
+    "matching_sparse": (4, [*CLUSTER_M, "--rounds", "10", "--hosts", "2", "--transport", "sparse"]),
+    "matching_auto": (4, [*CLUSTER_M, "--rounds", "10", "--hosts", "2", "--transport", "auto"]),
+    "bucketed_k6": (2, [*CLUSTER_B, "--rounds", "10", "--hosts", "2", "--staircase"]),
+    "bucketed_scatter": (2, [*CLUSTER_B, "--rounds", "10", "--hosts", "2", "--transport", "sparse"]),
+    "ckpt_hier": (8, [*CLUSTER_M, "--rounds", "12", "--hosts", "2", "--transport", "hier", "--mode", "flood"]),
+    # tests/test_torch_shard_cli.py's --hosts case: the one-process fold of a 2-shard mesh
+    "fold_chung_lu": (2, ["--peers", "100", "--rounds", "2", "--graph", "chung-lu", "--shard", "--hosts", "2"]),
+}
 
 
 def matching_pipeline_1m(n: int = 1_000_000, shards: int = 1, rounds: int = 24, pipeline=1) -> dict:
@@ -936,6 +1120,15 @@ MESH_CLI = {
 STREAM_M = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1", "--graph", "matching"]
 STREAM_S = ["--stream", "2", "--slot-ttl", "20", "--rounds", "40", "--digest"]
 STREAM_C = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
+# the streamed scenario runs of test_torch_stream_cli_scenarios.py (their meshes of one shard)
+STREAM_SCENARIOS = {
+    "lossy_links": STREAM_C + ["--graph", "matching", "--scenario", "scenarios/lossy_links.toml"] + STREAM_S,
+    "siege": STREAM_C + ["--graph", "matching", "--scenario", "scenarios/byzantine_siege.toml", "--quorum-k", "3",
+                         "--stream", "2", "--slot-ttl", "20", "--rounds", "56", "--digest"],
+    "flash_crowd_header": ["--peers", "96", "--grow", "192", "--grow-rate", "4", "--m", "2", "--stream", "3",
+                           "--slot-ttl", "12", "--rounds", "30", "--scenario", "scenarios/flash_crowd_under_fire.toml",
+                           "--digest"],
+}
 # the streamed CLI runs of test_torch_stream_cli.py (local engines) and
 # test_torch_stream_cli_engines.py (each engine, meshes of one shard)
 STREAM_ENGINES = {
@@ -1803,7 +1996,8 @@ CASES = {
         "composed_300": ("cli_profile_shape", PROFILE_COMPOSED),
     },
     "stream_cli": {**{name: ("cli_lines", [False, *argv]) for name, argv in STREAM_ENGINES.items()},
-                   **{name: ("cli_lines", [True, *argv]) for name, argv in STREAM_ENGINES_ONE_SHARD.items()}},
+                   **{name: ("cli_lines", [True, *argv]) for name, argv in STREAM_ENGINES_ONE_SHARD.items()},
+                   **{f"scenario_{name}": ("cli_lines", [True, *argv]) for name, argv in STREAM_SCENARIOS.items()}},
     # the JAX halves of tests/test_torch_control_runs.py
     "control_runs": {name: ("control_runs_case", [name]) for name in CONTROL_RUNS},
     # the JAX halves of tests/test_torch_staircase.py's runs and
@@ -1837,6 +2031,21 @@ CASES = {
         **{f"curve_40_s{s}": ("simnet_curve", [40, 25, s]) for s in (0, 1, 2)},
         "curve_40_s7_origin0": ("simnet_curve", [40, 10, 7, 0]),
         **{f"liveness_{name}": ("liveness_band_run", ["jax", name]) for name in LIVENESS_BAND},
+    },
+    # the JAX halves of tests/test_torch_fold_classes.py (K2's whole-plan fold)
+    "fold_classes": {f"{case}-{op}": ("fold_classes_case", [case, op]) for case in FOLD_CLASSES_CASES
+                     for op in ("or", "sum")},
+    # the JAX halves of tests/test_torch_stream_matching.py (the local engine)
+    "stream_matching": {name: ("stream_matching_case", list(args)) for name, args in STREAM_MATCHING.items()},
+    # tests/test_torch_cluster.py's cells and tests/test_torch_cluster_procs.py's runs
+    "cluster": {
+        "bucketed_flat": ("cluster_bucketed", [1, "dense"]),
+        "bucketed_hier": ("cluster_bucketed", [2, "hier"]),
+        "matching_local": ("cluster_matching", [5, 0]),
+        "matching_hier": ("cluster_matching", [5, 2]),
+        "matching_packed_hier": ("cluster_matching", [6, 2, True]),
+        "composed_local": ("cluster_composed", []),
+        **{f"cli_{name}": ("cli_cluster", [shards, *argv]) for name, (shards, argv) in CLUSTER_CLI.items()},
     },
     "fleet": {
         "composed": ("campaign_run", [composed_campaign(), [0, 7, 13]]),

@@ -124,18 +124,16 @@ def jax_dir(tmp_path_factory):
     (["--lane", "0"], "single-run checkpoint"),
 ])
 def test_resume_options_of_later_slices_exit_2(capsys, jax_dir, extra, names):
-    """``--hosts`` (ROADMAP item 11c) exits 2 naming its item; ``--local``
-    on a local run's checkpoint (11b, ported since) and the fleet's lane
-    options (ROADMAP item 10) on a run checkpoint exit 2 in JAX's words."""
+    """``--local`` on a local run's checkpoint (11b, ported since), the
+    fleet's lane options (ROADMAP item 10) on a run checkpoint and
+    ``--hosts`` on a local run's checkpoint (11c, ported since: only a
+    sharded run's mesh re-folds) exit 2 in JAX's words."""
     capsys.readouterr()
     assert tcli.main(["resume", str(jax_dir), "--device", "cpu", *extra]) == 2
     err = capsys.readouterr().err
-    assert names in err
-    if names.startswith("item"):
-        assert "not ported yet" in err
-    else:
-        assert jcli.main(["resume", str(jax_dir), *extra]) == 2
-        assert err.strip().splitlines()[-1] == capsys.readouterr().err.strip().splitlines()[-1]
+    assert ("re-folds a SHARDED checkpoint's mesh" if "--hosts" in extra else names) in err
+    assert jcli.main(["resume", str(jax_dir), *extra]) == 2
+    assert err.strip().splitlines()[-1] == capsys.readouterr().err.strip().splitlines()[-1]
 
 
 def _rewrite_run(src, dst, **run):
@@ -174,9 +172,10 @@ def test_resume_of_an_unported_recorded_flag_exits_2(capsys, tmp_path, jax_dir, 
     """A JAX manifest holding a flag the port has not ported, at another
     value than JAX's default, names the flag and the slice; at the default
     it resumes. A flag ported since (``--scenario`` and ``--silent-frac``,
-    ROADMAP item 9a) resumes as the JAX CLI's resume does: the same exit
-    code, error line or summary (a recorded scenario file that is not there
-    exits 2 with the JAX CLI's words)."""
+    ROADMAP item 9a; ``--transport``, 11b; ``--hosts``, 11c) resumes as the
+    JAX CLI's resume does: the same exit code, error line or summary (a
+    recorded scenario file that is not there, or a recorded ``--hosts 2`` on
+    a local run, exits 2 with the JAX CLI's words)."""
     d = _rewrite_run(jax_dir, tmp_path / "ck", **{key: value})
     capsys.readouterr()
     if key not in tcli.JAX_FLAG_DEFAULTS:
@@ -199,13 +198,16 @@ def test_resume_of_an_unported_recorded_flag_exits_2(capsys, tmp_path, jax_dir, 
 def test_unported_flag_defaults_equal_jax_parser():
     """The port's table of the JAX CLI's flags it has not ported holds
     JAX's parser defaults, and covers every JAX flag the port's parser
-    lacks."""
+    lacks (none since ROADMAP item 11c); the port's own flags are
+    ``--device`` and ``--dist-backend``."""
     jax_base = vars(jcli.build_parser().parse_args([]))
     port_base = vars(tcli.build_parser().parse_args([]))
     assert set(tcli.JAX_FLAG_DEFAULTS) == set(jax_base) - set(port_base)
     for key, (default, _item) in tcli.JAX_FLAG_DEFAULTS.items():
         assert jax_base[key] == default and type(jax_base[key]) is type(default), key
-    assert set(port_base) - set(jax_base) == {"device"}
+    assert set(port_base) - set(jax_base) == {"device", "dist_backend"}
+    assert {k: port_base[k] for k in ("hosts", "coordinator", "num_processes", "process_id")} == {
+        k: jax_base[k] for k in ("hosts", "coordinator", "num_processes", "process_id")}
 
 
 def test_recorded_run_section_round_trips_floats_and_omits_port_flags():

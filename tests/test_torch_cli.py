@@ -158,14 +158,10 @@ def test_cli_packed_run_to_target_equals_jax(capsys):
     ["--graph", "matching", "--control", "0.9", "--rounds", "8", "--shard", "--pipeline", "1", "--device", "cpu"],
 ])
 def test_cli_flags_of_later_slices_exit_2(capsys, monkeypatch, argv):
-    """``--hosts`` (ROADMAP item 11c) exits 2 as not ported; the sharded
-    matching engine and the transports (11b, ported since) equal the JAX
-    CLI on a 2-device mesh, ``--transport`` without ``--shard`` exiting 2
-    in JAX's words."""
-    if "--hosts" in argv:
-        assert tcli.main(["--peers", "100", *argv]) == 2
-        assert "not ported yet" in capsys.readouterr().err
-        return
+    """The sharded matching engine and the transports (11b, ported since)
+    equal the JAX CLI on a 2-device mesh; ``--transport`` without
+    ``--shard`` and ``--hosts`` without it (11c, ported since) exit 2 in
+    JAX's words."""
     from tests.test_torch_mesh_cli import equals_jax_mesh_cli
 
     got = equals_jax_mesh_cli(capsys, monkeypatch, ["--peers", "100", *argv[:-2]])

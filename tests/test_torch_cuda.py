@@ -1180,3 +1180,41 @@ def test_simcluster_on_card_equals_cpu(dev, kw):
         if d.type == "cuda":
             assert launches.pop("round_tail") == 16 and not any(launches.values()), launches
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("argv,per", [
+    (["--graph", "matching", "--peers", "20000", "--mode", "push_pull", "--fanout", "1", "--transport", "hier"], 4),
+    (["--graph", "matching", "--peers", "20000", "--mode", "push_pull", "--fanout", "1", "--transport", "sparse"], 4),
+    (["--graph", "chung-lu", "--peers", "20000", "--mode", "push_pull", "--fanout", "1", "--staircase"], 1),
+])
+def test_two_ranks_on_card_equal_one_process(dev, argv, per):
+    """Two gloo ranks sharing the card (``cluster.launch``) print the
+    one-process fold's summary on the card: the matching mesh at S = 8
+    under the hier and the sparse transports, the bucketed mesh at S = 2
+    through K6."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = ["--shard", *argv, "--rounds", "12", "--digest", "--quiet"]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    two = subprocess.run([sys.executable, "-m", "tpu_gossip_torch.cluster.launch", "--nprocs", "2",
+                          "--devices-per-host", str(per), "--backend", "gloo", "--port", str(port),
+                          "--timeout", "240", "--", *run], capture_output=True, text=True, env=env, cwd=root,
+                         timeout=300)
+    assert two.returncode == 0, two.stdout[-3000:]
+    got = json.loads([ln for ln in two.stdout.splitlines() if ln.startswith("[0] {")][-1][4:])
+    one = subprocess.run([sys.executable, "-m", "tpu_gossip_torch.cli.run_sim", *run, "--hosts", "2"],
+                         capture_output=True, text=True, cwd=root, timeout=300,
+                         env=dict(env, TPU_GOSSIP_TORCH_LOCAL_SHARDS=str(2 * per)))
+    assert one.returncode == 0, one.stderr[-3000:]
+    want = json.loads(one.stdout.strip().splitlines()[-1])
+    for k in ("wall_seconds", "peers_rounds_per_sec"):
+        got.pop(k, None), want.pop(k, None)
+    assert got == want

@@ -279,10 +279,17 @@ def test_mesh_and_partition_must_agree(graph):
 
 
 def test_make_mesh_on_several_cards_is_a_later_slice(monkeypatch):
+    """One process on a host of several cards holds one shard on its card
+    (the several-card mesh is one process a card, ``cluster.launch``, ROADMAP
+    item 11c); more shards stack on the card only when asked for, by size
+    or by ``TPU_GOSSIP_TORCH_LOCAL_SHARDS`` (the launcher's
+    ``--devices-per-host``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tdist.make_mesh()
+    mesh = tdist.make_mesh()
+    assert (mesh.size, mesh.hosts, mesh.world, mesh.rank, mesh.local, str(mesh.device)) == (1, 1, 1, 0, 1, "cuda:0")
     assert tdist.make_mesh(3).size == 3  # shards stacked on one card only when asked for
     assert tdist.make_mesh(device="cpu").size == 1
+    monkeypatch.setenv("TPU_GOSSIP_TORCH_LOCAL_SHARDS", "4")
+    assert tdist.make_mesh(device="cpu").size == 4

@@ -1,6 +1,9 @@
 """K2's whole-plan fold on the CPU: the port's ``reduce_classes`` (its
 ``fold_classes``, the plain version here) against the JAX package's
-``reduce_classes`` bit for bit, and a numpy model of the kernel's index
+``reduce_classes`` bit for bit (its outputs pinned in
+``tests/jax_pins.json``, group ``fold_classes``, as a sha256 each;
+``test_fold_classes_pins_are_current`` recomputes one in a child
+process), and a numpy model of the kernel's index
 math (``csrc/fold_planes.cu``) over the class and work tables that
 ``class_layout`` builds: every output written exactly once, every read
 inside its class and the slot buffer, and the folded values the plain
@@ -9,12 +12,11 @@ version's."""
 import re
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tpu_gossip.core.matching_topology import reduce_classes as jax_reduce_classes
+from tests.jax_pins import FOLD_CLASSES_CASES, field_digest, pinned
 from tpu_gossip_torch.core import matching_topology as mt
 from tpu_gossip_torch.kernels import native
 from tpu_gossip_torch.kernels import permute
@@ -53,18 +55,43 @@ def _plan_case(n: int):
     return classes, rows, n
 
 
-@pytest.mark.parametrize("op", ["or", "sum"])
-@pytest.mark.parametrize("case", ["mixed", "gaps", "node_major", "plan2000", "plan20000"])
-def test_reduce_classes_equals_jax(case, op):
+def _fold_case(case: str):
+    """(classes, rows, n_out) and the slot buffer of one fold case."""
     classes, rows, n_out = _plan_case(int(case[4:])) if case.startswith("plan") else crafted_classes(case)
-    slots = _slots(rows, rows + n_out)
+    return classes, rows, n_out, _slots(rows, rows + n_out)
+
+
+def jax_fold_case(case: str, op: str) -> str:
+    """The JAX package's ``reduce_classes`` on one case, as its
+    :func:`tests.jax_pins.field_digest`."""
+    import jax.numpy as jnp
+
+    from tpu_gossip.core.matching_topology import reduce_classes as jax_reduce_classes
+
+    classes, _, n_out, slots = _fold_case(case)
+    return field_digest(jax_reduce_classes(jnp.asarray(slots), classes, n_out, op))
+
+
+@pytest.mark.parametrize("op", ["or", "sum"])
+@pytest.mark.parametrize("case", FOLD_CLASSES_CASES)
+def test_reduce_classes_equals_jax(case, op):
+    classes, rows, n_out, slots = _fold_case(case)
     layout = mt.class_layout(classes, rows, n_out, "cpu")
-    want = np.asarray(jax_reduce_classes(jnp.asarray(slots), classes, n_out, op))
     before = dict(native.LAUNCHES)
     got = mt.reduce_classes(torch.from_numpy(slots), layout, op).numpy()
     assert native.LAUNCHES == before  # CPU tensors take the plain version
     assert got.dtype == np.int32 and got.shape == (n_out,)
-    np.testing.assert_array_equal(want, got)
+    assert field_digest(got) == pinned("fold_classes", f"{case}-{op}")
+
+
+def test_fold_classes_pins_are_current():
+    """A plan case's pin, recomputed by the JAX package in a child process,
+    equals the file."""
+    from tests.test_torch_growth_cli_engines import jax_in_child
+
+    names = ["plan2000-sum"]
+    assert jax_in_child("tests.jax_pins", "compute", "fold_classes", names) == {
+        name: pinned("fold_classes", name) for name in names}
 
 
 def _fold(a: np.ndarray, axis: int, op: str) -> np.ndarray:

@@ -230,7 +230,9 @@ def test_matching_transport_tables_equal_jax(s, mode, frac, pin):
 
 def test_bucketed_transport_and_refusals_equal_jax():
     """The bucketed compact lane's budget and auto gate equal JAX's on a
-    partition; ``hier`` names ROADMAP item 11c; a bad mode is JAX's error."""
+    partition, and so does the hier transport's (ROADMAP item 11c, ported
+    since) on 2 and 4 host rows, with JAX's errors on one row and on rows
+    that do not divide the mesh; a bad mode is JAX's error."""
     from tests.jax_pins import bucketed_setup
 
     from tpu_gossip_torch.convert import SHARDED_LEAVES, SHARDED_STATIC, sharded_graph_from_jax
@@ -243,8 +245,18 @@ def test_bucketed_transport_and_refusals_equal_jax():
         assert (got.budget, got.active, got.engine, got.fingerprint) == (want.budget, want.active, want.engine,
                                                                         want.fingerprint)
         got.check_matches_graph(tsg)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tdist.build_transport(tsg, mode="hier")
+    for hosts in (2, 4):
+        want, got = jt.build_transport(jsg, mode="hier", hosts=hosts), tdist.build_transport(tsg, mode="hier",
+                                                                                           hosts=hosts)
+        fields = ("engine", "mode", "active", "budget", "n_shards", "fingerprint", "hosts", "dcn_budget")
+        assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+        got.check_matches_graph(tsg)
+    for hosts in (1, 3):
+        with pytest.raises(ValueError) as got_err:
+            tdist.build_transport(tsg, mode="hier", hosts=hosts)
+        with pytest.raises(ValueError) as want_err:
+            jt.build_transport(jsg, mode="hier", hosts=hosts)
+        assert str(got_err.value) == str(want_err.value)
     with pytest.raises(ValueError) as got_err:
         tdist.build_transport(tsg, mode="dense")
     with pytest.raises(ValueError) as want_err:

@@ -91,10 +91,14 @@ HIER = [*MESH_CLI_BASE, "--graph", "matching", "--shard", "--rounds", "8", "--tr
 
 
 def test_hier_transport_names_item_11c(capsys):
+    """``--transport hier`` (ROADMAP item 11c, ported since) without
+    ``--hosts`` exits 2 with the JAX CLI's words: it needs a host axis."""
     capsys.readouterr()
+    assert jcli.main(HIER) == 2
+    want = capsys.readouterr().err
     assert tcli.main(HIER + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err
-    assert "--transport hier" in err and "item 11c" in err and "not ported yet" in err
+    assert err == want and "--transport hier" in err and "add --hosts H > 1" in err
 
 
 @pytest.mark.parametrize("argv", [

@@ -34,6 +34,22 @@ def test_port_conflict_and_missing_card_exit_2(monkeypatch):
     assert rc == 2 and "serve: cannot listen on 127.0.0.1:" in err
     from tpu_gossip_torch.cli import run_sim as tcli
 
+    # --hosts (ROADMAP item 11c, ported since) rides along as the JAX CLI's
+    # serve lets it: the served run is JAX's, digests included
+    import contextlib
+    import io
+    import json
+
+    from tpu_gossip.cli import run_sim as jcli
+
+    argv = ["--peers", "48", "--rounds", "6", "--slot-ttl", "10", "--quiet", "--hosts", "2"]
+    rc, got, _ = port_serve(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        assert jcli.main(["serve", *argv]) == rc == 0
+    want = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert {k: got[k] for k in ("state_digest", "stats_digest")} == {k: want[k] for k in ("state_digest",
+                                                                                          "stats_digest")}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tcli.main(["serve", "--peers", "48", "--rounds", "6", "--slot-ttl", "10"]) == 2
     assert tcli.main(["serve", "--peers", "48", "--rounds", "6", "--slot-ttl", "10", "--hosts", "2"]) == 2

@@ -10,6 +10,7 @@ from tpu_gossip import dist as jdist
 from tpu_gossip.cli import run_sim as jcli
 from tpu_gossip_torch import dist as tdist
 from tpu_gossip_torch.cli import run_sim as tcli
+from tests.jax_pins import pinned
 from tests.test_torch_cli import REF, _check_reference, _summary, control_pin, fault_pin, growth_pin, stream_pin
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
@@ -76,12 +77,20 @@ def test_cli_shard_run_to_target_equals_jax(capsys, shards):
     (["--graph", "chung-lu", "--transport", "sparse"], "not ported yet"),
 ])
 def test_cli_shard_refusals_exit_2(capsys, monkeypatch, argv, says):
-    """``--hosts`` (ROADMAP item 11c) and a non-fused tail exit 2; the
-    sharded matching engine and the transports (11b, ported since) equal
-    the JAX CLI on a 2-device mesh, ``--transport`` without ``--shard``
-    exiting 2 in JAX's words."""
+    """A non-fused tail exits 2; the sharded matching engine and the
+    transports (11b, ported since) equal the JAX CLI on a 2-device mesh,
+    ``--transport`` without ``--shard`` exiting 2 in JAX's words; ``--hosts
+    2`` (11c, ported since) folds the 2-shard mesh into (2, 1) and prints
+    the JAX CLI's summary on its (2, 1) fold (pinned in
+    ``tests/jax_pins.json``, group ``cluster``)."""
     full = ["--peers", "100", "--rounds", "2", *argv]
-    if "--hosts" in argv or "--tail" in argv:
+    if "--hosts" in argv:
+        from tests.test_torch_mesh_cli import port_summary, two_shard_mesh
+
+        two_shard_mesh(monkeypatch)
+        assert port_summary(capsys, full) == pinned("cluster", "cli_fold_chung_lu")
+        return
+    if "--tail" in argv:
         assert tcli.main(full + ["--device", "cpu"]) == 2
         assert says in capsys.readouterr().err
         return
@@ -104,10 +113,12 @@ def test_shard_reference_digests_are_what_jax_produces(capsys, shards, packed):
 
 
 def test_cli_shard_on_several_cards_exits_2(capsys, monkeypatch):
-    """``--shard`` takes one shard per card; several cards are the
-    multi-process mesh of a later slice, refused with exit 2."""
+    """``--shard`` takes the mesh ``dist.make_mesh`` gives (one shard a
+    process; several cards run a process a card through ``cluster.launch``,
+    ROADMAP item 11c); a mesh a later slice brings, refused where it is
+    built, exits 2 naming it."""
     def several_cards(device="cuda"):
-        raise tdist.mesh.not_ported("a mesh over several cards (one process per card)", tdist.mesh.LATER)
+        raise tdist.mesh.not_ported("a mesh over several cards in one process", "several processes (ROADMAP item 11d)")
 
     monkeypatch.setattr(tdist, "make_mesh", several_cards)
     assert tcli.main(["--peers", "300", "--graph", "chung-lu", "--shard", "--rounds", "2", "--device", "cpu"]) == 2

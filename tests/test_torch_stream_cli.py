@@ -52,15 +52,10 @@ def test_stream_refusals_in_jax_words(capsys, argv):
     (["--rounds", "20", "--shard", "--graph", "matching"], "11b"),
 ])
 def test_stream_with_a_later_slice_exits_2_naming_its_item(capsys, monkeypatch, argv, item):
-    """``--hosts`` (ROADMAP item 11c) exits 2 naming its item; the stream on
-    the sharded matching mesh (11b, ported since) equals the JAX CLI's run
-    on a 2-device mesh, pipelined or not, and ``--transport`` without
-    ``--shard`` exits 2 in JAX's words."""
-    if item == "11c":
-        assert tcli.main(BASE + ["--stream", "2", *argv, "--device", "cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and item in err
-        return
+    """The stream on the sharded matching mesh (11b, ported since) equals
+    the JAX CLI's run on a 2-device mesh, pipelined or not; ``--transport``
+    and ``--hosts`` (11c, ported since) without ``--shard`` exit 2 in
+    JAX's words."""
     from tests.test_torch_mesh_cli import equals_jax_mesh_cli
 
     got = equals_jax_mesh_cli(capsys, monkeypatch, BASE + ["--stream", "2", *argv])

@@ -4,24 +4,18 @@ the port's CLI against the JAX CLI on the CPU: the matching headline under
 under the quorum detector, and ``scenarios/flash_crowd_under_fire.toml``
 run as its header gives it (growth, a stream, a blackout and loss); the
 summary (the ``stream`` block and digests) and every per-round row equal.
-Each compiles a composed scenario, so its JAX half runs in a child
-process (``tests.test_torch_growth_cli_engines.jax_cli_child``)."""
+Each JAX half is pinned in ``tests/jax_pins.json`` (group ``stream_cli``,
+the ``scenario_*`` cases; ``tests/test_torch_stream_pins.py`` recomputes a
+batch of the group in a child process)."""
 
 import pytest
 
 from tests.test_torch_churn_cli import one_shard  # noqa: F401
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
-from tests.test_torch_stream_cli import S, check_engine
+from tests.jax_pins import STREAM_SCENARIOS
+from tests.test_torch_stream_cli import check_engine
 
-C = ["--peers", "2000", "--mode", "push_pull", "--fanout", "1"]
-SCENARIOS = {
-    "lossy_links": C + ["--graph", "matching", "--scenario", "scenarios/lossy_links.toml"] + S,
-    "siege": C + ["--graph", "matching", "--scenario", "scenarios/byzantine_siege.toml", "--quorum-k", "3",
-                  "--stream", "2", "--slot-ttl", "20", "--rounds", "56", "--digest"],
-    "flash_crowd_header": ["--peers", "96", "--grow", "192", "--grow-rate", "4", "--m", "2", "--stream", "3",
-                           "--slot-ttl", "12", "--rounds", "30", "--scenario", "scenarios/flash_crowd_under_fire.toml",
-                           "--digest"],
-}
+SCENARIOS = STREAM_SCENARIOS
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))

@@ -2,9 +2,11 @@
 ``test_matching_stream_local_vs_sharded_bit_identical``, on the CPU: a
 loaded run on the S=8 matching layout with growth rows, in push-pull and
 flood with the hotspot law, under the chaos scenario and while a flash
-crowd joins, equal to JAX's local run of the same cell (the JAX run in a
-child process, :func:`jax_matching_stream`), and its sharded half: the
-same run on the 8-shard matching mesh equals the local one."""
+crowd joins, equal to JAX's local run of the same cell
+(:func:`jax_matching_stream`, pinned in ``tests/jax_pins.json``, group
+``stream_matching``; ``test_stream_matching_pins_are_current`` recomputes
+one cell in a child process), and its sharded half: the same run on the
+8-shard matching mesh equals the local one."""
 
 import jax
 import numpy as np
@@ -21,6 +23,7 @@ from tpu_gossip_torch.core.state import init_swarm as t_init
 from tpu_gossip_torch.sim import engine as te
 from tpu_gossip_torch.utils.digest import state_digest as t_state_digest
 from tpu_gossip_torch.utils.digest import stats_digest as t_stats_digest
+from tests.jax_pins import STREAM_MATCHING, field_digest, pinned
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 from tests.test_torch_stream import _np
 
@@ -74,22 +77,18 @@ def jax_matching_stream(mode: str, law: str, compose) -> dict:
                 fields={f: np.asarray(getattr(jfin, f)).tolist() for f in STREAM_STATE_FIELDS})
 
 
-@pytest.mark.parametrize("mode,law,compose", [
-    ("push_pull", "uniform", None), ("flood", "hotspot", None), ("push_pull", "uniform", "scenario"),
-    ("push_pull", "uniform", "growth")], ids=["push_pull", "flood_hotspot", "chaos_scenario", "flash_crowd"])
+@pytest.mark.parametrize("mode,law,compose", list(STREAM_MATCHING.values()), ids=list(STREAM_MATCHING))
 def test_matching_stream_on_the_sharded_layout_equals_jax_local(mode, law, compose):
     """The local half of test_matching_stream_local_vs_sharded_bit_identical:
     a loaded run (rate 4, bursts every 3 rounds, TTL 7) on the S=8
     matching layout with 32 growth rows a block, under the chaos scenario
-    or a flash crowd, equal to JAX's local run, the load biting. The JAX
-    half runs in a child process, as a test worker's XLA CPU compiler has
-    died under the suite's load on it. The sharded half: the same run on
-    the 8-shard matching mesh equals the local one."""
+    or a flash crowd, equal to JAX's local run (pinned), the load biting.
+    The sharded half: the same run on the 8-shard matching mesh equals the
+    local one."""
     from tpu_gossip_torch import faults as tf
     from tpu_gossip_torch import growth as tg
     from tpu_gossip_torch import traffic as tt
     from tpu_gossip_torch.core.matching_topology import matching_powerlaw_graph_sharded as tb
-    from tests.test_torch_growth_cli_engines import jax_in_child
 
     tgraph, tplan = tb(800, 8, fanout=2, key=prng.key(0, "cpu"), growth_rows=32, device="cpu")
     kw = dict(n_peers=tplan.n, **_cell(compose, mode))
@@ -104,12 +103,12 @@ def test_matching_stream_on_the_sharded_layout_equals_jax_local(mode, law, compo
     elif compose == "growth":
         tgp = tg.compile_growth(n_initial=800, target=900, n_slots=tplan.n, joins_per_round=16, attach_m=2,
                                 admit_rows=tg.matching_admit_rows(tplan, 100), device="cpu")
-    want = jax_in_child("tests.test_torch_stream_matching", "jax_matching_stream", mode, law, compose)
+    name = [k for k, v in STREAM_MATCHING.items() if v == (mode, law, compose)][0]
+    want = pinned("stream_matching", name)
     tfin, tst = te.simulate(ts, TConfig(**kw), 10, tplan, "fused", scenario=tsc, growth=tgp, stream=tstrm)
     assert t_state_digest(tfin) == want["state"] and t_stats_digest(tst) == want["stats"]
     for f in STREAM_STATE_FIELDS:
-        got = _np(getattr(tfin, f))
-        np.testing.assert_array_equal(got, np.asarray(want["fields"][f], dtype=got.dtype), err_msg=f)
+        assert field_digest(_np(getattr(tfin, f))) == want["fields"][f], f
     assert int(tst.stream_injected.sum()) > 10 and int(tst.stream_expired.sum()) > 0
     if compose == "scenario":
         assert int(tst.msgs_dropped.sum()) > 0
@@ -121,3 +120,13 @@ def test_matching_stream_on_the_sharded_layout_equals_jax_local(mode, law, compo
     mfin, mst = tdist.simulate_dist(tdist.shard_swarm(ts, mesh), TConfig(**kw), tdist.shard_matching_plan(tplan, mesh),
                                     mesh, 10, scenario=tsc, growth=tgp, stream=tstrm)
     assert t_state_digest(mfin) == want["state"] and t_stats_digest(mst) == want["stats"]
+
+
+def test_stream_matching_pins_are_current():
+    """One cell's pin, recomputed by the JAX package in a child process (a
+    test worker's XLA CPU compiler has died under the suite's load), equals
+    the file."""
+    from tests.test_torch_growth_cli_engines import jax_in_child
+
+    assert jax_in_child("tests.jax_pins", "compute", "stream_matching", ["flood_hotspot"]) == {
+        "flood_hotspot": pinned("stream_matching", "flood_hotspot")}

@@ -76,7 +76,7 @@ def concat_stats(parts: list[dict], round_axis: int = 0) -> dict:
 
 def run_checkpointed(state, total_rounds: int, run_segment, *, policy: CheckpointPolicy | None = None,
                      stats_prefix: dict | None = None, round_axis: int = 0, fold_every: int = 0, fold=None,
-                     log=None):
+                     log=None, to_save=None):
     """Drive ``state`` to ``total_rounds`` in segments cut at the
     checkpoint and fold grids.
 
@@ -85,7 +85,9 @@ def run_checkpointed(state, total_rounds: int, run_segment, *, policy: Checkpoin
     epoch hook, called at each ``fold_every`` multiple inside the horizon
     after any checkpoint saved there: a checkpoint on an epoch boundary
     holds the state before the fold, and a run resumed from it replays the
-    fold first. Returns ``(state, stats dict)``, the prefix in front."""
+    fold first. ``to_save(state)`` is what a checkpoint holds (the whole
+    swarm from a rank's rows), None where this process writes nothing.
+    Returns ``(state, stats dict)``, the prefix in front."""
     from tpu_gossip_torch.ckpt.store import save_checkpoint
 
     parts: list[dict] = []
@@ -102,9 +104,11 @@ def run_checkpointed(state, total_rounds: int, run_segment, *, policy: Checkpoin
         parts.append(seg_stats)
         cur += seg
         if policy is not None and every and cur % every == 0 and cur < total_rounds:
-            save_checkpoint(policy.directory, state, step=cur, shards=policy.shards,
-                            stats=concat_stats(parts, round_axis), run_config=policy.run_config,
-                            kind=policy.kind, keep=policy.keep, log=log)
+            saved = state if to_save is None else to_save(state)
+            if saved is not None:
+                save_checkpoint(policy.directory, saved, step=cur, shards=policy.shards,
+                                stats=concat_stats(parts, round_axis), run_config=policy.run_config,
+                                kind=policy.kind, keep=policy.keep, log=log)
         if fold is not None and fold_every and cur % fold_every == 0 and cur < total_rounds:
             state = fold(state)
     return state, concat_stats(parts, round_axis)

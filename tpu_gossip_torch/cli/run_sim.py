@@ -123,22 +123,23 @@ _LATER = (
     "and the bucketed sharded engine over the CSR graphs, churn and re-wiring "
     "included, and the sharded matching engine with the dense, sparse and auto transports, with "
     "checkpoints and resume, silent peers, fault scenarios, the quorum detector with its adversaries, "
-    "growth, streams, adaptive control, pipelined rounds, fleet campaigns and serving (a later slice adds the "
-    "multi-card exchange with --hosts and the hier transport (11c))"
+    "growth, streams, adaptive control, pipelined rounds, fleet campaigns and serving, the (hosts, devices) fold "
+    "with the hier transport, and static rounds over several processes (--coordinator); later slices add every "
+    "other plane over several processes (11d) and the analysis tier (14))"
 )
-_ITEM11C = "multi-process (ROADMAP item 11c)"
+_ITEM11D = "several processes (ROADMAP item 11d)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
-JAX_FLAG_DEFAULTS = {
-    "hosts": (1, _ITEM11C), "coordinator": ("", _ITEM11C),
-    "num_processes": (0, _ITEM11C), "process_id": (-1, _ITEM11C),
-}
+JAX_FLAG_DEFAULTS: dict = {}
 # layout facts a manifest records beside the args, and the JAX validators' extras
 _KNOWN_EXTRA = {"devices", "control_lo", "control_hi"}
-# port flags no manifest records: the JAX CLI has no --device, and a trace
-# directory is this process's
-_UNRECORDED = ("device", "profile")
+# port flags no manifest records: the JAX CLI has no --device or
+# --dist-backend, and a trace directory is this process's
+_UNRECORDED = ("device", "profile", "dist_backend")
+# where this process sits among the ranks: a manifest records their
+# defaults, as the checkpoint holds the whole swarm whoever wrote it
+_PLACEMENT = {"coordinator": "", "num_processes": 0, "process_id": -1}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,8 +193,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sharded-exchange transport (dist/transport.py): dense ships the rectangular exchange; "
                    "sparse gates each exchange on an occupancy header and ships the occupied entries (bucketed) "
                    "or leaf rows (matching, hubs on a dense sub-lane) compacted; auto is sparse only where the "
-                   "static geometry predicts a byte win; hier needs a host axis (ROADMAP item 11c). Bit-identical "
-                   "to dense in every mode. Requires --shard; the summary gains the realized occupancy and bytes")
+                   "static geometry predicts a byte win; hier is the two-level ICI/DCN transport (cluster/hier.py): "
+                   "dense inside each host row, compacted across the host axis, and needs --hosts H > 1. "
+                   "Bit-identical to dense in every mode. Requires --shard; the summary gains the realized occupancy "
+                   "and bytes (per axis under --hosts)")
+    p.add_argument("--hosts", type=int, default=1, metavar="H",
+                   help="fold the mesh into a 2-D (hosts, devices) cluster mesh (cluster/topology.py): the same "
+                   "shards in the same row-major order, so the trajectory is bit-identical to the flat mesh. H must "
+                   "divide the mesh size. Requires --shard; enables --transport hier and splits the summary's wire "
+                   "accounting into per-axis ici/dcn bytes. 1 = flat mesh (the default)")
+    p.add_argument("--coordinator", type=str, default="", metavar="ADDR",
+                   help="run as one rank of a torch.distributed process group (cluster/launch.py): ADDR is the "
+                   "rendezvous host:port; needs --num-processes and --process-id, and --hosts must equal "
+                   "--num-processes (one rank per host row, holding only its rows). Localhost launches go through "
+                   "`python -m tpu_gossip_torch.cluster.launch`")
+    p.add_argument("--num-processes", type=int, default=0, metavar="P",
+                   help="ranks of the process group (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=-1, metavar="I",
+                   help="this process's rank in [0, --num-processes) (with --coordinator)")
+    p.add_argument("--dist-backend", choices=["gloo", "nccl"], default="gloo",
+                   help="the process group's backend under --coordinator: nccl with a card a rank, gloo across CPU "
+                   "processes or ranks sharing a card (the launcher's --backend)")
     p.add_argument("--builder", choices=["local", "dist"], default="local",
                    help="the sharded matching layout's builder: local (matching_powerlaw_graph_sharded) or dist "
                    "(dist/builder.py: each shard derives its own blocks, bit-identical to the block-keyed local "
@@ -340,16 +360,71 @@ def validate(args: argparse.Namespace) -> str | None:
     ``grow_capacity``, ``slot_ttl``, the control bounds, the detector's
     window and budget) into ``args``."""
     spec = None
-    if args.transport == "hier":
-        from tpu_gossip_torch.sim.stages import not_ported
-
-        return str(not_ported("--transport hier (the two-level ICI/DCN transport of a (hosts, devices) mesh)",
-                              _ITEM11C))
+    err = _validate_cluster(args)
+    if err:
+        return err
     err = _scenario_refusal(args)
     if err is None and args.scenario:
         spec = _scenario_spec(args)
     return (err or _validate_grow(args, spec) or _validate_stream(args) or _validate_control(args)
             or _validate_liveness(args, spec) or _refusal(args))
+
+
+def _validate_cluster(args: argparse.Namespace) -> str | None:
+    """Impossible --hosts/--coordinator configs, in the JAX CLI's words
+    (its refusals of a run to coverage and of checkpoints under
+    --coordinator are lifted: the port reduces the coverage over the ranks
+    and writes the whole swarm from rank 0), then, under --coordinator,
+    every plane the multi-process rounds do not run yet (ROADMAP item
+    11d); the exit-2 reason or None."""
+    if args.hosts < 1:
+        return f"--hosts {args.hosts} must be >= 1"
+    if args.hosts > 1 and not args.shard:
+        return ("--hosts folds the SHARDED device mesh into a 2-D (hosts, devices) cluster mesh; add --shard (the "
+                "local engine has no mesh to fold)")
+    if args.hosts > 1 and args.remat_every > 0:
+        return ("--hosts cannot compose with --remat-every: the epoch re-partition rebuilds bucket tables for the "
+                "flat shard order only — run the remat loop on the flat mesh")
+    if args.transport == "hier" and args.hosts <= 1:
+        return ("--transport hier is the two-level ICI/DCN transport (dense inside each host slice, compacted across "
+                "the host axis); it needs a (hosts, devices) mesh — add --hosts H > 1")
+    if args.coordinator:
+        if args.num_processes < 2 or not (0 <= args.process_id < args.num_processes):
+            return ("--coordinator needs --num-processes P >= 2 and --process-id in [0, P) — one rank per process "
+                    "(cluster/launch.py spawns them)")
+        if args.hosts != args.num_processes:
+            return (f"--hosts {args.hosts} must equal --num-processes {args.num_processes}: the mesh's host axis is "
+                    "one row per process")
+        if args.profile:
+            return "--profile records a single process's trace; drop it"
+        return _multi_process_refusal(args)
+    if args.num_processes or args.process_id >= 0:
+        return "--num-processes/--process-id need --coordinator"
+    return None
+
+
+def _multi_process_refusal(args: argparse.Namespace) -> str | None:
+    """Under --coordinator: the planes the rank-local rounds do not run yet
+    exit 2 naming ROADMAP item 11d, before anything is built."""
+    from tpu_gossip_torch.sim.stages import not_ported
+
+    planes = [("--churn-leave/--churn-join (churn and re-wiring)", args.churn_leave > 0 or args.churn_join > 0),
+              ("--scenario (the fault plane)", bool(args.scenario)),
+              ("--silent-frac (silent peers)", args.silent_frac > 0),
+              ("--quorum-k (the quorum detector)", args.quorum_k is not None),
+              ("--grow (growth)", args.grow > 0), ("--stream (streams)", args.stream > 0),
+              ("--control (adaptive control)", args.control > 0),
+              ("--pipeline (pipelined rounds)", args.pipeline is not None),
+              ("--remat-every (the remat loops)", args.remat_every > 0),
+              ("--profile-round", args.profile_round > 0),
+              ("--builder dist", args.builder != "local")]
+    for what, on in planes:
+        if on:
+            return str(not_ported(f"{what} over several processes", _ITEM11D))
+    if not args.shard:
+        return ("--coordinator runs the SHARDED engines over several processes; add --shard (the local engine has "
+                "no mesh to split)")
+    return None
 
 
 def _refusal(args: argparse.Namespace) -> str | None:
@@ -728,17 +803,73 @@ def _run(args: argparse.Namespace, resume: "_Resume | None" = None) -> int:
     except RuntimeError as e:
         print(str(e), file=sys.stderr)
         return 2
+    if args.coordinator:
+        err = _join_cluster(args)
+        if err:
+            print(err, file=sys.stderr)
+            return 2
+    if args.shard and args.hosts > 1 and _mesh_size(args) % args.hosts:
+        print(f"--hosts {args.hosts} does not divide the device count {_mesh_size(args)} (the cluster mesh folds "
+              "the flat device order row-major into (hosts, devices))", file=sys.stderr)
+        return 2
     try:
         summary, fin = _execute(args, resume)
-    except NotImplementedError as e:  # a part of a later slice (not_ported), e.g. --shard on several cards
+    except NotImplementedError as e:  # a part of a later slice (not_ported)
         print(str(e), file=sys.stderr)
         return 2
-    print(json.dumps(summary))
-    if args.checkpoint and fin is not None:
-        from tpu_gossip_torch.core.state import save_swarm
+    if _rank() == 0:
+        print(json.dumps(summary))
+        if args.checkpoint and fin is not None:
+            from tpu_gossip_torch.core.state import save_swarm
 
-        save_swarm(args.checkpoint, fin)
+            save_swarm(args.checkpoint, fin)
     return 0
+
+
+def _rank() -> int:
+    from tpu_gossip_torch.cluster.topology import rank
+
+    return rank()
+
+
+def _join_cluster(args: argparse.Namespace) -> str | None:
+    """Join the process group as ``--process-id`` (the rank's first stderr
+    line names its backend and device); a rank other than 0 prints no rows
+    and no summary. The reason it cannot join (exit 2), or None."""
+    from tpu_gossip_torch.cluster.launch import SharedCardError, init_distributed, rank_device
+
+    _stderr_log(f"cluster: rank {args.process_id} of {args.num_processes}, backend {args.dist_backend}, device "
+                f"{rank_device(args.device, args.process_id)}, coordinator {args.coordinator}")
+    try:
+        args.device = init_distributed(args.coordinator, args.num_processes, args.process_id, args.dist_backend,
+                                       args.device)
+    except SharedCardError as e:
+        return f"cluster: rank {args.process_id}: {e}"
+    if args.process_id != 0:
+        args.quiet = True
+    return None
+
+
+def _cluster_mesh(args: argparse.Namespace, dev):
+    """The run's mesh: the flat mesh's shards folded into ``--hosts`` rows
+    (one a rank under --coordinator)."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.cluster import make_cluster_mesh
+
+    mesh = make_cluster_mesh(dist.make_mesh(device=dev).size, args.hosts, dev)
+    args._mesh = mesh
+    return mesh
+
+
+def _gathered(args: argparse.Namespace, state):
+    """The whole swarm from each rank's rows (the state itself in one
+    process)."""
+    mesh = getattr(args, "_mesh", None)
+    if mesh is None or mesh.world == 1 or state is None:
+        return state
+    from tpu_gossip_torch import dist
+
+    return dist.gather_swarm(state, mesh)
 
 
 @dataclasses.dataclass
@@ -774,7 +905,14 @@ def _main_resume(argv: list[str]) -> int:
     p.add_argument("--quiet", action="store_true", help="summary line only (overrides the recorded flag)")
     p.add_argument("--local", action="store_true",
                    help="restore a --shard --graph matching checkpoint into the local engine")
-    p.add_argument("--hosts", type=int, default=-1, metavar="H", help="re-fold a sharded run's mesh over H hosts")
+    p.add_argument("--hosts", type=int, default=-1, metavar="H",
+                   help="override the recorded --hosts: resume onto another (hosts, devices) fold of the same mesh "
+                   "(under --coordinator, one rank a host row), or 1 for the flat mesh")
+    p.add_argument("--coordinator", type=str, default="", metavar="ADDR",
+                   help="resume as one rank of a process group (the launcher's flags, as run_sim takes them)")
+    p.add_argument("--num-processes", type=int, default=0, metavar="P")
+    p.add_argument("--process-id", type=int, default=-1, metavar="I")
+    p.add_argument("--dist-backend", choices=["gloo", "nccl"], default="gloo")
     p.add_argument("--lane", type=int, default=-1, metavar="K", help="fleet checkpoints: resume lane K")
     p.add_argument("--solo", action="store_true", help="with --lane K: finish lane K unbatched")
     p.add_argument("--device", default="cuda", help="torch device the run finishes on (cuda or cpu)")
@@ -797,6 +935,10 @@ def _main_resume(argv: list[str]) -> int:
               "rebuilds the run from the manifest's `run` section", file=sys.stderr)
         return 2
     if manifest.get("kind") == "fleet":
+        if rargs.coordinator:
+            print(str(not_ported("resuming a fleet over several processes (--coordinator)", _ITEM11D)),
+                  file=sys.stderr)
+            return 2
         if rargs.local:
             print("resume: --local restores a sharded-matching RUN checkpoint; fleet checkpoints resume batched (or "
                   "one lane via --lane K --solo)", file=sys.stderr)
@@ -806,9 +948,8 @@ def _main_resume(argv: list[str]) -> int:
         print("resume: --lane/--solo select a fleet checkpoint's lane; this is a single-run checkpoint",
               file=sys.stderr)
         return 2
-    if rargs.hosts >= 1:
-        print(str(not_ported("run_sim resume --hosts (a sharded checkpoint re-folded over hosts)", _ITEM11C)),
-              file=sys.stderr)
+    if rargs.hosts >= 1 and not run_cfg.get("shard"):
+        print("resume: --hosts re-folds a SHARDED checkpoint's mesh; this run was local", file=sys.stderr)
         return 2
     if rargs.local and not (run_cfg.get("shard") and run_cfg.get("graph") == "matching"
                             and not run_cfg.get("remat_every")):
@@ -832,6 +973,15 @@ def _main_resume(argv: list[str]) -> int:
     args = argparse.Namespace(**{**base, **{k: v for k, v in run_cfg.items() if k in base}})
     args.device = rargs.device
     args._resume_local = rargs.local
+    args.coordinator, args.num_processes = rargs.coordinator, rargs.num_processes
+    args.process_id, args.dist_backend = rargs.process_id, rargs.dist_backend
+    if rargs.hosts >= 1:
+        args.hosts = rargs.hosts
+        if args.hosts == 1 and args.transport == "hier":
+            print("resume: the recorded --transport hier needs a host axis; continuing on the flat mesh with "
+                  "--transport sparse (trajectory unchanged — the transport reorders bytes, never draws)",
+                  file=sys.stderr)
+            args.transport = "sparse"
     if stale:
         print(f"resume: manifest records unknown args {sorted(stale)} (ignored beyond layout checks)",
               file=sys.stderr)
@@ -859,7 +1009,11 @@ def _main_fleet(argv: list[str]) -> int:
     from tpu_gossip_torch import fleet
     from tpu_gossip_torch.device import resolve_device
     from tpu_gossip_torch.faults import ScenarioError
+    from tpu_gossip_torch.sim.stages import not_ported
 
+    if "--coordinator" in argv:
+        print(str(not_ported("run_sim fleet over several processes (--coordinator)", _ITEM11D)), file=sys.stderr)
+        return 2
     p = argparse.ArgumentParser(prog="run_sim fleet", description="Monte Carlo certification campaigns")
     p.add_argument("campaign", help="campaign TOML (scenarios/campaigns/)")
     p.add_argument("--report", default="", metavar="PATH",
@@ -1110,9 +1264,10 @@ def _manifest_run_config(args: argparse.Namespace) -> dict:
     """The manifest's ``run`` section: every settled arg under the JAX
     CLI's name (the port's own --device and --profile left out), so either
     package's ``resume`` rebuilds the run."""
-    return {k: v for k, v in vars(args).items()
-            if not k.startswith("_") and k not in _UNRECORDED
-            and (v is None or isinstance(v, (str, int, float, bool)))}
+    out = {k: v for k, v in vars(args).items()
+           if not k.startswith("_") and k not in _UNRECORDED
+           and (v is None or isinstance(v, (str, int, float, bool)))}
+    return {**out, **_PLACEMENT}
 
 
 def _stderr_log(msg: str) -> None:
@@ -1165,6 +1320,15 @@ def _transport_summary(args: argparse.Namespace, ici=None, rounds: int = 0, grap
         "occupied": round(4 * tot["occupied_words"] / r, 1),
         "reduction_vs_dense": round(tot["dense_words"] / max(tot["shipped_words"], 1), 3),
     }
+    if args.hosts > 1:
+        # the per-axis split of the same totals: the dcn_* columns price the
+        # host axis, the rest is the intra-host remainder
+        dcn_d, dcn_s = tot["dcn_dense_words"], tot["dcn_shipped_words"]
+        ici_d, ici_s = tot["dense_words"] - dcn_d, tot["shipped_words"] - dcn_s
+        out["ici_bytes"] = {"dense": round(4 * ici_d / r, 1), "shipped": round(4 * ici_s / r, 1),
+                            "reduction_vs_dense": round(ici_d / max(ici_s, 1), 3)}
+        out["dcn_bytes"] = {"dense": round(4 * dcn_d / r, 1), "shipped": round(4 * dcn_s / r, 1),
+                            "reduction_vs_dense": round(dcn_d / max(dcn_s, 1), 3)}
     if graph is not None:
         from tpu_gossip_torch.core.matching_topology import MatchingPlan
 
@@ -1352,10 +1516,17 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
     # uninterrupted run, before a resumed state takes its place
     cap = remat_capacity(state, cfg) if args.remat_every > 0 and not args.shard else 0
     prefix = None
+    mesh = getattr(args, "_mesh", None)
     if resume is not None:
         shape = tuple(state.seen.shape)
+        if mesh is not None and mesh.world > 1:
+            shape = (shape[0] * mesh.world,) + shape[1:]
         del state
         state, prefix = _swap_in_resume(resume, shape, args, dev)
+        if mesh is not None and mesh.world > 1:
+            from tpu_gossip_torch import dist
+
+            state = dist.shard_swarm(state, mesh)
         if local and prefix is not None:
             # the local restore ships no ICI bytes: the byte accounting ends
             # at the crash (the trajectory's stats are the transport's own)
@@ -1376,6 +1547,7 @@ def _execute(args: argparse.Namespace, resume: _Resume | None = None):
         elif args.rounds > 0:
             fin, stats, ici, _wall = _run_checkpointed_horizon(args, state, segment, policy, prefix,
                                                                pack=args.packed)
+            fin = _gathered(args, fin)
             wire = extra.pop("_wire", None)
             summary = {**_horizon_summary(args, stats, **extra, **_scenario_summary(spec, stats),
                                           **_transport_summary(args, ici, args.rounds, wire),
@@ -1562,10 +1734,15 @@ def _run_checkpointed_horizon(args: argparse.Namespace, state, segment, policy, 
         st, s = segment(st, seg)
         return st, host_stats(*s) if type(s) is tuple else host_stats(s)  # (stats, ici) with a counter
 
+    def to_save(st):
+        # every rank joins the gather; rank 0 writes the whole swarm
+        whole = _gathered(args, st)
+        return whole if _rank() == 0 else None
+
     t0 = time.perf_counter()
     fin, sd = run_checkpointed(pack_state(state) if pack else state, args.rounds, seg_run, policy=policy,
                                stats_prefix=prefix, fold_every=args.remat_every if fold else 0, fold=fold,
-                               log=_stderr_log)
+                               log=_stderr_log, to_save=to_save)
     wall = time.perf_counter() - t0
     stats, ici = _split_host_stats(sd)
     if not args.quiet:
@@ -1697,7 +1874,7 @@ def _run_to_target(args: argparse.Namespace, cfg, state, to_target, extra: dict)
     from tpu_gossip_torch.sim import metrics as M
 
     def cov_run(st):
-        out = to_target(pack_state(st) if args.packed else st)
+        out = _gathered(args, to_target(pack_state(st) if args.packed else st))
         return unpack_state(out) if args.packed else out
 
     # a sharded run reports the real peer count, not the padded slot count
@@ -1766,20 +1943,22 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
     from tpu_gossip_torch.core import prng
     from tpu_gossip_torch.core.state import SwarmConfig
 
-    mesh = dist.make_mesh(device=dev)
+    mesh = _cluster_mesh(args, dev)
     gexists = None
     if args.grow:
         from tpu_gossip_torch.growth import pad_graph_for_growth
 
         graph, gexists = pad_graph_for_growth(graph, args.grow_capacity)
     sg, relabeled, position = dist.partition_graph(graph, mesh.size, seed=args.seed, device=dev)
-    transport = None if args.transport == "dense" else dist.build_transport(sg, mode=args.transport)
+    transport = None if args.transport == "dense" else dist.build_transport(sg, mode=args.transport,
+                                                                              hosts=args.hosts)
     cfg = SwarmConfig(n_peers=sg.n_pad, **cfg_kw)
-    plans = dist.build_shard_plans(sg) if args.staircase else None
+    plans = dist.shard_plans(dist.build_shard_plans(sg) if args.staircase else None, mesh)
     state = dist.init_sharded_swarm(sg, relabeled, position, cfg, key=prng.key(args.seed, dev), origins=origins,
                                     exists=gexists, device=dev)
     state.silent = _set_rows(state.silent, None if silent_ids is None else position[silent_ids])
     state = dist.shard_swarm(state, mesh)
+    held = dist.shard_graph(sg, mesh)
     scen = _compile_cli_scenario(spec, args, sg.n_pad, dev, node_map=lambda ids: position[np.asarray(ids)],
                                  shard_ranges=dist.shard_ranges(mesh.size, sg.per_shard, mesh=mesh),
                                  n_shards=mesh.size)
@@ -1788,11 +1967,11 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
     pipe = _compile_cli_pipeline(args)
 
     def run_horizon(st, rounds, ici):
-        return dist.simulate_dist(st, cfg, sg, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow,
+        return dist.simulate_dist(st, cfg, held, mesh, rounds, plans, scenario=scen, liveness=lqs, growth=grow,
                                   stream=strm, control=ctl, pipeline=pipe, transport=transport, collect_ici=ici)
 
     def to_target(st):
-        return dist.run_until_coverage_dist(st, cfg, sg, mesh, args.target, args.max_rounds, shard_plan=plans,
+        return dist.run_until_coverage_dist(st, cfg, held, mesh, args.target, args.max_rounds, shard_plan=plans,
                                             scenario=scen, liveness=lqs, growth=grow, control=ctl, pipeline=pipe,
                                             transport=transport)
 
@@ -1829,7 +2008,7 @@ def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_k
             print("note: the recorded --transport compacts MESH collectives; the local restore moves no ICI bytes "
                   "(trajectory unchanged — the transport reorders bytes, never draws)", file=sys.stderr)
     else:
-        mesh = dist.make_mesh(device=dev)
+        mesh = _cluster_mesh(args, dev)
         _check_resume_devices(resume, mesh.size)
         n_build = mesh.size
     grow_rows = -(-(args.grow_capacity - args.peers) // n_build) if args.grow else 0
@@ -1844,9 +2023,9 @@ def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_k
         dgraph, plan = matching_powerlaw_graph_sharded(args.peers, n_build, gamma=args.gamma, fanout=fanout, key=key,
                                                        growth_rows=grow_rows, block_keys=args.builder == "dist",
                                                        device=dev)
-    if not local:
-        plan = dist.shard_matching_plan(plan, mesh)
-    transport = (dist.build_transport(plan, mode=args.transport, mesh=mesh)
+    # the transport is built from the whole plan (its hub-ness pushed
+    # through the whole pipeline), then the plan is placed
+    transport = (dist.build_transport(plan, mode=args.transport, hosts=args.hosts, mesh=mesh)
                  if args.transport != "dense" and not local else None)
     cfg = SwarmConfig(n_peers=plan.n, **cfg_kw)
 
@@ -1858,12 +2037,15 @@ def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_k
     state = init_swarm(dgraph.as_padded_graph(), cfg, key=prng.key(args.seed, dev), origins=to_rows(origins),
                        exists=dgraph.exists, device=dev)
     state.silent = _set_rows(state.silent, None if silent_ids is None else to_rows(silent_ids))
-    if not local:
-        state = dist.shard_swarm(state, mesh)
     scen = _compile_cli_scenario(spec, args, plan.n, dev, node_map=to_rows,
                                  shard_ranges=dist.shard_ranges(n_build, plan.n_blk, mesh=mesh), n_shards=n_build)
     grow = _compile_cli_growth(args, spec, plan.n, dev, plan=plan)
     strm = _compile_cli_stream(args, to_rows(np.arange(args.peers)), dev)
+    if not local:
+        # each rank keeps its rows only: the whole plan and state go
+        state = dist.shard_swarm(state, mesh)
+        plan = dist.shard_matching_plan(plan, mesh)
+        del dgraph
     pipe = _compile_cli_pipeline(args)
     planes = dict(scenario=scen, liveness=lqs, growth=grow, stream=strm, control=ctl, pipeline=pipe)
 
@@ -1920,6 +2102,10 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
 def _validate_serve(args: argparse.Namespace) -> str | None:
     """The reason a serving config cannot run (exit 2, the JAX CLI's
     words), or None; the serving twin of :func:`_validate_stream`."""
+    if args.coordinator:
+        from tpu_gossip_torch.sim.stages import not_ported
+
+        return str(not_ported("run_sim serve over several processes (--coordinator)", _ITEM11D))
     if args.rounds <= 0:
         return ("serve runs a fixed horizon of round windows — pass --rounds R; run-to-coverage has no serving "
                 "window to batch arrivals into")

@@ -213,7 +213,9 @@ class MatchingPlan:
     marks slots that survived erasure; sampling gates are computed per
     round from ``deg_other``/``deg_real``. ``layout`` is the port's index
     view of ``classes``; ``route``, set on a plan a mesh round runs, makes
-    :meth:`partner` take the sharded passes."""
+    :meth:`partner` take the sharded passes. A process of a multi-process
+    mesh holds its shards' rows of every table, from shard ``shard_lo`` on,
+    with ``n``, ``rows``, ``classes`` and ``layout`` its own."""
 
     lanes: tuple
     m3: torch.Tensor
@@ -232,6 +234,14 @@ class MatchingPlan:
     local_classes: tuple = ()
     layout: ClassLayout | None = dataclasses.field(default=None, compare=False, repr=False)
     route: MeshRoute | None = dataclasses.field(default=None, compare=False, repr=False)
+    shard_lo: int = 0
+
+    @property
+    def draw_offset(self) -> int:
+        """Where this plan's slots sit in the global (S·per_rows, 128) draw:
+        0 unless a process holds the shards from ``shard_lo`` on
+        (``dist/matching_mesh.py::shard_matching_plan``)."""
+        return self.shard_lo * self.per_rows * 128
 
     def with_fanout(self, fanout: int) -> "MatchingPlan":
         """Rebind the sampling fanout (gates are computed per round)."""
@@ -265,8 +275,14 @@ class MatchingPlan:
         if self.route is None:
             return apply_pipeline(x, self.stages)
         tr = self.route.transport
+        if tr is not None and tr.hier:
+            from tpu_gossip_torch.cluster.hier import apply_pipeline_hier
+            from tpu_gossip_torch.dist.transport import hier_take
+
+            return apply_pipeline_hier(x, self.stages, tr.hosts, self.mesh_shards, self.per_rows, tr.dcn_budget,
+                                       hier_take(x, tr))
         lanes = None if tr is None else tr.lanes(*tr.gates(x))
-        return apply_pipeline(x, self.stages, n_shards=self.mesh_shards, lanes=lanes)
+        return apply_pipeline(x, self.stages, n_shards=self.mesh_shards, lanes=lanes, per=self.per_rows)
 
     def expand(self, x_n: torch.Tensor) -> torch.Tensor:
         """Broadcast per-node values (n,) onto slots (R, 128)."""

@@ -8,9 +8,12 @@ epoch re-partition after a CSR fold included), the sharded matching engine
 transpose, bit-identical to the local matching round), the dense, sparse
 and auto transports with their analytic ICI counters
 (``dist/transport.py``) and the distributed matching builder
-(``dist/builder.py``). The mesh is S shards in one process on one device;
-the multi-process exchange and the hierarchical transport are ROADMAP
-item 11c.
+(``dist/builder.py``). The mesh (``cluster/topology.py``) is S shards
+folded into (hosts, devices) rows: all S stacked in one process, or one
+host row a process under ``torch.distributed``, each process holding only
+its rows (:func:`shard_graph`, :func:`shard_plans`, :func:`shard_swarm`,
+:func:`shard_matching_plan`; :func:`gather_swarm` joins them), with the
+hierarchical transport's two-level exchange (``cluster/hier.py``).
 """
 
 from tpu_gossip_torch.dist.builder import matching_powerlaw_graph_dist
@@ -20,15 +23,19 @@ from tpu_gossip_torch.dist.mesh import (
     ShardedGraph,
     ShardPlans,
     build_shard_plans,
+    gather_swarm,
     gossip_round_dist,
     init_sharded_swarm,
     make_mesh,
     partition_graph,
     repartition_swarm,
     run_until_coverage_dist,
+    shard_graph,
+    shard_plans,
     shard_ranges,
     shard_swarm,
     simulate_dist,
+    swarm_coverage,
 )
 from tpu_gossip_torch.dist.transport import IciRound, IciTotals, Transport, build_transport
 
@@ -41,6 +48,7 @@ __all__ = [
     "Transport",
     "build_shard_plans",
     "build_transport",
+    "gather_swarm",
     "gossip_round_dist",
     "gossip_round_dist_matching",
     "init_sharded_swarm",
@@ -50,7 +58,10 @@ __all__ = [
     "repartition_swarm",
     "run_until_coverage_dist",
     "shard_matching_plan",
+    "shard_graph",
+    "shard_plans",
     "shard_ranges",
     "shard_swarm",
     "simulate_dist",
+    "swarm_coverage",
 ]

@@ -21,7 +21,15 @@ engine's round (``sim.engine.gossip_round``) on the plan with a
 The gates are the local engine's, drawn at the plan's global (R, 128)
 shape, so a mesh round equals the local round on the same plan bit for
 bit, under every plane the round composes. The packed round hands the
-pipeline the state's uint8 words directly.
+pipeline the state's uint8 words directly. Under the hier transport each
+transpose runs two-level (``cluster/hier.py``).
+
+Under ``torch.distributed`` a process holds only its D shards' rows
+(:func:`shard_matching_plan`): its ``D·per_rows`` slot rows of every lane
+table, ``valid`` and the degree tables, its ``D·n_blk`` state rows and the
+class table over them. Its gates are its rows' block of the global draw
+(``prng.bits``'s counter offset), its expand and reduce run over its own
+class table, and the transposes cross the process group.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ def dense_wire_words(plan: MatchingPlan, m: int, mode: str, forward_once: bool =
     if mode not in ("push", "push_pull", "flood"):
         raise ValueError(f"unknown mode {mode!r}")
     apps = 2 if (mode == "push_pull" and forward_once) else 1
-    return apps * groups * n_stages * matching_dense_stage_words(plan.rows)
+    return apps * groups * n_stages * matching_dense_stage_words(plan.mesh_shards * plan.per_rows)
 
 
 def _check_layout(plan: MatchingPlan, mesh) -> None:
@@ -61,8 +69,12 @@ def _check_layout(plan: MatchingPlan, mesh) -> None:
 
 def shard_matching_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
     """The plan placed on the mesh: every table (its shard blocks stacked)
-    and the class layout on the mesh's device."""
+    and the class layout on the mesh's device. On a multi-process mesh the
+    process keeps its shards' rows of each table and a class layout of its
+    own over its state rows."""
     _check_layout(plan, mesh)
+    if mesh.world > 1:
+        return _held_plan(plan, mesh)
 
     def put(t):
         return None if t is None else t.to(mesh.device)
@@ -77,6 +89,24 @@ def shard_matching_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
     )
 
 
+def _held_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
+    from tpu_gossip_torch.core.matching_topology import class_layout
+
+    lo, held, per, blk = mesh.lo, mesh.local, plan.per_rows, plan.n_blk
+    rows, nodes = slice(lo * per, (lo + held) * per), slice(lo * blk, (lo + held) * blk)
+
+    def put(t, part):
+        return None if t is None else t[part].to(mesh.device)
+
+    classes = tuple((sh * blk + no, sh * per * 128 + so, c, pd, cs)
+                    for sh in range(held) for (no, so, c, pd, cs) in plan.local_classes)
+    return dataclasses.replace(
+        plan, lanes=tuple(put(t, rows) for t in plan.lanes), m3=put(plan.m3, rows),
+        lanes_inv=tuple(put(t, rows) for t in plan.lanes_inv), valid=put(plan.valid, rows),
+        deg_other=put(plan.deg_other, rows), deg_real=put(plan.deg_real, nodes), n=held * blk, rows=held * per,
+        classes=classes, layout=class_layout(classes, held * per, held * blk, mesh.device), shard_lo=lo)
+
+
 def _routed(plan: MatchingPlan, transport) -> MatchingPlan:
     """The plan with its mesh route: the sharded passes, gated by the
     transport when it is active."""
@@ -89,6 +119,9 @@ def _routed(plan: MatchingPlan, transport) -> MatchingPlan:
 
 def _check_round(state, cfg, plan: MatchingPlan, mesh) -> None:
     _check_layout(plan, mesh)
+    if plan.rows != mesh.local * plan.per_rows:
+        raise ValueError(f"the plan holds {plan.rows} slot rows but this process holds {mesh.local} shards of "
+                         f"{plan.per_rows}: shard_matching_plan(plan, mesh)")
     if state.seen.device != mesh.device:
         raise ValueError(f"state lies on {state.seen.device} but the mesh is on {mesh.device}: shard_swarm it")
     if cfg.mode in ("push", "push_pull"):
@@ -111,13 +144,15 @@ def gossip_round_dist_matching(state, cfg, plan: MatchingPlan, mesh, *, transpor
     from tpu_gossip_torch.sim.engine import gossip_round
 
     _check_round(state, cfg, plan, mesh)
+    if transport is not None:
+        transport.check_hosts(mesh)
     out = gossip_round(state, cfg, _routed(plan, transport), **planes)
     if not collect_ici:
         return out
-    return (*out, _round_ici(state, cfg, plan, transport, planes.get("scenario")))
+    return (*out, _round_ici(state, cfg, plan, transport, planes.get("scenario"), mesh))
 
 
-def _round_ici(state, cfg, plan, transport, scenario):
+def _round_ici(state, cfg, plan, transport, scenario, mesh):
     """The counter charges the round's issued exchange: the bool round's
     effective planes, or the packed head's words with liveness=None (the
     counter's fault-free model reads transmit without the quarantine
@@ -126,7 +161,7 @@ def _round_ici(state, cfg, plan, transport, scenario):
         from tpu_gossip_torch.sim.stages import effective_transmit_planes
 
         tx_eff, transmitter, receptive = effective_transmit_planes(state, cfg, scenario)
-        return _ici_matching(state, cfg, plan, transport, tx_eff, transmitter, receptive)
+        return _ici_matching(state, cfg, plan, transport, tx_eff, transmitter, receptive, mesh)
     from tpu_gossip_torch.sim.packed_engine import _decode_flags, packed_round_head
 
     m = cfg.msg_slots
@@ -137,18 +172,18 @@ def _round_ici(state, cfg, plan, transport, scenario):
         tx_w = po.mask_rows(tx_w, ~rf.blackout)
     role_b = unpack_bits(role_w, m)
     shim = types.SimpleNamespace(seen=unpack_bits(state.seen, m), rewired=flags["rewired"])
-    return _ici_matching(shim, cfg, plan, transport, unpack_bits(tx_w, m), role_b, role_b)
+    return _ici_matching(shim, cfg, plan, transport, unpack_bits(tx_w, m), role_b, role_b, mesh)
 
 
-def _ici_matching(state, cfg, plan, transport, transmit, transmitter, receptive):
+def _ici_matching(state, cfg, plan, transport, transmit, transmitter, receptive, mesh):
     """The analytic counter's view of one matching round: the plane masks
     the exchange is fed (fault-free single-pass model)."""
     from tpu_gossip_torch.dist.transport import ici_round_matching
     from tpu_gossip_torch.sim.engine import kernel_path_masks
 
     if cfg.mode == "flood":
-        return ici_round_matching(plan, transport, cfg.msg_slots, transmit, None)
+        return ici_round_matching(plan, transport, cfg.msg_slots, transmit, None, mesh.hosts)
     tx, answer, _ = kernel_path_masks(state, cfg, transmit, transmitter, receptive)
     if cfg.mode != "push_pull":
         answer = None  # the pull direction never runs
-    return ici_round_matching(plan, transport, cfg.msg_slots, tx, answer)
+    return ici_round_matching(plan, transport, cfg.msg_slots, tx, answer, mesh.hosts)

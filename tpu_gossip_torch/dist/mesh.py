@@ -43,8 +43,19 @@ the local engine does. ``transport`` (``dist/transport.py``) moves a
 round's exchange through the compact lane wherever its header proves the
 budget holds, and ``collect_ici`` appends the round's analytic ICI word
 counters. A ``MatchingPlan`` in place of the graph runs the sharded
-matching engine (``dist/matching_mesh.py``). The exchange over NCCL with
-one process per card and the hierarchical transport are ROADMAP item 11c.
+matching engine (``dist/matching_mesh.py``).
+
+The mesh (``cluster/topology.py::Mesh``) folds its shards into (hosts,
+devices) rows. A ``hier`` transport runs the exchange in two stages, the
+device stage inside each host row and the compacted host stage between
+rows (``cluster/hier.py``). Under ``torch.distributed`` each process is one
+host row and holds only its rows of every table and plane
+(:func:`shard_graph`, :func:`shard_plans`, :func:`shard_swarm`): the
+exchange crosses the process group, a shard's draws come from its own key
+as before, and the whole-swarm numbers (the round's stats, the coverage,
+the lane gates, the ICI counters) are summed or maximised over the
+processes, so every process carries the same stats. :func:`gather_swarm`
+joins the rows again.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import zlib
 import numpy as np
 import torch
 
+from tpu_gossip_torch.cluster.topology import Mesh, exchange_blocks, local_shards, reduce_max, reduce_sum, world
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.packed import is_packed, pack_bits, packed_width, unpack_bits, words8_to_words32
@@ -75,7 +87,12 @@ __all__ = [
     "partition_graph",
     "build_shard_plans",
     "init_sharded_swarm",
+    "shard_graph",
+    "shard_plans",
     "shard_swarm",
+    "gather_swarm",
+    "reduce_stats",
+    "swarm_coverage",
     "repartition_swarm",
     "shard_ranges",
     "gossip_round_dist",
@@ -85,36 +102,21 @@ __all__ = [
     "all_to_all",
 ]
 
-LATER = "multi-device exchange (ROADMAP item 11c)"  # the slice that brings one process per card
-
-
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """S shards of the peer axis in one process, on one device."""
-
-    n_shards: int
-    device: torch.device
-
-    @property
-    def size(self) -> int:
-        return self.n_shards
-
-
 def make_mesh(n_shards: int | None = None, device: str | torch.device = "cuda") -> Mesh:
-    """A mesh of ``n_shards`` shards on ``device``. ``None`` is one shard
-    per visible card (one on the CPU); with several cards that is the
-    multi-process mesh of a later slice, which raises rather than stacking
-    the shards on one card."""
+    """A flat mesh of ``n_shards`` shards on ``device``. ``None`` is
+    :func:`~tpu_gossip_torch.cluster.topology.local_shards` shards a
+    process (one unless the launcher says otherwise) over every process of
+    the ``torch.distributed`` group; several processes make one host row
+    each."""
+    from tpu_gossip_torch.cluster.topology import make_cluster_mesh
+
     dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    w = world()
     if n_shards is None:
-        if dev.type == "cuda" and torch.cuda.device_count() > 1:
-            raise not_ported("a mesh over several cards (one process per card)", LATER)
-        n_shards = 1
+        n_shards = local_shards() * w
     if n_shards < 1:
         raise ValueError(f"n_shards must be positive, got {n_shards}")
-    return Mesh(n_shards=n_shards, device=dev)
+    return make_cluster_mesh(n_shards, hosts=w, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +141,12 @@ class ShardedGraph:
     per_shard: int
     bucket: int
     fingerprint: int = 0
+    shard_lo: int = 0
+
+    @property
+    def stacked(self) -> int:
+        """Shards whose tables this process holds."""
+        return int(self.send_src.shape[0])
 
 
 def _host(a) -> np.ndarray:
@@ -248,8 +256,12 @@ def build_shard_plans(sg: ShardedGraph, *, rows: int = 1024) -> ShardPlans:
     graph's tables, placed where the graph lies. Each received run is
     destination-sorted and window-aligned (:func:`partition_graph`), so a
     plan is bookkeeping: a window shared by two blocks gives two tiles with
-    complementary ``offs`` masks."""
+    complementary ``offs`` masks. Built from every shard's tables (a
+    process's own, :func:`shard_plans`, are cut from them)."""
     s, b, per = sg.n_shards, sg.bucket, sg.per_shard
+    if sg.stacked != s:
+        raise ValueError("build_shard_plans reads every shard's send tables: build the plans from the whole "
+                         "partition, then shard_plans(plans, mesh)")
     if b % TILE != 0:
         raise ValueError(f"bucket capacity {b} is not window-aligned: partition the graph with "
                          f"partition_graph(..., window={TILE}) (the default)")
@@ -388,13 +400,111 @@ def shard_ranges(n_shards: int, block: int, mesh: Mesh | None = None) -> list[tu
     return [(s * block, (s + 1) * block) for s in range(n_shards)]
 
 
+def _rows_of(mesh: Mesh, n_rows: int) -> slice:
+    """This process's rows of an ``n_rows`` plane laid out in ``mesh.size``
+    equal shard blocks."""
+    blk = n_rows // mesh.size
+    return slice(mesh.lo * blk, (mesh.lo + mesh.local) * blk)
+
+
+# the fields every process holds whole: the CSR, the per-slot leases, the
+# controller's level, the key and the round; every other field is a
+# per-peer plane, split into the processes' row blocks
+_WHOLE_FIELDS = frozenset({"row_ptr", "col_idx", "slot_lease", "control_lvl", "rng", "round"})
+
+
+def _per_peer_fields(state) -> list[str]:
+    return [f.name for f in dataclasses.fields(state)
+            if f.name not in _WHOLE_FIELDS and isinstance(getattr(state, f.name), torch.Tensor)]
+
+
 def shard_swarm(state, mesh: Mesh):
-    """The state (SwarmState or PackedSwarm) with every tensor on the
-    mesh's device; the shards are row ranges of ``per_shard`` rows."""
-    return dataclasses.replace(state, **{
-        f.name: getattr(state, f.name).to(mesh.device)
-        for f in dataclasses.fields(state) if isinstance(getattr(state, f.name), torch.Tensor)
-    })
+    """The state (SwarmState or PackedSwarm) on the mesh's device; the
+    shards are row ranges of ``per_shard`` rows. On a multi-process mesh
+    each per-peer plane keeps this process's rows only (the CSR, the key
+    and the per-slot planes stay whole, as the JAX package replicates
+    them)."""
+    n = int(state.seen.shape[0])
+    rows = _rows_of(mesh, n) if mesh.world > 1 else slice(None)
+    planes = {name: getattr(state, name)[rows] for name in _per_peer_fields(state)}
+    planes.update({name: getattr(state, name) for name in _WHOLE_FIELDS})
+    return dataclasses.replace(state, **{name: x.to(mesh.device) for name, x in planes.items()})
+
+
+def gather_swarm(state, mesh: Mesh):
+    """The whole state on every process from each one's rows (the inverse
+    of :func:`shard_swarm`, the JAX CLI's ``_gather_global``); the state
+    itself on a one-process mesh."""
+    if mesh.world == 1:
+        return state
+    from tpu_gossip_torch.cluster.topology import gather_rows
+
+    return dataclasses.replace(state, **{name: gather_rows(getattr(state, name)) for name in _per_peer_fields(state)})
+
+
+def shard_graph(sg: ShardedGraph, mesh: Mesh) -> ShardedGraph:
+    """The routing tables on the mesh's device; on a multi-process mesh
+    each process keeps its shards' rows: its (D, S, B) send and receive
+    tables and its rows of ``deg``."""
+    if sg.n_shards != mesh.size:
+        raise ValueError(f"graph partitioned for {sg.n_shards} shards but the mesh has {mesh.size}")
+    mine = slice(mesh.lo, mesh.lo + mesh.local) if mesh.world > 1 else slice(None)
+
+    def put(t):
+        return t[mine].to(mesh.device)
+
+    return dataclasses.replace(
+        sg, send_src=put(sg.send_src), recv_dst=put(sg.recv_dst), send_valid=put(sg.send_valid),
+        send_dst_deg=put(sg.send_dst_deg), send_src_deg=put(sg.send_src_deg),
+        deg=sg.deg[_rows_of(mesh, sg.n_pad) if mesh.world > 1 else slice(None)].to(mesh.device),
+        shard_lo=mesh.lo if mesh.world > 1 else 0)
+
+
+def shard_plans(plans: ShardPlans | None, mesh: Mesh) -> ShardPlans | None:
+    """K6's plans on the mesh's device; on a multi-process mesh each
+    process keeps its shards' plans."""
+    if plans is None:
+        return None
+    mine = slice(mesh.lo, mesh.lo + mesh.local) if mesh.world > 1 else slice(None)
+    return dataclasses.replace(plans, tile_block=plans.tile_block[mine].to(mesh.device),
+                               offs=plans.offs[mine].to(mesh.device), window_idx=plans.window_idx[mine].to(mesh.device))
+
+
+def swarm_coverage(state, slot: int = 0) -> torch.Tensor:
+    """``state.coverage(slot)`` over the whole swarm: on a process of a
+    multi-process mesh from the two counts summed over the processes (the
+    same float32 ratio of the same integers)."""
+    if world() == 1:
+        return state.coverage(slot)
+    from tpu_gossip_torch.core.packed import bit_column, is_packed, unpack_flag
+
+    if is_packed(state):
+        live = unpack_flag(state.flags, "alive") & ~unpack_flag(state.flags, "declared_dead")
+        seen = bit_column(state.seen, slot)
+    else:
+        live = state.alive & ~state.declared_dead
+        seen = state.seen[:, slot]
+    hit, n_live = reduce_sum(torch.stack([(seen & live).sum(), live.sum()])).tolist()
+    return torch.tensor(hit, dtype=torch.float32) / torch.tensor(max(n_live, 1), dtype=torch.float32)
+
+
+# the RoundStats columns a process counts over its own rows (the static
+# round's; every other plane under several processes is ROADMAP item 11d)
+_ROW_SUMS = ("msgs_sent", "n_infected", "n_alive", "n_declared_dead", "n_members")
+
+
+def reduce_stats(stats):
+    """A round's RoundStats over the whole swarm: on a process of a
+    multi-process mesh its row counts summed over the processes and the
+    coverage taken from the sums, as ``SwarmState.coverage`` takes it."""
+    if world() == 1:
+        return stats
+    tot = reduce_sum(torch.stack([getattr(stats, f).to(torch.int64) for f in _ROW_SUMS])).tolist()
+    dev = stats.coverage.device
+    sums = {f: torch.tensor(v, dtype=torch.int32, device=dev) for f, v in zip(_ROW_SUMS, tot)}
+    cov = (torch.tensor(sums["n_infected"].item(), dtype=torch.float32)
+           / torch.tensor(max(sums["n_alive"].item(), 1), dtype=torch.float32))
+    return stats._replace(coverage=cov.to(dev), **sums)
 
 
 # ------------------------------------------------------------ the exchange
@@ -403,6 +513,12 @@ def shard_swarm(state, mesh: Mesh):
 def _uniform_rows(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """Shard s's ``uniform(keys[s], shape)``, stacked along a leading S axis."""
     return torch.stack([prng.uniform(k, shape) for k in keys])
+
+
+def shard_keys(sg: ShardedGraph, key: torch.Tensor) -> torch.Tensor:
+    """One key a shard, ``split(key, S)``, for the shards whose tables
+    ``sg`` holds."""
+    return prng.split(key, sg.n_shards)[sg.shard_lo: sg.shard_lo + sg.stacked]
 
 
 def activation(sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout, pull_gate=None):
@@ -434,8 +550,8 @@ def activation(sg: ShardedGraph, keys: torch.Tensor, kind: str, fanout, pull_gat
 
 
 def _shard_base(sg: ShardedGraph, device) -> torch.Tensor:
-    """(S, 1, 1) int64 first row of each shard."""
-    return (torch.arange(sg.n_shards, dtype=torch.int64, device=device) * sg.per_shard).view(-1, 1, 1)
+    """(S, 1, 1) int64 first row of each shard held, in the held rows."""
+    return (torch.arange(sg.stacked, dtype=torch.int64, device=device) * sg.per_shard).view(-1, 1, 1)
 
 
 def payload_words(transmit: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
@@ -457,8 +573,19 @@ def send_payload(vals: torch.Tensor, active: torch.Tensor, acts) -> torch.Tensor
 
 
 def all_to_all(payload: torch.Tensor) -> torch.Tensor:
-    """The exchange: shard d receives ``received[d, s] = payload[s, d]``."""
-    return payload.transpose(0, 1).contiguous()
+    """The exchange: shard d receives ``received[d, s] = payload[s, d]``.
+    ``payload`` is (L_src, G_dst, ...): the L of G shards (or hosts) this
+    process holds, each with one block a destination; the result is (L_dst,
+    G_src, ...). With all G held it is the stacked transpose; else the G / L
+    processes each send their (L, G, ...) block laid out by destination
+    process (``cluster.topology.exchange_blocks``)."""
+    l, g = payload.shape[:2]
+    if l == g:
+        return payload.transpose(0, 1).contiguous()
+    rest = tuple(payload.shape[2:])
+    send = payload.reshape(l, g // l, l, *rest).transpose(0, 1)  # (W_dst, L_src, L_dst, ...)
+    recv = exchange_blocks(send)  # (W_src, L_src, L_dst, ...)
+    return recv.permute(2, 0, 1, *range(3, recv.dim())).reshape(l, g, *rest).contiguous()
 
 
 def bill(received: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -477,14 +604,14 @@ def receive(received: torch.Tensor, sg: ShardedGraph, shard_plan, m: int) -> tor
     into its destination row. With a plan through K6, one launch per shard
     and 32-slot group over the shard's flat result; without one, the
     scatter OR (``index_add_`` of the bits, tested against zero)."""
-    s, b, per = sg.n_shards, sg.bucket, sg.per_shard
+    s, b, per, held = sg.n_shards, sg.bucket, sg.per_shard, sg.stacked
     if shard_plan is None:
         bits = unpack_bits(received, m).reshape(-1, m).to(torch.int32)
         rows = (sg.recv_dst.to(torch.int64) + _shard_base(sg, received.device)).view(-1)
-        hits = torch.zeros((s * per, m), dtype=torch.int32, device=received.device)
+        hits = torch.zeros((held * per, m), dtype=torch.int32, device=received.device)
         return hits.index_add_(0, rows, bits) > 0
     out = []
-    for d in range(s):
+    for d in range(held):
         flat32 = words8_to_words32(received[d]).reshape(s * b, -1)
         groups = [
             unpack_words(stream_segment_or(shard_plan.tile_block[d], shard_plan.window_idx[d],
@@ -493,7 +620,7 @@ def receive(received: torch.Tensor, sg: ShardedGraph, shard_plan, m: int) -> tor
             for gi, (_, width) in enumerate(_slot_groups(m))
         ]
         out.append(groups[0] if len(groups) == 1 else torch.cat(groups, dim=1))
-    return out[0] if s == 1 else torch.cat(out)
+    return out[0] if held == 1 else torch.cat(out)
 
 
 def _received_rows(sg: ShardedGraph, rows: torch.Tensor, device) -> torch.Tensor:
@@ -547,11 +674,11 @@ def _compact_exchange(payload: torch.Tensor, occ: torch.Tensor, cap: int) -> tor
     and scattered back into the dense receive buffer the dense lane gives."""
     from tpu_gossip_torch.dist.transport import compact_index, gather_compact, scatter_compact
 
-    s, _, b = occ.shape
-    idx = compact_index(occ.reshape(s * s, b), cap)
-    cvals = gather_compact(payload.reshape((s * s, b) + tuple(payload.shape[3:])), idx)
-    idx_r = all_to_all(idx.view(s, s, cap)).view(s * s, cap)
-    cvals_r = all_to_all(cvals.view((s, s, cap) + tuple(cvals.shape[2:]))).view(cvals.shape)
+    l, g, b = occ.shape
+    idx = compact_index(occ.reshape(l * g, b), cap)
+    cvals = gather_compact(payload.reshape((l * g, b) + tuple(payload.shape[3:])), idx)
+    idx_r = all_to_all(idx.view(l, g, cap)).view(l * g, cap)
+    cvals_r = all_to_all(cvals.view((l, g, cap) + tuple(cvals.shape[2:]))).view(cvals.shape)
     return scatter_compact(idx_r, cvals_r, b).view(payload.shape)
 
 
@@ -574,9 +701,18 @@ def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind
     active, acts = activation(sg, keys, kind, fanout, None if rctl is None else rctl.pull_on)
     vals = payload_words(transmit, sg)
     payload = send_payload(vals, active, acts)
-    if transport is not None and transport.active:
+    if transport is not None and transport.hier:
+        from tpu_gossip_torch.cluster.hier import bucketed_hier_exchange
+
+        # pre-activation occupancy; each post-device-stage row's count is a
+        # host's entries for one destination shard, maximised everywhere
         occ = sg.send_valid & (vals != 0).any(-1)
-        fits = bool(occ.sum(-1).max() <= transport.budget)
+        hrow = occ.sum(-1).view(-1, sg.n_shards // transport.hosts, sg.n_shards).sum(1)
+        fits = bool(reduce_max(hrow.max()) <= transport.dcn_budget)
+        received = bucketed_hier_exchange(payload, transport.hosts, transport.dcn_budget, fits, w)
+    elif transport is not None and transport.active:
+        occ = sg.send_valid & (vals != 0).any(-1)
+        fits = bool(reduce_max(occ.sum(-1).max()) <= transport.budget)
         received = _compact_exchange(payload, occ, transport.budget) if fits else all_to_all(payload)
     else:
         received = all_to_all(payload)
@@ -604,7 +740,6 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
     sated puller's pull exchange drops its deliveries like a stale edge's,
     and the pull requests are billed only where the pull half runs and
     only for needy rows."""
-    s = sg.n_shards
     k_push, k_rw_push = prng.split(k_push)
     k_pull, k_rw_pull = prng.split(k_pull)
     rewiring = cfg.rewire_slots > 0 and cfg.mode in ("push", "push_pull")
@@ -625,11 +760,11 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
         if rctl is not None:
             pulls = torch.where(rctl.pull_on, pulls, 0)
     if merged:
-        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push_pull", cfg.fanout, shard_plan, blocked,
+        inc, sent = _exchange(static_tx, sg, shard_keys(sg, k_push), "push_pull", cfg.fanout, shard_plan, blocked,
                               rctl, transport)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode in ("push", "push_pull") and not merged:
-        inc, sent = _exchange(static_tx, sg, prng.split(k_push, s), "push", cfg.fanout, shard_plan, blocked, rctl,
+        inc, sent = _exchange(static_tx, sg, shard_keys(sg, k_push), "push", cfg.fanout, shard_plan, blocked, rctl,
                               transport)
         incoming, msgs = incoming | inc, msgs + sent
     if cfg.mode == "push_pull" and not merged:
@@ -637,7 +772,7 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
         pull_blocked = blocked
         if needy is not None:
             pull_blocked = ~needy if blocked is None else blocked | ~needy
-        inc, sent = _exchange(static_answer, sg, prng.split(k_pull, s), "pull", cfg.fanout, shard_plan,
+        inc, sent = _exchange(static_answer, sg, shard_keys(sg, k_pull), "pull", cfg.fanout, shard_plan,
                               pull_blocked, rctl, transport)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode == "flood":
@@ -673,12 +808,16 @@ def _check_round(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, transport)
     if sg.n_shards != mesh.size:
         raise ValueError(f"graph partitioned for {sg.n_shards} shards but the mesh has {mesh.size}: "
                          f"repartition with partition_graph(g, {mesh.size})")
+    if sg.stacked != mesh.local:
+        raise ValueError(f"the graph's tables hold {sg.stacked} shards but this process holds {mesh.local}: "
+                         "shard_graph(sg, mesh)")
     if state.seen.device != mesh.device:
         raise ValueError(f"state lies on {state.seen.device} but the mesh is on {mesh.device}: shard_swarm it")
     if shard_plan is not None:
         shard_plan.check_matches(sg)
     if transport is not None:
         transport.check_matches_graph(sg)
+        transport.check_hosts(mesh)
 
 
 def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: ShardPlans | None = None, *,
@@ -712,8 +851,15 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: Shard
                              "scatter to replace — pass shard_plan=None")
         from tpu_gossip_torch.dist.matching_mesh import gossip_round_dist_matching
 
-        return gossip_round_dist_matching(state, cfg, sg, mesh, transport=transport, collect_ici=collect_ici,
-                                          **planes)
+        out = gossip_round_dist_matching(state, cfg, sg, mesh, transport=transport, collect_ici=collect_ici,
+                                         **planes)
+    else:
+        out = _gossip_round_bucketed(state, cfg, sg, mesh, shard_plan, transport, collect_ici, planes)
+    return (out[0], reduce_stats(out[1]), *out[2:])
+
+
+def _gossip_round_bucketed(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, transport, collect_ici: bool,
+                           planes: dict):
     _check_round(state, cfg, sg, mesh, shard_plan, transport)
     if planes.get("inject") is not None:
         raise not_ported("the inject argument on the bucketed sharded engine (run_sim serve --shard runs the "
@@ -734,7 +880,9 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: Shard
             return deliver
 
         out = run_protocol_round_packed(state, cfg, deliver_words, deliver_bool_factory, **planes)
-        return (*out, _ici_bucketed_packed(state, cfg, sg, transport, planes.get("scenario"))) if collect_ici else out
+        if not collect_ici:
+            return out
+        return (*out, _ici_bucketed_packed(state, cfg, sg, transport, planes.get("scenario"), mesh))
 
     def disseminate(tx, tr, rc, kp, kq, rctl):
         return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport)
@@ -746,10 +894,10 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: Shard
 
     # the fault-free single-pass model on the round's issued (post-blackout) plane
     tx_eff, transmitter, _ = effective_transmit_planes(state, cfg, planes.get("scenario"))
-    return (*out, _ici_bucketed(state, cfg, sg, transport, tx_eff, transmitter))
+    return (*out, _ici_bucketed(state, cfg, sg, transport, tx_eff, transmitter, mesh))
 
 
-def _ici_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, transport, transmit, transmitter):
+def _ici_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, transport, transmit, transmitter, mesh: Mesh):
     """The analytic counter's view of one bucketed round: the plane masks
     the exchange applies, reduced to per-row nonzero indicators."""
     from tpu_gossip_torch.dist.transport import ici_round_bucketed
@@ -764,10 +912,10 @@ def _ici_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, transport, transmit
             ans_any = (state.seen & transmitter).any(-1)
             if rewiring:
                 ans_any = ans_any & ~state.rewired
-    return ici_round_bucketed(sg, transport, packed_width(cfg.msg_slots), tx_any, ans_any, merged)
+    return ici_round_bucketed(sg, transport, packed_width(cfg.msg_slots), tx_any, ans_any, merged, mesh.hosts)
 
 
-def _ici_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, transport, scenario):
+def _ici_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, transport, scenario, mesh: Mesh):
     """:func:`_ici_bucketed` off the packed words (the head without the
     quarantine mask, as the fault-free model reads transmit)."""
     from tpu_gossip_torch.dist.transport import ici_round_bucketed
@@ -788,7 +936,7 @@ def _ici_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, transport, scen
             ans_any = po.rows_any(po.and_words(ps.seen, role_w))
             if rewiring:
                 ans_any = ans_any & ~flags["rewired"]
-    return ici_round_bucketed(sg, transport, packed_width(cfg.msg_slots), tx_any, ans_any, merged)
+    return ici_round_bucketed(sg, transport, packed_width(cfg.msg_slots), tx_any, ans_any, merged, mesh.hosts)
 
 
 def _stack_ici(rows: list):
@@ -836,7 +984,7 @@ def run_until_coverage_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, target: flo
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
     tot = zero_ici_totals(state.seen.device) if collect_ici else None
     s, i = state, 0
-    while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
+    while bool((swarm_coverage(s, slot).to(tgt.device) < tgt) & (s.round - start < max_rounds)):
         out = gossip_round_dist(s, cfg, sg, mesh, shard_plan, collect_ici=collect_ici,
                                 host_round=None if r0 is None else r0 + i, host_rng=hkey, **dict(planes))
         s = out[0]

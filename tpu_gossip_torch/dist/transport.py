@@ -1,9 +1,9 @@
 """The sparsity-adaptive transport of the sharded exchanges.
 
-Ports ``tpu_gossip/dist/transport.py`` but the hierarchical lane: the
-occupancy header, the compact index, gather and scatter around each
-exchange, the bucketed engine's compact lane (``build_transport`` of a
-``ShardedGraph``), the matching family's hub/leaf transpose lanes
+Ports ``tpu_gossip/dist/transport.py``: the occupancy header, the compact
+index, gather and scatter around each exchange, the bucketed engine's
+compact lane (``build_transport`` of a ``ShardedGraph``), the matching
+family's hub/leaf transpose lanes
 (:func:`transpose_pass_sparse`, :func:`untranspose_pass_sparse`, chosen
 stage by stage by :meth:`Transport.gates` and :meth:`Transport.lanes`)
 and the analytic ICI word counters (:class:`IciRound`,
@@ -20,7 +20,14 @@ package's analytic model of its byte-plane wire, integer for integer, and
 describe JAX's lane choices, not the port's. The port's own choices are
 counted apart (:func:`lane_counts`: transpose stages run compact and
 dense since :func:`reset_lane_counts`).
-The two-level ``hier`` transport needs a host axis (ROADMAP item 11c).
+
+The two-level ``hier`` transport (``build_transport(..., "hier",
+hosts=H)``) runs each exchange of a (hosts, devices) mesh as a dense
+device stage and a compacted host stage (``cluster/hier.py``); the
+counters bill the host stage to the ``dcn_*`` columns as the JAX package
+bills it. On a process of a multi-process mesh the counters and the gates
+read the whole swarm: each process's counts are summed or maximised over
+the processes (``cluster/topology.py``).
 """
 
 from __future__ import annotations
@@ -53,11 +60,10 @@ __all__ = [
     "untranspose_pass_sparse",
     "lane_counts",
     "reset_lane_counts",
+    "hier_take",
     "ici_round_bucketed",
     "ici_round_matching",
 ]
-
-ITEM11C = "multi-process (ROADMAP item 11c)"
 
 # the matching pipeline's transpose stages as the port ran them: compact
 # lane or dense pass, summed over every gated pipeline pass
@@ -85,7 +91,11 @@ class Transport:
     ``hub_tables[k]`` is transpose stage k's (S, H_k) int32 hub-row table
     (send-local rows for "t" stages, global rows for "tinv", padded with
     the out-of-range sentinel); ``stage_mode[k]`` is "hub", "plain" or
-    "dense"."""
+    "dense". A ``hier`` transport carries ``hosts``, the host rows it was
+    built for, and ``dcn_budget``, its host stage's compact budget (bucket
+    entries, or slot rows for the matching family). ``shard_lo`` is the
+    first shard this process holds (0 but on a multi-process mesh): the
+    matching compact lanes read their hub rows from there on."""
 
     leaf_slots: torch.Tensor | None = None
     hub_tables: tuple = ()
@@ -97,6 +107,20 @@ class Transport:
     hub_degree_min: int = 0
     n_shards: int = 1
     fingerprint: int = 0
+    hosts: int = 1
+    dcn_budget: int = 0
+    shard_lo: int = 0
+
+    @property
+    def hier(self) -> bool:
+        return self.mode == "hier"
+
+    def check_hosts(self, mesh) -> None:
+        """A hier transport runs on a mesh of the host rows it was built for."""
+        if self.hier and self.hosts != mesh.hosts:
+            what = "sg" if self.engine == "bucketed" else "plan"
+            raise ValueError(f"hier transport built for {self.hosts} hosts but the mesh has {mesh.hosts} host rows — "
+                             f"rebuild with build_transport({what}, 'hier', hosts={mesh.hosts})")
 
     def check_matches_graph(self, sg) -> None:
         if self.engine != "bucketed":
@@ -112,8 +136,10 @@ class Transport:
         whether its leaf-origin and its total nonzero word counts fit the
         budget (both conserved by the permutation, so they bound every
         stage's compact occupancy)."""
+        from tpu_gossip_torch.cluster.topology import reduce_sum
+
         nz = x != 0
-        total, leaf_words = torch.stack([nz.sum(), (nz & self.leaf_slots).sum()]).tolist()
+        total, leaf_words = reduce_sum(torch.stack([nz.sum(), (nz & self.leaf_slots).sum()])).tolist()
         return leaf_words <= self.budget, total <= self.budget
 
     def lanes(self, take_leaf: bool, take_total: bool) -> tuple:
@@ -124,7 +150,9 @@ class Transport:
         for tbl, mode in zip(self.hub_tables, self.stage_mode):
             take = mode != "dense" and (take_leaf if mode == "hub" else take_total)
             _LANES["compact" if take else "dense"] += 1
-            out.append(functools.partial(_sparse_pass, table=tbl, cap=self.budget) if take else None)
+            out.append(functools.partial(_sparse_pass, table=tbl, cap=self.budget, n_shards=self.n_shards,
+                                         lo=self.shard_lo)
+                       if take else None)
         return tuple(out)
 
     def check_matches_plan(self, plan) -> None:
@@ -133,7 +161,7 @@ class Transport:
         if self.engine != "matching":
             raise ValueError("transport built for the bucketed engine cannot drive the matching transposes — "
                              "build_transport(plan) for this plan")
-        got, want = (self.n_shards, self.fingerprint), (plan.mesh_shards, plan.rows)
+        got, want = (self.n_shards, self.fingerprint), (plan.mesh_shards, plan.mesh_shards * plan.per_rows)
         if got != want:
             raise ValueError(f"transport built for (shards, rows)={got} but the plan has {want} — rebuild with "
                              "build_transport(plan)")
@@ -255,98 +283,141 @@ def _rows_at(x: torch.Tensor, ix: torch.Tensor, sentinel: int) -> torch.Tensor:
     return torch.gather(xpad, 1, ix.unsqueeze(-1).expand(s, ix.shape[1], w))
 
 
-def transpose_pass_sparse(x: torch.Tensor, n_shards: int, hub_table: torch.Tensor, cap: int) -> torch.Tensor:
-    """Compacted twin of ``permute.transpose_pass_sharded`` over the stacked
-    (S, per, 128) blocks: each shard sends its hub rows (``hub_table[s]``,
-    local rows, sentinel ``per``) and its occupied leaf rows compacted to
-    ``cap`` with an index plane, lane piece by lane piece; each receiver
-    scatters the pieces into its (R, 128/S) lane slab (rows nobody sent
-    were zero) and finishes with the dense lane's transpose-reshape."""
+def transpose_pass_sparse(x: torch.Tensor, n_shards: int, hub_table: torch.Tensor, cap: int,
+                          lo: int = 0) -> torch.Tensor:
+    """Compacted twin of ``permute.transpose_pass_sharded`` over the held
+    (L, per, 128) blocks, shards ``lo`` on: each shard sends its hub rows
+    (``hub_table[s]``, local rows, sentinel ``per``) and its occupied leaf
+    rows compacted to ``cap`` with an index plane, lane piece by lane
+    piece; each receiver scatters the pieces into its (R, 128/S) lane slab
+    (rows nobody sent were zero) and finishes with the dense lane's
+    transpose-reshape."""
     from tpu_gossip_torch.dist.mesh import all_to_all
 
-    s, per, _ = x.shape
+    l, per, _ = x.shape
+    s = n_shards
     w, r, dev = 128 // s, per * s, x.device
-    hub = hub_table.to(dev).long()
-    hub_mask = torch.zeros((s, per + 1), dtype=torch.bool, device=dev)
+    hub_all = hub_table.to(dev).long()
+    hub = hub_all[lo: lo + l]
+    hub_mask = torch.zeros((l, per + 1), dtype=torch.bool, device=dev)
     hub_mask.scatter_(1, hub.clamp(max=per), True)
     occ = (x != 0).any(-1) & ~hub_mask[:, :per]
-    idx = compact_index(occ, cap)  # (S, C) local rows, sentinel per
-    send = _rows_at(x, torch.cat([hub, idx.long()], dim=1), per)  # (S, H+C, 128)
-    pieces = all_to_all(send.view(s, -1, s, w).transpose(1, 2))  # (S_dst, S_src, H+C, w)
+    idx = compact_index(occ, cap)  # (L, C) local rows, sentinel per
+    send = _rows_at(x, torch.cat([hub, idx.long()], dim=1), per)  # (L, H+C, 128)
+    pieces = all_to_all(send.view(l, -1, s, w).transpose(1, 2))  # (L_dst, S_src, H+C, w)
+    # every source's index plane, as each receiver reads it
+    idx_all = idx if l == s else all_to_all(idx[:, None, :].expand(l, s, cap))[0]  # (S_src, C)
     off = (torch.arange(s, dtype=torch.int64, device=dev) * per)[:, None]
-    rows = torch.cat([torch.where(hub < per, hub + off, r), torch.where(idx < per, idx.long() + off, r)], dim=1)
-    slab = torch.zeros((s, r + 1, w), dtype=x.dtype, device=dev)
-    slab[:, rows.reshape(-1)] = pieces.reshape(s, -1, w)
-    return slab[:, :r].transpose(1, 2).reshape(s, per, 128)
+    rows = torch.cat([torch.where(hub_all < per, hub_all + off, r),
+                      torch.where(idx_all < per, idx_all.long() + off, r)], dim=1)
+    slab = torch.zeros((l, r + 1, w), dtype=x.dtype, device=dev)
+    slab[:, rows.reshape(-1)] = pieces.reshape(l, -1, w)
+    return slab[:, :r].transpose(1, 2).reshape(l, per, 128)
 
 
-def untranspose_pass_sparse(x: torch.Tensor, n_shards: int, hub_table: torch.Tensor, cap: int) -> torch.Tensor:
-    """Compacted twin of ``permute.untranspose_pass_sharded``: each shard's
-    (R, 128/S) lane slab of the output ships its hub rows (``hub_table``:
-    GLOBAL output rows grouped by destination shard, sentinel R) densely and
-    each destination's occupied leaf rows compacted to ``cap`` with a
-    per-destination index plane; each receiver rebuilds its (per, 128)
+def untranspose_pass_sparse(x: torch.Tensor, n_shards: int, hub_table: torch.Tensor, cap: int,
+                            lo: int = 0) -> torch.Tensor:
+    """Compacted twin of ``permute.untranspose_pass_sharded`` over the held
+    blocks, shards ``lo`` on: each shard's (R, 128/S) lane slab of the output
+    ships its hub rows (``hub_table``: GLOBAL output rows grouped by
+    destination shard, sentinel R) densely and each destination's occupied
+    leaf rows compacted to ``cap`` with a per-destination index plane; each receiver rebuilds its (per, 128)
     block lane slab by lane slab."""
     from tpu_gossip_torch.dist.mesh import all_to_all
 
-    s, per, _ = x.shape
+    l, per, _ = x.shape
+    s = n_shards
     w, r, dev = 128 // s, per * s, x.device
     hub = hub_table.to(dev).long()
     h = hub.shape[1]
-    slab = x.view(s, w, r).transpose(1, 2)  # (S, R, w)
+    slab = x.view(l, w, r).transpose(1, 2)  # (L, R, w)
     hub_mask = torch.zeros((r + 1,), dtype=torch.bool, device=dev)
     hub_mask[hub.reshape(-1)] = True
-    occ = ((slab != 0).any(-1) & ~hub_mask[:r]).view(s * s, per)
-    idx = compact_index(occ, cap).view(s, s, cap)  # (S_src, S_dst, C) destination-local, sentinel per
+    occ = ((slab != 0).any(-1) & ~hub_mask[:r]).view(l * s, per)
+    idx = compact_index(occ, cap).view(l, s, cap)  # (L_src, S_dst, C) destination-local, sentinel per
     off = (torch.arange(s, dtype=torch.int64, device=dev) * per)[:, None]
-    leaf_global = torch.where(idx < per, idx.long() + off, r)  # (S_src, S_dst, C)
-    ix = torch.cat([hub.expand(s, s, h), leaf_global], dim=2).reshape(s, -1)
-    send = _rows_at(slab, ix, r).view(s, s, h + cap, w)  # (S_src, S_dst, H+C, w)
-    recv = all_to_all(send)  # (S_dst, S_src, H+C, w)
-    idx_r = all_to_all(idx)  # (S_dst, S_src, C)
-    view = torch.zeros((s, s, per + 1, w), dtype=x.dtype, device=dev)
-    view.scatter_(2, idx_r.long().unsqueeze(-1).expand(s, s, cap, w), recv[:, :, h:])
-    out = view[:, :, :per].transpose(1, 2).reshape(s, per, 128)
+    leaf_global = torch.where(idx < per, idx.long() + off, r)  # (L_src, S_dst, C)
+    ix = torch.cat([hub.expand(l, s, h), leaf_global], dim=2).reshape(l, -1)
+    send = _rows_at(slab, ix, r).view(l, s, h + cap, w)  # (L_src, S_dst, H+C, w)
+    recv = all_to_all(send)  # (L_dst, S_src, H+C, w)
+    idx_r = all_to_all(idx)  # (L_dst, S_src, C)
+    view = torch.zeros((l, s, per + 1, w), dtype=x.dtype, device=dev)
+    view.scatter_(2, idx_r.long().unsqueeze(-1).expand(l, s, cap, w), recv[:, :, h:])
+    out = view[:, :, :per].transpose(1, 2).reshape(l, per, 128)
     if h:
-        my_hub = hub - off  # local rows, sentinel >= per
-        hub_rows = recv[:, :, :h].transpose(1, 2).reshape(s, h, 128)
-        out = torch.cat([out, torch.zeros((s, 1, 128), dtype=x.dtype, device=dev)], dim=1)
-        out.scatter_(1, my_hub.clamp(max=per).unsqueeze(-1).expand(s, h, 128), hub_rows)
+        my_hub = (hub - off)[lo: lo + l]  # local rows, sentinel >= per
+        hub_rows = recv[:, :, :h].transpose(1, 2).reshape(l, h, 128)
+        out = torch.cat([out, torch.zeros((l, 1, 128), dtype=x.dtype, device=dev)], dim=1)
+        out.scatter_(1, my_hub.clamp(max=per).unsqueeze(-1).expand(l, h, 128), hub_rows)
         out = out[:, :per]
     return out
 
 
-def _sparse_pass(kind: str, blocks: torch.Tensor, *, table: torch.Tensor, cap: int) -> torch.Tensor:
-    s = blocks.shape[0]
+def _sparse_pass(kind: str, blocks: torch.Tensor, *, table: torch.Tensor, cap: int, n_shards: int,
+                 lo: int) -> torch.Tensor:
     if kind == "t":
-        return transpose_pass_sparse(blocks, s, table, cap)
-    return untranspose_pass_sparse(blocks, s, table, cap)
+        return transpose_pass_sparse(blocks, n_shards, table, cap, lo)
+    return untranspose_pass_sparse(blocks, n_shards, table, cap, lo)
 
 
 # ----------------------------------------------------------------- build
 
 
 def build_transport(target, mode: str = "sparse", *, compact_frac: float = 0.125, hub_rows_frac: float = 1 / 32,
-                    hub_degree_min: int | None = None, mesh=None) -> Transport:
+                    hub_degree_min: int | None = None, hosts: int = 1, mesh=None) -> Transport:
     """Compile the sparsity-adaptive transport for one engine's layout: a
     ``ShardedGraph`` gets the bucketed compact lane (budget ``compact_frac``
     of the bucket capacity), a ``MatchingPlan`` the hub/leaf transpose
     tables. ``mode`` "sparse" gates each exchange on its header alone;
     "auto" also requires the static geometry to predict a 25% byte win at
     full budget (else ``active=False`` and the rounds run dense). "hier"
-    needs a (hosts, devices) mesh, which is ROADMAP item 11c. ``mesh`` puts
-    the tables on its device."""
+    compiles the two-level transport of a (``hosts``, devices) mesh
+    instead: a dense device stage and a compacted host stage
+    (``cluster/hier.py``), whose budget ``dcn_budget`` is; it replaces the
+    flat compact lane, so the hub/leaf tables stay empty. ``mesh`` puts the
+    tables on its device; a matching transport is built from the whole
+    plan, and on a multi-process mesh keeps its leaf table's rows of this
+    process."""
     if mode not in ("sparse", "auto", "hier"):
         raise ValueError(f"transport mode {mode!r} must be sparse, auto, or hier")
     from tpu_gossip_torch.core.matching_topology import MatchingPlan
 
     if mode == "hier":
-        from tpu_gossip_torch.sim.stages import not_ported
-
-        raise not_ported("transport mode 'hier' (the two-level transport of a (hosts, devices) mesh)", ITEM11C)
+        return _build_hier_transport(target, compact_frac, hosts)
     if isinstance(target, MatchingPlan):
         return _build_matching_transport(target, mode, compact_frac, hub_rows_frac, hub_degree_min, mesh=mesh)
     return _build_bucketed_transport(target, mode, compact_frac)
+
+
+def _build_hier_transport(target, compact_frac: float, hosts: int) -> Transport:
+    from tpu_gossip_torch.core.matching_topology import MatchingPlan
+
+    if hosts <= 1:
+        raise ValueError("transport mode 'hier' needs a (hosts, devices) mesh — pass hosts > 1 (the flat mesh has "
+                         "no DCN axis to compact)")
+    if isinstance(target, MatchingPlan):
+        s, per = target.mesh_shards, target.per_rows
+        if s % hosts:
+            raise ValueError(f"hier transport: hosts={hosts} does not divide the {s}-shard mesh")
+        cap = min(max(1, per - 1), max(8, int(math.ceil(per * compact_frac))))
+        return Transport(engine="matching", mode="hier", active=True, budget=cap, n_shards=s,
+                         fingerprint=target.mesh_shards * target.per_rows, hosts=hosts, dcn_budget=cap)
+    sg = target
+    if sg.n_shards % hosts:
+        raise ValueError(f"hier transport: hosts={hosts} does not divide the {sg.n_shards}-shard mesh")
+    db = (sg.n_shards // hosts) * sg.bucket
+    cap = max(8, min(db, int(math.ceil(db * compact_frac))))
+    return Transport(engine="bucketed", mode="hier", active=True, budget=cap, n_shards=sg.n_shards,
+                     fingerprint=sg.fingerprint, hosts=hosts, dcn_budget=cap)
+
+
+def hier_take(x: torch.Tensor, transport: Transport) -> bool:
+    """The hier pipeline's one gate a pass: the plane's nonzero words over
+    the whole swarm (conserved by every stage, so they bound each host
+    stage's occupied rows) within the host stage's budget."""
+    from tpu_gossip_torch.cluster.topology import reduce_sum
+
+    return bool(reduce_sum((x != 0).sum()) <= transport.dcn_budget)
 
 
 def _build_bucketed_transport(sg, mode: str, compact_frac: float) -> Transport:
@@ -434,10 +505,14 @@ def _build_matching_transport(plan, mode, compact_frac, hub_rows_frac, hub_degre
         if shipped * 4 > 3 * len(tables) * per * 128:
             active = False
     put = dev if mesh is None else mesh.device
+    leaf, lo = ~hub0, 0
+    if mesh is not None and mesh.world > 1:
+        lo = mesh.lo
+        leaf = leaf[lo * per: (lo + mesh.local) * per]
     return Transport(
-        leaf_slots=torch.from_numpy(~hub0).to(put), hub_tables=tuple(torch.from_numpy(t).to(put) for t in tables),
+        leaf_slots=torch.from_numpy(leaf).to(put), hub_tables=tuple(torch.from_numpy(t).to(put) for t in tables),
         engine="matching", mode=mode, active=active, budget=cap, stage_mode=tuple(stage_mode),
-        hub_degree_min=int(hub_degree_min), n_shards=s, fingerprint=r,
+        hub_degree_min=int(hub_degree_min), n_shards=s, fingerprint=r, shard_lo=lo,
     )
 
 
@@ -458,29 +533,48 @@ def matching_dense_stage_words(rows: int) -> int:
 
 
 def ici_round_bucketed(sg, transport: Transport | None, nbytes: int, tx_any: torch.Tensor,
-                       ans_any: torch.Tensor | None, merged: bool) -> IciRound:
+                       ans_any: torch.Tensor | None, merged: bool, hosts: int = 1) -> IciRound:
     """Analytic ICI words of one bucketed round (fault-free model):
     ``tx_any``/``ans_any`` are the per-row nonzero-word indicators of the
     planes the round exchanges, stale-masked as the exchange masks them;
-    the merged push_pull wire carries one billing byte more. The ``dcn_*``
-    columns stay zero: a host axis is ROADMAP item 11c."""
+    the merged push_pull wire carries one billing byte more. On a mesh of
+    ``hosts`` > 1 rows a flat exchange is priced whole on the host axis
+    (``dcn_*`` = the wire); a hier transport bills its dense device stage
+    and its host stage, gated on the host stage's occupancy, as the JAX
+    package does. The counts are the whole swarm's on every process."""
+    from tpu_gossip_torch.cluster.topology import reduce_max, reduce_sum
+
     s, b, per = sg.n_shards, sg.bucket, sg.per_shard
     dev = tx_any.device
-    srcg = (sg.send_src.long() + (torch.arange(s, dtype=torch.int64, device=dev) * per)[:, None, None]).to(dev)
+    srcg = (sg.send_src.long() + (torch.arange(sg.stacked, dtype=torch.int64, device=dev) * per)[:, None, None]).to(dev)
     z = _i(0, dev)
+    hier = transport is not None and transport.hier
 
     def one(plane_any, nb):
         occ = sg.send_valid.to(dev) & plane_any[srcg]
-        counts = occ.sum(-1)  # (S, S)
+        counts = occ.sum(-1)  # (S held, S)
         dense = _i(bucketed_dense_exchange_words(s, b, nb), dev)
-        occupied = (counts.sum() * nb + 3) // 4
+        occupied = (reduce_sum(counts.sum()).to(dev) * nb + 3) // 4
+        if hier:
+            h, cap = transport.hosts, transport.dcn_budget
+            d = s // h
+            # post-device-stage occupancy: a host's entries for one
+            # destination shard, summed over its devices and the bucket
+            hcounts = occ.view(-1, d, h, d, b).sum((1, 4))
+            fit = reduce_max(hcounts.max()).to(dev) <= cap
+            header = _i(s * h, dev)
+            compact = _i(s * h * cap + s * (-(-(h * cap * nb) // 4)), dev)
+            dcn_shipped = torch.where(fit, compact + header, dense + header)
+            return IciRound(dense + dense, dense + dcn_shipped, occupied, fit.long(), _i(1, dev), dense, dcn_shipped)
         if transport is None or not transport.active:
-            return IciRound(dense, dense, occupied, z, z, z, z)
+            dd = dense if hosts > 1 else z
+            return IciRound(dense, dense, occupied, z, z, dd, dd)
         cap = transport.budget
-        fit = counts.max() <= cap
+        fit = reduce_max(counts.max()).to(dev) <= cap
         compact = _i(s * s * cap + s * (-(-(s * cap * nb) // 4)), dev)
         shipped = torch.where(fit, compact, dense) + s * s
-        return IciRound(dense, shipped, occupied, fit.long(), _i(1, dev), z, z)
+        return IciRound(dense, shipped, occupied, fit.long(), _i(1, dev), dense if hosts > 1 else z,
+                        shipped if hosts > 1 else z)
 
     out = one(tx_any, nbytes + 1 if merged else nbytes)
     if ans_any is not None:
@@ -489,7 +583,7 @@ def ici_round_bucketed(sg, transport: Transport | None, nbytes: int, tx_any: tor
 
 
 def ici_round_matching(plan, transport: Transport | None, m: int, tx: torch.Tensor,
-                       answer: torch.Tensor | None) -> IciRound:
+                       answer: torch.Tensor | None, hosts: int = 1) -> IciRound:
     """Analytic ICI words of one matching round's transpose passes: per
     8-slot byte group one (R, 128) byte plane through every transpose stage
     (the pull direction reuses the push plane unless ``answer`` ships its
@@ -498,10 +592,19 @@ def ici_round_matching(plan, transport: Transport | None, m: int, tx: torch.Tens
     where the conserved count fits the budget, plus the 2S-word header.
     This is the JAX package's wire, gated per byte group; the port's
     pipeline gates each 32-slot int32 plane (:meth:`Transport.gates`,
-    counted by :func:`lane_counts`)."""
-    r, s = plan.rows, plan.mesh_shards
+    counted by :func:`lane_counts`). On a mesh of ``hosts`` > 1 rows a flat
+    pipeline is priced whole on the host axis; a hier transport bills its
+    dense device stages and its host stages (the compacted (cap, 128)
+    payload and an (H, cap) index plane a shard, gated on the one
+    conserved count, an S-word header), as the JAX package does. The
+    counts are the whole swarm's on every process."""
+    from tpu_gossip_torch.cluster.topology import reduce_sum
+
+    s = plan.mesh_shards
+    r = s * plan.per_rows
     dev = tx.device
-    active = transport is not None and transport.active
+    hier = transport is not None and transport.hier
+    active = transport is not None and transport.active and not hier
     if active:
         n_stages = len(transport.hub_tables)
         leaf = transport.leaf_slots.to(dev).long()
@@ -515,14 +618,24 @@ def ici_round_matching(plan, transport: Transport | None, m: int, tx: torch.Tens
         for lo in range(0, m, 8):
             nzn = plane[: plan.n, lo: lo + 8].any(1).to(torch.int32)
             slots = plan.expand(nzn).long()
-            nz = slots.sum()
+            counts = torch.stack([slots.sum(), (slots * leaf).sum() if active else slots.sum()])
+            nz, nz_leaf = reduce_sum(counts).to(dev)
             dense = _i(dense_stage * n_stages, dev)
             occupied = (nz * n_stages + 3) // 4
+            if hier:
+                h, hcap = transport.hosts, transport.dcn_budget
+                take = nz <= hcap
+                compact = _i(s * hcap * 32 + s * h * hcap, dev)
+                dcn_shipped = n_stages * torch.where(take, compact, _i(dense_stage, dev)) + s
+                total = _add_ici(total, IciRound(dense + dense, dense + dcn_shipped, occupied,
+                                                 take.long() * n_stages, _i(n_stages, dev), dense, dcn_shipped))
+                continue
             if not active:
-                total = _add_ici(total, IciRound(dense, dense, occupied, z, z, z, z))
+                dd = dense if hosts > 1 else z
+                total = _add_ici(total, IciRound(dense, dense, occupied, z, z, dd, dd))
                 continue
             cap = transport.budget
-            take_leaf = (slots * leaf).sum() <= cap
+            take_leaf = nz_leaf <= cap
             take_total = nz <= cap
             shipped, taken, lanes = _i(2 * s, dev), z, 0
             for tbl, sm in zip(transport.hub_tables, transport.stage_mode):
@@ -534,7 +647,8 @@ def ici_round_matching(plan, transport: Transport | None, m: int, tx: torch.Tens
                 shipped = shipped + torch.where(take, _i(compact, dev), _i(dense_stage, dev))
                 taken = taken + take.long()
                 lanes += 1
-            total = _add_ici(total, IciRound(dense, shipped, occupied, taken, _i(lanes, dev), z, z))
+            total = _add_ici(total, IciRound(dense, shipped, occupied, taken, _i(lanes, dev),
+                                             dense if hosts > 1 else z, shipped if hosts > 1 else z))
         return total
 
     out = one(tx)

@@ -9,7 +9,8 @@ Ports ``matching_flood`` and ``matching_sampled`` (:80) of
 
 Sampling is the Bernoulli-per-edge law: per-slot uint32 thresholds gate
 each direction of every surviving edge, one draw per direction per round,
-drawn with the same threefry keys as the JAX package. ``msgs`` counts the
+drawn with the same threefry keys as the JAX package (a process holding
+some of a mesh's shards draws its rows' block of the global draw). ``msgs`` counts the
 delivered slot-bits per fired edge plus one request per fired pull edge of
 a receptive puller, in int32. The adaptive controller's hooks
 (``fanout``, ``pull_gate``, ``pull_needy_rows``) move only the gates.
@@ -109,9 +110,9 @@ def matching_sampled(
         rec_slots = plan.expand(rec_rows_n.to(torch.int32)) > 0
     active_p = active_q = pull_bill = None
     if do_push:
-        active_p = prng.bits(k_push, shape) < plan.push_threshold(fanout)
+        active_p = prng.bits(k_push, shape, plan.draw_offset) < plan.push_threshold(fanout)
     if do_pull:
-        active_q = prng.bits(k_pull, shape) < plan.pull_threshold()
+        active_q = prng.bits(k_pull, shape, plan.draw_offset) < plan.pull_threshold()
         if pull_gate is not None:
             active_q = active_q & pull_gate
         if pull_needy_rows is not None:

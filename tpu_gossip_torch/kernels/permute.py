@@ -18,11 +18,13 @@ Each kernel wrapper takes its plain PyTorch version for CPU tensors only;
 for CUDA tensors it launches the kernel or raises.
 
 On a mesh (``apply_pipeline(..., n_shards=S)``) the (R, 128) slot data is
-S stacked (per, 128) shard blocks: a lane stage stays one K1 launch over
-all S·per rows (the lane tables are row blocks of the global table), and
-each transpose stage is :func:`transpose_pass_sharded` or
+the stacked (per, 128) blocks of the shards the process holds (all S in
+one process, its D under ``torch.distributed``): a lane stage stays one K1
+launch over the held rows (the lane tables are row blocks of the global
+table), and each transpose stage is :func:`transpose_pass_sharded` or
 :func:`untranspose_pass_sharded`, built on the mesh's one exchange
-(``dist/mesh.py::all_to_all``).
+(``dist/mesh.py::all_to_all``), or on a (hosts, devices) mesh under the
+hier transport their two-level twins (``cluster/hier.py``).
 """
 
 from __future__ import annotations
@@ -140,20 +142,27 @@ def _lane_width(n_shards: int) -> int:
     return 128 // n_shards
 
 
+def _held(x: torch.Tensor, n_shards: int) -> tuple[int, int]:
+    l, per, _ = x.shape
+    if l < 1 or n_shards % l:
+        raise ValueError(f"{l} stacked blocks for a {n_shards}-shard mesh")
+    return l, per
+
+
 def transpose_pass_sharded(x: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """:func:`transpose_pass` over the stacked (S, per, 128) shard blocks
-    of a global (R, 128) array: each shard splits its block's lanes into S
-    pieces, the exchange hands shard d every shard's d-th piece (the (R,
-    128/S) lane slab d of the global array, source-major), and a local
-    transpose-reshape orders the slab column-major. Returns (S, per, 128)."""
+    """:func:`transpose_pass` over the stacked (L, per, 128) blocks of the
+    held shards of a global (R, 128) array: each shard splits its block's
+    lanes into S pieces, the exchange hands shard d every shard's d-th
+    piece (the (R, 128/S) lane slab d of the global array, source-major),
+    and a local transpose-reshape orders the slab column-major. Returns
+    (L, per, 128)."""
     from tpu_gossip_torch.dist.mesh import all_to_all
 
-    s, per, _ = x.shape
-    if s != n_shards:
-        raise ValueError(f"{s} stacked blocks for a {n_shards}-shard mesh")
+    l, per = _held(x, n_shards)
+    s = n_shards
     w = _lane_width(s)
-    slab = all_to_all(x.view(s, per, s, w).transpose(1, 2))  # (S_dst, S_src, per, w)
-    return slab.view(s, s * per, w).transpose(1, 2).reshape(s, per, 128)
+    slab = all_to_all(x.view(l, per, s, w).transpose(1, 2))  # (L_dst, S_src, per, w)
+    return slab.view(l, s * per, w).transpose(1, 2).reshape(l, per, 128).contiguous()
 
 
 def untranspose_pass_sharded(x: torch.Tensor, n_shards: int) -> torch.Tensor:
@@ -162,12 +171,11 @@ def untranspose_pass_sharded(x: torch.Tensor, n_shards: int) -> torch.Tensor:
     S row pieces, and the lanes concatenated in source order."""
     from tpu_gossip_torch.dist.mesh import all_to_all
 
-    s, per, _ = x.shape
-    if s != n_shards:
-        raise ValueError(f"{s} stacked blocks for a {n_shards}-shard mesh")
+    l, per = _held(x, n_shards)
+    s = n_shards
     w = _lane_width(s)
-    slab = x.view(s, w, s * per).transpose(1, 2).reshape(s, s, per, w)  # (S_src, S_dst, per, w)
-    return all_to_all(slab).transpose(1, 2).reshape(s, per, 128)
+    slab = x.view(l, w, s * per).transpose(1, 2).reshape(l, s, per, w)  # (L_src, S_dst, per, w)
+    return all_to_all(slab).transpose(1, 2).reshape(l, per, 128).contiguous()
 
 
 def inverse_tables(idx: torch.Tensor) -> torch.Tensor:
@@ -199,17 +207,18 @@ _STAGE_OPS = {"lane": lane_shuffle, "lane_t": lane_shuffle_t, "tinv_lane": tinv_
 _SHARDED_T = {"t": transpose_pass_sharded, "tinv": untranspose_pass_sharded}
 
 
-def apply_pipeline(x: torch.Tensor, stages: tuple, *, n_shards: int | None = None, lanes: tuple | None = None
-                   ) -> torch.Tensor:
+def apply_pipeline(x: torch.Tensor, stages: tuple, *, n_shards: int | None = None, lanes: tuple | None = None,
+                   per: int | None = None) -> torch.Tensor:
     """Apply a ("lane", table) / ("t",) / ("tinv",) stage tuple to (R, 128)
     slot data, left to right, as data operations; each shuffle beside a
     transpose runs fused (:func:`fuse_stages`). With ``n_shards`` the data
-    is that many stacked shard blocks: each lane stage is one K1 launch
-    over all rows and each transpose one sharded pass, or, where ``lanes``
-    (one entry a transpose stage, a transport's gate decision) names a
-    compact lane, that lane's ``lane(kind, blocks)``."""
+    is the held shards' stacked blocks of ``per`` rows (``R / n_shards``
+    by default: every shard held): each lane stage is one K1 launch over
+    all rows and each transpose one sharded pass, or, where ``lanes`` (one
+    entry a transpose stage, a transport's gate decision) names a compact
+    lane, that lane's ``lane(kind, blocks)``."""
     if n_shards is not None:
-        return _apply_pipeline_sharded(x, stages, n_shards, lanes)
+        return _apply_pipeline_sharded(x, stages, n_shards, lanes, per)
     for stage in fuse_stages(stages):
         kind = stage[0]
         if kind in _STAGE_OPS:
@@ -223,19 +232,21 @@ def apply_pipeline(x: torch.Tensor, stages: tuple, *, n_shards: int | None = Non
     return x
 
 
-def _apply_pipeline_sharded(x: torch.Tensor, stages: tuple, s: int, lanes: tuple | None) -> torch.Tensor:
+def _apply_pipeline_sharded(x: torch.Tensor, stages: tuple, s: int, lanes: tuple | None,
+                            per: int | None = None) -> torch.Tensor:
     r = x.shape[0]
+    per = r // s if per is None else per
     ti = 0
     for stage in stages:
         kind = stage[0]
         if kind == "lane":
-            x = lane_shuffle(x.view(r, 128), stage[1])
+            x = lane_shuffle(x.reshape(r, 128), stage[1])
             continue
         if kind not in _SHARDED_T:
             raise ValueError(f"unknown stage kind {kind!r}")
         lane = None if lanes is None else lanes[ti]
         ti += 1
-        blocks = x.view(s, r // s, 128)
+        blocks = x.view(r // per, per, 128)
         x = _SHARDED_T[kind](blocks, s) if lane is None else lane(kind, blocks)
     if lanes is not None and ti != len(lanes):
         raise ValueError(f"{len(lanes)} transpose-stage lanes but the pipeline has {ti} transposes — rebuild the "

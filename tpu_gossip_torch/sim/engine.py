@@ -298,6 +298,14 @@ def _degrees(state) -> torch.Tensor:
     return (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
 
 
+def held_degrees(row_ptr: torch.Tensor, plan, n_rows: int) -> torch.Tensor:
+    """The CSR degrees of the ``n_rows`` state rows a round holds, from a
+    matching plan's first held node on (``shard_lo`` shards in, 0 but on a
+    process of a multi-process mesh, whose CSR is the whole swarm's)."""
+    lo = plan.shard_lo * plan.n_blk if isinstance(plan, MatchingPlan) else 0
+    return (row_ptr[lo + 1: lo + n_rows + 1] - row_ptr[lo: lo + n_rows]).to(torch.int64)
+
+
 def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key, m_eff=None):
     """Delivery to rejoiners along the reverse of their fresh edges: each
     fresh target ``t`` pushes back at its per-edge rate ``fanout/deg(t)``,
@@ -568,7 +576,7 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
         else:
             _require_csr(state, "XLA flood delivery")
             incoming = incoming | flood_all(transmit, state.row_ptr, state.col_idx)
-        msgs_sent = msgs_sent + (transmit.sum(-1) * _degrees(state)).sum()
+        msgs_sent = msgs_sent + (transmit.sum(-1) * held_degrees(state.row_ptr, plan, transmit.shape[0])).sum()
     return incoming, _i32(msgs_sent)
 
 

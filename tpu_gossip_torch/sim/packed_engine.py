@@ -163,7 +163,9 @@ def _matching_words(ps: PackedSwarm, cfg, role_w, tx_w, k_push, k_pull, plan: Ma
         msgs = msgs + n
     if cfg.mode == "flood":
         inc_w = po.or_words(inc_w, matching_flood(plan, tx_w, m, words=True))
-        deg = ps.row_ptr[1:] - ps.row_ptr[:-1]
+        from tpu_gossip_torch.sim.engine import held_degrees
+
+        deg = held_degrees(ps.row_ptr, plan, tx_w.shape[0])
         msgs = msgs + (po.popcount_rows(tx_w).to(torch.int64) * deg).sum()
     return inc_w, msgs.to(torch.int32)
 
