@@ -200,7 +200,18 @@ the one-process S = 8 mesh before and after the ranks; 17b
 shard a rank, 16 rounds, against its one-process twin; 17c the ranks'
 checkpoint at round 8 resumed in one process onto the pin; 17d two ranks
 under ``--backend nccl`` on the one card refused, exit 2 naming the
-device. It prints phase 13's to 17's seconds and the script's. Each check of a checkpoint
+device; 17e (ROADMAP item 11d part 1) the same two ranks through
+``run_sim.main`` under the row planes: ``reference_pins.json``'s ``mesh``
+pins 5-7 (n=20000 churn, split brain, siege at quorum 3) at ``--hosts 2``
+on their flat digests and pin 7 ``--packed``, then the composed 1M run
+(churn with re-wiring, the Byzantine siege, quorum 3; 56 rounds) on
+``cluster_planes_1m`` and its bucketed n=20000 twin with ``--staircase`` on
+``cluster_planes_bucketed``, each with its launches counted from 0 in each
+rank (K1, K2, K3; K4 packed; K6, K3 bucketed), its rounds and exchange
+timed by CUDA events, each side path's collectives timed and counted in
+bytes, the rank's peak, and each kernel the run launched held against its
+plain version on the operands of its first calls (``KernelTap``). It
+prints phase 13's to 17's seconds and the script's. Each check of a checkpoint
 written on one device and resumed on the other (8e, 9c, 10d, 11d, 12d)
 runs its two directions at once, 10c runs the first 32 rounds of
 ``bench_grow``'s schedule and 13d the first 5 of ``bench_fleet``'s 10, and
@@ -4627,11 +4638,204 @@ def cluster_bucketed_run(dev, setup: dict, what: str) -> dict:
                 launches={k: v for k, v in launches.items() if v})
 
 
+# phase 17e: the row planes (ROADMAP item 11d part 1) through run_sim in each rank
+PLANES_MESH_ENTRIES = (4, 5, 6)  # reference_pins.json["mesh"]: the churn, split-brain and siege runs
+PLANES_MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail": 1}
+PLANES_PACKED_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail_words": 1}
+PLANES_BUCKETED_PATH = {"stream_segment": None, "round_tail": 1}
+PLANES_TIMING = ("wall_seconds", "ms_per_round", "peers_rounds_per_sec", "swarm_rounds_per_sec")
+
+
+class KernelTap:
+    """While installed, records the first two calls of every hand kernel's
+    wrapper on the path (K1's three entries, K2's class fold, K3, K4, K6)
+    with copies of their operands, and calls through; :meth:`check` then
+    holds each kernel against its plain version on exactly those operands:
+    the rank's own inputs at the main path's shapes. The kernel launches
+    :meth:`check` makes are not the path's (read the counts first)."""
+
+    def __init__(self):
+        from tpu_gossip_torch.core import matching_topology
+        from tpu_gossip_torch.dist import mesh as dmesh
+        from tpu_gossip_torch.kernels import pallas_segment, permute, round_tail
+
+        def k1_plain(entry, x, idx):
+            return {"lane_shuffle": permute.lane_shuffle_plain, "lane_shuffle_t": permute.lane_shuffle_t_plain,
+                    "tinv_lane_shuffle": permute.tinv_lane_shuffle_plain}[entry](x, idx)
+
+        def k2_plain(slots, layout, op="or"):
+            return permute.fold_classes_plain(slots, layout, op)
+
+        def k3_plain(*args, age_saturated=False, **kw):
+            return round_tail.tail_fused(*args, age_saturated=age_saturated, **kw)
+
+        def k4_plain(*args, pallas=False, **kw):
+            return round_tail.tail_words_plain(*args, age_saturated=pallas, **kw)
+
+        self.spots = [  # (module, attribute, the call's key, its plain version)
+            (permute, "_shuffle", lambda a, k: f"lane_shuffle {a[0]}", k1_plain),
+            (matching_topology, "fold_classes", lambda a, k: f"fold_classes {k.get('op', a[2] if len(a) > 2 else 'or')}",
+             k2_plain),
+            (round_tail, "tail_kernel", lambda a, k: "round_tail", k3_plain),
+            (round_tail, "round_tail_words", lambda a, k: "round_tail_words", k4_plain),
+            (dmesh, "stream_segment_or", lambda a, k: "stream_segment", pallas_segment.stream_segment_plain),
+        ]
+        self.calls = {}
+
+    def _wrap(self, inner, key_of, plain):
+        def tapped(*args, **kw):
+            key = key_of(args, kw)
+            got = self.calls.setdefault(key, [])
+            if len(got) < 2:
+                copy = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                got.append((inner, plain, copy, {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                                 for k, v in kw.items()}))
+            return inner(*args, **kw)
+
+        return tapped
+
+    def __enter__(self):
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in self.spots]
+        for (mod, name, key_of, plain), (_, _, inner) in zip(self.spots, self._saved):
+            setattr(mod, name, self._wrap(inner, key_of, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, inner in self._saved:
+            setattr(mod, name, inner)
+
+    def check(self) -> dict:
+        """max_abs_err of each tapped kernel against its plain version on
+        its recorded operands (raises on any difference)."""
+        errs = {}
+        for key, calls in sorted(self.calls.items()):
+            err = 0
+            for inner, plain, args, kw in calls:
+                got, want = inner(*args, **kw), plain(*args, **kw)
+                pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+                for a, b in pairs:
+                    err = max(err, max_err(a, b))
+            errs[key] = err
+        return errs
+
+
+class RoundMeter:
+    """CUDA events around every ``dist.gossip_round_dist`` while installed."""
+
+    def __init__(self):
+        from tpu_gossip_torch.dist import mesh as dmesh
+
+        self._mesh, self._inner, self.events = dmesh, dmesh.gossip_round_dist, []
+
+    def __call__(self, *args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self._inner(*args, **kw)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def __enter__(self):
+        self._mesh.gossip_round_dist = self
+        return self
+
+    def __exit__(self, *exc):
+        self._mesh.gossip_round_dist = self._inner
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def planes_runs(root: Path) -> list:
+    """17e's runs: ``(name, run_sim argv without the cluster flags, the pin's
+    summary, the launches the path needs)``, in order."""
+    pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
+
+    def rooted(argv):  # a scenario file named from the checkout's root
+        return [str(root / a) if i and argv[i - 1] == "--scenario" else a for i, a in enumerate(argv)]
+
+    runs = []
+    for i in PLANES_MESH_ENTRIES:
+        ref = pins["mesh"][i]
+        runs.append((f"mesh pin {i + 1}", rooted([*ref["argv"], "--hosts", "2"]), ref["summary"], PLANES_MATCHING_PATH))
+    ref = pins["mesh"][PLANES_MESH_ENTRIES[-1]]
+    runs.append((f"mesh pin {PLANES_MESH_ENTRIES[-1] + 1} packed", rooted([*ref["argv"], "--hosts", "2", "--packed"]),
+                 ref["summary"], PLANES_PACKED_PATH))
+    for key, path in (("cluster_planes_1m", PLANES_MATCHING_PATH), ("cluster_planes_bucketed", PLANES_BUCKETED_PATH)):
+        runs.append((key, rooted(pins[key]["argv"]), pins[key]["summary"], path))  # (their argv holds --hosts 2)
+    return runs
+
+
+def planes_rank(root: Path, dev, rank: int, coordinator: list[str]) -> dict:
+    """17e in one rank: each of :func:`planes_runs` through ``run_sim.main``
+    in this process (the group already joined), launches counted from 0,
+    the rounds and the exchange timed by CUDA events, each side path's
+    collectives and bytes counted, the peak; then each kernel the run
+    launched held against its plain version on the operands of its first
+    calls. The side paths' own time drains the card around each
+    collective, so it is read in a second pass of the composed 1M run
+    alone, which also gives that run's rounds with the drains in. Rank 0
+    returns the run's summary line."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.cli import run_sim as tcli
+    from tpu_gossip_torch.cluster import topology as topo
+    from tpu_gossip_torch.kernels import native
+
+    def one_pass(argv, timed: bool):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        native.reset_launches()
+        topo.SIDE_PATHS.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with ExchangeMeter() as meter, RoundMeter() as rm, KernelTap() as tap, topo.time_side_paths(timed), \
+                contextlib.redirect_stdout(buf):
+            rc = tcli.main([*argv, *coordinator])
+        torch.cuda.synchronize(dev)
+        return rc, time.perf_counter() - t0, meter, rm, tap, buf
+
+    out = {}
+    for name, argv, _, path in planes_runs(root):
+        rounds = int(argv[argv.index("--rounds") + 1])
+        rc, wall, meter, rm, tap, buf = one_pass(argv, False)
+        launches = {k: v for k, v in native.LAUNCHES.items() if v}
+        if rc != 0:
+            raise AssertionError(f"17e rank {rank} {name}: run_sim exited {rc}")
+        if len(rm.events) != rounds:
+            raise AssertionError(f"17e rank {rank} {name}: {len(rm.events)} mesh rounds, not {rounds}")
+        check_launches(f"17e rank {rank} {name}", dict(native.LAUNCHES), path, rounds)
+        peak = torch.cuda.max_memory_allocated(dev)
+        side = {k: dict(calls=v[0] / rounds, bytes=v[1] / rounds, ms="not timed")
+                for k, v in sorted(topo.SIDE_PATHS.items())}
+        errs = tap.check()
+        need = {"fold_classes" if k == "fold_planes_or" else k for k in path}
+        if dev.type == "cuda" and need - {k.split()[0] for k in errs}:
+            raise AssertionError(f"17e rank {rank} {name}: tapped only {sorted(errs)}, needs {sorted(need)}")
+        lines = buf.getvalue().strip().splitlines()
+        out[name] = dict(
+            summary=json.loads(lines[-1]) if rank == 0 else None, rounds=rounds, wall_s=wall,
+            ms_round=rm.ms() / rounds, exchange_ms=meter.ms() / rounds, exchange_bytes=meter.bytes // rounds,
+            side=side, launches=launches, peak=peak, max_abs_err=errs)
+        torch.distributed.barrier()
+        if name == "cluster_planes_1m":
+            rc, _, _, rm, _, _ = one_pass(argv, True)
+            if rc != 0:
+                raise AssertionError(f"17e rank {rank} {name} (side paths timed): run_sim exited {rc}")
+            for k, v in topo.SIDE_PATHS.items():
+                side[k]["ms"] = v[2] * 1e3 / rounds
+            out[name]["ms_round_side_timed"] = rm.ms() / rounds
+            torch.distributed.barrier()
+    return out
+
+
 def cluster_rank(argv: list[str]) -> int:
     """One rank of phase 17 (``python -m chip_smoke --cluster-rank DIR``
     with the launcher's flags): 17a's dense and hier runs, 17c's
-    checkpoint at round 8 into DIR (rank 0 writes), 17b's bucketed run;
-    one result line. Before each run the rank holds K1 and K2 (on its lane
+    checkpoint at round 8 into DIR (rank 0 writes), 17b's bucketed run,
+    17e's row-plane runs (:func:`planes_rank`); one result line. Before each run the rank holds K1 and K2 (on its lane
     tables and its own class layout), K3 (at its state rows) and K6 (on its
     shards' plans) against their plain versions on its own inputs."""
     from tpu_gossip_torch import dist
@@ -4670,6 +4874,11 @@ def cluster_rank(argv: list[str]) -> int:
         "17b stream_segment": check_k6(dev, gen, held),
         "17b round_tail": check_static_tail(dev, gen, int(bucketed["state"].seen.shape[0]), M_SLOTS)})
     out["bucketed"] = cluster_bucketed_run(dev, bucketed, f"17b rank {rank}")
+    del bucketed, sg, plans, held
+    torch.cuda.empty_cache()
+    coordinator = ["--coordinator", flag("--coordinator"), "--num-processes", str(hosts), "--process-id", str(rank),
+                   "--dist-backend", flag("--dist-backend")]
+    out["planes"] = planes_rank(Path(__file__).resolve().parent, dev, rank, coordinator)
     print(CLUSTER_RESULT + json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
     return 0
@@ -4692,7 +4901,9 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     and after in turns; 17b: 4b's graph on the S = 2 bucketed mesh through
     K6, a shard a rank, against its one-process twin; 17c: the ranks'
     checkpoint at round 8 resumed in one process (--hosts 1) onto the pin;
-    17d: NCCL with two ranks on one card refused, exit 2."""
+    17d: NCCL with two ranks on one card refused, exit 2; 17e: the row
+    planes' runs of :func:`planes_runs` through ``run_sim`` in the same
+    ranks, each onto its pin (:func:`check_planes`)."""
     import io
     import tempfile
 
@@ -4722,7 +4933,7 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     buf = io.StringIO()
     port = free_ports(1)[0]
     t1 = time.perf_counter()
-    rc = launch_workers(["--cluster-rank", str(tmp / "ckpt")], CLUSTER_HOSTS, CLUSTER_PER, port=port, timeout=300,
+    rc = launch_workers(["--cluster-rank", str(tmp / "ckpt")], CLUSTER_HOSTS, CLUSTER_PER, port=port, timeout=900,
                         backend="gloo", module="chip_smoke", out=buf)
     ranks_s = time.perf_counter() - t1
     text = buf.getvalue()
@@ -4781,6 +4992,8 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     if before["digest"] != pin["dense"]["state_digest"] or after["digest"] != pin["dense"]["state_digest"]:
         raise AssertionError("17a: the one-process mesh left the pin")
     out["17ab"] = dict(seconds=time.perf_counter() - t0, ranks_s=ranks_s)
+    out["17e"] = dict(seconds=sum(p["wall_s"] for p in ranks[0]["planes"].values()))
+    check_planes(root, card, ranks)
 
     t0 = time.perf_counter()
     path, manifest = latest_complete(tmp / "ckpt")
@@ -4807,6 +5020,43 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
           f"{refused:.2f} s (read after 17b's one-process run; started with the phase); {names[0]}", flush=True)
     out["17d"] = dict(seconds=refused)
     return out
+
+
+def check_planes(root: Path, card: str, ranks: dict) -> None:
+    """17e's results: rank 0's summary of each run equal to its pin (the
+    timing fields aside, the packed key aside on the packed run, the floats
+    within 1e-6), each rank's kernels equal to their plain versions on its
+    own operands; one line a rank a run."""
+    for name, argv, want, _ in planes_runs(root):
+        got = dict(ranks[0]["planes"][name]["summary"])
+        want = dict(want)
+        for k in PLANES_TIMING:
+            got.pop(k, None)
+            want.pop(k, None)
+        if "--packed" in argv:
+            got.pop("packed", None)
+            want.pop("packed", None)
+        floats = [k for k in got if isinstance(got[k], float)]
+        if {k: v for k, v in got.items() if k not in floats} != {k: v for k, v in want.items() if k not in floats} \
+                or any(abs(got[k] - want[k]) > 1e-6 for k in floats):
+            raise AssertionError(f"17e {name}: rank 0's summary {got} != the pin's {want}")
+        for r, res in sorted(ranks.items()):
+            p = res["planes"][name]
+            if set(p["max_abs_err"].values()) != {0}:
+                raise AssertionError(f"17e rank {r} {name}: a kernel disagrees with its plain version on the rank's "
+                                     f"operands: {p['max_abs_err']}")
+            print(f"[{card}] 17e rank {r} of {CLUSTER_HOSTS} ({CLUSTER_PER} shards) {name} ({p['rounds']} rounds, "
+                  f"{' '.join(argv)}): {p['ms_round']} ms/round by CUDA events ({p['wall_s']} s through run_sim, "
+                  f"the build included), the exchange {p['exchange_ms']} ms/round ({p['exchange_bytes']} B shipped to "
+                  f"the other rank a round), the side paths a round {p['side']} (their ms from a second pass, "
+                  f"{p.get('ms_round_side_timed', 'none')} ms/round with the card drained around each), launches "
+                  f"{p['launches']}, peak "
+                  f"max_memory_allocated {p['peak']} B, kernels on the rank's own operands max_abs_err "
+                  f"{p['max_abs_err']}; digests on the pin" if r == 0 else
+                  f"[{card}] 17e rank {r} {name}: {p['ms_round']} ms/round, the exchange {p['exchange_ms']} "
+                  f"ms/round ({p['exchange_bytes']} B), the side paths {p['side']} (second pass "
+                  f"{p.get('ms_round_side_timed', 'none')} ms/round), launches {p['launches']}, peak "
+                  f"{p['peak']} B, kernels max_abs_err {p['max_abs_err']}", flush=True)
 
 
 def check_launches(what: str, launches: dict, want: dict, rounds: int) -> None:

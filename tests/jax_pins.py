@@ -524,6 +524,60 @@ CLUSTER_CLI = {
     "fold_chung_lu": (2, ["--peers", "100", "--rounds", "2", "--graph", "chung-lu", "--shard", "--hosts", "2"]),
 }
 
+PLANES_CHURN = ["--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2"]
+PLANES_SIEGE = ["--scenario", "scenarios/byzantine_siege.toml", "--quorum-k", "3"]
+# the row planes' runs tests/test_torch_cluster_planes*.py launch as two
+# gloo ranks (ROADMAP item 11d part 1), each held to the JAX CLI's
+# one-process run on the same (2, 2) fold: name -> (mesh size, argv); a
+# packed run lands on its unpacked twin's pin
+CLUSTER_PLANES = {
+    "composed": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "56", *PLANES_CHURN, *PLANES_SIEGE]),
+    "compact": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "24", *PLANES_CHURN, "--rewire-compact-cap", "64",
+                    "--scenario", "scenarios/churn_storm.toml"]),
+    "split_brain": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "32", "--transport", "sparse", "--scenario",
+                        "scenarios/split_brain.toml"]),
+    "silent": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "24", "--transport", "auto", "--silent-frac", "0.05",
+                   "--quorum-k", "3"]),
+    "hier": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "24", "--transport", "hier", *PLANES_CHURN, "--scenario",
+                 "scenarios/lossy_links.toml", "--quorum-k", "3"]),
+    "bucketed": (4, [*CLUSTER_B, "--seed", "4", "--hosts", "2", "--rounds", "56", "--staircase", *PLANES_CHURN,
+                     *PLANES_SIEGE]),
+}
+# chip_smoke.py phase 17e's full-width pins: the composed matching run at
+# 1M (no --seed) and its bucketed twin at n=20000, on an 8-shard (2, 4) fold
+PLANES_1M = ["--peers", "1000000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
+             "--hosts", "2", "--rounds", "56", *PLANES_CHURN, *PLANES_SIEGE, "--digest", "--quiet"]
+PLANES_BUCKETED_20K = ["--peers", "20000", "--graph", "chung-lu", "--shard", "--mode", "push_pull", "--fanout", "2",
+                       "--slots", "8", "--staircase", "--hosts", "2", "--rounds", "56", *PLANES_CHURN, *PLANES_SIEGE,
+                       "--digest", "--quiet"]
+
+
+# ROADMAP §3's serve under --coordinator: JAX's serve ignores the three
+# cluster flags (no arrivals: the windows are empty)
+SERVE_COORDINATOR = ["--peers", "500", "--rounds", "4", "--slot-ttl", "16", "--port", "0", "--coordinator",
+                     "127.0.0.1:29517", "--num-processes", "2", "--process-id", "0"]
+
+
+def cli_cluster_pin(shards: int, *argv: str) -> dict:
+    """A pin entry of ``reference_pins.json``: the JAX CLI's one-process
+    fold of ``argv`` on ``shards`` forced host devices and its summary,
+    timing fields left out."""
+    import time
+
+    t0 = time.perf_counter()
+    summary = cli_cluster(int(shards), *argv)
+    return {"source": f"python -m tpu_gossip.cli.run_sim {' '.join(argv)} (JAX package, CPU, the one-process fold "
+                      f"of a {shards}-device mesh of forced host devices)", "shards": int(shards),
+            "argv": list(argv), "seconds": round(time.perf_counter() - t0, 1), "summary": summary}
+
+
+def cluster_planes_pins() -> dict:
+    """Phase 17e's two new pins (:data:`PLANES_1M`, about 80 s, and
+    :data:`PLANES_BUCKETED_20K`), keyed as ``reference_pins.json`` holds
+    them."""
+    return {"cluster_planes_1m": cli_cluster_pin(8, *PLANES_1M),
+            "cluster_planes_bucketed": cli_cluster_pin(8, *PLANES_BUCKETED_20K)}
+
 
 def matching_pipeline_1m(n: int = 1_000_000, shards: int = 1, rounds: int = 24, pipeline=1) -> dict:
     """``bench.py::bench_pipeline``'s configuration: the sharded matching
@@ -2046,6 +2100,8 @@ CASES = {
         "matching_packed_hier": ("cluster_matching", [6, 2, True]),
         "composed_local": ("cluster_composed", []),
         **{f"cli_{name}": ("cli_cluster", [shards, *argv]) for name, (shards, argv) in CLUSTER_CLI.items()},
+        **{f"planes_{name}": ("cli_cluster", [shards, *argv]) for name, (shards, argv) in CLUSTER_PLANES.items()},
+        "serve_coordinator": ("serve_cli", [1, [], False, *SERVE_COORDINATOR]),
     },
     "fleet": {
         "composed": ("campaign_run", [composed_campaign(), [0, 7, 13]]),

@@ -9,8 +9,12 @@ ICI/DCN totals included: the sharded matching mesh on the dense, sparse,
 auto and hier transports, packed and not, to a fixed horizon and to
 coverage. A rank's planes and tables hold ``1 / H`` of the rows, the
 draws of its rows are the block of the global draw, and a plane the
-multi-process rounds do not run yet exits 2 naming ROADMAP item 11d. The bucketed mesh and the checkpoints across
-process counts are ``test_torch_cluster_ckpt.py``'s."""
+multi-process rounds do not run yet exits 2 naming ROADMAP item 11d; the
+refusals that shadow it keep the JAX CLI's words, serving ignores the
+cluster flags as the JAX CLI's serve does, and fleets refuse them in
+argparse's words. The bucketed mesh and the checkpoints across process
+counts are ``test_torch_cluster_ckpt.py``'s; the row planes (item 11d part
+1) are ``test_torch_cluster_planes*.py``'s."""
 
 import json
 import os
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from tests.jax_pins import CLUSTER_CLI, pinned
+from tests.test_torch_fleet_cli import campaign  # noqa: F401
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 from tpu_gossip_torch.cli import run_sim as tcli
 from tpu_gossip_torch.core import prng
@@ -167,11 +172,13 @@ def test_bits_with_offset_is_the_global_draws_block(offset, rows):
     assert torch.equal(prng.bits(k, (rows, 128), offset), whole[offset: offset + rows * 128].view(rows, 128))
 
 
-@pytest.mark.parametrize("flag", [["--churn-leave", "0.01"], ["--stream", "2", "--rounds", "8"],
-                                  ["--scenario", "scenarios/split_brain.toml"], ["--pipeline", "1"]])
+@pytest.mark.parametrize("flag", [["--grow", "400"], ["--stream", "2", "--rounds", "8"],
+                                  ["--control", "0.9"], ["--pipeline", "1"], ["--builder", "dist"]])
 def test_planes_of_item_11d_exit_2_under_coordinator(capsys, flag):
     """Under --coordinator every plane the rank-local rounds do not run yet
-    exits 2 naming ROADMAP item 11d, before any process group is joined."""
+    (growth, streams, control, pipelined rounds, the distributed builder:
+    item 11d parts 2-4) exits 2 naming ROADMAP item 11d, before any process
+    group is joined."""
     argv = ["--peers", "200", "--graph", "matching", "--shard", "--hosts", "2", "--coordinator", "127.0.0.1:1",
             "--num-processes", "2", "--process-id", "0", *flag, "--device", "cpu"]
     capsys.readouterr()
@@ -180,14 +187,74 @@ def test_planes_of_item_11d_exit_2_under_coordinator(capsys, flag):
     assert "item 11d" in err and "not ported yet" in err
 
 
-@pytest.mark.parametrize("argv", [
-    ["serve", "--peers", "48", "--rounds", "6", "--slot-ttl", "10", "--coordinator", "127.0.0.1:1",
-     "--num-processes", "2", "--process-id", "0", "--hosts", "2", "--device", "cpu"],
-    ["fleet", "scenarios/campaigns/catalogue_smoke.toml", "--coordinator", "127.0.0.1:1"],
-], ids=["serve", "fleet"])
-def test_serving_and_fleets_under_coordinator_exit_2(capsys, argv):
-    """Serving and fleets over several processes are ROADMAP item 11d."""
+COORDINATOR = ["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"]
+
+
+@pytest.mark.parametrize("flag", [["--shard", "--remat-every", "4"], ["--shard", "--profile-round", "2"], []],
+                         ids=["remat_every", "profile_round", "no_shard"])
+def test_refusals_shadowing_item_11d_keep_the_jax_words(capsys, flag):
+    """Under --coordinator a remat loop, ``--profile-round`` and a run
+    without ``--shard`` exit 2 with the JAX CLI's refusal of the same run
+    (its ``--hosts`` checks and ``--profile-round``'s "decomposes the
+    LOCAL round"; the port's line names its own profile script)."""
+    from tpu_gossip.cli import run_sim as jcli
+
+    argv = ["--peers", "200", "--graph", "matching", "--hosts", "2", "--quiet", *flag]
     capsys.readouterr()
-    assert tcli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "item 11d" in err and "not ported yet" in err
+    assert jcli.main(argv) == 2
+    want = capsys.readouterr().err.strip().splitlines()[-1]
+    assert tcli.main(argv + COORDINATOR + ["--device", "cpu"]) == 2
+    got = capsys.readouterr().err.strip().splitlines()[-1]
+    assert got.split(" (use ")[0] == want.split(" (use ")[0] and "item 11d" not in got
+
+
+def test_serve_under_coordinator_equals_the_jax_cli(monkeypatch):
+    """``run_sim serve`` ignores --coordinator, --num-processes and
+    --process-id, as the JAX CLI's serve does (it dispatches before the
+    cluster checks): ROADMAP §3's smallest config lands on the JAX CLI's
+    summary, pinned (group ``cluster``; no arrivals)."""
+    from tests.jax_pins import SERVE_COORDINATOR, serve_summary
+    from tests.test_torch_serve_replay import port_serve
+
+    rc, got, err = port_serve(SERVE_COORDINATOR, monkeypatch, [])
+    assert rc == 0, err
+    assert serve_summary(got) == pinned("cluster", "serve_coordinator")
+
+
+def test_fleet_under_coordinator_gives_argparse_words(capsys):
+    """``run_sim fleet --coordinator`` exits 2 with argparse's words, as the
+    JAX CLI's fleet parser (which has no cluster flags) gives them."""
+    from tpu_gossip.cli import run_sim as jcli
+
+    argv = ["fleet", "scenarios/campaigns/catalogue_smoke.toml", "--coordinator", "127.0.0.1:1"]
+    lines = []
+    for main in (jcli.main, tcli.main):
+        capsys.readouterr()
+        with pytest.raises(SystemExit) as e:
+            main(list(argv))
+        assert e.value.code == 2
+        lines.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert lines[0] == lines[1] == "run_sim fleet: error: unrecognized arguments: --coordinator 127.0.0.1:1"
+
+
+def test_fleet_resume_under_coordinator_gives_argparse_words(capsys, campaign, tmp_path):  # noqa: F811
+    """``run_sim resume D --coordinator ...`` on a fleet checkpoint exits 2
+    with the words the JAX CLI's resume parser (which has no cluster flags)
+    gives for any directory."""
+    import contextlib
+    import io
+
+    from tpu_gossip.cli import run_sim as jcli
+
+    d = tmp_path / "fleet"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tcli.main(["fleet", campaign, "--checkpoint-every", "8", "--checkpoint-dir", str(d), "--quiet",
+                          "--device", "cpu"]) == 0
+    lines = []
+    for main, extra in ((jcli.main, []), (tcli.main, ["--device", "cpu"])):
+        capsys.readouterr()
+        with pytest.raises(SystemExit) as e:
+            main(["resume", str(d), *COORDINATOR, *extra])
+        assert e.value.code == 2
+        lines.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert lines[0] == lines[1] == "run_sim resume: error: unrecognized arguments: " + " ".join(COORDINATOR)

@@ -124,8 +124,9 @@ _LATER = (
     "included, and the sharded matching engine with the dense, sparse and auto transports, with "
     "checkpoints and resume, silent peers, fault scenarios, the quorum detector with its adversaries, "
     "growth, streams, adaptive control, pipelined rounds, fleet campaigns and serving, the (hosts, devices) fold "
-    "with the hier transport, and static rounds over several processes (--coordinator); later slices add every "
-    "other plane over several processes (11d) and the analysis tier (14))"
+    "with the hier transport, and over several processes (--coordinator) static rounds, churn, faults, silent "
+    "peers and the quorum detector; later slices add the other planes over several processes (11d) and the "
+    "analysis tier (14))"
 )
 _ITEM11D = "several processes (ROADMAP item 11d)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
@@ -375,8 +376,8 @@ def _validate_cluster(args: argparse.Namespace) -> str | None:
     (its refusals of a run to coverage and of checkpoints under
     --coordinator are lifted: the port reduces the coverage over the ranks
     and writes the whole swarm from rank 0), then, under --coordinator,
-    every plane the multi-process rounds do not run yet (ROADMAP item
-    11d); the exit-2 reason or None."""
+    the planes the multi-process rounds do not run yet (ROADMAP item 11d
+    parts 2-4); the exit-2 reason or None."""
     if args.hosts < 1:
         return f"--hosts {args.hosts} must be >= 1"
     if args.hosts > 1 and not args.shard:
@@ -405,25 +406,23 @@ def _validate_cluster(args: argparse.Namespace) -> str | None:
 
 def _multi_process_refusal(args: argparse.Namespace) -> str | None:
     """Under --coordinator: the planes the rank-local rounds do not run yet
-    exit 2 naming ROADMAP item 11d, before anything is built."""
+    (ROADMAP item 11d, parts 2-4) exit 2 naming it, before anything is
+    built. Churn and re-wiring, the fault plane, silent peers and the
+    quorum detector run (part 1). A scenario fields no stream and no
+    controller; its one plane of a later part, ``join_burst``, needs
+    --grow (refused here) or is refused in the JAX CLI's words by
+    :func:`_validate_grow`. --remat-every, --profile-round and a run
+    without --shard are refused first, in the JAX CLI's words, by the
+    --hosts checks above and by :func:`_refusal`."""
     from tpu_gossip_torch.sim.stages import not_ported
 
-    planes = [("--churn-leave/--churn-join (churn and re-wiring)", args.churn_leave > 0 or args.churn_join > 0),
-              ("--scenario (the fault plane)", bool(args.scenario)),
-              ("--silent-frac (silent peers)", args.silent_frac > 0),
-              ("--quorum-k (the quorum detector)", args.quorum_k is not None),
-              ("--grow (growth)", args.grow > 0), ("--stream (streams)", args.stream > 0),
+    planes = [("--grow (growth)", args.grow > 0), ("--stream (streams)", args.stream > 0),
               ("--control (adaptive control)", args.control > 0),
               ("--pipeline (pipelined rounds)", args.pipeline is not None),
-              ("--remat-every (the remat loops)", args.remat_every > 0),
-              ("--profile-round", args.profile_round > 0),
               ("--builder dist", args.builder != "local")]
     for what, on in planes:
         if on:
             return str(not_ported(f"{what} over several processes", _ITEM11D))
-    if not args.shard:
-        return ("--coordinator runs the SHARDED engines over several processes; add --shard (the local engine has "
-                "no mesh to split)")
     return None
 
 
@@ -936,9 +935,9 @@ def _main_resume(argv: list[str]) -> int:
         return 2
     if manifest.get("kind") == "fleet":
         if rargs.coordinator:
-            print(str(not_ported("resuming a fleet over several processes (--coordinator)", _ITEM11D)),
-                  file=sys.stderr)
-            return 2
+            # the JAX CLI's resume parser has no cluster flags: argparse's
+            # own refusal, exit 2
+            p.error("unrecognized arguments: " + " ".join(_cluster_tokens(argv)))
         if rargs.local:
             print("resume: --local restores a sharded-matching RUN checkpoint; fleet checkpoints resume batched (or "
                   "one lane via --lane K --solo)", file=sys.stderr)
@@ -999,6 +998,22 @@ def _main_resume(argv: list[str]) -> int:
         return 2
 
 
+def _cluster_tokens(argv: list[str]) -> list[str]:
+    """The cluster flags of ``argv`` with their values, in order, as
+    argparse lists unrecognized arguments."""
+    flags = ("--coordinator", "--num-processes", "--process-id", "--dist-backend")
+    out, i = [], 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok.split("=", 1)[0] in flags:
+            out.append(tok)
+            if "=" not in tok and i + 1 < len(argv):
+                out.append(argv[i + 1])
+                i += 1
+        i += 1
+    return out
+
+
 def _main_fleet(argv: list[str]) -> int:
     """``run_sim fleet campaign.toml``: compile and run a Monte Carlo
     certification campaign (``fleet/``) and print the certification
@@ -1009,11 +1024,6 @@ def _main_fleet(argv: list[str]) -> int:
     from tpu_gossip_torch import fleet
     from tpu_gossip_torch.device import resolve_device
     from tpu_gossip_torch.faults import ScenarioError
-    from tpu_gossip_torch.sim.stages import not_ported
-
-    if "--coordinator" in argv:
-        print(str(not_ported("run_sim fleet over several processes (--coordinator)", _ITEM11D)), file=sys.stderr)
-        return 2
     p = argparse.ArgumentParser(prog="run_sim fleet", description="Monte Carlo certification campaigns")
     p.add_argument("campaign", help="campaign TOML (scenarios/campaigns/)")
     p.add_argument("--report", default="", metavar="PATH",
@@ -2101,11 +2111,10 @@ def _add_serve_args(p: argparse.ArgumentParser) -> None:
 
 def _validate_serve(args: argparse.Namespace) -> str | None:
     """The reason a serving config cannot run (exit 2, the JAX CLI's
-    words), or None; the serving twin of :func:`_validate_stream`."""
-    if args.coordinator:
-        from tpu_gossip_torch.sim.stages import not_ported
-
-        return str(not_ported("run_sim serve over several processes (--coordinator)", _ITEM11D))
+    words), or None; the serving twin of :func:`_validate_stream`. Serving
+    runs in one process: ``--coordinator``, ``--num-processes`` and
+    ``--process-id`` are ignored, as the JAX CLI's serve ignores them (it
+    dispatches before its cluster checks), and so is ``--hosts``."""
     if args.rounds <= 0:
         return ("serve runs a fixed horizon of round windows — pass --rounds R; run-to-coverage has no serving "
                 "window to batch arrivals into")

@@ -62,7 +62,9 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int, back
     """Join the process group as rank ``process_id`` of ``num_processes``
     through ``tcp://coordinator`` with ``backend``; returns the rank's
     device. Under NCCL each rank needs a card of its own:
-    :class:`SharedCardError` names the card two ranks would share."""
+    :class:`SharedCardError` names the card two ranks would share. A
+    process already in a group as that rank of that size (a program running
+    ``run_sim.main`` in its ranks) keeps it; any other group is an error."""
     import datetime
 
     import torch
@@ -80,6 +82,12 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int, back
                 f"{dev} (NCCL refuses two ranks on one device); run --backend gloo")
     if dev != "cpu":
         torch.cuda.set_device(torch.device(dev))
+    if torch.distributed.is_initialized():
+        held = (torch.distributed.get_world_size(), torch.distributed.get_rank(), torch.distributed.get_backend())
+        if held != (num_processes, process_id, backend):
+            raise RuntimeError(f"this process is already rank {held[1]} of {held[0]} ({held[2]}); it cannot join as "
+                               f"rank {process_id} of {num_processes} ({backend})")
+        return dev
     torch.distributed.init_process_group(backend, init_method=f"tcp://{coordinator}", world_size=num_processes,
                                          rank=process_id, timeout=datetime.timedelta(seconds=300))
     return dev

@@ -19,19 +19,34 @@ exchanges between rows go through the process group
 holds when the caller names no mesh size (the launcher's
 ``--devices-per-host``); without it a process holds one shard.
 
+A process of a mesh over several processes holds one block of the swarm's
+rows: :func:`row_block` gives it as a :class:`ProcessRows`, the
+``core.rows.Rows`` whose helpers cross the process group (one process
+holds ``core.rows.ALL_ROWS``, where they are the identity). Its gather
+moves bool planes as bits and every other dtype as its own bytes, never
+widened; its reduce ships each owner its rows' block of the contributions
+(one all-to-all) and combines them with the one-process scatter's own OR,
+integer SUM or MAX. Both count the bytes a process sends and their calls
+under a label (:data:`SIDE_PATHS`), and with :func:`time_side_paths` on,
+the seconds.
+
 This module imports nothing else of the package but that variable's name
-from its torch-free ``__init__``, so ``dist/`` depends on it without
-cycles.
+from its torch-free ``__init__`` and ``core.rows`` (torch alone), so
+``dist/`` depends on it without cycles.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
+import time
 
 import torch
 
 from tpu_gossip_torch.cluster import LOCAL_SHARDS_ENV
+from tpu_gossip_torch.core.rows import ALL_ROWS, Rows, check_combine
 
 __all__ = [
     "HOST_AXIS",
@@ -47,6 +62,10 @@ __all__ = [
     "reduce_max",
     "gather_rows",
     "exchange_blocks",
+    "ProcessRows",
+    "row_block",
+    "SIDE_PATHS",
+    "time_side_paths",
 ]
 
 HOST_AXIS = "hosts"
@@ -170,11 +189,137 @@ def exchange_blocks(send: torch.Tensor) -> torch.Tensor:
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every process's rows of ``x`` joined in rank order (the global
     plane from each process's row block), on ``x``'s device; ``x`` in one
-    process. The bytes travel, so any dtype does."""
-    w = world()
-    if w == 1:
-        return x
-    wire = _wire(x)
-    parts = [torch.empty_like(wire) for _ in range(w)]
-    torch.distributed.all_gather(parts, wire)
-    return torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts])
+    process. The bytes travel (a bool plane's as bits), so any dtype
+    does."""
+    return x if world() == 1 else _all_gather_planes((x,))[0]
+
+
+# -------------------------------------------- the row planes' side paths
+
+_TIMED = [False]
+# label -> [calls, bytes this process sent, seconds (with time_side_paths)]
+SIDE_PATHS: dict[str, list] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessRows(Rows):
+    """Rows ``[lo, lo + n)`` of ``world * n``, the block a process of a
+    mesh over several processes holds (every process an equal block, in
+    rank order): the row helpers of ``core.rows`` over the process
+    group."""
+
+    world: int
+    lo: int
+
+    def total(self, n: int) -> int:
+        return n * self.world
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return reduce_sum(x).to(x.dtype)
+
+    def gather(self, *planes: torch.Tensor, label: str = "gather") -> tuple[torch.Tensor, ...]:
+        """Every process's rows of each plane joined in rank order, in one
+        all-gather: a bool plane travels as bits, any other as its own
+        bytes."""
+        return _all_gather_planes(planes, label)
+
+    def reduce(self, contrib: torch.Tensor, op: str, label: str = "reduce") -> torch.Tensor:
+        """This process's rows of ``contrib`` (a plane over the swarm's rows
+        holding this process's contributions) combined over every process
+        with ``op``: each process ships every other its rows' block (one
+        all-to-all; bool blocks as bits)."""
+        check_combine(contrib, op)
+        w = self.world
+        blocks = contrib.reshape((w, contrib.shape[0] // w) + tuple(contrib.shape[1:]))
+        like = blocks[0]
+        send = torch.stack([_plane_wire(b) for b in blocks]) if op == "or" else blocks
+        with _side_path(label, send[0].numel() * send.element_size() * (w - 1), send.device):
+            recv = exchange_blocks(send.contiguous())
+        if op == "or":
+            return torch.stack([_from_plane_wire(r, like) for r in recv]).any(dim=0)
+        if op == "sum":
+            return recv.sum(dim=0, dtype=contrib.dtype)
+        return recv.max(dim=0).values
+
+
+def row_block(mesh: Mesh, n_local: int) -> Rows:
+    """The rows this process's ``n_local`` state rows are: its first shard's
+    first row on, ``n_local / mesh.local`` rows a shard. One process holds
+    them all (``ALL_ROWS``)."""
+    if mesh.world == 1:
+        return ALL_ROWS
+    return ProcessRows(lo=mesh.lo * (n_local // mesh.local), world=mesh.world)
+
+
+@contextlib.contextmanager
+def time_side_paths(on: bool = True):
+    """Time each side-path collective into :data:`SIDE_PATHS` (a card's
+    queue is drained before and after each, so the timing changes the
+    overlap it measures: time the rounds with it off)."""
+    prev = _TIMED[0]
+    _TIMED[0] = on
+    try:
+        yield
+    finally:
+        _TIMED[0] = prev
+
+
+@contextlib.contextmanager
+def _side_path(label: str, nbytes: int, device):
+    rec = SIDE_PATHS.setdefault(label, [0, 0, 0.0])
+    rec[0] += 1
+    rec[1] += int(nbytes)
+    if not _TIMED[0]:
+        yield
+        return
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *a: None)
+    sync(device)
+    t0 = time.perf_counter()
+    yield
+    sync(device)
+    rec[2] += time.perf_counter() - t0
+
+
+def _bit_wire(x: torch.Tensor) -> torch.Tensor:
+    """A bool plane's elements, flat, eight to a byte (LSB first)."""
+    flat = x.reshape(-1).to(torch.uint8)
+    pad = (-flat.numel()) % 8
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    return torch.sum(flat.view(-1, 8) << shifts, dim=-1, dtype=torch.uint8)
+
+
+def _from_bit_wire(wire: torch.Tensor, shape) -> torch.Tensor:
+    shifts = torch.arange(8, dtype=torch.uint8, device=wire.device)
+    return (((wire[:, None] >> shifts) & 1) != 0).reshape(-1)[:math.prod(shape)].reshape(shape)
+
+
+def _plane_wire(x: torch.Tensor) -> torch.Tensor:
+    return _bit_wire(x) if x.dtype == torch.bool else _wire(x)
+
+
+def _from_plane_wire(wire: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bool:
+        return _from_bit_wire(wire, like.shape)
+    return wire.view(like.dtype).reshape(like.shape)
+
+
+def _all_gather_planes(planes, label: str | None = None) -> tuple[torch.Tensor, ...]:
+    """Every process's rows of each plane joined in rank order, in one
+    all-gather (bool planes as bits), counted under ``label`` when one is
+    given."""
+    wires = [_plane_wire(x) for x in planes]
+    sizes = [int(w.numel()) for w in wires]
+    flat = torch.cat(wires)
+    parts = [torch.empty_like(flat) for _ in range(world())]
+    with (_side_path(label, flat.numel() * (world() - 1), flat.device) if label else contextlib.nullcontext()):
+        torch.distributed.all_gather(parts, flat)
+    out = []
+    start = 0
+    for x, size in zip(planes, sizes):
+        out.append(torch.cat([_from_plane_wire(p[start:start + size], x) for p in parts]))
+        start += size
+    return tuple(out)
+
+

@@ -170,8 +170,8 @@ def peerswap_refresh(spec, rng, rnd, *, exists, rewired, alive, rewire_targets, 
     new_tgt = torch.where(ok, draws, -1).to(rewire_targets.dtype)
     act = due & rewired & alive & exists
     old = rewire_targets[rows, slot]
-    degree_credit = _add_at(degree_credit, old, act & (old >= 0), -1)
-    degree_credit = _add_at(degree_credit, new_tgt, act & (new_tgt >= 0), 1)
+    degree_credit = _add_at(degree_credit, (old, act & (old >= 0), -1))
+    degree_credit = _add_at(degree_credit, (new_tgt, act & (new_tgt >= 0), 1))
     rewire_targets = rewire_targets.clone()
     rewire_targets[rows, slot] = torch.where(act, new_tgt, old)
     return rewire_targets, degree_credit, act.sum(dtype=torch.int32)

@@ -19,9 +19,9 @@ equals the JAX package's draw bit for bit:
   draw's inputs). The uniform depends on ``bits >> 9`` alone, so the
   2^23 possible Gumbel values are tabulated once a device
   (:func:`gumbel_table`) and a draw is one gather;
-- ``bits``, ``uniform`` and ``gumbel`` take a counter ``offset``: element
-  ``i`` of the draw uses counter ``offset + i``, so a draw cut into row
-  chunks equals the whole draw chunk by chunk;
+- ``bits``, ``uniform``, ``gumbel`` and ``randint`` take a counter
+  ``offset``: element ``i`` of the draw uses counter ``offset + i``, so a
+  draw cut into row chunks equals the whole draw chunk by chunk;
 - ``poisson(k, lam)``: ``jax.random.poisson``'s two branches, Knuth's
   product of uniforms below 10 and Hormann's transformed rejection at 10
   and above, with the float32 ``log``, ``log1p`` and ``lgamma``
@@ -216,14 +216,16 @@ def _int_bound(v, dev) -> torch.Tensor:
     return torch.full((), int(v), dtype=torch.int64, device=dev)
 
 
-def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval) -> torch.Tensor:
+def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval, offset: int = 0) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` (int32 result).
     ``minval`` and ``maxval`` are ints or 0-d tensors on the key's device
-    (a tensor bound stays on the device: no host synchronisation)."""
+    (a tensor bound stays on the device: no host synchronisation). With
+    ``offset``, the elements at flat positions ``offset + i`` of a larger
+    draw: both of its ``bits`` draws take the offset."""
     dev = k.device
     lo, hi = _int_bound(minval, dev), _int_bound(maxval, dev)
     k1, k2 = split(k)
-    hi_bits, lo_bits = bits(k1, shape), bits(k2, shape)
+    hi_bits, lo_bits = bits(k1, shape, offset), bits(k2, shape, offset)
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _M32)
     mult = (65536 % span) * (65536 % span) & _M32
     mult = mult % span

@@ -29,7 +29,10 @@ Under ``torch.distributed`` a process holds only its D shards' rows
 table, ``valid`` and the degree tables, its ``D·n_blk`` state rows and the
 class table over them. Its gates are its rows' block of the global draw
 (``prng.bits``'s counter offset), its expand and reduce run over its own
-class table, and the transposes cross the process group.
+class table, and the transposes cross the process group. The row planes
+(churn and the fresh edges' side paths, faults, the quorum detector) take
+the process's block of rows that ``dist/mesh.py::gossip_round_dist``
+hands the local round (``rows``).
 """
 
 from __future__ import annotations

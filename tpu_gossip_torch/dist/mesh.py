@@ -54,8 +54,16 @@ host row and holds only its rows of every table and plane
 exchange crosses the process group, a shard's draws come from its own key
 as before, and the whole-swarm numbers (the round's stats, the coverage,
 the lane gates, the ICI counters) are summed or maximised over the
-processes, so every process carries the same stats. :func:`gather_swarm`
-joins the rows again.
+processes, so every process carries the same stats. The row planes'
+cross-row side paths (churn's endpoints and credit, the fresh edges'
+traffic, the flood replay, the forged heartbeats, the accusations) take
+the process's block of rows (``cluster.topology.row_block``, a
+``core.rows.Rows``) from :func:`gossip_round_dist`: each draw is the
+block of the swarm's draw, each read at another process's rows goes
+through a gathered plane and each write lands on its holder by the
+one-process scatter's own OR, integer SUM or MAX, and the scenario's row
+masks are cut to the block (``CompiledScenario.rows``), so a run is the
+one-process fold's bit for bit. :func:`gather_swarm` joins the rows again.
 """
 
 from __future__ import annotations
@@ -67,10 +75,12 @@ import zlib
 import numpy as np
 import torch
 
-from tpu_gossip_torch.cluster.topology import Mesh, exchange_blocks, local_shards, reduce_max, reduce_sum, world
+from tpu_gossip_torch.cluster.topology import (Mesh, exchange_blocks, local_shards, reduce_max, reduce_sum, row_block,
+                                               world)
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.packed import is_packed, pack_bits, packed_width, unpack_bits, words8_to_words32
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState, init_swarm
 from tpu_gossip_torch.core.topology import Graph, build_csr
 from tpu_gossip_torch.device import resolve_device
@@ -488,22 +498,33 @@ def swarm_coverage(state, slot: int = 0) -> torch.Tensor:
     return torch.tensor(hit, dtype=torch.float32) / torch.tensor(max(n_live, 1), dtype=torch.float32)
 
 
-# the RoundStats columns a process counts over its own rows (the static
-# round's; every other plane under several processes is ROADMAP item 11d)
-_ROW_SUMS = ("msgs_sent", "n_infected", "n_alive", "n_declared_dead", "n_members")
+# the RoundStats columns a process counts over its own rows: the static
+# round's, the fault plane's, the duplicates and the quorum detector's
+# (each a count of the process's rows or of its rows' sends, so the sum
+# over the processes is the swarm's, counted once), and the per-slot live
+# infected track; the planes of ROADMAP item 11d parts 2-4 add theirs
+_ROW_SUMS = ("msgs_sent", "n_infected", "n_alive", "n_declared_dead", "n_members", "msgs_dropped", "msgs_held",
+             "msgs_delivered", "msgs_duplicate", "evictions_new", "false_evictions", "n_quarantined",
+             "dead_undeclared", "adv_accusations", "adv_forged", "slot_infected")
 
 
 def reduce_stats(stats):
     """A round's RoundStats over the whole swarm: on a process of a
-    multi-process mesh its row counts summed over the processes and the
-    coverage taken from the sums, as ``SwarmState.coverage`` takes it."""
+    multi-process mesh its row counts summed over the processes (one
+    all-reduce) and the coverage taken from the sums, as
+    ``SwarmState.coverage`` takes it."""
     if world() == 1:
         return stats
-    tot = reduce_sum(torch.stack([getattr(stats, f).to(torch.int64) for f in _ROW_SUMS])).tolist()
+    cols = [getattr(stats, f).to(torch.int64).reshape(-1) for f in _ROW_SUMS]
+    tot = reduce_sum(torch.cat(cols)).tolist()
     dev = stats.coverage.device
-    sums = {f: torch.tensor(v, dtype=torch.int32, device=dev) for f, v in zip(_ROW_SUMS, tot)}
-    cov = (torch.tensor(sums["n_infected"].item(), dtype=torch.float32)
-           / torch.tensor(max(sums["n_alive"].item(), 1), dtype=torch.float32))
+    sums, at = {}, 0
+    for f, c in zip(_ROW_SUMS, cols):
+        shape = getattr(stats, f).shape
+        sums[f] = torch.tensor(tot[at: at + c.numel()], dtype=torch.int32, device=dev).reshape(shape)
+        at += c.numel()
+    cov = (torch.tensor(int(sums["n_infected"]), dtype=torch.float32)
+           / torch.tensor(max(int(sums["n_alive"]), 1), dtype=torch.float32))
     return stats._replace(coverage=cov.to(dev), **sums)
 
 
@@ -725,7 +746,7 @@ def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind
 
 
 def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, transmit, transmitter,
-                          receptive, k_push, k_pull, rctl=None, transport=None):
+                          receptive, k_push, k_pull, rctl=None, transport=None, rows=ALL_ROWS):
     """The bucketed engine's delivery; returns ``(incoming, msgs_sent)``.
 
     Both keys are split once more, child 0 driving delivery and child 1
@@ -739,7 +760,8 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
     (``rctl``) the exchanges take its decision (:func:`_exchange`), a
     sated puller's pull exchange drops its deliveries like a stale edge's,
     and the pull requests are billed only where the pull half runs and
-    only for needy rows."""
+    only for needy rows. ``rows`` (``core.rows``) are the rows the state
+    holds, which the fresh edges cross."""
     k_push, k_rw_push = prng.split(k_push)
     k_pull, k_rw_pull = prng.split(k_pull)
     rewiring = cfg.rewire_slots > 0 and cfg.mode in ("push", "push_pull")
@@ -780,13 +802,13 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
         incoming, msgs = incoming | inc, msgs + sent
     if rewiring:
         inc, sent = fresh_rewire_traffic(state, cfg, transmit, answer, receptive.any(-1), k_rw_push, k_rw_pull,
-                                         do_pull=cfg.mode == "push_pull", rctl=rctl)
+                                         do_pull=cfg.mode == "push_pull", rctl=rctl, rows=rows)
         incoming, msgs = incoming | inc, msgs + sent
     return incoming, msgs.to(torch.int32)
 
 
 def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_plan, flags: dict, role_w, tx_w,
-                                 k_push, k_pull, rctl=None, transport=None):
+                                 k_push, k_pull, rctl=None, transport=None, rows=ALL_ROWS):
     """The packed round's delivery; returns ``(inc_w, msgs_sent)``. The
     exchange indexes rows of the bool planes, so the transmit and role
     words decode here, once a round, and the product packs again."""
@@ -796,7 +818,7 @@ def _disseminate_bucketed_packed(ps, cfg: SwarmConfig, sg: ShardedGraph, shard_p
     shim = _delivery_shim(ps, flags, unpack_bits(ps.seen, m))
     role_b = unpack_bits(role_w, m)
     inc, msgs = _disseminate_bucketed(shim, cfg, sg, shard_plan, unpack_bits(tx_w, m), role_b, role_b, k_push,
-                                      k_pull, rctl, transport)
+                                      k_pull, rctl, transport, rows)
     return pack_bits(inc), msgs
 
 
@@ -845,14 +867,18 @@ def gossip_round_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan: Shard
     ``pipe_buf``. ``inject`` (a serving batch) runs on the matching mesh,
     which the JAX CLI serves from; on this engine it raises
     ``NotImplementedError``."""
+    if isinstance(sg, MatchingPlan) and shard_plan is not None:
+        raise ValueError("shard_plan is the bucketed CSR engine's staircase receive; matching delivery has no "
+                         "scatter to replace — pass shard_plan=None")
+    n = int(state.seen.shape[0])
+    rows = row_block(mesh, n)
+    planes = dict(planes, rows=rows)
+    if planes.get("scenario") is not None:
+        planes["scenario"] = planes["scenario"].rows(rows.lo, rows.lo + n)
     if isinstance(sg, MatchingPlan):
-        if shard_plan is not None:
-            raise ValueError("shard_plan is the bucketed CSR engine's staircase receive; matching delivery has no "
-                             "scatter to replace — pass shard_plan=None")
         from tpu_gossip_torch.dist.matching_mesh import gossip_round_dist_matching
 
-        out = gossip_round_dist_matching(state, cfg, sg, mesh, transport=transport, collect_ici=collect_ici,
-                                         **planes)
+        out = gossip_round_dist_matching(state, cfg, sg, mesh, transport=transport, collect_ici=collect_ici, **planes)
     else:
         out = _gossip_round_bucketed(state, cfg, sg, mesh, shard_plan, transport, collect_ici, planes)
     return (out[0], reduce_stats(out[1]), *out[2:])
@@ -869,13 +895,14 @@ def _gossip_round_bucketed(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, 
 
         def deliver_words(tx_w, role_w, flags, kp, kq, rctl):
             return _disseminate_bucketed_packed(state, cfg, sg, shard_plan, flags, role_w, tx_w, kp, kq, rctl,
-                                                transport)
+                                                transport, planes["rows"])
 
         def deliver_bool_factory(flags, seen_b):
             shim = _delivery_shim(state, flags, seen_b)
 
             def deliver(tx, tr, rc, kp, kq, rctl):
-                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport)
+                return _disseminate_bucketed(shim, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport,
+                                             planes["rows"])
 
             return deliver
 
@@ -885,7 +912,7 @@ def _gossip_round_bucketed(state, cfg: SwarmConfig, sg, mesh: Mesh, shard_plan, 
         return (*out, _ici_bucketed_packed(state, cfg, sg, transport, planes.get("scenario"), mesh))
 
     def disseminate(tx, tr, rc, kp, kq, rctl):
-        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport)
+        return _disseminate_bucketed(state, cfg, sg, shard_plan, tx, tr, rc, kp, kq, rctl, transport, planes["rows"])
 
     out = run_protocol_round(state, cfg, disseminate, **planes)
     if not collect_ici:

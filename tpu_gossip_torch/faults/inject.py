@@ -40,6 +40,13 @@ Fault classes (the JAX package's semantics, bit for bit):
 
 The loss/delay draws, the masks and the held-buffer merge are plain torch
 on the device; the delivery they wrap runs the engine's kernels.
+
+On a process of a mesh over several processes the planes hold its block
+of rows (a ``core.rows.Rows``): :meth:`CompiledScenario.rows` cuts the row
+masks to them, the loss and delay draws and the flood targets are the
+block of each of the swarm's draws, the delay buffer stays with its rows,
+and a flood replay reads the targets' side and blackout in the gathered
+masks and lands on their holders (OR).
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ import numpy as np
 import torch
 
 from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.core.streams import FAULT_STREAM_SALT
 
 __all__ = [
@@ -140,6 +148,13 @@ class CompiledScenario:
         """Any Byzantine attack class present."""
         return self.has_accusers or self.has_forgers or self.has_floods
 
+    def rows(self, lo: int, hi: int) -> "CompiledScenario":
+        """The scenario with every (P+1, N) row table cut to rows ``[lo,
+        hi)``, the rows a process of a multi-process mesh holds (views;
+        the phase tables, ``pass_b_host`` among them, stay the swarm's)."""
+        cut = {f: getattr(self, f)[:, lo:hi] for f in _ROW_TABLES if getattr(self, f) is not None}
+        return dataclasses.replace(self, **cut)
+
     def at_round(self, rnd) -> RoundFaults:
         """The fault parameters governing round ``rnd`` (1-based): a Python
         int (the phase is picked on the host) or a 0-d tensor on the
@@ -165,12 +180,15 @@ class CompiledScenario:
         )
 
 
+_ROW_TABLES = ("burst", "blackout", "group_b", "accuser", "forger", "flooder")
+
+
 def _count(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dtype=torch.int64).to(torch.int32)
 
 
 def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: Callable, transmit, transmitter,
-                          receptive, held, seen, k_push, k_pull, k_fault, flood_ok=None, k_flood=None):
+                          receptive, held, seen, k_push, k_pull, k_fault, flood_ok=None, k_flood=None, rows=ALL_ROWS):
     """One round's dissemination with the scenario's faults applied.
 
     ``deliver(tx, transmitter, receptive, k_push, k_pull) -> (incoming,
@@ -183,7 +201,8 @@ def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: 
     changes no bit, only the launches. Under a flood phase the rows of
     ``flood_ok`` replay their whole ``seen`` rows at ``rf.flood_fanout``
     targets drawn from ``k_flood`` (:func:`flood_replay`) before the loss
-    and delay stage."""
+    and delay stage. The planes hold ``rows`` (``core.rows``), whose block
+    of each of the swarm's draws the loss and delay take."""
     k_loss, k_delay, k_push_b, k_pull_b = prng.split(k_fault, 4)
 
     if scenario.has_partition:
@@ -211,20 +230,21 @@ def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: 
         recv_ok = None
 
     if scenario.has_floods:
-        replay, replay_msgs = flood_replay(scenario, rf, seen, flood_ok, k_flood)
+        replay, replay_msgs = flood_replay(scenario, rf, seen, flood_ok, k_flood, rows)
         raw = raw | replay
         msgs = (msgs.to(torch.int64) + replay_msgs).to(torch.int32)
 
     if scenario.has_loss_delay:
         # loss: a last-hop drop on the merged delivery plane
-        keep = prng.uniform(k_loss, tuple(raw.shape)) >= rf.loss
+        at = rows.lo * raw.shape[1]
+        keep = prng.uniform(k_loss, tuple(raw.shape), offset=at) >= rf.loss
         dropped = _count(raw & ~keep)
         surviving = raw & keep
         # delay: held bits release only to rows that can receive now, merge
         # with the fresh deliveries and may defer again
         release = held if recv_ok is None else held & recv_ok[:, None]
         merged = surviving | release
-        defer = prng.uniform(k_delay, tuple(raw.shape)) < rf.delay
+        defer = prng.uniform(k_delay, tuple(raw.shape), offset=at) < rf.delay
         incoming = merged & ~defer
         new_held = merged & defer & ~seen
         if recv_ok is not None:
@@ -239,31 +259,35 @@ def faulted_dissemination(scenario: CompiledScenario, rf: RoundFaults, deliver: 
     return incoming, msgs, tx_eff, new_held, telem
 
 
-def flood_replay(scenario: CompiledScenario, rf: RoundFaults, seen, flood_ok, k_flood):
+def flood_replay(scenario: CompiledScenario, rf: RoundFaults, seen, flood_ok, k_flood, rows=ALL_ROWS):
     """The flood attack's traffic: each row of ``flood_ok`` sends its whole
     ``seen`` row to ``rf.flood_fanout`` of ``scenario.max_flood_fanout``
     targets drawn uniformly from ``k_flood`` (drawn every round, at full
     width, so a draw's stream position depends only on the round). A
     replay never crosses the partition and never reaches a blacked-out
-    row. Returns the (N, M) plane it delivers (an OR over its targets) and
-    its bill, ``seen.sum(-1) * act.sum(-1)`` summed."""
+    row. Returns the (N, M) plane it delivers (an OR over its targets,
+    landed on the holders of ``rows``) and its bill, ``seen.sum(-1) *
+    act.sum(-1)`` summed."""
     n, m = seen.shape
+    n_all = rows.total(n)
     fw = scenario.max_flood_fanout
-    tgt = prng.randint(k_flood, (n, fw), 0, n).to(torch.int64)
+    tgt = prng.randint(k_flood, (n, fw), 0, n_all, rows.lo * fw).to(torch.int64)
     act = flood_ok[:, None] & (torch.arange(fw, device=seen.device)[None, :] < rf.flood_fanout)
+    if scenario.has_partition or scenario.has_blackout:
+        group_b_all, blackout_all = rows.gather(rf.group_b, rf.blackout, label="flood")
     if scenario.has_partition:
-        act = act & (rf.group_b[tgt] == rf.group_b[:, None])
+        act = act & (group_b_all[tgt] == rf.group_b[:, None])
     if scenario.has_blackout:
-        act = act & ~rf.blackout[tgt]
+        act = act & ~blackout_all[tgt]
     payload = (seen[:, None, :] & act[:, :, None]).reshape(n * fw, m)
-    hits = torch.zeros((n, m), dtype=torch.int32, device=seen.device)
+    hits = torch.zeros((n_all, m), dtype=torch.int32, device=seen.device)
     hits.index_add_(0, tgt.reshape(-1), payload.to(torch.int32))
     bill = (seen.sum(-1, dtype=torch.int64) * act.sum(-1, dtype=torch.int64)).sum()
-    return hits > 0, bill
+    return rows.reduce(hits > 0, "or", label="flood"), bill
 
 
 def scenario_dissemination(scenario: CompiledScenario, state, rnd, transmit, transmitter, receptive, k_push, k_pull,
-                           deliver: Callable, k_flood=None):
+                           deliver: Callable, k_flood=None, rows=ALL_ROWS):
     """The per-round scenario head every engine shares: the round's fault
     parameters (``rnd`` is the round's 1-based number: a Python int picks
     them on the host, a 0-d tensor on the device), the fault stream
@@ -273,8 +297,9 @@ def scenario_dissemination(scenario: CompiledScenario, state, rnd, transmit, tra
     ``alive``, ``declared_dead`` and ``quarantine``: the rows that flood
     are the phase's flooders that are alive, undeclared, not quarantined
     and not blacked out. ``k_flood`` is the adversary stream's flood child
-    (the round driver derives it). Returns ``(incoming, msgs_sent,
-    tx_effective, new_held, telemetry, round_faults)``."""
+    (the round driver derives it); ``rows`` (``core.rows``) the rows the
+    state holds. Returns ``(incoming, msgs_sent, tx_effective, new_held,
+    telemetry, round_faults)``."""
     if scenario.blackout.device != transmit.device:
         raise ValueError(f"the scenario's tables lie on {scenario.blackout.device} but the round runs on "
                          f"{transmit.device}: compile it with device={str(transmit.device)!r}")
@@ -287,7 +312,7 @@ def scenario_dissemination(scenario: CompiledScenario, state, rnd, transmit, tra
             flood_ok = flood_ok & ~rf.blackout
     incoming, msgs, tx_eff, new_held, telem = faulted_dissemination(
         scenario, rf, deliver, transmit, transmitter, receptive, state.fault_held, state.seen, k_push, k_pull,
-        k_fault, flood_ok, k_flood)
+        k_fault, flood_ok, k_flood, rows)
     return incoming, msgs, tx_eff, new_held, telem, rf
 
 

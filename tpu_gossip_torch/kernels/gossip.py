@@ -40,12 +40,14 @@ def sample_fanout_targets(key: torch.Tensor, row_ptr: torch.Tensor, col_idx: tor
     return col_idx[idx.to(torch.int64)], (deg > 0).expand(n, fanout)
 
 
-def push_fanout(transmit: torch.Tensor, targets: torch.Tensor, push_valid: torch.Tensor) -> torch.Tensor:
+def push_fanout(transmit: torch.Tensor, targets: torch.Tensor, push_valid: torch.Tensor,
+                n_out: int | None = None) -> torch.Tensor:
     """Scatter-OR each sender's (N, M) bitmap into its sampled targets;
-    returns the delivered (N, M) bool."""
+    returns the delivered (n_out, M) bool, ``n_out`` the senders' N unless
+    the targets index a wider row space."""
     n, m = transmit.shape
     payload = (transmit[:, None, :] & push_valid[:, :, None]).reshape(-1, m)
-    hits = torch.zeros((n, m), dtype=torch.int32, device=transmit.device)
+    hits = torch.zeros((n if n_out is None else n_out, m), dtype=torch.int32, device=transmit.device)
     hits.index_add_(0, targets.reshape(-1).to(torch.int64), payload.to(torch.int32))
     return hits > 0
 

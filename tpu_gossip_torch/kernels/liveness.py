@@ -15,6 +15,13 @@ runs at int32, as JAX promotes them, and narrows back through
 the device's scatter gives the same bits whatever order it runs in. The
 forged heartbeats are JAX's ``.at[].max`` of one scalar: a bool scatter of
 the landed targets, then one ``where``.
+
+The planes hold a ``core.rows.Rows`` (every row in one process; a block on
+a process of a mesh over several processes): the targets and victims are
+the block of each of the swarm's draws, the reads at them go through the
+gathered planes, the landed targets reach their holders by OR, the
+accusation counts by integer SUM, and the witness cohort is the swarm's
+count, so a block's result is its rows of the one-process round's.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.core.state import saturate_round
 
 __all__ = [
@@ -138,17 +146,21 @@ def _hit(n: int, idx: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 def forge_heartbeats(last_hb: torch.Tensor, suspect_round: torch.Tensor, forger_ok: torch.Tensor,
                      rnd: torch.Tensor, k_forge: torch.Tensor, fanout_now: torch.Tensor,
-                     max_fanout: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     max_fanout: int, rows=ALL_ROWS) -> tuple[torch.Tensor, torch.Tensor]:
     """Forged heartbeats: each row of ``forger_ok`` refreshes the
     ``last_hb`` of ``fanout_now`` (<= ``max_fanout``) uniformly drawn
     targets, except targets under an active suspicion, whose probe a third
-    party cannot answer. Returns ``(last_hb, n_forged)``."""
+    party cannot answer. The planes hold ``rows`` (``core.rows``). Returns
+    ``(last_hb, n_forged)``."""
     n = last_hb.shape[0]
-    tgt = prng.randint(k_forge, (n, max_fanout), 0, n).to(torch.int64)
+    n_all = rows.total(n)
+    tgt = prng.randint(k_forge, (n, max_fanout), 0, n_all, rows.lo * max_fanout).to(torch.int64)
     act = forger_ok[:, None] & (torch.arange(max_fanout, device=last_hb.device)[None, :] < fanout_now)
-    landed = act & (suspect_round[tgt] < 0)
+    (suspect_all,) = rows.gather(suspect_round, label="forge")
+    landed = act & (suspect_all[tgt] < 0)
     stamp = saturate_round(rnd, last_hb.dtype)
-    new_last = torch.where(_hit(n, tgt, landed), torch.maximum(last_hb, stamp), last_hb)
+    hit = rows.reduce(_hit(n_all, tgt, landed), "or", label="forge")
+    new_last = torch.where(hit, torch.maximum(last_hb, stamp), last_hb)
     return new_last, act.sum(dtype=torch.int32)
 
 
@@ -156,7 +168,7 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
                     declared_dead: torch.Tensor, suspect_round: torch.Tensor, suspect_mark: torch.Tensor,
                     quarantine: torch.Tensor, exists: torch.Tensor, rnd: torch.Tensor, timeout_rounds: int,
                     detect_period_rounds: int, k_accuse: torch.Tensor | None = None,
-                    accuser_ok: torch.Tensor | None = None) -> dict:
+                    accuser_ok: torch.Tensor | None = None, rows=ALL_ROWS) -> dict:
     """One round of the quorum detector, in JAX's order: revive, refute,
     expire, clear; on sweeps, enter and confirm by the live witness
     cohort; the accusations (one vote each against a victim drawn from
@@ -164,7 +176,8 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
     larger of its votes and this round's; declare at quorum; then strikes
     for refuted accusations and quarantine at the budget. Returns the five
     planes, ``newly_quarantined`` and the counters ``evictions_new``,
-    ``false_evictions`` and ``adv_accusations``."""
+    ``false_evictions`` and ``adv_accusations``. The planes hold ``rows``
+    (``core.rows``)."""
     n = last_hb.shape[0]
     votes, strikes = unpack_suspicion(suspect_mark)
     responsive = alive & ~silent
@@ -188,23 +201,26 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
     enter = sweep & stale & ~responsive & ~declared_dead & ~suspected
     suspect_round = torch.where(enter, saturate_round(rnd, suspect_round.dtype), suspect_round)
     suspected = suspected | enter
-    n_wit = (responsive & ~declared_dead & ~quarantine).sum(dtype=torch.int32)
+    n_wit = rows.sum((responsive & ~declared_dead & ~quarantine).sum(dtype=torch.int32))
     confirm = sweep & suspected & stale & ~responsive & ~declared_dead
     round_votes = torch.where(confirm, torch.clamp(n_wit, max=SUSPECT_VOTE_CAP), 0).to(torch.int32)
 
-    vic = vic_valid = None
+    vic = vic_valid = responsive_all = None
     n_accusations = torch.zeros((), dtype=torch.int32, device=last_hb.device)
     if accuser_ok is not None:
-        vic = prng.randint(k_accuse, (n,), 0, n)
-        rows = torch.arange(n, dtype=vic.dtype, device=vic.device)
+        n_all, lo = rows.total(n), rows.lo
+        vic = prng.randint(k_accuse, (n,), 0, n_all, lo)
+        own = torch.arange(lo, lo + n, dtype=vic.dtype, device=vic.device)
         vi = vic.to(torch.int64)
-        vic_valid = accuser_ok & exists[vi] & alive[vi] & ~declared_dead[vi] & (vic != rows)
-        accused = _hit(n, vi, vic_valid)
-        counts = torch.zeros(n + 1, dtype=torch.int32, device=vic.device)
-        counts.index_add_(0, torch.where(vic_valid, vi, n), torch.ones(n, dtype=torch.int32, device=vic.device))
+        eligible_all, responsive_all = rows.gather(exists & alive & ~declared_dead, responsive, label="accuse")
+        vic_valid = accuser_ok & eligible_all[vi] & (vic != own)
+        counts = torch.zeros(n_all + 1, dtype=torch.int32, device=vic.device)
+        counts.index_add_(0, torch.where(vic_valid, vi, n_all), torch.ones(n, dtype=torch.int32, device=vic.device))
+        counts = rows.reduce(counts[:n_all], "sum", label="accuse")
+        accused = counts > 0
         suspect_round = torch.where(accused & ~suspected, saturate_round(rnd, suspect_round.dtype), suspect_round)
         suspected = suspected | accused
-        round_votes = round_votes + counts[:n]
+        round_votes = round_votes + counts
         n_accusations = vic_valid.sum(dtype=torch.int32)
     votes = torch.clamp(torch.maximum(votes, round_votes), max=SUSPECT_VOTE_CAP)
 
@@ -218,7 +234,8 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
     newly_q = torch.zeros((n,), dtype=torch.bool, device=last_hb.device)
     if accuser_ok is not None and spec.budget > 0:
         vi = vic.to(torch.int64)
-        failed = vic_valid & responsive[vi] & ~newly_dead[vi]
+        (newly_dead_all,) = rows.gather(newly_dead, label="accuse")
+        failed = vic_valid & responsive_all[vi] & ~newly_dead_all[vi]
         strikes = torch.clamp(strikes + failed.to(torch.int32), max=SUSPECT_STRIKE_CAP)
         newly_q = (strikes >= spec.budget) & ~quarantine
         quarantine = quarantine | newly_q

@@ -57,6 +57,7 @@ from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.device_topology import repeat_ids
 from tpu_gossip_torch.core.packed import is_packed
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.core.state import SwarmConfig, SwarmState
 from tpu_gossip_torch.kernels.gossip import flood_all, pull_fanout, push_fanout, sample_fanout_targets
 from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
@@ -306,16 +307,22 @@ def held_degrees(row_ptr: torch.Tensor, plan, n_rows: int) -> torch.Tensor:
     return (row_ptr[lo + 1: lo + n_rows + 1] - row_ptr[lo: lo + n_rows]).to(torch.int64)
 
 
-def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key, m_eff=None):
+def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key, m_eff=None, rows=ALL_ROWS, transmit_all=None):
     """Delivery to rejoiners along the reverse of their fresh edges: each
     fresh target ``t`` pushes back at its per-edge rate ``fanout/deg(t)``,
     the controller's ``m_eff`` (int32 0-d) in place of ``fanout`` when
-    given. Returns ``(incoming, msgs)``."""
+    given. Returns ``(incoming, msgs)``. The state holds ``rows``
+    (``core.rows``): the draw is their block of the swarm's, and the
+    targets' transmit rows come from ``transmit_all`` (the swarm's plane,
+    gathered here when None)."""
     stgt = state.rewire_targets[:, : cfg.rewire_slots]
     tgt = torch.clamp(stgt, min=0).to(torch.int64)
     p = _ratio(cfg.fanout if m_eff is None else m_eff, _degrees(state)[tgt])
-    fire = state.rewired[:, None] & (stgt >= 0) & (prng.uniform(key, tuple(stgt.shape)) < p)
-    back = transmit[tgt]  # (N, S, M)
+    u = prng.uniform(key, tuple(stgt.shape), offset=rows.lo * stgt.shape[1])
+    fire = state.rewired[:, None] & (stgt >= 0) & (u < p)
+    if transmit_all is None:
+        (transmit_all,) = rows.gather(transmit, label="fresh")
+    back = transmit_all[tgt]  # (N, S, M)
     msgs = (back.sum(-1) * fire).sum()
     return (back & fire[:, :, None]).any(dim=1), msgs
 
@@ -350,7 +357,7 @@ def _pull_mask(pvalid, rctl, needy_rows=None):
 
 
 def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_any, k_push, k_pull,
-                         do_pull: bool, rctl=None):
+                         do_pull: bool, rctl=None, rows=ALL_ROWS):
     """Delivery over the rejoiners' fresh degree-preferential edges, which
     no static edge table carries: push to ``fanout`` draws from the fresh
     targets, the reverse pass back (:func:`reverse_fresh_push`) and, with
@@ -359,70 +366,84 @@ def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_an
     controller (``rctl``) the push draws are made at width ``hi`` with the
     columns past ``m_eff`` dark, the reverse pass runs at ``m_eff`` and
     the pull half is gated as on the static edges. Returns ``(incoming,
-    msgs)``."""
+    msgs)``.
+
+    The state holds ``rows`` (``core.rows``; on a process of a mesh over
+    several processes, its block): the draws are their block of each of
+    the swarm's draws, the pushes land on the targets' holders (OR), and
+    the reverse pass and the pull read the targets' rows of the swarm's
+    ``transmit`` and ``answer``, gathered once a round."""
     if cfg.rewire_compact_cap > 0:
         return _fresh_rewire_traffic_compact(state, cfg, transmit, answer, receptive_any, k_push, k_pull,
-                                             do_pull, rctl)
+                                             do_pull, rctl, rows)
     n, s = state.rewired.shape[0], cfg.rewire_slots
     k_push, k_rev = prng.split(k_push)
+    tx_all, *ans_all = rows.gather(transmit, *([answer] if do_pull else []), label="fresh")
 
     def draw(key, width):
-        soff = prng.randint(key, (n, width), 0, s).to(torch.int64)
+        soff = prng.randint(key, (n, width), 0, s, rows.lo * width).to(torch.int64)
         stgt = torch.gather(state.rewire_targets[:, :s], 1, soff)
         return torch.clamp(stgt, min=0), state.rewired[:, None] & (stgt >= 0)
 
     tgt, valid = draw(k_push, cfg.fanout if rctl is None else rctl.width)
     push_valid = _width_mask(valid, rctl) & transmit.any(-1)[:, None]
-    incoming = push_fanout(transmit, tgt, push_valid)
+    incoming = rows.reduce(push_fanout(transmit, tgt, push_valid, rows.total(n)), "or", label="fresh")
     msgs = (transmit.sum(-1) * push_valid.sum(-1)).sum()
-    rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rev, None if rctl is None else rctl.m_eff)
+    rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rev, None if rctl is None else rctl.m_eff, rows,
+                                       tx_all)
     incoming, msgs = incoming | rev, msgs + rev_msgs
     if do_pull:
         ptgt, pvalid = draw(k_pull, 1)
         pvalid = _pull_mask(pvalid & receptive_any[:, None], rctl)
-        incoming = incoming | pull_fanout(answer, ptgt, pvalid)
-        msgs = msgs + pvalid.sum() + (answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pvalid[:, 0]).sum()
+        incoming = incoming | pull_fanout(ans_all[0], ptgt, pvalid)
+        msgs = msgs + pvalid.sum() + (ans_all[0][ptgt[:, 0].to(torch.int64)].sum(-1) * pvalid[:, 0]).sum()
     return incoming, msgs
 
 
 def _fresh_rewire_traffic_compact(state, cfg: SwarmConfig, transmit, answer, receptive_any, k_push, k_pull,
-                                  do_pull: bool, rctl=None):
+                                  do_pull: bool, rctl=None, rows=ALL_ROWS):
     """:func:`fresh_rewire_traffic` over the first ``cap`` rewired rows
     (``first_rows``, no host sync): every gather, scatter and draw runs at
-    (cap, ·); rewired rows past the cap get no fresh traffic this round."""
+    (cap, ·); rewired rows past the cap get no fresh traffic this round.
+    The table is the swarm's first ``cap`` rewired rows (the gathered
+    ``rewired``): every holder of ``rows`` makes the same (cap, ·) draws
+    and acts for the table's rows it holds."""
     n, s = state.rewired.shape[0], cfg.rewire_slots
-    cap = min(cfg.rewire_compact_cap, n)
+    lo, n_all = rows.lo, rows.total(n)
+    cap = min(cfg.rewire_compact_cap, n_all)
     w = cfg.fanout if rctl is None else rctl.width
     k_push, k_rev = prng.split(k_push)
-    idx, live = first_rows(state.rewired, cap)
-    tg = state.rewire_targets[idx, :s]  # (cap, S)
-    tx_rows = transmit[idx]  # (cap, M)
-    row_or_drop = torch.where(live, idx, n)
+    rw_all, tx_all, *ans_all = rows.gather(state.rewired, transmit, *([answer] if do_pull else []), label="fresh")
+    idx, live = first_rows(rw_all, cap)
+    mine = live & (idx >= lo) & (idx < lo + n)
+    li = torch.where(mine, idx - lo, 0)  # the held row of each entry held
+    tg = state.rewire_targets[li, :s]  # (cap, S)
+    tx_rows = transmit[li]  # (cap, M)
+    row_or_drop = torch.where(mine, li, n)
 
     def draw(key, width):
         soff = prng.randint(key, (cap, width), 0, s).to(torch.int64)
         stgt = torch.gather(tg, 1, soff)
-        return torch.clamp(stgt, min=0), live[:, None] & (stgt >= 0)
+        return torch.clamp(stgt, min=0), mine[:, None] & (stgt >= 0)
 
     tgt, valid = draw(k_push, w)
     push_valid = _width_mask(valid, rctl) & tx_rows.any(-1)[:, None]
-    payload = tx_rows[:, None, :] & push_valid[:, :, None]  # (cap, K, M)
-    incoming = _or_rows(torch.zeros_like(transmit), tgt, payload)
+    incoming = rows.reduce(push_fanout(tx_rows, tgt, push_valid, n_all), "or", label="fresh")
     msgs = (tx_rows.sum(-1) * push_valid.sum(-1)).sum()
 
     rtgt = torch.clamp(tg, min=0).to(torch.int64)
     p = _ratio(cfg.fanout if rctl is None else rctl.m_eff, _degrees(state)[rtgt])
-    fire = live[:, None] & (tg >= 0) & (prng.uniform(k_rev, tuple(tg.shape)) < p)
-    back = transmit[rtgt]  # (cap, S, M)
+    fire = mine[:, None] & (tg >= 0) & (prng.uniform(k_rev, tuple(tg.shape)) < p)
+    back = tx_all[rtgt]  # (cap, S, M)
     incoming = _or_rows(incoming, row_or_drop, (back & fire[:, :, None]).any(dim=1))
     msgs = msgs + (back.sum(-1) * fire).sum()
 
     if do_pull:
         ptgt, pvalid = draw(k_pull, 1)
-        pvalid = _pull_mask(pvalid & receptive_any[idx][:, None], rctl,
-                            None if rctl is None or rctl.needy is None else rctl.needy[idx])
-        incoming = _or_rows(incoming, row_or_drop, pull_fanout(answer, ptgt, pvalid))
-        msgs = msgs + pvalid.sum() + (answer[ptgt[:, 0]].sum(-1) * pvalid[:, 0]).sum()
+        pvalid = _pull_mask(pvalid & receptive_any[li][:, None], rctl,
+                            None if rctl is None or rctl.needy is None else rctl.needy[li])
+        incoming = _or_rows(incoming, row_or_drop, pull_fanout(ans_all[0], ptgt, pvalid))
+        msgs = msgs + pvalid.sum() + (ans_all[0][ptgt[:, 0]].sum(-1) * pvalid[:, 0]).sum()
     return incoming, msgs
 
 
@@ -492,7 +513,7 @@ def rematerialize_rewired(state: SwarmState, cfg: SwarmConfig, capacity: int):
 
 
 def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitter,
-                       receptive, k_push, k_pull, plan=None, rctl=None):
+                       receptive, k_push, k_pull, plan=None, rctl=None, rows=ALL_ROWS):
     """Single-device dissemination; returns ``(incoming, msgs_sent)``.
 
     A plan with sampling gates and a ``fanout`` (MatchingPlan or
@@ -513,7 +534,9 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
     ``pull_on`` and the needy rows as their gate hooks; the exactly-k path
     draws at width ``rctl.width`` and darkens the columns past ``m_eff``;
     the pull half is gated by ``pull_on`` and the needy rows. Zero-
-    adjustment bounds make every mask all-true and every gate static."""
+    adjustment bounds make every mask all-true and every gate static.
+    ``rows`` (``core.rows``) are the rows the state holds, which the fresh
+    edges' side paths cross."""
     if plan is not None and not isinstance(plan, (MatchingPlan, StaircasePlan)):
         raise TypeError(f"plan must be a MatchingPlan or StaircasePlan, got {type(plan).__name__}")
     # the JAX engine re-splits both keys: child 0 drives delivery, child 1
@@ -537,7 +560,7 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
         if rewiring:
             fresh_inc, fresh_msgs = fresh_rewire_traffic(
                 state, cfg, transmit, state.seen & transmitter, receptive.any(-1), k_rw_push, k_rw_pull,
-                do_pull=cfg.mode == "push_pull", rctl=rctl)
+                do_pull=cfg.mode == "push_pull", rctl=rctl, rows=rows)
             incoming, msgs_sent = incoming | fresh_inc, _i32(msgs_sent.to(torch.int64) + fresh_msgs)
         return incoming, msgs_sent
     msgs_sent = torch.zeros((), dtype=torch.int64, device=transmit.device)
@@ -584,7 +607,8 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
                   rnd, key, k_leave, k_join, receptive, *, tail: str = "fused", faults=None,
                   churn_faults: bool = False, fault_held=None, fstats=None, liveness=None,
                   k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                  host_rnd: int | None = None, control=None, rctl=None, pipe_buf=None, inject=None):
+                  host_rnd: int | None = None, control=None, rctl=None, pipe_buf=None, inject=None,
+                  rows=ALL_ROWS):
     """Everything after dissemination (liveness, churn, then the one-pass
     slot tail, which resets the rejoined rows) and the round's stats;
     returns ``(new_state, RoundStats)``. ``faults`` (the round's
@@ -609,7 +633,8 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     buffer rides through untouched); a stream's recycled columns die in
     it, as they do in the delay buffer. ``inject`` (an ``InjectBatch``)
     lands a serving window's arrivals after the stream's injection and
-    fills the ``ingest_*`` columns."""
+    fills the ``ingest_*`` columns. ``rows`` (``core.rows``) are the rows
+    the state holds, which the row stages' side paths cross."""
     values = {
         "row_ptr": state.row_ptr, "col_idx": state.col_idx, "exists": state.exists,
         "seen": state.seen, "forwarded": state.forwarded,
@@ -629,7 +654,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
     }
     values = run_stages(build_round_stages(cfg, tail=tail, faults=faults, churn_faults=churn_faults,
                                            liveness=liveness, growth=growth, stream=stream, host_rng=host_rng,
-                                           host_rnd=host_rnd, control=control, inject=inject), values)
+                                           host_rnd=host_rnd, control=control, inject=inject, rows=rows), values)
     if pipe_buf is not None and values["expired"] is not None:
         # the issue read the pre-expiry seen plane: a retired message's
         # in-flight bits would otherwise deliver into the column's new lease
@@ -652,23 +677,25 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
                              values["stel"], values["ctel"], values["itel"])
 
 
-def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused",
+def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused", rows=ALL_ROWS,
                  **later):
     """Advance the swarm one round; returns ``(new_state, RoundStats)``. A
     ``PackedSwarm`` runs the packed-native round and stays packed.
     ``scenario`` injects the round's faults (``host_round``, the state's
     round on the host, spares a device read); ``liveness`` (a
     ``QuorumSpec``) hardens the detector; ``inject`` (an ``InjectBatch``)
-    lands a serving window's arrivals."""
+    lands a serving window's arrivals. ``rows`` (``core.rows``) are the
+    rows the state holds: all of them but on a process of a mesh over
+    several processes."""
     if is_packed(state):
         from tpu_gossip_torch.sim.packed_engine import gossip_round_packed
 
-        return gossip_round_packed(state, cfg, plan, tail=tail, **later)
+        return gossip_round_packed(state, cfg, plan, tail=tail, rows=rows, **later)
 
     def disseminate(tx, tr, rc, kp, kq, rctl):
-        return _disseminate_local(state, cfg, tx, tr, rc, kp, kq, plan, rctl)
+        return _disseminate_local(state, cfg, tx, tr, rc, kp, kq, plan, rctl, rows)
 
-    return run_protocol_round(state, cfg, disseminate, tail=tail, **later)
+    return run_protocol_round(state, cfg, disseminate, tail=tail, rows=rows, **later)
 
 
 def _stack(rows: list[RoundStats]) -> RoundStats:

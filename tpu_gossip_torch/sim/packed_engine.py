@@ -53,6 +53,7 @@ import torch
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.matching_topology import MatchingPlan
 from tpu_gossip_torch.core.packed import FLAG_PLANES, PackedSwarm, bit_column, pack_bits, pack_flags, unpack_bits, unpack_flag
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.kernels import packed_ops as po
 from tpu_gossip_torch.kernels.matching import matching_flood, matching_sampled
 from tpu_gossip_torch.sim.stages import (Stage, adversary_keys, check_inject, check_later, control_stages,
@@ -97,7 +98,7 @@ def _delivery_shim(ps: PackedSwarm, flags: dict, seen_b: torch.Tensor):
 
 
 def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k_push, k_pull,
-                              plan=None, rctl=None):
+                              plan=None, rctl=None, rows=ALL_ROWS):
     """Single-device packed dissemination; returns ``(inc_w, msgs_sent)``.
 
     Word-native without re-wiring for exactly-k push and push-pull over
@@ -106,7 +107,8 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
     ``MatchingPlan`` (its pipeline moves the state's words, four to an
     int32 word). Every other cell runs the bool engine's delivery on
     decoded planes and packs the product. ``rctl`` is the controller's
-    round decision, taken as the bool engine takes it."""
+    round decision and ``rows`` the rows the state holds, taken as the
+    bool engine takes them."""
     from tpu_gossip_torch.kernels.gossip import push_fanout, sample_fanout_targets
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -120,7 +122,7 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
         role_b = unpack_bits(role_w, m)
         shim = _delivery_shim(ps, flags, unpack_bits(ps.seen, m))
         incoming, msgs_sent = _engine._disseminate_local(
-            shim, cfg, unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull, plan, rctl)
+            shim, cfg, unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull, plan, rctl, rows)
         return pack_bits(incoming), msgs_sent
 
     # the bool engine re-splits both keys; child 0 drives delivery
@@ -200,14 +202,15 @@ def _tail_stage_packed(cfg, tail: str, m: int) -> Stage:
 
 def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None, churn_faults: bool = False,
                                liveness=None, growth=None, stream=None, host_rng=None,
-                               host_rnd: int | None = None, control=None, inject=None) -> tuple[Stage, ...]:
+                               host_rnd: int | None = None, control=None, inject=None,
+                               rows=ALL_ROWS) -> tuple[Stage, ...]:
     """The packed stages of one round: the bool engine's row-level
     liveness, churn and growth stages (fault-aware and hardened as there),
     then the word tail, with a stream's age-out before it (the held
     buffer's column drop a packed AND) and its injection after it (the
     seen words decoded and packed again at that boundary), a serving
     batch's landing likewise, then the control stage on decoded planes."""
-    return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
+    return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth, rows=rows),
             *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m),
             *ingest_stages(inject, packed_m=m), *control_stages(cfg, control, packed_m=m))
 
@@ -216,7 +219,8 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
                          rnd, key, k_leave, k_join, receptive_w, *, tail: str = "fused", faults=None,
                          churn_faults: bool = False, fault_held_w=None, fstats=None, liveness=None,
                          k_accuse=None, k_forge=None, growth=None, stream=None, host_rng=None,
-                         host_rnd: int | None = None, control=None, rctl=None, pipe_buf_w=None, inject=None):
+                         host_rnd: int | None = None, control=None, rctl=None, pipe_buf_w=None, inject=None,
+                         rows=ALL_ROWS):
     """Word twin of ``sim.engine.advance_round``: the same stages with the
     slot planes as words under their usual names and the row flags as the
     decoded bools; the flags word is packed again once, at assembly.
@@ -224,7 +228,7 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
     None), ``fstats`` the round's fault counters; ``liveness``, the
     adversary arguments, ``growth``, ``stream``, ``control``, ``rctl``,
     ``pipe_buf_w`` (the stored in-flight words, a recycled column masked
-    out of them) and ``inject`` as in ``advance_round``."""
+    out of them), ``inject`` and ``rows`` as in ``advance_round``."""
     values = {
         "row_ptr": ps.row_ptr, "col_idx": ps.col_idx, "exists": flags["exists"],
         "seen": ps.seen, "forwarded": ps.forwarded,
@@ -245,7 +249,7 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
     values = run_stages(_build_round_stages_packed(cfg, ps.msg_slots, tail=tail, faults=faults,
                                                    churn_faults=churn_faults, liveness=liveness, growth=growth,
                                                    stream=stream, host_rng=host_rng, host_rnd=host_rnd,
-                                                   control=control, inject=inject),
+                                                   control=control, inject=inject, rows=rows),
                         values)
     if pipe_buf_w is not None and values["expired"] is not None:
         pipe_buf_w = po.mask_cols(pipe_buf_w, pack_bits(~values["expired"]))
@@ -308,7 +312,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
 def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_factory=None, *,
                               tail: str = "fused", scenario=None, host_round: int | None = None, liveness=None,
                               growth=None, stream=None, host_rng=None, control=None, pipeline=None, inject=None,
-                              **later):
+                              rows=ALL_ROWS, **later):
     """Word twin of ``sim.stages.run_protocol_round``: the same 5-way key
     split, the word head, ``deliver_words(tx_w, role_w, flags, k_push,
     k_pull, rctl) -> (inc_w, msgs_sent)``, then the packed stages. Under a
@@ -350,7 +354,7 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
         deliver = deliver_bool_factory(flags, seen_b)
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, shim, fault_round(ps, host_round), unpack_bits(tx_w, m), role_b, role_b, k_push, k_pull,
-            lambda tx, tr, rc, kp, kq: deliver(tx, tr, rc, kp, kq, rctl), k_flood=k_flood)
+            lambda tx, tr, rc, kp, kq: deliver(tx, tr, rc, kp, kq, rctl), k_flood=k_flood, rows=rows)
         inc_w, tx_eff_w, held_w = pack_bits(incoming), pack_bits(tx_eff), pack_bits(held)
     inc_w, pipe_buf_w = pipeline_swap(pipeline, ps.pipe_buf, inc_w)
     return advance_round_packed(ps, cfg, flags, inc_w, msgs_sent, tx_eff_w, rnd, key, k_leave, k_join, role_w,
@@ -358,23 +362,24 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
                                 fault_held_w=held_w, fstats=telem, liveness=liveness, k_accuse=k_accuse,
                                 k_forge=k_forge, growth=growth, stream=stream, host_rng=host_rng,
                                 host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
-                                pipe_buf_w=pipe_buf_w, inject=inject)
+                                pipe_buf_w=pipe_buf_w, inject=inject, rows=rows)
 
 
-def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", **later):
+def gossip_round_packed(ps: PackedSwarm, cfg, plan=None, *, tail: str = "fused", rows=ALL_ROWS, **later):
     """Advance a packed swarm one round on its words; returns ``(new packed
-    state, RoundStats)``, bit-identical to the bool round."""
+    state, RoundStats)``, bit-identical to the bool round (``rows`` as
+    there)."""
     from tpu_gossip_torch.sim import engine as _engine
 
     def deliver_words(tx_w, role_w, flags, kp, kq, rctl):
-        return _disseminate_local_packed(ps, cfg, flags, role_w, tx_w, kp, kq, plan, rctl)
+        return _disseminate_local_packed(ps, cfg, flags, role_w, tx_w, kp, kq, plan, rctl, rows)
 
     def deliver_bool_factory(flags, seen_b):
         shim = _delivery_shim(ps, flags, seen_b)
 
         def deliver(tx, tr, rc, kp, kq, rctl):
-            return _engine._disseminate_local(shim, cfg, tx, tr, rc, kp, kq, plan, rctl)
+            return _engine._disseminate_local(shim, cfg, tx, tr, rc, kp, kq, plan, rctl, rows)
 
         return deliver
 
-    return run_protocol_round_packed(ps, cfg, deliver_words, deliver_bool_factory, tail=tail, **later)
+    return run_protocol_round_packed(ps, cfg, deliver_words, deliver_bool_factory, tail=tail, rows=rows, **later)

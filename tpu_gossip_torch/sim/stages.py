@@ -41,6 +41,7 @@ from typing import Callable, Mapping
 import torch
 
 from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.rows import ALL_ROWS
 
 __all__ = ["Stage", "StageView", "run_stages", "PipelineSpec", "compile_pipeline", "build_round_stages",
            "stream_stages", "control_stages", "ingest_stages", "check_inject",
@@ -121,7 +122,7 @@ def run_stages(stages: tuple[Stage, ...], values: dict) -> dict:
     return values
 
 
-def _liveness_stage(cfg, faults=None, liveness=None) -> Stage:
+def _liveness_stage(cfg, faults=None, liveness=None, rows=ALL_ROWS) -> Stage:
     """Heartbeat emission and failure detection (row-level). Under a
     scenario (``faults``, the round's ``RoundFaults``) a blacked-out row is
     a silent one for the phase: it emits no heartbeat and answers no
@@ -135,7 +136,9 @@ def _liveness_stage(cfg, faults=None, liveness=None) -> Stage:
     are released through ``degree_credit`` as it leaves the rewired set.
     Adversaries emit only while alive, undeclared, not quarantined and not
     blacked out. The stage then also writes ``ltel``, the round's
-    counters. ``liveness=None`` carries the suspicion planes untouched."""
+    counters. ``liveness=None`` carries the suspicion planes untouched.
+    ``rows`` (``core.rows``) are the rows the planes hold, which the
+    adversaries' draws, reads and writes and the release cross."""
     from tpu_gossip_torch.kernels.liveness import (LivenessTelemetry, detect_failures, emit_heartbeats,
                                                     forge_heartbeats, quorum_liveness)
 
@@ -170,19 +173,20 @@ def _liveness_stage(cfg, faults=None, liveness=None) -> Stage:
             can_emit = ctx["alive"] & ~ctx["declared_dead"] & ~ctx["quarantine"] & ~rf.blackout
         if has_forgers:
             last_hb, adv_forged = forge_heartbeats(last_hb, ctx["suspect_round"], rf.forger & can_emit, ctx["rnd"],
-                                                   ctx["k_forge"], rf.forge_fanout, rf.forge_width)
+                                                   ctx["k_forge"], rf.forge_fanout, rf.forge_width, rows)
         out = quorum_liveness(
             liveness, last_hb, ctx["alive"], silent_now, ctx["declared_dead"], ctx["suspect_round"],
             ctx["suspect_mark"], ctx["quarantine"], ctx["exists"], ctx["rnd"], cfg.timeout_rounds,
             cfg.detect_period_rounds, k_accuse=ctx["k_accuse"] if has_accusers else None,
-            accuser_ok=rf.accuser & can_emit if has_accusers else None,
+            accuser_ok=rf.accuser & can_emit if has_accusers else None, rows=rows,
         )
         # a quarantined row rejoins its CSR edges: its fresh targets'
         # credit goes back and it leaves the rewired set
         rewired, rewire_targets = ctx["rewired"], ctx["rewire_targets"]
         newly_q = out["newly_quarantined"]
         q_rw = newly_q & rewired
-        degree_credit = _add_at(ctx["degree_credit"], rewire_targets, q_rw[:, None] & (rewire_targets >= 0), -1)
+        degree_credit = _add_at(ctx["degree_credit"], (rewire_targets, q_rw[:, None] & (rewire_targets >= 0), -1),
+                                rows=rows)
         return {
             "last_hb": out["last_hb"], "declared_dead": out["declared_dead"],
             "suspect_round": out["suspect_round"], "suspect_mark": out["suspect_mark"],
@@ -214,14 +218,18 @@ def _below(u: torch.Tensor, p: float) -> torch.Tensor:
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
 
 
-def _add_at(vec: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor, delta: int) -> torch.Tensor:
-    """``vec.at[where(keep, idx, n)].add(delta, mode="drop")``: the dropped
-    entries land on a spare slot past the end."""
-    n = vec.shape[0]
-    tgt = torch.where(keep, idx.to(torch.int64), n).reshape(-1)
-    out = torch.cat([vec, vec.new_zeros(1)])
-    out.index_add_(0, tgt, torch.full(tgt.shape, delta, dtype=vec.dtype, device=vec.device))
-    return out[:n]
+def _add_at(vec: torch.Tensor, *terms, rows=ALL_ROWS) -> torch.Tensor:
+    """``vec.at[where(keep, idx, n)].add(delta, mode="drop")`` for each
+    ``(idx, keep, delta)`` term in turn, ``idx`` rows of the swarm: the
+    terms add into a plane over the swarm's rows (the dropped entries on a
+    spare slot past the end), whose integer sum over the holders of
+    ``rows`` (``core.rows``) lands on ``vec``."""
+    n_all = rows.total(vec.shape[0])
+    out = vec.new_zeros(n_all + 1)
+    for idx, keep, delta in terms:
+        tgt = torch.where(keep, idx.to(torch.int64), n_all).reshape(-1)
+        out.index_add_(0, tgt, torch.full(tgt.shape, delta, dtype=vec.dtype, device=vec.device))
+    return vec + rows.reduce(out[:n_all], "sum", label="credit")
 
 
 def _burst_threshold(p_cfg: float, burst: torch.Tensor, p_burst: torch.Tensor) -> torch.Tensor:
@@ -233,7 +241,7 @@ def _burst_threshold(p_cfg: float, burst: torch.Tensor, p_burst: torch.Tensor) -
     return 1.0 - keep_cfg * (1.0 - extra)
 
 
-def _churn_stage(cfg, burst: bool = False, defended: bool = False) -> Stage:
+def _churn_stage(cfg, burst: bool = False, defended: bool = False, rows=ALL_ROWS) -> Stage:
     """Poisson churn, row-level half (BASELINE config 5), and the
     re-wiring draws: departures, rejoins of vacant member slots with fresh
     row state, and each rejoiner's ``rewire_slots`` degree-preferential
@@ -249,7 +257,14 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False) -> Stage:
     quorum detector is on): a quarantined rejoiner takes no fresh edges
     and rejoins on its slot's CSR edges (``fresh_rw = fresh &
     ~quarantine``); only masks move, so with nobody quarantined the round
-    is unchanged."""
+    is unchanged.
+
+    The planes hold ``rows`` (``core.rows``; on a process of a mesh over
+    several processes, its block): the draws are their block of each of
+    the swarm's draws, the rejoiners' endpoints are checked against the
+    swarm's ``exists``, their credit lands on the targets' holders, and
+    the compact table is the swarm's first ``cap`` rejoiners (the gathered
+    ``fresh_rw``), each holder keeping the ones it holds."""
     reads = ("alive", "silent", "exists", "last_hb", "declared_dead", "rewired", "rewire_targets",
              "degree_credit", "row_ptr", "col_idx", "rnd", "k_leave", "k_join") + (("faults",) if burst else ()) + (
                  ("quarantine",) if defended else ())
@@ -263,14 +278,16 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False) -> Stage:
         rewire_targets, degree_credit = ctx["rewire_targets"], ctx["degree_credit"]
         fresh = None
         faults = ctx["faults"] if burst else None
+        n = alive.shape[0]
+        lo, n_all = rows.lo, rows.total(n)
         if cfg.churn_leave_prob > 0.0 or burst:
-            u = prng.uniform(ctx["k_leave"], tuple(alive.shape))
+            u = prng.uniform(ctx["k_leave"], tuple(alive.shape), offset=lo)
             gone = (u < _burst_threshold(cfg.churn_leave_prob, faults.burst, faults.leave) if burst
                     else _below(u, cfg.churn_leave_prob))
             alive = alive & ~gone
         if cfg.churn_join_prob > 0.0 or burst:
             k_join, k_rw = prng.split(ctx["k_join"])
-            u = prng.uniform(k_join, tuple(alive.shape))
+            u = prng.uniform(k_join, tuple(alive.shape), offset=lo)
             back = (u < _burst_threshold(cfg.churn_join_prob, faults.burst, faults.join) if burst
                     else _below(u, cfg.churn_join_prob))
             fresh = ~alive & ctx["exists"] & back
@@ -282,25 +299,32 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False) -> Stage:
             fresh_rw = fresh & ~ctx["quarantine"] if defended else fresh
             col_idx = ctx["col_idx"]
             if cfg.rewire_slots > 0 and col_idx.shape[0] > 0:
-                n, s = rewire_targets.shape
+                s = rewire_targets.shape[1]
                 e_real = torch.clamp(ctx["row_ptr"][-1], min=1)
-                cap = min(cfg.rewire_compact_cap, n)
+                cap = min(cfg.rewire_compact_cap, n_all)
                 if cap == 0:
-                    jrows = torch.arange(n, dtype=torch.int64, device=alive.device)
+                    (exists_all,) = rows.gather(ctx["exists"], label="churn")
+                    jrows = torch.arange(lo, lo + n, dtype=torch.int64, device=alive.device)
+                    draws = col_idx[prng.randint(k_rw, (n, s), 0, e_real, lo * s).to(torch.int64)]
                 else:
-                    jrows, jlive = first_rows(fresh_rw, cap)
-                draws = col_idx[prng.randint(k_rw, (jrows.shape[0], s), 0, e_real).to(torch.int64)]
-                ok = ctx["exists"][draws.to(torch.int64)] & (draws.to(torch.int64) != jrows[:, None])
+                    exists_all, fresh_all = rows.gather(ctx["exists"], fresh_rw, label="churn")
+                    # the swarm's first cap rejoiners: every holder draws
+                    # the one (cap, s) block and keeps the rows it holds
+                    jrows, jlive = first_rows(fresh_all, cap)
+                    mine = jlive & (jrows >= lo) & (jrows < lo + n)
+                    draws = col_idx[prng.randint(k_rw, (cap, s), 0, e_real).to(torch.int64)]
+                ok = exists_all[draws.to(torch.int64)] & (draws.to(torch.int64) != jrows[:, None])
                 draws = torch.where(ok, draws, -1)
                 released = (fresh_rw & rewired)[:, None] & (rewire_targets >= 0)
-                degree_credit = _add_at(degree_credit, rewire_targets, released, -1)
                 if cap == 0:
-                    degree_credit = _add_at(degree_credit, draws, fresh_rw[:, None] & (draws >= 0), 1)
+                    degree_credit = _add_at(degree_credit, (rewire_targets, released, -1),
+                                            (draws, fresh_rw[:, None] & (draws >= 0), 1), rows=rows)
                     rewire_targets = torch.where(fresh_rw[:, None], draws, rewire_targets)
                     rewired = rewired | fresh_rw
                 else:
-                    degree_credit = _add_at(degree_credit, draws, jlive[:, None] & (draws >= 0), 1)
-                    sel = torch.where(jlive, jrows, n)
+                    degree_credit = _add_at(degree_credit, (rewire_targets, released, -1),
+                                            (draws, mine[:, None] & (draws >= 0), 1), rows=rows)
+                    sel = torch.where(mine, jrows - lo, n)
                     rewire_targets = torch.cat([rewire_targets, rewire_targets.new_zeros((1, s))])
                     rewire_targets[sel] = draws.to(rewire_targets.dtype)
                     rewire_targets = rewire_targets[:n]
@@ -517,28 +541,31 @@ def has_churn(cfg) -> bool:
     return cfg.churn_leave_prob > 0.0 or cfg.churn_join_prob > 0.0
 
 
-def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, growth=None) -> tuple[Stage, ...]:
+def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, growth=None,
+               rows=ALL_ROWS) -> tuple[Stage, ...]:
     """The row-level stages of one round, in JAX's order: liveness
     (reading the round's ``faults`` under a scenario, the quorum detector
     and the adversaries' half with ``liveness``), churn (when the config
     churns or the scenario has a churn burst, then in its burst form;
     defended with ``liveness``), then growth admission (with ``growth``, a
-    ``CompiledGrowth``)."""
+    ``CompiledGrowth``). ``rows`` (``core.rows``) are the rows the planes
+    hold."""
     burst = faults is not None and churn_faults
-    churn = (_churn_stage(cfg, burst, defended=liveness is not None),) if has_churn(cfg) or burst else ()
+    churn = (_churn_stage(cfg, burst, defended=liveness is not None, rows=rows),) if has_churn(cfg) or burst else ()
     grow = (_growth_stage(cfg, growth, faults is not None),) if growth is not None else ()
-    return (_liveness_stage(cfg, faults, liveness), *churn, *grow)
+    return (_liveness_stage(cfg, faults, liveness, rows), *churn, *grow)
 
 
 def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: bool = False,
                        liveness=None, growth=None, stream=None, host_rng=None,
-                       host_rnd: int | None = None, control=None, inject=None) -> tuple[Stage, ...]:
+                       host_rnd: int | None = None, control=None, inject=None,
+                       rows=ALL_ROWS) -> tuple[Stage, ...]:
     """The post-dissemination stages of one round: :func:`row_stages`,
     then, with a ``stream``, its age-out, the tail and its injection
     (:func:`stream_stages`), else the tail; then, with ``inject`` (an
     ``InjectBatch``), the ingest stage; then, with ``control``, the control
     stage."""
-    return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth),
+    return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth, rows=rows),
             *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd), *ingest_stages(inject),
             *control_stages(cfg, control))
 
@@ -607,7 +634,7 @@ def resolve_control(control, state, cfg):
 
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
                        host_round: int | None = None, liveness=None, growth=None, stream=None, host_rng=None,
-                       control=None, pipeline=None, inject=None, **later):
+                       control=None, pipeline=None, inject=None, rows=ALL_ROWS, **later):
     """One whole protocol round, engine-agnostic.
 
     ``disseminate(tx, transmitter, receptive, k_push, k_pull, rctl) ->
@@ -641,7 +668,9 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
     round that issued it. Depth 0 and None are the serial schedule.
     ``inject`` (an ``InjectBatch``) lands a live-serving window's arrivals
     after the tail and the stream's injection (:func:`_ingest_stage`); a
-    zero-count batch equals ``inject=None`` bit for bit.
+    zero-count batch equals ``inject=None`` bit for bit. ``rows``
+    (``core.rows``) are the rows the state holds: all of them but on a
+    process of a mesh over several processes.
     """
     from tpu_gossip_torch.sim import engine as _engine
 
@@ -667,14 +696,15 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
 
         incoming, msgs_sent, tx_eff, held, telem, rf = scenario_dissemination(
             scenario, state, fault_round(state, host_round), transmit, transmitter, receptive,
-            k_push, k_pull, lambda tx, tr, rc, kp, kq: disseminate(tx, tr, rc, kp, kq, rctl), k_flood=k_flood)
+            k_push, k_pull, lambda tx, tr, rc, kp, kq: disseminate(tx, tr, rc, kp, kq, rctl), k_flood=k_flood,
+            rows=rows)
     incoming, pipe_buf = pipeline_swap(pipeline, state.pipe_buf, incoming)
     return _engine.advance_round(
         state, cfg, incoming, msgs_sent, tx_eff, rnd, key, k_leave, k_join, receptive, tail=tail,
         faults=rf, churn_faults=scenario is not None and scenario.has_churn, fault_held=held, fstats=telem,
         liveness=liveness, k_accuse=k_accuse, k_forge=k_forge, growth=growth, stream=stream,
         host_rng=host_rng, host_rnd=None if host_round is None else host_round + 1, control=control, rctl=rctl,
-        pipe_buf=pipe_buf, inject=inject,
+        pipe_buf=pipe_buf, inject=inject, rows=rows,
     )
 
 
