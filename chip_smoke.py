@@ -210,8 +210,16 @@ on their flat digests and pin 7 ``--packed``, then the composed 1M run
 rank (K1, K2, K3; K4 packed; K6, K3 bucketed), its rounds and exchange
 timed by CUDA events, each side path's collectives timed and counted in
 bytes, the rank's peak, and each kernel the run launched held against its
-plain version on the operands of its first calls (``KernelTap``). It
-prints phase 13's to 17's seconds and the script's. Each check of a checkpoint
+plain version on the operands of its first calls (``KernelTap``); 17f
+(ROADMAP item 11d parts 2-3) the same ranks through ``run_sim.main`` under
+growth, a stream and the controller: the 1M matching run growing by the
+flash crowd's join bursts, a stream at rate 2 and control at 0.9 with a
+refresh every 4 rounds (40 rounds) on ``cluster_planes_grow_1m``, the
+same argv at n=20000 ``--packed`` on ``cluster_planes_grow_20k`` (its
+unpacked pin), and the bucketed twin at n=20000 with ``--staircase`` on
+``cluster_planes_grow_bucketed``, measured as 17e's runs and the 1M run's
+growth stage timed by CUDA events in its second pass. It prints phase
+13's to 17's seconds and the script's. Each check of a checkpoint
 written on one device and resumed on the other (8e, 9c, 10d, 11d, 12d)
 runs its two directions at once, 10c runs the first 32 rounds of
 ``bench_grow``'s schedule and 13d the first 5 of ``bench_fleet``'s 10, and
@@ -3368,11 +3376,11 @@ KERNELS = (  # (name, launch key, source, TPU kernel it replaces, check key)
      "tpu_gossip/kernels/pallas_segment.py:509", "stream_segment"),
 )
 PROBES = (  # (name, row of time_probes, the Pallas probe it replaces)
-    ("P1 lane_gather (pallas_gather_caps, axis 1)", "P1", "experiments/pallas_gather_caps.py:28"),
-    ("P2 lane_gather (pallas_wide_lane_gather)", "P2", "experiments/pallas_wide_lane_gather.py:30"),
-    ("P3 sublane_gather (gather_probe)", "P3", "experiments/gather_probe.py:140"),
-    ("P4 lane_gather (perm_pipeline_probe)", "P4", "experiments/perm_pipeline_probe.py:69"),
-    ("P5 sublane_gather group 8 (perm_pipeline_probe)", "P5", "experiments/perm_pipeline_probe.py:97"),
+    ("P1 lane_gather (pallas_gather_caps, axis 1)", "P1", "experiments/pallas_gather_caps.py:29"),
+    ("P2 lane_gather (pallas_wide_lane_gather)", "P2", "experiments/pallas_wide_lane_gather.py:31"),
+    ("P3 sublane_gather (gather_probe)", "P3", "experiments/gather_probe.py:141"),
+    ("P4 lane_gather (perm_pipeline_probe)", "P4", "experiments/perm_pipeline_probe.py:70"),
+    ("P5 sublane_gather group 8 (perm_pipeline_probe)", "P5", "experiments/perm_pipeline_probe.py:98"),
 )
 # the launches each path must make, and must not make, per round (None: at
 # least one; a key left out is not checked)
@@ -4638,12 +4646,22 @@ def cluster_bucketed_run(dev, setup: dict, what: str) -> dict:
                 launches={k: v for k, v in launches.items() if v})
 
 
-# phase 17e: the row planes (ROADMAP item 11d part 1) through run_sim in each rank
+# phase 17e: the row planes (ROADMAP item 11d part 1) through run_sim in each rank;
+# 17f: growth, streams and control (parts 2-3) in the same ranks
 PLANES_MESH_ENTRIES = (4, 5, 6)  # reference_pins.json["mesh"]: the churn, split-brain and siege runs
 PLANES_MATCHING_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail": 1}
 PLANES_PACKED_PATH = {"lane_shuffle": None, "fold_planes_or": None, "round_tail_words": 1}
 PLANES_BUCKETED_PATH = {"stream_segment": None, "round_tail": 1}
 PLANES_TIMING = ("wall_seconds", "ms_per_round", "peers_rounds_per_sec", "swarm_rounds_per_sec")
+# the runs whose second pass times the side paths (and, growing, the growth stage)
+PLANES_TIMED = ("cluster_planes_1m", "cluster_planes_grow_1m")
+# 17f's pins: (key, run it --packed, the launches its path needs)
+GROW_RUNS = (("cluster_planes_grow_1m", False, PLANES_MATCHING_PATH),
+             ("cluster_planes_grow_20k", True, PLANES_PACKED_PATH),
+             ("cluster_planes_grow_bucketed", False, PLANES_BUCKETED_PATH))
+# the summary's floats and their tolerances against a fold pin (the gamma's
+# float sum adds the ranks' partials in rank order)
+PLANES_FLOATS = {"degree_gamma": 1e-5}
 
 
 class KernelTap:
@@ -4719,6 +4737,34 @@ class KernelTap:
         return errs
 
 
+class GrowthMeter:
+    """CUDA events around every ``growth.engine.apply_growth`` (the growth
+    stage's body) while installed."""
+
+    def __init__(self):
+        from tpu_gossip_torch.growth import engine as ge
+
+        self._mod, self._inner, self.events = ge, ge.apply_growth, []
+
+    def __call__(self, *args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self._inner(*args, **kw)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def __enter__(self):
+        self._mod.apply_growth = self
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.apply_growth = self._inner
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
 class RoundMeter:
     """CUDA events around every ``dist.gossip_round_dist`` while installed."""
 
@@ -4747,8 +4793,9 @@ class RoundMeter:
 
 
 def planes_runs(root: Path) -> list:
-    """17e's runs: ``(name, run_sim argv without the cluster flags, the pin's
-    summary, the launches the path needs)``, in order."""
+    """17e's and 17f's runs: ``(phase, name, run_sim argv without the
+    cluster flags, the pin's summary, the launches the path needs)``, in
+    order."""
     pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
 
     def rooted(argv):  # a scenario file named from the checkout's root
@@ -4757,25 +4804,30 @@ def planes_runs(root: Path) -> list:
     runs = []
     for i in PLANES_MESH_ENTRIES:
         ref = pins["mesh"][i]
-        runs.append((f"mesh pin {i + 1}", rooted([*ref["argv"], "--hosts", "2"]), ref["summary"], PLANES_MATCHING_PATH))
+        runs.append(("17e", f"mesh pin {i + 1}", rooted([*ref["argv"], "--hosts", "2"]), ref["summary"],
+                     PLANES_MATCHING_PATH))
     ref = pins["mesh"][PLANES_MESH_ENTRIES[-1]]
-    runs.append((f"mesh pin {PLANES_MESH_ENTRIES[-1] + 1} packed", rooted([*ref["argv"], "--hosts", "2", "--packed"]),
-                 ref["summary"], PLANES_PACKED_PATH))
+    runs.append(("17e", f"mesh pin {PLANES_MESH_ENTRIES[-1] + 1} packed",
+                 rooted([*ref["argv"], "--hosts", "2", "--packed"]), ref["summary"], PLANES_PACKED_PATH))
     for key, path in (("cluster_planes_1m", PLANES_MATCHING_PATH), ("cluster_planes_bucketed", PLANES_BUCKETED_PATH)):
-        runs.append((key, rooted(pins[key]["argv"]), pins[key]["summary"], path))  # (their argv holds --hosts 2)
+        runs.append(("17e", key, rooted(pins[key]["argv"]), pins[key]["summary"], path))  # (argv holds --hosts 2)
+    for key, packed, path in GROW_RUNS:
+        runs.append(("17f", key + (" packed" if packed else ""),
+                     rooted(pins[key]["argv"] + (["--packed"] if packed else [])), pins[key]["summary"], path))
     return runs
 
 
 def planes_rank(root: Path, dev, rank: int, coordinator: list[str]) -> dict:
-    """17e in one rank: each of :func:`planes_runs` through ``run_sim.main``
-    in this process (the group already joined), launches counted from 0,
-    the rounds and the exchange timed by CUDA events, each side path's
-    collectives and bytes counted, the peak; then each kernel the run
-    launched held against its plain version on the operands of its first
-    calls. The side paths' own time drains the card around each
-    collective, so it is read in a second pass of the composed 1M run
-    alone, which also gives that run's rounds with the drains in. Rank 0
-    returns the run's summary line."""
+    """17e and 17f in one rank: each of :func:`planes_runs` through
+    ``run_sim.main`` in this process (the group already joined), launches
+    counted from 0, the rounds and the exchange timed by CUDA events, each
+    side path's collectives and bytes counted, the peak; then each kernel
+    the run launched held against its plain version on the operands of its
+    first calls. The side paths' own time drains the card around each
+    collective, so it is read in a second pass of each 1M run of
+    :data:`PLANES_TIMED` alone, which also gives that run's rounds with the
+    drains in and the growth stage's time. Rank 0 returns the run's
+    summary line."""
     import contextlib
     import io
 
@@ -4792,41 +4844,43 @@ def planes_rank(root: Path, dev, rank: int, coordinator: list[str]) -> dict:
         buf = io.StringIO()
         t0 = time.perf_counter()
         with ExchangeMeter() as meter, RoundMeter() as rm, KernelTap() as tap, topo.time_side_paths(timed), \
-                contextlib.redirect_stdout(buf):
+                GrowthMeter() as gm, contextlib.redirect_stdout(buf):
             rc = tcli.main([*argv, *coordinator])
         torch.cuda.synchronize(dev)
-        return rc, time.perf_counter() - t0, meter, rm, tap, buf
+        return rc, time.perf_counter() - t0, meter, rm, tap, buf, gm
 
     out = {}
-    for name, argv, _, path in planes_runs(root):
+    for phase, name, argv, _, path in planes_runs(root):
         rounds = int(argv[argv.index("--rounds") + 1])
-        rc, wall, meter, rm, tap, buf = one_pass(argv, False)
+        rc, wall, meter, rm, tap, buf, _ = one_pass(argv, False)
         launches = {k: v for k, v in native.LAUNCHES.items() if v}
         if rc != 0:
-            raise AssertionError(f"17e rank {rank} {name}: run_sim exited {rc}")
+            raise AssertionError(f"{phase} rank {rank} {name}: run_sim exited {rc}")
         if len(rm.events) != rounds:
-            raise AssertionError(f"17e rank {rank} {name}: {len(rm.events)} mesh rounds, not {rounds}")
-        check_launches(f"17e rank {rank} {name}", dict(native.LAUNCHES), path, rounds)
+            raise AssertionError(f"{phase} rank {rank} {name}: {len(rm.events)} mesh rounds, not {rounds}")
+        check_launches(f"{phase} rank {rank} {name}", dict(native.LAUNCHES), path, rounds)
         peak = torch.cuda.max_memory_allocated(dev)
         side = {k: dict(calls=v[0] / rounds, bytes=v[1] / rounds, ms="not timed")
                 for k, v in sorted(topo.SIDE_PATHS.items())}
         errs = tap.check()
         need = {"fold_classes" if k == "fold_planes_or" else k for k in path}
         if dev.type == "cuda" and need - {k.split()[0] for k in errs}:
-            raise AssertionError(f"17e rank {rank} {name}: tapped only {sorted(errs)}, needs {sorted(need)}")
+            raise AssertionError(f"{phase} rank {rank} {name}: tapped only {sorted(errs)}, needs {sorted(need)}")
         lines = buf.getvalue().strip().splitlines()
         out[name] = dict(
             summary=json.loads(lines[-1]) if rank == 0 else None, rounds=rounds, wall_s=wall,
             ms_round=rm.ms() / rounds, exchange_ms=meter.ms() / rounds, exchange_bytes=meter.bytes // rounds,
             side=side, launches=launches, peak=peak, max_abs_err=errs)
         torch.distributed.barrier()
-        if name == "cluster_planes_1m":
-            rc, _, _, rm, _, _ = one_pass(argv, True)
+        if name in PLANES_TIMED:
+            rc, _, _, rm, _, _, gm = one_pass(argv, True)
             if rc != 0:
-                raise AssertionError(f"17e rank {rank} {name} (side paths timed): run_sim exited {rc}")
+                raise AssertionError(f"{phase} rank {rank} {name} (side paths timed): run_sim exited {rc}")
             for k, v in topo.SIDE_PATHS.items():
                 side[k]["ms"] = v[2] * 1e3 / rounds
             out[name]["ms_round_side_timed"] = rm.ms() / rounds
+            if gm.events:
+                out[name]["growth_ms"] = gm.ms() / rounds
             torch.distributed.barrier()
     return out
 
@@ -4835,9 +4889,10 @@ def cluster_rank(argv: list[str]) -> int:
     """One rank of phase 17 (``python -m chip_smoke --cluster-rank DIR``
     with the launcher's flags): 17a's dense and hier runs, 17c's
     checkpoint at round 8 into DIR (rank 0 writes), 17b's bucketed run,
-    17e's row-plane runs (:func:`planes_rank`); one result line. Before each run the rank holds K1 and K2 (on its lane
-    tables and its own class layout), K3 (at its state rows) and K6 (on its
-    shards' plans) against their plain versions on its own inputs."""
+    17e's and 17f's plane runs (:func:`planes_rank`); one result line.
+    Before each run the rank holds K1 and K2 (on its lane tables and its
+    own class layout), K3 (at its state rows) and K6 (on its shards' plans)
+    against their plain versions on its own inputs."""
     from tpu_gossip_torch import dist
     from tpu_gossip_torch.ckpt import host_stats, save_checkpoint
     from tpu_gossip_torch.cluster import make_cluster_mesh
@@ -4901,9 +4956,10 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     and after in turns; 17b: 4b's graph on the S = 2 bucketed mesh through
     K6, a shard a rank, against its one-process twin; 17c: the ranks'
     checkpoint at round 8 resumed in one process (--hosts 1) onto the pin;
-    17d: NCCL with two ranks on one card refused, exit 2; 17e: the row
-    planes' runs of :func:`planes_runs` through ``run_sim`` in the same
-    ranks, each onto its pin (:func:`check_planes`)."""
+    17d: NCCL with two ranks on one card refused, exit 2; 17e and 17f: the
+    row planes', growth's, the stream's and the controller's runs of
+    :func:`planes_runs` through ``run_sim`` in the same ranks, each onto
+    its pin (:func:`check_planes`)."""
     import io
     import tempfile
 
@@ -4992,7 +5048,9 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     if before["digest"] != pin["dense"]["state_digest"] or after["digest"] != pin["dense"]["state_digest"]:
         raise AssertionError("17a: the one-process mesh left the pin")
     out["17ab"] = dict(seconds=time.perf_counter() - t0, ranks_s=ranks_s)
-    out["17e"] = dict(seconds=sum(p["wall_s"] for p in ranks[0]["planes"].values()))
+    for phase in ("17e", "17f"):
+        out[phase] = dict(seconds=sum(ranks[0]["planes"][name]["wall_s"] for ph, name, *_ in planes_runs(root)
+                                      if ph == phase))
     check_planes(root, card, ranks)
 
     t0 = time.perf_counter()
@@ -5023,11 +5081,12 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
 
 
 def check_planes(root: Path, card: str, ranks: dict) -> None:
-    """17e's results: rank 0's summary of each run equal to its pin (the
-    timing fields aside, the packed key aside on the packed run, the floats
-    within 1e-6), each rank's kernels equal to their plain versions on its
-    own operands; one line a rank a run."""
-    for name, argv, want, _ in planes_runs(root):
+    """17e's and 17f's results: rank 0's summary of each run equal to its
+    pin (the timing fields aside, the packed key aside on the packed run,
+    the floats within 1e-6, the degree gamma within 1e-5), each rank's
+    kernels equal to their plain versions on its own operands; one line a
+    rank a run."""
+    for phase, name, argv, want, _ in planes_runs(root):
         got = dict(ranks[0]["planes"][name]["summary"])
         want = dict(want)
         for k in PLANES_TIMING:
@@ -5038,24 +5097,25 @@ def check_planes(root: Path, card: str, ranks: dict) -> None:
             want.pop("packed", None)
         floats = [k for k in got if isinstance(got[k], float)]
         if {k: v for k, v in got.items() if k not in floats} != {k: v for k, v in want.items() if k not in floats} \
-                or any(abs(got[k] - want[k]) > 1e-6 for k in floats):
-            raise AssertionError(f"17e {name}: rank 0's summary {got} != the pin's {want}")
+                or any(abs(got[k] - want[k]) > PLANES_FLOATS.get(k, 1e-6) for k in floats):
+            raise AssertionError(f"{phase} {name}: rank 0's summary {got} != the pin's {want}")
         for r, res in sorted(ranks.items()):
             p = res["planes"][name]
             if set(p["max_abs_err"].values()) != {0}:
-                raise AssertionError(f"17e rank {r} {name}: a kernel disagrees with its plain version on the rank's "
-                                     f"operands: {p['max_abs_err']}")
-            print(f"[{card}] 17e rank {r} of {CLUSTER_HOSTS} ({CLUSTER_PER} shards) {name} ({p['rounds']} rounds, "
+                raise AssertionError(f"{phase} rank {r} {name}: a kernel disagrees with its plain version on the "
+                                     f"rank's operands: {p['max_abs_err']}")
+            growth = f", the growth stage {p['growth_ms']} ms/round (second pass)" if "growth_ms" in p else ""
+            print(f"[{card}] {phase} rank {r} of {CLUSTER_HOSTS} ({CLUSTER_PER} shards) {name} ({p['rounds']} rounds, "
                   f"{' '.join(argv)}): {p['ms_round']} ms/round by CUDA events ({p['wall_s']} s through run_sim, "
                   f"the build included), the exchange {p['exchange_ms']} ms/round ({p['exchange_bytes']} B shipped to "
                   f"the other rank a round), the side paths a round {p['side']} (their ms from a second pass, "
-                  f"{p.get('ms_round_side_timed', 'none')} ms/round with the card drained around each), launches "
-                  f"{p['launches']}, peak "
+                  f"{p.get('ms_round_side_timed', 'none')} ms/round with the card drained around each){growth}, "
+                  f"launches {p['launches']}, peak "
                   f"max_memory_allocated {p['peak']} B, kernels on the rank's own operands max_abs_err "
                   f"{p['max_abs_err']}; digests on the pin" if r == 0 else
-                  f"[{card}] 17e rank {r} {name}: {p['ms_round']} ms/round, the exchange {p['exchange_ms']} "
+                  f"[{card}] {phase} rank {r} {name}: {p['ms_round']} ms/round, the exchange {p['exchange_ms']} "
                   f"ms/round ({p['exchange_bytes']} B), the side paths {p['side']} (second pass "
-                  f"{p.get('ms_round_side_timed', 'none')} ms/round), launches {p['launches']}, peak "
+                  f"{p.get('ms_round_side_timed', 'none')} ms/round){growth}, launches {p['launches']}, peak "
                   f"{p['peak']} B, kernels max_abs_err {p['max_abs_err']}", flush=True)
 
 
@@ -5387,7 +5447,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     print(f"[{card}] phase 16: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in simnet.items()} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
-    # phase 17: several processes, two gloo ranks sharing the card (17a-17d)
+    # phase 17: several processes, two gloo ranks sharing the card (17a-17f)
     t0 = time.perf_counter()
     cluster = phase_cluster(root, dev, card)
     print(f"[{card}] phase 17: {time.perf_counter() - t0:.2f} s; by part "

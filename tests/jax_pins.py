@@ -28,6 +28,10 @@ recomputes. The pins of ``tpu_gossip_torch/reference_pins.json`` that
         python -m tests.jax_pins write cluster               # the (hosts, devices) cells and runs
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python -m tests.jax_pins dist_matching_1m_hier       # phase 17a's hier leg
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -m tests.jax_pins cluster_grow_pins           # phase 17f's three pins
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python -c "from tests import jax_pins as J; J.write('stream_runs')"
 """
 
 from __future__ import annotations
@@ -390,6 +394,14 @@ def stream_matching_case(mode: str, law: str, compose) -> dict:
     return {**out, "fields": {f: field_digest(v) for f, v in out["fields"].items()}}
 
 
+def stream_runs_case(name: str) -> dict:
+    """The JAX half of ``tests/test_torch_stream_runs.py``'s run ``name``
+    (``jax_stream_run`` there)."""
+    from tests.test_torch_stream_runs import jax_stream_run
+
+    return jax_stream_run(name)
+
+
 def fold_classes_case(case: str, op: str) -> str:
     """The JAX half of ``tests/test_torch_fold_classes.py``'s
     ``test_reduce_classes_equals_jax`` (``jax_fold_case`` there)."""
@@ -526,6 +538,13 @@ CLUSTER_CLI = {
 
 PLANES_CHURN = ["--churn-leave", "0.002", "--churn-join", "0.02", "--rewire-slots", "2"]
 PLANES_SIEGE = ["--scenario", "scenarios/byzantine_siege.toml", "--quorum-k", "3"]
+# growth under the flash crowd's join bursts with a stream; a degraded
+# scenario with a stream, churn joins and the controller
+PLANES_GROW_FLASH = ["--grow", "3000", "--grow-rate", "16", "--rewire-slots", "2", "--stream", "3", "--slot-ttl", "24",
+                     "--scenario", "scenarios/flash_crowd_under_fire.toml"]
+PLANES_CONTROL_DEGRADED = ["--stream", "2", "--slot-ttl", "24", "--rewire-slots", "4", "--churn-join", "0.02",
+                           "--control", "0.85", "--refresh-every", "5", "--scenario",
+                           "scenarios/degraded_under_control.toml"]
 # the row planes' runs tests/test_torch_cluster_planes*.py launch as two
 # gloo ranks (ROADMAP item 11d part 1), each held to the JAX CLI's
 # one-process run on the same (2, 2) fold: name -> (mesh size, argv); a
@@ -542,6 +561,16 @@ CLUSTER_PLANES = {
                  "scenarios/lossy_links.toml", "--quorum-k", "3"]),
     "bucketed": (4, [*CLUSTER_B, "--seed", "4", "--hosts", "2", "--rounds", "56", "--staircase", *PLANES_CHURN,
                      *PLANES_SIEGE]),
+    # growth, streams and adaptive control (ROADMAP item 11d parts 2-3)
+    "grow_flash": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "30", *PLANES_GROW_FLASH]),
+    "control_degraded": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "30", *PLANES_CONTROL_DEGRADED]),
+    "control_hier_hotspot": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "30", *PLANES_CONTROL_DEGRADED,
+                                 "--transport", "hier", "--stream-origins", "hotspot"]),
+    "degree_k2": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "24", "--grow", "2600", "--grow-rate", "24",
+                      "--rewire-slots", "2", "--stream", "4", "--slot-ttl", "24", "--stream-origins", "degree",
+                      "--stream-hashes", "2", "--transport", "sparse"]),
+    "bucketed_grow": (4, [*CLUSTER_B, "--staircase", "--seed", "4", "--hosts", "2", "--rounds", "30", "--grow",
+                          "1500", "--grow-rate", "8", *PLANES_CONTROL_DEGRADED]),
 }
 # chip_smoke.py phase 17e's full-width pins: the composed matching run at
 # 1M (no --seed) and its bucketed twin at n=20000, on an 8-shard (2, 4) fold
@@ -556,6 +585,21 @@ PLANES_BUCKETED_20K = ["--peers", "20000", "--graph", "chung-lu", "--shard", "--
 # cluster flags (no arrivals: the windows are empty)
 SERVE_COORDINATOR = ["--peers", "500", "--rounds", "4", "--slot-ttl", "16", "--port", "0", "--coordinator",
                      "127.0.0.1:29517", "--num-processes", "2", "--process-id", "0"]
+# chip_smoke.py phase 17f's pins (ROADMAP item 11d parts 2-3): growth with
+# the flash crowd's join bursts, a stream and the controller on the 1M
+# matching mesh (no --seed), the same argv at n=20000 (the card runs it
+# --packed), and the bucketed twin at n=20000; an 8-shard (2, 4) fold
+PLANES_GROW_CONTROL = ["--rewire-slots", "2", "--stream", "2", "--slot-ttl", "32", "--control", "0.9",
+                       "--refresh-every", "4", "--scenario", "scenarios/flash_crowd_under_fire.toml"]
+PLANES_GROW_1M = ["--peers", "1000000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
+                  "--hosts", "2", "--rounds", "40", "--grow", "1000640", "--grow-rate", "16", *PLANES_GROW_CONTROL,
+                  "--digest", "--quiet"]
+PLANES_GROW_20K = ["--peers", "20000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
+                   "--hosts", "2", "--rounds", "40", "--grow", "20640", "--grow-rate", "16", *PLANES_GROW_CONTROL,
+                   "--digest", "--quiet"]
+PLANES_GROW_BUCKETED_20K = ["--peers", "20000", "--graph", "chung-lu", "--shard", "--mode", "push_pull", "--fanout",
+                            "2", "--slots", "8", "--staircase", "--hosts", "2", "--rounds", "40", "--grow", "20640",
+                            "--grow-rate", "16", *PLANES_GROW_CONTROL, "--digest", "--quiet"]
 
 
 def cli_cluster_pin(shards: int, *argv: str) -> dict:
@@ -577,6 +621,17 @@ def cluster_planes_pins() -> dict:
     them."""
     return {"cluster_planes_1m": cli_cluster_pin(8, *PLANES_1M),
             "cluster_planes_bucketed": cli_cluster_pin(8, *PLANES_BUCKETED_20K)}
+
+
+def cluster_grow_pins(names: str = "") -> dict:
+    """Phase 17f's three pins (:data:`PLANES_GROW_1M`, about 100 s, the
+    n=20000 matching run and :data:`PLANES_GROW_BUCKETED_20K`), keyed as
+    ``reference_pins.json`` holds them; ``names`` (comma-separated) picks
+    some."""
+    runs = {"cluster_planes_grow_1m": PLANES_GROW_1M, "cluster_planes_grow_20k": PLANES_GROW_20K,
+            "cluster_planes_grow_bucketed": PLANES_GROW_BUCKETED_20K}
+    pick = [n for n in names.split(",") if n] or list(runs)
+    return {name: cli_cluster_pin(8, *runs[name]) for name in pick}
 
 
 def matching_pipeline_1m(n: int = 1_000_000, shards: int = 1, rounds: int = 24, pipeline=1) -> dict:
@@ -2089,6 +2144,10 @@ CASES = {
     # the JAX halves of tests/test_torch_fold_classes.py (K2's whole-plan fold)
     "fold_classes": {f"{case}-{op}": ("fold_classes_case", [case, op]) for case in FOLD_CLASSES_CASES
                      for op in ("or", "sum")},
+    # the JAX halves of tests/test_torch_stream_runs.py (the local engine and the bucketed mesh at S = 1, 3)
+    "stream_runs": {name: ("stream_runs_case", [name]) for name in
+                    ["until_coverage", "conflation_k1", "bloom_k2", "band_k1", "steady_report", "saturation_0.5",
+                     "saturation_8.0", "bucketed_s1", "bucketed_s3"]},
     # the JAX halves of tests/test_torch_stream_matching.py (the local engine)
     "stream_matching": {name: ("stream_matching_case", list(args)) for name, args in STREAM_MATCHING.items()},
     # tests/test_torch_cluster.py's cells and tests/test_torch_cluster_procs.py's runs

@@ -9,7 +9,9 @@ ICI/DCN totals included: the sharded matching mesh on the dense, sparse,
 auto and hier transports, packed and not, to a fixed horizon and to
 coverage. A rank's planes and tables hold ``1 / H`` of the rows, the
 draws of its rows are the block of the global draw, and a plane the
-multi-process rounds do not run yet exits 2 naming ROADMAP item 11d; the
+multi-process rounds do not run yet (pipelined rounds, the distributed
+builder) exits 2 naming ROADMAP item 11d while growth, streams and
+control pass; the
 refusals that shadow it keep the JAX CLI's words, serving ignores the
 cluster flags as the JAX CLI's serve does, and fleets refuse them in
 argparse's words. The bucketed mesh and the checkpoints across process
@@ -175,12 +177,17 @@ def test_bits_with_offset_is_the_global_draws_block(offset, rows):
 @pytest.mark.parametrize("flag", [["--grow", "400"], ["--stream", "2", "--rounds", "8"],
                                   ["--control", "0.9"], ["--pipeline", "1"], ["--builder", "dist"]])
 def test_planes_of_item_11d_exit_2_under_coordinator(capsys, flag):
-    """Under --coordinator every plane the rank-local rounds do not run yet
-    (growth, streams, control, pipelined rounds, the distributed builder:
-    item 11d parts 2-4) exits 2 naming ROADMAP item 11d, before any process
-    group is joined."""
+    """Under --coordinator the planes the rank-local rounds do not run yet
+    (pipelined rounds, the distributed builder: item 11d part 4) exit 2
+    naming ROADMAP item 11d, before any process group is joined; growth,
+    streams and control (parts 2 and 3) pass every check of the run's
+    config."""
     argv = ["--peers", "200", "--graph", "matching", "--shard", "--hosts", "2", "--coordinator", "127.0.0.1:1",
             "--num-processes", "2", "--process-id", "0", *flag, "--device", "cpu"]
+    if flag[0] in ("--grow", "--stream", "--control"):
+        args = tcli.build_parser().parse_args(argv)
+        assert tcli._multi_process_refusal(args) is None and tcli.validate(args) is None
+        return
     capsys.readouterr()
     assert tcli.main(argv) == 2
     err = capsys.readouterr().err

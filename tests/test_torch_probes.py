@@ -31,7 +31,7 @@ def _t(a):
 
 
 def p1_pallas(x, idx, axis):
-    """experiments/pallas_gather_caps.py:24-31 (body :24-25, call :28)."""
+    """experiments/pallas_gather_caps.py:24-31 (body :24-25, call :29)."""
 
     def k(x_ref, i_ref, o_ref):
         o_ref[:] = jnp.take_along_axis(x_ref[:], i_ref[:], axis=axis)
@@ -40,7 +40,7 @@ def p1_pallas(x, idx, axis):
 
 
 def p2_pallas(table, idx, steps):
-    """experiments/pallas_wide_lane_gather.py:26-40 (body :26-27, call :30)."""
+    """experiments/pallas_wide_lane_gather.py:26-40 (body :26-27, call :31)."""
     S, W = table.shape
 
     def k(tab_ref, idx_ref, out_ref):
@@ -55,7 +55,7 @@ def p2_pallas(table, idx, steps):
 
 
 def p3_pallas(tab, idxs, ch):
-    """experiments/gather_probe.py:121-150 (body :121-132, call :140): idx
+    """experiments/gather_probe.py:121-150 (body :121-132, call :141): idx
     padded with zero rows to the table's R rows, the first CH rows kept."""
     R = tab.shape[0]
     nch = idxs.shape[0] // ch
@@ -87,7 +87,7 @@ def _rows_call(kernel, v, idx, br):
 
 
 def p4_pallas(v, idx, br):
-    """experiments/perm_pipeline_probe.py:65-79 (body :65-66, call :69)."""
+    """experiments/perm_pipeline_probe.py:65-79 (body :65-66, call :70)."""
 
     def ksh(x_ref, i_ref, o_ref):
         o_ref[:] = jnp.take_along_axis(x_ref[:], i_ref[:], axis=1)
@@ -96,7 +96,7 @@ def p4_pallas(v, idx, br):
 
 
 def p5_pallas(v, idx, br):
-    """experiments/perm_pipeline_probe.py:88-107 (body :88-94, call :97)."""
+    """experiments/perm_pipeline_probe.py:88-107 (body :88-94, call :98)."""
 
     def ksub(x_ref, i_ref, o_ref):
         def body(j, _):

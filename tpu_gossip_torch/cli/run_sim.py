@@ -125,8 +125,8 @@ _LATER = (
     "checkpoints and resume, silent peers, fault scenarios, the quorum detector with its adversaries, "
     "growth, streams, adaptive control, pipelined rounds, fleet campaigns and serving, the (hosts, devices) fold "
     "with the hier transport, and over several processes (--coordinator) static rounds, churn, faults, silent "
-    "peers and the quorum detector; later slices add the other planes over several processes (11d) and the "
-    "analysis tier (14))"
+    "peers, the quorum detector, growth, streams and adaptive control; later slices add pipelined rounds and "
+    "the distributed builder over several processes (11d) and the analysis tier (14))"
 )
 _ITEM11D = "several processes (ROADMAP item 11d)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
@@ -377,7 +377,7 @@ def _validate_cluster(args: argparse.Namespace) -> str | None:
     --coordinator are lifted: the port reduces the coverage over the ranks
     and writes the whole swarm from rank 0), then, under --coordinator,
     the planes the multi-process rounds do not run yet (ROADMAP item 11d
-    parts 2-4); the exit-2 reason or None."""
+    part 4); the exit-2 reason or None."""
     if args.hosts < 1:
         return f"--hosts {args.hosts} must be >= 1"
     if args.hosts > 1 and not args.shard:
@@ -406,19 +406,16 @@ def _validate_cluster(args: argparse.Namespace) -> str | None:
 
 def _multi_process_refusal(args: argparse.Namespace) -> str | None:
     """Under --coordinator: the planes the rank-local rounds do not run yet
-    (ROADMAP item 11d, parts 2-4) exit 2 naming it, before anything is
-    built. Churn and re-wiring, the fault plane, silent peers and the
-    quorum detector run (part 1). A scenario fields no stream and no
-    controller; its one plane of a later part, ``join_burst``, needs
-    --grow (refused here) or is refused in the JAX CLI's words by
-    :func:`_validate_grow`. --remat-every, --profile-round and a run
-    without --shard are refused first, in the JAX CLI's words, by the
-    --hosts checks above and by :func:`_refusal`."""
+    (ROADMAP item 11d, part 4: pipelined rounds and the distributed
+    builder) exit 2 naming it, before anything is built. Churn and
+    re-wiring, the fault plane, silent peers and the quorum detector run
+    (part 1), and growth (a scenario's ``join_burst`` waves with it),
+    streams and adaptive control (parts 2 and 3). --remat-every,
+    --profile-round and a run without --shard are refused first, in the
+    JAX CLI's words, by the --hosts checks above and by :func:`_refusal`."""
     from tpu_gossip_torch.sim.stages import not_ported
 
-    planes = [("--grow (growth)", args.grow > 0), ("--stream (streams)", args.stream > 0),
-              ("--control (adaptive control)", args.control > 0),
-              ("--pipeline (pipelined rounds)", args.pipeline is not None),
+    planes = [("--pipeline (pipelined rounds)", args.pipeline is not None),
               ("--builder dist", args.builder != "local")]
     for what, on in planes:
         if on:

@@ -214,8 +214,36 @@ class ProcessRows(Rows):
     def total(self, n: int) -> int:
         return n * self.world
 
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        return reduce_sum(x).to(x.dtype)
+    def sum(self, x: torch.Tensor, label: str | None = None) -> torch.Tensor:
+        """``x`` summed over every process (one all-reduce of int64),
+        counted under ``label`` when one is given."""
+        with (_side_path(label, x.numel() * 8 * (self.world - 1), x.device) if label else contextlib.nullcontext()):
+            return reduce_sum(x).to(x.dtype)
+
+    def stack(self, x: torch.Tensor, label: str = "stack") -> torch.Tensor:
+        """Every process's ``x`` stacked in rank order (one all-gather of its
+        bytes; a bool tensor as bits)."""
+        return _all_gather_planes((x[None],), label)[0]
+
+    def fsum(self, x: torch.Tensor, label: str = "fsum") -> torch.Tensor:
+        """Every process's float partial ``x`` added in rank order, one after
+        another, so every process gets the same bits (gathered, not
+        all-reduced: a reduction's order is the backend's)."""
+        parts = self.stack(x, label)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    def lookup(self, idx: torch.Tensor, plane: torch.Tensor, label: str = "lookup") -> torch.Tensor:
+        """``plane`` (bool, this process's rows) at the swarm's rows ``idx``
+        (every process the same ids, each in range): each process answers
+        for the ids it holds, False elsewhere, and the answers are ORed over
+        the processes (one all-gather of ``len(idx)`` bits a process)."""
+        n = plane.shape[0]
+        held = (idx >= self.lo) & (idx < self.lo + n)
+        mine = plane[torch.clamp(idx - self.lo, 0, n - 1)] & held
+        return self.stack(mine, label).any(dim=0)
 
     def gather(self, *planes: torch.Tensor, label: str = "gather") -> tuple[torch.Tensor, ...]:
         """Every process's rows of each plane joined in rank order, in one

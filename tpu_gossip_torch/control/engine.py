@@ -21,6 +21,15 @@ engine:
 Every decision stays a device tensor: nothing here reads a value back to
 the host. The ratios are float32 and the cursor arithmetic int32, as JAX
 computes them, so every threshold compare falls as JAX's does.
+
+Both hooks take the ``rows`` (``core.rows``) the planes hold. On a
+process of a mesh over several processes every count a decision reads
+(the slots' live coverage, the incoming and duplicate bits, the fault
+head's drops and deliveries) is summed over the processes first, in one
+integer all-reduce a hook, so every process moves the whole cursor
+alike; the refresh draws its rows' block of each ``(N,)`` draw, reads
+``exists`` at the drawn endpoints from the gathered plane and lands the
+credit on the endpoints' holders.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.core.streams import CONTROL_STREAM_SALT
 from tpu_gossip_torch.sim.stages import _add_at
 
@@ -62,14 +72,19 @@ class ControlTelemetry(NamedTuple):
     refreshed: torch.Tensor  # PeerSwap slot swaps applied this round
 
 
-def _slot_coverage(seen: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
-    """Each slot's live coverage, float32: an int32 column count over the
-    live count (at least 1), divided in float32."""
-    n_live = torch.clamp(live.sum(dtype=torch.int32), min=1)
-    return (seen & live[:, None]).sum(dim=0, dtype=torch.int32).to(torch.float32) / n_live.to(torch.float32)
+def _live_counts(seen: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(M + 1,) int32: each slot's live column count, then the live count."""
+    return torch.cat([(seen & live[:, None]).sum(dim=0, dtype=torch.int32), live.sum(dtype=torch.int32)[None]])
 
 
-def control_round(spec, state, want_needy: bool = False) -> RoundControl:
+def _slot_coverage(counts: torch.Tensor) -> torch.Tensor:
+    """Each slot's live coverage from :func:`_live_counts` (the swarm's),
+    float32: the int32 column count over the live count (at least 1),
+    divided in float32."""
+    return counts[:-1].to(torch.float32) / torch.clamp(counts[-1], min=1).to(torch.float32)
+
+
+def control_round(spec, state, want_needy: bool = False, rows=ALL_ROWS) -> RoundControl:
     """Resolve the state's cursor into this round's decision.
 
     The cursor packs ``level + levels * stress_bit``; -1 starts on
@@ -78,7 +93,8 @@ def control_round(spec, state, want_needy: bool = False) -> RoundControl:
     the knee gate (some live lease between ``pull_knee`` and the target).
     ``want_needy`` (the mode is push_pull) computes the needy rows when the
     spec's needy-pull gate is on. ``state`` needs ``control_lvl``,
-    ``alive``, ``declared_dead``, ``seen`` (bool) and ``slot_lease``."""
+    ``alive``, ``declared_dead``, ``seen`` (bool) and ``slot_lease``, its
+    row planes holding ``rows``; the needy rows are its own."""
     levels = spec.levels
     raw = state.control_lvl.to(torch.int32)
     cursor = torch.clamp(raw, 0, 2 * levels - 1)
@@ -86,7 +102,7 @@ def control_round(spec, state, want_needy: bool = False) -> RoundControl:
     lvl = torch.where(fresh, torch.full_like(cursor, spec.start), cursor % levels).to(torch.int32)
     stress_bit = ~fresh & (cursor >= levels)
     live = state.alive & ~state.declared_dead
-    slot_cov = _slot_coverage(state.seen, live)
+    slot_cov = _slot_coverage(rows.sum(_live_counts(state.seen, live), label="control"))
     leased = state.slot_lease >= 0
     knee_gate = (leased & (slot_cov < spec.target_ratio) & (slot_cov >= spec.pull_knee)).any()
     needy = None
@@ -99,7 +115,7 @@ def control_round(spec, state, want_needy: bool = False) -> RoundControl:
 
 def apply_control(spec, rng, rnd, rc: RoundControl, *, incoming, seen_prev, seen, alive, declared_dead, exists,
                   rewired, rewire_targets, degree_credit, row_ptr, col_idx, slot_lease, rewire_slots: int,
-                  fstats=None):
+                  fstats=None, rows=ALL_ROWS):
     """One AIMD level update and the PeerSwap refresh; returns
     ``(control_lvl, rewire_targets, degree_credit, ControlTelemetry)``.
 
@@ -109,24 +125,28 @@ def apply_control(spec, rng, rnd, rc: RoundControl, *, incoming, seen_prev, seen
     message is under target; the stress bit records a widened round. The
     refresh releases the swapped-out edge's degree credit and grants the
     new one's, so the credit book keeps tracking the stored fresh
-    targets."""
+    targets. The row planes hold ``rows``: the decision's counts are the
+    swarm's (one all-reduce)."""
     levels = spec.levels
     dev = alive.device
     i32 = torch.int32
     live = alive & ~declared_dead
     inc_live = incoming & live[:, None]
-    total_inc = inc_live.sum(dtype=i32)
-    duplicate = (inc_live & seen_prev).sum(dtype=i32)
+    head = [inc_live.sum(dtype=i32), (inc_live & seen_prev).sum(dtype=i32)]
+    if fstats is not None:
+        head += [fstats.msgs_dropped.to(i32), fstats.msgs_delivered.to(i32)]
+    counts = rows.sum(torch.cat([torch.stack(head), _live_counts(seen, live)]), label="control")
+    total_inc, duplicate = counts[0], counts[1]
     dup_rate = duplicate.to(torch.float32) / torch.clamp(total_inc, min=1).to(torch.float32)
     saturated = (total_inc > 0) & (dup_rate >= spec.sat_dup)
 
     under = torch.zeros((), dtype=torch.bool, device=dev)
     if fstats is not None:
-        dropped = fstats.msgs_dropped.to(torch.float32)
-        landed = fstats.msgs_delivered.to(torch.float32)
+        dropped = counts[2].to(torch.float32)
+        landed = counts[3].to(torch.float32)
         loss_ratio = dropped / torch.clamp(dropped + landed, min=1.0)
         under = under | (loss_ratio > (1.0 - spec.target_ratio))
-    uncovered = (slot_lease >= 0) & (_slot_coverage(seen, live) < spec.target_ratio)
+    uncovered = (slot_lease >= 0) & (_slot_coverage(counts[len(head):]) < spec.target_ratio)
     floor = torch.where(uncovered.any(), spec.base_idx, 0).to(i32)
     if spec.ttl > 0:
         age = rnd.to(i32) - slot_lease.to(i32)
@@ -141,14 +161,14 @@ def apply_control(spec, rng, rnd, rc: RoundControl, *, incoming, seen_prev, seen
     if spec.refresh_every > 0 and rewire_slots > 0 and col_idx.shape[0] > 1:
         rewire_targets, degree_credit, refreshed = peerswap_refresh(
             spec, rng, rnd, exists=exists, rewired=rewired, alive=alive, rewire_targets=rewire_targets,
-            degree_credit=degree_credit, row_ptr=row_ptr, col_idx=col_idx, rewire_slots=rewire_slots)
+            degree_credit=degree_credit, row_ptr=row_ptr, col_idx=col_idx, rewire_slots=rewire_slots, rows=rows)
 
     telem = ControlTelemetry(level=rc.lvl, fanout=rc.m_eff.to(i32), duplicate=duplicate, refreshed=refreshed)
     return cursor, rewire_targets, degree_credit, telem
 
 
 def peerswap_refresh(spec, rng, rnd, *, exists, rewired, alive, rewire_targets, degree_credit, row_ptr, col_idx,
-                     rewire_slots: int):
+                     rewire_slots: int, rows=ALL_ROWS):
     """The PeerSwap refresh of :func:`apply_control`; returns
     ``(rewire_targets, degree_credit, refreshed)``. Every row draws one
     fresh-edge slot and one endpoint (a uniform index below ``row_ptr[-1]``
@@ -157,21 +177,26 @@ def peerswap_refresh(spec, rng, rnd, *, exists, rewired, alive, rewire_targets, 
     members swap on the rounds the cadence names. A self draw or a draw on
     a non-member becomes -1. The swapped-out target's credit is released
     and the new one's granted, each scatter-add dropping its masked
-    entries."""
+    entries. The planes hold ``rows`` (``core.rows``): their block of each
+    draw, the self test on the swarm's row ids, ``exists`` at the
+    endpoints from the gathered plane, the credit on the endpoints'
+    holders."""
     n = exists.shape[0]
     dev = exists.device
+    lo, n_all = rows.lo, rows.total(n)
     k_slot, k_tgt = prng.split(prng.fold_in(rng, CONTROL_STREAM_SALT))
     due = (rnd % spec.refresh_every) == 0
-    slot = prng.randint(k_slot, (n,), 0, rewire_slots).to(torch.int64)
+    slot = prng.randint(k_slot, (n,), 0, rewire_slots, lo).to(torch.int64)
     e_real = torch.clamp(row_ptr[-1], min=1)
-    draws = col_idx[prng.randint(k_tgt, (n,), 0, e_real).to(torch.int64)].to(torch.int64)
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
-    ok = exists[torch.clamp(draws, 0, n - 1)] & (draws != rows)
+    draws = col_idx[prng.randint(k_tgt, (n,), 0, e_real, lo).to(torch.int64)].to(torch.int64)
+    (exists_all,) = rows.gather(exists, label="control")
+    ok = exists_all[torch.clamp(draws, 0, n_all - 1)] & (draws != torch.arange(lo, lo + n, device=dev))
     new_tgt = torch.where(ok, draws, -1).to(rewire_targets.dtype)
     act = due & rewired & alive & exists
-    old = rewire_targets[rows, slot]
-    degree_credit = _add_at(degree_credit, (old, act & (old >= 0), -1))
-    degree_credit = _add_at(degree_credit, (new_tgt, act & (new_tgt >= 0), 1))
+    held = torch.arange(n, dtype=torch.int64, device=dev)
+    old = rewire_targets[held, slot]
+    degree_credit = _add_at(degree_credit, (old, act & (old >= 0), -1), (new_tgt, act & (new_tgt >= 0), 1),
+                            rows=rows, label="control")
     rewire_targets = rewire_targets.clone()
-    rewire_targets[rows, slot] = torch.where(act, new_tgt, old)
+    rewire_targets[held, slot] = torch.where(act, new_tgt, old)
     return rewire_targets, degree_credit, act.sum(dtype=torch.int32)

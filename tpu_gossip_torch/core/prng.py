@@ -21,7 +21,10 @@ equals the JAX package's draw bit for bit:
   (:func:`gumbel_table`) and a draw is one gather;
 - ``bits``, ``uniform``, ``gumbel`` and ``randint`` take a counter
   ``offset``: element ``i`` of the draw uses counter ``offset + i``, so a
-  draw cut into row chunks equals the whole draw chunk by chunk;
+  draw cut into row chunks equals the whole draw chunk by chunk; with a
+  ``row_stride`` too, element ``(r, j)`` of a 2-D draw uses counter
+  ``offset + r * row_stride + j``, so columns ``[c0, c0 + w)`` of a global
+  ``(R, C)`` draw are ``offset = c0, row_stride = C`` (a column block);
 - ``poisson(k, lam)``: ``jax.random.poisson``'s two branches, Knuth's
   product of uniforms below 10 and Hormann's transformed rejection at 10
   and above, with the float32 ``log``, ``log1p`` and ``lgamma``
@@ -85,8 +88,18 @@ def threefry2x32(
     return x0, x1
 
 
-def _counters(k: torch.Tensor, n: int, offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device)
+def _counters(k: torch.Tensor, n: int, offset: int = 0, shape=None,
+              row_stride: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The counter words of ``n`` elements from ``offset`` on; with
+    ``row_stride``, of the 2-D ``shape`` whose row ``r`` starts at counter
+    ``offset + r * row_stride``."""
+    if row_stride is None or len(shape) == 2 and row_stride == shape[1]:
+        idx = torch.arange(offset, offset + n, dtype=torch.int64, device=k.device)
+    elif len(shape) != 2:
+        raise ValueError(f"row_stride takes a 2-D shape, got {tuple(shape)}")
+    else:
+        starts = offset + torch.arange(shape[0], dtype=torch.int64, device=k.device) * int(row_stride)
+        idx = (starts[:, None] + torch.arange(shape[1], dtype=torch.int64, device=k.device)).reshape(-1)
     return (idx >> 32) & _M32, idx & _M32
 
 
@@ -103,14 +116,15 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
-def bits(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> torch.Tensor:
+def bits(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0, row_stride: int | None = None) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as int64 values in [0, 2^32);
     with ``offset``, the elements at flat positions ``offset + i`` of a
-    larger draw."""
+    larger draw; with ``row_stride`` too, the 2-D block whose row ``r``
+    starts at ``offset + r * row_stride`` (a column block)."""
     n = 1
     for d in shape:
         n *= int(d)
-    y0, y1 = threefry2x32(k, *_counters(k, n, offset))
+    y0, y1 = threefry2x32(k, *_counters(k, n, offset, shape, row_stride))
     return (y0 ^ y1).reshape(shape)
 
 
@@ -200,11 +214,11 @@ def gumbel_table(device) -> torch.Tensor:
     return _GUMBEL_TABLES[key_]
 
 
-def gumbel(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0) -> torch.Tensor:
-    """``jax.random.gumbel(k, shape, float32)`` ("low" mode); with
-    ``offset``, the elements at flat positions ``offset + i`` of a larger
-    draw. One threefry draw and one gather from :func:`gumbel_table`."""
-    return gumbel_table(k.device)[bits(k, shape, offset) >> 9]
+def gumbel(k: torch.Tensor, shape: tuple[int, ...], offset: int = 0, row_stride: int | None = None) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape, float32)`` ("low" mode); ``offset``
+    and ``row_stride`` as :func:`bits` takes them. One threefry draw and
+    one gather from :func:`gumbel_table`."""
+    return gumbel_table(k.device)[bits(k, shape, offset, row_stride) >> 9]
 
 
 def _int_bound(v, dev) -> torch.Tensor:
@@ -216,16 +230,17 @@ def _int_bound(v, dev) -> torch.Tensor:
     return torch.full((), int(v), dtype=torch.int64, device=dev)
 
 
-def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval, offset: int = 0) -> torch.Tensor:
+def randint(k: torch.Tensor, shape: tuple[int, ...], minval, maxval, offset: int = 0,
+            row_stride: int | None = None) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval)`` (int32 result).
     ``minval`` and ``maxval`` are ints or 0-d tensors on the key's device
     (a tensor bound stays on the device: no host synchronisation). With
-    ``offset``, the elements at flat positions ``offset + i`` of a larger
-    draw: both of its ``bits`` draws take the offset."""
+    ``offset`` (and ``row_stride``), the block of a larger draw
+    :func:`bits` takes: both of its ``bits`` draws take them."""
     dev = k.device
     lo, hi = _int_bound(minval, dev), _int_bound(maxval, dev)
     k1, k2 = split(k)
-    hi_bits, lo_bits = bits(k1, shape, offset), bits(k2, shape, offset)
+    hi_bits, lo_bits = bits(k1, shape, offset, row_stride), bits(k2, shape, offset, row_stride)
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & _M32)
     mult = (65536 % span) * (65536 % span) & _M32
     mult = mult % span

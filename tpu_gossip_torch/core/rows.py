@@ -8,12 +8,23 @@ whatever it is:
 - ``lo``: the first global row held, the counter offset of the block of a
   draw over the rows being ``lo * width``;
 - ``total(n)``: the swarm's rows from the ``n`` held;
+- ``block(table, n)``: the held rows' block of a table over the swarm's
+  rows (``table[lo:lo + n]``);
 - ``sum(x)``: a count over the held rows summed over the swarm;
+- ``fsum(x)``: a float partial over the held rows summed over the swarm
+  in holder order, so every holder and every run gets the same bits;
+- ``stack(x)``: every holder's copy of a small tensor, stacked in holder
+  order (a leading axis of one entry a holder);
+- ``lookup(idx, plane)``: a bool plane at rows ``idx`` of the swarm, each
+  answered by the row's holder;
 - ``gather(*planes)``: the swarm's planes from the held rows of each;
 - ``reduce(contrib, op)``: the held rows of a plane over the swarm's rows
   into which every holder scattered its contributions, combined with the
   one-process scatter's own order-free operation (``"or"`` on bool,
   integer ``"sum"`` or ``"max"``).
+
+Each takes a ``label`` under which a holder of a block counts what it
+sends.
 
 A one-process round holds every row (:data:`ALL_ROWS`): each of these is
 the identity. A process of a mesh over several processes holds one block
@@ -48,8 +59,20 @@ class Rows:
     def total(self, n: int) -> int:
         return n
 
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
+    def block(self, table: torch.Tensor, n: int) -> torch.Tensor:
+        return table[self.lo: self.lo + n]
+
+    def sum(self, x: torch.Tensor, label: str | None = None) -> torch.Tensor:
         return x
+
+    def fsum(self, x: torch.Tensor, label: str = "fsum") -> torch.Tensor:
+        return x
+
+    def stack(self, x: torch.Tensor, label: str = "stack") -> torch.Tensor:
+        return x[None]
+
+    def lookup(self, idx: torch.Tensor, plane: torch.Tensor, label: str = "lookup") -> torch.Tensor:
+        return plane[idx]
 
     def gather(self, *planes: torch.Tensor, label: str = "gather") -> tuple[torch.Tensor, ...]:
         return planes

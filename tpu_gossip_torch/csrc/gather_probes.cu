@@ -5,15 +5,15 @@
 //                 base(r) = (r / group) * group, or 0 when group == 0
 //
 // Replaces the five Pallas probe kernels of experiments/:
-//   P1 pallas_gather_caps.py:28 (try_shape.run, body :24-25): axis 1 is
+//   P1 pallas_gather_caps.py:29 (try_shape.run, body :24-25): axis 1 is
 //      lane_gather with T = N, axis 0 is sublane_gather with group 0;
-//   P2 pallas_wide_lane_gather.py:30 (probe.run, body :26-27): lane_gather
+//   P2 pallas_wide_lane_gather.py:31 (probe.run, body :26-27): lane_gather
 //      with T = S, the table shared by all `steps` blocks of S rows;
-//   P3 gather_probe.py:140 (pallas_run, body :121-132): sublane_gather with
+//   P3 gather_probe.py:141 (pallas_run, body :121-132): sublane_gather with
 //      group 0 from a resident (8192, 128) table;
-//   P4 perm_pipeline_probe.py:69 (lane_shuffle, body :65-66): lane_gather
+//   P4 perm_pipeline_probe.py:70 (lane_shuffle, body :65-66): lane_gather
 //      with T = N, W = 128 (K1's function, its own kernel and count);
-//   P5 perm_pipeline_probe.py:97 (sub_shuffle, body :88-94): sublane_gather
+//   P5 perm_pipeline_probe.py:98 (sub_shuffle, body :88-94): sublane_gather
 //      with group 8.
 //
 // Bound: bytes. idx is read once and out written once (4 B an element

@@ -499,13 +499,17 @@ def swarm_coverage(state, slot: int = 0) -> torch.Tensor:
 
 
 # the RoundStats columns a process counts over its own rows: the static
-# round's, the fault plane's, the duplicates and the quorum detector's
-# (each a count of the process's rows or of its rows' sends, so the sum
-# over the processes is the swarm's, counted once), and the per-slot live
-# infected track; the planes of ROADMAP item 11d parts 2-4 add theirs
+# round's, the fault plane's, the quorum detector's and the controller's
+# refreshes (each a count of the process's rows or of its rows' sends, so
+# the sum over the processes is the swarm's, counted once), and the
+# per-slot live infected track. Every other column arrives whole: the
+# stream's and the controller's level and fanout are the same on every
+# process, and ``msgs_duplicate`` and ``degree_gamma`` are summed over the
+# processes where the round computes them (the controller's decision
+# reads the one, the growth plane's gamma is the other)
 _ROW_SUMS = ("msgs_sent", "n_infected", "n_alive", "n_declared_dead", "n_members", "msgs_dropped", "msgs_held",
-             "msgs_delivered", "msgs_duplicate", "evictions_new", "false_evictions", "n_quarantined",
-             "dead_undeclared", "adv_accusations", "adv_forged", "slot_infected")
+             "msgs_delivered", "evictions_new", "false_evictions", "n_quarantined", "dead_undeclared",
+             "adv_accusations", "adv_forged", "control_refreshed", "slot_infected")
 
 
 def reduce_stats(stats):

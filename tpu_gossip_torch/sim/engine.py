@@ -132,15 +132,16 @@ def liveness_counters(ltel, liveness, exists, alive, declared_dead, quarantine) 
     return out
 
 
-def growth_gamma(growth, row_ptr, exists, rewired, rewire_targets, degree_credit, live) -> torch.Tensor:
+def growth_gamma(growth, row_ptr, exists, rewired, rewire_targets, degree_credit, live, rows=ALL_ROWS) -> torch.Tensor:
     """The ``degree_gamma`` column: the running Hill gamma of the realized
-    degrees under a growth schedule, 0.0 without one."""
+    degrees under a growth schedule, 0.0 without one; the swarm's whole
+    when the planes hold ``rows`` (``core.rows``)."""
     if growth is None:
         return torch.zeros((), dtype=torch.float32, device=exists.device)
     from tpu_gossip_torch.growth.engine import hill_gamma_device, realized_degrees
 
-    deg = realized_degrees(row_ptr, exists, rewired, rewire_targets, degree_credit)
-    return hill_gamma_device(deg, live, growth.gamma_d_min)
+    deg = realized_degrees(row_ptr, exists, rewired, rewire_targets, degree_credit, rows.lo)
+    return hill_gamma_device(deg, live, growth.gamma_d_min, rows)
 
 
 def slot_tracks(seen: torch.Tensor, live: torch.Tensor, slot_lease: torch.Tensor, rnd, stream) -> dict:
@@ -155,7 +156,7 @@ def slot_tracks(seen: torch.Tensor, live: torch.Tensor, slot_lease: torch.Tensor
 
 
 def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, liveness=None,
-           growth=None, stream=None, stel=None, ctel=None, itel=None) -> RoundStats:
+           growth=None, stream=None, stel=None, ctel=None, itel=None, rows=ALL_ROWS) -> RoundStats:
     live = state.alive & ~state.declared_dead
     dev = state.seen.device
     z = torch.zeros((), dtype=torch.int32, device=dev)
@@ -168,7 +169,7 @@ def _stats(state: SwarmState, msgs_sent: torch.Tensor, fstats=None, ltel=None, l
         n_declared_dead=_i32(state.declared_dead.sum()),
         n_members=_i32(state.exists.sum()),
         degree_gamma=growth_gamma(growth, state.row_ptr, state.exists, state.rewired, state.rewire_targets,
-                                  state.degree_credit, live),
+                                  state.degree_credit, live, rows),
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
         **slot_tracks(state.seen, live, state.slot_lease, state.round, stream),
     )
@@ -674,7 +675,7 @@ def advance_round(state: SwarmState, cfg: SwarmConfig, incoming, msgs_sent, tran
         rng=key, round=rnd,
     )
     return new_state, _stats(new_state, msgs_sent, fstats, values["ltel"], liveness, growth, stream,
-                             values["stel"], values["ctel"], values["itel"])
+                             values["stel"], values["ctel"], values["itel"], rows)
 
 
 def gossip_round(state: SwarmState, cfg: SwarmConfig, plan=None, *, tail: str = "fused", rows=ALL_ROWS,

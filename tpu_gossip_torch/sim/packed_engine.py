@@ -211,8 +211,8 @@ def _build_round_stages_packed(cfg, m: int, *, tail: str = "fused", faults=None,
     seen words decoded and packed again at that boundary), a serving
     batch's landing likewise, then the control stage on decoded planes."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth, rows=rows),
-            *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m),
-            *ingest_stages(inject, packed_m=m), *control_stages(cfg, control, packed_m=m))
+            *stream_stages(stream, _tail_stage_packed(cfg, tail, m), host_rng, host_rnd, packed_m=m, rows=rows),
+            *ingest_stages(inject, packed_m=m), *control_stages(cfg, control, packed_m=m, rows=rows))
 
 
 def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sent, transmit_w,
@@ -270,11 +270,11 @@ def advance_round_packed(ps: PackedSwarm, cfg, flags: dict, incoming_w, msgs_sen
         rng=key, round=rnd, msg_slots=ps.msg_slots,
     )
     return new_state, _stats_packed(new_state, row_flags, msgs_sent, fstats, values["ltel"], liveness, growth,
-                                    stream, values["stel"], values["ctel"], values["itel"])
+                                    stream, values["stel"], values["ctel"], values["itel"], rows)
 
 
 def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=None, liveness=None, growth=None,
-                  stream=None, stel=None, ctel=None, itel=None):
+                  stream=None, stel=None, ctel=None, itel=None, rows=ALL_ROWS):
     """Word twin of ``sim.engine._stats``: the same RoundStats, with the
     slot-0 infection count read off one bit column (popcount and bool sum
     agree bit for bit, the padding being zero); a stream's per-slot
@@ -294,7 +294,7 @@ def _stats_packed(ps: PackedSwarm, flags: dict, msgs_sent, fstats=None, ltel=Non
         n_declared_dead=flags["declared_dead"].sum().to(torch.int32),
         n_members=flags["exists"].sum().to(torch.int32),
         degree_gamma=growth_gamma(growth, ps.row_ptr, flags["exists"], flags["rewired"], ps.rewire_targets,
-                                  ps.degree_credit, live),
+                                  ps.degree_credit, live, rows),
         control_level=torch.full((), -1, dtype=torch.int32, device=dev),
         **slot_tracks(ps.seen if stream is None else unpack_bits(ps.seen, ps.msg_slots), live, ps.slot_lease,
                       ps.round, stream),
@@ -339,7 +339,7 @@ def run_protocol_round_packed(ps: PackedSwarm, cfg, deliver_words, deliver_bool_
     seen_b = None if control is None and scenario is None else unpack_bits(ps.seen, m)
     rctl = None if control is None else resolve_control(control, types.SimpleNamespace(
         control_lvl=ps.control_lvl, alive=flags["alive"], declared_dead=flags["declared_dead"], seen=seen_b,
-        slot_lease=ps.slot_lease), cfg)
+        slot_lease=ps.slot_lease), cfg, rows)
     k_accuse, k_forge, k_flood = adversary_keys(scenario, ps.rng)
     if scenario is None:
         inc_w, msgs_sent = deliver_words(tx_w, role_w, flags, k_push, k_pull, rctl)

@@ -218,18 +218,19 @@ def _below(u: torch.Tensor, p: float) -> torch.Tensor:
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
 
 
-def _add_at(vec: torch.Tensor, *terms, rows=ALL_ROWS) -> torch.Tensor:
+def _add_at(vec: torch.Tensor, *terms, rows=ALL_ROWS, label: str = "credit") -> torch.Tensor:
     """``vec.at[where(keep, idx, n)].add(delta, mode="drop")`` for each
     ``(idx, keep, delta)`` term in turn, ``idx`` rows of the swarm: the
     terms add into a plane over the swarm's rows (the dropped entries on a
     spare slot past the end), whose integer sum over the holders of
-    ``rows`` (``core.rows``) lands on ``vec``."""
+    ``rows`` (``core.rows``) lands on ``vec`` (its bytes under
+    ``label``)."""
     n_all = rows.total(vec.shape[0])
     out = vec.new_zeros(n_all + 1)
     for idx, keep, delta in terms:
         tgt = torch.where(keep, idx.to(torch.int64), n_all).reshape(-1)
         out.index_add_(0, tgt, torch.full(tgt.shape, delta, dtype=vec.dtype, device=vec.device))
-    return vec + rows.reduce(out[:n_all], "sum", label="credit")
+    return vec + rows.reduce(out[:n_all], "sum", label=label)
 
 
 def _burst_threshold(p_cfg: float, burst: torch.Tensor, p_burst: torch.Tensor) -> torch.Tensor:
@@ -343,13 +344,13 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False, rows=ALL_ROWS
     return Stage("churn", reads, writes, fn)
 
 
-def _growth_stage(cfg, growth, has_faults: bool) -> Stage:
+def _growth_stage(cfg, growth, has_faults: bool, rows=ALL_ROWS) -> Stage:
     """Preferential-attachment admission (``growth/engine.py``), row-level:
     this round's join batch is admitted after the churn draws, from the
     growth stream, so a zero-join or exhausted schedule reproduces the
     fixed-n run bit for bit. An admitted row's slot planes are untouched
     (a never-member row was never receptive), so the tail needs no reset
-    for it."""
+    for it. The planes hold ``rows`` (``core.rows``)."""
     if cfg.rewire_slots < growth.attach_m:
         raise ValueError(
             f"growth.attach_m={growth.attach_m} needs "
@@ -367,7 +368,7 @@ def _growth_stage(cfg, growth, has_faults: bool) -> Stage:
         if jb is None:
             jb = torch.zeros((), dtype=torch.int32, device=ctx["exists"].device)
         grown = apply_growth(growth, ctx["rng"], ctx["rnd"], jb, row_ptr=ctx["row_ptr"],
-                             **{f: ctx[f] for f in fields})
+                             **{f: ctx[f] for f in fields}, held=rows)
         return {f: grown[f] for f in fields}
 
     return Stage("growth", reads, fields, fn)
@@ -414,13 +415,15 @@ def _stream_ageout_stage(stream, packed: bool = False) -> Stage:
     return Stage("stream_ageout", ("slot_lease", "rnd", "held"), ("expired", "slot_lease", "held"), fn)
 
 
-def _stream_inject_stage(stream, host_rng=None, host_rnd: int | None = None, packed_m: int | None = None) -> Stage:
+def _stream_inject_stage(stream, host_rng=None, host_rnd: int | None = None, packed_m: int | None = None,
+                         rows=ALL_ROWS) -> Stage:
     """The stream's injection (``traffic/``), after the tail: a round-r
     arrival first transmits in round r + 1 and a just-recycled slot is
     leasable again. ``host_rng`` and ``host_rnd`` are the round's root key
     and round on the host (read off the device when None). With
     ``packed_m`` the seen plane is words: the injection decodes them at
-    this boundary and packs the product, as JAX's packed twin does."""
+    this boundary and packs the product, as JAX's packed twin does. The
+    planes hold ``rows`` (``core.rows``)."""
     reads = ("rng", "rnd", "expired", "seen", "infected_round", "slot_lease", "row_ptr", "col_idx", "exists",
              "alive", "declared_dead")
     writes = ("seen", "infected_round", "slot_lease", "stel")
@@ -434,7 +437,7 @@ def _stream_inject_stage(stream, host_rng=None, host_rnd: int | None = None, pac
             stream, ctx["rng"], ctx["rnd"], ctx["expired"].sum(dtype=torch.int32), seen=seen,
             infected_round=ctx["infected_round"], slot_lease=ctx["slot_lease"], row_ptr=ctx["row_ptr"],
             col_idx=ctx["col_idx"], exists=ctx["exists"], alive=ctx["alive"],
-            declared_dead=ctx["declared_dead"], host_rng=host_rng, host_rnd=host_rnd)
+            declared_dead=ctx["declared_dead"], host_rng=host_rng, host_rnd=host_rnd, rows=rows)
         return {"seen": seen if packed_m is None else pack_bits(seen), "infected_round": infected_round,
                 "slot_lease": slot_lease, "stel": stel}
 
@@ -489,12 +492,13 @@ CONTROL_READS = ("rng", "rnd", "rctl", "incoming", "seen_prev", "seen", "alive",
                  "control_lvl")
 
 
-def _control_stage(cfg, control, packed_m: int | None = None) -> Stage:
+def _control_stage(cfg, control, packed_m: int | None = None, rows=ALL_ROWS) -> Stage:
     """Adaptive control (``control/``), last: the AIMD level update reads
     the round's final liveness and lease tables, and the PeerSwap refresh
     acts on the post-churn, post-growth re-wiring plane. With ``packed_m``
     the slot planes are words, and the three that ``apply_control`` reads
-    (``incoming``, ``seen_prev``, ``seen``) decode at this boundary."""
+    (``incoming``, ``seen_prev``, ``seen``) decode at this boundary. The
+    planes hold ``rows`` (``core.rows``)."""
 
     def fn(ctx):
         from tpu_gossip_torch.control.engine import apply_control
@@ -508,27 +512,27 @@ def _control_stage(cfg, control, packed_m: int | None = None) -> Stage:
             seen=plane("seen"), alive=ctx["alive"], declared_dead=ctx["declared_dead"], exists=ctx["exists"],
             rewired=ctx["rewired"], rewire_targets=ctx["rewire_targets"], degree_credit=ctx["degree_credit"],
             row_ptr=ctx["row_ptr"], col_idx=ctx["col_idx"], slot_lease=ctx["slot_lease"],
-            rewire_slots=cfg.rewire_slots, fstats=ctx["fstats"])
+            rewire_slots=cfg.rewire_slots, fstats=ctx["fstats"], rows=rows)
         return {"control_lvl": control_lvl, "rewire_targets": rewire_targets, "degree_credit": degree_credit,
                 "ctel": ctel}
 
     return Stage("control", CONTROL_READS, ("control_lvl", "rewire_targets", "degree_credit", "ctel"), fn)
 
 
-def control_stages(cfg, control, packed_m: int | None = None) -> tuple[Stage, ...]:
+def control_stages(cfg, control, packed_m: int | None = None, rows=ALL_ROWS) -> tuple[Stage, ...]:
     """The control stage when a controller runs, else none."""
-    return () if control is None else (_control_stage(cfg, control, packed_m),)
+    return () if control is None else (_control_stage(cfg, control, packed_m, rows),)
 
 
 def stream_stages(stream, tail_stage: Stage, host_rng=None, host_rnd: int | None = None,
-                  packed_m: int | None = None) -> tuple[Stage, ...]:
+                  packed_m: int | None = None, rows=ALL_ROWS) -> tuple[Stage, ...]:
     """The tail with the stream's age-out before it and its injection after
     it, as ``build_round_stages`` places them; the tail alone without a
     stream."""
     if stream is None:
         return (tail_stage,)
     return (_stream_ageout_stage(stream, packed_m is not None), tail_stage,
-            _stream_inject_stage(stream, host_rng, host_rnd, packed_m))
+            _stream_inject_stage(stream, host_rng, host_rnd, packed_m, rows))
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
@@ -552,7 +556,7 @@ def row_stages(cfg, *, faults=None, churn_faults: bool = False, liveness=None, g
     hold."""
     burst = faults is not None and churn_faults
     churn = (_churn_stage(cfg, burst, defended=liveness is not None, rows=rows),) if has_churn(cfg) or burst else ()
-    grow = (_growth_stage(cfg, growth, faults is not None),) if growth is not None else ()
+    grow = (_growth_stage(cfg, growth, faults is not None, rows),) if growth is not None else ()
     return (_liveness_stage(cfg, faults, liveness, rows), *churn, *grow)
 
 
@@ -566,8 +570,8 @@ def build_round_stages(cfg, *, tail: str = "fused", faults=None, churn_faults: b
     ``InjectBatch``), the ingest stage; then, with ``control``, the control
     stage."""
     return (*row_stages(cfg, faults=faults, churn_faults=churn_faults, liveness=liveness, growth=growth, rows=rows),
-            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd), *ingest_stages(inject),
-            *control_stages(cfg, control))
+            *stream_stages(stream, _tail_stage(cfg, tail), host_rng, host_rnd, rows=rows), *ingest_stages(inject),
+            *control_stages(cfg, control, rows=rows))
 
 
 def check_later(later: dict) -> None:
@@ -621,15 +625,15 @@ def require_quorum(scenario, liveness) -> None:
         )
 
 
-def resolve_control(control, state, cfg):
+def resolve_control(control, state, cfg, rows=ALL_ROWS):
     """The round's ``RoundControl`` (None without a controller), resolved
     from ``state``'s cursor before delivery; the needy rows only where a
-    pull half consumes them."""
+    pull half consumes them. The state holds ``rows`` (``core.rows``)."""
     if control is None:
         return None
     from tpu_gossip_torch.control.engine import control_round
 
-    return control_round(control, state, want_needy=cfg.mode == "push_pull")
+    return control_round(control, state, want_needy=cfg.mode == "push_pull", rows=rows)
 
 
 def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused", scenario=None,
@@ -686,7 +690,7 @@ def run_protocol_round(state, cfg, disseminate: Callable, *, tail: str = "fused"
         # a quarantined peer still receives and stays a member; its sends
         # are masked
         transmit = transmit & ~state.quarantine[:, None]
-    rctl = resolve_control(control, state, cfg)
+    rctl = resolve_control(control, state, cfg, rows)
     k_accuse, k_forge, k_flood = adversary_keys(scenario, state.rng)
     if scenario is None:
         incoming, msgs_sent = disseminate(transmit, transmitter, receptive, k_push, k_pull, rctl)

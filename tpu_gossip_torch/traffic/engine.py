@@ -24,6 +24,14 @@ then runs as many steps as the round has arrivals (arrivals past the
 count are not live and change nothing), each a handful of (M,)-sized
 device operations, and the bits land by order-free scatter-max, so the
 card's bits equal the CPU's.
+
+The planes hold the ``rows`` (``core.rows``) each function takes. On a
+process of a mesh over several processes the draws and the landing on
+the whole lease table run alike on every process; each origin's gate is
+answered by the origin's holder (:meth:`~tpu_gossip_torch.core.rows.
+Rows.lookup`, ``J`` bits a process), and each process writes the
+arrivals at the rows it holds. The telemetry is then the same on every
+process.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from tpu_gossip_torch.core import prng
+from tpu_gossip_torch.core.rows import ALL_ROWS
 from tpu_gossip_torch.core.state import saturate_round
 from tpu_gossip_torch.core.streams import TRAFFIC_STREAM_SALT
 
@@ -87,9 +96,11 @@ def round_arrivals(stream, host_rng: torch.Tensor, host_rnd: int) -> int:
     return min(int(prng.poisson(k_count, round_rate(stream, host_rnd))), stream.max_inject)
 
 
-def stream_draws(stream, rng: torch.Tensor, *, n: int, m: int, row_ptr, col_idx, exists):
+def stream_draws(stream, rng: torch.Tensor, *, n: int, m: int, row_ptr, col_idx, exists, rows=ALL_ROWS):
     """``(origins (J,) int32, slots (J, k) int64)``: every origin and slot
-    draw of the round at the static batch shape, from the device key."""
+    draw of the round at the static batch shape, from the device key.
+    ``n`` is the swarm's row count; ``exists`` holds the rows of
+    ``rows``."""
     j, k = stream.max_inject, stream.k_hashes
     _k_count, k_origin, k_hot, k_slot, k_fb = prng.split(prng.fold_in(rng, TRAFFIC_STREAM_SALT), 5)
     n_orig = stream.origin_rows.shape[0]
@@ -102,7 +113,8 @@ def stream_draws(stream, rng: torch.Tensor, *, n: int, m: int, row_ptr, col_idx,
         draw = col_idx[prng.randint(k_origin, (j,), 0, e_real).to(torch.int64)].to(torch.int32)
         # an endpoint draw on an erased entry falls back to a uniform member
         fallback = stream.origin_rows[prng.randint(k_fb, (j,), 0, n_orig).to(torch.int64)]
-        origins = torch.where(exists[torch.clamp(draw, 0, n - 1).to(torch.int64)], draw, fallback)
+        member = rows.lookup(torch.clamp(draw, 0, n - 1).to(torch.int64), exists, label="stream")
+        origins = torch.where(member, draw, fallback)
     elif stream.origins == "hotspot":
         k_hot_pick, k_hot_row = prng.split(k_hot)
         uni = stream.origin_rows[prng.randint(k_origin, (j,), 0, n_orig).to(torch.int64)]
@@ -161,9 +173,10 @@ def scatter_arrivals(seen: torch.Tensor, infected_round: torch.Tensor, rows: tor
 
 def apply_stream(stream, rng: torch.Tensor, rnd: torch.Tensor, expired_count: torch.Tensor, *, seen,
                  infected_round, slot_lease, row_ptr, col_idx, exists, alive, declared_dead,
-                 host_rng: torch.Tensor | None = None, host_rnd: int | None = None):
+                 host_rng: torch.Tensor | None = None, host_rnd: int | None = None, rows=ALL_ROWS):
     """Inject one round's arrivals; returns ``(seen, infected_round,
-    slot_lease, telemetry)``.
+    slot_lease, telemetry)``. The row planes hold ``rows``
+    (``core.rows``).
 
     ``rng`` is the round's root key (``state.rng``) and ``rnd`` the round
     on the device; ``host_rng`` and ``host_rnd`` are their host copies
@@ -171,18 +184,24 @@ def apply_stream(stream, rng: torch.Tensor, rnd: torch.Tensor, expired_count: to
     after the tail and the row stages, so origins are gated on the round's
     final liveness (an arrival at a down origin is offered, not injected)
     and a slot the age-out just recycled is leasable again."""
-    n, m = exists.shape[0], seen.shape[1]
+    n_held, m = exists.shape[0], seen.shape[1]
+    n = rows.total(n_held)
     if host_rng is None:
         host_rng = rng.cpu()
     if host_rnd is None:
         host_rnd = int(rnd)
     n_arr = round_arrivals(stream, host_rng, host_rnd)
-    origins, slots = stream_draws(stream, rng, n=n, m=m, row_ptr=row_ptr, col_idx=col_idx, exists=exists)
+    origins, slots = stream_draws(stream, rng, n=n, m=m, row_ptr=row_ptr, col_idx=col_idx, exists=exists,
+                                  rows=rows)
     safe_o = torch.clamp(origins[:n_arr], 0, n - 1).to(torch.int64)
-    ok = exists[safe_o] & alive[safe_o] & ~declared_dead[safe_o]
+    # each origin's gate from its holder (no arrivals: no collective on any process)
+    ok = (rows.lookup(safe_o, exists & alive & ~declared_dead, label="stream") if n_arr
+          else torch.zeros((0,), dtype=torch.bool, device=exists.device))
     slot_lease, landed, conflated = land_arrivals(slot_lease, slots[:n_arr], ok, rnd, stream.k_hashes)
     if n_arr:
-        seen, infected_round = scatter_arrivals(seen, infected_round, safe_o, slots[:n_arr], landed, rnd)
+        mine = (safe_o >= rows.lo) & (safe_o < rows.lo + n_held)
+        seen, infected_round = scatter_arrivals(seen, infected_round, torch.where(mine, safe_o - rows.lo, 0),
+                                                slots[:n_arr], landed & mine, rnd)
     dev = seen.device
     telem = StreamTelemetry(
         offered=torch.full((), n_arr, dtype=torch.int32, device=dev),
