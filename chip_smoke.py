@@ -218,8 +218,23 @@ refresh every 4 rounds (40 rounds) on ``cluster_planes_grow_1m``, the
 same argv at n=20000 ``--packed`` on ``cluster_planes_grow_20k`` (its
 unpacked pin), and the bucketed twin at n=20000 with ``--staircase`` on
 ``cluster_planes_grow_bucketed``, measured as 17e's runs and the 1M run's
-growth stage timed by CUDA events in its second pass. It prints phase
-13's to 17's seconds and the script's. Each check of a checkpoint
+growth stage timed by CUDA events in its second pass; 17g (ROADMAP item
+11d parts 4-5) the same ranks through ``run_sim.main`` with pipelined
+rounds and the distributed builder, each rank building only its shards:
+the 1M matching run built by ``--builder dist``, pipelined on the sparse
+transport (32 rounds) on ``cluster_dist_pipe_1m``, n=20000 built so,
+pipelined on the hier transport, growing under the controller and a stream
+``--packed`` on ``cluster_dist_pipe_20k`` (its unpacked pin), and the
+bucketed twin pipelined under churn with ``--staircase`` on
+``cluster_pipe_bucketed``, each in three passes in turns (pipelined,
+serial ``--pipeline 0``, pipelined) with its rounds timed by CUDA events,
+its launches counted from 0 (the build's apart), each kernel held to its
+plain version on the operands of its first calls, the rank's resident
+state beside ``state_plane_bytes`` at its rows, and the bytes a rank moves
+while it builds (the exchanges, the CSR's gather, the transport's masks);
+the 1M build's seconds and device peak a rank beside the one-process
+S = 8 ``--builder dist`` build's, before and after the ranks, a rank's at
+most 0.6 of it. It prints phase 13's to 17's seconds and the script's. Each check of a checkpoint
 written on one device and resumed on the other (8e, 9c, 10d, 11d, 12d)
 runs its two directions at once, 10c runs the first 32 rounds of
 ``bench_grow``'s schedule and 13d the first 5 of ``bench_fleet``'s 10, and
@@ -4766,7 +4781,8 @@ class GrowthMeter:
 
 
 class RoundMeter:
-    """CUDA events around every ``dist.gossip_round_dist`` while installed."""
+    """CUDA events around every ``dist.gossip_round_dist`` while installed,
+    and the bytes of each tensor of the first round's input state."""
 
     def __init__(self):
         from tpu_gossip_torch.dist import mesh as dmesh
@@ -4774,6 +4790,10 @@ class RoundMeter:
         self._mesh, self._inner, self.events = dmesh, dmesh.gossip_round_dist, []
 
     def __call__(self, *args, **kw):
+        if not self.events:
+            st = args[0]
+            self.state_bytes = {f.name: getattr(st, f.name).numel() * getattr(st, f.name).element_size()
+                                for f in dataclasses.fields(st) if isinstance(getattr(st, f.name), torch.Tensor)}
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         out = self._inner(*args, **kw)
@@ -4792,14 +4812,19 @@ class RoundMeter:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+def rooted_argv(root: Path, argv: list[str]) -> list[str]:
+    """``argv`` with its scenario file named from the checkout's root."""
+    return [str(root / a) if i and argv[i - 1] == "--scenario" else a for i, a in enumerate(argv)]
+
+
 def planes_runs(root: Path) -> list:
     """17e's and 17f's runs: ``(phase, name, run_sim argv without the
     cluster flags, the pin's summary, the launches the path needs)``, in
     order."""
     pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
 
-    def rooted(argv):  # a scenario file named from the checkout's root
-        return [str(root / a) if i and argv[i - 1] == "--scenario" else a for i, a in enumerate(argv)]
+    def rooted(argv):
+        return rooted_argv(root, argv)
 
     runs = []
     for i in PLANES_MESH_ENTRIES:
@@ -4885,11 +4910,246 @@ def planes_rank(root: Path, dev, rank: int, coordinator: list[str]) -> dict:
     return out
 
 
+# phase 17g: pipelined rounds and the distributed builder (ROADMAP item 11d parts 4-5) in the same
+# ranks: (key, run it --packed, the launches its rounds need)
+PIPE_RUNS = (("cluster_dist_pipe_1m", False, PLANES_MATCHING_PATH),
+             ("cluster_dist_pipe_20k", True, PLANES_PACKED_PATH),
+             ("cluster_pipe_bucketed", False, PLANES_BUCKETED_PATH))
+PIPE_BIG = "cluster_dist_pipe_1m"
+# what a rank's distributed build launches: K1 for the lane stages, K2 sum for the degree fold
+BUILD_PATH = {"lane_shuffle": None, "fold_planes_sum": 1}
+# a rank's 1M build peak over the one-process S = 8 build's, at most
+BUILD_PEAK_SHARE = 0.6
+# the state's fields every rank holds whole (dist/mesh.py::_WHOLE_FIELDS)
+WHOLE_STATE = ("row_ptr", "col_idx", "slot_lease", "control_lvl", "rng", "round")
+
+
+class BuildMeter:
+    """While installed, wraps the distributed builder and the transport's
+    build (``dist.matching_powerlaw_graph_dist``, ``dist.build_transport``):
+    each one's seconds, the bytes ``meter`` (an :class:`ExchangeMeter`)
+    saw shipped during it and the launches it made, and the device peak
+    over what was allocated as it started (``reset_peak_memory_stats``
+    before it, ``max_memory_allocated`` after)."""
+
+    def __init__(self, dev, meter: ExchangeMeter):
+        from tpu_gossip_torch import dist
+        from tpu_gossip_torch.kernels import native
+
+        self._dist, self._native, self.dev, self.meter = dist, native, dev, meter
+        self.build, self.transport = {}, {}
+
+    def _measured(self, fn, rec: dict, *args, **kw):
+        launches = self._native.LAUNCHES
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        start = torch.cuda.memory_allocated(self.dev)
+        before, shipped = dict(launches), self.meter.bytes
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize(self.dev)
+        rec.update(seconds=time.perf_counter() - t0, start=start, peak=torch.cuda.max_memory_allocated(self.dev),
+                   exchange_bytes=self.meter.bytes - shipped,
+                   launches={k: v - before.get(k, 0) for k, v in launches.items() if v != before.get(k, 0)})
+        return out
+
+    def __enter__(self):
+        d = self._dist
+        self._saved = build, transport = d.matching_powerlaw_graph_dist, d.build_transport
+        d.matching_powerlaw_graph_dist = lambda *a, **kw: self._measured(build, self.build, *a, **kw)
+        d.build_transport = lambda *a, **kw: self._measured(transport, self.transport, *a, **kw)
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.matching_powerlaw_graph_dist, self._dist.build_transport = self._saved
+
+
+def pipe_build_runs(root: Path) -> list:
+    """17g's runs: ``(name, run_sim argv without the cluster flags, the pin's
+    summary, the launches its rounds need)``, in order."""
+    pins = json.loads((root / "tpu_gossip_torch" / "reference_pins.json").read_text())
+    return [(key + (" packed" if packed else ""),
+             rooted_argv(root, pins[key]["argv"] + (["--packed"] if packed else [])), pins[key]["summary"], path)
+            for key, packed, path in PIPE_RUNS]
+
+
+def serial_argv(argv: list[str]) -> list[str]:
+    """``argv`` with its pipeline depth 0: the serial run of the same layout."""
+    i = argv.index("--pipeline")
+    return argv[:i + 1] + ["0"] + argv[i + 2:]
+
+
+def pipe_build_rank(root: Path, dev, rank: int, coordinator: list[str]) -> dict:
+    """17g in one rank: each of :func:`pipe_build_runs` through
+    ``run_sim.main`` in this process (the group already joined), three
+    passes in turns: pipelined, with the launches counted from 0 (the
+    build's apart), each kernel tapped and then held to its plain version
+    on the operands of its first calls, the rank's resident state and the
+    bytes it moved while it built; serial (``--pipeline 0``); pipelined
+    again. The rounds are timed by CUDA events in every pass, and the build's
+    seconds and device peak are read in the two untapped passes. Rank 0
+    returns each pass's summary line."""
+    import contextlib
+    import io
+
+    from tpu_gossip_torch.cli import run_sim as tcli
+    from tpu_gossip_torch.cluster import topology as topo
+    from tpu_gossip_torch.core.state import state_plane_bytes
+    from tpu_gossip_torch.kernels import native
+
+    def one_pass(argv, tapped: bool) -> dict:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        native.reset_launches()
+        topo.SIDE_PATHS.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with ExchangeMeter() as meter, BuildMeter(dev, meter) as bm, RoundMeter() as rm, \
+                (KernelTap() if tapped else contextlib.nullcontext()) as tap, contextlib.redirect_stdout(buf):
+            rc = tcli.main([*argv, *coordinator])
+        torch.cuda.synchronize(dev)
+        if rc != 0:
+            raise AssertionError(f"17g rank {rank} {' '.join(argv)}: run_sim exited {rc}")
+        side = {k: v[1] for k, v in topo.SIDE_PATHS.items()}
+        build_bytes = dict(exchange=bm.build.get("exchange_bytes", 0), csr=side.get("build csr", 0),
+                           transport=bm.transport.get("exchange_bytes", 0) + side.get("build transport", 0))
+        return dict(rc=rc, wall=time.perf_counter() - t0, rounds=len(rm.events), ms=rm.ms() / max(len(rm.events), 1),
+                    exchange_ms=meter.ms() / max(len(rm.events), 1), launches=dict(native.LAUNCHES),
+                    build=bm.build, transport=bm.transport, build_bytes=build_bytes, tap=tap,
+                    state=rm.state_bytes, summary=json.loads(buf.getvalue().strip().splitlines()[-1])
+                    if rank == 0 else None)
+
+    out = {}
+    for name, argv, _, path in pipe_build_runs(root):
+        rounds = int(argv[argv.index("--rounds") + 1])
+        first = one_pass(argv, True)
+        torch.distributed.barrier()
+        serial = one_pass(serial_argv(argv), False)
+        torch.distributed.barrier()
+        again = one_pass(argv, False)
+        torch.distributed.barrier()
+        for p in (first, serial, again):
+            if p["rounds"] != rounds:
+                raise AssertionError(f"17g rank {rank} {name}: {p['rounds']} mesh rounds, not {rounds}")
+        what = f"17g rank {rank} {name}"
+        round_launches = {k: v - first["build"].get("launches", {}).get(k, 0) - first["transport"].get(
+            "launches", {}).get(k, 0) for k, v in first["launches"].items()}
+        check_launches(what, round_launches, path, rounds)
+        if first["build"]:
+            check_launches(f"{what} (its build)", dict(dict.fromkeys(BUILD_PATH, 0), **first["build"]["launches"]),
+                           BUILD_PATH, 1)
+        errs = first["tap"].check()
+        need = {"fold_classes" if k.startswith("fold_planes") else k for k in
+                list(path) + (list(BUILD_PATH) if first["build"] else [])}
+        if dev.type == "cuda" and need - {k.split()[0] for k in errs}:
+            raise AssertionError(f"{what}: tapped only {sorted(errs)}, needs {sorted(need)}")
+        st = first["state"]
+        n_rows, packed = st["last_hb"] // 2, "flags" in st  # last_hb: int16 (N,)
+        m, rewire, d = st["infected_round"] // 2 // n_rows, st["rewire_targets"] // 4 // n_rows, st["col_idx"] // 4
+        priced = state_plane_bytes(n_rows, m, rewire, d, packed=packed)
+        per_peer_priced = sum(v for k, v in priced.items() if k not in WHOLE_STATE)
+        state = dict(n_rows=n_rows, m=m, packed=packed, total=sum(st.values()), per_peer_priced=per_peer_priced,
+                     per_peer=sum(v for k, v in st.items() if k not in WHOLE_STATE),
+                     whole=sum(v for k, v in st.items() if k in WHOLE_STATE))
+        if state["per_peer"] != per_peer_priced:
+            raise AssertionError(f"{what}: the per-peer planes hold {state['per_peer']} B, "
+                                 f"state_plane_bytes({n_rows}, {m}) prices {per_peer_priced} B")
+        out[name] = dict(
+            summary=first["summary"], summaries=[p["summary"] for p in (serial, again)], rounds=rounds,
+            ms_pipelined=[first["ms"], again["ms"]], ms_serial=serial["ms"],
+            exchange_ms=[first["exchange_ms"], serial["exchange_ms"], again["exchange_ms"]],
+            wall_s=[first["wall"], serial["wall"], again["wall"]],
+            launches={k: v for k, v in round_launches.items() if v},
+            build_launches=first["build"].get("launches", {}), builds=[p["build"] for p in (serial, again)],
+            build_bytes=first["build_bytes"], state=state, max_abs_err=errs)
+    return out
+
+
+def one_process_build(dev) -> dict:
+    """17g's 1M layout built by ``--builder dist`` in one process over the
+    whole S = 8 mesh (14d's): its seconds and its device peak over what was
+    allocated as it started."""
+    from tpu_gossip_torch import dist
+    from tpu_gossip_torch.cluster import make_cluster_mesh
+    from tpu_gossip_torch.core import prng
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    g, plan = dist.matching_powerlaw_graph_dist(N_HEADLINE, make_cluster_mesh(MESH_SHARDS, 1, dev), gamma=2.5,
+                                                fanout=1, key=prng.key(0, dev))
+    torch.cuda.synchronize(dev)
+    out = dict(seconds=time.perf_counter() - t0, start=start, peak=torch.cuda.max_memory_allocated(dev),
+               rows=plan.rows)
+    del g, plan
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_pipe_build(root: Path, card: str, ranks: dict, builds: list) -> None:
+    """17g's results: rank 0's pipelined summary of each run equal to its pin
+    (the timing fields and, packed, the packed key aside; the floats within
+    their tolerances) and the second pipelined pass equal to the first,
+    each rank's kernels equal to their plain versions on its own operands,
+    and each rank's 1M build peak (over what it started from) at most
+    :data:`BUILD_PEAK_SHARE` of the one-process build's (``builds``, before
+    and after the ranks); a line a rank a run."""
+    one_peak = min(b["peak"] - b["start"] for b in builds)
+    for name, argv, want, _ in pipe_build_runs(root):
+        got, again = dict(ranks[0]["pipe_build"][name]["summary"]), dict(ranks[0]["pipe_build"][name]["summaries"][1])
+        want = dict(want)
+        for d in (got, want, again):
+            for k in PLANES_TIMING:
+                d.pop(k, None)
+            if "--packed" in argv:
+                d.pop("packed", None)
+        floats = [k for k in got if isinstance(got[k], float)]
+        if {k: v for k, v in got.items() if k not in floats} != {k: v for k, v in want.items() if k not in floats} \
+                or any(abs(got[k] - want[k]) > PLANES_FLOATS.get(k, 1e-6) for k in floats):
+            raise AssertionError(f"17g {name}: rank 0's summary {got} != the pin's {want}")
+        if again != got:
+            raise AssertionError(f"17g {name}: the second pipelined pass {again} != the first {got}")
+        for r, res in sorted(ranks.items()):
+            p = res["pipe_build"][name]
+            if set(p["max_abs_err"].values()) != {0}:
+                raise AssertionError(f"17g rank {r} {name}: a kernel disagrees with its plain version on the rank's "
+                                     f"operands: {p['max_abs_err']}")
+            build = ""
+            if p["builds"][0]:
+                peaks = [b["peak"] - b["start"] for b in p["builds"]]
+                build = (f"; the build (untapped passes) {[b['seconds'] for b in p['builds']]} s, device peak over "
+                         f"its start {peaks} B (from {[b['start'] for b in p['builds']]} B), launches "
+                         f"{p['build_launches']}, bytes moved while building {p['build_bytes']}")
+                if name == PIPE_BIG:
+                    share = max(peaks) / one_peak
+                    build += f", {share} of the one-process S = {MESH_SHARDS} build's {one_peak} B"
+                    if share > BUILD_PEAK_SHARE:
+                        raise AssertionError(f"17g rank {r} {name}: its build peak {max(peaks)} B is {share} of "
+                                             f"the one-process build's {one_peak} B, over {BUILD_PEAK_SHARE}")
+            st = p["state"]
+            print(f"[{card}] 17g rank {r} of {CLUSTER_HOSTS} ({CLUSTER_PER} shards) {name} ({p['rounds']} rounds, "
+                  f"{' '.join(argv)}): {p['ms_pipelined'][0]} ms/round pipelined, {p['ms_serial']} serial "
+                  f"(--pipeline 0), {p['ms_pipelined'][1]} pipelined again, by CUDA events (the exchange "
+                  f"{p['exchange_ms']} ms/round; through run_sim, the build in, {p['wall_s']} s), launches "
+                  f"{p['launches']} over the rounds{build}; resident state {st['total']} B, its per-peer planes "
+                  f"{st['per_peer']} B = state_plane_bytes({st['n_rows']}, {st['m']}"
+                  f"{', packed' if st['packed'] else ''})'s {st['per_peer_priced']} B, the whole CSR and per-slot fields {st['whole']} B; kernels on the "
+                  f"rank's own operands max_abs_err {p['max_abs_err']}"
+                  + ("; digests on the pin, the second pipelined pass equal" if r == 0 else ""), flush=True)
+    for b, when in zip(builds, ("before", "after")):
+        print(f"[{card}] 17g one process S = {MESH_SHARDS} --builder dist 1M build ({when} the ranks): "
+              f"{b['seconds']} s, device peak {b['peak']} B over {b['start']} B held as it started ({b['peak'] - b['start']} B its own), "
+              f"{b['rows']} slot rows", flush=True)
+
+
 def cluster_rank(argv: list[str]) -> int:
     """One rank of phase 17 (``python -m chip_smoke --cluster-rank DIR``
     with the launcher's flags): 17a's dense and hier runs, 17c's
     checkpoint at round 8 into DIR (rank 0 writes), 17b's bucketed run,
-    17e's and 17f's plane runs (:func:`planes_rank`); one result line.
+    17e's and 17f's plane runs (:func:`planes_rank`), 17g's pipelined runs
+    built on the ranks (:func:`pipe_build_rank`); one result line.
     Before each run the rank holds K1 and K2 (on its lane tables and its
     own class layout), K3 (at its state rows) and K6 (on its shards' plans)
     against their plain versions on its own inputs."""
@@ -4934,6 +5194,7 @@ def cluster_rank(argv: list[str]) -> int:
     coordinator = ["--coordinator", flag("--coordinator"), "--num-processes", str(hosts), "--process-id", str(rank),
                    "--dist-backend", flag("--dist-backend")]
     out["planes"] = planes_rank(Path(__file__).resolve().parent, dev, rank, coordinator)
+    out["pipe_build"] = pipe_build_rank(Path(__file__).resolve().parent, dev, rank, coordinator)
     print(CLUSTER_RESULT + json.dumps(out), flush=True)
     torch.distributed.destroy_process_group()
     return 0
@@ -4959,7 +5220,10 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     17d: NCCL with two ranks on one card refused, exit 2; 17e and 17f: the
     row planes', growth's, the stream's and the controller's runs of
     :func:`planes_runs` through ``run_sim`` in the same ranks, each onto
-    its pin (:func:`check_planes`)."""
+    its pin (:func:`check_planes`); 17g: the pipelined runs of
+    :func:`pipe_build_runs`, built on the ranks, each onto its pin, and
+    the one-process S = 8 distributed build before and after the ranks
+    (:func:`check_pipe_build`)."""
     import io
     import tempfile
 
@@ -4984,6 +5248,7 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     nccl_out, _ = nccl.communicate(timeout=90)
     refused = time.perf_counter() - t0
     before = cluster_run(dev, one, None, "17a one process", None)
+    builds = [one_process_build(dev)]
     tmp_dir = tempfile.TemporaryDirectory(prefix="phase17-")
     tmp = Path(tmp_dir.name)
     buf = io.StringIO()
@@ -4997,6 +5262,7 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
     if rc != 0 or sorted(ranks) != list(range(CLUSTER_HOSTS)):
         raise AssertionError(f"17: the two ranks exited {rc} with results from {sorted(ranks)}:\n{text[-6000:]}")
     after = cluster_run(dev, one, None, "17a one process", None)
+    builds.append(one_process_build(dev))
     dense_pin = {k: v for k, v in pin["dense"]["ici"].items() if not k.startswith("dcn_")}
     for r, got in ranks.items():
         if set(got["max_abs_err"].values()) != {0}:
@@ -5052,6 +5318,8 @@ def phase_cluster(root: Path, dev, card: str) -> dict:
         out[phase] = dict(seconds=sum(ranks[0]["planes"][name]["wall_s"] for ph, name, *_ in planes_runs(root)
                                       if ph == phase))
     check_planes(root, card, ranks)
+    out["17g"] = dict(seconds=sum(sum(ranks[0]["pipe_build"][name]["wall_s"]) for name, *_ in pipe_build_runs(root)))
+    check_pipe_build(root, card, ranks, builds)
 
     t0 = time.perf_counter()
     path, manifest = latest_complete(tmp / "ckpt")
@@ -5447,7 +5715,7 @@ def smoke(root: Path, dev: torch.device, card: str) -> int:
     print(f"[{card}] phase 16: {time.perf_counter() - t0:.2f} s; by part "
           f"{ {k: round(v['seconds'], 2) for k, v in simnet.items()} }; the script "
           f"{time.perf_counter() - t_script:.2f} s", flush=True)
-    # phase 17: several processes, two gloo ranks sharing the card (17a-17f)
+    # phase 17: several processes, two gloo ranks sharing the card (17a-17g)
     t0 = time.perf_counter()
     cluster = phase_cluster(root, dev, card)
     print(f"[{card}] phase 17: {time.perf_counter() - t0:.2f} s; by part "

@@ -402,6 +402,37 @@ def stream_runs_case(name: str) -> dict:
     return jax_stream_run(name)
 
 
+# tests/test_torch_packed.py's codec slot counts
+CODEC_MS = [1, 8, 13, 16, 17]
+
+
+def codec_bools(m: int) -> np.ndarray:
+    """The codec test's (57, m) bool plane, from numpy's seed ``m``."""
+    return np.random.default_rng(m).random((57, m)) < 0.4
+
+
+def codec_case(m: int) -> dict:
+    """The JAX half of ``tests/test_torch_packed.py::test_codec_equals_jax``
+    at ``m`` slots: each codec output on :func:`codec_bools` as its dtype
+    and values (:func:`_leaf`)."""
+    import jax.numpy as jnp
+
+    from tpu_gossip.core import packed as jpk
+
+    x = codec_bools(m)
+    words = jpk.pack_bits(jnp.asarray(x))
+    w32 = jpk.words8_to_words32(words)
+    ones = np.full((3, 7), 0xFF, np.uint8)
+    out = {"pack_bits": _leaf(words), "unpack_bits": _leaf(jpk.unpack_bits(words, m)),
+           "word_mask": _leaf(jpk.word_mask(m)), "packed_width": jpk.packed_width(m),
+           "words8_to_words32": _leaf(w32), "words32_to_words8": _leaf(jpk.words32_to_words8(w32, words.shape[-1])),
+           "words8_to_words32_ones": _leaf(jpk.words8_to_words32(jnp.asarray(ones))),
+           "np_pack_bits": _leaf(jpk.np_pack_bits(x)),
+           "np_unpack_bits": _leaf(jpk.np_unpack_bits(np.asarray(words), m))}
+    out.update({f"bit_column_{slot}": _leaf(jpk.bit_column(words, slot)) for slot in sorted({0, m // 2, m - 1})})
+    return out
+
+
 def fold_classes_case(case: str, op: str) -> str:
     """The JAX half of ``tests/test_torch_fold_classes.py``'s
     ``test_reduce_classes_equals_jax`` (``jax_fold_case`` there)."""
@@ -571,7 +602,22 @@ CLUSTER_PLANES = {
                       "--stream-hashes", "2", "--transport", "sparse"]),
     "bucketed_grow": (4, [*CLUSTER_B, "--staircase", "--seed", "4", "--hosts", "2", "--rounds", "30", "--grow",
                           "1500", "--grow-rate", "8", *PLANES_CONTROL_DEGRADED]),
+    # pipelined rounds and the distributed builder (ROADMAP item 11d parts 4-5)
+    "pipe_dense": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "16", "--pipeline", "1"]),
+    "pipe_hier_churn": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "24", "--pipeline", "1", "--transport", "hier",
+                            *PLANES_CHURN, "--scenario", "scenarios/lossy_links.toml", "--quorum-k", "3"]),
+    "pipe_bucketed": (4, [*CLUSTER_B, "--staircase", "--seed", "4", "--hosts", "2", "--rounds", "16", "--pipeline",
+                          "1", *PLANES_CHURN]),
+    "dist_dense": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "10", "--builder", "dist"]),
+    "dist_sparse_pipe": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "16", "--builder", "dist", "--transport",
+                             "sparse", "--pipeline", "1"]),
+    "dist_control_pipe": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "30", "--pipeline", "1", "--builder", "dist",
+                              *PLANES_CONTROL_DEGRADED]),
+    "dist_grow": (4, [*CLUSTER_M, "--hosts", "2", "--rounds", "30", "--builder", "dist", *PLANES_GROW_FLASH]),
 }
+# the witnesses of item 11d parts 4-5 (tests/test_torch_cluster_pipe_build.py)
+CLUSTER_PIPE_BUILD = ("pipe_dense", "pipe_hier_churn", "pipe_bucketed", "dist_dense", "dist_sparse_pipe",
+                      "dist_control_pipe", "dist_grow")
 # chip_smoke.py phase 17e's full-width pins: the composed matching run at
 # 1M (no --seed) and its bucketed twin at n=20000, on an 8-shard (2, 4) fold
 PLANES_1M = ["--peers", "1000000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
@@ -602,6 +648,22 @@ PLANES_GROW_BUCKETED_20K = ["--peers", "20000", "--graph", "chung-lu", "--shard"
                             "--grow-rate", "16", *PLANES_GROW_CONTROL, "--digest", "--quiet"]
 
 
+# chip_smoke.py phase 17g's pins (ROADMAP item 11d parts 4-5): the 1M
+# matching mesh built by the distributed builder, pipelined on the sparse
+# transport (no --seed); n=20000 grown under control, built by the
+# distributed builder, pipelined on the hier transport (the card runs it
+# --packed); and the bucketed twin pipelined under churn; an 8-shard (2, 4) fold
+PIPE_BUILD_1M = ["--peers", "1000000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
+                 "--hosts", "2", "--builder", "dist", "--pipeline", "1", "--transport", "sparse", "--rounds", "32",
+                 "--digest", "--quiet"]
+PIPE_BUILD_20K = ["--peers", "20000", "--graph", "matching", "--shard", "--mode", "push_pull", "--fanout", "1",
+                  "--hosts", "2", "--builder", "dist", "--pipeline", "1", "--transport", "hier", "--rounds", "40",
+                  "--grow", "20640", "--grow-rate", "16", *PLANES_GROW_CONTROL, "--digest", "--quiet"]
+PIPE_BUCKETED_20K = ["--peers", "20000", "--graph", "chung-lu", "--shard", "--mode", "push_pull", "--fanout", "2",
+                     "--slots", "8", "--staircase", "--hosts", "2", "--pipeline", "1", "--rounds", "40", *PLANES_CHURN,
+                     "--digest", "--quiet"]
+
+
 def cli_cluster_pin(shards: int, *argv: str) -> dict:
     """A pin entry of ``reference_pins.json``: the JAX CLI's one-process
     fold of ``argv`` on ``shards`` forced host devices and its summary,
@@ -630,6 +692,17 @@ def cluster_grow_pins(names: str = "") -> dict:
     some."""
     runs = {"cluster_planes_grow_1m": PLANES_GROW_1M, "cluster_planes_grow_20k": PLANES_GROW_20K,
             "cluster_planes_grow_bucketed": PLANES_GROW_BUCKETED_20K}
+    pick = [n for n in names.split(",") if n] or list(runs)
+    return {name: cli_cluster_pin(8, *runs[name]) for name in pick}
+
+
+def cluster_pipe_build_pins(names: str = "") -> dict:
+    """Phase 17g's three pins (:data:`PIPE_BUILD_1M`, several minutes,
+    :data:`PIPE_BUILD_20K` and :data:`PIPE_BUCKETED_20K`), keyed as
+    ``reference_pins.json`` holds them; ``names`` (comma-separated) picks
+    some."""
+    runs = {"cluster_dist_pipe_1m": PIPE_BUILD_1M, "cluster_dist_pipe_20k": PIPE_BUILD_20K,
+            "cluster_pipe_bucketed": PIPE_BUCKETED_20K}
     pick = [n for n in names.split(",") if n] or list(runs)
     return {name: cli_cluster_pin(8, *runs[name]) for name in pick}
 
@@ -2141,6 +2214,8 @@ CASES = {
         "curve_40_s7_origin0": ("simnet_curve", [40, 10, 7, 0]),
         **{f"liveness_{name}": ("liveness_band_run", ["jax", name]) for name in LIVENESS_BAND},
     },
+    # the JAX half of tests/test_torch_packed.py's codec test
+    "packed_codec": {str(m): ("codec_case", [m]) for m in CODEC_MS},
     # the JAX halves of tests/test_torch_fold_classes.py (K2's whole-plan fold)
     "fold_classes": {f"{case}-{op}": ("fold_classes_case", [case, op]) for case in FOLD_CLASSES_CASES
                      for op in ("or", "sum")},

@@ -8,11 +8,9 @@ the JAX CLI's one-process run on the same (hosts, devices) fold (pinned in
 ICI/DCN totals included: the sharded matching mesh on the dense, sparse,
 auto and hier transports, packed and not, to a fixed horizon and to
 coverage. A rank's planes and tables hold ``1 / H`` of the rows, the
-draws of its rows are the block of the global draw, and a plane the
-multi-process rounds do not run yet (pipelined rounds, the distributed
-builder) exits 2 naming ROADMAP item 11d while growth, streams and
-control pass; the
-refusals that shadow it keep the JAX CLI's words, serving ignores the
+draws of its rows are the block of the global draw, and every plane of
+ROADMAP item 11d passes the config's checks under ``--coordinator``; the
+refusals of what cannot run keep the JAX CLI's words, serving ignores the
 cluster flags as the JAX CLI's serve does, and fleets refuse them in
 argparse's words. The bucketed mesh and the checkpoints across process
 counts are ``test_torch_cluster_ckpt.py``'s; the row planes (item 11d part
@@ -176,22 +174,13 @@ def test_bits_with_offset_is_the_global_draws_block(offset, rows):
 
 @pytest.mark.parametrize("flag", [["--grow", "400"], ["--stream", "2", "--rounds", "8"],
                                   ["--control", "0.9"], ["--pipeline", "1"], ["--builder", "dist"]])
-def test_planes_of_item_11d_exit_2_under_coordinator(capsys, flag):
-    """Under --coordinator the planes the rank-local rounds do not run yet
-    (pipelined rounds, the distributed builder: item 11d part 4) exit 2
-    naming ROADMAP item 11d, before any process group is joined; growth,
-    streams and control (parts 2 and 3) pass every check of the run's
-    config."""
+def test_planes_of_item_11d_pass_under_coordinator(flag):
+    """Under --coordinator every plane of ROADMAP item 11d passes every
+    check of the run's config: growth, streams and control (parts 2 and 3),
+    pipelined rounds and the distributed builder (parts 4 and 5)."""
     argv = ["--peers", "200", "--graph", "matching", "--shard", "--hosts", "2", "--coordinator", "127.0.0.1:1",
             "--num-processes", "2", "--process-id", "0", *flag, "--device", "cpu"]
-    if flag[0] in ("--grow", "--stream", "--control"):
-        args = tcli.build_parser().parse_args(argv)
-        assert tcli._multi_process_refusal(args) is None and tcli.validate(args) is None
-        return
-    capsys.readouterr()
-    assert tcli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "item 11d" in err and "not ported yet" in err
+    assert tcli.validate(tcli.build_parser().parse_args(argv)) is None
 
 
 COORDINATOR = ["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"]

@@ -4,7 +4,9 @@ of ``tests/unit/test_cli_config.py`` on the port, the parsers' flags held
 to the JAX CLIs' (no flag the JAX package lacks), and a run of the port's
 ``run_seed`` and two ``run_peer`` processes on a temporary ``config.txt``:
 registration, one stdin line gossiped to the other peer, ``exit`` on stdin
-and ``--run-seconds``, every process exiting 0."""
+and ``--run-seconds``, every process exiting 0; and a peer that comes up
+only once the subset its seed hands it late is applied, so a line gossiped
+as it comes up reaches its neighbour."""
 
 import os
 import socket
@@ -149,38 +151,42 @@ def _log(path: Path) -> str:
     return path.read_text() if path.exists() else ""
 
 
+def _start(tmp_path, config, module, port, *extra):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.Popen([sys.executable, "-m", f"tpu_gossip_torch.cli.{module}", "--port", str(port),
+                             "--config", str(config), "--time-scale", "0.01", "--quiet", *extra],
+                            cwd=tmp_path, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
 def test_seed_and_peer_processes(tmp_path):
-    """``run_seed`` with ``--run-seconds``; peer A with ``--run-seconds``;
-    peer B gossips a stdin line, which reaches A's log, then takes ``exit``.
-    Every process exits 0 and the seed logged both registrations."""
+    """``run_seed``; peer B; peer A with ``--run-seconds``, counted from its
+    bootstrap, so no interpreter's start-up eats into it; B gossips a stdin
+    line, which reaches A's log, then takes ``exit``; A exits by itself and
+    the seed takes ``exit``. Every process exits 0 and the seed logged both
+    registrations."""
     seed_port, a_port, b_port = _free_ports(3)
     config = tmp_path / "config.txt"
     config.write_text("")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-
-    def start(module, port, *extra):
-        return subprocess.Popen([sys.executable, "-m", f"tpu_gossip_torch.cli.{module}", "--port", str(port),
-                                 "--config", str(config), "--time-scale", "0.01", "--quiet", *extra],
-                                cwd=tmp_path, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-
-    procs = [start("run_seed", seed_port, "--run-seconds", "20")]
+    procs = [_start(tmp_path, config, "run_seed", seed_port)]
     try:
         _wait(lambda: f"127.0.0.1:{seed_port}" in config.read_text(), "the seed's self-registration")
-        procs.append(start("run_peer", a_port, "--run-seconds", "15"))
-        _wait(lambda: "Peer up" in _log(tmp_path / f"peer_log_{a_port}.txt"), "peer A")
-        procs.append(start("run_peer", b_port))
+        procs.append(_start(tmp_path, config, "run_peer", b_port))
         _wait(lambda: "Peer up" in _log(tmp_path / f"peer_log_{b_port}.txt"), "peer B")
-        b = procs[-1]
+        procs.append(_start(tmp_path, config, "run_peer", a_port, "--run-seconds", "10"))
+        _wait(lambda: "Peer up" in _log(tmp_path / f"peer_log_{a_port}.txt"), "peer A")
+        seed, b, a = procs
         b.stdin.write("hello-from-the-cli\n")
         b.stdin.flush()
         _wait(lambda: "Gossip: hello-from-the-cli" in _log(tmp_path / f"peer_log_{a_port}.txt"), "the line at A")
         b.stdin.write("exit\n")
         b.stdin.flush()
         assert b.wait(timeout=30) == 0, b.stderr.read()
-        for p in procs[:2]:
-            p.stdin.close()
-            assert p.wait(timeout=60) == 0, p.stderr.read()
+        a.stdin.close()
+        assert a.wait(timeout=60) == 0, a.stderr.read()
+        seed.stdin.write("exit\n")
+        seed.stdin.flush()
+        assert seed.wait(timeout=30) == 0, seed.stderr.read()
     finally:
         for p in procs:
             if p.poll() is None:
@@ -189,3 +195,57 @@ def test_seed_and_peer_processes(tmp_path):
     seed_log = _log(tmp_path / f"seed_log_{seed_port}.txt")
     assert f"Registered peer ('127.0.0.1', {a_port})" in seed_log
     assert f"Registered peer ('127.0.0.1', {b_port})" in seed_log
+
+
+def test_seed_run_seconds_exits_alone(tmp_path):
+    """``run_seed --run-seconds`` registers itself in ``config.txt`` and exits
+    0 by itself, its stdin left open."""
+    (port,) = _free_ports(1)
+    config = tmp_path / "config.txt"
+    config.write_text("")
+    seed = _start(tmp_path, config, "run_seed", port, "--run-seconds", "0.5")
+    try:
+        assert seed.wait(timeout=60) == 0, seed.stderr.read()
+    finally:
+        if seed.poll() is None:
+            seed.kill()
+            seed.wait()
+    assert f"127.0.0.1:{port}" in config.read_text()
+
+
+def test_peer_comes_up_with_its_late_subset_applied(tmp_path):
+    """A seed whose registration reply lands well after the peer's settle
+    delay (a loaded host's timing): the peer comes up only once it has
+    dialled the subset it was handed, so a line it gossips as it comes up
+    reaches its neighbour."""
+    import asyncio
+    import dataclasses
+
+    from tpu_gossip_torch.compat import PeerNode, ProtocolTiming
+
+    async def run():
+        config = tmp_path / "config.txt"
+        config.write_text("")
+        seed_port, a_port, b_port = _free_ports(3)
+        fast = ProtocolTiming().scaled(0.01)
+        seed = SeedNode("127.0.0.1", seed_port, str(config), timing=dataclasses.replace(fast, registration_settle=0.3),
+                        log_dir=str(tmp_path), rng_seed=0)
+        await seed.start()
+        nodes = [seed]
+        try:
+            for port in (a_port, b_port):
+                nodes.append(PeerNode("127.0.0.1", port, str(config), timing=fast, log_dir=str(tmp_path)))
+                await nodes[-1].start()
+            a, b = nodes[1:]
+            assert a.addr in b.neighbors
+            b.gossip("late-subset-line")
+            for _ in range(250):
+                if "Gossip: late-subset-line" in _log(tmp_path / f"peer_log_{a_port}.txt"):
+                    break
+                await asyncio.sleep(0.02)
+            assert "Gossip: late-subset-line" in _log(tmp_path / f"peer_log_{a_port}.txt")
+        finally:
+            for node in reversed(nodes):
+                await node.stop()
+
+    asyncio.run(run())

@@ -18,10 +18,10 @@ from tpu_gossip_torch.core import packed as tpk
 from tpu_gossip_torch.kernels import native
 from tpu_gossip_torch.kernels import packed_ops as tpo
 from tpu_gossip_torch.kernels import round_tail as ttail
-from tests.jax_pins import NAMES, cap_edge_operands
+from tests.jax_pins import CODEC_MS, NAMES, cap_edge_operands, codec_bools, pinned
 from tests.test_torch_slice import _one_torch_thread, build_both  # noqa: F401
 
-MS = [1, 8, 13, 16, 17]
+MS = CODEC_MS
 
 
 def _bools(shape, seed, p=0.4):
@@ -35,26 +35,34 @@ def _eq(want, got):
     np.testing.assert_array_equal(want, got)
 
 
+def _eq_pin(want: dict, got) -> None:
+    """A pinned JAX leaf (its dtype and nested values) against a port
+    tensor or numpy array: the same dtype, shape and values."""
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    _eq(np.asarray(want["data"], dtype=want["dtype"]), torch.from_numpy(np.ascontiguousarray(got)))
+
+
 @pytest.mark.parametrize("m", MS)
 def test_codec_equals_jax(m):
-    x = _bools((57, m), m)
-    words_j = jpk.pack_bits(jnp.asarray(x))
+    """The codec on a seeded (57, m) plane against the JAX package's outputs
+    pinned in ``tests/jax_pins.json`` (group ``packed_codec``)."""
+    want = pinned("packed_codec", str(m))
+    x = codec_bools(m)
     words_t = tpk.pack_bits(torch.from_numpy(x))
-    _eq(words_j, words_t)
-    _eq(jpk.unpack_bits(words_j, m), tpk.unpack_bits(words_t, m))
+    _eq_pin(want["pack_bits"], words_t)
+    _eq_pin(want["unpack_bits"], tpk.unpack_bits(words_t, m))
     for slot in {0, m // 2, m - 1}:
-        _eq(jpk.bit_column(words_j, slot), tpk.bit_column(words_t, slot))
-    _eq(jpk.word_mask(m), tpk.word_mask(m))
-    assert tpk.packed_width(m) == jpk.packed_width(m)
-    w32_j = jpk.words8_to_words32(words_j)
+        _eq_pin(want[f"bit_column_{slot}"], tpk.bit_column(words_t, slot))
+    _eq_pin(want["word_mask"], tpk.word_mask(m))
+    assert tpk.packed_width(m) == want["packed_width"]
     w32_t = tpk.words8_to_words32(words_t)
-    _eq(w32_j, w32_t)
-    _eq(jpk.words32_to_words8(w32_j, words_j.shape[-1]), tpk.words32_to_words8(w32_t, words_t.shape[-1]))
+    _eq_pin(want["words8_to_words32"], w32_t)
+    _eq_pin(want["words32_to_words8"], tpk.words32_to_words8(w32_t, words_t.shape[-1]))
     # all-ones words reach bit 31 of the int32 transcode
     ones = np.full((3, 7), 0xFF, np.uint8)
-    _eq(jpk.words8_to_words32(jnp.asarray(ones)), tpk.words8_to_words32(torch.from_numpy(ones)))
-    np.testing.assert_array_equal(tpk.np_pack_bits(x), jpk.np_pack_bits(x))
-    np.testing.assert_array_equal(tpk.np_unpack_bits(np.asarray(words_j), m), jpk.np_unpack_bits(np.asarray(words_j), m))
+    _eq_pin(want["words8_to_words32_ones"], tpk.words8_to_words32(torch.from_numpy(ones)))
+    _eq_pin(want["np_pack_bits"], tpk.np_pack_bits(x))
+    _eq_pin(want["np_unpack_bits"], tpk.np_unpack_bits(words_t.numpy(), m))
 
 
 def test_flags_equal_jax():
@@ -205,3 +213,11 @@ def test_round_tail_words_takes_plain_on_cpu_and_refuses_other_devices():
     with pytest.raises(ValueError):
         ttail.round_tail_words(w[:, :1], w, ir, w, w, w, w, None, torch.tensor(1), m=m,
                                forward_once=False, sir_recover_rounds=0)
+
+
+def test_codec_pins_are_current():
+    """One slot count of the codec's pins, recomputed by the JAX package in
+    a child process, equals the file."""
+    from tests.test_torch_growth_cli_engines import jax_in_child
+
+    assert jax_in_child("tests.jax_pins", "compute", "packed_codec", ["13"]) == {"13": pinned("packed_codec", "13")}

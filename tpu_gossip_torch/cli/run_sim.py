@@ -125,10 +125,9 @@ _LATER = (
     "checkpoints and resume, silent peers, fault scenarios, the quorum detector with its adversaries, "
     "growth, streams, adaptive control, pipelined rounds, fleet campaigns and serving, the (hosts, devices) fold "
     "with the hier transport, and over several processes (--coordinator) static rounds, churn, faults, silent "
-    "peers, the quorum detector, growth, streams and adaptive control; later slices add pipelined rounds and "
-    "the distributed builder over several processes (11d) and the analysis tier (14))"
+    "peers, the quorum detector, growth, streams, adaptive control, pipelined rounds and the distributed builder, "
+    "each process building only its shards; a later slice adds the analysis tier (ROADMAP item 14))"
 )
-_ITEM11D = "several processes (ROADMAP item 11d)"
 # the JAX CLI's flags the port has not ported: the JAX parser's default of
 # each (the only value a JAX checkpoint's run section may hold for it here)
 # and the slice that brings it
@@ -375,9 +374,8 @@ def _validate_cluster(args: argparse.Namespace) -> str | None:
     """Impossible --hosts/--coordinator configs, in the JAX CLI's words
     (its refusals of a run to coverage and of checkpoints under
     --coordinator are lifted: the port reduces the coverage over the ranks
-    and writes the whole swarm from rank 0), then, under --coordinator,
-    the planes the multi-process rounds do not run yet (ROADMAP item 11d
-    part 4); the exit-2 reason or None."""
+    and writes the whole swarm from rank 0); every plane runs under
+    --coordinator. The exit-2 reason or None."""
     if args.hosts < 1:
         return f"--hosts {args.hosts} must be >= 1"
     if args.hosts > 1 and not args.shard:
@@ -398,28 +396,9 @@ def _validate_cluster(args: argparse.Namespace) -> str | None:
                     "one row per process")
         if args.profile:
             return "--profile records a single process's trace; drop it"
-        return _multi_process_refusal(args)
+        return None
     if args.num_processes or args.process_id >= 0:
         return "--num-processes/--process-id need --coordinator"
-    return None
-
-
-def _multi_process_refusal(args: argparse.Namespace) -> str | None:
-    """Under --coordinator: the planes the rank-local rounds do not run yet
-    (ROADMAP item 11d, part 4: pipelined rounds and the distributed
-    builder) exit 2 naming it, before anything is built. Churn and
-    re-wiring, the fault plane, silent peers and the quorum detector run
-    (part 1), and growth (a scenario's ``join_burst`` waves with it),
-    streams and adaptive control (parts 2 and 3). --remat-every,
-    --profile-round and a run without --shard are refused first, in the
-    JAX CLI's words, by the --hosts checks above and by :func:`_refusal`."""
-    from tpu_gossip_torch.sim.stages import not_ported
-
-    planes = [("--pipeline (pipelined rounds)", args.pipeline is not None),
-              ("--builder dist", args.builder != "local")]
-    for what, on in planes:
-        if on:
-            return str(not_ported(f"{what} over several processes", _ITEM11D))
     return None
 
 
@@ -1990,11 +1969,14 @@ def _shard_runners(args: argparse.Namespace, graph, origins, silent_ids, cfg_kw:
 def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_kw: dict, dev, spec=None, lqs=None,
                             ctl=None, local: bool = False, resume=None):
     """--shard --graph matching: the sharded matching layout built for the
-    mesh (``--builder dist``: shard by shard, equal to the block-keyed local
-    build), the plan and the state placed on it, peers ``i`` mapped to
-    rows skipping each shard's pad rows, the planes compiled over those
-    rows; returns ``(cfg, state, segment, to_target, extra summary keys,
-    the counter's replay, the layout's shard count)``. ``local`` (``run_sim
+    mesh (``--builder dist``: only the shards this process holds, equal to
+    their rows of the block-keyed local build; ``--builder local``: whole,
+    then this process's rows kept), the transport built from the held plan
+    and the state initialised on this process's rows, peers ``i`` mapped to
+    rows skipping each shard's pad rows, the planes compiled over the
+    swarm's rows (its size from the layout); returns ``(cfg, state,
+    segment, to_target, extra summary keys, the counter's replay, the
+    layout's shard count)``. ``local`` (``run_sim
     resume D --local``) rebuilds the checkpoint's S-shard layout and
     finishes on the local engine over the unplaced plan."""
     from tpu_gossip_torch import dist
@@ -2022,19 +2004,25 @@ def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_k
     fanout = None if args.mode == "flood" else args.fanout
     key = prng.key(args.seed, dev)
     if args.builder == "dist" and not local:
+        # born on the mesh: this process's shards only, the CSR whole
         dgraph, plan = dist.matching_powerlaw_graph_dist(args.peers, mesh, gamma=args.gamma, fanout=fanout, key=key,
                                                          growth_rows=grow_rows)
+        exists = dgraph.exists
     else:
         # a local restore of a --builder dist run rebuilds the same layout
-        # through the block-keyed derivation
+        # through the block-keyed derivation; on a mesh the whole build
+        # keeps this process's rows
         dgraph, plan = matching_powerlaw_graph_sharded(args.peers, n_build, gamma=args.gamma, fanout=fanout, key=key,
                                                        growth_rows=grow_rows, block_keys=args.builder == "dist",
                                                        device=dev)
-    # the transport is built from the whole plan (its hub-ness pushed
-    # through the whole pipeline), then the plan is placed
+        if not local:
+            plan = dist.shard_matching_plan(plan, mesh)
+        exists = dgraph.exists[plan.shard_lo * plan.n_blk: plan.shard_lo * plan.n_blk + plan.n]
+    # the swarm's rows come from the layout; this process holds [lo, lo + plan.n)
+    n_swarm, lo = plan.mesh_shards * plan.n_blk, plan.shard_lo * plan.n_blk
     transport = (dist.build_transport(plan, mode=args.transport, hosts=args.hosts, mesh=mesh)
                  if args.transport != "dense" and not local else None)
-    cfg = SwarmConfig(n_peers=plan.n, **cfg_kw)
+    cfg = SwarmConfig(n_peers=n_swarm, **cfg_kw)
 
     def to_rows(ids):
         """Peer index -> state row (skipping each shard's pad rows)."""
@@ -2042,17 +2030,15 @@ def _shard_matching_runners(args: argparse.Namespace, origins, silent_ids, cfg_k
         return (ids // plan.n_per) * plan.n_blk + (ids % plan.n_per)
 
     state = init_swarm(dgraph.as_padded_graph(), cfg, key=prng.key(args.seed, dev), origins=to_rows(origins),
-                       exists=dgraph.exists, device=dev)
-    state.silent = _set_rows(state.silent, None if silent_ids is None else to_rows(silent_ids))
-    scen = _compile_cli_scenario(spec, args, plan.n, dev, node_map=to_rows,
+                       exists=exists, device=dev, rows=(lo, plan.n))
+    del dgraph, exists
+    if silent_ids is not None:
+        held = to_rows(silent_ids) - lo
+        state.silent = _set_rows(state.silent, held[(held >= 0) & (held < plan.n)])
+    scen = _compile_cli_scenario(spec, args, n_swarm, dev, node_map=to_rows,
                                  shard_ranges=dist.shard_ranges(n_build, plan.n_blk, mesh=mesh), n_shards=n_build)
-    grow = _compile_cli_growth(args, spec, plan.n, dev, plan=plan)
+    grow = _compile_cli_growth(args, spec, n_swarm, dev, plan=plan)
     strm = _compile_cli_stream(args, to_rows(np.arange(args.peers)), dev)
-    if not local:
-        # each rank keeps its rows only: the whole plan and state go
-        state = dist.shard_swarm(state, mesh)
-        plan = dist.shard_matching_plan(plan, mesh)
-        del dgraph
     pipe = _compile_cli_pipeline(args)
     planes = dict(scenario=scen, liveness=lqs, growth=grow, stream=strm, control=ctl, pipeline=pipe)
 

@@ -61,6 +61,7 @@ __all__ = [
     "reduce_sum",
     "reduce_max",
     "gather_rows",
+    "gather_joined",
     "exchange_blocks",
     "ProcessRows",
     "row_block",
@@ -192,6 +193,22 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     process. The bytes travel (a bool plane's as bits), so any dtype
     does."""
     return x if world() == 1 else _all_gather_planes((x,))[0]
+
+
+def gather_joined(x: torch.Tensor, label: str | None = None) -> torch.Tensor:
+    """Every process's ``x`` (the same shape on each) joined along its
+    first axis in rank order, gathered straight into the joined tensor (no
+    staging copy), its bytes counted under ``label`` when one is given;
+    ``x`` itself in one process."""
+    w = world()
+    if w == 1:
+        return x
+    x = x.contiguous()
+    out = x.new_empty((w * x.shape[0],) + tuple(x.shape[1:]))
+    with (_side_path(label, x.numel() * x.element_size() * (w - 1), x.device) if label
+          else contextlib.nullcontext()):
+        torch.distributed.all_gather(list(out.chunk(w)), x)
+    return out
 
 
 # -------------------------------------------- the row planes' side paths

@@ -35,6 +35,11 @@ from tpu_gossip_torch.compat.wire import Addr
 __all__ = ["PeerNode"]
 
 
+# the longest a bootstrapping peer waits for its seeds' registration replies
+# past the settle delay (a seed that accepted the link but never replies)
+REPLY_WAIT_S = 10.0
+
+
 class _Conn:
     """One live peer link (either direction)."""
 
@@ -98,6 +103,8 @@ class PeerNode:
 
         self._first_subset: list[Addr] | None = None
         self._subset_received = False
+        # contacted seed -> set once its registration reply is applied
+        self._replied: dict[Addr, asyncio.Event] = {}
         self._server: asyncio.Server | None = None
         self._tasks: list[asyncio.Task] = []
         self._log_path = os.path.join(log_dir, f"peer_log_{port}.txt")
@@ -149,39 +156,57 @@ class PeerNode:
                 writer.close()
                 continue
             self.seed_writers[seed_addr] = writer
+            self._replied[seed_addr] = asyncio.Event()
             self._tasks.append(
                 asyncio.ensure_future(self._seed_reply_loop(reader, seed_addr))
             )
         # first-subset latch applies after a settle delay so other seeds'
-        # replies land first (Peer.py:104-110)
+        # replies land first (Peer.py:104-110); a reply still in flight
+        # then (a loaded host) is waited for, so the node comes up only
+        # with the subsets it was handed applied: a line gossiped as it
+        # comes up has its neighbors to go to
         await asyncio.sleep(self.timing.subset_apply_delay)
+        await self._await_replies()
         if self._first_subset:
             await self._connect_to_peers(self._first_subset)
         self._subset_received = True
         self._tasks.append(asyncio.ensure_future(self._gossip_generator()))
 
+    async def _await_replies(self) -> None:
+        """Wait, at most :data:`REPLY_WAIT_S`, until every contacted seed's
+        registration reply has been applied (or its link closed)."""
+        waits = [asyncio.ensure_future(e.wait()) for e in self._replied.values() if not e.is_set()]
+        if waits:
+            _, pending = await asyncio.wait(waits, timeout=REPLY_WAIT_S)
+            for w in pending:
+                w.cancel()
+
     async def _seed_reply_loop(self, reader: asyncio.StreamReader, seed_addr: Addr) -> None:
         """Registration reply (pickled subset, bounded read — §2.6.9), then
         pushed topology updates (Peer.py:153-171)."""
         first = True
-        while self.running:
-            try:
-                raw = await reader.read(4096)
-            except (ConnectionError, OSError):
-                break
-            if not raw:
-                break
-            try:
-                subset = wire.decode_subset(raw)
-            except Exception:
-                self.log(f"Seed {seed_addr} says: {raw[:120]!r}")
-                continue
-            if first and not self._subset_received and self._first_subset is None:
-                self._first_subset = subset  # only the first subset is latched
-                self.log(f"First subset from {seed_addr}: {subset}")
-            elif subset:
-                await self._connect_to_peers(subset)  # later pushed updates
-            first = False
+        try:
+            while self.running:
+                try:
+                    raw = await reader.read(4096)
+                except (ConnectionError, OSError):
+                    break
+                if not raw:
+                    break
+                try:
+                    subset = wire.decode_subset(raw)
+                except Exception:
+                    self.log(f"Seed {seed_addr} says: {raw[:120]!r}")
+                    continue
+                if first and not self._subset_received and self._first_subset is None:
+                    self._first_subset = subset  # only the first subset is latched
+                    self.log(f"First subset from {seed_addr}: {subset}")
+                elif subset:
+                    await self._connect_to_peers(subset)  # later pushed updates
+                first = False
+                self._replied[seed_addr].set()
+        finally:
+            self._replied[seed_addr].set()
 
     # --- peer links (Peer.py:173-296) --------------------------------------
 

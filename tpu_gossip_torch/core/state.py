@@ -8,7 +8,8 @@ Ports ``ROUND_CAP``, ``saturate_round``, ``SwarmConfig``, ``SwarmState``
 (``PlaneSpec``, ``PLANES``, ``plane_registry``, :110-198) and the helpers
 the checkpoint store stands on (``cast_to_declared``,
 ``validate_state_planes``, ``zero_suspicion``, ``stack_states``,
-``lane_state``); and the flat npz checkpoint, ``save_swarm`` (:450) and
+``lane_state``); the registry's pricing, ``state_plane_bytes`` and
+``state_bytes_per_peer`` (:207, :251); and the flat npz checkpoint, ``save_swarm`` (:450) and
 ``load_swarm`` (:484), which reads every generation the JAX loader reads.
 The load helpers work on host numpy arrays; a loaded state lands on
 ``device`` once, at the end.
@@ -41,6 +42,8 @@ __all__ = [
     "PlaneSpec",
     "PLANES",
     "plane_registry",
+    "state_plane_bytes",
+    "state_bytes_per_peer",
     "cast_to_declared",
     "validate_state_planes",
     "zero_suspicion",
@@ -143,15 +146,25 @@ def init_swarm(
     origin_slots=None,
     exists: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
+    rows: tuple[int, int] | None = None,
 ) -> SwarmState:
     """Build the swarm state on ``device`` from a graph; infect ``origins``
-    in ``origin_slot`` (or each in its own ``origin_slots`` entry)."""
+    in ``origin_slot`` (or each in its own ``origin_slots`` entry).
+    ``rows`` ``(lo, count)`` builds only the swarm's rows ``[lo, lo +
+    count)`` (a process of a mesh over several processes): its per-peer
+    planes hold those rows, ``exists`` is theirs, the origins there are
+    infected and every origin leases its slot; the CSR, the leases, the
+    key and the round stay whole. Nothing is drawn per peer, so the block
+    is the whole state's block."""
     dev = resolve_device(device)
     if graph.n != config.n_peers:
         raise ValueError(f"graph has {graph.n} nodes but config.n_peers={config.n_peers}")
     if key is None:
         key = prng.key(0, dev)
-    n, m = config.n_peers, config.msg_slots
+    lo, n = (0, config.n_peers) if rows is None else rows
+    if lo < 0 or n < 1 or lo + n > config.n_peers:
+        raise ValueError(f"rows {rows} outside the swarm's {config.n_peers}")
+    m = config.msg_slots
     seen = torch.zeros((n, m), dtype=torch.bool, device=dev)
     infected_round = torch.full((n, m), -1, dtype=torch.int16, device=dev)
     slot_lease = torch.full((m,), -1, dtype=torch.int16, device=dev)
@@ -169,12 +182,15 @@ def init_swarm(
             slots = torch.as_tensor(slots_host, dtype=torch.int64, device=dev)
         else:
             slots = torch.full(org.shape, origin_slot, dtype=torch.int64, device=dev)
-        seen[org, slots] = True
-        infected_round[org, slots] = 0
+        held = (org >= lo) & (org < lo + n)
+        seen[org[held] - lo, slots[held]] = True
+        infected_round[org[held] - lo, slots[held]] = 0
         slot_lease[slots] = 0
     if exists is None:
         exists = torch.ones((n,), dtype=torch.bool, device=dev)
     exists = torch.as_tensor(exists, device=dev).to(torch.bool).clone()
+    if exists.shape != (n,):
+        raise ValueError(f"exists holds {tuple(exists.shape)} rows but the state holds {n}")
     s = max(config.rewire_slots, 1)
     return SwarmState(
         row_ptr=torch.as_tensor(graph.row_ptr, device=dev).to(torch.int32).clone(),
@@ -333,6 +349,45 @@ PLANES: tuple[PlaneSpec, ...] = (
 def plane_registry() -> dict:
     """name -> :class:`PlaneSpec`."""
     return {p.name: p for p in PLANES}
+
+
+def _dtype_bytes(dtype: str) -> int:
+    return 8 if dtype == "key" else np.dtype(dtype).itemsize
+
+
+def state_plane_bytes(n: int, m: int, rewire_slots: int = 1, d: int | None = None, lanes: int = 1,
+                      packed: bool = False) -> dict:
+    """Declared bytes a plane at (N=n, M=m, S=rewire_slots, D=d), priced
+    from :data:`PLANES` without building an array. ``d`` (edge slots)
+    defaults to 0; ``lanes`` prices ``lanes`` stacked swarms, every plane
+    ``lanes`` times. ``packed`` prices the storage encoding: a ``"bits"``
+    plane ceil(M/8) bytes a row, and the one shared flags word charged in
+    full to its ``flag:0`` holder (``exists``), the other flag planes 0,
+    so the dict still sums to the total."""
+    dims = {"N": n, "M": m, "S": max(rewire_slots, 1), "D": 0 if d is None else d}
+    out = {}
+    for p in PLANES:
+        elems = max(lanes, 1)
+        terms = [t.strip() for t in p.shape.strip("()").split(",") if t.strip()]
+        if packed and p.packed == "bits":
+            for term in terms[:-1]:
+                elems *= n + 1 if term == "N+1" else dims[term]
+            out[p.name] = elems * ((dims[terms[-1]] + 7) // 8)
+            continue
+        if packed and p.packed is not None and p.packed.startswith("flag:"):
+            out[p.name] = elems * n if p.packed == "flag:0" else 0
+            continue
+        for term in terms:
+            elems *= n + 1 if term == "N+1" else dims[term]
+        out[p.name] = elems * _dtype_bytes(p.dtype)
+    return out
+
+
+def state_bytes_per_peer(n: int, m: int, rewire_slots: int = 1, d: int | None = None, lanes: int = 1,
+                         packed: bool = False) -> float:
+    """Declared state bytes a peer slot: :func:`state_plane_bytes` summed
+    over ``lanes * n`` slots."""
+    return sum(state_plane_bytes(n, m, rewire_slots, d, lanes, packed).values()) / (n * max(lanes, 1))
 
 
 def cast_to_declared(kwargs: dict) -> dict:

@@ -74,10 +74,13 @@ def shard_matching_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
     """The plan placed on the mesh: every table (its shard blocks stacked)
     and the class layout on the mesh's device. On a multi-process mesh the
     process keeps its shards' rows of each table and a class layout of its
-    own over its state rows."""
+    own over its state rows; a plan that holds them already (the
+    distributed builder's) is only placed."""
     _check_layout(plan, mesh)
-    if mesh.world > 1:
+    if plan.rows != mesh.local * plan.per_rows:
         return _held_plan(plan, mesh)
+    if plan.shard_lo != mesh.lo:
+        raise ValueError(f"the plan holds shards from {plan.shard_lo} on but this process holds them from {mesh.lo}")
 
     def put(t):
         return None if t is None else t.to(mesh.device)
@@ -94,6 +97,7 @@ def shard_matching_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
 
 def _held_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
     from tpu_gossip_torch.core.matching_topology import class_layout
+    from tpu_gossip_torch.dist.builder import held_classes
 
     lo, held, per, blk = mesh.lo, mesh.local, plan.per_rows, plan.n_blk
     rows, nodes = slice(lo * per, (lo + held) * per), slice(lo * blk, (lo + held) * blk)
@@ -101,8 +105,7 @@ def _held_plan(plan: MatchingPlan, mesh) -> MatchingPlan:
     def put(t, part):
         return None if t is None else t[part].to(mesh.device)
 
-    classes = tuple((sh * blk + no, sh * per * 128 + so, c, pd, cs)
-                    for sh in range(held) for (no, so, c, pd, cs) in plan.local_classes)
+    classes = held_classes(plan.local_classes, held, blk, per)
     return dataclasses.replace(
         plan, lanes=tuple(put(t, rows) for t in plan.lanes), m3=put(plan.m3, rows),
         lanes_inv=tuple(put(t, rows) for t in plan.lanes_inv), valid=put(plan.valid, rows),

@@ -375,9 +375,9 @@ def build_transport(target, mode: str = "sparse", *, compact_frac: float = 0.125
     instead: a dense device stage and a compacted host stage
     (``cluster/hier.py``), whose budget ``dcn_budget`` is; it replaces the
     flat compact lane, so the hub/leaf tables stay empty. ``mesh`` puts the
-    tables on its device; a matching transport is built from the whole
-    plan, and on a multi-process mesh keeps its leaf table's rows of this
-    process."""
+    tables on its device; a matching transport is built from the plan this
+    process holds (``shard_matching_plan(plan, mesh)``, or the distributed
+    builder's), and keeps its leaf table's rows."""
     if mode not in ("sparse", "auto", "hier"):
         raise ValueError(f"transport mode {mode!r} must be sparse, auto, or hier")
     from tpu_gossip_torch.core.matching_topology import MatchingPlan
@@ -430,47 +430,75 @@ def _build_bucketed_transport(sg, mode: str, compact_frac: float) -> Transport:
                      fingerprint=sg.fingerprint)
 
 
-def _build_matching_transport(plan, mode, compact_frac, hub_rows_frac, hub_degree_min, *, mesh=None) -> Transport:
-    from tpu_gossip_torch.kernels.permute import lane_shuffle, transpose_pass, untranspose_pass
-
-    s, per, r = plan.mesh_shards, plan.per_rows, plan.rows
-    cap = min(max(1, per - 1), max(8, int(math.ceil(per * compact_frac))))
-
-    # stage-0 hub slots: the highest-degree classes within the row budget,
-    # or every class at or above hub_degree_min
-    hub_flat = np.zeros(r * 128, dtype=bool)
+def _hub_slots(classes: tuple, r: int, hub_rows_frac: float, hub_degree_min: int | None) -> tuple[list, int]:
+    """The stage-0 hub classes of the global class table ``classes`` over
+    ``r`` slot rows, as (slot_off, span) runs: the highest-degree classes
+    within the row budget, or every class at or above ``hub_degree_min``;
+    and the degree floor chosen. Host arithmetic over the table only."""
+    runs = []
     if hub_degree_min is None:
         row_budget = int(r * hub_rows_frac)
         used, chosen_min = 0, None
-        for _node_off, slot_off, _count, pad_deg, cstride in sorted(plan.classes, key=lambda c: -c[3]):
+        for _node_off, slot_off, _count, pad_deg, cstride in sorted(classes, key=lambda c: -c[3]):
             span = pad_deg * cstride
             rows_used = -(-span // 128) + 1
             if used + rows_used > row_budget:
                 break
             used += rows_used
-            hub_flat[slot_off: slot_off + span] = True
+            runs.append((slot_off, span))
             chosen_min = pad_deg if chosen_min is None else min(chosen_min, pad_deg)
-        hub_degree_min = 0 if chosen_min is None else chosen_min
-    else:
-        for _node_off, slot_off, _count, pad_deg, cstride in plan.classes:
-            if pad_deg >= hub_degree_min:
-                hub_flat[slot_off: slot_off + pad_deg * cstride] = True
-    hub0 = hub_flat.reshape(r, 128)
+        return runs, 0 if chosen_min is None else chosen_min
+    for _node_off, slot_off, _count, pad_deg, cstride in classes:
+        if pad_deg >= hub_degree_min:
+            runs.append((slot_off, pad_deg * cstride))
+    return runs, hub_degree_min
+
+
+def _build_matching_transport(plan, mode, compact_frac, hub_rows_frac, hub_degree_min, *, mesh=None) -> Transport:
+    """The hub/leaf tables from the plan this process holds (every shard in
+    one process, its host row's shards, from ``plan.shard_lo`` on, in a
+    rank): the hub classes chosen from the global class layout, the held
+    hub-ness pushed through the held pipeline (its transposes crossing the
+    process group), every stage's row mask joined over the processes in
+    one all-gather, and the (S, H_k) tables built from them alike on
+    every process."""
+    from tpu_gossip_torch.cluster.topology import gather_joined, world
+    from tpu_gossip_torch.dist.builder import held_classes
+    from tpu_gossip_torch.kernels.permute import lane_shuffle, transpose_pass_sharded, untranspose_pass_sharded
+
+    s, per = plan.mesh_shards, plan.per_rows
+    r, lo, held = s * per, plan.shard_lo, plan.rows // per
+    if held * world() != s or (mesh is not None and (mesh.lo, mesh.local) != (lo, held)):
+        raise ValueError(f"the plan holds shards [{lo}, {lo + held}) of {s} but this process holds "
+                         f"{s // world()} — build the transport from the plan placed on the mesh "
+                         "(shard_matching_plan(plan, mesh))")
+    cap = min(max(1, per - 1), max(8, int(math.ceil(per * compact_frac))))
+    runs, hub_degree_min = _hub_slots(held_classes(plan.local_classes, s, plan.n_blk, per), r, hub_rows_frac,
+                                      hub_degree_min)
+    # the held rows of the stage-0 hub slots (a class lies in one shard block)
+    base = lo * per * 128
+    hub_flat = np.zeros(held * per * 128, dtype=bool)
+    for slot_off, span in runs:
+        if base <= slot_off < base + hub_flat.size:
+            hub_flat[slot_off - base: slot_off - base + span] = True
+    hub0 = hub_flat.reshape(held * per, 128)
     dev = plan.valid.device
 
-    # hub-ness pushed through the pipeline once: the row-any mask before
-    # each "t" and after each "tinv"
+    # hub-ness pushed through the held pipeline once: the row-any mask
+    # before each "t" and after each "tinv"
     ind = torch.from_numpy(hub0.astype(np.int32)).to(dev)
     masks = []
     for stage in plan.stages:
         if stage[0] == "lane":
             ind = lane_shuffle(ind, stage[1])
         elif stage[0] == "t":
-            masks.append((ind != 0).any(1).cpu().numpy())
-            ind = transpose_pass(ind)
+            masks.append((ind != 0).any(1))
+            ind = transpose_pass_sharded(ind.view(held, per, 128), s).view(held * per, 128)
         else:
-            ind = untranspose_pass(ind)
-            masks.append((ind != 0).any(1).cpu().numpy())
+            ind = untranspose_pass_sharded(ind.view(held, per, 128), s).view(held * per, 128)
+            masks.append((ind != 0).any(1))
+    joined = gather_joined(torch.stack(masks, dim=1).to(torch.uint8), label="build transport").cpu().numpy()
+    masks = [joined[:, i] != 0 for i in range(len(masks))]
 
     tables, stage_mode = [], []
     for mask in masks:
@@ -505,12 +533,8 @@ def _build_matching_transport(plan, mode, compact_frac, hub_rows_frac, hub_degre
         if shipped * 4 > 3 * len(tables) * per * 128:
             active = False
     put = dev if mesh is None else mesh.device
-    leaf, lo = ~hub0, 0
-    if mesh is not None and mesh.world > 1:
-        lo = mesh.lo
-        leaf = leaf[lo * per: (lo + mesh.local) * per]
     return Transport(
-        leaf_slots=torch.from_numpy(leaf).to(put), hub_tables=tuple(torch.from_numpy(t).to(put) for t in tables),
+        leaf_slots=torch.from_numpy(~hub0).to(put), hub_tables=tuple(torch.from_numpy(t).to(put) for t in tables),
         engine="matching", mode=mode, active=active, budget=cap, stage_mode=tuple(stage_mode),
         hub_degree_min=int(hub_degree_min), n_shards=s, fingerprint=r, shard_lo=lo,
     )
