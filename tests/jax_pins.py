@@ -394,6 +394,14 @@ def stream_matching_case(mode: str, law: str, compose) -> dict:
     return {**out, "fields": {f: field_digest(v) for f, v in out["fields"].items()}}
 
 
+def growth_runs_case(name: str) -> dict:
+    """The JAX half of ``tests/test_torch_growth_runs.py``'s growing run
+    ``name`` (``jax_grown_run`` there)."""
+    from tests.test_torch_growth_runs import jax_grown_run
+
+    return jax_grown_run(name)
+
+
 def stream_runs_case(name: str) -> dict:
     """The JAX half of ``tests/test_torch_stream_runs.py``'s run ``name``
     (``jax_stream_run`` there)."""
@@ -2130,6 +2138,75 @@ CONTROL_RUNS = ["zero_exactly_k_push", "zero_exactly_k_push_pull", "zero_stairca
 
 
 # the pinned runs, by group: name -> (function, arguments)
+
+# ------------------------------------------------------------ the analysis tier (tests/test_torch_analysis_*.py)
+
+def _jax_spec(leaf) -> list:
+    """[shape, dtype] of one abstract JAX leaf; a PRNG key's dtype is "key"."""
+    import jax
+
+    dt = "key" if jax.dtypes.issubdtype(leaf.dtype, jax.dtypes.prng_key) else str(leaf.dtype)
+    return [list(leaf.shape), dt]
+
+
+def analysis_entry_names() -> list:
+    """The JAX tier's entry matrix names (8 forced host devices)."""
+    from tpu_gossip.analysis.entrypoints import entry_points
+
+    return [ep.name for ep in entry_points()]
+
+
+def analysis_contracts() -> dict:
+    """Each entry's output contract from ``jax.make_jaxpr(...,
+    return_shape=True)`` (the JAX tier's shared trace): the state's fields
+    as [shape, dtype] (static fields as their value), the stats' and the
+    ICI counters' fields."""
+    import dataclasses as dc
+
+    from tpu_gossip.analysis.entrypoints import entry_points, trace_matrix
+
+    out = {}
+    for name, te in trace_matrix(entry_points()).items():
+        ep, res = te.ep, te.out_shape
+        if te.error is not None:
+            out[name] = {"error": te.error}
+            continue
+        ici = None
+        if ep.has_ici:
+            st, stats, ici = res
+        elif ep.stats_leading is None:
+            st, stats = res, None
+        else:
+            st, stats = res
+        state = {}
+        for f in dc.fields(st):
+            v = getattr(st, f.name)
+            state[f.name] = _jax_spec(v) if hasattr(v, "dtype") else v
+        out[name] = {"state": state,
+                     "stats": None if stats is None else {f: _jax_spec(getattr(stats, f)) for f in stats._fields},
+                     "ici": None if ici is None else {f: _jax_spec(getattr(ici, f)) for f in ici._fields}}
+    return out
+
+
+def analysis_planes() -> list:
+    """``core.state.PLANES`` as [name, dtype, shape, packed]."""
+    from tpu_gossip.core.state import PLANES
+
+    return [[p.name, p.dtype, p.shape, p.packed] for p in PLANES]
+
+
+def analysis_wire() -> dict:
+    """``mem/wire.py``'s report on the dense mesh entries: the declared and
+    the traced all_to_all words of ``collective_census``."""
+    from tpu_gossip.analysis.entrypoints import entry_points, trace_matrix
+    from tpu_gossip.analysis.mem.wire import _WIRE_ENTRIES, wire_findings
+
+    traced = trace_matrix([ep for ep in entry_points() if ep.name in _WIRE_ENTRIES])
+    _, report = wire_findings(traced)
+    return {name: {"declared_words": r["declared_words"], "traced_words": r["traced_words"]}
+            for name, r in report.items()}
+
+
 CASES = {
     "pipeline": {
         **{f"bucketed_{mode}{'_composed' if composed else ''}_{depth}": ("bucketed_run", [mode, composed, depth])
@@ -2237,6 +2314,14 @@ CASES = {
         **{f"planes_{name}": ("cli_cluster", [shards, *argv]) for name, (shards, argv) in CLUSTER_PLANES.items()},
         "serve_coordinator": ("serve_cli", [1, [], False, *SERVE_COORDINATOR]),
     },
+    # the JAX halves of tests/test_torch_growth_runs.py's growing runs
+    "growth_runs": {name: ("growth_runs_case", [name]) for name in
+                    ("admits", "preferential", "zero_exhausted", "wave", "storm", "composes", "credit",
+                     "to_coverage")},
+    # the JAX analysis tier's matrix, contracts, plane registry and wire
+    # census (8 forced host devices), for tests/test_torch_analysis_*.py
+    "analysis": {"entry_names": ("analysis_entry_names", []), "contracts": ("analysis_contracts", []),
+                 "planes": ("analysis_planes", []), "wire": ("analysis_wire", [])},
     "fleet": {
         "composed": ("campaign_run", [composed_campaign(), [0, 7, 13]]),
         "mix": ("campaign_run", [MIX_CAMPAIGN, [], "scenarios/campaigns"]),

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_gossip import faults as jfaults
 from tpu_gossip import growth as jg
 from tpu_gossip.core.state import SwarmConfig as JConfig
 from tpu_gossip.core.state import init_swarm as j_init
@@ -26,6 +27,7 @@ from tpu_gossip.core.topology import fit_powerlaw_gamma
 from tpu_gossip.fleet.engine import state_digest as j_state_digest
 from tpu_gossip.fleet.engine import stats_digest as j_stats_digest
 from tpu_gossip.sim import engine as je
+from tpu_gossip_torch import faults as tfaults
 from tpu_gossip_torch import growth as tg
 from tpu_gossip_torch.core import prng
 from tpu_gossip_torch.core.packed import pack_state, unpack_state
@@ -34,6 +36,7 @@ from tpu_gossip_torch.core.state import init_swarm as t_init
 from tpu_gossip_torch.sim import engine as te
 from tpu_gossip_torch.utils.digest import state_digest as t_state_digest
 from tpu_gossip_torch.utils.digest import stats_digest as t_stats_digest
+from tests.jax_pins import pinned
 from tests.test_torch_slice import _one_torch_thread  # noqa: F401
 
 from tests.test_torch_growth import _growth_pair, _seed_graph, sharded8  # noqa: F401
@@ -43,30 +46,90 @@ N0, CAP, ATTACH = 64, 128, 3
 
 # ------------------------------------------------------------ the cells of tests/sim/test_growth.py
 
-def _grown(n0=N0, cap=CAP, target=None, rate=8, attach=ATTACH, seed=0, graph_seed=0, max_join_burst=0, **cfg_kw):
-    """(jax (cfg, state, growth), port (cfg, state, growth)) over the flat
-    padded layout of tests/sim/test_growth.py::grown_setup."""
+def _grown_kw(n0=N0, cap=CAP, target=None, rate=8, attach=ATTACH, seed=0, graph_seed=0, max_join_burst=0,
+              **cfg_kw):
+    """(graph, exists, config kwargs, growth kwargs, seed) of
+    tests/sim/test_growth.py::grown_setup's flat padded layout."""
     target = cap if target is None else target
     graph, exists = jg.pad_graph_for_growth(_seed_graph(n0, seed=graph_seed), cap)
     kw = dict(n_peers=cap, msg_slots=cfg_kw.pop("msg_slots", 4), fanout=cfg_kw.pop("fanout", 2),
               mode=cfg_kw.pop("mode", "push_pull"), rewire_slots=max(attach, cfg_kw.pop("rewire_slots", 0)), **cfg_kw)
-    jc, tc = JConfig(**kw), TConfig(**kw)
-    js = j_init(graph, jc, origins=[0], exists=jnp.asarray(exists), key=jax.random.key(seed))
-    ts = t_init(graph, tc, origins=[0], exists=torch.from_numpy(exists), key=prng.key(seed, "cpu"), device="cpu")
     gkw = dict(n_initial=n0, target=target, n_slots=cap, joins_per_round=rate, attach_m=attach,
                max_join_burst=max_join_burst)
-    jgp, tgp = _growth_pair(**gkw)
-    return (jc, js, jgp), (tc, ts, tgp)
+    return graph, exists, kw, gkw, seed
 
 
-def _run_both(pair, rounds, jscen=None, tscen=None, packed_twin=False):
-    (jc, js, jgp), (tc, ts, tgp) = pair
-    jf, jst = je.simulate(js, jc, rounds, None, "fused", jscen, jgp)
+def _grown(**grow_kw):
+    """The port's (cfg, state, growth) of :func:`_grown_kw`."""
+    graph, exists, kw, gkw, seed = _grown_kw(**grow_kw)
+    tc = TConfig(**kw)
+    ts = t_init(graph, tc, origins=[0], exists=torch.from_numpy(exists), key=prng.key(seed, "cpu"), device="cpu")
+    return tc, ts, tg.compile_growth(**gkw, device="cpu")
+
+
+def _grown_jax(**grow_kw):
+    """The JAX package's (cfg, state, growth) of :func:`_grown_kw`."""
+    graph, exists, kw, gkw, seed = _grown_kw(**grow_kw)
+    jc = JConfig(**kw)
+    js = j_init(graph, jc, origins=[0], exists=jnp.asarray(exists), key=jax.random.key(seed))
+    return jc, js, jg.compile_growth(**gkw)
+
+
+_WAVE = {"name": "wave", "phases": [{"name": "w", "start": 2, "end": 5, "join_burst": 6}]}
+_STORM = {"name": "storm+wave", "phases": [{"name": "sw", "start": 2, "end": 5, "join_burst": 6, "churn_leave": 0.2}]}
+
+# the growing runs whose JAX halves are pinned in tests/jax_pins.json (group
+# growth_runs): name -> (_grown kwargs, rounds, scenario dict or None)
+GROWN_RUNS = {
+    "admits": ({}, 12, None),
+    "preferential": (dict(n0=200, cap=600, rate=40, seed=2, graph_seed=3, msg_slots=1, mode="push"), 12, None),
+    "zero_exhausted": (dict(churn_leave_prob=0.02, churn_join_prob=0.2), 10, None),
+    "wave": (dict(rate=2, max_join_burst=6), 12, _WAVE),
+    "storm": (dict(rate=2, max_join_burst=6), 12, _STORM),
+    "composes": (dict(churn_leave_prob=0.05, churn_join_prob=0.3, rewire_compact_cap=40), 16, None),
+    "credit": (dict(churn_leave_prob=0.05, churn_join_prob=0.5), 12, None),
+    "to_coverage": (dict(rate=4), None, None),
+}
+
+
+def _scenario(pkg, d):
+    return None if d is None else pkg.compile_scenario(pkg.scenario_from_dict(d), n_peers=N0, n_slots=CAP,
+                                                       total_rounds=12, **({} if pkg is jfaults else {"device": "cpu"}))
+
+
+def jax_grown_run(name: str) -> dict:
+    """The JAX half of the growing run ``name`` (:data:`GROWN_RUNS`): the
+    final state's and the stats' digests with the coverage and
+    ``degree_gamma`` columns; ``to_coverage`` runs ``run_until_coverage``
+    to 0.99 within 40 rounds; ``admits`` adds the remat fold of the
+    12-round state and 6 rounds after it."""
+    grow_kw, rounds, scen = GROWN_RUNS[name]
+    jc, js, jgp = _grown_jax(**grow_kw)
+    if rounds is None:
+        return {"state_digest": j_state_digest(je.run_until_coverage(js, jc, 0.99, 40, growth=jgp))}
+    jf, jst = je.simulate(js, jc, rounds, None, "fused", _scenario(jfaults, scen), jgp)
+    out = {"state_digest": j_state_digest(jf), "stats_digest": j_stats_digest(jst),
+           "coverage": np.asarray(jst.coverage).tolist(), "degree_gamma": np.asarray(jst.degree_gamma).tolist()}
+    if name == "admits":
+        tc, ts, _ = _grown(**grow_kw)
+        jfolded, _ = je.rematerialize_rewired(jf, jc, te.remat_capacity(ts, tc))
+        out["remat_folded"] = j_state_digest(jfolded)  # before the donating simulate
+        jfin, _ = je.simulate(jfolded, jc, 6, None, "fused", None, jgp)
+        out["remat_fin"] = j_state_digest(jfin)
+    return out
+
+
+def _run_both(name, packed_twin=False):
+    """The port's growing run ``name`` against its pinned JAX half."""
+    grow_kw, rounds, scen = GROWN_RUNS[name]
+    want = pinned("growth_runs", name)
+    tc, ts, tgp = _grown(**grow_kw)
+    tscen = _scenario(tfaults, scen)
     tf, tst = te.simulate(ts, tc, rounds, None, "fused", scenario=tscen, growth=tgp)
-    assert t_state_digest(tf) == j_state_digest(jf)
-    assert t_stats_digest(tst) == j_stats_digest(jst)
-    np.testing.assert_array_equal(tst.coverage.numpy(), np.asarray(jst.coverage))
-    np.testing.assert_allclose(tst.degree_gamma.numpy(), np.asarray(jst.degree_gamma), rtol=1e-5)
+    assert t_state_digest(tf) == want["state_digest"]
+    assert t_stats_digest(tst) == want["stats_digest"]
+    np.testing.assert_array_equal(tst.coverage.numpy(), np.asarray(want["coverage"], np.float32))
+    np.testing.assert_allclose(tst.degree_gamma.numpy(), np.asarray(want["degree_gamma"], np.float32), rtol=1e-5)
     if packed_twin:
         pf, pst = te.simulate(pack_state(ts), tc, rounds, None, "fused", scenario=tscen, growth=tgp)
         assert t_state_digest(unpack_state(pf)) == t_state_digest(tf) and t_stats_digest(pst) == t_stats_digest(tst)
@@ -75,7 +138,7 @@ def _run_both(pair, rounds, jscen=None, tscen=None, packed_twin=False):
 
 
 def test_growth_admits_to_target_and_fills_registry():
-    fin, stats = _run_both(_grown(), 12, packed_twin=True)
+    fin, stats = _run_both("admits", packed_twin=True)
     members = stats.n_members.numpy()
     assert members[0] == N0 + 8 and members[-1] == CAP and (np.diff(members) >= 0).all()
     grown = np.arange(N0, CAP)
@@ -92,7 +155,7 @@ def test_growth_admits_to_target_and_fills_registry():
 
 def test_growth_attachment_is_degree_preferential():
     graph = _seed_graph(200, seed=3)
-    fin, _ = _run_both(_grown(n0=200, cap=600, rate=40, seed=2, graph_seed=3, msg_slots=1, mode="push"), 12)
+    fin, _ = _run_both("preferential")
     credit, deg0 = fin.degree_credit.numpy()[:200], graph.degrees
     assert credit[np.argsort(deg0)[-10:]].mean() > 3 * credit[np.argsort(deg0)[:100]].mean()
 
@@ -101,14 +164,13 @@ def test_growth_attachment_is_degree_preferential():
 def test_zero_join_growth_is_bit_identical_to_fixed_n(shape):
     """A schedule with nothing to admit reproduces ``growth=None`` bit for
     bit in the port, as in JAX (and the port's runs equal JAX's)."""
-    pair = _grown(churn_leave_prob=0.02, churn_join_prob=0.2)
-    (_, _, _), (tc, ts, tgp) = pair
+    tc, ts, tgp = _grown(churn_leave_prob=0.02, churn_join_prob=0.2)
     if shape == "empty":
         tgp = tg.compile_growth(n_initial=N0, target=N0, n_slots=CAP, joins_per_round=8, attach_m=ATTACH,
                                 device="cpu")
         start, rounds = ts, 10
     else:
-        start, _ = _run_both(pair, 10)
+        start, _ = _run_both("zero_exhausted")
         assert bool(start.exists.all())
         rounds = 8
     base, bst = te.simulate(start, tc, rounds)
@@ -140,7 +202,7 @@ def test_matching_growth_on_the_sharded_layout_equals_jax_local(sharded8):
 
 
 def test_device_gamma_track_matches_host_estimator():
-    fin, stats = _run_both(_grown(), 12)
+    fin, stats = _run_both("admits")
     deg = tg.realized_degrees(fin.row_ptr, fin.exists, fin.rewired, fin.rewire_targets, fin.degree_credit)
     live = fin.alive & ~fin.declared_dead
     host = fit_powerlaw_gamma(deg.numpy()[live.numpy()], d_min=4)
@@ -149,71 +211,53 @@ def test_device_gamma_track_matches_host_estimator():
 
 
 def test_join_burst_phase_adds_admissions_and_composes_with_a_storm():
-    from tpu_gossip import faults as jf
-
-    from tpu_gossip_torch import faults as tf
-
-    def scen(d):
-        kw = dict(n_peers=N0, n_slots=CAP, total_rounds=12)
-        return (jf.compile_scenario(jf.scenario_from_dict(d), **kw),
-                tf.compile_scenario(tf.scenario_from_dict(d), device="cpu", **kw))
-
-    wave = {"name": "wave", "phases": [{"name": "w", "start": 2, "end": 5, "join_burst": 6}]}
-    storm = {"name": "storm+wave", "phases": [{"name": "sw", "start": 2, "end": 5, "join_burst": 6,
-                                               "churn_leave": 0.2}]}
-    _, stats = _run_both(_grown(rate=2, max_join_burst=6), 12, *scen(wave), packed_twin=True)
+    _, stats = _run_both("wave", packed_twin=True)
     per_round = np.diff(np.concatenate([[N0], stats.n_members.numpy()]))
     np.testing.assert_array_equal(per_round[:5], [2, 2, 8, 8, 8])
     assert (per_round[5:] <= 2).all()
-    _, stats2 = _run_both(_grown(rate=2, max_join_burst=6), 12, *scen(storm))
+    _, stats2 = _run_both("storm")
     assert int(stats2.n_members[4]) == int(stats.n_members[4]) and int(stats2.n_alive[4]) < int(stats.n_alive[4])
 
 
 def test_growth_composes_with_churn_rewire():
-    fin, stats = _run_both(_grown(churn_leave_prob=0.05, churn_join_prob=0.3, rewire_compact_cap=40), 16,
-                           packed_twin=True)
+    fin, stats = _run_both("composes", packed_twin=True)
     assert int(stats.n_members[-1]) == CAP and int(stats.n_alive[-1]) > CAP * 0.6
     assert float(fin.coverage(0)) > 0.5
 
 
 def test_remat_folds_growth_edges_and_zeroes_credit():
-    from tpu_gossip.core.state import clone_state as j_clone
-
-    pair = _grown()
-    (jc, js, jgp), (tc, ts, tgp) = pair
+    want = pinned("growth_runs", "admits")
+    tc, ts, tgp = _grown()
     cap = te.remat_capacity(ts, tc)
-    jmid, _ = je.simulate(j_clone(js), jc, 12, None, "fused", None, jgp)
-    mid, _ = _run_both(pair, 12)
+    mid, _ = _run_both("admits")
     folded, overflow = te.rematerialize_rewired(mid, tc, cap)
-    jfolded, _ = je.rematerialize_rewired(jmid, jc, cap)
-    assert t_state_digest(folded) == j_state_digest(jfolded) and int(overflow) == 0
+    assert t_state_digest(folded) == want["remat_folded"] and int(overflow) == 0
     assert not folded.rewired.any() and not folded.degree_credit.any()
     keys = ("row_ptr", "exists", "rewired", "rewire_targets", "degree_credit")
     np.testing.assert_array_equal(tg.realized_degrees(*(getattr(folded, k) for k in keys)).numpy(),
                                   tg.realized_degrees(*(getattr(mid, k) for k in keys)).numpy())
     fin, _ = te.simulate(folded, tc, 6, growth=tgp)
-    jfin, _ = je.simulate(jfolded, jc, 6, None, "fused", None, jgp)
-    assert t_state_digest(fin) == j_state_digest(jfin) and float(fin.coverage(0)) > 0.9
+    assert t_state_digest(fin) == want["remat_fin"] and float(fin.coverage(0)) > 0.9
 
 
 def test_credit_books_balance_under_churn_rejoin():
-    pair = _grown(churn_leave_prob=0.05, churn_join_prob=0.5)
-    cap = te.remat_capacity(pair[1][1], pair[1][0])
-    mid, _ = _run_both(pair, 12)
+    tc, ts, _ = _grown(churn_leave_prob=0.05, churn_join_prob=0.5)
+    cap = te.remat_capacity(ts, tc)
+    mid, _ = _run_both("credit")
     credit, rew, tgt = mid.degree_credit.numpy(), mid.rewired.numpy(), mid.rewire_targets.numpy()
     assert (credit >= 0).all() and rew.any() and credit.sum() == (tgt[rew] >= 0).sum()
     keys = ("row_ptr", "exists", "rewired", "rewire_targets", "degree_credit")
     before = tg.realized_degrees(*(getattr(mid, k) for k in keys)).numpy()
     row_ptr, col_idx = mid.row_ptr.numpy(), mid.col_idx.numpy()
     stale = np.asarray([rew[col_idx[row_ptr[r]:row_ptr[r + 1]]].sum() for r in range(len(rew))])
-    folded, _ = te.rematerialize_rewired(mid, pair[1][0], cap)
+    folded, _ = te.rematerialize_rewired(mid, tc, cap)
     after = tg.realized_degrees(*(getattr(folded, k) for k in keys)).numpy()
     np.testing.assert_array_equal(after[rew], before[rew])
     np.testing.assert_array_equal(after[~rew], before[~rew] - stale[~rew])
 
 
 def test_growth_stage_refuses_a_narrow_rewire_plane_as_jax():
-    (_, _, _), (tc, ts, tgp) = _grown()
+    tc, ts, tgp = _grown()
     narrow = dataclasses.replace(ts, rewire_targets=ts.rewire_targets[:, :1])
     with pytest.raises(ValueError, match="rewire_slots"):
         te.simulate(narrow, tc, 2, growth=tgp)
@@ -247,10 +291,9 @@ def test_bucketed_growth_equals_jax_mesh(s):
 
 
 def test_run_until_coverage_grows_as_jax():
-    (jc, js, jgp), (tc, ts, tgp) = _grown(rate=4)
-    jf = je.run_until_coverage(js, jc, 0.99, 40, growth=jgp)
+    tc, ts, tgp = _grown(**GROWN_RUNS["to_coverage"][0])
     tf = te.run_until_coverage(ts, tc, 0.99, 40, growth=tgp)
-    assert t_state_digest(tf) == j_state_digest(jf) and int(tf.exists.sum()) > N0
+    assert t_state_digest(tf) == pinned("growth_runs", "to_coverage")["state_digest"] and int(tf.exists.sum()) > N0
 
 
 # ------------------------------------------------------------ checkpoints
@@ -264,7 +307,7 @@ def test_mid_growth_checkpoint_resumes_bit_exactly_across_packages(tmp_path):
     from tpu_gossip_torch.core.state import load_swarm as t_load
     from tpu_gossip_torch.core.state import save_swarm as t_save
 
-    (jc, js, jgp), (tc, ts, tgp) = _grown()
+    (jc, js, jgp), (tc, ts, tgp) = _grown_jax(), _grown()
     jmid, _ = je.simulate(js, jc, 4, None, "fused", None, jgp)
     tmid, _ = te.simulate(ts, tc, 4, growth=tgp)
     assert N0 < int(tmid.exists.sum()) < CAP
@@ -331,3 +374,11 @@ def test_sim_growth_degrees_equal_jax():
         assert int(fin.exists.sum()) == N_SWARM
         deg = tg.realized_degrees(fin.row_ptr, fin.exists, fin.rewired, fin.rewire_targets, fin.degree_credit)
         np.testing.assert_array_equal(deg.numpy()[:N_SWARM], sim_growth_degrees(N_SWARM, seed))
+
+
+def test_growth_run_pins_are_current():
+    """One growing run's JAX half, recomputed in a child process, equals its pin."""
+    from tests.test_torch_growth_cli_engines import jax_in_child
+
+    got = jax_in_child("tests.jax_pins", "compute", "growth_runs", ["storm"])
+    assert got == {"storm": pinned("growth_runs", "storm")}

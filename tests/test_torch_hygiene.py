@@ -51,6 +51,11 @@ def test_port_imports_with_jax_blocked():
         "import tpu_gossip_torch.cli.run_peer\n"
         "import tpu_gossip_torch.cluster, tpu_gossip_torch.cluster.topology, tpu_gossip_torch.cluster.hier\n"
         "import tpu_gossip_torch.cluster.launch\n"
+        "import tpu_gossip_torch.analysis, tpu_gossip_torch.analysis.cli, tpu_gossip_torch.analysis.contracts\n"
+        "import tpu_gossip_torch.analysis.entrypoints, tpu_gossip_torch.analysis.optrace\n"
+        "import tpu_gossip_torch.analysis.mem, tpu_gossip_torch.analysis.mem.ledger\n"
+        "import tpu_gossip_torch.analysis.mem.widths, tpu_gossip_torch.analysis.mem.budget\n"
+        "import tpu_gossip_torch.analysis.mem.wire\n"
         "from tpu_gossip_torch.experiments import pallas_gather_caps, pallas_wide_lane_gather, gather_probe\n"
         "from tpu_gossip_torch.experiments import perm_pipeline_probe, matching_round_profile, dist_profile\n"
         "print('ok')\n"

@@ -186,8 +186,10 @@ def peerswap_refresh(spec, rng, rnd, *, exists, rewired, alive, rewire_targets, 
     lo, n_all = rows.lo, rows.total(n)
     k_slot, k_tgt = prng.split(prng.fold_in(rng, CONTROL_STREAM_SALT))
     due = (rnd % spec.refresh_every) == 0
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     slot = prng.randint(k_slot, (n,), 0, rewire_slots, lo).to(torch.int64)
     e_real = torch.clamp(row_ptr[-1], min=1)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     draws = col_idx[prng.randint(k_tgt, (n,), 0, e_real, lo).to(torch.int64)].to(torch.int64)
     (exists_all,) = rows.gather(exists, label="control")
     ok = exists_all[torch.clamp(draws, 0, n_all - 1)] & (draws != torch.arange(lo, lo + n, device=dev))

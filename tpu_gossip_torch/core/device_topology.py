@@ -70,6 +70,7 @@ def repeat_ids(counts: torch.Tensor, total: int) -> torch.Tensor:
     for the positions below ``counts.sum()``, as int32 without a host sync:
     position p belongs to the first i with ``cumsum(counts)[i] > p``.
     Positions past the sum read ``len(counts) - 1``."""
+    # graftlint: disable=mem-widening-cast -- the cumulative counts index the edge space in int64
     ends = torch.cumsum(counts.to(torch.int64), 0)
     pos = torch.arange(total, dtype=torch.int64, device=counts.device)
     ids = torch.searchsorted(ends, pos, right=True)

@@ -252,6 +252,7 @@ class MatchingPlan:
     def push_threshold(self, fanout: int | None = None) -> torch.Tensor:
         """Per-slot uint32 push gate (int64): B(fanout/deg(sender)), 0 off-edge."""
         f = self.fanout if fanout is None else fanout
+        # graftlint: disable=mem-widening-cast -- the gate probability is a float32 ratio, as JAX computes it
         p = f / torch.clamp(self.deg_other, min=1).to(torch.float32)
         return torch.where(
             self.valid & (self.deg_other > 0), bernoulli_threshold_device(p), 0
@@ -260,6 +261,7 @@ class MatchingPlan:
     def pull_threshold(self) -> torch.Tensor:
         """Per-slot uint32 pull gate (int64): B(1/deg(puller)), 0 off-edge."""
         deg_self = self.expand(self.deg_real)
+        # graftlint: disable=mem-widening-cast -- the gate probability is a float32 ratio, as JAX computes it
         p = 1.0 / torch.clamp(deg_self, min=1).to(torch.float32)
         return torch.where(self.valid & (deg_self > 0), bernoulli_threshold_device(p), 0)
 

@@ -135,6 +135,7 @@ def _fma32(a, b, c) -> torch.Tensor:
     arithmetic, so the CPU and the card round it alike."""
     f64 = torch.float64
     a, b, c = (torch.as_tensor(v, dtype=torch.float32) for v in (a, b, c))
+    # graftlint: disable=mem-widening-cast -- float32 FMA emulated in float64, bit-exact with XLA's fused multiply-add
     return (a.to(f64) * b.to(f64) + c.to(f64)).to(torch.float32)
 
 
@@ -153,6 +154,7 @@ def _bounded(floats: torch.Tensor, minval: float, maxval: float) -> torch.Tensor
         return floats
     lo = torch.tensor(minval, dtype=torch.float32)
     span = torch.tensor(maxval, dtype=torch.float32) - lo
+    # graftlint: disable=round-host-sync -- lo is a host tensor made from the Python float minval: no device read
     return torch.clamp(_fma32(floats, span.to(floats.device), lo.to(floats.device)), min=float(lo))
 
 
@@ -227,6 +229,7 @@ def _int_bound(v, dev) -> torch.Tensor:
     the card's queue to drain)."""
     if torch.is_tensor(v):
         return v.to(device=dev, dtype=torch.int64)
+    # graftlint: disable=round-host-sync -- v is a Python number on this branch (a tensor bound returned above)
     return torch.full((), int(v), dtype=torch.int64, device=dev)
 
 
@@ -305,6 +308,7 @@ def _lgamma_z(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     zz = torch.where(reflect, -x, z)
     acc = None
     for i, c in enumerate(_LANCZOS, start=1):
+        # graftlint: disable=round-host-sync -- i is the host loop index over the Lanczos table
         q = _f32(c, x) / (zz + float(i))
         acc = q + 1.0 if acc is None else acc + q
     log_t = xla_log1p(zz * _f32(1.0 / 7.5, x)) + _f32(_LOG_LANCZOS_HALF, x)
@@ -348,6 +352,7 @@ def _poisson_knuth(keys: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     k = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
     log_prod = torch.zeros_like(lam)
     going = log_prod > -lam
+    # graftlint: disable=round-host-sync -- Knuth's loop ends on the host an iteration, as the scalar while_loop does (the stream's arrival count is drawn on a host key)
     while bool(going.any()):
         rows = _key_rows(keys, 2)
         keys, sub = rows[:, 0], rows[:, 1]
@@ -373,6 +378,7 @@ def _poisson_rejection(keys: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     two_a = a * 2.0
     k_out = torch.full_like(lam, -1.0)
     done = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    # graftlint: disable=round-host-sync -- the rejection loop ends on the host an iteration, as the scalar while_loop does
     while not bool(done.all()):
         rows = _key_rows(keys, 3)
         keys = rows[:, 0]
@@ -403,9 +409,11 @@ def poisson(k: torch.Tensor, lam, dtype: torch.dtype = torch.int32) -> torch.Ten
     lam = torch.as_tensor(lam, dtype=torch.float32, device=keys.device).reshape(-1).expand(keys.shape[0])
     knuth = torch.isnan(lam) | (lam < 10)
     out = torch.zeros(lam.shape, dtype=torch.int64, device=keys.device)
+    # graftlint: disable=round-host-sync -- the branch split is picked on the host; the stream draws its Poisson count on a host key
     if bool(knuth.any()):
         idx = torch.nonzero(knuth).reshape(-1)
         out[idx] = _poisson_knuth(keys[idx], lam[idx]).to(torch.int64)
+    # graftlint: disable=round-host-sync -- the branch split is picked on the host; the stream draws its Poisson count on a host key
     if not bool(knuth.all()):
         idx = torch.nonzero(~knuth).reshape(-1)
         out[idx] = _poisson_rejection(keys[idx], lam[idx]).to(torch.int64)

@@ -48,6 +48,7 @@ from tpu_gossip_torch.kernels import packed_ops as po
 __all__ = ["dense_wire_words", "shard_matching_plan", "gossip_round_dist_matching"]
 
 
+# graftlint: disable=mem-wire-drift -- K1 carries each 32-slot group as an int32 lane word, so at M <= 16 the transposes ship 32 bits a lane where this model (JAX's byte planes) counts 8 per byte group: 32768 words against 16384 at n=256, S=8, M=16 (ROADMAP section 3)
 def dense_wire_words(plan: MatchingPlan, m: int, mode: str, forward_once: bool = False,
                      bool_planes: bool = False) -> int:
     """The matching engine's wire declaration: the global dense exchange

@@ -494,6 +494,7 @@ def swarm_coverage(state, slot: int = 0) -> torch.Tensor:
     else:
         live = state.alive & ~state.declared_dead
         seen = state.seen[:, slot]
+    # graftlint: disable=round-host-sync -- multi-process meshes only: the two coverage counts come back once a round after one all-reduce
     hit, n_live = reduce_sum(torch.stack([(seen & live).sum(), live.sum()])).tolist()
     return torch.tensor(hit, dtype=torch.float32) / torch.tensor(max(n_live, 1), dtype=torch.float32)
 
@@ -520,6 +521,7 @@ def reduce_stats(stats):
     if world() == 1:
         return stats
     cols = [getattr(stats, f).to(torch.int64).reshape(-1) for f in _ROW_SUMS]
+    # graftlint: disable=round-host-sync -- multi-process meshes only: the summed row counts come back once a round after one all-reduce
     tot = reduce_sum(torch.cat(cols)).tolist()
     dev = stats.coverage.device
     sums, at = {}, 0
@@ -527,7 +529,9 @@ def reduce_stats(stats):
         shape = getattr(stats, f).shape
         sums[f] = torch.tensor(tot[at: at + c.numel()], dtype=torch.int32, device=dev).reshape(shape)
         at += c.numel()
+    # graftlint: disable=round-host-sync -- sums holds host-built tensors from the read above
     cov = (torch.tensor(int(sums["n_infected"]), dtype=torch.float32)
+           # graftlint: disable=round-host-sync -- sums holds host-built tensors from the read above
            / torch.tensor(max(int(sums["n_alive"]), 1), dtype=torch.float32))
     return stats._replace(coverage=cov.to(dev), **sums)
 
@@ -583,6 +587,7 @@ def payload_words(transmit: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
     """(S_src, S_dst, B, W) uint8: each bucket entry's sender's packed
     words (``pack_bits``, the byte wire), before activation."""
     words = pack_bits(transmit)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     rows = (sg.send_src.to(torch.int64) + _shard_base(sg, words.device)).view(-1)
     return words.index_select(0, rows).view(*sg.send_src.shape, words.shape[1])
 
@@ -617,6 +622,7 @@ def bill(received: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(payload words, int64 message count) of a received buffer: the
     delivered bits, each counted once per direction that fired on the
     merged wire (its billing byte at column ``w``)."""
+    # graftlint: disable=mem-widening-cast -- message counts sum in int64; the stats narrow them to int32
     pc = popcount_rows(received[..., :w]).to(torch.int64)
     if received.shape[-1] == w:
         return received, pc.sum()
@@ -651,6 +657,7 @@ def receive(received: torch.Tensor, sg: ShardedGraph, shard_plan, m: int) -> tor
 def _received_rows(sg: ShardedGraph, rows: torch.Tensor, device) -> torch.Tensor:
     """A per-row (n_pad,) bool read at every received entry's destination
     row, shaped like ``recv_dst``."""
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     dst = (sg.recv_dst.to(torch.int64) + _shard_base(sg, device)).view(-1)
     return rows[dst].view(sg.recv_dst.shape)
 
@@ -733,10 +740,12 @@ def _exchange(transmit: torch.Tensor, sg: ShardedGraph, keys: torch.Tensor, kind
         # host's entries for one destination shard, maximised everywhere
         occ = sg.send_valid & (vals != 0).any(-1)
         hrow = occ.sum(-1).view(-1, sg.n_shards // transport.hosts, sg.n_shards).sum(1)
+        # graftlint: disable=round-host-sync -- the hier lane is picked on the host a round (JAX's lax.cond); parked perf item
         fits = bool(reduce_max(hrow.max()) <= transport.dcn_budget)
         received = bucketed_hier_exchange(payload, transport.hosts, transport.dcn_budget, fits, w)
     elif transport is not None and transport.active:
         occ = sg.send_valid & (vals != 0).any(-1)
+        # graftlint: disable=round-host-sync -- the compact lane is picked on the host a round (JAX's lax.cond); parked perf item
         fits = bool(reduce_max(occ.sum(-1).max()) <= transport.budget)
         received = _compact_exchange(payload, occ, transport.budget) if fits else all_to_all(payload)
     else:
@@ -790,6 +799,7 @@ def _disseminate_bucketed(state, cfg: SwarmConfig, sg: ShardedGraph, shard_plan,
                               rctl, transport)
         incoming, msgs = incoming | inc, msgs + sent + pulls
     if cfg.mode in ("push", "push_pull") and not merged:
+        # graftlint: disable=key-linearity -- the merged and split branches are exclusive: k_push feeds one of them
         inc, sent = _exchange(static_tx, sg, shard_keys(sg, k_push), "push", cfg.fanout, shard_plan, blocked, rctl,
                               transport)
         incoming, msgs = incoming | inc, msgs + sent
@@ -1015,6 +1025,7 @@ def run_until_coverage_dist(state, cfg: SwarmConfig, sg, mesh: Mesh, target: flo
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
     tot = zero_ici_totals(state.seen.device) if collect_ici else None
     s, i = state, 0
+    # graftlint: disable=round-host-sync -- the coverage stop condition is read on the host once a round (JAX's while_loop)
     while bool((swarm_coverage(s, slot).to(tgt.device) < tgt) & (s.round - start < max_rounds)):
         out = gossip_round_dist(s, cfg, sg, mesh, shard_plan, collect_ici=collect_ici,
                                 host_round=None if r0 is None else r0 + i, host_rng=hkey, **dict(planes))

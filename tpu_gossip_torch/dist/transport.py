@@ -251,6 +251,7 @@ def compact_index(occ: torch.Tensor, cap: int) -> torch.Tensor:
 
 def _expand(idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(S, C) -> (S, C, *like.shape[2:]) int64, the trailing dims broadcast."""
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     return idx.long().view(idx.shape + (1,) * (like.dim() - 2)).expand(idx.shape + like.shape[2:])
 
 
@@ -336,12 +337,14 @@ def untranspose_pass_sparse(x: torch.Tensor, n_shards: int, hub_table: torch.Ten
     occ = ((slab != 0).any(-1) & ~hub_mask[:r]).view(l * s, per)
     idx = compact_index(occ, cap).view(l, s, cap)  # (L_src, S_dst, C) destination-local, sentinel per
     off = (torch.arange(s, dtype=torch.int64, device=dev) * per)[:, None]
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     leaf_global = torch.where(idx < per, idx.long() + off, r)  # (L_src, S_dst, C)
     ix = torch.cat([hub.expand(l, s, h), leaf_global], dim=2).reshape(l, -1)
     send = _rows_at(slab, ix, r).view(l, s, h + cap, w)  # (L_src, S_dst, H+C, w)
     recv = all_to_all(send)  # (L_dst, S_src, H+C, w)
     idx_r = all_to_all(idx)  # (L_dst, S_src, C)
     view = torch.zeros((l, s, per + 1, w), dtype=x.dtype, device=dev)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     view.scatter_(2, idx_r.long().unsqueeze(-1).expand(l, s, cap, w), recv[:, :, h:])
     out = view[:, :, :per].transpose(1, 2).reshape(l, per, 128)
     if h:
@@ -570,6 +573,7 @@ def ici_round_bucketed(sg, transport: Transport | None, nbytes: int, tx_any: tor
 
     s, b, per = sg.n_shards, sg.bucket, sg.per_shard
     dev = tx_any.device
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     srcg = (sg.send_src.long() + (torch.arange(sg.stacked, dtype=torch.int64, device=dev) * per)[:, None, None]).to(dev)
     z = _i(0, dev)
     hier = transport is not None and transport.hier
@@ -641,6 +645,7 @@ def ici_round_matching(plan, transport: Transport | None, m: int, tx: torch.Tens
         total = zero_ici(dev)
         for lo in range(0, m, 8):
             nzn = plane[: plan.n, lo: lo + 8].any(1).to(torch.int32)
+            # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
             slots = plan.expand(nzn).long()
             counts = torch.stack([slots.sum(), (slots * leaf).sum() if active else slots.sum()])
             nz, nz_leaf = reduce_sum(counts).to(dev)

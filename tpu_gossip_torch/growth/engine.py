@@ -110,6 +110,7 @@ def _score_keys(scores: torch.Tensor, lo: int = 0) -> torch.Tensor:
     image above the complemented global index, so every key is distinct
     and a larger key is a larger score or, on a tie, a lower index."""
     b = scores.view(torch.int32)
+    # graftlint: disable=mem-widening-cast -- the score's int64 sort key orders as JAX's top_k does
     image = torch.where(b < 0, b ^ 0x7FFFFFFF, b).to(torch.int64)
     idx = torch.arange(lo, lo + scores.shape[1], dtype=torch.int64, device=scores.device)
     return (image << 32) | (_M32 - idx)
@@ -149,6 +150,7 @@ def gumbel_top_k(key: torch.Tensor, log_deg: torch.Tensor, rows: int, m: int,
     keys = []
     for r0 in range(0, rows, chunk_rows):
         r1 = min(rows, r0 + chunk_rows)
+        # graftlint: disable=key-linearity -- each chunk draws its own counter block (offset) of the one (rows, n) draw
         g = prng.gumbel(key, (r1 - r0, n), offset=r0 * n_all + lo, row_stride=n_all)
         top = torch.topk(_score_keys(log_deg[None, :] + g, lo), min(m, n), dim=1).values
         # a block narrower than m fills its keys with the least int64

@@ -37,6 +37,7 @@ def sample_fanout_targets(key: torch.Tensor, row_ptr: torch.Tensor, col_idx: tor
     u = prng.uniform(key, (n, fanout))
     off = torch.minimum((u * deg.to(torch.float32)).to(torch.int32), deg - 1)
     idx = torch.clamp(row_ptr[:-1, None] + off, 0, col_idx.shape[0] - 1)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     return col_idx[idx.to(torch.int64)], (deg > 0).expand(n, fanout)
 
 
@@ -48,12 +49,14 @@ def push_fanout(transmit: torch.Tensor, targets: torch.Tensor, push_valid: torch
     n, m = transmit.shape
     payload = (transmit[:, None, :] & push_valid[:, :, None]).reshape(-1, m)
     hits = torch.zeros((n if n_out is None else n_out, m), dtype=torch.int32, device=transmit.device)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     hits.index_add_(0, targets.reshape(-1).to(torch.int64), payload.to(torch.int32))
     return hits > 0
 
 
 def pull_fanout(transmit: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Gather-OR from each peer's sampled neighbours; (N, M) bool."""
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     got = transmit[targets.to(torch.int64)] & valid[:, :, None]
     return got.any(dim=1)
 
@@ -66,8 +69,10 @@ def flood_all(transmit: torch.Tensor, row_ptr: torch.Tensor, col_idx: torch.Tens
     d = col_idx.shape[0]
     if d == 0:
         return torch.zeros_like(transmit)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     src = edge_sources(row_ptr, d).to(torch.int64)
     real = torch.arange(d, device=col_idx.device) < row_ptr[-1]
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     vals = transmit[col_idx.to(torch.int64)] & real[:, None]
     hits = torch.zeros((n, transmit.shape[1]), dtype=torch.int32, device=transmit.device)
     hits.index_add_(0, src, vals.to(torch.int32))

@@ -108,6 +108,7 @@ def pack_suspicion(votes: torch.Tensor, strikes: torch.Tensor) -> torch.Tensor:
 def unpack_suspicion(mark: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The packed plane -> (votes, strikes), both int32 (floor division,
     as JAX's)."""
+    # graftlint: disable=mem-widening-cast -- the packed witness count unpacks in int32 arithmetic
     m = mark.to(torch.int32)
     return torch.remainder(m, 256), torch.div(m, 256, rounding_mode="floor")
 
@@ -122,6 +123,7 @@ def emit_heartbeats(last_hb: torch.Tensor, alive: torch.Tensor, silent: torch.Te
 
 
 def _stale(last_hb: torch.Tensor, rnd: torch.Tensor, timeout_rounds: int) -> torch.Tensor:
+    # graftlint: disable=mem-widening-cast -- round arithmetic runs in int32: a difference of two int16 rounds can pass 2^15
     return (rnd - last_hb.to(torch.int32)) > timeout_rounds
 
 
@@ -154,6 +156,7 @@ def forge_heartbeats(last_hb: torch.Tensor, suspect_round: torch.Tensor, forger_
     ``(last_hb, n_forged)``."""
     n = last_hb.shape[0]
     n_all = rows.total(n)
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     tgt = prng.randint(k_forge, (n, max_fanout), 0, n_all, rows.lo * max_fanout).to(torch.int64)
     act = forger_ok[:, None] & (torch.arange(max_fanout, device=last_hb.device)[None, :] < fanout_now)
     (suspect_all,) = rows.gather(suspect_round, label="forge")
@@ -190,6 +193,7 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
     revive = sweep & stale & responsive
     last_hb = torch.where(revive, saturate_round(rnd, last_hb.dtype), last_hb)
     refuted = sweep & suspected & responsive
+    # graftlint: disable=mem-widening-cast -- round arithmetic runs in int32: a difference of two int16 rounds can pass 2^15
     expired = suspected & ((rnd - suspect_round.to(torch.int32)) > spec.window)
     cleared = refuted | expired
     suspect_round = torch.where(cleared, -1, suspect_round).to(suspect_round.dtype)
@@ -211,6 +215,7 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
         n_all, lo = rows.total(n), rows.lo
         vic = prng.randint(k_accuse, (n,), 0, n_all, lo)
         own = torch.arange(lo, lo + n, dtype=vic.dtype, device=vic.device)
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         vi = vic.to(torch.int64)
         eligible_all, responsive_all = rows.gather(exists & alive & ~declared_dead, responsive, label="accuse")
         vic_valid = accuser_ok & eligible_all[vi] & (vic != own)
@@ -233,6 +238,7 @@ def quorum_liveness(spec: QuorumSpec, last_hb: torch.Tensor, alive: torch.Tensor
     # an accusation its victim survives to refute is a strike on the accuser
     newly_q = torch.zeros((n,), dtype=torch.bool, device=last_hb.device)
     if accuser_ok is not None and spec.budget > 0:
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         vi = vic.to(torch.int64)
         (newly_dead_all,) = rows.gather(newly_dead, label="accuse")
         failed = vic_valid & responsive_all[vi] & ~newly_dead_all[vi]

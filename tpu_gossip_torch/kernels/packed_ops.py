@@ -110,6 +110,7 @@ def _or_along(got: torch.Tensor, dim: int) -> torch.Tensor:
 def pull_words(answer_w: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Word twin of ``pull_fanout``: gather each peer's K partners' answer
     words (``targets`` int32 (N, K), ``valid`` bool (N, K)) and OR them."""
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     got = torch.where(valid[:, :, None], answer_w[targets.to(torch.int64)], 0)
     return _or_along(got, 1)
 

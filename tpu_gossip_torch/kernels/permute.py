@@ -71,6 +71,7 @@ def _check_shuffle(x: torch.Tensor, idx: torch.Tensor) -> None:
 
 def lane_shuffle_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of K1: ``out[r, l] = x[r, idx[r, l]]``."""
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     return torch.gather(x, 1, idx.to(torch.int64))
 
 

@@ -63,6 +63,7 @@ def tail_reference(seen, forwarded, infected_round, recovered, incoming, recepti
     new_rec = recovered
     if sir_recover_rounds > 0:
         new_rec = recovered | (
+            # graftlint: disable=mem-widening-cast -- round arithmetic runs in int32: a difference of two int16 rounds can pass 2^15
             (new_ir >= 0) & (rnd - new_ir.to(torch.int32) >= sir_recover_rounds)
         )
     if fresh is not None:
@@ -103,6 +104,7 @@ def tail_fused(seen, forwarded, infected_round, recovered, incoming, receptive,
     new_ir = torch.where(latch, saturate_round(rnd, infected_round.dtype), infected_round)
     if sir_recover_rounds > 0:
         age = _sir_age(rnd, age_saturated)
+        # graftlint: disable=mem-widening-cast -- round arithmetic runs in int32: a difference of two int16 rounds can pass 2^15
         new_rec = recovered | ((new_ir >= 0) & (age - new_ir.to(torch.int32) >= sir_recover_rounds))
     else:
         new_rec = recovered
@@ -166,6 +168,7 @@ def tail_kernel(seen, forwarded, infected_round, recovered, incoming, receptive,
         transmit.data_ptr(), ptr(fresh), ptr(expired),
         o_seen.data_ptr(), o_ir.data_ptr(), o_rec.data_ptr(), o_fwd.data_ptr(),
         rnd16.data_ptr(), rnd32.data_ptr(), n, m, int(forward_once), int(sir_recover_rounds),
+        # graftlint: disable=round-host-sync -- the kernel's flags are Python values
         int(needs_fwd), int(age_saturated), native.stream_of(seen),
     )
     native.check(rc, "round_tail")
@@ -195,6 +198,7 @@ def tail_words_plain(seen_w, forwarded_w, infected_round, recovered_w, incoming_
                          infected_round)
     if sir_recover_rounds > 0:
         age = _sir_age(rnd, age_saturated)
+        # graftlint: disable=mem-widening-cast -- round arithmetic runs in int32: a difference of two int16 rounds can pass 2^15
         new_rec = recovered_w | pack_bits((new_ir >= 0) & (age - new_ir.to(torch.int32) >= sir_recover_rounds))
     else:
         new_rec = recovered_w
@@ -256,6 +260,7 @@ def round_tail_words(seen_w, forwarded_w, infected_round, recovered_w, incoming_
         transmit_w.data_ptr(), ptr(fresh), ptr(expired),
         o_seen.data_ptr(), o_ir.data_ptr(), o_rec.data_ptr(), o_fwd.data_ptr(),
         rnd16.data_ptr(), rnd32.data_ptr(), n, m, int(forward_once), int(sir_recover_rounds),
+        # graftlint: disable=round-host-sync -- the kernel's flags are Python values
         int(needs_fwd), int(pallas), native.stream_of(seen_w),
     )
     native.check(rc, "round_tail_words")

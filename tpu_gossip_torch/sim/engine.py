@@ -278,6 +278,7 @@ def _substitute_rewired(state, cfg: SwarmConfig, tgt, valid, key):
     """Rewired peers sample their targets from their fresh attachments
     instead of the departed occupant's CSR row; a -1 fresh target (a
     sentinel draw) stays invalid."""
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     soff = prng.randint(key, tuple(tgt.shape), 0, cfg.rewire_slots).to(torch.int64)
     stgt = torch.gather(state.rewire_targets[:, : cfg.rewire_slots], 1, soff)
     rw = state.rewired[:, None]
@@ -293,10 +294,12 @@ def _ratio(num, deg: torch.Tensor) -> torch.Tensor:
     d = torch.clamp(deg, min=1).to(torch.float32)
     if isinstance(num, torch.Tensor):
         return num.to(torch.float32) / d
+    # graftlint: disable=round-host-sync -- num is a Python number on this branch
     return torch.full_like(d, float(num)) / d
 
 
 def _degrees(state) -> torch.Tensor:
+    # graftlint: disable=mem-widening-cast -- message counts sum in int64; the stats narrow them to int32
     return (state.row_ptr[1:] - state.row_ptr[:-1]).to(torch.int64)
 
 
@@ -305,6 +308,7 @@ def held_degrees(row_ptr: torch.Tensor, plan, n_rows: int) -> torch.Tensor:
     matching plan's first held node on (``shard_lo`` shards in, 0 but on a
     process of a multi-process mesh, whose CSR is the whole swarm's)."""
     lo = plan.shard_lo * plan.n_blk if isinstance(plan, MatchingPlan) else 0
+    # graftlint: disable=mem-widening-cast -- message counts sum in int64; the stats narrow them to int32
     return (row_ptr[lo + 1: lo + n_rows + 1] - row_ptr[lo: lo + n_rows]).to(torch.int64)
 
 
@@ -317,6 +321,7 @@ def reverse_fresh_push(state, cfg: SwarmConfig, transmit, key, m_eff=None, rows=
     targets' transmit rows come from ``transmit_all`` (the swarm's plane,
     gathered here when None)."""
     stgt = state.rewire_targets[:, : cfg.rewire_slots]
+    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
     tgt = torch.clamp(stgt, min=0).to(torch.int64)
     p = _ratio(cfg.fanout if m_eff is None else m_eff, _degrees(state)[tgt])
     u = prng.uniform(key, tuple(stgt.shape), offset=rows.lo * stgt.shape[1])
@@ -382,6 +387,7 @@ def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_an
     tx_all, *ans_all = rows.gather(transmit, *([answer] if do_pull else []), label="fresh")
 
     def draw(key, width):
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         soff = prng.randint(key, (n, width), 0, s, rows.lo * width).to(torch.int64)
         stgt = torch.gather(state.rewire_targets[:, :s], 1, soff)
         return torch.clamp(stgt, min=0), state.rewired[:, None] & (stgt >= 0)
@@ -397,6 +403,7 @@ def fresh_rewire_traffic(state, cfg: SwarmConfig, transmit, answer, receptive_an
         ptgt, pvalid = draw(k_pull, 1)
         pvalid = _pull_mask(pvalid & receptive_any[:, None], rctl)
         incoming = incoming | pull_fanout(ans_all[0], ptgt, pvalid)
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         msgs = msgs + pvalid.sum() + (ans_all[0][ptgt[:, 0].to(torch.int64)].sum(-1) * pvalid[:, 0]).sum()
     return incoming, msgs
 
@@ -575,6 +582,7 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
             tgt, valid = _substitute_rewired(state, cfg, tgt, valid, k_rw_push)
             # a CSR edge pointing at a rewired slot is the departed
             # occupant's: only fresh-edge traffic reaches a rejoiner
+            # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
             valid = valid & (state.rewired[:, None] | ~state.rewired[tgt.to(torch.int64)])
             rev, rev_msgs = reverse_fresh_push(state, cfg, transmit, k_rw_rev, None if rctl is None else rctl.m_eff)
             incoming, msgs_sent = incoming | rev, msgs_sent + rev_msgs
@@ -587,9 +595,11 @@ def _disseminate_local(state: SwarmState, cfg: SwarmConfig, transmit, transmitte
         ptgt, pvalid = sample_fanout_targets(k_pull, state.row_ptr, state.col_idx, 1)
         if rewiring:
             ptgt, pvalid = _substitute_rewired(state, cfg, ptgt, pvalid, k_rw_pull)
+            # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
             pvalid = pvalid & (state.rewired[:, None] | ~state.rewired[ptgt.to(torch.int64)])
         pull_ok = _pull_mask(pvalid & receptive.any(-1)[:, None], rctl)
         incoming = incoming | pull_fanout(answer, ptgt, pull_ok)
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         shipped = answer[ptgt[:, 0].to(torch.int64)].sum(-1) * pull_ok[:, 0]
         msgs_sent = msgs_sent + pull_ok.sum() + shipped.sum()
     if cfg.mode == "flood":
@@ -743,6 +753,7 @@ def run_until_coverage(state: SwarmState, cfg: SwarmConfig, target: float = 0.99
     r0, hkey = host_cursor(state, later)
     tgt = torch.tensor(target, dtype=torch.float32, device=state.seen.device)
     s, i = state, 0
+    # graftlint: disable=round-host-sync -- the coverage stop condition is read on the host once a round (JAX's while_loop)
     while bool((s.coverage(slot) < tgt) & (s.round - start < max_rounds)):
         s, _ = gossip_round(s, cfg, plan, tail=tail, host_round=None if r0 is None else r0 + i, host_rng=hkey,
                             **later)

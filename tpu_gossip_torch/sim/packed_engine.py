@@ -133,6 +133,7 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
     push_valid = _engine._width_mask(valid, rctl) & po.rows_any(tx_w)[:, None]
     # the one full-width transient of this path: the scatter ORs bools
     inc_w = pack_bits(push_fanout(unpack_bits(tx_w, m), tgt, push_valid))
+    # graftlint: disable=mem-widening-cast -- message counts sum in int64; the stats narrow them to int32
     msgs_sent = (po.popcount_rows(tx_w).to(torch.int64) * push_valid.sum(-1)).sum()
     if cfg.mode == "push_pull":
         # pull answers ship the responder's full seen set
@@ -140,6 +141,7 @@ def _disseminate_local_packed(ps: PackedSwarm, cfg, flags: dict, role_w, tx_w, k
         ptgt, pvalid = sample_fanout_targets(k_pull, ps.row_ptr, ps.col_idx, 1)
         pull_ok = _engine._pull_mask(pvalid & po.rows_any(role_w)[:, None], rctl)
         inc_w = po.or_words(inc_w, po.pull_words(answer_w, ptgt, pull_ok))
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         shipped = po.popcount_rows(answer_w)[ptgt[:, 0].to(torch.int64)] * pull_ok[:, 0]
         msgs_sent = msgs_sent + pull_ok.sum() + shipped.sum()
     return inc_w, msgs_sent.to(torch.int32)

@@ -190,7 +190,9 @@ def staircase_stage_times(state, cfg, plan, reps: int) -> dict:
     head, tail = _common_stages(state, cfg, plan)
     stages = {
         **head,
+        # graftlint: disable=key-linearity -- the stage timer replays the round's draws on purpose
         "draw_bits_x2": lambda: (prng.bits(k_push, shape) < plan.push_thresh,
+                                 # graftlint: disable=key-linearity -- the stage timer replays the round's draws on purpose
                                  prng.bits(k_pull, shape) < plan.pull_thresh),
         "word_gather": lambda: seg._gather_words(plan, transmit),
         "mask_combine_bill": mask_bill,
@@ -391,6 +393,7 @@ def growth_stage_times(state, cfg, plan, grow, reps: int) -> dict:
         return [prng.gumbel(key, (r1 - r0, n), offset=r0 * n) for r0, r1 in chunks]
 
     scores = [log_deg[None, :] + g for g in draw()]
+    # graftlint: disable=key-linearity -- the stage timer replays the round's draws on purpose
     finite, targets = ge.gumbel_top_k(key, log_deg, jb, m)
 
     def scatters():

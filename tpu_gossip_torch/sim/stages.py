@@ -228,6 +228,7 @@ def _add_at(vec: torch.Tensor, *terms, rows=ALL_ROWS, label: str = "credit") -> 
     n_all = rows.total(vec.shape[0])
     out = vec.new_zeros(n_all + 1)
     for idx, keep, delta in terms:
+        # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
         tgt = torch.where(keep, idx.to(torch.int64), n_all).reshape(-1)
         out.index_add_(0, tgt, torch.full(tgt.shape, delta, dtype=vec.dtype, device=vec.device))
     return vec + rows.reduce(out[:n_all], "sum", label=label)
@@ -306,6 +307,7 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False, rows=ALL_ROWS
                 if cap == 0:
                     (exists_all,) = rows.gather(ctx["exists"], label="churn")
                     jrows = torch.arange(lo, lo + n, dtype=torch.int64, device=alive.device)
+                    # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
                     draws = col_idx[prng.randint(k_rw, (n, s), 0, e_real, lo * s).to(torch.int64)]
                 else:
                     exists_all, fresh_all = rows.gather(ctx["exists"], fresh_rw, label="churn")
@@ -314,6 +316,7 @@ def _churn_stage(cfg, burst: bool = False, defended: bool = False, rows=ALL_ROWS
                     jrows, jlive = first_rows(fresh_all, cap)
                     mine = jlive & (jrows >= lo) & (jrows < lo + n)
                     draws = col_idx[prng.randint(k_rw, (cap, s), 0, e_real).to(torch.int64)]
+                # graftlint: disable=mem-widening-cast -- torch's index ops take int64 indices
                 ok = exists_all[draws.to(torch.int64)] & (draws.to(torch.int64) != jrows[:, None])
                 draws = torch.where(ok, draws, -1)
                 released = (fresh_rw & rewired)[:, None] & (rewire_targets >= 0)
@@ -598,6 +601,7 @@ def fault_round(state, host_round: int | None) -> int:
     round as a Python int (from ``host_round``, the state's round when the
     caller knows it, else read off the device once), so the phase and the
     partition branch are picked on the host."""
+    # graftlint: disable=round-host-sync -- the scenario's phase is picked on the host; the loops pass host_round and read it once
     return (int(state.round) if host_round is None else int(host_round)) + 1
 
 
@@ -728,7 +732,9 @@ def host_cursor(state, later: dict) -> tuple[int | None, torch.Tensor | None]:
     on from them (:func:`next_host_key`); the round under a scenario or a
     stream, the key under a stream, None otherwise."""
     stream = later.get("stream") is not None
+    # graftlint: disable=round-host-sync -- the loops read the round and key once and carry them on the host
     r0 = int(state.round) if later.get("scenario") is not None or stream else None
+    # graftlint: disable=round-host-sync -- the loops read the round and key once and carry them on the host
     return r0, state.rng.cpu() if stream else None
 
 

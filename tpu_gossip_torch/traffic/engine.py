@@ -85,6 +85,7 @@ def round_rate(stream, host_rnd: int) -> float:
     rate = np.float32(stream.rate_f32)
     if stream.burst_every > 0 and host_rnd % stream.burst_every == 0:
         rate = np.float32(rate * np.float32(stream.burst_mult))
+    # graftlint: disable=round-host-sync -- rate is a numpy float32 on the host
     return float(rate)
 
 
@@ -93,6 +94,7 @@ def round_arrivals(stream, host_rng: torch.Tensor, host_rnd: int) -> int:
     drawn on the host from ``host_rng``, a host copy of the round's root
     key (``state.rng``)."""
     k_count = prng.split(prng.fold_in(host_rng, TRAFFIC_STREAM_SALT), 5)[0]
+    # graftlint: disable=round-host-sync -- the arrival count is drawn on a host copy of the round's key
     return min(int(prng.poisson(k_count, round_rate(stream, host_rnd))), stream.max_inject)
 
 
@@ -187,8 +189,10 @@ def apply_stream(stream, rng: torch.Tensor, rnd: torch.Tensor, expired_count: to
     n_held, m = exists.shape[0], seen.shape[1]
     n = rows.total(n_held)
     if host_rng is None:
+        # graftlint: disable=round-host-sync -- a single round without the loops' host cursor copies its key once
         host_rng = rng.cpu()
     if host_rnd is None:
+        # graftlint: disable=round-host-sync -- a single round without the loops' host cursor reads its round once
         host_rnd = int(rnd)
     n_arr = round_arrivals(stream, host_rng, host_rnd)
     origins, slots = stream_draws(stream, rng, n=n, m=m, row_ptr=row_ptr, col_idx=col_idx, exists=exists,

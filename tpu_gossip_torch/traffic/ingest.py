@@ -169,5 +169,6 @@ def apply_arrivals(batch: InjectBatch, rnd: torch.Tensor, *, seen, infected_roun
         landed, conflated = landed.sum(dtype=torch.int32), conflated.sum(dtype=torch.int32)
     telem = IngestTelemetry(offered=torch.full((), c, dtype=torch.int32, device=dev), injected=landed,
                             conflated=conflated,
+                            # graftlint: disable=round-host-sync -- the serving window's overflow count is a host value
                             overflow=torch.full((), int(batch.overflow), dtype=torch.int32, device=dev))
     return seen, infected_round, slot_lease, telem
